@@ -1,12 +1,15 @@
 """Chip smoke for the PyTorch/CUDA port (paddle_tpu_torch) on one GPU.
 
-Drives the port's main path — ResNet-50 (224x224, 1000 classes, full
-width and depth, random weights from a seed) tagged AMP O2 and served by
-the port's ServingEngine through buckets (1, 4, 16) — and holds every
-kernel of that path against its plain PyTorch version on the card:
+Drives the port's two main paths — ResNet-50 (224x224, 1000 classes, full
+width and depth, random weights from a seed) under AMP O2, served by the
+port's ServingEngine through buckets (1, 4, 16), and trained with Momentum
+through Executor.run at batch 32 — and holds every kernel of those paths
+against its plain PyTorch version on the card:
 
   1. device   CUDA present (else exit 2), the card's name and power limit;
-  2. build    nvcc builds every kernel from paddle_tpu_torch/csrc/;
+  2. build    nvcc builds every CUDA kernel from paddle_tpu_torch/csrc/,
+              one process per source, all started together (the Triton
+              kernels compile at their first launch);
   3. kernel   K1 (conv2d forward) against conv2d_reference on the JAX
               tests' five cases and every distinct ResNet-50 conv shape at
               each bucket's batch (1, 4, 16), then per shape at batch 16:
@@ -22,7 +25,29 @@ kernel of that path against its plain PyTorch version on the card:
               latency per bucket, img/s over the request window, and one
               profiled batch-16 request: device busy time and the kernels
               it went to;
-  5. result   the kernel table as one JSON line, the card line, then
+  5. kernel_train  K2-K6 (conv grad input, conv grad filter, conv +
+              statistics, bn apply, bn + act) against their plain versions
+              at every distinct shape ResNet-50 training gives them at
+              batch 32, each run twice and bitwise repeatable, then timed
+              per shape (CUDA graph of 20 calls between CUDA events) beside
+              the bound, the plain version and one PyTorch call that
+              computes the same function where there is one;
+  6. train    ResNet-50 O2 training at batch 32, learning rate 0.0125
+              (bench.py's 0.1 at batch 256, scaled linearly), Momentum 0.9,
+              one warm-up and five timed steps on one repeated batch: step
+              p50 and img/s, each kernel's launches per step held to
+              52/52/52/52/1 (K2/K3/K4/K5/K6) and the fallbacks to the two
+              `channels` ones of the Ci=3 stem, the loss finite and falling,
+              peak memory, one profiled step (device busy share, device
+              time by kernel, host and device time by the executor's
+              spans: op type, window, and the generic grads' re-run
+              forwards);
+              then one step at batch 4 from the startup weights against
+              the port's CPU plain path: op by op (every op and window
+              re-run on the CPU on the card's own inputs), then end to end
+              (the loss, per-parameter grad relative L2), in O2 and in f32
+              (TF32 off);
+  7. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -44,6 +69,7 @@ from pathlib import Path
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 # tests/test_pallas_conv.py CASES (channels 128, batch 2)
@@ -87,6 +113,57 @@ BUCKETS = (1, 4, 16)
 BATCH = 16
 SEED = 0
 K1_KERNEL = "conv2d_fwd_kernel"     # K1's name in the profiler's events
+# the executor's profiler ranges (paddle_tpu_torch/ops/registry.py span):
+# each appears on the host and, as the extent of the kernels launched in
+# it, on the device's timeline, where it is no kernel
+SPANS = ("op", "win", "rerun")
+
+# training (phases kernel_train and train)
+TRAIN_BATCH = 32
+TRAIN_LR = 0.0125
+TRAIN_STEPS = 5                     # timed, after one warm-up step
+SMALL_BATCH = 4                     # the steps compared with the CPU
+# launches per training step: K2 (dgrad), K3 (wgrad), K4 (conv + stats),
+# K5 (bn apply), K6 (bn + act); 52 of the 53 convs pass the gate, all 53
+# sit in conv -> bn windows, and the stem's input is a data layer (no dx)
+TRAIN_LAUNCHES = {"dgrad_launches": 52, "wgrad_launches": 52,
+                  "stats_launches": 52, "apply_launches": 52,
+                  "act_launches": 1}
+TRAIN_FALLBACKS = {("conv2d", "channels"): 1, ("conv2d_grad", "channels"): 1}
+# K2-K6 against their plain versions: f32 outputs within SUM_RTOL of the
+# sum of the terms' magnitudes, sum |a||b| (both sides sum the same bf16
+# products in f32, in another order; a long reduction such as K3's over
+# N*OH*OW grows its error with that sum, not with the result); bf16 outputs
+# within one bf16 ulp plus that tolerance.
+SUM_RTOL = 1e-5
+# One training step at batch 4 on the card against the port's CPU plain
+# path, same weights and batch.
+#  * Op by op (LOCKSTEP_*): every op and window of the O2 step runs on the
+#    card and, on a CPU copy of the card's own inputs, on the CPU plain
+#    path; each float output within a relative L2 difference of
+#    LOCKSTEP_BF16 (bf16 outputs: a few ulps) or LOCKSTEP_F32 (f32).
+#  * End to end: the loss within O2_LOSS_RTOL (O2) or F32_LOSS_RTOL (f32,
+#    TF32 off), the last layer's grads (fc, before the backward amplifies
+#    anything) within LAST_GRAD_RL2. The randomly initialized ResNet-50's
+#    backward is chaotic: the f32 grads of the card and the CPU, which
+#    differ only in the order of their sums, already differ by 1.6-2.3 %
+#    (relative L2, median over parameters), and any two O2 runs by more
+#    than 1. So the other parameters' grads are held to the noise floor:
+#    the median over parameters of the card-vs-CPU relative L2 in O2 no
+#    larger than the CPU's own O2-vs-f32 median, and in f32 within
+#    F32_GRAD_RL2. The JAX package shows the same spread on this net
+#    (tests/torch_o2_spread.py on the CPU at 64x64: its own O2 and f32
+#    grads differ by a median relative L2 of 1.25, the port's by 1.27).
+#  * A relative L2 near 1 also holds for a zero grad, so each parameter's
+#    grad norm on the card over its norm on the CPU lies within
+#    [1/NORM_RATIO, NORM_RATIO], and the median of those ratios within
+#    NORM_RATIO_MEDIAN of 1: a zero, dropped or wrongly scaled grad fails
+#    it (the port's O2 and the JAX package's, which differ only in
+#    rounding, give ratios of 0.76-1.33, median 0.97, in that run).
+LOCKSTEP_BF16, LOCKSTEP_F32 = 1e-2, 1e-3
+O2_LOSS_RTOL, F32_LOSS_RTOL = 2e-2, 1e-4
+LAST_GRAD_RL2, F32_GRAD_RL2 = 0.1, 0.1
+NORM_RATIO, NORM_RATIO_MEDIAN = 2.0, 0.1
 
 
 def _card_line() -> str:
@@ -460,6 +537,10 @@ def _compare(ref_out, got_out, what, rtol):
     return result, failed
 
 
+def _is_span(event) -> bool:
+    return event.name.split(":", 1)[0] in SPANS
+
+
 def _profile_request(engine, req, p50_ms, eligible, card, attempts=3):
     """Where one served request's time goes on the device: torch.profiler's
     CUDA activity for one request, as the busy share of the unprofiled p50
@@ -478,7 +559,7 @@ def _profile_request(engine, req, p50_ms, eligible, card, attempts=3):
             engine.infer({"img": req})
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA and not _is_span(e)]
         k1 = [e.time_range.elapsed_us() / 1e3 for e in events
               if K1_KERNEL in e.name]
         if len(k1) == eligible:
@@ -514,6 +595,524 @@ def _profile_request(engine, req, p50_ms, eligible, card, attempts=3):
             "by_op": [{"op": k, "ms": ms, "calls": n} for k, ms, n in by_op]}
 
 
+
+# --- training: the kernels K2-K6 ------------------------------------------------
+
+def _resnet50_train(pt, resnet, amp=True):
+    """bench.py's `resnet` training mode through the port's fluid API:
+    build_image_classifier (softmax cross entropy, mean, accuracy), Momentum
+    0.9 at TRAIN_LR, amp.decorate(level="O2")."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name="img", shape=[3, 224, 224], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        avg_cost, _, _ = pt.models.build_image_classifier(
+            resnet.resnet50, img, label, class_dim=1000)
+        opt = pt.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9)
+        if amp:
+            opt = pt.amp.decorate(opt, level="O2")
+        opt.minimize(avg_cost)
+    main.random_seed = startup.random_seed = SEED + 1
+    return main, startup, avg_cost
+
+
+def _training_shapes(conv_cuda, program, batch):
+    """Every distinct shape ResNet-50 training gives K2/K3/K4 (the eligible
+    convs: x NHWC, w OIHW, strides, paddings, dilations), K5 (the [M, C] of
+    each eligible conv's bn, with the window's act) and K6 (the bn of a conv
+    that fails the gate), with how many times a step runs each, from the
+    program's conv -> bn [-> act] windows."""
+    import torch
+    from paddle_tpu_torch.ops import fusion
+    block = program.global_block()
+    convs, applies, acts = {}, {}, {}
+    for g in fusion.plan(program).values():
+        if g.conv is None:
+            continue
+        op = g.conv
+        _, c, h, w = block.desc.var(op.input("Input")[0]).shape
+        key = ((batch, h, w, c), tuple(block.desc.var(op.input("Filter")[0]).shape),
+               tuple(op.attr("strides")), tuple(op.attr("paddings")),
+               tuple(op.attr("dilations")))
+        _, co, oh, ow = block.desc.var(op.output("Output")[0]).shape
+        bn_key = (batch * oh * ow, co, None if g.act is None else g.act.type)
+        probe = [torch.empty(k, dtype=torch.bfloat16, device="meta")
+                 for k in key[:2]]
+        if conv_cuda.ineligible(*probe, *key[2:]) is None:
+            convs[key] = convs.get(key, 0) + 1
+            applies[bn_key] = applies.get(bn_key, 0) + 1
+        else:
+            acts[bn_key] = acts.get(bn_key, 0) + 1
+    return convs, applies, acts
+
+
+def _sum_err(got, want, mags):
+    """Max abs error, and raise if past SUM_RTOL * sum |a||b|."""
+    err = (got.float() - want.float()).abs()
+    if (err > SUM_RTOL * mags.float() + 1e-6).any():
+        raise ValueError(f"max abs err {err.max().item():.4g} past "
+                         f"{SUM_RTOL} * sum|a||b|")
+    return err.max().item()
+
+
+def _bf16_err(got, want, slack=0.0):
+    """Max abs error of a bf16 output, and raise if past one ulp of the
+    plain version's plus `slack` (the f32 tolerance of the sum it rounds)."""
+    err = (got.float() - want.float()).abs()
+    if (err > _bf16_ulp(want) + slack + 1e-6).any():
+        raise ValueError(f"bf16 output {err.max().item():.4g} past one ulp")
+    return err.max().item()
+
+
+def _twice(fn):
+    """Run `fn` twice; raise unless every output is bitwise the same."""
+    import torch
+    a, b = fn(), fn()
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise RuntimeError("a repeated call gave different bits")
+    return a
+
+
+def _row(name, shape, n, ms, plain_ms, lib_ms, flops, nbytes, err, peak_ops):
+    ops_ms, bytes_ms = flops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"kernel": name, "shape": shape, "per_step": n, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes, "max_abs_err": err}
+
+
+def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
+    """K2-K6 at every distinct ResNet-50 training shape at batch 32: held
+    against the plain versions, twice bitwise, then timed."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(SEED + 3)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(torch.bfloat16).cuda()
+
+    main = _resnet50_train(pt, resnet)[0]
+    convs, applies, acts = _training_shapes(conv_cuda, main, TRAIN_BATCH)
+    rows = []
+    for (xs, ws, s, p, d), n in convs.items():
+        x, w = randn(xs), randn(ws, 0.1)
+        oh, ow = conv_cuda._out_hw(x, w, s, p, d)
+        dout = randn((xs[0], oh, ow, ws[0]))
+        hw, khw = xs[1:3], ws[2:]
+        shape = f"x{list(xs)} w{list(ws)} s{list(s)} p{list(p)}"
+        flops = conv_cuda.conv_flops(x, w, s, p, d)
+        x_nchw, d_nchw = x.permute(0, 3, 1, 2), dout.permute(0, 3, 1, 2)
+        w_view = w.permute(2, 3, 1, 0).contiguous().permute(3, 2, 0, 1)
+
+        # K2: dx in bf16 (as on the path) and f32, against the plain version
+        g32 = _twice(lambda: conv_cuda.conv2d_grad_input(
+            dout, w, hw, s, p, d, out_dtype=torch.float32))
+        g16 = _twice(lambda: conv_cuda.conv2d_grad_input(dout, w, hw, s, p, d))
+        r32 = conv_cuda.conv2d_grad_input_reference(dout, w, hw, s, p, d,
+                                                    out_dtype=torch.float32)
+        mags = conv_cuda.conv2d_grad_input_reference(
+            dout.abs(), w.abs(), hw, s, p, d, out_dtype=torch.float32)
+        err = _sum_err(g32, r32, mags)
+        if not torch.equal(g16, g32.to(torch.bfloat16)):
+            raise RuntimeError(f"K2 bf16 out is not its f32 sum rounded once at {shape}")
+        rows.append(_row("dgrad", shape, n,
+                         _device_ms(lambda: conv_cuda.conv2d_grad_input(dout, w, hw, s, p, d)),
+                         _device_ms(lambda: conv_cuda.conv2d_grad_input_reference(dout, w, hw, s, p, d)),
+                         _device_ms(lambda: torch.nn.grad.conv2d_input(
+                             x_nchw.shape, w, d_nchw, s, p, d)),
+                         flops, conv_cuda.conv_bytes(x, w, s, p, d), err,
+                         PEAK_BF16_FLOPS))
+
+        # K3: dW in f32 (the master filter's dtype), against the plain version
+        gw = _twice(lambda: conv_cuda.conv2d_grad_filter(
+            x, dout, khw, s, p, d, out_dtype=torch.float32))
+        rw = conv_cuda.conv2d_grad_filter_reference(x, dout, khw, s, p, d,
+                                                    out_dtype=torch.float32)
+        mags = conv_cuda.conv2d_grad_filter_reference(
+            x.abs(), dout.abs(), khw, s, p, d, out_dtype=torch.float32)
+        err = _sum_err(gw, rw, mags)
+        nbytes = (x.numel() + dout.numel()) * 2 + w.numel() * 4
+        rows.append(_row("wgrad", shape, n,
+                         _device_ms(lambda: conv_cuda.conv2d_grad_filter(
+                             x, dout, khw, s, p, d, out_dtype=torch.float32)),
+                         _device_ms(lambda: conv_cuda.conv2d_grad_filter_reference(
+                             x, dout, khw, s, p, d, out_dtype=torch.float32)),
+                         _device_ms(lambda: torch.nn.grad.conv2d_weight(
+                             x_nchw, w.shape, d_nchw, s, p, d)),
+                         flops, nbytes, err, PEAK_BF16_FLOPS))
+
+        # K4: y bitwise K1's, the sums against the plain version's
+        y, csum, csq = _twice(lambda: conv_cuda.conv2d_stats(x, w, s, p, d))
+        if not torch.equal(y, conv_cuda.conv2d(x, w, s, p, d)):
+            raise RuntimeError(f"K4 y is not K1's at {shape}")
+        ry = conv_cuda.conv2d_reference(x, w, s, p, d)
+        r32 = conv_cuda.conv2d_reference(x, w, s, p, d, out_dtype=torch.float32)
+        _bf16_err(y, ry, F32_ATOL + F32_RTOL * r32.abs())     # K1's rule
+        yf = y.float().reshape(-1, ws[0])
+        err = max(_sum_err(csum, yf.sum(0), yf.abs().sum(0)),
+                  _sum_err(csq, (yf * yf).sum(0), (yf * yf).sum(0)))
+        rows.append(_row("conv_stats", shape, n,
+                         _device_ms(lambda: conv_cuda.conv2d_stats(x, w_view, s, p, d)),
+                         _device_ms(lambda: conv_cuda.conv2d_stats_reference(x, w, s, p, d)),
+                         None, flops + 3 * y.numel(),
+                         conv_cuda.conv_bytes(x, w, s, p, d) + 8 * ws[0], err,
+                         PEAK_BF16_FLOPS))
+        del x, w, dout, g32, g16, r32, mags, gw, rw, y, ry
+        print(f"K2/K3/K4 {shape} x{n}/step: dgrad {rows[-3]['ms']:.4f} ms, "
+              f"wgrad {rows[-2]['ms']:.4f} ms, conv+stats {rows[-1]['ms']:.4f} ms",
+              flush=True)
+
+    for kind, table in (("bn_apply", applies), ("bn_act", acts)):
+        for (m, c, act), n in table.items():
+            x = randn((m, c), 2.0)
+            g = torch.Generator().manual_seed(SEED + m + c)
+            scale = (1 + 0.1 * torch.randn(c, generator=g)).cuda()
+            bias = (0.1 * torch.randn(c, generator=g)).cuda()
+            mean = (0.1 * torch.randn(c, generator=g)).cuda()
+            var = (1 + 0.2 * torch.randn(c, generator=g).abs()).cuda()
+            x4 = x.reshape(TRAIN_BATCH, -1, c).permute(0, 2, 1).unsqueeze(-1)
+            shape = f"[{m}, {c}] act={act}"
+            out_bytes = m * c * 2 * (2 if act else 1)
+            if kind == "bn_apply":
+                ybn, yact = _twice(lambda: bn_cuda.bn_apply(x, scale, bias, mean,
+                                                            var, 1e-5, act))
+                rbn, _ = bn_cuda.bn_apply_reference(x, scale, bias, mean, var,
+                                                    1e-5, act)
+                err = _bf16_err(ybn, rbn)
+                fn = lambda: bn_cuda.bn_apply(x, scale, bias, mean, var, 1e-5, act)  # noqa: E731
+                plain = lambda: bn_cuda.bn_apply_reference(x, scale, bias, mean, var, 1e-5, act)  # noqa: E731
+                lib = lambda: F.batch_norm(x4, mean, var, scale, bias, False, 0.0, 1e-5)  # noqa: E731
+                nbytes = m * c * 2 + 16 * c + out_bytes
+                flops = (4 if act else 3) * m * c
+            else:
+                ybn, yact, bmean, bvar = _twice(lambda: bn_cuda.bn_act(
+                    x, scale, bias, 1e-5, act))
+                _, _, rmean, rvar = bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)
+                xf = x.float()
+                err = max(_sum_err(bmean, rmean, xf.abs().mean(0)),
+                          _sum_err(bvar, rvar, (xf * xf).mean(0)
+                                   + 2 * rmean.abs() * xf.abs().mean(0)))
+                want, _ = bn_cuda.bn_apply_reference(x, scale, bias, bmean, bvar, 1e-5)
+                err = max(err, _bf16_err(ybn, want))
+                fn = lambda: bn_cuda.bn_act(x, scale, bias, 1e-5, act)  # noqa: E731
+                plain = lambda: bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)  # noqa: E731
+                lib = lambda: F.batch_norm(x4, None, None, scale, bias, True, 0.0, 1e-5)  # noqa: E731
+                nbytes = m * c * 2 + 16 * c + out_bytes
+                flops = (7 if act else 6) * m * c
+            if act == "relu" and not torch.equal(yact, torch.relu(ybn)):
+                raise RuntimeError(f"{kind} yact is not relu(ybn) at {shape}")
+            rows.append(_row(kind, shape, n, _device_ms(fn), _device_ms(plain),
+                             _device_ms(lib), flops, nbytes, err, PEAK_F32_FLOPS))
+            print(f"{kind} {shape} x{n}/step: {rows[-1]['ms']:.4f} ms, plain "
+                  f"{rows[-1]['plain_ms']:.4f} ms, F.batch_norm "
+                  f"{rows[-1]['library_ms']:.4f} ms, bound "
+                  f"{rows[-1]['bound_ms']:.4f} ms", flush=True)
+            del x, x4, ybn, yact
+    torch.cuda.empty_cache()
+    report["train_kernel_shapes"] = rows
+
+    kernels = []
+    for name, route, source, replaces in (
+            ("dgrad", "cuda", "paddle_tpu_torch/csrc/conv2d_fwd.cu",
+             "paddle_tpu/ops/pallas_conv.py:445"),
+            ("wgrad", "cuda", "paddle_tpu_torch/csrc/conv2d_wgrad.cu",
+             "paddle_tpu/ops/pallas_conv.py:282"),
+            ("conv_stats", "cuda", "paddle_tpu_torch/csrc/conv2d_fwd.cu",
+             "paddle_tpu/ops/pallas_conv.py:241"),
+            ("bn_apply", "triton", "paddle_tpu_torch/ops/bn_cuda.py",
+             "paddle_tpu/ops/pallas_conv.py:303"),
+            ("bn_act", "triton", "paddle_tpu_torch/ops/bn_cuda.py",
+             "paddle_tpu/ops/fusion.py:697")):
+        rs = [r for r in rows if r["kernel"] == name]
+
+        def total(key):
+            vals = [r[key] for r in rs]
+            return None if None in vals else sum(v * r["per_step"] for v, r in zip(vals, rs))
+        peak = PEAK_F32_FLOPS if route == "triton" else PEAK_BF16_FLOPS
+        ops_t = sum(r["flops"] * r["per_step"] for r in rs) / peak
+        bytes_t = sum(r["bytes"] * r["per_step"] for r in rs) / PEAK_BYTES
+        kernels.append({"name": name, "route": route, "source": source,
+                        "replaces": replaces,
+                        "max_abs_err": max(r["max_abs_err"] for r in rs),
+                        "ms": total("ms"), "plain_ms": total("plain_ms"),
+                        "bound_ms": total("bound_ms"),
+                        "bound_by": "operations" if ops_t >= bytes_t else "bytes",
+                        "library_ms": total("library_ms"),
+                        "per": f"one batch-{TRAIN_BATCH} ResNet-50 training step, "
+                               f"{len(rs)} distinct shapes"})
+        print(f"{name}: {kernels[-1]['ms']:.3f} ms per step over {len(rs)} "
+              f"shapes, plain {kernels[-1]['plain_ms']:.3f}, library "
+              f"{kernels[-1]['library_ms']}, bound {kernels[-1]['bound_ms']:.3f} "
+              f"({kernels[-1]['bound_by']}), max abs err "
+              f"{kernels[-1]['max_abs_err']:.3g}", flush=True)
+    return kernels
+
+
+# --- training: the main path ------------------------------------------------------
+
+def _profile_step(exe, main, feed, loss, scope, p50_ms, card, attempts=3):
+    """The device's busy share of one training step and its time by
+    kernel name (torch.profiler's CUDA activity). A trace without a K4
+    launch (the profiler now and then loses a window's CUDA activity) is
+    profiled again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spanned = [e for e in prof.events() if _is_span(e)]
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not _is_span(e)]
+        if any(K1_KERNEL in e.name and "true" in e.name for e in events):
+            break
+        print(f"profile attempt {attempt}: no K4 launch in the trace", flush=True)
+    else:
+        raise RuntimeError("the profiler saw no K4 launch in a training step")
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        if t > end:
+            busy_us += t - max(s, end)
+            end = t
+    busy_ms = busy_us / 1e3
+    kern = {}
+    for e in events:
+        k = kern.setdefault(e.name[:70], [0.0, 0])
+        k[0] += e.time_range.elapsed_us() / 1e3
+        k[1] += 1
+    print(f"profiled step: device busy {busy_ms:.2f} ms = {busy_ms / p50_ms:.1%} "
+          f"of the step p50 {p50_ms:.2f} ms (profiled wall {wall_ms:.1f} ms; "
+          f"{card})", flush=True)
+    print("device ms by kernel: " + "; ".join(
+        f"{k} {v[0]:.2f} x{v[1]}" for k, v in sorted(
+            kern.items(), key=lambda kv: -kv[1][0])[:20]), flush=True)
+    # host ms inside each span and the device span of its kernels (first
+    # start to last end, gaps included); spans nest (a window holds its
+    # ladder's ops, a grad op its re-run), so these do not add up to the step
+    spans = {}
+    for e in spanned:
+        v = spans.setdefault(e.name, [0.0, 0.0, 0])
+        if e.device_type == DeviceType.CUDA:
+            v[1] += e.time_range.elapsed_us() / 1e3
+        else:
+            v[0] += e.time_range.elapsed_us() / 1e3
+            v[2] += 1
+    rerun = sum(v[0] for k, v in spans.items() if k.startswith("rerun:"))
+    print(f"host ms by span (of the profiled wall {wall_ms:.1f} ms; the generic "
+          f"grads' re-run forwards {rerun:.1f} ms): " + "; ".join(
+              f"{k} {v[0]:.1f} (device span {v[1]:.1f}) x{v[2]}" for k, v in sorted(
+                  spans.items(), key=lambda kv: -kv[1][0])[:24]), flush=True)
+    return {"busy_ms": busy_ms, "p50_ms": p50_ms, "busy_share": busy_ms / p50_ms,
+            "profiled_wall_ms": wall_ms, "by_kernel": kern,
+            "rerun_forward_host_ms": rerun, "by_span": spans}
+
+
+def _step(pt, main, loss, params, state, feed, place):
+    """One training step from `state` (name -> tensor): the loss and each
+    parameter's grad, as numpy."""
+    dev = "cuda" if isinstance(place, pt.CUDAPlace) else "cpu"
+    scope = pt.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.to(dev))
+    out = pt.Executor(place).run(main, feed=feed, fetch_list=[loss] + [
+        p + "@GRAD" for p in params], scope=scope)
+    return float(out[0][0]), out[1:]
+
+
+def _lockstep(pt, main, loss, state, feed):
+    """One step of `main` on the card with every op and window run again,
+    on a CPU copy of the card's inputs to it, on the CPU plain path; each
+    float output held to the card's. Returns the worst relative L2
+    difference by op type."""
+    import torch
+    from paddle_tpu_torch.executor import LoweringContext
+    from paddle_tpu_torch.ops import fusion
+    card, cpu = pt.Executor(pt.CUDAPlace(0)), pt.Executor(pt.CPUPlace())
+    env = {n: v.cuda() for n, v in state.items()}
+    env.update({n: torch.as_tensor(v).cuda() for n, v in feed.items()})
+    ctx_g, ctx_c = LoweringContext(card, main, 0), LoweringContext(cpu, main, 0)
+    protected = {loss.name} | set(card._persistable_outputs(main))
+    ops, groups = main.global_block().ops, card._plan(main) or {}
+    worst, i = {}, 0
+    while i < len(ops):
+        g = groups.get(i)
+        members = g.members if g is not None else (ops[i],)
+        env_c = {n: env[n].cpu() for m in members for n in m.input_arg_names
+                 if isinstance(env.get(n), torch.Tensor)}
+        if g is not None:
+            fusion.execute_group(card, ctx_g, g, env, protected)
+            fusion.execute_group(cpu, ctx_c, g, env_c, protected)
+            i, kind = g.end, "+".join(m.type for m in members)
+        else:
+            card._exec_op(ctx_g, ops[i], env)
+            cpu._exec_op(ctx_c, ops[i], env_c)
+            i, kind = i + 1, ops[i].type
+        for n in {n for m in members for n in m.output_arg_names}:
+            a, b = env.get(n), env_c.get(n)
+            if not isinstance(a, torch.Tensor) or not a.is_floating_point():
+                continue
+            a, b = a.float().cpu(), b.float()
+            r = ((a - b).norm() / (b.norm() + 1e-30)).item()
+            tol = LOCKSTEP_BF16 if env[n].dtype == torch.bfloat16 else LOCKSTEP_F32
+            if not (r <= tol):
+                raise RuntimeError(f"lockstep: {kind} output {n} on the card is "
+                                   f"{r:.3g} (relative L2) from the CPU plain "
+                                   f"path on the same inputs (tol {tol})")
+            worst[kind] = max(worst.get(kind, 0.0), r)
+    return worst
+
+
+def _rl2(a, b):
+    import numpy as np
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
+
+
+def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
+    import numpy as np
+    import torch
+
+    main, startup, loss = _resnet50_train(pt, resnet)
+    scope = pt.Scope()
+    exe = pt.Executor()                        # CUDAPlace(0) by default
+    exe.run(startup, scope=scope)
+    init = {n: v.clone() for n, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+    rng = np.random.default_rng(SEED + 4)
+    feed = {"img": rng.standard_normal((TRAIN_BATCH, 3, 224, 224)).astype(np.float32),
+            "label": rng.integers(0, 1000, (TRAIN_BATCH, 1)).astype(np.int64)}
+    card = _card_line()
+
+    t0 = time.perf_counter()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0][0])]
+    print(f"warm-up step (Triton compiles K5/K6): {time.perf_counter() - t0:.2f} s, "
+          f"loss {losses[0]:.5f}", flush=True)
+    conv_cuda.COUNTERS.reset()
+    bn_cuda.COUNTERS.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()               # the fetch ends in a device->host copy
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+        times.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: getattr(c, k) for c, keys in (
+        (conv_cuda.COUNTERS, ("dgrad_launches", "wgrad_launches", "stats_launches",
+                              "launches")),
+        (bn_cuda.COUNTERS, ("apply_launches", "act_launches"))) for k in keys}
+    conv_fb = dict(conv_cuda.COUNTERS.fallbacks)
+    bn_fb = dict(bn_cuda.COUNTERS.fallbacks)
+    copies = conv_cuda.COUNTERS.layout_copies
+
+    p50 = float(np.median(times)) * 1e3
+    print(f"ResNet-50 O2 training, batch {TRAIN_BATCH}: step p50 {p50:.1f} ms "
+          f"(steps {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{TRAIN_BATCH / (p50 / 1e3):.1f} img/s; peak memory {peak_gb:.2f} GB "
+          f"({card})", flush=True)
+    print(f"losses: {', '.join(f'{v:.5f}' for v in losses)}", flush=True)
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"launches per step: {per_step}; fallbacks per step: conv "
+          f"{ {k: v / TRAIN_STEPS for k, v in conv_fb.items()} }, bn "
+          f"{ {k: v / TRAIN_STEPS for k, v in bn_fb.items()} }; cotangents "
+          f"copied to channels_last per step: {copies / TRAIN_STEPS}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the training loss is not finite and falling: {losses}")
+    want = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    want["launches"] = 0                       # every eligible conv goes to K4
+    if any(launches[k] != want[k] for k in want):
+        raise RuntimeError(f"kernel launches {launches}, expected {want}")
+    if conv_fb != {k: v * TRAIN_STEPS for k, v in TRAIN_FALLBACKS.items()} or bn_fb:
+        raise RuntimeError(f"unexpected fallbacks: conv {conv_fb}, bn {bn_fb}")
+
+    profile = _profile_step(exe, main, feed, loss, scope, p50, card)
+
+    # batch 4 from the startup weights: op by op, then end to end, card vs
+    # the CPU plain path, in O2 and in f32
+    small = {"img": feed["img"][:SMALL_BATCH], "label": feed["label"][:SMALL_BATCH]}
+    t0 = time.perf_counter()
+    worst = _lockstep(pt, main, loss, init, small)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])
+    print(f"lockstep, batch {SMALL_BATCH}: {len(worst)} op and window kinds, "
+          f"each output on the card against the CPU plain path on the card's "
+          f"inputs ({time.perf_counter() - t0:.1f} s); worst relative L2: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in top[:6])
+          + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32)", flush=True)
+    params = sorted(p.name for p in main.global_block().all_parameters()
+                    if p.trainable)
+    main32, _, loss32 = _resnet50_train(pt, resnet, amp=False)
+    runs = {}
+    for key, prog, lss, place in (
+            ("o2_card", main, loss, pt.CUDAPlace(0)),
+            ("o2_cpu", main, loss, pt.CPUPlace()),
+            ("f32_card", main32, loss32, pt.CUDAPlace(0)),
+            ("f32_cpu", main32, loss32, pt.CPUPlace())):
+        t0 = time.perf_counter()
+        runs[key] = _step(pt, prog, lss, params, init, small, place)
+        print(f"{key}: one batch-{SMALL_BATCH} step, loss {runs[key][0]:.6f}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    import numpy as np
+    agree = {}
+    for what, a, b, loss_tol in (("o2", "o2_card", "o2_cpu", O2_LOSS_RTOL),
+                                 ("f32", "f32_card", "f32_cpu", F32_LOSS_RTOL),
+                                 ("o2_cpu_vs_f32", "o2_cpu", "f32_cpu", None)):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        rl2 = {p: _rl2(x, y) for p, x, y in zip(params, ga, gb)}
+        ratio = {p: float(np.linalg.norm(x) / (np.linalg.norm(y) + 1e-30))
+                 for p, x, y in zip(params, ga, gb)}
+        agree[what] = {"loss_rel_diff": abs(la - lb) / abs(lb),
+                       "grad_rl2_median": float(np.median(list(rl2.values()))),
+                       "grad_rl2_max": max(rl2.values()),
+                       "fc_grad_rl2": max(v for k, v in rl2.items()
+                                          if k.startswith("fc_")),
+                       "norm_ratio_min": min(ratio.values()),
+                       "norm_ratio_median": float(np.median(list(ratio.values()))),
+                       "norm_ratio_max": max(ratio.values()),
+                       "grad_rl2": rl2, "norm_ratio": ratio}
+        r = agree[what]
+        print(f"{what} ({a} vs {b}): loss {r['loss_rel_diff']:.3g} relative; "
+              f"grad relative L2 median {r['grad_rl2_median']:.3g}, max "
+              f"{r['grad_rl2_max']:.3g}, fc {r['fc_grad_rl2']:.3g}; grad norm "
+              f"ratio min {r['norm_ratio_min']:.3g}, median "
+              f"{r['norm_ratio_median']:.3g}, max {r['norm_ratio_max']:.3g} "
+              f"({card})", flush=True)
+        if not all(np.isfinite(x).all() for x in ga):
+            raise RuntimeError(f"{a}: non-finite grads")
+    o2, f32, floor = agree["o2"], agree["f32"], agree["o2_cpu_vs_f32"]
+    failed = []
+    if o2["loss_rel_diff"] > O2_LOSS_RTOL or f32["loss_rel_diff"] > F32_LOSS_RTOL:
+        failed.append("loss")
+    if o2["fc_grad_rl2"] > LAST_GRAD_RL2 or f32["fc_grad_rl2"] > LAST_GRAD_RL2:
+        failed.append("fc grads")
+    if o2["grad_rl2_median"] > floor["grad_rl2_median"] or \
+            f32["grad_rl2_median"] > F32_GRAD_RL2:
+        failed.append("grads past the noise floor")
+    for what in ("o2", "f32"):
+        r = agree[what]
+        if not (1 / NORM_RATIO <= r["norm_ratio_min"]
+                and r["norm_ratio_max"] <= NORM_RATIO
+                and abs(r["norm_ratio_median"] - 1) <= NORM_RATIO_MEDIAN):
+            failed.append(f"{what} grad norms")
+    if failed:
+        raise RuntimeError(f"the batch-{SMALL_BATCH} step on the card disagrees "
+                           f"with the CPU plain path: {failed}")
+    report["train"] = {"card": card, "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+                       "step_ms": [t * 1e3 for t in times], "p50_ms": p50,
+                       "img_per_s": TRAIN_BATCH / (p50 / 1e3), "losses": losses,
+                       "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+                       "fallbacks": {f"{k[0]}:{k[1]}": v for k, v in conv_fb.items()},
+                       "layout_copies_per_step": copies / TRAIN_STEPS,
+                       "profile": profile, "lockstep_worst_rl2": worst,
+                       "small_batch": agree}
+    return per_step
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measurements as JSON here")
@@ -531,7 +1130,7 @@ def main(argv=None) -> int:
         return 2
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import resnet
-    from paddle_tpu_torch.ops import conv_cuda, cuda_build
+    from paddle_tpu_torch.ops import bn_cuda, conv_cuda, cuda_build
 
     card = _card_line()
     print(f"device: {card}; torch {torch.__version__}, CUDA "
@@ -551,7 +1150,13 @@ def main(argv=None) -> int:
     report = {"card": card}
     k1 = phase_kernel(pt, conv_cuda, resnet, report)
     k1["launches"] = phase_slice(pt, conv_cuda, resnet, report)
-    kernels = {"kernels": [k1]}
+    train_kernels = phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report)
+    per_step = phase_train(pt, conv_cuda, bn_cuda, resnet, report)
+    for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
+                                      "stats_launches", "apply_launches",
+                                      "act_launches")):
+        k["launches"] = int(per_step[key] * TRAIN_STEPS)
+    kernels = {"kernels": [k1] + train_kernels}
     report.update(kernels)
     if args.report:
         with open(args.report, "w") as f:

@@ -3,10 +3,14 @@
 The JAX package `paddle_tpu` stays beside it as the reference; this package
 imports `torch` and numpy, never `jax` and nothing of `paddle_tpu`. Module
 and public names follow paddle_tpu's, so each file has an obvious
-counterpart. This slice serves image classifiers: Program/Block IR, the
-layers DSL for ResNet, AMP O1/O2, an eager Executor, the inference
-conv -> batch_norm fold, the ServingEngine, and K1 — the conv2d forward
-kernel written in CUDA C++ for sm_90a (ops/conv_cuda.py).
+counterpart. The port serves and trains image classifiers: Program/Block
+IR, the layers DSL for ResNet, AMP O1/O2, append_backward with generic and
+explicit grad ops, the SGD/Momentum/Adam optimizers, an eager Executor, the
+conv -> batch_norm [-> act] windows (the inference fold and the training
+kernels), the ServingEngine, and six hand-written kernels: K1-K4, the
+conv forward, grad-input, grad-filter and conv+statistics kernels in CUDA
+C++ for sm_90a (ops/conv_cuda.py), and K5-K6, the batch-norm kernels in
+Triton (ops/bn_cuda.py).
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -25,6 +29,11 @@ from .initializer import (Constant, ConstantInitializer, Normal,
                           Xavier, XavierInitializer, MSRA, MSRAInitializer)
 from .param_attr import ParamAttr
 from . import amp
+from . import backward
+from .backward import append_backward
+from . import regularizer
+from . import clip
+from . import optimizer
 from . import io
 from . import interop
 from . import models

@@ -7,6 +7,7 @@ counterpart of paddle_tpu/amp.py.
 
 Usage:
     amp.enable(program, level="O2")
+    amp.decorate(optimizer, level="O2").minimize(loss)
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Optional
 
 from .framework.framework import Program, default_main_program
 
-__all__ = ["enable", "disable"]
+__all__ = ["enable", "disable", "decorate"]
 
 
 def enable(program: Optional[Program] = None, dtype: str = "bfloat16",
@@ -44,3 +45,26 @@ def disable(program: Optional[Program] = None):
     program = program or default_main_program()
     program._amp_dtype = None
     return program
+
+
+class _DecoratedOptimizer:
+    """`minimize()` enables the bf16 policy on the program it builds into,
+    then minimizes (amp.py:64; later Paddle's
+    `fluid.contrib.mixed_precision.decorate(optimizer)`)."""
+
+    def __init__(self, optimizer, dtype: str = "bfloat16",
+                 level: str = "O1"):
+        self._opt = optimizer
+        self._dtype = dtype
+        self._level = level
+
+    def minimize(self, loss, startup_program=None, **kw):
+        enable(loss.block.program, self._dtype, self._level)
+        return self._opt.minimize(loss, startup_program=startup_program, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._opt, name)
+
+
+def decorate(optimizer, dtype: str = "bfloat16", level: str = "O1"):
+    return _DecoratedOptimizer(optimizer, dtype, level)

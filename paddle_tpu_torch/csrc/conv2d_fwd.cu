@@ -1,4 +1,5 @@
-// conv2d forward as an implicit GEMM on bf16 tensor cores, for sm_90a.
+// conv2d forward (K1) and conv2d + channel statistics (K4) as an implicit
+// GEMM on bf16 tensor cores, for sm_90a.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_conv.py `conv2d` (:412) ->
 // `_conv_call` (:331) -> `_fwd_kernel` (:204). Same function: x NHWC bf16,
@@ -15,6 +16,18 @@
 // wmma 16x16x16 bf16 MMAs into f32 fragments (each warp a 64x32 sub-tile).
 // The epilogue stages each fragment through a per-warp shared buffer and
 // writes 8 outputs per 16-byte store.
+//
+// K4, conv2d_stats (replaces pallas_conv.py `conv2d_stats` :420 ->
+// `_fwd_stats_kernel` :241), is the same kernel with STATS set: the main
+// loop and the output stores are K1's own, so y is bitwise K1's. Its
+// epilogue also sums, per output channel, the bf16-rounded y and its
+// square over the tile's valid rows: each lane over its 4 rows, then a
+// butterfly over the 16 lanes that share its columns (IEEE addition is
+// commutative, so every order the butterfly takes gives the same bits),
+// then the block's two row halves through shared memory. Each block writes
+// its [128] partial sums to its own row of a [m_tiles, Co] workspace; a
+// second kernel adds the rows in order. No atomics: a repeated call is
+// bitwise equal.
 //
 // Requirements (checked by the Python gate and wrapper): Ci % 8 == 0 and
 // Co % 8 == 0 (16-byte vectors never straddle a channel edge), 16-byte
@@ -83,8 +96,15 @@ __device__ __forceinline__ void store8(float* y, const float* v) {
   reinterpret_cast<float4*>(y)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS) conv2d_fwd_kernel(Params p) {
+__device__ __forceinline__ float rounded(float v, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float rounded(float v, float*) { return v; }
+
+template <typename OutT, bool STATS>
+__global__ void __launch_bounds__(THREADS)
+    conv2d_fwd_kernel(Params p, float* part_sum, float* part_sq) {
   __shared__ __align__(128) __nv_bfloat16 As[STAGES][BM * A_LD];
   __shared__ __align__(128) __nv_bfloat16 Bs[STAGES][BK * B_LD];
   __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
@@ -193,6 +213,13 @@ __global__ void __launch_bounds__(THREADS) conv2d_fwd_kernel(Params p) {
   float* cs = Cs[warp];
   const int r = lane >> 1;
   const int c8 = (lane & 1) * 8;
+  float ssum[2][8], ssq[2][8];  // STATS: this lane's 8 columns of fragment j
+  if constexpr (STATS) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) ssum[j][q] = ssq[j][q] = 0.0f;
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -201,10 +228,65 @@ __global__ void __launch_bounds__(THREADS) conv2d_fwd_kernel(Params p) {
       __syncwarp();
       const long long m = m0 + warp_m * 64 + i * 16 + r;
       const int col = n0 + warp_n * 32 + j * 16 + c8;
-      if (m < M && col < p.co) store8(y + m * p.co + col, cs + r * 16 + c8);
+      if (m < M && col < p.co) {
+        store8(y + m * p.co + col, cs + r * 16 + c8);
+        if constexpr (STATS) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const float v = rounded(cs[r * 16 + c8 + q], y);
+            ssum[j][q] += v;
+            ssq[j][q] += v * v;
+          }
+        }
+      }
       __syncwarp();
     }
   }
+  if constexpr (STATS) {
+    // lanes with equal (lane & 1) hold the same 8 columns of 16 rows each
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int off = 2; off < 32; off <<= 1) {
+          ssum[j][q] += __shfl_xor_sync(0xffffffffu, ssum[j][q], off);
+          ssq[j][q] += __shfl_xor_sync(0xffffffffu, ssq[j][q], off);
+        }
+    // the A ring is free after the main loop: [2 row halves][2][BN] floats
+    float* red = reinterpret_cast<float*>(&As[0][0]);
+    if (lane < 2) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int c = warp_n * 32 + j * 16 + lane * 8 + q;
+          red[(warp_m * 2 + 0) * BN + c] = ssum[j][q];
+          red[(warp_m * 2 + 1) * BN + c] = ssq[j][q];
+        }
+    }
+    __syncthreads();
+    if (tid < BN && n0 + tid < p.co) {
+      const long long o = (long long)blockIdx.x * p.co + n0 + tid;
+      part_sum[o] = red[0 * BN + tid] + red[2 * BN + tid];
+      part_sq[o] = red[1 * BN + tid] + red[3 * BN + tid];
+    }
+  }
+}
+
+// csum[c] = sum over the m tiles, in order, of part_sum[t, c]; csq likewise.
+__global__ void stats_reduce_kernel(const float* part_sum, const float* part_sq,
+                                    int m_tiles, int co, float* csum,
+                                    float* csq) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= co) return;
+  float s = 0.0f, q = 0.0f;
+  for (int t = 0; t < m_tiles; ++t) {
+    s += part_sum[(long long)t * co + c];
+    q += part_sq[(long long)t * co + c];
+  }
+  csum[c] = s;
+  csq[c] = q;
 }
 
 }  // namespace
@@ -220,8 +302,37 @@ extern "C" int conv2d_fwd(const void* x, const void* w, void* y, int n, int h,
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((co + BN - 1) / BN));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_f32)
-    conv2d_fwd_kernel<float><<<grid, THREADS, 0, s>>>(p);
+    conv2d_fwd_kernel<float, false><<<grid, THREADS, 0, s>>>(p, nullptr, nullptr);
   else
-    conv2d_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(p);
+    conv2d_fwd_kernel<__nv_bfloat16, false>
+        <<<grid, THREADS, 0, s>>>(p, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K4: y as conv2d_fwd, plus csum/csq [Co] of the rounded y. part_sum and
+// part_sq are [ceil(N*OH*OW / 128), Co] f32 scratch.
+extern "C" int conv2d_fwd_stats(const void* x, const void* w, void* y,
+                                void* part_sum, void* part_sq, void* csum,
+                                void* csq, int n, int h, int w_, int ci,
+                                int co, int kh, int kw, int oh, int ow, int sh,
+                                int sw, int ph, int pw, int dh, int dw,
+                                int out_f32, void* stream) {
+  Params p{static_cast<const __nv_bfloat16*>(x),
+           static_cast<const __nv_bfloat16*>(w),
+           y, n, h, w_, ci, co, kh, kw, oh, ow, sh, sw, ph, pw, dh, dw};
+  const long long M = (long long)n * oh * ow;
+  const int m_tiles = (int)((M + BM - 1) / BM);
+  dim3 grid((unsigned)m_tiles, (unsigned)((co + BN - 1) / BN));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ps = static_cast<float*>(part_sum);
+  float* pq = static_cast<float*>(part_sq);
+  if (out_f32)
+    conv2d_fwd_kernel<float, true><<<grid, THREADS, 0, s>>>(p, ps, pq);
+  else
+    conv2d_fwd_kernel<__nv_bfloat16, true><<<grid, THREADS, 0, s>>>(p, ps, pq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_reduce_kernel<<<(co + 127) / 128, 128, 0, s>>>(
+      ps, pq, m_tiles, co, static_cast<float*>(csum), static_cast<float*>(csq));
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,11 @@ port's counterpart of paddle_tpu/executor.py).
 The JAX package traces a whole block into one jitted XLA computation. The
 port interprets the block eagerly: every op's lowering runs on torch
 tensors on the executor's device, in program order, with the planned
-conv -> batch_norm folds (ops/fusion.py) lowered as one unit at their
-anchor. Scope semantics follow the reference (scope.h:38): persistable
+conv -> batch_norm [-> act] windows (ops/fusion.py: the inference fold,
+the training kernels) lowered as one unit at their anchor. A training
+program's grad and optimizer ops run like any other op; the optimizer's
+in-place outputs (parameters, accumulators, batch-norm statistics) are
+persistable and go back to the scope at the end of the run. Scope semantics follow the reference (scope.h:38): persistable
 variables live in the scope across runs; block temporaries vanish after
 the run. Feeds and fetches are dense tensors; LoD feeds wait for a later
 slice.
@@ -311,7 +314,8 @@ class Executor:
         while i < len(ops):
             g = groups.get(i)
             if g is not None:
-                fusion_mod.execute_group(self, ctx, g, env, protected)
+                with registry.span("win:" + "+".join(m.type for m in g.members)):
+                    fusion_mod.execute_group(self, ctx, g, env, protected)
                 i = g.end
             else:
                 self._exec_op(ctx, ops[i], env)
@@ -330,7 +334,8 @@ class Executor:
         ins = {slot: [env.get(n) for n in names]
                for slot, names in op.desc.inputs.items()}
         try:
-            outs = opdef.lower(ctx, op, ins)
+            with registry.span("op:" + op.type):
+                outs = opdef.lower(ctx, op, ins)
         except (TypeError, ValueError, IndexError) as e:
             shapes = {slot: [tuple(getattr(v, "shape", ())) for v in vals]
                       for slot, vals in ins.items()}

@@ -1,7 +1,8 @@
 from .desc import (BlockDesc, BlockRef, BlocksRef, OpDesc, ProgramDesc,
                    VarDesc, VarType)
 from .framework import (Block, Operator, Parameter, Program, Variable,
-                        convert_dtype, default_main_program,
+                        GRAD_VAR_SUFFIX, convert_dtype, default_main_program,
+                        grad_var_name,
                         default_startup_program, program_guard,
                         switch_main_program, switch_startup_program)
 from . import unique_name

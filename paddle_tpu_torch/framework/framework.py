@@ -32,7 +32,15 @@ __all__ = [
     "switch_main_program",
     "switch_startup_program",
     "program_guard",
+    "GRAD_VAR_SUFFIX",
+    "grad_var_name",
 ]
+
+GRAD_VAR_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_VAR_SUFFIX
 
 
 def op_external_reads(program, op) -> set:
@@ -260,6 +268,26 @@ class Block:
     def create_var(self, **kwargs) -> Variable:
         return Variable(self, **kwargs)
 
+    def var_recursive(self, name: str) -> Variable:
+        b: Optional[Block] = self
+        while b is not None:
+            if b.has_var(name):
+                return b.var(name)
+            b = b.parent_block
+        raise ValueError(f"Variable {name} not found in block chain from "
+                         f"{self.idx}")
+
+    def has_var_recursive(self, name: str) -> bool:
+        b: Optional[Block] = self
+        while b is not None:
+            if b.has_var(name):
+                return True
+            b = b.parent_block
+        return False
+
+    def all_parameters(self) -> List["Parameter"]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
     def create_parameter(self, **kwargs) -> "Parameter":
         # parameters always live in the global (root) block
         return Parameter(self.program.global_block(), **kwargs)
@@ -332,6 +360,8 @@ class Program:
         # bumped on every op append/remove so cached plans (fusion.plan,
         # the executor's analysis) never serve a mutated program
         self._version = 0
+        # grad var name -> forward var name, filled by append_backward
+        self.grad_info_map: Dict[str, str] = {}
 
     @property
     def random_seed(self) -> int:
@@ -358,6 +388,7 @@ class Program:
         p = Program()
         p.desc = ProgramDesc.from_json(self.desc.to_json())
         p._seed = self._seed
+        p.grad_info_map = dict(self.grad_info_map)
         for attr in ("_amp_dtype", "_amp_level"):
             if hasattr(self, attr):
                 setattr(p, attr, getattr(self, attr))

@@ -1,11 +1,13 @@
 """Weights across packages: fill the port's Scope from numpy arrays.
 
 Both packages name variables through `unique_name`, so after a reset of
-each package's counters the same model script yields the same parameter
-and batch-norm statistic names. A caller reads the JAX package's values
+each package's counters the same model script yields the same names for
+every persistable: parameters, batch-norm statistics, and the optimizer's
+learning rate and accumulators (`<param>_velocity_0`, `<param>_moment1_0`,
+...), which both startups create. A caller reads the JAX package's values
 out of its scope as numpy arrays, by name, and hands them here; the port
-then computes on exactly the same weights (the two packages' random
-initializers draw different numbers from the same seed).
+then computes on exactly the same weights and optimizer state (the two
+packages' random initializers draw different numbers from the same seed).
 """
 
 from __future__ import annotations

@@ -99,6 +99,18 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, **kwargs) -> Variable:
+        return self.main_program.global_block().create_var(
+            persistable=persistable, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        """Mirror `var` into the startup program and initialize it there."""
+        sv = self.startup_program.global_block().create_var(
+            name=var.name, shape=var.shape, dtype=var.dtype, persistable=True)
+        initializer(sv, self.startup_program.global_block())
+        var.persistable = True
+        return var
+
     def append_op(self, **kwargs):
         return self.block.append_op(**kwargs)
 

@@ -1,8 +1,9 @@
 """Layers DSL (reference: python/paddle/fluid/layers/__init__.py), the part
-the serving slice uses."""
+the serving and training slices use."""
 
 from .io import *            # noqa: F401,F403
+from .tensor import *        # noqa: F401,F403
 from .nn import *            # noqa: F401,F403
 from .ops import *           # noqa: F401,F403
 
-from . import io, nn, ops    # noqa: F401
+from . import io, tensor, nn, ops    # noqa: F401

@@ -1,8 +1,8 @@
-"""Neural-network layers DSL, the part the serving slice uses (the port's
-counterpart of paddle_tpu/layers/nn.py; reference python/paddle/fluid/
-layers/nn.py — fc :81, conv2d :1120, pool2d :1425, batch_norm :1478,
-reduces :2055-2239). Each layer emits the same ops, attrs and names as
-the JAX package's."""
+"""Neural-network layers DSL, the part the serving and training slices use
+(the port's counterpart of paddle_tpu/layers/nn.py; reference
+python/paddle/fluid/layers/nn.py — fc :81, square_error_cost :965, conv2d
+:1120, pool2d :1425, batch_norm :1478, reduces :2055-2239). Each layer
+emits the same ops, attrs and names as the JAX package's."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from ..param_attr import ParamAttr
 
 __all__ = [
     "fc", "conv2d", "pool2d", "batch_norm", "softmax_with_cross_entropy",
+    "square_error_cost",
     "accuracy", "mean", "elementwise_add", "elementwise_sub",
     "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min", "elementwise_pow", "reduce_sum", "reduce_mean",
@@ -56,12 +57,27 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          attrs={"x_num_col_dims": num_flatten_dims,
                                 "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs needs the `sum` op, which the port has "
-            "not registered yet")
-    pre_act = helper.append_bias_op(mul_results[0], dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
+
+
+def square_error_cost(input, label):
+    """(input - label)^2, built from elementwise ops (reference nn.py:965)."""
+    helper = LayerHelper("square_error_cost", input=input)
+    minus_out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="elementwise_sub",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [minus_out]})
+    square_out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="square", inputs={"X": [minus_out]},
+                     outputs={"Out": [square_out]})
+    return square_out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False):

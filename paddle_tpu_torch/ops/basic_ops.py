@@ -13,19 +13,19 @@ from __future__ import annotations
 import torch
 
 from .common import in_var, same_as_input, set_out, to_torch_dtype
-from .registry import op, register
+from .registry import NO_GRAD, op, register
 
 # --- feed / fetch: no lowering, the executor handles them (reference
 # feed_op.cc/fetch_op.cc) ------------------------------------------------------
-register("feed")
-register("fetch")
+register("feed", grad=NO_GRAD)
+register("fetch", grad=NO_GRAD)
 
 
 def _fill_constant_infer(op_, block):
     set_out(op_, block, "Out", op_.attr("shape"), op_.attr("dtype", "float32"))
 
 
-@op("fill_constant", infer_shape=_fill_constant_infer)
+@op("fill_constant", infer_shape=_fill_constant_infer, grad=NO_GRAD)
 def _fill_constant(ctx, op_, ins):
     dtype = to_torch_dtype(op_.attr("dtype", "float32"))
     return {"Out": [torch.full(tuple(op_.attr("shape")),
@@ -33,7 +33,7 @@ def _fill_constant(ctx, op_, ins):
                                device=ctx.device)]}
 
 
-@op("uniform_random", infer_shape=_fill_constant_infer)
+@op("uniform_random", infer_shape=_fill_constant_infer, grad=NO_GRAD)
 def _uniform_random(ctx, op_, ins):
     dtype = to_torch_dtype(op_.attr("dtype", "float32"))
     lo, hi = op_.attr("min", -1.0), op_.attr("max", 1.0)
@@ -42,7 +42,7 @@ def _uniform_random(ctx, op_, ins):
     return {"Out": [(u * (hi - lo) + lo).to(dtype)]}
 
 
-@op("gaussian_random", infer_shape=_fill_constant_infer)
+@op("gaussian_random", infer_shape=_fill_constant_infer, grad=NO_GRAD)
 def _gaussian_random(ctx, op_, ins):
     dtype = to_torch_dtype(op_.attr("dtype", "float32"))
     z = torch.randn(tuple(op_.attr("shape")), generator=ctx.generator(op_),
@@ -70,7 +70,7 @@ def _top_k_infer(op_, block):
         set_out(op_, block, "Indices", shape, "int64")
 
 
-@op("top_k", infer_shape=_top_k_infer)
+@op("top_k", infer_shape=_top_k_infer, grad=NO_GRAD)
 def _top_k(ctx, op_, ins):
     vals, idxs = torch.topk(ins["X"][0], op_.attr("k", 1), dim=-1)
     return {"Out": [vals], "Indices": [idxs.to(torch.int64)]}

@@ -1,4 +1,5 @@
-"""Math ops: mul, elementwise with axis broadcast, activations, reductions
+"""Math ops: mul, elementwise with axis broadcast, activations, reductions,
+sum
 (the port's counterpart of paddle_tpu/ops/math_ops.py; reference mul_op.cc,
 elementwise_*_op.cc, activation_op.cc, reduce_op.cc, mean_op.cc)."""
 
@@ -193,6 +194,24 @@ def _make_reduce(fn):
 
 for _name, _fn in _reduce_fns.items():
     register(_name, lower=_make_reduce(_fn), infer_shape=_reduce_infer)
+
+
+def _sum_infer(op_, block):
+    iv = in_var(op_, block, "X", 0)
+    if iv is not None:
+        set_out(op_, block, "Out", iv.shape, iv.dtype)
+
+
+@op("sum", infer_shape=_sum_infer)
+def _sum(ctx, op_, ins):
+    """Elementwise sum of the X list (reference sum_op.cc), dense inputs;
+    backward's @RENAME@ accumulation emits it pairwise. SelectedRows inputs
+    wait for the sparse slice."""
+    xs = [x for x in ins["X"] if x is not None]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
 
 
 def _mean_infer(op_, block):

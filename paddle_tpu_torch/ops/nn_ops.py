@@ -1,7 +1,7 @@
-"""NN ops: softmax, conv2d, pool2d, batch_norm and the classifier head (the
-port's counterpart of paddle_tpu/ops/nn_ops.py; reference softmax_op.cc,
-conv_op.cc, pool_op.cc, batch_norm_op.cc, softmax_with_cross_entropy_op.cc,
-accuracy_op.cc).
+"""NN ops: softmax, conv2d and its explicit grad, pool2d, batch_norm and the
+classifier head (the port's counterpart of paddle_tpu/ops/nn_ops.py;
+reference softmax_op.cc, conv_op.cc, pool_op.cc, batch_norm_op.cc,
+softmax_with_cross_entropy_op.cc, accuracy_op.cc).
 
 Layout: tensors are logical NCHW, as users see them. conv2d returns its
 output in `torch.channels_last` memory, so the NHWC view the kernel reads
@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from . import conv_cuda
 from .common import in_var, mxu_cast, same_as_input, set_out
-from .registry import op
+from .registry import NO_GRAD, generic_grad_lower, infer_grad_shapes, op
 
 
 # --- softmax and the classifier head ----------------------------------------
@@ -34,7 +34,8 @@ def _swce_infer(op_, block):
         set_out(op_, block, "Loss", list(xv.shape[:-1]) + [1], xv.dtype)
 
 
-@op("softmax_with_cross_entropy", infer_shape=_swce_infer)
+@op("softmax_with_cross_entropy", infer_shape=_swce_infer,
+    non_diff_inputs=("Label",))
 def _softmax_with_cross_entropy(ctx, op_, ins):
     # log-softmax in f32, as the JAX package does for bf16 logits
     logits = ins["Logits"][0].float()
@@ -58,7 +59,7 @@ def _accuracy_infer(op_, block):
     set_out(op_, block, "Total", [1], "int32")
 
 
-@op("accuracy", infer_shape=_accuracy_infer)
+@op("accuracy", infer_shape=_accuracy_infer, grad=NO_GRAD)
 def _accuracy(ctx, op_, ins):
     idx = ins["Indices"][0]
     label = ins["Label"][0].reshape(-1, 1)
@@ -124,6 +125,60 @@ def _conv2d(ctx, op_, ins):
     return {"Output": [out]}
 
 
+@op("conv2d_grad", infer_shape=infer_grad_shapes, grad=NO_GRAD)
+def _conv2d_grad(ctx, op_, ins):
+    """Explicit conv backward (nn_ops.py:340-409): eligible shapes take K2
+    (grad input) and K3 (grad filter) under K1's one gate; the rest take
+    the generic grad, autograd over the forward lowering's F.conv2d,
+    counted as ("conv2d_grad", reason). The generic grad cannot
+    differentiate K1, which runs through ctypes: hence this op.
+
+    A missing cotangent (the output unused by the loss) gives zeros
+    without a re-run. dx comes out in Input's dtype (bf16 under O2), dW in
+    the un-cast filter's dtype (f32 master weights), NCHW in channels_last
+    memory and OIHW."""
+    douts = ins.get("Output@GRAD")
+    if not douts or douts[0] is None:
+        outs = {}
+        for slot, names in op_.desc.outputs.items():
+            srcs = ins.get(slot[: -len("@GRAD")], [])
+            outs[slot] = [torch.zeros_like(srcs[i])
+                          if i < len(srcs) and srcs[i] is not None else None
+                          for i in range(len(names))]
+        return outs
+    x, w = ins["Input"][0], ins["Filter"][0]
+    s = _pair(op_.attr("strides", [1, 1]))
+    p = _pair(op_.attr("paddings", [0, 0]))
+    d = _pair(op_.attr("dilations", [1, 1]))
+    groups = op_.attr("groups", 1) or 1
+    (xc, wc), _ = mxu_cast(ctx, x, w)
+    x_nhwc = xc.contiguous(memory_format=torch.channels_last) \
+        .permute(0, 2, 3, 1)
+    reason = conv_cuda.ineligible(x_nhwc, wc, s, p, d, groups)
+    if reason is not None:
+        conv_cuda.count_fallback(op_.type, reason)
+        # the forward lowering counted itself on the forward pass
+        with conv_cuda.suppress_counters():
+            return generic_grad_lower(ctx, op_, ins)
+    conv_cuda.count_hit(op_.type)
+    dout = douts[0]
+    if not dout.is_contiguous(memory_format=torch.channels_last):
+        conv_cuda.COUNTERS.layout_copies += 1
+        dout = dout.contiguous(memory_format=torch.channels_last)
+    dout = dout.permute(0, 2, 3, 1).to(torch.bfloat16)
+    outs = {}
+    if "Input@GRAD" in op_.desc.outputs:
+        dx = conv_cuda.conv2d_grad_input(
+            dout, wc, (x_nhwc.shape[1], x_nhwc.shape[2]), s, p, d,
+            out_dtype=x.dtype)
+        outs["Input@GRAD"] = [dx.permute(0, 3, 1, 2)]
+    if "Filter@GRAD" in op_.desc.outputs:
+        outs["Filter@GRAD"] = [conv_cuda.conv2d_grad_filter(
+            x_nhwc, dout, (wc.shape[2], wc.shape[3]), s, p, d,
+            out_dtype=w.dtype)]
+    return outs
+
+
 def _pool2d_infer(op_, block):
     xv = in_var(op_, block, "X")
     if xv is None or xv.shape is None:
@@ -180,7 +235,8 @@ def _bn_infer(op_, block):
         set_out(op_, block, slot, [c], "float32")
 
 
-@op("batch_norm", infer_shape=_bn_infer)
+@op("batch_norm", infer_shape=_bn_infer,
+    non_diff_inputs=("Mean", "Variance"))
 def _batch_norm(ctx, op_, ins):
     """Statistics and normalization in f32; the output returns to x's dtype
     (bf16 under AMP O2). is_test uses the running statistics; training mode
