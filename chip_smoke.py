@@ -1,10 +1,12 @@
 """Chip smoke for the PyTorch/CUDA port (paddle_tpu_torch) on one GPU.
 
-Drives the port's two main paths — ResNet-50 (224x224, 1000 classes, full
+Drives the port's main paths — ResNet-50 (224x224, 1000 classes, full
 width and depth, random weights from a seed) under AMP O2, served by the
-port's ServingEngine through buckets (1, 4, 16), and trained with Momentum
-through Executor.run at batch 32 — and holds every kernel of those paths
-against its plain PyTorch version on the card:
+port's ServingEngine through buckets (1, 4, 16) and trained with Momentum
+through Executor.run at batch 32; and bench.py's transformer LM (batch 8,
+T 2048, 4 layers, d_model 512, 8 heads, vocab 8192) under AMP O2, trained
+with Adam and served through buckets (1, 2, 4, 8) — and holds every kernel
+of those paths against its plain PyTorch version on the card:
 
   1. device   CUDA present (else exit 2), the card's name and power limit;
   2. build    nvcc builds every CUDA kernel from paddle_tpu_torch/csrc/,
@@ -47,7 +49,28 @@ against its plain PyTorch version on the card:
               re-run on the CPU on the card's own inputs), then end to end
               (the loss, per-parameter grad relative L2), in O2 and in f32
               (TF32 off);
-  7. result   the kernel table as one JSON line, the card line, then
+  7. kernel_attn  K7-K9 (flash-attention forward, dQ, dK/dV) against their
+              plain versions at the JAX tests' shapes, causal and not, at
+              T = 72 with D 64 and 128, and at the bench shape [8, 2048, 8,
+              64] causal, each run twice and bitwise repeatable; then timed
+              at the bench shape (CUDA graph of 20 calls between CUDA
+              events) beside the bound, the plain versions and
+              F.scaled_dot_product_attention (yardstick only: its forward
+              for K7, its backward for K8 + K9 together);
+  8. train_lm the transformer LM O2 with Adam 1e-4, one warm-up and five
+              timed steps on one batch of random tokens and labels (seed
+              0): step p50 and tokens/s, K7/K8/K9 launches held to 4/4/4 per
+              step with no attention fallback, the loss finite and falling,
+              peak memory, one profiled step; then one step at batch 1 from
+              the startup weights against the CPU plain path, op by op and
+              end to end, in O2 and in f32, the O2 grads held to the CPU's
+              own O2 noise floor (its flash path against its einsum path);
+  9. serve_lm ServingEngine over transformer_lm(is_test=True,
+              return_logits=True) in O2, fetching the logits, 6 requests of
+              1-8 rows: K7 launches held to 4 per bucket run, one request
+              against the CPU plain path; then p50 latency per bucket over
+              7 requests that fill it;
+ 10. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -62,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -164,6 +188,44 @@ LOCKSTEP_BF16, LOCKSTEP_F32 = 1e-2, 1e-3
 O2_LOSS_RTOL, F32_LOSS_RTOL = 2e-2, 1e-4
 LAST_GRAD_RL2, F32_GRAD_RL2 = 0.1, 0.1
 NORM_RATIO, NORM_RATIO_MEDIAN = 2.0, 0.1
+
+# the transformer LM (phases kernel_attn, train_lm, serve_lm): bench.py's
+# `transformer` mode (bench.py:1005-1073), full width and depth
+LM = {"batch": 8, "seqlen": 2048, "n_layer": 4, "d_model": 512, "n_head": 8,
+      "vocab": 8192, "lr": 1e-4}
+LM_STEPS = 5                        # timed, after one warm-up step
+LM_SMALL_BATCH = 1                  # the step compared with the CPU
+ATTN_BENCH = (8, 2048, 8, 64)       # [B, T, H, D] of its attention
+# K7-K9 against their plain versions: tests/test_pallas_attention.py's
+# shapes, T = 72 (a 64-row tile past T) at D 64 and 128, the bench shape
+ATTN_SHAPES = [(s, c) for s in ((2, 64, 2, 32), (1, 128, 4, 64),
+                                (2, 256, 2, 64), (1, 72, 2, 64),
+                                (1, 72, 2, 128)) for c in (False, True)] \
+    + [(ATTN_BENCH, True)]
+# Each bf16 output within attention_tolerance (below) of the plain
+# version (one ulp, 1e-5 of the sum of its terms' magnitudes, four flipped
+# bf16 roundings of P or dS); LSE within LSE_RTOL of max(1, |lse|).
+LSE_RTOL = 1e-5
+LM_SERVE_SIZES = [1, 3, 8, 2, 6, 4]
+LM_BUCKETS = (1, 2, 4, 8)
+LM_LATENCY_REPS = 7                 # full-bucket requests timed per bucket for p50
+# The batch-1 step on the card against the CPU plain path. The transformer
+# has no batch-norm chaos: two O2 paths on the CPU (flash plain versions vs
+# the einsum path, the same weights) differ by a grad relative L2 median of
+# 0.63 % and at most 1.19 %, norm ratios 0.998-1.001, losses by 2e-7; two
+# f32 paths by 7e-7 (tests measured on the CPU at this config). So: O2
+# grads within LM_SPREAD_FACTOR times this run's own CPU flash-vs-einsum
+# spread (median and max), norm ratios within 1 +- LM_NORM_RATIO[0]; f32
+# grads within LM_F32_GRAD_RL2 (median, max), norm ratios within
+# 1 +- LM_NORM_RATIO[1]; losses within LM_*_LOSS_RTOL.
+LM_SPREAD_FACTOR = 2.0
+LM_NORM_RATIO = (0.02, 1e-3)
+LM_F32_GRAD_RL2 = (1e-4, 1e-3)
+LM_O2_LOSS_RTOL, LM_F32_LOSS_RTOL = 1e-4, 1e-5
+# The served logits (O2) against the CPU plain path on the same weights:
+# within LM_LOGIT_RTOL of the largest |logit| (bf16 noise; the CPU test of
+# a 2-layer model measured 0.53 % against the JAX package).
+LM_LOGIT_RTOL = 2e-2
 
 
 def _card_line() -> str:
@@ -853,11 +915,12 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
 
 # --- training: the main path ------------------------------------------------------
 
-def _profile_step(exe, main, feed, loss, scope, p50_ms, card, attempts=3):
+def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
+                  attempts=3):
     """The device's busy share of one training step and its time by
-    kernel name (torch.profiler's CUDA activity). A trace without a K4
-    launch (the profiler now and then loses a window's CUDA activity) is
-    profiled again."""
+    kernel name (torch.profiler's CUDA activity). A trace without a launch
+    of the `witness` kernel, (label, test on the event name), is profiled
+    again: the profiler now and then loses a window's CUDA activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, attempts + 1):
@@ -869,11 +932,13 @@ def _profile_step(exe, main, feed, loss, scope, p50_ms, card, attempts=3):
         spanned = [e for e in prof.events() if _is_span(e)]
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA and not _is_span(e)]
-        if any(K1_KERNEL in e.name and "true" in e.name for e in events):
+        if any(witness[1](e.name) for e in events):
             break
-        print(f"profile attempt {attempt}: no K4 launch in the trace", flush=True)
+        print(f"profile attempt {attempt}: no {witness[0]} launch in the "
+              f"trace", flush=True)
     else:
-        raise RuntimeError("the profiler saw no K4 launch in a training step")
+        raise RuntimeError(f"the profiler saw no {witness[0]} launch in a "
+                           f"training step")
     busy_us, end = 0.0, float("-inf")
     for e in sorted(events, key=lambda e: e.time_range.start):
         s, t = e.time_range.start, e.time_range.end
@@ -973,6 +1038,26 @@ def _rl2(a, b):
     return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
 
 
+def _grad_agreement(run_a, run_b, params, skip=()):
+    """Two runs of one step, (loss, grads): the loss's relative difference,
+    and per parameter (those in `skip` left out) the grads' relative L2
+    difference and norm ratio, with their median and extremes."""
+    import numpy as np
+    (la, ga), (lb, gb) = run_a, run_b
+    pairs = [(p, x, y) for p, x, y in zip(params, ga, gb) if p not in skip]
+    rl2 = {p: _rl2(x, y) for p, x, y in pairs}
+    ratio = {p: float(np.linalg.norm(x) / (np.linalg.norm(y) + 1e-30))
+             for p, x, y in pairs}
+    return {"loss_rel_diff": abs(la - lb) / abs(lb),
+            "grad_rl2_median": float(np.median(list(rl2.values()))),
+            "grad_rl2_max": max(rl2.values()),
+            "grad_rl2_worst": max(rl2, key=rl2.get),
+            "norm_ratio_min": min(ratio.values()),
+            "norm_ratio_median": float(np.median(list(ratio.values()))),
+            "norm_ratio_max": max(ratio.values()),
+            "grad_rl2": rl2, "norm_ratio": ratio}
+
+
 def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
     import numpy as np
     import torch
@@ -1031,7 +1116,8 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
     if conv_fb != {k: v * TRAIN_STEPS for k, v in TRAIN_FALLBACKS.items()} or bn_fb:
         raise RuntimeError(f"unexpected fallbacks: conv {conv_fb}, bn {bn_fb}")
 
-    profile = _profile_step(exe, main, feed, loss, scope, p50, card)
+    profile = _profile_step(exe, main, feed, loss, scope, p50, card, (
+        "K4", lambda name: K1_KERNEL in name and "true" in name))
 
     # batch 4 from the startup weights: op by op, then end to end, card vs
     # the CPU plain path, in O2 and in f32
@@ -1057,32 +1143,19 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
         runs[key] = _step(pt, prog, lss, params, init, small, place)
         print(f"{key}: one batch-{SMALL_BATCH} step, loss {runs[key][0]:.6f}, "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    import numpy as np
     agree = {}
-    for what, a, b, loss_tol in (("o2", "o2_card", "o2_cpu", O2_LOSS_RTOL),
-                                 ("f32", "f32_card", "f32_cpu", F32_LOSS_RTOL),
-                                 ("o2_cpu_vs_f32", "o2_cpu", "f32_cpu", None)):
-        (la, ga), (lb, gb) = runs[a], runs[b]
-        rl2 = {p: _rl2(x, y) for p, x, y in zip(params, ga, gb)}
-        ratio = {p: float(np.linalg.norm(x) / (np.linalg.norm(y) + 1e-30))
-                 for p, x, y in zip(params, ga, gb)}
-        agree[what] = {"loss_rel_diff": abs(la - lb) / abs(lb),
-                       "grad_rl2_median": float(np.median(list(rl2.values()))),
-                       "grad_rl2_max": max(rl2.values()),
-                       "fc_grad_rl2": max(v for k, v in rl2.items()
-                                          if k.startswith("fc_")),
-                       "norm_ratio_min": min(ratio.values()),
-                       "norm_ratio_median": float(np.median(list(ratio.values()))),
-                       "norm_ratio_max": max(ratio.values()),
-                       "grad_rl2": rl2, "norm_ratio": ratio}
-        r = agree[what]
+    for what, a, b in (("o2", "o2_card", "o2_cpu"), ("f32", "f32_card", "f32_cpu"),
+                       ("o2_cpu_vs_f32", "o2_cpu", "f32_cpu")):
+        r = agree[what] = _grad_agreement(runs[a], runs[b], params)
+        r["fc_grad_rl2"] = max(v for k, v in r["grad_rl2"].items()
+                               if k.startswith("fc_"))
         print(f"{what} ({a} vs {b}): loss {r['loss_rel_diff']:.3g} relative; "
               f"grad relative L2 median {r['grad_rl2_median']:.3g}, max "
               f"{r['grad_rl2_max']:.3g}, fc {r['fc_grad_rl2']:.3g}; grad norm "
               f"ratio min {r['norm_ratio_min']:.3g}, median "
               f"{r['norm_ratio_median']:.3g}, max {r['norm_ratio_max']:.3g} "
               f"({card})", flush=True)
-        if not all(np.isfinite(x).all() for x in ga):
+        if not all(np.isfinite(x).all() for x in runs[a][1]):
             raise RuntimeError(f"{a}: non-finite grads")
     o2, f32, floor = agree["o2"], agree["f32"], agree["o2_cpu_vs_f32"]
     failed = []
@@ -1113,6 +1186,447 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
     return per_step
 
 
+# --- the transformer LM: the kernels K7-K9 -------------------------------------
+
+def _attention_pairs(tq, tk, causal) -> int:
+    """(query, key) pairs a call at offsets 0 scores that the mask keeps."""
+    return sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
+
+
+def attention_flops(kernel: str, b, tq, tk, h, d, causal) -> int:
+    """Tensor-core FLOPs a K7 ("fwd"), K8 ("dq") or K9 ("dkv") call needs:
+    2*D per scored pair for each of the kernel's products (K7: S, P V; K8:
+    S, dP, dS K; K9: S, dP, P^T dO, dS^T Q)."""
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+    return products * 2 * d * b * h * _attention_pairs(tq, tk, causal)
+
+
+def attention_bytes(kernel: str, b, tq, tk, h, d) -> int:
+    """Each input read once, each output written once (bf16 operands, f32
+    lse/delta)."""
+    q, kv, stat = b * tq * h * d * 2, b * tk * h * d * 2, b * h * tq * 4
+    if kernel == "fwd":
+        return q + 2 * kv + q + stat
+    if kernel == "dq":
+        return 2 * q + 2 * kv + 2 * stat + q
+    return 2 * q + 2 * kv + 2 * stat + 2 * kv
+
+
+def attention_tolerance(kernel, q, k, v, causal, dout=None, lse=None,
+                        delta=None, flips=4):
+    """The per-element bound on |kernel - plain version| for each bf16
+    output of K7 ("fwd": o), K8 ("dq": dq) or K9 ("dkv": dk, dv), offsets 0,
+    operands [B, T, H, D]. Each output element is a sum of products a*b
+    (K7: P/l * V; K8: scale * dS * K; K9: P^T * dO and scale * dS^T * Q)
+    that both sides form from the same bf16 values but in another order.
+    So: one ulp of the rounded output, 1e-5 of the sum of the terms'
+    magnitudes (f32 sums in another order), and `flips` bf16 roundings of P
+    or dS landing on the other side (2^-8 of the largest term each; the f32
+    values they round differ in the last bits). `lse` (K7: none needed) and
+    `delta` [B, H, T] as the kernels take them. Also used by
+    tests/test_torch_attention*.py."""
+    import torch
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    if lse is None:
+        lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse.float()[..., None])
+    pairs = []
+    if kernel == "fwd":
+        pairs.append((p, vf, 1.0))
+    else:
+        dof = dout.float().permute(0, 2, 1, 3)
+        ds = (p * (torch.matmul(dof, vf.transpose(-1, -2))
+                   - delta.float()[..., None])).abs()
+        if kernel == "dq":
+            pairs.append((ds, kf, scale))
+        else:
+            pairs += [(ds.transpose(-1, -2), qf, scale),
+                      (p.transpose(-1, -2), dof, 1.0)]
+    out = []
+    for a, b, sc in pairs:
+        b = b.abs()
+        total = torch.matmul(a, b) * sc
+        largest = a.amax(-1, keepdim=True) * b.amax(-2, keepdim=True) * sc
+        ulp = torch.exp2(torch.floor(torch.log2(total.clamp_min(1e-30))) - 7)
+        bound = ulp + 1e-5 * total + flips * 2.0 ** -8 * largest + 1e-6
+        out.append(bound.permute(0, 2, 1, 3))
+    return out
+
+
+def _bounded(got, want, bound, what):
+    """Max abs error of a kernel output; raise where past `bound`."""
+    err = (got.float() - want.float()).abs()
+    if not (err <= bound).all():
+        raise RuntimeError(f"{what}: max abs err {err.max().item():.4g}, "
+                           f"past its bound by {(err - bound).max().item():.4g}")
+    return err.max().item()
+
+
+def _lse_err(got, want, what):
+    err = (got - want).abs()
+    if not (err <= LSE_RTOL * want.abs().clamp_min(1.0)).all():
+        raise RuntimeError(f"{what}: LSE max abs err {err.max().item():.4g}")
+    return err.max().item()
+
+
+def phase_kernel_attn(attention_cuda, report):
+    """K7-K9 against their plain versions at the JAX tests' shapes, T = 72
+    at D 64 and 128, and the bench shape, each run twice and bitwise
+    repeatable; then timed at the bench shape beside the bound, the plain
+    versions and F.scaled_dot_product_attention (forward for K7, its
+    backward for K8 + K9 together)."""
+    import torch
+    import torch.nn.functional as F
+    A = attention_cuda
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    timed = None
+    for shape, causal in ATTN_SHAPES:
+        b, t, h, d = shape
+        q, k, v, do = (randn(shape) for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = _twice(lambda: A.flash_forward(q, k, v, causal))
+        ro, rlse = A.flash_forward_reference(q, k, v, causal)
+        bo, = attention_tolerance("fwd", q, k, v, causal)
+        at = f"{list(shape)} causal={causal}"
+        e_o = _bounded(o, ro, bo, f"K7 o at {at}")
+        e_lse = _lse_err(lse, rlse, f"K7 at {at}")
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, 0, 0, scale, causal)
+        dq = _twice(lambda: A.flash_dq(*args))
+        dk, dv = _twice(lambda: A.flash_dkv(*args))
+        bq, = attention_tolerance("dq", q, k, v, causal, do, lse, delta)
+        bk, bv = attention_tolerance("dkv", q, k, v, causal, do, lse, delta)
+        e_q = _bounded(dq, A.flash_dq_reference(*args), bq, f"K8 dq at {at}")
+        rk, rv = A.flash_dkv_reference(*args)
+        e_k = _bounded(dk, rk, bk, f"K9 dk at {at}")
+        e_v = _bounded(dv, rv, bv, f"K9 dv at {at}")
+        del ro, rlse, bo, bq, bk, bv, rk, rv
+        worst["fwd"] = max(worst["fwd"], e_o)
+        worst["dq"] = max(worst["dq"], e_q)
+        worst["dkv"] = max(worst["dkv"], e_k, e_v)
+        print(f"K7/K8/K9 at {at}: max abs err o {e_o:.3g} (lse {e_lse:.3g}), "
+              f"dq {e_q:.3g}, dk {e_k:.3g}, dv {e_v:.3g}; each bitwise "
+              f"repeatable", flush=True)
+        if shape == ATTN_BENCH and causal:
+            timed = (q, k, v, do, args)
+        torch.cuda.empty_cache()
+
+    q, k, v, do, args = timed
+    b, t, h, d = ATTN_BENCH
+    qv, kv, vv, dov = (x.transpose(1, 2) for x in (q, k, v, do))   # [B,H,T,D]
+    leaves = [x.detach().requires_grad_(True) for x in (qv, kv, vv)]
+    lib_fwd = _device_ms(lambda: F.scaled_dot_product_attention(
+        qv, kv, vv, is_causal=True))
+    lib_both = _device_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, dov))
+    times = {
+        "fwd": (_device_ms(lambda: A.flash_forward(q, k, v, True)),
+                _device_ms(lambda: A.flash_forward_reference(q, k, v, True)),
+                lib_fwd),
+        "dq": (_device_ms(lambda: A.flash_dq(*args)),
+               _device_ms(lambda: A.flash_dq_reference(*args)),
+               lib_both - lib_fwd),
+        "dkv": (_device_ms(lambda: A.flash_dkv(*args)),
+                _device_ms(lambda: A.flash_dkv_reference(*args)),
+                lib_both - lib_fwd)}
+    del timed, q, k, v, do, args, leaves
+    torch.cuda.empty_cache()
+    per = LM["n_layer"]
+    kernels, rows = [], []
+    for kern, name, source, replaces in (
+            ("fwd", "flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+             "paddle_tpu/ops/pallas_attention.py:143"),
+            ("dq", "flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+             "paddle_tpu/ops/pallas_attention.py:295"),
+            ("dkv", "flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+             "paddle_tpu/ops/pallas_attention.py:342")):
+        flops = attention_flops(kern, b, t, t, h, d, True)
+        nbytes = attention_bytes(kern, b, t, t, h, d)
+        ms, plain_ms, lib_ms = times[kern]
+        row = _row(name, f"{list(ATTN_BENCH)} causal", per, ms, plain_ms,
+                   lib_ms, flops, nbytes, worst[kern], PEAK_BF16_FLOPS)
+        rows.append(row)
+        lib = "forward" if kern == "fwd" else "backward (dQ, dK, dV)"
+        print(f"{name} at {list(ATTN_BENCH)} causal: {ms:.4f} ms per call, "
+              f"plain {plain_ms:.4f}, SDPA {lib} {lib_ms:.4f}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}; "
+              f"{flops / 1e9:.1f} GFLOP = {flops / ms / 1e9:.1f} TFLOP/s)",
+              flush=True)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": worst[kern],
+            "ms": ms * per, "plain_ms": plain_ms * per,
+            "bound_ms": row["bound_ms"] * per, "bound_by": row["bound_by"],
+            "library_ms": lib_ms * per,
+            "library": "F.scaled_dot_product_attention" + (
+                "" if kern == "fwd" else " backward, dQ + dK + dV (K8 and K9 "
+                "together)"),
+            "per": f"the {per} calls of one batch-{b} T-{t} transformer_lm "
+                   f"training step, {list(ATTN_BENCH)} causal"})
+    report["attn_kernel"] = {"bench_shape": rows, "max_abs_err": worst}
+    return kernels
+
+
+# --- the transformer LM: training and serving -----------------------------------
+
+def _transformer(pt, amp=True, is_test=False, use_flash="auto"):
+    """bench.py's `transformer` model through the port's fluid API: the
+    training program (Adam, amp.decorate O2) or, with is_test, the served
+    one (logits returned, amp.enable O2). The same variable names."""
+    main, startup = pt.Program(), pt.Program()
+    t = LM["seqlen"]
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        tok = pt.layers.data(name="tok", shape=[-1, t], dtype="int64",
+                             append_batch_size=False)
+        lab = pt.layers.data(name="lab", shape=[-1, t], dtype="int64",
+                             append_batch_size=False)
+        loss, logits = pt.models.transformer_lm(
+            tok, lab, vocab_size=LM["vocab"], d_model=LM["d_model"],
+            n_head=LM["n_head"], n_layer=LM["n_layer"], use_flash=use_flash,
+            is_test=is_test, return_logits=True)
+        if is_test:
+            if amp:
+                pt.amp.enable(main, level="O2")
+        else:
+            opt = pt.optimizer.Adam(learning_rate=LM["lr"])
+            if amp:
+                opt = pt.amp.decorate(opt, level="O2")
+            opt.minimize(loss, startup_program=startup)
+    main.random_seed = startup.random_seed = SEED + 1
+    return main, startup, loss, logits
+
+
+def _k_biases(main):
+    """The biases of the K projections. Their gradient is zero in exact
+    arithmetic (a bias on K adds one constant to each query's scores, and
+    softmax ignores it), so what any run computes for it is rounding noise
+    (norm ~1e-10 against a median of ~1e-2 on the CPU): it is left out of
+    the relative comparisons."""
+    block = main.global_block()
+    made_by = {n: op for op in block.ops for n in op.output_arg_names}
+    return {made_by[made_by[op.input("K")[0]].input("X")[0]].input("Y")[0]
+            for op in block.ops if op.type == "scaled_dot_product_attention"}
+
+
+def phase_train_lm(pt, attention_cuda, report):
+    import numpy as np
+    import torch
+    A = attention_cuda
+    B, T, V = LM["batch"], LM["seqlen"], LM["vocab"]
+    main, startup, loss, _ = _transformer(pt)
+    scope = pt.Scope()
+    exe = pt.Executor()                        # CUDAPlace(0) by default
+    exe.run(startup, scope=scope)
+    init = {n: v.clone() for n, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+    rng = np.random.default_rng(SEED)
+    feed = {"tok": rng.integers(0, V, (B, T)).astype(np.int64),
+            "lab": rng.integers(0, V, (B, T)).astype(np.int64)}
+    card = _card_line()
+
+    t0 = time.perf_counter()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0][0])]
+    print(f"transformer_lm warm-up step: {time.perf_counter() - t0:.2f} s, "
+          f"loss {losses[0]:.5f}", flush=True)
+    A.COUNTERS.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()               # the fetch ends in a device->host copy
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+        times.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: getattr(A.COUNTERS, k)
+                for k in ("launches", "dq_launches", "dkv_launches")}
+    hits, fallbacks = dict(A.COUNTERS.hits), dict(A.COUNTERS.fallbacks)
+    p50 = float(np.median(times)) * 1e3
+    tok_s = B * T / (p50 / 1e3)
+    print(f"transformer_lm O2 training, batch {B}, T {T}: step p50 {p50:.1f} ms "
+          f"(steps {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{tok_s:.0f} tokens/s; peak memory {peak_gb:.2f} GB ({card})",
+          flush=True)
+    print(f"losses: {', '.join(f'{v:.5f}' for v in losses)}", flush=True)
+    per_step = {k: v / LM_STEPS for k, v in launches.items()}
+    print(f"K7/K8/K9 launches per step: {per_step}; flash-path calls {hits}; "
+          f"attention fallbacks {fallbacks}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the training loss is not finite and falling: {losses}")
+    want = LM["n_layer"] * LM_STEPS
+    if any(v != want for v in launches.values()) or fallbacks:
+        raise RuntimeError(f"K7/K8/K9 launches {launches}, expected {want} "
+                           f"each; fallbacks {fallbacks}")
+
+    profile = _profile_step(exe, main, feed, loss, scope, p50, card, (
+        "K7", lambda name: "flash_fwd_kernel" in name))
+
+    # batch 1 from the startup weights: op by op, then end to end, card vs
+    # the CPU plain path, in O2 and in f32; the CPU's O2 flash path against
+    # its O2 einsum path is the bf16 noise floor the O2 grads are held to
+    small = {k: v[:LM_SMALL_BATCH] for k, v in feed.items()}
+    t0 = time.perf_counter()
+    worst = _lockstep(pt, main, loss, init, small)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])
+    print(f"lockstep, batch {LM_SMALL_BATCH}: {len(worst)} op kinds, each output "
+          f"on the card against the CPU plain path on the card's inputs "
+          f"({time.perf_counter() - t0:.1f} s); worst relative L2: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in top[:8])
+          + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32)", flush=True)
+    params = sorted(p.name for p in main.global_block().all_parameters()
+                    if p.trainable)
+    skip = _k_biases(main)
+    main32, _, loss32, _ = _transformer(pt, amp=False)
+    main_e, _, loss_e, _ = _transformer(pt, use_flash=False)
+    runs = {}
+    for key, prog, lss, place in (
+            ("o2_card", main, loss, pt.CUDAPlace(0)),
+            ("o2_cpu", main, loss, pt.CPUPlace()),
+            ("o2_cpu_einsum", main_e, loss_e, pt.CPUPlace()),
+            ("f32_card", main32, loss32, pt.CUDAPlace(0)),
+            ("f32_cpu", main32, loss32, pt.CPUPlace())):
+        t0 = time.perf_counter()
+        runs[key] = _step(pt, prog, lss, params, init, small, place)
+        print(f"{key}: one batch-{LM_SMALL_BATCH} step, loss {runs[key][0]:.6f}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not all(np.isfinite(g).all() for g in runs[key][1]):
+            raise RuntimeError(f"{key}: non-finite grads")
+    agree = {what: _grad_agreement(runs[a], runs[b], params, skip)
+             for what, a, b in (("o2", "o2_card", "o2_cpu"),
+                                ("f32", "f32_card", "f32_cpu"),
+                                ("o2_cpu_flash_vs_einsum", "o2_cpu",
+                                 "o2_cpu_einsum"))}
+    for what, r in agree.items():
+        print(f"{what}: loss {r['loss_rel_diff']:.3g} relative; grad relative "
+              f"L2 median {r['grad_rl2_median']:.3g}, max {r['grad_rl2_max']:.3g} "
+              f"({r['grad_rl2_worst']}); grad norm ratio "
+              f"{r['norm_ratio_min']:.5f}-{r['norm_ratio_max']:.5f} "
+              f"({len(params) - len(skip)} parameters; the {len(skip)} K "
+              f"biases left out) ({card})", flush=True)
+    kb = {p: float(np.linalg.norm(g)) for p, g in zip(params, runs["f32_cpu"][1])
+          if p in skip}
+    print(f"the K biases' grad norms (f32, CPU): {kb}", flush=True)
+    o2, f32, floor = agree["o2"], agree["f32"], agree["o2_cpu_flash_vs_einsum"]
+    failed = []
+    if o2["loss_rel_diff"] > LM_O2_LOSS_RTOL or \
+            f32["loss_rel_diff"] > LM_F32_LOSS_RTOL:
+        failed.append("loss")
+    if o2["grad_rl2_median"] > LM_SPREAD_FACTOR * floor["grad_rl2_median"] or \
+            o2["grad_rl2_max"] > LM_SPREAD_FACTOR * floor["grad_rl2_max"]:
+        failed.append("O2 grads past twice the noise floor")
+    if f32["grad_rl2_median"] > LM_F32_GRAD_RL2[0] or \
+            f32["grad_rl2_max"] > LM_F32_GRAD_RL2[1]:
+        failed.append("f32 grads")
+    for what, tol in (("o2", LM_NORM_RATIO[0]), ("f32", LM_NORM_RATIO[1])):
+        r = agree[what]
+        if not (1 - tol <= r["norm_ratio_min"] and r["norm_ratio_max"] <= 1 + tol):
+            failed.append(f"{what} grad norms")
+    if failed:
+        raise RuntimeError(f"the batch-{LM_SMALL_BATCH} step on the card "
+                           f"disagrees with the CPU plain path: {failed}")
+    report["train_lm"] = {
+        "card": card, "config": LM, "step_ms": [t * 1e3 for t in times],
+        "p50_ms": p50, "tokens_per_s": tok_s, "losses": losses,
+        "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+        "hits": hits, "profile": profile, "lockstep_worst_rl2": worst,
+        "small_batch": agree, "k_bias_grad_norms": kb}
+    return launches
+
+
+def phase_serve_lm(pt, attention_cuda, report):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import ServingEngine
+    A = attention_cuda
+    T, V = LM["seqlen"], LM["vocab"]
+    main, startup, _, logits = _transformer(pt, is_test=True)
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    engine = ServingEngine(main, ["tok"], [logits], buckets=LM_BUCKETS,
+                           scope=scope)
+    served = {op.type for op in engine.program.global_block().ops}
+    if served & {"softmax_with_cross_entropy", "mean", "adam"}:
+        raise RuntimeError(f"the loss tail survived pruning to logits: {served}")
+    rng = np.random.default_rng(SEED + 6)
+    requests = [rng.integers(0, V, (n, T)).astype(np.int64)
+                for n in LM_SERVE_SIZES]
+    for b in LM_BUCKETS:                       # warm-up: one batch per bucket
+        engine.infer({"tok": requests[0][:1].repeat(b, axis=0)})
+    torch.cuda.synchronize()
+    A.COUNTERS.reset()
+    outs, single = [], []
+    t_window = time.perf_counter()
+    for req in requests:
+        t0 = time.perf_counter()
+        out, = engine.infer({"tok": req})      # ends in a device->host copy
+        single.append((engine.bucket_for(req.shape[0]),
+                       (time.perf_counter() - t0) * 1e3))
+        outs.append(out)
+    window_s = time.perf_counter() - t_window
+    launches, fallbacks = A.COUNTERS.launches, dict(A.COUNTERS.fallbacks)
+    for req, out in zip(requests, outs):
+        if out.shape != (req.shape[0], T, V) or not np.isfinite(out).all():
+            raise RuntimeError(f"logits {out.shape} for tokens {req.shape}, "
+                               f"or not finite")
+    if launches != LM["n_layer"] * len(requests) or fallbacks:
+        raise RuntimeError(f"K7 launched {launches} times over {len(requests)} "
+                           f"bucket runs, expected {LM['n_layer']} each; "
+                           f"fallbacks {fallbacks}")
+    if not np.array_equal(engine.infer({"tok": requests[0]})[0], outs[0]):
+        raise RuntimeError("a repeated request gave a different answer")
+    cpu_scope = pt.Scope()
+    for n in engine._prepared.state_names:
+        cpu_scope.set_var(n, scope.find_var(n).cpu())
+    cpu_engine = ServingEngine(main, ["tok"], [logits], place=pt.CPUPlace(),
+                               scope=cpu_scope, buckets=LM_BUCKETS)
+    ref = cpu_engine.infer({"tok": requests[0]})[0].astype(np.float64)
+    got = outs[0].astype(np.float64)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    same = float((got.argmax(-1) == ref.argmax(-1)).mean())
+    card = _card_line()
+    lat = {b: [] for b in LM_BUCKETS}          # the window gives 1-2 per bucket
+    for b in LM_BUCKETS:
+        full = rng.integers(0, V, (b, T)).astype(np.int64)
+        for _ in range(LM_LATENCY_REPS):
+            t0 = time.perf_counter()
+            engine.infer({"tok": full})
+            lat[b].append((time.perf_counter() - t0) * 1e3)
+    p50 = {b: float(np.median(v)) for b, v in lat.items()}
+    tok_s = sum(LM_SERVE_SIZES) * T / window_s
+    print(f"served logits vs the CPU plain path, {requests[0].shape[0]} row(s): "
+          f"max abs diff {rel:.3g} of the largest |logit| (tol "
+          f"{LM_LOGIT_RTOL}); argmax equal at {same:.4f} of the positions",
+          flush=True)
+    print(f"K7 launches {launches} = {LM['n_layer']} layers x {len(requests)} "
+          f"bucket runs; the window's single-request latencies (bucket: ms) "
+          + ", ".join(f"{b}: {v:.2f}" for b, v in single)
+          + f"; {tok_s:.0f} tokens/s over the {len(requests)} requests' window "
+            f"({window_s:.3f} s)", flush=True)
+    print(f"p50 latency per bucket over {LM_LATENCY_REPS} full-bucket requests "
+          f"each (ms, host clock, {card}): "
+          + ", ".join(f"bucket {b}: {v:.2f} ({min(lat[b]):.2f}-"
+                      f"{max(lat[b]):.2f})" for b, v in p50.items()), flush=True)
+    if rel > LM_LOGIT_RTOL:
+        raise RuntimeError("the served logits disagree with the CPU plain path")
+    report["serve_lm"] = {"card": card, "p50_ms": p50, "latencies_ms": lat,
+                          "window_latencies_ms": single,
+                          "tokens_per_s": tok_s, "window_s": window_s,
+                          "launches": launches, "cpu_logit_rel_diff": rel,
+                          "cpu_argmax_equal": same}
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measurements as JSON here")
@@ -1130,7 +1644,8 @@ def main(argv=None) -> int:
         return 2
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import resnet
-    from paddle_tpu_torch.ops import bn_cuda, conv_cuda, cuda_build
+    from paddle_tpu_torch.ops import (attention_cuda, bn_cuda, conv_cuda,
+                                      cuda_build)
 
     card = _card_line()
     print(f"device: {card}; torch {torch.__version__}, CUDA "
@@ -1156,7 +1671,17 @@ def main(argv=None) -> int:
                                       "stats_launches", "apply_launches",
                                       "act_launches")):
         k["launches"] = int(per_step[key] * TRAIN_STEPS)
-    kernels = {"kernels": [k1] + train_kernels}
+    attn_kernels = phase_kernel_attn(attention_cuda, report)
+    lm_launches = phase_train_lm(pt, attention_cuda, report)
+    serve_launches = phase_serve_lm(pt, attention_cuda, report)
+    for k, key in zip(attn_kernels, ("launches", "dq_launches",
+                                     "dkv_launches")):
+        by_path = {"train_lm": lm_launches[key]}
+        if key == "launches":
+            by_path["serve_lm"] = serve_launches
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
+    kernels = {"kernels": [k1] + train_kernels + attn_kernels}
     report.update(kernels)
     if args.report:
         with open(args.report, "w") as f:

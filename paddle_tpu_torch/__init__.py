@@ -3,14 +3,16 @@
 The JAX package `paddle_tpu` stays beside it as the reference; this package
 imports `torch` and numpy, never `jax` and nothing of `paddle_tpu`. Module
 and public names follow paddle_tpu's, so each file has an obvious
-counterpart. The port serves and trains image classifiers: Program/Block
-IR, the layers DSL for ResNet, AMP O1/O2, append_backward with generic and
-explicit grad ops, the SGD/Momentum/Adam optimizers, an eager Executor, the
-conv -> batch_norm [-> act] windows (the inference fold and the training
-kernels), the ServingEngine, and six hand-written kernels: K1-K4, the
-conv forward, grad-input, grad-filter and conv+statistics kernels in CUDA
-C++ for sm_90a (ops/conv_cuda.py), and K5-K6, the batch-norm kernels in
-Triton (ops/bn_cuda.py).
+counterpart. The port serves and trains image classifiers and the
+transformer language model: Program/Block IR, the layers DSL for ResNet
+and the transformer, AMP O1/O2, append_backward with generic and explicit
+grad ops, the SGD/Momentum/Adam optimizers, an eager Executor, the conv ->
+batch_norm [-> act] windows (the inference fold and the training kernels),
+the ServingEngine, and nine hand-written kernels: K1-K4, the conv forward,
+grad-input, grad-filter and conv+statistics kernels in CUDA C++ for sm_90a
+(ops/conv_cuda.py); K5-K6, the batch-norm kernels in Triton
+(ops/bn_cuda.py); K7-K9, the flash-attention forward, dQ and dK/dV kernels
+in CUDA C++ (ops/attention_cuda.py).
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """

@@ -1,8 +1,9 @@
-"""Neural-network layers DSL, the part the serving and training slices use
-(the port's counterpart of paddle_tpu/layers/nn.py; reference
-python/paddle/fluid/layers/nn.py — fc :81, square_error_cost :965, conv2d
-:1120, pool2d :1425, batch_norm :1478, reduces :2055-2239). Each layer
-emits the same ops, attrs and names as the JAX package's."""
+"""Neural-network layers DSL, the part the ported slices use (the port's
+counterpart of paddle_tpu/layers/nn.py; reference
+python/paddle/fluid/layers/nn.py — fc :81, embedding :188, square_error_cost
+:965, conv2d :1120, pool2d :1425, batch_norm :1478, layer_norm, reduces
+:2055-2239, reshape), and fused_attention (no reference counterpart). Each
+layer emits the same ops, attrs and names as the JAX package's."""
 
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = [
-    "fc", "conv2d", "pool2d", "batch_norm", "softmax_with_cross_entropy",
-    "square_error_cost",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "softmax_with_cross_entropy", "square_error_cost", "reshape",
+    "fused_attention",
     "accuracy", "mean", "elementwise_add", "elementwise_sub",
     "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min", "elementwise_pow", "reduce_sum", "reduce_mean",
@@ -65,6 +67,33 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          outputs={"Out": [pre_bias]})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32",
+              shard_axis=None, cache_rows=None):
+    """Embedding lookup (reference nn.py:188): a `lookup_table` op over a
+    [vocab, dim] parameter. A negative padding_idx counts from the end.
+    The row-sharded table (is_distributed, shard_axis) is slice 9 and the
+    hot-row cache (cache_rows) slice 7; is_sparse=True builds, and its
+    SelectedRows gradient raises in lookup_table_grad (slice 7)."""
+    if is_distributed or shard_axis is not None:
+        raise NotImplementedError("a row-sharded embedding table is slice 9 "
+                                  "of the port (parallel/)")
+    if cache_rows is not None:
+        raise NotImplementedError("the hot-row embedding cache is slice 7 of "
+                                  "the port (sparse embeddings)")
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(attr=helper.param_attr, shape=size,
+                                dtype=dtype, is_bias=False)
+    tmp = helper.create_tmp_variable(dtype)
+    padding_idx = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    helper.append_op(type="lookup_table",
+                     inputs={"W": [w], "Ids": [input]},
+                     outputs={"Out": [tmp]},
+                     attrs={"is_sparse": is_sparse, "padding_idx": padding_idx})
+    return tmp
 
 
 def square_error_cost(input, label):
@@ -170,6 +199,67 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                  "SavedMean": [saved_mean], "SavedVariance": [saved_variance]},
         attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test})
     return helper.append_activation(out)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """Layer normalization over the dims from begin_norm_axis on (reference
+    layer_norm_op.cc), with a [prod(dims)] Scale (ones) and Bias."""
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    param_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            attr=helper.param_attr, shape=param_shape, dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(attr=helper.bias_attr, shape=param_shape,
+                                    dtype=dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    mean_out = helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+    variance_out = helper.create_tmp_variable(dtype=dtype, stop_gradient=True)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [out], "Mean": [mean_out],
+                              "Variance": [variance_out]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):
+    """Reshape to `shape`: a 0 copies the input's dim, one -1 is inferred."""
+    helper = LayerHelper("reshape", act=act, name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="reshape", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def fused_attention(q, k, v, causal=False,
+                    sequence_parallel=False, use_flash="auto", name=None):
+    """Softmax attention over [B, T, H, D] tensors, one
+    `scaled_dot_product_attention` op (nn.py:1083). use_flash=True takes
+    the flash kernels (K7 forward, K8 + K9 backward, ops/attention_cuda.py);
+    False the einsum path; "auto" picks flash from T = 2048
+    (ops/nn_ops.FLASH_AUTO_T). The op also writes LSE, the f32
+    per-row logsumexp the explicit backward starts from, a stop_gradient
+    output. sequence_parallel=True (ring attention) raises when the op
+    runs: slice 9."""
+    helper = LayerHelper("fused_attention")
+    out = helper.create_tmp_variable(q.dtype)
+    lse = helper.create_tmp_variable("float32", stop_gradient=True)
+    helper.append_op(type="scaled_dot_product_attention",
+                     inputs={"Q": [q], "K": [k], "V": [v]},
+                     outputs={"Out": [out], "LSE": [lse]},
+                     attrs={"causal": causal,
+                            "sequence_parallel": sequence_parallel,
+                            "use_flash": use_flash})
+    return out
 
 
 def accuracy(input, label, k=1, correct=None, total=None):

@@ -1,4 +1,4 @@
-"""Tensor-creation layers, the part the training slice uses (the port's
+"""Tensor-creation layers, the part the training slices use (the port's
 counterpart of paddle_tpu/layers/tensor.py; reference
 python/paddle/fluid/layers/tensor.py)."""
 
@@ -7,8 +7,19 @@ from __future__ import annotations
 from ..framework.framework import convert_dtype
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
-__all__ = ["create_global_var", "fill_constant"]
+__all__ = ["create_parameter", "create_global_var", "fill_constant"]
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter outside any layer (tensor.py:24), initialized by the
+    startup program; the transformer keeps its position embedding in one."""
+    helper = LayerHelper("create_parameter", name=name)
+    attr = ParamAttr.to_attr(attr) if attr else ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
 
 
 def create_global_var(shape, value, dtype, persistable=False,

@@ -1,8 +1,9 @@
-"""Model zoo, the part the serving slice uses (the port's counterpart of
+"""Model zoo, the part the ported slices use (the port's counterpart of
 paddle_tpu/models)."""
 
 from .resnet import resnet_cifar10, resnet_imagenet, resnet50
 from .common import build_image_classifier
+from .transformer import transformer_lm
 
 __all__ = ["resnet_cifar10", "resnet_imagenet", "resnet50",
-           "build_image_classifier"]
+           "build_image_classifier", "transformer_lm"]

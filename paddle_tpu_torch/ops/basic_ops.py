@@ -1,6 +1,7 @@
-"""Basic ops: fills, randoms, scale, top_k (the port's counterpart of
-paddle_tpu/ops/basic_ops.py; reference fill_constant_op.cc,
-uniform_random_op.cc, gaussian_random_op.cc, scale_op.cc, top_k_op.cc).
+"""Basic ops: fills, randoms, scale, top_k, reshape (the port's counterpart
+of paddle_tpu/ops/basic_ops.py; reference fill_constant_op.cc,
+uniform_random_op.cc, gaussian_random_op.cc, scale_op.cc, top_k_op.cc,
+reshape_op.cc).
 
 The random ops draw from a torch.Generator that the executor seeds per op
 (executor.LoweringContext.generator). Its numbers differ from JAX's
@@ -10,6 +11,7 @@ initialized parameters across (interop.py) instead of comparing draws.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .common import in_var, same_as_input, set_out, to_torch_dtype
@@ -74,3 +76,29 @@ def _top_k_infer(op_, block):
 def _top_k(ctx, op_, ins):
     vals, idxs = torch.topk(ins["X"][0], op_.attr("k", 1), dim=-1)
     return {"Out": [vals], "Indices": [idxs.to(torch.int64)]}
+
+
+# --- shape manipulation -------------------------------------------------------
+
+def _reshape_infer(op_, block):
+    """A 0 copies the input's dim; a -1 is inferred when every input dim is
+    known (basic_ops.py:217)."""
+    iv = in_var(op_, block, "X")
+    shape = list(op_.attr("shape"))
+    if iv is not None and iv.shape is not None and all(
+            s is not None for s in iv.shape):
+        src = list(iv.shape)
+        shape = [src[i] if s == 0 else s for i, s in enumerate(shape)]
+        if -1 in shape and all(s > 0 for s in src):
+            total = int(np.prod(src))
+            known = int(np.prod([s for s in shape if s != -1]))
+            shape[shape.index(-1)] = total // known
+    set_out(op_, block, "Out", shape, iv.dtype if iv else None)
+
+
+@op("reshape", infer_shape=_reshape_infer)
+def _reshape(ctx, op_, ins):
+    x = ins["X"][0]
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(op_.attr("shape"))]
+    return {"Out": [x.reshape(shape)]}

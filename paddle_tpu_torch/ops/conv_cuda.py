@@ -298,19 +298,6 @@ _STATS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p
 _WGRAD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
 
 
-def _entry(lib_name, fn_name, argtypes):
-    fn = getattr(cuda_build.load(lib_name), fn_name)
-    if fn.argtypes != argtypes:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _aligned(t):
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _check_cuda(name, operands, x, w, strides, paddings, dilations,
                 out_dtype):
     """Raise unless the `operands` lie on one CUDA device, x (NHWC) and w
@@ -340,10 +327,10 @@ def _launch_fwd(x, w_hwio, oh, ow, strides, pads, dilations, out_dtype):
     `pads`, explicit OH/OW. Counts nothing: its callers do."""
     n, h, wd, ci = x.shape
     kh, kw, _, co = w_hwio.shape
-    xc = _aligned(x)
-    wc = _aligned(w_hwio)
+    xc = cuda_build.aligned(x)
+    wc = cuda_build.aligned(w_hwio)
     y = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
-    fn = _entry("conv2d_fwd", "conv2d_fwd", _ARGTYPES)
+    fn = cuda_build.entry("conv2d_fwd", "conv2d_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(xc.data_ptr(), wc.data_ptr(), y.data_ptr(), n, h, wd, ci, co,
             kh, kw, oh, ow, strides[0], strides[1], pads[0], pads[1],
@@ -416,11 +403,11 @@ def conv2d_grad_filter(x, dout, kernel_hw, strides, paddings, dilations,
         raise ValueError(f"conv2d_grad_filter kernel: dout {tuple(dout.shape)}"
                          f" {dout.dtype} does not match x {tuple(x.shape)}")
     splits, per = wgrad_splits(x, probe, strides, paddings, dilations)
-    xc, dc = _aligned(x), _aligned(dout)
+    xc, dc = cuda_build.aligned(x), cuda_build.aligned(dout)
     ws = torch.empty((splits, co, kh * kw * ci), dtype=torch.float32,
                      device=x.device)
     out = torch.empty((co, ci, kh, kw), dtype=out_dtype, device=x.device)
-    fn = _entry("conv2d_wgrad", "conv2d_wgrad", _WGRAD_ARGTYPES)
+    fn = cuda_build.entry("conv2d_wgrad", "conv2d_wgrad", _WGRAD_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(xc.data_ptr(), dc.data_ptr(), ws.data_ptr(), out.data_ptr(),
             n, h, wd, ci, co, kh, kw, oh, ow, strides[0], strides[1],
@@ -445,12 +432,12 @@ def conv2d_stats(x, w, strides, paddings, dilations, out_dtype=None):
     co, _, kh, kw = w.shape
     oh, ow = _out_hw(x, w, strides, paddings, dilations)
     m_tiles = -(-n * oh * ow // 128)
-    xc = _aligned(x)
-    wc = _aligned(w.permute(2, 3, 1, 0))
+    xc = cuda_build.aligned(x)
+    wc = cuda_build.aligned(w.permute(2, 3, 1, 0))
     y = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
     part = torch.empty((2, m_tiles, co), dtype=torch.float32, device=x.device)
     sums = torch.empty((2, co), dtype=torch.float32, device=x.device)
-    fn = _entry("conv2d_fwd", "conv2d_fwd_stats", _STATS_ARGTYPES)
+    fn = cuda_build.entry("conv2d_fwd", "conv2d_fwd_stats", _STATS_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(xc.data_ptr(), wc.data_ptr(), y.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),

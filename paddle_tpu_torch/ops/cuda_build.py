@@ -23,8 +23,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
-# kernel name -> source file under csrc/
-SOURCES = {"conv2d_fwd": "conv2d_fwd.cu", "conv2d_wgrad": "conv2d_wgrad.cu"}
+# kernel library name -> source file under csrc/
+SOURCES = {"conv2d_fwd": "conv2d_fwd.cu", "conv2d_wgrad": "conv2d_wgrad.cu",
+           "flash_attn_fwd": "flash_attn_fwd.cu",
+           "flash_attn_bwd": "flash_attn_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,7 +48,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the csrc/ headers
+    it may include, and the flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -89,3 +94,21 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def entry(lib_name: str, fn_name: str, argtypes):
+    """A C entry point of a kernel library, its argtypes set (ctypes.c_void_p
+    for every pointer and the stream, so none is cut to 32 bits) and its
+    return type the CUDA error code."""
+    fn = getattr(load(lib_name), fn_name)
+    if fn.argtypes != argtypes:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def aligned(t):
+    """`t` contiguous with a 16-byte aligned data pointer (the kernels' vector
+    loads), copied only when it is not already."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

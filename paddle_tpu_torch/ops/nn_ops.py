@@ -1,7 +1,9 @@
 """NN ops: softmax, conv2d and its explicit grad, pool2d, batch_norm and the
-classifier head (the port's counterpart of paddle_tpu/ops/nn_ops.py;
-reference softmax_op.cc, conv_op.cc, pool_op.cc, batch_norm_op.cc,
-softmax_with_cross_entropy_op.cc, accuracy_op.cc).
+classifier head, the embedding lookup, layer_norm, and scaled dot-product
+attention with its explicit grad (the port's counterpart of
+paddle_tpu/ops/nn_ops.py; reference softmax_op.cc, conv_op.cc, pool_op.cc,
+batch_norm_op.cc, softmax_with_cross_entropy_op.cc, accuracy_op.cc,
+lookup_table_op.cc, layer_norm_op.cc).
 
 Layout: tensors are logical NCHW, as users see them. conv2d returns its
 output in `torch.channels_last` memory, so the NHWC view the kernel reads
@@ -12,10 +14,13 @@ Elementwise ops, batch_norm and pooling preserve that memory format.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import conv_cuda
+from ..framework.desc import OpDesc
+from ..framework.framework import grad_var_name
+from . import attention_cuda, conv_cuda
 from .common import in_var, mxu_cast, same_as_input, set_out
 from .registry import NO_GRAD, generic_grad_lower, infer_grad_shapes, op
 
@@ -125,6 +130,18 @@ def _conv2d(ctx, op_, ins):
     return {"Output": [out]}
 
 
+def _zero_grads(op_, ins):
+    """Zeros for every input grad an explicit grad op owes when its output
+    cotangent is missing (the output unused by the loss): no re-run."""
+    outs = {}
+    for slot, names in op_.desc.outputs.items():
+        srcs = ins.get(slot[: -len("@GRAD")], [])
+        outs[slot] = [torch.zeros_like(srcs[i])
+                      if i < len(srcs) and srcs[i] is not None else None
+                      for i in range(len(names))]
+    return outs
+
+
 @op("conv2d_grad", infer_shape=infer_grad_shapes, grad=NO_GRAD)
 def _conv2d_grad(ctx, op_, ins):
     """Explicit conv backward (nn_ops.py:340-409): eligible shapes take K2
@@ -139,13 +156,7 @@ def _conv2d_grad(ctx, op_, ins):
     memory and OIHW."""
     douts = ins.get("Output@GRAD")
     if not douts or douts[0] is None:
-        outs = {}
-        for slot, names in op_.desc.outputs.items():
-            srcs = ins.get(slot[: -len("@GRAD")], [])
-            outs[slot] = [torch.zeros_like(srcs[i])
-                          if i < len(srcs) and srcs[i] is not None else None
-                          for i in range(len(names))]
-        return outs
+        return _zero_grads(op_, ins)
     x, w = ins["Input"][0], ins["Filter"][0]
     s = _pair(op_.attr("strides", [1, 1]))
     p = _pair(op_.attr("paddings", [0, 0]))
@@ -270,3 +281,197 @@ def _batch_norm(ctx, op_, ins):
     return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
             "VarianceOut": [var_out], "SavedMean": [use_mean],
             "SavedVariance": [use_var]}
+
+
+# --- embedding ----------------------------------------------------------------
+
+def _lookup_infer(op_, block):
+    wv, iv = in_var(op_, block, "W"), in_var(op_, block, "Ids")
+    if wv is None or iv is None or wv.shape is None or iv.shape is None:
+        return
+    shape = list(iv.shape)
+    if shape and shape[-1] == 1:
+        shape = shape[:-1]
+    set_out(op_, block, "Out", shape + [wv.shape[1]], wv.dtype)
+
+
+def _squeezed_ids(ids):
+    """Ids with a trailing 1 squeezed ([N, 1] -> [N]), as the reference's
+    lookup takes them."""
+    if ids.dim() > 1 and ids.shape[-1] == 1:
+        ids = ids.reshape(ids.shape[:-1])
+    return ids
+
+
+@op("lookup_table", infer_shape=_lookup_infer, non_diff_inputs=("Ids",))
+def _lookup_table(ctx, op_, ins):
+    """Rows of W gathered by Ids; rows of `padding_idx` read as zeros
+    (nn_ops.py:189; the row-sharded table path waits for slice 9)."""
+    w = ins["W"][0]
+    ids = _squeezed_ids(ins["Ids"][0])
+    out = w[ids.long()]
+    pad = op_.attr("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        out = out.masked_fill((ids == pad)[..., None], 0.0)
+    return {"Out": [out]}
+
+
+@op("lookup_table_grad", grad=NO_GRAD)
+def _lookup_table_grad(ctx, op_, ins):
+    """The dense embedding gradient (nn_ops.py:211): the cotangent rows,
+    in W's dtype and zero at `padding_idx`, scatter-added into a zero
+    table. The SelectedRows gradient of `is_sparse=True` is slice 7."""
+    if op_.attr("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table_grad with is_sparse=True (a SelectedRows "
+            "gradient) is slice 7 of the port (sparse embeddings)")
+    w = ins["W"][0]
+    douts = ins.get("Out@GRAD")
+    if not douts or douts[0] is None:
+        return _zero_grads(op_, ins)
+    ids = _squeezed_ids(ins["Ids"][0]).reshape(-1).long()
+    g = douts[0]
+    g = g.reshape(-1, g.shape[-1]).to(w.dtype)
+    pad = op_.attr("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        g = g.masked_fill((ids == pad)[:, None], 0.0)
+    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, ids, g)]}
+
+
+# --- layer_norm -------------------------------------------------------------------
+
+def _ln_infer(op_, block):
+    xv = in_var(op_, block, "X")
+    if xv is None or xv.shape is None:
+        return
+    set_out(op_, block, "Y", xv.shape, xv.dtype)
+    ax = op_.attr("begin_norm_axis", 1)
+    left = int(np.prod([d for d in xv.shape[:ax]])) if all(
+        d is not None and d > 0 for d in xv.shape[:ax]) else None
+    set_out(op_, block, "Mean", [left] if left else None, "float32")
+    set_out(op_, block, "Variance", [left] if left else None, "float32")
+
+
+@op("layer_norm", infer_shape=_ln_infer)
+def _layer_norm(ctx, op_, ins):
+    """Normalize over the axes from begin_norm_axis on, in x's own dtype
+    (no local upcast, as nn_ops.py:656), then Scale and Bias multiplied in:
+    under AMP O2 a bf16 x times the f32 Scale promotes to f32, in torch as
+    in jnp. Mean and Variance come out flattened."""
+    x = ins["X"][0]
+    ax = op_.attr("begin_norm_axis", 1)
+    eps = op_.attr("epsilon", 1e-5)
+    axes = tuple(range(ax, x.dim()))
+    mean = torch.mean(x, dim=axes, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=axes, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    feat_shape = (1,) * ax + tuple(x.shape[ax:])
+    if ins.get("Scale") and ins["Scale"][0] is not None:
+        y = y * ins["Scale"][0].reshape(feat_shape)
+    if ins.get("Bias") and ins["Bias"][0] is not None:
+        y = y + ins["Bias"][0].reshape(feat_shape)
+    return {"Y": [y], "Mean": [mean.reshape(-1)],
+            "Variance": [var.reshape(-1)]}
+
+
+# --- attention ----------------------------------------------------------------------
+
+def _sdpa_infer(op_, block):
+    qv = in_var(op_, block, "Q")
+    if qv is not None:
+        set_out(op_, block, "Out", qv.shape, qv.dtype)
+        if "LSE" in op_.desc.outputs:
+            b, t, h = qv.shape[0], qv.shape[1], qv.shape[2]
+            set_out(op_, block, "LSE", [b, h, t], "float32")
+
+
+def _sdpa_grad(fwd, no_grad_set):
+    """The explicit grad op, fed the forward's saved Out and LSE
+    (nn_ops.py:793): the flash path's backward runs K8 + K9 straight from
+    them, so no forward is re-run."""
+    wanted = [s for s in ("Q", "K", "V")
+              if fwd.input(s)[0] not in no_grad_set]
+    if not wanted:
+        return []
+    return [OpDesc(
+        type="scaled_dot_product_attention_grad",
+        inputs={"Q": fwd.input("Q"), "K": fwd.input("K"),
+                "V": fwd.input("V"), "Out": fwd.output("Out"),
+                "LSE": fwd.output("LSE"),
+                "Out@GRAD": [grad_var_name(fwd.output("Out")[0])]},
+        outputs={s + "@GRAD": [grad_var_name(fwd.input(s)[0])]
+                 for s in wanted},
+        attrs=dict(fwd.attrs))]
+
+
+# Sequence length from which use_flash="auto" takes the flash path: the
+# reference's rule and default (nn_ops.py:814). 2048 was measured on a TPU
+# v5e (flash 1.13x its einsum path at T=2048); where the two paths cross on
+# an H100 is not measured yet (PERF.md).
+FLASH_AUTO_T = 2048
+
+
+def _sdpa_paths(op_, q, k, v):
+    """'flash' when use_flash is True, or "auto" at T >= the threshold, and
+    the shape passes `supports`; else 'einsum' (nn_ops.py:838). The ring
+    mode (sequence_parallel=True over an 'sp' mesh) is slice 9."""
+    if op_.attr("sequence_parallel", False):
+        raise NotImplementedError(
+            "scaled_dot_product_attention with sequence_parallel=True (ring "
+            "attention over an 'sp' mesh, K10) is slice 9 of the port")
+    uf = op_.attr("use_flash", "auto")
+    if uf == "auto":
+        uf = q.shape[1] >= FLASH_AUTO_T
+    if uf and attention_cuda.supports(q, k, v):
+        return "flash"
+    return "einsum"
+
+
+@op("scaled_dot_product_attention", infer_shape=_sdpa_infer,
+    grad=_sdpa_grad)
+def _scaled_dot_product_attention(ctx, op_, ins):
+    """Softmax attention over Q/K/V [B, T, H, D] (nn_ops.py:856), with LSE
+    [B, H, T] f32, the per-row logsumexp of the scaled scores that the
+    explicit backward starts from. The flash path runs K7
+    (ops/attention_cuda.py, under its gate); the einsum path runs
+    attention_reference, as the reference does below its threshold."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    causal = op_.attr("causal", False)
+    (q, k, v), restore = mxu_cast(ctx, q, k, v)
+    if _sdpa_paths(op_, q, k, v) == "flash":
+        out, lse = attention_cuda.attention_forward(q, k, v, causal,
+                                                    op=op_.type)
+    else:
+        out = attention_cuda.attention_reference(q, k, v, causal=causal)
+        lse = attention_cuda.attention_reference_lse(q, k, causal=causal)
+    if restore is not None:
+        out = out.to(restore)
+    return {"Out": [out], "LSE": [lse]}
+
+
+@op("scaled_dot_product_attention_grad", grad=NO_GRAD,
+    non_diff_inputs=("LSE",))
+def _sdpa_grad_kernel(ctx, op_, ins):
+    """dQ/dK/dV from the saved (Out, LSE) (nn_ops.py:899): the flash path
+    runs K8 + K9 (ops/attention_cuda.py) with no forward re-run; the einsum
+    path differentiates attention_reference with torch.autograd. dO is cast
+    by mxu_cast like Q, K and V."""
+    douts = ins.get("Out@GRAD")
+    if not douts or douts[0] is None:
+        return _zero_grads(op_, ins)
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    causal = op_.attr("causal", False)
+    (q, k, v, do), restore = mxu_cast(ctx, q, k, v, douts[0])
+    if _sdpa_paths(op_, q, k, v) == "flash":
+        dq, dk, dv = attention_cuda.attention_backward(
+            q, k, v, ins["Out"][0], do, ins["LSE"][0], causal, op=op_.type)
+    else:
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attention_cuda.attention_reference(*leaves, causal=causal)
+            dq, dk, dv = torch.autograd.grad(out, leaves, do.to(out.dtype))
+    if restore is not None:
+        dq, dk, dv = dq.to(restore), dk.to(restore), dv.to(restore)
+    return {name: [g] for name, g in (("Q@GRAD", dq), ("K@GRAD", dk),
+                                      ("V@GRAD", dv))
+            if name in op_.desc.outputs}

@@ -10,9 +10,13 @@ lowering is generic: it re-runs the forward lowering on detached leaf copies
 of the inputs under `torch.enable_grad()` and takes `torch.autograd.grad`
 against the output cotangents. Eager torch has no CSE, so that re-run is
 real work (the JAX package's whole-block jit merges it with the original
-forward); ops on the hot path whose forward cannot be differentiated by
-autograd (a kernel called through ctypes) register explicit grad ops, as
-`conv2d_grad` in ops/nn_ops.py does.
+forward). Two ops on the hot path register explicit grad ops in
+ops/nn_ops.py instead, for two reasons. A kernel called through ctypes is
+opaque to autograd, so the generic grad cannot differentiate it:
+`conv2d_grad` runs K2 + K3. And a re-run forward costs a kernel launch:
+`scaled_dot_product_attention_grad` takes the forward's saved Out and LSE
+and runs K8 + K9 directly, where a generic grad would launch the flash
+forward K7 a second time (and could not differentiate it either).
 """
 
 from __future__ import annotations
