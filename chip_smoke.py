@@ -2,11 +2,12 @@
 
 Drives the port's main paths — ResNet-50 (224x224, 1000 classes, full
 width and depth, random weights from a seed) under AMP O2, served by the
-port's ServingEngine through buckets (1, 4, 16) and trained with Momentum
-through Executor.run at batch 32; and bench.py's transformer LM (batch 8,
-T 2048, 4 layers, d_model 512, 8 heads, vocab 8192) under AMP O2, trained
-with Adam and served through buckets (1, 2, 4, 8) — and holds every kernel
-of those paths against its plain PyTorch version on the card:
+port's ServingEngine through buckets (1, 4, 16), served in int8 (AMP O3)
+from a saved inference model through the same buckets, and trained with
+Momentum through Executor.run at batch 32; and bench.py's transformer LM
+(batch 8, T 2048, 4 layers, d_model 512, 8 heads, vocab 8192) under AMP
+O2, trained with Adam and served through buckets (1, 2, 4, 8) — and holds
+every kernel of those paths against its plain PyTorch version on the card:
 
   1. device   CUDA present (else exit 2), the card's name and power limit;
   2. build    nvcc builds every CUDA kernel from paddle_tpu_torch/csrc/,
@@ -27,14 +28,31 @@ of those paths against its plain PyTorch version on the card:
               latency per bucket, img/s over the request window, and one
               profiled batch-16 request: device busy time and the kernels
               it went to;
-  5. kernel_train  K2-K6 (conv grad input, conv grad filter, conv +
+  5. kernel_q8  K11 (int8 conv) against conv2d_q8_reference, bitwise (bf16
+              and f32 out, the bf16 call repeated), on the five test cases
+              and every distinct conv shape of ResNet-50's O3 route at each
+              bucket's batch; then per shape at batch 16 kernel, plain and
+              K1-in-bf16 times (CUDA graph of 20 calls between events)
+              beside the bound (int8 operations or bytes);
+  6. serve_q8 the calibrated model of phase 4 written by
+              io.save_inference_model and served by ServingEngine(dir,
+              quantize="int8"): quant_report of 54 weights, the 12
+              requests, per bucket run K11 42 and K1 10 launches with the
+              quant hits and fallbacks of the reference's routing, output
+              checks, one request op by op against the CPU plain path in
+              O3 on the card's own inputs to each op (the quantized
+              windows bitwise), one request per bucket against it end to
+              end, the O3-vs-O2 distance, p50 and img/s beside O2's, one
+              profiled batch-16 request (K11's and the activation-quantize
+              passes' shares of the device time);
+  7. kernel_train  K2-K6 (conv grad input, conv grad filter, conv +
               statistics, bn apply, bn + act) against their plain versions
               at every distinct shape ResNet-50 training gives them at
               batch 32, each run twice and bitwise repeatable, then timed
               per shape (CUDA graph of 20 calls between CUDA events) beside
               the bound, the plain version and one PyTorch call that
               computes the same function where there is one;
-  6. train    ResNet-50 O2 training at batch 32, learning rate 0.0125
+  8. train    ResNet-50 O2 training at batch 32, learning rate 0.0125
               (bench.py's 0.1 at batch 256, scaled linearly), Momentum 0.9,
               one warm-up and five timed steps on one repeated batch: step
               p50 and img/s, each kernel's launches per step held to
@@ -49,7 +67,7 @@ of those paths against its plain PyTorch version on the card:
               re-run on the CPU on the card's own inputs), then end to end
               (the loss, per-parameter grad relative L2), in O2 and in f32
               (TF32 off);
-  7. kernel_attn  K7-K9 (flash-attention forward, dQ, dK/dV) against their
+  9. kernel_attn  K7-K9 (flash-attention forward, dQ, dK/dV) against their
               plain versions at the JAX tests' shapes, causal and not, at
               T = 72 with D 64 and 128, and at the bench shape [8, 2048, 8,
               64] causal, each run twice and bitwise repeatable; then timed
@@ -57,7 +75,7 @@ of those paths against its plain PyTorch version on the card:
               events) beside the bound, the plain versions and
               F.scaled_dot_product_attention (yardstick only: its forward
               for K7, its backward for K8 + K9 together);
-  8. train_lm the transformer LM O2 with Adam 1e-4, one warm-up and five
+10. train_lm the transformer LM O2 with Adam 1e-4, one warm-up and five
               timed steps on one batch of random tokens and labels (seed
               0): step p50 and tokens/s, K7/K8/K9 launches held to 4/4/4 per
               step with no attention fallback, the loss finite and falling,
@@ -65,12 +83,12 @@ of those paths against its plain PyTorch version on the card:
               the startup weights against the CPU plain path, op by op and
               end to end, in O2 and in f32, the O2 grads held to the CPU's
               own O2 noise floor (its flash path against its einsum path);
-  9. serve_lm ServingEngine over transformer_lm(is_test=True,
+ 11. serve_lm ServingEngine over transformer_lm(is_test=True,
               return_logits=True) in O2, fetching the logits, 6 requests of
               1-8 rows: K7 launches held to 4 per bucket run, one request
               against the CPU plain path; then p50 latency per bucket over
               7 requests that fill it;
- 10. result   the kernel table as one JSON line, the card line, then
+ 12. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -93,6 +111,7 @@ from pathlib import Path
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
@@ -137,10 +156,53 @@ BUCKETS = (1, 4, 16)
 BATCH = 16
 SEED = 0
 K1_KERNEL = "conv2d_fwd_kernel"     # K1's name in the profiler's events
-# the executor's profiler ranges (paddle_tpu_torch/ops/registry.py span):
-# each appears on the host and, as the extent of the kernels launched in
-# it, on the device's timeline, where it is no kernel
-SPANS = ("op", "win", "rerun")
+K11_KERNEL = "conv2d_q8_kernel"     # K11's
+# the executor's profiler ranges (paddle_tpu_torch/ops/registry.py span)
+# and the activation-quantize passes' (quant.ACT_SPAN): each appears on the
+# host and, as the extent of the kernels launched in it, on the device's
+# timeline, where it is no kernel
+SPANS = ("op", "win", "rerun", "quant")
+
+# int8 serving (phases kernel_q8 and serve_q8): per bucket run of ResNet-50
+# in O3, K11 runs the 42 convs the reference quantizes (Ci, Co % 128), K1
+# the ten 64-channel convs of stage 1 (quant fallback "kernel"), F.conv2d
+# the Ci=3 stem (conv fallback "channels", quant fallback "kernel"); the fc
+# is the one quantized `mul`. `quant_report` names the 53 conv filters and
+# the fc weight.
+Q8_LAUNCHES = {"q8_launches": 42, "launches": 10}
+Q8_HITS = {"conv2d": 42, "mul": 1}
+Q8_FALLBACKS = {("conv2d", "kernel"): 11}
+Q8_CONV_FALLBACKS = {("conv2d", "channels"): 1}
+Q8_REPORT_NAMES = 54
+# The served O3 answer against the port's CPU plain path in O3 on the same
+# weights.
+#  * Op by op (_serve_lockstep, one request): every op and window of the
+#    card's program, and again on the CPU plain path on a CPU copy of the
+#    card's own inputs to it and the card's fold constants, each float
+#    output held to LOCKSTEP_BF16 / LOCKSTEP_F32 (below), and every
+#    quantized conv window bitwise: K11 equals its plain version, the int8
+#    GEMM is exact, and the quantizers are exact f32 operations.
+#  * End to end, with _compare's checks: logits within Q8_LOGIT_RTOL of the
+#    row's largest |logit|. Here the inputs differ: K1's bf16 roundings
+#    (the stage-1 convs) and cuDNN's stem flip with the order of f32 sums,
+#    and a flipped bf16 value that crosses an int8 rounding step of the
+#    next conv's activation moves it by a whole step (1/127 of the
+#    tensor's largest value), larger than the flip. The first calibrated
+#    run (NVIDIA H100 80GB HBM3, 700.00 W) measured 0.092-0.131 where O2
+#    measured 0.031-0.045; the bound is twice the worst.
+Q8_LOGIT_RTOL = 0.25
+# The two engines' own fold constants (fusion.fold_constants, each made from
+# the same weights on its own device; the lockstep above hands the card's to
+# the CPU side) are held to each other within what a few f32 ulps in the
+# batch-norm factor s = scale * rsqrt(var + eps) can move (CUDA's rsqrtf is
+# within 2 ulps, the CPU's is correctly rounded):
+#  * the bf16 folded filter within one bf16 ulp per element;
+#  * the f32 channel bias within FOLD_BIAS_REL of |bias| + |mean * s|;
+#  * the per-Co int8 scales within 2^-7 relative (one bf16 ulp of max |w|);
+#  * the int8 values within one step, at most FOLD_Q8_SHARE of them off.
+FOLD_BIAS_REL = 2.0 ** -21
+FOLD_SCALE_REL = 2.0 ** -7
+FOLD_Q8_SHARE = 1e-3
 
 # training (phases kernel_train and train)
 TRAIN_BATCH = 32
@@ -321,10 +383,11 @@ def _resnet50(pt, resnet, is_test=True, amp=True):
     return main, startup, prob, logits
 
 
-def _eligible_convs(conv_cuda, program, batch):
+def _eligible_convs(conv_cuda, program, batch, quant=None):
     """(x NHWC shape, w OIHW shape, strides, paddings, dilations) of every
     conv2d of a program's global block, at `batch`, that passes K1's gate
-    in bf16 (as under AMP O2)."""
+    in bf16 (as under AMP O2) and, given `quant`, also the quant gate: the
+    convs the O3 route sends to K11."""
     import torch
     block = program.global_block()
     out = []
@@ -336,10 +399,12 @@ def _eligible_convs(conv_cuda, program, batch):
         ws = tuple(block.desc.var(op.input("Filter")[0]).shape)
         s, p, d = (tuple(op.attr(a)) for a in ("strides", "paddings",
                                                 "dilations"))
-        if conv_cuda.ineligible(
-                torch.empty(xs, dtype=torch.bfloat16, device="meta"),
-                torch.empty(ws, dtype=torch.bfloat16, device="meta"),
-                s, p, d, op.attr("groups") or 1) is None:
+        x = torch.empty(xs, dtype=torch.bfloat16, device="meta")
+        wt = torch.empty(ws, dtype=torch.bfloat16, device="meta")
+        g = op.attr("groups") or 1
+        if conv_cuda.ineligible(x, wt, s, p, d, g) is None and (
+                quant is None
+                or quant.ineligible_conv(x, wt, s, p, d, g) is None):
             out.append((xs, ws, s, p, d))
     return out
 
@@ -536,7 +601,8 @@ def phase_slice(pt, conv_cuda, resnet, report):
           f"({card})", flush=True)
     top = max(REQUEST_SIZES)
     profile = _profile_request(engine, requests[REQUEST_SIZES.index(top)],
-                               p50[engine.bucket_for(top)], eligible, card)
+                               p50[engine.bucket_for(top)],
+                               {K1_KERNEL: eligible}, card)
     report["slice"] = {"p50_ms": p50, "latencies_s": lat,
                        "img_per_s": ips, "window_s": window_s,
                        "launches": launches,
@@ -544,10 +610,12 @@ def phase_slice(pt, conv_cuda, resnet, report):
                            f"{k[0]}:{k[1]}": v for k, v in fallbacks.items()},
                        "agreement": agreement, "card": card,
                        "profile": profile}
-    return launches
+    return launches, {"scope": scope, "main": main, "fetch": [prob, logits],
+                      "requests": requests, "outs": outs, "p50_ms": p50,
+                      "img_per_s": ips}
 
 
-def _compare(ref_out, got_out, what, rtol):
+def _compare(ref_out, got_out, what, rtol, served="O2"):
     """Hold one served request (softmax, logits) against a reference's
     answer, row by row, with the tolerances stated at the top. Returns the
     numbers and the checks that failed."""
@@ -576,7 +644,7 @@ def _compare(ref_out, got_out, what, rtol):
               "top2_margin_min": float(margin.min()),
               "argmax_equal": int(same.sum()),
               "argmax_decided": int(decided.sum())}
-    print(f"served O2 vs {what}, {n} rows: logits max abs diff "
+    print(f"served {served} vs {what}, {n} rows: logits max abs diff "
           f"{result['logit_max_abs_diff']:.4g} = {result['logit_rel_diff']:.3g} "
           f"of the row's largest |logit| (tol {rtol}; largest "
           f"{result['largest_abs_logit']:.4g}); softmax max abs diff "
@@ -603,15 +671,17 @@ def _is_span(event) -> bool:
     return event.name.split(":", 1)[0] in SPANS
 
 
-def _profile_request(engine, req, p50_ms, eligible, card, attempts=3):
+def _profile_request(engine, req, p50_ms, expect, card, attempts=3):
     """Where one served request's time goes on the device: torch.profiler's
     CUDA activity for one request, as the busy share of the unprofiled p50
     latency of its bucket (the profiler's own host cost inflates the
-    profiled wall time), K1's launches and time, and the device time of
-    the torch ops that launched the rest. The profiler now and then loses
-    a window's CUDA activity, so a request whose trace does not hold one
-    K1 launch per eligible conv is profiled again, up to `attempts` times
-    in all; then this raises."""
+    profiled wall time), the hand-written kernels' launches and time
+    (`expect`: kernel name -> launches per request), the device time of the
+    activation-quantize passes (the kernels inside quant.ACT_SPAN's device
+    extents), and the device time of the torch ops that launched the rest.
+    The profiler now and then loses a window's CUDA activity, so a request
+    whose trace does not hold the expected launches is profiled again, up
+    to `attempts` times in all; then this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, attempts + 1):
@@ -620,18 +690,19 @@ def _profile_request(engine, req, p50_ms, eligible, card, attempts=3):
             t0 = time.perf_counter()
             engine.infer({"img": req})
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and not _is_span(e)]
-        k1 = [e.time_range.elapsed_us() / 1e3 for e in events
-              if K1_KERNEL in e.name]
-        if len(k1) == eligible:
+        cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        events = [e for e in cuda if not _is_span(e)]
+        kernels = {k: [e.time_range.elapsed_us() / 1e3 for e in events
+                       if k in e.name] for k in expect}
+        seen = {k: len(v) for k, v in kernels.items()}
+        if seen == expect:
             break
-        print(f"profile attempt {attempt}: the trace holds {len(k1)} K1 "
-              f"launches, expected {eligible}", flush=True)
+        print(f"profile attempt {attempt}: the trace holds {seen} launches, "
+              f"expected {expect}", flush=True)
     else:
-        raise RuntimeError(f"the profiler saw {len(k1)} K1 launches in one "
-                           f"request, expected {eligible}, in each of "
-                           f"{attempts} attempts")
+        raise RuntimeError(f"the profiler saw {seen} launches in one request, "
+                           f"expected {expect}, in each of {attempts} "
+                           f"attempts")
     busy_us, end = 0.0, float("-inf")
     for e in sorted(events, key=lambda e: e.time_range.start):
         s, t = e.time_range.start, e.time_range.end   # union of intervals
@@ -639,23 +710,402 @@ def _profile_request(engine, req, p50_ms, eligible, card, attempts=3):
             busy_us += t - max(s, end)
             end = t
     busy_ms = busy_us / 1e3
-    # kernels launched by torch ops, by op (K1 launches through ctypes,
-    # outside any torch op); only aten ops, since the profiler's own
-    # bookkeeping entries can claim a copy that aten::copy_ also counts
+    act = [(e.time_range.start, e.time_range.end) for e in cuda
+           if e.name == "quant:act"]
+    act_ms = sum(e.time_range.elapsed_us() for e in events
+                 if any(a <= e.time_range.start < b for a, b in act)) / 1e3
+    # kernels launched by torch ops, by op (the hand-written kernels launch
+    # through ctypes, outside any torch op); only aten ops, since the
+    # profiler's own bookkeeping entries can claim a copy that aten::copy_
+    # also counts
     by_op = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
                     for a in prof.key_averages()
                     if a.key.startswith("aten::")
                     and a.self_device_time_total > 0), key=lambda t: -t[1])
+    mine = "; ".join(f"{k} {sum(v):.3f} ms x{len(v)} ({sum(v) / busy_ms:.1%})"
+                     for k, v in kernels.items())
+    quant_part = (f"; activation quantize {act_ms:.3f} ms "
+                  f"({act_ms / busy_ms:.1%}) in {len(act)} passes"
+                  if act else "")
     print(f"device time of one batch-{req.shape[0]} request: busy {busy_ms:.3f} "
           f"ms = {busy_ms / p50_ms:.1%} of its p50 {p50_ms:.2f} ms (profiled "
-          f"wall {wall_ms:.2f} ms; {card}); K1 {sum(k1):.3f} ms x{len(k1)}; "
+          f"wall {wall_ms:.2f} ms; {card}); {mine}{quant_part}; "
           + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in by_op[:8]),
           flush=True)
     return {"busy_ms": busy_ms, "p50_ms": p50_ms,
             "busy_share_of_p50": busy_ms / p50_ms, "profiled_wall_ms": wall_ms,
-            "k1_ms": sum(k1), "k1_launches": len(k1),
+            "kernels": {k: {"ms": sum(v), "launches": len(v),
+                            "share_of_busy": sum(v) / busy_ms}
+                        for k, v in kernels.items()},
+            "act_quant_ms": act_ms if act else None,
+            "act_quant_passes": len(act),
             "by_op": [{"op": k, "ms": ms, "calls": n} for k, ms, n in by_op]}
 
+
+# --- int8 serving: K11 -----------------------------------------------------------
+
+def _check_q8(conv_cuda, x, w, s, p, d, dq):
+    """K11 (bf16 and f32 out, the bf16 call twice) against its plain
+    version on one shape: bitwise, or raise. Returns the largest |got -
+    want| of the compared outputs."""
+    import torch
+    y = conv_cuda.conv2d_q8(x, w, s, p, d, dq)
+    y2 = conv_cuda.conv2d_q8(x, w, s, p, d, dq)
+    y32 = conv_cuda.conv2d_q8(x, w, s, p, d, dq, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    r = conv_cuda.conv2d_q8_reference(x, w, s, p, d, dq)
+    r32 = conv_cuda.conv2d_q8_reference(x, w, s, p, d, dq,
+                                        out_dtype=torch.float32)
+    worst = 0.0
+    for got, want, what in ((y, r, "bf16"), (y2, y, "repeated bf16"),
+                            (y32, r32, "f32")):
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"K11 {what} output disagrees with its plain "
+                               f"version at x {tuple(x.shape)} w "
+                               f"{tuple(w.shape)} s{s} p{p}: max abs err {err}")
+    return worst
+
+
+def phase_kernel_q8(pt, conv_cuda, resnet, report):
+    """K11 against its plain version, bitwise, at CASES and at every
+    distinct quantized ResNet-50 conv shape at each bucket's batch; then per
+    shape at batch 16 the kernel's time, the plain version's, K1's in bf16
+    at the same shape (the O2 counterpart), beside the bound."""
+    import torch
+    from paddle_tpu_torch import quant
+    gen = torch.Generator().manual_seed(SEED + 7)
+
+    def operands(xs, ws):
+        x = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8)
+        w = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8)
+        dq = torch.rand(ws[0], generator=gen) * 1e-4 + 1e-6
+        return x.cuda(), w.cuda(), dq.cuda()
+
+    worst = 0.0
+    for h, w, kh, kw, s, p, d in CASES:
+        x, wt, dq = operands((2, h, w, 128), (128, 128, kh, kw))
+        worst = max(worst, _check_q8(conv_cuda, x, wt, s, p, d, dq))
+    main = _resnet50(pt, resnet)[0]
+    checked = {}                               # shape -> max abs err
+    for b in BUCKETS:
+        for key in _eligible_convs(conv_cuda, main, b, quant):
+            if key not in checked:
+                x, wt, dq = operands(*key[:2])
+                checked[key] = _check_q8(conv_cuda, x, wt, *key[2:], dq)
+    worst = max(worst, *checked.values())
+    counts = {}
+    for key in _eligible_convs(conv_cuda, main, BATCH, quant):
+        counts[key] = counts.get(key, 0) + 1
+    if sum(counts.values()) != Q8_LAUNCHES["q8_launches"]:
+        raise RuntimeError(f"{sum(counts.values())} quantized convs in "
+                           f"ResNet-50, expected {Q8_LAUNCHES['q8_launches']}")
+
+    rows = []
+    for key, n in counts.items():
+        xs, ws, s, p, d = key
+        x, wt, dq = operands(xs, ws)
+        # an OIHW view of OHWI memory: the wrapper then copies nothing, as
+        # with the engine's int8 filters
+        w_view = wt.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+        k_ms = _device_ms(lambda: conv_cuda.conv2d_q8(x, w_view, s, p, d, dq))
+        plain_ms = _device_ms(
+            lambda: conv_cuda.conv2d_q8_reference(x, wt, s, p, d, dq))
+        xb = torch.randn(xs, generator=gen).to(torch.bfloat16).cuda()
+        wb = (torch.randn(ws, generator=gen) * 0.1).to(torch.bfloat16)
+        wb = wb.permute(2, 3, 1, 0).contiguous().permute(3, 2, 0, 1).cuda()
+        k1_ms = _device_ms(lambda: conv_cuda.conv2d(xb, wb, s, p, d))
+        ops = conv_cuda.conv_flops(x, wt, s, p, d)
+        nbytes = conv_cuda.conv_bytes(x, wt, s, p, d) + 4 * ws[0]   # + dq
+        ops_ms, bytes_ms = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"x_nhwc": list(xs), "w_oihw": list(ws), "strides": list(s),
+               "paddings": list(p), "dilations": list(d), "per_request": n,
+               "ms": k_ms, "plain_ms": plain_ms, "k1_bf16_ms": k1_ms,
+               "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "ops": ops, "bytes": nbytes, "max_abs_err": checked[key]}
+        rows.append(row)
+        print(f"K11 shape x{list(xs)} w{list(ws)} s{list(s)} p{list(p)} "
+              f"x{n}/request: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"K1 bf16 {k1_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+    print(f"K11 bitwise equal to conv2d_q8_reference (bf16 and f32 out, "
+          f"repeat bitwise) at {len(checked)} distinct shapes (batches "
+          f"{list(BUCKETS)}) and the {len(CASES)} test cases", flush=True)
+    report["k11_shapes"] = rows
+
+    def total(key):
+        return sum(r[key] * r["per_request"] for r in rows)
+    ops_total = sum(r["ops"] * r["per_request"] for r in rows) / PEAK_INT8_OPS
+    bytes_total = sum(r["bytes"] * r["per_request"] for r in rows) / PEAK_BYTES
+    return {"name": "conv2d_q8", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/conv2d_q8.cu",
+            "replaces": "paddle_tpu/ops/pallas_conv.py:431",
+            "max_abs_err": worst, "ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if ops_total >= bytes_total else "bytes",
+            "library_ms": None, "k1_bf16_ms": total("k1_bf16_ms"),
+            "per": f"the {sum(counts.values())} quantized convs of one "
+                   f"batch-{BATCH} ResNet-50 request"}
+
+
+def _hold_folds(card, cpu):
+    """Hold the card engine's fold constants to the CPU engine's within the
+    FOLD_* bounds, or raise. Returns the worst differences and how many
+    windows and int8 values differ at all."""
+    import torch
+    pg, pc = card._prepared, cpu._prepared
+    if set(pg.folds) != set(pc.folds):
+        raise RuntimeError("the card and CPU engines fold different windows")
+    bounds = {"filter_ulps": 1, "bias_rel": FOLD_BIAS_REL,
+              "scale_rel": FOLD_SCALE_REL, "q8_max_step": 1}
+    out = {"folds": len(pc.folds), "differ": 0, "q8_differ": 0,
+           "q8_values": 0, **{k: 0 for k in bounds}}
+    for anchor, (w_c, b_c, (q_c, s_c)) in pc.folds.items():
+        w_g, b_g, (q_g, s_g) = pg.folds[anchor]
+        w_g, b_g, q_g, s_g = (t.cpu() for t in (w_g, b_g, q_g, s_g))
+        bn = pc.groups[anchor].bn
+        st = {k: cpu._state[bn.desc.input(k)[0]].float()
+              for k in ("Scale", "Bias", "Mean", "Variance")}
+        s = st["Scale"] * torch.rsqrt(st["Variance"] + bn.attr("epsilon", 1e-5))
+        terms = (st["Bias"].abs() + (st["Mean"] * s).abs()).clamp_min(1e-30)
+        wg, wc = w_g.float(), w_c.float()
+        step = (q_g.int() - q_c.int()).abs()
+        worst = {"filter_ulps": ((wg - wc).abs() / _bf16_ulp(
+                     torch.maximum(wg.abs(), wc.abs()))).max().item(),
+                 "bias_rel": ((b_g - b_c).abs() / terms).max().item(),
+                 "scale_rel": ((s_g - s_c).abs() / s_c).max().item(),
+                 "q8_max_step": int(step.max())}
+        for k, v in worst.items():
+            if not v <= bounds[k]:                 # NaN fails too
+                raise RuntimeError(f"the card's fold constants at op {anchor} "
+                                   f"are off the CPU engine's: {k} {v} "
+                                   f"(bound {bounds[k]:.3g})")
+            out[k] = max(out[k], v)
+        out["q8_differ"] += int((step > 0).sum())
+        out["q8_values"] += step.numel()
+        out["differ"] += int(not all(torch.equal(a, b) for a, b in (
+            (w_g, w_c), (b_g, b_c), (q_g, q_c), (s_g, s_c))))
+    if out["q8_differ"] > FOLD_Q8_SHARE * out["q8_values"]:
+        raise RuntimeError(f"{out['q8_differ']} of the card's "
+                           f"{out['q8_values']} folded int8 filter values "
+                           f"differ from the CPU engine's, more than "
+                           f"{FOLD_Q8_SHARE:.3g} of them")
+    return out
+
+
+def _serve_lockstep(conv_cuda, card, cpu, req):
+    """One request, padded to its bucket, through the card engine's prepared
+    program with every op and window run again, on a CPU copy of the card's
+    inputs to it, through the CPU engine's, each float output held to the
+    card's (_hold_outputs). The CPU side gets a CPU copy of the card's fold
+    constants too (_hold_folds holds them to the CPU engine's own). With
+    equal inputs and constants every quantized conv window must agree
+    bitwise (K11 equals its plain version, the quantizers are exact f32
+    operations), or this raises. Returns the tally."""
+    import torch
+    from paddle_tpu_torch.executor import LoweringContext
+    from paddle_tpu_torch.ops import fusion
+    from paddle_tpu_torch.serving.engine import _pad_rows
+
+    def to_cpu(fold):
+        wf, bf, pre = fold
+        return wf.cpu(), bf.cpu(), pre and tuple(t.cpu() for t in pre)
+
+    pg, pc = card._prepared, cpu._prepared
+    ctx_g = LoweringContext(pg.executor, pg.program, 0)
+    ctx_g.folds = pg.folds
+    ctx_c = LoweringContext(pc.executor, pc.program, 0)
+    ctx_c.folds = {a: to_cpu(f) for a, f in pg.folds.items()}
+    groups_g, groups_c = pg.groups or {}, pc.groups or {}
+    ops_g, ops_c = pg.program.global_block().ops, pc.program.global_block().ops
+    env = dict(card._state)
+    env[card.feed_names[0]] = torch.from_numpy(
+        _pad_rows(req, card.bucket_for(req.shape[0]))).to(card.device)
+    tally = {"worst": {}, "outputs": 0, "bitwise": 0, "q8_windows": 0,
+             "q8_bitwise": 0}
+    i = 0
+    while i < len(ops_g):
+        g, start = groups_g.get(i), i
+        members = g.members if g is not None else (ops_g[i],)
+        env_c = {n: env[n].cpu() for m in members for n in m.input_arg_names
+                 if isinstance(env.get(n), torch.Tensor)}
+        q8_before = conv_cuda.COUNTERS.q8_launches
+        if g is not None:
+            fusion.execute_group(pg.executor, ctx_g, g, env, pg.protected)
+            fusion.execute_group(pc.executor, ctx_c, groups_c[i], env_c,
+                                 pc.protected)
+            i, kind = g.end, "+".join(m.type for m in members)
+        else:
+            pg.executor._exec_op(ctx_g, ops_g[i], env)
+            pc.executor._exec_op(ctx_c, ops_c[i], env_c)
+            i, kind = i + 1, ops_g[i].type
+        equal = _hold_outputs(kind, members, env, env_c, tally)
+        if conv_cuda.COUNTERS.q8_launches > q8_before:
+            tally["q8_windows"] += 1
+            tally["q8_bitwise"] += int(equal)
+            if not equal:
+                raise RuntimeError(f"O3 lockstep: a quantized {kind} window "
+                                   f"(op {start}) differs from the "
+                                   f"CPU plain path on equal inputs and "
+                                   f"fold constants")
+    return tally
+
+
+def phase_serve_q8(pt, conv_cuda, resnet, report, served):
+    """ResNet-50 served in int8 from a saved inference model: the smoke's
+    calibrated weights written by io.save_inference_model, served by
+    ServingEngine(dir, quantize="int8") through the 12 requests."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.serving import ServingEngine
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as model_dir:
+        t0 = time.perf_counter()
+        with pt.scope_guard(served["scope"]):
+            pt.io.save_inference_model(model_dir, ["img"], served["fetch"],
+                                       pt.Executor(),
+                                       main_program=served["main"])
+        saved_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = ServingEngine(model_dir, quantize="int8", buckets=BUCKETS)
+        torch.cuda.synchronize()
+        admit_s = time.perf_counter() - t0
+        cpu_engine = ServingEngine(model_dir, place=pt.CPUPlace(),
+                                   quantize="int8", buckets=BUCKETS)
+    qr = engine.quant_report
+    print(f"saved the calibrated ResNet-50 in {saved_s:.2f} s; the int8 "
+          f"engine loaded and quantized it in {admit_s:.2f} s: "
+          f"{len(qr['quantized'])} weights quantized, skipped "
+          f"{qr['skipped']}", flush=True)
+    if len(qr["quantized"]) != Q8_REPORT_NAMES or qr["skipped"] or \
+            cpu_engine.quant_report != qr:
+        raise RuntimeError(f"quant_report {qr}: expected {Q8_REPORT_NAMES} "
+                           f"quantized weights, none skipped")
+
+    requests = served["requests"]
+    for b in BUCKETS:                          # warm-up: one batch per bucket
+        engine.infer({"img": requests[0][:1].repeat(b, axis=0)})
+    torch.cuda.synchronize()
+    conv_cuda.COUNTERS.reset()
+    quant.COUNTERS.reset()
+    outs, lat = [], {b: [] for b in BUCKETS}
+    t_window = time.perf_counter()
+    for req in requests:
+        t0 = time.perf_counter()
+        out = engine.infer({"img": req})       # ends in a device->host copy
+        lat[engine.bucket_for(req.shape[0])].append(time.perf_counter() - t0)
+        outs.append(out)
+    window_s = time.perf_counter() - t_window
+    runs = len(requests)
+    counts = {"q8_launches": conv_cuda.COUNTERS.q8_launches,
+              "launches": conv_cuda.COUNTERS.launches}
+    hits, fallbacks = dict(quant.COUNTERS.hits), dict(quant.COUNTERS.fallbacks)
+    conv_fallbacks = dict(conv_cuda.COUNTERS.fallbacks)
+    want = ({k: v * runs for k, v in Q8_LAUNCHES.items()},
+            {k: v * runs for k, v in Q8_HITS.items()},
+            {k: v * runs for k, v in Q8_FALLBACKS.items()},
+            {k: v * runs for k, v in Q8_CONV_FALLBACKS.items()})
+    print(f"O3 over {runs} bucket runs: K11 launches {counts['q8_launches']}, "
+          f"K1 launches {counts['launches']}; quant hits {hits}, quant "
+          f"fallbacks {fallbacks}; conv fallbacks {conv_fallbacks}", flush=True)
+    if (counts, hits, fallbacks, conv_fallbacks) != want:
+        raise RuntimeError(f"O3 routing {counts} {hits} {fallbacks} "
+                           f"{conv_fallbacks}, expected {want}")
+    for req, (out, _) in zip(requests, outs):
+        if out.shape != (req.shape[0], 1000) or not np.isfinite(out).all():
+            raise RuntimeError(f"output {out.shape} for {req.shape}, or not "
+                               f"finite")
+        sums = out.astype(np.float64).sum(axis=1)
+        if np.abs(sums - 1.0).max() > 2e-2:
+            raise RuntimeError(f"softmax rows sum to {sums}")
+    again = engine.infer({"img": requests[0]})
+    if not all(np.array_equal(a, b) for a, b in zip(again, outs[0])):
+        raise RuntimeError("a repeated request gave a different answer")
+
+    folds = _hold_folds(engine, cpu_engine)
+    print(f"fold constants, card against the CPU engine: {folds['differ']} "
+          f"of {folds['folds']} windows differ at all; filter at most "
+          f"{folds['filter_ulps']:.3g} bf16 ulp apart, bias "
+          f"{folds['bias_rel']:.3g} of |bias| + |mean * s|, int8 scales "
+          f"{folds['scale_rel']:.3g} relative, int8 values "
+          f"{folds['q8_differ']} of {folds['q8_values']} off by at most "
+          f"{folds['q8_max_step']} step", flush=True)
+    t0 = time.perf_counter()
+    rows = requests[COMPARED[1]].shape[0]
+    lockstep = _serve_lockstep(conv_cuda, engine, cpu_engine,
+                               requests[COMPARED[1]])
+    if lockstep["q8_windows"] != Q8_LAUNCHES["q8_launches"]:
+        raise RuntimeError(f"O3 lockstep: {lockstep['q8_windows']} windows "
+                           f"ran K11, expected {Q8_LAUNCHES['q8_launches']}")
+    print(f"O3 lockstep, a {rows}-row request (bucket "
+          f"{engine.bucket_for(rows)}): "
+          f"{lockstep['bitwise']} of {lockstep['outputs']} float outputs "
+          f"bitwise equal to the CPU plain path on the card's inputs, "
+          f"{lockstep['q8_bitwise']} of {lockstep['q8_windows']} quantized "
+          f"conv windows, with the card's fold constants on both sides; "
+          f"worst relative L2 by kind "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(
+              lockstep["worst"].items(), key=lambda kv: -kv[1])[:6])
+          + f" ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    agreement, failures, vs_o2 = [], [], []
+    t0 = time.perf_counter()
+    for i in COMPARED:
+        result, failed = _compare(cpu_engine.infer({"img": requests[i]}),
+                                  outs[i], "the CPU plain path in O3",
+                                  Q8_LOGIT_RTOL, served="O3")
+        agreement.append(result)
+        failures += failed
+    print(f"the CPU reference took {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for req, (_, lq), (_, l2) in zip(requests, outs, served["outs"]):
+        d = np.abs(lq.astype(np.float64) - l2).max(axis=1)
+        vs_o2.append({"rows": req.shape[0],
+                      "logit_rel_diff": float((d / np.abs(l2).max(axis=1))
+                                              .max()),
+                      "argmax_equal": int((lq.argmax(1) == l2.argmax(1))
+                                          .sum())})
+    worst = max(v["logit_rel_diff"] for v in vs_o2)
+    same = sum(v["argmax_equal"] for v in vs_o2)
+    print(f"O3 vs O2 on the card, the same {runs} requests: logits at most "
+          f"{worst:.3g} of the row's largest |logit| apart; argmax equal in "
+          f"{same} of {sum(REQUEST_SIZES)} rows", flush=True)
+    if failures:
+        raise RuntimeError("the O3 answer disagrees with the CPU plain path: "
+                           + "; ".join(failures))
+
+    card = _card_line()
+    p50 = {b: float(np.median(v)) * 1e3 for b, v in lat.items() if v}
+    ips = sum(REQUEST_SIZES) / window_s
+    print(f"O3 p50 latency per bucket (ms, host clock, {card}): "
+          + ", ".join(f"bucket {b}: {v:.2f} (O2 {served['p50_ms'][b]:.2f})"
+                      for b, v in p50.items())
+          + f"; img/s {ips:.1f} (O2 {served['img_per_s']:.1f})", flush=True)
+    top = max(REQUEST_SIZES)
+    profile = _profile_request(
+        engine, requests[REQUEST_SIZES.index(top)], p50[engine.bucket_for(top)],
+        {K11_KERNEL: Q8_LAUNCHES["q8_launches"],
+         K1_KERNEL: Q8_LAUNCHES["launches"]}, card)
+    report["serve_q8"] = {"card": card, "p50_ms": p50, "latencies_s": lat,
+                          "img_per_s": ips, "window_s": window_s,
+                          "o2_p50_ms": served["p50_ms"],
+                          "o2_img_per_s": served["img_per_s"],
+                          "launches": counts, "hits": hits,
+                          "fallbacks": {f"{k[0]}:{k[1]}": v
+                                        for k, v in fallbacks.items()},
+                          "quant_report_names": len(qr["quantized"]),
+                          "agreement": agreement, "vs_o2": vs_o2,
+                          "lockstep": lockstep, "folds": folds,
+                          "profile": profile, "save_s": saved_s,
+                          "admit_s": admit_s}
+    return counts
 
 
 # --- training: the kernels K2-K6 ------------------------------------------------
@@ -785,8 +1235,9 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
                          _device_ms(lambda: conv_cuda.conv2d_grad_input_reference(dout, w, hw, s, p, d)),
                          _device_ms(lambda: torch.nn.grad.conv2d_input(
                              x_nchw.shape, w, d_nchw, s, p, d)),
-                         flops, conv_cuda.conv_bytes(x, w, s, p, d), err,
-                         PEAK_BF16_FLOPS))
+                         # dout and w read, all of dx written
+                         flops, (dout.numel() + w.numel() + x.numel()) * 2,
+                         err, PEAK_BF16_FLOPS))
 
         # K3: dW in f32 (the master filter's dtype), against the plain version
         gw = _twice(lambda: conv_cuda.conv2d_grad_filter(
@@ -796,7 +1247,8 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
         mags = conv_cuda.conv2d_grad_filter_reference(
             x.abs(), dout.abs(), khw, s, p, d, out_dtype=torch.float32)
         err = _sum_err(gw, rw, mags)
-        nbytes = (x.numel() + dout.numel()) * 2 + w.numel() * 4
+        nbytes = (conv_cuda.input_bytes(x, w, s, p, d) + dout.numel() * 2
+                  + w.numel() * 4)
         rows.append(_row("wgrad", shape, n,
                          _device_ms(lambda: conv_cuda.conv2d_grad_filter(
                              x, dout, khw, s, p, d, out_dtype=torch.float32)),
@@ -990,11 +1442,38 @@ def _step(pt, main, loss, params, state, feed, place):
     return float(out[0][0]), out[1:]
 
 
+def _hold_outputs(kind, members, env, env_c, tally):
+    """Hold every float output of one op or window on the card (`env`) to
+    the CPU plain path's on the same inputs (`env_c`): relative L2 within
+    LOCKSTEP_BF16 (bf16 outputs) or LOCKSTEP_F32, else raise. Adds to
+    `tally` the worst difference by kind and the outputs compared and
+    bitwise equal; returns whether all of them were."""
+    import torch
+    equal = True
+    for n in {n for m in members for n in m.output_arg_names}:
+        a, b = env.get(n), env_c.get(n)
+        if not isinstance(a, torch.Tensor) or not a.is_floating_point():
+            continue
+        a32, b32 = a.float().cpu(), b.float()
+        r = ((a32 - b32).norm() / (b32.norm() + 1e-30)).item()
+        tol = LOCKSTEP_BF16 if a.dtype == torch.bfloat16 else LOCKSTEP_F32
+        if not (r <= tol):
+            raise RuntimeError(f"lockstep: {kind} output {n} on the card is "
+                               f"{r:.3g} (relative L2) from the CPU plain "
+                               f"path on the same inputs (tol {tol})")
+        same = torch.equal(a.cpu(), b)
+        equal &= same
+        tally["outputs"] += 1
+        tally["bitwise"] += int(same)
+        tally["worst"][kind] = max(tally["worst"].get(kind, 0.0), r)
+    return equal
+
+
 def _lockstep(pt, main, loss, state, feed):
     """One step of `main` on the card with every op and window run again,
     on a CPU copy of the card's inputs to it, on the CPU plain path; each
-    float output held to the card's. Returns the worst relative L2
-    difference by op type."""
+    float output held to the card's (_hold_outputs). Returns the worst
+    relative L2 difference by op type."""
     import torch
     from paddle_tpu_torch.executor import LoweringContext
     from paddle_tpu_torch.ops import fusion
@@ -1004,7 +1483,7 @@ def _lockstep(pt, main, loss, state, feed):
     ctx_g, ctx_c = LoweringContext(card, main, 0), LoweringContext(cpu, main, 0)
     protected = {loss.name} | set(card._persistable_outputs(main))
     ops, groups = main.global_block().ops, card._plan(main) or {}
-    worst, i = {}, 0
+    tally, i = {"worst": {}, "outputs": 0, "bitwise": 0}, 0
     while i < len(ops):
         g = groups.get(i)
         members = g.members if g is not None else (ops[i],)
@@ -1018,19 +1497,8 @@ def _lockstep(pt, main, loss, state, feed):
             card._exec_op(ctx_g, ops[i], env)
             cpu._exec_op(ctx_c, ops[i], env_c)
             i, kind = i + 1, ops[i].type
-        for n in {n for m in members for n in m.output_arg_names}:
-            a, b = env.get(n), env_c.get(n)
-            if not isinstance(a, torch.Tensor) or not a.is_floating_point():
-                continue
-            a, b = a.float().cpu(), b.float()
-            r = ((a - b).norm() / (b.norm() + 1e-30)).item()
-            tol = LOCKSTEP_BF16 if env[n].dtype == torch.bfloat16 else LOCKSTEP_F32
-            if not (r <= tol):
-                raise RuntimeError(f"lockstep: {kind} output {n} on the card is "
-                                   f"{r:.3g} (relative L2) from the CPU plain "
-                                   f"path on the same inputs (tol {tol})")
-            worst[kind] = max(worst.get(kind, 0.0), r)
-    return worst
+        _hold_outputs(kind, members, env, env_c, tally)
+    return tally["worst"]
 
 
 def _rl2(a, b):
@@ -1664,7 +2132,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     report = {"card": card}
     k1 = phase_kernel(pt, conv_cuda, resnet, report)
-    k1["launches"] = phase_slice(pt, conv_cuda, resnet, report)
+    slice_launches, served = phase_slice(pt, conv_cuda, resnet, report)
+    k11 = phase_kernel_q8(pt, conv_cuda, resnet, report)
+    q8 = phase_serve_q8(pt, conv_cuda, resnet, report, served)
+    del served
+    k1["launches_by_path"] = {"serve": slice_launches,
+                              "serve_q8": q8["launches"]}
+    k1["launches"] = sum(k1["launches_by_path"].values())
+    k11["launches"] = q8["q8_launches"]
     train_kernels = phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report)
     per_step = phase_train(pt, conv_cuda, bn_cuda, resnet, report)
     for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
@@ -1681,7 +2156,7 @@ def main(argv=None) -> int:
             by_path["serve_lm"] = serve_launches
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-    kernels = {"kernels": [k1] + train_kernels + attn_kernels}
+    kernels = {"kernels": [k1] + train_kernels + attn_kernels + [k11]}
     report.update(kernels)
     if args.report:
         with open(args.report, "w") as f:

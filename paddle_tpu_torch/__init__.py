@@ -5,14 +5,16 @@ imports `torch` and numpy, never `jax` and nothing of `paddle_tpu`. Module
 and public names follow paddle_tpu's, so each file has an obvious
 counterpart. The port serves and trains image classifiers and the
 transformer language model: Program/Block IR, the layers DSL for ResNet
-and the transformer, AMP O1/O2, append_backward with generic and explicit
-grad ops, the SGD/Momentum/Adam optimizers, an eager Executor, the conv ->
-batch_norm [-> act] windows (the inference fold and the training kernels),
-the ServingEngine, and nine hand-written kernels: K1-K4, the conv forward,
-grad-input, grad-filter and conv+statistics kernels in CUDA C++ for sm_90a
-(ops/conv_cuda.py); K5-K6, the batch-norm kernels in Triton
-(ops/bn_cuda.py); K7-K9, the flash-attention forward, dQ and dK/dV kernels
-in CUDA C++ (ops/attention_cuda.py).
+and the transformer, AMP O1/O2 and int8 serving (O3, quant.py),
+checkpoint and inference-model save/load (io.py), append_backward with
+generic and explicit grad ops, the SGD/Momentum/Adam optimizers, an eager
+Executor, the conv -> batch_norm [-> act] windows (the inference fold and
+the training kernels), the ServingEngine, and ten hand-written kernels:
+K1-K4 and K11, the conv forward, grad-input, grad-filter, conv+statistics
+and int8 conv kernels in CUDA C++ for sm_90a (ops/conv_cuda.py); K5-K6,
+the batch-norm kernels in Triton (ops/bn_cuda.py); K7-K9, the
+flash-attention forward, dQ and dK/dV kernels in CUDA C++
+(ops/attention_cuda.py).
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -37,6 +39,7 @@ from . import regularizer
 from . import clip
 from . import optimizer
 from . import io
+from . import quant
 from . import interop
 from . import models
 from . import serving

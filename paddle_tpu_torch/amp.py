@@ -3,7 +3,10 @@ counterpart of paddle_tpu/amp.py.
 
   * matmul/conv operands are cast to bf16 at the op (ops/common.py
     mxu_cast), accumulating in fp32;
-  * parameters, batch-norm statistics and losses stay float32.
+  * parameters, batch-norm statistics and losses stay float32;
+  * level O3 adds int8 compute for the eligible `mul` and `conv2d` ops
+    (quant.py), served through `ServingEngine(quantize="int8")`; O3
+    training and fp8 are later slices.
 
 Usage:
     amp.enable(program, level="O2")
@@ -27,23 +30,24 @@ def enable(program: Optional[Program] = None, dtype: str = "bfloat16",
     level="O1": matmul/conv compute in bf16, outputs restored to f32.
     level="O2": activations stay bf16 end to end; norm statistics and
     master weights stay f32.
-    level="O3" (quantized int8/fp8 compute) is not ported yet.
+    level="O3": O2 plus int8 compute where the quant gates pass
+    (`_quant_mode = "int8"`, as amp.py:47-53 with its default mode).
+    Program.clone does not carry the quant mode, as in the JAX package: a
+    clone of an O3 program runs as O2.
     """
-    if level == "O3":
-        raise NotImplementedError(
-            "AMP level O3 (quantized compute, the int8 conv kernel) is a "
-            "later slice of the port")
-    if level not in ("O1", "O2"):
+    if level not in ("O1", "O2", "O3"):
         raise ValueError(f"unknown AMP level {level!r}")
     program = program or default_main_program()
     program._amp_dtype = dtype
     program._amp_level = level
+    program._quant_mode = "int8" if level == "O3" else None
     return program
 
 
 def disable(program: Optional[Program] = None):
     program = program or default_main_program()
     program._amp_dtype = None
+    program._quant_mode = None
     return program
 
 
@@ -59,6 +63,11 @@ class _DecoratedOptimizer:
         self._level = level
 
     def minimize(self, loss, startup_program=None, **kw):
+        if self._level == "O3":
+            raise NotImplementedError(
+                "AMP O3 training (straight-through grads through the conv "
+                "grad kernels) is a later slice of the port; O3 serves "
+                "through ServingEngine(quantize='int8')")
         enable(loss.block.program, self._dtype, self._level)
         return self._opt.minimize(loss, startup_program=startup_program, **kw)
 

@@ -153,6 +153,11 @@ class LoweringContext:
         # full precision. Read by ops.common.mxu_cast.
         self.amp_dtype = getattr(program, "_amp_dtype", None)
         self.amp_level = getattr(program, "_amp_level", "O1")
+        # AMP O3's quantized compute ("int8") or None: read by the mul and
+        # conv2d lowerings (quant.py), as JAX executor.py:212-214
+        self.quant_mode = getattr(program, "_quant_mode", None)
+        # a serving program's fold constants (PreparedProgram.fold_weights)
+        self.folds = None
         self._seed = program.random_seed or 12345
         self._rng_counter = rng_counter
 
@@ -200,12 +205,21 @@ class PreparedProgram:
         self.persist_out = persist_out
         self.groups = fusion_mod.plan(program)
         self.protected = set(fetch_names) | set(persist_out)
+        self.folds = None
+
+    def fold_weights(self, state: Dict[str, torch.Tensor]):
+        """Compute every fold window's filter, channel bias and, under O3,
+        int8 filter once from the resident `state`, so no request repeats
+        them (fusion.fold_constants)."""
+        ctx = LoweringContext(self.executor, self.program, 0)
+        self.folds = fusion_mod.fold_constants(ctx, self.groups, state)
 
     def run(self, feed: Dict[str, torch.Tensor],
             state: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         env = dict(state)
         env.update(feed)
         ctx = LoweringContext(self.executor, self.program, 0)
+        ctx.folds = self.folds
         self.executor._run_block(ctx, self.program, env, self.groups,
                                  self.protected)
         return [env[n] for n in self.fetch_names]

@@ -380,11 +380,18 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def list_vars(self):
+        """Every variable of every block (JAX framework.py:443)."""
+        for b in self.blocks:
+            yield from b.vars.values()
+
     def clone(self, for_test: bool = False) -> "Program":
         """Deep-copy the program (reference Program.clone). for_test=True
         sets every `is_test` attr, as the JAX package's clone does. The AMP
         policy (`_amp_dtype`/`_amp_level`) rides along: it is program state
-        the desc does not carry."""
+        the desc does not carry. The quant mode does not, as in the JAX
+        package (framework.py:460-469): a clone of an O3 program runs as
+        O2."""
         p = Program()
         p.desc = ProgramDesc.from_json(self.desc.to_json())
         p._seed = self._seed

@@ -23,7 +23,9 @@ def mxu_cast(ctx, *xs):
     Under AMP (program._amp_dtype, see amp.py) float32 operands are cast to
     the compute dtype (bfloat16). Level O1 returns float32 as the restore
     dtype, so the call site rounds the op result to bf16 once and casts it
-    back; level O2 returns None: activations stay bf16 end to end.
+    back; level O2 returns None: activations stay bf16 end to end. O3 is O2
+    on this axis (JAX common.py:113): the quantized routing happens
+    downstream of this cast, in the mul and conv2d lowerings.
 
     Returns (cast_operands_tuple, restore_dtype_or_None); call sites do
     `out = out.to(restore) if restore is not None else out`.
@@ -33,7 +35,7 @@ def mxu_cast(ctx, *xs):
         return xs, None
     cd = to_torch_dtype(amp)
     casted = tuple(x.to(cd) if x.dtype == torch.float32 else x for x in xs)
-    if getattr(ctx, "amp_level", "O1") == "O2":
+    if getattr(ctx, "amp_level", "O1") in ("O2", "O3"):
         return casted, None
     any_cast = any(c is not x for c, x in zip(casted, xs))
     return casted, (torch.float32 if any_cast else None)

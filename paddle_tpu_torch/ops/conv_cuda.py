@@ -17,8 +17,9 @@ rows sharing a filter tile, `_block_h` :324) is a VMEM fact and is not
 copied.
 
 Bound on an H100: the larger of 2*M*Co*KH*KW*Ci FLOPs against 989 TF/s
-bf16 and the bytes of x, w and y against 3.35 TB/s; in ResNet-50 at batch
-16 the 3x3 convs are operation-bound and the 1x1 convs byte-bound.
+bf16 and the bytes of x (the pixels the stride reads), w and y against
+3.35 TB/s; in ResNet-50 at batch 16 the 3x3 convs are operation-bound and
+the 1x1 convs byte-bound.
 `chip_smoke.py` times the kernel beside that bound, the plain version and
 cuDNN (`F.conv2d`, a yardstick only), and PERF.md keeps the numbers. This
 first kernel is simple and right: wgmma, TMA, a deeper ring and split-K
@@ -39,6 +40,18 @@ reduced in a fixed order. K4, `conv2d_stats` (replaces pallas_conv.py:420
 (`conv2d_fwd_stats` in conv2d_fwd.cu), y bitwise K1's. K2 and K3 are bound
 like K1 (operations at the 3x3 convs, bytes at the 1x1 convs); K2's bound
 counts the undilated work.
+
+K11, `conv2d_q8` (replaces pallas_conv.py `conv2d_q8` :431 -> `_conv_call`
+(:331) -> `_fwd_kernel` :204 in its int8 form): `csrc/conv2d_q8.cu`, an
+implicit GEMM like K1's with int8 operands (the filter passed OHWI, the
+reduction axis minor), mma.sync m16n8k32 s8 into exact int32 sums, and an
+epilogue that rounds each sum to f32, multiplies it by the f32 dequant
+scale of its output channel and rounds once to bf16 — the reference's
+arithmetic, so kernel and plain version agree bitwise. Bound: the larger of
+2*M*Co*KH*KW*Ci integer operations against 1,979 TOP/s int8 and the bytes
+of x (the pixels read, one each), w (one each), dq and y against 3.35
+TB/s. Its gate is `quant.ineligible_conv` (the reference's 128-channel
+rule); the kernel itself needs Ci, Co % 16.
 
 Routing follows the JAX package: `ineligible` is the one gate, with the
 reason vocabulary of pallas_conv.py:84-86; a shape that fails it goes to
@@ -63,9 +76,10 @@ from . import cuda_build
 __all__ = ["FALLBACK_REASONS", "COUNTERS", "conv2d", "conv2d_reference",
            "conv2d_grad_input", "conv2d_grad_input_reference",
            "conv2d_grad_filter", "conv2d_grad_filter_reference",
-           "conv2d_stats", "conv2d_stats_reference", "wgrad_splits",
+           "conv2d_stats", "conv2d_stats_reference", "conv2d_q8",
+           "conv2d_q8_reference", "wgrad_splits",
            "ineligible", "count_hit", "count_fallback", "suppress_counters",
-           "conv_flops", "conv_bytes"]
+           "conv_flops", "conv_bytes", "input_bytes"]
 
 # The JAX package's reason vocabulary. "disabled" (its kill switch,
 # PADDLE_TPU_PALLAS_CONV=0) has no counterpart in the port yet, so
@@ -73,8 +87,10 @@ __all__ = ["FALLBACK_REASONS", "COUNTERS", "conv2d", "conv2d_reference",
 FALLBACK_REASONS = frozenset(
     {"disabled", "rank", "groups", "dtype", "channels", "attrs", "geometry"})
 
-# 16-byte vector loads: Ci and Co in multiples of 8 bf16 values
+# 16-byte vector loads: Ci and Co in multiples of 8 bf16 values (K1-K4) or
+# 16 int8 values (K11)
 _VEC = 8
+_VEC_Q8 = 16
 
 
 @dataclass
@@ -83,7 +99,7 @@ class Counters:
     wrapper launches its kernel: `launches` K1 (`conv2d`),
     `dgrad_launches` K2 (`conv2d_grad_input`, which runs K1's code),
     `wgrad_launches` K3 (`conv2d_grad_filter`), `stats_launches` K4
-    (`conv2d_stats`). `hits`/`fallbacks`: lowerings routed to the kernels
+    (`conv2d_stats`), `q8_launches` K11 (`conv2d_q8`). `hits`/`fallbacks`: lowerings routed to the kernels
     or to the library path, by op and by (op, reason) — the counterparts of
     the JAX package's pallas_kernel_total / pallas_fallback_total.
     `layout_copies`: cotangents conv2d_grad had to copy into channels_last
@@ -92,6 +108,7 @@ class Counters:
     dgrad_launches: int = 0
     wgrad_launches: int = 0
     stats_launches: int = 0
+    q8_launches: int = 0
     layout_copies: int = 0
     hits: Dict[str, int] = field(default_factory=dict)
     fallbacks: Dict[Tuple[str, str], int] = field(default_factory=dict)
@@ -99,6 +116,7 @@ class Counters:
     def reset(self):
         self.launches = self.dgrad_launches = 0
         self.wgrad_launches = self.stats_launches = 0
+        self.q8_launches = 0
         self.layout_copies = 0
         self.hits.clear()
         self.fallbacks.clear()
@@ -183,13 +201,34 @@ def conv_flops(x_nhwc, w, strides, paddings, dilations) -> int:
     return 2 * n * oh * ow * co * kh * kw * ci
 
 
+def _positions_read(size, k, s, p, d, out) -> int:
+    """How many of an axis's `size` input positions some output reads (a
+    stride above the kernel's reach skips the rest)."""
+    return len({o * s + i * d - p for o in range(out) for i in range(k)}
+               & set(range(size)))
+
+
+def input_bytes(x_nhwc, w, strides, paddings, dilations) -> int:
+    """The bytes of the input pixels the conv reads, each once: all of x,
+    except where the stride skips pixels (a 1x1 conv at stride 2 reads one
+    in four)."""
+    n, h, wd, ci = x_nhwc.shape
+    _, _, kh, kw = w.shape
+    oh, ow = _out_hw(x_nhwc, w, strides, paddings, dilations)
+    rows = _positions_read(h, kh, strides[0], paddings[0], dilations[0], oh)
+    cols = _positions_read(wd, kw, strides[1], paddings[1], dilations[1], ow)
+    return n * rows * cols * ci * x_nhwc.element_size()
+
+
 def conv_bytes(x_nhwc, w, strides, paddings, dilations, out_bytes=2) -> int:
-    """Each input read once, the output written once."""
+    """Each input element the conv needs read once (in its own element
+    size: 2 bytes bf16, 1 int8; `input_bytes` for x), the output written
+    once."""
     n = x_nhwc.shape[0]
     oh, ow = _out_hw(x_nhwc, w, strides, paddings, dilations)
     co = w.shape[0]
-    return (x_nhwc.numel() * x_nhwc.element_size() + w.numel() * w.element_size()
-            + n * oh * ow * co * out_bytes)
+    return (input_bytes(x_nhwc, w, strides, paddings, dilations)
+            + w.numel() * w.element_size() + n * oh * ow * co * out_bytes)
 
 
 def conv2d_reference(x, w, strides, paddings, dilations, out_dtype=None):
@@ -274,6 +313,41 @@ def conv2d_stats_reference(x, w, strides, paddings, dilations,
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
+def conv2d_q8_reference(x, w, strides, paddings, dilations, dq,
+                        out_dtype=None):
+    """The plain version of K11: x [N, H, W, Ci] int8, w [Co, Ci, KH, KW]
+    int8, dq [Co] f32 -> y [N, OH, OW, Co] = (f32(acc) * dq) rounded once
+    to `out_dtype` (bf16 default). acc is the exact sum: an f64 product of
+    the im2col of x and the filter (every partial sum an integer below
+    2^53), whose conversion to f32 rounds to nearest like the kernel's."""
+    n, h, wd, ci = x.shape
+    co, _, kh, kw = w.shape
+    oh, ow = _out_hw(x, w, strides, paddings, dilations)
+    cols = F.unfold(x.permute(0, 3, 1, 2).double(), (kh, kw),
+                    dilation=tuple(dilations), padding=tuple(paddings),
+                    stride=tuple(strides))               # [N, Ci*KH*KW, L]
+    acc = torch.matmul(w.reshape(co, -1).double(), cols)  # [N, Co, L]
+    y = acc.float() * dq.float().reshape(1, co, 1)
+    return y.reshape(n, co, oh, ow).permute(0, 2, 3, 1).to(
+        out_dtype or torch.bfloat16)
+
+
+def q8_ineligible(x, w, strides, paddings, dilations):
+    """None when K11 takes the operands, else why not: int8 NHWC x and OIHW
+    w, Ci and Co multiples of 16 (16-byte loads), the geometry K1 takes."""
+    if getattr(x, "ndim", 0) != 4 or getattr(w, "ndim", 0) != 4:
+        return "rank"
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        return "dtype"
+    co, ci, _, _ = w.shape
+    if x.shape[3] != ci or ci % _VEC_Q8 or co % _VEC_Q8:
+        return "channels"
+    probe = torch.empty(x.shape, dtype=torch.bfloat16, device="meta")
+    return ineligible(probe, torch.empty(w.shape, dtype=torch.bfloat16,
+                                         device="meta"),
+                      strides, paddings, dilations)
+
+
 def wgrad_splits(x_nhwc, w, strides, paddings, dilations, sms=132):
     """(splits, steps_per_split) of K3's pixel reduction: enough splits to
     put about two blocks on each of the card's SMs, each split at least 8
@@ -293,6 +367,8 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
 # conv2d_fwd_stats(x, w, y, part_sum, part_sq, csum, csq, 15 ints, out_f32,
 # stream)
 _STATS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+# conv2d_q8(x, w, dq, y, 15 shape/geometry ints, out_f32, stream)
+_Q8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
 # conv2d_wgrad(x, dout, ws, out, 15 ints, splits, steps_per_split, out_f32,
 # stream)
 _WGRAD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
@@ -447,3 +523,47 @@ def conv2d_stats(x, w, strides, paddings, dilations, out_dtype=None):
     COUNTERS.stats_launches += 1
     _raise_on(rc, "conv2d_fwd_stats", x, w)
     return y, sums[0], sums[1]
+
+
+def conv2d_q8(x, w, strides, paddings, dilations, dq, out_dtype=None):
+    """K11. x [N, H, W, Ci] int8, w [Co, Ci, KH, KW] int8 (any strides; an
+    OIHW view of an OHWI-contiguous filter is passed without a copy), dq
+    [Co] f32 -> y [N, OH, OW, Co] in `out_dtype` (bf16 default, float32
+    allowed). The caller must have passed quant.ineligible_conv. CPU
+    tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream, or raise."""
+    if x.device.type == "cpu":
+        return conv2d_q8_reference(x, w, strides, paddings, dilations, dq,
+                                   out_dtype)
+    out_dtype = out_dtype or torch.bfloat16
+    devices = {t.device for t in (x, w, dq)}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"conv2d_q8 kernel needs its operands on one CUDA "
+                         f"device, got {sorted(map(str, devices))}")
+    reason = q8_ineligible(x, w, strides, paddings, dilations)
+    if reason is not None:
+        raise ValueError(f"conv2d_q8 kernel called on an ineligible shape "
+                         f"({reason}): x {tuple(x.shape)} {x.dtype}, "
+                         f"w {tuple(w.shape)} {w.dtype}")
+    if dq.dtype != torch.float32 or tuple(dq.shape) != (w.shape[0],):
+        raise ValueError(f"conv2d_q8 kernel needs dq f32 [{w.shape[0]}], got "
+                         f"{dq.dtype} {tuple(dq.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv2d_q8 kernel writes bf16 or f32, not "
+                         f"{out_dtype}")
+    n, h, wd, ci = x.shape
+    co, _, kh, kw = w.shape
+    oh, ow = _out_hw(x, w, strides, paddings, dilations)
+    xc = cuda_build.aligned(x)
+    wc = cuda_build.aligned(w.permute(0, 2, 3, 1))
+    dqc = cuda_build.aligned(dq)
+    y = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
+    fn = cuda_build.entry("conv2d_q8", "conv2d_q8", _Q8_ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(xc.data_ptr(), wc.data_ptr(), dqc.data_ptr(), y.data_ptr(),
+            n, h, wd, ci, co, kh, kw, oh, ow, strides[0], strides[1],
+            paddings[0], paddings[1], dilations[0], dilations[1],
+            int(out_dtype == torch.float32), stream)
+    COUNTERS.q8_launches += 1
+    _raise_on(rc, "conv2d_q8", x, w)
+    return y

@@ -25,6 +25,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # kernel library name -> source file under csrc/
 SOURCES = {"conv2d_fwd": "conv2d_fwd.cu", "conv2d_wgrad": "conv2d_wgrad.cu",
+           "conv2d_q8": "conv2d_q8.cu",
            "flash_attn_fwd": "flash_attn_fwd.cu",
            "flash_attn_bwd": "flash_attn_bwd.cu"}
 

@@ -36,11 +36,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import quant
 from . import bn_cuda, conv_cuda
 from .common import mxu_cast
 from .math_ops import ACTIVATIONS
-from .nn_ops import _pair
-from .registry import get as reg_get
+from .nn_ops import _pair, conv2d_forward
 
 CONV_OPS = frozenset({"conv2d"})
 
@@ -229,6 +229,10 @@ def _conv_stats(ctx, g: Group, env) -> bool:
     conv, bn = g.conv, g.bn
     if bn.attr("is_test", False) or _act_name(g) not in bn_cuda.ACTS:
         return False
+    if getattr(ctx, "quant_mode", None):
+        # O3: the ladder runs, so the conv member reaches its quantized
+        # route (fusion.py:629)
+        return False
     x = env.get(_first(conv.desc.input("Input")))
     w = env.get(_first(conv.desc.input("Filter")))
     if x is None or w is None:
@@ -268,28 +272,66 @@ def _conv_attrs(conv):
             _pair(conv.attr("dilations", [1, 1])))
 
 
-def _fold_lower(ctx, g: Group, env):
-    """y = conv(x, w * s) + (bias - mean * s), s = scale * rsqrt(var + eps).
-
-    As in the JAX package (fusion.py:799-816): the fold is computed in f32
-    and rounded to the filter's dtype, and only then does the registered
-    conv lowering cast it (bf16 under AMP); the channel bias is added in the
-    conv output's dtype (bf16 under O2)."""
-    conv, bn, act = g.conv, g.bn, g.act
+def _fold_weights(g: Group, env):
+    """(w * s, bias - mean * s) with s = scale * rsqrt(var + eps), the fold
+    in f32, the filter rounded back to its own dtype (fusion.py:799-804)."""
+    conv, bn = g.conv, g.bn
     w = env[_first(conv.desc.input("Filter"))]
     scale = env[_first(bn.desc.input("Scale"))].float()
     bias = env[_first(bn.desc.input("Bias"))].float()
     mean = env[_first(bn.desc.input("Mean"))].float()
     var = env[_first(bn.desc.input("Variance"))].float()
-    eps = bn.attr("epsilon", 1e-5)
-    s = scale * torch.rsqrt(var + eps)
+    s = scale * torch.rsqrt(var + bn.attr("epsilon", 1e-5))
     wf = (w.float() * s.reshape((-1,) + (1,) * (w.dim() - 1))).to(w.dtype)
-    bf = bias - mean * s
+    return wf, bias - mean * s
 
-    conv_ins = {slot: [env.get(n) for n in names]
-                for slot, names in conv.desc.inputs.items()}
-    conv_ins["Filter"] = [wf]
-    y = reg_get(conv.type).lower(ctx, conv, conv_ins)["Output"][0]
+
+def fold_constants(ctx, groups, env) -> Dict[int, tuple]:
+    """anchor -> (filter, channel bias, int8 filter or None) of every fold
+    window, computed once from resident weights (the serving engine's
+    PreparedProgram): what `_fold_lower` would compute per call. Under AMP
+    O2/O3 the filter is stored already cast to bf16 (the conv lowering's
+    mxu_cast then leaves it alone). Under O3 the int8 values and per-Co
+    scales are those of the *folded* bf16 filter, as the reference's
+    quantized conv computes them per call from the filter it is handed
+    (quant.py:377-378). Its serving engine instead looks up the unfolded
+    filter's values by name and so drops the batch-norm scale from every
+    folded conv; the port does not copy that. The int8 filter is kept as an
+    OIHW view of OHWI memory, the layout K11 reads, so no call copies it."""
+    out = {}
+    for anchor, g in (groups or {}).items():
+        if not g.fold:
+            continue
+        wf, bf = _fold_weights(g, env)
+        if getattr(ctx, "amp_level", "O1") in ("O2", "O3"):
+            (wf,), _ = mxu_cast(ctx, wf)
+        pre = None
+        if getattr(ctx, "quant_mode", None):
+            q, scale = quant.quantize_channelwise(wf, axis=0,
+                                                  mode=ctx.quant_mode)
+            pre = (q.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2),
+                   scale)
+        out[anchor] = (wf, bf, pre)
+    return out
+
+
+def _fold_lower(ctx, g: Group, env):
+    """y = conv(x, w * s) + (bias - mean * s), s = scale * rsqrt(var + eps).
+
+    As in the JAX package (fusion.py:799-816): the fold is computed in f32
+    and rounded to the filter's dtype, and only then does the conv lowering
+    cast it (bf16 under AMP); the channel bias is added in the conv output's
+    dtype (bf16 under O2). A serving engine's constants (`fold_constants`)
+    stand in for the fold when it has them. Under O3 the quantized route
+    gets the folded filter's int8 values, never the unfolded filter's."""
+    conv, bn, act = g.conv, g.bn, g.act
+    folded = ctx.folds.get(g.start) if getattr(ctx, "folds", None) else None
+    if folded is not None:
+        wf, bf, pre = folded
+    else:
+        (wf, bf), pre = _fold_weights(g, env), None
+    y = conv2d_forward(ctx, conv, env[_first(conv.desc.input("Input"))], wf,
+                       pre)
     y = y + bf.to(y.dtype).reshape((1, -1) + (1,) * (y.dim() - 2))
     env[_first(bn.desc.output("Y"))] = y
     # is_test batch_norm passes the running statistics through

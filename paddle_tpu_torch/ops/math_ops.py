@@ -9,6 +9,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import quant
 from .common import (broadcast_y_to_x, elementwise_infer, in_var, mxu_cast,
                      same_as_input, set_out)
 from .registry import op, register
@@ -37,13 +38,25 @@ def _mul_infer(op_, block):
 
 @op("mul", infer_shape=_mul_infer)
 def _mul(ctx, op_, ins):
-    """A plain matrix product: left to torch.matmul, as the JAX package
-    leaves it to XLA (no Pallas kernel backs `mul`)."""
+    """A plain matrix product, left to torch.matmul as the JAX package
+    leaves it to XLA (no Pallas kernel backs `mul`); under AMP O3, where
+    the quant gate passes, the int8 product of quant.qmatmul
+    (math_ops.py:52-62), with Y's admission-time int8 values when the
+    serving engine made them."""
     x, y = ins["X"][0], ins["Y"][0]
     xn = op_.attr("x_num_col_dims", 1)
     yn = op_.attr("y_num_col_dims", 1)
     (xf, yf), restore = mxu_cast(ctx, _flat2(x, xn), _flat2(y, yn))
-    out2d = torch.matmul(xf, yf)
+    qmode = getattr(ctx, "quant_mode", None)
+    reason = quant.ineligible_matmul(xf, yf, qmode) if qmode else "disabled"
+    if reason is None:
+        quant.count_hit(op_.type)
+        out2d = quant.qmatmul(xf, yf, qmode, pre=quant.prequantized(
+            ctx, op_.desc.inputs["Y"][0]))
+    else:
+        if qmode:
+            quant.count_fallback(op_.type, reason)
+        out2d = torch.matmul(xf, yf)
     if restore is not None:
         out2d = out2d.to(restore)
     return {"Out": [out2d.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
@@ -66,9 +79,9 @@ def _make_ew(fn):
     def lower(ctx, op_, ins):
         x = ins["X"][0]
         y = broadcast_y_to_x(x, ins["Y"][0], op_.attr("axis", -1))
-        # AMP O2: an f32 operand (a master-weight bias) must not promote a
-        # bf16 activation back to f32
-        if getattr(ctx, "amp_level", "O1") == "O2" and \
+        # AMP O2 and O3: an f32 operand (a master-weight bias) must not
+        # promote a bf16 activation back to f32
+        if getattr(ctx, "amp_level", "O1") in ("O2", "O3") and \
                 x.dtype == torch.bfloat16 and y.dtype == torch.float32:
             y = y.to(x.dtype)
         return {"Out": [fn(x, y)]}

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import quant
 from ..framework.desc import OpDesc
 from ..framework.framework import grad_var_name
 from . import attention_cuda, conv_cuda
@@ -107,27 +108,52 @@ def _conv2d_infer(op_, block):
 @op("conv2d", infer_shape=_conv2d_infer)
 def _conv2d(ctx, op_, ins):
     """Eligible shapes (conv_cuda.ineligible, the one gate) run the port's
-    CUDA kernel K1; the rest go to F.conv2d with a reason-labelled fallback
-    count, as the JAX package routes between its Pallas kernel and
-    lax.conv (nn_ops.py:275)."""
-    x, w = ins["Input"][0], ins["Filter"][0]
+    CUDA kernel K1, or under AMP O3 the int8 kernel K11 where the quant gate
+    also passes; the rest go to F.conv2d with a reason-labelled fallback
+    count, as the JAX package routes between its Pallas kernels and
+    lax.conv (nn_ops.py:275-320). The filter's admission-time int8 values,
+    where the serving engine made them, come by its name."""
+    pre = quant.prequantized(ctx, op_.desc.inputs["Filter"][0]) \
+        if getattr(ctx, "quant_mode", None) else None
+    return {"Output": [conv2d_forward(ctx, op_, ins["Input"][0],
+                                      ins["Filter"][0], pre)]}
+
+
+def conv2d_forward(ctx, op_, x, w, pre=None):
+    """The conv2d lowering on explicit operands: NCHW x, OIHW w -> NCHW y in
+    channels_last memory. `pre` is the (int8 values, scales) of `w` for the
+    quantized route, or None to quantize `w` per call; the fold passes its
+    folded filter and that filter's own int8 values."""
     s = _pair(op_.attr("strides", [1, 1]))
     p = _pair(op_.attr("paddings", [0, 0]))
     d = _pair(op_.attr("dilations", [1, 1]))
     groups = op_.attr("groups", 1) or 1
+    qmode = getattr(ctx, "quant_mode", None)
     (x, w), restore = mxu_cast(ctx, x, w)
     x = x.contiguous(memory_format=torch.channels_last)
     x_nhwc = x.permute(0, 2, 3, 1)
     reason = conv_cuda.ineligible(x_nhwc, w, s, p, d, groups)
     if reason is None:
         conv_cuda.count_hit(op_.type)
-        out = conv_cuda.conv2d(x_nhwc, w, s, p, d).permute(0, 3, 1, 2)
+        qreason = quant.ineligible_conv(x_nhwc, w, s, p, d, groups,
+                                        qmode) if qmode else "disabled"
+        if qreason is None:
+            quant.count_hit(op_.type)
+            y = quant.qconv2d(x_nhwc, w, s, p, d, qmode, pre=pre)
+        else:
+            if qmode:
+                quant.count_fallback(op_.type, qreason)
+            y = conv_cuda.conv2d(x_nhwc, w, s, p, d)
+        out = y.permute(0, 3, 1, 2)
     else:
         conv_cuda.count_fallback(op_.type, reason)
+        if qmode:
+            # the quantized conv needs the kernel route (quant.py:181-184)
+            quant.count_fallback(op_.type, "kernel")
         out = F.conv2d(x, w, stride=s, padding=p, dilation=d, groups=groups)
     if restore is not None:
         out = out.to(restore)
-    return {"Output": [out]}
+    return out
 
 
 def _zero_grads(op_, ins):

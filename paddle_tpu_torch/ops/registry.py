@@ -47,6 +47,27 @@ def span(label: str):
     return _NO_SPAN
 
 
+_QUIET = [False]
+
+
+@contextlib.contextmanager
+def suppress_counters():
+    """Silence the route counters that read `counting()` (quant's hits and
+    fallbacks) while a grad lowering re-runs a forward lowering that already
+    counted itself on the forward pass (JAX registry.py:213-217)."""
+    prev = _QUIET[0]
+    _QUIET[0] = True
+    try:
+        yield
+    finally:
+        _QUIET[0] = prev
+
+
+def counting() -> bool:
+    """False inside `suppress_counters`."""
+    return not _QUIET[0]
+
+
 @dataclass
 class OpDef:
     type: str
@@ -191,7 +212,7 @@ def generic_grad_lower(ctx, op, ins):
             leaf = fwd_ins[slot][i].detach().requires_grad_(True)
             fwd_ins[slot][i] = leaf
             leaves.append(leaf)
-        with span("rerun:" + view.type):
+        with span("rerun:" + view.type), suppress_counters():
             outs = fwd_def.lower(ctx, view, fwd_ins)
         tensors, cts = [], []
         for s in sorted(fwd_out_slots):

@@ -3,9 +3,19 @@ paddle_tpu/serving/engine.py `ServingEngine`).
 
 `ServingEngine` owns one pruned inference program end to end:
 
+  * **Model**: a `save_inference_model` directory, loaded into a private
+    scope (io.load_inference_model; feed and fetch names from its
+    `__model__`), or an in-memory Program with explicit feed and fetch
+    names, its weights read from `scope` or the global scope.
   * **Admission**: the program is stripped of training ops, pruned to the
     inference fetch set, cloned `for_test`, and refused if a training-only
     op survived or a fetch is not computable from the feeds.
+  * **Quantization** (`quantize="int8"`, AMP O3): the program is marked
+    O3 and every quantizable weight is checked for the report
+    (quant.prequantize, `quant_report`); the unfolded ones (the fc) are
+    quantized once, here, and the folded conv filters once after the fold
+    (ops/fusion.fold_constants). The
+    eligible convs then run the int8 kernel K11 and the fc an int8 GEMM.
   * **Buckets**: a request is padded (edge rows) to the smallest bucket of
     the ladder that holds it, and larger requests are chunked. The JAX
     package compiles one XLA executable per bucket; here every bucket runs
@@ -13,11 +23,12 @@ paddle_tpu/serving/engine.py `ServingEngine`).
     graphs per bucket are later work. The hit/miss/run counters stay as
     plain ints: a miss is a bucket's first run.
   * **Resident state**: the weights the program reads are resolved from the
-    scope and placed on the serving device once, at construction.
+    scope and placed on the serving device once, at construction, with the
+    fold windows' filters and biases computed from them once.
 
-The static-analyzer admission gate, telemetry counters, `quantize=` (AMP
-O3, the int8 conv kernel), the hot-row embedding cache and LoD requests
-are later slices; the first three raise NotImplementedError.
+The static-analyzer admission gate, telemetry counters, fp8 serving, the
+hot-row embedding cache and LoD requests are later slices; fp8 and the
+cache raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,10 +39,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..executor import (CUDAPlace, Executor, global_scope, to_numpy,
-                        _to_device)
+from .. import io as io_mod
+from .. import quant as quant_mod
+from ..executor import (CUDAPlace, Executor, Scope, global_scope, scope_guard,
+                        to_numpy, _to_device)
 from ..framework.framework import Variable
-from ..io import _strip_training_ops
 
 DEFAULT_MAX_BATCH = 64
 
@@ -85,20 +97,16 @@ class ServingEngine:
                  emb_cache_budget_bytes: Optional[int] = None,
                  emb_cache_tables: Optional[Dict[str, int]] = None,
                  quantize: Optional[str] = None):
-        if quantize is not None:
+        if quantize == "fp8":
             raise NotImplementedError(
-                "quantized serving (AMP O3, the int8 conv kernel) is a later "
-                "slice of the port")
+                "fp8 serving (torch._scaled_mm on the card) is a later slice "
+                "of the port; quantize='int8' is ported")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be 'int8' or 'fp8', got "
+                             f"{quantize!r}")
         if emb_cache_budget_bytes is not None or emb_cache_tables:
             raise NotImplementedError(
                 "the hot-row embedding cache is a later slice of the port")
-        if isinstance(model, str):
-            raise NotImplementedError(
-                "serving a save_inference_model directory needs "
-                "load_inference_model, the next slice of the port")
-        if not feed_names or not fetch_names:
-            raise ValueError("ServingEngine(program) needs explicit "
-                             "feed_names and fetch_names")
 
         self.place = place if place is not None else CUDAPlace(0)
         self._exe = Executor(self.place)
@@ -106,15 +114,35 @@ class ServingEngine:
         self._lock = threading.RLock()
         self._closed = False
 
-        feed_names = list(feed_names)
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in fetch_names]
-        program = _strip_training_ops(model) \
-            .prune(feed_names, fetch_names).clone(for_test=True)
-        self._scope = scope if scope is not None else global_scope()
+        if isinstance(model, str):
+            self._scope = Scope()
+            with scope_guard(self._scope):
+                program, loaded_feeds, fetch_targets = \
+                    io_mod.load_inference_model(model, self._exe)
+            feed_names = list(feed_names or loaded_feeds)
+            fetch_names = list(fetch_names
+                               or [v.name for v in fetch_targets])
+        else:
+            if not feed_names or not fetch_names:
+                raise ValueError(
+                    "ServingEngine(program) needs explicit feed_names and "
+                    "fetch_names (a model_dir carries them in __model__)")
+            feed_names = list(feed_names)
+            fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                           for v in fetch_names]
+            program = io_mod._strip_training_ops(model) \
+                .prune(feed_names, fetch_names).clone(for_test=True)
+            self._scope = scope if scope is not None else global_scope()
         self.feed_names = feed_names
         self.fetch_names = fetch_names
         self.program = program
+
+        self.quantize = quantize
+        self.quant_report: Optional[Dict[str, object]] = None
+        if quantize is not None:
+            program._amp_dtype = "bfloat16"
+            program._amp_level = "O3"
+            program._quant_mode = quantize
         self._admit(program, feed_names, fetch_names)
 
         if buckets is not None:
@@ -140,9 +168,21 @@ class ServingEngine:
 
         self._prepared = self._exe.prepare_serving(program, feed_names,
                                                    fetch_names, self._scope)
+        if quantize is not None:
+            # AMP O3 (serving/engine.py:152-174): the weights are quantized
+            # once, here, and the lowerings read them by name; the fold
+            # windows' filters only for the report, since their convs read
+            # the folded filter's int8 values (fold_weights, below)
+            folded = {g.conv.desc.input("Filter")[0]
+                      for g in (self._prepared.groups or {}).values()
+                      if g.fold}
+            self.quant_report = quant_mod.prequantize(
+                program, self._scope, quantize, device=self.device,
+                folded=folded)
         self._state: Dict[str, torch.Tensor] = {
             n: _to_device(self._scope.find_var(n), self.device)
             for n in self._prepared.state_names}
+        self._prepared.fold_weights(self._state)
 
         self.cache_hits = 0
         self.cache_misses = 0

@@ -169,3 +169,21 @@ def test_bound_counts():
     assert conv_cuda.conv_flops(x, w, s, p, d) == 2 * 16 * 56 * 56 * 64 * 9 * 64
     assert conv_cuda.conv_bytes(x, w, s, p, d) == \
         2 * (16 * 56 * 56 * 64 + 64 * 64 * 9 + 16 * 56 * 56 * 64)
+
+
+@pytest.mark.parametrize("dtype,k,s,p,read_hw", [
+    (torch.int8, 1, 2, 0, 28 * 28),        # one pixel in four
+    (torch.bfloat16, 1, 2, 0, 28 * 28),
+    (torch.bfloat16, 3, 2, 1, 56 * 56),    # the 3x3 window covers the gaps
+    (torch.bfloat16, 1, 3, 0, 19 * 19),
+    (torch.bfloat16, 3, 1, 0, 56 * 56),
+])
+def test_bound_counts_only_the_pixels_read(dtype, k, s, p, read_hw):
+    x = torch.empty((16, 56, 56, 256), dtype=dtype, device="meta")
+    w = torch.empty((512, 256, k, k), dtype=dtype, device="meta")
+    size = x.element_size()
+    oh = (56 + 2 * p - k) // s + 1
+    assert conv_cuda.input_bytes(x, w, (s, s), (p, p), (1, 1)) == \
+        16 * read_hw * 256 * size
+    assert conv_cuda.conv_bytes(x, w, (s, s), (p, p), (1, 1)) == \
+        16 * read_hw * 256 * size + w.numel() * size + 16 * oh * oh * 512 * 2

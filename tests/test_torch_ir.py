@@ -96,8 +96,17 @@ def test_prune_keeps_only_the_fetch_path():
 
 
 def test_amp_o3_is_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        pt.amp.enable(pt.Program(), level="O3")
+    """O3 marks the program for int8 compute; O3 *training* is the later
+    slice."""
+    prog = pt.amp.enable(pt.Program(), level="O3")
+    assert prog._quant_mode == "int8" and prog._amp_level == "O3"
+    assert pt.amp.disable(prog)._quant_mode is None
+    main, _ = _build(pt, port_resnet, _classifier)
+    loss = next(op for op in main.global_block().ops
+                if op.type == "mean").output("Out")[0]
+    opt = pt.amp.decorate(pt.optimizer.SGD(learning_rate=0.1), level="O3")
+    with pytest.raises(NotImplementedError, match="O3 training"):
+        opt.minimize(main.global_block().var(loss))
 
 
 def test_import_without_jax():

@@ -231,9 +231,9 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 def test_later_slices_raise():
     main, _, prob = _build(pt, port_resnet, False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="fp8"):
         ServingEngine(main, ["img"], [prob], place=pt.CPUPlace(),
-                      quantize="int8")
+                      quantize="fp8")
     with pytest.raises(NotImplementedError):
         ServingEngine(main, ["img"], [prob], place=pt.CPUPlace(),
                       emb_cache_tables={"t": 4})
