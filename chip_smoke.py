@@ -4,10 +4,13 @@ Drives the port's main paths — ResNet-50 (224x224, 1000 classes, full
 width and depth, random weights from a seed) under AMP O2, served by the
 port's ServingEngine through buckets (1, 4, 16), served in int8 (AMP O3)
 from a saved inference model through the same buckets, and trained with
-Momentum through Executor.run at batch 32; and bench.py's transformer LM
+Momentum through Executor.run at batch 32; bench.py's transformer LM
 (batch 8, T 2048, 4 layers, d_model 512, 8 heads, vocab 8192) under AMP
-O2, trained with Adam and served through buckets (1, 2, 4, 8) — and holds
-every kernel of those paths against its plain PyTorch version on the card:
+O2, trained with Adam and served through buckets (1, 2, 4, 8); and
+bench.py's long-context ring configuration of the same LM (batch 1, T
+32768, sequence_parallel over an 'sp' mesh of the one card) trained — and
+holds every kernel of those paths against its plain PyTorch version on the
+card:
 
   1. device   CUDA present (else exit 2), the card's name and power limit;
   2. build    nvcc builds every CUDA kernel from paddle_tpu_torch/csrc/,
@@ -88,7 +91,29 @@ every kernel of those paths against its plain PyTorch version on the card:
               1-8 rows: K7 launches held to 4 per bucket run, one request
               against the CPU plain path; then p50 latency per bucket over
               7 requests that fill it;
- 12. result   the kernel table as one JSON line, the card line, then
+ 12. kernel_ring  K10 (the ring's unnormalized flash block) against its
+              plain version at the JAX tests' shapes, at the 16 (query
+              shard, key shard) pairs of a four-shard causal ring of [1,
+              8192, 8, 64] shards (6 wholly masked: exactly (0, 0, -1e30))
+              and at the path shape [1, 32768, 8, 64], each twice and
+              bitwise repeatable (`hold_block`); K8 and K9 at the 16 pairs
+              with their offsets; the four shards' ring merge (the ring's
+              per-step function looped in one process) against K7 on the
+              whole sequence; then K10 timed at the path shape (CUDA graph
+              of 20 calls between CUDA events) beside the bound, the plain
+              version and PyTorch's flash forward with its logsumexp
+              (yardstick only);
+ 13. train_ring  the ring configuration O2 with Adam 1e-4, one warm-up and
+              five timed steps on one batch of random tokens and labels
+              (seed 0): step p50 and tokens/s, launches per step held to
+              K10/K8/K9/K7 4/4/4/0 with every attention call a flash-ring
+              hit, the loss finite and falling, peak memory, one profiled
+              step; then the same ring program at T 2048, one step from the
+              startup weights against the CPU plain path, op by op and end
+              to end in O2; the f32 ring held to raise on the card (the
+              kernels are bf16) and its CPU step against the f32 einsum
+              program;
+ 14. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -284,6 +309,20 @@ LM_SPREAD_FACTOR = 2.0
 LM_NORM_RATIO = (0.02, 1e-3)
 LM_F32_GRAD_RL2 = (1e-4, 1e-3)
 LM_O2_LOSS_RTOL, LM_F32_LOSS_RTOL = 1e-4, 1e-5
+# the long-context transformer LM (phases kernel_ring, train_ring): bench.py's
+# `ring_attention` mode (bench.py:1076-1148), full width and depth,
+# sequence_parallel over an 'sp' mesh of the one card
+RING = {"batch": 1, "seqlen": 32768, "n_layer": 4, "d_model": 512,
+        "n_head": 8, "vocab": 8192, "lr": 1e-4}
+RING_STEPS = 5                      # timed, after one warm-up step
+RING_SHARDS = 4                     # K10/K8/K9 held at a four-shard ring's pairs
+RING_SMALL_T = 2048                 # the ring step compared with the CPU
+RING_ATTN = (1, 32768, 8, 64)       # [B, T, H, D] of its attention
+TOL_ROWS = 2048                     # query rows per chunk of a long bound
+# The ring merge of four K10 shards against K7 on the whole sequence: P is
+# rounded to bf16 against another running maximum on each side, so each
+# term may differ by 2^-8 of itself.
+MERGE_REL = 2.0 ** -8 + 1e-5
 # The served logits (O2) against the CPU plain path on the same weights:
 # within LM_LOGIT_RTOL of the largest |logit| (bf16 noise; the CPU test of
 # a 2-layer model measured 0.53 % against the JAX package).
@@ -1662,50 +1701,68 @@ def _attention_pairs(tq, tk, causal) -> int:
 
 
 def attention_flops(kernel: str, b, tq, tk, h, d, causal) -> int:
-    """Tensor-core FLOPs a K7 ("fwd"), K8 ("dq") or K9 ("dkv") call needs:
-    2*D per scored pair for each of the kernel's products (K7: S, P V; K8:
-    S, dP, dS K; K9: S, dP, P^T dO, dS^T Q)."""
-    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+    """Tensor-core FLOPs a K7 ("fwd"), K10 ("block"), K8 ("dq") or K9
+    ("dkv") call at offsets 0 needs: 2*D per scored pair for each of the
+    kernel's products (K7, K10: S, P V; K8: S, dP, dS K; K9: S, dP, P^T dO,
+    dS^T Q)."""
+    products = {"fwd": 2, "block": 2, "dq": 3, "dkv": 4}[kernel]
     return products * 2 * d * b * h * _attention_pairs(tq, tk, causal)
 
 
 def attention_bytes(kernel: str, b, tq, tk, h, d) -> int:
     """Each input read once, each output written once (bf16 operands, f32
-    lse/delta)."""
+    lse/delta; K10, "block": f32 acc, m and l)."""
     q, kv, stat = b * tq * h * d * 2, b * tk * h * d * 2, b * h * tq * 4
     if kernel == "fwd":
         return q + 2 * kv + q + stat
+    if kernel == "block":
+        return q + 2 * kv + 2 * q + 2 * stat
     if kernel == "dq":
         return 2 * q + 2 * kv + 2 * stat + q
     return 2 * q + 2 * kv + 2 * stat + 2 * kv
 
 
 def attention_tolerance(kernel, q, k, v, causal, dout=None, lse=None,
-                        delta=None, flips=4):
-    """The per-element bound on |kernel - plain version| for each bf16
-    output of K7 ("fwd": o), K8 ("dq": dq) or K9 ("dkv": dk, dv), offsets 0,
-    operands [B, T, H, D]. Each output element is a sum of products a*b
-    (K7: P/l * V; K8: scale * dS * K; K9: P^T * dO and scale * dS^T * Q)
+                        delta=None, flips=4, q_off=0, k_off=0, scale=None,
+                        rel=1e-5, rows=None):
+    """The per-element bound on |kernel - plain version| for each output of
+    K7 ("fwd": o), K8 ("dq": dq), K9 ("dkv": dk, dv) or K10 ("block": acc),
+    operands [B, T, H, D], global offsets (q_off, k_off) for the causal
+    mask. Each output element is a sum of products a*b (K7: P/l * V; K10:
+    exp(S - m) * V; K8: scale * dS * K; K9: P^T * dO and scale * dS^T * Q)
     that both sides form from the same bf16 values but in another order.
-    So: one ulp of the rounded output, 1e-5 of the sum of the terms'
-    magnitudes (f32 sums in another order), and `flips` bf16 roundings of P
-    or dS landing on the other side (2^-8 of the largest term each; the f32
-    values they round differ in the last bits). `lse` (K7: none needed) and
-    `delta` [B, H, T] as the kernels take them. Also used by
+    So: one ulp of the rounded output (bf16; f32 for K10's acc), `rel` of
+    the sum of the terms' magnitudes (f32 sums in another order: 1e-5), and
+    `flips` bf16 roundings of P or dS landing on the other side (2^-8 of
+    the largest term each; the f32 values they round differ in the last
+    bits). `lse` (K7: none needed; K10: the row max m) and `delta` [B, H,
+    Tq] as the kernels take them. `rows` walks the query rows in chunks of
+    that many, so that a long sequence's [Tq, Tk] scores never exist whole
+    (K7 and K10 only: their bounds are row by row). Also used by
     tests/test_torch_attention*.py."""
     import torch
+    if rows is not None and kernel in ("fwd", "block") and q.shape[1] > rows:
+        parts = [attention_tolerance(
+            kernel, q[:, r:r + rows], k, v, causal,
+            lse=None if lse is None else lse[..., r:r + rows], flips=flips,
+            q_off=q_off + r, k_off=k_off, scale=scale, rel=rel)[0]
+            for r in range(0, q.shape[1], rows)]
+        return [torch.cat(parts, dim=1)]
     qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if causal:
-        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
-                          device=s.device).tril()
+        qpos = q_off + torch.arange(q.shape[1], device=s.device)
+        kpos = k_off + torch.arange(k.shape[1], device=s.device)
+        keep = qpos[:, None] >= kpos[None, :]
         s = torch.where(keep, s, torch.full_like(s, -1e30))
     if lse is None:
         lse = torch.logsumexp(s, -1)
     p = torch.exp(s - lse.float()[..., None])
+    del s
     pairs = []
-    if kernel == "fwd":
+    if kernel in ("fwd", "block"):
         pairs.append((p, vf, 1.0))
     else:
         dof = dout.float().permute(0, 2, 1, 3)
@@ -1716,13 +1773,15 @@ def attention_tolerance(kernel, q, k, v, causal, dout=None, lse=None,
         else:
             pairs += [(ds.transpose(-1, -2), qf, scale),
                       (p.transpose(-1, -2), dof, 1.0)]
+    mant = 23 if kernel == "block" else 7
     out = []
     for a, b, sc in pairs:
         b = b.abs()
         total = torch.matmul(a, b) * sc
         largest = a.amax(-1, keepdim=True) * b.amax(-2, keepdim=True) * sc
-        ulp = torch.exp2(torch.floor(torch.log2(total.clamp_min(1e-30))) - 7)
-        bound = ulp + 1e-5 * total + flips * 2.0 ** -8 * largest + 1e-6
+        ulp = torch.exp2(torch.floor(torch.log2(total.clamp_min(1e-30)))
+                         - mant)
+        bound = ulp + rel * total + flips * 2.0 ** -8 * largest + 1e-6
         out.append(bound.permute(0, 2, 1, 3))
     return out
 
@@ -1741,6 +1800,38 @@ def _lse_err(got, want, what):
     if not (err <= LSE_RTOL * want.abs().clamp_min(1.0)).all():
         raise RuntimeError(f"{what}: LSE max abs err {err.max().item():.4g}")
     return err.max().item()
+
+
+def hold_block(got, want, q, k, v, q_off, k_off, scale, causal, what,
+               rows=None):
+    """Hold K10's (acc, l, m) to its plain version's on the same operands:
+    a row the plain version leaves invalid (m = -1e30, no visited key tile
+    or every visited key masked) has exactly m = -1e30 on the card too, and
+    exactly (acc, l) = (0, 0) where the plain version has them; a valid
+    row's m within LSE_RTOL of max(1, |m|), its m + log(l) within LSE_RTOL
+    of max(1, |m + log l|), its acc within attention_tolerance("block").
+    Returns acc's max abs error over the valid rows."""
+    import torch
+    (acc, l, m), (racc, rl, rm) = got, want
+    invalid = rm <= -5e29
+    if not torch.equal(m[invalid], rm[invalid]):
+        raise RuntimeError(f"{what}: m of an invalid row is not -1e30")
+    empty = invalid & (rl == 0)
+    if not (torch.equal(l[empty], rl[empty]) and
+            (acc.transpose(1, 2)[empty] == 0).all()):
+        raise RuntimeError(f"{what}: a row no key tile reaches is not (0, 0)")
+    if invalid.all():
+        return 0.0
+    valid = ~invalid
+    _lse_err(m[valid], rm[valid], f"{what} m")
+    _lse_err((m + torch.log(l))[valid], (rm + torch.log(rl))[valid],
+             f"{what} m + log(l)")
+    bound, = attention_tolerance("block", q, k, v, causal, lse=rm,
+                                 q_off=q_off, k_off=k_off, scale=scale,
+                                 rows=rows)
+    keep = valid.transpose(1, 2)[..., None]
+    return _bounded(torch.where(keep, acc, racc), racc, bound,
+                    f"{what} acc")
 
 
 def phase_kernel_attn(attention_cuda, report):
@@ -1846,31 +1937,203 @@ def phase_kernel_attn(attention_cuda, report):
     return kernels
 
 
+def _sdpa_with_lse(q, k, v):
+    """PyTorch's own causal flash attention forward with its logsumexp, one
+    call (the yardstick of K10, which has no one-call counterpart: no
+    PyTorch call returns the unnormalized (acc, m, l)). q, k, v [B, H, T,
+    D]."""
+    import torch
+    return torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, True)[:2]
+
+
+def phase_kernel_ring(attention_cuda, ring, report):
+    """K10 (the ring's unnormalized flash block) against its plain version:
+    at the JAX tests' shapes and the bench shape (offsets 0), at the 16
+    (query shard, key shard) pairs of a four-shard causal ring of [1, 8192,
+    8, 64] shards (6 of them wholly masked), and at the path shape [1,
+    32768, 8, 64]; each twice and bitwise repeatable. K8 and K9 at the same
+    16 pairs with their offsets (their plain versions form [Tq, Tk] scores:
+    34 GB at the path shape, so they are held at the pairs alone). The four
+    shards' ring merge (`ring.ring_step` looped over the shards, K10 each
+    step) against K7 on the whole sequence. Then K10 timed at the path
+    shape beside its bound, its plain version and PyTorch's flash forward
+    with its logsumexp (a yardstick only)."""
+    import torch
+    A = attention_cuda
+    gen = torch.Generator().manual_seed(SEED + 7)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+
+    worst = {"block": 0.0, "dq": 0.0, "dkv": 0.0, "merge": 0.0}
+    for shape, causal in ATTN_SHAPES:
+        q, k, v = (randn(shape) for _ in range(3))
+        scale = 1.0 / math.sqrt(shape[-1])
+        got = _twice(lambda: A.flash_attention_block(q, k, v, 0, 0, scale,
+                                                     causal))
+        want = A.flash_forward_block_reference(q, k, v, 0, 0, scale, causal)
+        at = f"{list(shape)} causal={causal}"
+        e = hold_block(got, want, q, k, v, 0, 0, scale, causal, f"K10 at {at}")
+        worst["block"] = max(worst["block"], e)
+        print(f"K10 at {at}: max abs err acc {e:.3g}; bitwise repeatable",
+              flush=True)
+        del got, want
+    torch.cuda.empty_cache()
+
+    b, t, h, d = RING_ATTN
+    q, k, v, do = (randn(RING_ATTN) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o7, lse7 = A.flash_forward(q, k, v, True)
+    delta = (do.float() * o7.float()).sum(-1).transpose(1, 2).contiguous()
+    ts = t // RING_SHARDS
+    shard = [slice(i * ts, (i + 1) * ts) for i in range(RING_SHARDS)]
+    masked = 0
+    for i in range(RING_SHARDS):
+        qi, doi = q[:, shard[i]], do[:, shard[i]]
+        lse_i = lse7[..., shard[i]].contiguous()
+        delta_i = delta[..., shard[i]].contiguous()
+        for j in range(RING_SHARDS):
+            kj, vj = k[:, shard[j]], v[:, shard[j]]
+            at = f"pair ({i}, {j}) of [1, {ts}, {h}, {d}] shards"
+            got = _twice(lambda: A.flash_attention_block(
+                qi, kj, vj, i * ts, j * ts, scale, True))
+            want = A.flash_forward_block_reference(qi, kj, vj, i * ts, j * ts,
+                                                   scale, True)
+            e = hold_block(got, want, qi, kj, vj, i * ts, j * ts, scale, True,
+                           f"K10 {at}")
+            masked += int(bool((got[2] == -1e30).all()))
+            del got, want
+            args = (qi, kj, vj, doi, lse_i, delta_i, i * ts, j * ts, scale,
+                    True)
+            dq = _twice(lambda: A.flash_dq(*args))
+            dk, dv = _twice(lambda: A.flash_dkv(*args))
+            bq, = attention_tolerance("dq", qi, kj, vj, True, doi, lse_i,
+                                      delta_i, q_off=i * ts, k_off=j * ts)
+            e_q = _bounded(dq, A.flash_dq_reference(*args), bq, f"K8 {at}")
+            del bq
+            bk, bv = attention_tolerance("dkv", qi, kj, vj, True, doi, lse_i,
+                                         delta_i, q_off=i * ts, k_off=j * ts)
+            rk, rv = A.flash_dkv_reference(*args)
+            e_k = _bounded(dk, rk, bk, f"K9 dk {at}")
+            e_v = _bounded(dv, rv, bv, f"K9 dv {at}")
+            del bk, bv, rk, rv, dq, dk, dv
+            torch.cuda.empty_cache()
+            worst["block"] = max(worst["block"], e)
+            worst["dq"] = max(worst["dq"], e_q)
+            worst["dkv"] = max(worst["dkv"], e_k, e_v)
+            print(f"K10/K8/K9 at {at}: max abs err acc {e:.3g}, dq {e_q:.3g}, "
+                  f"dk {e_k:.3g}, dv {e_v:.3g}; each bitwise repeatable",
+                  flush=True)
+    want_masked = RING_SHARDS * (RING_SHARDS - 1) // 2
+    if masked != want_masked:
+        raise RuntimeError(f"{masked} wholly masked pairs, expected "
+                           f"{want_masked}")
+
+    at = f"the path shape {list(RING_ATTN)} causal"
+    got = _twice(lambda: A.flash_attention_block(q, k, v, 0, 0, scale, True))
+    want = A.flash_forward_block_reference(q, k, v, 0, 0, scale, True)
+    e = hold_block(got, want, q, k, v, 0, 0, scale, True, f"K10 at {at}",
+                   rows=TOL_ROWS)
+    worst["block"] = max(worst["block"], e)
+    print(f"K10 at {at}: max abs err acc {e:.3g}; bitwise repeatable",
+          flush=True)
+    del got, want
+    torch.cuda.empty_cache()
+
+    # the ring merge, one process: every query shard's P steps in ring order
+    launches0 = A.COUNTERS.block_launches
+    outs, lses = [], []
+    for i in range(RING_SHARDS):
+        state = ring.ring_init(q[:, shard[i]])
+        for st in range(RING_SHARDS):
+            j = (i - st) % RING_SHARDS
+            state = ring.ring_step(state, q[:, shard[i]], k[:, shard[j]],
+                                   v[:, shard[j]], i * ts, j * ts, scale,
+                                   True)
+        o_i, lse_i = ring.ring_finish(state, q.dtype)
+        outs.append(o_i)
+        lses.append(lse_i)
+        del state
+    if A.COUNTERS.block_launches - launches0 != RING_SHARDS ** 2:
+        raise RuntimeError("the ring merge did not run K10 at every step")
+    bound, = attention_tolerance("fwd", q, k, v, True, rel=MERGE_REL,
+                                 rows=TOL_ROWS)
+    e = _bounded(torch.cat(outs, 1), o7, bound, "the ring merge against K7")
+    e_lse = _lse_err(torch.cat(lses, -1), lse7, "the ring merge against K7")
+    worst["merge"] = e
+    print(f"ring merge of {RING_SHARDS} shards against K7 on {list(RING_ATTN)} "
+          f"causal: max abs err o {e:.3g} (bound rel {MERGE_REL:.3g}), lse "
+          f"{e_lse:.3g}", flush=True)
+    del outs, lses, bound, o7, lse7, delta, do
+    torch.cuda.empty_cache()
+
+    qv, kv, vv = (x.transpose(1, 2) for x in (q, k, v))          # [B,H,T,D]
+    ms = _device_ms(lambda: A.flash_attention_block(q, k, v, 0, 0, scale,
+                                                    True))
+    plain_ms = _device_ms(lambda: A.flash_forward_block_reference(
+        q, k, v, 0, 0, scale, True), reps=2)
+    lib_ms = _device_ms(lambda: _sdpa_with_lse(qv, kv, vv))
+    del q, k, v, qv, kv, vv
+    torch.cuda.empty_cache()
+    per = RING["n_layer"]
+    flops = attention_flops("block", b, t, t, h, d, True)
+    nbytes = attention_bytes("block", b, t, t, h, d)
+    row = _row("flash_attn_fwd_block", f"{list(RING_ATTN)} causal", per, ms,
+               plain_ms, lib_ms, flops, nbytes, worst["block"],
+               PEAK_BF16_FLOPS)
+    print(f"flash_attn_fwd_block at {list(RING_ATTN)} causal: {ms:.4f} ms per "
+          f"call, plain {plain_ms:.4f}, SDPA flash forward with LSE "
+          f"{lib_ms:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}; "
+          f"{flops / 1e9:.1f} GFLOP = {flops / ms / 1e9:.1f} TFLOP/s)",
+          flush=True)
+    report["ring_kernel"] = {"path_shape": row, "max_abs_err": worst,
+                             "masked_pairs": masked}
+    return {"name": "flash_attn_fwd_block", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "paddle_tpu/ops/pallas_attention.py:143",
+            "max_abs_err": worst["block"], "ms": ms * per,
+            "plain_ms": plain_ms * per, "bound_ms": row["bound_ms"] * per,
+            "bound_by": row["bound_by"], "library_ms": lib_ms * per,
+            "library": "torch.ops.aten._scaled_dot_product_flash_attention "
+                       "(forward with its logsumexp)",
+            "per": f"the {per} calls of one batch-{b} T-{t} ring "
+                   f"transformer_lm training step, {list(RING_ATTN)} causal"}
+
+
 # --- the transformer LM: training and serving -----------------------------------
 
-def _transformer(pt, amp=True, is_test=False, use_flash="auto"):
-    """bench.py's `transformer` model through the port's fluid API: the
-    training program (Adam, amp.decorate O2) or, with is_test, the served
-    one (logits returned, amp.enable O2). The same variable names."""
+def _transformer(pt, amp=True, is_test=False, use_flash="auto", cfg=None,
+                 seqlen=None, sequence_parallel=False):
+    """bench.py's `transformer` model (`cfg`, LM by default; T `seqlen`,
+    cfg's by default) through the port's fluid API: the training program
+    (Adam, amp.decorate O2) or, with is_test, the served one (logits
+    returned, amp.enable O2). The same variable names. With
+    sequence_parallel its attention is the ring over a one-rank 'sp' mesh
+    (bench.py's `ring_attention` mode)."""
+    cfg = LM if cfg is None else cfg
     main, startup = pt.Program(), pt.Program()
-    t = LM["seqlen"]
+    t = cfg["seqlen"] if seqlen is None else seqlen
     with pt.unique_name.guard(), pt.program_guard(main, startup):
         tok = pt.layers.data(name="tok", shape=[-1, t], dtype="int64",
                              append_batch_size=False)
         lab = pt.layers.data(name="lab", shape=[-1, t], dtype="int64",
                              append_batch_size=False)
         loss, logits = pt.models.transformer_lm(
-            tok, lab, vocab_size=LM["vocab"], d_model=LM["d_model"],
-            n_head=LM["n_head"], n_layer=LM["n_layer"], use_flash=use_flash,
-            is_test=is_test, return_logits=True)
+            tok, lab, vocab_size=cfg["vocab"], d_model=cfg["d_model"],
+            n_head=cfg["n_head"], n_layer=cfg["n_layer"], use_flash=use_flash,
+            is_test=is_test, sequence_parallel=sequence_parallel,
+            return_logits=True)
         if is_test:
             if amp:
                 pt.amp.enable(main, level="O2")
         else:
-            opt = pt.optimizer.Adam(learning_rate=LM["lr"])
+            opt = pt.optimizer.Adam(learning_rate=cfg["lr"])
             if amp:
                 opt = pt.amp.decorate(opt, level="O2")
             opt.minimize(loss, startup_program=startup)
+    if sequence_parallel:
+        main._mesh = pt.parallel.make_mesh((1,), ("sp",))
     main.random_seed = startup.random_seed = SEED + 1
     return main, startup, loss, logits
 
@@ -1885,6 +2148,77 @@ def _k_biases(main):
     made_by = {n: op for op in block.ops for n in op.output_arg_names}
     return {made_by[made_by[op.input("K")[0]].input("X")[0]].input("Y")[0]
             for op in block.ops if op.type == "scaled_dot_product_attention"}
+
+
+def _hold_lm_step(pt, main, loss, init, small, card, f32, o2_einsum,
+                  f32_einsum=None):
+    """One step of the LM program `main` (O2) at `small` from `init` on the
+    card against the CPU plain path, and the same for its f32 twin `f32`
+    ((main, startup, loss, logits)); the O2 grads held to this run's own
+    CPU noise floor, the O2 CPU run of `main` against that of `o2_einsum`,
+    the einsum-attention program. With `f32_einsum` (the ring's f32 twin
+    has no card form: its flash ring raises on f32 CUDA operands) the f32
+    twin runs on the CPU only, held against `f32_einsum` there. Returns
+    (agreements, the K biases' f32 CPU grad norms); raises past the LM_*
+    tolerances."""
+    import numpy as np
+    params = sorted(p.name for p in main.global_block().all_parameters()
+                    if p.trainable)
+    skip = _k_biases(main)
+    main32, _, loss32, _ = f32
+    main_e, _, loss_e, _ = o2_einsum
+    f32_other = ("f32_card", main32, loss32, pt.CUDAPlace(0))
+    if f32_einsum is not None:
+        f32_other = ("f32_cpu_einsum", f32_einsum[0], f32_einsum[2],
+                     pt.CPUPlace())
+    runs = {}
+    for key, prog, lss, place in (
+            ("o2_card", main, loss, pt.CUDAPlace(0)),
+            ("o2_cpu", main, loss, pt.CPUPlace()),
+            ("o2_cpu_einsum", main_e, loss_e, pt.CPUPlace()),
+            f32_other,
+            ("f32_cpu", main32, loss32, pt.CPUPlace())):
+        t0 = time.perf_counter()
+        runs[key] = _step(pt, prog, lss, params, init, small, place)
+        print(f"{key}: one batch-{LM_SMALL_BATCH} step, loss {runs[key][0]:.6f}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not all(np.isfinite(g).all() for g in runs[key][1]):
+            raise RuntimeError(f"{key}: non-finite grads")
+    agree = {what: _grad_agreement(runs[a], runs[b], params, skip)
+             for what, a, b in (("o2", "o2_card", "o2_cpu"),
+                                ("f32", f32_other[0], "f32_cpu"),
+                                ("o2_cpu_flash_vs_einsum", "o2_cpu",
+                                 "o2_cpu_einsum"))}
+    for what, r in agree.items():
+        print(f"{what}: loss {r['loss_rel_diff']:.3g} relative; grad relative "
+              f"L2 median {r['grad_rl2_median']:.3g}, max {r['grad_rl2_max']:.3g} "
+              f"({r['grad_rl2_worst']}); grad norm ratio "
+              f"{r['norm_ratio_min']:.5f}-{r['norm_ratio_max']:.5f} "
+              f"({len(params) - len(skip)} parameters; the {len(skip)} K "
+              f"biases left out) ({card})", flush=True)
+    kb = {p: float(np.linalg.norm(g)) for p, g in zip(params, runs["f32_cpu"][1])
+          if p in skip}
+    print(f"the K biases' grad norms (f32, CPU): {kb}", flush=True)
+    o2, f32, floor = agree["o2"], agree["f32"], agree["o2_cpu_flash_vs_einsum"]
+    failed = []
+    if o2["loss_rel_diff"] > LM_O2_LOSS_RTOL or \
+            f32["loss_rel_diff"] > LM_F32_LOSS_RTOL:
+        failed.append("loss")
+    if o2["grad_rl2_median"] > LM_SPREAD_FACTOR * floor["grad_rl2_median"] or \
+            o2["grad_rl2_max"] > LM_SPREAD_FACTOR * floor["grad_rl2_max"]:
+        failed.append("O2 grads past twice the noise floor")
+    if f32["grad_rl2_median"] > LM_F32_GRAD_RL2[0] or \
+            f32["grad_rl2_max"] > LM_F32_GRAD_RL2[1]:
+        failed.append("f32 grads")
+    for what, tol in (("o2", LM_NORM_RATIO[0]), ("f32", LM_NORM_RATIO[1])):
+        r = agree[what]
+        if not (1 - tol <= r["norm_ratio_min"] and r["norm_ratio_max"] <= 1 + tol):
+            failed.append(f"{what} grad norms")
+    if failed:
+        raise RuntimeError(f"the batch-{LM_SMALL_BATCH} step disagrees "
+                           f"(O2: card against the CPU plain path; f32: "
+                           f"{f32_other[0]} against f32_cpu): {failed}")
+    return agree, kb
 
 
 def phase_train_lm(pt, attention_cuda, report):
@@ -1952,57 +2286,9 @@ def phase_train_lm(pt, attention_cuda, report):
           f"({time.perf_counter() - t0:.1f} s); worst relative L2: "
           + ", ".join(f"{k} {v:.3g}" for k, v in top[:8])
           + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32)", flush=True)
-    params = sorted(p.name for p in main.global_block().all_parameters()
-                    if p.trainable)
-    skip = _k_biases(main)
-    main32, _, loss32, _ = _transformer(pt, amp=False)
-    main_e, _, loss_e, _ = _transformer(pt, use_flash=False)
-    runs = {}
-    for key, prog, lss, place in (
-            ("o2_card", main, loss, pt.CUDAPlace(0)),
-            ("o2_cpu", main, loss, pt.CPUPlace()),
-            ("o2_cpu_einsum", main_e, loss_e, pt.CPUPlace()),
-            ("f32_card", main32, loss32, pt.CUDAPlace(0)),
-            ("f32_cpu", main32, loss32, pt.CPUPlace())):
-        t0 = time.perf_counter()
-        runs[key] = _step(pt, prog, lss, params, init, small, place)
-        print(f"{key}: one batch-{LM_SMALL_BATCH} step, loss {runs[key][0]:.6f}, "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        if not all(np.isfinite(g).all() for g in runs[key][1]):
-            raise RuntimeError(f"{key}: non-finite grads")
-    agree = {what: _grad_agreement(runs[a], runs[b], params, skip)
-             for what, a, b in (("o2", "o2_card", "o2_cpu"),
-                                ("f32", "f32_card", "f32_cpu"),
-                                ("o2_cpu_flash_vs_einsum", "o2_cpu",
-                                 "o2_cpu_einsum"))}
-    for what, r in agree.items():
-        print(f"{what}: loss {r['loss_rel_diff']:.3g} relative; grad relative "
-              f"L2 median {r['grad_rl2_median']:.3g}, max {r['grad_rl2_max']:.3g} "
-              f"({r['grad_rl2_worst']}); grad norm ratio "
-              f"{r['norm_ratio_min']:.5f}-{r['norm_ratio_max']:.5f} "
-              f"({len(params) - len(skip)} parameters; the {len(skip)} K "
-              f"biases left out) ({card})", flush=True)
-    kb = {p: float(np.linalg.norm(g)) for p, g in zip(params, runs["f32_cpu"][1])
-          if p in skip}
-    print(f"the K biases' grad norms (f32, CPU): {kb}", flush=True)
-    o2, f32, floor = agree["o2"], agree["f32"], agree["o2_cpu_flash_vs_einsum"]
-    failed = []
-    if o2["loss_rel_diff"] > LM_O2_LOSS_RTOL or \
-            f32["loss_rel_diff"] > LM_F32_LOSS_RTOL:
-        failed.append("loss")
-    if o2["grad_rl2_median"] > LM_SPREAD_FACTOR * floor["grad_rl2_median"] or \
-            o2["grad_rl2_max"] > LM_SPREAD_FACTOR * floor["grad_rl2_max"]:
-        failed.append("O2 grads past twice the noise floor")
-    if f32["grad_rl2_median"] > LM_F32_GRAD_RL2[0] or \
-            f32["grad_rl2_max"] > LM_F32_GRAD_RL2[1]:
-        failed.append("f32 grads")
-    for what, tol in (("o2", LM_NORM_RATIO[0]), ("f32", LM_NORM_RATIO[1])):
-        r = agree[what]
-        if not (1 - tol <= r["norm_ratio_min"] and r["norm_ratio_max"] <= 1 + tol):
-            failed.append(f"{what} grad norms")
-    if failed:
-        raise RuntimeError(f"the batch-{LM_SMALL_BATCH} step on the card "
-                           f"disagrees with the CPU plain path: {failed}")
+    agree, kb = _hold_lm_step(pt, main, loss, init, small, card,
+                              _transformer(pt, amp=False),
+                              _transformer(pt, use_flash=False))
     report["train_lm"] = {
         "card": card, "config": LM, "step_ms": [t * 1e3 for t in times],
         "p50_ms": p50, "tokens_per_s": tok_s, "losses": losses,
@@ -2095,6 +2381,128 @@ def phase_serve_lm(pt, attention_cuda, report):
     return launches
 
 
+def phase_train_ring(pt, attention_cuda, report):
+    """bench.py's `ring_attention` configuration trained on the card: the
+    ring over a one-rank 'sp' mesh, use_flash=True, AMP O2, Adam 1e-4; one
+    warm-up and RING_STEPS timed steps on one batch of random tokens and
+    labels (seed 0): step p50 and tokens/s, launches per step held to K10
+    4, K8 4, K9 4 and K7 0 with every attention call a flash-ring hit (no
+    fallback, no einsum ring), the loss finite and falling, peak memory, a
+    profiled step. Then the same ring program at T RING_SMALL_T, one step
+    from the startup weights against the CPU plain path: op by op, then
+    end to end, in O2; in f32 the ring raises on the card and its CPU step
+    is held against the f32 einsum program's."""
+    import numpy as np
+    import torch
+    A = attention_cuda
+    B, T, V = RING["batch"], RING["seqlen"], RING["vocab"]
+    main, startup, loss, _ = _transformer(pt, use_flash=True, cfg=RING,
+                                          sequence_parallel=True)
+    scope = pt.Scope()
+    exe = pt.Executor()                        # CUDAPlace(0) by default
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(SEED)
+    feed = {"tok": rng.integers(0, V, (B, T)).astype(np.int64),
+            "lab": rng.integers(0, V, (B, T)).astype(np.int64)}
+    card = _card_line()
+
+    t0 = time.perf_counter()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0][0])]
+    print(f"ring transformer_lm warm-up step: {time.perf_counter() - t0:.2f} s, "
+          f"loss {losses[0]:.5f}", flush=True)
+    A.COUNTERS.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(RING_STEPS):
+        t0 = time.perf_counter()               # the fetch ends in a device->host copy
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+        times.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: getattr(A.COUNTERS, k) for k in (
+        "block_launches", "dq_launches", "dkv_launches", "launches")}
+    hits, fallbacks = dict(A.COUNTERS.hits), dict(A.COUNTERS.fallbacks)
+    p50 = float(np.median(times)) * 1e3
+    tok_s = B * T / (p50 / 1e3)
+    print(f"ring transformer_lm O2 training, batch {B}, T {T}: step p50 "
+          f"{p50:.1f} ms (steps {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{tok_s:.0f} tokens/s; peak memory {peak_gb:.2f} GB ({card})",
+          flush=True)
+    print(f"losses: {', '.join(f'{v:.5f}' for v in losses)}", flush=True)
+    per_step = {k: v / RING_STEPS for k, v in launches.items()}
+    print(f"K10/K8/K9/K7 launches per step: {per_step}; flash-ring calls "
+          f"{hits}; attention fallbacks {fallbacks}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the training loss is not finite and falling: {losses}")
+    n = RING["n_layer"] * RING_STEPS
+    want = {"block_launches": n, "dq_launches": n, "dkv_launches": n,
+            "launches": 0}
+    want_hits = {"scaled_dot_product_attention": n,
+                 "scaled_dot_product_attention_grad": n}
+    if launches != want or hits != want_hits or fallbacks:
+        raise RuntimeError(f"K10/K8/K9/K7 launches {launches}, expected "
+                           f"{want}; hits {hits}; fallbacks {fallbacks}")
+
+    profile = _profile_step(exe, main, feed, loss, scope, p50, card, (
+        "K10", lambda name: "flash_fwd_kernel" in name and "false" in name))
+    del scope, exe
+    torch.cuda.empty_cache()
+
+    # T RING_SMALL_T: the same ring program from the startup weights, card
+    # against the CPU plain path; the O2 grads held to the CPU's own O2
+    # ring-vs-einsum spread. The f32 ring has no card form (the kernels are
+    # bf16 and the gate raises rather than form the plain versions' whole
+    # scores): it is held to raise on the card, and runs on the CPU against
+    # the f32 einsum program
+    small_prog = _transformer(pt, use_flash=True, cfg=RING,
+                              seqlen=RING_SMALL_T, sequence_parallel=True)
+    main_s, startup_s, loss_s, _ = small_prog
+    scope = pt.Scope()
+    pt.Executor().run(startup_s, scope=scope)
+    init = {n: v.clone() for n, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+    del scope
+    small = {"tok": feed["tok"][:LM_SMALL_BATCH, :RING_SMALL_T],
+             "lab": feed["lab"][:LM_SMALL_BATCH, :RING_SMALL_T]}
+    t0 = time.perf_counter()
+    worst = _lockstep(pt, main_s, loss_s, init, small)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])
+    print(f"ring lockstep, batch {LM_SMALL_BATCH}, T {RING_SMALL_T}: "
+          f"{len(worst)} op kinds, each output on the card against the CPU "
+          f"plain path on the card's inputs ({time.perf_counter() - t0:.1f} s); "
+          f"worst relative L2: " + ", ".join(f"{k} {v:.3g}" for k, v in top[:8])
+          + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32)", flush=True)
+    ring32 = _transformer(pt, amp=False, use_flash=True, cfg=RING,
+                          seqlen=RING_SMALL_T, sequence_parallel=True)
+    scope = pt.Scope()
+    pt.Executor().run(ring32[1], scope=scope)
+    try:
+        pt.Executor().run(ring32[0], feed=small, fetch_list=[ring32[2]],
+                          scope=scope)
+    except pt.executor.EnforceNotMet as e:
+        if not isinstance(e.__cause__, ValueError) or "bf16" not in str(e):
+            raise
+        print(f"the f32 ring on the card raises, as it must: {e.__cause__}",
+              flush=True)
+    else:
+        raise RuntimeError("the f32 flash ring ran on the card; its gate "
+                           "must refuse f32 CUDA operands")
+    del scope
+    agree, kb = _hold_lm_step(
+        pt, main_s, loss_s, init, small, card, ring32,
+        _transformer(pt, use_flash=False, cfg=RING, seqlen=RING_SMALL_T),
+        f32_einsum=_transformer(pt, amp=False, use_flash=False, cfg=RING,
+                                seqlen=RING_SMALL_T))
+    report["train_ring"] = {
+        "card": card, "config": RING, "step_ms": [t * 1e3 for t in times],
+        "p50_ms": p50, "tokens_per_s": tok_s, "losses": losses,
+        "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+        "hits": hits, "profile": profile, "lockstep_worst_rl2": worst,
+        "small_t": RING_SMALL_T, "small_batch": agree, "k_bias_grad_norms": kb}
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measurements as JSON here")
@@ -2114,6 +2522,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.models import resnet
     from paddle_tpu_torch.ops import (attention_cuda, bn_cuda, conv_cuda,
                                       cuda_build)
+    from paddle_tpu_torch.parallel import ring_attention
 
     card = _card_line()
     print(f"device: {card}; torch {torch.__version__}, CUDA "
@@ -2149,14 +2558,19 @@ def main(argv=None) -> int:
     attn_kernels = phase_kernel_attn(attention_cuda, report)
     lm_launches = phase_train_lm(pt, attention_cuda, report)
     serve_launches = phase_serve_lm(pt, attention_cuda, report)
+    k10 = phase_kernel_ring(attention_cuda, ring_attention, report)
+    ring_launches = phase_train_ring(pt, attention_cuda, report)
     for k, key in zip(attn_kernels, ("launches", "dq_launches",
                                      "dkv_launches")):
-        by_path = {"train_lm": lm_launches[key]}
+        by_path = {"train_lm": lm_launches[key],
+                   "train_ring": ring_launches[key]}
         if key == "launches":
             by_path["serve_lm"] = serve_launches
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-    kernels = {"kernels": [k1] + train_kernels + attn_kernels + [k11]}
+    k10["launches"] = ring_launches["block_launches"]
+    k10["launches_by_path"] = {"train_ring": k10["launches"]}
+    kernels = {"kernels": [k1] + train_kernels + attn_kernels + [k10, k11]}
     report.update(kernels)
     if args.report:
         with open(args.report, "w") as f:

@@ -9,12 +9,13 @@ and the transformer, AMP O1/O2 and int8 serving (O3, quant.py),
 checkpoint and inference-model save/load (io.py), append_backward with
 generic and explicit grad ops, the SGD/Momentum/Adam optimizers, an eager
 Executor, the conv -> batch_norm [-> act] windows (the inference fold and
-the training kernels), the ServingEngine, and ten hand-written kernels:
+the training kernels), the ServingEngine, and eleven hand-written kernels:
 K1-K4 and K11, the conv forward, grad-input, grad-filter, conv+statistics
 and int8 conv kernels in CUDA C++ for sm_90a (ops/conv_cuda.py); K5-K6,
-the batch-norm kernels in Triton (ops/bn_cuda.py); K7-K9, the
-flash-attention forward, dQ and dK/dV kernels in CUDA C++
-(ops/attention_cuda.py).
+the batch-norm kernels in Triton (ops/bn_cuda.py); K7-K10, the
+flash-attention forward, dQ, dK/dV and the ring's unnormalized forward
+block in CUDA C++ (ops/attention_cuda.py), the last for ring attention
+over an 'sp' mesh of torch.distributed ranks (parallel/).
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -42,6 +43,7 @@ from . import io
 from . import quant
 from . import interop
 from . import models
+from . import parallel
 from . import serving
 
 __version__ = "0.1.0"

@@ -1,11 +1,21 @@
-// Flash-attention forward (K7) on bf16 tensor cores, for sm_90a.
+// Flash-attention forward (K7) and the ring's unnormalized forward block
+// (K10) on bf16 tensor cores, for sm_90a.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_attention.py `_fwd_kernel`
-// (:143) with normalize=True, reached through `_forward` (:266) ->
-// `_fwd_call` (:225). Same function: q, k, v [B, T, H, D] bf16 ->
+// (:143) in both its forms. K7, normalize=True, reached through `_forward`
+// (:266) -> `_fwd_call` (:225): q, k, v [B, T, H, D] bf16 ->
 // O = softmax(scale * Q K^T [causal mask]) V in bf16 and the per-row
 // LSE = m + log(l) as [B, H, Tq] f32 (the reference's [B, T, H, 1] stats,
-// already transposed).
+// already transposed). K10, normalize=False, reached through
+// `flash_attention_block` (:276) -> `_fwd_call`: the same walk for one
+// (query shard, key shard) pair of the ring with global offsets, ending in
+// the raw online-softmax state, acc [B, Tq, H, D] f32 and the row max m and
+// row sum l as [B, H, Tq] f32 (the reference's [B, T, H, 2] stats, split
+// and transposed). A row that no visited key tile reaches, a key shard
+// wholly in its causal future, keeps (acc, l, m) = (0, 0, -1e30), as the
+// Pallas kernel leaves it; the ring merge reads m > -5e29 as "valid".
+// One template with a compile-time NORMALIZE flag: only the epilogue
+// differs, and K7's instantiation is the code it was before K10.
 //
 // Design. One CTA per (query tile of 64 rows, head, batch): heads go into
 // the grid where the Pallas kernel unrolls them inside one tile (a Mosaic
@@ -31,6 +41,14 @@
 // runs at a part of the wgmma rate, operands go through 32-bit shared
 // loads rather than ldmatrix or TMA, and there is no warp specialisation.
 // wgmma + TMA and larger tiles are the next steps.
+//
+// K10's bound at the ring configuration's one-card shape [1, 32768, 8, 64]
+// causal, offsets 0 (one shard): 4*B*H*T^2*D/2 = 1.10 TFLOP, 1.11 ms at
+// 989 TF/s bf16, against about 0.17 GB of bf16 q, k, v and f32 acc, m, l
+// (0.05 ms at 3.35 TB/s): operation-bound, as K7. Its f32 acc doubles K7's
+// output bytes, which stays far below the operations' time. The last query
+// tiles walk 512 key tiles and the first one: the grid's load imbalance is
+// a matter of speed, left to a later version.
 
 #include "flash_attn_common.cuh"
 
@@ -42,13 +60,16 @@ struct FwdParams {
   const bf16* q;  // [B, Tq, H, D]
   const bf16* k;  // [B, Tk, H, D]
   const bf16* v;  // [B, Tk, H, D]
-  bf16* o;        // [B, Tq, H, D]
-  float* lse;     // [B, H, Tq]
+  bf16* o;        // [B, Tq, H, D]      K7
+  float* lse;     // [B, H, Tq]         K7
+  float* acc;     // [B, Tq, H, D] f32  K10
+  float* m;       // [B, H, Tq]         K10
+  float* l;       // [B, H, Tq]         K10
   int h, tq, tk, d, q_off, k_off, causal;
   float scale;
 };
 
-template <int DP, int BK>
+template <int DP, int BK, bool NORMALIZE>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = DP + 8;
@@ -192,8 +213,31 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdParams p) {
     __syncthreads();  // the next iteration's loads overwrite this stage
   }
 
-  // epilogue: O = acc / max(l, 1e-30) rounded once, LSE = m + log(..)
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  if constexpr (!NORMALIZE) {
+    // K10's epilogue: the raw f32 state, acc with 64-bit row offsets
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= p.tq) continue;
+      float* arow = p.acc + ((long long)bb * p.tq + rows[r]) * stride +
+                    (long long)hh * p.d;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = n * 8 + 2 * t;
+        if (col < p.d)
+          *reinterpret_cast<float2*>(arow + col) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      }
+      if (t == 0) {
+        const long long row = ((long long)bb * p.h + hh) * p.tq + rows[r];
+        p.m[row] = m[r];
+        p.l[row] = l[r];
+      }
+    }
+    return;
+  }
+
+  // epilogue: O = acc / max(l, 1e-30) rounded once, LSE = m + log(..)
   float denom[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) denom[r] = fmaxf(l[r], 1e-30f);
@@ -217,19 +261,19 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FwdParams p) {
   }
 }
 
-template <int DP, int BK>
+template <int DP, int BK, bool NORMALIZE>
 int launch(const FwdParams& p, int b, cudaStream_t stream) {
   const size_t smem = (size_t)(ROWS + 4 * BK) * (DP + 8) * sizeof(bf16);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<DP, BK, NORMALIZE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   dim3 grid((unsigned)((p.tq + ROWS - 1) / ROWS), (unsigned)p.h, (unsigned)b);
-  flash_fwd_kernel<DP, BK><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<DP, BK, NORMALIZE><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -245,9 +289,29 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (d % 16 != 0 || d > 128 || d <= 0) return (int)cudaErrorInvalidValue;
   FwdParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
               static_cast<const bf16*>(v), static_cast<bf16*>(o),
-              static_cast<float*>(lse), h, tq, tk, d, q_off, k_off,
+              static_cast<float*>(lse), nullptr, nullptr, nullptr, h, tq, tk,
+              d, q_off, k_off, causal ? 1 : 0, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 64) return launch<64, 64, true>(p, b, s);
+  return launch<128, 64, true>(p, b, s);
+}
+
+// K10: acc [B, Tq, H, D] f32 and m, l [B, H, Tq] f32, the unnormalized
+// online-softmax state of q [B, Tq, H, D] against k, v [B, Tk, H, D] bf16,
+// with global offsets q_off, k_off for the causal mask; the same operand
+// rules as K7, 8-byte aligned acc. Returns the CUDA error code.
+extern "C" int flash_attn_fwd_block(const void* q, const void* k,
+                                    const void* v, void* acc, void* m,
+                                    void* l, int b, int h, int tq, int tk,
+                                    int d, int q_off, int k_off, float scale,
+                                    int causal, void* stream) {
+  if (d % 16 != 0 || d > 128 || d <= 0) return (int)cudaErrorInvalidValue;
+  FwdParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+              static_cast<const bf16*>(v), nullptr, nullptr,
+              static_cast<float*>(acc), static_cast<float*>(m),
+              static_cast<float*>(l), h, tq, tk, d, q_off, k_off,
               causal ? 1 : 0, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch<64, 64>(p, b, s);
-  return launch<128, 64>(p, b, s);
+  if (d <= 64) return launch<64, 64, false>(p, b, s);
+  return launch<128, 64, false>(p, b, s);
 }

@@ -14,19 +14,25 @@ the run. Feeds and fetches are dense tensors; LoD feeds wait for a later
 slice.
 
 Places: `CUDAPlace` is the real card here (the JAX package made it an
-alias of its TPU place). `Executor()` with no place runs on CUDAPlace(0)
-and raises when there is no CUDA device: it never carries on on the CPU
-unless the caller asks for `CPUPlace()`. `TPUPlace` raises.
+alias of its TPU place). `Executor()` with no place runs on CUDAPlace(0),
+or on CUDAPlace(local rank) in a torch.distributed process group (the
+`LOCAL_RANK` a launcher sets, else the rank), and raises when there is no
+CUDA device: it never carries on on the CPU unless the caller asks for
+`CPUPlace()`. `TPUPlace` raises. A program's mesh (`program._mesh`,
+parallel/mesh.py) reaches the lowerings as `ctx.mesh`; programs stay
+global-view, so the interpreter itself does nothing per rank.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import zlib
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .framework.framework import Program, Variable, default_main_program
 from .ops import fusion as fusion_mod
@@ -156,6 +162,8 @@ class LoweringContext:
         # AMP O3's quantized compute ("int8") or None: read by the mul and
         # conv2d lowerings (quant.py), as JAX executor.py:212-214
         self.quant_mode = getattr(program, "_quant_mode", None)
+        # the device mesh of a sequence-parallel op (ring attention), or None
+        self.mesh = getattr(program, "_mesh", None)
         # a serving program's fold constants (PreparedProgram.fold_weights)
         self.folds = None
         self._seed = program.random_seed or 12345
@@ -225,9 +233,17 @@ class PreparedProgram:
         return [env[n] for n in self.fetch_names]
 
 
+def default_place() -> Place:
+    """CUDAPlace(0) in one process; in a process group, the card of this
+    rank on its host."""
+    if not dist.is_initialized():
+        return CUDAPlace(0)
+    return CUDAPlace(int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+
+
 class Executor:
     def __init__(self, place: Optional[Place] = None):
-        self.place = place if place is not None else CUDAPlace(0)
+        self.place = place if place is not None else default_place()
         self.device = place_device(self.place)
         self._analysis_cache: Dict[tuple, tuple] = {}
         self._plans: Dict[tuple, tuple] = {}

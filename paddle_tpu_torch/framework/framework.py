@@ -360,6 +360,8 @@ class Program:
         # bumped on every op append/remove so cached plans (fusion.plan,
         # the executor's analysis) never serve a mutated program
         self._version = 0
+        # the device mesh a sequence-parallel op runs over (parallel/mesh.py)
+        self._mesh = None
         # grad var name -> forward var name, filled by append_backward
         self.grad_info_map: Dict[str, str] = {}
 
@@ -388,17 +390,19 @@ class Program:
     def clone(self, for_test: bool = False) -> "Program":
         """Deep-copy the program (reference Program.clone). for_test=True
         sets every `is_test` attr, as the JAX package's clone does. The AMP
-        policy (`_amp_dtype`/`_amp_level`) rides along: it is program state
-        the desc does not carry. The quant mode does not, as in the JAX
-        package (framework.py:460-469): a clone of an O3 program runs as
-        O2."""
+        policy (`_amp_dtype`/`_amp_level`), the mesh and the feed layouts
+        (`_feed_shardings`) ride along: they are program state the desc
+        does not carry. The quant mode does not, as in the JAX package
+        (framework.py:460-469): a clone of an O3 program runs as O2."""
         p = Program()
         p.desc = ProgramDesc.from_json(self.desc.to_json())
         p._seed = self._seed
+        p._mesh = getattr(self, "_mesh", None)
         p.grad_info_map = dict(self.grad_info_map)
-        for attr in ("_amp_dtype", "_amp_level"):
+        for attr in ("_amp_dtype", "_amp_level", "_feed_shardings"):
             if hasattr(self, attr):
-                setattr(p, attr, getattr(self, attr))
+                val = getattr(self, attr)
+                setattr(p, attr, dict(val) if isinstance(val, dict) else val)
         p.blocks = [Block(p, i) for i in range(len(p.desc.blocks))]
         for b in p.blocks:
             b._sync_ops()

@@ -246,10 +246,12 @@ def fused_attention(q, k, v, causal=False,
     `scaled_dot_product_attention` op (nn.py:1083). use_flash=True takes
     the flash kernels (K7 forward, K8 + K9 backward, ops/attention_cuda.py);
     False the einsum path; "auto" picks flash from T = 2048
-    (ops/nn_ops.FLASH_AUTO_T). The op also writes LSE, the f32
-    per-row logsumexp the explicit backward starts from, a stop_gradient
-    output. sequence_parallel=True (ring attention) raises when the op
-    runs: slice 9."""
+    (ops/nn_ops.FLASH_AUTO_T). sequence_parallel=True runs ring attention
+    over the 'sp' axis of the program's mesh (`program._mesh`,
+    parallel/ring_attention.py: K10 forward, K8 + K9 backward per shard
+    pair), and the flash or einsum path when the program has no such mesh.
+    The op also writes LSE, the f32 per-row logsumexp the explicit
+    backward starts from, a stop_gradient output."""
     helper = LayerHelper("fused_attention")
     out = helper.create_tmp_variable(q.dtype)
     lse = helper.create_tmp_variable("float32", stop_gradient=True)

@@ -4,7 +4,10 @@ counterpart of paddle_tpu/models/transformer.py).
 Pre-LN GPT-style blocks whose attention is one `scaled_dot_product_attention`
 op: with use_flash=True, or "auto" at T >= 2048, it runs the port's flash
 kernels (K7 forward, K8 + K9 backward, ops/attention_cuda.py); otherwise
-the einsum path. The model of bench.py's `transformer` mode.
+the einsum path. With sequence_parallel=True and an 'sp' mesh on the
+program it runs ring attention (parallel/ring_attention.py: K10 forward,
+K8 + K9 backward). The model of bench.py's `transformer` and
+`ring_attention` modes.
 """
 
 from __future__ import annotations
@@ -26,14 +29,10 @@ def transformer_lm(tokens, labels, vocab_size, d_model=512, n_head=8,
     With return_logits=True returns (loss, logits), logits the pre-softmax
     [B, T, V] head output: the inference fetch the serving engine prunes
     to, which drops the loss tail. Dropout in training (dropout_prob > 0,
-    is_test=False) is slice 8 of the port and ring attention
-    (sequence_parallel=True) slice 9: both raise."""
+    is_test=False) is slice 8 of the port and raises."""
     if dropout_prob and not is_test:
         raise NotImplementedError("dropout is slice 8 of the port: build "
                                   "with dropout_prob=0 or is_test=True")
-    if sequence_parallel:
-        raise NotImplementedError("sequence_parallel=True (ring attention, "
-                                  "K10) is slice 9 of the port")
     seqlen = int(tokens.shape[-1])
     d_head = d_model // n_head
     assert d_head * n_head == d_model

@@ -1,17 +1,20 @@
 """The flash-attention kernels for Hopper — K7 (forward), K8 (dQ), K9
-(dK/dV) — with their gate, their plain versions and their counters (the
-port's counterpart of paddle_tpu/ops/pallas_attention.py), and the einsum
+(dK/dV), K10 (the unnormalized forward block of ring attention) — with
+their gate, their plain versions and their counters (the port's
+counterpart of paddle_tpu/ops/pallas_attention.py), and the einsum
 attention path (the counterpart of paddle_tpu/parallel/ring_attention.py
 `attention_reference` and `attention_reference_lse`).
 
 Replaces: pallas_attention.py `_fwd_kernel` (:143, normalize=True, through
-`_forward` :266 -> `_fwd_call` :225), `_dq_kernel` (:295) and `_dkv_kernel`
-(:342) (both through `flash_attention_bwd_block` :395), the Pallas TPU
-kernels that `scaled_dot_product_attention` reaches on its flash path.
+`_forward` :266 -> `_fwd_call` :225; and normalize=False, through
+`flash_attention_block` :276 -> `_fwd_call`), `_dq_kernel` (:295) and
+`_dkv_kernel` (:342) (both through `flash_attention_bwd_block` :395), the
+Pallas TPU kernels that `scaled_dot_product_attention` reaches on its flash
+and ring paths.
 
-Kernels: `csrc/flash_attn_fwd.cu` (K7) and `csrc/flash_attn_bwd.cu` (K8,
-K9), CUDA C++ for sm_90a, built by nvcc at first use (ops/cuda_build.py) and
-called through ctypes. Operands stay [B, T, H, D] (the JAX layout) and are
+Kernels: `csrc/flash_attn_fwd.cu` (K7, K10) and `csrc/flash_attn_bwd.cu`
+(K8, K9), CUDA C++ for sm_90a, built by nvcc at first use
+(ops/cuda_build.py) and called through ctypes. Operands stay [B, T, H, D] (the JAX layout) and are
 read in place with a row stride of H*D; heads go into the grid; the
 sequential grid axis of each TPU kernel (K tiles in K7/K8, Q tiles in K9)
 is a loop inside a CTA; causal tiles wholly past the diagonal are not
@@ -21,7 +24,9 @@ rows and stream 64 rows (32 for K8/K9 at D > 64).
 
 Bound on an H100: operations. Causal at the bench shape [8, 2048, 8, 64],
 K7 does 34.4 GFLOP, K8 51.5 and K9 68.7 (0.035, 0.052 and 0.069 ms at
-989 TF/s bf16), their bytes a fifth of that time or less.
+989 TF/s bf16), their bytes a fifth of that time or less. K10 at the ring
+configuration's one-card shape [1, 32768, 8, 64] causal does 1.10 TFLOP
+(1.11 ms) against 0.17 GB (0.05 ms).
 `chip_smoke.py` times each kernel beside that bound, its plain version and
 `torch.nn.functional.scaled_dot_product_attention` (a yardstick only, never
 called here), and PERF.md keeps the numbers.
@@ -45,11 +50,14 @@ import torch
 
 from . import cuda_build
 
-__all__ = ["FALLBACK_REASONS", "COUNTERS", "supports", "ineligible",
-           "flash_attention", "flash_forward", "flash_forward_block",
-           "flash_forward_reference", "flash_dq", "flash_dq_reference",
-           "flash_dkv", "flash_dkv_reference", "flash_attention_bwd_block",
-           "attention_forward", "attention_backward", "attention_reference",
+__all__ = ["FALLBACK_REASONS", "COUNTERS", "supports", "block_supports",
+           "ineligible", "flash_attention", "flash_forward",
+           "flash_forward_block", "flash_forward_reference",
+           "flash_attention_block", "flash_forward_block_reference",
+           "flash_dq", "flash_dq_reference", "flash_dkv",
+           "flash_dkv_reference", "flash_attention_bwd_block",
+           "flash_attention_bwd_block_reference", "attention_forward",
+           "attention_backward", "attention_reference",
            "attention_reference_lse"]
 
 FALLBACK_REASONS = frozenset({"dtype", "head_dim"})
@@ -63,17 +71,21 @@ FWD_BLOCK_K = 64      # K7's streamed key tile, which its plain version walks
 class Counters:
     """Kernel launches, one field per wrapper and added to only where that
     wrapper launches its kernel: `launches` K7 (`flash_forward_block`),
-    `dq_launches` K8 (`flash_dq`), `dkv_launches` K9 (`flash_dkv`).
-    `hits`/`fallbacks`: flash-path calls routed to the kernels or to the
-    plain versions, by op and by (op, reason)."""
+    `dq_launches` K8 (`flash_dq`), `dkv_launches` K9 (`flash_dkv`),
+    `block_launches` K10 (`flash_attention_block`). `hits`/`fallbacks`:
+    flash-path and flash-ring calls routed to the kernels or to the plain
+    versions, by op and by (op, reason); a flash ring whose shards do not
+    tile counts a fallback "shard_shape" (parallel/ring_attention.py)."""
     launches: int = 0
     dq_launches: int = 0
     dkv_launches: int = 0
+    block_launches: int = 0
     hits: Dict[str, int] = field(default_factory=dict)
     fallbacks: Dict[Tuple[str, str], int] = field(default_factory=dict)
 
     def reset(self):
         self.launches = self.dq_launches = self.dkv_launches = 0
+        self.block_launches = 0
         self.hits.clear()
         self.fallbacks.clear()
 
@@ -99,6 +111,18 @@ def supports(q, k, v) -> bool:
         return False
     t = q.shape[1]
     return t >= 8 and t % 8 == 0 and (t <= 128 or t % 128 == 0)
+
+
+def block_supports(q, k) -> bool:
+    """The reference's shape rule for the ring's per-shard flash block
+    (pallas_attention.py:288) at its default resident block: 128 rows when
+    min(Tq, Tk) is a multiple of 128, else min(Tq, Tk) itself; both Tq and
+    Tk multiples of it and of 8, and at least 8."""
+    tq, tk = q.shape[1], k.shape[1]
+    t = min(tq, tk)
+    blk = 128 if t % 128 == 0 else t
+    return (q.dim() == 4 and tq % blk == 0 and tk % blk == 0 and t >= 8
+            and tq % 8 == 0 and tk % 8 == 0)
 
 
 def ineligible(q, k, v):
@@ -128,16 +152,14 @@ def _causal_keep(tq, tk, q_off, k_off, device):
     return qpos[:, None] >= kpos[None, :]
 
 
-def flash_forward_reference(q, k, v, causal, q_off=0, k_off=0, scale=None):
-    """The plain version of K7, its arithmetic step by step in f32: the
-    online softmax over key tiles of FWD_BLOCK_K, each query tile of ROWS
-    rows skipping the causal key tiles wholly past its last row, P rounded
-    to the input dtype before P V, O = acc / max(l, 1e-30) rounded once,
-    LSE = m + log(max(l, 1e-30)). Returns (o [B, Tq, H, D], lse [B, H, Tq]
-    f32)."""
+def _online_softmax(q, k, v, causal, q_off, k_off, scale):
+    """The walk K7 and K10 share, in f32: the online softmax over key tiles
+    of FWD_BLOCK_K, each query tile of ROWS rows skipping the causal key
+    tiles wholly past its last row, masked scores -1e30, P rounded to the
+    input dtype before P V. Returns (acc [B, H, Tq, D], l, m [B, H, Tq]);
+    a row no visited tile reaches keeps (0, 0, -1e30)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf, kf, vf = _heads(q), _heads(k), _heads(v)
     dev = q.device
     m = torch.full((b, h, tq), _NEG, device=dev)
@@ -146,6 +168,8 @@ def flash_forward_reference(q, k, v, causal, q_off=0, k_off=0, scale=None):
     rows = torch.arange(tq, device=dev)
     tile_last = q_off + torch.clamp((rows // ROWS + 1) * ROWS, max=tq) - 1
     for k0 in range(0, tk, FWD_BLOCK_K):
+        if causal and q_off + tq - 1 < k_off + k0:
+            break                        # no query tile reaches this key tile
         kb, vb = kf[:, :, k0:k0 + FWD_BLOCK_K], vf[:, :, k0:k0 + FWD_BLOCK_K]
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
         if causal:
@@ -164,9 +188,28 @@ def flash_forward_reference(q, k, v, causal, q_off=0, k_off=0, scale=None):
             acc = torch.where(live[:, None], acc_new, acc)
         else:
             m, l, acc = m_new, l_new, acc_new
+    return acc, l, m
+
+
+def flash_forward_reference(q, k, v, causal, q_off=0, k_off=0, scale=None):
+    """The plain version of K7, its arithmetic step by step in f32: the
+    online softmax of `_online_softmax`, then O = acc / max(l, 1e-30)
+    rounded once, LSE = m + log(max(l, 1e-30)). Returns (o [B, Tq, H, D],
+    lse [B, H, Tq] f32)."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    acc, l, m = _online_softmax(q, k, v, causal, q_off, k_off, scale)
     denom = torch.clamp(l, min=1e-30)
     o = (acc / denom[..., None]).to(q.dtype).permute(0, 2, 1, 3).contiguous()
     return o, m + torch.log(denom)
+
+
+def flash_forward_block_reference(q, k, v, q_off, k_off, scale, causal):
+    """The plain version of K10: K7's walk with the normalization left out.
+    Returns (acc [B, Tq, H, D], l [B, H, Tq], m [B, H, Tq]), all f32; rows
+    that no visited key tile reaches (a key shard wholly in their causal
+    future) come out (0, 0, -1e30), as the Pallas kernel leaves them."""
+    acc, l, m = _online_softmax(q, k, v, causal, q_off, k_off, scale)
+    return acc.permute(0, 2, 1, 3).contiguous(), l, m
 
 
 def _bwd_terms(q, k, v, dout, lse, delta, q_off, k_off, scale, causal):
@@ -212,6 +255,10 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, q_off, k_off, scale,
 # causal, stream)
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
                  + [ctypes.c_int, ctypes.c_void_p])
+# flash_attn_fwd_block(q, k, v, acc, m, l, b, h, tq, tk, d, q_off, k_off,
+# scale, causal, stream)
+_BLOCK_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p])
 # flash_attn_bwd_dq(q, k, v, dout, lse, delta, dq, 7 ints, scale, causal,
 # stream); flash_attn_bwd_dkv takes dk and dv in place of dq
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
@@ -286,6 +333,32 @@ def flash_forward(q, k, v, causal):
                                causal)
 
 
+def flash_attention_block(q, k, v, q_off, k_off, scale, causal):
+    """K10, the ring's per-shard flash block (pallas_attention.py:276):
+    q [B, Tq, H, D] resident, k, v [B, Tk, H, D] visiting, global position
+    offsets for the causal mask. Returns the unnormalized online-softmax
+    state (acc [B, Tq, H, D], l [B, H, Tq], m [B, H, Tq]), all f32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel, or
+    raise."""
+    if q.device.type == "cpu":
+        return flash_forward_block_reference(q, k, v, q_off, k_off, scale,
+                                             causal)
+    _check_cuda("flash_attn_fwd_block", q, k, v)
+    b, tq, h, d = q.shape
+    qc, kc, vc = (cuda_build.aligned(t) for t in (q, k, v))
+    acc = torch.empty(qc.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    fn = cuda_build.entry("flash_attn_fwd", "flash_attn_fwd_block",
+                          _BLOCK_ARGTYPES)
+    rc = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, h, tq, k.shape[1], d, int(q_off),
+            int(k_off), float(scale), int(bool(causal)), _stream(q))
+    COUNTERS.block_launches += 1
+    _raise_on(rc, "flash_attn_fwd_block", q)
+    return acc, l, m
+
+
 def _bwd_operands(q, k, v, dout, lse, delta):
     return tuple(cuda_build.aligned(t) for t in (q, k, v, dout, lse, delta))
 
@@ -350,6 +423,16 @@ def flash_attention_bwd_block(q, k, v, dout, lse, delta, q_off, k_off, scale,
     return dq, dk, dv
 
 
+def flash_attention_bwd_block_reference(q, k, v, dout, lse, delta, q_off,
+                                        k_off, scale, causal):
+    """The plain versions of K8 and K9 behind `flash_attention_bwd_block`:
+    (dq, dk, dv) from the same operands, the non-finite LSE rows replaced
+    the same way."""
+    args = (q, k, v, dout, _finite(lse), delta.float(), q_off, k_off, scale,
+            causal)
+    return (flash_dq_reference(*args), *flash_dkv_reference(*args))
+
+
 # --- routing: the gate, then a kernel or a counted plain version -------------
 
 def attention_forward(q, k, v, causal, op="flash_attention"):
@@ -378,8 +461,8 @@ def attention_backward(q, k, v, o, dout, lse, causal, op="flash_attention"):
         return flash_attention_bwd_block(q, k, v, dout, lse, delta, 0, 0,
                                          scale, causal)
     count_fallback(op, reason)
-    args = (q, k, v, dout, _finite(lse), delta, 0, 0, scale, causal)
-    return (flash_dq_reference(*args), *flash_dkv_reference(*args))
+    return flash_attention_bwd_block_reference(q, k, v, dout, lse, delta, 0,
+                                               0, scale, causal)
 
 
 class _FlashAttention(torch.autograd.Function):

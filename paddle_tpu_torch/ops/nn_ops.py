@@ -437,20 +437,33 @@ def _sdpa_grad(fwd, no_grad_set):
 FLASH_AUTO_T = 2048
 
 
-def _sdpa_paths(op_, q, k, v):
-    """'flash' when use_flash is True, or "auto" at T >= the threshold, and
-    the shape passes `supports`; else 'einsum' (nn_ops.py:838). The ring
-    mode (sequence_parallel=True over an 'sp' mesh) is slice 9."""
-    if op_.attr("sequence_parallel", False):
-        raise NotImplementedError(
-            "scaled_dot_product_attention with sequence_parallel=True (ring "
-            "attention over an 'sp' mesh, K10) is slice 9 of the port")
+def _ring_uses_flash(op_, q, mesh):
+    """Whether the ring runs flash blocks per shard (nn_ops.py:826): an
+    explicit use_flash=False takes the einsum ring; True or "auto" take
+    the flash ring wherever the shard shape tiles. Static, so the grad op
+    reaches the same answer without re-running the forward."""
+    from ..parallel.ring_attention import flash_ring_eligible
+    if op_.attr("use_flash", "auto") is False:
+        return False
+    return flash_ring_eligible(q, mesh, "sp")
+
+
+def _sdpa_paths(ctx, op_, q, k, v):
+    """(mode, mesh) (nn_ops.py:838): 'ring' under sequence_parallel=True
+    with an 'sp' axis on the program's mesh; else 'flash' when use_flash is
+    True, or "auto" at T >= the threshold, and the shape passes `supports`;
+    else 'einsum'. sequence_parallel=True without such a mesh falls
+    through to flash or einsum, as in the reference."""
+    mesh = getattr(ctx, "mesh", None)
+    if op_.attr("sequence_parallel", False) and mesh is not None and \
+            "sp" in mesh.axis_names:
+        return "ring", mesh
     uf = op_.attr("use_flash", "auto")
     if uf == "auto":
         uf = q.shape[1] >= FLASH_AUTO_T
     if uf and attention_cuda.supports(q, k, v):
-        return "flash"
-    return "einsum"
+        return "flash", None
+    return "einsum", None
 
 
 @op("scaled_dot_product_attention", infer_shape=_sdpa_infer,
@@ -458,13 +471,24 @@ def _sdpa_paths(op_, q, k, v):
 def _scaled_dot_product_attention(ctx, op_, ins):
     """Softmax attention over Q/K/V [B, T, H, D] (nn_ops.py:856), with LSE
     [B, H, T] f32, the per-row logsumexp of the scaled scores that the
-    explicit backward starts from. The flash path runs K7
-    (ops/attention_cuda.py, under its gate); the einsum path runs
-    attention_reference, as the reference does below its threshold."""
+    explicit backward starts from. The ring path runs ring attention over
+    the mesh's 'sp' axis (parallel/ring_attention.py: K10 per shard pair,
+    which on the card needs AMP O2's bf16 operands and raises on f32, or
+    the einsum ring where the shards do not tile) and emits its merged
+    LSE; the flash path runs K7 (ops/attention_cuda.py, under its gate);
+    the einsum path runs attention_reference, as the reference does below
+    its threshold."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     causal = op_.attr("causal", False)
     (q, k, v), restore = mxu_cast(ctx, q, k, v)
-    if _sdpa_paths(op_, q, k, v) == "flash":
+    mode, mesh = _sdpa_paths(ctx, op_, q, k, v)
+    if mode == "ring":
+        from ..parallel.ring_attention import ring_attention_sharded
+        out, lse = ring_attention_sharded(
+            q, k, v, mesh, "sp", causal,
+            use_flash=op_.attr("use_flash", "auto") is not False,
+            return_lse=True, op=op_.type)
+    elif mode == "flash":
         out, lse = attention_cuda.attention_forward(q, k, v, causal,
                                                     op=op_.type)
     else:
@@ -479,16 +503,32 @@ def _scaled_dot_product_attention(ctx, op_, ins):
     non_diff_inputs=("LSE",))
 def _sdpa_grad_kernel(ctx, op_, ins):
     """dQ/dK/dV from the saved (Out, LSE) (nn_ops.py:899): the flash path
-    runs K8 + K9 (ops/attention_cuda.py) with no forward re-run; the einsum
-    path differentiates attention_reference with torch.autograd. dO is cast
-    by mxu_cast like Q, K and V."""
+    runs K8 + K9 (ops/attention_cuda.py) and the flash ring the direct ring
+    backward (K8 + K9 per shard pair), both with no forward re-run; the
+    einsum ring and the einsum path differentiate their forward with
+    torch.autograd. dO is cast by mxu_cast like Q, K and V."""
     douts = ins.get("Out@GRAD")
     if not douts or douts[0] is None:
         return _zero_grads(op_, ins)
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     causal = op_.attr("causal", False)
     (q, k, v, do), restore = mxu_cast(ctx, q, k, v, douts[0])
-    if _sdpa_paths(op_, q, k, v) == "flash":
+    mode, mesh = _sdpa_paths(ctx, op_, q, k, v)
+    if mode == "ring" and _ring_uses_flash(op_, q, mesh):
+        from ..parallel.ring_attention import ring_attention_bwd_sharded
+        dq, dk, dv = ring_attention_bwd_sharded(
+            q, k, v, do.to(q.dtype), ins["Out"][0].to(q.dtype),
+            ins["LSE"][0], mesh, "sp", causal, op=op_.type)
+    elif mode == "ring":
+        from ..parallel.ring_attention import ring_attention_sharded
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = ring_attention_sharded(
+                *leaves, mesh, "sp", causal,
+                use_flash=op_.attr("use_flash", "auto") is not False,
+                op=op_.type)
+            dq, dk, dv = torch.autograd.grad(out, leaves, do.to(out.dtype))
+    elif mode == "flash":
         dq, dk, dv = attention_cuda.attention_backward(
             q, k, v, ins["Out"][0], do, ins["LSE"][0], causal, op=op_.type)
     else:

@@ -1,8 +1,10 @@
-"""K7-K9, the port's flash-attention kernels, against their plain versions
+"""K7-K10, the port's flash-attention kernels, against their plain versions
 on the card: the JAX tests' shapes (tests/test_pallas_attention.py), causal
 and not, T = 72 (a row tile past T) at D = 64 and 128, offsets and Tq != Tk
-for the block form, bitwise repeatability, and the autograd Function's
-gradient against autograd through the einsum path.
+for the block form, K10 and K8/K9 at every (query shard, key shard) pair of
+a four-shard ring (wholly masked pairs included), the four-shard ring merge
+against K7 on the whole sequence, bitwise repeatability, and the autograd
+Function's gradient against autograd through the einsum path.
 
 The kernels have no CPU mode, so every test here needs a CUDA device and
 skips without one. This file imports no JAX (the GPU machine has none): run
@@ -14,6 +16,11 @@ Tolerances. Each bf16 output within `chip_smoke.attention_tolerance` of
 the plain version: one bf16 ulp, 1e-5 of the sum of its terms' magnitudes
 (f32 sums in another order) and four flipped bf16 roundings of P or dS
 (2^-8 of the largest term each). LSE within 1e-5 of max(1, |lse|).
+K10's (acc, l, m) within `chip_smoke.hold_block`: acc as above with an f32
+ulp, m and m + log(l) by the LSE rule, the rows no key tile reaches
+exactly (0, 0, -1e30). The ring merge against K7: P is rounded to bf16
+against another running maximum on each side, so each term may differ by
+2^-8 of itself: rel 2^-8 + 1e-5 of the sum of the terms' magnitudes.
 """
 
 import math
@@ -26,7 +33,7 @@ import torch
 from paddle_tpu_torch.ops import attention_cuda as A
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import attention_tolerance  # noqa: E402
+from chip_smoke import attention_tolerance, hold_block  # noqa: E402
 
 SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (2, 256, 2, 64),
           (1, 72, 2, 64), (2, 72, 1, 128), (1, 256, 2, 128)]
@@ -35,7 +42,7 @@ SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (2, 256, 2, 64),
 @pytest.fixture
 def device():
     if not torch.cuda.is_available():
-        pytest.skip("K7-K9 are CUDA kernels with no CPU mode: needs a CUDA "
+        pytest.skip("K7-K10 are CUDA kernels with no CPU mode: needs a CUDA "
                     "device")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
@@ -158,3 +165,133 @@ def test_unaligned_operand_is_realigned(device):
     ro, _ = A.flash_forward_reference(q, k, q, False)
     bound, = attention_tolerance("fwd", q, k, q, False)
     _assert_within(o, ro, bound, "o")
+
+
+RING_SHARDS = [(1, 128, 2, 64), (1, 64, 2, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shard", RING_SHARDS, ids=str)
+def test_ring_block_pairs_match_plain_version(device, shard, causal):
+    """K10, then K8 and K9, at the 16 (query shard, key shard) pairs of a
+    four-shard ring: offsets past, on and before the diagonal; under the
+    causal mask the 6 pairs wholly in the future give (0, 0, -1e30) and
+    zero gradients."""
+    b, t, h, d = shard
+    full = (b, 4 * t, h, d)
+    q, k, v, do = _operands(full, device, 7)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = A.flash_forward(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    masked = 0
+    for i in range(4):
+        qi, doi = q[:, i * t:(i + 1) * t], do[:, i * t:(i + 1) * t]
+        for j in range(4):
+            kj, vj = k[:, j * t:(j + 1) * t], v[:, j * t:(j + 1) * t]
+            at = f"pair ({i}, {j})"
+            got = A.flash_attention_block(qi, kj, vj, i * t, j * t, scale,
+                                          causal)
+            again = A.flash_attention_block(qi, kj, vj, i * t, j * t, scale,
+                                            causal)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), at
+            want = A.flash_forward_block_reference(qi, kj, vj, i * t, j * t,
+                                                   scale, causal)
+            hold_block(got, want, qi, kj, vj, i * t, j * t, scale, causal, at)
+            if causal and j > i:
+                masked += 1
+                assert (got[0] == 0).all() and (got[1] == 0).all()
+                assert (got[2] == -1e30).all()
+            args = (qi, kj, vj, doi, lse[..., i * t:(i + 1) * t].contiguous(),
+                    delta[..., i * t:(i + 1) * t].contiguous(), i * t, j * t,
+                    scale, causal)
+            dq, dk, dv = A.flash_attention_bwd_block(*args)
+            rq, rk, rv = A.flash_attention_bwd_block_reference(*args)
+            bq, = attention_tolerance("dq", qi, kj, vj, causal, doi, args[4],
+                                      args[5], q_off=i * t, k_off=j * t)
+            bk, bv = attention_tolerance("dkv", qi, kj, vj, causal, doi,
+                                         args[4], args[5], q_off=i * t,
+                                         k_off=j * t)
+            _assert_within(dq, rq, bq, f"dq {at}")
+            _assert_within(dk, rk, bk, f"dk {at}")
+            _assert_within(dv, rv, bv, f"dv {at}")
+    assert masked == (6 if causal else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_mid_tile_offsets(device, causal):
+    """K10 at Tq != Tk and offsets that cut a tile: rows of a visited tile
+    whose every visited key is masked stay invalid (m = -1e30)."""
+    q = _rand((1, 64, 2, 64), device, 11)
+    k, v = (_rand((1, 136, 2, 64), device, seed) for seed in (12, 13))
+    got = A.flash_attention_block(q, k, v, 100, 120, 0.125, causal)
+    want = A.flash_forward_block_reference(q, k, v, 100, 120, 0.125, causal)
+    torch.cuda.synchronize()
+    hold_block(got, want, q, k, v, 100, 120, 0.125, causal, "mid-tile")
+    if causal:
+        assert (want[2][..., :20] == -1e30).all()   # rows 100..119
+
+
+@pytest.mark.gpu
+def test_block_gate_raises(device):
+    q = torch.zeros((1, 64, 2, 64), device=device)            # f32
+    with pytest.raises(ValueError, match="dtype"):
+        A.flash_attention_block(q, q, q, 0, 0, 0.125, True)
+    A.COUNTERS.reset()
+    q = q.to(torch.bfloat16)
+    A.flash_attention_block(q, q, q, 0, 0, 0.125, True)
+    assert A.COUNTERS.block_launches == 1 and A.COUNTERS.launches == 0
+
+
+@pytest.mark.gpu
+def test_four_shard_ring_merge_matches_k7(device):
+    """The ring's per-step function looped over four shards in one process
+    (K10 each step, the f32 merge) against K7 on the whole sequence."""
+    from chip_smoke import MERGE_REL
+    from paddle_tpu_torch.parallel import ring_attention as R
+    q, k, v, _ = _operands((1, 1024, 2, 64), device, 21)
+    t, scale = 256, 0.125
+    o, lse = A.flash_forward(q, k, v, True)
+    A.COUNTERS.reset()
+    outs, lses = [], []
+    for i in range(4):
+        qi = q[:, i * t:(i + 1) * t]
+        state = R.ring_init(qi)
+        for s in range(4):
+            j = (i - s) % 4
+            state = R.ring_step(state, qi, k[:, j * t:(j + 1) * t],
+                                v[:, j * t:(j + 1) * t], i * t, j * t, scale,
+                                True)
+        o_i, lse_i = R.ring_finish(state, q.dtype)
+        outs.append(o_i)
+        lses.append(lse_i)
+    torch.cuda.synchronize()
+    assert A.COUNTERS.block_launches == 16 and A.COUNTERS.launches == 0
+    bound, = attention_tolerance("fwd", q, k, v, True, rel=MERGE_REL)
+    _assert_within(torch.cat(outs, 1), o, bound, "o")
+    got_lse = torch.cat(lses, -1)
+    assert ((got_lse - lse).abs() <= 1e-5 * lse.abs().clamp_min(1.0)).all()
+
+
+@pytest.mark.gpu
+def test_flash_ring_refuses_f32_on_the_card(device):
+    """The flash ring on CUDA operands the Hopper gate refuses (f32, no AMP)
+    raises before any block runs, forward and backward, where the plain
+    versions would form the whole f32 scores per block; the einsum ring,
+    asked for explicitly, still runs."""
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel import ring_attention as R
+    mesh = make_mesh((1,), ("sp",))
+    q = torch.randn((1, 256, 2, 64), device=device)              # f32
+    A.COUNTERS.reset()
+    with pytest.raises(ValueError, match="bf16"):
+        R.ring_attention_sharded(q, q, q, mesh, causal=True, use_flash=True)
+    lse = torch.zeros((1, 2, 256), device=device)
+    with pytest.raises(ValueError, match="bf16"):
+        R.ring_attention_bwd_sharded(q, q, q, q, q, lse, mesh, causal=True)
+    assert A.COUNTERS.block_launches == A.COUNTERS.dq_launches == 0
+    assert not A.COUNTERS.fallbacks
+    out = R.ring_attention_sharded(q, q, q, mesh, causal=True)
+    assert out.shape == q.shape and torch.isfinite(out).all()

@@ -120,6 +120,21 @@ def test_import_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_parallel_imports_without_jax():
+    """The ring's modules (paddle_tpu_torch.parallel) import neither jax nor
+    anything of the JAX package, with jax blocked."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import paddle_tpu_torch.parallel.ring_attention, "
+            "paddle_tpu_torch.parallel._collectives; "
+            "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
+            "or m.startswith('jax') for m in sys.modules if sys.modules[m]); "
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def _port_sources():
     for root, _dirs, files in os.walk(PORT_DIR):
         for f in files:

@@ -419,8 +419,7 @@ def test_serving_logits_match_jax():
 
 
 def test_model_options_that_are_later_slices_raise():
-    for kw, slice_ in (({"sequence_parallel": True}, "slice 9"),
-                       ({"dropout_prob": 0.1}, "slice 8")):
+    for kw, slice_ in (({"dropout_prob": 0.1}, "slice 8"),):
         main, startup = pt.Program(), pt.Program()
         with pt.unique_name.guard(), pt.program_guard(main, startup):
             tok = pt.layers.data(name="tok", shape=[-1, 16], dtype="int64",
