@@ -181,6 +181,8 @@ BUCKETS = (1, 4, 16)
 BATCH = 16
 SEED = 0
 K1_KERNEL = "conv2d_fwd_kernel"     # K1's name in the profiler's events
+# the passes after K1's split-K mainloops (conv2d_fwd.cu)
+SPLIT_KERNELS = ("splitk_reduce_kernel", "stats_rows_kernel")
 K11_KERNEL = "conv2d_q8_kernel"     # K11's
 # the executor's profiler ranges (paddle_tpu_torch/ops/registry.py span)
 # and the activation-quantize passes' (quant.ACT_SPAN): each appears on the
@@ -368,6 +370,31 @@ def _device_ms(fn, reps=20):
     return ms
 
 
+def wrapper_host_us(conv_cuda, reps=200):
+    """Host microseconds per K1 wrapper call (shape checks, plan, tensor
+    maps, launch) at a batch-1 1x1 conv, whose kernel is shorter than the
+    call so the host sets the pace: {filter layout: median over 5 rounds of
+    `reps` queued calls}, for an OIHW view of OHWI memory (what the serving
+    fold stores) and a contiguous OIHW filter, in turns."""
+    import torch
+    x = torch.randn((1, 56, 56, 256), device="cuda").to(torch.bfloat16)
+    w = torch.randn((64, 256, 1, 1), device="cuda").to(torch.bfloat16)
+    times = {"ohwi_view": [], "oihw": []}
+    filters = {"ohwi_view": w.contiguous(memory_format=torch.channels_last),
+               "oihw": w}
+    for _ in range(5):                      # the two layouts in turns
+        for name, wt in filters.items():
+            for _ in range(20):
+                conv_cuda.conv2d(x, wt, (1, 1), (0, 0), (1, 1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                conv_cuda.conv2d(x, wt, (1, 1), (0, 0), (1, 1))
+            times[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
 def _bf16_ulp(t):
     import torch
     a = t.float().abs().clamp_min(1e-30)
@@ -486,11 +513,16 @@ def phase_kernel(pt, conv_cuda, resnet, report):
         err, err16 = _check_kernel(conv_cuda, x, wt, s, p, d)
         worst_err, worst_err16 = max(worst_err, err), max(worst_err16, err16)
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last memory, as served
-        # K1 alone: an OIHW view of a contiguous HWIO filter spares the
-        # wrapper its filter transpose, so the graph holds K1 launches
-        # only. The plain version and cuDNN with every kernel they launch.
-        w_view = wt.permute(2, 3, 1, 0).contiguous().permute(3, 2, 0, 1)
+        # K1 with the filter as the served path passes it, an OIHW view of
+        # OHWI memory (fusion.fold_constants), which the wrapper reads in
+        # place: the graph holds K1's launches only (and its split-K
+        # reduction where the plan splits). The plain version and cuDNN
+        # with every kernel they launch.
+        w_view = wt.contiguous(memory_format=torch.channels_last)
+        copies = conv_cuda.COUNTERS.filter_copies
         k_ms = _device_ms(lambda: conv_cuda.conv2d(x, w_view, s, p, d))
+        if conv_cuda.COUNTERS.filter_copies != copies:
+            raise RuntimeError("K1 copied an OIHW view of OHWI memory")
         plain_ms = _device_ms(lambda: conv_cuda.conv2d_reference(x, wt, s, p, d))
         lib_ms = _device_ms(lambda: F.conv2d(x_nchw, wt, stride=s, padding=p,
                                              dilation=d))
@@ -517,6 +549,11 @@ def phase_kernel(pt, conv_cuda, resnet, report):
           f"once, bitwise; bf16 out within 1 ulp + the f32 tol of the "
           f"reference's (max abs err {worst_err16:.3g})", flush=True)
     report["k1_shapes"] = rows
+    host = wrapper_host_us(conv_cuda)
+    report["k1_wrapper_host_us"] = host
+    print(f"K1 wrapper host time per call (batch-1 1x1 256->64, queued): "
+          + ", ".join(f"{k} filter {v:.1f} us" for k, v in host.items()),
+          flush=True)
 
     def total(key):
         return sum(r[key] * r["per_request"] for r in rows)
@@ -575,6 +612,10 @@ def phase_slice(pt, conv_cuda, resnet, report):
     launches = conv_cuda.COUNTERS.launches
     fallbacks = dict(conv_cuda.COUNTERS.fallbacks)
     hits = dict(conv_cuda.COUNTERS.hits)
+    if conv_cuda.COUNTERS.filter_copies:
+        raise RuntimeError(f"the served requests copied "
+                           f"{conv_cuda.COUNTERS.filter_copies} filters: the "
+                           f"fold stores each as an OIHW view of OHWI memory")
 
     for req, (out, _) in zip(requests, outs):
         if out.shape != (req.shape[0], 1000):
@@ -639,9 +680,17 @@ def phase_slice(pt, conv_cuda, resnet, report):
           f"counted) / {window_s:.4f} s, the {len(requests)} requests' window "
           f"({card})", flush=True)
     top = max(REQUEST_SIZES)
+    conv_cuda.COUNTERS.filter_copies = 0
     profile = _profile_request(engine, requests[REQUEST_SIZES.index(top)],
                                p50[engine.bucket_for(top)],
                                {K1_KERNEL: eligible}, card)
+    profile["filter_copies"] = conv_cuda.COUNTERS.filter_copies
+    print(f"the profiled request: {profile['filter_copies']} filter copies, "
+          f"{profile['device_copies']} device copies "
+          f"({profile['device_copy_ms']:.3f} ms)", flush=True)
+    if profile["filter_copies"]:
+        raise RuntimeError(f"the profiled request copied "
+                           f"{profile['filter_copies']} filters")
     report["slice"] = {"p50_ms": p50, "latencies_s": lat,
                        "img_per_s": ips, "window_s": window_s,
                        "launches": launches,
@@ -763,6 +812,14 @@ def _profile_request(engine, req, p50_ms, expect, card, attempts=3):
                     and a.self_device_time_total > 0), key=lambda t: -t[1])
     mine = "; ".join(f"{k} {sum(v):.3f} ms x{len(v)} ({sum(v) / busy_ms:.1%})"
                      for k, v in kernels.items())
+    # K1's split-K passes: the in-order sum of the splits (and K4's
+    # statistics of it), launched after the split mainloops
+    split = [e.time_range.elapsed_us() / 1e3 for e in events
+             if any(k in e.name for k in SPLIT_KERNELS)]
+    if split:
+        mine += f"; split-K reductions {sum(split):.3f} ms x{len(split)}"
+    copies = [(ms, n) for k, ms, n in by_op if k == "aten::copy_"]
+    copy_ms, copy_n = copies[0] if copies else (0.0, 0)
     quant_part = (f"; activation quantize {act_ms:.3f} ms "
                   f"({act_ms / busy_ms:.1%}) in {len(act)} passes"
                   if act else "")
@@ -776,6 +833,8 @@ def _profile_request(engine, req, p50_ms, expect, card, attempts=3):
             "kernels": {k: {"ms": sum(v), "launches": len(v),
                             "share_of_busy": sum(v) / busy_ms}
                         for k, v in kernels.items()},
+            "split_reduce_ms": sum(split), "split_reduce_launches": len(split),
+            "device_copies": copy_n, "device_copy_ms": copy_ms,
             "act_quant_ms": act_ms if act else None,
             "act_quant_passes": len(act),
             "by_op": [{"op": k, "ms": ms, "calls": n} for k, ms, n in by_op]}
@@ -853,7 +912,7 @@ def phase_kernel_q8(pt, conv_cuda, resnet, report):
             lambda: conv_cuda.conv2d_q8_reference(x, wt, s, p, d, dq))
         xb = torch.randn(xs, generator=gen).to(torch.bfloat16).cuda()
         wb = (torch.randn(ws, generator=gen) * 0.1).to(torch.bfloat16)
-        wb = wb.permute(2, 3, 1, 0).contiguous().permute(3, 2, 0, 1).cuda()
+        wb = wb.contiguous(memory_format=torch.channels_last).cuda()
         k1_ms = _device_ms(lambda: conv_cuda.conv2d(xb, wb, s, p, d))
         ops = conv_cuda.conv_flops(x, wt, s, p, d)
         nbytes = conv_cuda.conv_bytes(x, wt, s, p, d) + 4 * ws[0]   # + dq
@@ -1256,7 +1315,7 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
         shape = f"x{list(xs)} w{list(ws)} s{list(s)} p{list(p)}"
         flops = conv_cuda.conv_flops(x, w, s, p, d)
         x_nchw, d_nchw = x.permute(0, 3, 1, 2), dout.permute(0, 3, 1, 2)
-        w_view = w.permute(2, 3, 1, 0).contiguous().permute(3, 2, 0, 1)
+        w_view = w.contiguous(memory_format=torch.channels_last)  # as cast
 
         # K2: dx in bf16 (as on the path) and f32, against the plain version
         g32 = _twice(lambda: conv_cuda.conv2d_grad_input(
@@ -1314,9 +1373,11 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
                          conv_cuda.conv_bytes(x, w, s, p, d) + 8 * ws[0], err,
                          PEAK_BF16_FLOPS))
         del x, w, dout, g32, g16, r32, mags, gw, rw, y, ry
-        print(f"K2/K3/K4 {shape} x{n}/step: dgrad {rows[-3]['ms']:.4f} ms, "
-              f"wgrad {rows[-2]['ms']:.4f} ms, conv+stats {rows[-1]['ms']:.4f} ms",
-              flush=True)
+        print(f"K2/K3/K4 {shape} x{n}/step: " + "; ".join(
+            f"{r['kernel']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f}, library "
+            + (f"{r['library_ms']:.4f})" if r["library_ms"] is not None
+               else "none)") for r in rows[-3:]), flush=True)
 
     for kind, table in (("bn_apply", applies), ("bn_act", acts)):
         for (m, c, act), n in table.items():
@@ -1602,6 +1663,7 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
     conv_fb = dict(conv_cuda.COUNTERS.fallbacks)
     bn_fb = dict(bn_cuda.COUNTERS.fallbacks)
     copies = conv_cuda.COUNTERS.layout_copies
+    filter_copies = conv_cuda.COUNTERS.filter_copies
 
     p50 = float(np.median(times)) * 1e3
     print(f"ResNet-50 O2 training, batch {TRAIN_BATCH}: step p50 {p50:.1f} ms "
@@ -1613,7 +1675,13 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
     print(f"launches per step: {per_step}; fallbacks per step: conv "
           f"{ {k: v / TRAIN_STEPS for k, v in conv_fb.items()} }, bn "
           f"{ {k: v / TRAIN_STEPS for k, v in bn_fb.items()} }; cotangents "
-          f"copied to channels_last per step: {copies / TRAIN_STEPS}", flush=True)
+          f"copied to channels_last per step: {copies / TRAIN_STEPS}; filters "
+          f"copied per step: {filter_copies / TRAIN_STEPS} (K2's channel-"
+          f"swapped filter, one per call)", flush=True)
+    if filter_copies != launches["dgrad_launches"]:
+        raise RuntimeError(f"{filter_copies} filter copies in {TRAIN_STEPS} "
+                           f"steps, expected one per K2 launch: the casts "
+                           f"write OHWI memory, which K1 and K4 read in place")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"the training loss is not finite and falling: {losses}")
     want = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
@@ -1688,6 +1756,7 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
                        "peak_memory_gb": peak_gb, "launches_per_step": per_step,
                        "fallbacks": {f"{k[0]}:{k[1]}": v for k, v in conv_fb.items()},
                        "layout_copies_per_step": copies / TRAIN_STEPS,
+                       "filter_copies_per_step": filter_copies / TRAIN_STEPS,
                        "profile": profile, "lockstep_worst_rl2": worst,
                        "small_batch": agree}
     return per_step
@@ -2533,8 +2602,11 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, info in cuda_build.BUILD_LOG.items():
         for line in str(info["log"]).splitlines():
-            if "registers" in line:
+            if "registers" in line or "spill" in line:
                 print(f"build {name}: {line.strip()}", flush=True)
+                if name.startswith("conv2d") and "spill" in line and \
+                        " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                    raise RuntimeError(f"{name} spills registers: {line}")
 
     # f32 results are held against references: no TF32 anywhere
     torch.backends.cudnn.allow_tf32 = False

@@ -17,7 +17,7 @@ def to_torch_dtype(name: str) -> torch.dtype:
     return _TORCH_DTYPES[name]
 
 
-def mxu_cast(ctx, *xs):
+def mxu_cast(ctx, *xs, formats=None):
     """Mixed-precision policy hook for matmul/conv (JAX ops/common.py:77).
 
     Under AMP (program._amp_dtype, see amp.py) float32 operands are cast to
@@ -27,6 +27,10 @@ def mxu_cast(ctx, *xs):
     on this axis (JAX common.py:113): the quantized routing happens
     downstream of this cast, in the mul and conv2d lowerings.
 
+    `formats` gives each operand's memory format after a cast (default:
+    preserved); the conv lowerings cast their filter into channels_last,
+    the OIHW view of OHWI memory that the conv kernels read without a copy.
+
     Returns (cast_operands_tuple, restore_dtype_or_None); call sites do
     `out = out.to(restore) if restore is not None else out`.
     """
@@ -34,11 +38,17 @@ def mxu_cast(ctx, *xs):
     if not amp:
         return xs, None
     cd = to_torch_dtype(amp)
-    casted = tuple(x.to(cd) if x.dtype == torch.float32 else x for x in xs)
+    formats = formats or (torch.preserve_format,) * len(xs)
+    casted = tuple(x.to(cd, memory_format=f) if x.dtype == torch.float32
+                   else x for x, f in zip(xs, formats))
     if getattr(ctx, "amp_level", "O1") in ("O2", "O3"):
         return casted, None
     any_cast = any(c is not x for c, x in zip(casted, xs))
     return casted, (torch.float32 if any_cast else None)
+
+
+# a conv's (input, filter) formats under mxu_cast
+CONV_FORMATS = (torch.preserve_format, torch.channels_last)
 
 
 def broadcast_y_to_x(x, y, axis: int):

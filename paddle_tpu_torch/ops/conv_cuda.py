@@ -8,38 +8,64 @@ Replaces: paddle_tpu/ops/pallas_conv.py `conv2d` (:412) -> `_conv_call`
 conv -> batch_norm windows reach under AMP.
 
 Kernel: `csrc/conv2d_fwd.cu`, CUDA C++ for sm_90a, built by nvcc at first
-use (ops/cuda_build.py) and called through ctypes. An implicit GEMM: M =
-N*OH*OW output pixels, N = Co, K = KH*KW*Ci, 128x128 output tiles, im2col
-addresses and padding zero-fill computed in the kernel, a two-stage
-cp.async ring, wmma bf16 MMAs into f32 fragments, one rounding to the
-output type. The TPU kernel's row walk (one output row per grid step, BH
-rows sharing a filter tile, `_block_h` :324) is a VMEM fact and is not
-copied.
+use (ops/cuda_build.py) and called through ctypes. An implicit GEMM on
+Hopper's wgmma: M = N*OH*OW output pixels, N = Co, K = KH*KW*Ci in 64-deep
+steps (one tap, 64 channels), one producer warp keeping a ring of up to
+four shared-memory stages full with TMA tile loads under mbarriers, two
+consumer warpgroups of wgmma m64nNk16 bf16 -> f32, one rounding to the
+output type. The filter is read by TMA from OHWI memory (K-major, as wgmma
+takes it); the pixels as the dense [N*H*W, Ci] matrix for a stride-1 1x1
+conv, else as a 4-D box of output pixels at the tap's shifted corner,
+with TMA's zero fill as the padding and its element stride as the conv's
+stride. The bf16 output leaves by TMA stores. The TPU kernel's row walk
+(one output row per grid step, BH rows sharing a filter tile, `_block_h`
+:324) is a VMEM fact and is not copied.
+
+`conv_plan` chooses per shape, in Python (tested on the CPU): the pixel
+tile (FLAT, or the box of 2**7 output pixels that covers the output in
+the fewest tiles), the N tile (64 or 128), split-K for the grids that
+cannot fill the card, and the ring's depth; its rule was chosen by timing
+the alternatives at every ResNet-50 shape on the card
+(tests/torch_conv_sweep.py). A split reduces its f32 workspace in a fixed
+order in a second kernel, so every call is bitwise repeatable.
+
+The filter is not copied per call: `conv2d` and `conv2d_stats` read an
+OIHW view of OHWI memory (channels_last) in place, which is how the
+serving fold (`fusion.fold_constants`) and the training casts
+(`common.mxu_cast` with `CONV_FORMATS`) store it; any other filter is
+copied once and counted in `COUNTERS.filter_copies`.
 
 Bound on an H100: the larger of 2*M*Co*KH*KW*Ci FLOPs against 989 TF/s
 bf16 and the bytes of x (the pixels the stride reads), w and y against
 3.35 TB/s; in ResNet-50 at batch 16 the 3x3 convs are operation-bound and
 the 1x1 convs byte-bound.
 `chip_smoke.py` times the kernel beside that bound, the plain version and
-cuDNN (`F.conv2d`, a yardstick only), and PERF.md keeps the numbers. This
-first kernel is simple and right: wgmma, TMA, a deeper ring and split-K
-for the small late-stage grids are later work.
+cuDNN (`F.conv2d`, a yardstick only), and PERF.md keeps the numbers. What
+still holds it back: a block per output tile (no persistent scheduling,
+so a tile's epilogue does not overlap the next tile's loads), the masked
+rows of the ragged boxes at the 14x14 and 7x7 maps, and split-K's
+workspace round trip.
 
 K2, `conv2d_grad_input` (replaces pallas_conv.py:445): K1's own kernel
 run as the JAX package does it (:451-468) on the cotangent dilated by the
 stride, with the filter flipped and its channel axes swapped, at stride 1.
-The kernel takes symmetric padding but explicit OH/OW and zero-fills every
-read outside the input, so padding lo = (K-1)*d - p with OH = H gives the
-hi padding H - Hd + p for free. At stride 2 three quarters of the dilated
-cotangent are zeros the kernel multiplies: 4x the work of a direct dgrad.
+The swap is one copy per call, written as OHWI; the flip costs none (the
+kernel reads the taps in reverse). The kernel takes symmetric padding but
+explicit OH/OW and zero-fills every read outside the input, so padding
+lo = (K-1)*d - p with OH = H gives the hi padding H - Hd + p for free. At
+stride 2 three quarters of the dilated cotangent are zeros the kernel
+multiplies: 4x the work of a direct dgrad.
 K3, `conv2d_grad_filter` (replaces pallas_conv.py:471 -> `_wgrad_kernel`
-:282): `csrc/conv2d_wgrad.cu`, an implicit GEMM with M = Co, N = KH*KW*Ci
-and the reduction over N*OH*OW split across blocks into an f32 workspace
-reduced in a fixed order. K4, `conv2d_stats` (replaces pallas_conv.py:420
--> `_fwd_stats_kernel` :241): K1's kernel with a statistics epilogue
-(`conv2d_fwd_stats` in conv2d_fwd.cu), y bitwise K1's. K2 and K3 are bound
-like K1 (operations at the 3x3 convs, bytes at the 1x1 convs); K2's bound
-counts the undilated work.
+:282): `csrc/conv2d_wgrad.cu`, an implicit GEMM on wgmma with M = Co, N =
+KH*KW*Ci and the reduction over N*OH*OW in 64-pixel slices, both operands
+MN-major (dout^T and the pixels, loaded by TMA as K1's are), a ring of up
+to six stages, the reduction split across blocks into an f32 workspace
+reduced in a fixed order; the split count follows `_WGRAD_BLOCKS`,
+measured on the card. K4, `conv2d_stats` (replaces pallas_conv.py:420 ->
+`_fwd_stats_kernel` :241): K1's kernel and plan with a statistics
+epilogue on wgmma's accumulator layout, y bitwise K1's. K2 and K3 are
+bound like K1 (operations at the 3x3 convs, bytes at the 1x1 convs); K2's
+bound counts the undilated work.
 
 K11, `conv2d_q8` (replaces pallas_conv.py `conv2d_q8` :431 -> `_conv_call`
 (:331) -> `_fwd_kernel` :204 in its int8 form): `csrc/conv2d_q8.cu`, an
@@ -65,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
@@ -77,7 +104,7 @@ __all__ = ["FALLBACK_REASONS", "COUNTERS", "conv2d", "conv2d_reference",
            "conv2d_grad_input", "conv2d_grad_input_reference",
            "conv2d_grad_filter", "conv2d_grad_filter_reference",
            "conv2d_stats", "conv2d_stats_reference", "conv2d_q8",
-           "conv2d_q8_reference", "wgrad_splits",
+           "conv2d_q8_reference", "conv_plan", "wgrad_plan", "wgrad_splits",
            "ineligible", "count_hit", "count_fallback", "suppress_counters",
            "conv_flops", "conv_bytes", "input_bytes"]
 
@@ -103,13 +130,17 @@ class Counters:
     or to the library path, by op and by (op, reason) — the counterparts of
     the JAX package's pallas_kernel_total / pallas_fallback_total.
     `layout_copies`: cotangents conv2d_grad had to copy into channels_last
-    memory."""
+    memory. `filter_copies`: filters a wrapper had to copy into the OHWI
+    memory its kernel reads (K1 and K4 copy none when handed an OIHW view
+    of OHWI memory, as the serving fold and the training casts store them;
+    K2 writes its channel-swapped filter once per call)."""
     launches: int = 0
     dgrad_launches: int = 0
     wgrad_launches: int = 0
     stats_launches: int = 0
     q8_launches: int = 0
     layout_copies: int = 0
+    filter_copies: int = 0
     hits: Dict[str, int] = field(default_factory=dict)
     fallbacks: Dict[Tuple[str, str], int] = field(default_factory=dict)
 
@@ -117,7 +148,7 @@ class Counters:
         self.launches = self.dgrad_launches = 0
         self.wgrad_launches = self.stats_launches = 0
         self.q8_launches = 0
-        self.layout_copies = 0
+        self.layout_copies = self.filter_copies = 0
         self.hits.clear()
         self.fallbacks.clear()
 
@@ -255,10 +286,10 @@ def _conv_f32(x, w, strides, pads, dilations):
     return y.permute(0, 2, 3, 1)
 
 
-def _dgrad_operands(dout, w, x_hw, strides, paddings, dilations):
-    """K2's stride-1 forward problem (pallas_conv.py:451-468): the
-    cotangent dilated by the stride, the filter flipped with its channel
-    axes swapped ([Ci, Co, KH, KW]), and the transposed-conv padding."""
+def _dgrad_input(dout, w, x_hw, strides, paddings, dilations):
+    """K2's stride-1 input and padding (pallas_conv.py:451-468): the
+    cotangent dilated by the stride, and the transposed conv's ((lo, hi),
+    (lo, hi)) padding."""
     sh, sw = strides
     ph, pw = paddings
     dh, dw = dilations
@@ -272,8 +303,14 @@ def _dgrad_operands(dout, w, x_hw, strides, paddings, dilations):
         dd = dout
     keh, kew = (kh - 1) * dh + 1, (kw - 1) * dw + 1
     pads = ((keh - 1 - ph, x_hw[0] - hd + ph), (kew - 1 - pw, x_hw[1] - wd + pw))
-    w_t = torch.flip(w, (2, 3)).transpose(0, 1)
-    return dd, w_t, pads
+    return dd, pads
+
+
+def _dgrad_operands(dout, w, x_hw, strides, paddings, dilations):
+    """K2's stride-1 forward problem: `_dgrad_input` and the filter flipped
+    with its channel axes swapped ([Ci, Co, KH, KW])."""
+    dd, pads = _dgrad_input(dout, w, x_hw, strides, paddings, dilations)
+    return dd, torch.flip(w, (2, 3)).transpose(0, 1), pads
 
 
 def conv2d_grad_input_reference(dout, w, x_hw, strides, paddings, dilations,
@@ -348,30 +385,187 @@ def q8_ineligible(x, w, strides, paddings, dilations):
                       strides, paddings, dilations)
 
 
-def wgrad_splits(x_nhwc, w, strides, paddings, dilations, sms=132):
-    """(splits, steps_per_split) of K3's pixel reduction: enough splits to
-    put about two blocks on each of the card's SMs, each split at least 8
-    slices of 32 pixels, every split non-empty."""
-    n = x_nhwc.shape[0]
-    co, ci, kh, kw = w.shape
-    oh, ow = _out_hw(x_nhwc, w, strides, paddings, dilations)
-    steps = -(-n * oh * ow // 32)
-    tiles = -(-co // 128) * kh * kw * -(-ci // 128)
-    splits = max(1, min(-(-2 * sms // tiles), steps // 8))
+# K1's tile holds 128 output pixels (two warpgroups of 64 rows), K3's
+# reduction slice 64; each is a box of 2**7 or 2**6 pixels
+_LOG_TILE, _LOG_SLICE = 7, 6
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How K1's kernel (and K2's and K4's, which run it) tiles one call.
+    `flat`: the pixels are the dense [N*H*W, Ci] matrix (a stride-1 1x1
+    conv, no padding), tiles of 128 consecutive pixels; else each tile is a
+    box of 2**lbn images x 2**lbh rows x 2**lbw columns of output pixels.
+    `block_n`: output channels per tile. `tiles`: pixel tiles. The
+    reduction's `steps` (one tap, 64 channels each) are cut into `splits`
+    ranges of `per`, through a ring of `stages` shared-memory stages."""
+    flat: bool
+    lbn: int
+    lbh: int
+    lbw: int
+    block_n: int
+    tiles: int
+    steps: int
+    splits: int
+    per: int
+    stages: int
+
+    def stat_rows(self, m: int) -> int:
+        """Rows of K4's per-tile statistics workspace: one per pixel tile,
+        or per 128 rows of the split-K output."""
+        return -(-m // 128) if self.splits > 1 else self.tiles
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    """How K3 tiles one call: co tiles of 64 * `nwg`, ci tiles of
+    `block_n` per tap, the pixels in `steps` slices of 64 (consecutive
+    pixels when `flat`, else boxes of 2**lbn x 2**lbh x 2**lbw output
+    pixels), cut into `splits` ranges of `per`, through a ring of `stages`
+    shared-memory stages."""
+    flat: bool
+    lbn: int
+    lbh: int
+    lbw: int
+    nwg: int
+    block_n: int
+    tiles: int
+    steps: int
+    splits: int
+    per: int
+    stages: int
+
+
+def _is_flat(kh, kw, hw, ohw, strides, pads) -> bool:
+    return (kh, kw) == (1, 1) and tuple(strides) == (1, 1) and \
+        tuple(pads) == (0, 0) and tuple(ohw) == tuple(hw)
+
+
+def _box(n, oh, ow, strides, log_pixels):
+    """((lbn, lbh, lbw), count): the box of 2**log_pixels output pixels
+    (TMA takes at most 256 input elements a dimension, strides included)
+    that covers [n, oh, ow] in the fewest boxes; ties go to the wider box,
+    whose rows are longer runs of memory."""
+    best = None
+    for lbw in range(log_pixels + 1):
+        for lbh in range(log_pixels - lbw + 1):
+            if (1 << lbw) * strides[1] > 256 or (1 << lbh) * strides[0] > 256:
+                continue
+            lbn = log_pixels - lbw - lbh
+            count = (-(-n >> lbn)) * (-(-oh >> lbh)) * (-(-ow >> lbw))
+            key = (count, -lbw, -lbh)
+            if best is None or key < best[0]:
+                best = (key, (lbn, lbh, lbw), count)
+    return best[1], best[2]
+
+
+def conv_plan(x_shape, co, kh, kw, oh, ow, strides, pads, sms=132) -> ConvPlan:
+    """K1's plan (`_conv_plan`), cached by shape: the wrappers sit on the
+    host-bound serving path, and a box search costs tens of microseconds."""
+    return _conv_plan(tuple(x_shape), co, kh, kw, oh, ow, tuple(strides),
+                      tuple(pads), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _conv_plan(x_shape, co, kh, kw, oh, ow, strides, pads, sms) -> ConvPlan:
+    """K1's plan for x [N, H, W, Ci] (NHWC), Co output channels, a KH x KW
+    filter, the output's OH x OW, and the strides and (lo) paddings. One
+    function of the shape: K1 and K4 take the same plan, so K4's y is K1's
+    bitwise. Split-K where the pixel and channel tiles leave SMs idle
+    (ResNet-50's stage 4 at batch 16, the batch-1 and batch-4 buckets);
+    the reduction's order is fixed by the plan, so a repeated call is
+    bitwise equal."""
+    n, h, w, ci = x_shape
+    if _is_flat(kh, kw, (h, w), (oh, ow), strides, pads):
+        lb, m_tiles = (0, 0, _LOG_TILE), -(-n * h * w >> _LOG_TILE)
+        flat = True
+    else:
+        lb, m_tiles = _box(n, oh, ow, strides, _LOG_TILE)
+        flat = False
+    steps = kh * kw * -(-ci // 64)
+    # the rule below was chosen by timing candidates at every ResNet-50
+    # shape of the batch-1, -4 and -16 buckets on an H100
+    # (tests/torch_conv_sweep.py): 64 output channels a tile where there
+    # are only 64, where 128 would leave at most 16 tiles, or where the
+    # reduction is one or two steps deep (the tile's epilogue outweighs its
+    # mainloop); split-K only where the grid fills at most a quarter of the
+    # SMs, each split at least 8 steps; a 3-stage ring (two blocks per SM)
+    # where the grid has 64 tiles or more, else 4 stages
+    block_n = 64 if co <= 64 or m_tiles * -(-co // 128) <= 16 or steps <= 2 \
+        else 128
+    tiles = m_tiles * -(-co // block_n)
+    splits = 1
+    if tiles <= sms // 4:
+        splits = max(1, min(sms // tiles, steps // 8))
     per = -(-steps // splits)
-    return -(-steps // per), per
+    return ConvPlan(flat, *lb, block_n, m_tiles, steps, -(-steps // per), per,
+                    min(per, 3 if tiles >= 64 else 4))
 
 
-# conv2d_fwd(x, w, y, 15 shape/geometry ints, out_f32, stream)
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
-# conv2d_fwd_stats(x, w, y, part_sum, part_sq, csum, csq, 15 ints, out_f32,
-# stream)
-_STATS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+# K3's split: (blocks to aim for on a 132-SM card, least slices of 64
+# pixels a split) by (nwg, block_n). Chosen by timing every split count
+# from 1 to 256 at every ResNet-50 training shape at batch 32 on an H100
+# (tests/torch_conv_sweep.py); the best splits, by (tiles, slices):
+#   128 x 128: (144, 28) 1, (128, 28) 1, (64, 25) 2, (36, 98) 3,
+#     (32, 98) 4, (32, 28) 4, (16, 98) 8, (9, 392) 12, (8, 392) 12,
+#     (8, 98) 8, (4, 392) 16-24, (2, 392) 44: 64-144 blocks
+#   128 x 64 and 64 x 128: (2, 1568) 24-32: 48-64 blocks
+#   64 x 64 (three fit on an SM): (9, 1568) 24, (1, 1568) 93
+# A ring of 3 stages (two blocks an SM) in place of 6 was slower or even
+# at every shape but one.
+_WGRAD_BLOCKS = {(2, 128): (99, 7), (2, 64): (64, 7), (1, 128): (64, 7),
+                 (1, 64): (216, 16)}
+
+
+def wgrad_plan(x_shape, dout_shape, kh, kw, strides, paddings,
+               sms=132) -> WgradPlan:
+    """K3's plan for x [N, H, W, Ci] and dout [N, OH, OW, Co] (NHWC),
+    cached by shape."""
+    return _wgrad_plan(tuple(x_shape), tuple(dout_shape), kh, kw,
+                       tuple(strides), tuple(paddings), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _wgrad_plan(x_shape, dout_shape, kh, kw, strides, paddings,
+                sms) -> WgradPlan:
+    n, h, w, ci = x_shape
+    _, oh, ow, co = dout_shape
+    if _is_flat(kh, kw, (h, w), (oh, ow), strides, paddings):
+        lb, steps, flat = (0, 0, _LOG_SLICE), -(-n * oh * ow >> _LOG_SLICE), True
+    else:
+        lb, steps = _box(n, oh, ow, strides, _LOG_SLICE)
+        flat = False
+    nwg = 1 if co <= 64 else 2
+    block_n = 64 if ci <= 64 else 128
+    tiles = kh * kw * -(-ci // block_n) * -(-co // (64 * nwg))
+    blocks, least = _WGRAD_BLOCKS[(nwg, block_n)]
+    splits = max(1, min(-(-blocks * sms // 132 // tiles), steps // least))
+    per = -(-steps // splits)
+    return WgradPlan(flat, *lb, nwg, block_n, tiles, steps,
+                     -(-steps // per), per,
+                     min(per, 4 if (nwg, block_n) == (1, 64) else 6))
+
+
+def wgrad_splits(x_nhwc, w, strides, paddings, dilations, sms=132):
+    """(splits, steps_per_split) of K3's pixel reduction (`wgrad_plan`):
+    the measured number of blocks and least slices of 64 pixels a split
+    for its tile shape (`_WGRAD_BLOCKS`), every split non-empty."""
+    co, _, kh, kw = w.shape
+    oh, ow = _out_hw(x_nhwc, w, strides, paddings, dilations)
+    plan = wgrad_plan(tuple(x_nhwc.shape), (x_nhwc.shape[0], oh, ow, co),
+                      kh, kw, strides, paddings, sms)
+    return plan.splits, plan.per
+
+
+# conv2d_fwd(x, w, y, ws, part_sum, part_sq, csum, csq, 15 shape/geometry
+# ints, flip, flat, lbn, lbh, lbw, block_n, splits, per, stages, out_f32,
+# stats, stream)
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 26 + [ctypes.c_void_p]
 # conv2d_q8(x, w, dq, y, 15 shape/geometry ints, out_f32, stream)
 _Q8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
-# conv2d_wgrad(x, dout, ws, out, 15 ints, splits, steps_per_split, out_f32,
-# stream)
-_WGRAD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+# conv2d_wgrad(x, dout, ws, out, 15 ints, flat, lbn, lbh, lbw, nwg, block_n,
+# splits, per, stages, out_f32, stream)
+_WGRAD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 25 + [ctypes.c_void_p]
 
 
 def _check_cuda(name, operands, x, w, strides, paddings, dilations,
@@ -398,36 +592,69 @@ def _raise_on(rc, name, x, w):
                            f"{rc} (x {tuple(x.shape)}, w {tuple(w.shape)})")
 
 
-def _launch_fwd(x, w_hwio, oh, ow, strides, pads, dilations, out_dtype):
-    """One launch of K1's kernel: x NHWC, w_hwio [KH, KW, Ci, Co], symmetric
-    `pads`, explicit OH/OW. Counts nothing: its callers do."""
+def _ohwi(w):
+    """The OHWI memory of an OIHW filter `w`, as the kernels read it: a view
+    when `w` is an OIHW view of aligned OHWI memory (channels_last, as the
+    serving fold and the training casts store filters), else one copy,
+    counted in COUNTERS.filter_copies."""
+    w_ohwi = w.permute(0, 2, 3, 1)
+    if w_ohwi.is_contiguous() and w_ohwi.data_ptr() % 16 == 0:
+        return w_ohwi
+    COUNTERS.filter_copies += 1
+    return cuda_build.aligned(w_ohwi)
+
+
+def _launch_fwd(x, w_ohwi, oh, ow, strides, pads, dilations, out_dtype,
+                stats=False, flip=False):
+    """One launch of K1's kernel: x NHWC, w_ohwi [Co, KH, KW, Ci] contiguous
+    (`flip`: its taps read in reverse, K2's flipped filter), symmetric
+    `pads`, explicit OH/OW; the plan from `conv_plan`. Returns (y, sums,
+    rc), sums [2, Co] f32 (Σy, Σy²) when `stats`, else None. Counts
+    nothing: its callers do."""
     n, h, wd, ci = x.shape
-    kh, kw, _, co = w_hwio.shape
+    co, kh, kw, _ = w_ohwi.shape
+    plan = conv_plan((n, h, wd, ci), co, kh, kw, oh, ow, strides, pads)
     xc = cuda_build.aligned(x)
-    wc = cuda_build.aligned(w_hwio)
-    y = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
+    dev = x.device
+    y = torch.empty((n, oh, ow, co), dtype=out_dtype, device=dev)
+    m = n * oh * ow
+    ws = part = sums = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, m, co), dtype=torch.float32, device=dev)
+    if stats:
+        part = torch.empty((2, plan.stat_rows(m), co), dtype=torch.float32,
+                           device=dev)
+        sums = torch.empty((2, co), dtype=torch.float32, device=dev)
+
+    def ptr(t, i=None):
+        return 0 if t is None else (t if i is None else t[i]).data_ptr()
     fn = cuda_build.entry("conv2d_fwd", "conv2d_fwd", _ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(xc.data_ptr(), wc.data_ptr(), y.data_ptr(), n, h, wd, ci, co,
-            kh, kw, oh, ow, strides[0], strides[1], pads[0], pads[1],
-            dilations[0], dilations[1], int(out_dtype == torch.float32),
-            stream)
-    return y, rc
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(xc.data_ptr(), w_ohwi.data_ptr(), y.data_ptr(), ptr(ws),
+            ptr(part, 0), ptr(part, 1), ptr(sums, 0), ptr(sums, 1),
+            n, h, wd, ci, co, kh, kw, oh, ow, strides[0], strides[1],
+            pads[0], pads[1], dilations[0], dilations[1], int(flip),
+            int(plan.flat), plan.lbn, plan.lbh, plan.lbw, plan.block_n,
+            plan.splits, plan.per, plan.stages, int(out_dtype == torch.float32),
+            int(stats), stream)
+    return y, sums, rc
 
 
 def conv2d(x, w, strides, paddings, dilations, out_dtype=None):
     """K1. x [N, H, W, Ci] bf16, w [Co, Ci, KH, KW] bf16 -> y [N, OH, OW,
-    Co] in `out_dtype` (bf16 default, float32 allowed). The caller must
-    have passed `ineligible`. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream, or raise."""
+    Co] in `out_dtype` (bf16 default, float32 allowed). An OIHW view of
+    OHWI memory is read in place; any other filter is copied once, and
+    counted. The caller must have passed `ineligible`. CPU tensors take the
+    plain version; CUDA tensors launch the kernel on the current stream, or
+    raise."""
     if x.device.type == "cpu":
         return conv2d_reference(x, w, strides, paddings, dilations, out_dtype)
     out_dtype = out_dtype or torch.bfloat16
     _check_cuda("conv2d", (x, w), x, w, strides, paddings, dilations,
                 out_dtype)
     oh, ow = _out_hw(x, w, strides, paddings, dilations)
-    y, rc = _launch_fwd(x, w.permute(2, 3, 1, 0), oh, ow, strides, paddings,
-                        dilations, out_dtype)
+    y, _, rc = _launch_fwd(x, _ohwi(w), oh, ow, strides, paddings, dilations,
+                           out_dtype)
     COUNTERS.launches += 1
     _raise_on(rc, "conv2d_fwd", x, w)
     return y
@@ -439,7 +666,9 @@ def conv2d_grad_input(dout, w, x_hw, strides, paddings, dilations,
     KH, KW] bf16, in `out_dtype` (default dout's). The caller must have
     passed `ineligible` for the forward conv. CPU tensors take the plain
     version; CUDA tensors launch K1's kernel on the stride-1 problem, or
-    raise."""
+    raise. The kernel reads the filter with its channel axes swapped,
+    written once per call as [Ci, KH, KW, Co] (counted in filter_copies),
+    and its taps in reverse: the flip costs no copy."""
     if dout.device.type == "cpu":
         return conv2d_grad_input_reference(dout, w, x_hw, strides, paddings,
                                            dilations, out_dtype)
@@ -448,11 +677,12 @@ def conv2d_grad_input(dout, w, x_hw, strides, paddings, dilations,
                         dtype=dout.dtype, device="meta")
     _check_cuda("conv2d_grad_input", (dout, w), probe, w, strides, paddings,
                 dilations, out_dtype)
-    dd, w_t, pads = _dgrad_operands(dout, w, x_hw, strides, paddings,
-                                    dilations)
-    y, rc = _launch_fwd(dd, w_t.permute(2, 3, 1, 0), x_hw[0], x_hw[1],
-                        (1, 1), (pads[0][0], pads[1][0]), dilations,
-                        out_dtype)
+    dd, pads = _dgrad_input(dout, w, x_hw, strides, paddings, dilations)
+    w_swapped = w.permute(1, 2, 3, 0).contiguous()
+    COUNTERS.filter_copies += 1
+    y, _, rc = _launch_fwd(dd, w_swapped, x_hw[0], x_hw[1], (1, 1),
+                           (pads[0][0], pads[1][0]), dilations, out_dtype,
+                           flip=True)
     COUNTERS.dgrad_launches += 1
     _raise_on(rc, "conv2d_fwd (dgrad)", dout, w)
     return y
@@ -478,16 +708,19 @@ def conv2d_grad_filter(x, dout, kernel_hw, strides, paddings, dilations,
             (oh, ow) != _out_hw(x, probe, strides, paddings, dilations):
         raise ValueError(f"conv2d_grad_filter kernel: dout {tuple(dout.shape)}"
                          f" {dout.dtype} does not match x {tuple(x.shape)}")
-    splits, per = wgrad_splits(x, probe, strides, paddings, dilations)
+    plan = wgrad_plan(tuple(x.shape), tuple(dout.shape), kh, kw, strides,
+                      paddings)
     xc, dc = cuda_build.aligned(x), cuda_build.aligned(dout)
-    ws = torch.empty((splits, co, kh * kw * ci), dtype=torch.float32,
+    ws = torch.empty((plan.splits, co, kh * kw * ci), dtype=torch.float32,
                      device=x.device)
     out = torch.empty((co, ci, kh, kw), dtype=out_dtype, device=x.device)
     fn = cuda_build.entry("conv2d_wgrad", "conv2d_wgrad", _WGRAD_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(xc.data_ptr(), dc.data_ptr(), ws.data_ptr(), out.data_ptr(),
             n, h, wd, ci, co, kh, kw, oh, ow, strides[0], strides[1],
-            paddings[0], paddings[1], dilations[0], dilations[1], splits, per,
+            paddings[0], paddings[1], dilations[0], dilations[1],
+            int(plan.flat), plan.lbn, plan.lbh, plan.lbw, plan.nwg,
+            plan.block_n, plan.splits, plan.per, plan.stages,
             int(out_dtype == torch.float32), stream)
     COUNTERS.wgrad_launches += 1
     _raise_on(rc, "conv2d_wgrad", x, probe)
@@ -496,30 +729,18 @@ def conv2d_grad_filter(x, dout, kernel_hw, strides, paddings, dilations,
 
 def conv2d_stats(x, w, strides, paddings, dilations, out_dtype=None):
     """K4. (y, csum, csq): K1's y and the f32 sums over N, OH, OW of the
-    rounded y and of its square, per output channel. CPU tensors take the
-    plain version; CUDA tensors launch the kernel, or raise."""
+    rounded y and of its square, per output channel. The filter is read as
+    K1 reads it. CPU tensors take the plain version; CUDA tensors launch
+    the kernel, or raise."""
     if x.device.type == "cpu":
         return conv2d_stats_reference(x, w, strides, paddings, dilations,
                                       out_dtype)
     out_dtype = out_dtype or torch.bfloat16
     _check_cuda("conv2d_stats", (x, w), x, w, strides, paddings, dilations,
                 out_dtype)
-    n, h, wd, ci = x.shape
-    co, _, kh, kw = w.shape
     oh, ow = _out_hw(x, w, strides, paddings, dilations)
-    m_tiles = -(-n * oh * ow // 128)
-    xc = cuda_build.aligned(x)
-    wc = cuda_build.aligned(w.permute(2, 3, 1, 0))
-    y = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
-    part = torch.empty((2, m_tiles, co), dtype=torch.float32, device=x.device)
-    sums = torch.empty((2, co), dtype=torch.float32, device=x.device)
-    fn = cuda_build.entry("conv2d_fwd", "conv2d_fwd_stats", _STATS_ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(xc.data_ptr(), wc.data_ptr(), y.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
-            n, h, wd, ci, co, kh, kw, oh, ow, strides[0], strides[1],
-            paddings[0], paddings[1], dilations[0], dilations[1],
-            int(out_dtype == torch.float32), stream)
+    y, sums, rc = _launch_fwd(x, _ohwi(w), oh, ow, strides, paddings,
+                              dilations, out_dtype, stats=True)
     COUNTERS.stats_launches += 1
     _raise_on(rc, "conv2d_fwd_stats", x, w)
     return y, sums[0], sums[1]

@@ -38,7 +38,7 @@ import torch
 
 from .. import quant
 from . import bn_cuda, conv_cuda
-from .common import mxu_cast
+from .common import CONV_FORMATS, mxu_cast
 from .math_ops import ACTIVATIONS
 from .nn_ops import _pair, conv2d_forward
 
@@ -238,7 +238,7 @@ def _conv_stats(ctx, g: Group, env) -> bool:
     if x is None or w is None:
         return False
     s, p, d = _conv_attrs(conv)
-    (xc, wc), restore = mxu_cast(ctx, x, w)
+    (xc, wc), restore = mxu_cast(ctx, x, w, formats=CONV_FORMATS)
     if restore is not None:
         return False
     x_nhwc = xc.contiguous(memory_format=torch.channels_last) \
@@ -296,15 +296,17 @@ def fold_constants(ctx, groups, env) -> Dict[int, tuple]:
     quantized conv computes them per call from the filter it is handed
     (quant.py:377-378). Its serving engine instead looks up the unfolded
     filter's values by name and so drops the batch-norm scale from every
-    folded conv; the port does not copy that. The int8 filter is kept as an
-    OIHW view of OHWI memory, the layout K11 reads, so no call copies it."""
+    folded conv; the port does not copy that. The filter, bf16 and int8
+    alike, is kept as an OIHW view of OHWI memory, the layout K1 and K11
+    read, so no call copies it."""
     out = {}
     for anchor, g in (groups or {}).items():
         if not g.fold:
             continue
         wf, bf = _fold_weights(g, env)
         if getattr(ctx, "amp_level", "O1") in ("O2", "O3"):
-            (wf,), _ = mxu_cast(ctx, wf)
+            (wf,), _ = mxu_cast(ctx, wf, formats=CONV_FORMATS[1:])
+        wf = wf.contiguous(memory_format=torch.channels_last)
         pre = None
         if getattr(ctx, "quant_mode", None):
             q, scale = quant.quantize_channelwise(wf, axis=0,

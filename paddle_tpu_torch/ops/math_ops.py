@@ -103,6 +103,42 @@ def _where0(cond, x):
     return torch.where(cond, x, torch.zeros_like(x))
 
 
+def _clip(x, lo, hi):
+    """jnp.clip's gradient: a value on a bound splits the tie 0.5/0.5
+    between x and the bound (torch.clamp would give x all of it)."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)),
+                         torch.full_like(x, hi))
+
+
+def _fma(a, x, b):
+    """a * x + b rounded once to x's dtype, as XLA contracts it under jit
+    (0.2 * -2.5 + 0.5 is -7.45e-9 there, 0 with two roundings: the
+    difference between no gradient and a tie on hard_sigmoid's bound).
+    The scalars are taken in x's dtype first, as JAX's weak types are."""
+    a = torch.tensor(a, dtype=x.dtype).double()
+    b = torch.tensor(b, dtype=x.dtype).double()
+    return (a * x.double() + b).to(x.dtype)
+
+
+class _Abs(torch.autograd.Function):
+    """torch.abs with jnp.abs's gradient: sign(x), but 1 at +-0 where
+    torch.abs gives 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x < 0, -g, g)
+
+
+def _abs(x):
+    return _Abs.apply(x)
+
+
 ACTIVATIONS = {
     "sigmoid": lambda x, a: torch.sigmoid(x),
     "logsigmoid": lambda x, a: F.logsigmoid(x),
@@ -114,7 +150,7 @@ ACTIVATIONS = {
     "hard_shrink": lambda x, a: _where0(
         torch.abs(x) > a.attr("threshold", 0.5), x),
     "sqrt": lambda x, a: torch.sqrt(x),
-    "abs": lambda x, a: torch.abs(x),
+    "abs": lambda x, a: _abs(x),
     "ceil": lambda x, a: torch.ceil(x),
     "floor": lambda x, a: torch.floor(x),
     "round": lambda x, a: torch.round(x),
@@ -123,20 +159,20 @@ ACTIVATIONS = {
     "square": lambda x, a: torch.square(x),
     "softplus": lambda x, a: F.softplus(x),
     "softsign": lambda x, a: x / (1.0 + torch.abs(x)),
-    "brelu": lambda x, a: torch.clamp(x, a.attr("t_min", 0.0),
-                                      a.attr("t_max", 24.0)),
+    "brelu": lambda x, a: _clip(x, a.attr("t_min", 0.0),
+                                a.attr("t_max", 24.0)),
     "leaky_relu": lambda x, a: torch.where(x >= 0, x,
                                            a.attr("alpha", 0.02) * x),
-    "soft_relu": lambda x, a: torch.log1p(torch.exp(torch.clamp(
+    "soft_relu": lambda x, a: torch.log1p(torch.exp(_clip(
         x, -a.attr("threshold", 40.0), a.attr("threshold", 40.0)))),
     "elu": lambda x, a: torch.where(x >= 0, x, a.attr("alpha", 1.0)
                                     * (torch.exp(x) - 1.0)),
-    "relu6": lambda x, a: torch.clamp(x, 0.0, a.attr("threshold", 6.0)),
+    "relu6": lambda x, a: _clip(x, 0.0, a.attr("threshold", 6.0)),
     "pow": lambda x, a: torch.pow(x, a.attr("factor", 1.0)),
     "stanh": lambda x, a: a.attr("scale_b", 1.7159) * torch.tanh(
         a.attr("scale_a", 2.0 / 3.0) * x),
-    "hard_sigmoid": lambda x, a: torch.clamp(
-        a.attr("slope", 0.2) * x + a.attr("offset", 0.5), 0.0, 1.0),
+    "hard_sigmoid": lambda x, a: _clip(
+        _fma(a.attr("slope", 0.2), x, a.attr("offset", 0.5)), 0.0, 1.0),
     "swish": lambda x, a: x * torch.sigmoid(a.attr("beta", 1.0) * x),
     "thresholded_relu": lambda x, a: _where0(
         x > a.attr("threshold", 1.0), x),

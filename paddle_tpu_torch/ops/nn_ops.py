@@ -22,7 +22,7 @@ from .. import quant
 from ..framework.desc import OpDesc
 from ..framework.framework import grad_var_name
 from . import attention_cuda, conv_cuda
-from .common import in_var, mxu_cast, same_as_input, set_out
+from .common import CONV_FORMATS, in_var, mxu_cast, same_as_input, set_out
 from .registry import NO_GRAD, generic_grad_lower, infer_grad_shapes, op
 
 
@@ -129,7 +129,7 @@ def conv2d_forward(ctx, op_, x, w, pre=None):
     d = _pair(op_.attr("dilations", [1, 1]))
     groups = op_.attr("groups", 1) or 1
     qmode = getattr(ctx, "quant_mode", None)
-    (x, w), restore = mxu_cast(ctx, x, w)
+    (x, w), restore = mxu_cast(ctx, x, w, formats=CONV_FORMATS)
     x = x.contiguous(memory_format=torch.channels_last)
     x_nhwc = x.permute(0, 2, 3, 1)
     reason = conv_cuda.ineligible(x_nhwc, w, s, p, d, groups)
@@ -188,7 +188,7 @@ def _conv2d_grad(ctx, op_, ins):
     p = _pair(op_.attr("paddings", [0, 0]))
     d = _pair(op_.attr("dilations", [1, 1]))
     groups = op_.attr("groups", 1) or 1
-    (xc, wc), _ = mxu_cast(ctx, x, w)
+    (xc, wc), _ = mxu_cast(ctx, x, w, formats=CONV_FORMATS)
     x_nhwc = xc.contiguous(memory_format=torch.channels_last) \
         .permute(0, 2, 3, 1)
     reason = conv_cuda.ineligible(x_nhwc, wc, s, p, d, groups)

@@ -187,3 +187,110 @@ def test_bound_counts_only_the_pixels_read(dtype, k, s, p, read_hw):
         16 * read_hw * 256 * size
     assert conv_cuda.conv_bytes(x, w, (s, s), (p, p), (1, 1)) == \
         16 * read_hw * 256 * size + w.numel() * size + 16 * oh * oh * 512 * 2
+
+
+# every distinct ResNet-50 conv that reaches K1 (H, W, Ci, Co, K, stride,
+# padding), and the edge shapes of the card tests
+RESNET50 = [
+    (56, 56, 64, 256, 1, 1, 0), (56, 56, 64, 64, 1, 1, 0),
+    (56, 56, 64, 64, 3, 1, 1), (56, 56, 256, 64, 1, 1, 0),
+    (56, 56, 256, 512, 1, 2, 0), (56, 56, 256, 128, 1, 2, 0),
+    (28, 28, 128, 128, 3, 1, 1), (28, 28, 128, 512, 1, 1, 0),
+    (28, 28, 512, 128, 1, 1, 0), (28, 28, 512, 1024, 1, 2, 0),
+    (28, 28, 512, 256, 1, 2, 0), (14, 14, 256, 256, 3, 1, 1),
+    (14, 14, 256, 1024, 1, 1, 0), (14, 14, 1024, 256, 1, 1, 0),
+    (14, 14, 1024, 2048, 1, 2, 0), (14, 14, 1024, 512, 1, 2, 0),
+    (7, 7, 512, 512, 3, 1, 1), (7, 7, 512, 2048, 1, 1, 0),
+    (7, 7, 2048, 512, 1, 1, 0),
+]
+PLAN_SHAPES = [(n, h, w, ci, co, k, k, (s, s), (p, p))
+               for n in (1, 4, 16, 32) for h, w, ci, co, k, s, p in RESNET50] \
+    + [(2, 9, 9, 8, 24, 3, 3, (2, 2), (1, 1)),
+       (3, 7, 9, 16, 40, 2, 3, (2, 1), (1, 2)),
+       (1, 5, 5, 264, 8, 1, 1, (1, 1), (0, 0)),
+       (2, 6, 6, 24, 8, 3, 3, (1, 1), (1, 1))]
+
+
+def _ohw(shape):
+    n, h, w, ci, co, kh, kw, s, p = shape
+    return (h + 2 * p[0] - kh) // s[0] + 1, (w + 2 * p[1] - kw) // s[1] + 1
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_conv_plan_covers_the_output_and_the_reduction(shape):
+    """K1's plan: the tiles cover every output pixel (a FLAT tile is 128
+    consecutive pixels, a box 2**7 of them within TMA's 256-element box
+    limit), the splits cover the 64-deep reduction steps with none empty,
+    and the ring can hold a step while the next one lands."""
+    n, h, w, ci, co, kh, kw, s, p = shape
+    oh, ow = _ohw(shape)
+    plan = conv_cuda.conv_plan((n, h, w, ci), co, kh, kw, oh, ow, s, p)
+    assert plan.lbn + plan.lbh + plan.lbw == 7
+    if plan.flat:
+        assert (kh, kw, s, p, (oh, ow)) == (1, 1, (1, 1), (0, 0), (h, w))
+        assert plan.tiles * 128 >= n * oh * ow > (plan.tiles - 1) * 128
+    else:
+        assert (1 << plan.lbw) * s[1] <= 256 and (1 << plan.lbh) * s[0] <= 256
+        assert plan.tiles == (-(-n >> plan.lbn)) * (-(-oh >> plan.lbh)) \
+            * (-(-ow >> plan.lbw))
+    assert plan.steps == kh * kw * -(-ci // 64)
+    assert (plan.splits - 1) * plan.per < plan.steps <= plan.splits * plan.per
+    assert plan.block_n == 64 or co > 64
+    assert 1 <= plan.stages <= 4 and plan.stages <= plan.per
+    assert plan.per == 1 or plan.stages >= 2
+    m = n * oh * ow
+    assert plan.stat_rows(m) == (-(-m // 128) if plan.splits > 1
+                                 else plan.tiles)
+
+
+def test_conv_plan_splits_only_small_grids():
+    """Split-K where the grid leaves SMs idle: ResNet-50's stage-4 3x3 conv
+    at batch 16 and the late stages of the small buckets; never where the
+    tiles fill a quarter of the card."""
+    def plan(n, h, ci, co, k, s=1, p=0):
+        oh = (h + 2 * p - k) // s + 1
+        return conv_cuda.conv_plan((n, h, h, ci), co, k, k, oh, oh, (s, s),
+                                   (p, p))
+    assert plan(16, 7, 512, 512, 3, p=1).splits == 4
+    assert plan(1, 7, 512, 512, 3, p=1).splits > 1
+    assert plan(4, 14, 256, 256, 3, p=1).splits > 1
+    assert plan(16, 56, 64, 256, 1).splits == 1
+    assert plan(32, 14, 256, 256, 3, p=1).splits == 1
+    for shape in PLAN_SHAPES:
+        n, h, w, ci, co, kh, kw, s, p = shape
+        oh, ow = _ohw(shape)
+        pl = conv_cuda.conv_plan((n, h, w, ci), co, kh, kw, oh, ow, s, p)
+        if pl.tiles * -(-co // pl.block_n) > 132 // 4:
+            assert pl.splits == 1
+        # 64 output channels a tile where there are only 64
+        if co <= 64:
+            assert pl.block_n == 64
+
+
+def test_ohwi_filter_is_read_in_place_else_copied_once():
+    """The wrappers' filter: an OIHW view of OHWI memory is passed through
+    without a copy; any other filter is copied once and counted."""
+    w = torch.randn(16, 8, 3, 3).to(torch.bfloat16)
+    view = w.contiguous(memory_format=torch.channels_last)
+    got = conv_cuda._ohwi(view)
+    assert got.data_ptr() == view.data_ptr() and got.is_contiguous()
+    assert conv_cuda.COUNTERS.filter_copies == 0
+    got = conv_cuda._ohwi(w)
+    assert got.is_contiguous() and torch.equal(got, w.permute(0, 2, 3, 1))
+    assert conv_cuda.COUNTERS.filter_copies == 1
+
+
+def test_amp_casts_conv_filters_into_ohwi_memory():
+    """Under AMP O2 the conv lowerings cast the f32 master filter straight
+    into channels_last memory (one cast, as before, and no transpose after
+    it); other operands keep their layout."""
+    from paddle_tpu_torch.ops.common import CONV_FORMATS, mxu_cast
+
+    class Ctx:
+        amp_dtype, amp_level = "bfloat16", "O2"
+    x = torch.randn(2, 8, 5, 5)
+    w = torch.randn(16, 8, 3, 3)
+    (xc, wc), restore = mxu_cast(Ctx, x, w, formats=CONV_FORMATS)
+    assert restore is None and xc.dtype == wc.dtype == torch.bfloat16
+    assert xc.is_contiguous() and wc.permute(0, 2, 3, 1).is_contiguous()
+    assert torch.equal(wc, w.to(torch.bfloat16))

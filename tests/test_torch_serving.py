@@ -155,6 +155,18 @@ def test_fold_runs_and_batch_norm_never_does(monkeypatch):
     assert calls == []
 
 
+def test_folded_filters_are_stored_ohwi():
+    """The fold stores each bf16 filter as an OIHW view of OHWI memory,
+    the layout K1 reads in place: a served request copies no filter."""
+    _, arrays = _served_by_jax(True)
+    eng = _port_engine(True, arrays)
+    folds = eng._prepared.folds
+    assert len(folds) == 6
+    for wf, _, _ in folds.values():
+        assert wf.dtype == torch.bfloat16
+        assert wf.permute(0, 2, 3, 1).is_contiguous()
+
+
 def test_fetched_conv_output_is_not_elided():
     _, arrays = _served_by_jax(False)
     main, startup, prob = _build(pt, port_resnet, False)

@@ -1,8 +1,10 @@
 """K2-K6, the port's training kernels, against their plain versions on the
 card, at shapes that reach the tiles' edges (pixels and channels that are
 not multiples of the 128x128 conv tiles or the 64x64 batch-norm blocks,
-strides, dilations, asymmetric padding), with bitwise repeatability, and one
-AMP O2 training step of a small net on the card against the CPU plain path.
+strides, dilations, asymmetric padding) and at every ResNet-50 training
+conv at batch 32, with bitwise repeatability (K4's y bitwise K1's, K3 in
+f32 and bf16 out), and one AMP O2 training step of a small net on the card
+against the CPU plain path.
 
 The kernels have no CPU mode, so every test here needs a CUDA device and
 skips without one. This file imports no JAX (the GPU machine has none): run
@@ -39,6 +41,23 @@ SHAPES = [
     (2, 8, 8, 16, 32, 1, 1, (2, 2), (0, 0), (1, 1)),    # 1x1/s2: hi = lo + 1
     (3, 30, 30, 64, 256, 1, 1, (1, 1), (0, 0), (1, 1)),  # long reduction
 ]
+
+# every distinct ResNet-50 training conv at batch 32: (H, W, Ci, Co, K,
+# stride, padding)
+RESNET50 = [
+    (56, 56, 64, 256, 1, 1, 0), (56, 56, 64, 64, 1, 1, 0),
+    (56, 56, 64, 64, 3, 1, 1), (56, 56, 256, 64, 1, 1, 0),
+    (56, 56, 256, 512, 1, 2, 0), (56, 56, 256, 128, 1, 2, 0),
+    (28, 28, 128, 128, 3, 1, 1), (28, 28, 128, 512, 1, 1, 0),
+    (28, 28, 512, 128, 1, 1, 0), (28, 28, 512, 1024, 1, 2, 0),
+    (28, 28, 512, 256, 1, 2, 0), (14, 14, 256, 256, 3, 1, 1),
+    (14, 14, 256, 1024, 1, 1, 0), (14, 14, 1024, 256, 1, 1, 0),
+    (14, 14, 1024, 2048, 1, 2, 0), (14, 14, 1024, 512, 1, 2, 0),
+    (7, 7, 512, 512, 3, 1, 1), (7, 7, 512, 2048, 1, 1, 0),
+    (7, 7, 2048, 512, 1, 1, 0),
+]
+RESNET50_SHAPES = [(32, h, w, ci, co, k, k, (s, s), (p, p), (1, 1))
+                   for h, w, ci, co, k, s, p in RESNET50]
 
 # [M, C] of the batch-norm kernels
 BN_SHAPES = [(1000, 200), (64, 64), (4099, 8), (32, 1024)]
@@ -79,7 +98,7 @@ def _assert_sum_close(got, want, mags):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + RESNET50_SHAPES, ids=str)
 def test_dgrad_matches_plain_version(device, shape):
     x, wt, dout, s, p, d = _operands(shape, device)
     hw = (x.shape[1], x.shape[2])
@@ -101,7 +120,7 @@ def test_dgrad_matches_plain_version(device, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + RESNET50_SHAPES, ids=str)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
                          ids=str)
 def test_wgrad_matches_plain_version(device, shape, out_dtype):
@@ -128,7 +147,7 @@ def test_wgrad_matches_plain_version(device, shape, out_dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + RESNET50_SHAPES, ids=str)
 def test_conv_stats_is_k1_plus_sums(device, shape):
     x, wt, _, s, p, d = _operands(shape, device, seed=2)
     before = conv_cuda.COUNTERS.stats_launches

@@ -157,27 +157,35 @@ def test_grad_filter_matches_pallas(case, out):
 
 
 def test_wgrad_splits_cover_the_reduction():
-    """K3's split of the N*OH*OW reduction: every split non-empty, the
-    splits cover every 32-pixel slice, about two blocks per SM."""
+    """K3's split of the N*OH*OW reduction (slices of 64 pixels): every
+    split non-empty, the splits cover every slice, each split at least the
+    measured least slices, and the blocks near the measured target for the
+    tile shape (conv_cuda._WGRAD_BLOCKS)."""
     for xs, ws, s in [((32, 56, 56, 64), (256, 64, 1, 1), (1, 1)),
                       ((32, 7, 7, 512), (512, 512, 3, 3), (1, 1)),
                       ((2, 9, 9, 8), (24, 8, 3, 3), (2, 2)),
-                      ((32, 56, 56, 256), (512, 256, 1, 1), (2, 2))]:
+                      ((32, 56, 56, 256), (512, 256, 1, 1), (2, 2)),
+                      ((32, 56, 56, 64), (64, 64, 3, 3), (1, 1))]:
         x = torch.empty(xs, device="meta")
         w = torch.empty(ws, device="meta")
         p = ((ws[2] - 1) // 2,) * 2
         splits, per = conv_cuda.wgrad_splits(x, w, s, p, (1, 1))
         oh = (xs[1] + 2 * p[0] - ws[2]) // s[0] + 1
         ow = (xs[2] + 2 * p[1] - ws[3]) // s[1] + 1
-        steps = -(-xs[0] * oh * ow // 32)
+        plan = conv_cuda.wgrad_plan(xs, (xs[0], oh, ow, ws[0]), ws[2], ws[3],
+                                    s, p)
+        assert (plan.splits, plan.per) == (splits, per)
+        steps = plan.steps
+        assert steps >= -(-xs[0] * oh * ow // 64)
         assert (splits - 1) * per < steps <= splits * per
-        tiles = -(-ws[0] // 128) * ws[2] * ws[3] * -(-ws[1] // 128)
-        assert splits == 1 or tiles * splits <= 2 * 132 + tiles
-    # ResNet-50's 1x1 64->256 conv at batch 32: 2 output tiles, 3136 slices
-    # of 32 pixels; 132 splits of 24 slices would leave the last one empty
+        target, least = conv_cuda._WGRAD_BLOCKS[(plan.nwg, plan.block_n)]
+        assert splits == 1 or per >= least
+        assert splits == 1 or plan.tiles * (splits - 1) < target
+    # ResNet-50's 1x1 64->256 conv at batch 32: 2 output tiles of 128 x 64,
+    # 1568 slices of 64 pixels: 32 splits of 49 slices, 64 blocks
     assert conv_cuda.wgrad_splits(torch.empty((32, 56, 56, 64), device="meta"),
                                   torch.empty((256, 64, 1, 1), device="meta"),
-                                  (1, 1), (0, 0), (1, 1)) == (131, 24)
+                                  (1, 1), (0, 0), (1, 1)) == (32, 49)
 
 
 # --- K4: conv + statistics ------------------------------------------------------
