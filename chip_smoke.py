@@ -70,39 +70,47 @@ card:
               re-run on the CPU on the card's own inputs), then end to end
               (the loss, per-parameter grad relative L2), in O2 and in f32
               (TF32 off);
-  9. kernel_attn  K7-K9 (flash-attention forward, dQ, dK/dV) against their
-              plain versions at the JAX tests' shapes, causal and not, at
-              T = 72 with D 64 and 128, and at the bench shape [8, 2048, 8,
-              64] causal, each run twice and bitwise repeatable; then timed
-              at the bench shape (CUDA graph of 20 calls between CUDA
-              events) beside the bound, the plain versions and
-              F.scaled_dot_product_attention (yardstick only: its forward
-              for K7, its backward for K8 + K9 together);
+  9. kernel_attn  K7-K9 (flash-attention forward, dQ, dK/dV), in bf16
+              (the Hopper kernels) and in f32 (their f32 forms), against
+              their plain versions at the JAX tests' shapes, causal and
+              not, at T = 72 with D 64 and 128, and at the bench shape [8,
+              2048, 8, 64] causal (f32 also at the f32 steps' [1, 2048,
+              8, 64]), each run twice and bitwise repeatable; then timed
+              (CUDA graph of calls between CUDA events), bf16 at the bench
+              shape and f32 at the f32 steps' shape, beside the bound, the
+              plain versions and F.scaled_dot_product_attention
+              (yardstick only: its forward for K7, its backward for K8 +
+              K9 together); the wrappers' host time per call; the
+              flash/einsum crossover at T 512-8192;
 10. train_lm the transformer LM O2 with Adam 1e-4, one warm-up and five
               timed steps on one batch of random tokens and labels (seed
               0): step p50 and tokens/s, K7/K8/K9 launches held to 4/4/4 per
               step with no attention fallback, the loss finite and falling,
               peak memory, one profiled step; then one step at batch 1 from
               the startup weights against the CPU plain path, op by op and
-              end to end, in O2 and in f32, the O2 grads held to the CPU's
-              own O2 noise floor (its flash path against its einsum path);
+              end to end, in O2 and in f32 (the f32 step through the f32
+              forms of K7-K9, launches held to 4/4/4, no fallback), the O2
+              grads held to the CPU's own O2 noise floor (its flash path
+              against its einsum path);
  11. serve_lm ServingEngine over transformer_lm(is_test=True,
               return_logits=True) in O2, fetching the logits, 6 requests of
               1-8 rows: K7 launches held to 4 per bucket run, one request
               against the CPU plain path; then p50 latency per bucket over
               7 requests that fill it;
- 12. kernel_ring  K10 (the ring's unnormalized flash block) against its
-              plain version at the JAX tests' shapes, at the 16 (query
-              shard, key shard) pairs of a four-shard causal ring of [1,
-              8192, 8, 64] shards (6 wholly masked: exactly (0, 0, -1e30))
-              and at the path shape [1, 32768, 8, 64], each twice and
-              bitwise repeatable (`hold_block`); K8 and K9 at the 16 pairs
-              with their offsets; the four shards' ring merge (the ring's
-              per-step function looped in one process) against K7 on the
-              whole sequence; then K10 timed at the path shape (CUDA graph
-              of 20 calls between CUDA events) beside the bound, the plain
-              version and PyTorch's flash forward with its logsumexp
-              (yardstick only);
+ 12. kernel_ring  K10 (the ring's unnormalized flash block), in bf16 and in
+              f32, against its plain version at the JAX tests' shapes, at
+              the 16 (query shard, key shard) pairs of a four-shard causal
+              ring of [1, 8192, 8, 64] shards (6 wholly masked: exactly
+              (0, 0, -1e30)) and at the path shape [1, 32768, 8, 64], each
+              twice and bitwise repeatable (`hold_block`); K8 and K9 at
+              the 16 pairs with their offsets; the four shards' ring merge
+              (the ring's per-step function looped in one process) against
+              K7 on the whole sequence; f32 also K10 at the f32 ring
+              step's [1, 2048, 8, 64]; then K10 timed (CUDA graph of calls
+              between CUDA events), bf16 at the path shape and f32 at the
+              f32 step's, beside the bound, the plain version and
+              PyTorch's flash (bf16) or memory-efficient (f32) forward
+              with its logsumexp (yardstick only), and K8 and K9 there;
  13. train_ring  the ring configuration O2 with Adam 1e-4, one warm-up and
               five timed steps on one batch of random tokens and labels
               (seed 0): step p50 and tokens/s, launches per step held to
@@ -110,9 +118,8 @@ card:
               hit, the loss finite and falling, peak memory, one profiled
               step; then the same ring program at T 2048, one step from the
               startup weights against the CPU plain path, op by op and end
-              to end in O2; the f32 ring held to raise on the card (the
-              kernels are bf16) and its CPU step against the f32 einsum
-              program;
+              to end in O2 and in f32 (the f32 ring on the card through
+              the f32 forms of K10, K8 and K9, launches held to 4/4/4);
  14. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
@@ -285,6 +292,11 @@ LM = {"batch": 8, "seqlen": 2048, "n_layer": 4, "d_model": 512, "n_head": 8,
 LM_STEPS = 5                        # timed, after one warm-up step
 LM_SMALL_BATCH = 1                  # the step compared with the CPU
 ATTN_BENCH = (8, 2048, 8, 64)       # [B, T, H, D] of its attention
+# [B, T, H, D] of the attention of the f32 steps on the card (the batch-1
+# LM step, and the ring step at RING_SMALL_T = T on one rank): the f32
+# forms' path shape
+F32_ATTN = (LM_SMALL_BATCH, LM["seqlen"], LM["n_head"],
+            LM["d_model"] // LM["n_head"])
 # K7-K9 against their plain versions: tests/test_pallas_attention.py's
 # shapes, T = 72 (a 64-row tile past T) at D 64 and 128, the bench shape
 ATTN_SHAPES = [(s, c) for s in ((2, 64, 2, 32), (1, 128, 4, 64),
@@ -295,6 +307,9 @@ ATTN_SHAPES = [(s, c) for s in ((2, 64, 2, 32), (1, 128, 4, 64),
 # version (one ulp, 1e-5 of the sum of its terms' magnitudes, four flipped
 # bf16 roundings of P or dS); LSE within LSE_RTOL of max(1, |lse|).
 LSE_RTOL = 1e-5
+# the launch counters of the kernels' f32 forms (attention_cuda.COUNTERS)
+F32_COUNTERS = ("f32_launches", "f32_dq_launches", "f32_dkv_launches",
+                "f32_block_launches")
 LM_SERVE_SIZES = [1, 3, 8, 2, 6, 4]
 LM_BUCKETS = (1, 2, 4, 8)
 LM_LATENCY_REPS = 7                 # full-bucket requests timed per bucket for p50
@@ -329,6 +344,30 @@ MERGE_REL = 2.0 ** -8 + 1e-5
 # within LM_LOGIT_RTOL of the largest |logit| (bf16 noise; the CPU test of
 # a 2-layer model measured 0.53 % against the JAX package).
 LM_LOGIT_RTOL = 2e-2
+
+
+def _kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, as
+    ptxas prints it: `_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELi128ELb1EEEv..`
+    -> `flash_fwd_kernel<64,128,true>`, a leading element type as `float`
+    or `bf16`."""
+    import re
+    m = re.search(r"(\w+?_kernel)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    # the name is the last length-prefixed identifier: 16flash_fwd_kernel
+    part, name = m.group(1), m.group(1)
+    for d in re.finditer(r"\d+", part):
+        digits = d.group()
+        if any(d.end() + int(digits[i:]) == len(part)
+               for i in range(len(digits))):
+            name = part[d.end():]
+            break
+    vals = ["float" if m.group(2).startswith("f") else "bf16"] \
+        if m.group(2).startswith(("f", "13__nv_bfloat16")) else []
+    vals += [("true" if v == "1" else "false") if t == "b" else v
+             for t, v in re.findall(r"L(i|b)(\d+)E", m.group(2))]
+    return f"{name}<{','.join(vals)}>"
 
 
 def _card_line() -> str:
@@ -1778,38 +1817,46 @@ def attention_flops(kernel: str, b, tq, tk, h, d, causal) -> int:
     return products * 2 * d * b * h * _attention_pairs(tq, tk, causal)
 
 
-def attention_bytes(kernel: str, b, tq, tk, h, d) -> int:
-    """Each input read once, each output written once (bf16 operands, f32
-    lse/delta; K10, "block": f32 acc, m and l)."""
-    q, kv, stat = b * tq * h * d * 2, b * tk * h * d * 2, b * h * tq * 4
+def attention_bytes(kernel: str, b, tq, tk, h, d, elem=2) -> int:
+    """Each input read once, each output written once: operands and
+    outputs of `elem` bytes (2 bf16, 4 f32), f32 lse/delta, and K10's
+    ("block") f32 acc, m and l."""
+    q, kv, stat = b * tq * h * d * elem, b * tk * h * d * elem, b * h * tq * 4
     if kernel == "fwd":
         return q + 2 * kv + q + stat
     if kernel == "block":
-        return q + 2 * kv + 2 * q + 2 * stat
+        return q + 2 * kv + b * tq * h * d * 4 + 2 * stat
     if kernel == "dq":
         return 2 * q + 2 * kv + 2 * stat + q
     return 2 * q + 2 * kv + 2 * stat + 2 * kv
 
 
 def attention_tolerance(kernel, q, k, v, causal, dout=None, lse=None,
-                        delta=None, flips=4, q_off=0, k_off=0, scale=None,
+                        delta=None, flips=None, q_off=0, k_off=0, scale=None,
                         rel=1e-5, rows=None):
     """The per-element bound on |kernel - plain version| for each output of
     K7 ("fwd": o), K8 ("dq": dq), K9 ("dkv": dk, dv) or K10 ("block": acc),
     operands [B, T, H, D], global offsets (q_off, k_off) for the causal
     mask. Each output element is a sum of products a*b (K7: P/l * V; K10:
     exp(S - m) * V; K8: scale * dS * K; K9: P^T * dO and scale * dS^T * Q)
-    that both sides form from the same bf16 values but in another order.
-    So: one ulp of the rounded output (bf16; f32 for K10's acc), `rel` of
-    the sum of the terms' magnitudes (f32 sums in another order: 1e-5), and
-    `flips` bf16 roundings of P or dS landing on the other side (2^-8 of
-    the largest term each; the f32 values they round differ in the last
-    bits). `lse` (K7: none needed; K10: the row max m) and `delta` [B, H,
-    Tq] as the kernels take them. `rows` walks the query rows in chunks of
-    that many, so that a long sequence's [Tq, Tk] scores never exist whole
-    (K7 and K10 only: their bounds are row by row). Also used by
-    tests/test_torch_attention*.py."""
+    that both sides form from the same values but in another order. So:
+    one ulp of the rounded output (bf16 operands: bf16; f32 operands, and
+    K10's acc: f32), `rel` of the sum of the terms' magnitudes (f32 sums in
+    another order: 1e-5; the f32 forms' 3xTF32 products keep about 21 bits,
+    well inside it; for f32 operands dS, which is not rounded, counts with
+    the magnitude of the terms of dP and delta that form it), and `flips`
+    bf16 roundings of P or dS landing on the
+    other side (2^-8 of the largest term each; the f32 values they round
+    differ in the last bits): 4 for bf16 operands by default, 0 for f32,
+    whose P and dS are not rounded. `lse` (K7: none needed; K10: the row
+    max m) and `delta` [B, H, Tq] as the kernels take them. `rows` walks
+    the query rows in chunks of that many, so that a long sequence's [Tq,
+    Tk] scores never exist whole (K7 and K10 only: their bounds are row by
+    row). Also used by tests/test_torch_attention*.py."""
     import torch
+    f32 = q.dtype == torch.float32
+    if flips is None:
+        flips = 0 if f32 else 4
     if rows is not None and kernel in ("fwd", "block") and q.shape[1] > rows:
         parts = [attention_tolerance(
             kernel, q[:, r:r + rows], k, v, causal,
@@ -1835,14 +1882,21 @@ def attention_tolerance(kernel, q, k, v, causal, dout=None, lse=None,
         pairs.append((p, vf, 1.0))
     else:
         dof = dout.float().permute(0, 2, 1, 3)
-        ds = (p * (torch.matmul(dof, vf.transpose(-1, -2))
-                   - delta.float()[..., None])).abs()
+        if f32:
+            # unrounded, dS = P (dP - delta) carries dP's own error: its
+            # magnitude is that of dP's terms (a row's dP and delta may
+            # cancel, as row 0's do under the causal mask)
+            ds = p * (torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+                      + delta.float().abs()[..., None])
+        else:
+            ds = (p * (torch.matmul(dof, vf.transpose(-1, -2))
+                       - delta.float()[..., None])).abs()
         if kernel == "dq":
             pairs.append((ds, kf, scale))
         else:
             pairs += [(ds.transpose(-1, -2), qf, scale),
                       (p.transpose(-1, -2), dof, 1.0)]
-    mant = 23 if kernel == "block" else 7
+    mant = 23 if kernel == "block" or f32 else 7
     out = []
     for a, b, sc in pairs:
         b = b.abs()
@@ -1903,107 +1957,244 @@ def hold_block(got, want, q, k, v, q_off, k_off, scale, causal, what,
                     f"{what} acc")
 
 
-def phase_kernel_attn(attention_cuda, report):
-    """K7-K9 against their plain versions at the JAX tests' shapes, T = 72
-    at D 64 and 128, and the bench shape, each run twice and bitwise
-    repeatable; then timed at the bench shape beside the bound, the plain
-    versions and F.scaled_dot_product_attention (forward for K7, its
-    backward for K8 + K9 together)."""
+def attention_wrapper_host_us(attention_cuda, reps=200):
+    """Host microseconds per call of each attention wrapper (K7, K10, K8,
+    K9: shape checks, four to six tensor-map encodes, the launch) at [1,
+    128, 2, 64] bf16 causal, whose kernels are shorter than the call so the
+    host sets the pace: {kernel: median over 5 rounds of `reps` queued
+    calls}, the four in turns."""
+    import torch
+    A = attention_cuda
+    gen = torch.Generator().manual_seed(SEED + 9)
+    q, k, v, do = (torch.randn((1, 128, 2, 64), generator=gen)
+                   .to(torch.bfloat16).cuda() for _ in range(4))
+    o, lse = A.flash_forward(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, 0, 0, 0.125, True)
+    calls = {"fwd": lambda: A.flash_forward(q, k, v, True),
+             "block": lambda: A.flash_attention_block(q, k, v, 0, 0, 0.125,
+                                                      True),
+             "dq": lambda: A.flash_dq(*args),
+             "dkv": lambda: A.flash_dkv(*args)}
+    times = {name: [] for name in calls}
+    for _ in range(5):
+        for name, fn in calls.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+# The f32 forms' products are three TF32 passes (3xTF32): their bound is
+# the TF32 rate over the passes.
+PEAK_3XTF32_FLOPS = 495e12 / 3
+# T of the flash/einsum crossover (D 64, 8 heads, B*T = 16384 tokens, bf16
+# causal, forward + backward), measured and recorded only (FLASH_AUTO_T
+# stays the reference's 2048)
+CROSSOVER_T = (512, 1024, 2048, 4096, 8192)
+ATTN_SOURCES = {
+    "fwd": ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+            "paddle_tpu/ops/pallas_attention.py:143"),
+    "dq": ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+           "paddle_tpu/ops/pallas_attention.py:295"),
+    "dkv": ("flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+            "paddle_tpu/ops/pallas_attention.py:342"),
+    "block": ("flash_attn_fwd_block", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+              "paddle_tpu/ops/pallas_attention.py:143"),
+}
+F32_SOURCE = "paddle_tpu_torch/csrc/flash_attn_walk.cu"
+
+
+def _attn_kernel_entry(kern, dtype, row, per, what, library):
+    """A `kernels` entry of the result line for kernel `kern` ("fwd",
+    "dq", "dkv", "block") in `dtype` from its timed row (per call), the
+    path unit `per` calls long."""
+    name, source, replaces = ATTN_SOURCES[kern]
+    f32 = dtype == "float32"
+    entry = {
+        "name": name + ("_f32" if f32 else ""), "route": "cuda",
+        "source": F32_SOURCE if f32 else source, "replaces": replaces,
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"] * per,
+        "plain_ms": row["plain_ms"] * per,
+        "bound_ms": row["bound_ms"] * per, "bound_by": row["bound_by"],
+        "library_ms": None if row["library_ms"] is None
+        else row["library_ms"] * per,
+        "library": library, "per": what}
+    return entry
+
+
+def _hold_attn(A, q, k, v, do, causal, at, worst):
+    """K7, then K8 and K9, on one shape: each twice and bitwise repeatable,
+    within attention_tolerance of its plain version (LSE by LSE_RTOL).
+    Returns the backward's arguments."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = _twice(lambda: A.flash_forward(q, k, v, causal))
+    ro, rlse = A.flash_forward_reference(q, k, v, causal)
+    bo, = attention_tolerance("fwd", q, k, v, causal)
+    e_o = _bounded(o, ro, bo, f"K7 o at {at}")
+    e_lse = _lse_err(lse, rlse, f"K7 at {at}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, 0, 0, scale, causal)
+    dq = _twice(lambda: A.flash_dq(*args))
+    dk, dv = _twice(lambda: A.flash_dkv(*args))
+    bq, = attention_tolerance("dq", q, k, v, causal, do, lse, delta)
+    bk, bv = attention_tolerance("dkv", q, k, v, causal, do, lse, delta)
+    e_q = _bounded(dq, A.flash_dq_reference(*args), bq, f"K8 dq at {at}")
+    rk, rv = A.flash_dkv_reference(*args)
+    e_k = _bounded(dk, rk, bk, f"K9 dk at {at}")
+    e_v = _bounded(dv, rv, bv, f"K9 dv at {at}")
+    worst["fwd"] = max(worst["fwd"], e_o)
+    worst["dq"] = max(worst["dq"], e_q)
+    worst["dkv"] = max(worst["dkv"], e_k, e_v)
+    print(f"K7/K8/K9 at {at}: max abs err o {e_o:.3g} (lse {e_lse:.3g}), "
+          f"dq {e_q:.3g}, dk {e_k:.3g}, dv {e_v:.3g}; each bitwise "
+          f"repeatable", flush=True)
+    return args
+
+
+def _time_attn(A, q, k, v, do, args, dtype, worst):
+    """K7, K8 and K9 timed at one causal shape (CUDA graph of calls between
+    CUDA events): the kernel, the plain version and SDPA (forward for K7,
+    its backward for K8 + K9 together). Returns a row per kernel, per
+    call."""
     import torch
     import torch.nn.functional as F
+    b, t, h, d = q.shape
+    f32 = dtype == "float32"
+    reps = 5 if f32 else 20
+    qv, kv, vv, dov = (x.transpose(1, 2) for x in (q, k, v, do))  # [B,H,T,D]
+    leaves = [x.detach().requires_grad_(True) for x in (qv, kv, vv)]
+    lib_fwd = _library_ms(lambda: F.scaled_dot_product_attention(
+        qv, kv, vv, is_causal=True), reps)
+    lib_both = _library_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, dov),
+        reps)
+    lib_bwd = None if lib_fwd is None or lib_both is None \
+        else lib_both - lib_fwd
+    calls = {"fwd": (lambda: A.flash_forward(q, k, v, True),
+                     lambda: A.flash_forward_reference(q, k, v, True),
+                     lib_fwd),
+             "dq": (lambda: A.flash_dq(*args),
+                    lambda: A.flash_dq_reference(*args), lib_bwd),
+             "dkv": (lambda: A.flash_dkv(*args),
+                     lambda: A.flash_dkv_reference(*args), lib_bwd)}
+    peak = PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS
+    rows = {}
+    for kern, (fn, plain, lib_ms) in calls.items():
+        ms = _device_ms(fn, reps=reps)
+        plain_ms = _device_ms(plain, reps=2 if f32 else 5)
+        flops = attention_flops(kern, b, t, t, h, d, True)
+        nbytes = attention_bytes(kern, b, t, t, h, d, 4 if f32 else 2)
+        row = _row(ATTN_SOURCES[kern][0], f"{list(q.shape)} causal {dtype}",
+                   1, ms, plain_ms, lib_ms, flops, nbytes, worst[kern], peak)
+        rows[kern] = row
+        lib = "forward" if kern == "fwd" else "backward (dQ, dK, dV)"
+        print(f"{row['kernel']} {dtype} at {list(q.shape)} causal: {ms:.4f} ms "
+              f"per call ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f}, SDPA {lib} {lib_ms}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}; "
+              f"{flops / 1e9:.1f} GFLOP)", flush=True)
+    return rows
+
+
+def _crossover(A):
+    """Forward + backward of the flash path (K7, K8 + K9 through
+    flash_attention) and of the einsum path (attention_reference under
+    autograd) at D 64, 8 heads, B*T = 16384 tokens, bf16 causal, T in
+    CROSSOVER_T: {T: (flash ms, einsum ms)}."""
+    import torch
+    out = {}
+    for t in CROSSOVER_T:
+        shape = (16384 // t, t, 8, 64)
+        gen = torch.Generator().manual_seed(SEED + t)
+        q, k, v, do = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+                       .cuda() for _ in range(4))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        flash = _device_ms(lambda: torch.autograd.grad(
+            A.flash_attention(*leaves, causal=True), leaves, do), reps=5)
+        einsum = _device_ms(lambda: torch.autograd.grad(
+            A.attention_reference(*leaves, causal=True), leaves, do), reps=5)
+        out[t] = (flash, einsum)
+        print(f"crossover at {list(shape)} bf16 causal, forward + backward: "
+              f"flash {flash:.4f} ms, einsum {einsum:.4f} ms (einsum / "
+              f"flash {einsum / flash:.2f})", flush=True)
+        del q, k, v, do, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernel_attn(attention_cuda, report):
+    """K7-K9 in bf16 (the Hopper kernels) and in f32 (their f32 forms)
+    against their plain versions at the JAX tests' shapes, T = 72 at D 64
+    and 128, and the bench shape (f32 also at its steps' shape F32_ATTN),
+    each run twice and bitwise repeatable; then timed at the path shape of
+    each form (bf16 the bench shape, f32 F32_ATTN) beside the bound, the
+    plain versions and F.scaled_dot_product_attention (forward for K7, its
+    backward for K8 + K9 together); the wrappers' host time per call; the
+    flash/einsum crossover."""
+    import torch
     A = attention_cuda
     gen = torch.Generator().manual_seed(SEED + 5)
-
-    def randn(shape):
-        return torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
-
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    timed = None
-    for shape, causal in ATTN_SHAPES:
-        b, t, h, d = shape
-        q, k, v, do = (randn(shape) for _ in range(4))
-        scale = 1.0 / math.sqrt(d)
-        o, lse = _twice(lambda: A.flash_forward(q, k, v, causal))
-        ro, rlse = A.flash_forward_reference(q, k, v, causal)
-        bo, = attention_tolerance("fwd", q, k, v, causal)
-        at = f"{list(shape)} causal={causal}"
-        e_o = _bounded(o, ro, bo, f"K7 o at {at}")
-        e_lse = _lse_err(lse, rlse, f"K7 at {at}")
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        args = (q, k, v, do, lse, delta, 0, 0, scale, causal)
-        dq = _twice(lambda: A.flash_dq(*args))
-        dk, dv = _twice(lambda: A.flash_dkv(*args))
-        bq, = attention_tolerance("dq", q, k, v, causal, do, lse, delta)
-        bk, bv = attention_tolerance("dkv", q, k, v, causal, do, lse, delta)
-        e_q = _bounded(dq, A.flash_dq_reference(*args), bq, f"K8 dq at {at}")
-        rk, rv = A.flash_dkv_reference(*args)
-        e_k = _bounded(dk, rk, bk, f"K9 dk at {at}")
-        e_v = _bounded(dv, rv, bv, f"K9 dv at {at}")
-        del ro, rlse, bo, bq, bk, bv, rk, rv
-        worst["fwd"] = max(worst["fwd"], e_o)
-        worst["dq"] = max(worst["dq"], e_q)
-        worst["dkv"] = max(worst["dkv"], e_k, e_v)
-        print(f"K7/K8/K9 at {at}: max abs err o {e_o:.3g} (lse {e_lse:.3g}), "
-              f"dq {e_q:.3g}, dk {e_k:.3g}, dv {e_v:.3g}; each bitwise "
-              f"repeatable", flush=True)
-        if shape == ATTN_BENCH and causal:
-            timed = (q, k, v, do, args)
-        torch.cuda.empty_cache()
-
-    q, k, v, do, args = timed
-    b, t, h, d = ATTN_BENCH
-    qv, kv, vv, dov = (x.transpose(1, 2) for x in (q, k, v, do))   # [B,H,T,D]
-    leaves = [x.detach().requires_grad_(True) for x in (qv, kv, vv)]
-    lib_fwd = _device_ms(lambda: F.scaled_dot_product_attention(
-        qv, kv, vv, is_causal=True))
-    lib_both = _device_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, dov))
-    times = {
-        "fwd": (_device_ms(lambda: A.flash_forward(q, k, v, True)),
-                _device_ms(lambda: A.flash_forward_reference(q, k, v, True)),
-                lib_fwd),
-        "dq": (_device_ms(lambda: A.flash_dq(*args)),
-               _device_ms(lambda: A.flash_dq_reference(*args)),
-               lib_both - lib_fwd),
-        "dkv": (_device_ms(lambda: A.flash_dkv(*args)),
-                _device_ms(lambda: A.flash_dkv_reference(*args)),
-                lib_both - lib_fwd)}
-    del timed, q, k, v, do, args, leaves
-    torch.cuda.empty_cache()
     per = LM["n_layer"]
-    kernels, rows = [], []
-    for kern, name, source, replaces in (
-            ("fwd", "flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
-             "paddle_tpu/ops/pallas_attention.py:143"),
-            ("dq", "flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
-             "paddle_tpu/ops/pallas_attention.py:295"),
-            ("dkv", "flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
-             "paddle_tpu/ops/pallas_attention.py:342")):
-        flops = attention_flops(kern, b, t, t, h, d, True)
-        nbytes = attention_bytes(kern, b, t, t, h, d)
-        ms, plain_ms, lib_ms = times[kern]
-        row = _row(name, f"{list(ATTN_BENCH)} causal", per, ms, plain_ms,
-                   lib_ms, flops, nbytes, worst[kern], PEAK_BF16_FLOPS)
-        rows.append(row)
-        lib = "forward" if kern == "fwd" else "backward (dQ, dK, dV)"
-        print(f"{name} at {list(ATTN_BENCH)} causal: {ms:.4f} ms per call, "
-              f"plain {plain_ms:.4f}, SDPA {lib} {lib_ms:.4f}, bound "
-              f"{row['bound_ms']:.4f} ({row['bound_by']}; "
-              f"{flops / 1e9:.1f} GFLOP = {flops / ms / 1e9:.1f} TFLOP/s)",
-              flush=True)
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "max_abs_err": worst[kern],
-            "ms": ms * per, "plain_ms": plain_ms * per,
-            "bound_ms": row["bound_ms"] * per, "bound_by": row["bound_by"],
-            "library_ms": lib_ms * per,
-            "library": "F.scaled_dot_product_attention" + (
+    kernels, table = [], {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+
+        def randn(shape):
+            return torch.randn(shape, generator=gen).to(dt).cuda()
+
+        path = F32_ATTN if dtype == "float32" else ATTN_BENCH
+        b, t = path[:2]
+        worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+        timed = None
+        shapes = ATTN_SHAPES + ([(path, True)] if path != ATTN_BENCH else [])
+        for shape, causal in shapes:
+            q, k, v, do = (randn(shape) for _ in range(4))
+            args = _hold_attn(A, q, k, v, do, causal,
+                              f"{list(shape)} causal={causal} {dtype}", worst)
+            if shape == path and causal:
+                timed = (q, k, v, do, args)
+            torch.cuda.empty_cache()
+        rows = _time_attn(A, *timed, dtype, worst)
+        del timed
+        torch.cuda.empty_cache()
+        table[dtype] = {"rows": list(rows.values()), "max_abs_err": worst}
+        for kern, row in rows.items():
+            library = "F.scaled_dot_product_attention" + (
                 "" if kern == "fwd" else " backward, dQ + dK + dV (K8 and K9 "
-                "together)"),
-            "per": f"the {per} calls of one batch-{b} T-{t} transformer_lm "
-                   f"training step, {list(ATTN_BENCH)} causal"})
-    report["attn_kernel"] = {"bench_shape": rows, "max_abs_err": worst}
+                "together)") + (" in f32" if dtype == "float32" else "")
+            what = f"the {per} calls of one batch-{b} T-{t} transformer_lm " \
+                f"training step, {list(path)} causal {dtype}"
+            if dtype == "float32":
+                what += (" (the T-2048 ring step in f32 makes the same calls "
+                         "at the same shape)" if kern != "fwd" else "")
+            kernels.append(_attn_kernel_entry(kern, dtype, row, per, what,
+                                              library))
+    host = attention_wrapper_host_us(A)
+    print("attention wrappers' host time per call (us, median of 5 rounds, "
+          "[1, 128, 2, 64] bf16 causal): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in host.items()), flush=True)
+    cross = _crossover(A)
+    report["attn_kernel"] = {"bench": table, "wrapper_host_us": host,
+                             "crossover_ms": cross}
     return kernels
+
+
+def _library_ms(fn, reps):
+    """_device_ms of a PyTorch yardstick call, or None, said why, where
+    PyTorch refuses the call (a backend that takes no such inputs, or no
+    graph capture): it is a yardstick, never part of a path."""
+    try:
+        return _device_ms(fn, reps=reps)
+    except RuntimeError as e:
+        print(f"yardstick not timed: {str(e).splitlines()[0][:200]}",
+              flush=True)
+        return None
 
 
 def _sdpa_with_lse(q, k, v):
@@ -2016,33 +2207,37 @@ def _sdpa_with_lse(q, k, v):
         q, k, v, 0.0, True)[:2]
 
 
-def phase_kernel_ring(attention_cuda, ring, report):
-    """K10 (the ring's unnormalized flash block) against its plain version:
-    at the JAX tests' shapes and the bench shape (offsets 0), at the 16
-    (query shard, key shard) pairs of a four-shard causal ring of [1, 8192,
-    8, 64] shards (6 of them wholly masked), and at the path shape [1,
-    32768, 8, 64]; each twice and bitwise repeatable. K8 and K9 at the same
-    16 pairs with their offsets (their plain versions form [Tq, Tk] scores:
-    34 GB at the path shape, so they are held at the pairs alone). The four
-    shards' ring merge (`ring.ring_step` looped over the shards, K10 each
-    step) against K7 on the whole sequence. Then K10 timed at the path
-    shape beside its bound, its plain version and PyTorch's flash forward
-    with its logsumexp (a yardstick only)."""
+def _efficient_with_lse(q, k, v):
+    """PyTorch's causal memory-efficient attention forward with its
+    logsumexp, one call: K10's f32 yardstick (the flash one takes no f32).
+    q, k, v [B, H, T, D]."""
     import torch
-    A = attention_cuda
-    gen = torch.Generator().manual_seed(SEED + 7)
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, None, True, 0.0, True)[:2]
+
+
+def _ring_kernels(A, ring, dtype, gen, worst):
+    """K10 against its plain version at the JAX tests' shapes, at the 16
+    (query shard, key shard) pairs of a four-shard causal ring of [1, 8192,
+    8, 64] shards (6 wholly masked) with K8 and K9 at the same offsets, and
+    at the path shape; each twice and bitwise repeatable; then the
+    four-shard ring merge against K7 on the whole sequence; f32 also K10 at
+    F32_ATTN, the f32 ring step's shape. Returns the operands (q, k, v,
+    do, and K7's lse and delta) for the timings at the form's path shape:
+    RING_ATTN for bf16, F32_ATTN for f32."""
+    import torch
+    dt = getattr(torch, dtype)
 
     def randn(shape):
-        return torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+        return torch.randn(shape, generator=gen).to(dt).cuda()
 
-    worst = {"block": 0.0, "dq": 0.0, "dkv": 0.0, "merge": 0.0}
     for shape, causal in ATTN_SHAPES:
         q, k, v = (randn(shape) for _ in range(3))
         scale = 1.0 / math.sqrt(shape[-1])
         got = _twice(lambda: A.flash_attention_block(q, k, v, 0, 0, scale,
                                                      causal))
         want = A.flash_forward_block_reference(q, k, v, 0, 0, scale, causal)
-        at = f"{list(shape)} causal={causal}"
+        at = f"{list(shape)} causal={causal} {dtype}"
         e = hold_block(got, want, q, k, v, 0, 0, scale, causal, f"K10 at {at}")
         worst["block"] = max(worst["block"], e)
         print(f"K10 at {at}: max abs err acc {e:.3g}; bitwise repeatable",
@@ -2064,7 +2259,7 @@ def phase_kernel_ring(attention_cuda, ring, report):
         delta_i = delta[..., shard[i]].contiguous()
         for j in range(RING_SHARDS):
             kj, vj = k[:, shard[j]], v[:, shard[j]]
-            at = f"pair ({i}, {j}) of [1, {ts}, {h}, {d}] shards"
+            at = f"pair ({i}, {j}) of [1, {ts}, {h}, {d}] shards {dtype}"
             got = _twice(lambda: A.flash_attention_block(
                 qi, kj, vj, i * ts, j * ts, scale, True))
             want = A.flash_forward_block_reference(qi, kj, vj, i * ts, j * ts,
@@ -2099,7 +2294,7 @@ def phase_kernel_ring(attention_cuda, ring, report):
         raise RuntimeError(f"{masked} wholly masked pairs, expected "
                            f"{want_masked}")
 
-    at = f"the path shape {list(RING_ATTN)} causal"
+    at = f"the path shape {list(RING_ATTN)} causal {dtype}"
     got = _twice(lambda: A.flash_attention_block(q, k, v, 0, 0, scale, True))
     want = A.flash_forward_block_reference(q, k, v, 0, 0, scale, True)
     e = hold_block(got, want, q, k, v, 0, 0, scale, True, f"K10 at {at}",
@@ -2111,7 +2306,7 @@ def phase_kernel_ring(attention_cuda, ring, report):
     torch.cuda.empty_cache()
 
     # the ring merge, one process: every query shard's P steps in ring order
-    launches0 = A.COUNTERS.block_launches
+    launches0 = A.COUNTERS.block_launches + A.COUNTERS.f32_block_launches
     outs, lses = [], []
     for i in range(RING_SHARDS):
         state = ring.ring_init(q[:, shard[i]])
@@ -2124,50 +2319,118 @@ def phase_kernel_ring(attention_cuda, ring, report):
         outs.append(o_i)
         lses.append(lse_i)
         del state
-    if A.COUNTERS.block_launches - launches0 != RING_SHARDS ** 2:
+    if A.COUNTERS.block_launches + A.COUNTERS.f32_block_launches - \
+            launches0 != RING_SHARDS ** 2:
         raise RuntimeError("the ring merge did not run K10 at every step")
-    bound, = attention_tolerance("fwd", q, k, v, True, rel=MERGE_REL,
-                                 rows=TOL_ROWS)
+    # bf16: P rounded against another running maximum on each side; f32:
+    # no rounding of P, the sums' order alone
+    rel = MERGE_REL if dtype == "bfloat16" else 1e-5
+    bound, = attention_tolerance("fwd", q, k, v, True, rel=rel, rows=TOL_ROWS)
     e = _bounded(torch.cat(outs, 1), o7, bound, "the ring merge against K7")
     e_lse = _lse_err(torch.cat(lses, -1), lse7, "the ring merge against K7")
-    worst["merge"] = e
+    worst["merge"] = max(worst["merge"], e)
     print(f"ring merge of {RING_SHARDS} shards against K7 on {list(RING_ATTN)} "
-          f"causal: max abs err o {e:.3g} (bound rel {MERGE_REL:.3g}), lse "
+          f"causal {dtype}: max abs err o {e:.3g} (bound rel {rel:.3g}), lse "
           f"{e_lse:.3g}", flush=True)
-    del outs, lses, bound, o7, lse7, delta, do
+    del outs, lses, bound, o7
     torch.cuda.empty_cache()
+    if dtype == "bfloat16":
+        return q, k, v, do, lse7, delta
 
+    # the f32 ring step on the card runs K10 at F32_ATTN (T 2048, one rank)
+    del q, k, v, do, lse7, delta
+    torch.cuda.empty_cache()
+    q, k, v, do = (randn(F32_ATTN) for _ in range(4))
+    at = f"the f32 step's shape {list(F32_ATTN)} causal {dtype}"
+    got = _twice(lambda: A.flash_attention_block(q, k, v, 0, 0, scale, True))
+    want = A.flash_forward_block_reference(q, k, v, 0, 0, scale, True)
+    e = hold_block(got, want, q, k, v, 0, 0, scale, True, f"K10 at {at}")
+    worst["block"] = max(worst["block"], e)
+    print(f"K10 at {at}: max abs err acc {e:.3g}; bitwise repeatable",
+          flush=True)
+    o7, lse7 = A.flash_forward(q, k, v, True)
+    delta = (do.float() * o7.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse7, delta
+
+
+def _time_ring(A, q, k, v, do, lse, delta, dtype, worst):
+    """At the operands' shape, causal: K10 (the kernel, the plain version,
+    PyTorch's flash (bf16) or memory-efficient (f32) forward with its
+    logsumexp), and K8 and K9 (the kernel alone: at the bf16 path shape the
+    plain versions would form 34 GB of scores). Per call."""
+    import torch
+    b, t, h, d = q.shape
+    f32 = dtype == "float32"
+    scale = 1.0 / math.sqrt(d)
+    peak = PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS
     qv, kv, vv = (x.transpose(1, 2) for x in (q, k, v))          # [B,H,T,D]
     ms = _device_ms(lambda: A.flash_attention_block(q, k, v, 0, 0, scale,
-                                                    True))
+                                                    True), reps=5)
     plain_ms = _device_ms(lambda: A.flash_forward_block_reference(
         q, k, v, 0, 0, scale, True), reps=2)
-    lib_ms = _device_ms(lambda: _sdpa_with_lse(qv, kv, vv))
-    del q, k, v, qv, kv, vv
-    torch.cuda.empty_cache()
-    per = RING["n_layer"]
+    lib = _efficient_with_lse if f32 else _sdpa_with_lse
+    lib_ms = _library_ms(lambda: lib(qv, kv, vv), 5)
     flops = attention_flops("block", b, t, t, h, d, True)
-    nbytes = attention_bytes("block", b, t, t, h, d)
-    row = _row("flash_attn_fwd_block", f"{list(RING_ATTN)} causal", per, ms,
-               plain_ms, lib_ms, flops, nbytes, worst["block"],
-               PEAK_BF16_FLOPS)
-    print(f"flash_attn_fwd_block at {list(RING_ATTN)} causal: {ms:.4f} ms per "
-          f"call, plain {plain_ms:.4f}, SDPA flash forward with LSE "
-          f"{lib_ms:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}; "
-          f"{flops / 1e9:.1f} GFLOP = {flops / ms / 1e9:.1f} TFLOP/s)",
-          flush=True)
-    report["ring_kernel"] = {"path_shape": row, "max_abs_err": worst,
-                             "masked_pairs": masked}
-    return {"name": "flash_attn_fwd_block", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
-            "replaces": "paddle_tpu/ops/pallas_attention.py:143",
-            "max_abs_err": worst["block"], "ms": ms * per,
-            "plain_ms": plain_ms * per, "bound_ms": row["bound_ms"] * per,
-            "bound_by": row["bound_by"], "library_ms": lib_ms * per,
-            "library": "torch.ops.aten._scaled_dot_product_flash_attention "
-                       "(forward with its logsumexp)",
-            "per": f"the {per} calls of one batch-{b} T-{t} ring "
-                   f"transformer_lm training step, {list(RING_ATTN)} causal"}
+    nbytes = attention_bytes("block", b, t, t, h, d, 4 if f32 else 2)
+    row = _row("flash_attn_fwd_block", f"{list(q.shape)} causal {dtype}", 1,
+               ms, plain_ms, lib_ms, flops, nbytes, worst["block"], peak)
+    print(f"flash_attn_fwd_block {dtype} at {list(q.shape)} causal: "
+          f"{ms:.4f} ms per call ({flops / ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain_ms:.4f}, PyTorch's attention forward with LSE "
+          f"{lib_ms}, bound {row['bound_ms']:.4f} ({row['bound_by']}; "
+          f"{flops / 1e9:.1f} GFLOP)", flush=True)
+    args = (q, k, v, do, lse, delta, 0, 0, scale, True)
+    bwd = {}
+    for kern in ("dq", "dkv"):
+        fn = A.flash_dq if kern == "dq" else A.flash_dkv
+        k_ms = _device_ms(lambda: fn(*args), reps=5)
+        fl = attention_flops(kern, b, t, t, h, d, True)
+        bwd[kern] = {"ms": k_ms, "flops": fl, "bound_ms": fl / peak * 1e3}
+        print(f"{ATTN_SOURCES[kern][0]} {dtype} at {list(q.shape)} causal: "
+              f"{k_ms:.4f} ms per call ({fl / k_ms / 1e9:.1f} TFLOP/s), "
+              f"bound {fl / peak * 1e3:.4f} (operations)", flush=True)
+    return row, bwd
+
+
+def phase_kernel_ring(attention_cuda, ring, report):
+    """K10 (the ring's unnormalized flash block), in bf16 and in its f32
+    form, against its plain version: at the JAX tests' shapes (offsets 0),
+    at the 16 (query shard, key shard) pairs of a four-shard causal ring of
+    [1, 8192, 8, 64] shards (6 of them wholly masked), and at the path shape
+    [1, 32768, 8, 64]; each twice and bitwise repeatable. K8 and K9 at the
+    same 16 pairs with their offsets (their plain versions form [Tq, Tk]
+    scores: 34 GB at the path shape, so they are held at the pairs alone).
+    The four shards' ring merge (`ring.ring_step` looped over the shards,
+    K10 each step) against K7 on the whole sequence. f32 also at F32_ATTN,
+    the f32 ring step's shape. Then K10 timed at the path shape of each
+    form (bf16 RING_ATTN, f32 F32_ATTN) beside its bound, its plain version
+    and PyTorch's attention forward with its logsumexp (a yardstick only),
+    and K8 and K9 there."""
+    import torch
+    A = attention_cuda
+    gen = torch.Generator().manual_seed(SEED + 7)
+    per = RING["n_layer"]
+    entries, table = [], {}
+    for dtype in ("bfloat16", "float32"):
+        path = F32_ATTN if dtype == "float32" else RING_ATTN
+        b, t = path[:2]
+        worst = {"block": 0.0, "dq": 0.0, "dkv": 0.0, "merge": 0.0}
+        operands = _ring_kernels(A, ring, dtype, gen, worst)
+        row, bwd = _time_ring(A, *operands, dtype, worst)
+        del operands
+        torch.cuda.empty_cache()
+        table[dtype] = {"path_shape": row, "backward": bwd,
+                        "max_abs_err": worst}
+        library = ("torch.ops.aten._scaled_dot_product_efficient_attention "
+                   "in f32" if dtype == "float32" else
+                   "torch.ops.aten._scaled_dot_product_flash_attention") + \
+            " (forward with its logsumexp)"
+        entries.append(_attn_kernel_entry(
+            "block", dtype, row, per,
+            f"the {per} calls of one batch-{b} T-{t} ring transformer_lm "
+            f"training step, {list(path)} causal {dtype}", library))
+    report["ring_kernel"] = table
+    return entries
 
 
 # --- the transformer LM: training and serving -----------------------------------
@@ -2220,42 +2483,52 @@ def _k_biases(main):
 
 
 def _hold_lm_step(pt, main, loss, init, small, card, f32, o2_einsum,
-                  f32_einsum=None):
+                  f32_expect):
     """One step of the LM program `main` (O2) at `small` from `init` on the
     card against the CPU plain path, and the same for its f32 twin `f32`
     ((main, startup, loss, logits)); the O2 grads held to this run's own
     CPU noise floor, the O2 CPU run of `main` against that of `o2_einsum`,
-    the einsum-attention program. With `f32_einsum` (the ring's f32 twin
-    has no card form: its flash ring raises on f32 CUDA operands) the f32
-    twin runs on the CPU only, held against `f32_einsum` there. Returns
-    (agreements, the K biases' f32 CPU grad norms); raises past the LM_*
+    the einsum-attention program. The f32 twin's card step runs its
+    attention through the kernels' f32 forms: its launches are held to
+    `f32_expect` ({counter: launches}, every other f32 counter 0), every
+    flash call a hit, no fallback. Returns (agreements, the K biases' f32
+    CPU grad norms, the f32 card step's launches); raises past the LM_*
     tolerances."""
     import numpy as np
+    from paddle_tpu_torch.ops import attention_cuda as A
     params = sorted(p.name for p in main.global_block().all_parameters()
                     if p.trainable)
     skip = _k_biases(main)
     main32, _, loss32, _ = f32
     main_e, _, loss_e, _ = o2_einsum
-    f32_other = ("f32_card", main32, loss32, pt.CUDAPlace(0))
-    if f32_einsum is not None:
-        f32_other = ("f32_cpu_einsum", f32_einsum[0], f32_einsum[2],
-                     pt.CPUPlace())
-    runs = {}
+    runs, f32_launches = {}, None
     for key, prog, lss, place in (
             ("o2_card", main, loss, pt.CUDAPlace(0)),
             ("o2_cpu", main, loss, pt.CPUPlace()),
             ("o2_cpu_einsum", main_e, loss_e, pt.CPUPlace()),
-            f32_other,
+            ("f32_card", main32, loss32, pt.CUDAPlace(0)),
             ("f32_cpu", main32, loss32, pt.CPUPlace())):
+        A.COUNTERS.reset()
         t0 = time.perf_counter()
         runs[key] = _step(pt, prog, lss, params, init, small, place)
         print(f"{key}: one batch-{LM_SMALL_BATCH} step, loss {runs[key][0]:.6f}, "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         if not all(np.isfinite(g).all() for g in runs[key][1]):
             raise RuntimeError(f"{key}: non-finite grads")
+        if key == "f32_card":
+            f32_launches = {k: getattr(A.COUNTERS, k) for k in F32_COUNTERS}
+            hits, fallbacks = dict(A.COUNTERS.hits), dict(A.COUNTERS.fallbacks)
+            print(f"f32_card: the f32 kernels' launches {f32_launches}; "
+                  f"flash calls {hits}; attention fallbacks {fallbacks}",
+                  flush=True)
+            want = {k: f32_expect.get(k, 0) for k in F32_COUNTERS}
+            if f32_launches != want or fallbacks or not hits:
+                raise RuntimeError(f"the f32 step on the card launched "
+                                   f"{f32_launches}, expected {want}; hits "
+                                   f"{hits}; fallbacks {fallbacks}")
     agree = {what: _grad_agreement(runs[a], runs[b], params, skip)
              for what, a, b in (("o2", "o2_card", "o2_cpu"),
-                                ("f32", f32_other[0], "f32_cpu"),
+                                ("f32", "f32_card", "f32_cpu"),
                                 ("o2_cpu_flash_vs_einsum", "o2_cpu",
                                  "o2_cpu_einsum"))}
     for what, r in agree.items():
@@ -2285,9 +2558,9 @@ def _hold_lm_step(pt, main, loss, init, small, card, f32, o2_einsum,
             failed.append(f"{what} grad norms")
     if failed:
         raise RuntimeError(f"the batch-{LM_SMALL_BATCH} step disagrees "
-                           f"(O2: card against the CPU plain path; f32: "
-                           f"{f32_other[0]} against f32_cpu): {failed}")
-    return agree, kb
+                           f"(card against the CPU plain path, O2 and f32): "
+                           f"{failed}")
+    return agree, kb, f32_launches
 
 
 def phase_train_lm(pt, attention_cuda, report):
@@ -2355,16 +2628,19 @@ def phase_train_lm(pt, attention_cuda, report):
           f"({time.perf_counter() - t0:.1f} s); worst relative L2: "
           + ", ".join(f"{k} {v:.3g}" for k, v in top[:8])
           + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32)", flush=True)
-    agree, kb = _hold_lm_step(pt, main, loss, init, small, card,
-                              _transformer(pt, amp=False),
-                              _transformer(pt, use_flash=False))
+    n = LM["n_layer"]
+    agree, kb, f32_launches = _hold_lm_step(
+        pt, main, loss, init, small, card, _transformer(pt, amp=False),
+        _transformer(pt, use_flash=False),
+        {"f32_launches": n, "f32_dq_launches": n, "f32_dkv_launches": n})
     report["train_lm"] = {
         "card": card, "config": LM, "step_ms": [t * 1e3 for t in times],
         "p50_ms": p50, "tokens_per_s": tok_s, "losses": losses,
         "peak_memory_gb": peak_gb, "launches_per_step": per_step,
         "hits": hits, "profile": profile, "lockstep_worst_rl2": worst,
-        "small_batch": agree, "k_bias_grad_norms": kb}
-    return launches
+        "small_batch": agree, "k_bias_grad_norms": kb,
+        "f32_card_launches": f32_launches}
+    return {**launches, **f32_launches}
 
 
 def phase_serve_lm(pt, attention_cuda, report):
@@ -2520,10 +2796,8 @@ def phase_train_ring(pt, attention_cuda, report):
 
     # T RING_SMALL_T: the same ring program from the startup weights, card
     # against the CPU plain path; the O2 grads held to the CPU's own O2
-    # ring-vs-einsum spread. The f32 ring has no card form (the kernels are
-    # bf16 and the gate raises rather than form the plain versions' whole
-    # scores): it is held to raise on the card, and runs on the CPU against
-    # the f32 einsum program
+    # ring-vs-einsum spread; its f32 twin on the card through the f32 forms
+    # of K10, K8 and K9 against the same f32 ring on the CPU
     small_prog = _transformer(pt, use_flash=True, cfg=RING,
                               seqlen=RING_SMALL_T, sequence_parallel=True)
     main_s, startup_s, loss_s, _ = small_prog
@@ -2542,34 +2816,22 @@ def phase_train_ring(pt, attention_cuda, report):
           f"plain path on the card's inputs ({time.perf_counter() - t0:.1f} s); "
           f"worst relative L2: " + ", ".join(f"{k} {v:.3g}" for k, v in top[:8])
           + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32)", flush=True)
-    ring32 = _transformer(pt, amp=False, use_flash=True, cfg=RING,
-                          seqlen=RING_SMALL_T, sequence_parallel=True)
-    scope = pt.Scope()
-    pt.Executor().run(ring32[1], scope=scope)
-    try:
-        pt.Executor().run(ring32[0], feed=small, fetch_list=[ring32[2]],
-                          scope=scope)
-    except pt.executor.EnforceNotMet as e:
-        if not isinstance(e.__cause__, ValueError) or "bf16" not in str(e):
-            raise
-        print(f"the f32 ring on the card raises, as it must: {e.__cause__}",
-              flush=True)
-    else:
-        raise RuntimeError("the f32 flash ring ran on the card; its gate "
-                           "must refuse f32 CUDA operands")
-    del scope
-    agree, kb = _hold_lm_step(
-        pt, main_s, loss_s, init, small, card, ring32,
+    n = RING["n_layer"]
+    agree, kb, f32_launches = _hold_lm_step(
+        pt, main_s, loss_s, init, small, card,
+        _transformer(pt, amp=False, use_flash=True, cfg=RING,
+                     seqlen=RING_SMALL_T, sequence_parallel=True),
         _transformer(pt, use_flash=False, cfg=RING, seqlen=RING_SMALL_T),
-        f32_einsum=_transformer(pt, amp=False, use_flash=False, cfg=RING,
-                                seqlen=RING_SMALL_T))
+        {"f32_block_launches": n, "f32_dq_launches": n,
+         "f32_dkv_launches": n})
     report["train_ring"] = {
         "card": card, "config": RING, "step_ms": [t * 1e3 for t in times],
         "p50_ms": p50, "tokens_per_s": tok_s, "losses": losses,
         "peak_memory_gb": peak_gb, "launches_per_step": per_step,
         "hits": hits, "profile": profile, "lockstep_worst_rl2": worst,
-        "small_t": RING_SMALL_T, "small_batch": agree, "k_bias_grad_norms": kb}
-    return launches
+        "small_t": RING_SMALL_T, "small_batch": agree, "k_bias_grad_norms": kb,
+        "f32_card_launches": f32_launches}
+    return {**launches, **f32_launches}
 
 
 def main(argv=None) -> int:
@@ -2600,13 +2862,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    spills = []
     for name, info in cuda_build.BUILD_LOG.items():
+        fn = ""
         for line in str(info["log"]).splitlines():
+            if "Function properties for" in line:
+                fn = _kernel_label(line.split()[-1])
             if "registers" in line or "spill" in line:
-                print(f"build {name}: {line.strip()}", flush=True)
-                if name.startswith("conv2d") and "spill" in line and \
+                print(f"build {name}: {fn}: {line.strip()}", flush=True)
+                if "spill" in line and \
                         " 0 bytes spill stores, 0 bytes spill loads" not in line:
-                    raise RuntimeError(f"{name} spills registers: {line}")
+                    spills.append(f"{name} {fn}: {line.strip()}")
+    if spills:
+        raise RuntimeError("kernels spill registers: " + "; ".join(spills))
 
     # f32 results are held against references: no TF32 anywhere
     torch.backends.cudnn.allow_tf32 = False
@@ -2630,19 +2898,25 @@ def main(argv=None) -> int:
     attn_kernels = phase_kernel_attn(attention_cuda, report)
     lm_launches = phase_train_lm(pt, attention_cuda, report)
     serve_launches = phase_serve_lm(pt, attention_cuda, report)
-    k10 = phase_kernel_ring(attention_cuda, ring_attention, report)
+    ring_kernels = phase_kernel_ring(attention_cuda, ring_attention, report)
     ring_launches = phase_train_ring(pt, attention_cuda, report)
-    for k, key in zip(attn_kernels, ("launches", "dq_launches",
-                                     "dkv_launches")):
-        by_path = {"train_lm": lm_launches[key],
-                   "train_ring": ring_launches[key]}
+    counter = {"flash_attn_fwd": "launches", "flash_attn_bwd_dq": "dq_launches",
+               "flash_attn_bwd_dkv": "dkv_launches",
+               "flash_attn_fwd_block": "block_launches"}
+    for k in attn_kernels + ring_kernels:
+        f32 = k["name"].endswith("_f32")
+        key = ("f32_" if f32 else "") + counter[k["name"].removesuffix("_f32")]
+        by_path = {"train_lm": lm_launches.get(key, 0),
+                   "train_ring": ring_launches.get(key, 0)}
         if key == "launches":
             by_path["serve_lm"] = serve_launches
+        by_path = {p: n for p, n in by_path.items() if n}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-    k10["launches"] = ring_launches["block_launches"]
-    k10["launches_by_path"] = {"train_ring": k10["launches"]}
-    kernels = {"kernels": [k1] + train_kernels + attn_kernels + [k10, k11]}
+        if not k["launches"]:
+            raise RuntimeError(f"{k['name']} was launched no time on its path")
+    kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
+               + [k11]}
     report.update(kernels)
     if args.report:
         with open(args.report, "w") as f:

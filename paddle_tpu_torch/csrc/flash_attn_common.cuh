@@ -1,32 +1,11 @@
-// Shared pieces of the flash-attention kernels (K7 in flash_attn_fwd.cu, K8
-// and K9 in flash_attn_bwd.cu), for sm_90a.
+// Shared pieces of the flash-attention kernels: the bf16 Hopper kernels
+// (flash_attn_fwd.cu, flash_attn_bwd.cu) and the f32 tile walk
+// (flash_attn_walk.cu).
 //
-// Layout. q, k, v, o, dO and the gradients are [B, T, H, D] bf16, read and
-// written in place: row t of head h of batch b starts at
-// ((b*T + t)*H + h)*D, so a (b, h) slice is a [T, D] matrix with row stride
-// H*D. lse and delta are [B, H, T] f32. No transpose copies bracket the
-// kernels.
-//
-// Tiles. One CTA of 4 warps owns 64 "resident" rows (queries in K7/K8, keys
-// in K9), 16 rows a warp, and streams the other side through a two-stage
-// cp.async ring in shared memory. The head dim is padded to DP (64 or 128)
-// in shared memory; the pad columns are zero-filled, so they add nothing to
-// any product, and are never stored. Rows past T are zero-filled too and
-// masked in the scores.
-//
-// Products. mma.sync m16n8k16 bf16 x bf16 -> f32. Operand fragments are
-// read from shared memory with 32-bit loads (row strides padded by 8 bf16,
-// so the 32 lanes of a load hit 32 banks); a B operand stored [k][n]
-// (n contiguous) is gathered two bf16 at a time. An f32 accumulator
-// fragment of one product becomes the A operand of the next without
-// leaving registers (C -> A reuse), rounded to bf16 on the way: that is
-// the kernels' rounding of P and dS.
-//
-// Fragment layouts of mma.m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
-//   A (16x16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..2t+1),
-//                         a[2] = (g, 2t+8..2t+9), a[3] = (g+8, 2t+8..2t+9)
-//   B (16x8, k x n):      b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8..2t+9, n g)
-//   C (16x8, f32):        c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..2t+1)
+// Layout. q, k, v, o, dO and the gradients are [B, T, H, D], read and
+// written in place: row t of head h of batch b starts at ((b*T + t)*H +
+// h)*D, so a (b, h) slice is a [T, D] matrix with row stride H*D. lse and
+// delta are [B, H, Tq] f32. No transpose copies bracket the kernels.
 
 #pragma once
 
@@ -35,41 +14,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
+
 namespace flash {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int THREADS = 128;    // 4 warps
-constexpr int ROWS = 64;        // resident rows per CTA, 16 per warp
 constexpr float MASKED = -1e30f;  // the reference's causal mask value
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_size = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_size)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// all groups but the `N` most recently committed ones have landed
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
+// The forward's visiting granularity, that of the f32 walk and of the
+// plain version (attention_cuda.ROWS, FWD_BLOCK_K): 64 query rows visit the
+// 64-key tiles up to the one holding their last row's position.
+constexpr int VISIT = 64;
 
 // two f32 rounded to bf16, the lower column in the low half
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
@@ -77,77 +30,80 @@ __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A, 16x16 at (r0, k0) of a row-major shared matrix with row stride ld
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* s, int ld,
-                                       int r0, int k0, int g, int t) {
-  const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B, 16x8 (k x n) at (k0, n0), of a shared matrix stored [n][k]
-__device__ __forceinline__ void load_b_nk(uint32_t* b, const bf16* s, int ld,
-                                          int n0, int k0, int g, int t) {
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B, 16x8 (k x n) at (k0, n0), of a shared matrix stored [k][n]
-__device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* s, int ld,
-                                          int k0, int n0, int g, int t) {
-  const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = pack(p[0], p[ld]);
-  b[1] = pack(p[8 * ld], p[9 * ld]);
-}
-
-// The A fragment (16 rows x 16 columns kk*16..) of a 16 x (8*NT) f32
-// accumulator, rounded to bf16: C -> A reuse.
-__device__ __forceinline__ void c_to_a(uint32_t* a, float (*c)[4], int kk) {
-  a[0] = pack_rn(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_rn(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_rn(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_rn(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Copy rows row0 .. row0+R-1 (of nrows) and columns 0 .. DP-1 (of d) of a
-// [T, D] slice with row stride `stride` into shared memory with row stride
-// DP + 8; rows and columns outside are zero-filled. Issues cp.async only.
-template <int R, int DP>
-__device__ __forceinline__ void load_rows(bf16* s, const bf16* gsrc, int row0,
-                                          int nrows, int d, long long stride,
-                                          int tid) {
-  constexpr int CH = DP / 8;  // 16-byte chunks per row
-  for (int i = tid; i < R * CH; i += THREADS) {
-    const int r = i / CH;
-    const int c = (i - r * CH) * 8;
-    const bool ok = (row0 + r < nrows) && (c < d);
-    const bf16* src = ok ? gsrc + (long long)(row0 + r) * stride + c : gsrc;
-    cp_async16(s + r * (DP + 8) + c, src, ok);
-  }
-}
-
-// Number of key tiles (of BK) that a causal query tile whose last real row
-// is `q_last` reaches; all of them without the mask.
-__device__ __forceinline__ int key_tiles(int tk, int bk, bool causal,
-                                         int q_last, int q_off, int k_off) {
+// Number of key tiles (of bk) that a query tile whose last real row is
+// `q_last` reaches under the causal mask: every tile not wholly past it.
+__host__ __device__ __forceinline__ int key_tiles(int tk, int bk, bool causal,
+                                                  int q_last, int q_off,
+                                                  int k_off) {
   const int n = (tk + bk - 1) / bk;
   if (!causal) return n;
   const int last_key = q_off + q_last - k_off;  // keys <= this are visible
   if (last_key < 0) return 0;
   const int reach = last_key / bk + 1;
   return reach < n ? reach : n;
+}
+
+// ---- the Hopper kernels' shared pieces ---------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit. The kernels take exp(y) as
+// ex2(y * log2 e) with y = S*scale - m formed first, so a score the mask
+// sets to -1e30 in a row whose max is -1e30 gives exactly exp(0) = 1, as
+// the reference's exp(-1e30 - -1e30) does.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 4-D tensor map over a [B, T, H, D] bf16 tensor read in place: dims (D,
+// H, T, B), box (64 columns, 1 head, `rows` rows, 1 batch) with the
+// 128-byte swizzle, so a box lands as `rows` 128-byte rows of one head.
+// Columns past D (D < 64, or the second half of D 96) and rows past T load
+// as zeros. Returns 0 or a CUDA error code.
+inline int map_bthd(CUtensorMap* map, const void* ptr, int b, int t, int h,
+                    int d, int rows) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)h, (uint64_t)t,
+                            (uint64_t)b};
+  const uint64_t strides[3] = {(uint64_t)d * 2, (uint64_t)h * d * 2,
+                               (uint64_t)t * h * d * 2};
+  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  const uint32_t one[4] = {1, 1, 1, 1};
+  return hg::make_map(map, ptr, 4, dims, strides, box, one);
+}
+
+// A 2-D tensor map over [B, H, T] f32 row statistics (lse, delta) as [B*H,
+// T]: box (`cols` positions, 1 row), no swizzle. Positions past T load as
+// zeros.
+inline int map_stats(CUtensorMap* map, const void* ptr, int bh, int t,
+                     int cols) {
+  const uint64_t dims[2] = {(uint64_t)t, (uint64_t)bh};
+  const uint64_t strides[1] = {(uint64_t)t * 4};
+  const uint32_t box[2] = {(uint32_t)cols, 1};
+  const uint32_t one[2] = {1, 1};
+  return hg::make_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, ptr, 2, dims, strides,
+                            box, one);
+}
+
+// The shared memory of a Hopper kernel starts on a 1024-byte boundary, the
+// 128-byte swizzle's period.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                    ~uintptr_t(1023));
+}
+
+// The bf16 A fragment of one k16 step (columns 16*kk..) of an f32 wgmma
+// accumulator d of layout m64nN (hopper_gemm.cuh): P or dS rounded to bf16
+// for the next product.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&d)[N / 2], int kk) {
+  a[0] = pack_rn(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_rn(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_rn(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_rn(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 }  // namespace flash

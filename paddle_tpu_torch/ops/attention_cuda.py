@@ -12,31 +12,38 @@ Replaces: pallas_attention.py `_fwd_kernel` (:143, normalize=True, through
 Pallas TPU kernels that `scaled_dot_product_attention` reaches on its flash
 and ring paths.
 
-Kernels: `csrc/flash_attn_fwd.cu` (K7, K10) and `csrc/flash_attn_bwd.cu`
-(K8, K9), CUDA C++ for sm_90a, built by nvcc at first use
-(ops/cuda_build.py) and called through ctypes. Operands stay [B, T, H, D] (the JAX layout) and are
-read in place with a row stride of H*D; heads go into the grid; the
-sequential grid axis of each TPU kernel (K tiles in K7/K8, Q tiles in K9)
-is a loop inside a CTA; causal tiles wholly past the diagonal are not
-visited. The TPU tile knobs (PADDLE_TPU_FLASH_BLOCK_Q/K, `_block`,
-`_block_k`) are VMEM tiling and are not ported: the kernels take 64 resident
-rows and stream 64 rows (32 for K8/K9 at D > 64).
+Kernels, CUDA C++ for sm_90a, built by nvcc at first use (ops/cuda_build.py)
+and called through ctypes:
+- bf16: `csrc/flash_attn_fwd.cu` (K7, K10) and `csrc/flash_attn_bwd.cu`
+  (K8, K9) on wgmma with TMA loads through an mbarrier ring, a producer
+  warp and consumer warpgroups of 64 resident rows; each entry point picks
+  its tile plan from the head dim.
+- f32: `csrc/flash_attn_walk.cu`, a tile walk on mma.sync whose products
+  run as three TF32 passes (3xTF32), P and dS left in f32 as the reference
+  leaves them for f32 operands.
+Operands stay [B, T, H, D] (the JAX layout) and are read in place with a
+row stride of H*D; heads go into the grid; the sequential grid axis of
+each TPU kernel (K tiles in K7/K8, Q tiles in K9) is a loop inside a CTA;
+causal tiles wholly past the diagonal are not visited. The TPU tile knobs
+(PADDLE_TPU_FLASH_BLOCK_Q/K, `_block`, `_block_k`) are VMEM tiling and are
+not ported.
 
 Bound on an H100: operations. Causal at the bench shape [8, 2048, 8, 64],
 K7 does 34.4 GFLOP, K8 51.5 and K9 68.7 (0.035, 0.052 and 0.069 ms at
-989 TF/s bf16), their bytes a fifth of that time or less. K10 at the ring
-configuration's one-card shape [1, 32768, 8, 64] causal does 1.10 TFLOP
-(1.11 ms) against 0.17 GB (0.05 ms).
-`chip_smoke.py` times each kernel beside that bound, its plain version and
-`torch.nn.functional.scaled_dot_product_attention` (a yardstick only, never
-called here), and PERF.md keeps the numbers.
+989 TF/s bf16), their bytes a fifth of that time or less. The f32 forms'
+three TF32 passes run at 495 / 3 = 165 TF/s. K10 at the ring configuration's
+one-card shape [1, 32768, 8, 64] causal does 1.10 TFLOP (1.11 ms) against
+0.17 GB (0.05 ms). `chip_smoke.py` times each kernel beside that bound, its
+plain version and `torch.nn.functional.scaled_dot_product_attention` (a
+yardstick only, never called here), and PERF.md keeps the numbers.
 
 Routing follows the JAX package: `supports` is its shape rule, deciding
 between the flash and the einsum path (ops/nn_ops.py); `ineligible` is the
-Hopper gate after it (bf16, D a multiple of 16 up to 128), and a flash-path
-call that fails it runs the plain version, counted by op and reason. On a
-CPU tensor a wrapper computes its plain version; on a CUDA tensor it
-launches its kernel or raises — there is no fallback that hides a kernel.
+Hopper gate after it (q, k, v all bf16 or all f32, D a multiple of 16 up
+to 128), and a flash-path call that fails it runs the plain version,
+counted by op and reason. On a CPU tensor a wrapper computes its plain
+version; on a CUDA tensor it launches its kernel or raises — there is no
+fallback that hides a kernel.
 """
 
 from __future__ import annotations
@@ -63,29 +70,44 @@ __all__ = ["FALLBACK_REASONS", "COUNTERS", "supports", "block_supports",
 FALLBACK_REASONS = frozenset({"dtype", "head_dim"})
 
 _NEG = -1e30          # the reference's causal mask value
-ROWS = 64             # resident rows of a CTA (queries in K7/K8, keys in K9)
-FWD_BLOCK_K = 64      # K7's streamed key tile, which its plain version walks
+# The forward's walk: query tiles of ROWS rows visit the key tiles of
+# FWD_BLOCK_K up to the one holding their last row's position. The plain
+# version walks it, the f32 kernels run it, and the bf16 kernels visit by
+# it whatever their own tiles (csrc/flash_attn_fwd.cu "Visiting").
+ROWS = 64
+FWD_BLOCK_K = 64
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 @dataclass
 class Counters:
-    """Kernel launches, one field per wrapper and added to only where that
-    wrapper launches its kernel: `launches` K7 (`flash_forward_block`),
-    `dq_launches` K8 (`flash_dq`), `dkv_launches` K9 (`flash_dkv`),
-    `block_launches` K10 (`flash_attention_block`). `hits`/`fallbacks`:
-    flash-path and flash-ring calls routed to the kernels or to the plain
-    versions, by op and by (op, reason); a flash ring whose shards do not
-    tile counts a fallback "shard_shape" (parallel/ring_attention.py)."""
+    """Kernel launches, one field per kernel and added to only where its
+    wrapper launches it: the bf16 Hopper kernels `launches` K7
+    (`flash_forward_block`), `dq_launches` K8 (`flash_dq`), `dkv_launches`
+    K9 (`flash_dkv`), `block_launches` K10 (`flash_attention_block`); their
+    f32 forms `f32_launches`, `f32_dq_launches`, `f32_dkv_launches`,
+    `f32_block_launches` (the same wrappers on f32 operands; K9's f32 form
+    at D > 64 is two kernels, dV then dK, and counts two). `hits`/
+    `fallbacks`: flash-path and flash-ring calls routed to the kernels or
+    to the plain versions, by op and by (op, reason); a flash ring whose
+    shards do not tile counts a fallback "shard_shape"
+    (parallel/ring_attention.py)."""
     launches: int = 0
     dq_launches: int = 0
     dkv_launches: int = 0
     block_launches: int = 0
+    f32_launches: int = 0
+    f32_dq_launches: int = 0
+    f32_dkv_launches: int = 0
+    f32_block_launches: int = 0
     hits: Dict[str, int] = field(default_factory=dict)
     fallbacks: Dict[Tuple[str, str], int] = field(default_factory=dict)
 
     def reset(self):
         self.launches = self.dq_launches = self.dkv_launches = 0
         self.block_launches = 0
+        self.f32_launches = self.f32_dq_launches = self.f32_dkv_launches = 0
+        self.f32_block_launches = 0
         self.hits.clear()
         self.fallbacks.clear()
 
@@ -126,12 +148,15 @@ def block_supports(q, k) -> bool:
 
 
 def ineligible(q, k, v):
-    """None when the Hopper kernels take a flash-path call that passed
-    `supports`, else the fallback reason: "dtype" unless q, k and v are
-    bf16 (an f32 run without AMP takes the plain versions), "head_dim"
-    unless D is a multiple of 16 (one mma.sync k-step) and at most 128 (the
-    accumulators' register budget)."""
-    if any(getattr(t, "dtype", None) != torch.bfloat16 for t in (q, k, v)):
+    """None when the kernels take a flash-path call that passed `supports`,
+    else the fallback reason: "dtype" unless q, k and v are all bf16 (the
+    Hopper kernels, AMP O2) or all f32 (their f32 forms, a run without AMP);
+    fp16 and mixed dtypes take the plain versions. "head_dim" unless D is a
+    multiple of 16 (one bf16 k-step) and at most 128 (the accumulators'
+    register budget)."""
+    dt = getattr(q, "dtype", None)
+    if dt not in _KERNEL_DTYPES or \
+            any(getattr(t, "dtype", None) != dt for t in (k, v)):
         return "dtype"
     d = q.shape[-1]
     if d % 16 or d > 128:
@@ -251,26 +276,34 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, q_off, k_off, scale,
 
 # --- the kernels' wrappers ---------------------------------------------------
 
-# flash_attn_fwd(q, k, v, o, lse, b, h, tq, tk, d, q_off, k_off, scale,
-# causal, stream)
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-                 + [ctypes.c_int, ctypes.c_void_p])
-# flash_attn_fwd_block(q, k, v, acc, m, l, b, h, tq, tk, d, q_off, k_off,
-# scale, causal, stream)
-_BLOCK_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p])
-# flash_attn_bwd_dq(q, k, v, dout, lse, delta, dq, 7 ints, scale, causal,
-# stream); flash_attn_bwd_dkv takes dk and dv in place of dq
-_DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
-                + [ctypes.c_int, ctypes.c_void_p])
-_DKV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p])
+# The C entry points: flash_attn_fwd(q, k, v, o, lse, b, h, tq, tk, d,
+# q_off, k_off, scale, causal, stream); flash_attn_fwd_block takes acc, m,
+# l in place of o, lse; flash_attn_bwd_dq q, k, v, dout, lse, delta, dq, and
+# flash_attn_bwd_dkv dk, dv in place of dq. The f32 forms' flash_walk_*
+# take the same arguments.
+def _argtypes(pointers):
+    return ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+# kernel name -> (bf16 library, bf16 entry, f32 entry, pointer count, the
+# bf16 and f32 launch counters)
+_KERNELS = {
+    "fwd": ("flash_attn_fwd", "flash_attn_fwd", "flash_walk_fwd", 5,
+            "launches", "f32_launches"),
+    "block": ("flash_attn_fwd", "flash_attn_fwd_block", "flash_walk_fwd_block",
+              6, "block_launches", "f32_block_launches"),
+    "dq": ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_walk_bwd_dq", 7,
+           "dq_launches", "f32_dq_launches"),
+    "dkv": ("flash_attn_bwd", "flash_attn_bwd_dkv", "flash_walk_bwd_dkv", 8,
+            "dkv_launches", "f32_dkv_launches"),
+}
 
 
 def _check_cuda(name, q, k, v, dout=None, stats=()):
     """Raise unless q (and dout) [B, Tq, H, D] and k, v [B, Tk, H, D] lie on
-    one CUDA device with the f32 `stats` [B, H, Tq], pass the gate, dout is
-    bf16 too, and Tq and Tk are multiples of 8."""
+    one CUDA device with the f32 `stats` [B, H, Tq], pass the gate, dout has
+    q's dtype, and Tq and Tk are multiples of 8."""
     extra = () if dout is None else (dout,)
     devices = {t.device for t in (q, k, v) + extra + tuple(stats)}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
@@ -278,7 +311,7 @@ def _check_cuda(name, q, k, v, dout=None, stats=()):
                          f"device, got {sorted(map(str, devices))}")
     reason = ineligible(q, k, v) if q.dim() == 4 else "rank"
     if reason is None and dout is not None and (
-            dout.dtype != torch.bfloat16 or dout.shape != q.shape):
+            dout.dtype != q.dtype or dout.shape != q.shape):
         reason = "dout"
     if reason is None and (
             k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0]
@@ -295,35 +328,53 @@ def _check_cuda(name, q, k, v, dout=None, stats=()):
                              for t in (q, k, v) + extra + tuple(stats)))
 
 
-def _raise_on(rc, name, q):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc} "
-                           f"(q {tuple(q.shape)})")
-
-
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(kernel, q, k, pointers, q_off, k_off, scale, causal):
+    """Launch one of K7 ("fwd"), K10 ("block"), K8 ("dq"), K9 ("dkv") on
+    checked CUDA operands: the Hopper kernel for bf16, its f32 form for
+    f32. Counts the kernels launched, then raises if the launch was
+    refused."""
+    lib, name, f32_name, n_ptr, bf16_counter, f32_counter = _KERNELS[kernel]
+    b, tq, h, d = q.shape
+    f32 = q.dtype == torch.float32
+    if f32:
+        lib, name, counter = "flash_attn_walk", f32_name, f32_counter
+    else:
+        counter = bf16_counter
+    fn = cuda_build.entry(lib, name, _argtypes(n_ptr))
+    rc = fn(*pointers, b, h, tq, k.shape[1], d, int(q_off), int(k_off),
+            float(scale), int(bool(causal)), _stream(q))
+    # K9's f32 form at D > 64 runs as two kernels (dV, then dK)
+    n = 2 if f32 and kernel == "dkv" and d > 64 else 1
+    setattr(COUNTERS, counter, getattr(COUNTERS, counter) + n)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{rc} (q {tuple(q.shape)} {q.dtype})")
+
+
+def _forward_block(q, k, v, q_off, k_off, scale, causal):
+    _check_cuda("flash_attn_fwd", q, k, v)
+    b, tq, h, d = q.shape
+    qc, kc, vc = (cuda_build.aligned(t) for t in (q, k, v))
+    o = torch.empty_like(qc)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    _launch("fwd", qc, kc, (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                            o.data_ptr(), lse.data_ptr()),
+            q_off, k_off, scale, causal)
+    return o, lse
 
 
 def flash_forward_block(q, k, v, q_off, k_off, scale, causal):
     """K7. (o [B, Tq, H, D] in q's dtype, lse [B, H, Tq] f32) from q [B, Tq,
     H, D] and k, v [B, Tk, H, D], with global position offsets for the
     causal mask. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, or raise."""
+    kernel (bf16: the Hopper kernel; f32: its f32 form), or raise."""
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, causal, q_off, k_off, scale)
-    _check_cuda("flash_attn_fwd", q, k, v)
-    b, tq, h, d = q.shape
-    qc, kc, vc = (cuda_build.aligned(t) for t in (q, k, v))
-    o = torch.empty_like(qc)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    fn = cuda_build.entry("flash_attn_fwd", "flash_attn_fwd", _FWD_ARGTYPES)
-    rc = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, tq, k.shape[1], d, int(q_off), int(k_off),
-            float(scale), int(bool(causal)), _stream(q))
-    COUNTERS.launches += 1
-    _raise_on(rc, "flash_attn_fwd", q)
-    return o, lse
+    return _forward_block(q, k, v, q_off, k_off, scale, causal)
 
 
 def flash_forward(q, k, v, causal):
@@ -333,74 +384,72 @@ def flash_forward(q, k, v, causal):
                                causal)
 
 
-def flash_attention_block(q, k, v, q_off, k_off, scale, causal):
-    """K10, the ring's per-shard flash block (pallas_attention.py:276):
-    q [B, Tq, H, D] resident, k, v [B, Tk, H, D] visiting, global position
-    offsets for the causal mask. Returns the unnormalized online-softmax
-    state (acc [B, Tq, H, D], l [B, H, Tq], m [B, H, Tq]), all f32. CPU
-    tensors take the plain version; CUDA tensors launch the kernel, or
-    raise."""
-    if q.device.type == "cpu":
-        return flash_forward_block_reference(q, k, v, q_off, k_off, scale,
-                                             causal)
+def _attention_block(q, k, v, q_off, k_off, scale, causal):
     _check_cuda("flash_attn_fwd_block", q, k, v)
     b, tq, h, d = q.shape
     qc, kc, vc = (cuda_build.aligned(t) for t in (q, k, v))
     acc = torch.empty(qc.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    fn = cuda_build.entry("flash_attn_fwd", "flash_attn_fwd_block",
-                          _BLOCK_ARGTYPES)
-    rc = fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, h, tq, k.shape[1], d, int(q_off),
-            int(k_off), float(scale), int(bool(causal)), _stream(q))
-    COUNTERS.block_launches += 1
-    _raise_on(rc, "flash_attn_fwd_block", q)
+    _launch("block", qc, kc, (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                              acc.data_ptr(), m.data_ptr(), l.data_ptr()),
+            q_off, k_off, scale, causal)
     return acc, l, m
+
+
+def flash_attention_block(q, k, v, q_off, k_off, scale, causal):
+    """K10, the ring's per-shard flash block (pallas_attention.py:276):
+    q [B, Tq, H, D] resident, k, v [B, Tk, H, D] visiting, global position
+    offsets for the causal mask. Returns the unnormalized online-softmax
+    state (acc [B, Tq, H, D], l [B, H, Tq], m [B, H, Tq]), all f32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (bf16 or
+    its f32 form), or raise."""
+    if q.device.type == "cpu":
+        return flash_forward_block_reference(q, k, v, q_off, k_off, scale,
+                                             causal)
+    return _attention_block(q, k, v, q_off, k_off, scale, causal)
 
 
 def _bwd_operands(q, k, v, dout, lse, delta):
     return tuple(cuda_build.aligned(t) for t in (q, k, v, dout, lse, delta))
 
 
+def _dq(q, k, v, dout, lse, delta, q_off, k_off, scale, causal):
+    _check_cuda("flash_attn_bwd_dq", q, k, v, dout, (lse, delta))
+    ops = _bwd_operands(q, k, v, dout, lse, delta)
+    dq = torch.empty_like(ops[0])
+    _launch("dq", ops[0], ops[1], [t.data_ptr() for t in ops] +
+            [dq.data_ptr()], q_off, k_off, scale, causal)
+    return dq
+
+
 def flash_dq(q, k, v, dout, lse, delta, q_off, k_off, scale, causal):
     """K8. dq [B, Tq, H, D] in q's dtype. `lse` must be finite. CPU tensors
-    take the plain version; CUDA tensors launch the kernel, or raise."""
+    take the plain version; CUDA tensors launch the kernel (bf16 or its f32
+    form), or raise."""
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, dout, lse, delta, q_off, k_off,
                                   scale, causal)
-    _check_cuda("flash_attn_bwd_dq", q, k, v, dout, (lse, delta))
-    b, tq, h, d = q.shape
+    return _dq(q, k, v, dout, lse, delta, q_off, k_off, scale, causal)
+
+
+def _dkv(q, k, v, dout, lse, delta, q_off, k_off, scale, causal):
+    _check_cuda("flash_attn_bwd_dkv", q, k, v, dout, (lse, delta))
     ops = _bwd_operands(q, k, v, dout, lse, delta)
-    dq = torch.empty_like(ops[0])
-    fn = cuda_build.entry("flash_attn_bwd", "flash_attn_bwd_dq", _DQ_ARGTYPES)
-    rc = fn(*(t.data_ptr() for t in ops), dq.data_ptr(), b, h, tq, k.shape[1],
-            d, int(q_off), int(k_off), float(scale), int(bool(causal)),
-            _stream(q))
-    COUNTERS.dq_launches += 1
-    _raise_on(rc, "flash_attn_bwd_dq", q)
-    return dq
+    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    _launch("dkv", ops[0], ops[1], [t.data_ptr() for t in ops] +
+            [dk.data_ptr(), dv.data_ptr()], q_off, k_off, scale, causal)
+    return dk, dv
 
 
 def flash_dkv(q, k, v, dout, lse, delta, q_off, k_off, scale, causal):
     """K9. (dk, dv) [B, Tk, H, D] in k's and v's dtypes. `lse` must be
     finite. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, or raise."""
+    kernel (bf16 or its f32 form), or raise."""
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, dout, lse, delta, q_off, k_off,
                                    scale, causal)
-    _check_cuda("flash_attn_bwd_dkv", q, k, v, dout, (lse, delta))
-    b, tq, h, d = q.shape
-    ops = _bwd_operands(q, k, v, dout, lse, delta)
-    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
-    fn = cuda_build.entry("flash_attn_bwd", "flash_attn_bwd_dkv",
-                          _DKV_ARGTYPES)
-    rc = fn(*(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(), b, h,
-            tq, k.shape[1], d, int(q_off), int(k_off), float(scale),
-            int(bool(causal)), _stream(q))
-    COUNTERS.dkv_launches += 1
-    _raise_on(rc, "flash_attn_bwd_dkv", q)
-    return dk, dv
+    return _dkv(q, k, v, dout, lse, delta, q_off, k_off, scale, causal)
 
 
 def _finite(lse):

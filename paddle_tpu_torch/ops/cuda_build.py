@@ -27,7 +27,8 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {"conv2d_fwd": "conv2d_fwd.cu", "conv2d_wgrad": "conv2d_wgrad.cu",
            "conv2d_q8": "conv2d_q8.cu",
            "flash_attn_fwd": "flash_attn_fwd.cu",
-           "flash_attn_bwd": "flash_attn_bwd.cu"}
+           "flash_attn_bwd": "flash_attn_bwd.cu",
+           "flash_attn_walk": "flash_attn_walk.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -431,9 +431,9 @@ def _sdpa_grad(fwd, no_grad_set):
 
 
 # Sequence length from which use_flash="auto" takes the flash path: the
-# reference's rule and default (nn_ops.py:814). 2048 was measured on a TPU
-# v5e (flash 1.13x its einsum path at T=2048); where the two paths cross on
-# an H100 is not measured yet (PERF.md).
+# reference's rule and default (nn_ops.py:814), kept as the reference's. On
+# an H100 the flash kernels beat the einsum path at every T measured, from
+# 512 up (`chip_smoke.py`'s crossover, PERF.md §6).
 FLASH_AUTO_T = 2048
 
 
@@ -473,8 +473,8 @@ def _scaled_dot_product_attention(ctx, op_, ins):
     [B, H, T] f32, the per-row logsumexp of the scaled scores that the
     explicit backward starts from. The ring path runs ring attention over
     the mesh's 'sp' axis (parallel/ring_attention.py: K10 per shard pair,
-    which on the card needs AMP O2's bf16 operands and raises on f32, or
-    the einsum ring where the shards do not tile) and emits its merged
+    in bf16 under AMP O2 or in its f32 form, or the einsum ring where the
+    shards do not tile) and emits its merged
     LSE; the flash path runs K7 (ops/attention_cuda.py, under its gate);
     the einsum path runs attention_reference, as the reference does below
     its threshold."""

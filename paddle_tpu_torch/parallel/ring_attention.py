@@ -174,24 +174,25 @@ def flash_ring_eligible(q, mesh, axis="sp") -> bool:
 
 
 def _gate(q, k, v, op):
-    """The Hopper gate on the flash ring's operands, counted under `op` as
+    """The kernels' gate on the flash ring's operands, counted under `op` as
     a hit or, on CPU tensors, a fallback by reason (the wrappers compute
-    the plain versions there). CUDA operands the gate refuses raise before
-    anything runs: the plain versions form [B, H, T/P, T] f32 scores per
-    block, the memory the ring exists to avoid (34 GB a layer at T 32768),
-    and the kernels have no f32 form yet. Run the ring on the card under
-    AMP O2, or on CPUPlace."""
+    the plain versions there). bf16 operands (AMP O2) run the Hopper
+    kernels on the card, f32 operands their f32 forms. CUDA operands the
+    gate refuses (fp16, mixed dtypes, a head_dim the kernels do not take)
+    raise before anything runs: the plain versions form [B, H, T/P, T] f32
+    scores per block, the memory the ring exists to avoid (34 GB a layer at
+    T 32768)."""
     reason = A.ineligible(q, k, v)
     if reason is None:
         A.count_hit(op)
         return
     if q.device.type != "cpu":
         raise ValueError(
-            f"{op}: the flash ring on a CUDA device needs bf16 q, k, v with "
-            f"a head_dim that is a multiple of 16 up to 128 (AMP O2); "
-            f"refused for {reason}: {tuple(q.shape)} {q.dtype}. The kernels "
-            f"have no f32 form, and the plain versions would form the whole "
-            f"[B, H, T/P, T] f32 scores the ring exists to avoid")
+            f"{op}: the flash ring on a CUDA device needs q, k, v all bf16 "
+            f"or all f32 with a head_dim that is a multiple of 16 up to 128; "
+            f"refused for {reason}: {tuple(q.shape)} {q.dtype}. The plain "
+            f"versions would form the whole [B, H, T/P, T] f32 scores the "
+            f"ring exists to avoid")
     A.count_fallback(op, reason)
 
 
@@ -232,10 +233,10 @@ def ring_attention_sharded(q, k, v, mesh, axis="sp", causal=False,
     split evenly). use_flash=True runs the flash ring where the shard
     shapes tile (`flash_ring_eligible`): K10 per block forward and, through
     this call's autograd, the direct flash ring backward (K8 + K9); CPU
-    tensors take their plain versions, and CUDA tensors the Hopper gate
-    refuses raise (`_gate`; calls counted under `op`). A shard shape that does not tile takes the einsum ring (counted
-    as `op`'s "shard_shape" fallback), whose backward is autograd through
-    the ring. return_lse=True also returns the global f32 logsumexp [B, H,
+    tensors take their plain versions, and CUDA tensors the kernels' gate
+    refuses raise (`_gate`; calls counted under `op`). A shard shape that
+    does not tile takes the einsum ring (counted as `op`'s "shard_shape"
+    fallback), whose backward is autograd through the ring. return_lse=True also returns the global f32 logsumexp [B, H,
     T], the residual `ring_attention_bwd_sharded` starts from; the caller
     then owns the backward (the flash ring's outputs carry no graph)."""
     flash = use_flash and flash_ring_eligible(q, mesh, axis)
@@ -270,7 +271,7 @@ def ring_attention_bwd_sharded(q, k, v, do, o, lse, mesh, axis="sp",
                                op="ring_attention_grad"):
     """The direct flash ring backward from the forward's saved (O, LSE):
     global dQ, dK, dV through K8 + K9 on the ring schedule (their plain
-    versions on CPU tensors; CUDA tensors the Hopper gate refuses raise,
+    versions on CPU tensors; CUDA tensors the kernels' gate refuses raise,
     `_gate`). Requires `flash_ring_eligible`."""
     _gate(q, k, v, op)
     with torch.no_grad():

@@ -99,8 +99,10 @@ def test_autograd_function_matches_custom_vjp(causal):
     leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
     A.COUNTERS.reset()
     torch.sum(A.flash_attention(*leaves, causal=causal) ** 2).backward()
-    # f32 operands: the plain versions, counted as gate fallbacks
-    assert A.COUNTERS.fallbacks == {("flash_attention", "dtype"): 2}
+    # f32 operands pass the gate (the kernels' f32 forms on the card; here,
+    # on CPU tensors, their plain versions): two hits, no fallback
+    assert A.COUNTERS.hits == {"flash_attention": 2}
+    assert not A.COUNTERS.fallbacks
     for leaf, w, what in zip(leaves, want, "qkv"):
         _close(leaf.grad, w, TOL["float32"] * 10, "d" + what)
 
@@ -134,16 +136,50 @@ def test_supports_is_the_reference_rule():
 
 
 def test_gate_reasons():
+    """bf16 and f32 pass (the Hopper kernels and their f32 forms); other
+    dtypes, fp16 among them, and mixed dtypes fail with "dtype"; D outside
+    the multiples of 16 up to 128 with "head_dim", in either dtype."""
     bf = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
     assert A.ineligible(bf, bf, bf) is None
-    assert A.ineligible(bf.float(), bf.float(), bf.float()) == "dtype"
+    assert A.ineligible(bf.float(), bf.float(), bf.float()) is None
     assert A.ineligible(bf, bf.float(), bf) == "dtype"
-    for d in (40, 144, 8):
-        x = torch.zeros((1, 64, 2, d), dtype=torch.bfloat16)
-        assert A.ineligible(x, x, x) == "head_dim", d
-    x = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16)
-    assert A.ineligible(x, x, x) is None
+    assert A.ineligible(bf.float(), bf, bf) == "dtype"
+    for dt in (torch.float16, torch.float64):
+        x = bf.to(dt)
+        assert A.ineligible(x, x, x) == "dtype", dt
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (40, 144, 8):
+            x = torch.zeros((1, 64, 2, d), dtype=dt)
+            assert A.ineligible(x, x, x) == "head_dim", (dt, d)
+        for d in (16, 32, 96, 128):
+            x = torch.zeros((1, 64, 2, d), dtype=dt)
+            assert A.ineligible(x, x, x) is None, (dt, d)
     assert A.FALLBACK_REASONS == {"dtype", "head_dim"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_ring_gate_admits_f32(dtype):
+    """The flash ring's gate on the card's meta tensors: bf16 and f32 are
+    hits (the f32 ring runs through the kernels' f32 forms on the card);
+    fp16 raises on a CUDA-like device before anything runs, where the plain
+    versions would form the whole scores, and counts a "dtype" fallback on
+    CPU tensors."""
+    from paddle_tpu_torch.parallel import ring_attention as R
+    meta = torch.empty((1, 256, 2, 64), dtype=dtype, device="meta")
+    A.COUNTERS.reset()
+    if dtype == torch.float16:
+        with pytest.raises(ValueError, match="float16"):
+            R._gate(meta, meta, meta, "ring_attention")
+        R._gate(torch.zeros((1, 8, 1, 16), dtype=dtype),
+                torch.zeros((1, 8, 1, 16), dtype=dtype),
+                torch.zeros((1, 8, 1, 16), dtype=dtype), "ring_attention")
+        assert A.COUNTERS.fallbacks == {("ring_attention", "dtype"): 1}
+        assert not A.COUNTERS.hits
+    else:
+        R._gate(meta, meta, meta, "ring_attention")
+        assert A.COUNTERS.hits == {"ring_attention": 1}
+        assert not A.COUNTERS.fallbacks
 
 
 def test_cpu_tensors_never_touch_the_cuda_build(monkeypatch):
@@ -198,3 +234,22 @@ def test_kernel_tolerance_is_not_vacuous():
     bk, _ = attention_tolerance("dkv", q, k, v, True, do, lse, delta)
     for wrong in (dk.flip(1), dk * 1.05):
         assert not ((wrong.float() - dk.float()).abs() <= bk).all()
+
+
+def test_f32_kernel_tolerance_is_not_vacuous():
+    """The f32 forms' bound (no flipped roundings, an f32 ulp, dS counted
+    with the magnitude of dP's terms) still fails dK with its keys in the
+    wrong rows or at 1.001 times its value, and o at 1.001 times its
+    value."""
+    _, (q, k, v, do) = _inputs((1, 64, 2, 64), "float32", 11)
+    o, lse = A.flash_forward(q, k, v, True)
+    bo, = attention_tolerance("fwd", q, k, v, True)
+    assert ((o - A.flash_forward_reference(q, k, v, True)[0]).abs()
+            <= bo).all()
+    assert not ((o * 1.001 - o).abs() <= bo).all()
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, 0, 0, 0.125, True)
+    dk, _ = A.flash_dkv_reference(*args)
+    bk, _ = attention_tolerance("dkv", q, k, v, True, do, lse, delta)
+    for wrong in (dk.flip(1), dk * 1.001):
+        assert not ((wrong - dk).abs() <= bk).all()

@@ -341,10 +341,12 @@ def test_adam_step_matches_jax_f32():
     init, want_loss, want_grads, want_after = _jax_step(False)
     attention_cuda.COUNTERS.reset()
     loss, grads, after = _port_step(False, init)
-    # the flash path on f32 operands: the plain versions, counted
-    assert attention_cuda.COUNTERS.fallbacks == {
-        ("scaled_dot_product_attention", "dtype"): 2,
-        ("scaled_dot_product_attention_grad", "dtype"): 2}
+    # the flash path on f32 operands passes the gate (the kernels' f32
+    # forms on the card; on CPU tensors their plain versions): hits only
+    assert attention_cuda.COUNTERS.hits == {
+        "scaled_dot_product_attention": 2,
+        "scaled_dot_product_attention_grad": 2}
+    assert not attention_cuda.COUNTERS.fallbacks
     assert loss == pytest.approx(want_loss, rel=1e-5)
     zero, top = _zero_grads(want_grads)
     for i, (name, g, w) in enumerate(zip(_params(_build(pt, False)[0]), grads,
