@@ -80,7 +80,8 @@ card:
               shape and f32 at the f32 steps' shape, beside the bound, the
               plain versions and F.scaled_dot_product_attention
               (yardstick only: its forward for K7, its backward for K8 +
-              K9 together); the wrappers' host time per call; the
+              K9 together; the backend it picks printed beside its
+              time); the wrappers' host time per call; the
               flash/einsum crossover at T 512-8192;
 10. train_lm the transformer LM O2 with Adam 1e-4, one warm-up and five
               timed steps on one batch of random tokens and labels (seed
@@ -91,7 +92,9 @@ card:
               end to end, in O2 and in f32 (the f32 step through the f32
               forms of K7-K9, launches held to 4/4/4, no fallback), the O2
               grads held to the CPU's own O2 noise floor (its flash path
-              against its einsum path);
+              against its einsum path); then that f32 step timed on the
+              card: one warm-up and five steps (p50, launches per step
+              4/4/4), one profiled step (device busy time);
  11. serve_lm ServingEngine over transformer_lm(is_test=True,
               return_logits=True) in O2, fetching the logits, 6 requests of
               1-8 rows: K7 launches held to 4 per bucket run, one request
@@ -120,6 +123,7 @@ card:
               startup weights against the CPU plain path, op by op and end
               to end in O2 and in f32 (the f32 ring on the card through
               the f32 forms of K10, K8 and K9, launches held to 4/4/4);
+              then that f32 step timed as train_lm's;
  14. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
@@ -2007,7 +2011,12 @@ ATTN_SOURCES = {
     "block": ("flash_attn_fwd_block", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
               "paddle_tpu/ops/pallas_attention.py:143"),
 }
-F32_SOURCE = "paddle_tpu_torch/csrc/flash_attn_walk.cu"
+# the f32 forms' sources: the forward walk (K7, K10), the tf32 wgmma
+# backward (K8, K9)
+F32_SOURCES = {"fwd": "paddle_tpu_torch/csrc/flash_attn_walk.cu",
+               "block": "paddle_tpu_torch/csrc/flash_attn_walk.cu",
+               "dq": "paddle_tpu_torch/csrc/flash_attn_bwd_tf32.cu",
+               "dkv": "paddle_tpu_torch/csrc/flash_attn_bwd_tf32.cu"}
 
 
 def _attn_kernel_entry(kern, dtype, row, per, what, library):
@@ -2018,7 +2027,8 @@ def _attn_kernel_entry(kern, dtype, row, per, what, library):
     f32 = dtype == "float32"
     entry = {
         "name": name + ("_f32" if f32 else ""), "route": "cuda",
-        "source": F32_SOURCE if f32 else source, "replaces": replaces,
+        "source": F32_SOURCES[kern] if f32 else source,
+        "replaces": replaces,
         "max_abs_err": row["max_abs_err"], "ms": row["ms"] * per,
         "plain_ms": row["plain_ms"] * per,
         "bound_ms": row["bound_ms"] * per, "bound_by": row["bound_by"],
@@ -2057,6 +2067,20 @@ def _hold_attn(A, q, k, v, do, causal, at, worst):
     return args
 
 
+def _sdpa_backend(q, k, v):
+    """The backend F.scaled_dot_product_attention picks for causal q, k, v
+    [B, H, T, D] (torch._fused_sdp_choice), by name: in f32 the
+    memory-efficient kernel, whose GEMMs run as 3xTF32 (CUTLASS's
+    OpMultiplyAddFastF32), the f32 forms' arithmetic."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, is_causal=True)
+    except (AttributeError, RuntimeError) as e:  # a yardstick's label only
+        return f"unknown ({type(e).__name__}: {str(e)[:80]})"
+    return SDPBackend(choice).name
+
+
 def _time_attn(A, q, k, v, do, args, dtype, worst):
     """K7, K8 and K9 timed at one causal shape (CUDA graph of calls between
     CUDA events): the kernel, the plain version and SDPA (forward for K7,
@@ -2076,6 +2100,7 @@ def _time_attn(A, q, k, v, do, args, dtype, worst):
         reps)
     lib_bwd = None if lib_fwd is None or lib_both is None \
         else lib_both - lib_fwd
+    backend = _sdpa_backend(qv, kv, vv)
     calls = {"fwd": (lambda: A.flash_forward(q, k, v, True),
                      lambda: A.flash_forward_reference(q, k, v, True),
                      lib_fwd),
@@ -2092,11 +2117,12 @@ def _time_attn(A, q, k, v, do, args, dtype, worst):
         nbytes = attention_bytes(kern, b, t, t, h, d, 4 if f32 else 2)
         row = _row(ATTN_SOURCES[kern][0], f"{list(q.shape)} causal {dtype}",
                    1, ms, plain_ms, lib_ms, flops, nbytes, worst[kern], peak)
+        row["library_backend"] = backend
         rows[kern] = row
         lib = "forward" if kern == "fwd" else "backward (dQ, dK, dV)"
         print(f"{row['kernel']} {dtype} at {list(q.shape)} causal: {ms:.4f} ms "
               f"per call ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_ms:.4f}, SDPA {lib} {lib_ms}, bound "
+              f"{plain_ms:.4f}, SDPA {lib} {lib_ms} (backend {backend}), bound "
               f"{row['bound_ms']:.4f} ({row['bound_by']}; "
               f"{flops / 1e9:.1f} GFLOP)", flush=True)
     return rows
@@ -2167,7 +2193,8 @@ def phase_kernel_attn(attention_cuda, report):
         for kern, row in rows.items():
             library = "F.scaled_dot_product_attention" + (
                 "" if kern == "fwd" else " backward, dQ + dK + dV (K8 and K9 "
-                "together)") + (" in f32" if dtype == "float32" else "")
+                "together)") + (" in f32" if dtype == "float32" else "") + \
+                f" (backend {row['library_backend']})"
             what = f"the {per} calls of one batch-{b} T-{t} transformer_lm " \
                 f"training step, {list(path)} causal {dtype}"
             if dtype == "float32":
@@ -2563,6 +2590,55 @@ def _hold_lm_step(pt, main, loss, init, small, card, f32, o2_einsum,
     return agree, kb, f32_launches
 
 
+def _time_f32_step(pt, f32, init, feed, card, what, expect):
+    """The f32 twin `f32` ((main, startup, loss, logits)) trained on the
+    card from `init` on `feed`: one warm-up and LM_STEPS timed steps (step
+    p50 on the host clock; the fetch ends in a device-to-host copy), the f32
+    kernels' launches per step held to `expect` ({counter: launches}, every
+    other f32 counter 0) with no attention fallback, then one profiled
+    step's device busy time (`_profile_step`, from a trace that holds K8's
+    f32 form)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import attention_cuda as A
+    main32, _, loss32, _ = f32
+    scope = pt.Scope()
+    for n, v in init.items():
+        scope.set_var(n, v.cuda())
+    exe = pt.Executor(pt.CUDAPlace(0))
+    losses = [float(exe.run(main32, feed=feed, fetch_list=[loss32],
+                            scope=scope)[0][0])]
+    torch.cuda.synchronize()
+    A.COUNTERS.reset()
+    times = []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main32, feed=feed, fetch_list=[loss32],
+                                    scope=scope)[0][0]))
+        times.append(time.perf_counter() - t0)
+    launches = {k: getattr(A.COUNTERS, k) / LM_STEPS for k in F32_COUNTERS}
+    fallbacks = dict(A.COUNTERS.fallbacks)
+    want = {k: float(expect.get(k, 0)) for k in F32_COUNTERS}
+    if launches != want or fallbacks:
+        raise RuntimeError(f"{what}: the f32 kernels' launches per step "
+                           f"{launches}, expected {want}; fallbacks "
+                           f"{fallbacks}")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"{what}: losses {losses}")
+    p50 = float(np.median(times)) * 1e3
+    print(f"{what}: step p50 {p50:.1f} ms (steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), the f32 kernels' "
+          f"launches per step {launches} ({card})", flush=True)
+    prof = _profile_step(exe, main32, feed, loss32, scope, p50, card, (
+        "K8's f32 form", lambda name: "dq_tf32_kernel" in name))
+    top = dict(sorted(prof["by_kernel"].items(),
+                      key=lambda kv: -kv[1][0])[:12])
+    return {"p50_ms": p50, "step_ms": [t * 1e3 for t in times],
+            "losses": losses, "busy_ms": prof["busy_ms"],
+            "busy_share": prof["busy_share"], "launches_per_step": launches,
+            "by_kernel": top}
+
+
 def phase_train_lm(pt, attention_cuda, report):
     import numpy as np
     import torch
@@ -2629,17 +2705,23 @@ def phase_train_lm(pt, attention_cuda, report):
           + ", ".join(f"{k} {v:.3g}" for k, v in top[:8])
           + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32)", flush=True)
     n = LM["n_layer"]
+    f32 = _transformer(pt, amp=False)
+    f32_expect = {"f32_launches": n, "f32_dq_launches": n,
+                  "f32_dkv_launches": n}
     agree, kb, f32_launches = _hold_lm_step(
-        pt, main, loss, init, small, card, _transformer(pt, amp=False),
-        _transformer(pt, use_flash=False),
-        {"f32_launches": n, "f32_dq_launches": n, "f32_dkv_launches": n})
+        pt, main, loss, init, small, card, f32,
+        _transformer(pt, use_flash=False), f32_expect)
+    f32_step = _time_f32_step(
+        pt, f32, init, small, card,
+        f"transformer_lm f32 training, batch {LM_SMALL_BATCH}, T {T}",
+        f32_expect)
     report["train_lm"] = {
         "card": card, "config": LM, "step_ms": [t * 1e3 for t in times],
         "p50_ms": p50, "tokens_per_s": tok_s, "losses": losses,
         "peak_memory_gb": peak_gb, "launches_per_step": per_step,
         "hits": hits, "profile": profile, "lockstep_worst_rl2": worst,
         "small_batch": agree, "k_bias_grad_norms": kb,
-        "f32_card_launches": f32_launches}
+        "f32_card_launches": f32_launches, "f32_step": f32_step}
     return {**launches, **f32_launches}
 
 
@@ -2817,21 +2899,51 @@ def phase_train_ring(pt, attention_cuda, report):
           f"worst relative L2: " + ", ".join(f"{k} {v:.3g}" for k, v in top[:8])
           + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32)", flush=True)
     n = RING["n_layer"]
+    f32 = _transformer(pt, amp=False, use_flash=True, cfg=RING,
+                       seqlen=RING_SMALL_T, sequence_parallel=True)
+    f32_expect = {"f32_block_launches": n, "f32_dq_launches": n,
+                  "f32_dkv_launches": n}
     agree, kb, f32_launches = _hold_lm_step(
-        pt, main_s, loss_s, init, small, card,
-        _transformer(pt, amp=False, use_flash=True, cfg=RING,
-                     seqlen=RING_SMALL_T, sequence_parallel=True),
+        pt, main_s, loss_s, init, small, card, f32,
         _transformer(pt, use_flash=False, cfg=RING, seqlen=RING_SMALL_T),
-        {"f32_block_launches": n, "f32_dq_launches": n,
-         "f32_dkv_launches": n})
+        f32_expect)
+    f32_step = _time_f32_step(
+        pt, f32, init, small, card,
+        f"ring transformer_lm f32 training, batch {LM_SMALL_BATCH}, T "
+        f"{RING_SMALL_T}, one rank", f32_expect)
     report["train_ring"] = {
         "card": card, "config": RING, "step_ms": [t * 1e3 for t in times],
         "p50_ms": p50, "tokens_per_s": tok_s, "losses": losses,
         "peak_memory_gb": peak_gb, "launches_per_step": per_step,
         "hits": hits, "profile": profile, "lockstep_worst_rl2": worst,
         "small_t": RING_SMALL_T, "small_batch": agree, "k_bias_grad_norms": kb,
-        "f32_card_launches": f32_launches}
+        "f32_card_launches": f32_launches, "f32_step": f32_step}
     return {**launches, **f32_launches}
+
+
+def ptxas_report(build_log: dict) -> dict:
+    """Print ptxas's registers, spills and serialized-wgmma warnings for every
+    kernel of every library in `build_log` (cuda_build.BUILD_LOG: name ->
+    {"log": ...}) and return them by kernel; raise if any kernel spills."""
+    spills, ptxas = [], {}
+    for name, info in build_log.items():
+        fn = ""
+        for line in str(info["log"]).splitlines():
+            if "Function properties for" in line:
+                fn = _kernel_label(line.split()[-1])
+            if "registers" in line or "spill" in line:
+                print(f"build {name}: {fn}: {line.strip()}", flush=True)
+                ptxas.setdefault(f"{name} {fn}", []).append(line.strip())
+                if "spill" in line and \
+                        " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                    spills.append(f"{name} {fn}: {line.strip()}")
+            if "Performance Loss" in line:  # ptxas serialized its wgmmas
+                at = _kernel_label(line.split("'")[-2]) if "'" in line else fn
+                print(f"build {name}: {at}: {line.strip()[:160]}", flush=True)
+                ptxas.setdefault(f"{name} {at}", []).append(line.strip())
+    if spills:
+        raise RuntimeError("kernels spill registers: " + "; ".join(spills))
+    return ptxas
 
 
 def main(argv=None) -> int:
@@ -2862,24 +2974,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    spills = []
-    for name, info in cuda_build.BUILD_LOG.items():
-        fn = ""
-        for line in str(info["log"]).splitlines():
-            if "Function properties for" in line:
-                fn = _kernel_label(line.split()[-1])
-            if "registers" in line or "spill" in line:
-                print(f"build {name}: {fn}: {line.strip()}", flush=True)
-                if "spill" in line and \
-                        " 0 bytes spill stores, 0 bytes spill loads" not in line:
-                    spills.append(f"{name} {fn}: {line.strip()}")
-    if spills:
-        raise RuntimeError("kernels spill registers: " + "; ".join(spills))
+    ptxas = ptxas_report(cuda_build.BUILD_LOG)
 
     # f32 results are held against references: no TF32 anywhere
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    report = {"card": card}
+    report = {"card": card, "ptxas": ptxas}
     k1 = phase_kernel(pt, conv_cuda, resnet, report)
     slice_launches, served = phase_slice(pt, conv_cuda, resnet, report)
     k11 = phase_kernel_q8(pt, conv_cuda, resnet, report)

@@ -557,16 +557,6 @@ __global__ void __launch_bounds__(DKV_THREADS, dkv_min_blocks(DP))
 
 // ---- host --------------------------------------------------------------------
 
-template <typename Kernel>
-int configure(Kernel kernel, int smem, bool* done) {
-  if (*done) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  *done = true;
-  return 0;
-}
-
 template <int DP, int BK, int NWG>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               Params p, int b, cudaStream_t stream) {
@@ -580,7 +570,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   auto kernel = flash_dq_kernel<DP, BK, NWG>;
   constexpr int smem = dq_smem_bytes<DP, BK, NWG>();
   static bool done = false;
-  rc = configure(kernel, smem, &done);
+  rc = flash::configure(kernel, smem, &done);
   if (rc != 0) return rc;
   p.tiles = (p.tq + ROWS - 1) / ROWS;
   dim3 grid((unsigned)p.h, (unsigned)b, (unsigned)p.tiles);
@@ -602,7 +592,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   auto kernel = flash_dkv_kernel<DP, BQ>;
   constexpr int smem = dkv_smem_bytes<DP, BQ>();
   static bool done = false;
-  rc = configure(kernel, smem, &done);
+  rc = flash::configure(kernel, smem, &done);
   if (rc != 0) return rc;
   p.tiles = (p.tk + 63) / 64;
   dim3 grid((unsigned)p.h, (unsigned)b, (unsigned)p.tiles);

@@ -57,20 +57,27 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// A 4-D tensor map over a [B, T, H, D] bf16 tensor read in place: dims (D,
-// H, T, B), box (64 columns, 1 head, `rows` rows, 1 batch) with the
-// 128-byte swizzle, so a box lands as `rows` 128-byte rows of one head.
-// Columns past D (D < 64, or the second half of D 96) and rows past T load
-// as zeros. Returns 0 or a CUDA error code.
+// A 4-D tensor map over a [B, T, H, D] tensor of `T` (bf16 or f32) read in
+// place: dims (D, H, T, B), box (one 128-byte row of columns: 64 bf16 or 32
+// f32, 1 head, `rows` rows, 1 batch) with the 128-byte swizzle, so a box
+// lands as `rows` 128-byte rows of one head. Columns past D and rows past T
+// load as zeros. Returns 0 or a CUDA error code.
+template <typename T = __nv_bfloat16>
 inline int map_bthd(CUtensorMap* map, const void* ptr, int b, int t, int h,
                     int d, int rows) {
+  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bf16 or f32");
+  constexpr uint64_t E = sizeof(T);
   const uint64_t dims[4] = {(uint64_t)d, (uint64_t)h, (uint64_t)t,
                             (uint64_t)b};
-  const uint64_t strides[3] = {(uint64_t)d * 2, (uint64_t)h * d * 2,
-                               (uint64_t)t * h * d * 2};
-  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  const uint64_t strides[3] = {(uint64_t)d * E, (uint64_t)h * d * E,
+                               (uint64_t)t * h * d * E};
+  const uint32_t box[4] = {(uint32_t)(128 / E), 1, (uint32_t)rows, 1};
   const uint32_t one[4] = {1, 1, 1, 1};
-  return hg::make_map(map, ptr, 4, dims, strides, box, one);
+  return hg::make_map_typed(map,
+                            E == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            CU_TENSOR_MAP_SWIZZLE_128B, ptr, 4, dims, strides,
+                            box, one);
 }
 
 // A 2-D tensor map over [B, H, T] f32 row statistics (lse, delta) as [B*H,
@@ -85,6 +92,18 @@ inline int map_stats(CUtensorMap* map, const void* ptr, int bh, int t,
   return hg::make_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                             CU_TENSOR_MAP_SWIZZLE_NONE, ptr, 2, dims, strides,
                             box, one);
+}
+
+// Lifts `kernel`'s dynamic shared memory limit to `smem` bytes on its first
+// launch (`*done` false). Returns 0 or a CUDA error code.
+template <typename Kernel>
+int configure(Kernel kernel, int smem, bool* done) {
+  if (*done) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  *done = true;
+  return 0;
 }
 
 // The shared memory of a Hopper kernel starts on a 1024-byte boundary, the

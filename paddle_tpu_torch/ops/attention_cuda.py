@@ -18,9 +18,12 @@ and called through ctypes:
   (K8, K9) on wgmma with TMA loads through an mbarrier ring, a producer
   warp and consumer warpgroups of 64 resident rows; each entry point picks
   its tile plan from the head dim.
-- f32: `csrc/flash_attn_walk.cu`, a tile walk on mma.sync whose products
-  run as three TF32 passes (3xTF32), P and dS left in f32 as the reference
-  leaves them for f32 operands.
+- f32: `csrc/flash_attn_bwd_tf32.cu` (K8, K9) on tf32 wgmma with TMA loads
+  through an mbarrier ring, split warps that turn each landed tile into
+  the tf32 hi/lo and transposed forms the products read; `csrc/
+  flash_attn_walk.cu` (K7, K10), a tile walk on mma.sync. Both run every
+  product as three TF32 passes (3xTF32) and leave P and dS in f32 as the
+  reference leaves them for f32 operands.
 Operands stay [B, T, H, D] (the JAX layout) and are read in place with a
 row stride of H*D; heads go into the grid; the sequential grid axis of
 each TPU kernel (K tiles in K7/K8, Q tiles in K9) is a loop inside a CTA;
@@ -279,24 +282,27 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, q_off, k_off, scale,
 # The C entry points: flash_attn_fwd(q, k, v, o, lse, b, h, tq, tk, d,
 # q_off, k_off, scale, causal, stream); flash_attn_fwd_block takes acc, m,
 # l in place of o, lse; flash_attn_bwd_dq q, k, v, dout, lse, delta, dq, and
-# flash_attn_bwd_dkv dk, dv in place of dq. The f32 forms' flash_walk_*
-# take the same arguments.
+# flash_attn_bwd_dkv dk, dv in place of dq. The f32 forms (flash_walk_fwd,
+# flash_walk_fwd_block, flash_tf32_bwd_dq, flash_tf32_bwd_dkv) take the same
+# arguments.
 def _argtypes(pointers):
     return ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-# kernel name -> (bf16 library, bf16 entry, f32 entry, pointer count, the
-# bf16 and f32 launch counters)
+# kernel name -> ((library, entry, launch counter) for bf16, the same for
+# f32, pointer count)
 _KERNELS = {
-    "fwd": ("flash_attn_fwd", "flash_attn_fwd", "flash_walk_fwd", 5,
-            "launches", "f32_launches"),
-    "block": ("flash_attn_fwd", "flash_attn_fwd_block", "flash_walk_fwd_block",
-              6, "block_launches", "f32_block_launches"),
-    "dq": ("flash_attn_bwd", "flash_attn_bwd_dq", "flash_walk_bwd_dq", 7,
-           "dq_launches", "f32_dq_launches"),
-    "dkv": ("flash_attn_bwd", "flash_attn_bwd_dkv", "flash_walk_bwd_dkv", 8,
-            "dkv_launches", "f32_dkv_launches"),
+    "fwd": (("flash_attn_fwd", "flash_attn_fwd", "launches"),
+            ("flash_attn_walk", "flash_walk_fwd", "f32_launches"), 5),
+    "block": (("flash_attn_fwd", "flash_attn_fwd_block", "block_launches"),
+              ("flash_attn_walk", "flash_walk_fwd_block",
+               "f32_block_launches"), 6),
+    "dq": (("flash_attn_bwd", "flash_attn_bwd_dq", "dq_launches"),
+           ("flash_attn_bwd_tf32", "flash_tf32_bwd_dq", "f32_dq_launches"), 7),
+    "dkv": (("flash_attn_bwd", "flash_attn_bwd_dkv", "dkv_launches"),
+            ("flash_attn_bwd_tf32", "flash_tf32_bwd_dkv", "f32_dkv_launches"),
+            8),
 }
 
 
@@ -337,13 +343,10 @@ def _launch(kernel, q, k, pointers, q_off, k_off, scale, causal):
     checked CUDA operands: the Hopper kernel for bf16, its f32 form for
     f32. Counts the kernels launched, then raises if the launch was
     refused."""
-    lib, name, f32_name, n_ptr, bf16_counter, f32_counter = _KERNELS[kernel]
+    bf16_form, f32_form, n_ptr = _KERNELS[kernel]
     b, tq, h, d = q.shape
     f32 = q.dtype == torch.float32
-    if f32:
-        lib, name, counter = "flash_attn_walk", f32_name, f32_counter
-    else:
-        counter = bf16_counter
+    lib, name, counter = f32_form if f32 else bf16_form
     fn = cuda_build.entry(lib, name, _argtypes(n_ptr))
     rc = fn(*pointers, b, h, tq, k.shape[1], d, int(q_off), int(k_off),
             float(scale), int(bool(causal)), _stream(q))

@@ -253,3 +253,91 @@ def test_f32_kernel_tolerance_is_not_vacuous():
     bk, _ = attention_tolerance("dkv", q, k, v, True, do, lse, delta)
     for wrong in (dk.flip(1), dk * 1.001):
         assert not ((wrong - dk).abs() <= bk).all()
+
+
+# --- the f32 backward kernels' arithmetic (csrc/flash_attn_bwd_tf32.cu) -------
+
+def _tf32_hi(x):
+    """x truncated to tf32: the top 19 bits, what the tensor cores read of a
+    raw f32 (measured on the card: tests/torch_tf32_probe.py)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rna(x):
+    """x rounded to the nearest tf32, ties away from zero (cvt.rna)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, passes, tile=None):
+    """a [..., M, K] @ b [..., K, N] in f32 as the kernels take it: each
+    operand x = hi + lo, hi = _tf32_hi(x), lo = _tf32_rna(x - hi); passes 3:
+    lo_a hi_b + hi_a lo_b + hi_a hi_b, passes 1: hi_a hi_b alone (tf32
+    products are exact, the tensor cores' sums within a chain of a few k8
+    steps close to it: f64 here); the sum over K in partials of `tile`
+    (the kernels' 32-row tiles; one partial when None), each rounded to f32
+    and joined in order by f32 adds."""
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    tile = tile or a.shape[-1]
+    acc = None
+    for k0 in range(0, a.shape[-1], tile):
+        ks = slice(k0, k0 + tile)
+        part = ah[..., ks].double() @ bh[..., ks, :].double()
+        if passes == 3:
+            part += al[..., ks].double() @ bh[..., ks, :].double()
+            part += ah[..., ks].double() @ bl[..., ks, :].double()
+        part = part.float()
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _f32_backward(q, k, v, do, lse, delta, scale, causal, passes):
+    """K8's and K9's formulas with the kernels' rounding points: S and dP
+    from tf32 products (one chain over D), S times scale rounded, masked
+    -1e30, P = exp(S - LSE) and dS = P (dP - delta) in f32, then dQ =
+    scale * dS K over 32-key partials, dV = P^T dO and dK = scale * dS^T Q
+    over 32-query partials. passes 0: the same formulas in f64. Returns
+    (dq, dk, dv) [B, T, H, D]."""
+    dt = torch.float64 if passes == 0 else torch.float32
+    qf, kf, vf, dof = (x.to(dt).permute(0, 2, 1, 3) for x in (q, k, v, do))
+
+    def mm(a, b, tile=None):
+        return a @ b if passes == 0 else _tf32_product(a, b, passes, tile)
+
+    s = mm(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - lse.to(dt)[..., None])
+    ds = p * (mm(dof, vf.transpose(-1, -2)) - delta.to(dt)[..., None])
+    dq = mm(ds, kf, 32) * scale
+    dv = mm(p.transpose(-1, -2), dof, 32)
+    dk = mm(ds.transpose(-1, -2), qf, 32) * scale
+    return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_f32_backward_arithmetic_holds_the_f32_rule(shape, causal):
+    """The f32 kernels' 3xTF32 scheme (hi truncated, lo rounded to nearest,
+    three passes, sequence-long sums joined every 32-row tile), emulated on
+    the CPU through K8's and K9's formulas, stays within
+    chip_smoke.attention_tolerance's f32 rule of the f64 result on the same
+    f32 operands, LSE and delta; one tf32 pass (hi alone) does not, so the
+    rule can tell them apart."""
+    _, (q, k, v, do) = _inputs(shape, "float32", 13)
+    scale = 1.0 / np.sqrt(shape[-1])
+    o, lse = A.flash_forward_reference(q, k, v, causal)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, scale, causal)
+    want = _f32_backward(*args, passes=0)
+    bq, = attention_tolerance("dq", q, k, v, causal, do, lse, delta)
+    bk, bv = attention_tolerance("dkv", q, k, v, causal, do, lse, delta)
+
+    def within(got):
+        return [bool(((g.double() - w).abs() <= b.double()).all())
+                for g, w, b in zip(got, want, (bq, bk, bv))]
+
+    assert within(_f32_backward(*args, passes=3)) == [True] * 3
+    assert not any(within(_f32_backward(*args, passes=1)))

@@ -3,7 +3,9 @@ on the card, in bf16 (the Hopper kernels) and in f32 (their f32 forms): the
 JAX tests' shapes (tests/test_pallas_attention.py), causal and not, T = 72
 (a row tile past T) at D = 64 and 128, D 32, offsets and Tq != Tk for the
 block form, mid-tile offsets, K10 and K8/K9 at every (query shard, key
-shard) pair of a four-shard ring (wholly masked pairs included), the
+shard) pair of a four-shard ring (wholly masked pairs included; T 72
+shards, whose offsets cut tiles, at D 16, 48, 80 and 112 too), the
+backward at those head dims, the f32 backward at T 8192, the
 four-shard ring merge against K7 on the whole sequence, bitwise
 repeatability, the autograd Function's gradient against autograd through
 the einsum path, and the f32 flash ring through the f32 kernels.
@@ -40,6 +42,9 @@ from chip_smoke import attention_tolerance, hold_block  # noqa: E402
 
 SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (2, 256, 2, 64),
           (1, 72, 2, 64), (2, 72, 1, 128), (1, 256, 2, 128)]
+# the backward also at the other head dims the tile plans pad (D 16 and 48
+# to 64, 80 and 112 to 128), at a ragged T
+BWD_SHAPES = SHAPES + [(1, 72, 2, d) for d in (16, 48, 80, 112)]
 DTYPES = [torch.bfloat16, torch.float32]
 
 
@@ -102,7 +107,7 @@ def test_forward_matches_plain_version(device, shape, causal, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
 def test_backward_matches_plain_version(device, shape, causal, dtype):
     q, k, v, do = _operands(shape, device, dtype=dtype)
     o, lse = A.flash_forward(q, k, v, causal)
@@ -207,7 +212,10 @@ def test_unaligned_operand_is_realigned(device, dtype):
     _assert_within(o, ro, bound, "o")
 
 
-RING_SHARDS = [(1, 128, 2, 64), (1, 64, 2, 128), (1, 64, 2, 32)]
+# the last four: shards of T 72, so every ring offset cuts a 32- or 64-row
+# tile, at the head dims the tile plans pad
+RING_SHARDS = [(1, 128, 2, 64), (1, 64, 2, 128), (1, 64, 2, 32)] + \
+    [(1, 72, 2, d) for d in (16, 48, 80, 112)]
 
 
 @pytest.mark.gpu
@@ -263,6 +271,31 @@ def test_ring_block_pairs_match_plain_version(device, shard, causal, dtype):
             _assert_within(dv, rv, bv, f"dv {at}")
     assert masked == (6 if causal else 0)
     assert getattr(A.COUNTERS, _counter("block_launches", dtype)) == 32
+
+
+@pytest.mark.gpu
+def test_f32_backward_long_sequence(device):
+    """K8's and K9's f32 forms at T 8192 causal, where dQ sums 8192 keys
+    and dK, dV up to 8192 queries: the partials joined every 32-row tile
+    keep the tensor cores' truncating accumulation inside the f32 rule (a
+    single chain of that length drifts past it: tests/torch_tf32_probe.py);
+    bitwise repeatable."""
+    shape = (1, 8192, 2, 64)
+    q, k, v, do = _operands(shape, device, 41, dtype=torch.float32)
+    o, lse = A.flash_forward(q, k, v, True)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, 0, 0, 0.125, True)
+    dq, dk, dv = A.flash_attention_bwd_block(*args)
+    again = A.flash_attention_bwd_block(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    bq, = attention_tolerance("dq", q, k, v, True, do, lse, delta)
+    _assert_within(dq, A.flash_dq_reference(*args), bq, "dq")
+    del bq
+    bk, bv = attention_tolerance("dkv", q, k, v, True, do, lse, delta)
+    rk, rv = A.flash_dkv_reference(*args)
+    _assert_within(dk, rk, bk, "dk")
+    _assert_within(dv, rv, bv, "dv")
 
 
 @pytest.mark.gpu
