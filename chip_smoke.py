@@ -34,14 +34,17 @@ card:
   5. kernel_q8  K11 (int8 conv) against conv2d_q8_reference, bitwise (bf16
               and f32 out, the bf16 call repeated), on the five test cases
               and every distinct conv shape of ResNet-50's O3 route at each
-              bucket's batch; then per shape at batch 16 kernel, plain and
-              K1-in-bf16 times (CUDA graph of 20 calls between events)
-              beside the bound (int8 operations or bytes);
+              bucket's batch, under its plan and split-K forced on and off;
+              then per shape at batch 16 kernel, plain and K1-in-bf16 times
+              (CUDA graph of 20 calls between events) beside the bound
+              (int8 operations or bytes) and, with --parent, the older
+              checkout's int8 kernel;
   6. serve_q8 the calibrated model of phase 4 written by
               io.save_inference_model and served by ServingEngine(dir,
               quantize="int8"): quant_report of 54 weights, the 12
               requests, per bucket run K11 42 and K1 10 launches with the
-              quant hits and fallbacks of the reference's routing, output
+              quant hits and fallbacks of the reference's routing and no
+              filter copied, output
               checks, one request op by op against the CPU plain path in
               O3 on the card's own inputs to each op (the quantized
               windows bitwise), one request per bucket against it end to
@@ -81,7 +84,9 @@ card:
               plain versions and F.scaled_dot_product_attention
               (yardstick only: its forward for K7, its backward for K8 +
               K9 together; the backend it picks printed beside its
-              time); the wrappers' host time per call; the
+              time) and, with --parent, the older checkout's f32 K7 (its
+              tile walk) at the f32 steps' shape and at [1, 2048, 4, 128];
+              the wrappers' host time per call; the
               flash/einsum crossover at T 512-8192;
 10. train_lm the transformer LM O2 with Adam 1e-4, one warm-up and five
               timed steps on one batch of random tokens and labels (seed
@@ -130,9 +135,13 @@ card:
 Every phase is fatal: a failure raises and the script exits non-zero
 without printing a result. Run from the root of a checkout:
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--parent DIR]
 
-`--report` also writes the full per-shape measurements as JSON.
+`--report` also writes the full per-shape measurements as JSON. `--parent`
+names an older checkout (e.g. the parent commit unpacked by `git archive`)
+whose int8 conv (`csrc/conv2d_q8.cu`) and f32 attention forward (the tile
+walk's `flash_walk_fwd`) are built from its sources and timed beside
+this tree's K11 and K7 f32 in the same process, as their "before".
 """
 
 from __future__ import annotations
@@ -193,8 +202,9 @@ BATCH = 16
 SEED = 0
 K1_KERNEL = "conv2d_fwd_kernel"     # K1's name in the profiler's events
 # the passes after K1's split-K mainloops (conv2d_fwd.cu)
-SPLIT_KERNELS = ("splitk_reduce_kernel", "stats_rows_kernel")
-K11_KERNEL = "conv2d_q8_kernel"     # K11's
+SPLIT_KERNELS = ("splitk_reduce_kernel", "splitk_reduce_q8_kernel",
+                 "stats_rows_kernel")
+K11_KERNEL = "conv2d_fwd_q8_kernel"  # K11's
 # the executor's profiler ranges (paddle_tpu_torch/ops/registry.py span)
 # and the activation-quantize passes' (quant.ACT_SPAN): each appears on the
 # host and, as the extent of the kernels launched in it, on the device's
@@ -381,6 +391,31 @@ def _card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+_PARENT_LIBS = {}
+
+
+def build_parent(parent, source, name):
+    """Build `source`, a file under the older checkout `parent`'s
+    paddle_tpu_torch/csrc/, from that checkout's sources with the package's
+    nvcc flags into build/kernels/parent/lib<name>.so, and load it: the
+    "before" of a kernel this tree replaced, timed in the same process."""
+    import ctypes
+    from paddle_tpu_torch.ops import cuda_build
+    if name not in _PARENT_LIBS:
+        src = Path(parent).resolve() / "paddle_tpu_torch" / "csrc" / source
+        out = cuda_build.BUILD_DIR / "parent"
+        out.mkdir(parents=True, exist_ok=True)
+        lib = out / f"lib{name}.so"
+        proc = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                               "-o", str(lib), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"building {src} failed:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        _PARENT_LIBS[name] = ctypes.CDLL(str(lib))
+    return _PARENT_LIBS[name]
 
 
 def _device_ms(fn, reps=20):
@@ -909,14 +944,77 @@ def _check_q8(conv_cuda, x, w, s, p, d, dq):
     return worst
 
 
-def phase_kernel_q8(pt, conv_cuda, resnet, report):
+def _q8_splits_hold(conv_cuda, x, w, s, p, d, dq, want):
+    """K11 with its plan's split-K forced off and (where the plan does not
+    split) on, bf16 and f32 out, each bitwise `want` (the plain version's
+    bf16 output) or raise; the integer sums make the split exact. Returns
+    the split counts run."""
+    import dataclasses
+
+    import torch
+    planner = conv_cuda.conv_plan
+    oh, ow = conv_cuda._out_hw(x, w, s, p, d)
+    plan = planner(tuple(x.shape), w.shape[0], w.shape[2], w.shape[3], oh, ow,
+                   s, p, elem=1)
+    ks = {1, plan.splits if plan.splits > 1 else min(4, plan.steps)}
+    want32 = conv_cuda.conv2d_q8_reference(x, w, s, p, d, dq,
+                                           out_dtype=torch.float32)
+    for k in sorted(ks):
+        per = -(-plan.steps // k)
+        alt = dataclasses.replace(plan, splits=-(-plan.steps // per), per=per,
+                                  stages=min(plan.stages, max(per, 2)))
+        conv_cuda.conv_plan = lambda *a, _alt=alt, **kw: _alt
+        try:
+            y = conv_cuda.conv2d_q8(x, w, s, p, d, dq)
+            y32 = conv_cuda.conv2d_q8(x, w, s, p, d, dq,
+                                      out_dtype=torch.float32)
+        finally:
+            conv_cuda.conv_plan = planner
+        torch.cuda.synchronize()
+        if not (torch.equal(y, want) and torch.equal(y32, want32)):
+            raise RuntimeError(f"K11 split {alt.splits} is not bitwise its "
+                               f"plain version at x {tuple(x.shape)} w "
+                               f"{tuple(w.shape)}")
+    return sorted(ks)
+
+
+def parent_q8(parent):
+    """The older checkout's int8 conv entry (`csrc/conv2d_q8.cu`: x, w
+    OHWI, dq, y, 15 shape ints, out_f32, stream) as a function of (x, w
+    OHWI, s, p, d, dq) -> y bf16."""
+    import ctypes
+
+    import torch
+    fn = build_parent(parent, "conv2d_q8.cu", "parent_conv2d_q8").conv2d_q8
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, w_ohwi, s, p, d, dq):
+        n, h, wd, ci = x.shape
+        co, kh, kw, _ = w_ohwi.shape
+        oh = (h + 2 * p[0] - d[0] * (kh - 1) - 1) // s[0] + 1
+        ow = (wd + 2 * p[1] - d[1] * (kw - 1) - 1) // s[1] + 1
+        y = torch.empty((n, oh, ow, co), dtype=torch.bfloat16, device=x.device)
+        rc = fn(x.data_ptr(), w_ohwi.data_ptr(), dq.data_ptr(), y.data_ptr(),
+                n, h, wd, ci, co, kh, kw, oh, ow, s[0], s[1], p[0], p[1],
+                d[0], d[1], 0, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the parent's conv2d_q8 failed: CUDA {rc}")
+        return y
+    return run
+
+
+def phase_kernel_q8(pt, conv_cuda, resnet, report, parent=None):
     """K11 against its plain version, bitwise, at CASES and at every
-    distinct quantized ResNet-50 conv shape at each bucket's batch; then per
-    shape at batch 16 the kernel's time, the plain version's, K1's in bf16
-    at the same shape (the O2 counterpart), beside the bound."""
+    distinct quantized ResNet-50 conv shape at each bucket's batch, split
+    and unsplit; then per shape at batch 16 the kernel's time, the plain
+    version's, K1's in bf16 at the same shape (the O2 counterpart) and,
+    given `parent`, the older checkout's int8 kernel, beside the bound."""
     import torch
     from paddle_tpu_torch import quant
     gen = torch.Generator().manual_seed(SEED + 7)
+    before = None if parent is None else parent_q8(parent)
 
     def operands(xs, ws):
         x = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8)
@@ -930,11 +1028,15 @@ def phase_kernel_q8(pt, conv_cuda, resnet, report):
         worst = max(worst, _check_q8(conv_cuda, x, wt, s, p, d, dq))
     main = _resnet50(pt, resnet)[0]
     checked = {}                               # shape -> max abs err
+    split_runs = 0
     for b in BUCKETS:
         for key in _eligible_convs(conv_cuda, main, b, quant):
             if key not in checked:
                 x, wt, dq = operands(*key[:2])
                 checked[key] = _check_q8(conv_cuda, x, wt, *key[2:], dq)
+                want = conv_cuda.conv2d_q8_reference(x, wt, *key[2:], dq)
+                split_runs += len(_q8_splits_hold(conv_cuda, x, wt, *key[2:],
+                                                  dq, want))
     worst = max(worst, *checked.values())
     counts = {}
     for key in _eligible_convs(conv_cuda, main, BATCH, quant):
@@ -957,36 +1059,51 @@ def phase_kernel_q8(pt, conv_cuda, resnet, report):
         wb = (torch.randn(ws, generator=gen) * 0.1).to(torch.bfloat16)
         wb = wb.contiguous(memory_format=torch.channels_last).cuda()
         k1_ms = _device_ms(lambda: conv_cuda.conv2d(xb, wb, s, p, d))
+        parent_ms = None
+        if before is not None:
+            w_ohwi = w_view.permute(0, 2, 3, 1)
+            if not torch.equal(before(x, w_ohwi, s, p, d, dq),
+                               conv_cuda.conv2d_q8(x, w_view, s, p, d, dq)):
+                raise RuntimeError("the parent tree's K11 disagrees with "
+                                   "this tree's")
+            parent_ms = _device_ms(lambda: before(x, w_ohwi, s, p, d, dq))
         ops = conv_cuda.conv_flops(x, wt, s, p, d)
         nbytes = conv_cuda.conv_bytes(x, wt, s, p, d) + 4 * ws[0]   # + dq
         ops_ms, bytes_ms = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
         row = {"x_nhwc": list(xs), "w_oihw": list(ws), "strides": list(s),
                "paddings": list(p), "dilations": list(d), "per_request": n,
                "ms": k_ms, "plain_ms": plain_ms, "k1_bf16_ms": k1_ms,
+               "parent_ms": parent_ms,
                "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "ops": ops, "bytes": nbytes, "max_abs_err": checked[key]}
         rows.append(row)
         print(f"K11 shape x{list(xs)} w{list(ws)} s{list(s)} p{list(p)} "
               f"x{n}/request: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"K1 bf16 {k1_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
+              f"K1 bf16 {k1_ms:.4f} ms, parent tree {parent_ms} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     print(f"K11 bitwise equal to conv2d_q8_reference (bf16 and f32 out, "
           f"repeat bitwise) at {len(checked)} distinct shapes (batches "
-          f"{list(BUCKETS)}) and the {len(CASES)} test cases", flush=True)
+          f"{list(BUCKETS)}) and the {len(CASES)} test cases; split-K "
+          f"forced off and on: {split_runs} runs, each bitwise", flush=True)
     report["k11_shapes"] = rows
 
     def total(key):
         return sum(r[key] * r["per_request"] for r in rows)
     ops_total = sum(r["ops"] * r["per_request"] for r in rows) / PEAK_INT8_OPS
     bytes_total = sum(r["bytes"] * r["per_request"] for r in rows) / PEAK_BYTES
+    parent_total = None if before is None else total("parent_ms")
+    print(f"K11 per batch-{BATCH} request: {total('ms'):.4f} ms, K1 in bf16 "
+          f"at the same shapes {total('k1_bf16_ms'):.4f}, parent tree "
+          f"{parent_total}, bound {total('bound_ms'):.4f}", flush=True)
     return {"name": "conv2d_q8", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/conv2d_q8.cu",
+            "source": "paddle_tpu_torch/csrc/conv2d_fwd.cu",
             "replaces": "paddle_tpu/ops/pallas_conv.py:431",
             "max_abs_err": worst, "ms": total("ms"),
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if ops_total >= bytes_total else "bytes",
             "library_ms": None, "k1_bf16_ms": total("k1_bf16_ms"),
+            "parent_ms": parent_total,
             "per": f"the {sum(counts.values())} quantized convs of one "
                    f"batch-{BATCH} ResNet-50 request"}
 
@@ -1153,9 +1270,14 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
             {k: v * runs for k, v in Q8_HITS.items()},
             {k: v * runs for k, v in Q8_FALLBACKS.items()},
             {k: v * runs for k, v in Q8_CONV_FALLBACKS.items()})
+    copies = conv_cuda.COUNTERS.filter_copies
     print(f"O3 over {runs} bucket runs: K11 launches {counts['q8_launches']}, "
           f"K1 launches {counts['launches']}; quant hits {hits}, quant "
-          f"fallbacks {fallbacks}; conv fallbacks {conv_fallbacks}", flush=True)
+          f"fallbacks {fallbacks}; conv fallbacks {conv_fallbacks}; filters "
+          f"copied {copies}", flush=True)
+    if copies:
+        raise RuntimeError(f"the O3 requests copied {copies} filters: the "
+                           f"int8 engine's filters are read in place")
     if (counts, hits, fallbacks, conv_fallbacks) != want:
         raise RuntimeError(f"O3 routing {counts} {hits} {fallbacks} "
                            f"{conv_fallbacks}, expected {want}")
@@ -2011,9 +2133,9 @@ ATTN_SOURCES = {
     "block": ("flash_attn_fwd_block", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
               "paddle_tpu/ops/pallas_attention.py:143"),
 }
-# the f32 forms' sources: the forward walk (K7, K10), the tf32 wgmma
-# backward (K8, K9)
-F32_SOURCES = {"fwd": "paddle_tpu_torch/csrc/flash_attn_walk.cu",
+# the f32 forms' sources: the tf32 wgmma forward (K7) and backward (K8,
+# K9), the forward walk (K10)
+F32_SOURCES = {"fwd": "paddle_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
                "block": "paddle_tpu_torch/csrc/flash_attn_walk.cu",
                "dq": "paddle_tpu_torch/csrc/flash_attn_bwd_tf32.cu",
                "dkv": "paddle_tpu_torch/csrc/flash_attn_bwd_tf32.cu"}
@@ -2035,6 +2157,8 @@ def _attn_kernel_entry(kern, dtype, row, per, what, library):
         "library_ms": None if row["library_ms"] is None
         else row["library_ms"] * per,
         "library": library, "per": what}
+    if row.get("parent_ms") is not None:
+        entry["parent_ms"] = row["parent_ms"] * per
     return entry
 
 
@@ -2154,7 +2278,70 @@ def _crossover(A):
     return out
 
 
-def phase_kernel_attn(attention_cuda, report):
+def f32_fwd_entry(lib, name, A):
+    """A loaded library's f32 K7 entry `name` (flash_tf32_fwd's arguments)
+    as a function of causal f32 (q, k, v) -> (o, lse)."""
+    import ctypes
+
+    import torch
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = A._argtypes(5), ctypes.c_int
+
+    def run(q, k, v):
+        b, t, h, d = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), b, h, t, k.shape[1], d, 0, 0,
+                1.0 / math.sqrt(d), 1, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{name} failed: CUDA {rc}")
+        return o, lse
+    return run
+
+
+def parent_walk_fwd(parent, A):
+    """The older checkout's f32 K7, the tile walk's `flash_walk_fwd` in
+    `csrc/flash_attn_walk.cu`, built from its sources."""
+    return f32_fwd_entry(build_parent(parent, "flash_attn_walk.cu",
+                                      "parent_flash_attn_walk"),
+                         "flash_walk_fwd", A)
+
+
+def _time_f32_fwd_parent(A, parent, timed, worst):
+    """K7 f32 against the older checkout's walk, in turns (new, walk, walk,
+    new, a CUDA graph of calls each), at the f32 steps' shape (`timed`'s
+    q, k, v) and at [1, 2048, 4, 128] causal, each output held to the plain
+    version by the f32 rule. Returns {shape: {"ms": .., "parent_ms": ..}}."""
+    import torch
+    walk = parent_walk_fwd(parent, A)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    d128 = tuple(torch.randn((1, 2048, 4, 128), generator=gen).cuda()
+                 for _ in range(3))
+    out = {}
+    for q, k, v in (timed[:3], d128):
+        ro, _ = A.flash_forward_reference(q, k, v, True)
+        bound, = attention_tolerance("fwd", q, k, v, True, rows=TOL_ROWS)
+        o, _ = A.flash_forward(q, k, v, True)
+        worst["fwd"] = max(worst["fwd"], _bounded(
+            o, ro, bound, f"K7 f32 at {list(q.shape)}"))
+        _bounded(walk(q, k, v)[0], ro, bound,
+                 f"the parent's walk at {list(q.shape)}")
+        new = [_device_ms(lambda: A.flash_forward(q, k, v, True), reps=5)]
+        old = [_device_ms(lambda: walk(q, k, v), reps=5) for _ in range(2)]
+        new.append(_device_ms(lambda: A.flash_forward(q, k, v, True), reps=5))
+        ms, parent_ms = sum(new) / 2, sum(old) / 2
+        out[str(list(q.shape))] = {"ms": ms, "parent_ms": parent_ms,
+                                   "turns": new[:1] + old + new[1:]}
+        print(f"K7 f32 at {list(q.shape)} causal: {ms:.4f} ms per call, the "
+              f"parent tree's walk {parent_ms:.4f} ({parent_ms / ms:.2f}x; in "
+              f"turns new, walk, walk, new: "
+              + ", ".join(f"{t:.4f}" for t in out[str(list(q.shape))]["turns"])
+              + ")", flush=True)
+    return out
+
+
+def phase_kernel_attn(attention_cuda, report, parent=None):
     """K7-K9 in bf16 (the Hopper kernels) and in f32 (their f32 forms)
     against their plain versions at the JAX tests' shapes, T = 72 at D 64
     and 128, and the bench shape (f32 also at its steps' shape F32_ATTN),
@@ -2187,6 +2374,10 @@ def phase_kernel_attn(attention_cuda, report):
                 timed = (q, k, v, do, args)
             torch.cuda.empty_cache()
         rows = _time_attn(A, *timed, dtype, worst)
+        if dtype == "float32" and parent is not None:
+            vs_walk = _time_f32_fwd_parent(A, parent, timed, worst)
+            rows["fwd"]["parent_ms"] = vs_walk[str(list(path))]["parent_ms"]
+            table["f32_vs_parent_walk"] = vs_walk
         del timed
         torch.cuda.empty_cache()
         table[dtype] = {"rows": list(rows.values()), "max_abs_err": worst}
@@ -2949,6 +3140,8 @@ def ptxas_report(build_log: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measurements as JSON here")
+    ap.add_argument("--parent", help="an older checkout whose K11 and f32 K7 "
+                    "are timed beside this tree's")
     args = ap.parse_args(argv)
 
     import torch
@@ -2982,7 +3175,7 @@ def main(argv=None) -> int:
     report = {"card": card, "ptxas": ptxas}
     k1 = phase_kernel(pt, conv_cuda, resnet, report)
     slice_launches, served = phase_slice(pt, conv_cuda, resnet, report)
-    k11 = phase_kernel_q8(pt, conv_cuda, resnet, report)
+    k11 = phase_kernel_q8(pt, conv_cuda, resnet, report, args.parent)
     q8 = phase_serve_q8(pt, conv_cuda, resnet, report, served)
     del served
     k1["launches_by_path"] = {"serve": slice_launches,
@@ -2995,7 +3188,7 @@ def main(argv=None) -> int:
                                       "stats_launches", "apply_launches",
                                       "act_launches")):
         k["launches"] = int(per_step[key] * TRAIN_STEPS)
-    attn_kernels = phase_kernel_attn(attention_cuda, report)
+    attn_kernels = phase_kernel_attn(attention_cuda, report, args.parent)
     lm_launches = phase_train_lm(pt, attention_cuda, report)
     serve_launches = phase_serve_lm(pt, attention_cuda, report)
     ring_kernels = phase_kernel_ring(attention_cuda, ring_attention, report)

@@ -1,6 +1,7 @@
 // Shared pieces of the flash-attention kernels: the bf16 Hopper kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu) and the f32 tile walk
-// (flash_attn_walk.cu).
+// (flash_attn_fwd.cu, flash_attn_bwd.cu), the f32 ones on tf32 wgmma
+// (flash_attn_fwd_tf32.cu, flash_attn_bwd_tf32.cu, through
+// flash_attn_tf32.cuh) and the f32 tile walk (flash_attn_walk.cu).
 //
 // Layout. q, k, v, o, dO and the gradients are [B, T, H, D], read and
 // written in place: row t of head h of batch b starts at ((b*T + t)*H +
@@ -41,6 +42,33 @@ __host__ __device__ __forceinline__ int key_tiles(int tk, int bk, bool causal,
   if (last_key < 0) return 0;
   const int reach = last_key / bk + 1;
   return reach < n ? reach : n;
+}
+
+// How far the 64 query rows from `first` (of tq) walk in key tiles of bk:
+// `n` tiles, the first `n_free` of them reached by no mask, keys at or past
+// `lim` (the end of the 64-key tiles the plain version visits, or Tk)
+// scored -inf. A forward kernel whose tiles are not VISIT keys wide gives
+// the plain version's answer by it.
+struct Walk {
+  int n, n_free, lim;
+};
+
+__device__ __forceinline__ Walk walk_of(int tq, int tk, bool causal,
+                                        int q_off, int k_off, int first,
+                                        int bk) {
+  Walk w{0, 0, 0};
+  if (first >= tq) return w;
+  const int last = min(first + 64, tq) - 1;
+  const int visit = key_tiles(tk, VISIT, causal, last, q_off, k_off);
+  w.lim = min(tk, visit * VISIT);
+  w.n = (w.lim + bk - 1) / bk;
+  w.n_free = w.lim / bk;
+  if (causal) {
+    // keys [0, x) are visible to every row of the group
+    const int x = q_off + first - k_off + 1;
+    w.n_free = min(w.n_free, x <= 0 ? 0 : x / bk);
+  }
+  return w;
 }
 
 // ---- the Hopper kernels' shared pieces ---------------------------------------

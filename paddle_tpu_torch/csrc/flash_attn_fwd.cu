@@ -107,28 +107,10 @@ constexpr int smem_bytes() {
          (1 + 2 * STAGES) * 8;
 }
 
-// How far the 64 query rows from `first` walk: `n` key tiles of bk, the
-// first `n_free` of them reached by no mask, keys at or past `lim` (the
-// end of the 64-key tiles the plain version visits, or Tk) scored -inf.
-struct Walk {
-  int n, n_free, lim;
-};
+using flash::Walk;
 
 __device__ __forceinline__ Walk walk_of(const Params& p, int first, int bk) {
-  Walk w{0, 0, 0};
-  if (first >= p.tq) return w;
-  const int last = min(first + 64, p.tq) - 1;
-  const int visit =
-      flash::key_tiles(p.tk, VISIT, p.causal, last, p.q_off, p.k_off);
-  w.lim = min(p.tk, visit * VISIT);
-  w.n = (w.lim + bk - 1) / bk;
-  w.n_free = w.lim / bk;
-  if (p.causal) {
-    // keys [0, x) are visible to every row of the group
-    const int x = p.q_off + first - p.k_off + 1;
-    w.n_free = min(w.n_free, x <= 0 ? 0 : x / bk);
-  }
-  return w;
+  return flash::walk_of(p.tq, p.tk, p.causal, p.q_off, p.k_off, first, bk);
 }
 
 // One key tile's online-softmax step on the accumulator layout: scale and

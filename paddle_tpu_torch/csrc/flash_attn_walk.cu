@@ -1,12 +1,11 @@
-// The f32 forms of the flash-attention forward kernels, for sm_90a: K7
-// (forward) and K10 (the ring's unnormalized forward block) on f32
-// operands, a tile walk on mma.sync with 3xTF32 products. The bf16 kernels
-// are flash_attn_fwd.cu and flash_attn_bwd.cu; the f32 backward (K8, K9) is
-// flash_attn_bwd_tf32.cu.
+// The f32 form of the ring's unnormalized flash-attention forward block
+// (K10 f32), for sm_90a: a tile walk on mma.sync with 3xTF32 products. The
+// bf16 kernels are flash_attn_fwd.cu and flash_attn_bwd.cu; the f32 forward
+// (K7 f32) is flash_attn_fwd_tf32.cu and the f32 backward (K8, K9)
+// flash_attn_bwd_tf32.cu, both on tf32 wgmma.
 //
-// Replaces, in f32: paddle_tpu/ops/pallas_attention.py `_fwd_kernel` (:143;
-// normalize=True through `_forward` :266 -> `_fwd_call` :225 is K7,
-// normalize=False through `flash_attention_block` :276 is K10). The
+// Replaces, in f32: paddle_tpu/ops/pallas_attention.py `_fwd_kernel` (:143)
+// with normalize=False, through `flash_attention_block` :276. The
 // reference's kernels take any float dtype and accumulate in f32 (`_dot`
 // :130); with f32 operands its rounding of P to the operand dtype is a
 // no-op, so P stays f32 here.
@@ -39,16 +38,15 @@
 //   C (16x8, f32):      c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..2t+1)
 //
 // Arithmetic: S = Q K^T in f32, times scale; masked scores -1e30; the
-// online softmax's row max and sum in f32 (expf); K7: O = acc / max(l,
-// 1e-30), LSE = m + log(max(l, 1e-30)); K10: the raw (acc, l, m), a row no
-// visited tile reaches left at (0, 0, -1e30).
+// online softmax's row max and sum in f32 (expf); the raw (acc, l, m), a
+// row no visited tile reaches left at (0, 0, -1e30).
 //
 // Bound on an H100: the products run as three TF32 passes, so 495 / 3 =
-// 165 TF/s. Causal at the f32 paths' shape [1, 2048, 8, 64], K7 and K10
-// do 4.3 GFLOP (0.026 ms). Their bytes (f32: twice bf16's) stay below a
+// 165 TF/s. Causal at the f32 ring step's shape [1, 2048, 8, 64], K10
+// does 4.3 GFLOP (0.026 ms). Its bytes (f32: twice bf16's) stay below a
 // tenth of that time: operation-bound. What holds this walk back: mma.sync
 // at m16n8k8, 64-bit shared loads, every thread a loader, and three passes
-// per product.
+// per product; K7 f32's design (flash_attn_fwd_tf32.cu) is its successor.
 
 #include "flash_attn_common.cuh"
 
@@ -194,16 +192,14 @@ struct FwdParams {
   const float* q;  // [B, Tq, H, D]
   const float* k;  // [B, Tk, H, D]
   const float* v;  // [B, Tk, H, D]
-  float* o;        // [B, Tq, H, D]  K7
-  float* lse;      // [B, H, Tq]     K7
-  float* acc;      // [B, Tq, H, D]  K10
-  float* m;        // [B, H, Tq]     K10
-  float* l;        // [B, H, Tq]     K10
+  float* acc;      // [B, Tq, H, D]
+  float* m;        // [B, H, Tq]
+  float* l;        // [B, H, Tq]
   int h, tq, tk, d, q_off, k_off, causal;
   float scale;
 };
 
-template <int DP, int BK, bool NORMALIZE>
+template <int DP, int BK>
 __global__ void __launch_bounds__(THREADS) walk_fwd_kernel(FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = DP + PAD;
@@ -346,104 +342,53 @@ __global__ void __launch_bounds__(THREADS) walk_fwd_kernel(FwdParams p) {
     __syncthreads();  // the next iteration's loads overwrite this stage
   }
 
+  // the raw f32 state, acc with 64-bit row offsets
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  if constexpr (!NORMALIZE) {
-    // K10's epilogue: the raw f32 state, acc with 64-bit row offsets
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] >= p.tq) continue;
-      float* arow = p.acc + ((long long)bb * p.tq + rows[r]) * stride +
-                    (long long)hh * p.d;
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= p.tq) continue;
+    float* arow = p.acc + ((long long)bb * p.tq + rows[r]) * stride +
+                  (long long)hh * p.d;
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        const int col = n * 8 + 2 * t;
-        if (col < p.d) store2(arow + col, acc[n][2 * r], acc[n][2 * r + 1]);
-      }
-      if (t == 0) {
-        const long long row = ((long long)bb * p.h + hh) * p.tq + rows[r];
-        p.m[row] = m[r];
-        p.l[row] = l[r];
-      }
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (col < p.d) store2(arow + col, acc[n][2 * r], acc[n][2 * r + 1]);
     }
-  } else {
-    // epilogue: O = acc / max(l, 1e-30), LSE = m + log(..)
-    float denom[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) denom[r] = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (rows[r] >= p.tq) continue;
-      float* orow = p.o + ((long long)bb * p.tq + rows[r]) * stride +
-                    (long long)hh * p.d;
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        const int col = n * 8 + 2 * t;
-        if (col < p.d)
-          store2(orow + col, acc[n][2 * r] / denom[r],
-                 acc[n][2 * r + 1] / denom[r]);
-      }
-      if (t == 0)
-        p.lse[((long long)bb * p.h + hh) * p.tq + rows[r]] =
-            m[r] + logf(denom[r]);
+    if (t == 0) {
+      const long long row = ((long long)bb * p.h + hh) * p.tq + rows[r];
+      p.m[row] = m[r];
+      p.l[row] = l[r];
     }
   }
 }
 
 // ---- host --------------------------------------------------------------------
 
-template <typename Kernel, typename Params>
-int launch(Kernel kernel, const Params& p, int b, int rows_total,
-           size_t smem, bool* configured, cudaStream_t stream) {
-  if (!*configured) {
+template <int DP>
+int launch_fwd(const FwdParams& p, int b, cudaStream_t stream) {
+  constexpr int BK = 64;
+  auto kernel = walk_fwd_kernel<DP, BK>;
+  const size_t smem = (size_t)(ROWS + 4 * BK) * (DP + PAD) * sizeof(float);
+  static bool configured = false;
+  if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    *configured = true;
+    configured = true;
   }
-  dim3 grid((unsigned)((rows_total + ROWS - 1) / ROWS), (unsigned)p.h,
-            (unsigned)b);
+  dim3 grid((unsigned)((p.tq + ROWS - 1) / ROWS), (unsigned)p.h, (unsigned)b);
   kernel<<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-template <int DP, bool NORMALIZE>
-int launch_fwd(const FwdParams& p, int b, cudaStream_t stream) {
-  constexpr int BK = 64;
-  static bool configured = false;
-  const size_t smem = (size_t)(ROWS + 4 * BK) * (DP + PAD) * sizeof(float);
-  return launch(walk_fwd_kernel<DP, BK, NORMALIZE>, p, b, p.tq, smem,
-                &configured, stream);
-}
-
-template <bool NORMALIZE>
-int fwd(const FwdParams& p, int b, cudaStream_t s) {
-  if (p.d <= 64) return launch_fwd<64, NORMALIZE>(p, b, s);
-  return launch_fwd<128, NORMALIZE>(p, b, s);
 }
 
 bool bad_head_dim(int d) { return d % 16 != 0 || d > 128 || d <= 0; }
 
 }  // namespace
 
-// The entry points take f32 operands and write f32 outputs, with the
-// operand rules of the bf16 kernels: D a multiple of 16 up to 128, Tq and
-// Tk multiples of 8, 16-byte aligned pointers. Each returns the CUDA error
-// code.
-
-// K7: o [B, Tq, H, D] and lse [B, H, Tq].
-extern "C" int flash_walk_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int b, int h, int tq,
-                              int tk, int d, int q_off, int k_off,
-                              float scale, int causal, void* stream) {
-  if (bad_head_dim(d)) return (int)cudaErrorInvalidValue;
-  FwdParams p{static_cast<const float*>(q), static_cast<const float*>(k),
-              static_cast<const float*>(v), static_cast<float*>(o),
-              static_cast<float*>(lse), nullptr, nullptr, nullptr, h, tq, tk,
-              d, q_off, k_off, causal ? 1 : 0, scale};
-  return fwd<true>(p, b, static_cast<cudaStream_t>(stream));
-}
-
-// K10: acc [B, Tq, H, D] and m, l [B, H, Tq].
+// K10 f32: acc [B, Tq, H, D] and m, l [B, H, Tq] from f32 q [B, Tq, H, D]
+// and k, v [B, Tk, H, D], with the operand rules of the bf16 kernels: D a
+// multiple of 16 up to 128, Tq and Tk multiples of 8, 16-byte aligned
+// pointers. Returns the CUDA error code.
 extern "C" int flash_walk_fwd_block(const void* q, const void* k,
                                     const void* v, void* acc, void* m,
                                     void* l, int b, int h, int tq, int tk,
@@ -451,9 +396,10 @@ extern "C" int flash_walk_fwd_block(const void* q, const void* k,
                                     int causal, void* stream) {
   if (bad_head_dim(d)) return (int)cudaErrorInvalidValue;
   FwdParams p{static_cast<const float*>(q), static_cast<const float*>(k),
-              static_cast<const float*>(v), nullptr, nullptr,
-              static_cast<float*>(acc), static_cast<float*>(m),
-              static_cast<float*>(l), h, tq, tk, d, q_off, k_off,
-              causal ? 1 : 0, scale};
-  return fwd<false>(p, b, static_cast<cudaStream_t>(stream));
+              static_cast<const float*>(v), static_cast<float*>(acc),
+              static_cast<float*>(m), static_cast<float*>(l), h, tq, tk, d,
+              q_off, k_off, causal ? 1 : 0, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.d <= 64) return launch_fwd<64>(p, b, s);
+  return launch_fwd<128>(p, b, s);
 }

@@ -2,24 +2,26 @@
 // K3 in conv2d_wgrad.cu) and the flash-attention kernels (K7/K10 in
 // flash_attn_fwd.cu, K8/K9 in flash_attn_bwd.cu), for sm_90a: mbarriers,
 // TMA tile loads, wgmma shared-memory descriptors and the bf16 wgmma
-// instructions; the tf32 wgmma instructions of the f32 flash-attention
-// backward (K8/K9 in flash_attn_bwd_tf32.cu); the host side's tensor-map
-// encoder.
+// instructions; the s8 wgmma instructions of the int8 conv (K11, in
+// conv2d_fwd.cu); the tf32 wgmma instructions of the f32 flash-attention
+// kernels (K7 in flash_attn_fwd_tf32.cu, K8/K9 in flash_attn_bwd_tf32.cu);
+// the host side's tensor-map encoder.
 //
 // Tiles. Every operand tile in shared memory is a stack of 128-byte rows
-// (64 bf16), written by TMA with the 128-byte swizzle (16-byte chunk c of
-// row r lands at chunk c ^ (r % 8)); tiles start on 1024-byte boundaries.
-// A K-major operand (K1's pixels and filter: the 64 channels of a row are
-// the reduction axis) is read by wgmma with SBO = 1024 (one 8-row group)
-// and advanced along K by 32 bytes per k16 step. An MN-major operand (K3's
+// (64 bf16, 128 int8 or 32 f32), written by TMA with the 128-byte swizzle
+// (16-byte chunk c of row r lands at chunk c ^ (r % 8)); tiles start on
+// 1024-byte boundaries. A K-major operand (K1's pixels and filter: the 64
+// channels of a row are the reduction axis) is read by wgmma with SBO =
+// 1024 (one 8-row group) and advanced along K by 32 bytes per k step (k16
+// bf16, k32 int8, k8 tf32). An MN-major operand (K3's
 // dout and pixels: a row is one output pixel, the reduction index, holding
 // 64 channels of M or N) is read with the transpose bit, SBO = 1024 (eight
 // pixels) and LBO = the distance between its 64-wide column blocks, and
 // advanced along K by 16 rows (2048 bytes) per k16 step.
 //
-// Accumulators of wgmma m64nNk16 (f32), thread t of the warpgroup, warp
-// w = t / 32, lane l: d[4j + e] is row 16w + l/4 + 8*(e/2), column
-// 8j + 2*(l%4) + e%2.
+// Accumulators of wgmma m64nNk16 (f32; the s32 accumulators of m64nNk32
+// s8 lie the same way), thread t of the warpgroup, warp w = t / 32, lane
+// l: d[4j + e] is row 16w + l/4 + 8*(e/2), column 8j + 2*(l%4) + e%2.
 //
 // The tensor map encoder is the driver's cuTensorMapEncodeTiled, reached
 // through the runtime's cudaGetDriverEntryPoint (ByVersion from CUDA 12.5),
@@ -231,6 +233,65 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d += A * B for one k32 step of int8: m64 x N (64 or 128), both operands
+// K-major in shared memory (8-bit wgmma has no transpose bits), exact s32
+// accumulation.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (BN == 64)
+    wgmma_s8_n64(d, da, db);
+  else
+    wgmma_s8_n128(d, da, db);
+}
+
 __device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
@@ -440,6 +501,24 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
                                                    const uint32_t (&a)[4],
                                                    uint64_t db, int scale_d) {
@@ -502,12 +581,15 @@ __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
 }
 
 // d (+)= A * B, m64 x N x k8 tf32, both operands K-major in shared memory
-// (the score products run at N 32)
+// (the score products run at N 32 or 64)
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
                                               uint64_t db, int scale_d) {
-  static_assert(N == 32, "tf32 ss wgmma: N 32 only");
-  wgmma_tf32_ss_n32(d, da, db, scale_d);
+  static_assert(N == 32 || N == 64, "tf32 ss wgmma: N 32 or 64");
+  if constexpr (N == 32)
+    wgmma_tf32_ss_n32(d, da, db, scale_d);
+  else
+    wgmma_tf32_ss_n64(d, da, db, scale_d);
 }
 
 // d (+)= A * B, m64 x N x k8 tf32, A from registers, B K-major in shared
@@ -534,6 +616,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }

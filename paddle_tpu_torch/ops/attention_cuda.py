@@ -18,10 +18,11 @@ and called through ctypes:
   (K8, K9) on wgmma with TMA loads through an mbarrier ring, a producer
   warp and consumer warpgroups of 64 resident rows; each entry point picks
   its tile plan from the head dim.
-- f32: `csrc/flash_attn_bwd_tf32.cu` (K8, K9) on tf32 wgmma with TMA loads
-  through an mbarrier ring, split warps that turn each landed tile into
-  the tf32 hi/lo and transposed forms the products read; `csrc/
-  flash_attn_walk.cu` (K7, K10), a tile walk on mma.sync. Both run every
+- f32: `csrc/flash_attn_fwd_tf32.cu` (K7) and `csrc/flash_attn_bwd_tf32.cu`
+  (K8, K9) on tf32 wgmma with TMA loads through an mbarrier ring, split
+  warps that turn each landed tile into the tf32 hi/lo and transposed
+  forms the products read (`csrc/flash_attn_tf32.cuh`); `csrc/
+  flash_attn_walk.cu` (K10), a tile walk on mma.sync. All run every
   product as three TF32 passes (3xTF32) and leave P and dS in f32 as the
   reference leaves them for f32 operands.
 Operands stay [B, T, H, D] (the JAX layout) and are read in place with a
@@ -282,7 +283,7 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, q_off, k_off, scale,
 # The C entry points: flash_attn_fwd(q, k, v, o, lse, b, h, tq, tk, d,
 # q_off, k_off, scale, causal, stream); flash_attn_fwd_block takes acc, m,
 # l in place of o, lse; flash_attn_bwd_dq q, k, v, dout, lse, delta, dq, and
-# flash_attn_bwd_dkv dk, dv in place of dq. The f32 forms (flash_walk_fwd,
+# flash_attn_bwd_dkv dk, dv in place of dq. The f32 forms (flash_tf32_fwd,
 # flash_walk_fwd_block, flash_tf32_bwd_dq, flash_tf32_bwd_dkv) take the same
 # arguments.
 def _argtypes(pointers):
@@ -294,7 +295,7 @@ def _argtypes(pointers):
 # f32, pointer count)
 _KERNELS = {
     "fwd": (("flash_attn_fwd", "flash_attn_fwd", "launches"),
-            ("flash_attn_walk", "flash_walk_fwd", "f32_launches"), 5),
+            ("flash_attn_fwd_tf32", "flash_tf32_fwd", "f32_launches"), 5),
     "block": (("flash_attn_fwd", "flash_attn_fwd_block", "block_launches"),
               ("flash_attn_walk", "flash_walk_fwd_block",
                "f32_block_launches"), 6),

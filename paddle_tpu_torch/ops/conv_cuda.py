@@ -24,10 +24,11 @@ stride. The bf16 output leaves by TMA stores. The TPU kernel's row walk
 `conv_plan` chooses per shape, in Python (tested on the CPU): the pixel
 tile (FLAT, or the box of 2**7 output pixels that covers the output in
 the fewest tiles), the N tile (64 or 128), split-K for the grids that
-cannot fill the card, and the ring's depth; its rule was chosen by timing
-the alternatives at every ResNet-50 shape on the card
-(tests/torch_conv_sweep.py). A split reduces its f32 workspace in a fixed
-order in a second kernel, so every call is bitwise repeatable.
+cannot fill the card, and the ring's depth; its rules (one for bf16, one
+for int8) were chosen by timing the alternatives at every ResNet-50 shape
+on the card (tests/torch_conv_sweep.py). A split reduces its workspace
+(f32; K11's int32) in a fixed order in a second kernel, so every call is
+bitwise repeatable.
 
 The filter is not copied per call: `conv2d` and `conv2d_stats` read an
 OIHW view of OHWI memory (channels_last) in place, which is how the
@@ -68,12 +69,16 @@ bound like K1 (operations at the 3x3 convs, bytes at the 1x1 convs); K2's
 bound counts the undilated work.
 
 K11, `conv2d_q8` (replaces pallas_conv.py `conv2d_q8` :431 -> `_conv_call`
-(:331) -> `_fwd_kernel` :204 in its int8 form): `csrc/conv2d_q8.cu`, an
-implicit GEMM like K1's with int8 operands (the filter passed OHWI, the
-reduction axis minor), mma.sync m16n8k32 s8 into exact int32 sums, and an
-epilogue that rounds each sum to f32, multiplies it by the f32 dequant
-scale of its output channel and rounds once to bf16 — the reference's
-arithmetic, so kernel and plain version agree bitwise. Bound: the larger of
+(:331) -> `_fwd_kernel` :204 in its int8 form): K1's kernel body in
+`csrc/conv2d_fwd.cu` on int8 operands — the same TMA loads, mbarrier ring
+and plan (`conv_plan` with the element size: a step is one tap and 128
+channels), wgmma m64nNk32 s8 into exact int32 sums, an epilogue that
+rounds each sum to f32, multiplies it by the f32 dequant scale of its
+output channel and rounds once to bf16 (the reference's arithmetic, so
+kernel and plain version agree bitwise), split-K through an int32
+workspace added in order. Its filter is read as K1's is (an OIHW view of
+OHWI memory in place, as the serving engine's prequantized filters are
+stored; any other copied once and counted). Bound: the larger of
 2*M*Co*KH*KW*Ci integer operations against 1,979 TOP/s int8 and the bytes
 of x (the pixels read, one each), w (one each), dq and y against 3.35
 TB/s. Its gate is `quant.ineligible_conv` (the reference's 128-channel
@@ -131,9 +136,10 @@ class Counters:
     the JAX package's pallas_kernel_total / pallas_fallback_total.
     `layout_copies`: cotangents conv2d_grad had to copy into channels_last
     memory. `filter_copies`: filters a wrapper had to copy into the OHWI
-    memory its kernel reads (K1 and K4 copy none when handed an OIHW view
-    of OHWI memory, as the serving fold and the training casts store them;
-    K2 writes its channel-swapped filter once per call)."""
+    memory its kernel reads (K1, K4 and K11 copy none when handed an OIHW
+    view of OHWI memory, as the serving fold, the training casts and the
+    int8 engine's prequantized filters store them; K2 writes its
+    channel-swapped filter once per call)."""
     launches: int = 0
     dgrad_launches: int = 0
     wgrad_launches: int = 0
@@ -459,29 +465,31 @@ def _box(n, oh, ow, strides, log_pixels):
     return best[1], best[2]
 
 
-def conv_plan(x_shape, co, kh, kw, oh, ow, strides, pads, sms=132) -> ConvPlan:
-    """K1's plan (`_conv_plan`), cached by shape: the wrappers sit on the
-    host-bound serving path, and a box search costs tens of microseconds."""
+def conv_plan(x_shape, co, kh, kw, oh, ow, strides, pads, sms=132,
+              elem=2) -> ConvPlan:
+    """The plan of K1's kernel body (`_conv_plan`) for operands of `elem`
+    bytes (2: K1, K2, K4 in bf16; 1: K11 in int8), cached by shape: the
+    wrappers sit on the host-bound serving path, and a box search costs
+    tens of microseconds."""
     return _conv_plan(tuple(x_shape), co, kh, kw, oh, ow, tuple(strides),
-                      tuple(pads), sms)
+                      tuple(pads), sms, elem)
 
 
 @functools.lru_cache(maxsize=4096)
-def _conv_plan(x_shape, co, kh, kw, oh, ow, strides, pads, sms) -> ConvPlan:
-    """K1's plan for x [N, H, W, Ci] (NHWC), Co output channels, a KH x KW
-    filter, the output's OH x OW, and the strides and (lo) paddings. One
-    function of the shape: K1 and K4 take the same plan, so K4's y is K1's
-    bitwise. Split-K where the pixel and channel tiles leave SMs idle
-    (ResNet-50's stage 4 at batch 16, the batch-1 and batch-4 buckets);
-    the reduction's order is fixed by the plan, so a repeated call is
-    bitwise equal."""
-    n, h, w, ci = x_shape
-    if _is_flat(kh, kw, (h, w), (oh, ow), strides, pads):
-        lb, m_tiles = (0, 0, _LOG_TILE), -(-n * h * w >> _LOG_TILE)
-        flat = True
-    else:
-        lb, m_tiles = _box(n, oh, ow, strides, _LOG_TILE)
-        flat = False
+def _conv_plan(x_shape, co, kh, kw, oh, ow, strides, pads, sms,
+               elem) -> ConvPlan:
+    """The plan for x [N, H, W, Ci] (NHWC), Co output channels, a KH x KW
+    filter, the output's OH x OW, the strides and (lo) paddings, and the
+    operands' element size. One function of the shape: K1 and K4 take the
+    same plan, so K4's y is K1's bitwise. A reduction step is one tap and
+    one 128-byte row of channels (64 bf16, 128 int8). Split-K where the
+    pixel and channel tiles leave SMs idle (ResNet-50's stage 4 at batch
+    16, the batch-1 and batch-4 buckets); the reduction's order is fixed by
+    the plan, so a repeated call is bitwise equal."""
+    if elem == 1:
+        return _conv_plan_q8(x_shape, co, kh, kw, oh, ow, strides, pads, sms)
+    ci = x_shape[3]
+    flat, lb, m_tiles = _pixel_tiles(x_shape, kh, kw, oh, ow, strides, pads)
     steps = kh * kw * -(-ci // 64)
     # the rule below was chosen by timing candidates at every ResNet-50
     # shape of the batch-1, -4 and -16 buckets on an H100
@@ -500,6 +508,41 @@ def _conv_plan(x_shape, co, kh, kw, oh, ow, strides, pads, sms) -> ConvPlan:
     per = -(-steps // splits)
     return ConvPlan(flat, *lb, block_n, m_tiles, steps, -(-steps // per), per,
                     min(per, 3 if tiles >= 64 else 4))
+
+
+def _pixel_tiles(x_shape, kh, kw, oh, ow, strides, pads):
+    """(flat, (lbn, lbh, lbw), pixel tiles) of K1's kernel body: FLAT for
+    a stride-1 1x1 conv with no padding, else the box of 2**7 output
+    pixels that covers the output in the fewest tiles."""
+    n, h, w, _ = x_shape
+    if _is_flat(kh, kw, (h, w), (oh, ow), strides, pads):
+        return True, (0, 0, _LOG_TILE), -(-n * h * w >> _LOG_TILE)
+    lb, m_tiles = _box(n, oh, ow, strides, _LOG_TILE)
+    return False, lb, m_tiles
+
+
+def _conv_plan_q8(x_shape, co, kh, kw, oh, ow, strides, pads, sms):
+    """K11's plan: K1's pixel tiles, 128-channel steps (steps = KH*KW*
+    ceil(Ci/128)), and its own N tile, split and ring rules."""
+    flat, lb, m_tiles = _pixel_tiles(x_shape, kh, kw, oh, ow, strides, pads)
+    steps = kh * kw * -(-x_shape[3] // 128)
+    # the rule below was chosen by timing candidates at every quantized
+    # ResNet-50 shape of the batch-1, -4 and -16 buckets on an H100
+    # (`python tests/torch_conv_sweep.py q8`): with half K1's reduction per
+    # tile, the epilogue weighs more and 64 output channels a tile was as
+    # fast or faster at 41 of the 45 shapes; 128 only where Co >= 1024 and
+    # 128-channel tiles fill the card. Split-K, and the ring's depth, as
+    # K1's, counted on the 128-channel grid, each split at least 4 steps
+    # (8 of K1's): a split's int32 workspace round trip cost up to 3.6x
+    # the unsplit call at the one- and two-step 1x1 convs.
+    grid128 = m_tiles * -(-co // 128)
+    block_n = 128 if co >= 1024 and grid128 >= sms else 64
+    splits = 1
+    if grid128 <= sms // 4:
+        splits = max(1, min(sms // grid128, steps // 4))
+    per = -(-steps // splits)
+    return ConvPlan(flat, *lb, block_n, m_tiles, steps, -(-steps // per), per,
+                    min(per, 3 if grid128 >= 64 else 4))
 
 
 # K3's split: (blocks to aim for on a 132-SM card, least slices of 64
@@ -561,8 +604,9 @@ def wgrad_splits(x_nhwc, w, strides, paddings, dilations, sms=132):
 # ints, flip, flat, lbn, lbh, lbw, block_n, splits, per, stages, out_f32,
 # stats, stream)
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 26 + [ctypes.c_void_p]
-# conv2d_q8(x, w, dq, y, 15 shape/geometry ints, out_f32, stream)
-_Q8_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+# conv2d_q8(x, w, dq, y, ws, 15 shape/geometry ints, flat, lbn, lbh, lbw,
+# block_n, splits, per, stages, out_f32, stream)
+_Q8_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 24 + [ctypes.c_void_p]
 # conv2d_wgrad(x, dout, ws, out, 15 ints, flat, lbn, lbh, lbw, nwg, block_n,
 # splits, per, stages, out_f32, stream)
 _WGRAD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 25 + [ctypes.c_void_p]
@@ -747,12 +791,12 @@ def conv2d_stats(x, w, strides, paddings, dilations, out_dtype=None):
 
 
 def conv2d_q8(x, w, strides, paddings, dilations, dq, out_dtype=None):
-    """K11. x [N, H, W, Ci] int8, w [Co, Ci, KH, KW] int8 (any strides; an
-    OIHW view of an OHWI-contiguous filter is passed without a copy), dq
-    [Co] f32 -> y [N, OH, OW, Co] in `out_dtype` (bf16 default, float32
-    allowed). The caller must have passed quant.ineligible_conv. CPU
-    tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream, or raise."""
+    """K11. x [N, H, W, Ci] int8, w [Co, Ci, KH, KW] int8 (an OIHW view of
+    OHWI memory is read in place; any other filter is copied once, and
+    counted in COUNTERS.filter_copies), dq [Co] f32 -> y [N, OH, OW, Co]
+    in `out_dtype` (bf16 default, float32 allowed). The caller must have
+    passed quant.ineligible_conv. CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream, or raise."""
     if x.device.type == "cpu":
         return conv2d_q8_reference(x, w, strides, paddings, dilations, dq,
                                    out_dtype)
@@ -775,16 +819,25 @@ def conv2d_q8(x, w, strides, paddings, dilations, dq, out_dtype=None):
     n, h, wd, ci = x.shape
     co, _, kh, kw = w.shape
     oh, ow = _out_hw(x, w, strides, paddings, dilations)
+    plan = conv_plan((n, h, wd, ci), co, kh, kw, oh, ow, strides, paddings,
+                     elem=1)
     xc = cuda_build.aligned(x)
-    wc = cuda_build.aligned(w.permute(0, 2, 3, 1))
+    wc = _ohwi(w)
     dqc = cuda_build.aligned(dq)
     y = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
-    fn = cuda_build.entry("conv2d_q8", "conv2d_q8", _Q8_ARGTYPES)
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, n * oh * ow, co), dtype=torch.int32,
+                         device=x.device)
+    fn = cuda_build.entry("conv2d_fwd", "conv2d_q8", _Q8_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(xc.data_ptr(), wc.data_ptr(), dqc.data_ptr(), y.data_ptr(),
+            0 if ws is None else ws.data_ptr(),
             n, h, wd, ci, co, kh, kw, oh, ow, strides[0], strides[1],
             paddings[0], paddings[1], dilations[0], dilations[1],
+            int(plan.flat), plan.lbn, plan.lbh, plan.lbw, plan.block_n,
+            plan.splits, plan.per, plan.stages,
             int(out_dtype == torch.float32), stream)
     COUNTERS.q8_launches += 1
-    _raise_on(rc, "conv2d_q8", x, w)
+    _raise_on(rc, "conv2d_fwd_q8", x, w)
     return y

@@ -341,3 +341,86 @@ def test_f32_backward_arithmetic_holds_the_f32_rule(shape, causal):
 
     assert within(_f32_backward(*args, passes=3)) == [True] * 3
     assert not any(within(_f32_backward(*args, passes=1)))
+
+
+# --- the f32 forward kernel's arithmetic (csrc/flash_attn_fwd_tf32.cu) ---------
+
+def _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, passes):
+    """K7 f32 as the kernel runs it: per 64 query rows, the 64-key tiles the
+    plain version visits walked in tiles of `bk` keys (keys past the last
+    visited tile or Tk add exactly nothing); S from tf32 products (one
+    chain over D), times scale rounded, causal-masked -1e30; the online
+    softmax in f32; each tile's P V one tf32 partial joined by o = o *
+    alpha + partial; O = o / max(l, 1e-30), LSE = m + log(max(l, 1e-30)).
+    Returns (o [B, Tq, H, D], lse [B, H, Tq])."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    o = torch.zeros((b, h, tq, d))
+    lse = torch.zeros((b, h, tq))
+    for q0 in range(0, tq, 64):
+        rows = slice(q0, min(q0 + 64, tq))
+        visit = -(-tk // 64)
+        if causal:
+            last_key = q_off + rows.stop - 1 - k_off
+            visit = 0 if last_key < 0 else min(visit, last_key // 64 + 1)
+        lim = min(tk, visit * 64)
+        qpos = q_off + torch.arange(rows.start, rows.stop)
+        m = torch.full((b, h, rows.stop - q0), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, rows.stop - q0, d))
+        for k0 in range(0, lim, bk):
+            keys = torch.arange(k0, min(k0 + bk, lim))
+            kb, vb = kf[:, :, keys], vf[:, :, keys]
+            s = _tf32_product(qf[:, :, rows], kb.transpose(-1, -2), passes) \
+                * scale
+            if causal:
+                keep = qpos[:, None] >= k_off + keys[None, :]
+                s = torch.where(keep, s, torch.full_like(s, -1e30))
+            mx = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - mx)
+            pr = torch.exp(s - mx[..., None])
+            l = l * corr + pr.sum(-1)
+            m = mx
+            acc = acc * corr[..., None] + _tf32_product(pr, vb, passes)
+        denom = torch.clamp(l, min=1e-30)
+        o[:, :, rows] = acc / denom[..., None]
+        lse[:, :, rows] = m + torch.log(denom)
+    return o.permute(0, 2, 1, 3), lse
+
+
+# (B, Tq, Tk, H, D, q_off, k_off): the JAX tests' shapes; T 72 (a ragged
+# tile); Tq != Tk with offsets that cut tiles; rows 100-119 whose every key
+# is masked (p = 1 over the visited tile, the plain version's behaviour)
+F32_FWD_CASES = [(2, 64, 64, 2, 32, 0, 0), (1, 128, 128, 4, 64, 0, 0),
+                 (2, 256, 256, 2, 64, 0, 0), (1, 72, 72, 2, 128, 0, 0),
+                 (1, 200, 328, 2, 48, 40, 72), (1, 64, 136, 2, 80, 100, 120)]
+
+
+@pytest.mark.parametrize("bk", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", F32_FWD_CASES, ids=str)
+def test_f32_forward_arithmetic_holds_the_f32_rule(case, causal, bk):
+    """K7 f32's scheme (3xTF32 products, key tiles of 32 or 64 inside the
+    plain version's 64-key visiting, per-tile P V partials joined by the
+    online rescale), emulated on the CPU, stays within
+    chip_smoke.attention_tolerance's f32 rule of the plain version (LSE
+    within 1e-5 of max(1, |lse|)); one tf32 pass (hi alone) does not."""
+    b, tq, tk, h, d, q_off, k_off = case
+    rng = np.random.default_rng(sum(case) + bk)
+    q = torch.from_numpy(rng.standard_normal((b, tq, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, tk, h, d))
+                             .astype(np.float32)) for _ in range(2))
+    scale = 1.0 / np.sqrt(d)
+    ro, rlse = A.flash_forward_reference(q, k, v, causal, q_off, k_off, scale)
+    bound, = attention_tolerance("fwd", q, k, v, causal, q_off=q_off,
+                                 k_off=k_off, scale=scale)
+    o, lse = _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, 3)
+    assert ((o - ro).abs() <= bound).all()
+    assert ((lse - rlse).abs() <= 1e-5 * rlse.abs().clamp_min(1.0)).all()
+    if causal and q_off < k_off:    # rows whose every key is masked
+        masked = slice(0, k_off - q_off)
+        assert (rlse[..., masked] == -1e30).all()
+        assert (ro[:, masked].abs().sum(-1) > 0).all()      # p = 1, not 0
+    o1, _ = _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, 1)
+    assert not ((o1 - ro).abs() <= bound).all()

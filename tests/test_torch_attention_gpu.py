@@ -8,7 +8,9 @@ shards, whose offsets cut tiles, at D 16, 48, 80 and 112 too), the
 backward at those head dims, the f32 backward at T 8192, the
 four-shard ring merge against K7 on the whole sequence, bitwise
 repeatability, the autograd Function's gradient against autograd through
-the einsum path, and the f32 flash ring through the f32 kernels.
+the einsum path, and the f32 flash ring through the f32 kernels. K7's f32
+form (csrc/flash_attn_fwd_tf32.cu) also at every head dim 16-128, Tq !=
+Tk with offsets, rows whose every visited key is masked, and T 8192.
 
 The kernels have no CPU mode, so every test here needs a CUDA device and
 skips without one. This file imports no JAX (the GPU machine has none): run
@@ -405,3 +407,58 @@ def test_flash_ring_runs_f32_on_the_card(device):
     h = q.to(torch.float16)
     with pytest.raises(ValueError, match="float16"):
         R.ring_attention_sharded(h, h, h, mesh, causal=True, use_flash=True)
+
+
+# K7 f32 (tf32 wgmma): (B, Tq, Tk, H, q_off, k_off): T a multiple of 8 but
+# not of 64, Tq != Tk with offsets that cut tiles, rows 100-119 and 40-71
+# whose every visited key is masked (p = 1 over the visited tile, the plain
+# version's behaviour), a query tile that visits nothing (Tq 64 at q_off 0
+# against keys from 64)
+F32_FWD_CASES = [(2, 72, 72, 2, 0, 0), (1, 200, 328, 2, 40, 72),
+                 (1, 64, 136, 2, 100, 120), (1, 136, 72, 3, 64, 0),
+                 (1, 64, 128, 2, 0, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", F32_FWD_CASES, ids=str)
+def test_f32_forward_matches_plain_version(device, case, causal, d):
+    b, tq, tk, h, q_off, k_off = case
+    q = _rand((b, tq, h, d), device, d, dtype=torch.float32)
+    k, v = (_rand((b, tk, h, d), device, d + i, dtype=torch.float32)
+            for i in (1, 2))
+    scale = 1.0 / math.sqrt(d)
+    A.COUNTERS.reset()
+    o, lse = A.flash_forward_block(q, k, v, q_off, k_off, scale, causal)
+    o2, lse2 = A.flash_forward_block(q, k, v, q_off, k_off, scale, causal)
+    torch.cuda.synchronize()
+    assert A.COUNTERS.f32_launches == 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = A.flash_forward_reference(q, k, v, causal, q_off, k_off,
+                                         scale)
+    bound, = attention_tolerance("fwd", q, k, v, causal, q_off=q_off,
+                                 k_off=k_off, scale=scale)
+    _assert_within(o, ro, bound, f"o {case} D {d}")
+    assert ((lse - rlse).abs() <= 1e-5 * rlse.abs().clamp_min(1.0)).all()
+    if causal and q_off < k_off:            # rows whose every key is masked
+        rows = slice(0, min(tq, k_off - q_off))
+        assert (lse[..., rows] == rlse[..., rows]).all()
+
+
+@pytest.mark.gpu
+def test_f32_forward_long_sequence(device):
+    """K7 f32 at T 8192 causal: o joins a tile's P V partial at a time, so
+    the tensor cores' truncating accumulation stays inside the f32 rule (a
+    single chain of 8192 keys drifts past it: tests/torch_tf32_probe.py);
+    bitwise repeatable."""
+    shape = (1, 8192, 2, 64)
+    q, k, v, _ = _operands(shape, device, 51, dtype=torch.float32)
+    o, lse = A.flash_forward(q, k, v, True)
+    o2, lse2 = A.flash_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = A.flash_forward_reference(q, k, v, True)
+    bound, = attention_tolerance("fwd", q, k, v, True, rows=2048)
+    _assert_within(o, ro, bound, "o")
+    assert ((lse - rlse).abs() <= 1e-5 * rlse.abs().clamp_min(1.0)).all()

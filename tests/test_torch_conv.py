@@ -8,6 +8,8 @@ differ only in the order of the sums, so f32 outputs agree to rtol/atol
 against the same plain version on the card by chip_smoke.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -265,6 +267,92 @@ def test_conv_plan_splits_only_small_grids():
         # 64 output channels a tile where there are only 64
         if co <= 64:
             assert pl.block_n == 64
+
+
+Q8_PLAN_SHAPES = [sh for sh in PLAN_SHAPES if sh[3] % 16 == 0 and
+                  sh[4] % 16 == 0]
+
+
+@pytest.mark.parametrize("shape", Q8_PLAN_SHAPES, ids=str)
+def test_q8_plan_steps_by_element_size(shape):
+    """K11's plan (conv_plan with elem=1): K1's pixel tiles, a reduction
+    step of one tap and 128 int8 channels (one 128-byte row, as K1's 64
+    bf16), every split non-empty, a ring that can hold a step while the
+    next lands, and one plan object per shape (cached)."""
+    n, h, w, ci, co, kh, kw, s, p = shape
+    oh, ow = _ohw(shape)
+    args = ((n, h, w, ci), co, kh, kw, oh, ow, s, p)
+    bf16 = conv_cuda.conv_plan(*args)
+    q8 = conv_cuda.conv_plan(*args, elem=1)
+    assert bf16.steps == kh * kw * -(-ci // 64)
+    assert q8.steps == kh * kw * -(-ci // 128)
+    assert (q8.flat, q8.lbn, q8.lbh, q8.lbw, q8.tiles) == \
+        (bf16.flat, bf16.lbn, bf16.lbh, bf16.lbw, bf16.tiles)
+    assert (q8.splits - 1) * q8.per < q8.steps <= q8.splits * q8.per
+    assert q8.block_n in (64, 128) and (q8.block_n == 64 or co > 64)
+    assert 1 <= q8.stages <= 4 and q8.stages <= q8.per
+    assert q8.per == 1 or q8.stages >= 2
+    assert conv_cuda.conv_plan(*args, elem=1) is q8
+    assert conv_cuda.conv_plan(*args, elem=1, sms=132) == q8
+
+
+def _q8_split_sums(x, w, strides, paddings, plan):
+    """K11's int32 sums as the kernel takes them under `plan`: each split z
+    adds the steps z*per .. (one tap, 128 channels each, taps in (ky, kx)
+    order) into its own int32 partial [N*OH*OW, Co]; returns the partials
+    and their in-order int32 sum."""
+    n, h, wd, ci = x.shape
+    co, _, kh, kw = w.shape
+    cols = torch.nn.functional.unfold(
+        x.permute(0, 3, 1, 2).double(), (kh, kw), padding=tuple(paddings),
+        stride=tuple(strides))                    # [N, Ci*KH*KW, L]
+    cols = cols.reshape(n, ci, kh * kw, -1).permute(0, 3, 2, 1) \
+        .reshape(-1, kh * kw, ci)                # [N*L, taps, Ci]
+    wt = w.double().reshape(co, ci, kh * kw).permute(2, 1, 0)  # [taps, Ci, Co]
+    chunks = -(-ci // 128)
+    parts = []
+    for z in range(plan.splits):
+        part = torch.zeros((cols.shape[0], co), dtype=torch.float64)
+        for step in range(z * plan.per, min(plan.steps, (z + 1) * plan.per)):
+            tap, c0 = step // chunks, step % chunks * 128
+            part += cols[:, tap, c0:c0 + 128] @ wt[tap, c0:c0 + 128]
+        parts.append(part.to(torch.int32))        # exact: |sum| < 2**31
+    total = torch.zeros_like(parts[0])
+    for part in parts:                            # in order, as the kernel
+        total += part
+    return parts, total
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 7, 7, 384, 128, 3, 3, (1, 1), (1, 1)),
+    (2, 14, 14, 256, 256, 3, 3, (2, 2), (1, 1)),
+    (1, 7, 7, 2048, 512, 1, 1, (1, 1), (0, 0)),
+    (4, 9, 9, 176, 48, 3, 3, (1, 1), (1, 1)),
+], ids=str)
+def test_q8_split_k_is_the_plain_sum(shape):
+    """K11's split-K: the plan splits these reductions, every split covers
+    its steps once, and the int32 partials added in order are the unsplit
+    int32 sum (integer sums are exact), so the dequantized output is
+    bitwise conv2d_q8_reference's."""
+    n, h, w, ci, co, kh, kw, s, p = shape
+    oh, ow = _ohw(shape)
+    plan = conv_cuda.conv_plan((n, h, w, ci), co, kh, kw, oh, ow, s, p,
+                               elem=1)
+    assert plan.splits > 1
+    g = torch.Generator().manual_seed(sum(shape[:5]))
+    x = torch.randint(-127, 128, (n, h, w, ci), generator=g, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (co, ci, kh, kw), generator=g,
+                       dtype=torch.int8)
+    dq = torch.rand(co, generator=g) * 1e-4 + 1e-6
+    parts, total = _q8_split_sums(x, wt, s, p, plan)
+    _, unsplit = _q8_split_sums(
+        x, wt, s, p, dataclasses.replace(plan, splits=1, per=plan.steps))
+    assert len(parts) == plan.splits
+    assert all(part.abs().sum() > 0 for part in parts)
+    assert torch.equal(total, unsplit)
+    y = (total.float() * dq).reshape(n, oh, ow, co).to(torch.bfloat16)
+    assert torch.equal(y, conv_cuda.conv2d_q8_reference(x, wt, s, p, (1, 1),
+                                                        dq))
 
 
 def test_ohwi_filter_is_read_in_place_else_copied_once():

@@ -9,12 +9,19 @@ edges (output pixels and channels past a 128 tile, Ci not a multiple of
 the 64-channel slice). The quantizers and the int8 GEMM of `mul` give on
 the card what they give on the CPU.
 
+K11 is K1's kernel body on int8 operands (csrc/conv2d_fwd.cu): its split-K
+adds int32 partials in order, so a split call is bitwise the unsplit one;
+its boxes are K1's, so the ragged output edges at 14x14 and 7x7 and a Ci
+that is not a multiple of the 128-channel step (TMA's zero fill) are held
+here too.
+
 The kernel has no CPU mode, so every test here needs a CUDA device and
 skips without one. This file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_quant_gpu.py
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -136,3 +143,86 @@ def test_quantized_ops_on_the_card_equal_the_cpu(device):
         aq, _ = quant.quantize_channelwise(a, 0)
         assert torch.equal(quant.int_matmul(aq.to(device), pre[0].to(device))
                            .cpu(), quant.int_matmul(aq, pre[0]))
+
+
+# (N, H, W, Ci, Co, KH, KW, strides, paddings): output boxes with ragged
+# edges at ResNet-50's 14x14 and 7x7 maps (the box covers more rows than
+# the output holds) and channel counts past a tile; Ci not a multiple of
+# the 128-channel step (the rest of the step zero-filled)
+RAGGED = [
+    (3, 14, 14, 256, 272, 3, 3, (1, 1), (1, 1)),
+    (5, 7, 7, 512, 80, 3, 3, (1, 1), (1, 1)),
+    (1, 14, 14, 1024, 208, 1, 1, (2, 2), (0, 0)),
+    (3, 7, 7, 2048, 528, 1, 1, (1, 1), (0, 0)),
+]
+PARTIAL_CI = [
+    (2, 14, 14, 48, 128, 3, 3, (1, 1), (1, 1)),
+    (4, 7, 7, 176, 256, 3, 3, (1, 1), (1, 1)),
+    (1, 14, 14, 80, 64, 1, 1, (1, 1), (0, 0)),
+    (2, 9, 9, 400, 144, 3, 3, (2, 2), (1, 1)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RAGGED + PARTIAL_CI, ids=str)
+def test_k11_ragged_edges_and_partial_steps(device, shape):
+    n, h, w, ci, co, kh, kw, s, p = shape
+    x, wt, dq = _operands((n, h, w, ci), (co, ci, kh, kw), device, seed=ci)
+    _holds(x, wt, s, p, (1, 1), dq)
+
+
+def _with_plan(monkeypatch, change):
+    """Route K11's calls through conv_plan's plan with `change` applied."""
+    planner = conv_cuda.conv_plan
+
+    def plan(*args, **kwargs):
+        return change(planner(*args, **kwargs))
+    monkeypatch.setattr(conv_cuda, "conv_plan", plan)
+
+
+def _split(plan, k):
+    per = -(-plan.steps // k)
+    return dataclasses.replace(plan, splits=-(-plan.steps // per), per=per,
+                               stages=min(plan.stages, max(per, 2)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (16, 7, 7, 512, 512, 3, 3, (1, 1), (1, 1)),
+    (1, 14, 14, 256, 256, 3, 3, (1, 1), (1, 1)),
+    (4, 7, 7, 2048, 512, 1, 1, (1, 1), (0, 0)),
+    (16, 28, 28, 128, 128, 3, 3, (1, 1), (1, 1)),
+    (3, 7, 7, 176, 80, 3, 3, (1, 1), (1, 1)),
+], ids=str)
+def test_k11_split_and_unsplit_are_bitwise_the_plain_version(
+        device, shape, monkeypatch):
+    """The same call unsplit, under its own plan and split 2, 3 and as far
+    as the steps go: every output bitwise conv2d_q8_reference's (bf16 and
+    f32), so bitwise each other's."""
+    n, h, w, ci, co, kh, kw, s, p = shape
+    x, wt, dq = _operands((n, h, w, ci), (co, ci, kh, kw), device, seed=co)
+    oh, ow = conv_cuda._out_hw(x, wt, s, p, (1, 1))
+    plan = conv_cuda.conv_plan((n, h, w, ci), co, kh, kw, oh, ow, s, p,
+                               elem=1)
+    ref = conv_cuda.conv2d_q8_reference(x, wt, s, p, (1, 1), dq)
+    splits = sorted({1, plan.splits, 2, 3, plan.steps})
+    for k in splits:
+        with monkeypatch.context() as m:
+            _with_plan(m, lambda pl, k=k: _split(pl, k))
+            _holds(x, wt, s, p, (1, 1), dq)
+            y = conv_cuda.conv2d_q8(x, wt, s, p, (1, 1), dq)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), k
+
+
+@pytest.mark.gpu
+def test_k11_copies_only_a_filter_not_in_ohwi_memory(device):
+    """K11 reads an OIHW view of OHWI memory in place (the int8 engine's
+    prequantized filters) and copies any other filter once, counted."""
+    x, wt, dq = _operands((2, 7, 7, 128), (128, 128, 3, 3), device)
+    view = wt.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    conv_cuda.COUNTERS.filter_copies = 0
+    conv_cuda.conv2d_q8(x, view, (1, 1), (1, 1), (1, 1), dq)
+    assert conv_cuda.COUNTERS.filter_copies == 0
+    conv_cuda.conv2d_q8(x, wt, (1, 1), (1, 1), (1, 1), dq)
+    assert conv_cuda.COUNTERS.filter_copies == 1

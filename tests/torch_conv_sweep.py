@@ -1,11 +1,17 @@
-"""Times K1's and K3's plans against their alternatives on the card, at
-every ResNet-50 conv shape: the measurements behind `conv_cuda.conv_plan`'s
-rule and `conv_cuda._WGRAD_BLOCKS` (K3's split).
+"""Times K1's, K11's and K3's plans against their alternatives on the card,
+at every ResNet-50 conv shape: the measurements behind `conv_cuda.conv_plan`'s
+rules (bf16 and int8) and `conv_cuda._WGRAD_BLOCKS` (K3's split).
 
 K1, at each served bucket's batch (1, 4, 16): per shape the plan's time and
 the times with the other N tile, with the reduction split 1, 2, 4 or 8
 ways, and with a ring of 2, 3 or 4 stages, each beside F.conv2d and the
-bound; then the totals over one request's convs. K3, at the training batch
+bound; then the totals over one request's convs. K11 (`q8`), at the same
+batches and every conv of ResNet-50's O3 route: the same alternatives of
+its own plan, K1's time in bf16 at the shape and the bound, with `--parent
+DIR` also the int8 kernel of an older checkout (DIR's
+`paddle_tpu_torch/csrc/conv2d_q8.cu`, built from DIR's sources and held
+bitwise to this tree's output), each shape's alternatives timed in turns
+in one process. K3, at the training batch
 (32): per shape the time of every split count from 1 to 256 (each split at
 least one slice) with the plan's ring depth and with 3 stages, the best
 one, the plan's, cuDNN's wgrad and the bound.
@@ -13,9 +19,10 @@ Every time is chip_smoke._device_ms's: a CUDA graph of 20 calls between
 CUDA events. Needs one CUDA card and imports no JAX; run from the root of
 a checkout:
 
-    python tests/torch_conv_sweep.py [k1] [k3]
+    python tests/torch_conv_sweep.py [k1] [q8] [k3] [--parent DIR]
 """
 
+import argparse
 import dataclasses
 import sys
 from pathlib import Path
@@ -83,6 +90,68 @@ def sweep_k1(pt, conv_cuda, resnet, batch, say):
         + " ".join(f"{k} {v:.4f}" for k, v in totals.items()))
 
 
+def sweep_q8(pt, conv_cuda, resnet, batch, say, parent=None):
+    """K11's plan against its alternatives at every quantized ResNet-50
+    conv of one bucket's batch, beside K1 in bf16 (the aim), the bound and
+    (given) the parent tree's kernel."""
+    import torch
+    from paddle_tpu_torch import quant
+    gen = torch.Generator().manual_seed(cs.SEED + 7)
+    main = cs._resnet50(pt, resnet)[0]
+    counts = {}
+    for key in cs._eligible_convs(conv_cuda, main, batch, quant):
+        counts[key] = counts.get(key, 0) + 1
+    totals = {}
+    planner = conv_cuda.conv_plan
+    for (xs, ws, s, p, d), n in counts.items():
+        x = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8).cuda()
+        wt = torch.randint(-127, 128, ws, generator=gen, dtype=torch.int8)
+        w = wt.cuda().permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+        dq = (torch.rand(ws[0], generator=gen) * 1e-4 + 1e-6).cuda()
+        oh, ow = conv_cuda._out_hw(x, w, s, p, d)
+        plan = planner(xs, ws[0], ws[2], ws[3], oh, ow, s, p, elem=1)
+        want = conv_cuda.conv2d_q8(x, w, s, p, d, dq)
+        times = {}
+        for name, alt in _variants(plan).items():
+            if alt.block_n < 64 or (name != "plan" and alt == plan) or \
+                    (alt.block_n == 128 and ws[0] <= 64):
+                continue
+            conv_cuda.conv_plan = lambda *a, _alt=alt, **k: _alt
+            try:
+                got = conv_cuda.conv2d_q8(x, w, s, p, d, dq)
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"K11 {name} is not bitwise the plan's")
+                times[name] = cs._device_ms(
+                    lambda: conv_cuda.conv2d_q8(x, w, s, p, d, dq))
+            finally:
+                conv_cuda.conv_plan = planner
+        xb = torch.randn(xs, generator=gen).to(torch.bfloat16).cuda()
+        wb = (torch.randn(ws, generator=gen) * 0.1).to(torch.bfloat16).cuda() \
+            .contiguous(memory_format=torch.channels_last)
+        times["K1_bf16"] = cs._device_ms(lambda: conv_cuda.conv2d(xb, wb, s, p,
+                                                                  d))
+        if parent is not None:
+            w_ohwi = w.permute(0, 2, 3, 1)
+            if not torch.equal(parent(x, w_ohwi, s, p, d, dq), want):
+                raise RuntimeError("the parent's K11 disagrees with this "
+                                   "tree's")
+            times["parent"] = cs._device_ms(
+                lambda: parent(x, w_ohwi, s, p, d, dq))
+        nbytes = conv_cuda.conv_bytes(x, w, s, p, d) + 4 * ws[0]
+        bound = max(conv_cuda.conv_flops(x, w, s, p, d) / cs.PEAK_INT8_OPS,
+                    nbytes / cs.PEAK_BYTES) * 1e3
+        for k, v in times.items():
+            totals[k] = totals.get(k, 0.0) + v * n
+        totals["bound"] = totals.get("bound", 0.0) + bound * n
+        say(f"K11 b{batch} x{list(xs)} w{list(ws)} s{list(s)} x{n} plan("
+            f"{'flat' if plan.flat else f'box {plan.lbn}{plan.lbh}{plan.lbw}'}"
+            f" n{plan.block_n} tiles {plan.tiles} steps {plan.steps} split "
+            f"{plan.splits} stages {plan.stages}) bound {bound:.4f}: "
+            + " ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    say(f"K11 b{batch} per request (ms): "
+        + " ".join(f"{k} {v:.4f}" for k, v in totals.items()))
+
+
 def sweep_k3(pt, conv_cuda, resnet, say):
     import torch
     gen = torch.Generator().manual_seed(cs.SEED + 3)
@@ -139,6 +208,11 @@ def sweep_k3(pt, conv_cuda, resnet, say):
 
 
 def main(argv):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("what", nargs="*", choices=("k1", "q8", "k3"))
+    ap.add_argument("--parent", type=Path,
+                    help="an older checkout whose K11 is timed beside (q8)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_conv_sweep: no CUDA device", file=sys.stderr)
@@ -147,7 +221,7 @@ def main(argv):
     from paddle_tpu_torch.models import resnet
     from paddle_tpu_torch.ops import conv_cuda
     torch.backends.cudnn.allow_tf32 = False
-    what = set(argv) or {"k1", "k3"}
+    what = set(args.what) or {"k1", "q8", "k3"}
 
     def say(line):
         print(line, flush=True)
@@ -155,6 +229,10 @@ def main(argv):
     if "k1" in what:
         for batch in (16, 4, 1):
             sweep_k1(pt, conv_cuda, resnet, batch, say)
+    if "q8" in what:
+        parent = None if args.parent is None else cs.parent_q8(args.parent)
+        for batch in (16, 4, 1):
+            sweep_q8(pt, conv_cuda, resnet, batch, say, parent)
     if "k3" in what:
         sweep_k3(pt, conv_cuda, resnet, say)
     return 0
