@@ -15,7 +15,7 @@ card:
   1. device   CUDA present (else exit 2), the card's name and power limit;
   2. build    nvcc builds every CUDA kernel from paddle_tpu_torch/csrc/,
               one process per source, all started together (the Triton
-              kernels compile at their first launch);
+              kernel K5 compiles at its first launch);
   3. kernel   K1 (conv2d forward) against conv2d_reference on the JAX
               tests' five cases and every distinct ResNet-50 conv shape at
               each bucket's batch (1, 4, 16), then per shape at batch 16:
@@ -37,8 +37,7 @@ card:
               bucket's batch, under its plan and split-K forced on and off;
               then per shape at batch 16 kernel, plain and K1-in-bf16 times
               (CUDA graph of 20 calls between events) beside the bound
-              (int8 operations or bytes) and, with --parent, the older
-              checkout's int8 kernel;
+              (int8 operations or bytes);
   6. serve_q8 the calibrated model of phase 4 written by
               io.save_inference_model and served by ServingEngine(dir,
               quantize="int8"): quant_report of 54 weights, the 12
@@ -56,8 +55,11 @@ card:
               at every distinct shape ResNet-50 training gives them at
               batch 32, each run twice and bitwise repeatable, then timed
               per shape (CUDA graph of 20 calls between CUDA events) beside
-              the bound, the plain version and one PyTorch call that
-              computes the same function where there is one;
+              the bound (K6 also beside the floor of a design that reads x
+              twice from device memory), the plain version and one PyTorch
+              call that computes the same function where there is one and,
+              with --parent, K6 also beside the older checkout's K6 (its
+              Triton kernels), in turns;
   8. train    ResNet-50 O2 training at batch 32, learning rate 0.0125
               (bench.py's 0.1 at batch 256, scaled linearly), Momentum 0.9,
               one warm-up and five timed steps on one repeated batch: step
@@ -84,9 +86,7 @@ card:
               plain versions and F.scaled_dot_product_attention
               (yardstick only: its forward for K7, its backward for K8 +
               K9 together; the backend it picks printed beside its
-              time) and, with --parent, the older checkout's f32 K7 (its
-              tile walk) at the f32 steps' shape and at [1, 2048, 4, 128];
-              the wrappers' host time per call; the
+              time); the wrappers' host time per call; the
               flash/einsum crossover at T 512-8192;
 10. train_lm the transformer LM O2 with Adam 1e-4, one warm-up and five
               timed steps on one batch of random tokens and labels (seed
@@ -119,6 +119,9 @@ card:
               f32 step's, beside the bound, the plain version and
               PyTorch's flash (bf16) or memory-efficient (f32) forward
               with its logsumexp (yardstick only), and K8 and K9 there;
+              with --parent, the f32 K10 beside the older checkout's (its
+              tile walk), in turns, at [1, 2048, 8, 64] and [1, 2048, 4,
+              128];
  13. train_ring  the ring configuration O2 with Adam 1e-4, one warm-up and
               five timed steps on one batch of random tokens and labels
               (seed 0): step p50 and tokens/s, launches per step held to
@@ -139,9 +142,10 @@ without printing a result. Run from the root of a checkout:
 
 `--report` also writes the full per-shape measurements as JSON. `--parent`
 names an older checkout (e.g. the parent commit unpacked by `git archive`)
-whose int8 conv (`csrc/conv2d_q8.cu`) and f32 attention forward (the tile
-walk's `flash_walk_fwd`) are built from its sources and timed beside
-this tree's K11 and K7 f32 in the same process, as their "before".
+whose K6 (the Triton kernels of `ops/bn_cuda.py`, loaded from that file)
+and f32 K10 (the tile walk `flash_walk_fwd_block` of
+`csrc/flash_attn_walk.cu`, built from its sources) are timed beside this
+tree's in the same process, in turns, as their "before".
 """
 
 from __future__ import annotations
@@ -416,6 +420,26 @@ def build_parent(parent, source, name):
                                f"{proc.stderr}")
         _PARENT_LIBS[name] = ctypes.CDLL(str(lib))
     return _PARENT_LIBS[name]
+
+
+def parent_bn_cuda(parent):
+    """The older checkout's `ops/bn_cuda.py` (K5 and K6 in Triton; it
+    imports only torch and, when it launches, triton), loaded from its file
+    under a private name: the "before" of K6."""
+    import importlib.util
+    path = Path(parent).resolve() / "paddle_tpu_torch" / "ops" / "bn_cuda.py"
+    spec = importlib.util.spec_from_file_location("_parent_bn_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # its dataclasses look themselves up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _in_turns(new, old, reps=20):
+    """Device ms of `new` and `old` timed in turns (new, old, old, new; a
+    CUDA graph of `reps` calls each): (new ms, old ms, the four times)."""
+    turns = [_device_ms(fn, reps=reps) for fn in (new, old, old, new)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
 
 
 def _device_ms(fn, reps=20):
@@ -978,43 +1002,15 @@ def _q8_splits_hold(conv_cuda, x, w, s, p, d, dq, want):
     return sorted(ks)
 
 
-def parent_q8(parent):
-    """The older checkout's int8 conv entry (`csrc/conv2d_q8.cu`: x, w
-    OHWI, dq, y, 15 shape ints, out_f32, stream) as a function of (x, w
-    OHWI, s, p, d, dq) -> y bf16."""
-    import ctypes
-
-    import torch
-    fn = build_parent(parent, "conv2d_q8.cu", "parent_conv2d_q8").conv2d_q8
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(x, w_ohwi, s, p, d, dq):
-        n, h, wd, ci = x.shape
-        co, kh, kw, _ = w_ohwi.shape
-        oh = (h + 2 * p[0] - d[0] * (kh - 1) - 1) // s[0] + 1
-        ow = (wd + 2 * p[1] - d[1] * (kw - 1) - 1) // s[1] + 1
-        y = torch.empty((n, oh, ow, co), dtype=torch.bfloat16, device=x.device)
-        rc = fn(x.data_ptr(), w_ohwi.data_ptr(), dq.data_ptr(), y.data_ptr(),
-                n, h, wd, ci, co, kh, kw, oh, ow, s[0], s[1], p[0], p[1],
-                d[0], d[1], 0, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"the parent's conv2d_q8 failed: CUDA {rc}")
-        return y
-    return run
-
-
-def phase_kernel_q8(pt, conv_cuda, resnet, report, parent=None):
+def phase_kernel_q8(pt, conv_cuda, resnet, report):
     """K11 against its plain version, bitwise, at CASES and at every
     distinct quantized ResNet-50 conv shape at each bucket's batch, split
     and unsplit; then per shape at batch 16 the kernel's time, the plain
-    version's, K1's in bf16 at the same shape (the O2 counterpart) and,
-    given `parent`, the older checkout's int8 kernel, beside the bound."""
+    version's and K1's in bf16 at the same shape (the O2 counterpart),
+    beside the bound."""
     import torch
     from paddle_tpu_torch import quant
     gen = torch.Generator().manual_seed(SEED + 7)
-    before = None if parent is None else parent_q8(parent)
 
     def operands(xs, ws):
         x = torch.randint(-127, 128, xs, generator=gen, dtype=torch.int8)
@@ -1059,28 +1055,19 @@ def phase_kernel_q8(pt, conv_cuda, resnet, report, parent=None):
         wb = (torch.randn(ws, generator=gen) * 0.1).to(torch.bfloat16)
         wb = wb.contiguous(memory_format=torch.channels_last).cuda()
         k1_ms = _device_ms(lambda: conv_cuda.conv2d(xb, wb, s, p, d))
-        parent_ms = None
-        if before is not None:
-            w_ohwi = w_view.permute(0, 2, 3, 1)
-            if not torch.equal(before(x, w_ohwi, s, p, d, dq),
-                               conv_cuda.conv2d_q8(x, w_view, s, p, d, dq)):
-                raise RuntimeError("the parent tree's K11 disagrees with "
-                                   "this tree's")
-            parent_ms = _device_ms(lambda: before(x, w_ohwi, s, p, d, dq))
         ops = conv_cuda.conv_flops(x, wt, s, p, d)
         nbytes = conv_cuda.conv_bytes(x, wt, s, p, d) + 4 * ws[0]   # + dq
         ops_ms, bytes_ms = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
         row = {"x_nhwc": list(xs), "w_oihw": list(ws), "strides": list(s),
                "paddings": list(p), "dilations": list(d), "per_request": n,
                "ms": k_ms, "plain_ms": plain_ms, "k1_bf16_ms": k1_ms,
-               "parent_ms": parent_ms,
                "library_ms": None, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "ops": ops, "bytes": nbytes, "max_abs_err": checked[key]}
         rows.append(row)
         print(f"K11 shape x{list(xs)} w{list(ws)} s{list(s)} p{list(p)} "
               f"x{n}/request: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"K1 bf16 {k1_ms:.4f} ms, parent tree {parent_ms} ms, bound "
+              f"K1 bf16 {k1_ms:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     print(f"K11 bitwise equal to conv2d_q8_reference (bf16 and f32 out, "
           f"repeat bitwise) at {len(checked)} distinct shapes (batches "
@@ -1092,10 +1079,9 @@ def phase_kernel_q8(pt, conv_cuda, resnet, report, parent=None):
         return sum(r[key] * r["per_request"] for r in rows)
     ops_total = sum(r["ops"] * r["per_request"] for r in rows) / PEAK_INT8_OPS
     bytes_total = sum(r["bytes"] * r["per_request"] for r in rows) / PEAK_BYTES
-    parent_total = None if before is None else total("parent_ms")
     print(f"K11 per batch-{BATCH} request: {total('ms'):.4f} ms, K1 in bf16 "
-          f"at the same shapes {total('k1_bf16_ms'):.4f}, parent tree "
-          f"{parent_total}, bound {total('bound_ms'):.4f}", flush=True)
+          f"at the same shapes {total('k1_bf16_ms'):.4f}, bound "
+          f"{total('bound_ms'):.4f}", flush=True)
     return {"name": "conv2d_q8", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/conv2d_fwd.cu",
             "replaces": "paddle_tpu/ops/pallas_conv.py:431",
@@ -1103,7 +1089,6 @@ def phase_kernel_q8(pt, conv_cuda, resnet, report, parent=None):
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if ops_total >= bytes_total else "bytes",
             "library_ms": None, "k1_bf16_ms": total("k1_bf16_ms"),
-            "parent_ms": parent_total,
             "per": f"the {sum(counts.values())} quantized convs of one "
                    f"batch-{BATCH} ResNet-50 request"}
 
@@ -1459,12 +1444,14 @@ def _row(name, shape, n, ms, plain_ms, lib_ms, flops, nbytes, err, peak_ops):
             "flops": flops, "bytes": nbytes, "max_abs_err": err}
 
 
-def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
+def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
     """K2-K6 at every distinct ResNet-50 training shape at batch 32: held
-    against the plain versions, twice bitwise, then timed."""
+    against the plain versions, twice bitwise, then timed; K6 also beside
+    the older checkout `parent`'s K6, in turns, when one is given."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(SEED + 3)
+    before = None if parent is None else parent_bn_cuda(parent)
 
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(torch.bfloat16).cuda()
@@ -1576,6 +1563,12 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
                                    + 2 * rmean.abs() * xf.abs().mean(0)))
                 want, _ = bn_cuda.bn_apply_reference(x, scale, bias, bmean, bvar, 1e-5)
                 err = max(err, _bf16_err(ybn, want))
+                omean, ovar = bn_cuda.bn_act_stats_in_order(
+                    x, *bn_cuda.launch_plan(x, act))
+                if not (torch.equal(bmean, omean) and torch.equal(bvar, ovar)):
+                    raise RuntimeError(f"K6 statistics at {shape} are not its "
+                                       f"summation order's bit for bit")
+                del xf, want, omean, ovar
                 fn = lambda: bn_cuda.bn_act(x, scale, bias, 1e-5, act)  # noqa: E731
                 plain = lambda: bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)  # noqa: E731
                 lib = lambda: F.batch_norm(x4, None, None, scale, bias, True, 0.0, 1e-5)  # noqa: E731
@@ -1583,12 +1576,38 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
                 flops = (7 if act else 6) * m * c
             if act == "relu" and not torch.equal(yact, torch.relu(ybn)):
                 raise RuntimeError(f"{kind} yact is not relu(ybn) at {shape}")
-            rows.append(_row(kind, shape, n, _device_ms(fn), _device_ms(plain),
+            extra, old_ms = {}, None
+            if kind == "bn_act" and before is not None:
+                # the parent's K6 held to the same rules, then in turns
+                pbn, _, pmean, pvar = before.bn_act(x, scale, bias, 1e-5, act)
+                _sum_err(pmean, rmean, x.float().abs().mean(0))
+                want, _ = bn_cuda.bn_apply_reference(x, scale, bias, pmean,
+                                                     pvar, 1e-5)
+                _bf16_err(pbn, want)
+                del pbn, pmean, pvar, want
+                ms, old_ms, turns = _in_turns(
+                    fn, lambda: before.bn_act(x, scale, bias, 1e-5, act))
+                extra = {"parent_ms": old_ms, "turns": turns}
+            else:
+                ms = _device_ms(fn)
+            rows.append(_row(kind, shape, n, ms, _device_ms(plain),
                              _device_ms(lib), flops, nbytes, err, PEAK_F32_FLOPS))
+            rows[-1].update(extra)
+            if kind == "bn_act":
+                # a design that reads x from device memory twice
+                rows[-1]["two_pass_floor_ms"] = \
+                    (nbytes + m * c * 2) / PEAK_BYTES * 1e3
             print(f"{kind} {shape} x{n}/step: {rows[-1]['ms']:.4f} ms, plain "
                   f"{rows[-1]['plain_ms']:.4f} ms, F.batch_norm "
                   f"{rows[-1]['library_ms']:.4f} ms, bound "
-                  f"{rows[-1]['bound_ms']:.4f} ms", flush=True)
+                  f"{rows[-1]['bound_ms']:.4f} ms"
+                  + (f" (two-pass floor {rows[-1]['two_pass_floor_ms']:.4f})"
+                     if kind == "bn_act" else "")
+                  + ("" if old_ms is None else
+                     f", parent tree {old_ms:.4f} ms (in turns new, parent, "
+                     f"parent, new: " + ", ".join(f"{t:.4f}" for t in
+                                                  extra["turns"]) + ")"),
+                  flush=True)
             del x, x4, ybn, yact
     torch.cuda.empty_cache()
     report["train_kernel_shapes"] = rows
@@ -1603,14 +1622,14 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
              "paddle_tpu/ops/pallas_conv.py:241"),
             ("bn_apply", "triton", "paddle_tpu_torch/ops/bn_cuda.py",
              "paddle_tpu/ops/pallas_conv.py:303"),
-            ("bn_act", "triton", "paddle_tpu_torch/ops/bn_cuda.py",
+            ("bn_act", "cuda", "paddle_tpu_torch/csrc/bn_act.cu",
              "paddle_tpu/ops/fusion.py:697")):
         rs = [r for r in rows if r["kernel"] == name]
 
         def total(key):
             vals = [r[key] for r in rs]
             return None if None in vals else sum(v * r["per_step"] for v, r in zip(vals, rs))
-        peak = PEAK_F32_FLOPS if route == "triton" else PEAK_BF16_FLOPS
+        peak = PEAK_F32_FLOPS if name.startswith("bn_") else PEAK_BF16_FLOPS
         ops_t = sum(r["flops"] * r["per_step"] for r in rs) / peak
         bytes_t = sum(r["bytes"] * r["per_step"] for r in rs) / PEAK_BYTES
         kernels.append({"name": name, "route": route, "source": source,
@@ -1622,6 +1641,10 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report):
                         "library_ms": total("library_ms"),
                         "per": f"one batch-{TRAIN_BATCH} ResNet-50 training step, "
                                f"{len(rs)} distinct shapes"})
+        if name == "bn_act":
+            kernels[-1]["two_pass_floor_ms"] = total("two_pass_floor_ms")
+            if before is not None:
+                kernels[-1]["parent_ms"] = total("parent_ms")
         print(f"{name}: {kernels[-1]['ms']:.3f} ms per step over {len(rs)} "
               f"shapes, plain {kernels[-1]['plain_ms']:.3f}, library "
               f"{kernels[-1]['library_ms']}, bound {kernels[-1]['bound_ms']:.3f} "
@@ -1808,7 +1831,7 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
 
     t0 = time.perf_counter()
     losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0][0])]
-    print(f"warm-up step (Triton compiles K5/K6): {time.perf_counter() - t0:.2f} s, "
+    print(f"warm-up step (Triton compiles K5): {time.perf_counter() - t0:.2f} s, "
           f"loss {losses[0]:.5f}", flush=True)
     conv_cuda.COUNTERS.reset()
     bn_cuda.COUNTERS.reset()
@@ -2133,10 +2156,10 @@ ATTN_SOURCES = {
     "block": ("flash_attn_fwd_block", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
               "paddle_tpu/ops/pallas_attention.py:143"),
 }
-# the f32 forms' sources: the tf32 wgmma forward (K7) and backward (K8,
-# K9), the forward walk (K10)
+# the f32 forms' sources: the tf32 wgmma forward (K7, K10) and backward
+# (K8, K9)
 F32_SOURCES = {"fwd": "paddle_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
-               "block": "paddle_tpu_torch/csrc/flash_attn_walk.cu",
+               "block": "paddle_tpu_torch/csrc/flash_attn_fwd_tf32.cu",
                "dq": "paddle_tpu_torch/csrc/flash_attn_bwd_tf32.cu",
                "dkv": "paddle_tpu_torch/csrc/flash_attn_bwd_tf32.cu"}
 
@@ -2300,48 +2323,72 @@ def f32_fwd_entry(lib, name, A):
     return run
 
 
-def parent_walk_fwd(parent, A):
-    """The older checkout's f32 K7, the tile walk's `flash_walk_fwd` in
-    `csrc/flash_attn_walk.cu`, built from its sources."""
-    return f32_fwd_entry(build_parent(parent, "flash_attn_walk.cu",
-                                      "parent_flash_attn_walk"),
-                         "flash_walk_fwd", A)
+def f32_block_entry(lib, name, A):
+    """A loaded library's f32 K10 entry `name` (flash_tf32_fwd_block's
+    arguments) as a function of causal f32 (q, k, v) at offsets 0 ->
+    (acc, l, m)."""
+    import ctypes
 
-
-def _time_f32_fwd_parent(A, parent, timed, worst):
-    """K7 f32 against the older checkout's walk, in turns (new, walk, walk,
-    new, a CUDA graph of calls each), at the f32 steps' shape (`timed`'s
-    q, k, v) and at [1, 2048, 4, 128] causal, each output held to the plain
-    version by the f32 rule. Returns {shape: {"ms": .., "parent_ms": ..}}."""
     import torch
-    walk = parent_walk_fwd(parent, A)
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = A._argtypes(6), ctypes.c_int
+
+    def run(q, k, v):
+        b, t, h, d = q.shape
+        acc = torch.empty_like(q)
+        m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+                m.data_ptr(), l.data_ptr(), b, h, t, k.shape[1], d, 0, 0,
+                1.0 / math.sqrt(d), 1, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{name} failed: CUDA {rc}")
+        return acc, l, m
+    return run
+
+
+def parent_walk_block(parent, A):
+    """The older checkout's f32 K10, the tile walk's `flash_walk_fwd_block`
+    in `csrc/flash_attn_walk.cu`, built from its sources."""
+    return f32_block_entry(build_parent(parent, "flash_attn_walk.cu",
+                                        "parent_flash_attn_walk"),
+                           "flash_walk_fwd_block", A)
+
+
+def _time_f32_block_parent(A, parent, q, k, v, worst):
+    """K10 f32 against the older checkout's walk, in turns (new, walk, walk,
+    new, a CUDA graph of calls each), at the f32 ring step's shape (q, k, v)
+    and at [1, 2048, 4, 128] causal, both held to the plain version by
+    `hold_block`. Returns {shape: {"ms": .., "parent_ms": .., "turns":
+    ..}}."""
+    import torch
+    walk = parent_walk_block(parent, A)
     gen = torch.Generator().manual_seed(SEED + 9)
     d128 = tuple(torch.randn((1, 2048, 4, 128), generator=gen).cuda()
                  for _ in range(3))
     out = {}
-    for q, k, v in (timed[:3], d128):
-        ro, _ = A.flash_forward_reference(q, k, v, True)
-        bound, = attention_tolerance("fwd", q, k, v, True, rows=TOL_ROWS)
-        o, _ = A.flash_forward(q, k, v, True)
-        worst["fwd"] = max(worst["fwd"], _bounded(
-            o, ro, bound, f"K7 f32 at {list(q.shape)}"))
-        _bounded(walk(q, k, v)[0], ro, bound,
-                 f"the parent's walk at {list(q.shape)}")
-        new = [_device_ms(lambda: A.flash_forward(q, k, v, True), reps=5)]
-        old = [_device_ms(lambda: walk(q, k, v), reps=5) for _ in range(2)]
-        new.append(_device_ms(lambda: A.flash_forward(q, k, v, True), reps=5))
-        ms, parent_ms = sum(new) / 2, sum(old) / 2
-        out[str(list(q.shape))] = {"ms": ms, "parent_ms": parent_ms,
-                                   "turns": new[:1] + old + new[1:]}
-        print(f"K7 f32 at {list(q.shape)} causal: {ms:.4f} ms per call, the "
-              f"parent tree's walk {parent_ms:.4f} ({parent_ms / ms:.2f}x; in "
-              f"turns new, walk, walk, new: "
-              + ", ".join(f"{t:.4f}" for t in out[str(list(q.shape))]["turns"])
-              + ")", flush=True)
+    for qq, kk, vv in ((q, k, v), d128):
+        at = str(list(qq.shape))
+        scale = 1.0 / math.sqrt(qq.shape[-1])
+        want = A.flash_forward_block_reference(qq, kk, vv, 0, 0, scale, True)
+        worst["block"] = max(worst["block"], hold_block(
+            A.flash_attention_block(qq, kk, vv, 0, 0, scale, True), want, qq,
+            kk, vv, 0, 0, scale, True, f"K10 f32 at {at}", rows=TOL_ROWS))
+        hold_block(walk(qq, kk, vv), want, qq, kk, vv, 0, 0, scale, True,
+                   f"the parent's walk at {at}", rows=TOL_ROWS)
+        del want
+        ms, old, turns = _in_turns(
+            lambda: A.flash_attention_block(qq, kk, vv, 0, 0, scale, True),
+            lambda: walk(qq, kk, vv), reps=5)
+        out[at] = {"ms": ms, "parent_ms": old, "turns": turns}
+        print(f"K10 f32 at {at} causal: {ms:.4f} ms a call, the parent "
+              f"tree's walk {old:.4f} ({old / ms:.2f}x; in turns new, walk, "
+              f"walk, new: " + ", ".join(f"{t:.4f}" for t in turns) + ")",
+              flush=True)
     return out
 
 
-def phase_kernel_attn(attention_cuda, report, parent=None):
+def phase_kernel_attn(attention_cuda, report):
     """K7-K9 in bf16 (the Hopper kernels) and in f32 (their f32 forms)
     against their plain versions at the JAX tests' shapes, T = 72 at D 64
     and 128, and the bench shape (f32 also at its steps' shape F32_ATTN),
@@ -2374,10 +2421,6 @@ def phase_kernel_attn(attention_cuda, report, parent=None):
                 timed = (q, k, v, do, args)
             torch.cuda.empty_cache()
         rows = _time_attn(A, *timed, dtype, worst)
-        if dtype == "float32" and parent is not None:
-            vs_walk = _time_f32_fwd_parent(A, parent, timed, worst)
-            rows["fwd"]["parent_ms"] = vs_walk[str(list(path))]["parent_ms"]
-            table["f32_vs_parent_walk"] = vs_walk
         del timed
         torch.cuda.empty_cache()
         table[dtype] = {"rows": list(rows.values()), "max_abs_err": worst}
@@ -2610,7 +2653,7 @@ def _time_ring(A, q, k, v, do, lse, delta, dtype, worst):
     return row, bwd
 
 
-def phase_kernel_ring(attention_cuda, ring, report):
+def phase_kernel_ring(attention_cuda, ring, report, parent=None):
     """K10 (the ring's unnormalized flash block), in bf16 and in its f32
     form, against its plain version: at the JAX tests' shapes (offsets 0),
     at the 16 (query shard, key shard) pairs of a four-shard causal ring of
@@ -2623,7 +2666,8 @@ def phase_kernel_ring(attention_cuda, ring, report):
     the f32 ring step's shape. Then K10 timed at the path shape of each
     form (bf16 RING_ATTN, f32 F32_ATTN) beside its bound, its plain version
     and PyTorch's attention forward with its logsumexp (a yardstick only),
-    and K8 and K9 there."""
+    and K8 and K9 there; the f32 K10 also beside the older checkout
+    `parent`'s, in turns, when one is given."""
     import torch
     A = attention_cuda
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -2635,6 +2679,10 @@ def phase_kernel_ring(attention_cuda, ring, report):
         worst = {"block": 0.0, "dq": 0.0, "dkv": 0.0, "merge": 0.0}
         operands = _ring_kernels(A, ring, dtype, gen, worst)
         row, bwd = _time_ring(A, *operands, dtype, worst)
+        if dtype == "float32" and parent is not None:
+            vs_walk = _time_f32_block_parent(A, parent, *operands[:3], worst)
+            row["parent_ms"] = vs_walk[str(list(F32_ATTN))]["parent_ms"]
+            table["f32_vs_parent_walk"] = vs_walk
         del operands
         torch.cuda.empty_cache()
         table[dtype] = {"path_shape": row, "backward": bwd,
@@ -3140,7 +3188,7 @@ def ptxas_report(build_log: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measurements as JSON here")
-    ap.add_argument("--parent", help="an older checkout whose K11 and f32 K7 "
+    ap.add_argument("--parent", help="an older checkout whose K6 and f32 K10 "
                     "are timed beside this tree's")
     args = ap.parse_args(argv)
 
@@ -3175,23 +3223,25 @@ def main(argv=None) -> int:
     report = {"card": card, "ptxas": ptxas}
     k1 = phase_kernel(pt, conv_cuda, resnet, report)
     slice_launches, served = phase_slice(pt, conv_cuda, resnet, report)
-    k11 = phase_kernel_q8(pt, conv_cuda, resnet, report, args.parent)
+    k11 = phase_kernel_q8(pt, conv_cuda, resnet, report)
     q8 = phase_serve_q8(pt, conv_cuda, resnet, report, served)
     del served
     k1["launches_by_path"] = {"serve": slice_launches,
                               "serve_q8": q8["launches"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k11["launches"] = q8["q8_launches"]
-    train_kernels = phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report)
+    train_kernels = phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report,
+                                       args.parent)
     per_step = phase_train(pt, conv_cuda, bn_cuda, resnet, report)
     for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
                                       "stats_launches", "apply_launches",
                                       "act_launches")):
         k["launches"] = int(per_step[key] * TRAIN_STEPS)
-    attn_kernels = phase_kernel_attn(attention_cuda, report, args.parent)
+    attn_kernels = phase_kernel_attn(attention_cuda, report)
     lm_launches = phase_train_lm(pt, attention_cuda, report)
     serve_launches = phase_serve_lm(pt, attention_cuda, report)
-    ring_kernels = phase_kernel_ring(attention_cuda, ring_attention, report)
+    ring_kernels = phase_kernel_ring(attention_cuda, ring_attention, report,
+                                     args.parent)
     ring_launches = phase_train_ring(pt, attention_cuda, report)
     counter = {"flash_attn_fwd": "launches", "flash_attn_bwd_dq": "dq_launches",
                "flash_attn_bwd_dkv": "dkv_launches",

@@ -12,7 +12,8 @@ Executor, the conv -> batch_norm [-> act] windows (the inference fold and
 the training kernels), the ServingEngine, and eleven hand-written kernels:
 K1-K4 and K11, the conv forward, grad-input, grad-filter, conv+statistics
 and int8 conv kernels in CUDA C++ for sm_90a (ops/conv_cuda.py); K5-K6,
-the batch-norm kernels in Triton (ops/bn_cuda.py); K7-K10, the
+the batch-norm kernels, K5 in Triton and K6 in CUDA C++ (ops/bn_cuda.py);
+K7-K10, the
 flash-attention forward, dQ, dK/dV and the ring's unnormalized forward
 block in CUDA C++ (ops/attention_cuda.py), the last for ring attention
 over an 'sp' mesh of torch.distributed ranks (parallel/).

@@ -1,7 +1,7 @@
 // Flash-attention backward on f32 operands: dQ (K8) and dK/dV (K9) on
 // Hopper's tf32 wgmma with TMA loads through an mbarrier ring, for sm_90a.
 // The bf16 kernels are flash_attn_bwd.cu; the f32 forward forms (K7, K10)
-// are flash_attn_walk.cu.
+// are flash_attn_fwd_tf32.cu.
 //
 // Replace, in f32: paddle_tpu/ops/pallas_attention.py `_dq_kernel` (:295,
 // pallas_call :438) and `_dkv_kernel` (:342, pallas_call :453), both
@@ -70,7 +70,7 @@
 // products of 2*T^2*D/2 per (b, h), 6.4 GFLOP a call (0.039 ms), K9 4,
 // 8.6 GFLOP (0.052 ms); their bytes (f32 operands, one or two outputs)
 // take 0.006-0.008 ms at 3.35 TB/s: operation-bound. What the design does
-// about the tile walk it replaces (flash_attn_walk.cu's former K8/K9:
+// about the tile walk it replaced (a former K8/K9 on
 // mma.sync m16n8k8, 64-bit shared loads, every thread a loader, each of 4
 // warps re-splitting every B fragment it loads): wgmma at N 32-128, TMA
 // loads, and one split of each operand element per CTA.

@@ -1,7 +1,7 @@
 // Shared pieces of the flash-attention kernels: the bf16 Hopper kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu), the f32 ones on tf32 wgmma
 // (flash_attn_fwd_tf32.cu, flash_attn_bwd_tf32.cu, through
-// flash_attn_tf32.cuh) and the f32 tile walk (flash_attn_walk.cu).
+// flash_attn_tf32.cuh).
 //
 // Layout. q, k, v, o, dO and the gradients are [B, T, H, D], read and
 // written in place: row t of head h of batch b starts at ((b*T + t)*H +
@@ -20,9 +20,9 @@
 namespace flash {
 
 constexpr float MASKED = -1e30f;  // the reference's causal mask value
-// The forward's visiting granularity, that of the f32 walk and of the
-// plain version (attention_cuda.ROWS, FWD_BLOCK_K): 64 query rows visit the
-// 64-key tiles up to the one holding their last row's position.
+// The forward's visiting granularity, that of the plain version
+// (attention_cuda.ROWS, FWD_BLOCK_K): 64 query rows visit the 64-key
+// tiles up to the one holding their last row's position.
 constexpr int VISIT = 64;
 
 // two f32 rounded to bf16, the lower column in the low half

@@ -1,16 +1,20 @@
-// Flash-attention forward on f32 operands (K7 f32) on Hopper's tf32 wgmma
-// with TMA loads through an mbarrier ring, for sm_90a. The bf16 forward is
-// flash_attn_fwd.cu; the f32 backward (K8, K9) is flash_attn_bwd_tf32.cu,
-// whose pieces (split warps, 3xTF32 products, flash_attn_tf32.cuh) this
-// kernel shares; the ring's unnormalized f32 block (K10 f32) is still the
-// tile walk of flash_attn_walk.cu.
+// Flash-attention forward on f32 operands on Hopper's tf32 wgmma with TMA
+// loads through an mbarrier ring, for sm_90a: K7 f32 and the ring's
+// unnormalized block K10 f32, one kernel template with a NORMALIZE flag
+// (as the bf16 pair in flash_attn_fwd.cu). The f32 backward (K8, K9) is
+// flash_attn_bwd_tf32.cu, whose pieces (split warps, 3xTF32 products,
+// flash_attn_tf32.cuh) this kernel shares.
 //
 // Replaces, in f32: paddle_tpu/ops/pallas_attention.py `_fwd_kernel`
 // (:143), normalize=True, through `_forward` (:266) -> `_fwd_call` (:225,
-// pallas_call :237). Same function: q [B, Tq, H, D] and k, v [B, Tk, H, D]
-// f32 -> o = softmax(scale * Q K^T [causal mask]) V [B, Tq, H, D] f32 and
-// lse [B, H, Tq] f32. With f32 operands the reference's rounding of P to
-// the operand dtype is a no-op, so P stays f32.
+// pallas_call :237), and normalize=False, through `flash_attention_block`
+// (:276) -> `_fwd_call`. Same function: q [B, Tq, H, D] and k, v [B, Tk,
+// H, D] f32, global offsets q_off, k_off for the causal mask -> (K7) o =
+// softmax(scale * Q K^T [causal mask]) V [B, Tq, H, D] f32 and lse [B, H,
+// Tq] f32, or (K10) the raw online-softmax state acc [B, Tq, H, D], l and
+// m [B, H, Tq], all f32; a row no visited tile reaches is exactly (0, 0,
+// -1e30). With f32 operands the reference's rounding of P to the operand
+// dtype is a no-op, so P stays f32.
 //
 // Arithmetic: S = Q K^T in three tf32 passes (3xTF32), times scale (a
 // rounded multiply); masked scores -1e30 (the reference's value); keys
@@ -21,9 +25,9 @@
 // o = o * alpha + partial, the online rescale: the tensor cores'
 // accumulation does not round to nearest, and a sequence-long chain of
 // k8 steps drifts (2.4e-5 at T 8192, tests/torch_tf32_probe.py), so the
-// long sum stays off the tensor-core chain. O = acc / max(l, 1e-30), LSE =
-// m + log(max(l, 1e-30)). The order of the f32 sums differs from the
-// plain version's.
+// long sum stays off the tensor-core chain. K7: O = acc / max(l, 1e-30),
+// LSE = m + log(max(l, 1e-30)); K10: (acc, l, m) as they stand. The order
+// of the f32 sums differs from the plain version's.
 //
 // Visiting: the plain version's (flash_attn_common.cuh `walk_of`): 64
 // query rows visit the 64-key tiles up to the one holding their last
@@ -50,8 +54,13 @@
 //   memory, the softmax on the accumulator layout, and P V as m64nDk8
 //   with A from registers.
 // Grid: heads x batch x query tiles, the last (heaviest causal) tiles
-// first. Every output element is written by one CTA, without atomics, so
-// a repeated call is bitwise equal.
+// first (with offsets, as the ring's K10 calls take, the diagonal moves and
+// the order balances less well; it stays correct). A query tile that
+// visits no key tile (n == 0: a key shard wholly in its causal future)
+// loads nothing: its TMA and split warps return at once, and its consumers
+// wait on no barrier and write the initial state. Every output element is
+// written by one CTA, without atomics, so a repeated call is bitwise
+// equal.
 //
 // Tile plans (one CTA an SM, 256 threads, so up to 255 registers a
 // thread), timed on the card by tests/torch_attn_f32_sweep.py: D <= 64,
@@ -61,17 +70,18 @@
 // KB, whose wgmmas ptxas serializes (C7511 at 174 registers), as it does
 // the D-128 plans of K8 and K9: one stage of 64 keys, and P V in NH = 2
 // pieces of 64 columns (fewer partial registers; the sweep's alternative),
-// were serialized too and no faster.
+// were serialized too and no faster. K10 f32 takes K7 f32's plans.
 //
 // Bound on an H100: the products run as three TF32 passes, so 495 / 3 =
 // 165 TF/s. Causal at the f32 path's shape [1, 2048, 8, 64], 4.3 GFLOP a
 // call (0.026 ms); its bytes (q, k, v, o in f32, lse) take 0.008 ms at
-// 3.35 TB/s: operation-bound. What the design does about the tile walk it
-// replaces (mma.sync m16n8k8, 64-bit shared loads, every thread a loader,
-// each of 4 warps re-splitting every fragment it loads): wgmma at N 32-128,
-// TMA loads, one split of each operand element per CTA. What still holds it
-// back: one consumer warpgroup an SM waits on its own products and runs
-// its softmax with the tensor cores idle.
+// 3.35 TB/s: operation-bound; K10 f32 does the same work. What the design
+// does about the tile walk it replaced for both (mma.sync m16n8k8, 64-bit
+// shared loads, every thread a loader, each of 4 warps re-splitting every
+// fragment it loads): wgmma at N 32-128, TMA loads, one split of each
+// operand element per CTA. What still holds it back: one consumer
+// warpgroup an SM waits on its own products and runs its softmax with the
+// tensor cores idle.
 
 #include "flash_attn_tf32.cuh"
 
@@ -82,8 +92,11 @@ using flash::MASKED;
 using flash::Walk;
 
 struct Params {
-  float* o;    // [B, Tq, H, D]
-  float* lse;  // [B, H, Tq]
+  float* o;    // K7: [B, Tq, H, D]
+  float* lse;  // K7: [B, H, Tq]
+  float* acc;  // K10: [B, Tq, H, D]
+  float* m;    // K10: [B, H, Tq]
+  float* l;    // K10: [B, H, Tq]
   int h, tq, tk, d, q_off, k_off, causal, tiles;
   float scale;
 };
@@ -149,7 +162,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[BK / 2], float (&m)[2],
   }
 }
 
-template <int DP, int BK, int STAGES, int NH>
+template <int DP, int BK, int STAGES, int NH, bool NORMALIZE>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_tf32_kernel(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mk,
@@ -290,30 +303,45 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (lane == 0) hg::mbar_arrive(empty0 + 8 * s);
   }
 
-  // ---- epilogue: O = o / max(l, 1e-30), LSE = m + log(..) ----
+  // ---- epilogue on the accumulator layout: rows row0 and row0 + 8 ----
   const long long stride = (long long)p.h * p.d;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= p.tq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    float* out = p.o + ((long long)bb * p.tq + row) * stride +
-                 (long long)hh * p.d;
+    const long long at =
+        ((long long)bb * p.tq + row) * stride + (long long)hh * p.d;
+    const long long stat = ((long long)bb * p.h + hh) * p.tq + row;
+    if constexpr (NORMALIZE) {
+      // K7: O = o / max(l, 1e-30), LSE = m + log(..)
+      const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col < p.d)
-        store2(out + col, o[4 * j + 2 * r] / denom,
-               o[4 * j + 2 * r + 1] / denom);
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col < p.d)
+          store2(p.o + at + col, o[4 * j + 2 * r] / denom,
+                 o[4 * j + 2 * r + 1] / denom);
+      }
+      if (t == 0) p.lse[stat] = m[r] + logf(denom);
+    } else {
+      // K10: the raw state
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col < p.d)
+          store2(p.acc + at + col, o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+      }
+      if (t == 0) {
+        p.m[stat] = m[r];
+        p.l[stat] = l[r];
+      }
     }
-    if (t == 0)
-      p.lse[((long long)bb * p.h + hh) * p.tq + row] = m[r] + logf(denom);
   }
 }
 
 // ---- host --------------------------------------------------------------------
 
-template <int DP, int BK, int STAGES, int NH = 1>
+template <int DP, int BK, int STAGES, int NH = 1, bool NORMALIZE = true>
 int launch_fwd(const void* q, const void* k, const void* v, Params p, int b,
                cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
@@ -321,7 +349,7 @@ int launch_fwd(const void* q, const void* k, const void* v, Params p, int b,
   if (rc == 0) rc = flash::map_bthd<float>(&mk, k, b, p.tk, p.h, p.d, BK);
   if (rc == 0) rc = flash::map_bthd<float>(&mv, v, b, p.tk, p.h, p.d, BK);
   if (rc != 0) return rc;
-  auto kernel = fwd_tf32_kernel<DP, BK, STAGES, NH>;
+  auto kernel = fwd_tf32_kernel<DP, BK, STAGES, NH, NORMALIZE>;
   constexpr int smem = FwdPlan<DP, BK, STAGES>::SMEM;
   static bool done = false;
   rc = flash::configure(kernel, smem, &done);
@@ -343,9 +371,27 @@ extern "C" int flash_tf32_fwd(const void* q, const void* k, const void* v,
                               int tk, int d, int q_off, int k_off,
                               float scale, int causal, void* stream) {
   if (bad_head_dim(d)) return (int)cudaErrorInvalidValue;
-  Params p{static_cast<float*>(o), static_cast<float*>(lse), h, tq, tk, d,
-           q_off, k_off, causal ? 1 : 0, 0, scale};
+  Params p{static_cast<float*>(o), static_cast<float*>(lse), nullptr, nullptr,
+           nullptr, h, tq, tk, d, q_off, k_off, causal ? 1 : 0, 0, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 64) return launch_fwd<64, 64, 2>(q, k, v, p, b, s);
   return launch_fwd<128, 32, 2>(q, k, v, p, b, s);
+}
+
+// K10 f32: acc [B, Tq, H, D] and m, l [B, H, Tq], the unnormalized
+// online-softmax state of f32 q [B, Tq, H, D] against k, v [B, Tk, H, D],
+// with global offsets q_off, k_off for the causal mask; K7 f32's operand
+// rules and tile plans. Returns the CUDA error code.
+extern "C" int flash_tf32_fwd_block(const void* q, const void* k,
+                                    const void* v, void* acc, void* m,
+                                    void* l, int b, int h, int tq, int tk,
+                                    int d, int q_off, int k_off, float scale,
+                                    int causal, void* stream) {
+  if (bad_head_dim(d)) return (int)cudaErrorInvalidValue;
+  Params p{nullptr, nullptr, static_cast<float*>(acc), static_cast<float*>(m),
+           static_cast<float*>(l), h, tq, tk, d, q_off, k_off,
+           causal ? 1 : 0, 0, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 64) return launch_fwd<64, 64, 2, 1, false>(q, k, v, p, b, s);
+  return launch_fwd<128, 32, 2, 1, false>(q, k, v, p, b, s);
 }

@@ -18,13 +18,13 @@ and called through ctypes:
   (K8, K9) on wgmma with TMA loads through an mbarrier ring, a producer
   warp and consumer warpgroups of 64 resident rows; each entry point picks
   its tile plan from the head dim.
-- f32: `csrc/flash_attn_fwd_tf32.cu` (K7) and `csrc/flash_attn_bwd_tf32.cu`
-  (K8, K9) on tf32 wgmma with TMA loads through an mbarrier ring, split
-  warps that turn each landed tile into the tf32 hi/lo and transposed
-  forms the products read (`csrc/flash_attn_tf32.cuh`); `csrc/
-  flash_attn_walk.cu` (K10), a tile walk on mma.sync. All run every
-  product as three TF32 passes (3xTF32) and leave P and dS in f32 as the
-  reference leaves them for f32 operands.
+- f32: `csrc/flash_attn_fwd_tf32.cu` (K7, K10: one template with a
+  NORMALIZE flag) and `csrc/flash_attn_bwd_tf32.cu` (K8, K9) on tf32
+  wgmma with TMA loads through an mbarrier ring, split warps that turn
+  each landed tile into the tf32 hi/lo and transposed forms the products
+  read (`csrc/flash_attn_tf32.cuh`). They run every product as three TF32
+  passes (3xTF32) and leave P and dS in f32 as the reference leaves them
+  for f32 operands.
 Operands stay [B, T, H, D] (the JAX layout) and are read in place with a
 row stride of H*D; heads go into the grid; the sequential grid axis of
 each TPU kernel (K tiles in K7/K8, Q tiles in K9) is a loop inside a CTA;
@@ -76,8 +76,8 @@ FALLBACK_REASONS = frozenset({"dtype", "head_dim"})
 _NEG = -1e30          # the reference's causal mask value
 # The forward's walk: query tiles of ROWS rows visit the key tiles of
 # FWD_BLOCK_K up to the one holding their last row's position. The plain
-# version walks it, the f32 kernels run it, and the bf16 kernels visit by
-# it whatever their own tiles (csrc/flash_attn_fwd.cu "Visiting").
+# version walks it, and the kernels, bf16 and f32, visit by it whatever
+# their own tiles (csrc/flash_attn_fwd.cu "Visiting").
 ROWS = 64
 FWD_BLOCK_K = 64
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -284,7 +284,7 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, q_off, k_off, scale,
 # q_off, k_off, scale, causal, stream); flash_attn_fwd_block takes acc, m,
 # l in place of o, lse; flash_attn_bwd_dq q, k, v, dout, lse, delta, dq, and
 # flash_attn_bwd_dkv dk, dv in place of dq. The f32 forms (flash_tf32_fwd,
-# flash_walk_fwd_block, flash_tf32_bwd_dq, flash_tf32_bwd_dkv) take the same
+# flash_tf32_fwd_block, flash_tf32_bwd_dq, flash_tf32_bwd_dkv) take the same
 # arguments.
 def _argtypes(pointers):
     return ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 7
@@ -297,7 +297,7 @@ _KERNELS = {
     "fwd": (("flash_attn_fwd", "flash_attn_fwd", "launches"),
             ("flash_attn_fwd_tf32", "flash_tf32_fwd", "f32_launches"), 5),
     "block": (("flash_attn_fwd", "flash_attn_fwd_block", "block_launches"),
-              ("flash_attn_walk", "flash_walk_fwd_block",
+              ("flash_attn_fwd_tf32", "flash_tf32_fwd_block",
                "f32_block_launches"), 6),
     "dq": (("flash_attn_bwd", "flash_attn_bwd_dq", "dq_launches"),
            ("flash_attn_bwd_tf32", "flash_tf32_bwd_dq", "f32_dq_launches"), 7),

@@ -1,43 +1,54 @@
-"""The batch-norm kernels for Hopper — K5 (`bn_apply`) and K6 (`bn_act`) —
-in Triton, with their gate, their plain versions and their counters.
+"""The batch-norm kernels for Hopper — K5 (`bn_apply`, Triton) and K6
+(`bn_act`, CUDA C++) — with their gate, their plain versions and their
+counters.
 
 K5 replaces paddle_tpu/ops/pallas_conv.py `bn_apply` (:507) ->
 `_bn_apply_kernel` (:303): given per-channel statistics,
 ybn = (x - mean) * (rsqrt(var + eps) * scale) + bias rounded to bf16, and
 yact = act(ybn), over the [M, C] view of an NHWC activation (M = N*H*W).
 It is the epilogue of the conv -> bn [-> act] training window, whose
-statistics come from K4 (ops/conv_cuda.py `conv2d_stats`).
+statistics come from K4 (ops/conv_cuda.py `conv2d_stats`). One Triton
+kernel: x read once, one or two bf16 outputs written.
 
 K6 replaces paddle_tpu/ops/fusion.py `_pallas_bn_act` (:738) ->
 `_bn_act_kernel` (:697): training batch norm [+ act] with its own
-statistics, in the two phases of the TPU kernel. Phase one sums x and x^2
-per channel (f32) over row ranges into a [splits, C] workspace; a small
-kernel adds the splits in order and takes mean = sum / M and the clamped
-one-pass variance max(E[x^2] - mean^2, 0) (fusion.py:720-722); phase two is
-K5's normalize. No atomics: a repeated call is bitwise equal.
+statistics, mean = sum / M and the clamped one-pass variance
+max(E[x^2] - mean^2, 0) (fusion.py:720-722), then K5's normalize. One
+cooperative launch of `csrc/bn_act.cu` (built by nvcc at first use,
+ops/cuda_build.py, called through ctypes), one CTA an SM: per-CTA partial
+sums over the CTA's tiles of rows (`bn_act_plan`), a grid-wide hand-off
+that adds them in CTA order, then the normalize over the CTA's tiles in
+reverse, the last ones read from the CTA's shared memory and the rest from
+L2. No float atomics: a repeated call is bitwise equal, and
+`bn_act_stats_in_order` repeats its summation order in plain PyTorch.
 
-Both are bandwidth-bound elementwise passes and per-channel reductions with
-no tensor-core work: K5 reads x once and writes one or two bf16 outputs, K6
-reads x twice. Their bound on an H100 is those bytes against 3.35 TB/s.
-The activations implemented are identity and relu, the only ones on the
-ResNet path; any other is a counted fallback with reason `act`.
+Both are bandwidth-bound: no tensor-core work. Their bound on an H100 is x
+read once plus the outputs written once against 3.35 TB/s; K6 reads x a
+second time, from shared memory and L2 as far as they hold it. The
+activations
+implemented are identity and relu (`ACTS`, the kernels' act code), the
+only ones on the ResNet path; any other is a counted fallback with reason
+`act`.
 
-Triton is imported, and the kernels compiled, only inside the launching
-functions: the CPU has no triton, and the CPU tests import every module.
-On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
-launches its kernels or raises.
+Triton is imported, and K5 compiled, only inside its launching function;
+K6 is built at its first launch: the CPU has neither triton nor nvcc, and
+the CPU tests import every module. On a CPU tensor a wrapper computes its
+plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import cuda_build
+
 __all__ = ["ACTS", "COUNTERS", "bn_apply", "bn_apply_reference", "bn_act",
-           "bn_act_reference", "bn_act_splits", "ineligible", "count_hit",
-           "count_fallback"]
+           "bn_act_reference", "bn_act_plan", "bn_act_stats_in_order",
+           "launch_plan", "ineligible", "count_hit", "count_fallback"]
 
 # activation name -> the kernels' ACT code
 ACTS = {None: 0, "relu": 1}
@@ -50,12 +61,17 @@ FALLBACK_REASONS = frozenset(
 _BLOCK_M = 64
 _BLOCK_C = 64
 
+# K6 (csrc/bn_act.cu): threads a CTA, and the fewest passes of its row
+# groups a CTA is given, so that a small [M, C] takes few CTAs
+BN_THREADS = 512
+_MIN_PASSES = 8
+
 
 @dataclass
 class Counters:
     """`apply_launches`: K5 launches made by `bn_apply`; `act_launches`: K6
-    launches made by `bn_act` (one per call, its three kernels together);
-    each added to only where its wrapper launches. `hits`/`fallbacks`:
+    launches made by `bn_act` (one per call); each added to only where its
+    wrapper launches. `hits`/`fallbacks`:
     windows routed to the kernels or to the plain batch_norm lowering, by
     op and by (op, reason)."""
     apply_launches: int = 0
@@ -120,7 +136,7 @@ def bn_act_reference(x2, scale, bias, eps, act=None):
     return ybn, yact, mean, var
 
 
-# --- Triton kernels (bodies; compiled by _jit on first use on the card) -------
+# --- K5: the Triton kernel (its body; compiled by _jit on first use) ---------
 
 tl = None  # triton.language, bound by _jit
 
@@ -146,52 +162,16 @@ def _bn_apply_body(x_ptr, scale_ptr, bias_ptr, mean_ptr, var_ptr, ybn_ptr,
                  mask=mask)
 
 
-def _bn_partial_body(x_ptr, psum_ptr, psq_ptr, M, C, rows_per_split,
-                     BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
-    split = tl.program_id(0)
-    cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
-    acc2 = tl.zeros((BLOCK_C,), dtype=tl.float32)
-    start = split * rows_per_split
-    for r0 in range(0, rows_per_split, BLOCK_M):
-        rows = start + r0 + tl.arange(0, BLOCK_M)
-        mask = (rows[:, None] < M) & cmask[None, :]
-        offs = rows[:, None].to(tl.int64) * C + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        acc += tl.sum(x, axis=0)
-        acc2 += tl.sum(x * x, axis=0)
-    tl.store(psum_ptr + split * C + cols, acc, mask=cmask)
-    tl.store(psq_ptr + split * C + cols, acc2, mask=cmask)
-
-
-def _bn_finish_body(psum_ptr, psq_ptr, mean_ptr, var_ptr, M, C, splits,
-                    BLOCK_C: tl.constexpr):
-    cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    s = tl.zeros((BLOCK_C,), dtype=tl.float32)
-    q = tl.zeros((BLOCK_C,), dtype=tl.float32)
-    for k in range(0, splits):
-        s += tl.load(psum_ptr + k * C + cols, mask=cmask, other=0.0)
-        q += tl.load(psq_ptr + k * C + cols, mask=cmask, other=0.0)
-    mean = s / M
-    var = tl.maximum(q / M - mean * mean, 0.0)
-    tl.store(mean_ptr + cols, mean, mask=cmask)
-    tl.store(var_ptr + cols, var, mask=cmask)
-
-
 _JIT: Dict[str, object] = {}
 
 
 def _jit():
-    """The three kernels, compiled by Triton at their first launch."""
+    """K5, compiled by Triton at its first launch."""
     if not _JIT:
         import triton
         import triton.language
         globals()["tl"] = triton.language
-        _JIT.update(apply=triton.jit(_bn_apply_body),
-                    partial=triton.jit(_bn_partial_body),
-                    finish=triton.jit(_bn_finish_body))
+        _JIT.update(apply=triton.jit(_bn_apply_body))
     return _JIT
 
 
@@ -240,36 +220,133 @@ def bn_apply(x2, scale, bias, mean, var, eps, act=None):
     return out
 
 
-def bn_act_splits(m, c, sms=132):
-    """(splits, rows_per_split) of K6's statistics pass: about two programs
-    per SM across the channel blocks, each split a whole number of
-    64-row blocks, every split non-empty."""
-    c_blocks = _cdiv(c, _BLOCK_C)
-    blocks = _cdiv(m, _BLOCK_M)
-    splits = max(1, min(blocks, _cdiv(2 * sms, c_blocks)))
-    rows = _cdiv(blocks, splits) * _BLOCK_M
-    return _cdiv(m, rows), rows
+def bn_act_plan(m, c, sms, per_sm=1):
+    """(ctas, rows, vec) of K6's one launch on a card of `sms` SMs that each
+    hold `per_sm` of its CTAs (one: a CTA keeps 192 KB of x in shared
+    memory): `vec` channels a load (8, 16 bytes, where C is a multiple of
+    8; else 1); x cut into tiles of `rows` rows (a CTA's row groups:
+    BN_THREADS threads over the row's chunks of `vec`, at most BN_THREADS
+    chunks a slab), tile t taken by CTA t mod ctas; at most sms * per_sm
+    CTAs (a cooperative launch must be co-resident), each at least one tile
+    and, where M allows, about _MIN_PASSES of them."""
+    vec = 8 if c % 8 == 0 else 1
+    rows = BN_THREADS // min(c // vec, BN_THREADS)
+    tiles = _cdiv(m, rows)
+    return max(1, min(sms * per_sm, _cdiv(tiles, _MIN_PASSES))), rows, vec
+
+
+def bn_act_stats_in_order(x2, ctas, rows, vec):
+    """K6's (mean, var) with its summation order, in f32, from x2 [M, C]
+    and its plan: each thread of a CTA sums its `vec` channels over its row
+    of each of the CTA's tiles in tile order (slabs of at most BN_THREADS
+    chunks side by side), the CTA adds its `rows` row groups in order, and
+    lane l of a channel's warp adds the CTAs l, l + 32, ... in order before
+    a butterfly of shuffles joins the lanes. Every f32 add is the
+    kernel's, so this repeats it bit for bit."""
+    m, c = x2.shape
+    dev = x2.device
+    slab = min(c // vec, BN_THREADS) * vec
+    xf = x2.float()
+    xf = torch.cat([xf, xf.new_zeros((-m % rows, c))])  # zeros add nothing
+    tiles = xf.reshape(-1, rows, c)
+    part = torch.empty((ctas, 2, c), dtype=torch.float32, device=dev)
+    for b in range(ctas):
+        mine = tiles[b::ctas]
+        for st, terms in enumerate((mine, mine * mine)):
+            acc = torch.zeros((rows, c), dtype=torch.float32, device=dev)
+            for t in terms:
+                acc = acc + t
+            for c0 in range(0, c, slab):
+                cols = slice(c0, c0 + slab)
+                tot = acc[0, cols]
+                for i in range(1, rows):
+                    tot = tot + acc[i, cols]
+                part[b, st, cols] = tot
+    lanes = torch.zeros((32, 2, c), dtype=torch.float32, device=dev)
+    for k in range(ctas):
+        lanes[k % 32] = lanes[k % 32] + part[k]
+    lane = torch.arange(32, device=dev)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[lane ^ off]
+    # a tensor, not a scalar: PyTorch's CUDA division by a scalar multiplies
+    # by its reciprocal, which is not the kernel's (or IEEE's) quotient
+    fm = torch.full((c,), float(m), dtype=torch.float32, device=dev)
+    mean = lanes[0, 0] / fm
+    var = torch.clamp(lanes[0, 1] / fm - mean * mean, min=0.0)
+    return mean, var
+
+
+_OCCUPANCY: Dict[Tuple[int, int], int] = {}
+_BARRIERS: Dict[int, torch.Tensor] = {}
+
+
+def _bn_act_entry(name, argtypes):
+    return cuda_build.entry("bn_act", name, argtypes)
+
+
+def _per_sm(vec, act):
+    """K6's CTAs per SM for (vec, act), from the CUDA occupancy query."""
+    key = (vec, ACTS[act])
+    if key not in _OCCUPANCY:
+        blocks = ctypes.c_int(0)
+        fn = _bn_act_entry("bn_act_occupancy", [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p])
+        rc = fn(vec, ACTS[act], ctypes.cast(ctypes.pointer(blocks),
+                                            ctypes.c_void_p))
+        if rc != 0 or blocks.value < 1:
+            raise RuntimeError(f"bn_act occupancy query failed: CUDA {rc}, "
+                               f"{blocks.value} CTAs an SM")
+        _OCCUPANCY[key] = blocks.value
+    return _OCCUPANCY[key]
+
+
+def _barrier(device):
+    """The device's grid-barrier counter: zeroed once, outside any graph
+    capture, and left zeroed by every launch."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _BARRIERS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bn_act: the first call on a device must not "
+                               "be captured in a CUDA graph")
+        _BARRIERS[idx] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _BARRIERS[idx]
+
+
+def launch_plan(x2, act):
+    """bn_act_plan on x2's card: its SMs, and the CTAs an SM holds as the
+    CUDA occupancy query gives them."""
+    m, c = x2.shape
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    return bn_act_plan(m, c, sms, _per_sm(8 if c % 8 == 0 else 1, act))
 
 
 def bn_act(x2, scale, bias, eps, act=None):
     """K6. x2 [M, C] bf16; scale, bias f32 [C] -> (ybn, yact, mean, var):
     batch statistics of x2 (f32, clamped one-pass variance) and the
-    normalized bf16 outputs. CPU tensors take the plain version; CUDA
-    tensors launch the kernels, or raise."""
+    normalized bf16 outputs, yact None when act is. CPU tensors take the
+    plain version; CUDA tensors launch the kernel, or raise."""
     if x2.device.type == "cpu":
         return bn_act_reference(x2, scale, bias, eps, act)
     _check("bn_act", x2, (scale, bias), act)
-    x2 = x2.contiguous()
+    x2 = cuda_build.aligned(x2)
     m, c = x2.shape
-    splits, rows = bn_act_splits(m, c)
-    part = torch.empty((2, splits, c), dtype=torch.float32, device=x2.device)
-    stats = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    k = _jit()
-    k["partial"][(splits, _cdiv(c, _BLOCK_C))](
-        x2, part[0], part[1], m, c, rows, BLOCK_M=_BLOCK_M, BLOCK_C=_BLOCK_C)
-    k["finish"][(_cdiv(c, _BLOCK_C),)](
-        part[0], part[1], stats[0], stats[1], m, c, splits, BLOCK_C=_BLOCK_C)
-    ybn, yact = _launch_apply(x2, scale.contiguous(), bias.contiguous(),
-                              stats[0], stats[1], eps, act)
+    ctas, rows, vec = launch_plan(x2, act)
+    ybn = torch.empty_like(x2)
+    yact = torch.empty_like(x2) if act is not None else None
+    stats = torch.empty((3, c), dtype=torch.float32, device=x2.device)
+    part = torch.empty((ctas, 2, c), dtype=torch.float32, device=x2.device)
+    scale, bias = scale.contiguous(), bias.contiguous()
+    fn = _bn_act_entry("bn_act", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+    rc = fn(x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), ybn.data_ptr(),
+            None if yact is None else yact.data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), part.data_ptr(), stats[2].data_ptr(),
+            _barrier(x2.device).data_ptr(), m, c, ctas, float(eps), vec,
+            ACTS[act], torch.cuda.current_stream(x2.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bn_act kernel launch failed with CUDA error {rc} "
+                           f"(x {m}x{c}, {ctas} CTAs, tiles of {rows} rows)")
     COUNTERS.act_launches += 1
     return ybn, yact, stats[0], stats[1]

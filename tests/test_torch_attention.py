@@ -1,8 +1,10 @@
 """The port's attention on the CPU: the plain versions of K7-K9
 (paddle_tpu_torch/ops/attention_cuda.py) against the JAX package's Pallas
 flash kernels in interpret mode, the autograd Function against JAX's
-custom_vjp, the einsum path against the reference's, the Hopper gate, and a
-guard that a CPU tensor never reaches the CUDA build.
+custom_vjp, the einsum path against the reference's, the Hopper gate, a
+guard that a CPU tensor never reaches the CUDA build, and the f32 kernels'
+3xTF32 arithmetic (K7 f32 and K10 f32, one tf32-wgmma body, and K8, K9)
+emulated on the CPU under the f32 rule.
 
 Inputs come from a numpy seed and go through both packages.
 
@@ -33,7 +35,7 @@ from paddle_tpu_torch.ops import attention_cuda as A
 from paddle_tpu_torch.ops import cuda_build
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import attention_tolerance  # noqa: E402
+from chip_smoke import attention_tolerance, hold_block  # noqa: E402
 
 # tests/test_pallas_attention.py's shapes
 SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (2, 256, 2, 64)]
@@ -345,19 +347,23 @@ def test_f32_backward_arithmetic_holds_the_f32_rule(shape, causal):
 
 # --- the f32 forward kernel's arithmetic (csrc/flash_attn_fwd_tf32.cu) ---------
 
-def _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, passes):
+def _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, passes,
+                 raw=False):
     """K7 f32 as the kernel runs it: per 64 query rows, the 64-key tiles the
     plain version visits walked in tiles of `bk` keys (keys past the last
     visited tile or Tk add exactly nothing); S from tf32 products (one
     chain over D), times scale rounded, causal-masked -1e30; the online
     softmax in f32; each tile's P V one tf32 partial joined by o = o *
     alpha + partial; O = o / max(l, 1e-30), LSE = m + log(max(l, 1e-30)).
-    Returns (o [B, Tq, H, D], lse [B, H, Tq])."""
+    Returns (o [B, Tq, H, D], lse [B, H, Tq]); with `raw`, K10 f32 on the
+    same body: the state as it stands, (acc [B, Tq, H, D], l, m [B, H,
+    Tq]), a row that visits no key tile (0, 0, -1e30)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
     o = torch.zeros((b, h, tq, d))
     lse = torch.zeros((b, h, tq))
+    ls = torch.zeros((b, h, tq))
     for q0 in range(0, tq, 64):
         rows = slice(q0, min(q0 + 64, tq))
         visit = -(-tk // 64)
@@ -383,9 +389,14 @@ def _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, passes):
             l = l * corr + pr.sum(-1)
             m = mx
             acc = acc * corr[..., None] + _tf32_product(pr, vb, passes)
+        if raw:
+            o[:, :, rows], lse[:, :, rows], ls[:, :, rows] = acc, m, l
+            continue
         denom = torch.clamp(l, min=1e-30)
         o[:, :, rows] = acc / denom[..., None]
         lse[:, :, rows] = m + torch.log(denom)
+    if raw:
+        return o.permute(0, 2, 1, 3), ls, lse
     return o.permute(0, 2, 1, 3), lse
 
 
@@ -424,3 +435,90 @@ def test_f32_forward_arithmetic_holds_the_f32_rule(case, causal, bk):
         assert (ro[:, masked].abs().sum(-1) > 0).all()      # p = 1, not 0
     o1, _ = _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, 1)
     assert not ((o1 - ro).abs() <= bound).all()
+
+
+def _f32_operands(b, tq, tk, h, d, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, tq, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, tk, h, d))
+                             .astype(np.float32)) for _ in range(2))
+    return q, k, v
+
+
+def _hold_f32_block(q, k, v, q_off, k_off, causal, bk):
+    """K10 f32's scheme, emulated, held to the plain version by
+    chip_smoke.hold_block (invalid rows exactly m = -1e30, rows no key
+    tile reaches exactly (0, 0, -1e30), valid rows' acc within
+    attention_tolerance's f32 rule); one tf32 pass must fail it. Returns
+    the plain version's (acc, l, m)."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    want = A.flash_forward_block_reference(q, k, v, q_off, k_off, scale,
+                                           causal)
+    got = _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, 3, raw=True)
+    args = (q, k, v, q_off, k_off, scale, causal)
+    hold_block(got, want, *args, "K10 f32 emulated")
+    if not (want[2] <= -5e29).all():
+        one = _f32_forward(q, k, v, causal, q_off, k_off, scale, bk, 1,
+                           raw=True)
+        with pytest.raises(RuntimeError, match="acc|m"):
+            hold_block(one, want, *args, "one tf32 pass")
+    return got, want
+
+
+@pytest.mark.parametrize("bk", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", F32_FWD_CASES, ids=str)
+def test_f32_block_arithmetic_holds_the_f32_rule(case, causal, bk):
+    """K10 f32 runs K7 f32's body with the normalization left out: its raw
+    state (acc, l, m), emulated on the CPU with the kernel's scheme, stays
+    within the f32 rule of flash_forward_block_reference at F32_FWD_CASES;
+    one tf32 pass does not."""
+    b, tq, tk, h, d, q_off, k_off = case
+    q, k, v = _f32_operands(b, tq, tk, h, d, sum(case) + bk + 1)
+    (acc, l, m), (racc, rl, rm) = _hold_f32_block(q, k, v, q_off, k_off,
+                                                  causal, bk)
+    assert acc.shape == q.shape and l.shape == m.shape == (b, h, tq)
+    if causal and q_off < k_off:    # rows whose every visited key is masked
+        masked = slice(0, k_off - q_off)
+        assert (m[..., masked] == -1e30).all()
+        assert (rl[..., masked] > 0).all()        # p = 1 over the tile, not 0
+
+
+# (B, T/P, H, D) of a four-shard ring's pairs: T/P 64 and 72 (a ragged tile)
+F32_RING_SHARDS = [(1, 64, 2, 32), (1, 72, 2, 64)]
+
+
+@pytest.mark.parametrize("bk", [32, 64])
+@pytest.mark.parametrize("q_shard", range(4))
+@pytest.mark.parametrize("shard", F32_RING_SHARDS, ids=str)
+def test_f32_block_at_the_four_shard_ring_pairs(shard, q_shard, bk):
+    """K10 f32, emulated, at the four (q_shard, j) pairs of a causal
+    four-shard ring, the offsets the ring gives it: held to the plain
+    version by the f32 rule; a pair wholly in the causal future (j >
+    q_shard, no key tile visited) is exactly (0, 0, -1e30), as the plain
+    version is."""
+    b, t, h, d = shard
+    q, k, v = _f32_operands(b, 4 * t, 4 * t, h, d, 29 + q_shard + bk + d)
+    i = q_shard
+    for j in range(4):
+        (acc, l, m), _ = _hold_f32_block(
+            q[:, i * t:(i + 1) * t], k[:, j * t:(j + 1) * t],
+            v[:, j * t:(j + 1) * t], i * t, j * t, True, bk)
+        if j > i:
+            assert (acc == 0).all() and (l == 0).all() and (m == -1e30).all()
+        else:
+            assert (m > -1e30).all() and (l >= 1).all()
+
+
+def test_f32_block_runs_on_the_tf32_forward():
+    """The f32 form of K10 is K7 f32's library entry (no tile walk is
+    built), counted in f32_block_launches."""
+    lib, entry, counter = A._KERNELS["block"][1]
+    assert (lib, entry, counter) == ("flash_attn_fwd_tf32",
+                                     "flash_tf32_fwd_block",
+                                     "f32_block_launches")
+    assert A._KERNELS["fwd"][1][0] == lib
+    assert "flash_attn_walk" not in cuda_build.SOURCES
+    assert not (cuda_build.CSRC / "flash_attn_walk.cu").exists()
+    assert "flash_tf32_fwd_block" in \
+        (cuda_build.CSRC / cuda_build.SOURCES[lib]).read_text()

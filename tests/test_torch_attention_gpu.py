@@ -462,3 +462,63 @@ def test_f32_forward_long_sequence(device):
     bound, = attention_tolerance("fwd", q, k, v, True, rows=2048)
     _assert_within(o, ro, bound, "o")
     assert ((lse - rlse).abs() <= 1e-5 * rlse.abs().clamp_min(1.0)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", F32_FWD_CASES, ids=str)
+def test_f32_block_matches_plain_version(device, case, causal, d):
+    """K10 f32 (K7 f32's tf32-wgmma body, NORMALIZE off) at K7 f32's cases:
+    the raw state held by hold_block, bitwise repeatable, counted in
+    f32_block_launches; a query tile that visits no key tile (Tq 64 at
+    q_off 0 against keys from 64, causal) is exactly (0, 0, -1e30)."""
+    b, tq, tk, h, q_off, k_off = case
+    q = _rand((b, tq, h, d), device, d + 3, dtype=torch.float32)
+    k, v = (_rand((b, tk, h, d), device, d + 3 + i, dtype=torch.float32)
+            for i in (1, 2))
+    scale = 1.0 / math.sqrt(d)
+    A.COUNTERS.reset()
+    got = A.flash_attention_block(q, k, v, q_off, k_off, scale, causal)
+    again = A.flash_attention_block(q, k, v, q_off, k_off, scale, causal)
+    torch.cuda.synchronize()
+    assert A.COUNTERS.f32_block_launches == 2
+    assert A.COUNTERS.f32_launches == 0 and A.COUNTERS.block_launches == 0
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = A.flash_forward_block_reference(q, k, v, q_off, k_off, scale,
+                                           causal)
+    hold_block(got, want, q, k, v, q_off, k_off, scale, causal,
+               f"K10 f32 {case} D {d}")
+    if causal and q_off + tq <= k_off:
+        acc, l, m = got
+        assert (acc == 0).all() and (l == 0).all() and (m == -1e30).all()
+
+
+@pytest.mark.gpu
+def test_f32_block_four_shard_ring_at_the_step_shape(device):
+    """K10 f32 at the 16 (query shard, key shard) pairs of a causal
+    four-shard ring of the f32 ring step's [1, 2048, 8, 64]: each pair held
+    by hold_block, the 6 pairs wholly in the causal future exactly (0, 0,
+    -1e30), 16 launches counted."""
+    b, t, h, d = 1, 512, 8, 64
+    q, k, v, _ = _operands((b, 4 * t, h, d), device, 61, dtype=torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    A.COUNTERS.reset()
+    masked = 0
+    for i in range(4):
+        qi = q[:, i * t:(i + 1) * t]
+        for j in range(4):
+            kj, vj = k[:, j * t:(j + 1) * t], v[:, j * t:(j + 1) * t]
+            got = A.flash_attention_block(qi, kj, vj, i * t, j * t, scale,
+                                          True)
+            want = A.flash_forward_block_reference(qi, kj, vj, i * t, j * t,
+                                                   scale, True)
+            hold_block(got, want, qi, kj, vj, i * t, j * t, scale, True,
+                       f"pair ({i}, {j})")
+            if j > i:
+                masked += 1
+                acc, l, m = got
+                assert (acc == 0).all() and (l == 0).all()
+                assert (m == -1e30).all()
+    torch.cuda.synchronize()
+    assert masked == 6 and A.COUNTERS.f32_block_launches == 16

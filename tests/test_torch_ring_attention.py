@@ -5,7 +5,9 @@
     K8's and K9's plain versions against flash_attention_bwd_block, at the
     offsets of every (query shard, key shard) pair of a four-shard ring,
     causal and full, f32 and bf16; the pairs wholly in a row's causal
-    future come out exactly (0, 0, -1e30) and zero gradients in both.
+    future come out exactly (0, 0, -1e30) and zero gradients in both. K10
+    f32's 3xTF32 arithmetic (tests/test_torch_attention.py's emulation of
+    the tf32-wgmma body) against the Pallas block at the same pairs.
   * parallel.ring_attention_sharded on gloo groups of 2 and 4 CPU
     processes (tests/torch_ring_worker.py, fresh interpreters, joined with
     a hard timeout) and in one process (world size 1), against the JAX
@@ -177,6 +179,36 @@ def test_block_plain_version_matches_pallas(dtype, causal, q_shard):
             _close(pl, l, TOL["float32"], f"l {at}")
             err = np.abs(_f32(pm) - _f32(m))
             assert (err <= 1e-6 * np.maximum(1, np.abs(_f32(m)))).all(), at
+
+
+@pytest.mark.parametrize("q_shard", range(4))
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_block_arithmetic_matches_pallas_at_ring_pairs(causal, q_shard):
+    """K10 f32 (K7 f32's tf32-wgmma body with the normalization left out),
+    its 3xTF32 scheme emulated on the CPU (tests/test_torch_attention.py
+    `_f32_forward` with raw=True, 64-key tiles as at D <= 64), against the
+    Pallas block in interpret mode at the four pairs (q_shard, j) of a
+    four-shard ring, held by chip_smoke.hold_block's f32 rule; the pairs
+    wholly in the causal future are exactly (0, 0, -1e30) in both."""
+    from test_torch_attention import _f32_forward
+    from chip_smoke import hold_block
+    (jq, jk, jv, _), (tq, tk, tv, _) = _ring_operands("float32", 3)
+    t, scale = SHARD[1], 1.0 / np.sqrt(SHARD[-1])
+    i = q_shard
+    fn = _pallas("fwd", scale, causal)
+    with jax.default_matmul_precision("highest"):
+        for j in range(4):
+            at = f"pair ({i}, {j})"
+            want = [torch.from_numpy(np.array(a)) for a in fn(
+                _shard(jq, i), _shard(jk, j), _shard(jv, j), i * t, j * t)]
+            ops = (_shard(tq, i), _shard(tk, j), _shard(tv, j))
+            got = _f32_forward(*ops, causal, i * t, j * t, scale, 64, 3,
+                               raw=True)
+            hold_block(got, want, *ops, i * t, j * t, scale, causal, at)
+            if causal and j > i:
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), at
+                assert (got[2] == -1e30).all() and (got[0] == 0).all(), at
 
 
 @pytest.mark.parametrize("q_shard", range(4))

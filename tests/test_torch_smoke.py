@@ -1,6 +1,7 @@
 """chip_smoke.py's ptxas gate on the CPU: the build log of a kernel that
 spills registers must stop the smoke, a clean log must pass it, and ptxas's
-serialized-wgmma warning (C7511) is recorded without hiding either."""
+serialized-wgmma warning (C7511) is recorded without hiding either. Also
+`--parent`'s loader of an older checkout's batch-norm module."""
 
 import sys
 from pathlib import Path
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import ptxas_report  # noqa: E402
+from chip_smoke import parent_bn_cuda, ptxas_report  # noqa: E402
 
 MANGLED = ("_ZN55_GLOBAL__N__6c76bbb5_22_flash_attn_bwd_tf32_cu_98bb9b7e15"
            "dkv_tf32_kernelILi128ELi32ELi1ELi2EEEv14CUtensorMap_stS1_S1_S1_"
@@ -46,3 +47,43 @@ def test_clean_kernel_passes_and_is_reported(lines):
     assert key in report
     assert CLEAN.strip() in report[key] and USED in report[key]
     assert (C7511 in report[key]) == (C7511 in lines)
+
+
+PARENT_BN = """from dataclasses import dataclass, field
+from typing import Dict
+
+import torch
+
+
+@dataclass
+class Counters:
+    act_launches: int = 0
+    hits: Dict[str, int] = field(default_factory=dict)
+
+
+COUNTERS = Counters()
+
+
+def bn_act(x2, scale, bias, eps, act=None):
+    COUNTERS.act_launches += 1
+    return x2 * 2, None, x2.float().mean(0), x2.float().var(0)
+"""
+
+
+def test_parent_bn_module_loads_by_file_path(tmp_path):
+    """`--parent DIR` loads DIR's paddle_tpu_torch/ops/bn_cuda.py (the
+    older K6: a module of dataclasses that imports torch and triton only)
+    by file path under a private name, apart from this tree's module."""
+    ops = tmp_path / "paddle_tpu_torch" / "ops"
+    ops.mkdir(parents=True)
+    (ops / "bn_cuda.py").write_text(PARENT_BN)
+    from paddle_tpu_torch.ops import bn_cuda
+    before = bn_cuda.COUNTERS.act_launches
+    mod = parent_bn_cuda(tmp_path)
+    assert mod is not bn_cuda and mod.__name__ != bn_cuda.__name__
+    import torch
+    x = torch.ones((4, 3))
+    y, _, mean, _ = mod.bn_act(x, None, None, 1e-5)
+    assert torch.equal(y, x * 2) and torch.equal(mean, torch.ones(3))
+    assert mod.COUNTERS.act_launches == 1
+    assert bn_cuda.COUNTERS.act_launches == before

@@ -61,6 +61,11 @@ RESNET50_SHAPES = [(32, h, w, ci, co, k, k, (s, s), (p, p), (1, 1))
 
 # [M, C] of the batch-norm kernels
 BN_SHAPES = [(1000, 200), (64, 64), (4099, 8), (32, 1024)]
+# and of K6 also: C not a multiple of 8 (its scalar loads), ResNet-50's
+# stem window at batch 32 (the main path's K6), M that leaves the CTAs'
+# last tiles short, C wider than one slab of its chunks
+BN_ACT_SHAPES = BN_SHAPES + [(1000, 36), (7, 3), (401408, 64), (100003, 64),
+                             (200, 4104)]
 
 
 @pytest.fixture
@@ -196,7 +201,7 @@ def test_bn_apply_matches_plain_version(device, mc, act):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mc", BN_SHAPES, ids=str)
+@pytest.mark.parametrize("mc", BN_ACT_SHAPES, ids=str)
 @pytest.mark.parametrize("act", [None, "relu"], ids=str)
 def test_bn_act_matches_plain_version(device, mc, act):
     x, scale, bias, _, _ = _bn_operands(*mc, device, seed=4)
@@ -208,6 +213,10 @@ def test_bn_act_matches_plain_version(device, mc, act):
     ybn, yact, mean, var = out
     for a, b in zip(out, out2):
         assert (a is None and b is None) or torch.equal(a, b)
+    # one launch in a fixed summation order: bn_act_stats_in_order's, bit
+    # for bit, under the plan it launched with
+    omean, ovar = bn_cuda.bn_act_stats_in_order(x, *bn_cuda.launch_plan(x, act))
+    assert torch.equal(mean, omean) and torch.equal(var, ovar)
     rbn, _, rmean, rvar = bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)
     xf = x.float()
     m = x.shape[0]

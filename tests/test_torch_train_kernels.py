@@ -28,7 +28,7 @@ from paddle_tpu.ops import fusion as jax_fusion
 from paddle_tpu.ops import layout as jax_layout
 from paddle_tpu.ops import pallas_conv
 import paddle_tpu_torch as pt
-from paddle_tpu_torch.ops import bn_cuda, conv_cuda
+from paddle_tpu_torch.ops import bn_cuda, conv_cuda, cuda_build
 
 SUM_RTOL = 1e-5
 
@@ -261,6 +261,144 @@ def test_bn_act_matches_pallas(m, act):
     if act is not None:
         _assert_bf16_close(yact.float().numpy(),
                            np.asarray(jact.astype(jnp.float32)))
+
+
+# --- K6's plan and its fixed summation order (csrc/bn_act.cu) ---------------
+
+# (M, C, SMs, CTAs an SM): the main path's stem window, ragged C (scalar
+# loads), C past one slab of chunks, M that does not fill the last tile
+PLAN_CASES = [(401408, 64, 132, 2), (1000, 36, 132, 2), (4099, 8, 132, 2),
+              (200, 4104, 132, 2), (64, 64, 132, 2), (7, 3, 132, 2),
+              (100003, 64, 132, 1), (1000, 200, 2, 3), (32, 1024, 132, 2),
+              (25088, 2048, 132, 2)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=str)
+def test_bn_act_plan_covers_every_row_once(case):
+    """bn_act_plan: 16-byte loads (8 channels) exactly where C % 8 == 0;
+    tiles of `rows` rows, tile t taken by CTA t mod CTAs, cover every row
+    of x exactly once; every CTA takes at least one tile; the CTAs fit on
+    the card at once (a cooperative launch needs them co-resident)."""
+    m, c, sms, per_sm = case
+    ctas, rows, vec = bn_cuda.bn_act_plan(m, c, sms, per_sm)
+    assert vec == (8 if c % 8 == 0 else 1)
+    chunks = min(c // vec, bn_cuda.BN_THREADS)
+    assert rows == bn_cuda.BN_THREADS // chunks and rows * chunks <= \
+        bn_cuda.BN_THREADS
+    tiles = -(-m // rows)
+    assert 1 <= ctas <= min(sms * per_sm, tiles)
+    seen = np.zeros(m, np.int64)
+    for b in range(ctas):
+        mine = np.arange(b, tiles, ctas)
+        assert mine.size >= 1
+        for t in mine:
+            seen[t * rows:min(m, (t + 1) * rows)] += 1
+    assert (seen == 1).all()
+
+
+def _kernel_order_stats(x, ctas, rows, vec, threads=512):
+    """K6's statistics as csrc/bn_act.cu orders its f32 adds, thread by
+    thread (numpy f32, vectorized over the CTA's threads): thread (rsub,
+    cg) sums its `vec` channels over row rsub of each of its CTA's tiles,
+    in tile order; the CTA adds its row groups in order; lane l of a
+    channel's warp adds CTAs l, l + 32, ... in order; a butterfly of
+    shuffles joins the lanes; mean = sum / M, var = max(sq / M - mean^2,
+    0)."""
+    f32 = np.float32
+    m, c = x.shape
+    g = c // vec
+    slab = min(g, threads)
+    assert rows == threads // slab
+    tiles = -(-m // rows)
+    part = np.zeros((ctas, 2, c), f32)
+    for b in range(ctas):
+        mine = range(b, tiles, ctas)
+        for sl in range(-(-g // slab)):
+            width = min(slab, g - sl * slab) * vec
+            cols = sl * slab * vec + np.arange(width)
+            su = np.zeros((rows, width), f32)
+            sq = np.zeros((rows, width), f32)
+            for t in mine:
+                r = t * rows + np.arange(rows)
+                xs = np.where((r < m)[:, None], x[np.minimum(r, m - 1)][:, cols],
+                              f32(0))
+                su = su + xs
+                sq = sq + xs * xs
+            tot, tot2 = su[0], sq[0]
+            for i in range(1, rows):
+                tot, tot2 = tot + su[i], tot2 + sq[i]
+            part[b, 0, cols], part[b, 1, cols] = tot, tot2
+    lanes = np.zeros((32, 2, c), f32)
+    for k in range(ctas):
+        lanes[k % 32] = lanes[k % 32] + part[k]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[np.arange(32) ^ off]
+    mean = lanes[0, 0] / f32(m)
+    var = np.maximum(lanes[0, 1] / f32(m) - mean * mean, f32(0))
+    return mean, var
+
+
+@pytest.mark.parametrize("case", [(300, 16, 132), (3000, 36, 2), (50, 4104, 3),
+                                  (5000, 64, 132), (7, 3, 132),
+                                  (4099, 8, 1)], ids=str)
+def test_bn_act_stats_in_order_is_the_kernel_order(case):
+    """bn_cuda.bn_act_stats_in_order (which the card's tests hold K6's
+    statistics to, bit for bit) repeats the kernel's adds: equal bit for
+    bit to a thread-by-thread account of csrc/bn_act.cu's summation."""
+    m, c, sms = case
+    rng = np.random.default_rng(m + c)
+    x = _bf16(rng.standard_normal((m, c)) * 2 + 0.5)
+    plan = bn_cuda.bn_act_plan(m, c, sms)
+    mean, var = bn_cuda.bn_act_stats_in_order(_t(x), *plan)
+    want_mean, want_var = _kernel_order_stats(x, *plan)
+    assert np.array_equal(mean.numpy(), want_mean)
+    assert np.array_equal(var.numpy(), want_var)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("mc", [(16, 128), (72, 128), (512, 256), (4104, 128)],
+                         ids=str)
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_bn_act_kernel_order_matches_pallas(mc, act, sms):
+    """K6's statistics in its fixed order (per-CTA partials joined in CTA
+    order, bn_act_stats_in_order under the plan for a card of `sms` SMs)
+    and its normalize of them against the Pallas K6 in interpret mode, and
+    against bn_act_reference, by the sum rule; the bf16 outputs within one
+    ulp of Pallas's."""
+    m, c = mc
+    x, scale, bias, _, _ = _bn_operands(m, c, seed=7)
+    act_fn = None if act is None else functools.partial(
+        jax_fusion._activations[act], a=None)
+    jbn, jact, jmean, jvar = jax_fusion._pallas_bn_act(
+        _j(x), jnp.asarray(scale), jnp.asarray(bias), 1e-5, act_fn)
+    plan = bn_cuda.bn_act_plan(m, c, sms)
+    mean, var = bn_cuda.bn_act_stats_in_order(_t(x), *plan)
+    _, _, rmean, rvar = bn_cuda.bn_act_reference(
+        _t(x), torch.from_numpy(scale), torch.from_numpy(bias), 1e-5, act)
+    mags = np.abs(x).mean(0)
+    ex2 = (x * x).mean(0)
+    for want_mean, want_var in ((np.asarray(jmean), np.asarray(jvar)),
+                                (rmean.numpy(), rvar.numpy())):
+        _assert_sum_close(mean.numpy(), want_mean, mags)
+        _assert_sum_close(var.numpy(), want_var,
+                          ex2 + 2 * np.abs(mean.numpy()) * mags)
+    ybn, yact = bn_cuda.bn_apply_reference(
+        _t(x), torch.from_numpy(scale), torch.from_numpy(bias), mean, var,
+        1e-5, act)
+    _assert_bf16_close(ybn.float().numpy(), np.asarray(jbn.astype(jnp.float32)))
+    if act is not None:
+        assert torch.equal(yact, torch.relu(ybn))
+
+
+def test_bn_act_is_one_cuda_kernel():
+    """K6 is built from csrc/bn_act.cu (one cooperative launch); the Triton
+    module keeps K5 alone."""
+    assert cuda_build.SOURCES["bn_act"] == "bn_act.cu"
+    src = (cuda_build.CSRC / "bn_act.cu").read_text()
+    assert "cudaLaunchCooperativeKernel" in src
+    assert not hasattr(bn_cuda, "_bn_partial_body")
+    assert not hasattr(bn_cuda, "_bn_finish_body")
+    assert hasattr(bn_cuda, "_bn_apply_body")
 
 
 # --- gates --------------------------------------------------------------------

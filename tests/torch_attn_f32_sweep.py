@@ -9,9 +9,9 @@ the kernels' time per call at the f32 paths' shape [1, 2048, 8, 64]
 causal (CUDA graph between events), each held to the package build's
 outputs; the package's plans also at D 128 ([1, 2048, 4, 128]). With
 `--parent DIR` (a checkout whose `csrc/flash_attn_walk.cu` still holds
-K7's f32 tile walk, `flash_walk_fwd`), that walk is built from DIR's
-sources and timed against the package's K7 f32 at both shapes, in turns,
-in the same process.
+K10's f32 tile walk, `flash_walk_fwd_block`), that walk is built from
+DIR's sources and timed against the package's K10 f32 (K7 f32's body with
+the normalization left out) at both shapes, in turns, in the same process.
 
     python tests/torch_attn_f32_sweep.py [--parent DIR]
 
@@ -87,7 +87,8 @@ def build(name, entry, source="flash_attn_bwd_tf32.cu", package=ENTRY,
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = C._kernel_label(m.group(1))
-        elif fn == want + ">" or fn.startswith(want + ","):
+        elif fn is not None and (fn == want + ">" or
+                                 fn.startswith(want + ",")):
             op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]+)",
                            line)
             if op:
@@ -157,10 +158,25 @@ def time_fwd(fwd, shape, reps=10):
     return ms, fl / ms / 1e9, rel
 
 
+def time_block(block, shape, reps=10):
+    """`block` (q, k, v) -> (acc, l, m), K10 at offsets 0, at `shape` causal
+    from the smoke's seed: ms a call (CUDA graph between events) and its
+    acc's largest difference from the package's, relative to its largest
+    acc."""
+    gen = torch.Generator().manual_seed(C.SEED)
+    q, k, v = (torch.randn(shape, generator=gen).cuda() for _ in range(3))
+    scale = 1.0 / math.sqrt(shape[-1])
+    want = A.flash_attention_block(q, k, v, 0, 0, scale, True)[0]
+    got = block(q, k, v)[0]
+    torch.cuda.synchronize()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    return C._device_ms(lambda: block(q, k, v), reps=reps), rel
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
-                    help="a checkout holding the f32 tile walk's K8 and K9")
+                    help="a checkout holding the f32 tile walk of K10")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(C._card_line(), flush=True)
@@ -188,19 +204,21 @@ def main(argv=None):
                   f"package build {rel:.2g}", flush=True)
     if args.parent is None:
         return
-    walk = C.parent_walk_fwd(args.parent, A)
+    walk = C.parent_walk_block(args.parent, A)
 
     def package(q, k, v):
-        return A.flash_forward(q, k, v, True)
+        return A.flash_attention_block(q, k, v, 0, 0,
+                                       1.0 / math.sqrt(q.shape[-1]), True)
     for shape in SHAPES:
-        turns = [time_fwd(fn, shape) for fn in (package, walk, walk, package)]
+        turns = [time_block(fn, shape) for fn in (package, walk, walk,
+                                                   package)]
         new = (turns[0][0] + turns[3][0]) / 2
         old = (turns[1][0] + turns[2][0]) / 2
-        print(f"K7 f32 at {list(shape)} causal, in turns package, walk of "
+        print(f"K10 f32 at {list(shape)} causal, in turns package, walk of "
               f"{args.parent}, walk, package: "
               + ", ".join(f"{t[0]:.4f}" for t in turns)
               + f" ms a call; walk / package {old / new:.2f}; the walk's max "
-              f"rel diff from the package {turns[1][2]:.2g}", flush=True)
+              f"rel diff from the package {turns[1][1]:.2g}", flush=True)
 
 
 if __name__ == "__main__":
