@@ -4,7 +4,9 @@ Drives the port's main paths — ResNet-50 (224x224, 1000 classes, full
 width and depth, random weights from a seed) under AMP O2, served by the
 port's ServingEngine through buckets (1, 4, 16), served in int8 (AMP O3)
 from a saved inference model through the same buckets, and trained with
-Momentum through Executor.run at batch 32; bench.py's transformer LM
+Momentum through Executor.run at batch 32 and, from the flowers reader,
+through the DoubleBufferedFeeder and Executor.run_steps; the book
+chapters that need no sequence op; bench.py's transformer LM
 (batch 8, T 2048, 4 layers, d_model 512, 8 heads, vocab 8192) under AMP
 O2, trained with Adam and served through buckets (1, 2, 4, 8); and
 bench.py's long-context ring configuration of the same LM (batch 1, T
@@ -75,6 +77,28 @@ card:
               re-run on the CPU on the card's own inputs), then end to end
               (the loss, per-parameter grad relative L2), in O2 and in f32
               (TF32 off);
+ 8b. train_feeder  ResNet-50 O2 with 102 classes trained from the flowers
+              surrogate through the input pipeline: reader.shuffle(512) ->
+              batch(32, drop_last) -> DataFeeder.feed ->
+              DoubleBufferedFeeder(capacity 2, window_prefetch 2; pinned
+              staging, a copy stream) -> Executor.run_steps(K=4), one
+              warm-up and three timed windows inside one pass: per-step
+              time and img/s, the consumer's wait in next_window, peak
+              memory, launches per step 52/52/52/52/1 and the two stem
+              fallbacks, every window on the card bit for bit the host's
+              batches, the loss finite and its last timed window's mean
+              below the first timed window's; the next pass's first two
+              windows profiled (the share of the host-to-device copies of
+              the pass's other windows that overlaps the first one's
+              kernels; the busy share of the wall less the wait for the
+              window); run_steps(K=4) bit for bit four run()
+              calls from the same state and batches (losses, parameters,
+              velocities, statistics);
+ 8c. book     the five book chapters (fit_a_line, recognize_digits mlp and
+              conv, image_classification[resnet], word2vec) on the card at
+              their reference tests' budgets and thresholds, with the
+              inference round trip; the conv chapters' K1-K6 launches and
+              fallbacks by reason;
   9. kernel_attn  K7-K9 (flash-attention forward, dQ, dK/dV), in bf16
               (the Hopper kernels) and in f32 (their f32 forms), against
               their plain versions at the JAX tests' shapes, causal and
@@ -157,6 +181,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -302,6 +328,19 @@ LOCKSTEP_BF16, LOCKSTEP_F32 = 1e-2, 1e-3
 O2_LOSS_RTOL, F32_LOSS_RTOL = 2e-2, 1e-4
 LAST_GRAD_RL2, F32_GRAD_RL2 = 0.1, 0.1
 NORM_RATIO, NORM_RATIO_MEDIAN = 2.0, 0.1
+
+# training from the input pipeline (phase train_feeder): ResNet-50 O2 with
+# 102 classes on the flowers surrogate (512 training samples, 3x224x224),
+# reader.shuffle(buf_size=512) -> batch(32, drop_last) -> DataFeeder.feed
+# -> DoubleBufferedFeeder(capacity 2, window_prefetch 2) ->
+# Executor.run_steps(K=4): one warm-up window, then FEED_WINDOWS timed, all
+# inside one pass of 16 batches
+FEED_CLASSES = 102
+FEED_SHUFFLE = 512
+FEED_K = 4
+FEED_WINDOWS = 3
+FEED_CAPACITY, FEED_PREFETCH = 2, 2
+FEED_SEED = SEED + 11               # Python's `random`, which shuffle draws from
 
 # the transformer LM (phases kernel_attn, train_lm, serve_lm): bench.py's
 # `transformer` mode (bench.py:1005-1073), full width and depth
@@ -1358,7 +1397,7 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
 
 # --- training: the kernels K2-K6 ------------------------------------------------
 
-def _resnet50_train(pt, resnet, amp=True):
+def _resnet50_train(pt, resnet, amp=True, class_dim=1000):
     """bench.py's `resnet` training mode through the port's fluid API:
     build_image_classifier (softmax cross entropy, mean, accuracy), Momentum
     0.9 at TRAIN_LR, amp.decorate(level="O2")."""
@@ -1367,7 +1406,7 @@ def _resnet50_train(pt, resnet, amp=True):
         img = pt.layers.data(name="img", shape=[3, 224, 224], dtype="float32")
         label = pt.layers.data(name="label", shape=[1], dtype="int64")
         avg_cost, _, _ = pt.models.build_image_classifier(
-            resnet.resnet50, img, label, class_dim=1000)
+            resnet.resnet50, img, label, class_dim=class_dim)
         opt = pt.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9)
         if amp:
             opt = pt.amp.decorate(opt, level="O2")
@@ -1415,11 +1454,13 @@ def _sum_err(got, want, mags):
     return err.max().item()
 
 
-def _bf16_err(got, want, slack=0.0):
+def _bf16_err(got, want, slack=0.0, floor=1e-6):
     """Max abs error of a bf16 output, and raise if past one ulp of the
-    plain version's plus `slack` (the f32 tolerance of the sum it rounds)."""
+    plain version's plus `slack` (the f32 tolerance of the sum it rounds)
+    and an absolute `floor` (none for K5, which rounds as its plain
+    version does)."""
     err = (got.float() - want.float()).abs()
-    if (err > _bf16_ulp(want) + slack + 1e-6).any():
+    if (err > _bf16_ulp(want) + slack + floor).any():
         raise ValueError(f"bf16 output {err.max().item():.4g} past one ulp")
     return err.max().item()
 
@@ -1547,7 +1588,7 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
                                                             var, 1e-5, act))
                 rbn, _ = bn_cuda.bn_apply_reference(x, scale, bias, mean, var,
                                                     1e-5, act)
-                err = _bf16_err(ybn, rbn)
+                err = _bf16_err(ybn, rbn, floor=0.0)
                 fn = lambda: bn_cuda.bn_apply(x, scale, bias, mean, var, 1e-5, act)  # noqa: E731
                 plain = lambda: bn_cuda.bn_apply_reference(x, scale, bias, mean, var, 1e-5, act)  # noqa: E731
                 lib = lambda: F.batch_norm(x4, mean, var, scale, bias, False, 0.0, 1e-5)  # noqa: E731
@@ -1948,6 +1989,512 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
                        "profile": profile, "lockstep_worst_rl2": worst,
                        "small_batch": agree}
     return per_step
+
+
+# --- training from the input pipeline -----------------------------------------
+
+def _bitwise_scopes(a, b) -> list:
+    """Names of the tensors of scope `a` that are not bit for bit `b`'s."""
+    import torch
+    return [n for n, v in a.vars.items() if isinstance(v, torch.Tensor)
+            and not torch.equal(v, b.vars[n])]
+
+
+def _scope_from(pt, state):
+    scope = pt.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.clone())
+    return scope
+
+
+class _Recording:
+    """A reader for Executor.run_steps that keeps each window it hands out
+    (the tensors on the card), to be held to the host's batches after the
+    timed run."""
+
+    def __init__(self, feeder):
+        self.feeder = feeder
+        self.windows = []
+
+    def next_window(self, k, device=None):
+        w = self.feeder.next_window(k, device=device)
+        self.windows.append(w)
+        return w
+
+
+def _seeded(reader, seed):
+    """`reader` with Python's `random` seeded at the start of each pass, on
+    the thread that iterates it (reader.shuffle draws from it)."""
+    import random
+
+    def seeded():
+        random.seed(seed)
+        yield from reader()
+    return seeded
+
+
+def _feeder_chain(pt, seed=FEED_SEED, batch=TRAIN_BATCH):
+    """The flowers surrogate, shuffled over FEED_SHUFFLE samples, in
+    batches of `batch` with the remainder dropped."""
+    return _seeded(pt.batch(pt.reader.shuffle(pt.dataset.flowers.train(),
+                                              buf_size=FEED_SHUFFLE),
+                            batch, drop_last=True), seed)
+
+
+def _host_windows(feeder, chain, k):
+    """Every whole window of one pass of `chain`, converted by `feeder` and
+    stacked on the host: what the card's windows must equal bit for bit."""
+    windows, batches = [], []
+    for b in chain():
+        batches.append(feeder.feed(b))
+        if len(batches) == k:
+            windows.append({n: np.stack([f[n] for f in batches])
+                            for n in batches[0]})
+            batches = []
+    return windows
+
+
+def _copy_overlap(events):
+    """(ms of host-to-device copies, the share of it that overlaps a kernel)
+    from a profile's CUDA events."""
+    copies = [(e.time_range.start, e.time_range.end) for e in events
+              if "HtoD" in e.name or "Memcpy H" in e.name]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if "Memcpy" not in e.name and "Memset" not in e.name)
+    merged = []
+    for s, t in kernels:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t)
+        else:
+            merged.append([s, t])
+    total = sum(t - s for s, t in copies)
+    over = sum(max(0.0, min(t, b) - max(s, a))
+               for s, t in copies for a, b in merged)
+    return total / 1e3, (over / total if total else None)
+
+
+def _profile_window(exe, main, reader, loss, scope, card, attempts=3):
+    """One run_steps window under torch.profiler: its wall ms, the
+    consumer's wait for the window in it, the device's busy ms and share
+    of the wall less that wait, and the host-to-device copies' ms and the
+    share of it that overlaps kernels. A trace without a K4 launch is
+    taken again (the profiler now and then loses a window's CUDA
+    activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.reader import pipeline
+    for attempt in range(1, attempts + 1):
+        wait0 = pipeline.COUNTERS.wait_s
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run_steps(main, reader=reader, steps=FEED_K,
+                          fetch_list=[loss], scope=scope, fetch_mode="stack")
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        wait_ms = (pipeline.COUNTERS.wait_s - wait0) * 1e3
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not _is_span(e)]
+        if any(K1_KERNEL in e.name and "true" in e.name for e in events):
+            break
+        print(f"profile attempt {attempt}: no K4 launch in the trace",
+              flush=True)
+    else:
+        raise RuntimeError("the profiler saw no K4 launch in a run_steps "
+                           "window")
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted((e for e in events if "Memcpy" not in e.name),
+                    key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        if t > end:
+            busy_us += t - max(s, end)
+            end = t
+    copy_ms, overlap = _copy_overlap(events)
+    return {"wall_ms": wall_ms, "wait_ms": wait_ms, "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / (wall_ms - wait_ms),
+            "h2d_copy_ms": copy_ms, "h2d_overlap_share": overlap,
+            "card": card}
+
+
+def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
+    """ResNet-50 O2 (102 classes) trained on the card from the flowers
+    reader through DataFeeder, DoubleBufferedFeeder and run_steps(K=4):
+    launches per step, fallbacks, every device window bitwise the host's,
+    falling loss, step time, img/s, the consumer's wait, peak memory, one
+    profiled window (busy share, copy overlap); then run_steps bitwise
+    four run() calls from the same state and batches. Returns the kernel
+    launches of the timed windows."""
+    import torch
+    from paddle_tpu_torch.reader import pipeline
+
+    main, startup, loss = _resnet50_train(pt, resnet, class_dim=FEED_CLASSES)
+    exe = pt.Executor()                        # CUDAPlace(0) by default
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: v.clone() for n, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+    block = main.global_block()
+    feeder = pt.DataFeeder([block.var("img"), block.var("label")], exe.place,
+                           program=main)
+    chain = _feeder_chain(pt)
+    card = _card_line()
+    t0 = time.perf_counter()
+    host = _host_windows(feeder, chain, FEED_K)
+    print(f"train_feeder: one pass of the flowers chain on the host, "
+          f"{len(host)} windows of {FEED_K} batches of {TRAIN_BATCH} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if len(host) < 1 + FEED_WINDOWS:
+        raise RuntimeError(f"one pass holds {len(host)} windows, fewer than "
+                           f"the {1 + FEED_WINDOWS} the phase runs")
+
+    dbf = pipeline.DoubleBufferedFeeder(
+        chain, to_feed=feeder.feed, capacity=FEED_CAPACITY,
+        window_prefetch=FEED_PREFETCH)
+    rec = _Recording(dbf)
+    t0 = time.perf_counter()
+    losses = [exe.run_steps(main, reader=rec, steps=FEED_K, fetch_list=[loss],
+                            scope=scope, fetch_mode="stack")[0].ravel()]
+    print(f"warm-up window (the shuffle buffer fills, K5 compiles): "
+          f"{time.perf_counter() - t0:.2f} s, losses {losses[0]}", flush=True)
+    conv_cuda.COUNTERS.reset()
+    bn_cuda.COUNTERS.reset()
+    pipeline.COUNTERS.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(FEED_WINDOWS):
+        t0 = time.perf_counter()               # the fetch ends in a device->host copy
+        losses.append(exe.run_steps(main, reader=rec, steps=FEED_K,
+                                    fetch_list=[loss], scope=scope,
+                                    fetch_mode="stack")[0].ravel())
+        times.append(time.perf_counter() - t0)
+    wait_s = pipeline.COUNTERS.wait_s
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = FEED_WINDOWS * FEED_K
+    launches = {k: getattr(c, k) for c, keys in (
+        (conv_cuda.COUNTERS, ("dgrad_launches", "wgrad_launches", "stats_launches",
+                              "launches")),
+        (bn_cuda.COUNTERS, ("apply_launches", "act_launches"))) for k in keys}
+    conv_fb = dict(conv_cuda.COUNTERS.fallbacks)
+    bn_fb = dict(bn_cuda.COUNTERS.fallbacks)
+
+    # every window the card ran, bit for bit the host's
+    for i, (w, h) in enumerate(zip(rec.windows, host)):
+        for n, v in h.items():
+            if not torch.equal(w[n].cpu(), torch.from_numpy(v)):
+                raise RuntimeError(f"train_feeder: window {i}'s '{n}' on the "
+                                   f"card is not the host's batch bit for bit")
+    held = len(rec.windows)
+    rec.windows.clear()
+
+    per_step_ms = [t / FEED_K * 1e3 for t in times]
+    p50 = float(np.median(per_step_ms))
+    print(f"ResNet-50 O2 training from the flowers reader, batch {TRAIN_BATCH}, "
+          f"run_steps K={FEED_K}: per-step p50 {p50:.1f} ms (windows "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms), "
+          f"{TRAIN_BATCH / (p50 / 1e3):.1f} img/s; consumer wait in "
+          f"next_window {wait_s * 1e3:.1f} ms over {FEED_WINDOWS} windows; "
+          f"peak memory {peak_gb:.2f} GB; {held} windows bitwise the host's "
+          f"({card})", flush=True)
+    print("window losses: " + "; ".join(
+        ", ".join(f"{v:.5f}" for v in w) for w in losses), flush=True)
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"launches per step: {per_step}; fallbacks per step: conv "
+          f"{ {k: v / steps for k, v in conv_fb.items()} }, bn "
+          f"{ {k: v / steps for k, v in bn_fb.items()} }", flush=True)
+    # falling over the timed windows: from the random start the first few
+    # steps drop the loss, which then rises for a few steps while the
+    # momentum builds (PERF.md §6), so the warm-up window is no baseline
+    flat = np.concatenate(losses)
+    if not np.isfinite(flat).all() or not losses[-1].mean() < losses[1].mean():
+        raise RuntimeError(f"train_feeder: the loss is not finite and falling "
+                           f"over the timed windows (window means, the "
+                           f"warm-up's first: "
+                           f"{[float(w.mean()) for w in losses]})")
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    want["launches"] = 0
+    if any(launches[k] != want[k] for k in want):
+        raise RuntimeError(f"train_feeder: kernel launches {launches}, "
+                           f"expected {want}")
+    if conv_fb != {k: v * steps for k, v in TRAIN_FALLBACKS.items()} or bn_fb:
+        raise RuntimeError(f"train_feeder: unexpected fallbacks: conv "
+                           f"{conv_fb}, bn {bn_fb}")
+
+    # the rest of the pass; then the next pass's first window profiled (the
+    # window thread stacks and copies the pass's other windows while it
+    # computes: their copies' overlap with its kernels), and its second
+    # (the busy share with no wait for the shuffle buffer)
+    try:
+        while True:
+            dbf.next_window(FEED_K)
+    except StopIteration:
+        pass
+    torch.cuda.synchronize()
+    profiles = {"first_of_pass": _profile_window(exe, main, dbf, loss, scope,
+                                                 card),
+                "second_of_pass": _profile_window(exe, main, dbf, loss, scope,
+                                                  card)}
+    dbf.stop()
+    for what, prof in profiles.items():
+        print(f"profiled window ({what.replace('_', ' ')}): device busy "
+              f"{prof['busy_ms']:.2f} ms of {prof['wall_ms']:.1f} ms wall, "
+              f"{prof['busy_share']:.1%} of it less the "
+              f"{prof['wait_ms']:.1f} ms waited for the window; host-to-device "
+              f"copies {prof['h2d_copy_ms']:.3f} ms"
+              + ("" if prof["h2d_overlap_share"] is None else
+                 f", {prof['h2d_overlap_share']:.1%} of it overlapping kernels")
+              + f" ({card})", flush=True)
+
+    # run_steps against four run() calls from the same state and batches
+    sa, sb = _scope_from(pt, init), _scope_from(pt, init)
+    first = host[0]
+    seq = np.stack([exe.run(main, feed={n: v[i] for n, v in first.items()},
+                            fetch_list=[loss], scope=sa)[0]
+                    for i in range(FEED_K)])
+    win, = exe.run_steps(main, feed_window=first, fetch_list=[loss], scope=sb,
+                         fetch_mode="stack")
+    diverged = _bitwise_scopes(sa, sb)
+    if not np.array_equal(seq, win) or diverged or \
+            sa.find_var("__rng_counter__") != sb.find_var("__rng_counter__"):
+        raise RuntimeError(f"train_feeder: run_steps(K={FEED_K}) is not four "
+                           f"run() calls bit for bit: losses {seq.ravel()} vs "
+                           f"{win.ravel()}; tensors that differ: {diverged[:8]}")
+    print(f"run_steps(K={FEED_K}) bitwise {FEED_K} run() calls from the same "
+          f"state: losses and {len(sa.vars) - 1} scope tensors (parameters, "
+          f"velocities, batch-norm statistics)", flush=True)
+    report["train_feeder"] = {
+        "card": card, "batch": TRAIN_BATCH, "k": FEED_K, "classes": FEED_CLASSES,
+        "window_ms": [t * 1e3 for t in times], "per_step_p50_ms": p50,
+        "img_per_s": TRAIN_BATCH / (p50 / 1e3), "wait_ms": wait_s * 1e3,
+        "peak_memory_gb": peak_gb, "losses": [w.tolist() for w in losses],
+        "launches_per_step": per_step,
+        "fallbacks": {f"{k[0]}:{k[1]}": v for k, v in conv_fb.items()},
+        "windows_bitwise": held, "profiles": profiles}
+    return launches
+
+
+# --- the book chapters on the card ---------------------------------------------
+
+def _infer_roundtrip(pt, exe, place, feed, targets, main, rtol=1e-4,
+                     atol=1e-6):
+    """tests/book/_roundtrip.py's epilogue: predictions from the live scope,
+    then save_inference_model, a load into a fresh scope and executor, and
+    the same predictions again."""
+    import tempfile
+    expected = exe.run(pt.io.get_inference_program(targets, main), feed=feed,
+                       fetch_list=targets)
+    with tempfile.TemporaryDirectory() as d:
+        pt.io.save_inference_model(d, list(feed), targets, exe,
+                                   main_program=main)
+        with pt.scope_guard(pt.Scope()):
+            infer_exe = pt.Executor(place)
+            prog, names, fetch = pt.io.load_inference_model(d, infer_exe)
+            got = infer_exe.run(prog, feed={n: feed[n] for n in names},
+                                fetch_list=fetch)
+    for e, g in zip(expected, got):
+        np.testing.assert_allclose(g, e, rtol=rtol, atol=atol)
+    return got
+
+
+def _chapter(pt):
+    """Fresh programs, names and scope for one chapter, and Python's
+    `random` seeded (the readers shuffle with it)."""
+    import contextlib
+    import random
+    random.seed(SEED)
+    main, startup = pt.Program(), pt.Program()
+    stack = contextlib.ExitStack()
+    stack.enter_context(pt.unique_name.guard())
+    stack.enter_context(pt.program_guard(main, startup))
+    stack.enter_context(pt.scope_guard(pt.Scope()))
+    return main, startup, stack
+
+
+def book_fit_a_line(pt, place):
+    """tests/book/test_fit_a_line.py: SGD 0.01 on uci_housing, batch 20,
+    up to 12 passes (stopping below 0.3); the loss below 1.0."""
+    main, startup, stack = _chapter(pt)
+    with stack:
+        x = pt.layers.data(name="x", shape=[13], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="float32")
+        y_predict = pt.layers.fc(input=x, size=1, act=None)
+        avg_cost = pt.layers.mean(pt.layers.square_error_cost(y_predict, y))
+        pt.optimizer.SGD(learning_rate=0.01).minimize(avg_cost)
+        train = pt.batch(pt.reader.shuffle(pt.dataset.uci_housing.train(),
+                                           buf_size=500), batch_size=20)
+        exe = pt.Executor(place)
+        feeder = pt.DataFeeder(place=place, feed_list=[x, y])
+        exe.run(startup)
+        last, steps = None, 0
+        for _ in range(12):
+            for data in train():
+                last = float(exe.run(main, feed=feeder.feed(data),
+                                     fetch_list=[avg_cost])[0].ravel()[0])
+                steps += 1
+            if last < 0.3:
+                break
+        if not (last is not None and last < 1.0):
+            raise RuntimeError(f"fit_a_line: the loss did not drop: {last}")
+        xs = np.random.RandomState(0).randn(8, 13).astype(np.float32)
+        out, = _infer_roundtrip(pt, exe, place, {"x": xs}, [y_predict], main)
+        if out.shape != (8, 1) or not np.isfinite(out).all():
+            raise RuntimeError(f"fit_a_line: inference gave {out.shape}")
+    return {"steps": steps, "last_loss": last}
+
+
+def book_recognize_digits(pt, place, net):
+    """tests/book/test_recognize_digits.py: mnist_mlp or mnist_conv, Adam
+    1e-3, batch 64, 61 steps; the last 10 steps' accuracy above 0.7 and
+    loss below 1.0; the probabilities sum to 1."""
+    main, startup, stack = _chapter(pt)
+    with stack:
+        img = pt.layers.data(name="img", shape=[784] if net == "mlp"
+                             else [1, 28, 28], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        avg_cost, predict, acc = pt.models.build_image_classifier(
+            pt.models.mnist_mlp if net == "mlp" else pt.models.mnist_conv,
+            img, label, class_dim=10)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+        train = pt.batch(pt.reader.shuffle(pt.dataset.mnist.train(),
+                                           buf_size=500), batch_size=64)
+        exe = pt.Executor(place)
+        feeder = pt.DataFeeder(place=place, feed_list=[img, label])
+        exe.run(startup)
+        accs, losses = [], []
+        for i, data in enumerate(train()):
+            if net == "conv":
+                data = [(np.reshape(im, (1, 28, 28)), lb) for im, lb in data]
+            loss, a = exe.run(main, feed=feeder.feed(data),
+                              fetch_list=[avg_cost, acc])
+            accs.append(float(a.ravel()[0]))
+            losses.append(float(loss.ravel()[0]))
+            if i >= 60:
+                break
+        if not (np.mean(accs[-10:]) > 0.7 and np.mean(losses[-10:]) < 1.0):
+            raise RuntimeError(f"recognize_digits[{net}]: accuracy "
+                               f"{accs[-10:]}, loss {losses[-10:]}")
+        shape = (4, 784) if net == "mlp" else (4, 1, 28, 28)
+        xs = np.random.RandomState(0).rand(*shape).astype(np.float32)
+        probs, = _infer_roundtrip(pt, exe, place, {"img": xs}, [predict], main)
+        np.testing.assert_allclose(probs.sum(axis=1), np.ones(4), rtol=1e-4)
+    return {"steps": len(losses), "last_losses": losses[-10:],
+            "last_accuracy": accs[-10:]}
+
+
+def book_image_classification(pt, place):
+    """tests/book/test_image_classification.py[resnet]: resnet_cifar10
+    (depth 32) on cifar10, Adam 1e-3, batch 32, 31 steps; the last 5
+    losses' mean below 2.2."""
+    main, startup, stack = _chapter(pt)
+    with stack:
+        img = pt.layers.data(name="img", shape=[3, 32, 32], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        avg_cost, predict, acc = pt.models.build_image_classifier(
+            pt.models.resnet_cifar10, img, label, class_dim=10)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+        train = pt.batch(pt.reader.shuffle(pt.dataset.cifar.train10(),
+                                           buf_size=512), batch_size=32)
+        exe = pt.Executor(place)
+        feeder = pt.DataFeeder(place=place, feed_list=[img, label])
+        exe.run(startup)
+        losses = []
+        for i, data in enumerate(train()):
+            data = [(np.reshape(im, (3, 32, 32)), lb) for im, lb in data]
+            loss, _ = exe.run(main, feed=feeder.feed(data),
+                              fetch_list=[avg_cost, acc])
+            losses.append(float(loss.ravel()[0]))
+            if i >= 30:
+                break
+        if not np.mean(losses[-5:]) < 2.2:
+            raise RuntimeError(f"image_classification[resnet]: losses {losses}")
+        xs = np.random.RandomState(0).rand(4, 3, 32, 32).astype(np.float32)
+        probs, = _infer_roundtrip(pt, exe, place, {"img": xs}, [predict], main,
+                                  rtol=1e-3, atol=1e-5)
+        np.testing.assert_allclose(probs.sum(axis=1), np.ones(4), rtol=1e-3)
+    return {"steps": len(losses), "last_losses": losses[-5:]}
+
+
+def book_word2vec(pt, place):
+    """tests/book/test_word2vec.py: four context embeddings of one shared
+    table, concat, fc(128, sigmoid), fc(dict size), softmax cross entropy;
+    Adam 2e-3, batch 64, 3 epochs of imikolov 5-grams; the last loss below
+    0.8 of the first."""
+    main, startup, stack = _chapter(pt)
+    with stack:
+        word_dict = pt.dataset.imikolov.build_dict()
+        dict_size = len(word_dict)
+        names = ("firstw", "secondw", "thirdw", "forthw", "nextw")
+        words = [pt.layers.data(name=n, shape=[1], dtype="int64")
+                 for n in names]
+        embs = [pt.layers.embedding(input=w, size=[dict_size, 32],
+                                    param_attr=pt.ParamAttr(name="shared_w"))
+                for w in words[:4]]
+        hidden = pt.layers.fc(input=pt.layers.concat(input=embs, axis=1),
+                              size=128, act="sigmoid")
+        logits = pt.layers.fc(input=hidden, size=dict_size)
+        avg_cost = pt.layers.mean(pt.layers.softmax_with_cross_entropy(
+            logits=logits, label=words[4]))
+        pt.optimizer.Adam(learning_rate=2e-3).minimize(avg_cost)
+        train = pt.batch(pt.dataset.imikolov.train(word_dict, 5),
+                         batch_size=64)
+        exe = pt.Executor(place)
+        feeder = pt.DataFeeder(place=place, feed_list=words)
+        exe.run(startup)
+        losses = []
+        for _ in range(3):
+            for data in train():
+                data = [tuple([v] for v in sample) for sample in data]
+                losses.append(float(exe.run(main, feed=feeder.feed(data),
+                                            fetch_list=[avg_cost])[0].ravel()[0]))
+        if not losses[-1] < losses[0] * 0.8:
+            raise RuntimeError(f"word2vec: loss {losses[0]} -> {losses[-1]}")
+        rng = np.random.RandomState(0)
+        ctx = {n: rng.randint(0, dict_size, (6, 1)).astype(np.int64)
+               for n in names[:4]}
+        out, = _infer_roundtrip(pt, exe, place, ctx, [logits], main)
+        if out.shape != (6, dict_size):
+            raise RuntimeError(f"word2vec: inference gave {out.shape}")
+    return {"steps": len(losses), "first_loss": losses[0],
+            "last_loss": losses[-1]}
+
+
+BOOK = {
+    "fit_a_line": book_fit_a_line,
+    "recognize_digits[mlp]": lambda pt, place: book_recognize_digits(pt, place, "mlp"),
+    "recognize_digits[conv]": lambda pt, place: book_recognize_digits(pt, place, "conv"),
+    "image_classification[resnet]": book_image_classification,
+    "word2vec": book_word2vec,
+}
+# the chapters whose conv counters the card run prints
+BOOK_CONV = ("recognize_digits[conv]", "image_classification[resnet]")
+
+
+def phase_book(pt, conv_cuda, bn_cuda, report):
+    """The five book chapters on CUDAPlace(0) at their reference tests'
+    budgets and thresholds, with the inference round trip; for the conv
+    chapters the kernels' launches and the fallbacks by reason."""
+    place = pt.CUDAPlace(0)
+    out, t_all = {}, time.perf_counter()
+    for name, chapter in BOOK.items():
+        conv_cuda.COUNTERS.reset()
+        bn_cuda.COUNTERS.reset()
+        t0 = time.perf_counter()
+        res = chapter(pt, place)
+        res["seconds"] = time.perf_counter() - t0
+        if name in BOOK_CONV:
+            c, b = conv_cuda.COUNTERS, bn_cuda.COUNTERS
+            res["launches"] = {"K1": c.launches, "K2": c.dgrad_launches,
+                               "K3": c.wgrad_launches, "K4": c.stats_launches,
+                               "K5": b.apply_launches, "K6": b.act_launches}
+            res["fallbacks"] = {f"{k[0]}:{k[1]}": v for k, v in
+                                {**c.fallbacks, **b.fallbacks}.items()}
+        out[name] = res
+        print(f"book {name} on the card: " + ", ".join(
+            f"{k} {np.mean(v):.4g}" if isinstance(v, list) else f"{k} {v}"
+            for k, v in res.items()), flush=True)
+    total = time.perf_counter() - t_all
+    print(f"book chapters: {total:.1f} s in all", flush=True)
+    report["book"] = {"chapters": out, "seconds": total}
+    return out
 
 
 # --- the transformer LM: the kernels K7-K9 -------------------------------------
@@ -3233,10 +3780,17 @@ def main(argv=None) -> int:
     train_kernels = phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report,
                                        args.parent)
     per_step = phase_train(pt, conv_cuda, bn_cuda, resnet, report)
+    feeder_launches = phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report)
+    phase_book(pt, conv_cuda, bn_cuda, report)
+    if feeder_launches["launches"]:
+        k1["launches_by_path"]["train_feeder"] = feeder_launches["launches"]
+        k1["launches"] = sum(k1["launches_by_path"].values())
     for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
                                       "stats_launches", "apply_launches",
                                       "act_launches")):
-        k["launches"] = int(per_step[key] * TRAIN_STEPS)
+        k["launches_by_path"] = {"train": int(per_step[key] * TRAIN_STEPS),
+                                 "train_feeder": feeder_launches[key]}
+        k["launches"] = sum(k["launches_by_path"].values())
     attn_kernels = phase_kernel_attn(attention_cuda, report)
     lm_launches = phase_train_lm(pt, attention_cuda, report)
     serve_launches = phase_serve_lm(pt, attention_cuda, report)

@@ -16,7 +16,12 @@ the batch-norm kernels, K5 in Triton and K6 in CUDA C++ (ops/bn_cuda.py);
 K7-K10, the
 flash-attention forward, dQ, dK/dV and the ring's unnormalized forward
 block in CUDA C++ (ops/attention_cuda.py), the last for ring attention
-over an 'sp' mesh of torch.distributed ranks (parallel/).
+over an 'sp' mesh of torch.distributed ranks (parallel/). Input: the
+reader decorators and creators (reader/), `batch`, the datasets the book
+chapters read (dataset/, synthetic surrogates unless real files are
+cached), RecordIO files (recordio.py over native/recordio.cc), DataFeeder,
+the DoubleBufferedFeeder that stages batches on the card from a copy
+stream (reader/pipeline.py), and Executor.run_steps, K steps a call.
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -46,5 +51,11 @@ from . import interop
 from . import models
 from . import parallel
 from . import serving
+from .data_feeder import DataFeeder
+from . import nets
+from . import reader
+from . import dataset
+from . import recordio
+from .minibatch import batch
 
 __version__ = "0.1.0"

@@ -11,7 +11,8 @@ in-place outputs (parameters, accumulators, batch-norm statistics) are
 persistable and go back to the scope at the end of the run. Scope semantics follow the reference (scope.h:38): persistable
 variables live in the scope across runs; block temporaries vanish after
 the run. Feeds and fetches are dense tensors; LoD feeds wait for a later
-slice.
+slice. `run_steps` runs K steps over a window of K batches in one call,
+with the scope written once at the end (the JAX package's fused loop).
 
 Places: `CUDAPlace` is the real card here (the JAX package made it an
 alias of its TPU place). `Executor()` with no place runs on CUDAPlace(0),
@@ -28,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import os
 import zlib
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -39,7 +41,7 @@ from .ops import fusion as fusion_mod
 from .ops import registry
 
 __all__ = ["CPUPlace", "CUDAPlace", "TPUPlace", "place_device", "Scope",
-           "global_scope", "scope_guard", "Executor"]
+           "global_scope", "scope_guard", "Executor", "COUNTERS"]
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +200,61 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _normalize_window(feed_window, steps):
+    """-> ({name: [K, ...] array or tensor}, K), with the JAX package's
+    checks and messages (executor.py:755-799). A list of per-step feed
+    dicts is stacked on the host; a dict whose entries carry a leading [K]
+    axis (DoubleBufferedFeeder.next_window, DataFeeder.feed_window) passes
+    through."""
+    if isinstance(feed_window, dict):
+        if not feed_window:
+            raise ValueError("feed_window dict is empty")
+        ks = set()
+        for n, v in feed_window.items():
+            shape = getattr(v, "shape", None)
+            if not shape:
+                raise ValueError(
+                    f"feed_window entry '{n}' has no leading steps "
+                    f"axis (shape {shape})")
+            ks.add(int(shape[0]))
+        if len(ks) != 1:
+            raise ValueError(
+                f"feed_window leading dims disagree: {sorted(ks)}")
+        k = ks.pop()
+        if steps is not None and steps != k:
+            raise ValueError(
+                f"steps={steps} but feed_window leading dim is {k}")
+        return dict(feed_window), k
+    per_step = list(feed_window)
+    if not per_step:
+        raise ValueError("feed_window list is empty")
+    if steps is not None and steps != len(per_step):
+        raise ValueError(
+            f"steps={steps} but feed_window has {len(per_step)} entries")
+    names = set(per_step[0])
+    if any(set(f) != names for f in per_step[1:]):
+        raise ValueError("per-step feed dicts must share the same keys")
+    stacked = {n: torch.stack([v if isinstance(v, torch.Tensor) else
+                               torch.as_tensor(np.asarray(v))
+                               for v in (f[n] for f in per_step)])
+               for n in sorted(names)}
+    return stacked, len(per_step)
+
+
+@dataclass
+class Counters:
+    """`windows`: run_steps calls that finished; `steps`: the steps they
+    ran (K a window)."""
+    windows: int = 0
+    steps: int = 0
+
+    def reset(self):
+        self.windows = self.steps = 0
+
+
+COUNTERS = Counters()
+
+
 class PreparedProgram:
     """One inference program bound to its state names and fusion plan: the
     serving engine's per-bucket "executable" (Executor.prepare_serving)."""
@@ -275,6 +332,89 @@ class Executor:
                 scope.set_var(n, env[n])
         fetch = [env[n] for n in fetch_names]
         return [to_numpy(v) for v in fetch] if return_numpy else fetch
+
+    def run_steps(self, program: Optional[Program] = None, feed_window=None,
+                  *, reader=None, steps: Optional[int] = None,
+                  fetch_list: Optional[Sequence] = None,
+                  scope: Optional[Scope] = None, return_numpy: bool = True,
+                  fetch_mode: str = "last"):
+        """Run K training steps in one call (the JAX package's
+        executor.py:622): K passes of the block, with no host sync between
+        them, over a window of K batches.
+
+        feed_window: a list of K per-step feed dicts, or a dict whose every
+        entry has a leading [K] axis (DataFeeder.feed_window). reader: an
+        object with `next_window(k, device=...)`
+        (reader.pipeline.DoubleBufferedFeeder), pulled instead of
+        feed_window; it needs `steps`, and raises StopIteration at the end
+        of a pass. fetch_mode: 'last' returns the last step's fetches,
+        'stack' a [K, ...] stack of each, 'mean' their mean over the window.
+
+        Step i starts from the state (the scope's variables, as the
+        previous step left them) and slice i of the window's feeds, never
+        from an earlier step's temporaries, and runs with rng counter c +
+        i: the results are bitwise those of K run() calls. The fetches
+        stay on the device until the window ends, and come back with one
+        device-to-host copy each. The scope is written once, after the
+        last step, and `__rng_counter__` goes up by K then: a window that
+        fails leaves both as they were (the optimizer ops are functional,
+        so nothing is written in place before the end)."""
+        if fetch_mode not in ("last", "stack", "mean"):
+            raise ValueError(f"fetch_mode must be last|stack|mean, "
+                             f"got {fetch_mode!r}")
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        if reader is not None:
+            if feed_window is not None:
+                raise ValueError("pass feed_window or reader, not both")
+            if steps is None:
+                raise ValueError("reader windows need an explicit steps=K")
+            feed_window = reader.next_window(steps, device=self.device)
+        if feed_window is None:
+            raise ValueError("run_steps needs feed_window= or reader=")
+        stacked, steps = _normalize_window(feed_window, steps)
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        block = program.global_block()
+        for n in stacked:
+            if block.has_var(n) and block.var(n).lod_level > 0:
+                raise NotImplementedError(
+                    f"feed '{n}' is a sequence (lod_level "
+                    f"{block.var(n).lod_level}): LoD feeds come with the "
+                    f"port's LoD slice (ROADMAP Queue 1, slice 8)")
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        feed_vals = {n: _to_device(v, self.device) for n, v in stacked.items()}
+        state_names = self._resolve_state(program, feed_vals, scope)
+        persist_out = self._persistable_outputs(program)
+        state = {n: _to_device(scope.find_var(n), self.device)
+                 for n in state_names}
+        rng_counter = scope.find_var("__rng_counter__") or 0
+        groups = self._plan(program)
+        protected = set(fetch_names) | set(persist_out)
+        fetched = []
+        for i in range(steps):
+            env = dict(state)
+            env.update({n: v[i] for n, v in feed_vals.items()})
+            ctx = LoweringContext(self, program, rng_counter + i)
+            self._run_block(ctx, program, env, groups, protected)
+            state.update({n: env[n] for n in persist_out if n in env})
+            fetched.append([env[n] for n in fetch_names])
+        scope.set_var("__rng_counter__", rng_counter + steps)
+        for n in persist_out:
+            if n in state:
+                scope.set_var(n, state[n])
+        COUNTERS.windows += 1
+        COUNTERS.steps += steps
+        if fetch_mode == "last":
+            out = fetched[-1]
+        else:
+            out = [torch.stack([f[j] for f in fetched])
+                   for j in range(len(fetch_names))]
+            if fetch_mode == "mean":
+                out = [t.mean(0) if t.is_floating_point()
+                       else t.double().mean(0) for t in out]
+        return [to_numpy(v) for v in out] if return_numpy else out
 
     def prepare_serving(self, program: Program, feed_names: Sequence[str],
                         fetch_names: Sequence[str], scope: Scope) -> PreparedProgram:

@@ -17,7 +17,8 @@ from ..param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-    "softmax_with_cross_entropy", "square_error_cost", "reshape",
+    "cross_entropy", "softmax_with_cross_entropy", "square_error_cost",
+    "reshape",
     "fused_attention",
     "accuracy", "mean", "elementwise_add", "elementwise_sub",
     "elementwise_mul", "elementwise_div", "elementwise_max",
@@ -94,6 +95,16 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                      outputs={"Out": [tmp]},
                      attrs={"is_sparse": is_sparse, "padding_idx": padding_idx})
     return tmp
+
+
+def cross_entropy(input, label, soft_label=False):
+    """-log of `input`'s probability of `label` (reference nn.py:135)."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]}, attrs={"soft_label": soft_label})
+    return out
 
 
 def square_error_cost(input, label):

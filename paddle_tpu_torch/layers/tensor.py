@@ -9,7 +9,7 @@ from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "create_global_var", "fill_constant"]
+__all__ = ["create_parameter", "create_global_var", "fill_constant", "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -45,4 +45,13 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                             "value": float(value)})
     out.stop_gradient = True
     out.desc.stop_gradient = True
+    return out
+
+
+def concat(input, axis=0, name=None):
+    """The inputs joined along `axis` (tensor.py:53)."""
+    helper = LayerHelper("concat", input=input, name=name)
+    out = helper.create_tmp_variable(dtype=helper.input_dtype())
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out

@@ -1,7 +1,7 @@
-"""Basic ops: fills, randoms, scale, top_k, reshape (the port's counterpart
-of paddle_tpu/ops/basic_ops.py; reference fill_constant_op.cc,
+"""Basic ops: fills, randoms, scale, top_k, reshape, concat (the port's
+counterpart of paddle_tpu/ops/basic_ops.py; reference fill_constant_op.cc,
 uniform_random_op.cc, gaussian_random_op.cc, scale_op.cc, top_k_op.cc,
-reshape_op.cc).
+reshape_op.cc, concat_op.cc).
 
 The random ops draw from a torch.Generator that the executor seeds per op
 (executor.LoweringContext.generator). Its numbers differ from JAX's
@@ -102,3 +102,30 @@ def _reshape(ctx, op_, ins):
     shape = [x.shape[i] if s == 0 else s
              for i, s in enumerate(op_.attr("shape"))]
     return {"Out": [x.reshape(shape)]}
+
+
+def _concat_infer(op_, block):
+    """The sum of the inputs' extents along `axis`, -1 where one is
+    unknown; nothing where an input's rank is unknown (basic_ops.py:268)."""
+    axis = op_.attr("axis", 0)
+    shapes = []
+    for i in range(len(op_.desc.inputs.get("X", []))):
+        v = in_var(op_, block, "X", i)
+        if v is None or v.shape is None:
+            return
+        shapes.append(list(v.shape))
+    if any(len(s) <= axis for s in shapes):
+        return
+    out = list(shapes[0])
+    if any(s[axis] is None or s[axis] < 0 for s in shapes):
+        out[axis] = -1
+    else:
+        out[axis] = sum(s[axis] for s in shapes)
+    set_out(op_, block, "Out", out, in_var(op_, block, "X").dtype)
+
+
+@op("concat", infer_shape=_concat_infer)
+def _concat(ctx, op_, ins):
+    """Linear: the generic grad's autograd of torch.cat splits the
+    cotangent back to the inputs."""
+    return {"Out": [torch.cat(list(ins["X"]), dim=op_.attr("axis", 0))]}

@@ -154,7 +154,10 @@ def _bn_apply_body(x_ptr, scale_ptr, bias_ptr, mean_ptr, var_ptr, ybn_ptr,
     bias = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
     mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
     var = tl.load(var_ptr + cols, mask=cmask, other=1.0)
-    a = (1.0 / tl.sqrt(var + eps)) * scale
+    # rsqrt, as the plain version, the reference and K6 take it; the launch
+    # turns off FMA contraction, so the multiply and the add each round as
+    # the plain version's separate ops do
+    a = tl.rsqrt(var + eps) * scale
     y = ((x - mean[None, :]) * a[None, :] + bias[None, :]).to(tl.bfloat16)
     tl.store(ybn_ptr + offs, y, mask=mask)
     if ACT == 1:
@@ -202,7 +205,7 @@ def _launch_apply(x2, scale, bias, mean, var, eps, act):
     grid = (_cdiv(m, _BLOCK_M), _cdiv(c, _BLOCK_C))
     _jit()["apply"][grid](x2, scale, bias, mean, var, ybn, yact, m, c,
                           float(eps), ACT=ACTS[act], BLOCK_M=_BLOCK_M,
-                          BLOCK_C=_BLOCK_C)
+                          BLOCK_C=_BLOCK_C, enable_fp_fusion=False)
     return ybn, (yact if act is not None else None)
 
 

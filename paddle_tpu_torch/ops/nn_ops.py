@@ -1,8 +1,9 @@
-"""NN ops: softmax, conv2d and its explicit grad, pool2d, batch_norm and the
-classifier head, the embedding lookup, layer_norm, and scaled dot-product
-attention with its explicit grad (the port's counterpart of
-paddle_tpu/ops/nn_ops.py; reference softmax_op.cc, conv_op.cc, pool_op.cc,
-batch_norm_op.cc, softmax_with_cross_entropy_op.cc, accuracy_op.cc,
+"""NN ops: softmax, conv2d and its explicit grad, pool2d, batch_norm, the
+classifier heads (cross_entropy, softmax_with_cross_entropy, accuracy), the
+embedding lookup, layer_norm, and scaled dot-product attention with its
+explicit grad (the port's counterpart of paddle_tpu/ops/nn_ops.py;
+reference softmax_op.cc, conv_op.cc, pool_op.cc, batch_norm_op.cc,
+cross_entropy_op.cc, softmax_with_cross_entropy_op.cc, accuracy_op.cc,
 lookup_table_op.cc, layer_norm_op.cc).
 
 Layout: tensors are logical NCHW, as users see them. conv2d returns its
@@ -31,6 +32,27 @@ from .registry import NO_GRAD, generic_grad_lower, infer_grad_shapes, op
 @op("softmax", infer_shape=same_as_input())
 def _softmax(ctx, op_, ins):
     return {"Out": [torch.softmax(ins["X"][0], dim=-1)]}
+
+
+def _ce_infer(op_, block):
+    xv = in_var(op_, block, "X")
+    if xv is not None and xv.shape is not None:
+        set_out(op_, block, "Y", list(xv.shape[:-1]) + [1], xv.dtype)
+
+
+@op("cross_entropy", infer_shape=_ce_infer, non_diff_inputs=("Label",))
+def _cross_entropy(ctx, op_, ins):
+    """-log of the probability of the label (nn_ops.py:40), the
+    probabilities clipped at 1e-12; soft labels sum over the classes."""
+    x, label = ins["X"][0], ins["Label"][0]
+    if op_.attr("soft_label", False):
+        loss = -torch.sum(label * torch.log(torch.clamp(x, min=1e-12)),
+                          dim=-1, keepdim=True)
+    else:
+        idx = label.reshape(label.shape[0], -1)[:, :1].to(torch.int64)
+        picked = torch.gather(x, -1, idx)
+        loss = -torch.log(torch.clamp(picked, min=1e-12))
+    return {"Y": [loss]}
 
 
 def _swce_infer(op_, block):

@@ -50,6 +50,33 @@ def _classifier(fluid, resnet):
     return predict
 
 
+def _mnist_conv(fluid, resnet):
+    """recognize_digits[conv]: nets.simple_img_conv_pool twice."""
+    from importlib import import_module
+    models = import_module(resnet.__name__.rsplit(".", 1)[0])
+    img = fluid.layers.data(name="img", shape=[1, 28, 28], dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    avg_cost, predict, _ = models.build_image_classifier(
+        models.mnist_conv, img, label, class_dim=10)
+    fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+    return predict
+
+
+def _word2vec(fluid, resnet):
+    """word2vec: a shared embedding, concat, cross_entropy over softmax."""
+    words = [fluid.layers.data(name=f"w{i}", shape=[1], dtype="int64")
+             for i in range(5)]
+    embs = [fluid.layers.embedding(input=w, size=[50, 8],
+                                   param_attr=fluid.ParamAttr(name="shared_w"))
+            for w in words[:4]]
+    hidden = fluid.layers.fc(input=fluid.layers.concat(embs, axis=1), size=16,
+                             act="sigmoid")
+    pred = fluid.layers.fc(input=hidden, size=50, act="softmax")
+    avg_cost = fluid.layers.mean(fluid.layers.cross_entropy(pred, words[4]))
+    fluid.optimizer.SGD(learning_rate=0.1).minimize(avg_cost)
+    return pred
+
+
 def _build(fluid, resnet, model):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
@@ -57,8 +84,10 @@ def _build(fluid, resnet, model):
     return main, startup
 
 
-@pytest.mark.parametrize("model", [_small, _resnet50, _classifier],
-                         ids=["small", "resnet50", "cifar_classifier"])
+@pytest.mark.parametrize("model", [_small, _resnet50, _classifier,
+                                   _mnist_conv, _word2vec],
+                         ids=["small", "resnet50", "cifar_classifier",
+                              "mnist_conv", "word2vec"])
 def test_program_desc_json_equal(model):
     jmain, jstartup = _build(jfluid, jax_resnet, model)
     tmain, tstartup = _build(pt, port_resnet, model)
@@ -111,7 +140,13 @@ def test_amp_o3_is_a_later_slice():
 
 def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
-            "import paddle_tpu_torch, paddle_tpu_torch.serving; "
+            "import paddle_tpu_torch, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.reader, paddle_tpu_torch.reader.pipeline, "
+            "paddle_tpu_torch.reader.creator, paddle_tpu_torch.dataset, "
+            "paddle_tpu_torch.recordio, paddle_tpu_torch.data_feeder, "
+            "paddle_tpu_torch.minibatch, paddle_tpu_torch.nets, "
+            "paddle_tpu_torch.models.mnist; "
+            "paddle_tpu_torch.recordio._load(); "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
             "for m in sys.modules); print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,7 +1,8 @@
 """chip_smoke.py's ptxas gate on the CPU: the build log of a kernel that
 spills registers must stop the smoke, a clean log must pass it, and ptxas's
 serialized-wgmma warning (C7511) is recorded without hiding either. Also
-`--parent`'s loader of an older checkout's batch-norm module."""
+`--parent`'s loader of an older checkout's batch-norm module, and the
+train_feeder phase's copy-overlap share on a made-up trace."""
 
 import sys
 from pathlib import Path
@@ -9,7 +10,7 @@ from pathlib import Path
 import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import parent_bn_cuda, ptxas_report  # noqa: E402
+from chip_smoke import _copy_overlap, parent_bn_cuda, ptxas_report  # noqa: E402
 
 MANGLED = ("_ZN55_GLOBAL__N__6c76bbb5_22_flash_attn_bwd_tf32_cu_98bb9b7e15"
            "dkv_tf32_kernelILi128ELi32ELi1ELi2EEEv14CUtensorMap_stS1_S1_S1_"
@@ -87,3 +88,22 @@ def test_parent_bn_module_loads_by_file_path(tmp_path):
     assert torch.equal(y, x * 2) and torch.equal(mean, torch.ones(3))
     assert mod.COUNTERS.act_launches == 1
     assert bn_cuda.COUNTERS.act_launches == before
+
+
+class _Event:
+    def __init__(self, name, start, end):
+        self.name = name
+        self.time_range = type("R", (), {"start": start, "end": end})()
+
+
+def test_copy_overlap_share():
+    """Host-to-device copy time overlapping the union of the kernels'
+    intervals (µs in, ms out): copies [0, 10] and [20, 30] against kernels
+    [5, 12] and [8, 25] (one interval [5, 25]): 5 + 5 of 20 µs."""
+    events = [_Event("Memcpy HtoD (Pinned -> Device)", 0, 10),
+              _Event("Memcpy HtoD (Pinned -> Device)", 20, 30),
+              _Event("conv2d_fwd_kernel", 5, 12), _Event("relu", 8, 25),
+              _Event("Memcpy DtoH (Device -> Pageable)", 40, 50)]
+    ms, share = _copy_overlap(events)
+    assert ms == pytest.approx(0.020) and share == pytest.approx(0.5)
+    assert _copy_overlap(events[2:4]) == (0.0, None)

@@ -61,6 +61,9 @@ RESNET50_SHAPES = [(32, h, w, ci, co, k, k, (s, s), (p, p), (1, 1))
 
 # [M, C] of the batch-norm kernels
 BN_SHAPES = [(1000, 200), (64, 64), (4099, 8), (32, 1024)]
+# and of K5 also: ResNet-50's stem window at batch 32, the main path's
+# largest K5 call
+BN_APPLY_SHAPES = BN_SHAPES + [(401408, 64)]
 # and of K6 also: C not a multiple of 8 (its scalar loads), ResNet-50's
 # stem window at batch 32 (the main path's K6), M that leaves the CTAs'
 # last tiles short, C wider than one slab of its chunks
@@ -181,7 +184,7 @@ def _bn_operands(m, c, device, seed=3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mc", BN_SHAPES, ids=str)
+@pytest.mark.parametrize("mc", BN_APPLY_SHAPES, ids=str)
 @pytest.mark.parametrize("act", [None, "relu"], ids=str)
 def test_bn_apply_matches_plain_version(device, mc, act):
     x, scale, bias, mean, var = _bn_operands(*mc, device)

@@ -4,18 +4,25 @@ the batch-16 AMP O2 ResNet-50 request through ServingEngine and the
 batch-32 AMP O2 training step through Executor.run. `--paths f32_lm`: the
 transformer LM's f32 training step (no AMP) at batch 1, T 2048, and the
 same model's f32 ring step (one-rank 'sp' mesh, T 2048), each with one
-profiled step's device busy time. For comparing two trees in one call,
+profiled step's device busy time. `--paths feeder`: chip_smoke.py's
+train_feeder model (ResNet-50 O2, 102 classes, batch 32) three ways, in
+turns (repeated, fed, window, window, fed, repeated): per-step run() on one
+batch staged on the card once; per-step run() fed by a
+DoubleBufferedFeeder over the flowers chain; run_steps(K=4) fed by a
+DoubleBufferedFeeder with window_prefetch 2 (per-step time = window time /
+4); each with one profiled step's (or window's) device busy ms per step.
+For comparing two trees in one call,
 run it once per tree, in turns (parent, change, change, parent): on a
 shared host the host clock drifts between minutes, and only runs made
 close together compare.
 
-    python tests/torch_ab_steps.py --root PATH [--paths resnet|f32_lm]
+    python tests/torch_ab_steps.py --root PATH [--paths resnet|f32_lm|feeder]
         [--requests 20] [--steps 10]
 
 `--root` is the checkout whose paddle_tpu_torch/ and chip_smoke.py are
 timed (default: this one). Prints one JSON line: the root, the card, and
-per path the p50 in ms over the timed calls after one warm-up (f32_lm:
-and the busy ms).
+per path the p50 in ms over the timed calls after one warm-up (f32_lm and
+feeder: and the busy ms).
 """
 
 import argparse
@@ -30,7 +37,7 @@ def main(argv=None):
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--paths", default="resnet", choices=("resnet", "f32_lm"))
+    ap.add_argument("--paths", default="resnet", choices=("resnet", "f32_lm", "feeder"))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -45,6 +52,10 @@ def main(argv=None):
     from paddle_tpu_torch.serving import ServingEngine
     cuda_build.build()
     rng = np.random.default_rng(cs.SEED)
+    if args.paths == "feeder":
+        print(json.dumps({"root": args.root, "card": cs._card_line(),
+                          **_feeder_steps(cs, pt, resnet, args.steps)}))
+        return 0
     if args.paths == "f32_lm":
         print(json.dumps({"root": args.root, "card": cs._card_line(),
                           **_f32_lm_steps(cs, pt, rng, args.steps)}))
@@ -113,6 +124,94 @@ def _f32_lm_steps(cs, pt, rng, steps):
                                 cs._card_line(), ("a kernel", lambda n: True))
         out[name] = {"step_p50_ms": p50, "step_ms": ms,
                      "busy_ms": prof["busy_ms"]}
+    return out
+
+
+def _feeder_steps(cs, pt, resnet, steps):
+    """The three ways of feeding chip_smoke.py's train_feeder model, timed in
+    turns: {way: per-step p50 ms, the per-step ms, one profiled step's (a
+    window's, per step) device busy ms}."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.reader.pipeline import DoubleBufferedFeeder
+    main, startup, loss = cs._resnet50_train(pt, resnet,
+                                             class_dim=cs.FEED_CLASSES)
+    scope = pt.Scope()
+    exe = pt.Executor()
+    exe.run(startup, scope=scope)
+    block = main.global_block()
+    feeder = pt.DataFeeder([block.var("img"), block.var("label")], exe.place,
+                           program=main)
+    chain = cs._feeder_chain(pt)
+    staged = {n: torch.as_tensor(v).cuda() for n, v in
+              feeder.feed(next(iter(chain()))).items()}
+    batches = DoubleBufferedFeeder(chain, to_feed=feeder.feed,
+                                   capacity=cs.FEED_CAPACITY)
+    windows = DoubleBufferedFeeder(chain, to_feed=feeder.feed,
+                                   capacity=cs.FEED_CAPACITY,
+                                   window_prefetch=cs.FEED_PREFETCH)
+    it = iter(batches)
+
+    def next_batch():
+        nonlocal it
+        try:
+            return next(it)
+        except StopIteration:          # a new pass
+            it = iter(batches)
+            return next(it)
+
+    def run_repeated():
+        t0 = time.perf_counter()
+        exe.run(main, feed=staged, fetch_list=[loss], scope=scope)
+        return [(time.perf_counter() - t0) * 1e3]
+
+    def run_fed():
+        feed = next_batch()
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        return [(time.perf_counter() - t0) * 1e3]
+
+    def run_window():
+        t0 = time.perf_counter()
+        try:
+            exe.run_steps(main, reader=windows, steps=cs.FEED_K,
+                          fetch_list=[loss], scope=scope)
+        except StopIteration:          # a new pass
+            return []
+        return [(time.perf_counter() - t0) * 1e3 / cs.FEED_K] * cs.FEED_K
+
+    ways = {"repeated_run": run_repeated, "fed_run": run_fed,
+            "fed_run_steps": run_window}
+    ms = {w: [] for w in ways}
+    for fn in ways.values():            # warm-up (the shuffle buffers fill)
+        while not fn():
+            pass
+    for way in ("repeated_run", "fed_run", "fed_run_steps", "fed_run_steps",
+                "fed_run", "repeated_run"):
+        got = []
+        while len(got) < steps:
+            got += ways[way]()
+        ms[way] += got
+    card = cs._card_line()
+    out = {}
+    for way, vals in ms.items():
+        p50 = float(np.median(vals))
+        if way == "fed_run_steps":
+            while True:
+                try:
+                    busy = cs._profile_window(exe, main, windows, loss, scope,
+                                              card)["busy_ms"] / cs.FEED_K
+                    break
+                except StopIteration:  # a new pass
+                    continue
+        else:
+            feed = staged if way == "repeated_run" else next_batch()
+            busy = cs._profile_step(exe, main, feed, loss, scope, p50, card, (
+                "K4", lambda n: cs.K1_KERNEL in n and "true" in n))["busy_ms"]
+        out[way] = {"step_p50_ms": p50, "step_ms": vals,
+                    "busy_ms_per_step": busy}
+    batches.stop()
+    windows.stop()
     return out
 
 
