@@ -10,8 +10,9 @@ chapters that need no sequence op; bench.py's transformer LM
 (batch 8, T 2048, 4 layers, d_model 512, 8 heads, vocab 8192) under AMP
 O2, trained with Adam and served through buckets (1, 2, 4, 8); and
 bench.py's long-context ring configuration of the same LM (batch 1, T
-32768, sequence_parallel over an 'sp' mesh of the one card) trained — and
-holds every kernel of those paths against its plain PyTorch version on the
+32768, sequence_parallel over an 'sp' mesh of the one card) trained; each
+training step eager and as a CUDA graph per step signature — and holds
+every kernel of those paths against its plain PyTorch version on the
 card:
 
   1. device   CUDA present (else exit 2), the card's name and power limit;
@@ -82,17 +83,21 @@ card:
               batch(32, drop_last) -> DataFeeder.feed ->
               DoubleBufferedFeeder(capacity 2, window_prefetch 2; pinned
               staging, a copy stream) -> Executor.run_steps(K=4), one
-              warm-up and three timed windows inside one pass: per-step
-              time and img/s, the consumer's wait in next_window, peak
-              memory, launches per step 52/52/52/52/1 and the two stem
-              fallbacks, every window on the card bit for bit the host's
-              batches, the loss finite and its last timed window's mean
-              below the first timed window's; the next pass's first two
-              windows profiled (the share of the host-to-device copies of
-              the pass's other windows that overlaps the first one's
-              kernels; the busy share of the wall less the wait for the
-              window); run_steps(K=4) bit for bit four run()
-              calls from the same state and batches (losses, parameters,
+              warm-up and three timed windows inside one pass, each step
+              a replay of the step's CUDA graph: per-step time and img/s,
+              the consumer's wait in next_window, peak memory, the warm-up
+              window's eager step and capture launching 52/52/52/52/1 each
+              with the two stem fallbacks, the timed windows' wrappers
+              launching nothing (replays), every window on the card bit
+              for bit the host's batches, the loss finite and its last
+              timed window's mean below the first timed window's; the
+              next pass's first two windows profiled (the share of the
+              host-to-device copies of the pass's other windows that
+              overlaps the first one's kernels; the busy share of the wall
+              less the wait for the window; the launches per step from
+              their traces, held to 52/52/52/52/1); run_steps(K=4) on an
+              Executor of its own bit for bit four run() replays from the
+              same state and batches, no tensor shared (losses, parameters,
               velocities, statistics);
  8c. book     the five book chapters (fit_a_line, recognize_digits mlp and
               conv, image_classification[resnet], word2vec) on the card at
@@ -156,7 +161,23 @@ card:
               to end in O2 and in f32 (the f32 ring on the card through
               the f32 forms of K10, K8 and K9, launches held to 4/4/4);
               then that f32 step timed as train_lm's;
- 14. result   the kernel table as one JSON line, the card line, then
+ 14. train_graph  the four training paths above (ResNet-50 O2 at batch
+              32, the LM O2 at batch 8 x T 2048, the f32 LM at batch 1,
+              the ring LM at T 32768) as CUDA graphs, Executor.run's
+              default on the card (the earlier training phases pass
+              use_jit=False; train_feeder and book run graphed): from one
+              startup state on two scopes, the warm-up, capture and first
+              replay bitwise the eager steps, then 8 graphed and 8 eager
+              steps in turns, the eager launches per step held to the
+              path's counts and the replays' wrappers launching nothing,
+              no step eager but by use_jit=False, both scopes bitwise
+              again and sharing no tensor, the generic grads' re-runs per
+              step by op type, p50, busy share (one profiled step each;
+              the replay's launches counted from its trace and held to
+              the path's counts) and the memory a step needs beyond the
+              scope's state; for ResNet the memory a second signature
+              (batch 16) adds on the same Executor;
+ 15. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -235,6 +256,34 @@ K1_KERNEL = "conv2d_fwd_kernel"     # K1's name in the profiler's events
 SPLIT_KERNELS = ("splitk_reduce_kernel", "splitk_reduce_q8_kernel",
                  "stats_rows_kernel")
 K11_KERNEL = "conv2d_fwd_q8_kernel"  # K11's
+# a training step's kernel counters, each with a test on the full name of
+# a profiler event: how the launches of a CUDA graph's replay are counted
+# (a replay runs no Python, so the wrappers' counters never see it). K1
+# and K2 are one kernel without statistics; a training step launches no
+# K1 (held on its eager steps), so those events are K2's
+TRACE_KERNELS = {
+    "conv.dgrad_launches": r"conv2d_fwd_kernel<[^>]*\bfalse>",
+    "conv.stats_launches": r"conv2d_fwd_kernel<[^>]*\btrue>",
+    "conv.wgrad_launches": r"conv2d_wgrad_kernel<",
+    "bn.apply_launches": r"_bn_apply_body",
+    "bn.act_launches": r"bn_act_kernel",
+    "attn.launches": r"flash_fwd_kernel<[^>]*\btrue>",
+    "attn.block_launches": r"flash_fwd_kernel<[^>]*\bfalse>",
+    "attn.dq_launches": r"flash_dq_kernel<",
+    "attn.dkv_launches": r"flash_dkv_kernel<",
+    "attn.f32_launches": r"\bfwd_tf32_kernel<[^>]*\btrue>",
+    "attn.f32_block_launches": r"\bfwd_tf32_kernel<[^>]*\bfalse>",
+    "attn.f32_dq_launches": r"\bdq_tf32_kernel<",
+    "attn.f32_dkv_launches": r"\bdkv_tf32_kernel<",
+}
+
+
+def _trace_launches(events) -> dict:
+    """Kernel counter -> the events of its kernel among a profile's CUDA
+    `events` (TRACE_KERNELS)."""
+    import re
+    return {k: sum(1 for e in events if re.search(pat, e.name))
+            for k, pat in TRACE_KERNELS.items()}
 # the executor's profiler ranges (paddle_tpu_torch/ops/registry.py span)
 # and the activation-quantize passes' (quant.ACT_SPAN): each appears on the
 # host and, as the extent of the kernels launched in it, on the device's
@@ -1697,29 +1746,37 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
 # --- training: the main path ------------------------------------------------------
 
 def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
-                  attempts=3):
-    """The device's busy share of one training step and its time by
-    kernel name (torch.profiler's CUDA activity). A trace without a launch
-    of the `witness` kernel, (label, test on the event name), is profiled
-    again: the profiler now and then loses a window's CUDA activity."""
+                  attempts=3, use_jit=None, expect=None):
+    """The device's busy share of one training step, its time by kernel
+    name and its launches by kernel counter (torch.profiler's CUDA
+    activity, `_trace_launches`). A trace without a launch of the
+    `witness` kernel, (label, test on the event name), or whose launches
+    are not `expect`'s (counter -> launches, when given), is profiled
+    again: the profiler now and then loses a window's CUDA activity. Past
+    `attempts` this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    use_jit=use_jit)
             wall_ms = (time.perf_counter() - t0) * 1e3
         spanned = [e for e in prof.events() if _is_span(e)]
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA and not _is_span(e)]
-        if any(witness[1](e.name) for e in events):
+        launches = _trace_launches(events)
+        short = {k: (launches[k], v) for k, v in (expect or {}).items()
+                 if launches[k] != v}
+        if any(witness[1](e.name) for e in events) and not short:
             break
         print(f"profile attempt {attempt}: no {witness[0]} launch in the "
-              f"trace", flush=True)
+              f"trace, or launches (traced, expected) {short}", flush=True)
     else:
         raise RuntimeError(f"the profiler saw no {witness[0]} launch in a "
-                           f"training step")
+                           f"training step, or launches other than "
+                           f"expected: (traced, expected) {short}")
     busy_us, end = 0.0, float("-inf")
     for e in sorted(events, key=lambda e: e.time_range.start):
         s, t = e.time_range.start, e.time_range.end
@@ -1756,6 +1813,7 @@ def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
                   spans.items(), key=lambda kv: -kv[1][0])[:24]), flush=True)
     return {"busy_ms": busy_ms, "p50_ms": p50_ms, "busy_share": busy_ms / p50_ms,
             "profiled_wall_ms": wall_ms, "by_kernel": kern,
+            "launches": launches,
             "rerun_forward_host_ms": rerun, "by_span": spans}
 
 
@@ -1871,7 +1929,8 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
     card = _card_line()
 
     t0 = time.perf_counter()
-    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0][0])]
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            use_jit=False)[0][0])]
     print(f"warm-up step (Triton compiles K5): {time.perf_counter() - t0:.2f} s, "
           f"loss {losses[0]:.5f}", flush=True)
     conv_cuda.COUNTERS.reset()
@@ -1882,7 +1941,7 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()               # the fetch ends in a device->host copy
         losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
-                                    scope=scope)[0][0]))
+                                    scope=scope, use_jit=False)[0][0]))
         times.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: getattr(c, k) for c, keys in (
@@ -1921,7 +1980,8 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
         raise RuntimeError(f"unexpected fallbacks: conv {conv_fb}, bn {bn_fb}")
 
     profile = _profile_step(exe, main, feed, loss, scope, p50, card, (
-        "K4", lambda name: K1_KERNEL in name and "true" in name))
+        "K4", lambda name: K1_KERNEL in name and "true" in name),
+        use_jit=False)
 
     # batch 4 from the startup weights: op by op, then end to end, card vs
     # the CPU plain path, in O2 and in f32
@@ -1994,10 +2054,13 @@ def phase_train(pt, conv_cuda, bn_cuda, resnet, report):
 # --- training from the input pipeline -----------------------------------------
 
 def _bitwise_scopes(a, b) -> list:
-    """Names of the tensors of scope `a` that are not bit for bit `b`'s."""
+    """Names of the tensors of scope `a` that are not bit for bit `b`'s,
+    or that share their storage with `b`'s (then the two runs compared
+    would be one)."""
     import torch
     return [n for n, v in a.vars.items() if isinstance(v, torch.Tensor)
-            and not torch.equal(v, b.vars[n])]
+            and ((v.numel() and v.data_ptr() == b.vars[n].data_ptr())
+                 or not torch.equal(v, b.vars[n]))]
 
 
 def _scope_from(pt, state):
@@ -2073,13 +2136,15 @@ def _copy_overlap(events):
     return total / 1e3, (over / total if total else None)
 
 
-def _profile_window(exe, main, reader, loss, scope, card, attempts=3):
+def _profile_window(exe, main, reader, loss, scope, card, expect,
+                    attempts=3):
     """One run_steps window under torch.profiler: its wall ms, the
     consumer's wait for the window in it, the device's busy ms and share
-    of the wall less that wait, and the host-to-device copies' ms and the
-    share of it that overlaps kernels. A trace without a K4 launch is
+    of the wall less that wait, the host-to-device copies' ms and the
+    share of it that overlaps kernels, and its kernel launches by counter
+    (`_trace_launches`). A trace whose launches are not `expect`'s is
     taken again (the profiler now and then loses a window's CUDA
-    activity)."""
+    activity); past `attempts` this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.reader import pipeline
@@ -2094,13 +2159,17 @@ def _profile_window(exe, main, reader, loss, scope, card, attempts=3):
         wait_ms = (pipeline.COUNTERS.wait_s - wait0) * 1e3
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA and not _is_span(e)]
-        if any(K1_KERNEL in e.name and "true" in e.name for e in events):
+        launches = _trace_launches(events)
+        short = {k: (launches[k], v) for k, v in expect.items()
+                 if launches[k] != v}
+        if not short:
             break
-        print(f"profile attempt {attempt}: no K4 launch in the trace",
-              flush=True)
+        print(f"profile attempt {attempt}: launches (traced, expected) "
+              f"{short}", flush=True)
     else:
-        raise RuntimeError("the profiler saw no K4 launch in a run_steps "
-                           "window")
+        raise RuntimeError(f"a run_steps window's trace holds other "
+                           f"launches than expected: (traced, expected) "
+                           f"{short}")
     busy_us, end = 0.0, float("-inf")
     for e in sorted((e for e in events if "Memcpy" not in e.name),
                     key=lambda e: e.time_range.start):
@@ -2112,17 +2181,18 @@ def _profile_window(exe, main, reader, loss, scope, card, attempts=3):
     return {"wall_ms": wall_ms, "wait_ms": wait_ms, "busy_ms": busy_us / 1e3,
             "busy_share": busy_us / 1e3 / (wall_ms - wait_ms),
             "h2d_copy_ms": copy_ms, "h2d_overlap_share": overlap,
-            "card": card}
+            "launches": {k: launches[k] for k in expect}, "card": card}
 
 
 def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
     """ResNet-50 O2 (102 classes) trained on the card from the flowers
     reader through DataFeeder, DoubleBufferedFeeder and run_steps(K=4):
-    launches per step, fallbacks, every device window bitwise the host's,
-    falling loss, step time, img/s, the consumer's wait, peak memory, one
-    profiled window (busy share, copy overlap); then run_steps bitwise
-    four run() calls from the same state and batches. Returns the kernel
-    launches of the timed windows."""
+    the warm-up window's launches and fallbacks, the timed windows all
+    replays, every device window bitwise the host's, falling loss, step
+    time, img/s, the consumer's wait, peak memory, two profiled windows
+    (busy share, copy overlap, launches from the traces); then run_steps
+    bitwise four run() calls from the same state and batches. Returns the
+    kernel launches of the two profiled windows, from their traces."""
     import torch
     from paddle_tpu_torch.reader import pipeline
 
@@ -2150,14 +2220,34 @@ def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
         chain, to_feed=feeder.feed, capacity=FEED_CAPACITY,
         window_prefetch=FEED_PREFETCH)
     rec = _Recording(dbf)
+    conv_cuda.COUNTERS.reset()
+    bn_cuda.COUNTERS.reset()
     t0 = time.perf_counter()
     losses = [exe.run_steps(main, reader=rec, steps=FEED_K, fetch_list=[loss],
                             scope=scope, fetch_mode="stack")[0].ravel()]
-    print(f"warm-up window (the shuffle buffer fills, K5 compiles): "
-          f"{time.perf_counter() - t0:.2f} s, losses {losses[0]}", flush=True)
+    print(f"warm-up window (the shuffle buffer fills, K5 compiles, the "
+          f"step's graph is captured): {time.perf_counter() - t0:.2f} s, "
+          f"losses {losses[0]}", flush=True)
+    # its eager first step and the capture ran the wrappers, its other
+    # steps were replays: twice one step's launches and fallbacks
+    warm = {k: getattr(c, k) for c, keys in (
+        (conv_cuda.COUNTERS, ("dgrad_launches", "wgrad_launches",
+                              "stats_launches", "launches")),
+        (bn_cuda.COUNTERS, ("apply_launches", "act_launches"))) for k in keys}
+    want = {k: 2 * v for k, v in TRAIN_LAUNCHES.items()}
+    want["launches"] = 0
+    warm_fb = (dict(conv_cuda.COUNTERS.fallbacks),
+               dict(bn_cuda.COUNTERS.fallbacks))
+    if warm != want or warm_fb != (
+            {k: 2 * v for k, v in TRAIN_FALLBACKS.items()}, {}):
+        raise RuntimeError(f"train_feeder: the warm-up window's wrappers "
+                           f"launched {warm} with fallbacks {warm_fb}, "
+                           f"expected {want} and twice {TRAIN_FALLBACKS}")
     conv_cuda.COUNTERS.reset()
     bn_cuda.COUNTERS.reset()
     pipeline.COUNTERS.reset()
+    graphs = pt.executor.COUNTERS
+    graphs.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -2170,12 +2260,18 @@ def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
     wait_s = pipeline.COUNTERS.wait_s
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = FEED_WINDOWS * FEED_K
-    launches = {k: getattr(c, k) for c, keys in (
+    # each step of the timed windows a replay of the step's CUDA graph,
+    # which calls no kernel wrapper: their launches come from the
+    # profiled windows' traces below
+    wrapped = {k: getattr(c, k) for c, keys in (
         (conv_cuda.COUNTERS, ("dgrad_launches", "wgrad_launches", "stats_launches",
                               "launches")),
         (bn_cuda.COUNTERS, ("apply_launches", "act_launches"))) for k in keys}
-    conv_fb = dict(conv_cuda.COUNTERS.fallbacks)
-    bn_fb = dict(bn_cuda.COUNTERS.fallbacks)
+    if graphs.eager or graphs.replays != steps or graphs.captures or \
+            any(wrapped.values()) or conv_cuda.COUNTERS.fallbacks or \
+            bn_cuda.COUNTERS.fallbacks:
+        raise RuntimeError(f"train_feeder: the timed windows' steps are not "
+                           f"all replays: {graphs}; wrappers {wrapped}")
 
     # every window the card ran, bit for bit the host's
     for i, (w, h) in enumerate(zip(rec.windows, host)):
@@ -2193,14 +2289,10 @@ def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
           f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms), "
           f"{TRAIN_BATCH / (p50 / 1e3):.1f} img/s; consumer wait in "
           f"next_window {wait_s * 1e3:.1f} ms over {FEED_WINDOWS} windows; "
-          f"peak memory {peak_gb:.2f} GB; {held} windows bitwise the host's "
-          f"({card})", flush=True)
+          f"peak memory {peak_gb:.2f} GB; {held} windows bitwise the host's; "
+          f"{graphs.replays} graph replays, no eager step ({card})", flush=True)
     print("window losses: " + "; ".join(
         ", ".join(f"{v:.5f}" for v in w) for w in losses), flush=True)
-    per_step = {k: v / steps for k, v in launches.items()}
-    print(f"launches per step: {per_step}; fallbacks per step: conv "
-          f"{ {k: v / steps for k, v in conv_fb.items()} }, bn "
-          f"{ {k: v / steps for k, v in bn_fb.items()} }", flush=True)
     # falling over the timed windows: from the random start the first few
     # steps drop the loss, which then rises for a few steps while the
     # momentum builds (PERF.md §6), so the warm-up window is no baseline
@@ -2210,14 +2302,6 @@ def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
                            f"over the timed windows (window means, the "
                            f"warm-up's first: "
                            f"{[float(w.mean()) for w in losses]})")
-    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
-    want["launches"] = 0
-    if any(launches[k] != want[k] for k in want):
-        raise RuntimeError(f"train_feeder: kernel launches {launches}, "
-                           f"expected {want}")
-    if conv_fb != {k: v * steps for k, v in TRAIN_FALLBACKS.items()} or bn_fb:
-        raise RuntimeError(f"train_feeder: unexpected fallbacks: conv "
-                           f"{conv_fb}, bn {bn_fb}")
 
     # the rest of the pass; then the next pass's first window profiled (the
     # window thread stacks and copies the pass's other windows while it
@@ -2229,11 +2313,21 @@ def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
     except StopIteration:
         pass
     torch.cuda.synchronize()
+    # a window's launches, from its trace: K1 and K2 share a kernel (the
+    # warm-up window's wrappers launched no K1)
+    expect = {("bn." if k in ("apply_launches", "act_launches") else "conv.")
+              + k: v * FEED_K for k, v in TRAIN_LAUNCHES.items()}
     profiles = {"first_of_pass": _profile_window(exe, main, dbf, loss, scope,
-                                                 card),
+                                                 card, expect),
                 "second_of_pass": _profile_window(exe, main, dbf, loss, scope,
-                                                  card)}
+                                                  card, expect)}
     dbf.stop()
+    launches = {k.split(".", 1)[1]: sum(p["launches"][k]
+                                        for p in profiles.values())
+                for k in expect}
+    print(f"launches per step, from the profiled windows' traces: "
+          f"{ {k: v / (2 * FEED_K) for k, v in launches.items()} }",
+          flush=True)
     for what, prof in profiles.items():
         print(f"profiled window ({what.replace('_', ' ')}): device busy "
               f"{prof['busy_ms']:.2f} ms of {prof['wall_ms']:.1f} ms wall, "
@@ -2244,14 +2338,16 @@ def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
                  f", {prof['h2d_overlap_share']:.1%} of it overlapping kernels")
               + f" ({card})", flush=True)
 
-    # run_steps against four run() calls from the same state and batches
+    # run_steps against four run() calls from the same state and batches:
+    # the run() calls replays of the phase's graph, the window on an
+    # Executor of its own (a warm-up, a capture and two replays)
     sa, sb = _scope_from(pt, init), _scope_from(pt, init)
     first = host[0]
     seq = np.stack([exe.run(main, feed={n: v[i] for n, v in first.items()},
                             fetch_list=[loss], scope=sa)[0]
                     for i in range(FEED_K)])
-    win, = exe.run_steps(main, feed_window=first, fetch_list=[loss], scope=sb,
-                         fetch_mode="stack")
+    win, = pt.Executor().run_steps(main, feed_window=first, fetch_list=[loss],
+                                   scope=sb, fetch_mode="stack")
     diverged = _bitwise_scopes(sa, sb)
     if not np.array_equal(seq, win) or diverged or \
             sa.find_var("__rng_counter__") != sb.find_var("__rng_counter__"):
@@ -2266,8 +2362,10 @@ def phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report):
         "window_ms": [t * 1e3 for t in times], "per_step_p50_ms": p50,
         "img_per_s": TRAIN_BATCH / (p50 / 1e3), "wait_ms": wait_s * 1e3,
         "peak_memory_gb": peak_gb, "losses": [w.tolist() for w in losses],
-        "launches_per_step": per_step,
-        "fallbacks": {f"{k[0]}:{k[1]}": v for k, v in conv_fb.items()},
+        "launches_per_step": {k: v / (2 * FEED_K)
+                              for k, v in launches.items()},
+        "warmup_fallbacks": {f"{k[0]}:{k[1]}": v
+                             for k, v in warm_fb[0].items()},
         "windows_bitwise": held, "profiles": profiles}
     return launches
 
@@ -3393,14 +3491,14 @@ def _time_f32_step(pt, f32, init, feed, card, what, expect):
         scope.set_var(n, v.cuda())
     exe = pt.Executor(pt.CUDAPlace(0))
     losses = [float(exe.run(main32, feed=feed, fetch_list=[loss32],
-                            scope=scope)[0][0])]
+                            scope=scope, use_jit=False)[0][0])]
     torch.cuda.synchronize()
     A.COUNTERS.reset()
     times = []
     for _ in range(LM_STEPS):
         t0 = time.perf_counter()
         losses.append(float(exe.run(main32, feed=feed, fetch_list=[loss32],
-                                    scope=scope)[0][0]))
+                                    scope=scope, use_jit=False)[0][0]))
         times.append(time.perf_counter() - t0)
     launches = {k: getattr(A.COUNTERS, k) / LM_STEPS for k in F32_COUNTERS}
     fallbacks = dict(A.COUNTERS.fallbacks)
@@ -3416,7 +3514,8 @@ def _time_f32_step(pt, f32, init, feed, card, what, expect):
           f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), the f32 kernels' "
           f"launches per step {launches} ({card})", flush=True)
     prof = _profile_step(exe, main32, feed, loss32, scope, p50, card, (
-        "K8's f32 form", lambda name: "dq_tf32_kernel" in name))
+        "K8's f32 form", lambda name: "dq_tf32_kernel" in name),
+        use_jit=False)
     top = dict(sorted(prof["by_kernel"].items(),
                       key=lambda kv: -kv[1][0])[:12])
     return {"p50_ms": p50, "step_ms": [t * 1e3 for t in times],
@@ -3442,7 +3541,8 @@ def phase_train_lm(pt, attention_cuda, report):
     card = _card_line()
 
     t0 = time.perf_counter()
-    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0][0])]
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            use_jit=False)[0][0])]
     print(f"transformer_lm warm-up step: {time.perf_counter() - t0:.2f} s, "
           f"loss {losses[0]:.5f}", flush=True)
     A.COUNTERS.reset()
@@ -3452,7 +3552,7 @@ def phase_train_lm(pt, attention_cuda, report):
     for _ in range(LM_STEPS):
         t0 = time.perf_counter()               # the fetch ends in a device->host copy
         losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
-                                    scope=scope)[0][0]))
+                                    scope=scope, use_jit=False)[0][0]))
         times.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: getattr(A.COUNTERS, k)
@@ -3476,7 +3576,7 @@ def phase_train_lm(pt, attention_cuda, report):
                            f"each; fallbacks {fallbacks}")
 
     profile = _profile_step(exe, main, feed, loss, scope, p50, card, (
-        "K7", lambda name: "flash_fwd_kernel" in name))
+        "K7", lambda name: "flash_fwd_kernel" in name), use_jit=False)
 
     # batch 1 from the startup weights: op by op, then end to end, card vs
     # the CPU plain path, in O2 and in f32; the CPU's O2 flash path against
@@ -3620,7 +3720,8 @@ def phase_train_ring(pt, attention_cuda, report):
     card = _card_line()
 
     t0 = time.perf_counter()
-    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0][0])]
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            use_jit=False)[0][0])]
     print(f"ring transformer_lm warm-up step: {time.perf_counter() - t0:.2f} s, "
           f"loss {losses[0]:.5f}", flush=True)
     A.COUNTERS.reset()
@@ -3630,7 +3731,7 @@ def phase_train_ring(pt, attention_cuda, report):
     for _ in range(RING_STEPS):
         t0 = time.perf_counter()               # the fetch ends in a device->host copy
         losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
-                                    scope=scope)[0][0]))
+                                    scope=scope, use_jit=False)[0][0]))
         times.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: getattr(A.COUNTERS, k) for k in (
@@ -3658,7 +3759,8 @@ def phase_train_ring(pt, attention_cuda, report):
                            f"{want}; hits {hits}; fallbacks {fallbacks}")
 
     profile = _profile_step(exe, main, feed, loss, scope, p50, card, (
-        "K10", lambda name: "flash_fwd_kernel" in name and "false" in name))
+        "K10", lambda name: "flash_fwd_kernel" in name and "false" in name),
+        use_jit=False)
     del scope, exe
     torch.cuda.empty_cache()
 
@@ -3705,6 +3807,255 @@ def phase_train_ring(pt, attention_cuda, report):
         "small_t": RING_SMALL_T, "small_batch": agree, "k_bias_grad_norms": kb,
         "f32_card_launches": f32_launches, "f32_step": f32_step}
     return {**launches, **f32_launches}
+
+
+# --- the graphed training step -------------------------------------------------
+
+GRAPH_BITWISE_STEPS = 3             # warm-up, capture, replay: held bitwise
+GRAPH_TURNS = 8                     # then graphed and eager steps in turns
+GRAPH_SECOND_BATCH = 16             # ResNet's second signature
+# every kernel counter a training step can move: launches and copies
+GRAPH_COUNTERS = (
+    ("conv", ("dgrad_launches", "wgrad_launches", "stats_launches",
+              "launches", "filter_copies")),
+    ("bn", ("apply_launches", "act_launches")),
+    ("attn", ("launches", "dq_launches", "dkv_launches", "block_launches")
+     + F32_COUNTERS))
+
+
+def _graph_counts(conv_cuda, bn_cuda, attention_cuda):
+    tables = {"conv": conv_cuda.COUNTERS, "bn": bn_cuda.COUNTERS,
+              "attn": attention_cuda.COUNTERS}
+    return {f"{t}.{k}": getattr(tables[t], k) for t, keys in GRAPH_COUNTERS
+            for k in keys}
+
+
+def _graph_paths(pt, resnet):
+    """(name, (main, startup, loss), feed, launches per step, profile
+    witness) of the four training paths that run graphed: ResNet-50 O2 at
+    batch 32, the LM O2 at batch 8 x T 2048, the f32 LM at batch 1, the
+    ring LM at T 32768."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 4)
+    r_feed = {"img": rng.standard_normal((TRAIN_BATCH, 3, 224, 224)).astype(np.float32),
+              "label": rng.integers(0, 1000, (TRAIN_BATCH, 1)).astype(np.int64)}
+    rng = np.random.default_rng(SEED)
+    B, T, V = LM["batch"], LM["seqlen"], LM["vocab"]
+    lm_feed = {"tok": rng.integers(0, V, (B, T)).astype(np.int64),
+               "lab": rng.integers(0, V, (B, T)).astype(np.int64)}
+    rng = np.random.default_rng(SEED)
+    rb, rt, rv = RING["batch"], RING["seqlen"], RING["vocab"]
+    ring_feed = {"tok": rng.integers(0, rv, (rb, rt)).astype(np.int64),
+                 "lab": rng.integers(0, rv, (rb, rt)).astype(np.int64)}
+    n = LM["n_layer"]
+    yield ("resnet50_o2", _resnet50_train(pt, resnet), r_feed,
+           {**{("bn." if k in ("apply_launches", "act_launches") else "conv.")
+               + k: v for k, v in TRAIN_LAUNCHES.items()},
+            "conv.launches": 0},
+           ("K4", lambda name: K1_KERNEL in name and "true" in name))
+    yield ("lm_o2", _transformer(pt)[:3], lm_feed,
+           {"attn.launches": n, "attn.dq_launches": n, "attn.dkv_launches": n},
+           ("K7", lambda name: "flash_fwd_kernel" in name))
+    yield ("lm_f32", _transformer(pt, amp=False)[:3],
+           {k: v[:LM_SMALL_BATCH] for k, v in lm_feed.items()},
+           {"attn.f32_launches": n, "attn.f32_dq_launches": n,
+            "attn.f32_dkv_launches": n},
+           ("K8's f32 form", lambda name: "dq_tf32_kernel" in name))
+    yield ("ring_lm_o2", _transformer(pt, use_flash=True, cfg=RING,
+                                      sequence_parallel=True)[:3], ring_feed,
+           {"attn.block_launches": n, "attn.dq_launches": n,
+            "attn.dkv_launches": n, "attn.launches": 0},
+           ("K10", lambda name: "flash_fwd_kernel" in name and "false" in name))
+
+
+def _settled_reserved():
+    """The device memory the allocator holds once the garbage is collected
+    and its free cached blocks are given back."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def phase_train_graph(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
+    """Each training path as one CUDA graph per step (Executor.run's
+    default on the card) against the eager step (use_jit=False), from the
+    same startup state and batch, on two scopes: the warm-up, capture and
+    first replay bitwise the eager steps (losses and every scope tensor);
+    then GRAPH_TURNS graphed and eager steps in turns: the eager steps'
+    launches held to the path's counts, the replays' wrappers launching
+    nothing, no step eager for any reason but use_jit=False, the generic
+    grads' re-run forwards per step by op type, step p50 of each; both
+    scopes bitwise again after, sharing no tensor; one more step of each
+    for the memory it needs beyond the scope's state (eager: the peak of
+    the tensors it makes; graphed: the graph's state buffers and pool,
+    measured across the capture, and what a replay makes); one profiled
+    step of each (busy share; the replay's launches counted from its
+    trace and held to the eager step's); for ResNet a second signature
+    (batch GRAPH_SECOND_BATCH) on the same Executor, the memory it adds.
+    Returns the profiled replays' kernel launches by counter."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch.ops import registry
+    card = _card_line()
+    counts = lambda: _graph_counts(conv_cuda, bn_cuda, attention_cuda)  # noqa: E731
+    graphed_launches, out = {}, {}
+    for name, (main, startup, loss), feed, want, witness in \
+            _graph_paths(pt, resnet):
+        exe = pt.Executor()
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        init = {n: v for n, v in scope.vars.items()
+                if isinstance(v, torch.Tensor)}
+        sg, se = _scope_from(pt, init), _scope_from(pt, init)
+        del scope, init
+        E.COUNTERS.reset()
+        reserved0 = _settled_reserved()
+        t0 = time.perf_counter()
+        for i in range(GRAPH_BITWISE_STEPS):
+            a = exe.run(main, feed=feed, fetch_list=[loss], scope=sg)[0]
+            b = exe.run(main, feed=feed, fetch_list=[loss], scope=se,
+                        use_jit=False)[0]
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"train_graph {name}: step {i} graphed "
+                                   f"loss {a} != eager {b}")
+        diverged = _bitwise_scopes(sg, se)
+        if diverged:
+            raise RuntimeError(f"train_graph {name}: after the capture the "
+                               f"graphed scope differs from the eager one: "
+                               f"{diverged[:8]}")
+        setup_s = time.perf_counter() - t0
+        # what the graph holds beyond the scope's state: its static state
+        # buffers and its pool
+        pool_gb = (_settled_reserved() - reserved0) / 1e9
+        if (E.COUNTERS.warmups, E.COUNTERS.captures) != (1, 1):
+            raise RuntimeError(f"train_graph {name}: {E.COUNTERS}")
+
+        E.COUNTERS.reset()
+        registry.RERUNS.clear()
+        steps = {"graph": [], "eager": []}
+        launches = {"graph": {}, "eager": {}}
+        peak = {}
+        reruns = {}
+        for _ in range(GRAPH_TURNS):
+            for mode, sc, use_jit in (("graph", sg, None),
+                                      ("eager", se, False)):
+                torch.cuda.synchronize()
+                c0, r0 = counts(), dict(registry.RERUNS)
+                t0 = time.perf_counter()       # the fetch ends in a device->host copy
+                exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                        use_jit=use_jit)
+                steps[mode].append((time.perf_counter() - t0) * 1e3)
+                for k, v in counts().items():
+                    launches[mode][k] = launches[mode].get(k, 0) + v - c0[k]
+                if mode == "eager":
+                    for k, v in registry.RERUNS.items():
+                        reruns[k] = reruns.get(k, 0) + v - r0.get(k, 0)
+        # the eager steps' wrappers launched the path's kernels; a replay
+        # calls no wrapper (its launches are counted from a trace below)
+        per_step = {k: v / GRAPH_TURNS for k, v in launches["eager"].items()
+                    if v}
+        held = {k: per_step.get(k, 0.0) for k in want}
+        if held != {k: float(v) for k, v in want.items()} or \
+                any(launches["graph"].values()):
+            raise RuntimeError(f"train_graph {name}: eager launches per "
+                               f"step {per_step}, expected {want}; the "
+                               f"replays' wrappers counted "
+                               f"{ {k: v for k, v in launches['graph'].items() if v} }")
+        if E.COUNTERS.eager != {"use_jit": GRAPH_TURNS} or \
+                E.COUNTERS.replays != GRAPH_TURNS or E.COUNTERS.captures:
+            raise RuntimeError(f"train_graph {name}: a graphed step ran "
+                               f"eager or captured again: {E.COUNTERS}")
+        diverged = _bitwise_scopes(sg, se)
+        if diverged:
+            raise RuntimeError(f"train_graph {name}: after {GRAPH_TURNS} "
+                               f"steps in turns the scopes differ: "
+                               f"{diverged[:8]}")
+        # the memory a step needs beyond the state: eager, the peak of the
+        # live tensors it makes; graphed, the graph's pool (reserved while
+        # the graph lives) and what a replay makes (the fetch's copy)
+        for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
+            _settled_reserved()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                    use_jit=use_jit)
+            torch.cuda.synchronize()
+            peak[mode] = (torch.cuda.max_memory_allocated() - before) / 1e9
+        peak["graph"] += pool_gb
+        state_gb = sum(v.numel() * v.element_size() for v in se.vars.values()
+                       if isinstance(v, torch.Tensor)) / 1e9
+        if _bitwise_scopes(sg, se):
+            raise RuntimeError(f"train_graph {name}: the memory steps differ")
+        p50 = {m: float(np.median(v)) for m, v in steps.items()}
+        # one profiled step of each: the replay's launches, counted from
+        # its trace, are the eager step's (K1 and K2 share a kernel: the
+        # eager steps launched no K1)
+        traced = {k: v for k, v in want.items() if k in TRACE_KERNELS}
+        if "conv.launches" in want:
+            traced["conv.dgrad_launches"] += want["conv.launches"]
+        prof = {m: _profile_step(exe, main, feed, loss, sc, p50[m], card,
+                                 witness, use_jit=use_jit, expect=traced)
+                for m, sc, use_jit in (("graph", sg, None),
+                                       ("eager", se, False))}
+        rerun_step = {k: v / GRAPH_TURNS for k, v in sorted(reruns.items())}
+        print(f"train_graph {name}: graphed step bitwise the eager step "
+              f"({GRAPH_BITWISE_STEPS} steps, then {GRAPH_TURNS} in turns; "
+              f"{setup_s:.1f} s to warm up and capture); step p50 graphed "
+              f"{p50['graph']:.2f} ms, eager {p50['eager']:.2f} ms "
+              f"({p50['eager'] / p50['graph']:.2f}x); busy "
+              f"{prof['graph']['busy_ms']:.2f} ms "
+              f"({prof['graph']['busy_share']:.1%}) graphed, "
+              f"{prof['eager']['busy_ms']:.2f} ms "
+              f"({prof['eager']['busy_share']:.1%}) eager; peak memory "
+              f"beyond the {state_gb:.2f} GB of state {peak['graph']:.2f} GB "
+              f"graphed (its pool {pool_gb:.2f} GB), {peak['eager']:.2f} GB "
+              f"eager; launches per step {per_step} (eager, by the "
+              f"wrappers; a replay's from its trace: "
+              f"{ {k: prof['graph']['launches'][k] for k in traced} }); "
+              f"eager fallbacks none; generic-grad "
+              f"re-runs per step {rerun_step} ({card})", flush=True)
+        print(f"train_graph {name} steps (ms): graphed "
+              f"{', '.join(f'{t:.2f}' for t in steps['graph'])}; eager "
+              f"{', '.join(f'{t:.2f}' for t in steps['eager'])}", flush=True)
+        for k, v in prof["graph"]["launches"].items():
+            graphed_launches[k] = graphed_launches.get(k, 0) + v
+        out[name] = {"p50_ms": p50, "step_ms": steps,
+                     "step_memory_gb": peak, "graph_pool_gb": pool_gb,
+                     "state_gb": state_gb,
+                     "launches_per_step": per_step,
+                     "replay_traced_launches": {
+                         k: prof["graph"]["launches"][k] for k in traced},
+                     "reruns_per_step": rerun_step,
+                     "busy_ms": {m: prof[m]["busy_ms"] for m in prof},
+                     "busy_share": {m: prof[m]["busy_share"] for m in prof},
+                     "setup_s": setup_s}
+        if name == "resnet50_o2":
+            # a second signature on the same Executor: it reads the first's
+            # state buffers and draws on its pool
+            second = {k: v[:GRAPH_SECOND_BATCH] for k, v in feed.items()}
+            E.COUNTERS.reset()
+            before = _settled_reserved()
+            for _ in range(3):
+                exe.run(main, feed=second, fetch_list=[loss], scope=sg)
+            added_gb = (_settled_reserved() - before) / 1e9
+            if (E.COUNTERS.warmups, E.COUNTERS.captures,
+                    E.COUNTERS.replays) != (1, 1, 2):
+                raise RuntimeError(f"train_graph {name}: the second "
+                                   f"signature: {E.COUNTERS}")
+            print(f"train_graph {name}: a second signature (batch "
+                  f"{GRAPH_SECOND_BATCH}) on the same Executor adds "
+                  f"{added_gb:.2f} GB (the first's state buffers and pool "
+                  f"{pool_gb:.2f} GB; {card})", flush=True)
+            out[name]["second_signature_gb"] = added_gb
+        del exe, sg, se, main, startup, loss
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    report["train_graph"] = {"card": card, "paths": out}
+    return graphed_launches
 
 
 def ptxas_report(build_log: dict) -> dict:
@@ -3782,9 +4133,6 @@ def main(argv=None) -> int:
     per_step = phase_train(pt, conv_cuda, bn_cuda, resnet, report)
     feeder_launches = phase_train_feeder(pt, conv_cuda, bn_cuda, resnet, report)
     phase_book(pt, conv_cuda, bn_cuda, report)
-    if feeder_launches["launches"]:
-        k1["launches_by_path"]["train_feeder"] = feeder_launches["launches"]
-        k1["launches"] = sum(k1["launches_by_path"].values())
     for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
                                       "stats_launches", "apply_launches",
                                       "act_launches")):
@@ -3797,6 +4145,14 @@ def main(argv=None) -> int:
     ring_kernels = phase_kernel_ring(attention_cuda, ring_attention, report,
                                      args.parent)
     ring_launches = phase_train_ring(pt, attention_cuda, report)
+    graph_launches = phase_train_graph(pt, conv_cuda, bn_cuda, attention_cuda,
+                                       resnet, report)
+    for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
+                                      "stats_launches", "apply_launches",
+                                      "act_launches")):
+        table = "bn." if key in ("apply_launches", "act_launches") else "conv."
+        k["launches_by_path"]["train_graph"] = graph_launches[table + key]
+        k["launches"] = sum(k["launches_by_path"].values())
     counter = {"flash_attn_fwd": "launches", "flash_attn_bwd_dq": "dq_launches",
                "flash_attn_bwd_dkv": "dkv_launches",
                "flash_attn_fwd_block": "block_launches"}
@@ -3804,7 +4160,8 @@ def main(argv=None) -> int:
         f32 = k["name"].endswith("_f32")
         key = ("f32_" if f32 else "") + counter[k["name"].removesuffix("_f32")]
         by_path = {"train_lm": lm_launches.get(key, 0),
-                   "train_ring": ring_launches.get(key, 0)}
+                   "train_ring": ring_launches.get(key, 0),
+                   "train_graph": graph_launches.get("attn." + key, 0)}
         if key == "launches":
             by_path["serve_lm"] = serve_launches
         by_path = {p: n for p, n in by_path.items() if n}

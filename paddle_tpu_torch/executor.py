@@ -1,18 +1,23 @@
 """Executor: runs a program's global block op by op on a torch device (the
 port's counterpart of paddle_tpu/executor.py).
 
-The JAX package traces a whole block into one jitted XLA computation. The
-port interprets the block eagerly: every op's lowering runs on torch
-tensors on the executor's device, in program order, with the planned
-conv -> batch_norm [-> act] windows (ops/fusion.py: the inference fold,
-the training kernels) lowered as one unit at their anchor. A training
-program's grad and optimizer ops run like any other op; the optimizer's
-in-place outputs (parameters, accumulators, batch-norm statistics) are
-persistable and go back to the scope at the end of the run. Scope semantics follow the reference (scope.h:38): persistable
-variables live in the scope across runs; block temporaries vanish after
-the run. Feeds and fetches are dense tensors; LoD feeds wait for a later
-slice. `run_steps` runs K steps over a window of K batches in one call,
-with the scope written once at the end (the JAX package's fused loop).
+The JAX package traces a whole block into one jitted XLA computation,
+once per signature, with the state donated. The port interprets the
+block: every op's lowering runs on torch tensors on the executor's
+device, in program order, with the planned windows (ops/fusion.py: conv
+-> batch_norm [-> act], fc_act, chain, optimizer buckets) lowered as one
+unit at their anchor, and each temporary dropped after its last reader
+(`liveness`). On a CUDA place that interpretation is captured once per
+signature as a CUDA graph and replayed (`Executor.run`, `_graphed`): the
+port's counterpart of the jitted, donated step. A training program's grad
+and optimizer ops run like any other op; the optimizer's in-place outputs
+(parameters, accumulators, batch-norm statistics) are persistable and go
+back to the scope at the end of the run. Scope semantics follow the
+reference (scope.h:38): persistable variables live in the scope across
+runs; block temporaries vanish after the run. Feeds and fetches are
+dense tensors; LoD feeds wait for a later slice. `run_steps` runs K steps
+over a window of K batches in one call, with the scope written once at
+the end (the JAX package's fused loop).
 
 Places: `CUDAPlace` is the real card here (the JAX package made it an
 alias of its TPU place). `Executor()` with no place runs on CUDAPlace(0),
@@ -28,8 +33,10 @@ from __future__ import annotations
 
 import contextlib
 import os
+import weakref
 import zlib
-from dataclasses import dataclass
+from collections import OrderedDict
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -175,14 +182,31 @@ class LoweringContext:
         """A torch.Generator for one random op, seeded from the op's `seed`
         attr (or the program seed and the run counter) and its first output
         name, like the JAX package's per-op key (executor.py next_rng): the
-        same program and run draw the same numbers."""
+        same program and run draw the same numbers. CUDA's Philox takes
+        all 64 bits of (base, ident); a CPU generator (mt19937) keeps only
+        the low 32 of its seed, so there the 64 bits are mixed and folded
+        into 32 first (`fold_seed`), and the seed and counter still count."""
         seed = int(op.attr("seed", 0) or 0)
         outs = op.desc.output_arg_names()
         ident = zlib.crc32(outs[0].encode("utf-8")) if outs else 0
         base = seed if seed else (self._seed * 1_000_003 + self._rng_counter)
+        key = ((base & 0xFFFFFFFF) << 32 | ident) & (2 ** 63 - 1)
         g = torch.Generator(device=self.device)
-        g.manual_seed(((base & 0xFFFFFFFF) << 32 | ident) & (2 ** 63 - 1))
+        g.manual_seed(key if self.device.type == "cuda" else fold_seed(key))
         return g
+
+
+_M64 = 2 ** 64 - 1
+
+
+def fold_seed(key: int) -> int:
+    """64 bits -> 32: splitmix64's finalizer, then the high half xor-folded
+    into the low, so every input bit moves the 32 a CPU generator keeps."""
+    x = key & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    x ^= x >> 31
+    return (x ^ (x >> 32)) & 0xFFFFFFFF
 
 
 def _to_device(value, device: torch.device) -> torch.Tensor:
@@ -244,15 +268,124 @@ def _normalize_window(feed_window, steps):
 @dataclass
 class Counters:
     """`windows`: run_steps calls that finished; `steps`: the steps they
-    ran (K a window)."""
+    ran (K a window). The graphed steps (`Executor.run`): `warmups`, the
+    eager first step of a signature; `captures`; `replays`; `copied_in`,
+    state tensors copied into their static buffers before a replay (the
+    caller replaced or changed the scope's tensor, or another scope or
+    signature left the buffer another value); `evicted`, graphs dropped
+    past GRAPH_CACHE_SIZE; `eager`, the steps that ran eager, by the
+    gate's reason (`graph_gate`). A replay runs no Python: the kernel
+    wrappers' launch counters do not move."""
     windows: int = 0
     steps: int = 0
+    warmups: int = 0
+    captures: int = 0
+    replays: int = 0
+    copied_in: int = 0
+    evicted: int = 0
+    eager: Dict[str, int] = field(default_factory=dict)
 
     def reset(self):
         self.windows = self.steps = 0
+        self.warmups = self.captures = self.replays = 0
+        self.copied_in = self.evicted = 0
+        self.eager.clear()
 
 
 COUNTERS = Counters()
+
+# ops that draw from ctx.generator: a replayed graph would repeat the
+# captured draw, so a block holding one runs eager
+RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
+
+
+def liveness(ops, groups) -> Dict[int, List[str]]:
+    """position -> the names whose last reader or writer runs there, for
+    `_run_block` to drop after it. A window's members all count at its end
+    index (it runs as one unit), so what a window reads lives until it
+    has run."""
+    last: Dict[str, int] = {}
+    groups = groups or {}
+    i = 0
+    while i < len(ops):
+        g = groups.get(i)
+        members, pos = (g.members, g.end - 1) if g is not None else \
+            ((ops[i],), i)
+        for m in members:
+            if m.type in ("feed", "fetch"):
+                continue
+            for n in m.input_arg_names + m.output_arg_names:
+                last[n] = pos
+        i = pos + 1
+    drops: Dict[int, List[str]] = {}
+    for n, pos in last.items():
+        drops.setdefault(pos, []).append(n)
+    return drops
+
+
+# at most this many step signatures keep a graph on one Executor; the one
+# run least recently goes first
+GRAPH_CACHE_SIZE = 8
+
+
+def capture_graph(body, pool=None):
+    """A CUDA graph of what `body()` launches on the current device, its
+    memory drawn from `pool` (another graph's, `graph.pool()`) when given.
+    Only this thread's calls are checked during the capture, so a feeder's
+    copy thread goes on beside it."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        body()
+    return graph
+
+
+def _copies(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """New tensors holding `tensors`' values, filled by one multi-tensor
+    copy: a clone each would cost a launch each, hundreds a step."""
+    out = [torch.empty_like(t) for t in tensors]
+    if out:
+        torch._foreach_copy_(out, tensors)
+    return out
+
+
+class _StateBuffer:
+    """The static buffer of one state variable at one shape and dtype,
+    shared by every graph of an Executor that reads it, and the scope
+    tensor whose value it holds (`src`, a weak reference, at version
+    `ver`). A replay copies a scope tensor in unless the buffer holds it
+    unchanged; a replay that writes the variable leaves the buffer holding
+    only its own value until the scope is handed a copy of it."""
+
+    __slots__ = ("t", "src", "ver")
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+        self.src = None
+        self.ver = -1
+
+    def holds(self, v: torch.Tensor) -> bool:
+        return v is self.t or (self.src is not None and self.src() is v
+                               and v._version == self.ver)
+
+    def source(self, v: Optional[torch.Tensor]):
+        self.src = None if v is None else weakref.ref(v)
+        self.ver = -1 if v is None else v._version
+
+
+class _GraphedStep:
+    """One signature's step as a captured CUDA graph (the counterpart of
+    the reference's jitted, donated step, executor.py:1959-1994): static
+    buffers for the feeds, the state buffers it reads, the state it
+    writes (`persist`), the graph, the fetches and the other persistable
+    outputs it writes into the shared pool."""
+
+    def __init__(self):
+        self.graph = None
+        self.feeds: Dict[str, torch.Tensor] = {}
+        self.state: Dict[str, _StateBuffer] = {}
+        self.persist: List[str] = []
+        self.fetches: List[torch.Tensor] = []
+        self.written: Dict[str, torch.Tensor] = {}
 
 
 class PreparedProgram:
@@ -269,7 +402,9 @@ class PreparedProgram:
         self.state_names = state_names
         self.persist_out = persist_out
         self.groups = fusion_mod.plan(program)
+        self.drops = liveness(program.global_block().ops, self.groups)
         self.protected = set(fetch_names) | set(persist_out)
+        self.keep = self.protected | set(state_names)
         self.folds = None
 
     def fold_weights(self, state: Dict[str, torch.Tensor]):
@@ -286,7 +421,7 @@ class PreparedProgram:
         ctx = LoweringContext(self.executor, self.program, 0)
         ctx.folds = self.folds
         self.executor._run_block(ctx, self.program, env, self.groups,
-                                 self.protected)
+                                 self.protected, self.drops, self.keep)
         return [env[n] for n in self.fetch_names]
 
 
@@ -298,46 +433,73 @@ def default_place() -> Place:
     return CUDAPlace(int(os.environ.get("LOCAL_RANK", dist.get_rank())))
 
 
+def _names(fetch_list) -> List[str]:
+    return [v.name if isinstance(v, Variable) else str(v)
+            for v in (fetch_list or [])]
+
+
 class Executor:
+    """Runs programs on a place. On a CUDA place a training or inference
+    step whose block the gate admits (`graph_gate`) runs as a CUDA graph,
+    one per signature (the reference's jit cache key, executor.py:1183:
+    program and version, feed names, shapes and dtypes, fetch names, state
+    names, shapes and dtypes, AMP dtype and level, quant mode, seed): the
+    signature's first run is eager and warms up (Triton compiles, K6's
+    barrier is zeroed, cuBLAS sets up its workspace), the second captures
+    the step and replays it, later runs replay. The state lives in static
+    buffers, one per variable, shape and dtype, shared by the Executor's
+    graphs; the graph ends by copying each persistable output into its
+    input's buffer (the reference donates the state), and the scope is
+    handed a copy of each. A scope tensor the buffer does not hold (the
+    caller replaced or changed it, or another scope ran) is copied in
+    before a replay; fetches come back as copies. The graphs share one
+    memory pool, and at most GRAPH_CACHE_SIZE signatures keep theirs.
+    `use_jit=False` runs eager. Either way an env entry goes once its last
+    reader has run (`liveness`), unless it is fetched, a persistable
+    output or state."""
+
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else default_place()
         self.device = place_device(self.place)
         self._analysis_cache: Dict[tuple, tuple] = {}
         self._plans: Dict[tuple, tuple] = {}
+        self._graphs: "OrderedDict[tuple, _GraphedStep]" = OrderedDict()
+        self._buffers: Dict[tuple, _StateBuffer] = {}
+        self._pool = None
 
     # --- public API ---------------------------------------------------------
     def run(self, program: Optional[Program] = None, feed: Optional[Dict] = None,
             fetch_list: Optional[Sequence] = None, scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            return_numpy: bool = True, use_program_cache: bool = True,
+            use_jit: Optional[bool] = None):
         """Run the global block once: feeds in, fetches out, persistable
-        outputs written back to `scope`."""
+        outputs written back to `scope`. On a CUDA place an admitted block
+        runs graphed (see the class), unless `use_jit` is False or
+        `use_program_cache` is False."""
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in (fetch_list or [])]
+        fetch_names = _names(fetch_list)
         feed_vals = {n: _to_device(v, self.device)
                      for n, v in (feed or {}).items()}
         state_names = self._resolve_state(program, feed_vals, scope)
         persist_out = self._persistable_outputs(program)
-        env = {n: _to_device(scope.find_var(n), self.device)
-               for n in state_names}
-        env.update(feed_vals)
+        state = {n: _to_device(scope.find_var(n), self.device)
+                 for n in state_names}
         rng_counter = scope.find_var("__rng_counter__") or 0
-        ctx = LoweringContext(self, program, rng_counter)
-        self._run_block(ctx, program, env, self._plan(program),
-                        set(fetch_names) | set(persist_out))
+        reason = self.graph_gate(program, feed_vals, use_jit,
+                                 use_program_cache)
+        fetch, written = self._step(program, state, feed_vals, fetch_names,
+                                    persist_out, rng_counter, reason)
         scope.set_var("__rng_counter__", rng_counter + 1)
-        for n in persist_out:
-            if n in env:
-                scope.set_var(n, env[n])
-        fetch = [env[n] for n in fetch_names]
+        for n, v in written.items():
+            scope.set_var(n, v)
         return [to_numpy(v) for v in fetch] if return_numpy else fetch
 
     def run_steps(self, program: Optional[Program] = None, feed_window=None,
                   *, reader=None, steps: Optional[int] = None,
                   fetch_list: Optional[Sequence] = None,
                   scope: Optional[Scope] = None, return_numpy: bool = True,
-                  fetch_mode: str = "last"):
+                  fetch_mode: str = "last", use_jit: Optional[bool] = None):
         """Run K training steps in one call (the JAX package's
         executor.py:622): K passes of the block, with no host sync between
         them, over a window of K batches.
@@ -353,12 +515,17 @@ class Executor:
         Step i starts from the state (the scope's variables, as the
         previous step left them) and slice i of the window's feeds, never
         from an earlier step's temporaries, and runs with rng counter c +
-        i: the results are bitwise those of K run() calls. The fetches
-        stay on the device until the window ends, and come back with one
+        i: the results are bitwise those of K run() calls. On a graphed
+        signature each step is a replay, slice i copied into the feed
+        buffers on the compute stream (after the window's copy-stream
+        event, which the reader's hand-out waits on). The fetches stay on
+        the device until the window ends, and come back with one
         device-to-host copy each. The scope is written once, after the
         last step, and `__rng_counter__` goes up by K then: a window that
-        fails leaves both as they were (the optimizer ops are functional,
-        so nothing is written in place before the end)."""
+        fails leaves both as they were (the eager optimizer ops are
+        functional; a graphed window steps its state buffers in place, as
+        the reference's donated state, and hands the scope copies only
+        after its last step)."""
         if fetch_mode not in ("last", "stack", "mean"):
             raise ValueError(f"fetch_mode must be last|stack|mean, "
                              f"got {fetch_mode!r}")
@@ -382,28 +549,26 @@ class Executor:
                     f"feed '{n}' is a sequence (lod_level "
                     f"{block.var(n).lod_level}): LoD feeds come with the "
                     f"port's LoD slice (ROADMAP Queue 1, slice 8)")
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in (fetch_list or [])]
+        fetch_names = _names(fetch_list)
         feed_vals = {n: _to_device(v, self.device) for n, v in stacked.items()}
         state_names = self._resolve_state(program, feed_vals, scope)
         persist_out = self._persistable_outputs(program)
         state = {n: _to_device(scope.find_var(n), self.device)
                  for n in state_names}
         rng_counter = scope.find_var("__rng_counter__") or 0
-        groups = self._plan(program)
-        protected = set(fetch_names) | set(persist_out)
-        fetched = []
+        fetched, written = [], {}
         for i in range(steps):
-            env = dict(state)
-            env.update({n: v[i] for n, v in feed_vals.items()})
-            ctx = LoweringContext(self, program, rng_counter + i)
-            self._run_block(ctx, program, env, groups, protected)
-            state.update({n: env[n] for n in persist_out if n in env})
-            fetched.append([env[n] for n in fetch_names])
+            feed_i = {n: v[i] for n, v in feed_vals.items()}
+            reason = self.graph_gate(program, feed_i, use_jit, True)
+            fetch, out = self._step(program, state, feed_i, fetch_names,
+                                    persist_out, rng_counter + i, reason,
+                                    hand_out=i == steps - 1)
+            written.update(out)
+            state.update({n: v for n, v in out.items() if n in state})
+            fetched.append(fetch)
         scope.set_var("__rng_counter__", rng_counter + steps)
-        for n in persist_out:
-            if n in state:
-                scope.set_var(n, state[n])
+        for n, v in written.items():
+            scope.set_var(n, v)
         COUNTERS.windows += 1
         COUNTERS.steps += steps
         if fetch_mode == "last":
@@ -425,6 +590,27 @@ class Executor:
         state_names = self._resolve_state(program, feed_names, scope)
         return PreparedProgram(self, program, feed_names, list(fetch_names),
                                state_names, self._persistable_outputs(program))
+
+    def graph_gate(self, program, feed, use_jit=None,
+                   use_program_cache=True) -> Optional[str]:
+        """None when a step of `program` on `feed` may run as a CUDA graph,
+        else the reason it runs eager: "use_jit" (use_jit=False), "cpu"
+        (not a CUDA place), "no_program_cache" (use_program_cache=False),
+        "random_op" (the block draws random numbers: a replay would repeat
+        the captured draw), "lod_feed" (a sequence feed)."""
+        if use_jit is False:
+            return "use_jit"
+        if self.device.type != "cuda":
+            return "cpu"
+        if not use_program_cache:
+            return "no_program_cache"
+        if self._block_plan(program)[2]:
+            return "random_op"
+        block = program.global_block()
+        if any(block.has_var(n) and block.var(n).lod_level > 0
+               for n in feed):
+            return "lod_feed"
+        return None
 
     # --- analysis -----------------------------------------------------------
     def _analysis(self, program):
@@ -469,27 +655,174 @@ class Executor:
         _reads, writes, persistable = self._analysis(program)
         return [n for n in sorted(writes) if n in persistable]
 
-    def _plan(self, program):
+    def _block_plan(self, program):
+        """(fusion plan, liveness drops, holds a random op) of the global
+        block, once per (program, version)."""
         key = (id(program), program._version)
         hit = self._plans.get(key)
         if hit is None or hit[0] is not program:
-            hit = self._plans[key] = (program, fusion_mod.plan(program))
-        return hit[1]
+            ops = program.global_block().ops
+            groups = fusion_mod.plan(program)
+            hit = self._plans[key] = (program, groups, liveness(ops, groups),
+                                      any(o.type in RANDOM_OPS for o in ops))
+        return hit[1:]
+
+    def _plan(self, program):
+        return self._block_plan(program)[0]
 
     # --- execution ----------------------------------------------------------
-    def _run_block(self, ctx, program, env, groups, protected):
+    def _step(self, program, state, feed, fetch_names, persist_out,
+              rng_counter, reason, hand_out=True):
+        """One step from `state` and `feed`: (fetch tensors, the persistable
+        outputs by name). `reason` is the graph gate's answer: None runs
+        the signature's graph (warming it up first), else eager, counted
+        by reason. `hand_out=False` (a run_steps step before the last)
+        lets a replay return the state buffers themselves, for the next
+        step to read in place."""
+        if reason is None:
+            # the state's names are sorted (_resolve_state)
+            key = (id(program), program._version,
+                   tuple((n, v.shape, v.dtype) for n, v in sorted(feed.items())),
+                   tuple(fetch_names), tuple(state),
+                   tuple(v.shape for v in state.values()),
+                   tuple(v.dtype for v in state.values()),
+                   getattr(program, "_amp_dtype", None),
+                   getattr(program, "_amp_level", "O1"),
+                   getattr(program, "_quant_mode", None),
+                   program.random_seed)
+            entry = self._graphs.get(key)
+            if entry is None:
+                self._graphs[key] = _GraphedStep()
+                self._evict()
+                COUNTERS.warmups += 1
+            else:
+                self._graphs.move_to_end(key)
+                return self._graphed(entry, program, state, feed,
+                                     fetch_names, persist_out, rng_counter,
+                                     hand_out)
+        else:
+            COUNTERS.eager[reason] = COUNTERS.eager.get(reason, 0) + 1
+        env = dict(state)
+        env.update(feed)
+        ctx = LoweringContext(self, program, rng_counter)
+        groups, drops, _ = self._block_plan(program)
+        protected = set(fetch_names) | set(persist_out)
+        self._run_block(ctx, program, env, groups, protected, drops,
+                        protected | set(state))
+        return ([env[n] for n in fetch_names],
+                {n: env[n] for n in persist_out if n in env})
+
+    def _evict(self):
+        """Drop the graphs run least recently past GRAPH_CACHE_SIZE, and
+        the state buffers no graph left reads."""
+        while len(self._graphs) > GRAPH_CACHE_SIZE:
+            self._graphs.popitem(last=False)
+            COUNTERS.evicted += 1
+        used = {id(b) for e in self._graphs.values() for b in e.state.values()}
+        self._buffers = {k: b for k, b in self._buffers.items()
+                         if id(b) in used}
+
+    def _buffer(self, name, v) -> _StateBuffer:
+        key = (name, v.shape, v.dtype)
+        b = self._buffers.get(key)
+        if b is None:
+            b = self._buffers[key] = _StateBuffer(v.clone())
+            b.source(v)
+        return b
+
+    def _graphed(self, entry: _GraphedStep, program, state, feed,
+                 fetch_names, persist_out, rng_counter, hand_out=True):
+        """Capture `entry` on its first call, then replay it: a state
+        tensor its buffer does not hold copied in, the feeds copied into
+        their buffers. The scope is handed copies of the persistable
+        outputs, never a buffer. A capture that fails raises; nothing runs
+        eager in its place."""
+        if entry.graph is None:
+            self._capture(entry, program, state, feed, fetch_names,
+                          persist_out, rng_counter)
+        for n, b in entry.state.items():
+            v = state[n]
+            if not b.holds(v):
+                b.t.copy_(v)
+                b.source(v)
+                COUNTERS.copied_in += 1
+        for n, buf in entry.feeds.items():
+            buf.copy_(feed[n])
+        entry.graph.replay()
+        COUNTERS.replays += 1
+        # the fetches and the outputs outside the state live in the shared
+        # pool, where the next graph's replay may write: copied out now
+        fetch = [t.clone() for t in entry.fetches]
+        bufs = [entry.state[n] for n in entry.persist]
+        if not hand_out:
+            for b in bufs:
+                b.source(None)
+            return fetch, {n: b.t for n, b in zip(entry.persist, bufs)}
+        copies = _copies([b.t for b in bufs] + list(entry.written.values()))
+        for b, c in zip(bufs, copies):
+            b.source(c)
+        return fetch, dict(zip(entry.persist + list(entry.written), copies))
+
+    def _capture(self, entry: _GraphedStep, program, state, feed,
+                 fetch_names, persist_out, rng_counter):
+        entry.state = {n: self._buffer(n, v) for n, v in state.items()}
+        entry.persist = [n for n in persist_out if n in entry.state]
+        entry.feeds = {n: v.clone() for n, v in feed.items()}
+        groups, drops, _ = self._block_plan(program)
+        protected = set(fetch_names) | set(persist_out)
+
+        def body():
+            env = {n: b.t for n, b in entry.state.items()}
+            env.update(entry.feeds)
+            ctx = LoweringContext(self, program, rng_counter)
+            self._run_block(ctx, program, env, groups, protected, drops,
+                            protected | set(state))
+            for n in entry.persist:
+                buf = entry.state[n].t
+                if env[n] is not buf:
+                    buf.copy_(env[n])
+            entry.fetches = [env[n] for n in fetch_names]
+            entry.written = {n: env[n] for n in persist_out
+                             if n in env and n not in entry.state}
+
+        try:
+            graph = capture_graph(body, self._pool)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA graph capture of a step of program {id(program)} "
+                f"failed ({type(e).__name__}: {e}); run it with "
+                f"use_jit=False to take the eager path") from e
+        if self._pool is None:
+            self._pool = graph.pool()
+        entry.graph = graph
+        # whatever the capture left in the buffers it writes, the replay
+        # starts from the state
+        for n in entry.persist:
+            entry.state[n].t.copy_(state[n])
+            entry.state[n].source(state[n])
+        COUNTERS.captures += 1
+
+    def _run_block(self, ctx, program, env, groups, protected, drops=None,
+                   keep=()):
+        """The block's ops and windows in order on `env`. With `drops`
+        (liveness), each name goes from `env` after its last reader unless
+        it is in `keep`."""
         ops = program.global_block().ops
         groups = groups or {}
         i = 0
         while i < len(ops):
             g = groups.get(i)
             if g is not None:
-                with registry.span("win:" + "+".join(m.type for m in g.members)):
+                with registry.span(fusion_mod.span_name(g)):
                     fusion_mod.execute_group(self, ctx, g, env, protected)
                 i = g.end
             else:
                 self._exec_op(ctx, ops[i], env)
                 i += 1
+            if drops:
+                for n in drops.get(i - 1, ()):
+                    if n not in keep:
+                        env.pop(n, None)
 
     def _exec_op(self, ctx: LoweringContext, op, env: Dict[str, Any]):
         if op.type in ("feed", "fetch"):

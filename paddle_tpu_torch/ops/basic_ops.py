@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .common import in_var, same_as_input, set_out, to_torch_dtype
-from .registry import NO_GRAD, op, register
+from .registry import NO_GRAD, cotangent, grad_op, op, register, zero_grads
 
 # --- feed / fetch: no lowering, the executor handles them (reference
 # feed_op.cc/fetch_op.cc) ------------------------------------------------------
@@ -102,6 +102,16 @@ def _reshape(ctx, op_, ins):
     shape = [x.shape[i] if s == 0 else s
              for i, s in enumerate(op_.attr("shape"))]
     return {"Out": [x.reshape(shape)]}
+
+
+@grad_op("reshape")
+def _reshape_grad(ctx, op_, ins):
+    """dX = dOut in X's shape."""
+    x = ins["X"][0]
+    dout = cotangent(ins, "Out", ins["Out"][0])
+    if dout is None:
+        return zero_grads(op_, ins)
+    return {"X@GRAD": [dout.reshape(x.shape)]}
 
 
 def _concat_infer(op_, block):

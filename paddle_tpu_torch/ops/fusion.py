@@ -1,46 +1,65 @@
-"""Fusion pass over the ProgramDesc: the conv -> batch_norm [-> act] and
-batch_norm -> act windows (the port's counterpart of
-paddle_tpu/ops/fusion.py, those two window kinds).
+"""Fusion pass over the ProgramDesc (the port's counterpart of
+paddle_tpu/ops/fusion.py): `plan()` pattern-matches contiguous windows of
+the global block, in the reference's order (`_build`, fusion.py:143):
 
-`plan()` pattern-matches contiguous conv2d -> batch_norm [-> activation]
-and batch_norm -> activation windows in the global block
-(`_match_conv_bn_act`, fusion.py:162). Each lowers as one unit at its
-anchor (`execute_group`):
+    runs of same-type sgd/momentum/adam updates sharing one LR (opt_bucket)
+    conv2d -> batch_norm [-> activation] and batch_norm -> activation
+    mul -> elementwise_add(1-D bias) [-> activation]            (fc_act)
+    elementwise/activation runs, their _grad variants included  (chain)
 
-  * inference (is_test) conv windows whose conv output feeds nothing but
-    the batch_norm (`_foldable`): BN folds into the conv filter and a
-    channel bias, and the conv's own output is never materialized
-    (`_fold_lower`, fusion.py:779);
-  * training conv windows (`_conv_stats`, fusion.py:608): K4 computes the
-    conv and its per-channel sums, K5 normalizes and activates; gated to
-    training-mode bn, no AMP restore (O1 goes to the ladder), a kernel
-    activation, and K1's gate;
-  * otherwise the member ladder (fusion.py:516): the conv member runs
-    through its lowering, then a training bn [+ act] on a bf16 activation
-    runs K6 (`_bn_act`, fusion.py:565) when `bn_cuda.ineligible` passes,
-    and the plain batch_norm (+ act) lowerings when it does not (counted
-    by reason).
+and the executor lowers each as one unit at its anchor (`execute_group`).
+Because a window is contiguous, running it at its anchor keeps the block's
+op order.
+
+  * opt_bucket (fusion.py:278, :404): the dense members split into
+    sub-buckets by the dtypes of their per-param tensors (the grad aside:
+    it is cast to its param's dtype per tensor), and each sub-bucket of
+    two or more runs as one `fused_sgd`/`fused_momentum`/`fused_adam` op
+    over lists of tensors (ops/optimizer_ops.py `*_list`: torch._foreach
+    ops, no concat), bitwise the per-param updates. A grad that is not a
+    dense tensor, or a param the program shards, stays per-param,
+    counted by reason (COUNTERS.fallbacks).
+  * fc_act and chain (fusion.py:220, :254) run as the reference's
+    `_compose_lower` (:500) does: the members in order through the
+    executor's own `_exec_op`, under one `win:` span, bitwise the unfused
+    values. The reference's `fused_fc_act`/`fused_chain` ops only carry
+    that composition; the port registers its `fused_fc_act` with the
+    epilogue-fused bias/act GEMM, later speed work (ROADMAP).
+  * conv -> bn [-> act]:
+    - inference (is_test) conv windows whose conv output feeds nothing
+      but the batch_norm (`_foldable`): BN folds into the conv filter and
+      a channel bias, and the conv's own output is never materialized
+      (`_fold_lower`, fusion.py:779);
+    - training conv windows (`_conv_stats`, fusion.py:608): K4 computes
+      the conv and its per-channel sums, K5 normalizes and activates;
+      gated to training-mode bn, no AMP restore (O1 goes to the ladder), a
+      kernel activation, and K1's gate;
+    - otherwise the member ladder (fusion.py:516): the conv member runs
+      through its lowering, then a training bn [+ act] on a bf16
+      activation runs K6 (`_bn_act`, fusion.py:565) when
+      `bn_cuda.ineligible` passes, and the plain batch_norm (+ act)
+      lowerings when it does not (counted by reason).
 
 Running statistics stay outside the kernels, on the [C] vectors
-(fusion.py:596-601, :684-689). Gradients stay consistent: the windows cover
-forward ops only, whose grad ops re-run the unfused forward lowerings
-(ops/registry.py) or are explicit (conv2d_grad). The fc_act, chain and
-opt_bucket windows of the JAX pass wait for a later slice; their members
-run one by one.
+(fusion.py:596-601, :684-689). Gradients stay consistent: the conv
+windows cover forward ops only, whose grad ops are explicit
+(batch_norm_grad reads the window's SavedMean/SavedVariance; conv2d_grad).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import quant
-from . import bn_cuda, conv_cuda
+from ..framework.desc import OpDesc
+from . import bn_cuda, conv_cuda, optimizer_ops
 from .common import CONV_FORMATS, mxu_cast
 from .math_ops import ACTIVATIONS
 from .nn_ops import _pair, conv2d_forward
+from .registry import NO_GRAD, register
 
 CONV_OPS = frozenset({"conv2d"})
 
@@ -50,12 +69,57 @@ ACT_OPS = frozenset({
     "brelu", "hard_sigmoid", "soft_relu",
 })
 
+# chain members, matched by base type so their _grad variants ride along:
+# the reference's layout-agnostic pass-through ops
+# (paddle_tpu/ops/layout.py:43 AGNOSTIC_OPS) less the _grad names
+CHAIN_OPS = frozenset({
+    "relu", "relu6", "leaky_relu", "elu", "sigmoid", "tanh", "abs",
+    "square", "sqrt", "exp", "log", "clip", "scale", "cast", "dropout",
+    "pow", "softsign", "softplus", "round", "floor", "ceil",
+    "hard_sigmoid", "brelu", "soft_relu", "swish",
+    "sum", "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+})
+
+OPTIMIZER_BUCKET_OPS = frozenset({"sgd", "momentum", "adam"})
+
+# per-param input slots / shared input slots / per-param output slots
+_OPT_SLOTS = {
+    "sgd": (("Param", "Grad"), ("LearningRate",), ("ParamOut",)),
+    "momentum": (("Param", "Grad", "Velocity"), ("LearningRate",),
+                 ("ParamOut", "VelocityOut")),
+    "adam": (("Param", "Grad", "Moment1", "Moment2"),
+             ("LearningRate", "Beta1Pow", "Beta2Pow"),
+             ("ParamOut", "Moment1Out", "Moment2Out")),
+}
+
+
+@dataclass
+class Counters:
+    """`fallbacks`: optimizer ops a bucket left per-param, by reason (the
+    reference's fusion_fallback_total); `buckets`: fused optimizer ops
+    run, by type."""
+    fallbacks: Dict[str, int] = field(default_factory=dict)
+    buckets: Dict[str, int] = field(default_factory=dict)
+
+    def reset(self):
+        self.fallbacks.clear()
+        self.buckets.clear()
+
+
+COUNTERS = Counters()
+
+
+def _count(table, key):
+    table[key] = table.get(key, 0) + 1
+
 
 @dataclass
 class Group:
     """One matched window: ops[start:end] of the global block, executed as
-    a unit at the anchor index (start); `conv` is None in a bn_act
-    window."""
+    a unit at the anchor index (start). `kind` is conv_bn_act, bn_act,
+    fc_act, chain or opt_bucket; `conv` is None in a bn_act window."""
+    kind: str
     start: int
     end: int                     # exclusive
     members: Tuple[Any, ...]     # Operators in block order
@@ -64,6 +128,7 @@ class Group:
     act: Any = None
     fold: bool = False           # inference-mode BN fold into conv weights
     elide: Tuple[str, ...] = ()  # names the fold never materializes
+    cache: Dict[Any, Any] = field(default_factory=dict)
 
 
 def plan(program) -> Optional[Dict[int, Group]]:
@@ -73,13 +138,22 @@ def plan(program) -> Optional[Dict[int, Group]]:
     groups: Dict[int, Group] = {}
     i, n = 0, len(ops)
     while i < n:
-        g = _match_conv_bn_act(ops, i)
+        g = (_match_opt_bucket(ops, i) or _match_conv_bn_act(ops, i)
+             or _match_fc_act(ops, i) or _match_chain(ops, i))
         if g is not None:
             groups[i] = g
             i = g.end
         else:
             i += 1
     return groups or None
+
+
+def span_name(g: Group) -> str:
+    """The executor's profiler range for a window: "win:" and its member
+    types, or for an optimizer bucket "win:<type>*<members>"."""
+    if g.kind == "opt_bucket":
+        return f"win:{g.members[0].type}*{len(g.members)}"
+    return "win:" + "+".join(m.type for m in g.members)
 
 
 def _first(names: List[str]) -> Optional[str]:
@@ -116,7 +190,8 @@ def _match_conv_bn_act(ops, i) -> Optional[Group]:
         fold = _foldable(ops, conv, bn, out_name)
         if fold:
             elide = (out_name,)
-    return Group(start=i, end=j, members=members, conv=conv, bn=bn, act=act,
+    return Group(kind="conv_bn_act" if conv is not None else "bn_act",
+                 start=i, end=j, members=members, conv=conv, bn=bn, act=act,
                  fold=fold, elide=elide)
 
 
@@ -139,10 +214,122 @@ def _foldable(ops, conv, bn, out_name) -> bool:
     return True
 
 
+def _match_fc_act(ops, i) -> Optional[Group]:
+    n = len(ops)
+    if ops[i].type != "mul" or i + 1 >= n or \
+            ops[i + 1].type != "elementwise_add":
+        return None
+    mul, add = ops[i], ops[i + 1]
+    if _first(add.desc.input("X")) != _first(mul.desc.output("Out")):
+        return None
+    # channel-bias form only: a 1-D Y (plan-time shape from the block)
+    yname = _first(add.desc.input("Y"))
+    block = getattr(mul, "block", None)
+    if yname is None or block is None or not block.desc.has_var(yname):
+        return None
+    yshape = block.desc.var(yname).shape
+    if yshape is None or len(yshape) != 1:
+        return None
+    j = i + 2
+    act = None
+    if j < n and ops[j].type in ACT_OPS and \
+            _first(ops[j].desc.input("X")) == _first(add.desc.output("Out")):
+        act = ops[j]
+        j += 1
+    members = tuple(m for m in (mul, add, act) if m is not None)
+    return Group(kind="fc_act", start=i, end=j, members=members)
+
+
+def _chain_ok(op) -> bool:
+    t = op.type
+    base = t[: -len("_grad")] if t.endswith("_grad") else t
+    return base in CHAIN_OPS
+
+
+def _match_chain(ops, i) -> Optional[Group]:
+    n = len(ops)
+    j = i
+    while j < n and _chain_ok(ops[j]):
+        j += 1
+    if j - i < 2:
+        return None
+    return Group(kind="chain", start=i, end=j, members=tuple(ops[i:j]))
+
+
+def _opt_key(op):
+    lr = tuple(op.desc.input("LearningRate"))
+    if op.type == "sgd":
+        return (lr,)
+    if op.type == "momentum":
+        return (lr, op.attr("mu"), bool(op.attr("use_nesterov", False)))
+    return (lr, op.attr("beta1", 0.9), op.attr("beta2", 0.999),
+            op.attr("epsilon", 1e-8), tuple(op.desc.input("Beta1Pow")),
+            tuple(op.desc.input("Beta2Pow")))
+
+
+def _match_opt_bucket(ops, i) -> Optional[Group]:
+    t = ops[i].type
+    if t not in OPTIMIZER_BUCKET_OPS:
+        return None
+    key0 = _opt_key(ops[i])
+    n = len(ops)
+    j = i + 1
+    while j < n and ops[j].type == t and _opt_key(ops[j]) == key0:
+        j += 1
+    if j - i < 2:
+        return None
+    return Group(kind="opt_bucket", start=i, end=j, members=tuple(ops[i:j]))
+
+
+# --- fused Operators -------------------------------------------------------------
+
+def _synth_operator(block, desc, site):
+    from ..framework.framework import Operator
+    o = Operator.__new__(Operator)   # the view pattern of registry.forward_view
+    o.block = block
+    o.desc = desc
+    o.creation_site = site
+    return o
+
+
+def _bucket_synth(group, members, t):
+    """The fused optimizer op over a same-dtype sub-bucket (fusion.py:398):
+    per-param slots keep their names with one entry per member, the
+    shared slots (LR, beta pows) one entry."""
+    key = tuple(id(m) for m in members)
+    hit = group.cache.get(key)
+    if hit is not None:
+        return hit
+    per_param, shared, outs = _OPT_SLOTS[t]
+    inputs = {s: [_first(m.desc.input(s)) for m in members]
+              for s in per_param}
+    for s in shared:
+        inputs[s] = list(members[0].desc.input(s))
+    outputs = {s: [_first(m.desc.output(s)) for m in members] for s in outs}
+    attrs = dict(members[0].desc.attrs)
+    desc = OpDesc(type="fused_" + t, inputs=inputs, outputs=outputs,
+                  attrs=attrs)
+    op = _synth_operator(getattr(members[0], "block", None), desc,
+                         getattr(members[0], "creation_site", None))
+    group.cache[key] = op
+    return op
+
+
+# --- execution -----------------------------------------------------------------
+
 def execute_group(executor, ctx, group: Group, env, protected=()):
     """Lower one planned window at its anchor. `protected` (fetch names and
     persistable outputs) blocks the fold's elision: the plan is
     fetch-agnostic."""
+    if group.kind == "opt_bucket":
+        _execute_opt_bucket(executor, ctx, group, env)
+        return
+    if group.kind in ("fc_act", "chain"):
+        # the reference's _compose_lower (fusion.py:500): the members in
+        # order, bitwise the unfused values
+        for m in group.members:
+            executor._exec_op(ctx, m, env)
+        return
     if group.fold and not (set(group.elide) & set(protected)):
         _fold_lower(ctx, group, env)
         return
@@ -160,6 +347,78 @@ def execute_group(executor, ctx, group: Group, env, protected=()):
     executor._exec_op(ctx, group.bn, env)
     if group.act is not None:
         executor._exec_op(ctx, group.act, env)
+
+
+def _execute_opt_bucket(executor, ctx, group: Group, env):
+    """fusion.py:404: the dense members, sub-bucketed by the dtypes of
+    their per-param tensors (the grad aside), run as one fused op per
+    sub-bucket of two or more; the rest per-param."""
+    t = group.members[0].type
+    specs = getattr(ctx.program, "_param_shardings", None) or {}
+    dense = []
+    for m in group.members:
+        g = env.get(_first(m.desc.input("Grad")))
+        if not isinstance(g, torch.Tensor) or g.layout != torch.strided:
+            # a sparse grad never joins a dense bucket (the port's sparse
+            # apply is slice 7 of its queue)
+            _count(COUNTERS.fallbacks, "sparse_grad_unsupported")
+            executor._exec_op(ctx, m, env)
+        elif _first(m.desc.input("Param")) in specs:
+            # an explicitly sharded param stays per-param
+            _count(COUNTERS.fallbacks, "sharded_param")
+            executor._exec_op(ctx, m, env)
+        else:
+            dense.append(m)
+    buckets: Dict[Tuple[str, ...], List[Any]] = {}
+    for m in dense:
+        sig = tuple(str(getattr(env.get(_first(m.desc.input(s))), "dtype",
+                                None))
+                    for s in _OPT_SLOTS[t][0] if s != "Grad")
+        buckets.setdefault(sig, []).append(m)
+    for sig in sorted(buckets):
+        ms = buckets[sig]
+        if len(ms) < 2:
+            for m in ms:
+                executor._exec_op(ctx, m, env)
+            continue
+        _count(COUNTERS.buckets, "fused_" + t)
+        executor._exec_op(ctx, _bucket_synth(group, ms, t), env)
+
+
+def _params_grads(ins):
+    """The params, and each grad cast to its param's dtype per tensor
+    (optimizer_ops._param_grad per member)."""
+    ps = list(ins["Param"])
+    return ps, [g.to(p.dtype) for p, g in zip(ps, ins["Grad"])]
+
+
+def _lower_fused_sgd(ctx, op_, ins):
+    ps, gs = _params_grads(ins)
+    return {"ParamOut": optimizer_ops.sgd_list(ps, gs,
+                                               optimizer_ops._lr(ins))}
+
+
+def _lower_fused_momentum(ctx, op_, ins):
+    ps, gs = _params_grads(ins)
+    po, vo = optimizer_ops.momentum_list(
+        ps, gs, list(ins["Velocity"]), optimizer_ops._lr(ins),
+        op_.attr("mu"), op_.attr("use_nesterov", False))
+    return {"ParamOut": po, "VelocityOut": vo}
+
+
+def _lower_fused_adam(ctx, op_, ins):
+    ps, gs = _params_grads(ins)
+    po, m1o, m2o = optimizer_ops.adam_list(
+        ps, gs, list(ins["Moment1"]), list(ins["Moment2"]),
+        optimizer_ops._lr(ins), op_.attr("beta1", 0.9),
+        op_.attr("beta2", 0.999), op_.attr("epsilon", 1e-8),
+        ins["Beta1Pow"][0].reshape(()), ins["Beta2Pow"][0].reshape(()))
+    return {"ParamOut": po, "Moment1Out": m1o, "Moment2Out": m2o}
+
+
+register("fused_sgd", lower=_lower_fused_sgd, grad=NO_GRAD)
+register("fused_momentum", lower=_lower_fused_momentum, grad=NO_GRAD)
+register("fused_adam", lower=_lower_fused_adam, grad=NO_GRAD)
 
 
 def _act_name(g: Group):

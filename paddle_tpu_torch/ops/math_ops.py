@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from .. import quant
 from .common import (broadcast_y_to_x, elementwise_infer, in_var, mxu_cast,
                      same_as_input, set_out)
-from .registry import op, register
+from .registry import cotangent, grad_op, op, register, zero_grads
 
 
 # --- GEMM ---------------------------------------------------------------------
@@ -62,6 +62,34 @@ def _mul(ctx, op_, ins):
     return {"Out": [out2d.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
 
 
+@grad_op("mul")
+def _mul_grad(ctx, op_, ins):
+    """dX = dOut · Yᵀ, dY = Xᵀ · dOut on the 2-D views the forward
+    multiplied, in its compute dtype (the operands as mxu_cast gave them;
+    under O1 the cotangent rounded to it first), each grad then back in
+    its input's dtype and shape. Under O3 the same plain products: the
+    quantized forward's straight-through backward (quant._QMatmul). The
+    products stay torch.matmul, as the reference's outside any kernel."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = op_.attr("x_num_col_dims", 1)
+    yn = op_.attr("y_num_col_dims", 1)
+    out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
+    g = ins.get("Out@GRAD")
+    if not g or g[0] is None:
+        return zero_grads(op_, ins)
+    (xf, yf), restore = mxu_cast(ctx, _flat2(x, xn), _flat2(y, yn))
+    dout = g[0].to(restore or xf.dtype).reshape(out_shape)
+    dout = dout.reshape(xf.shape[0], yf.shape[1]).to(xf.dtype)
+    outs = {}
+    if "X@GRAD" in op_.desc.outputs:
+        outs["X@GRAD"] = [torch.matmul(dout, yf.t()).to(x.dtype)
+                          .reshape(x.shape)]
+    if "Y@GRAD" in op_.desc.outputs:
+        outs["Y@GRAD"] = [torch.matmul(xf.t(), dout).to(y.dtype)
+                          .reshape(y.shape)]
+    return outs
+
+
 # --- elementwise with axis broadcast ------------------------------------------
 
 _elementwise_fns = {
@@ -90,6 +118,29 @@ def _make_ew(fn):
 
 for _name, _fn in _elementwise_fns.items():
     register(_name, lower=_make_ew(_fn), infer_shape=elementwise_infer)
+
+
+@grad_op("elementwise_add")
+def _elementwise_add_grad(ctx, op_, ins):
+    """dX = dOut, dY = dOut summed over the axes `axis` broadcast Y along,
+    each summed in dOut's dtype and then cast to its input's (under AMP
+    O2 the bf16 sum of a bias's grad, then f32, as autograd of the
+    forward's cast gives it)."""
+    x, y, out = ins["X"][0], ins["Y"][0], ins["Out"][0]
+    dout = cotangent(ins, "Out", out)
+    if dout is None:
+        return zero_grads(op_, ins)
+    outs = {}
+    if "X@GRAD" in op_.desc.outputs:
+        outs["X@GRAD"] = [dout.sum_to_size(x.shape).to(x.dtype)]
+    if "Y@GRAD" in op_.desc.outputs:
+        yb = broadcast_y_to_x(x, y, op_.attr("axis", -1))
+        dy = dout.sum_to_size(yb.shape)
+        if getattr(ctx, "amp_level", "O1") in ("O2", "O3") and \
+                x.dtype == torch.bfloat16 and y.dtype == torch.float32:
+            dy = dy.to(x.dtype)
+        outs["Y@GRAD"] = [dy.to(y.dtype).reshape(y.shape)]
+    return outs
 
 
 # --- activations (reference activation_op.cc) ---------------------------------
@@ -191,6 +242,29 @@ for _name, _fn in ACTIVATIONS.items():
     register(_name, lower=_make_act(_fn), infer_shape=same_as_input())
 
 
+@grad_op("relu")
+def _relu_grad(ctx, op_, ins):
+    """dX = dOut · (Out > 0): autograd's own threshold_backward, zero at
+    x = 0 as jax.nn.relu's derivative."""
+    out = ins["Out"][0]
+    dout = cotangent(ins, "Out", out)
+    if dout is None:
+        return zero_grads(op_, ins)
+    return {"X@GRAD": [torch.ops.aten.threshold_backward(dout, out, 0)]}
+
+
+@grad_op("gelu")
+def _gelu_grad(ctx, op_, ins):
+    """dX = dOut · (Φ(x) + x · φ(x)), the exact erf form (the reference's
+    approximate=False): autograd's own gelu_backward."""
+    x = ins["X"][0]
+    dout = cotangent(ins, "Out", ins["Out"][0])
+    if dout is None:
+        return zero_grads(op_, ins)
+    return {"X@GRAD": [torch.ops.aten.gelu_backward(dout, x,
+                                                    approximate="none")]}
+
+
 # --- reductions ---------------------------------------------------------------
 
 def _reduce_dims(op_, ndim):
@@ -273,4 +347,14 @@ def _mean(ctx, op_, ins):
     """Mean over every element (dense inputs; the LoD-masked form of the
     JAX package waits for the sequence slice)."""
     return {"Out": [torch.mean(ins["X"][0]).reshape(1)]}
+
+
+@grad_op("mean")
+def _mean_grad(ctx, op_, ins):
+    """dX = dOut / numel(X) at every element (autograd's mean backward)."""
+    x = ins["X"][0]
+    dout = cotangent(ins, "Out", ins["Out"][0])
+    if dout is None:
+        return zero_grads(op_, ins)
+    return {"X@GRAD": [dout.reshape(()).expand(x.shape) / x.numel()]}
 

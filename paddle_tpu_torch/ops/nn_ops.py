@@ -24,7 +24,8 @@ from ..framework.desc import OpDesc
 from ..framework.framework import grad_var_name
 from . import attention_cuda, conv_cuda
 from .common import CONV_FORMATS, in_var, mxu_cast, same_as_input, set_out
-from .registry import NO_GRAD, generic_grad_lower, infer_grad_shapes, op
+from .registry import (NO_GRAD, cotangent, generic_grad_lower, grad_op,
+                       infer_grad_shapes, op, zero_grads)
 
 
 # --- softmax and the classifier head ----------------------------------------
@@ -81,6 +82,34 @@ def _softmax_with_cross_entropy(ctx, op_, ins):
     return {"Softmax": [torch.exp(logp)], "Loss": [loss]}
 
 
+@grad_op("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy_grad(ctx, op_, ins):
+    """dLogits from the forward's saved Softmax, in f32 as the forward's
+    log-softmax: with g = dLogp (-dLoss at the label, or -label · dLoss
+    for soft labels), dLogits = g - Softmax · Σ g, then Logits' dtype;
+    the log-softmax is not computed again. A cotangent on Softmax takes
+    the generic grad."""
+    if ins.get("Softmax@GRAD") and ins["Softmax@GRAD"][0] is not None:
+        return generic_grad_lower(ctx, op_, ins)
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    dloss = cotangent(ins, "Loss", ins["Loss"][0])
+    if dloss is None:
+        return zero_grads(op_, ins)
+    softmax = ins["Softmax"][0].float()
+    dloss = dloss.float()
+    if op_.attr("soft_label", False):
+        g = -label.float() * dloss
+    else:
+        idx = label.to(torch.int64)
+        if idx.dim() < logits.dim():
+            idx = idx.unsqueeze(-1)
+        elif idx.shape[-1] != 1:
+            idx = idx[..., :1]
+        g = torch.zeros_like(softmax).scatter_(-1, idx, -dloss)
+    dx = g - softmax * g.sum(dim=-1, keepdim=True)
+    return {"Logits@GRAD": [dx.to(logits.dtype)]}
+
+
 def _accuracy_infer(op_, block):
     set_out(op_, block, "Accuracy", [1], "float32")
     set_out(op_, block, "Correct", [1], "int32")
@@ -93,7 +122,9 @@ def _accuracy(ctx, op_, ins):
     label = ins["Label"][0].reshape(-1, 1)
     hit = torch.any(idx == label, dim=1)
     correct = torch.sum(hit.to(torch.int32)).reshape(1).to(torch.int32)
-    total = torch.tensor([idx.shape[0]], dtype=torch.int32, device=idx.device)
+    # a fill, not a host copy: a CUDA graph can capture it
+    total = torch.full((1,), idx.shape[0], dtype=torch.int32,
+                       device=idx.device)
     acc = correct.float() / idx.shape[0]
     return {"Accuracy": [acc], "Correct": [correct], "Total": [total]}
 
@@ -178,18 +209,6 @@ def conv2d_forward(ctx, op_, x, w, pre=None):
     return out
 
 
-def _zero_grads(op_, ins):
-    """Zeros for every input grad an explicit grad op owes when its output
-    cotangent is missing (the output unused by the loss): no re-run."""
-    outs = {}
-    for slot, names in op_.desc.outputs.items():
-        srcs = ins.get(slot[: -len("@GRAD")], [])
-        outs[slot] = [torch.zeros_like(srcs[i])
-                      if i < len(srcs) and srcs[i] is not None else None
-                      for i in range(len(names))]
-    return outs
-
-
 @op("conv2d_grad", infer_shape=infer_grad_shapes, grad=NO_GRAD)
 def _conv2d_grad(ctx, op_, ins):
     """Explicit conv backward (nn_ops.py:340-409): eligible shapes take K2
@@ -204,7 +223,7 @@ def _conv2d_grad(ctx, op_, ins):
     memory and OIHW."""
     douts = ins.get("Output@GRAD")
     if not douts or douts[0] is None:
-        return _zero_grads(op_, ins)
+        return zero_grads(op_, ins)
     x, w = ins["Input"][0], ins["Filter"][0]
     s = _pair(op_.attr("strides", [1, 1]))
     p = _pair(op_.attr("paddings", [0, 0]))
@@ -282,6 +301,29 @@ def _pool2d(ctx, op_, ins):
     return {"Out": [out]}
 
 
+@grad_op("pool2d")
+def _pool2d_grad(ctx, op_, ins):
+    """Average pooling's dX from the window geometry alone (autograd's own
+    avg_pool2d_backward, global pooling included). Max pooling needs the
+    argmax of each window, which only the forward computes: it takes the
+    generic grad."""
+    x = ins["X"][0]
+    if op_.attr("pooling_type", "max") == "max":
+        return generic_grad_lower(ctx, op_, ins)
+    dout = cotangent(ins, "Out", ins["Out"][0])
+    if dout is None:
+        return zero_grads(op_, ins)
+    if op_.attr("global_pooling", False):
+        k = [x.shape[2], x.shape[3]]
+        s, p = k, [0, 0]
+    else:
+        k = _pair(op_.attr("ksize"))
+        s = _pair(op_.attr("strides", [1, 1]))
+        p = _pair(op_.attr("paddings", [0, 0]))
+    return {"X@GRAD": [torch.ops.aten.avg_pool2d_backward(
+        dout, x, k, s, p, False, not op_.attr("exclusive", True), None)]}
+
+
 # --- normalization ------------------------------------------------------------
 
 def _bn_infer(op_, block):
@@ -331,6 +373,71 @@ def _batch_norm(ctx, op_, ins):
             "SavedVariance": [use_var]}
 
 
+@grad_op("batch_norm")
+def _batch_norm_grad(ctx, op_, ins):
+    """dX, dScale, dBias from the forward's own statistics, in f32 (the
+    forward's arithmetic): SavedMean and SavedVariance in training mode
+    (what `_batch_norm` and the training windows wrote, so the batch
+    statistics are not computed again), the running Mean and Variance
+    under is_test. With x̂ = (x - mean) · rsqrt(var + eps) over the N
+    values of a channel: dBias = Σ dy, dScale = Σ dy · x̂, and in training
+    mode dX = scale · rsqrt(var + eps) · (dy - dBias / N - x̂ · dScale / N),
+    under is_test dX = scale · rsqrt(var + eps) · dy; dX in X's dtype,
+    dScale and dBias in theirs. In training mode cotangents on the
+    statistics outputs (none in a program append_backward builds) add
+    dMean / N + dVar · 2 (x - mean) / N to dX, with dMean = dSavedMean +
+    (1 - momentum) dMeanOut and dVar likewise."""
+    x = ins["X"][0]
+    dy = cotangent(ins, "Y", x)
+    if dy is None:
+        if not any(ins.get(s + "@GRAD") and ins[s + "@GRAD"][0] is not None
+                   for s in ("SavedMean", "SavedVariance", "MeanOut",
+                             "VarianceOut")):
+            return zero_grads(op_, ins)
+        dy = torch.zeros_like(x)
+    scale = ins["Scale"][0]
+    is_test = op_.attr("is_test", False)
+    mean = ins["Mean" if is_test else "SavedMean"][0]
+    var = ins["Variance" if is_test else "SavedVariance"][0]
+    axes = tuple(i for i in range(x.dim()) if i != 1)
+    shape = [1] * x.dim()
+    shape[1] = x.shape[1]
+    inv = torch.rsqrt(var.float() + op_.attr("epsilon", 1e-5))
+    dyf = dy.float()
+    xhat = (x.float() - mean.float().reshape(shape)) * inv.reshape(shape)
+    dbias = torch.sum(dyf, dim=axes)
+    dscale = torch.sum(dyf * xhat, dim=axes)
+    k = (scale.float() * inv).reshape(shape)
+    if is_test:
+        dx = dyf * k
+    else:
+        n = x.numel() // x.shape[1]
+        dx = (dyf - (dbias / n).reshape(shape)
+              - xhat * (dscale / n).reshape(shape)) * k
+        keep = 1.0 - op_.attr("momentum", 0.9)
+        dmean = dvar = None
+        for slot, w, kind in (("SavedMean", 1.0, 0), ("MeanOut", keep, 0),
+                              ("SavedVariance", 1.0, 1),
+                              ("VarianceOut", keep, 1)):
+            g = cotangent(ins, slot, ins[slot][0]) if ins.get(slot) else None
+            if g is None:
+                continue
+            g = g.float() * w
+            if kind == 0:
+                dmean = g if dmean is None else dmean + g
+            else:
+                dvar = g if dvar is None else dvar + g
+        if dmean is not None:
+            dx = dx + (dmean / n).reshape(shape)
+        if dvar is not None:
+            dx = dx + (dvar * 2.0 / n).reshape(shape) * \
+                (x.float() - mean.float().reshape(shape))
+    outs = {"X@GRAD": [dx.to(x.dtype)],
+            "Scale@GRAD": [dscale.to(scale.dtype)],
+            "Bias@GRAD": [dbias.to(ins["Bias"][0].dtype)]}
+    return {s: outs[s] for s in op_.desc.outputs}
+
+
 # --- embedding ----------------------------------------------------------------
 
 def _lookup_infer(op_, block):
@@ -367,8 +474,8 @@ def _lookup_table(ctx, op_, ins):
 @op("lookup_table_grad", grad=NO_GRAD)
 def _lookup_table_grad(ctx, op_, ins):
     """The dense embedding gradient (nn_ops.py:211): the cotangent rows,
-    in W's dtype and zero at `padding_idx`, scatter-added into a zero
-    table. The SelectedRows gradient of `is_sparse=True` is slice 7."""
+    in W's dtype and zero at `padding_idx`, summed into a zero table in a
+    fixed order. The SelectedRows gradient of `is_sparse=True` is slice 7."""
     if op_.attr("is_sparse", False):
         raise NotImplementedError(
             "lookup_table_grad with is_sparse=True (a SelectedRows "
@@ -376,14 +483,19 @@ def _lookup_table_grad(ctx, op_, ins):
     w = ins["W"][0]
     douts = ins.get("Out@GRAD")
     if not douts or douts[0] is None:
-        return _zero_grads(op_, ins)
+        return zero_grads(op_, ins)
     ids = _squeezed_ids(ins["Ids"][0]).reshape(-1).long()
     g = douts[0]
     g = g.reshape(-1, g.shape[-1]).to(w.dtype)
     pad = op_.attr("padding_idx", -1)
     if pad is not None and pad >= 0:
         g = g.masked_fill((ids == pad)[:, None], 0.0)
-    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, ids, g)]}
+    # accumulate through index_put_: on a CUDA tensor it sorts the ids and
+    # sums each id's rows in order, where index_add_'s atomics add them in
+    # whatever order they land (two runs, or a graph and the eager step,
+    # would differ in the last bits)
+    return {"W@GRAD": [torch.zeros_like(w).index_put_((ids,), g,
+                                                      accumulate=True)]}
 
 
 # --- layer_norm -------------------------------------------------------------------
@@ -420,6 +532,50 @@ def _layer_norm(ctx, op_, ins):
         y = y + ins["Bias"][0].reshape(feat_shape)
     return {"Y": [y], "Mean": [mean.reshape(-1)],
             "Variance": [var.reshape(-1)]}
+
+
+@grad_op("layer_norm")
+def _layer_norm_grad(ctx, op_, ins):
+    """dX, dScale, dBias from the forward's saved Mean and Variance, in
+    the forward's dtype chain: x̂ = (x - mean) · rsqrt(var + eps) in X's
+    dtype, dBias = Σ dy and dScale = Σ dy · x̂ over the leading axes (in
+    Y's dtype, then the parameter's), g = dy · scale in X's dtype, and
+    dX = rsqrt(var + eps) · (g - mean(g) - x̂ · mean(g · x̂)) over the
+    normalized axes. A bf16 X takes the generic grad: the forward runs in
+    bf16 throughout (as the reference's), and a closed form lands up to 11
+    bf16 ulps from autograd's grad of that chain of roundings; no path
+    feeds layer_norm bf16 (the LM's residual stream is f32)."""
+    x = ins["X"][0]
+    if x.dtype == torch.bfloat16:
+        return generic_grad_lower(ctx, op_, ins)
+    y = ins["Y"][0]
+    dy = cotangent(ins, "Y", y)
+    if dy is None:
+        return zero_grads(op_, ins)
+    ax = op_.attr("begin_norm_axis", 1)
+    axes = tuple(range(ax, x.dim()))
+    keep = tuple(x.shape[:ax]) + (1,) * (x.dim() - ax)
+    feat_shape = (1,) * ax + tuple(x.shape[ax:])
+    lead = tuple(range(ax))
+    rstd = torch.rsqrt(ins["Variance"][0].reshape(keep)
+                       + op_.attr("epsilon", 1e-5))
+    xhat = (x - ins["Mean"][0].reshape(keep)) * rstd
+    outs = {}
+    scale = ins["Scale"][0] if ins.get("Scale") else None
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    if bias is not None:
+        outs["Bias@GRAD"] = [torch.sum(dy, dim=lead).to(bias.dtype)
+                             .reshape(bias.shape)]
+    if scale is not None:
+        outs["Scale@GRAD"] = [torch.sum(dy * xhat, dim=lead).to(scale.dtype)
+                              .reshape(scale.shape)]
+        g = (dy * scale.reshape(feat_shape)).to(x.dtype)
+    else:
+        g = dy.to(x.dtype)
+    dx = rstd * (g - torch.mean(g, dim=axes, keepdim=True)
+                 - xhat * torch.mean(g * xhat, dim=axes, keepdim=True))
+    outs["X@GRAD"] = [dx.to(x.dtype)]
+    return {s: outs[s] for s in op_.desc.outputs}
 
 
 # --- attention ----------------------------------------------------------------------
@@ -531,7 +687,7 @@ def _sdpa_grad_kernel(ctx, op_, ins):
     torch.autograd. dO is cast by mxu_cast like Q, K and V."""
     douts = ins.get("Out@GRAD")
     if not douts or douts[0] is None:
-        return _zero_grads(op_, ins)
+        return zero_grads(op_, ins)
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     causal = op_.attr("causal", False)
     (q, k, v, do), restore = mxu_cast(ctx, q, k, v, douts[0])

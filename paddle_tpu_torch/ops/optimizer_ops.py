@@ -59,6 +59,48 @@ def adam_dense(p, g, m1, m2, lr, b1, b2, eps, b1p, b2p):
     return po, m1o, m2o
 
 
+# List forms over lists of tensors, for the fused optimizer buckets
+# (ops/fusion.py opt_bucket). The reference concatenates a bucket into one
+# flat buffer and applies the dense update once (fusion.py:843-895); here
+# torch._foreach ops take the lists as they are, one op of the dense
+# expression at a time and in its order, so each element sees the same
+# operations and roundings as the per-param update. `lr` (and adam's beta
+# powers) are 0-dim tensors shared by the bucket.
+
+def _times(xs, t):
+    """t * xs[i] for a 0-dim f32 tensor t. In f32 torch._foreach_mul is
+    one exact product rounded once, as the per-param `t * x`; in bf16 its
+    products are not bitwise `t * x` (nor is `x * t` on the CPU), so lists
+    of another dtype multiply one by one, in the per-param order."""
+    if all(x.dtype == torch.float32 for x in xs):
+        return torch._foreach_mul(xs, t)
+    return [t * x for x in xs]
+
+
+def sgd_list(ps, gs, lr):
+    return torch._foreach_sub(ps, _times(gs, lr))
+
+
+def momentum_list(ps, gs, vs, lr, mu, use_nesterov):
+    v_out = torch._foreach_add(torch._foreach_mul(vs, mu), gs)
+    if use_nesterov:
+        step = torch._foreach_add(gs, torch._foreach_mul(v_out, mu))
+    else:
+        step = v_out
+    return torch._foreach_sub(ps, _times(step, lr)), v_out
+
+
+def adam_list(ps, gs, m1s, m2s, lr, b1, b2, eps, b1p, b2p):
+    m1o = torch._foreach_add(torch._foreach_mul(m1s, b1),
+                             torch._foreach_mul(gs, 1 - b1))
+    gg = torch._foreach_mul(torch._foreach_mul(gs, 1 - b2), gs)
+    m2o = torch._foreach_add(torch._foreach_mul(m2s, b2), gg)
+    lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+    den = torch._foreach_add(torch._foreach_sqrt(m2o), eps)
+    upd = torch._foreach_div(_times(m1o, lr_t), den)
+    return torch._foreach_sub(ps, upd), m1o, m2o
+
+
 @op("sgd", grad=NO_GRAD, infer_shape=_param_out_infer(("Param", "ParamOut")))
 def _sgd(ctx, op_, ins):
     p, g = _param_grad(ins)

@@ -10,17 +10,24 @@ lowering is generic: it re-runs the forward lowering on detached leaf copies
 of the inputs under `torch.enable_grad()` and takes `torch.autograd.grad`
 against the output cotangents. Eager torch has no CSE, so that re-run is
 real work (the JAX package's whole-block jit merges it with the original
-forward). Two ops on the hot path register explicit grad ops in
-ops/nn_ops.py instead, for two reasons. A kernel called through ctypes is
-opaque to autograd, so the generic grad cannot differentiate it:
-`conv2d_grad` runs K2 + K3. And a re-run forward costs a kernel launch:
+forward); `RERUNS` counts the re-runs by forward op type. The ops on the
+training paths register explicit grad lowerings (`grad_op`) for the same
+OpDesc instead, which compute from the forward's inputs and outputs as the
+grad op declares them and re-run nothing: `batch_norm`, `layer_norm`,
+`softmax_with_cross_entropy`, average `pool2d` (ops/nn_ops.py), `relu`,
+`gelu`, `elementwise_add`, `mul`, `mean` (ops/math_ops.py), `reshape`
+(ops/basic_ops.py); max pooling and a bf16 layer_norm still take the
+generic grad. Two of the explicit ones exist also
+because a kernel called through ctypes is opaque to autograd, so the
+generic grad cannot differentiate it: `conv2d_grad` runs K2 + K3, and
 `scaled_dot_product_attention_grad` takes the forward's saved Out and LSE
-and runs K8 + K9 directly, where a generic grad would launch the flash
-forward K7 a second time (and could not differentiate it either).
+and runs K8 + K9, where a generic grad would launch the flash forward K7 a
+second time (and could not differentiate it either).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -98,6 +105,39 @@ def op(type: str, *, infer_shape=None, grad=None, non_diff_inputs=()):
                  non_diff_inputs=non_diff_inputs)
         return fn
     return deco
+
+
+def grad_op(fwd_type: str):
+    """Decorator: the explicit lowering of `<fwd_type>_grad`, the OpDesc
+    the default grad maker emits (forward inputs and outputs, the output
+    cotangents in; the input grads out), in place of `generic_grad_lower`."""
+    def deco(fn):
+        register(fwd_type + "_grad", lower=fn, infer_shape=infer_grad_shapes,
+                 grad=NO_GRAD)
+        return fn
+    return deco
+
+
+def cotangent(ins, slot, like):
+    """The cotangent of forward output `slot` as the generic grad takes it:
+    in the output's dtype and shape, or None when the loss does not use
+    the output."""
+    g = ins.get(slot + "@GRAD")
+    if not g or g[0] is None:
+        return None
+    return g[0].to(like.dtype).reshape(like.shape)
+
+
+def zero_grads(op_, ins):
+    """Zeros for every input grad an explicit grad op owes when its output
+    cotangent is missing (the output unused by the loss): no re-run."""
+    outs = {}
+    for slot, names in op_.desc.outputs.items():
+        srcs = ins.get(slot[: -len("@GRAD")], [])
+        outs[slot] = [torch.zeros_like(srcs[i])
+                      if i < len(srcs) and srcs[i] is not None else None
+                      for i in range(len(names))]
+    return outs
 
 
 def get(type: str) -> OpDef:
@@ -181,6 +221,10 @@ def forward_view(op):
     return view, fwd_in_slots, fwd_out_slots
 
 
+# forward op type -> re-runs of its lowering by generic_grad_lower
+RERUNS: collections.Counter = collections.Counter()
+
+
 def generic_grad_lower(ctx, op, ins):
     """Lowering of auto-generated `<type>_grad` ops: the forward lowering
     re-run on detached leaf copies of the differentiable inputs, then
@@ -194,6 +238,7 @@ def generic_grad_lower(ctx, op, ins):
     dtype."""
     view, fwd_in_slots, fwd_out_slots = forward_view(op)
     fwd_def = get(view.type)
+    RERUNS[view.type] += 1
     fwd_ins = {s: list(ins[s]) for s in fwd_in_slots if s in ins}
 
     # differentiable leaves: float tensors in slots this grad op wants

@@ -240,7 +240,9 @@ def test_generic_grad_takes_only_the_cotangents_given():
     op = _grad_op(gdesc.type, gdesc.inputs, gdesc.outputs, gdesc.attrs)
     ins = {"X": [x], "Scale": [scale], "Bias": [bias], "Mean": [mean],
            "Variance": [var], "Y@GRAD": [dy]}
-    got = registry.get("batch_norm_grad").lower(None, op, ins)
+    # the generic lowering itself: batch_norm_grad's registered lowering is
+    # explicit (it reads SavedMean/SavedVariance, tests/test_torch_host_path.py)
+    got = registry.generic_grad_lower(None, op, ins)
     leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
     xv, sv, bv = leaves
     mu = xv.mean((0, 2, 3), keepdim=True)

@@ -144,7 +144,9 @@ def test_amp_o2_parity_with_jax_serving():
 def test_fold_runs_and_batch_norm_never_does(monkeypatch):
     _, arrays = _served_by_jax(True)
     eng = _port_engine(True, arrays)
-    groups = eng._prepared.groups
+    # the conv windows (the plan also holds fc_act and chain windows)
+    groups = {a: g for a, g in eng._prepared.groups.items()
+              if g.kind == "conv_bn_act"}
     assert len(groups) == 6 and all(g.fold for g in groups.values())
     calls = []
     bn = registry.get("batch_norm")
@@ -271,7 +273,8 @@ def test_missing_weights_are_reported():
 def test_fusion_plan_matches_every_conv_bn_window():
     main, _, _ = _build(pt, port_resnet, True)
     groups = fusion.plan(main.clone(for_test=True))
-    acts = [g.act.type if g.act else "" for g in groups.values()]
+    acts = [g.act.type if g.act else "" for g in groups.values()
+            if g.kind == "conv_bn_act"]
     # stem and each block's first conv end in relu; the second convs and
     # the shortcut conv feed an elementwise_add instead
     assert sorted(acts) == ["", "", "", "relu", "relu", "relu"]

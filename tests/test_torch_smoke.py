@@ -1,8 +1,10 @@
 """chip_smoke.py's ptxas gate on the CPU: the build log of a kernel that
 spills registers must stop the smoke, a clean log must pass it, and ptxas's
 serialized-wgmma warning (C7511) is recorded without hiding either. Also
-`--parent`'s loader of an older checkout's batch-norm module, and the
-train_feeder phase's copy-overlap share on a made-up trace."""
+`--parent`'s loader of an older checkout's batch-norm module, the
+train_feeder phase's copy-overlap share on a made-up trace, and the
+kernel counters a profiler event's name counts for (how the launches of a
+CUDA graph's replay are counted)."""
 
 import sys
 from pathlib import Path
@@ -10,7 +12,8 @@ from pathlib import Path
 import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import _copy_overlap, parent_bn_cuda, ptxas_report  # noqa: E402
+from chip_smoke import (_copy_overlap, _trace_launches,  # noqa: E402
+                        parent_bn_cuda, ptxas_report)
 
 MANGLED = ("_ZN55_GLOBAL__N__6c76bbb5_22_flash_attn_bwd_tf32_cu_98bb9b7e15"
            "dkv_tf32_kernelILi128ELi32ELi1ELi2EEEv14CUtensorMap_stS1_S1_S1_"
@@ -107,3 +110,53 @@ def test_copy_overlap_share():
     ms, share = _copy_overlap(events)
     assert ms == pytest.approx(0.020) and share == pytest.approx(0.5)
     assert _copy_overlap(events[2:4]) == (0.0, None)
+
+
+# full names as the profiler reports the kernels of a training step
+TRACED = {
+    "void (anonymous namespace)::conv2d_fwd_kernel<128, __nv_bfloat16, "
+    "false>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, Params)":
+        "conv.dgrad_launches",
+    "void (anonymous namespace)::conv2d_fwd_kernel<64, __nv_bfloat16, "
+    "true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, Params)":
+        "conv.stats_launches",
+    "void (anonymous namespace)::conv2d_wgrad_kernel<2, 128>("
+    "CUtensorMap_st, CUtensorMap_st, WParams)": "conv.wgrad_launches",
+    "_bn_apply_body": "bn.apply_launches",
+    "void (anonymous namespace)::bn_act_kernel<8, 1>(Params)":
+        "bn.act_launches",
+    "void (anonymous namespace)::flash_fwd_kernel<64, 64, 1, true>("
+    "CUtensorMap_st, CUtensorMap_st)": "attn.launches",
+    "void (anonymous namespace)::flash_fwd_kernel<64, 128, 1, false>("
+    "CUtensorMap_st, CUtensorMap_st)": "attn.block_launches",
+    "void (anonymous namespace)::flash_dq_kernel<64, 64, 1>("
+    "CUtensorMap_st)": "attn.dq_launches",
+    "void (anonymous namespace)::flash_dkv_kernel<64, 48>("
+    "CUtensorMap_st)": "attn.dkv_launches",
+    "void (anonymous namespace)::fwd_tf32_kernel<64, 64, 2, 1, true>("
+    "CUtensorMap_st)": "attn.f32_launches",
+    "void (anonymous namespace)::fwd_tf32_kernel<64, 64, 2, 1, false>("
+    "CUtensorMap_st)": "attn.f32_block_launches",
+    "void (anonymous namespace)::dq_tf32_kernel<64, 32, 2>("
+    "CUtensorMap_st)": "attn.f32_dq_launches",
+    "void (anonymous namespace)::dkv_tf32_kernel<64, 32, 2, 3>("
+    "CUtensorMap_st)": "attn.f32_dkv_launches",
+}
+UNCOUNTED = (
+    "void (anonymous namespace)::conv2d_fwd_q8_kernel<64, signed char>("
+    "CUtensorMap_st)",
+    "void (anonymous namespace)::splitk_reduce_kernel<__nv_bfloat16>("
+    "float const*, int, long long, int, __nv_bfloat16*)",
+    "void at::native::vectorized_elementwise_kernel<4, at::native::"
+    "CUDAFunctor_add<float>, std::array<char*, 3ul> >(int, "
+    "at::native::CUDAFunctor_add<float>, std::array<char*, 3ul>)",
+)
+
+
+@pytest.mark.parametrize("name", sorted(TRACED) + list(UNCOUNTED))
+def test_trace_event_counts_for_its_kernel(name):
+    """Each hand-written kernel's event counts once, for its counter only;
+    other kernels count for none."""
+    event = type("Event", (), {"name": name})
+    got = {k: v for k, v in _trace_launches([event]).items() if v}
+    assert got == ({TRACED[name]: 1} if name in TRACED else {})

@@ -206,7 +206,10 @@ def test_a_second_run_reads_the_updated_state():
 
 def test_a_profiled_run_is_split_by_the_executors_spans():
     """While a profiler records, the executor names each op, window and
-    generic grad's forward re-run; with none recording it opens no range."""
+    generic grad's forward re-run; with none recording it opens no range.
+    batch_norm_grad is explicit (no re-run of batch_norm); the stem conv
+    (Ci=3, outside the kernels' gate) keeps the generic grad; the 17
+    momentum updates run as one bucket."""
     main, startup, loss = _build(pt, True)
     scope = pt.Scope()
     exe = pt.Executor(pt.CPUPlace())
@@ -217,9 +220,10 @@ def test_a_profiled_run_is_split_by_the_executors_spans():
         exe.run(main, feed=_feeds()[0], fetch_list=[loss], scope=scope)
     names = {e.name for e in prof.events()}
     assert {"win:conv2d+batch_norm+relu", "win:conv2d+batch_norm",
-            "op:conv2d_grad", "op:batch_norm_grad", "rerun:batch_norm",
-            "op:momentum"} <= names
-    assert sum(e.name == "op:momentum" for e in prof.events()) == 17
+            "op:conv2d_grad", "op:batch_norm_grad", "rerun:conv2d",
+            "win:momentum*17", "op:fused_momentum"} <= names
+    assert "rerun:batch_norm" not in names and "op:momentum" not in names
+    assert sum(e.name == "op:fused_momentum" for e in prof.events()) == 1
 
 
 # --- optimizer ops against the JAX lowerings ----------------------------------

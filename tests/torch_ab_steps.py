@@ -11,18 +11,25 @@ batch staged on the card once; per-step run() fed by a
 DoubleBufferedFeeder over the flowers chain; run_steps(K=4) fed by a
 DoubleBufferedFeeder with window_prefetch 2 (per-step time = window time /
 4); each with one profiled step's (or window's) device busy ms per step.
+`--paths graph`: chip_smoke.py's four graphed training paths (ResNet-50
+O2 at batch 32, the LM O2 at batch 8 x T 2048, the f32 LM at batch 1, the
+ring LM at T 32768), each from one startup state on two scopes, the
+CUDA-graph step (Executor.run's default on the card) and the eager step
+(use_jit=False) in turns (graph, eager, eager, graph, ...), each with one
+profiled step's device busy ms; this tree only (an older tree has no
+graphs: its eager step is `--paths resnet` or `f32_lm` there).
 For comparing two trees in one call,
 run it once per tree, in turns (parent, change, change, parent): on a
 shared host the host clock drifts between minutes, and only runs made
 close together compare.
 
-    python tests/torch_ab_steps.py --root PATH [--paths resnet|f32_lm|feeder]
+    python tests/torch_ab_steps.py --root PATH [--paths resnet|f32_lm|feeder|graph]
         [--requests 20] [--steps 10]
 
 `--root` is the checkout whose paddle_tpu_torch/ and chip_smoke.py are
 timed (default: this one). Prints one JSON line: the root, the card, and
-per path the p50 in ms over the timed calls after one warm-up (f32_lm and
-feeder: and the busy ms).
+per path the p50 in ms over the timed calls after one warm-up (f32_lm,
+feeder and graph: and the busy ms).
 """
 
 import argparse
@@ -37,7 +44,8 @@ def main(argv=None):
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--paths", default="resnet", choices=("resnet", "f32_lm", "feeder"))
+    ap.add_argument("--paths", default="resnet",
+                    choices=("resnet", "f32_lm", "feeder", "graph"))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -55,6 +63,10 @@ def main(argv=None):
     if args.paths == "feeder":
         print(json.dumps({"root": args.root, "card": cs._card_line(),
                           **_feeder_steps(cs, pt, resnet, args.steps)}))
+        return 0
+    if args.paths == "graph":
+        print(json.dumps({"root": args.root, "card": cs._card_line(),
+                          **_graph_steps(cs, pt, resnet, args.steps)}))
         return 0
     if args.paths == "f32_lm":
         print(json.dumps({"root": args.root, "card": cs._card_line(),
@@ -124,6 +136,50 @@ def _f32_lm_steps(cs, pt, rng, steps):
                                 cs._card_line(), ("a kernel", lambda n: True))
         out[name] = {"step_p50_ms": p50, "step_ms": ms,
                      "busy_ms": prof["busy_ms"]}
+    return out
+
+
+def _graph_steps(cs, pt, resnet, steps):
+    """chip_smoke.py's graphed training paths, the graphed and the eager
+    step in turns from one startup state: {path: {mode: step p50 ms, the
+    steps' ms, one profiled step's device busy ms}}."""
+    import numpy as np
+    import torch
+    out = {}
+    card = cs._card_line()
+    for name, (main, startup, loss), feed, _, witness in \
+            cs._graph_paths(pt, resnet):
+        exe = pt.Executor()
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        init = {n: v for n, v in scope.vars.items()
+                if isinstance(v, torch.Tensor)}
+        scopes = {"graph": cs._scope_from(pt, init),
+                  "eager": cs._scope_from(pt, init)}
+        use_jit = {"graph": None, "eager": False}
+        del scope, init
+        for mode in ("graph", "graph", "eager"):   # warm-up and capture
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scopes[mode],
+                    use_jit=use_jit[mode])
+        ms = {"graph": [], "eager": []}
+        for i in range(steps):
+            for mode in (("graph", "eager") if i % 2 == 0
+                         else ("eager", "graph")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()       # ends in a device->host copy
+                exe.run(main, feed=feed, fetch_list=[loss],
+                        scope=scopes[mode], use_jit=use_jit[mode])
+                ms[mode].append((time.perf_counter() - t0) * 1e3)
+        out[name] = {}
+        for mode, vals in ms.items():
+            p50 = float(np.median(vals))
+            busy = cs._profile_step(exe, main, feed, loss, scopes[mode], p50,
+                                    card, witness,
+                                    use_jit=use_jit[mode])["busy_ms"]
+            out[name][mode] = {"step_p50_ms": p50, "step_ms": vals,
+                               "busy_ms": busy}
+        del exe, scopes
+        torch.cuda.empty_cache()
     return out
 
 
