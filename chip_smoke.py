@@ -11,9 +11,10 @@ chapters that need no sequence op; bench.py's transformer LM
 O2, trained with Adam and served through buckets (1, 2, 4, 8); and
 bench.py's long-context ring configuration of the same LM (batch 1, T
 32768, sequence_parallel over an 'sp' mesh of the one card) trained; each
-training step eager and as a CUDA graph per step signature — and holds
-every kernel of those paths against its plain PyTorch version on the
-card:
+training step eager and as a CUDA graph per step signature; ResNet-50 and
+the LM trained under AMP O3 (int8; the LM also fp8) and ResNet-50 served
+in fp8 — and holds every kernel of those paths against its plain PyTorch
+version on the card:
 
   1. device   CUDA present (else exit 2), the card's name and power limit;
   2. build    nvcc builds every CUDA kernel from paddle_tpu_torch/csrc/,
@@ -41,7 +42,7 @@ card:
               then per shape at batch 16 kernel, plain and K1-in-bf16 times
               (CUDA graph of 20 calls between events) beside the bound
               (int8 operations or bytes);
-  6. serve_q8 the calibrated model of phase 4 written by
+  6. serve_q8 (and serve_fp8) the calibrated model of phase 4 written by
               io.save_inference_model and served by ServingEngine(dir,
               quantize="int8"): quant_report of 54 weights, the 12
               requests, per bucket run K11 42 and K1 10 launches with the
@@ -52,7 +53,13 @@ card:
               windows bitwise), one request per bucket against it end to
               end, the O3-vs-O2 distance, p50 and img/s beside O2's, one
               profiled batch-16 request (K11's and the activation-quantize
-              passes' shares of the device time);
+              passes' shares of the device time); then the same model
+              served by ServingEngine(dir, quantize="fp8"): the same
+              report, per bucket run K1 52 launches and K11 none (the
+              convs count the quant gate's "mode" 42 and "kernel" 11), the
+              fc's fp8 GEMM with Q1's rows and dequantize, no filter
+              copied, one request per bucket against the CPU plain path in
+              fp8, p50 per bucket beside O2's;
   7. kernel_train  K2-K6 (conv grad input, conv grad filter, conv +
               statistics, bn apply, bn + act) against their plain versions
               at every distinct shape ResNet-50 training gives them at
@@ -177,7 +184,31 @@ card:
               the path's counts) and the memory a step needs beyond the
               scope's state; for ResNet the memory a second signature
               (batch 16) adds on the same Executor;
- 15. result   the kernel table as one JSON line, the card line, then
+ 15. kernel_q1  Q1 (the fused quantize pass and dequantize epilogue,
+              csrc/quantize.cu) in every form the O3 paths launch, at
+              their shapes: one O3 training step of ResNet-50 (batch 32)
+              and of the LM in int8 and in fp8, the serving fc at each
+              bucket in int8 and fp8, the fold's filters and admission's
+              f32 weights; per tensor, per filter, per row, per column,
+              dequantize (int32 and f32 results); each twice bitwise and
+              bitwise its plain version (the largest difference is the
+              kernel row's max_abs_err), then timed (CUDA graph of 20
+              calls between events) beside its plain version and the
+              bytes bound;
+ 16. train_q8  AMP O3 training, graphed, at full width: ResNet-50 int8 at
+              batch 32 (Momentum), the LM int8 and fp8 at batch 8 x T 2048
+              (Adam): warm-up, capture and replay bitwise the eager steps;
+              the eager steps' launches held by the wrappers (ResNet:
+              K11 42, K1 10, K2/K3 52/52, K4/K5 0, K6 53, Q1 87, filter
+              copies only K2's; LM: K7-K9 4/4/4, Q1 3 per `mul`); the quant
+              hits and fallbacks by reason; the generic grads' re-runs
+              equal to the O2 twin's; the losses finite and lower after
+              five steps; the O3 and O2 graphed steps in turns (p50, busy
+              share of one profiled replay each, the replay's launches
+              counted from its trace, the memory a step needs); a step at
+              batch 4 (ResNet) or 1 (LM) op by op against the CPU plain
+              path;
+ 17. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -196,8 +227,10 @@ tree's in the same process, in turns, as their "before".
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -275,6 +308,10 @@ TRACE_KERNELS = {
     "attn.f32_block_launches": r"\bfwd_tf32_kernel<[^>]*\bfalse>",
     "attn.f32_dq_launches": r"\bdq_tf32_kernel<",
     "attn.f32_dkv_launches": r"\bdkv_tf32_kernel<",
+    "conv.q8_launches": r"conv2d_fwd_q8_kernel<",
+    # Q1: the one kernel of each form that runs once a call
+    "q1.total": r"q8_tensor_kernel|quant_rows_kernel|quant_cols_kernel"
+                r"|dequant_kernel",
 }
 
 
@@ -283,6 +320,22 @@ def _trace_launches(events) -> dict:
     `events` (TRACE_KERNELS)."""
     import re
     return {k: sum(1 for e in events if re.search(pat, e.name))
+            for k, pat in TRACE_KERNELS.items()}
+
+
+def _raw_trace_launches(prof) -> dict:
+    """_trace_launches over the profiler's raw device records (kineto's,
+    before torch turns them into events), or {} where torch keeps none:
+    printed beside the events' counts when the two would tell a lost
+    record in the profiler's post-processing from one lost on the card."""
+    import re
+    from torch.autograd import DeviceType
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        return {}
+    names = [e.name() for e in raw.events()
+             if e.device_type() == DeviceType.CUDA]
+    return {k: sum(1 for n in names if re.search(pat, n))
             for k, pat in TRACE_KERNELS.items()}
 # the executor's profiler ranges (paddle_tpu_torch/ops/registry.py span)
 # and the activation-quantize passes' (quant.ACT_SPAN): each appears on the
@@ -1193,8 +1246,16 @@ def _hold_folds(card, cpu):
               "scale_rel": FOLD_SCALE_REL, "q8_max_step": 1}
     out = {"folds": len(pc.folds), "differ": 0, "q8_differ": 0,
            "q8_values": 0, **{k: 0 for k in bounds}}
-    for anchor, (w_c, b_c, (q_c, s_c)) in pc.folds.items():
-        w_g, b_g, (q_g, s_g) = pg.folds[anchor]
+    for anchor, (w_c, b_c, pre_c) in pc.folds.items():
+        w_g, b_g, pre_g = pg.folds[anchor]
+        if (pre_c is None) != (pre_g is None):
+            raise RuntimeError(f"the card and CPU engines quantize different "
+                               f"folded filters (op {anchor})")
+        real = pre_c is not None
+        if not real:        # below the quant gate: the bf16 filter alone
+            pre_c = pre_g = (torch.zeros(1, dtype=torch.int8),
+                             torch.ones(1))
+        (q_c, s_c), (q_g, s_g) = pre_c, pre_g
         w_g, b_g, q_g, s_g = (t.cpu() for t in (w_g, b_g, q_g, s_g))
         bn = pc.groups[anchor].bn
         st = {k: cpu._state[bn.desc.input(k)[0]].float()
@@ -1214,8 +1275,9 @@ def _hold_folds(card, cpu):
                                    f"are off the CPU engine's: {k} {v} "
                                    f"(bound {bounds[k]:.3g})")
             out[k] = max(out[k], v)
-        out["q8_differ"] += int((step > 0).sum())
-        out["q8_values"] += step.numel()
+        if real:
+            out["q8_differ"] += int((step > 0).sum())
+            out["q8_values"] += step.numel()
         out["differ"] += int(not all(torch.equal(a, b) for a, b in (
             (w_g, w_c), (b_g, b_c), (q_g, q_c), (s_g, s_c))))
     if out["q8_differ"] > FOLD_Q8_SHARE * out["q8_values"]:
@@ -1293,6 +1355,7 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
     import numpy as np
     import torch
     from paddle_tpu_torch import quant
+    from paddle_tpu_torch.ops import quant_cuda
     from paddle_tpu_torch.serving import ServingEngine
 
     build = Path(__file__).resolve().parent / "build"
@@ -1310,6 +1373,9 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
         admit_s = time.perf_counter() - t0
         cpu_engine = ServingEngine(model_dir, place=pt.CPUPlace(),
                                    quantize="int8", buckets=BUCKETS)
+        fp8 = (ServingEngine(model_dir, quantize="fp8", buckets=BUCKETS),
+               ServingEngine(model_dir, place=pt.CPUPlace(), quantize="fp8",
+                             buckets=BUCKETS))
     qr = engine.quant_report
     print(f"saved the calibrated ResNet-50 in {saved_s:.2f} s; the int8 "
           f"engine loaded and quantized it in {admit_s:.2f} s: "
@@ -1326,6 +1392,7 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
     torch.cuda.synchronize()
     conv_cuda.COUNTERS.reset()
     quant.COUNTERS.reset()
+    quant_cuda.COUNTERS.reset()
     outs, lat = [], {b: [] for b in BUCKETS}
     t_window = time.perf_counter()
     for req in requests:
@@ -1354,6 +1421,14 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
     if (counts, hits, fallbacks, conv_fallbacks) != want:
         raise RuntimeError(f"O3 routing {counts} {hits} {fallbacks} "
                            f"{conv_fallbacks}, expected {want}")
+    # Q1 per bucket run: each quantized conv's activation, the fc's rows
+    # and its product's dequantization (the weights were quantized at
+    # admission)
+    q1 = dict(quant_cuda.COUNTERS.launches)
+    if q1 != {"tensor": Q8_HITS["conv2d"] * runs, "rows": runs,
+              "dequant": runs}:
+        raise RuntimeError(f"Q1 launches {q1} over {runs} O3 bucket runs")
+    counts["q1"] = sum(q1.values())
     for req, (out, _) in zip(requests, outs):
         if out.shape != (req.shape[0], 1000) or not np.isfinite(out).all():
             raise RuntimeError(f"output {out.shape} for {req.shape}, or not "
@@ -1441,15 +1516,120 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
                           "lockstep": lockstep, "folds": folds,
                           "profile": profile, "save_s": saved_s,
                           "admit_s": admit_s}
+    counts["fp8"] = _serve_fp8(conv_cuda, fp8, qr, served, report)
     return counts
+
+
+# fp8 serving of the same saved model: the fc runs its fp8 GEMM (its
+# weight admitted in e4m3, its activation rows quantized per request by
+# Q1), every eligible conv K1 with its folded bf16 filter, the quant gate
+# counting "mode" for the 42 convs it takes in int8 and "kernel" for the
+# eleven below its 128-channel rule (the reference's routing,
+# quant.py:180, :482); the report names the same 54 weights (filters in
+# int8 whatever the mode).
+FP8_LAUNCHES = {"launches": 52, "q8_launches": 0}
+FP8_HITS = {"mul": 1}
+FP8_FALLBACKS = {("conv2d", "mode"): 42, ("conv2d", "kernel"): 11}
+# The served fp8 answer against the CPU plain path in fp8 on the same
+# weights, end to end (_compare): the convs are O2's bf16 route (K1 vs the
+# plain conv: bf16 roundings of f32 sums in another order), then one e4m3
+# quantization of the fc's 2048 inputs, where a flipped bf16 value that
+# crosses an e4m3 rounding step moves by a whole step (1/8 to 1/16 of the
+# value), and the fp8 GEMM's partial sums (2^-12 of sum |x y|). The bound
+# is the int8 path's.
+FP8_LOGIT_RTOL = Q8_LOGIT_RTOL
+
+
+def _serve_fp8(conv_cuda, engines, int8_report, served, report):
+    """ServingEngine(dir, quantize="fp8") through the 12 requests: the
+    report, the routing per bucket run (FP8_*), no filter copied, the
+    outputs finite softmax rows, a repeated request bitwise, one request
+    per bucket against the CPU plain path in fp8 (FP8_LOGIT_RTOL), the
+    distance from O2, p50 per bucket beside O2's."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.ops import quant_cuda
+    engine, cpu_engine = engines
+    qr = engine.quant_report
+    if qr != int8_report or cpu_engine.quant_report != qr or \
+            any(f[2] is not None for f in engine._prepared.folds.values()):
+        raise RuntimeError(f"fp8 quant_report {qr} (int8's {int8_report}), "
+                           f"or a fold kept int8 values")
+    requests = served["requests"]
+    for b in BUCKETS:
+        engine.infer({"img": requests[0][:1].repeat(b, axis=0)})
+    torch.cuda.synchronize()
+    conv_cuda.COUNTERS.reset()
+    quant.COUNTERS.reset()
+    quant_cuda.COUNTERS.reset()
+    outs, lat = [], {b: [] for b in BUCKETS}
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(engine.infer({"img": req}))
+        lat[engine.bucket_for(req.shape[0])].append(time.perf_counter() - t0)
+    runs = len(requests)
+    counts = {"launches": conv_cuda.COUNTERS.launches,
+              "q8_launches": conv_cuda.COUNTERS.q8_launches}
+    hits, fallbacks = dict(quant.COUNTERS.hits), dict(quant.COUNTERS.fallbacks)
+    q1 = dict(quant_cuda.COUNTERS.launches)
+    copies = conv_cuda.COUNTERS.filter_copies
+    print(f"fp8 over {runs} bucket runs: K1 launches {counts['launches']}, "
+          f"K11 {counts['q8_launches']}; quant hits {hits}, fallbacks "
+          f"{fallbacks}; Q1 launches {q1}; filters copied {copies}",
+          flush=True)
+    want = ({k: v * runs for k, v in FP8_LAUNCHES.items()},
+            {k: v * runs for k, v in FP8_HITS.items()},
+            {k: v * runs for k, v in FP8_FALLBACKS.items()},
+            {"rows": runs, "dequant": runs})
+    if (counts, hits, fallbacks, q1) != want or copies:
+        raise RuntimeError(f"fp8 routing {counts} {hits} {fallbacks} {q1}, "
+                           f"{copies} filters copied; expected {want}")
+    for req, (out, _) in zip(requests, outs):
+        sums = out.astype(np.float64).sum(axis=1)
+        if out.shape != (req.shape[0], 1000) or not np.isfinite(out).all() \
+                or np.abs(sums - 1.0).max() > 2e-2:
+            raise RuntimeError(f"fp8 output {out.shape} for {req.shape}, "
+                               f"not finite or not softmax rows")
+    again = engine.infer({"img": requests[0]})
+    if not all(np.array_equal(a, b) for a, b in zip(again, outs[0])):
+        raise RuntimeError("fp8: a repeated request gave a different answer")
+    agreement, failures = [], []
+    for i in COMPARED:
+        result, failed = _compare(cpu_engine.infer({"img": requests[i]}),
+                                  outs[i], "the CPU plain path in fp8",
+                                  FP8_LOGIT_RTOL, served="fp8")
+        agreement.append(result)
+        failures += failed
+    if failures:
+        raise RuntimeError("the fp8 answer disagrees with the CPU plain "
+                           "path: " + "; ".join(failures))
+    vs_o2 = max(float((np.abs(lq.astype(np.float64) - l2).max(axis=1)
+                       / np.abs(l2).max(axis=1)).max())
+                for (_, lq), (_, l2) in zip(outs, served["outs"]))
+    card = _card_line()
+    p50 = {b: float(np.median(v)) * 1e3 for b, v in lat.items() if v}
+    print(f"fp8 vs O2 on the card: logits at most {vs_o2:.3g} of the row's "
+          f"largest |logit| apart; fp8 p50 per bucket (ms, host clock, "
+          f"{card}): " + ", ".join(
+              f"bucket {b}: {v:.2f} (O2 {served['p50_ms'][b]:.2f})"
+              for b, v in p50.items()), flush=True)
+    report["serve_fp8"] = {"card": card, "p50_ms": p50, "latencies_s": lat,
+                           "launches": counts, "hits": hits,
+                           "fallbacks": {f"{k[0]}:{k[1]}": v
+                                         for k, v in fallbacks.items()},
+                           "q1_launches": q1, "agreement": agreement,
+                           "vs_o2_logit_rel_diff": vs_o2}
+    return {"launches": counts["launches"], "q1": sum(q1.values())}
 
 
 # --- training: the kernels K2-K6 ------------------------------------------------
 
-def _resnet50_train(pt, resnet, amp=True, class_dim=1000):
+def _resnet50_train(pt, resnet, amp=True, class_dim=1000, level="O2"):
     """bench.py's `resnet` training mode through the port's fluid API:
     build_image_classifier (softmax cross entropy, mean, accuracy), Momentum
-    0.9 at TRAIN_LR, amp.decorate(level="O2")."""
+    0.9 at TRAIN_LR, amp.decorate(level=`level`) (O3: in the mode
+    PADDLE_TPU_QUANT_MODE names, int8 by default)."""
     main, startup = pt.Program(), pt.Program()
     with pt.unique_name.guard(), pt.program_guard(main, startup):
         img = pt.layers.data(name="img", shape=[3, 224, 224], dtype="float32")
@@ -1458,7 +1638,7 @@ def _resnet50_train(pt, resnet, amp=True, class_dim=1000):
             resnet.resnet50, img, label, class_dim=class_dim)
         opt = pt.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9)
         if amp:
-            opt = pt.amp.decorate(opt, level="O2")
+            opt = pt.amp.decorate(opt, level=level)
         opt.minimize(avg_cost)
     main.random_seed = startup.random_seed = SEED + 1
     return main, startup, avg_cost
@@ -1771,8 +1951,11 @@ def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
                  if launches[k] != v}
         if any(witness[1](e.name) for e in events) and not short:
             break
+        raw = _raw_trace_launches(prof)
         print(f"profile attempt {attempt}: no {witness[0]} launch in the "
-              f"trace, or launches (traced, expected) {short}", flush=True)
+              f"trace, or launches (traced, expected) {short}; in the raw "
+              f"records { {k: raw.get(k) for k in short} } of "
+              f"{len(events)} events", flush=True)
     else:
         raise RuntimeError(f"the profiler saw no {witness[0]} launch in a "
                            f"training step, or launches other than "
@@ -3347,10 +3530,11 @@ def phase_kernel_ring(attention_cuda, ring, report, parent=None):
 # --- the transformer LM: training and serving -----------------------------------
 
 def _transformer(pt, amp=True, is_test=False, use_flash="auto", cfg=None,
-                 seqlen=None, sequence_parallel=False):
+                 seqlen=None, sequence_parallel=False, level="O2"):
     """bench.py's `transformer` model (`cfg`, LM by default; T `seqlen`,
     cfg's by default) through the port's fluid API: the training program
-    (Adam, amp.decorate O2) or, with is_test, the served one (logits
+    (Adam, amp.decorate at `level`, O2 by default; O3 in the mode
+    PADDLE_TPU_QUANT_MODE names) or, with is_test, the served one (logits
     returned, amp.enable O2). The same variable names. With
     sequence_parallel its attention is the ring over a one-rank 'sp' mesh
     (bench.py's `ring_attention` mode)."""
@@ -3373,7 +3557,7 @@ def _transformer(pt, amp=True, is_test=False, use_flash="auto", cfg=None,
         else:
             opt = pt.optimizer.Adam(learning_rate=cfg["lr"])
             if amp:
-                opt = pt.amp.decorate(opt, level="O2")
+                opt = pt.amp.decorate(opt, level=level)
             opt.minimize(loss, startup_program=startup)
     if sequence_parallel:
         main._mesh = pt.parallel.make_mesh((1,), ("sp",))
@@ -3817,15 +4001,17 @@ GRAPH_SECOND_BATCH = 16             # ResNet's second signature
 # every kernel counter a training step can move: launches and copies
 GRAPH_COUNTERS = (
     ("conv", ("dgrad_launches", "wgrad_launches", "stats_launches",
-              "launches", "filter_copies")),
+              "launches", "q8_launches", "filter_copies")),
     ("bn", ("apply_launches", "act_launches")),
     ("attn", ("launches", "dq_launches", "dkv_launches", "block_launches")
-     + F32_COUNTERS))
+     + F32_COUNTERS),
+    ("q1", ("total",)))
 
 
 def _graph_counts(conv_cuda, bn_cuda, attention_cuda):
+    from paddle_tpu_torch.ops import quant_cuda
     tables = {"conv": conv_cuda.COUNTERS, "bn": bn_cuda.COUNTERS,
-              "attn": attention_cuda.COUNTERS}
+              "attn": attention_cuda.COUNTERS, "q1": quant_cuda.COUNTERS}
     return {f"{t}.{k}": getattr(tables[t], k) for t, keys in GRAPH_COUNTERS
             for k in keys}
 
@@ -4058,6 +4244,449 @@ def phase_train_graph(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
     return graphed_launches
 
 
+# --- AMP O3 training (phases kernel_q1 and train_q8) ----------------------------
+
+Q1_SOURCE = "paddle_tpu_torch/csrc/quantize.cu"
+Q1_REPLACES = ("the port's own: replaces XLA-fused jnp in "
+               "paddle_tpu/quant.py:286-298, :374-376")
+# the O3 training paths: ResNet-50 at batch 32 (int8) and the LM at batch 8
+# x T 2048 (int8, then fp8), each with its O2 twin. ResNet-50's quant
+# routing is its serving routing (Q8_HITS, Q8_FALLBACKS: K11 the 42 convs
+# of 128-multiple channels, K1 the ten 64-channel convs, F.conv2d the stem,
+# the fc an int8 GEMM); every `mul` of the LM quantizes (K 512 or 2048).
+Q3_STEPS = 5                        # the losses fall over five steps
+Q3_TURNS = 8                        # O3 and O2 graphed steps in turns
+
+
+@contextlib.contextmanager
+def _quant_mode(mode):
+    """PADDLE_TPU_QUANT_MODE set to `mode` while a program is built (the
+    switch amp.enable reads)."""
+    old = os.environ.get("PADDLE_TPU_QUANT_MODE")
+    os.environ["PADDLE_TPU_QUANT_MODE"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PADDLE_TPU_QUANT_MODE"]
+        else:
+            os.environ["PADDLE_TPU_QUANT_MODE"] = old
+
+
+def _mul_count(program) -> int:
+    return sum(op.type == "mul" for op in program.global_block().ops)
+
+
+def _bn_windows(program) -> int:
+    """The training batch norms of a program's windows: K6's launches per
+    step under O3, where every conv window runs its ladder."""
+    from paddle_tpu_torch.ops import fusion
+    return sum(1 for g in (fusion.plan(program) or {}).values()
+               if g.bn is not None and not g.bn.attr("is_test", False))
+
+
+def _q3_paths(pt, resnet, names=("resnet50_o3", "lm_o3_int8", "lm_o3_fp8")):
+    """(name, O3 (main, startup, loss), O2 twin (main, startup, loss), feed,
+    small feed for the lockstep, wrapper launches per eager step, quant
+    hits and fallbacks per step, profile witness) of the O3 training
+    paths."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 4)
+    r_feed = {"img": rng.standard_normal((TRAIN_BATCH, 3, 224, 224)).astype(np.float32),
+              "label": rng.integers(0, 1000, (TRAIN_BATCH, 1)).astype(np.int64)}
+    rng = np.random.default_rng(SEED)
+    B, T, V = LM["batch"], LM["seqlen"], LM["vocab"]
+    lm_feed = {"tok": rng.integers(0, V, (B, T)).astype(np.int64),
+               "lab": rng.integers(0, V, (B, T)).astype(np.int64)}
+    if "resnet50_o3" in names:
+        with _quant_mode("int8"):
+            o3 = _resnet50_train(pt, resnet, level="O3")
+        hits = Q8_HITS
+        want = {"conv.q8_launches": hits["conv2d"],
+                "conv.launches": Q8_LAUNCHES["launches"],
+                "conv.dgrad_launches": TRAIN_LAUNCHES["dgrad_launches"],
+                "conv.wgrad_launches": TRAIN_LAUNCHES["wgrad_launches"],
+                "conv.stats_launches": 0, "bn.apply_launches": 0,
+                "bn.act_launches": _bn_windows(o3[0]),
+                "q1.total": 2 * hits["conv2d"] + 3 * hits["mul"]}
+        small = {k: v[:SMALL_BATCH] for k, v in r_feed.items()}
+        yield ("resnet50_o3", o3, _resnet50_train(pt, resnet), r_feed, small,
+               want, (hits, Q8_FALLBACKS),
+               ("K11", lambda name: K11_KERNEL in name))
+    n = LM["n_layer"]
+    for mode in ("int8", "fp8"):
+        if f"lm_o3_{mode}" not in names:
+            continue
+        with _quant_mode(mode):
+            o3 = _transformer(pt, level="O3")[:3]
+        muls = _mul_count(o3[0])
+        want = {"attn.launches": n, "attn.dq_launches": n,
+                "attn.dkv_launches": n, "q1.total": 3 * muls}
+        small = {k: v[:LM_SMALL_BATCH] for k, v in lm_feed.items()}
+        yield (f"lm_o3_{mode}", o3, _transformer(pt)[:3], lm_feed, small,
+               want, ({"mul": muls}, {}),
+               ("Q1", lambda name: "quant_rows_kernel" in name))
+
+
+def _q1_cases(pt, conv_cuda, resnet):
+    """Every Q1 form the smoke's O3 paths launch, at their shapes:
+    {path: {(form, shape, input dtype, mode, channels_last): calls}}, the
+    calls counted per training step (resnet50_o3 at batch 32, lm_o3_int8
+    and lm_o3_fp8), per bucket run (serve_q8, serve_fp8: the fc's rows and
+    dequantize at each bucket; their conv activations take the training
+    path's tensor form), per fold of the int8 engine (serve_q8_fold: the
+    folded bf16 filters, in channels_last memory) and per admission
+    (admission: every filter and the fc's Y from the f32 scope, the fc in
+    int8 and in fp8). Forms: tensor (conv activation), filter (conv
+    filter; the training step's is the bf16 cast of an OIHW weight), rows
+    (`mul` activation), cols (`mul` Y), dequant ([M, N] GEMM result:
+    int32 in int8, f32 in fp8)."""
+    import torch
+    from paddle_tpu_torch import quant
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = _resnet50_train(pt, resnet, level="O3")[0]
+    train, fold = {}, {}
+    for xs, ws, *_ in _eligible_convs(conv_cuda, main, TRAIN_BATCH, quant):
+        for calls, key in ((train, ("tensor", xs, bf16, "int8", False)),
+                           (train, ("filter", ws, bf16, "int8", False)),
+                           (fold, ("filter", ws, bf16, "int8", True))):
+            calls[key] = calls.get(key, 0) + 1
+    fc = ((TRAIN_BATCH, 2048), (2048, 1000), (TRAIN_BATCH, 1000))
+    for form, shape in zip(("rows", "cols", "dequant"), fc):
+        train[(form, shape, bf16, "int8", False)] = 1
+    block, admission = main.global_block(), {}
+    for op in block.ops:
+        if op.type == "conv2d":
+            ws = tuple(block.desc.var(op.input("Filter")[0]).shape)
+            key = ("filter", ws, f32, "int8", False)
+            admission[key] = admission.get(key, 0) + 1
+    for mode in ("int8", "fp8"):
+        admission[("cols", (2048, 1000), f32, mode, False)] = 1
+    paths = {"resnet50_o3": train, "serve_q8_fold": fold,
+             "admission": admission}
+    block = _transformer(pt, level="O3")[0].global_block()
+    m = LM["batch"] * LM["seqlen"]
+    for mode, serve in (("int8", "serve_q8"), ("fp8", "serve_fp8")):
+        calls = paths.setdefault(f"lm_o3_{mode}", {})
+        for op in block.ops:
+            if op.type == "mul":
+                k, n = block.desc.var(op.input("Y")[0]).shape
+                for key in (("rows", (m, k), bf16, mode, False),
+                            ("cols", (k, n), bf16, mode, False),
+                            ("dequant", (m, n), bf16, mode, False)):
+                    calls[key] = calls.get(key, 0) + 1
+        paths[serve] = {(form, (b, n), bf16, mode, False): 1
+                        for b in BUCKETS
+                        for form, n in (("rows", 2048), ("dequant", 1000))}
+    return paths
+
+
+def _gemm_result(m, n, mode, gen):
+    """A [M, N] GEMM result as quant.int_matmul (int32; M padded to at
+    least 32 rows and a multiple of 8, N to a multiple of 8) or
+    quant.fp8_matmul (f32; M and N padded to multiples of 16) leaves it:
+    a slice of the padded product, which the dequantize reads in place."""
+    import torch
+    dev = torch.device("cuda", 0)
+    if mode == "int8":
+        full = torch.randint(-2 ** 20, 2 ** 20,
+                             (max(32, -(-m // 8) * 8), -(-n // 8) * 8),
+                             device=dev, generator=gen, dtype=torch.int32)
+    else:
+        full = torch.randn((-(-m // 16) * 16, -(-n // 16) * 16), device=dev,
+                           generator=gen) * 1e3
+    return full[:m, :n]
+
+
+def phase_kernel_q1(pt, conv_cuda, resnet, report):
+    """Q1 (the fused quantize pass) in every form the O3 paths launch, at
+    their shapes (`_q1_cases`: int8 and fp8, bf16 and f32 input, the int32
+    and the f32 dequantize): each twice bitwise and bitwise its plain
+    version on the same CUDA tensor (quant.quantize_tensor,
+    quant.quantize_channelwise(x, axis, mode): the q bytes and the
+    scales; the dequantized product), the largest |kernel - plain| over
+    the values (e4m3 widened to f32) and the scales kept as the row's
+    max_abs_err, then timed (CUDA graph of 20 calls between events)
+    beside its plain version and the bound (bytes: x read once, q and
+    the scales written once; dequant: the GEMM result read once, the bf16
+    product written once)."""
+    import torch
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.ops import quant_cuda
+    card = _card_line()
+    dev = torch.device("cuda", 0)
+    forms = {"tensor": (lambda x, mode: quant_cuda.quantize_tensor(x),
+                        lambda x, mode: quant.quantize_tensor(x)),
+             "filter": (quant_cuda.quantize_filter,
+                        lambda w, mode: quant.quantize_channelwise(w, 0,
+                                                                   mode)),
+             "rows": (quant_cuda.quantize_rows,
+                      lambda x, mode: quant.quantize_channelwise(x, 0, mode)),
+             "cols": (quant_cuda.quantize_cols,
+                      lambda y, mode: quant.quantize_channelwise(y, 1, mode))}
+
+    def bits(t):
+        t = t.contiguous()
+        return t.view(torch.uint8) if t.element_size() == 1 else t
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    rows, totals, worst = [], {}, 0.0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for path, calls in _q1_cases(pt, conv_cuda, resnet).items():
+        tot = totals.setdefault(path, {"ms": 0.0, "plain_ms": 0.0,
+                                       "bound_ms": 0.0, "calls": 0})
+        for (form, shape, dtype, mode, cl), n in sorted(
+                calls.items(), key=lambda kv: str(kv[0])):
+            dt = str(dtype).removeprefix("torch.")
+            name = (f"Q1 {path} {form} {shape} {dt} {mode}"
+                    f"{' channels_last' if cl else ''}")
+            if form == "dequant":
+                x = _gemm_result(*shape, mode, gen)
+                sx = torch.rand((shape[0], 1), device=dev, generator=gen) * 1e-3
+                sy = torch.rand((1, shape[1]), device=dev, generator=gen) * 1e-3
+                kern = lambda a: quant_cuda.dequantize(  # noqa: E731
+                    a, sx, sy, torch.bfloat16)
+                plain = lambda a: (a.float() * (sx * sy)).to(  # noqa: E731
+                    torch.bfloat16)
+                got, again, want = kern(x), kern(x), plain(x)
+                pairs = [(got, again, want)]
+                nbytes = x.numel() * (x.element_size() + 2) + \
+                    (shape[0] + shape[1]) * 4
+            else:
+                x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                if cl:
+                    x = x.contiguous(memory_format=torch.channels_last)
+                k_fn, p_fn = forms[form]
+                kern = lambda a, f=k_fn, md=mode: f(a, md)  # noqa: E731
+                plain = lambda a, f=p_fn, md=mode: f(a, md)  # noqa: E731
+                got, again, want = kern(x), kern(x), plain(x)
+                pairs = list(zip(got, again, want))
+                nbytes = x.numel() * (x.element_size() + 1) + \
+                    got[1].numel() * 4
+            for a, b, w in pairs:
+                if not torch.equal(bits(a), bits(b)):
+                    raise RuntimeError(f"{name}: a repeated call gave "
+                                       f"different bits")
+                if not torch.equal(bits(a), bits(w)):
+                    raise RuntimeError(f"{name}: not bitwise its plain "
+                                       f"version (max |kernel - plain| "
+                                       f"{diff(a, w)})")
+                worst = max(worst, diff(a, w))
+            del got, again, want, pairs
+            ms = _device_ms(lambda: kern(x))
+            plain_ms = _device_ms(lambda: plain(x))
+            bound = nbytes / PEAK_BYTES * 1e3
+            rows.append({"path": path, "form": form, "shape": shape,
+                         "dtype": dt, "mode": mode, "channels_last": cl,
+                         "calls": n, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bytes": nbytes,
+                         "share_of_bound": bound / ms})
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound)):
+                tot[k] += v * n
+            tot["calls"] += n
+            print(f"{name} x{n}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({bound / ms:.0%} of it)", flush=True)
+            del x
+    torch.cuda.empty_cache()
+    for path, t in totals.items():
+        print(f"Q1 per {path}: {t['calls']} calls, {t['ms']:.3f} ms, "
+              f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+              f"({t['bound_ms'] / t['ms']:.0%}; {card})", flush=True)
+    print(f"Q1: {len(rows)} cases (path, form, shape, dtype, mode) bitwise "
+          f"their plain versions, max |kernel - plain| {worst}", flush=True)
+    report["kernel_q1"] = {"card": card, "shapes": rows, "per_path": totals,
+                           "max_abs_err": worst}
+    r = totals["resnet50_o3"]
+    return {"name": "quantize", "route": "cuda", "source": Q1_SOURCE,
+            "replaces": Q1_REPLACES, "max_abs_err": worst, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "per": f"one batch-{TRAIN_BATCH} ResNet-50 O3 training step, "
+                   f"{r['calls']} calls",
+            "lm_o3_step": totals["lm_o3_int8"],
+            "lm_o3_fp8_step": totals["lm_o3_fp8"]}
+
+
+def _reruns(exe, main, feed, loss, scope):
+    """The generic grads' forward re-runs, by op type, of one eager step."""
+    from paddle_tpu_torch.ops import registry
+    before = dict(registry.RERUNS)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope, use_jit=False)
+    return {k: v - before.get(k, 0) for k, v in registry.RERUNS.items()
+            if v - before.get(k, 0)}
+
+
+def phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
+    """AMP O3 training, graphed, at full width: ResNet-50 in int8 and the LM
+    in int8 and fp8. Per path, from one startup state on three scopes: the
+    warm-up, capture and first replay bitwise the eager steps (losses and
+    every scope tensor), the launches of each eager step held to the
+    path's counts by the wrappers (K11, K1, K2, K3, K4/K5 none, K6 on
+    every window, Q1, K7-K9), K11 copying no filter, the quant hits and
+    fallbacks by reason, the generic grads' re-runs equal to the O2 twin's
+    (no quantized forward re-runs); two more graphed steps and the losses
+    finite and lower after five; the O3 and O2 graphed steps in turns
+    (p50), one profiled replay of each (busy share; the O3 replay's
+    launches counted from its trace), the memory a step needs beyond the
+    state; a step at the small batch op by op against the CPU plain path
+    (_lockstep). Returns {path: wrapper launches of its run}."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch import quant
+    card = _card_line()
+    counts = lambda: _graph_counts(conv_cuda, bn_cuda, attention_cuda)  # noqa: E731
+    out, launched = {}, {}
+    for (name, (main, startup, loss), (main2, _, loss2), feed, small, want,
+         (hits_want, fb_want), witness) in _q3_paths(pt, resnet):
+        exe, exe2 = pt.Executor(), pt.Executor()
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        init = {n: v for n, v in scope.vars.items()
+                if isinstance(v, torch.Tensor)}
+        sg, se, s2 = (_scope_from(pt, init) for _ in range(3))
+        del scope
+        E.COUNTERS.reset()
+        quant.COUNTERS.reset()
+        c_start = counts()
+        reserved0 = _settled_reserved()
+        losses, per_step = [], None
+        for i in range(GRAPH_BITWISE_STEPS):
+            a = exe.run(main, feed=feed, fetch_list=[loss], scope=sg)[0]
+            c0, h0 = counts(), (dict(quant.COUNTERS.hits),
+                                dict(quant.COUNTERS.fallbacks))
+            b = exe.run(main, feed=feed, fetch_list=[loss], scope=se,
+                        use_jit=False)[0]
+            step = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+            hits = {k: v - h0[0].get(k, 0) for k, v in quant.COUNTERS.hits.items()
+                    if v - h0[0].get(k, 0)}
+            fbs = {k: v - h0[1].get(k, 0)
+                   for k, v in quant.COUNTERS.fallbacks.items()
+                   if v - h0[1].get(k, 0)}
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"train_q8 {name}: step {i} graphed loss "
+                                   f"{a} != eager {b}")
+            if per_step is not None and step != per_step:
+                raise RuntimeError(f"train_q8 {name}: eager steps launched "
+                                   f"{per_step}, then {step}")
+            per_step = step
+            losses.append(float(a[0]))
+        pool_gb = (_settled_reserved() - reserved0) / 1e9
+        run_launches = {k: v - c_start[k] for k, v in counts().items()
+                        if v - c_start[k]}
+        diverged = _bitwise_scopes(sg, se)
+        if diverged:
+            raise RuntimeError(f"train_q8 {name}: graphed and eager scopes "
+                               f"differ: {diverged[:8]}")
+        if (E.COUNTERS.warmups, E.COUNTERS.captures) != (1, 1) or \
+                E.COUNTERS.eager != {"use_jit": GRAPH_BITWISE_STEPS}:
+            raise RuntimeError(f"train_q8 {name}: {E.COUNTERS}")
+        held = {k: per_step.get(k, 0) for k in want}
+        copies = per_step.get("conv.filter_copies", 0)
+        if held != want or copies != per_step.get("conv.dgrad_launches", 0):
+            raise RuntimeError(f"train_q8 {name}: launches per eager step "
+                               f"{per_step}, expected {want} and one filter "
+                               f"copy per K2 launch (K11 copies none)")
+        if hits != hits_want or fbs != fb_want:
+            raise RuntimeError(f"train_q8 {name}: quant hits {hits}, "
+                               f"fallbacks {fbs}; expected {hits_want}, "
+                               f"{fb_want}")
+        reruns = _reruns(exe, main, feed, loss, _scope_from(pt, init))
+        reruns2 = _reruns(exe2, main2, feed, loss2, _scope_from(pt, init))
+        if reruns != reruns2:
+            raise RuntimeError(f"train_q8 {name}: generic-grad re-runs "
+                               f"{reruns}, its O2 twin's {reruns2}")
+        for _ in range(Q3_STEPS - GRAPH_BITWISE_STEPS):
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=sg)[0][0]))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"train_q8 {name}: losses {losses} not finite "
+                               f"and lower after {Q3_STEPS} steps")
+        # the O3 and O2 graphed steps in turns, from the same state
+        s3 = _scope_from(pt, init)
+        E.COUNTERS.reset()
+        before2 = _settled_reserved()
+        for _ in range(2):
+            exe2.run(main2, feed=feed, fetch_list=[loss2], scope=s2)
+        pool2_gb = (_settled_reserved() - before2) / 1e9
+        ms = {"o3": [], "o2": []}
+        runs = {"o3": (exe, main, loss, s3), "o2": (exe2, main2, loss2, s2)}
+        for i in range(Q3_TURNS):
+            for m in (("o3", "o2") if i % 2 == 0 else ("o2", "o3")):
+                x, prog, lss, sc = runs[m]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()       # ends in a device->host copy
+                x.run(prog, feed=feed, fetch_list=[lss], scope=sc)
+                ms[m].append((time.perf_counter() - t0) * 1e3)
+        if E.COUNTERS.replays != 2 * Q3_TURNS + 1 or E.COUNTERS.eager:
+            raise RuntimeError(f"train_q8 {name}: a timed step did not "
+                               f"replay: {E.COUNTERS}")
+        p50 = {m: float(np.median(v)) for m, v in ms.items()}
+        peak = {}
+        for m, (x, prog, lss, sc) in runs.items():
+            _settled_reserved()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            x.run(prog, feed=feed, fetch_list=[lss], scope=sc)
+            torch.cuda.synchronize()
+            peak[m] = (torch.cuda.max_memory_allocated() - before) / 1e9
+        peak["o3"] += pool_gb
+        peak["o2"] += pool2_gb
+        traced = {k: v for k, v in want.items() if k in TRACE_KERNELS}
+        if "conv.launches" in want:     # K1 and K2 are one kernel
+            traced["conv.dgrad_launches"] += want["conv.launches"]
+        prof = {"o3": _profile_step(exe, main, feed, loss, s3, p50["o3"],
+                                    card, witness, expect=traced),
+                "o2": _profile_step(exe2, main2, feed, loss2, s2, p50["o2"],
+                                    card, ("a kernel", lambda n: True))}
+        t0 = time.perf_counter()
+        worst = _lockstep(pt, main, loss, init, small)
+        top = sorted(worst.items(), key=lambda kv: -kv[1])
+        lock_s = time.perf_counter() - t0
+        print(f"train_q8 {name}: graphed step bitwise the eager step "
+              f"({GRAPH_BITWISE_STEPS} steps); losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}; launches per eager "
+              f"step {per_step}; quant hits {hits}, fallbacks {fbs}; "
+              f"generic-grad re-runs per step {reruns} (O2's {reruns2}); "
+              f"a replay's traced launches "
+              f"{ {k: prof['o3']['launches'][k] for k in traced} } ({card})",
+              flush=True)
+        print(f"train_q8 {name}: O3 vs O2 graphed in turns: step p50 "
+              f"{p50['o3']:.2f} ms vs {p50['o2']:.2f} ms "
+              f"({p50['o3'] / p50['o2']:.3f}x); busy {prof['o3']['busy_ms']:.2f} "
+              f"ms ({prof['o3']['busy_share']:.1%}) vs "
+              f"{prof['o2']['busy_ms']:.2f} ms ({prof['o2']['busy_share']:.1%}); "
+              f"memory a step needs beyond the state (graph pool included) "
+              f"{peak['o3']:.2f} GB vs {peak['o2']:.2f} GB; lockstep at the "
+              f"small batch ({lock_s:.1f} s), worst relative L2 "
+              + ", ".join(f"{k} {v:.3g}" for k, v in top[:6])
+              + f" (tol {LOCKSTEP_BF16} bf16, {LOCKSTEP_F32} f32; {card})",
+              flush=True)
+        print(f"train_q8 {name} steps (ms): O3 "
+              f"{', '.join(f'{t:.2f}' for t in ms['o3'])}; O2 "
+              f"{', '.join(f'{t:.2f}' for t in ms['o2'])}", flush=True)
+        out[name] = {"losses": losses, "launches_per_step": per_step,
+                     "hits": hits, "fallbacks": {f"{k[0]}:{k[1]}": v
+                                                 for k, v in fbs.items()},
+                     "reruns_per_step": reruns, "p50_ms": p50,
+                     "step_ms": ms, "step_memory_gb": peak,
+                     "busy_ms": {m: prof[m]["busy_ms"] for m in prof},
+                     "busy_share": {m: prof[m]["busy_share"] for m in prof},
+                     "replay_traced_launches": {
+                         k: prof["o3"]["launches"][k] for k in traced},
+                     "by_kernel_o3": prof["o3"]["by_kernel"],
+                     "lockstep_worst_rl2": worst}
+        launched[name] = run_launches
+        del exe, exe2, sg, se, s2, s3, main, main2, init
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    report["train_q8"] = {"card": card, "paths": out}
+    return launched
+
+
 def ptxas_report(build_log: dict) -> dict:
     """Print ptxas's registers, spills and serialized-wgmma warnings for every
     kernel of every library in `build_log` (cuda_build.BUILD_LOG: name ->
@@ -4147,11 +4776,27 @@ def main(argv=None) -> int:
     ring_launches = phase_train_ring(pt, attention_cuda, report)
     graph_launches = phase_train_graph(pt, conv_cuda, bn_cuda, attention_cuda,
                                        resnet, report)
+    q1 = phase_kernel_q1(pt, conv_cuda, resnet, report)
+    q3 = phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet,
+                        report)
+    r3 = q3["resnet50_o3"]
+    k1["launches_by_path"].update({"serve_fp8": q8["fp8"]["launches"],
+                                   "train_q8": r3.get("conv.launches", 0)})
+    k1["launches"] = sum(k1["launches_by_path"].values())
+    k11["launches_by_path"] = {"serve_q8": q8["q8_launches"],
+                               "train_q8": r3.get("conv.q8_launches", 0)}
+    k11["launches"] = sum(k11["launches_by_path"].values())
+    q1["launches_by_path"] = {
+        "serve_q8": q8["q1"], "serve_fp8": q8["fp8"]["q1"],
+        **{f"train_q8.{p}": c.get("q1.total", 0) for p, c in q3.items()}}
+    q1["launches"] = sum(q1["launches_by_path"].values())
     for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
                                       "stats_launches", "apply_launches",
                                       "act_launches")):
         table = "bn." if key in ("apply_launches", "act_launches") else "conv."
         k["launches_by_path"]["train_graph"] = graph_launches[table + key]
+        if r3.get(table + key):
+            k["launches_by_path"]["train_q8"] = r3[table + key]
         k["launches"] = sum(k["launches_by_path"].values())
     counter = {"flash_attn_fwd": "launches", "flash_attn_bwd_dq": "dq_launches",
                "flash_attn_bwd_dkv": "dkv_launches",
@@ -4161,7 +4806,9 @@ def main(argv=None) -> int:
         key = ("f32_" if f32 else "") + counter[k["name"].removesuffix("_f32")]
         by_path = {"train_lm": lm_launches.get(key, 0),
                    "train_ring": ring_launches.get(key, 0),
-                   "train_graph": graph_launches.get("attn." + key, 0)}
+                   "train_graph": graph_launches.get("attn." + key, 0),
+                   "train_q8": sum(c.get("attn." + key, 0)
+                                   for c in q3.values())}
         if key == "launches":
             by_path["serve_lm"] = serve_launches
         by_path = {p: n for p, n in by_path.items() if n}
@@ -4170,7 +4817,7 @@ def main(argv=None) -> int:
         if not k["launches"]:
             raise RuntimeError(f"{k['name']} was launched no time on its path")
     kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
-               + [k11]}
+               + [k11, q1]}
     report.update(kernels)
     if args.report:
         with open(args.report, "w") as f:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import quant
 from .framework.framework import Program, Variable, default_main_program
 from .ops import fusion as fusion_mod
 from .ops import registry
@@ -443,7 +444,9 @@ class Executor:
     step whose block the gate admits (`graph_gate`) runs as a CUDA graph,
     one per signature (the reference's jit cache key, executor.py:1183:
     program and version, feed names, shapes and dtypes, fetch names, state
-    names, shapes and dtypes, AMP dtype and level, quant mode, seed): the
+    names, shapes and dtypes, AMP dtype and level, the quant routing as
+    `quant.cache_token` reads it now (mode, PADDLE_TPU_QUANT,
+    PADDLE_TPU_QUANT_TOL; executor.py:1192), seed): the
     signature's first run is eager and warms up (Triton compiles, K6's
     barrier is zeroed, cuBLAS sets up its workspace), the second captures
     the step and replays it, later runs replay. The state lives in static
@@ -688,8 +691,7 @@ class Executor:
                    tuple(v.dtype for v in state.values()),
                    getattr(program, "_amp_dtype", None),
                    getattr(program, "_amp_level", "O1"),
-                   getattr(program, "_quant_mode", None),
-                   program.random_seed)
+                   quant.cache_token(program), program.random_seed)
             entry = self._graphs.get(key)
             if entry is None:
                 self._graphs[key] = _GraphedStep()

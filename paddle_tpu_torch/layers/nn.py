@@ -23,7 +23,7 @@ __all__ = [
     "accuracy", "mean", "elementwise_add", "elementwise_sub",
     "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min", "elementwise_pow", "reduce_sum", "reduce_mean",
-    "reduce_max", "reduce_min", "reduce_prod", "scale",
+    "reduce_max", "reduce_min", "reduce_prod", "scale", "matmul",
 ]
 
 
@@ -38,6 +38,18 @@ def _simple(op_type, x, attrs=None, name=None, outs=("Out",), in_slot="X"):
 
 def _pair(v):
     return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    """X' @ Y' with the last two dims of each swapped where asked (reference
+    nn.py matmul; the op's `alpha` attribute scales the product)."""
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y})
+    return out
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,

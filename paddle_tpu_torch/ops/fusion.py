@@ -33,7 +33,8 @@ op order.
     - training conv windows (`_conv_stats`, fusion.py:608): K4 computes
       the conv and its per-channel sums, K5 normalizes and activates;
       gated to training-mode bn, no AMP restore (O1 goes to the ladder), a
-      kernel activation, and K1's gate;
+      kernel activation, K1's gate, and no quantization (under O3 the
+      ladder runs, unless PADDLE_TPU_QUANT is off);
     - otherwise the member ladder (fusion.py:516): the conv member runs
       through its lowering, then a training bn [+ act] on a bf16
       activation runs K6 (`_bn_act`, fusion.py:565) when
@@ -55,7 +56,7 @@ import torch
 
 from .. import quant
 from ..framework.desc import OpDesc
-from . import bn_cuda, conv_cuda, optimizer_ops
+from . import bn_cuda, conv_cuda, optimizer_ops, quant_cuda
 from .common import CONV_FORMATS, mxu_cast
 from .math_ops import ACTIVATIONS
 from .nn_ops import _pair, conv2d_forward
@@ -488,9 +489,11 @@ def _conv_stats(ctx, g: Group, env) -> bool:
     conv, bn = g.conv, g.bn
     if bn.attr("is_test", False) or _act_name(g) not in bn_cuda.ACTS:
         return False
-    if getattr(ctx, "quant_mode", None):
+    if getattr(ctx, "quant_mode", None) and quant.QUANT:
         # O3: the ladder runs, so the conv member reaches its quantized
-        # route (fusion.py:629)
+        # route (fusion.py:629). With PADDLE_TPU_QUANT off nothing
+        # quantizes, and the window runs as under O2, so that O3 is then
+        # bitwise O2 (the reference turns its window off either way)
         return False
     x = env.get(_first(conv.desc.input("Input")))
     w = env.get(_first(conv.desc.input("Filter")))
@@ -553,11 +556,15 @@ def fold_constants(ctx, groups, env) -> Dict[int, tuple]:
     mxu_cast then leaves it alone). Under O3 the int8 values and per-Co
     scales are those of the *folded* bf16 filter, as the reference's
     quantized conv computes them per call from the filter it is handed
-    (quant.py:377-378). Its serving engine instead looks up the unfolded
-    filter's values by name and so drops the batch-norm scale from every
-    folded conv; the port does not copy that. The filter, bf16 and int8
-    alike, is kept as an OIHW view of OHWI memory, the layout K1 and K11
-    read, so no call copies it."""
+    (quant.py:377-378), and only where `quant.ineligible_conv` admits the
+    conv in the program's mode (probed at the smallest input the conv
+    takes; the conv's own gate decides per call): under fp8 the fold keeps
+    its bf16 filter, and the conv takes K1 with a ("conv2d", "mode")
+    fallback, as in the reference. Its serving engine instead looks up the
+    unfolded filter's values by name and so drops the batch-norm scale from
+    every folded conv; the port does not copy that. The filter, bf16 and
+    int8 alike, is kept as an OIHW view of OHWI memory, the layout K1 and
+    K11 read, so no call copies it."""
     out = {}
     for anchor, g in (groups or {}).items():
         if not g.fold:
@@ -567,13 +574,22 @@ def fold_constants(ctx, groups, env) -> Dict[int, tuple]:
             (wf,), _ = mxu_cast(ctx, wf, formats=CONV_FORMATS[1:])
         wf = wf.contiguous(memory_format=torch.channels_last)
         pre = None
-        if getattr(ctx, "quant_mode", None):
-            q, scale = quant.quantize_channelwise(wf, axis=0,
-                                                  mode=ctx.quant_mode)
-            pre = (q.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2),
-                   scale)
+        mode = getattr(ctx, "quant_mode", None)
+        if mode and _fold_quantizes(g.conv, wf, mode):
+            pre = quant_cuda.quantize_filter(wf)
         out[anchor] = (wf, bf, pre)
     return out
+
+
+def _fold_quantizes(conv, wf, mode) -> bool:
+    """Whether quant.ineligible_conv admits the conv with filter `wf` in
+    `mode`, on a meta input of the smallest size the conv takes."""
+    s, p, d = _conv_attrs(conv)
+    co, ci, kh, kw = wf.shape
+    x = torch.empty((1, (kh - 1) * d[0] + 1, (kw - 1) * d[1] + 1, ci),
+                    dtype=wf.dtype, device="meta")
+    return quant.ineligible_conv(x, wf, s, p, d, conv.attr("groups", 1) or 1,
+                                 mode) is None
 
 
 def _fold_lower(ctx, g: Group, env):

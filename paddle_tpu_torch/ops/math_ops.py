@@ -1,7 +1,7 @@
-"""Math ops: mul, elementwise with axis broadcast, activations, reductions,
-sum
+"""Math ops: mul, matmul, elementwise with axis broadcast, activations,
+reductions, sum
 (the port's counterpart of paddle_tpu/ops/math_ops.py; reference mul_op.cc,
-elementwise_*_op.cc, activation_op.cc, reduce_op.cc, mean_op.cc)."""
+matmul_op.cc, elementwise_*_op.cc, activation_op.cc, reduce_op.cc, mean_op.cc)."""
 
 from __future__ import annotations
 
@@ -87,6 +87,110 @@ def _mul_grad(ctx, op_, ins):
     if "Y@GRAD" in op_.desc.outputs:
         outs["Y@GRAD"] = [torch.matmul(xf.t(), dout).to(y.dtype)
                           .reshape(y.shape)]
+    return outs
+
+
+def _matmul_shape(xs, ys, tx, ty):
+    """The matmul output shape of the JAX package's infer (common.py:202):
+    a 1-D X is [1, K], a 1-D Y [K, 1], batch dims from X else Y."""
+    if xs is None or ys is None:
+        return None
+    xs, ys = list(xs), list(ys)
+    if len(xs) == 1:
+        xs = [1, xs[0]]
+    if len(ys) == 1:
+        ys = [ys[0], 1]
+    if tx:
+        xs[-2], xs[-1] = xs[-1], xs[-2]
+    if ty:
+        ys[-2], ys[-1] = ys[-1], ys[-2]
+    return (xs[:-2] or ys[:-2]) + [xs[-2], ys[-1]]
+
+
+def _matmul_infer(op_, block):
+    xv, yv = in_var(op_, block, "X"), in_var(op_, block, "Y")
+    if xv is None or yv is None:
+        return
+    set_out(op_, block, "Out",
+            _matmul_shape(xv.shape, yv.shape, op_.attr("transpose_X", False),
+                          op_.attr("transpose_Y", False)), xv.dtype)
+
+
+def _matmul_operands(op_, x, y):
+    """X and Y as multiplied: the last two dims swapped where transpose_X /
+    transpose_Y ask (a 1-D operand is left as it is)."""
+    if op_.attr("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if op_.attr("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    return x, y
+
+
+@op("matmul", infer_shape=_matmul_infer)
+def _matmul(ctx, op_, ins):
+    """alpha * (X' @ Y') with X', Y' the operands after their transposes,
+    torch.matmul's batch broadcasting and 1-D rules (jnp.matmul's), in the
+    AMP compute dtype (math_ops.py:82-111). Under O3 a 2-D product whose
+    gate passes is quant.qmatmul's, with Y's admission-time values unless
+    Y is transposed (the admission cache holds [K, N], so a transposed Y
+    quantizes per call)."""
+    x, y = _matmul_operands(op_, ins["X"][0], ins["Y"][0])
+    (x, y), restore = mxu_cast(ctx, x, y)
+    qmode = getattr(ctx, "quant_mode", None)
+    reason = quant.ineligible_matmul(x, y, qmode) if qmode else "disabled"
+    if reason is None:
+        quant.count_hit(op_.type)
+        pre = None if op_.attr("transpose_Y", False) else \
+            quant.prequantized(ctx, op_.desc.inputs["Y"][0])
+        out = quant.qmatmul(x, y, qmode, pre=pre)
+    else:
+        if qmode:
+            quant.count_fallback(op_.type, reason)
+        out = torch.matmul(x, y)
+    if restore is not None:
+        out = out.to(restore)
+    alpha = op_.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
+@grad_op("matmul")
+def _matmul_grad(ctx, op_, ins):
+    """dX' = dP @ Y'^T, dY' = X'^T @ dP with dP = alpha * dOut in the
+    compute dtype, each summed over the batch dims its operand was
+    broadcast along, then transposed back and cast to its input's dtype.
+    A 1-D operand is multiplied as a [1, K] row or a [K, 1] column and
+    squeezed back. Under O3 the same plain products: the straight-through
+    backward of quant._QMatmul. No forward is re-run."""
+    x, y = ins["X"][0], ins["Y"][0]
+    g = ins.get("Out@GRAD")
+    if not g or g[0] is None:
+        return zero_grads(op_, ins)
+    xt, yt = _matmul_operands(op_, x, y)
+    (xc, yc), restore = mxu_cast(ctx, xt, yt)
+    x2 = xc if xc.dim() > 1 else xc.unsqueeze(0)
+    y2 = yc if yc.dim() > 1 else yc.unsqueeze(-1)
+    batch = torch.broadcast_shapes(x2.shape[:-2], y2.shape[:-2])
+    dout = g[0].to(restore or xc.dtype)
+    alpha = op_.attr("alpha", 1.0)
+    if alpha != 1.0:
+        dout = dout * alpha
+    dout = dout.to(xc.dtype).reshape(tuple(batch) + (x2.shape[-2],
+                                                     y2.shape[-1]))
+    outs = {}
+    if "X@GRAD" in op_.desc.outputs:
+        dx = torch.matmul(dout, y2.transpose(-1, -2)).sum_to_size(x2.shape)
+        dx = dx.reshape(xt.shape)
+        if op_.attr("transpose_X", False) and x.dim() > 1:
+            dx = dx.transpose(-1, -2)
+        outs["X@GRAD"] = [dx.to(x.dtype)]
+    if "Y@GRAD" in op_.desc.outputs:
+        dy = torch.matmul(x2.transpose(-1, -2), dout).sum_to_size(y2.shape)
+        dy = dy.reshape(yt.shape)
+        if op_.attr("transpose_Y", False) and y.dim() > 1:
+            dy = dy.transpose(-1, -2)
+        outs["Y@GRAD"] = [dy.to(y.dtype)]
     return outs
 
 

@@ -257,6 +257,21 @@ def _conv2d_grad(ctx, op_, ins):
     return outs
 
 
+@op("depthwise_conv2d", infer_shape=_conv2d_infer)
+def _depthwise_conv2d(ctx, op_, ins):
+    """conv2d's lowering (nn_ops.py:335-337): K1's gate refuses groups != 1
+    ("groups"), so the route is F.conv2d, counted; under O3 the quant gate
+    counts ("depthwise_conv2d", "kernel"), as the reference's does."""
+    return _conv2d(ctx, op_, ins)
+
+
+@op("depthwise_conv2d_grad", infer_shape=infer_grad_shapes, grad=NO_GRAD)
+def _depthwise_conv2d_grad(ctx, op_, ins):
+    """conv2d_grad's lowering: the generic grad over F.conv2d, counted as
+    ("depthwise_conv2d_grad", "groups")."""
+    return _conv2d_grad(ctx, op_, ins)
+
+
 def _pool2d_infer(op_, block):
     xv = in_var(op_, block, "X")
     if xv is None or xv.shape is None:

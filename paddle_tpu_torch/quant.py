@@ -1,21 +1,34 @@
 """Quantized compute: the third AMP level, O3 (the port's counterpart of
-paddle_tpu/quant.py, int8).
+paddle_tpu/quant.py, int8 and fp8).
 
-`ServingEngine(..., quantize="int8")` marks its program O3, and the `mul`
-and `conv2d` lowerings route eligible compute through this module:
+`amp.decorate(optimizer, level="O3").minimize(loss)` (training) and
+`ServingEngine(..., quantize="int8" | "fp8")` (serving) mark a program O3
+with a quant mode (`PADDLE_TPU_QUANT_MODE`, "int8" by default, read when
+`amp.enable` runs), and the `mul`, `matmul` and `conv2d` lowerings route
+eligible compute through this module:
 
   * weights are quantized symmetrically per output channel (scale =
-    max|w| / 127 per column of a `mul` Y, per Co of a conv filter),
-    activations per row (`mul`) or per tensor (conv), at each call;
-  * the integer product accumulates exactly in int32 and dequantizes by
-    the product of the two scales, rounded once to the activation's dtype
-    (bf16 under O3), as the reference does (quant.py:330-337, :369-383);
+    max|w| / 127, or / 448 for fp8 e4m3, per column of a `mul` Y, per Co
+    of a conv filter), activations per row (`mul`) or per tensor (conv),
+    at each call;
+  * the int8 product accumulates exactly in int32, the fp8 product in f32,
+    and dequantizes by the product of the two scales, rounded once to the
+    activation's dtype (bf16 under O3), as the reference does
+    (quant.py:330-337, :369-383);
   * the conv runs K11, `ops/conv_cuda.conv2d_q8` (the port of the Pallas
-    int8 conv); the `mul` product is an int8 GEMM, `torch._int_mm` on the
-    card (the reference leaves it to XLA's int8 dot, outside Pallas);
+    int8 conv; fp8 convs fall back with "mode", as in the reference); the
+    `mul` product is a library GEMM on the card, `torch._int_mm` (int8) or
+    `torch._scaled_mm` (fp8) (the reference leaves both to XLA's dot,
+    outside Pallas);
+  * every quantize pass, and the dequantize epilogue of a quantized
+    product, goes through Q1's wrappers (`ops/quant_cuda.py`): the port's
+    fused quantize kernel on the card, its plain versions on the CPU
+    (exported here as `quantize_tensor` and `quantize_channelwise`);
   * `qmatmul` and `qconv2d` are autograd Functions whose backward is the
     plain bf16 product's (straight-through), as the reference's
-    custom_vjp; O3 training is a later slice;
+    custom_vjp; the training graph's explicit grads (`mul_grad`,
+    `matmul_grad`, `conv2d_grad` on K2/K3) compute the same products from
+    the bf16 operands and re-run no quantized forward;
   * eligibility is a gate per op (`ineligible_matmul`, `ineligible_conv`)
     with counted fallbacks by reason (`COUNTERS`, the counterparts of the
     reference's quant_kernel_total and quant_fallback_total);
@@ -29,15 +42,18 @@ that K1 takes may still fall back from quantization with reason "kernel",
 as in the reference: quantizing more convs than it does would change the
 answers, not only the speed.
 
-fp8 (`mode="fp8"`) waits for a later slice: the gates return "mode".
-`QUANT` and `QUANT_TOL` are module constants with the reference's defaults
-(its PADDLE_TPU_QUANT and PADDLE_TPU_QUANT_TOL); the environment switches
-come with the port's flags module.
+Switches (the reference's, read at import): PADDLE_TPU_QUANT ("1"; "0"
+makes every gate answer "disabled", so O3 runs bitwise as O2) and
+PADDLE_TPU_QUANT_TOL (0.06, the error bound of the gates and of
+admission). `QUANT` and `QUANT_TOL` are read at every call, so a caller may
+change them at run time; `cache_token(program)` is the part of the
+executor's graph key they and the mode make.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
@@ -45,16 +61,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .ops import conv_cuda, registry
+from .ops import conv_cuda, quant_cuda, registry
 
 __all__ = ["FALLBACK_REASONS", "QUANT", "QUANT_TOL", "QUANT_OPS", "COUNTERS",
-           "count_hit", "count_fallback", "suppress_counters",
+           "cache_token", "count_hit", "count_fallback", "suppress_counters",
            "error_estimate", "ineligible_matmul", "ineligible_conv",
            "quantize_channelwise", "quantize_tensor", "weight_qparams",
-           "int_matmul", "qmatmul", "qconv2d", "prequantize", "prequantized"]
+           "int_matmul", "fp8_matmul", "qmatmul", "qconv2d", "prequantize",
+           "prequantized"]
 
-QUANT = True
-QUANT_TOL = 0.06
+QUANT = os.environ.get("PADDLE_TPU_QUANT", "1") == "1"
+QUANT_TOL = float(os.environ.get("PADDLE_TPU_QUANT_TOL", "0.06"))
 
 # every reason the gates can return (the reference's vocabulary)
 FALLBACK_REASONS = frozenset(
@@ -65,14 +82,15 @@ FALLBACK_REASONS = frozenset(
 _EPS_RMS = {"int8": 1.0 / (127.0 * math.sqrt(12.0)),
             "fp8": 2.0 ** -3 / math.sqrt(12.0)}
 
-# int8 full scale / fp8 e4m3 max normal
-_QMAX = {"int8": 127.0, "fp8": 448.0}
-
 _FLOAT_IN = (torch.bfloat16, torch.float32)
 
-# the registered op types that route through this module; `matmul` and
-# `depthwise_conv2d` join when the port registers them
-QUANT_OPS = {"mul": "qmatmul", "conv2d": "qconv2d"}
+# the registered op types that route through this module (quant.py:96)
+QUANT_OPS = {
+    "mul": "qmatmul",
+    "matmul": "qmatmul",
+    "conv2d": "qconv2d",
+    "depthwise_conv2d": "qconv2d",   # groups: always falls back ("kernel")
+}
 
 # the reference's conv kernel envelope (pallas_conv.py:26, :36): 128-lane
 # channel tiles and a padded width of at most 2048
@@ -102,6 +120,13 @@ COUNTERS = Counters()
 suppress_counters = registry.suppress_counters
 
 
+def cache_token(program):
+    """The quant part of the executor's graph key (quant.py:104):
+    everything that changes how the lowerings route, beyond the program
+    itself, read now."""
+    return (getattr(program, "_quant_mode", None), QUANT, QUANT_TOL)
+
+
 def count_hit(op: str):
     if registry.counting():
         COUNTERS.hits[op] = COUNTERS.hits.get(op, 0) + 1
@@ -128,7 +153,7 @@ def ineligible_matmul(x, y, mode="int8"):
     after the AMP cast), else the fallback reason (quant.py:142)."""
     if not QUANT:
         return "disabled"
-    if mode != "int8":
+    if mode not in quant_cuda.QMAX:
         return "mode"
     if getattr(x, "ndim", 0) != 2 or getattr(y, "ndim", 0) != 2:
         return "rank"
@@ -163,14 +188,16 @@ def ineligible_conv(x, w, strides, paddings, dilations, groups=1,
                     mode="int8"):
     """None when the quantized conv applies (NHWC x, OIHW w, both after the
     AMP cast), else the reason (quant.py:168). The reference's kernel gate
-    is a prerequisite: "kernel" where it fails."""
-    if not QUANT:
-        return "disabled"
-    if mode != "int8":
-        return "mode"
+    is a prerequisite, asked first: "kernel" where it fails, whatever the
+    switch and the mode, as the reference's conv lowering counts it (it
+    asks its kernel gate before the quant gate, nn_ops.py:300-318)."""
     if _reference_kernel_gate(x, w, strides, paddings, dilations,
                               groups) is not None:
         return "kernel"
+    if not QUANT:
+        return "disabled"
+    if mode != "int8":
+        return "mode"      # the reference's quantized conv is int8 only
     co, ci, kh, kw = w.shape
     if error_estimate(ci * kh * kw, mode) > QUANT_TOL:
         return "error_bound"
@@ -179,55 +206,32 @@ def ineligible_conv(x, w, strides, paddings, dilations, groups=1,
 
 # --- quantizers ----------------------------------------------------------
 
-def _int8_mode(mode):
-    if mode != "int8":
-        raise NotImplementedError(f"{mode} quantization is a later slice of "
-                                  f"the port; int8 is ported")
-
-
-def _scale(amax, mode):
-    """max(amax, 1e-12) / qmax, a true f32 division on every device. (On
-    CUDA, dividing by a Python number multiplies by its f32 reciprocal,
-    which can land one ulp off the reference's quotient.)"""
-    qmax = torch.full((), _QMAX[mode], dtype=torch.float32, device=amax.device)
-    return torch.clamp(amax, min=1e-12) / qmax
-
-
-def quantize_channelwise(x, axis: int, mode: str = "int8"):
-    """Symmetric per-channel quantization (quant.py:286): max|x| over every
-    dim but `axis`, scaled to 127, rounded half to even. Returns (q int8,
-    scale f32 shaped like x reduced to 1 everywhere but `axis`)."""
-    _int8_mode(mode)
-    x32 = x.float()
-    red = tuple(d for d in range(x32.dim()) if d != axis % x32.dim())
-    scale = _scale(torch.amax(torch.abs(x32), dim=red, keepdim=True), mode)
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
-    return q, scale
-
-
-def quantize_tensor(x):
-    """Per-tensor int8 quantization of a conv activation (quant.py:374-376):
-    one scale from max|x| over the whole tensor, the padded bucket rows
-    included. Returns (q int8, scale f32 scalar)."""
-    x32 = x.float()
-    scale = _scale(torch.amax(torch.abs(x32)), "int8")
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
-    return q, scale
+# the plain versions of Q1 (ops/quant_cuda.py), kept beside the kernel
+quantize_channelwise = quant_cuda.quantize_channelwise_reference
+quantize_tensor = quant_cuda.quantize_tensor_reference
 
 
 def weight_qparams(w, axis: int, mode: str = "int8"):
-    """Host-side quantize_channelwise for serving admission (quant.py:303):
-    numpy (or a tensor, read back as f32 numpy) in, (q int8, scale f32,
-    relative RMS error of the dequantized weight) out, in numpy."""
-    _int8_mode(mode)
+    """The reference's host-side admission quantizer (quant.py:303), the
+    same numbers in numpy (admission itself, `prequantize`, runs Q1's
+    wrappers on the weight's device): numpy (or a tensor, read back as f32
+    numpy) in, (q, scale f32, relative RMS error of the dequantized
+    weight) out; q is numpy int8, or for fp8 a CPU float8_e4m3fn tensor
+    (numpy has no fp8 type), scale numpy."""
+    quant_cuda.check_mode(mode)
     if isinstance(w, torch.Tensor):
         w = w.detach().float().cpu().numpy()
     w32 = np.asarray(w, np.float32)
     red = tuple(d for d in range(w32.ndim) if d != axis % w32.ndim)
     amax = np.max(np.abs(w32), axis=red, keepdims=True)
-    scale = np.maximum(amax, 1e-12) / _QMAX[mode]
-    q = np.clip(np.rint(w32 / scale), -127, 127).astype(np.int8)
-    deq = q.astype(np.float32) * scale
+    scale = np.maximum(amax, 1e-12) / quant_cuda.QMAX[mode]
+    if mode == "fp8":
+        q = torch.from_numpy(np.ascontiguousarray(w32 / scale)).to(
+            torch.float8_e4m3fn)
+        deq = q.float().numpy() * scale
+    else:
+        q = np.clip(np.rint(w32 / scale), -127, 127).astype(np.int8)
+        deq = q.astype(np.float32) * scale
     denom = float(np.sqrt(np.mean(w32 * w32))) or 1.0
     err = float(np.sqrt(np.mean((deq - w32) ** 2))) / denom
     return q, scale.astype(np.float32), err
@@ -239,7 +243,10 @@ def int_matmul(xq, yq):
     """The exact int32 product of int8 xq [M, K] and yq [K, N]. CPU: an f64
     product of the int8 values (every partial sum is an integer below
     2^53, so exact). CUDA: cuBLAS's int8 GEMM (`torch._int_mm`), with M
-    padded to at least 32 rows and N to a multiple of 8, as it asks."""
+    padded to at least 32 rows and N to a multiple of 8, as it asks, and B
+    column-major (yq a view of [N, K] memory, as Q1 writes it; any other
+    yq is copied so), which it runs several times faster. The result may
+    be a slice of the padded product."""
     if xq.device.type == "cpu":
         return torch.matmul(xq.double(), yq.double()).to(torch.int32)
     m, k = xq.shape
@@ -247,48 +254,82 @@ def int_matmul(xq, yq):
     mp, np_ = max(32, -(-m // 8) * 8), -(-n // 8) * 8
     if mp != m:
         xq = F.pad(xq, (0, 0, 0, mp - m))
+    b = yq.t()                                             # [N, K]
     if np_ != n:
-        yq = F.pad(yq, (0, np_ - n))
-    return torch._int_mm(xq.contiguous(), yq.contiguous())[:m, :n]
+        b = F.pad(b, (0, 0, 0, np_ - n))
+    return torch._int_mm(xq.contiguous(), b.contiguous().t())[:m, :n]
 
 
-def _qmm_forward(x, y, pre):
+def _pad_fp8(t, rows, cols):
+    """t [r, c] e4m3 as a contiguous [rows, cols] with zeros past its end
+    (zeros add nothing to a product)."""
+    if tuple(t.shape) == (rows, cols) and t.is_contiguous():
+        return t
+    out = torch.zeros((rows, cols), dtype=torch.uint8, device=t.device)
+    out[:t.shape[0], :t.shape[1]] = t.view(torch.uint8)
+    return out.view(torch.float8_e4m3fn)
+
+
+def fp8_matmul(xq, yq):
+    """The f32 product of e4m3 xq [M, K] and yq [K, N] (quant.py:322-325).
+    CPU: an f32 product of the values widened to f32. CUDA: cuBLAS's fp8
+    GEMM (`torch._scaled_mm`) with unit scales, an f32 output and
+    use_fast_accum off; M, K and N padded with zeros to multiples of 16 and
+    B column-major, as it asks (a yq from Q1 or admission is already a
+    view of [N, K] memory). Hopper's fp8 tensor cores add the products
+    with fewer bits than f32 between the promotions to the f32
+    accumulator, so the card's sums are not the CPU's bit for bit."""
+    if xq.device.type == "cpu":
+        return torch.matmul(xq.float(), yq.float())
+    m, k = xq.shape
+    n = yq.shape[1]
+    mp, kp, np_ = (-(-v // 16) * 16 for v in (m, k, n))
+    a = _pad_fp8(xq, mp, kp)
+    b = _pad_fp8(yq.t(), np_, kp)
+    one = torch.ones((), dtype=torch.float32, device=xq.device)
+    out = torch._scaled_mm(a, b.t(), scale_a=one, scale_b=one,
+                           out_dtype=torch.float32, use_fast_accum=False)
+    return out[:m, :n]
+
+
+def _qmm_forward(x, y, mode, pre):
     with registry.span(ACT_SPAN):
-        xq, sx = quantize_channelwise(x, axis=0)           # [M, 1] rows
-    yq, sy = pre if pre is not None else quantize_channelwise(y, axis=1)
-    acc = int_matmul(xq, yq).float()
-    return (acc * (sx * sy)).to(x.dtype)
+        xq, sx = quant_cuda.quantize_rows(x, mode)         # [M, 1] rows
+    yq, sy = pre if pre is not None else quant_cuda.quantize_cols(y, mode)
+    acc = int_matmul(xq, yq) if mode == "int8" else fp8_matmul(xq, yq)
+    return quant_cuda.dequantize(acc, sx, sy, x.dtype)
 
 
 class _QMatmul(torch.autograd.Function):
     """Quantized forward, plain-product backward (quant.py:340-357)."""
 
     @staticmethod
-    def forward(ctx, x, y, pre):
+    def forward(ctx, x, y, mode, pre):
         ctx.save_for_backward(x, y)
-        return _qmm_forward(x, y, pre)
+        return _qmm_forward(x, y, mode, pre)
 
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
         gx = torch.matmul(g, y.transpose(-1, -2)).to(x.dtype)
         gy = torch.matmul(x.transpose(-1, -2), g).to(y.dtype)
-        return gx, gy, None
+        return gx, gy, None, None
 
 
 def qmatmul(x, y, mode: str = "int8", pre=None):
     """Quantized x [M, K] @ y [K, N] -> [M, N] in x.dtype: per-row
-    activation scales, per-column weight scales, exact int32 accumulation,
-    `acc * (sx * sy)` rounded once. `pre` gives admission-time (q, scale)
-    for y; y still flows in for the backward."""
-    _int8_mode(mode)
-    return _QMatmul.apply(x, y, pre)
+    activation scales, per-column weight scales, exact int32 (fp8: f32)
+    accumulation, `acc * (sx * sy)` rounded once. `pre` gives
+    admission-time (q, scale) for y, in the mode's type; y still flows in
+    for the backward."""
+    quant_cuda.check_mode(mode)
+    return _QMatmul.apply(x, y, mode, pre)
 
 
 def _qconv_forward(x, w, strides, paddings, dilations, pre):
     with registry.span(ACT_SPAN):
-        xq, sx = quantize_tensor(x)
-    wq, sw = pre if pre is not None else quantize_channelwise(w, axis=0)
+        xq, sx = quant_cuda.quantize_tensor(x)
+    wq, sw = pre if pre is not None else quant_cuda.quantize_filter(w)
     dq = (sx * sw.reshape(-1)).float()                     # [Co]
     return conv_cuda.conv2d_q8(xq, wq, strides, paddings, dilations, dq,
                                out_dtype=x.dtype)
@@ -323,8 +364,11 @@ def qconv2d(x, w, strides, paddings, dilations, mode: str = "int8",
     """Quantized conv of x [N, H, W, Ci] with w [Co, Ci, KH, KW] -> [N, OH,
     OW, Co] in x.dtype, through K11: a per-tensor activation scale, per-Co
     weight scales, exact int32 sums, `acc * (sx * sw[co])` rounded once.
-    The caller must have passed `ineligible_conv`."""
-    _int8_mode(mode)
+    The caller must have passed `ineligible_conv`, which answers "mode"
+    for anything but int8."""
+    if mode != "int8":
+        raise ValueError(f"the quantized conv is int8 (the gate answers "
+                         f"'mode' for {mode!r})")
     return _QConv.apply(x, w, tuple(strides), tuple(paddings),
                         tuple(dilations), pre)
 
@@ -332,7 +376,8 @@ def qconv2d(x, w, strides, paddings, dilations, mode: str = "int8",
 # --- serving admission ---------------------------------------------------
 
 # the persistable operand each quantizable op's weight sits in
-_WEIGHT_SLOTS = {"mul": "Y", "conv2d": "Filter"}
+_WEIGHT_SLOTS = {"mul": "Y", "matmul": "Y", "conv2d": "Filter",
+                 "depthwise_conv2d": "Filter"}
 
 
 def prequantized(ctx, name: str):
@@ -341,17 +386,37 @@ def prequantized(ctx, name: str):
     return cache.get(name) if cache else None
 
 
+def _admit(w, slot, mode):
+    """One admitted weight through Q1's wrappers, on w's device: (q, scale,
+    relative RMS error of the dequantized weight, in f32). A filter's q is
+    an OIHW view of OHWI memory (as K11 reads it), a `mul` Y's a [K, N]
+    view of [N, K] memory on the card."""
+    w32 = w.float()
+    quantize = quant_cuda.quantize_filter if slot == "Filter" else \
+        quant_cuda.quantize_cols
+    q, scale = quantize(w32, mode)
+    denom = float(torch.sqrt(torch.mean(w32 * w32))) or 1.0
+    err = float(torch.sqrt(torch.mean((q.float() * scale - w32) ** 2)))
+    return q, scale, err / denom
+
+
 def prequantize(program, scope, mode: str = "int8", device="cpu",
                 folded=()) -> dict:
     """Quantize every persistable weight of `program`'s quantizable ops
     once, from its scope value (quant.py:443): (q, scale) pairs on
-    `device`, kept on the program for the lowerings. A weight whose
-    dequantization error exceeds QUANT_TOL stays unquantized ("error_bound",
-    counted). Returns {"quantized": [names], "skipped": {name: reason}}.
-    The filters named in `folded` (those of fold windows) are checked and
-    reported but not kept: a folded conv never reads its raw filter's
-    values, the fold quantizes the folded filter (ops/fusion.fold_constants)."""
+    `device`, kept on the program for the lowerings. Conv filters are
+    quantized in int8 whatever the mode, `mul`/`matmul` weights in `mode`
+    (quant.py:482). A weight whose dequantization error exceeds QUANT_TOL
+    stays unquantized ("error_bound", counted); a transposed matmul Y is
+    skipped ("shape": the cache holds [K, N]). The quantization runs
+    through Q1's wrappers on `device` (the kernel on the card, its plain
+    version on the CPU). Returns {"quantized": [names], "skipped": {name:
+    reason}}. The filters named in `folded` (those of fold windows) are
+    checked and reported but not kept: a folded conv never reads its raw
+    filter's values, the fold quantizes the folded filter
+    (ops/fusion.fold_constants)."""
     cache, quantized, skipped = {}, [], {}
+    device = torch.device(device)
     block = program.global_block()
     for op_ in block.ops:
         slot = _WEIGHT_SLOTS.get(op_.type)
@@ -359,6 +424,9 @@ def prequantize(program, scope, mode: str = "int8", device="cpu",
         if not names or names[0] in quantized or names[0] in skipped:
             continue
         name = names[0]
+        if op_.type == "matmul" and op_.attr("transpose_Y", False):
+            skipped[name] = "shape"
+            continue
         var = block.desc.vars.get(name)
         if var is None or not var.persistable:
             continue
@@ -366,26 +434,21 @@ def prequantize(program, scope, mode: str = "int8", device="cpu",
         if w is None:
             skipped[name] = "shape"
             continue
-        if isinstance(w, torch.Tensor):
-            ok = w.dtype in _FLOAT_IN
-        else:
+        if not isinstance(w, torch.Tensor):
             w = np.asarray(w)
-            ok = w.dtype == np.float32
-        if not ok:
+            w = torch.from_numpy(w) if w.dtype == np.float32 else None
+        if w is None or w.dtype not in _FLOAT_IN:
             skipped[name] = "dtype"
             count_fallback(op_.type, "dtype")
             continue
-        q, scale, err = weight_qparams(w, 0 if slot == "Filter" else -1, mode)
+        use_mode = "int8" if slot == "Filter" else mode
+        q, scale, err = _admit(w.to(device), slot, use_mode)
         if err > QUANT_TOL:
             skipped[name] = "error_bound"
             count_fallback(op_.type, "error_bound")
             continue
         quantized.append(name)
-        if name in folded:
-            continue
-        q = torch.from_numpy(q).to(device)
-        if slot == "Filter":      # an OIHW view of OHWI memory, as K11 reads
-            q = q.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
-        cache[name] = (q, torch.from_numpy(scale).to(device))
+        if name not in folded:
+            cache[name] = (q, scale)
     program._quant_weights = cache
     return {"quantized": sorted(quantized), "skipped": skipped}

@@ -10,12 +10,15 @@ paddle_tpu/serving/engine.py `ServingEngine`).
   * **Admission**: the program is stripped of training ops, pruned to the
     inference fetch set, cloned `for_test`, and refused if a training-only
     op survived or a fetch is not computable from the feeds.
-  * **Quantization** (`quantize="int8"`, AMP O3): the program is marked
-    O3 and every quantizable weight is checked for the report
-    (quant.prequantize, `quant_report`); the unfolded ones (the fc) are
-    quantized once, here, and the folded conv filters once after the fold
-    (ops/fusion.fold_constants). The
-    eligible convs then run the int8 kernel K11 and the fc an int8 GEMM.
+  * **Quantization** (`quantize="int8"` or `"fp8"`, AMP O3): the program
+    is marked O3 in that mode and every quantizable weight is checked for
+    the report (quant.prequantize, `quant_report`; conv filters in int8
+    whatever the mode, as the reference's quant.py:482); the unfolded ones
+    (the fc) are quantized once, here, and the folded conv filters once
+    after the fold (ops/fusion.fold_constants), in int8 only. Under int8
+    the eligible convs run the int8 kernel K11 and the fc an int8 GEMM;
+    under fp8 the fc runs an fp8 GEMM and the convs K1, each counting a
+    ("conv2d", "mode") fallback, as the reference's.
   * **Buckets**: a request is padded (edge rows) to the smallest bucket of
     the ladder that holds it, and larger requests are chunked. The JAX
     package compiles one XLA executable per bucket; here every bucket runs
@@ -26,9 +29,9 @@ paddle_tpu/serving/engine.py `ServingEngine`).
     scope and placed on the serving device once, at construction, with the
     fold windows' filters and biases computed from them once.
 
-The static-analyzer admission gate, telemetry counters, fp8 serving, the
-hot-row embedding cache and LoD requests are later slices; fp8 and the
-cache raise NotImplementedError.
+The static-analyzer admission gate, telemetry counters, the hot-row
+embedding cache and LoD requests are later slices; the cache raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -97,11 +100,7 @@ class ServingEngine:
                  emb_cache_budget_bytes: Optional[int] = None,
                  emb_cache_tables: Optional[Dict[str, int]] = None,
                  quantize: Optional[str] = None):
-        if quantize == "fp8":
-            raise NotImplementedError(
-                "fp8 serving (torch._scaled_mm on the card) is a later slice "
-                "of the port; quantize='int8' is ported")
-        if quantize not in (None, "int8"):
+        if quantize not in (None, "int8", "fp8"):
             raise ValueError(f"quantize must be 'int8' or 'fp8', got "
                              f"{quantize!r}")
         if emb_cache_budget_bytes is not None or emb_cache_tables:

@@ -124,9 +124,12 @@ def test_prune_keeps_only_the_fetch_path():
     assert types[-1] == "softmax"
 
 
-def test_amp_o3_is_a_later_slice():
-    """O3 marks the program for int8 compute; O3 *training* is the later
-    slice."""
+def test_amp_o3_is_a_later_slice(monkeypatch):
+    """O3 marks the program for quantized compute, in the mode
+    PADDLE_TPU_QUANT_MODE names (int8 by default); O3 training, once a
+    later slice, builds: decorate(level="O3").minimize marks the program
+    and appends its backward and optimizer ops."""
+    monkeypatch.delenv("PADDLE_TPU_QUANT_MODE", raising=False)
     prog = pt.amp.enable(pt.Program(), level="O3")
     assert prog._quant_mode == "int8" and prog._amp_level == "O3"
     assert pt.amp.disable(prog)._quant_mode is None
@@ -134,8 +137,11 @@ def test_amp_o3_is_a_later_slice():
     loss = next(op for op in main.global_block().ops
                 if op.type == "mean").output("Out")[0]
     opt = pt.amp.decorate(pt.optimizer.SGD(learning_rate=0.1), level="O3")
-    with pytest.raises(NotImplementedError, match="O3 training"):
+    with pt.program_guard(main, pt.Program()):
         opt.minimize(main.global_block().var(loss))
+    assert main._quant_mode == "int8" and main._amp_level == "O3"
+    types = [op.type for op in main.global_block().ops]
+    assert "conv2d_grad" in types and "sgd" in types
 
 
 def test_import_without_jax():

@@ -241,11 +241,117 @@ def test_qmatmul_error_within_model_bound():
     assert rel < 10 * quant.error_estimate(256, "int8"), rel
 
 
-def test_fp8_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="fp8"):
-        quant.qmatmul(torch.ones(4, 64), torch.ones(64, 8), mode="fp8")
-    with pytest.raises(NotImplementedError, match="fp8"):
-        quant.weight_qparams(np.ones((4, 4), np.float32), 0, mode="fp8")
+def _fp8_bits(q):
+    """The e4m3 bytes of a torch float8 tensor or an ml_dtypes array."""
+    if isinstance(q, torch.Tensor):
+        return q.view(torch.uint8).numpy()
+    return np.asarray(q).view(np.uint8)
+
+
+@pytest.mark.parametrize("shape,axis", [((64, 16), 0), ((64, 16), 1),
+                                        ((128, 64, 3, 3), 0),
+                                        ((5, 7, 3), -1)], ids=str)
+def test_fp8_quantize_channelwise_and_weight_qparams_bitwise(shape, axis):
+    """e4m3 quantization: the same bytes and scales as jnp's
+    astype(float8_e4m3fn), a hot channel and values that underflow to
+    (signed) zero included, and the same admission error."""
+    rng = np.random.default_rng(8)
+    w = (rng.standard_normal(shape) * 50.0).astype(np.float32)
+    w[(slice(None),) * (axis % len(shape)) + (1,)] *= 100.0
+    w.flat[::7] *= 1e-6
+    jq, js = jquant.quantize_channelwise(jnp.asarray(w), axis, "fp8")
+    tq, ts = quant.quantize_channelwise(torch.from_numpy(w), axis, "fp8")
+    assert tq.dtype == torch.float8_e4m3fn
+    np.testing.assert_array_equal(_fp8_bits(tq), _fp8_bits(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    jq2, js2, jerr = jquant.weight_qparams(w, axis, "fp8")
+    tq2, ts2, terr = quant.weight_qparams(torch.from_numpy(w), axis, "fp8")
+    np.testing.assert_array_equal(_fp8_bits(tq2), _fp8_bits(jq2))
+    np.testing.assert_array_equal(ts2, js2)
+    assert terr == jerr and terr < quant.QUANT_TOL
+
+
+def test_fp8_conversion_beyond_448_is_pinned():
+    """Up to 448 (e4m3's largest finite value) and at the rounding ties the
+    two conversions agree; beyond it torch saturates to +-448 where jnp
+    gives NaN past 464 (the tie that rounds down to 448). The quantizer
+    divides by max|x| / 448, so its
+    quotients stay within +-448 (plus rounding) and never reach that
+    range."""
+    x = np.array([447.0, 448.0, 450.0, 464.0, 2.0 ** -10, 1.5 * 2.0 ** -9,
+                  -1e-3, 0.0019], np.float32)
+    want = np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn)).view(np.uint8)
+    got = torch.from_numpy(x).to(torch.float8_e4m3fn).view(torch.uint8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    past = np.array([470.0, 500.0, 1e4, -1e4], np.float32)
+    assert np.isnan(np.asarray(jnp.asarray(past).astype(jnp.float8_e4m3fn),
+                               np.float32)).all()
+    assert torch.from_numpy(past).to(torch.float8_e4m3fn).float().tolist() \
+        == [448.0, 448.0, 448.0, -448.0]
+    # the quantizer's largest quotient, at the amax itself
+    w = np.array([[3.0e-3, -7.1, 7.1000004]], np.float32)
+    q, s = quant.quantize_channelwise(torch.from_numpy(w), 0, "fp8")
+    assert float(q.float().abs().max()) == 448.0
+
+
+def test_qmatmul_fp8_within_model_bound_and_jax():
+    """fp8 qmatmul on the CPU: within the reference's error model of the
+    f32 product (3 x error_estimate, tests/test_quant.py:226-233), and
+    within f32 summation order of paddle_tpu.quant.qmatmul(..., "fp8"):
+    both sum the same e4m3 products in f32 (exact products, the sums
+    rounded in each library's order), so they differ by at most K
+    roundings of the largest partial sum, 1e-5 relative here; the scale
+    product and the bf16/f32 rounding of the output are the same."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((32, 256)).astype(np.float32)
+    y = rng.standard_normal((256, 64)).astype(np.float32)
+    ref = x @ y
+    got = quant.qmatmul(torch.from_numpy(x), torch.from_numpy(y), "fp8")
+    rel = np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref)
+    assert rel < 3 * quant.error_estimate(256, "fp8"), rel
+    want = np.asarray(jquant.qmatmul(x, y, "fp8"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # the e4m3 operands are the same bytes, the exact sums the same
+    xq, sx = quant.quantize_channelwise(torch.from_numpy(x), 0, "fp8")
+    yq, sy = quant.quantize_channelwise(torch.from_numpy(y), 1, "fp8")
+    acc = quant.fp8_matmul(xq, yq)
+    exact = xq.double() @ yq.double()
+    bound = 256 * 2.0 ** -24 * (xq.double().abs() @ yq.double().abs())
+    assert ((acc.double() - exact).abs() <= bound).all()
+    # bf16 operands, as O3 hands them over
+    (aj, at), (bj, bt) = _bf16_pair(x), _bf16_pair(y)
+    got = quant.qmatmul(at, bt, "fp8")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(jquant.qmatmul(aj, bj, "fp8")),
+                               rtol=2 ** -7, atol=1e-2)
+    # the conv stays int8: the gate says "mode", qconv2d refuses fp8
+    with pytest.raises(ValueError, match="int8"):
+        quant.qconv2d(torch.zeros(1, 4, 4, 128, dtype=torch.bfloat16),
+                      torch.zeros(128, 128, 1, 1, dtype=torch.bfloat16),
+                      (1, 1), (0, 0), (1, 1), mode="fp8")
+
+
+def test_fp8_gates_match_the_reference():
+    f32, bf = torch.float32, torch.bfloat16
+
+    def t(shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    for xs, ys in (((4, 64), (64, 64)), ((4, 24), (24, 64)),
+                   ((4, 8, 64), (64, 64))):
+        want = jquant.ineligible_matmul(jax.ShapeDtypeStruct(xs, np.float32),
+                                        jax.ShapeDtypeStruct(ys, np.float32),
+                                        mode="fp8")
+        assert quant.ineligible_matmul(t(xs), t(ys), mode="fp8") == want
+    assert quant.ineligible_matmul(t((4, 64)), t((64, 64)), "fp8") is None
+    s = p = d = (1, 1)
+    want = jquant.ineligible_conv(
+        jax.ShapeDtypeStruct((2, 8, 8, 128), jnp.bfloat16),
+        jax.ShapeDtypeStruct((128, 128, 3, 3), jnp.bfloat16), s, p, d,
+        mode="fp8")
+    assert want == "mode" and quant.ineligible_conv(
+        t((2, 8, 8, 128), bf), t((128, 128, 3, 3), bf), s, p, d,
+        mode="fp8") == want
 
 
 def test_grad_rerun_counts_no_second_quant_hit():

@@ -42,7 +42,7 @@ from paddle_tpu.serving import ServingEngine as JaxServingEngine
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import quant
 from paddle_tpu_torch.models import resnet as port_resnet
-from paddle_tpu_torch.ops import conv_cuda
+from paddle_tpu_torch.ops import conv_cuda, quant_cuda
 from paddle_tpu_torch.serving import ServingEngine
 
 BUCKETS = (1, 2, 4)
@@ -199,14 +199,18 @@ def test_int8_filters_are_not_recomputed_per_request(monkeypatch):
     _, _, _, arrays = _jax_serve("int8", patched=True)
     eng = _port_engine(arrays, quantize="int8")
     folds = eng._prepared.folds
-    assert len(folds) == 11 and all(f[2] is not None for f in folds.values())
+    # int8 values only for the six folds the quant gate admits; the five
+    # below the reference's 128-channel rule keep their bf16 filter
+    assert len(folds) == 11 and \
+        sum(f[2] is not None for f in folds.values()) == 6
     # the raw conv filters are reported but only the fc's int8 values kept
     assert len(eng.quant_report["quantized"]) == 12
     assert sorted(eng.program._quant_weights) == ["fc_0.w_0"]
     seen, seen_pre = [], []
-    orig, orig_q = quant.quantize_channelwise, quant.qconv2d
-    monkeypatch.setattr(quant, "quantize_channelwise", lambda x, axis, *a, **k:
-                        seen.append((x.dim(), axis)) or orig(x, axis, *a, **k))
+    orig, orig_q = quant_cuda.quantize_channelwise_reference, quant.qconv2d
+    monkeypatch.setattr(quant_cuda, "quantize_channelwise_reference",
+                        lambda x, axis, *a, **k: seen.append((x.dim(), axis))
+                        or orig(x, axis, *a, **k))
     monkeypatch.setattr(quant, "qconv2d", lambda *a, pre=None, **k:
                         seen_pre.append(pre) or orig_q(*a, pre=pre, **k))
     first = eng.infer({"img": _input()})[0]
@@ -264,3 +268,35 @@ def test_executor_run_o3_quantizes_per_call():
     served = eng.infer({"img": _input()})
     for a, b in zip(direct, served):
         np.testing.assert_array_equal(a, b)
+
+
+def test_fp8_serving_matches_jax():
+    """quantize="fp8": the fc's weight is admitted in e4m3 (the same bytes
+    as the JAX engine's), the conv filters in int8 for the report only;
+    the fc runs its fp8 product, every conv K1 (the fold keeps its bf16
+    filter) with the quant gate's "mode" (or, below the reference's
+    128-channel rule, "kernel") counted, as in the JAX engine. The answers:
+    within the int8 test's bounds of the JAX engine's (the jitted engine
+    scales the fc's activation rows by amax * f32(1/448), the port divides;
+    measured: softmax 1e-4 apart, logits 4e-4)."""
+    (want, want_logits), report, (hits, fallbacks), arrays = \
+        _jax_serve("fp8", patched=False)
+    eng = _port_engine(arrays, quantize="fp8")
+    got, got_logits = eng.infer({"img": _input()})
+    assert eng.quant_report == report
+    assert len(report["quantized"]) == 12 and not report["skipped"]
+    assert all(f[2] is None for f in eng._prepared.folds.values())
+    assert {f"op={k}": v for k, v in quant.COUNTERS.hits.items()} == hits
+    assert {f"op={o},reason={r}": v
+            for (o, r), v in quant.COUNTERS.fallbacks.items()} == fallbacks
+    assert quant.COUNTERS.hits == {"mul": 1}
+    assert quant.COUNTERS.fallbacks == {("conv2d", "mode"): 6,
+                                        ("conv2d", "kernel"): 5}
+    assert eng.program._quant_weights["fc_0.w_0"][0].dtype == \
+        torch.float8_e4m3fn
+    assert np.abs(got - want).max() <= SOFTMAX_ATOL
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    assert _rl2(got_logits, want_logits) < LOGIT_RL2
+    # near the f32 engine: fp8's own noise on one fc
+    (_, f32_logits), _, _, _ = _jax_serve(None, patched=False)
+    assert _rl2(got_logits, f32_logits) < PORT_RL2

@@ -357,10 +357,14 @@ def _launch(world, cases, tmp):
     for r in range(world):
         with open(tmp / f"out{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
+    _RANK_LOGS[world] = [(p.returncode, logs[r] or "")
+                         for r, p in enumerate(procs)]
     return out
 
 
 _RANKS = {}
+# group size -> (exit code, output tail) of each rank of its group
+_RANK_LOGS = {1: [(0, "(ran in the test process)")]}
 
 
 def _group(n, tmp_path_factory):
@@ -419,6 +423,26 @@ def _jax_ring(case, n_sp):
         return out, lse, vjp(do)
 
 
+def _ring_close(got, want, rtol, atol, what, n, case):
+    """assert_allclose's test, failing with what the next failing log must
+    name: the case and group size, the tensor, its largest error against
+    the tolerance there, and each rank's exit code and output tail."""
+    g, w = _f32(got), _f32(want)
+    excess = np.abs(g - w) - (atol + rtol * np.abs(w))
+    if (excess <= 0).all():               # NaN fails
+        return
+    i = tuple(int(j) for j in np.unravel_index(
+        np.argmax(np.nan_to_num(excess, nan=np.inf)), excess.shape))
+    ranks = "\n".join(f"  rank {r}: exit {rc}, output tail {tail[-800:]!r}"
+                      for r, (rc, tail) in enumerate(_RANK_LOGS.get(n, [])))
+    pytest.fail(f"{case['name']} on {n} ranks: {what} off at {i}: got "
+                f"{float(g[i])!r}, want {float(w[i])!r}, error {abs(g[i] - w[i]):.3g} "
+                f"against a tolerance of {atol + rtol * abs(w[i]):.3g} there "
+                f"(rtol {rtol}, atol {atol}); {int((~(excess <= 0)).sum())} "
+                f"of {excess.size} values past it, the largest error "
+                f"{np.nanmax(np.abs(g - w)):.3g}\n{ranks}")
+
+
 def _allclose(got, want, rtol, atol, what):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=rtol, atol=atol,
                                err_msg=what)
@@ -433,10 +457,10 @@ def test_ring_matches_jax_ring(ranks, flash, causal):
     case = _case(f"ring/{flash}/{causal}")
     out, lse, grads = _jax_ring(case, n)
     got = res[0][case["name"]]
-    _allclose(got["out"], out, 2e-5, 2e-6, "out")
-    _allclose(got["lse"], lse, 2e-5, 2e-6, "lse")
+    _ring_close(got["out"], out, 2e-5, 2e-6, "out", n, case)
+    _ring_close(got["lse"], lse, 2e-5, 2e-6, "lse", n, case)
     for name, w in zip(("dq", "dk", "dv"), grads):
-        _allclose(got[name], w, 5e-5, 5e-6, name)
+        _ring_close(got[name], w, 5e-5, 5e-6, name, n, case)
     hits, fallbacks = got["counters"]
     # f32 operands pass the flash ring's gate (on CPU tensors the blocks
     # take the plain versions)

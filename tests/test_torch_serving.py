@@ -244,10 +244,12 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_later_slices_raise():
+    """The embedding cache is a later slice; fp8 serving is ported
+    (tests/test_torch_quant_serving.py) and an unknown mode is refused."""
     main, _, prob = _build(pt, port_resnet, False)
-    with pytest.raises(NotImplementedError, match="fp8"):
+    with pytest.raises(ValueError, match="quantize"):
         ServingEngine(main, ["img"], [prob], place=pt.CPUPlace(),
-                      quantize="fp8")
+                      quantize="int4")
     with pytest.raises(NotImplementedError):
         ServingEngine(main, ["img"], [prob], place=pt.CPUPlace(),
                       emb_cache_tables={"t": 4})

@@ -141,10 +141,30 @@ TRACED = {
     "CUtensorMap_st)": "attn.f32_dq_launches",
     "void (anonymous namespace)::dkv_tf32_kernel<64, 32, 2, 3>("
     "CUtensorMap_st)": "attn.f32_dkv_launches",
+    # K11, which the O3 training step launches, and Q1's three forms
+    "void (anonymous namespace)::conv2d_fwd_q8_kernel<64, signed char>("
+    "CUtensorMap_st)": "conv.q8_launches",
+    "void (anonymous namespace)::q8_tensor_kernel<__nv_bfloat16, 8>("
+    "__nv_bfloat16 const*, long, float const*, int, unsigned char*, "
+    "float*)": "q1.total",
+    "void (anonymous namespace)::quant_rows_kernel<__nv_bfloat16, true, "
+    "8>(__nv_bfloat16 const*, int, int, int, (anonymous namespace)::View, "
+    "unsigned char*, (anonymous namespace)::View, float*, float)":
+        "q1.total",
+    "void (anonymous namespace)::quant_cols_kernel<float, false>(float "
+    "const*, int, int, long, float const*, int, unsigned char*, float*, "
+    "float)": "q1.total",
+    "void (anonymous namespace)::dequant_kernel<int, __nv_bfloat16, 4>("
+    "int const*, long, float const*, float const*, __nv_bfloat16*, int, "
+    "int)": "q1.total",
 }
 UNCOUNTED = (
-    "void (anonymous namespace)::conv2d_fwd_q8_kernel<64, signed char>("
-    "CUtensorMap_st)",
+    "void (anonymous namespace)::q8_partial_kernel<__nv_bfloat16, 8>("
+    "__nv_bfloat16 const*, long, float*)",
+    "void (anonymous namespace)::cols_partial_kernel<__nv_bfloat16>("
+    "__nv_bfloat16 const*, int, int, long, float*)",
+    "void (anonymous namespace)::splitk_reduce_q8_kernel<__nv_bfloat16>("
+    "int const*, int, long long, int, float const*, __nv_bfloat16*)",
     "void (anonymous namespace)::splitk_reduce_kernel<__nv_bfloat16>("
     "float const*, int, long long, int, __nv_bfloat16*)",
     "void at::native::vectorized_elementwise_kernel<4, at::native::"

@@ -18,18 +18,22 @@ CUDA-graph step (Executor.run's default on the card) and the eager step
 (use_jit=False) in turns (graph, eager, eager, graph, ...), each with one
 profiled step's device busy ms; this tree only (an older tree has no
 graphs: its eager step is `--paths resnet` or `f32_lm` there).
+`--paths q8`: chip_smoke.py's AMP O3 training paths (ResNet-50 int8 at
+batch 32, the LM int8 and fp8 at batch 8 x T 2048), each graphed beside
+its O2 twin from one startup state, in turns (O3, O2, O2, O3, ...), each
+with one profiled step's device busy ms and the peak memory of a step.
 For comparing two trees in one call,
 run it once per tree, in turns (parent, change, change, parent): on a
 shared host the host clock drifts between minutes, and only runs made
 close together compare.
 
-    python tests/torch_ab_steps.py --root PATH [--paths resnet|f32_lm|feeder|graph]
+    python tests/torch_ab_steps.py --root PATH [--paths resnet|f32_lm|feeder|graph|q8]
         [--requests 20] [--steps 10]
 
 `--root` is the checkout whose paddle_tpu_torch/ and chip_smoke.py are
 timed (default: this one). Prints one JSON line: the root, the card, and
 per path the p50 in ms over the timed calls after one warm-up (f32_lm,
-feeder and graph: and the busy ms).
+feeder, graph and q8: and the busy ms; q8: and the peak memory).
 """
 
 import argparse
@@ -45,7 +49,7 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--paths", default="resnet",
-                    choices=("resnet", "f32_lm", "feeder", "graph"))
+                    choices=("resnet", "f32_lm", "feeder", "graph", "q8"))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -67,6 +71,10 @@ def main(argv=None):
     if args.paths == "graph":
         print(json.dumps({"root": args.root, "card": cs._card_line(),
                           **_graph_steps(cs, pt, resnet, args.steps)}))
+        return 0
+    if args.paths == "q8":
+        print(json.dumps({"root": args.root, "card": cs._card_line(),
+                          **_q8_steps(cs, pt, resnet, args.steps)}))
         return 0
     if args.paths == "f32_lm":
         print(json.dumps({"root": args.root, "card": cs._card_line(),
@@ -179,6 +187,54 @@ def _graph_steps(cs, pt, resnet, steps):
             out[name][mode] = {"step_p50_ms": p50, "step_ms": vals,
                                "busy_ms": busy}
         del exe, scopes
+        torch.cuda.empty_cache()
+    return out
+
+
+def _q8_steps(cs, pt, resnet, steps):
+    """chip_smoke.py's O3 training paths, the graphed O3 step and its
+    graphed O2 twin in turns from one startup state: {path: {level: step
+    p50 ms, the steps' ms, one profiled step's device busy ms, the peak
+    memory a replay allocates beyond what it found}}."""
+    import numpy as np
+    import torch
+    out = {}
+    card = cs._card_line()
+    for name, o3, o2, feed, _, _, _, witness in cs._q3_paths(pt, resnet):
+        scope = pt.Scope()
+        pt.Executor().run(o3[1], scope=scope)
+        init = {n: v for n, v in scope.vars.items()
+                if isinstance(v, torch.Tensor)}
+        runs = {lvl: (pt.Executor(), prog, loss, cs._scope_from(pt, init))
+                for lvl, (prog, _, loss) in (("o3", o3), ("o2", o2))}
+        del scope, init
+        for exe, prog, loss, sc in runs.values():   # warm-up and capture
+            for _ in range(2):
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=sc)
+        ms = {"o3": [], "o2": []}
+        for i in range(steps):
+            for lvl in (("o3", "o2") if i % 2 == 0 else ("o2", "o3")):
+                exe, prog, loss, sc = runs[lvl]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()       # ends in a device->host copy
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=sc)
+                ms[lvl].append((time.perf_counter() - t0) * 1e3)
+        out[name] = {}
+        for lvl, (exe, prog, loss, sc) in runs.items():
+            p50 = float(np.median(ms[lvl]))
+            busy = cs._profile_step(exe, prog, feed, loss, sc, p50, card,
+                                    witness if lvl == "o3" else
+                                    ("a kernel", lambda n: True))["busy_ms"]
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=sc)
+            torch.cuda.synchronize()
+            out[name][lvl] = {"step_p50_ms": p50, "step_ms": ms[lvl],
+                              "busy_ms": busy, "replay_peak_gb": (
+                                  torch.cuda.max_memory_allocated()
+                                  - before) / 1e9}
+        del runs
         torch.cuda.empty_cache()
     return out
 
