@@ -2,8 +2,10 @@
 
 Drives the port's main paths — ResNet-50 (224x224, 1000 classes, full
 width and depth, random weights from a seed) under AMP O2, served by the
-port's ServingEngine through buckets (1, 4, 16), served in int8 (AMP O3)
-from a saved inference model through the same buckets, and trained with
+port's ServingEngine through buckets (1, 4, 16), one CUDA graph per
+bucket, served in int8 (AMP O3) from a saved inference model through the
+same buckets, served under concurrent clients through DynamicBatcher
+(buckets 1-16, bench.py's serving defaults), and trained with
 Momentum through Executor.run at batch 32 and, from the flowers reader,
 through the DoubleBufferedFeeder and Executor.run_steps; the book
 chapters that need no sequence op; bench.py's transformer LM
@@ -28,13 +30,20 @@ version on the card:
               bound;
   4. slice    build + startup on the card, batch-norm statistics set from
               one calibration batch (so the random model's logits are
-              not saturated), 12 requests of batch 1-16, output checks,
-              K1 launch count == eligible convs x batches, fallback
-              counts, one request per bucket against the same weights in
-              f32 on the card and on the port's own CPU plain path, p50
-              latency per bucket, img/s over the request window, and one
-              profiled batch-16 request: device busy time and the kernels
-              it went to;
+              not saturated); each bucket's first call warms up, captures
+              and replays its CUDA graph, the first replay bitwise the
+              eager run of the same prepared program on the same request
+              (the wrappers count K1 3 x 52 a bucket there: the eager
+              reference, warm-up, capture; fallback counts; no filter
+              copied); 12 replayed requests of batch 1-16, output checks,
+              no wrapper called and no capture, K1 launches from the
+              replays' trace == eligible convs x batches, one request per
+              bucket against the same weights in f32 on the card and on
+              the port's own CPU plain path, p50 latency per bucket,
+              img/s over the request window, the graphed request against
+              the eager one in turns (p50 per bucket), and one profiled
+              batch-16 replay: device busy time and the kernels it went
+              to;
   5. kernel_q8  K11 (int8 conv) against conv2d_q8_reference, bitwise (bf16
               and f32 out, the bf16 call repeated), on the five test cases
               and every distinct conv shape of ResNet-50's O3 route at each
@@ -44,22 +53,39 @@ version on the card:
               (int8 operations or bytes);
   6. serve_q8 (and serve_fp8) the calibrated model of phase 4 written by
               io.save_inference_model and served by ServingEngine(dir,
-              quantize="int8"): quant_report of 54 weights, the 12
-              requests, per bucket run K11 42 and K1 10 launches with the
-              quant hits and fallbacks of the reference's routing and no
-              filter copied, output
+              quantize="int8"): quant_report of 54 weights, each bucket
+              warmed up and captured as in slice (per eager bucket run
+              K11 42 and K1 10 launches, Q1 44, with the quant hits and
+              fallbacks of the reference's routing and no filter copied),
+              the 12 requests replayed (from their trace K11 42, K1 10,
+              Q1 44 a bucket run), output
               checks, one request op by op against the CPU plain path in
               O3 on the card's own inputs to each op (the quantized
               windows bitwise), one request per bucket against it end to
-              end, the O3-vs-O2 distance, p50 and img/s beside O2's, one
-              profiled batch-16 request (K11's and the activation-quantize
+              end, the O3-vs-O2 distance, p50 and img/s beside O2's, the
+              graphed request against the eager one in turns, one
+              profiled batch-16 replay (K11's and the activation-quantize
               passes' shares of the device time); then the same model
               served by ServingEngine(dir, quantize="fp8"): the same
               report, per bucket run K1 52 launches and K11 none (the
               convs count the quant gate's "mode" 42 and "kernel" 11), the
-              fc's fp8 GEMM with Q1's rows and dequantize, no filter
-              copied, one request per bucket against the CPU plain path in
-              fp8, p50 per bucket beside O2's;
+              fc's fp8 GEMM with Q1's rows and dequantize (the replays'
+              trace: K1 52, Q1 2), no filter copied, one request per
+              bucket against the CPU plain path in fp8, p50 per bucket
+              beside O2's, graphed against eager in turns, one profiled
+              replay;
+ 6b. serve_load  the calibrated O2 model behind DynamicBatcher at
+              bench.py main_serving's defaults (bucket_ladder(16),
+              max_delay_ms 3, max_queue_depth 32, rows cycling 1-4): every
+              bucket warmed and captured, a normal phase of run_load at 4
+              clients x 16 requests, an overload phase at 8 x 16 with a 50
+              ms deadline, then a profiled normal phase whose trace counts
+              the replays' K1 launches (52 a bucket run); each phase's
+              p50/p99/qps/shed/goodput/bucket hits and telemetry p50/p99,
+              the SLO burn, the engine's and the batcher's stats(); the
+              normal phase's goodput 1.0, no capture during the load, every
+              accepted request's rows finite softmax rows within
+              LOGIT_RTOL of the same rows served alone;
   7. kernel_train  K2-K6 (conv grad input, conv grad filter, conv +
               statistics, bn apply, bn + act) against their plain versions
               at every distinct shape ResNet-50 training gives them at
@@ -137,10 +163,14 @@ version on the card:
               card: one warm-up and five steps (p50, launches per step
               4/4/4), one profiled step (device busy time);
  11. serve_lm ServingEngine over transformer_lm(is_test=True,
-              return_logits=True) in O2, fetching the logits, 6 requests of
-              1-8 rows: K7 launches held to 4 per bucket run, one request
-              against the CPU plain path; then p50 latency per bucket over
-              7 requests that fill it;
+              return_logits=True) in O2, fetching the logits: each bucket
+              warmed up and captured (first replay bitwise the eager run),
+              6 replayed requests of 1-8 rows: K7 launches from their
+              trace held to 4 per bucket run, one request against the CPU
+              plain path; then p50 per bucket, graphed against eager in
+              turns, over 7 requests that fill it; the host's time on the
+              logits (the copy of a replay's rows, then numpy) per bucket;
+              one profiled bucket-8 replay;
  12. kernel_ring  K10 (the ring's unnormalized flash block), in bf16 and in
               f32, against its plain version at the JAX tests' shapes, at
               the 16 (query shard, key shard) pairs of a four-shard causal
@@ -337,6 +367,96 @@ def _raw_trace_launches(prof) -> dict:
              if e.device_type() == DeviceType.CUDA]
     return {k: sum(1 for n in names if re.search(pat, n))
             for k, pat in TRACE_KERNELS.items()}
+# idle seconds the card keeps at each end of a profiler window, inside it:
+# kineto drops a device record whose timestamps, converted from the card's
+# clock to the host's, fall outside the window (libkineto's `outOfRange`),
+# so with the clocks apart the first kernels of work launched as the window
+# opens are lost, in every window while the offset lasts
+PROFILE_MARGIN_S = 0.05
+# each window's least launch lead (`_launch_lead_us`), in the order taken
+LAUNCH_LEADS_US = []
+
+
+@contextlib.contextmanager
+def _profiled():
+    """torch.profiler's CPU and CUDA activity over the body, the card
+    synchronized and then idle for PROFILE_MARGIN_S at both ends of the
+    window. Records the window's launch lead in LAUNCH_LEADS_US."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    LAUNCH_LEADS_US.append(_launch_lead_us(prof))
+
+
+def _launch_lead_us(prof):
+    """The least time from a CUDA runtime call's start to the start of a
+    device record it launched, over the profiler's raw records (None where
+    there is no such pair): below zero, the card's timestamps, as the
+    profiler converts them, run behind the host's by at least as much."""
+    from torch.autograd import DeviceType
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        return None
+    calls, leads = {}, []
+    events = list(raw.events())
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.name().startswith("cuda"):
+            calls[e.correlation_id()] = e.start_ns()
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and e.correlation_id() in calls:
+            leads.append((e.start_ns() - calls[e.correlation_id()]) / 1e3)
+    return min(leads) if leads else None
+
+
+@contextlib.contextmanager
+def _kept_graphs():
+    """The Executor's CUDA graphs captured meanwhile keep their nodes
+    (executor.capture_graph(keep=True)), for _graph_launches to read."""
+    import functools
+    from paddle_tpu_torch import executor as E
+    capture = E.capture_graph
+    E.capture_graph = functools.partial(capture, keep=True)
+    try:
+        yield
+    finally:
+        E.capture_graph = capture
+
+
+def _graph_launches(graph) -> dict:
+    """Kernel counter -> the kernel nodes of a CUDA graph that kept its
+    nodes (_kept_graphs) whose function TRACE_KERNELS names: what every
+    replay of the graph launches, read from its DOT dump (written under the
+    checkout's build/, read, removed)."""
+    import warnings
+    path = Path(__file__).resolve().parent / "build" / f"graph-{os.getpid()}.dot"
+    path.parent.mkdir(exist_ok=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # torch's "DEBUG: calling ..."
+        graph.debug_dump(str(path))
+    try:
+        return _dot_launches(path.read_text())
+    finally:
+        path.unlink(missing_ok=True)
+
+
+def _dot_launches(text) -> dict:
+    """_trace_launches over the kernel nodes of a CUDA graph's verbose DOT
+    dump (cudaGraphDebugDotPrint), whose label gives each kernel node's
+    mangled function name before its `<<<grid,block,smem>>>`."""
+    import re
+    import torch
+    names = [torch._C._demangle(m) for m in re.findall(
+        r"\{KERNEL\s*\|\s*\{ID \| [^|]*\| (\S+?)\\<\\<\\<", text)]
+    return {k: sum(1 for n in names if re.search(pat, n))
+            for k, pat in TRACE_KERNELS.items()}
+
+
 # the executor's profiler ranges (paddle_tpu_torch/ops/registry.py span)
 # and the activation-quantize passes' (quant.ACT_SPAN): each appears on the
 # host and, as the extent of the kernels launched in it, on the device's
@@ -839,11 +959,27 @@ def phase_slice(pt, conv_cuda, resnet, report):
     rng = np.random.default_rng(SEED)
     requests = [rng.standard_normal((n, 3, 224, 224)).astype(np.float32)
                 for n in REQUEST_SIZES]
-    for b in BUCKETS:                          # warm-up: one batch per bucket
-        engine.infer({"img": requests[0][:1].repeat(b, axis=0)})
-    torch.cuda.synchronize()
+    # warm-up: each bucket's first call warms up, captures and replays its
+    # graph, the replay bitwise the eager run (the wrappers count the eager
+    # reference, the warm-up and the capture: three bucket runs each)
+    conv_cuda.COUNTERS.reset()
+    warm_s, pool_gb = _warm_buckets(engine, "img", requests[0], "slice")
+    fallbacks = dict(conv_cuda.COUNTERS.fallbacks)
+    hits = dict(conv_cuda.COUNTERS.hits)
+    warm = conv_cuda.COUNTERS.launches
+    if warm != 3 * eligible * len(BUCKETS) or conv_cuda.COUNTERS.filter_copies:
+        raise RuntimeError(f"the warm-up launched K1 {warm} times (expected "
+                           f"3 x {eligible} x {len(BUCKETS)} buckets) and "
+                           f"copied {conv_cuda.COUNTERS.filter_copies} "
+                           f"filters: the fold stores each as an OIHW view "
+                           f"of OHWI memory")
+    print(f"slice: warm-up and capture per bucket (s) "
+          + ", ".join(f"{b}: {s:.2f}" for b, s in warm_s.items())
+          + f"; first replays bitwise the eager runs; the graphs hold "
+            f"{pool_gb:.3f} GB of device memory", flush=True)
 
     conv_cuda.COUNTERS.reset()
+    misses = engine.cache_misses
     outs, lat = [], {b: [] for b in BUCKETS}
     t_window = time.perf_counter()
     for req in requests:
@@ -852,13 +988,10 @@ def phase_slice(pt, conv_cuda, resnet, report):
         lat[engine.bucket_for(req.shape[0])].append(time.perf_counter() - t0)
         outs.append(out)
     window_s = time.perf_counter() - t_window
-    launches = conv_cuda.COUNTERS.launches
-    fallbacks = dict(conv_cuda.COUNTERS.fallbacks)
-    hits = dict(conv_cuda.COUNTERS.hits)
-    if conv_cuda.COUNTERS.filter_copies:
-        raise RuntimeError(f"the served requests copied "
-                           f"{conv_cuda.COUNTERS.filter_copies} filters: the "
-                           f"fold stores each as an OIHW view of OHWI memory")
+    if conv_cuda.COUNTERS.launches or engine.cache_misses != misses:
+        raise RuntimeError(f"the replayed requests called a K1 wrapper "
+                           f"({conv_cuda.COUNTERS.launches}) or captured "
+                           f"({engine.cache_misses - misses})")
 
     for req, (out, _) in zip(requests, outs):
         if out.shape != (req.shape[0], 1000):
@@ -868,12 +1001,12 @@ def phase_slice(pt, conv_cuda, resnet, report):
         sums = out.astype(np.float64).sum(axis=1)
         if np.abs(sums - 1.0).max() > 2e-2:
             raise RuntimeError(f"softmax rows sum to {sums}")
-    if launches != eligible * len(requests):
-        raise RuntimeError(f"K1 launched {launches} times, expected {eligible} "
-                           f"eligible convs x {len(requests)} batches")
+    launches = _trace_replays(engine, "img", requests, {"K1": eligible},
+                              "slice")["K1"]
     print(f"K1 launches {launches} = {eligible} eligible convs x "
-          f"{len(requests)} batches; lowerings routed to K1 {hits}; "
-          f"fallbacks by (op, reason) {fallbacks}", flush=True)
+          f"{len(requests)} replayed bucket runs (from their trace); "
+          f"lowerings routed to K1 in the warm-up {hits}; fallbacks by "
+          f"(op, reason) {fallbacks}", flush=True)
 
     again = engine.infer({"img": requests[0]})
     if not all(np.array_equal(a, b) for a, b in zip(again, outs[0])):
@@ -923,27 +1056,24 @@ def phase_slice(pt, conv_cuda, resnet, report):
           f"counted) / {window_s:.4f} s, the {len(requests)} requests' window "
           f"({card})", flush=True)
     top = max(REQUEST_SIZES)
-    conv_cuda.COUNTERS.filter_copies = 0
+    full = {b: requests[REQUEST_SIZES.index(b)] for b in BUCKETS}
+    turns = _serve_in_turns(engine, "img", full, "slice")
     profile = _profile_request(engine, requests[REQUEST_SIZES.index(top)],
                                p50[engine.bucket_for(top)],
                                {K1_KERNEL: eligible}, card)
-    profile["filter_copies"] = conv_cuda.COUNTERS.filter_copies
-    print(f"the profiled request: {profile['filter_copies']} filter copies, "
-          f"{profile['device_copies']} device copies "
-          f"({profile['device_copy_ms']:.3f} ms)", flush=True)
-    if profile["filter_copies"]:
-        raise RuntimeError(f"the profiled request copied "
-                           f"{profile['filter_copies']} filters")
+    print(f"the profiled request (a replay): {profile['device_copies']} "
+          f"device copies ({profile['device_copy_ms']:.3f} ms)", flush=True)
     report["slice"] = {"p50_ms": p50, "latencies_s": lat,
                        "img_per_s": ips, "window_s": window_s,
-                       "launches": launches,
+                       "launches": launches, "warmup_s": warm_s,
+                       "graph_gb": pool_gb, "in_turns_p50_ms": turns,
                        "eligible_convs": eligible, "fallbacks": {
                            f"{k[0]}:{k[1]}": v for k, v in fallbacks.items()},
                        "agreement": agreement, "card": card,
                        "profile": profile}
     return launches, {"scope": scope, "main": main, "fetch": [prob, logits],
                       "requests": requests, "outs": outs, "p50_ms": p50,
-                      "img_per_s": ips}
+                      "img_per_s": ips, "full": full, "eligible": eligible}
 
 
 def _compare(ref_out, got_out, what, rtol, served="O2"):
@@ -998,28 +1128,144 @@ def _compare(ref_out, got_out, what, rtol, served="O2"):
     return result, failed
 
 
+# Serving through one CUDA graph per bucket (ServingEngine on the card): a
+# bucket's first call warms up, captures and replays; the first replay is
+# held bitwise to the eager run of the same prepared program on the same
+# padded request (_eager_request: the engine's path before its graphs). A
+# replay calls no kernel wrapper, so the serving paths' launches are
+# counted from a profile of the replayed requests (SERVE_TRACE: kernel ->
+# TRACE_KERNELS counter; serving runs no K2, so the K1-without-statistics
+# events are K1's).
+SERVE_TURNS = 7                     # graphed and eager requests in turns, per bucket
+SERVE_TRACE = {"K1": "conv.dgrad_launches", "K11": "conv.q8_launches",
+               "Q1": "q1.total", "K7": "attn.launches"}
+# Q1's per-tensor form, the activation-quantize passes of the quantized
+# convs: found by kernel name in a replay, where the quant:act ranges that
+# mark them in an eager request do not exist
+ACT_KERNELS = ("q8_partial_kernel", "q8_tensor_kernel")
+
+
+def _eager_request(engine, feed):
+    """One request the way the engine served it before its bucket graphs:
+    padded on the host, copied to the card from pageable memory, the
+    prepared program run eagerly, the valid rows copied back."""
+    import torch
+    from paddle_tpu_torch.executor import to_numpy
+    from paddle_tpu_torch.serving.engine import _pad_rows
+    n = next(iter(feed.values())).shape[0]
+    b = engine.bucket_for(n)
+    padded = {k: torch.from_numpy(_pad_rows(np.ascontiguousarray(
+        v, dtype=engine._feed_meta[k][1]), b)).to(engine.device)
+        for k, v in feed.items()}
+    return [to_numpy(f[:n]) for f in engine._prepared.run(padded,
+                                                          engine._state)]
+
+
+def _bitwise(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _warm_buckets(engine, key, row, what):
+    """Warm up and capture every bucket of `engine` on a full-bucket request
+    of `row` repeated: the engine's first answer of each bucket (its first
+    replay) bitwise _eager_request's on the same request, or raise.
+    Returns (seconds each bucket's first call took, the device memory the
+    graphs hold: pool and workspaces, in GB)."""
+    reserved0 = _settled_reserved()
+    took = {}
+    for b in engine.buckets:
+        feed = {key: row[:1].repeat(b, axis=0)}
+        want = _eager_request(engine, feed)
+        misses = engine.cache_misses
+        t0 = time.perf_counter()
+        got = engine.infer(feed)
+        took[b] = time.perf_counter() - t0
+        if engine.cache_misses != misses + 1 or not _bitwise(got, want):
+            raise RuntimeError(f"{what}: bucket {b}'s first replay is not "
+                               f"bitwise its eager warm-up (or it was no "
+                               f"miss)")
+    return took, (_settled_reserved() - reserved0) / 1e9
+
+
+def _serve_in_turns(engine, key, full, what, turns=SERVE_TURNS):
+    """p50 per bucket (ms, host clock, the answer on the host) of the
+    graphed request (engine.infer) and the eager one (_eager_request), in
+    turns, on the full-bucket requests `full` (bucket -> array); each
+    turn's two answers bitwise equal."""
+    out = {}
+    for b, req in full.items():
+        feed = {key: req}
+        t = {"graph": [], "eager": []}
+        for _ in range(turns):
+            res = {}
+            for mode, fn in (("graph", engine.infer),
+                             ("eager", lambda f: _eager_request(engine, f))):
+                t0 = time.perf_counter()
+                res[mode] = fn(feed)
+                t[mode].append((time.perf_counter() - t0) * 1e3)
+            if not _bitwise(res["graph"], res["eager"]):
+                raise RuntimeError(f"{what}: a graphed bucket-{b} request "
+                                   f"differs from the eager one")
+        out[b] = {m: float(np.median(v)) for m, v in t.items()}
+    print(f"{what}: p50 per bucket, graphed against eager in turns ({turns} "
+          f"each, ms, host clock, {_card_line()}): " + ", ".join(
+              f"bucket {b}: {v['graph']:.2f} vs {v['eager']:.2f} "
+              f"({v['eager'] / v['graph']:.2f}x)" for b, v in out.items()),
+          flush=True)
+    return out
+
+
+def _trace_replays(engine, key, requests, per_run, what, attempts=3):
+    """The replayed requests' launches, counted from one profile of them
+    (SERVE_TRACE) and held to `per_run` (kernel -> launches a bucket run;
+    the others none) times the requests. The profiler now and then loses a
+    window's CUDA activity, so a pass whose counts differ is profiled
+    again, up to `attempts` times; then this raises. Returns the counts."""
+    from torch.autograd import DeviceType
+    want = {k: per_run.get(k, 0) * len(requests) for k in SERVE_TRACE}
+    misses = engine.cache_misses
+    for attempt in range(1, attempts + 1):
+        with _profiled() as prof:
+            for req in requests:
+                engine.infer({key: req})
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not _is_span(e)]
+        traced = _trace_launches(events)
+        got = {k: traced[c] for k, c in SERVE_TRACE.items()}
+        if got == want:
+            break
+        print(f"{what}: trace attempt {attempt}: launches {got}, expected "
+              f"{want}; launch lead {LAUNCH_LEADS_US[-1]} us", flush=True)
+    else:
+        raise RuntimeError(f"{what}: the replays' traces hold {got} "
+                           f"launches, expected {want}")
+    if engine.cache_misses != misses:
+        raise RuntimeError(f"{what}: a traced request captured a graph")
+    return got
+
+
 def _is_span(event) -> bool:
     return event.name.split(":", 1)[0] in SPANS
 
 
-def _profile_request(engine, req, p50_ms, expect, card, attempts=3):
+def _profile_request(engine, req, p50_ms, expect, card, attempts=3,
+                     key="img"):
     """Where one served request's time goes on the device: torch.profiler's
-    CUDA activity for one request, as the busy share of the unprofiled p50
-    latency of its bucket (the profiler's own host cost inflates the
-    profiled wall time), the hand-written kernels' launches and time
-    (`expect`: kernel name -> launches per request), the device time of the
-    activation-quantize passes (the kernels inside quant.ACT_SPAN's device
-    extents), and the device time of the torch ops that launched the rest.
-    The profiler now and then loses a window's CUDA activity, so a request
-    whose trace does not hold the expected launches is profiled again, up
-    to `attempts` times in all; then this raises."""
+    CUDA activity for one request (a replay of its bucket's graph), as the
+    busy share of the unprofiled p50 latency of its bucket (the profiler's
+    own host cost inflates the profiled wall time), the hand-written
+    kernels' launches and time (`expect`: kernel name -> launches per
+    request), the device time of the activation-quantize passes (Q1's
+    per-tensor kernels, ACT_KERNELS), and the device time of the torch ops
+    that launched the rest (a replay's: the feed's and the fetches'
+    copies). The profiler now and then loses a window's CUDA activity, so a
+    request whose trace does not hold the expected launches is profiled
+    again, up to `attempts` times in all; then this raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _profiled() as prof:
             t0 = time.perf_counter()
-            engine.infer({"img": req})
+            engine.infer({key: req})
             wall_ms = (time.perf_counter() - t0) * 1e3
         cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         events = [e for e in cuda if not _is_span(e)]
@@ -1029,7 +1275,8 @@ def _profile_request(engine, req, p50_ms, expect, card, attempts=3):
         if seen == expect:
             break
         print(f"profile attempt {attempt}: the trace holds {seen} launches, "
-              f"expected {expect}", flush=True)
+              f"expected {expect}; launch lead {LAUNCH_LEADS_US[-1]} us",
+              flush=True)
     else:
         raise RuntimeError(f"the profiler saw {seen} launches in one request, "
                            f"expected {expect}, in each of {attempts} "
@@ -1041,10 +1288,9 @@ def _profile_request(engine, req, p50_ms, expect, card, attempts=3):
             busy_us += t - max(s, end)
             end = t
     busy_ms = busy_us / 1e3
-    act = [(e.time_range.start, e.time_range.end) for e in cuda
-           if e.name == "quant:act"]
+    act = [e for e in events if ACT_KERNELS[1] in e.name]
     act_ms = sum(e.time_range.elapsed_us() for e in events
-                 if any(a <= e.time_range.start < b for a, b in act)) / 1e3
+                 if any(k in e.name for k in ACT_KERNELS)) / 1e3
     # kernels launched by torch ops, by op (the hand-written kernels launch
     # through ctypes, outside any torch op); only aten ops, since the
     # profiler's own bookkeeping entries can claim a copy that aten::copy_
@@ -1387,21 +1633,14 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
                            f"quantized weights, none skipped")
 
     requests = served["requests"]
-    for b in BUCKETS:                          # warm-up: one batch per bucket
-        engine.infer({"img": requests[0][:1].repeat(b, axis=0)})
-    torch.cuda.synchronize()
+    # warm-up and capture, each bucket's first replay bitwise its eager
+    # run; the routing is held on what the wrappers count there: the eager
+    # reference, the warm-up and the capture, three bucket runs a bucket
     conv_cuda.COUNTERS.reset()
     quant.COUNTERS.reset()
     quant_cuda.COUNTERS.reset()
-    outs, lat = [], {b: [] for b in BUCKETS}
-    t_window = time.perf_counter()
-    for req in requests:
-        t0 = time.perf_counter()
-        out = engine.infer({"img": req})       # ends in a device->host copy
-        lat[engine.bucket_for(req.shape[0])].append(time.perf_counter() - t0)
-        outs.append(out)
-    window_s = time.perf_counter() - t_window
-    runs = len(requests)
+    warm_s, pool_gb = _warm_buckets(engine, "img", requests[0], "serve_q8")
+    runs = 3 * len(BUCKETS)
     counts = {"q8_launches": conv_cuda.COUNTERS.q8_launches,
               "launches": conv_cuda.COUNTERS.launches}
     hits, fallbacks = dict(quant.COUNTERS.hits), dict(quant.COUNTERS.fallbacks)
@@ -1411,10 +1650,11 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
             {k: v * runs for k, v in Q8_FALLBACKS.items()},
             {k: v * runs for k, v in Q8_CONV_FALLBACKS.items()})
     copies = conv_cuda.COUNTERS.filter_copies
-    print(f"O3 over {runs} bucket runs: K11 launches {counts['q8_launches']}, "
-          f"K1 launches {counts['launches']}; quant hits {hits}, quant "
-          f"fallbacks {fallbacks}; conv fallbacks {conv_fallbacks}; filters "
-          f"copied {copies}", flush=True)
+    print(f"O3 warm-up over {runs} eager bucket runs: K11 launches "
+          f"{counts['q8_launches']}, K1 launches {counts['launches']}; quant "
+          f"hits {hits}, quant fallbacks {fallbacks}; conv fallbacks "
+          f"{conv_fallbacks}; filters copied {copies}; first replays bitwise "
+          f"the eager runs; the graphs hold {pool_gb:.3f} GB", flush=True)
     if copies:
         raise RuntimeError(f"the O3 requests copied {copies} filters: the "
                            f"int8 engine's filters are read in place")
@@ -1428,7 +1668,29 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
     if q1 != {"tensor": Q8_HITS["conv2d"] * runs, "rows": runs,
               "dequant": runs}:
         raise RuntimeError(f"Q1 launches {q1} over {runs} O3 bucket runs")
-    counts["q1"] = sum(q1.values())
+    conv_cuda.COUNTERS.reset()
+    quant_cuda.COUNTERS.reset()
+    misses = engine.cache_misses
+    outs, lat = [], {b: [] for b in BUCKETS}
+    t_window = time.perf_counter()
+    for req in requests:
+        t0 = time.perf_counter()
+        out = engine.infer({"img": req})       # ends in a device->host copy
+        lat[engine.bucket_for(req.shape[0])].append(time.perf_counter() - t0)
+        outs.append(out)
+    window_s = time.perf_counter() - t_window
+    if conv_cuda.COUNTERS.launches or conv_cuda.COUNTERS.q8_launches or \
+            quant_cuda.COUNTERS.launches or engine.cache_misses != misses:
+        raise RuntimeError("the replayed O3 requests called a kernel wrapper "
+                           "or captured")
+    traced = _trace_replays(engine, "img", requests, {
+        "K11": Q8_LAUNCHES["q8_launches"], "K1": Q8_LAUNCHES["launches"],
+        "Q1": Q8_HITS["conv2d"] + 2}, "serve_q8")
+    counts = {"q8_launches": traced["K11"], "launches": traced["K1"],
+              "q1": traced["Q1"]}
+    print(f"O3 over {len(requests)} replayed bucket runs (from their trace): "
+          f"K11 {traced['K11']}, K1 {traced['K1']}, Q1 {traced['Q1']}",
+          flush=True)
     for req, (out, _) in zip(requests, outs):
         if out.shape != (req.shape[0], 1000) or not np.isfinite(out).all():
             raise RuntimeError(f"output {out.shape} for {req.shape}, or not "
@@ -1485,7 +1747,8 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
                                           .sum())})
     worst = max(v["logit_rel_diff"] for v in vs_o2)
     same = sum(v["argmax_equal"] for v in vs_o2)
-    print(f"O3 vs O2 on the card, the same {runs} requests: logits at most "
+    print(f"O3 vs O2 on the card, the same {len(requests)} requests: logits "
+          f"at most "
           f"{worst:.3g} of the row's largest |logit| apart; argmax equal in "
           f"{same} of {sum(REQUEST_SIZES)} rows", flush=True)
     if failures:
@@ -1499,12 +1762,15 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
           + ", ".join(f"bucket {b}: {v:.2f} (O2 {served['p50_ms'][b]:.2f})"
                       for b, v in p50.items())
           + f"; img/s {ips:.1f} (O2 {served['img_per_s']:.1f})", flush=True)
+    turns = _serve_in_turns(engine, "img", served["full"], "serve_q8")
     top = max(REQUEST_SIZES)
     profile = _profile_request(
         engine, requests[REQUEST_SIZES.index(top)], p50[engine.bucket_for(top)],
         {K11_KERNEL: Q8_LAUNCHES["q8_launches"],
          K1_KERNEL: Q8_LAUNCHES["launches"]}, card)
     report["serve_q8"] = {"card": card, "p50_ms": p50, "latencies_s": lat,
+                          "warmup_s": warm_s, "graph_gb": pool_gb,
+                          "in_turns_p50_ms": turns,
                           "img_per_s": ips, "window_s": window_s,
                           "o2_p50_ms": served["p50_ms"],
                           "o2_img_per_s": served["img_per_s"],
@@ -1547,7 +1813,6 @@ def _serve_fp8(conv_cuda, engines, int8_report, served, report):
     per bucket against the CPU plain path in fp8 (FP8_LOGIT_RTOL), the
     distance from O2, p50 per bucket beside O2's."""
     import numpy as np
-    import torch
     from paddle_tpu_torch import quant
     from paddle_tpu_torch.ops import quant_cuda
     engine, cpu_engine = engines
@@ -1557,27 +1822,21 @@ def _serve_fp8(conv_cuda, engines, int8_report, served, report):
         raise RuntimeError(f"fp8 quant_report {qr} (int8's {int8_report}), "
                            f"or a fold kept int8 values")
     requests = served["requests"]
-    for b in BUCKETS:
-        engine.infer({"img": requests[0][:1].repeat(b, axis=0)})
-    torch.cuda.synchronize()
     conv_cuda.COUNTERS.reset()
     quant.COUNTERS.reset()
     quant_cuda.COUNTERS.reset()
-    outs, lat = [], {b: [] for b in BUCKETS}
-    for req in requests:
-        t0 = time.perf_counter()
-        outs.append(engine.infer({"img": req}))
-        lat[engine.bucket_for(req.shape[0])].append(time.perf_counter() - t0)
-    runs = len(requests)
+    warm_s, pool_gb = _warm_buckets(engine, "img", requests[0], "serve_fp8")
+    runs = 3 * len(BUCKETS)       # the eager reference, warm-up, capture
     counts = {"launches": conv_cuda.COUNTERS.launches,
               "q8_launches": conv_cuda.COUNTERS.q8_launches}
     hits, fallbacks = dict(quant.COUNTERS.hits), dict(quant.COUNTERS.fallbacks)
     q1 = dict(quant_cuda.COUNTERS.launches)
     copies = conv_cuda.COUNTERS.filter_copies
-    print(f"fp8 over {runs} bucket runs: K1 launches {counts['launches']}, "
-          f"K11 {counts['q8_launches']}; quant hits {hits}, fallbacks "
-          f"{fallbacks}; Q1 launches {q1}; filters copied {copies}",
-          flush=True)
+    print(f"fp8 warm-up over {runs} eager bucket runs: K1 launches "
+          f"{counts['launches']}, K11 {counts['q8_launches']}; quant hits "
+          f"{hits}, fallbacks {fallbacks}; Q1 launches {q1}; filters copied "
+          f"{copies}; first replays bitwise the eager runs; the graphs hold "
+          f"{pool_gb:.3f} GB", flush=True)
     want = ({k: v * runs for k, v in FP8_LAUNCHES.items()},
             {k: v * runs for k, v in FP8_HITS.items()},
             {k: v * runs for k, v in FP8_FALLBACKS.items()},
@@ -1585,6 +1844,19 @@ def _serve_fp8(conv_cuda, engines, int8_report, served, report):
     if (counts, hits, fallbacks, q1) != want or copies:
         raise RuntimeError(f"fp8 routing {counts} {hits} {fallbacks} {q1}, "
                            f"{copies} filters copied; expected {want}")
+    misses = engine.cache_misses
+    outs, lat = [], {b: [] for b in BUCKETS}
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(engine.infer({"img": req}))
+        lat[engine.bucket_for(req.shape[0])].append(time.perf_counter() - t0)
+    if engine.cache_misses != misses:
+        raise RuntimeError("fp8: a replayed request captured")
+    traced = _trace_replays(engine, "img", requests, {
+        "K1": FP8_LAUNCHES["launches"], "Q1": 2}, "serve_fp8")
+    print(f"fp8 over {len(requests)} replayed bucket runs (from their "
+          f"trace): K1 {traced['K1']}, Q1 {traced['Q1']}, K11 "
+          f"{traced['K11']}", flush=True)
     for req, (out, _) in zip(requests, outs):
         sums = out.astype(np.float64).sum(axis=1)
         if out.shape != (req.shape[0], 1000) or not np.isfinite(out).all() \
@@ -1614,13 +1886,213 @@ def _serve_fp8(conv_cuda, engines, int8_report, served, report):
           f"{card}): " + ", ".join(
               f"bucket {b}: {v:.2f} (O2 {served['p50_ms'][b]:.2f})"
               for b, v in p50.items()), flush=True)
+    turns = _serve_in_turns(engine, "img", served["full"], "serve_fp8")
+    top = max(REQUEST_SIZES)
+    profile = _profile_request(
+        engine, requests[REQUEST_SIZES.index(top)], p50[engine.bucket_for(top)],
+        {K1_KERNEL: FP8_LAUNCHES["launches"]}, card)
     report["serve_fp8"] = {"card": card, "p50_ms": p50, "latencies_s": lat,
-                           "launches": counts, "hits": hits,
+                           "warmup_s": warm_s, "graph_gb": pool_gb,
+                           "in_turns_p50_ms": turns, "profile": profile,
+                           "warmup_launches": counts, "hits": hits,
                            "fallbacks": {f"{k[0]}:{k[1]}": v
                                          for k, v in fallbacks.items()},
-                           "q1_launches": q1, "agreement": agreement,
+                           "warmup_q1_launches": q1,
+                           "replay_traced_launches": traced,
+                           "agreement": agreement,
                            "vs_o2_logit_rel_diff": vs_o2}
-    return {"launches": counts["launches"], "q1": sum(q1.values())}
+    return {"launches": traced["K1"], "q1": traced["Q1"]}
+
+
+# serving under load (phase serve_load): the calibrated ResNet-50 O2 behind
+# DynamicBatcher at bench.py main_serving's defaults (bench.py:1349-1353,
+# 1404-1432): bucket_ladder(16), max_delay_ms 3, max_queue_depth 32,
+# request rows cycling through (1, 2, 3, 4), a normal phase of 4 clients x
+# 16 requests, then an overload phase of 8 clients x 16 requests with a 50
+# ms deadline (bench.py's max(8 x delay, 50)); every bucket warmed and
+# captured before the timed phases. Then one more normal phase under the
+# profiler, whose trace counts the replays' K1 launches (52 a bucket run).
+LOAD = {"max_batch": 16, "max_delay_ms": 3.0, "max_queue_depth": 32,
+        "rows": (1, 2, 3, 4), "clients": 4, "requests": 16,
+        "deadline_ms": 50.0}
+LOAD_POOL = 64                      # distinct images the requests slice
+
+
+def _load_feeds(seed=SEED + 12):
+    """make_feed(client, request) for run_load: rows cycling through
+    LOAD["rows"], sliced from one pool of images made in bulk (the data is
+    set-up, not load), so a request's content is fixed by its indices."""
+    pool = np.random.default_rng(seed).standard_normal(
+        (LOAD_POOL, 3, 224, 224)).astype(np.float32)
+    rows = LOAD["rows"]
+
+    def make_feed(ci, ri):
+        n = rows[(ci + ri) % len(rows)]
+        at = (ci * LOAD["requests"] + ri) % (LOAD_POOL - n)
+        return {"img": pool[at:at + n]}
+    return make_feed, pool
+
+
+def _recording(batcher):
+    """Wrap `batcher.submit` to keep each accepted request's (feed,
+    future); sheds raise before anything is kept."""
+    import threading
+    kept, lock, submit = [], threading.Lock(), batcher.submit
+
+    def recorded(feed, deadline_ms=None):
+        fut = submit(feed, deadline_ms=deadline_ms)
+        with lock:
+            kept.append((feed, fut))
+        return fut
+    batcher.submit = recorded
+    return kept
+
+
+def _phase_line(p):
+    return (f"{p['phase']} {p['clients']} clients x "
+            f"{p['requests'] // max(p['clients'], 1)}: p50 "
+            f"{p['p50_ms']:.2f} ms, p99 {p['p99_ms']:.2f} ms, qps "
+            f"{p['qps']:.1f}, shed {p['shed_fraction']:.3f}, goodput "
+            f"{p['goodput_fraction']:.3f}, bucket hits {p['bucket_hits']}, "
+            f"telemetry p50/p99 {p['telemetry_p50_ms']:.2f}/"
+            f"{p['telemetry_p99_ms']:.2f} ms, timeouts {p['timeouts']}, "
+            f"errors {p['errors']}, wall {p['wall_s']:.2f} s")
+
+
+def phase_serve_load(pt, served, report, attempts=3):
+    """ResNet-50 O2 at full width behind DynamicBatcher under concurrent
+    clients (LOAD): the normal phase's goodput 1.0 and 0 < p50 <= p99;
+    no phase with an engine error or a timed-out future; every accepted
+    request's rows finite softmax rows within LOGIT_RTOL of the same rows
+    served alone through engine.run_batch after the load (an accepted
+    future may hold only a deadline shed); no capture during the timed
+    phases; the replays' K1 launches from a profiled phase (profiled again,
+    up to `attempts` times in all, while the trace lost launches, as in
+    _trace_replays). Returns those launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from paddle_tpu_torch.serving import (DynamicBatcher, ServingEngine,
+                                          ServingOverloadError, bucket_ladder,
+                                          run_load)
+    card = _card_line()
+    engine = ServingEngine(served["main"], ["img"], served["fetch"],
+                           scope=served["scope"], max_batch=LOAD["max_batch"])
+    if engine.buckets != bucket_ladder(LOAD["max_batch"]):
+        raise RuntimeError(f"serve_load buckets {engine.buckets}")
+    make_feed, pool = _load_feeds()
+    t0 = time.perf_counter()
+    warm_s, pool_gb = _warm_buckets(engine, "img", pool, "serve_load")
+    print(f"serve_load: {len(engine.buckets)} buckets warmed up and captured "
+          f"in {time.perf_counter() - t0:.2f} s, first replays bitwise the "
+          f"eager runs; the graphs hold {pool_gb:.3f} GB ({card})",
+          flush=True)
+    misses = engine.cache_misses
+    batcher = DynamicBatcher(engine, max_delay_ms=LOAD["max_delay_ms"],
+                             max_queue_depth=LOAD["max_queue_depth"])
+    kept = _recording(batcher)
+    batcher.start()
+    try:
+        normal = run_load(batcher, make_feed, clients=LOAD["clients"],
+                          requests_per_client=LOAD["requests"],
+                          label="normal")
+        slo_normal = batcher.slo_monitor.report()
+        overload = run_load(batcher, make_feed, clients=2 * LOAD["clients"],
+                            requests_per_client=LOAD["requests"],
+                            deadline_ms=LOAD["deadline_ms"],
+                            label="overload")
+        slo_over = batcher.slo_monitor.report()
+        timed_misses = engine.cache_misses - misses
+        eligible = served["eligible"]
+        traced = []
+        for attempt in range(1, attempts + 1):
+            runs0 = dict(engine.bucket_runs)
+            with _profiled() as prof:
+                traced_phase = run_load(batcher, make_feed,
+                                        clients=LOAD["clients"],
+                                        requests_per_client=LOAD["requests"],
+                                        label="traced")
+            torch.cuda.synchronize()
+            traced.append(traced_phase)
+            runs = sum(engine.bucket_runs.values()) - sum(runs0.values())
+            events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and not _is_span(e)]
+            launches = _trace_launches(events)[SERVE_TRACE["K1"]]
+            if runs and launches == eligible * runs:
+                break
+            print(f"serve_load: trace attempt {attempt}: {runs} bucket runs "
+                  f"replayed {launches} K1 launches, expected {eligible} "
+                  f"each; launch lead {LAUNCH_LEADS_US[-1]} us", flush=True)
+    finally:
+        batcher.stop()
+    for p in (normal, overload, *traced):
+        print("serve_load " + _phase_line(p), flush=True)
+    burn = {"normal": {w: slo_normal["windows"][w]["burn_rate"]
+                       for w in ("fast", "slow")},
+            "overload": {w: slo_over["windows"][w]["burn_rate"]
+                         for w in ("fast", "slow")}}
+    print(f"serve_load SLO {slo_over['objective']}: burn fast/slow after the "
+          f"normal phase {burn['normal']['fast']:.3f}/"
+          f"{burn['normal']['slow']:.3f}, after the overload phase "
+          f"{burn['overload']['fast']:.3f}/{burn['overload']['slow']:.3f}",
+          flush=True)
+    print(f"serve_load engine {engine.stats()}; batcher {batcher.stats()}",
+          flush=True)
+    per_bucket = {b: n - runs0.get(b, 0) for b, n in
+                  engine.bucket_runs.items() if n - runs0.get(b, 0)}
+    print(f"serve_load: the profiled phase's bucket runs {per_bucket} "
+          f"replayed {launches} K1 launches (trace)", flush=True)
+
+    # every accepted request against the same rows served alone
+    worst, checked = 0.0, 0
+    for feed, fut in kept:
+        exc = fut.exception(timeout=60.0)
+        if isinstance(exc, ServingOverloadError) and exc.reason == "deadline":
+            continue
+        if exc is not None:
+            raise RuntimeError(f"serve_load: an accepted request failed "
+                               f"({type(exc).__name__}: {exc})") from exc
+        prob, lg = fut.result()
+        n = feed["img"].shape[0]
+        sums = prob.astype(np.float64).sum(axis=1)
+        if prob.shape != (n, 1000) or not np.isfinite(prob).all() or \
+                not np.isfinite(lg).all() or np.abs(sums - 1.0).max() > 2e-2:
+            raise RuntimeError(f"serve_load: an accepted {n}-row request's "
+                               f"rows are not finite softmax rows")
+        _, alone = engine.run_batch(feed)
+        d = np.abs(lg.astype(np.float64) - alone).max(axis=1) / \
+            np.abs(alone).max(axis=1)
+        worst = max(worst, float(d.max()))
+        checked += 1
+    print(f"serve_load: {checked} accepted requests' rows within {worst:.3g} "
+          f"of the row's largest |logit| of the same rows served alone "
+          f"(tol {LOGIT_RTOL})", flush=True)
+    failures = [f"the {p['phase']} phase: {p['errors']} engine errors, "
+                f"{p['timeouts']} timed-out futures"
+                for p in (normal, overload, *traced)
+                if p["errors"] or p["timeouts"]]
+    if normal["goodput_fraction"] != 1.0 or normal["p50_ms"] is None or \
+            not 0.0 < normal["p50_ms"] <= normal["p99_ms"]:
+        failures.append(f"normal phase {normal}")
+    if worst > LOGIT_RTOL:
+        failures.append(f"accepted rows {worst} past {LOGIT_RTOL}")
+    if timed_misses or engine.cache_misses != misses:
+        failures.append(f"{engine.cache_misses - misses} captures during "
+                        f"the load")
+    if launches != eligible * runs or not runs:
+        failures.append(f"the traced phase's {runs} bucket runs replayed "
+                        f"{launches} K1 launches, expected {eligible} each")
+    report["serve_load"] = {
+        "card": card, "config": LOAD, "warmup_s": warm_s, "graph_gb": pool_gb,
+        "normal": normal, "overload": overload, "traced": traced,
+        "slo": {"objective": slo_over["objective"], **burn,
+                "windows": slo_over["windows"]},
+        "engine": engine.stats(), "batcher": batcher.stats(),
+        "accepted_checked": checked, "accepted_logit_rel_diff": worst,
+        "traced_bucket_runs": runs, "launches": launches}
+    if failures:
+        raise RuntimeError("serve_load: " + "; ".join(failures))
+    engine.close()
+    return launches
 
 
 # --- training: the kernels K2-K6 ------------------------------------------------
@@ -1926,19 +2398,29 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
 # --- training: the main path ------------------------------------------------------
 
 def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
-                  attempts=3, use_jit=None, expect=None):
+                  attempts=3, use_jit=None, expect=None, graph=None):
     """The device's busy share of one training step, its time by kernel
     name and its launches by kernel counter (torch.profiler's CUDA
     activity, `_trace_launches`). A trace without a launch of the
     `witness` kernel, (label, test on the event name), or whose launches
     are not `expect`'s (counter -> launches, when given), is profiled
     again: the profiler now and then loses a window's CUDA activity. Past
-    `attempts` this raises."""
+    `attempts` this raises, with one exception: given the replayed step's
+    `graph` (kept, _kept_graphs), `expect` is held first to the graph's
+    own kernel nodes, which every replay launches, and a trace that then
+    still lacks some of them, and holds nothing beyond them, has lost
+    records: that is printed and returned (`lost_records`), not raised."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    nodes = None
+    if graph is not None:
+        nodes = _graph_launches(graph)
+        off = {k: (nodes[k], v) for k, v in expect.items() if nodes[k] != v}
+        if off:
+            raise RuntimeError(f"the step's CUDA graph holds other kernel "
+                               f"nodes than expected: (graph, expected) {off}")
+    lost = {}
     for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _profiled() as prof:
             t0 = time.perf_counter()
             exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
                     use_jit=use_jit)
@@ -1949,17 +2431,24 @@ def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
         launches = _trace_launches(events)
         short = {k: (launches[k], v) for k, v in (expect or {}).items()
                  if launches[k] != v}
-        if any(witness[1](e.name) for e in events) and not short:
+        seen = any(witness[1](e.name) for e in events)
+        if seen and not short:
             break
         raw = _raw_trace_launches(prof)
         print(f"profile attempt {attempt}: no {witness[0]} launch in the "
               f"trace, or launches (traced, expected) {short}; in the raw "
               f"records { {k: raw.get(k) for k in short} } of "
-              f"{len(events)} events", flush=True)
+              f"{len(events)} events; launch lead {LAUNCH_LEADS_US[-1]} us",
+              flush=True)
     else:
-        raise RuntimeError(f"the profiler saw no {witness[0]} launch in a "
-                           f"training step, or launches other than "
-                           f"expected: (traced, expected) {short}")
+        lost = {k: v - t for k, (t, v) in short.items()}
+        if nodes is None or not seen or min(lost.values()) <= 0:
+            raise RuntimeError(f"the profiler saw no {witness[0]} launch in "
+                               f"a training step, or launches other than "
+                               f"expected: (traced, expected) {short}")
+        print(f"the profiler lost records of a replay in all {attempts} "
+              f"attempts: (traced, in the graph) {short}; the step's graph "
+              f"holds every expected launch ({card})", flush=True)
     busy_us, end = 0.0, float("-inf")
     for e in sorted(events, key=lambda e: e.time_range.start):
         s, t = e.time_range.start, e.time_range.end
@@ -1996,7 +2485,8 @@ def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
                   spans.items(), key=lambda kv: -kv[1][0])[:24]), flush=True)
     return {"busy_ms": busy_ms, "p50_ms": p50_ms, "busy_share": busy_ms / p50_ms,
             "profiled_wall_ms": wall_ms, "by_kernel": kern,
-            "launches": launches,
+            "launches": launches, "graph_launches": nodes,
+            "lost_records": lost,
             "rerun_forward_host_ms": rerun, "by_span": spans}
 
 
@@ -2329,12 +2819,10 @@ def _profile_window(exe, main, reader, loss, scope, card, expect,
     taken again (the profiler now and then loses a window's CUDA
     activity); past `attempts` this raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.reader import pipeline
     for attempt in range(1, attempts + 1):
         wait0 = pipeline.COUNTERS.wait_s
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _profiled() as prof:
             t0 = time.perf_counter()
             exe.run_steps(main, reader=reader, steps=FEED_K,
                           fetch_list=[loss], scope=scope, fetch_mode="stack")
@@ -2348,7 +2836,7 @@ def _profile_window(exe, main, reader, loss, scope, card, expect,
         if not short:
             break
         print(f"profile attempt {attempt}: launches (traced, expected) "
-              f"{short}", flush=True)
+              f"{short}; launch lead {LAUNCH_LEADS_US[-1]} us", flush=True)
     else:
         raise RuntimeError(f"a run_steps window's trace holds other "
                            f"launches than expected: (traced, expected) "
@@ -3795,9 +4283,36 @@ def phase_train_lm(pt, attention_cuda, report):
     return {**launches, **f32_launches}
 
 
+def _logits_host_ms(engine, reps=3):
+    """Per bucket, what the host spends on a replay's logits: the engine's
+    trip of the bucket's rows to a float32 numpy array (_fetch_rows: the
+    copy to the host, then numpy; median of `reps`, ms), with the rows'
+    bytes on the card. Read from each bucket graph's fetch as the last
+    replay left it. The other ways it could take are timed by
+    tests/torch_logits_host_probe.py."""
+    import torch
+    from paddle_tpu_torch.serving.engine import _fetch_rows
+    out = {}
+    for (b, _inner, _token), graph in engine._graphs.items():
+        f = graph.fetches[0]
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, = _fetch_rows([f], b)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if a.dtype != np.float32 or a.shape[0] != b:
+                raise RuntimeError(f"the engine's logits on the host: "
+                                   f"{a.dtype} {a.shape}")
+            del a
+        out[b] = {"bytes": f[:b].numel() * f.element_size(),
+                  "dtype": str(f.dtype).replace("torch.", ""),
+                  "engine_ms": float(np.median(ms))}
+    return out
+
+
 def phase_serve_lm(pt, attention_cuda, report):
     import numpy as np
-    import torch
     from paddle_tpu_torch.serving import ServingEngine
     A = attention_cuda
     T, V = LM["seqlen"], LM["vocab"]
@@ -3812,10 +4327,17 @@ def phase_serve_lm(pt, attention_cuda, report):
     rng = np.random.default_rng(SEED + 6)
     requests = [rng.integers(0, V, (n, T)).astype(np.int64)
                 for n in LM_SERVE_SIZES]
-    for b in LM_BUCKETS:                       # warm-up: one batch per bucket
-        engine.infer({"tok": requests[0][:1].repeat(b, axis=0)})
-    torch.cuda.synchronize()
+    # warm-up and capture, each bucket's first replay bitwise its eager
+    # run (the wrappers count the eager reference, warm-up and capture)
     A.COUNTERS.reset()
+    warm_s, pool_gb = _warm_buckets(engine, "tok", requests[0], "serve_lm")
+    warm, fallbacks = A.COUNTERS.launches, dict(A.COUNTERS.fallbacks)
+    if warm != 3 * LM["n_layer"] * len(LM_BUCKETS) or fallbacks:
+        raise RuntimeError(f"the LM warm-up launched K7 {warm} times, "
+                           f"expected 3 x {LM['n_layer']} x "
+                           f"{len(LM_BUCKETS)}; fallbacks {fallbacks}")
+    A.COUNTERS.reset()
+    misses = engine.cache_misses
     outs, single = [], []
     t_window = time.perf_counter()
     for req in requests:
@@ -3825,15 +4347,15 @@ def phase_serve_lm(pt, attention_cuda, report):
                        (time.perf_counter() - t0) * 1e3))
         outs.append(out)
     window_s = time.perf_counter() - t_window
-    launches, fallbacks = A.COUNTERS.launches, dict(A.COUNTERS.fallbacks)
     for req, out in zip(requests, outs):
         if out.shape != (req.shape[0], T, V) or not np.isfinite(out).all():
             raise RuntimeError(f"logits {out.shape} for tokens {req.shape}, "
                                f"or not finite")
-    if launches != LM["n_layer"] * len(requests) or fallbacks:
-        raise RuntimeError(f"K7 launched {launches} times over {len(requests)} "
-                           f"bucket runs, expected {LM['n_layer']} each; "
-                           f"fallbacks {fallbacks}")
+    if A.COUNTERS.launches or engine.cache_misses != misses:
+        raise RuntimeError("the replayed LM requests called the K7 wrapper "
+                           "or captured")
+    launches = _trace_replays(engine, "tok", requests,
+                              {"K7": LM["n_layer"]}, "serve_lm")["K7"]
     if not np.array_equal(engine.infer({"tok": requests[0]})[0], outs[0]):
         raise RuntimeError("a repeated request gave a different answer")
     cpu_scope = pt.Scope()
@@ -3845,34 +4367,42 @@ def phase_serve_lm(pt, attention_cuda, report):
     got = outs[0].astype(np.float64)
     rel = float(np.abs(got - ref).max() / np.abs(ref).max())
     same = float((got.argmax(-1) == ref.argmax(-1)).mean())
+    del cpu_engine, cpu_scope, ref, got
     card = _card_line()
-    lat = {b: [] for b in LM_BUCKETS}          # the window gives 1-2 per bucket
-    for b in LM_BUCKETS:
-        full = rng.integers(0, V, (b, T)).astype(np.int64)
-        for _ in range(LM_LATENCY_REPS):
-            t0 = time.perf_counter()
-            engine.infer({"tok": full})
-            lat[b].append((time.perf_counter() - t0) * 1e3)
-    p50 = {b: float(np.median(v)) for b, v in lat.items()}
+    full = {b: rng.integers(0, V, (b, T)).astype(np.int64) for b in LM_BUCKETS}
+    turns = _serve_in_turns(engine, "tok", full, "serve_lm",
+                            turns=LM_LATENCY_REPS)
+    p50 = {b: v["graph"] for b, v in turns.items()}
+    host = _logits_host_ms(engine)
     tok_s = sum(LM_SERVE_SIZES) * T / window_s
     print(f"served logits vs the CPU plain path, {requests[0].shape[0]} row(s): "
           f"max abs diff {rel:.3g} of the largest |logit| (tol "
           f"{LM_LOGIT_RTOL}); argmax equal at {same:.4f} of the positions",
           flush=True)
     print(f"K7 launches {launches} = {LM['n_layer']} layers x {len(requests)} "
-          f"bucket runs; the window's single-request latencies (bucket: ms) "
+          f"replayed bucket runs (from their trace); warm-up and capture per "
+          f"bucket (s) " + ", ".join(f"{b}: {s:.2f}" for b, s in warm_s.items())
+          + f", the graphs hold {pool_gb:.3f} GB; the window's "
+            f"single-request latencies (bucket: ms) "
           + ", ".join(f"{b}: {v:.2f}" for b, v in single)
           + f"; {tok_s:.0f} tokens/s over the {len(requests)} requests' window "
             f"({window_s:.3f} s)", flush=True)
-    print(f"p50 latency per bucket over {LM_LATENCY_REPS} full-bucket requests "
-          f"each (ms, host clock, {card}): "
-          + ", ".join(f"bucket {b}: {v:.2f} ({min(lat[b]):.2f}-"
-                      f"{max(lat[b]):.2f})" for b, v in p50.items()), flush=True)
+    print(f"the logits on the host per bucket, the engine's trip of a "
+          f"replay's rows to a float32 numpy array (ms, {card}): " + "; ".join(
+              f"bucket {b} ({v['bytes'] / 1e6:.0f} MB {v['dtype']}) "
+              f"{v['engine_ms']:.2f}" for b, v in sorted(host.items())),
+          flush=True)
+    profile = _profile_request(engine, full[LM_BUCKETS[-1]],
+                               p50[LM_BUCKETS[-1]],
+                               {"flash_fwd_kernel": LM["n_layer"]}, card,
+                               key="tok")
     if rel > LM_LOGIT_RTOL:
         raise RuntimeError("the served logits disagree with the CPU plain path")
-    report["serve_lm"] = {"card": card, "p50_ms": p50, "latencies_ms": lat,
+    report["serve_lm"] = {"card": card, "p50_ms": p50, "in_turns_p50_ms": turns,
                           "window_latencies_ms": single,
                           "tokens_per_s": tok_s, "window_s": window_s,
+                          "warmup_s": warm_s, "graph_gb": pool_gb,
+                          "logits_host_ms": host, "profile": profile,
                           "launches": launches, "cpu_logit_rel_diff": rel,
                           "cpu_argmax_equal": same}
     return launches
@@ -4530,7 +5060,8 @@ def phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
     (no quantized forward re-runs); two more graphed steps and the losses
     finite and lower after five; the O3 and O2 graphed steps in turns
     (p50), one profiled replay of each (busy share; the O3 replay's
-    launches counted from its trace), the memory a step needs beyond the
+    launches counted from its graph's kernel nodes and its trace, main
+    captures under _kept_graphs), the memory a step needs beyond the
     state; a step at the small batch op by op against the CPU plain path
     (_lockstep). Returns {path: wrapper launches of its run}."""
     import numpy as np
@@ -4638,8 +5169,12 @@ def phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
         traced = {k: v for k, v in want.items() if k in TRACE_KERNELS}
         if "conv.launches" in want:     # K1 and K2 are one kernel
             traced["conv.dgrad_launches"] += want["conv.launches"]
+        graphs = [e.graph for e in exe._graphs.values()]
+        if len(graphs) != 1:
+            raise RuntimeError(f"train_q8 {name}: {len(graphs)} step graphs")
         prof = {"o3": _profile_step(exe, main, feed, loss, s3, p50["o3"],
-                                    card, witness, expect=traced),
+                                    card, witness, expect=traced,
+                                    graph=graphs[0]),
                 "o2": _profile_step(exe2, main2, feed, loss2, s2, p50["o2"],
                                     card, ("a kernel", lambda n: True))}
         t0 = time.perf_counter()
@@ -4652,7 +5187,11 @@ def phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
               f"step {per_step}; quant hits {hits}, fallbacks {fbs}; "
               f"generic-grad re-runs per step {reruns} (O2's {reruns2}); "
               f"a replay's traced launches "
-              f"{ {k: prof['o3']['launches'][k] for k in traced} } ({card})",
+              f"{ {k: prof['o3']['launches'][k] for k in traced} }, its "
+              f"graph's kernel nodes "
+              f"{ {k: prof['o3']['graph_launches'][k] for k in traced} }"
+              + (f", records the profiler lost {prof['o3']['lost_records']}"
+                 if prof["o3"]["lost_records"] else "") + f" ({card})",
               flush=True)
         print(f"train_q8 {name}: O3 vs O2 graphed in turns: step p50 "
               f"{p50['o3']:.2f} ms vs {p50['o2']:.2f} ms "
@@ -4677,6 +5216,9 @@ def phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
                      "busy_share": {m: prof[m]["busy_share"] for m in prof},
                      "replay_traced_launches": {
                          k: prof["o3"]["launches"][k] for k in traced},
+                     "graph_launches": {
+                         k: prof["o3"]["graph_launches"][k] for k in traced},
+                     "lost_records": prof["o3"]["lost_records"],
                      "by_kernel_o3": prof["o3"]["by_kernel"],
                      "lockstep_worst_rl2": worst}
         launched[name] = run_launches
@@ -4752,9 +5294,11 @@ def main(argv=None) -> int:
     slice_launches, served = phase_slice(pt, conv_cuda, resnet, report)
     k11 = phase_kernel_q8(pt, conv_cuda, resnet, report)
     q8 = phase_serve_q8(pt, conv_cuda, resnet, report, served)
+    load_launches = phase_serve_load(pt, served, report)
     del served
     k1["launches_by_path"] = {"serve": slice_launches,
-                              "serve_q8": q8["launches"]}
+                              "serve_q8": q8["launches"],
+                              "serve_load": load_launches}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k11["launches"] = q8["q8_launches"]
     train_kernels = phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report,
@@ -4777,8 +5321,9 @@ def main(argv=None) -> int:
     graph_launches = phase_train_graph(pt, conv_cuda, bn_cuda, attention_cuda,
                                        resnet, report)
     q1 = phase_kernel_q1(pt, conv_cuda, resnet, report)
-    q3 = phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet,
-                        report)
+    with _kept_graphs():
+        q3 = phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet,
+                            report)
     r3 = q3["resnet50_o3"]
     k1["launches_by_path"].update({"serve_fp8": q8["fp8"]["launches"],
                                    "train_q8": r3.get("conv.launches", 0)})
@@ -4819,6 +5364,13 @@ def main(argv=None) -> int:
     kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
                + [k11, q1]}
     report.update(kernels)
+    leads = [v for v in LAUNCH_LEADS_US if v is not None]
+    report["launch_lead_us"] = LAUNCH_LEADS_US
+    print(f"profiler windows: {len(LAUNCH_LEADS_US)}, each with "
+          f"{PROFILE_MARGIN_S * 1e3:.0f} ms idle at both ends; least launch "
+          f"lead {min(leads) if leads else None} us, most "
+          f"{max(leads) if leads else None} us (a card record's start less "
+          f"its runtime call's)", flush=True)
     if args.report:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1, default=str)

@@ -329,14 +329,17 @@ def liveness(ops, groups) -> Dict[int, List[str]]:
 GRAPH_CACHE_SIZE = 8
 
 
-def capture_graph(body, pool=None):
+def capture_graph(body, pool=None, keep=False):
     """A CUDA graph of what `body()` launches on the current device, its
     memory drawn from `pool` (another graph's, `graph.pool()`) when given.
     Only this thread's calls are checked during the capture, so a feeder's
-    copy thread goes on beside it."""
-    graph = torch.cuda.CUDAGraph()
+    copy thread goes on beside it. With `keep` the graph keeps its nodes
+    past instantiation, for `graph.debug_dump` to list them."""
+    graph = torch.cuda.CUDAGraph(keep_graph=keep)
     with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
         body()
+    if keep:
+        graph.instantiate()
     return graph
 
 
@@ -389,9 +392,32 @@ class _GraphedStep:
         self.written: Dict[str, torch.Tensor] = {}
 
 
+class BucketGraph:
+    """One serving bucket's run as a captured CUDA graph (the counterpart
+    of the reference's `jit(fn).lower(avals).compile()` per bucket): the
+    static feed buffers it reads, the graph, and the fetches it writes
+    into its memory pool. `replay()` reruns the captured launches on
+    whatever the feed buffers hold; the fetches are valid until the next
+    replay of any graph sharing the pool. `staging` is left to the caller:
+    the serving engine keeps there the pinned host buffers of the feeds'
+    shapes that it writes requests into, so they go with the graph."""
+
+    def __init__(self, feeds: Dict[str, torch.Tensor], graph,
+                 fetches: List[torch.Tensor]):
+        self.feeds = feeds
+        self.graph = graph
+        self.fetches = fetches
+        self.staging: Optional[Dict[str, torch.Tensor]] = None
+
+    def replay(self) -> List[torch.Tensor]:
+        self.graph.replay()
+        return self.fetches
+
+
 class PreparedProgram:
     """One inference program bound to its state names and fusion plan: the
-    serving engine's per-bucket "executable" (Executor.prepare_serving)."""
+    serving engine's per-bucket "executable" (Executor.prepare_serving).
+    `run` interprets it eagerly; `capture` makes a bucket's CUDA graph."""
 
     def __init__(self, executor: "Executor", program: Program,
                  feed_names: List[str], fetch_names: List[str],
@@ -417,13 +443,52 @@ class PreparedProgram:
 
     def run(self, feed: Dict[str, torch.Tensor],
             state: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        env = self._env_after(feed, state)
+        return [env[n] for n in self.fetch_names]
+
+    def _env_after(self, feed, state) -> Dict[str, Any]:
+        """The environment after one eager run: fetches, persistable
+        outputs and state."""
         env = dict(state)
         env.update(feed)
         ctx = LoweringContext(self.executor, self.program, 0)
         ctx.folds = self.folds
         self.executor._run_block(ctx, self.program, env, self.groups,
                                  self.protected, self.drops, self.keep)
-        return [env[n] for n in self.fetch_names]
+        return env
+
+    def capture(self, feeds: Dict[str, torch.Tensor],
+                state: Dict[str, torch.Tensor], pool=None) -> BucketGraph:
+        """Warm up and capture one bucket: `run` once eagerly on `feeds`
+        (the caller's static buffers, already holding a request: lazy
+        inits, cuBLAS's workspace and the kernels' plans happen here), then
+        the same `run` captured as a CUDA graph into `pool` (another
+        graph's `graph.pool()`, when given). The state and the fold
+        constants are read in place, so a served program must write no
+        persistable: each persistable output of the warm-up must be the
+        state tensor itself (is_test batch_norm passes its running
+        statistics through as MeanOut/VarianceOut), or this raises. A
+        capture that fails raises; nothing runs eager in its place."""
+        env = self._env_after(feeds, state)
+        written = [n for n in self.persist_out
+                   if n in env and env[n] is not state.get(n)]
+        if written:
+            raise RuntimeError(
+                f"a served program writes persistables {written}; its bucket "
+                f"graph reads the resident state in place")
+        fetches: List[torch.Tensor] = []
+
+        def body():
+            fetches[:] = self.run(feeds, state)
+
+        try:
+            graph = capture_graph(body, pool)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA graph capture of a serving bucket "
+                f"({ {n: tuple(v.shape) for n, v in feeds.items()} }) "
+                f"failed ({type(e).__name__}: {e})") from e
+        return BucketGraph(feeds, graph, fetches)
 
 
 def default_place() -> Place:

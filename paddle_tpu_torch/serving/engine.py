@@ -19,24 +19,45 @@ paddle_tpu/serving/engine.py `ServingEngine`).
     the eligible convs run the int8 kernel K11 and the fc an int8 GEMM;
     under fp8 the fc runs an fp8 GEMM and the convs K1, each counting a
     ("conv2d", "mode") fallback, as the reference's.
-  * **Buckets**: a request is padded (edge rows) to the smallest bucket of
-    the ladder that holds it, and larger requests are chunked. The JAX
-    package compiles one XLA executable per bucket; here every bucket runs
-    the same prepared op list eagerly (Executor.prepare_serving). CUDA
-    graphs per bucket are later work. The hit/miss/run counters stay as
-    plain ints: a miss is a bucket's first run.
+  * **Bucket graphs**: a request is padded (edge rows) to the smallest
+    bucket of the ladder that holds it, and larger requests are chunked.
+    Where the reference compiles one XLA executable per bucket, the port
+    captures one CUDA graph per bucket (PreparedProgram.capture): a
+    bucket's first call runs the program eagerly once as the warm-up,
+    captures it, and replays the capture, so its first answer already
+    comes from a replay; later calls replay. The graphs are keyed by
+    bucket, the feeds' inner shapes and `quant.cache_token(program)` (a
+    replay never runs a route the quant switches no longer select), share
+    one memory pool, and live in an LRU of `cache_capacity` (default: the
+    ladder's length). A request is written, padding included, into its
+    graph's pinned host buffers (BucketGraph.staging, evicted with the
+    graph) and copied from there into the graph's static feed buffers;
+    the valid rows of each fetch are
+    copied to fresh pinned host blocks under the engine lock, before
+    another bucket's replay can reuse the pool, and come back as numpy
+    arrays the caller owns (`_fetch_rows`). A program the executor's graph
+    gate refuses runs eagerly, counted in `serving_fallback_total{reason}`:
+    "cpu" on a CPU place (the CPU tests' path: a bucket's first run counts
+    a miss, later runs hits), "random_op", "lod_feed".
   * **Resident state**: the weights the program reads are resolved from the
     scope and placed on the serving device once, at construction, with the
-    fold windows' filters and biases computed from them once.
+    fold windows' filters and biases computed from them once; the graphs
+    read them in place.
+  * **Telemetry**: the reference's series (`serving_cache_{hit,miss}_total`,
+    `serving_cache_evictions_total`, `serving_compile_seconds` — warm-up
+    plus capture — and `serving_bucket_runs_total`), the `serving_admit`,
+    `serving_prequantize`, `serving_compile` and `serving_evict` events,
+    python mirrors of the counters and `stats()`.
 
-The static-analyzer admission gate, telemetry counters, the hot-row
-embedding cache and LoD requests are later slices; the cache raises
-NotImplementedError.
+The static-analyzer admission gate, the hot-row embedding cache and LoD
+requests are later slices; the cache raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,8 +65,9 @@ import torch
 
 from .. import io as io_mod
 from .. import quant as quant_mod
+from .. import telemetry
 from ..executor import (CUDAPlace, Executor, Scope, global_scope, scope_guard,
-                        to_numpy, _to_device)
+                        _to_device)
 from ..framework.framework import Variable
 
 DEFAULT_MAX_BATCH = 64
@@ -59,6 +81,12 @@ TRAINING_ONLY_OP_TYPES = frozenset({
     "sgd", "momentum", "adam", "fused_sgd", "fused_momentum", "fused_adam",
     "fused_sparse_sgd", "fused_sparse_momentum", "fused_sparse_adam",
 })
+
+
+def training_only_op_types() -> frozenset:
+    """Op types that only make sense while training (gradient ops are
+    matched by their `_grad` suffix in `is_training_only_op` instead)."""
+    return TRAINING_ONLY_OP_TYPES
 
 
 def is_training_only_op(op_type: str, op_role: Optional[str]) -> bool:
@@ -89,14 +117,38 @@ def _pad_rows(arr: np.ndarray, rows: int) -> np.ndarray:
     return np.concatenate([arr, pad], axis=0)
 
 
+def _fetch_rows(fetch: List[torch.Tensor], rows: int) -> List[np.ndarray]:
+    """The first `rows` rows of each fetch as fresh numpy arrays the caller
+    owns (bf16 widened to float32, which is exact: numpy has no bfloat16).
+    On the card only the valid rows move: a bf16 fetch is widened there
+    (the host's widening of the LM's logits cost far more than the card's,
+    PERF.md §5), and each is copied once into a fresh pinned block, which
+    the copy engine fills several times faster than pageable memory; the
+    stream is waited on once, after the last copy."""
+    out = []
+    for t in fetch:
+        t = t.detach()[:rows]
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        if t.device.type == "cuda":
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            t = h
+        out.append(t)
+    if any(f.device.type == "cuda" for f in fetch):
+        torch.cuda.current_stream(fetch[0].device).synchronize()
+    return [t.numpy() for t in out]
+
+
 class ServingEngine:
     """Bucketed serving for one inference program. `infer(feed)` is the
-    synchronous surface; `run_batch` runs one padded batch."""
+    synchronous surface; `run_batch` is the batcher's hot path."""
 
     def __init__(self, model, feed_names: Optional[Sequence[str]] = None,
                  fetch_names: Optional[Sequence] = None, place=None,
                  scope=None, max_batch: int = DEFAULT_MAX_BATCH,
                  buckets: Optional[Sequence[int]] = None,
+                 cache_capacity: Optional[int] = None,
                  emb_cache_budget_bytes: Optional[int] = None,
                  emb_cache_tables: Optional[Dict[str, int]] = None,
                  quantize: Optional[str] = None):
@@ -135,6 +187,7 @@ class ServingEngine:
         self.feed_names = feed_names
         self.fetch_names = fetch_names
         self.program = program
+        self._label = telemetry.program_label(program)
 
         self.quantize = quantize
         self.quant_report: Optional[Dict[str, object]] = None
@@ -151,6 +204,8 @@ class ServingEngine:
         else:
             self.buckets = bucket_ladder(max_batch)
         self.max_batch = self.buckets[-1]
+        self.cache_capacity = (int(cache_capacity) if cache_capacity
+                               else len(self.buckets))
 
         # feed geometry from the program desc: the leading dim must be the
         # batch (-1) for the bucket ladder to apply
@@ -178,13 +233,27 @@ class ServingEngine:
             self.quant_report = quant_mod.prequantize(
                 program, self._scope, quantize, device=self.device,
                 folded=folded)
+            telemetry.log_event(
+                "serving_prequantize", program=self._label, mode=quantize,
+                quantized=len(self.quant_report["quantized"]),
+                skipped=len(self.quant_report["skipped"]))
         self._state: Dict[str, torch.Tensor] = {
             n: _to_device(self._scope.find_var(n), self.device)
             for n in self._prepared.state_names}
         self._prepared.fold_weights(self._state)
 
+        # None: every bucket runs as a graph; else why every bucket runs
+        # eager ("cpu", "random_op", "lod_feed")
+        self._eager_reason = self._exe.graph_gate(program, feed_names)
+        # (bucket, inner feed shapes, quant token) -> BucketGraph (None
+        # when eager), least recently used first
+        self._graphs: "collections.OrderedDict[tuple, object]" = \
+            collections.OrderedDict()
+        self._pool = None           # the graphs' shared memory pool
+        # python-side mirrors of the telemetry counters (tests + stats())
         self.cache_hits = 0
         self.cache_misses = 0
+        self.evictions = 0
         self.bucket_runs: Dict[int, int] = {}
 
     # --- admission ----------------------------------------------------------
@@ -209,21 +278,126 @@ class ServingEngine:
                 raise ValueError(
                     f"refusing to serve: fetch '{n}' is not computable from "
                     f"the feeds — no op in the pruned program produces it")
+        telemetry.log_event("serving_admit", program=self._label,
+                            ops=len(program.global_block().ops))
 
-    # --- buckets ------------------------------------------------------------
+    # --- bucket cache -------------------------------------------------------
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
             if n <= b:
                 return b
         return self.buckets[-1]
 
+    def _stage(self, arrays: Dict[str, np.ndarray], bucket: int,
+               graph) -> Dict[str, torch.Tensor]:
+        """The request padded to `bucket` rows (edge rows), as tensors the
+        compute can read: where buckets run graphed, the pinned host
+        buffers of the bucket's `graph`, written in place (new ones when
+        the bucket is about to be captured, which the graph then keeps);
+        on the eager path new tensors."""
+        if self._eager_reason is not None:
+            return {n: torch.from_numpy(_pad_rows(a, bucket))
+                    for n, a in arrays.items()}
+        stage = graph.staging if graph is not None else {
+            n: torch.from_numpy(np.empty((bucket,) + a.shape[1:],
+                                         a.dtype)).pin_memory()
+            for n, a in arrays.items()}
+        for n, a in arrays.items():
+            s = stage[n].numpy()
+            s[:len(a)] = a
+            s[len(a):] = a[-1]
+        return stage
+
+    def _graph_locked(self, key: tuple, staged: Dict[str, torch.Tensor]):
+        """The graph of `key` (bucket, inner feed shapes, quant token; None
+        where the gate runs it eager), from the LRU cache with telemetry; a
+        miss warms up and captures it on the staged request, which it
+        keeps as its staging buffers. Caller holds self._lock."""
+        bucket = key[0]
+        if key in self._graphs:
+            self._graphs.move_to_end(key)
+            self.cache_hits += 1
+            telemetry.counter(
+                "serving_cache_hit_total",
+                "serving bucket-graph cache hits",
+                labels=("program", "bucket")).labels(
+                    program=self._label, bucket=str(bucket)).inc()
+            return self._graphs[key]
+        self.cache_misses += 1
+        telemetry.counter(
+            "serving_cache_miss_total",
+            "serving bucket-graph cache misses (warm-up and capture)",
+            labels=("program", "bucket")).labels(
+                program=self._label, bucket=str(bucket)).inc()
+        t0 = time.perf_counter()
+        graph = None
+        if self._eager_reason is None:
+            feeds = {n: torch.empty(s.shape, dtype=s.dtype, device=self.device)
+                     for n, s in staged.items()}
+            for n, buf in feeds.items():
+                buf.copy_(staged[n], non_blocking=True)
+            graph = self._prepared.capture(feeds, self._state, self._pool)
+            graph.staging = staged
+            if self._pool is None:
+                self._pool = graph.graph.pool()
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        telemetry.histogram(
+            "serving_compile_seconds",
+            "bucket warm-up plus CUDA graph capture wall seconds",
+            labels=("program", "bucket")).labels(
+                program=self._label, bucket=str(bucket)).observe(dt)
+        telemetry.log_event("serving_compile", program=self._label,
+                            bucket=bucket, seconds=dt)
+        # insert before evicting: the pool stays held by a live graph
+        self._graphs[key] = graph
+        while len(self._graphs) > self.cache_capacity:
+            evicted, _ = self._graphs.popitem(last=False)
+            self.evictions += 1
+            telemetry.counter(
+                "serving_cache_evictions_total",
+                "bucket graphs LRU-evicted",
+                labels=("program",)).labels(program=self._label).inc()
+            telemetry.log_event("serving_evict", program=self._label,
+                                bucket=evicted[0])
+        return graph
+
+    def _compute_locked(self, graph, staged: Dict[str, torch.Tensor],
+                        rows: int) -> List[np.ndarray]:
+        """Run the bucket (replay its graph, else eagerly) and copy the
+        valid rows of each fetch to the host, before any other replay can
+        write the pool."""
+        if graph is not None:
+            for n, buf in graph.feeds.items():
+                buf.copy_(staged[n], non_blocking=True)
+            fetch = graph.replay()
+        else:
+            telemetry.counter(
+                "serving_fallback_total",
+                "bucket runs on the eager path, by the graph gate's reason",
+                labels=("program", "reason")).labels(
+                    program=self._label, reason=self._eager_reason).inc()
+            feed = {n: s.to(self.device, non_blocking=True)
+                    for n, s in staged.items()}
+            fetch = self._prepared.run(feed, self._state)
+        return _fetch_rows(fetch, rows)
+
     # --- execution ----------------------------------------------------------
     def run_batch(self, feed: Dict[str, np.ndarray],
-                  valid_rows: Optional[int] = None) -> List[np.ndarray]:
-        """Execute one batch: pad to the smallest admissible bucket, run it,
-        slice the valid rows back out."""
+                  valid_rows: Optional[int] = None,
+                  _phase_marks: Optional[Dict] = None) -> List[np.ndarray]:
+        """Execute one batch: pad to the smallest admissible bucket, run its
+        graph, copy the valid rows back out.
+
+        `_phase_marks`, when a dict, is filled with contiguous
+        (start, end) monotonic pairs for the pad / bucket_select /
+        compute phases (+ the chosen bucket) — the hook the batcher uses
+        to record per-request child spans retroactively. compute runs
+        from the feeds' copy to the device to the fetches' arrival on the
+        host."""
         if self.closed:
             raise RuntimeError("ServingEngine is closed")
+        t_enter = time.monotonic() if _phase_marks is not None else 0.0
         arrays = {}
         n = None
         for name in self.feed_names:
@@ -250,16 +424,30 @@ class ServingEngine:
                 f"split the request (infer() chunks automatically)")
         rows = valid_rows if valid_rows is not None else n
         bucket = self.bucket_for(n)
+        inner = tuple(a.shape[1:] for a in arrays.values())
         with self._lock:
-            padded = {name: torch.from_numpy(_pad_rows(a, bucket)).to(self.device)
-                      for name, a in arrays.items()}
-            if bucket in self.bucket_runs:
-                self.cache_hits += 1
-            else:
-                self.cache_misses += 1
-            fetch = self._prepared.run(padded, self._state)
+            if self._closed:
+                raise RuntimeError("ServingEngine is closed")
+            key = (bucket, inner, quant_mod.cache_token(self.program))
+            staged = self._stage(arrays, bucket, self._graphs.get(key))
+            if _phase_marks is not None:
+                t_pad = time.monotonic()
+                _phase_marks["bucket"] = bucket
+                _phase_marks["pad"] = (t_enter, t_pad)
+            graph = self._graph_locked(key, staged)
+            if _phase_marks is not None:
+                t_sel = time.monotonic()
+                _phase_marks["bucket_select"] = (t_pad, t_sel)
+            out = self._compute_locked(graph, staged, rows)
+            if _phase_marks is not None:
+                _phase_marks["compute"] = (t_sel, time.monotonic())
             self.bucket_runs[bucket] = self.bucket_runs.get(bucket, 0) + 1
-        return [to_numpy(f[:rows]) for f in fetch]
+        telemetry.counter(
+            "serving_bucket_runs_total",
+            "batches executed per bucket",
+            labels=("program", "bucket")).labels(
+                program=self._label, bucket=str(bucket)).inc()
+        return out
 
     def infer(self, feed: Dict[str, object]) -> List[np.ndarray]:
         """Synchronous inference on dense feeds, chunked when larger than
@@ -278,17 +466,34 @@ class ServingEngine:
         return [np.concatenate([p[i] for p in parts], axis=0)
                 for i in range(len(self.fetch_names))]
 
-    # --- lifecycle ----------------------------------------------------------
+    # --- lifecycle / introspection ------------------------------------------
+    def stats(self) -> Dict[str, object]:
+        # under the run lock: the batcher's worker mutates the counters
+        # mid-run_batch, and stats() is called from other threads
+        with self._lock:
+            return {
+                "cache_hits": self.cache_hits,
+                "cache_misses": self.cache_misses,
+                "evictions": self.evictions,
+                "bucket_runs": dict(self.bucket_runs),
+                "buckets": list(self.buckets),
+                "resident_state": len(self._state or ()),
+            }
+
     @property
     def closed(self) -> bool:
         with self._lock:
             return self._closed
 
     def close(self):
-        """Drop the prepared program and resident device state; further
-        calls raise."""
+        """Drop the bucket graphs (their staging buffers with them), their
+        pool and the resident device state (the fold constants too);
+        further calls raise."""
         with self._lock:
+            self._graphs.clear()
+            self._pool = None
             self._state = {}
+            self._prepared.folds = None
             self._closed = True
 
     def __enter__(self):

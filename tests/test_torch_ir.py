@@ -147,6 +147,9 @@ def test_amp_o3_is_a_later_slice(monkeypatch):
 def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import paddle_tpu_torch, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.errors, paddle_tpu_torch.telemetry, "
+            "paddle_tpu_torch.tracing, paddle_tpu_torch.serving.batcher, "
+            "paddle_tpu_torch.serving.harness, paddle_tpu_torch.serving.slo, "
             "paddle_tpu_torch.reader, paddle_tpu_torch.reader.pipeline, "
             "paddle_tpu_torch.reader.creator, paddle_tpu_torch.dataset, "
             "paddle_tpu_torch.recordio, paddle_tpu_torch.data_feeder, "
@@ -155,6 +158,23 @@ def test_import_without_jax():
             "paddle_tpu_torch.recordio._load(); "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
             "for m in sys.modules); print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "errors", "telemetry", "tracing", "serving.batcher", "serving.harness",
+    "serving.slo"])
+def test_serving_modules_import_alone_without_jax(module):
+    """Each module of the serving slice, imported first and alone with jax
+    blocked, brings in neither jax nor anything of the JAX package."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            f"import paddle_tpu_torch.{module}; "
+            "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
+            "or m.startswith('jax') for m in sys.modules if sys.modules[m]); "
+            "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -2,9 +2,10 @@
 spills registers must stop the smoke, a clean log must pass it, and ptxas's
 serialized-wgmma warning (C7511) is recorded without hiding either. Also
 `--parent`'s loader of an older checkout's batch-norm module, the
-train_feeder phase's copy-overlap share on a made-up trace, and the
-kernel counters a profiler event's name counts for (how the launches of a
-CUDA graph's replay are counted)."""
+train_feeder phase's copy-overlap share on a made-up trace, the launch
+lead of a made-up profile, the kernel counters a profiler event's name
+counts for (how the launches of a CUDA graph's replay are counted), and
+the same counters over a CUDA graph's DOT dump."""
 
 import sys
 from pathlib import Path
@@ -12,8 +13,9 @@ from pathlib import Path
 import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import (_copy_overlap, _trace_launches,  # noqa: E402
-                        parent_bn_cuda, ptxas_report)
+from chip_smoke import (_copy_overlap, _dot_launches,  # noqa: E402
+                        _launch_lead_us, _trace_launches, parent_bn_cuda,
+                        ptxas_report)
 
 MANGLED = ("_ZN55_GLOBAL__N__6c76bbb5_22_flash_attn_bwd_tf32_cu_98bb9b7e15"
            "dkv_tf32_kernelILi128ELi32ELi1ELi2EEEv14CUtensorMap_stS1_S1_S1_"
@@ -112,6 +114,90 @@ def test_copy_overlap_share():
     assert _copy_overlap(events[2:4]) == (0.0, None)
 
 
+class _Raw:
+    """A kineto record as the profiler's raw results hold it."""
+
+    def __init__(self, name, device, corr, start_ns):
+        self._v = (name, device, corr, start_ns)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        return self._v[1]
+
+    def correlation_id(self):
+        return self._v[2]
+
+    def start_ns(self):
+        return self._v[3]
+
+
+def test_launch_lead_pairs_records_with_their_runtime_calls():
+    """The least card-record start less its runtime call's start (µs),
+    paired by correlation id: a graph launch at 1000 ns whose kernels start
+    at 6000 and 800 ns, a kernel launch at 2000 ns whose kernel starts at
+    9000; an aten op and an unpaired record count for nothing."""
+    from torch.autograd import DeviceType
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [_Raw("cudaGraphLaunch", cpu, 7, 1000),
+              _Raw("cudaLaunchKernel", cpu, 8, 2000),
+              _Raw("aten::add", cpu, 9, 0),
+              _Raw("bn_act_kernel", cuda, 7, 6000),
+              _Raw("conv2d_fwd_kernel", cuda, 7, 800),
+              _Raw("relu", cuda, 8, 9000),
+              _Raw("orphan", cuda, 11, 0)]
+    prof = type("P", (), {})()
+    prof.profiler = type("K", (), {})()
+    prof.profiler.kineto_results = type("R", (), {"events": lambda s: events})()
+    assert _launch_lead_us(prof) == pytest.approx(-0.2)
+    prof.profiler.kineto_results = type("R", (), {"events": lambda s: events[2:3]})()
+    assert _launch_lead_us(prof) is None
+    assert _launch_lead_us(object()) is None
+
+
+# nodes of a ResNet-50 O3 training step's CUDA graph as
+# cudaGraphDebugDotPrint writes them (verbose), trimmed to the label lines
+# the count reads
+DOT = r"""digraph dot {
+subgraph cluster_1 {
+label="graph_1" graph[style="dashed"];
+"graph_1_node_3"[style="solid" style="solid" shape="record" label="{MEMSET
+| {{ID | node handle | dptr | pitch | value | elementSize | width | height} | {3 (topoId: 2688) | 0x000000001F27F048 | 0x00007F8FEA000000 | 0 | 0 | 1 | 25690112 | 1}}}"];
+"graph_1_node_8"[style="bold" shape="record" label="{KERNEL
+| {ID | 8 (topoId: 2683) | _ZN41_GLOBAL__N__6c6db389_9_bn_act_cu_65c2c48313bn_act_kernelILi8ELi1EEEvNS_6ParamsE\<\<\<132,512,229376\>\>\>}
+| {cooperative | 1}
+}"];
+"graph_1_node_17"[style="bold" shape="record" label="{KERNEL
+| {ID | 17 (topoId: 2674) | _ZN46_GLOBAL__N__19570ee1_13_conv2d_fwd_cu_c0cc5bd517conv2d_fwd_kernelILi64E13__nv_bfloat16Lb0EEEv14CUtensorMap_stS2_S2_NS_6ParamsE\<\<\<\{784,4\},288,25664\>\>\>}
+| {cooperative | 0}
+}"];
+"graph_1_node_115"[style="bold" shape="record" label="{KERNEL
+| {ID | 115 (topoId: 2576) | _ZN44_GLOBAL__N__d5e697cb_11_quantize_cu_0c0d40a217quant_rows_kernelI13__nv_bfloat16Lb0ELi8EEEvPKT_iiiNS_4ViewEPhS5_Pff\<\<\<512,32,0\>\>\>}
+| {cooperative | 0}
+}"];
+"graph_1_node_117"[style="bold" shape="record" label="{KERNEL
+| {ID | 117 (topoId: 2574) | _ZN46_GLOBAL__N__19570ee1_13_conv2d_fwd_cu_c0cc5bd520conv2d_fwd_q8_kernelILi64E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_NS_6ParamsE\<\<\<\{196,8\},288,50240\>\>\>}
+| {cooperative | 0}
+}"];
+"graph_1_node_118"[style="bold" shape="record" label="{KERNEL
+| {ID | 118 (topoId: 2573) | _ZN41_GLOBAL__N__6c6db389_9_bn_act_cu_65c2c48313bn_act_kernelILi8ELi0EEEvNS_6ParamsE\<\<\<132,512,229376\>\>\>}
+| {cooperative | 1}
+}"];
+}
+}"""
+
+
+def test_graph_nodes_count_for_their_kernels():
+    """A graph's kernel nodes, demangled, count for the same counters as
+    the profiler's events of their kernels: two K6 nodes, a K2 (K1's
+    kernel without statistics), a K11 and a Q1 row quantize; the memset
+    counts for nothing."""
+    got = {k: v for k, v in _dot_launches(DOT).items() if v}
+    assert got == {"bn.act_launches": 2, "conv.dgrad_launches": 1,
+                   "conv.q8_launches": 1, "q1.total": 1}
+
+
 # full names as the profiler reports the kernels of a training step
 TRACED = {
     "void (anonymous namespace)::conv2d_fwd_kernel<128, __nv_bfloat16, "
@@ -180,3 +266,66 @@ def test_trace_event_counts_for_its_kernel(name):
     event = type("Event", (), {"name": name})
     got = {k: v for k, v in _trace_launches([event]).items() if v}
     assert got == ({TRACED[name]: 1} if name in TRACED else {})
+
+
+K6_EVENT = "void (anonymous namespace)::bn_act_kernel<8, 1>(Params)"
+K11_EVENT = ("void (anonymous namespace)::conv2d_fwd_q8_kernel<64, "
+             "__nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, "
+             "CUtensorMap_st, Params)")
+EXPECT = {"bn.act_launches": 3, "conv.q8_launches": 2}
+
+
+class _Traced:
+    """A device event of a made-up profile."""
+
+    def __init__(self, name, start):
+        from torch.autograd import DeviceType
+        self.name, self.device_type = name, DeviceType.CUDA
+        self.time_range = type("R", (), {
+            "start": start, "end": start + 5.0,
+            "elapsed_us": lambda s: 5.0})()
+
+
+@pytest.mark.parametrize("k6_traced, nodes, outcome", [
+    (3, {"bn.act_launches": 3, "conv.q8_launches": 2}, {}),
+    (2, {"bn.act_launches": 3, "conv.q8_launches": 2}, {"bn.act_launches": 1}),
+    (2, None, "raises"),
+    (4, {"bn.act_launches": 3, "conv.q8_launches": 2}, "raises"),
+    (3, {"bn.act_launches": 2, "conv.q8_launches": 2}, "raises"),
+], ids=["trace_whole", "record_lost_graph_whole", "record_lost_no_graph",
+        "launch_beyond_graph", "graph_short"])
+def test_profile_step_holds_the_graph_and_the_trace(monkeypatch, k6_traced,
+                                                     nodes, outcome):
+    """_profile_step holds `expect` to the replayed graph's kernel nodes
+    first; a trace that lacks records of them in every attempt is
+    reported (lost_records) only when the graph holds them all and the
+    trace holds nothing beyond them, and raises otherwise."""
+    import contextlib
+
+    import chip_smoke
+
+    events = ([_Traced(K6_EVENT, 10.0 * i) for i in range(k6_traced)]
+              + [_Traced(K11_EVENT, 100.0 + 10.0 * i) for i in range(2)])
+
+    @contextlib.contextmanager
+    def profiled():
+        chip_smoke.LAUNCH_LEADS_US.append(None)
+        yield type("P", (), {"events": lambda s: events,
+                             "key_averages": lambda s: []})()
+
+    monkeypatch.setattr(chip_smoke, "_profiled", profiled)
+    monkeypatch.setattr(chip_smoke, "_graph_launches",
+                        lambda g: {k: 0 for k in chip_smoke.TRACE_KERNELS}
+                        | (nodes or {}))
+    exe = type("Exe", (), {"run": lambda s, *a, **k: None})()
+    witness = ("K11", lambda n: "conv2d_fwd_q8_kernel" in n)
+    call = lambda: chip_smoke._profile_step(  # noqa: E731
+        exe, None, {}, None, None, 1.0, "card", witness, expect=EXPECT,
+        graph=None if nodes is None else object())
+    if outcome == "raises":
+        with pytest.raises(RuntimeError):
+            call()
+    else:
+        got = call()
+        assert got["lost_records"] == outcome
+        assert got["launches"]["bn.act_launches"] == k6_traced
