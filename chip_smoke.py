@@ -15,8 +15,10 @@ bench.py's long-context ring configuration of the same LM (batch 1, T
 32768, sequence_parallel over an 'sp' mesh of the one card) trained; each
 training step eager and as a CUDA graph per step signature; ResNet-50 and
 the LM trained under AMP O3 (int8; the LM also fp8) and ResNet-50 served
-in fp8 — and holds every kernel of those paths against its plain PyTorch
-version on the card:
+in fp8; bench.py's DLRM trained with sparse embedding gradients (its 1M-row
+table in place on the card, and again from the hot-row cache) and its dlrm
+model served — and holds every kernel of those paths against its plain
+PyTorch version on the card:
 
   1. device   CUDA present (else exit 2), the card's name and power limit;
   2. build    nvcc builds every CUDA kernel from paddle_tpu_torch/csrc/,
@@ -238,7 +240,38 @@ version on the card:
               counted from its trace, the memory a step needs); a step at
               batch 4 (ResNet) or 1 (LM) op by op against the CPU plain
               path;
- 17. result   the kernel table as one JSON line, the card line, then
+ 17. kernel_s1  S1 (the sparse optimizer apply, csrc/sparse_apply.cu) in
+              every form (sgd, momentum, Nesterov, Adam) at every distinct
+              shape of the sparse paths (K 6656 uniform ids into 1M and 4M
+              rows, zipf ids remapped into the 87381-row slab): twice
+              bitwise, against its plain version bitwise where no run of
+              equal rows exceeds eight and within S1_RTOL otherwise, rows
+              outside the gradient untouched; Adam timed (the wrapper and
+              S1 alone in a CUDA graph of 20 calls, the plain version
+              eagerly) beside the bytes bound;
+ 18. train_dlrm  bench.py's `embedding` family at its defaults (1M x 64
+              f32 table row-sharded on a one-card fsdp mesh, 26 slots,
+              batch 256, MLP 1664-256-64-2, Adam 1e-3): a batch-16 step op
+              by op against the CPU port; graphed steps bitwise the eager
+              ones on one repeated batch, S1 once a step, the table and
+              its moments advancing in place (never copied in), the loss
+              falling, no densify fallback; p50 and busy share of each;
+              the memory a step needs beyond the state and its memory
+              copies at 1M and 4M rows, not growing;
+ 19. train_emb_cache  the same model from the hot-row cache (64 MiB budget:
+              87381 slab rows), zipf-1.3 ids through
+              DoubleBufferedFeeder(window_prefetch=2, sparse_slots) and
+              run_steps(K=8), the next window prefetched behind the
+              current one: the steady hit rate against the zipf coverage
+              of the slab, the prefetch overlap, the flush bytes a step;
+              the flushed tables against an uncached run of the same
+              windows;
+ 20. serve_dlrm  bench.py's `dlrm` serving model (100000 x 32, 26 slots,
+              max_batch 16) through bucket graphs, plain and with a 4 MiB
+              read-only cache: first replays bitwise the eager runs, the
+              two engines' answers bitwise alike, against the CPU port,
+              p50 per bucket graphed against eager in turns;
+ 21. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -342,6 +375,7 @@ TRACE_KERNELS = {
     # Q1: the one kernel of each form that runs once a call
     "q1.total": r"q8_tensor_kernel|quant_rows_kernel|quant_cols_kernel"
                 r"|dequant_kernel",
+    "sparse.launches": r"sparse_apply_kernel<",
 }
 
 
@@ -422,6 +456,28 @@ def _kept_graphs():
     from paddle_tpu_torch import executor as E
     capture = E.capture_graph
     E.capture_graph = functools.partial(capture, keep=True)
+    try:
+        yield
+    finally:
+        E.capture_graph = capture
+
+
+@contextlib.contextmanager
+def _captures_uncounted(counters):
+    """A CUDA graph capture records its launches and runs none: the counts
+    the kernel wrappers of `counters` add while the Executor captures are
+    taken back, so the counts hold only launches that ran."""
+    from paddle_tpu_torch import executor as E
+    capture = E.capture_graph
+
+    def uncounted(*args, **kwargs):
+        before = dict(counters.launches)
+        try:
+            return capture(*args, **kwargs)
+        finally:
+            counters.launches.clear()
+            counters.launches.update(before)
+    E.capture_graph = uncounted
     try:
         yield
     finally:
@@ -1147,13 +1203,17 @@ ACT_KERNELS = ("q8_partial_kernel", "q8_tensor_kernel")
 
 def _eager_request(engine, feed):
     """One request the way the engine served it before its bucket graphs:
-    padded on the host, copied to the card from pageable memory, the
-    prepared program run eagerly, the valid rows copied back."""
+    its ids remapped by the engine's hot-row cache, if any, padded on the
+    host, copied to the card from pageable memory, the prepared program
+    run eagerly, the valid rows copied back."""
     import torch
     from paddle_tpu_torch.executor import to_numpy
     from paddle_tpu_torch.serving.engine import _pad_rows
     n = next(iter(feed.values())).shape[0]
     b = engine.bucket_for(n)
+    cache = getattr(engine, "_emb_cache", None)
+    if cache is not None:               # ids -> the slab's slots, as served
+        feed = cache.prepare_feed(feed)
     padded = {k: torch.from_numpy(_pad_rows(np.ascontiguousarray(
         v, dtype=engine._feed_meta[k][1]), b)).to(engine.device)
         for k, v in feed.items()}
@@ -2529,6 +2589,13 @@ def _hold_outputs(kind, members, env, env_c, tally):
     return equal
 
 
+def _on_cpu(v):
+    """A CPU copy of a tensor or of a SelectedRows value's rows and values."""
+    if hasattr(v, "height"):
+        return type(v)(v.rows.cpu(), v.values.cpu(), v.height)
+    return v.cpu()
+
+
 def _lockstep(pt, main, loss, state, feed):
     """One step of `main` on the card with every op and window run again,
     on a CPU copy of the card's inputs to it, on the CPU plain path; each
@@ -2537,6 +2604,7 @@ def _lockstep(pt, main, loss, state, feed):
     import torch
     from paddle_tpu_torch.executor import LoweringContext
     from paddle_tpu_torch.ops import fusion
+    from paddle_tpu_torch.ops.common import SelectedRowsVal
     card, cpu = pt.Executor(pt.CUDAPlace(0)), pt.Executor(pt.CPUPlace())
     env = {n: v.cuda() for n, v in state.items()}
     env.update({n: torch.as_tensor(v).cuda() for n, v in feed.items()})
@@ -2547,8 +2615,9 @@ def _lockstep(pt, main, loss, state, feed):
     while i < len(ops):
         g = groups.get(i)
         members = g.members if g is not None else (ops[i],)
-        env_c = {n: env[n].cpu() for m in members for n in m.input_arg_names
-                 if isinstance(env.get(n), torch.Tensor)}
+        env_c = {n: _on_cpu(env[n]) for m in members
+                 for n in m.input_arg_names
+                 if isinstance(env.get(n), (torch.Tensor, SelectedRowsVal))}
         if g is not None:
             fusion.execute_group(card, ctx_g, g, env, protected)
             fusion.execute_group(cpu, ctx_c, g, env_c, protected)
@@ -5229,6 +5298,720 @@ def phase_train_q8(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
     return launched
 
 
+# --- sparse embeddings (phases kernel_s1, train_dlrm, train_emb_cache,
+# serve_dlrm) --------------------------------------------------------------
+
+S1_SOURCE = "paddle_tpu_torch/csrc/sparse_apply.cu"
+S1_REPLACES = ("the port's own: replaces the plain jnp merge and "
+               "scatter-apply of paddle_tpu/ops/common.py:49-67 and "
+               "paddle_tpu/ops/sparse_ops.py:202-244")
+# bench.py's `embedding` family at its defaults (bench.py:1151-1328): one
+# shared f32 table, 26 slots, batch 256, MLP 1664 -> 256 -> 64 -> 2, Adam
+# 1e-3, no AMP, the table row-sharded over an fsdp mesh of every card (one)
+DLRM = {"rows": 1_000_000, "dim": 64, "slots": 26, "batch": 256, "lr": 1e-3}
+DLRM_BIG_ROWS = 4_000_000           # the second height of the memory check
+DLRM_TURNS = 8                      # graphed and eager steps in turns
+DLRM_SMALL_BATCH = 16               # the step held op by op to the CPU
+DLRM_TABLE_STATE = ("emb_table", "emb_table_moment1_0", "emb_table_moment2_0")
+# a step's memory beyond the state may differ between the two heights by
+# no more than the allocator's rounding of one large block
+DLRM_MEMORY_SLACK = 2 << 20
+# the cached run (bench.py BENCH_EMB_BUDGET=64): the same model unsharded,
+# a 64 MiB slab budget (87381 rows of table and two moments), zipf ids,
+# DoubleBufferedFeeder(window_prefetch=2) windows of 8 steps through
+# run_steps, the next window prefetched behind the current one
+EMB_BUDGET = 64 << 20
+EMB_ZIPF = 1.3
+EMB_WINDOW = 8
+# the slab fills after some 55 windows of this id stream and evicts from
+# then on (its bookkeeping replayed on the CPU at full size,
+# tests/torch_emb_cache_replay.py): the first windows warm up, capture and
+# fill it, the timed ones are its steady state
+EMB_WARM_WINDOWS = 56
+EMB_TIMED_WINDOWS = 16
+# the LRU's steady hit rate lies below the zipf law's coverage of a slab
+# holding the most probable ids (no online policy beats it on independent
+# draws, up to the sample's noise, EMB_HIT_SLACK) and within EMB_HIT_GAP of
+# it: the CPU replay of this id stream's bookkeeping gave 0.9791 against a
+# coverage of 0.9855, and the bound is three times that gap
+EMB_HIT_SLACK, EMB_HIT_GAP = 0.005, 0.02
+# the dlrm serving model (bench.py:1357-1391) and a 4 MiB slab budget
+SERVE_DLRM = {"rows": 100_000, "dim": 32, "slots": 26, "max_batch": 16}
+SERVE_DLRM_BUDGET = 4 << 20
+SERVE_DLRM_RTOL, SERVE_DLRM_ATOL = 1e-5, 1e-6     # card vs CPU, f32
+# S1 against its plain version: bitwise where no run of equal rows is
+# longer than eight (S1 then sums in the plain version's order). A longer
+# run S1 sums as eight warps' partial sums added in a fixed order, the
+# plain version in sorted order: each row's sum within 2 n 2^-24 sum|v| of
+# the plain sum (two f32 sums of the same n values; `_hold_s1_sums`), the
+# updated tensors within S1_RTOL/S1_ATOL (that difference passed on by the
+# update: observed 4.6e-6 at a momentum velocity of 0.3 summed from 300
+# values, measured on one NVIDIA H100 80GB HBM3)
+S1_RTOL, S1_ATOL = 1e-4, 1e-5
+S1_FORMS = ("sgd", "momentum", "nesterov", "adam")
+
+
+def _dlrm_train(pt, rows, sharded=True):
+    """bench.py's DLRM at full width with `rows` table rows: (main,
+    startup, loss)."""
+    c = DLRM
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids = pt.layers.data(name="ids", shape=[c["slots"]], dtype="int64")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        emb = pt.layers.embedding(ids, size=[rows, c["dim"]], is_sparse=True,
+                                  param_attr=pt.ParamAttr(name="emb_table"))
+        flat = pt.layers.reshape(emb, shape=[-1, c["slots"] * c["dim"]])
+        h = pt.layers.fc(input=flat, size=256, act="relu")
+        h = pt.layers.fc(input=h, size=64, act="relu")
+        logits = pt.layers.fc(input=h, size=2)
+        loss = pt.layers.mean(
+            pt.layers.softmax_with_cross_entropy(logits, label))
+        pt.optimizer.Adam(learning_rate=c["lr"]).minimize(
+            loss, startup_program=startup)
+    if sharded:
+        from paddle_tpu_torch.parallel import embedding, mesh
+        main._mesh = mesh.make_mesh((1,), ("fsdp",))
+        embedding.shard_table(main, "emb_table", "fsdp")
+    return main, startup, loss
+
+
+def _dlrm_batch(rng, rows, batch, zipf=None):
+    c = DLRM
+    ids = (np.minimum(rng.zipf(zipf, (batch, c["slots"])) - 1, rows - 1)
+           if zipf else rng.integers(0, rows, (batch, c["slots"])))
+    return {"ids": ids.astype(np.int64),
+            "label": rng.integers(0, 2, (batch, 1)).astype(np.int64)}
+
+
+def _card_device():
+    import torch
+    return torch.device("cuda", 0)
+
+
+def _eager_ms(fn, reps=10):
+    """Mean ms of one eager call between two CUDA events around `reps`
+    calls, the host's waits included: for a function that syncs with the
+    host (S1's plain version masks the freed rows out), which no CUDA graph
+    can capture."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _s1_cases():
+    """(path, table rows, sorted-or-not rows [K]) at every distinct shape
+    the sparse paths give S1: train_dlrm's uniform ids into the 1M-row
+    table and, for its memory check, the 4M-row one; train_emb_cache's zipf
+    ids remapped to slots of the 87381-row slab (each distinct id a slot of
+    its own, as the cache maps them)."""
+    from paddle_tpu_torch.parallel import emb_cache
+    c = DLRM
+    rng = np.random.default_rng(SEED + 20)
+    k = c["batch"] * c["slots"]
+    yield "train_dlrm", c["rows"], rng.integers(0, c["rows"], k)
+    yield "train_dlrm_4m", DLRM_BIG_ROWS, rng.integers(0, DLRM_BIG_ROWS, k)
+    slab = emb_cache.rows_for_budget(EMB_BUDGET, c["dim"], 4, 3)
+    z = np.minimum(rng.zipf(EMB_ZIPF, k) - 1, c["rows"] - 1)
+    uniq, inv = np.unique(z, return_inverse=True)
+    yield "train_emb_cache", slab, rng.permutation(slab)[:uniq.size][inv]
+
+
+def _hold_s1_sums(sr, height, d, dev):
+    """S1's row sums (sgd at lr 1 on a zero table writes -sum exactly)
+    within 2 n 2^-24 sum|v| of the plain merge's, or raise."""
+    import torch
+    from paddle_tpu_torch.ops import sparse_cuda
+    from paddle_tpu_torch.ops.common import (SelectedRowsVal,
+                                             merge_selected_rows)
+    p = torch.zeros(height, d, device=dev)
+    sparse_cuda.sgd(p, sr, torch.tensor(1.0, device=dev))
+    rows, g = merge_selected_rows(sr)
+    keep = (rows >= 0) & (rows < height)
+    rows, g = rows[keep], g[keep]
+    _, mags = merge_selected_rows(SelectedRowsVal(sr.rows, sr.values.abs(),
+                                                  height))
+    valid = sr.rows[(sr.rows >= 0) & (sr.rows < height)]
+    n = torch.bincount(valid, minlength=height)[rows]
+    bound = 2 * n[:, None] * 2.0 ** -24 * mags[keep]
+    if not bool(((-p[rows] - g).abs() <= bound).all()):
+        raise RuntimeError("S1: a row's sum is outside 2 n 2^-24 sum|v| of "
+                           "the plain merge's")
+
+
+def phase_kernel_s1(pt, report):
+    """S1 (csrc/sparse_apply.cu) in every form (sgd, momentum, Nesterov,
+    Adam) at every distinct shape of the sparse paths (`_s1_cases`): twice
+    and bitwise repeatable, against its plain version on the same CUDA
+    tensors (sparse_cuda.apply_reference) bitwise where no run of equal
+    rows exceeds eight, else within S1_RTOL/S1_ATOL, rows outside the
+    gradient untouched; then Adam, the paths' form, timed: the wrapper
+    (sort, gather, S1) and S1 alone in a CUDA graph of 20 calls between
+    events, the plain version eagerly (it syncs), beside the bytes bound
+    (the gradient read once, each distinct row of the table and both
+    moments read and written once)."""
+    import torch
+    from paddle_tpu_torch.ops import sparse_cuda
+    from paddle_tpu_torch.ops.common import SelectedRowsVal
+    card = _card_line()
+    dev = _card_device()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    d = DLRM["dim"]
+    lr = torch.tensor(DLRM["lr"], device=dev)
+    b1p = torch.tensor(0.9 ** 3, device=dev)
+    b2p = torch.tensor(0.999 ** 3, device=dev)
+    kw = {"b1p": b1p, "b2p": b2p, "mu": 0.9, "b1": 0.9, "b2": 0.999,
+          "eps": 1e-8}
+    rows_out, worst = {}, 0.0
+    for path, height, ids in _s1_cases():
+        k = ids.size
+        valid = ids[(ids >= 0) & (ids < height)]
+        longest = int(np.bincount(valid).max())
+        distinct = int(np.unique(valid).size)
+        sr = SelectedRowsVal(torch.from_numpy(ids).to(dev),
+                             torch.randn((k, d), device=dev, generator=gen),
+                             height)
+        base = [torch.randn((height, d), device=dev, generator=gen)
+                for _ in range(2)]
+        base.append(torch.rand((height, d), device=dev, generator=gen))
+        untouched = torch.ones(height, dtype=torch.bool, device=dev)
+        untouched[torch.from_numpy(valid).to(dev)] = False
+        errs = {}
+        for kind in S1_FORMS:
+            form = "momentum" if kind == "nesterov" else kind
+            n_acc = sparse_cuda.ACCUMULATORS[form]
+            args = dict(kw, nesterov=kind == "nesterov")
+
+            def run(plain):
+                ts = [t.clone() for t in base[:1 + n_acc]]
+                fn = sparse_cuda.apply_reference if plain else \
+                    sparse_cuda.apply
+                fn(form, sr, ts[0], tuple(ts[1:]), lr, **args)
+                torch.cuda.synchronize()
+                return ts
+
+            a, b, want = run(False), run(False), run(True)
+            err = 0.0
+            for x, y, w, t in zip(a, b, want, base):
+                if not torch.equal(x, y):
+                    raise RuntimeError(f"S1 {kind} {path}: a repeated call "
+                                       f"gave different bits")
+                if longest <= 8 and not torch.equal(x, w):
+                    raise RuntimeError(f"S1 {kind} {path}: not bitwise its "
+                                       f"plain version (runs of at most 8)")
+                torch.testing.assert_close(x, w, rtol=S1_RTOL, atol=S1_ATOL)
+                if not torch.equal(x[untouched], t[untouched]):
+                    raise RuntimeError(f"S1 {kind} {path}: a row outside "
+                                       f"the gradient changed")
+                err = max(err, float((x - w).abs().max()))
+            errs[kind] = err
+            worst = max(worst, err)
+            del a, b, want
+        if longest > 8:
+            _hold_s1_sums(sr, height, d, dev)
+        # Adam timed, on copies the timing loops update in place
+        ts = [t.clone() for t in base]
+        ms = _device_ms(lambda: sparse_cuda.adam(
+            ts[0], ts[1], ts[2], sr, lr, 0.9, 0.999, 1e-8, b1p, b2p))
+        r_s, order = torch.sort(sr.rows.long(), stable=True)
+        v_s = sr.values[order].contiguous()
+        kernel_ms = _device_ms(lambda: sparse_cuda.launch_sorted(
+            "adam", r_s, v_s, ts[0], (ts[1], ts[2]), lr, b1p, b2p))
+        plain_ms = _eager_ms(lambda: sparse_cuda.apply_reference(
+            "adam", sr, ts[0], (ts[1], ts[2]), lr, **kw))
+        nbytes = sparse_cuda.bound_bytes("adam", k, d, distinct)
+        bound = nbytes / PEAK_BYTES * 1e3
+        rows_out[path] = {"height": height, "k": k, "d": d,
+                          "distinct": distinct, "longest_run": longest,
+                          "ms": ms, "kernel_ms": kernel_ms,
+                          "plain_ms": plain_ms, "bound_ms": bound,
+                          "bytes": nbytes, "max_abs_err": errs}
+        print(f"S1 {path}: table {height} x {d}, K {k} ({distinct} distinct "
+              f"rows, longest run {longest}); forms {S1_FORMS} twice bitwise, "
+              f"against the plain version max |S1 - plain| {errs}; Adam "
+              f"{ms:.4f} ms (S1 alone {kernel_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of "
+              f"it; {card})", flush=True)
+        del sr, base, ts, untouched, r_s, v_s
+        torch.cuda.empty_cache()
+    report["kernel_s1"] = {"card": card, "shapes": rows_out,
+                           "max_abs_err": worst}
+    r = rows_out["train_dlrm"]
+    return {"name": "sparse_apply", "route": "cuda", "source": S1_SOURCE,
+            "replaces": S1_REPLACES, "max_abs_err": worst, "ms": r["ms"],
+            "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "per": f"one Adam apply to the {DLRM['rows']} x {DLRM['dim']} "
+                   f"table, K {r['k']} uniform ids (the wrapper: sort, "
+                   f"gather, S1)",
+            "by_shape": {p: {k: v for k, v in s.items()
+                             if k in ("ms", "kernel_ms", "plain_ms",
+                                      "bound_ms")}
+                         for p, s in rows_out.items()}}
+
+
+def _memcpy_bytes(fn):
+    """(bytes, copies) of the memory copies on the card's timeline while
+    `fn` runs, from the profiler's chrome trace (kineto writes each copy's
+    bytes in its args); (None, copies) when the trace gives no bytes."""
+    import json as _json
+    with _profiled() as prof:
+        fn()
+    path = Path(__file__).resolve().parent / "build" / \
+        f"trace-{os.getpid()}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        events = _json.loads(path.read_text()).get("traceEvents", [])
+    finally:
+        path.unlink(missing_ok=True)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    if any(s is None for s in sizes):
+        return None, len(copies)
+    return int(sum(sizes)), len(copies)
+
+
+def _dlrm_memory(pt, rows, feed):
+    """The memory a DLRM step needs beyond its state, at `rows` table rows:
+    graphed, the pool the capture reserved and what a replay allocates;
+    eager, the peak of what the step allocates; and each step's memory
+    copies on the card (bytes, count)."""
+    import torch
+    main, startup, loss = _dlrm_train(pt, rows)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    state = sum(v.numel() * v.element_size() for v in scope.vars.values()
+                if isinstance(v, torch.Tensor))
+    reserved0 = _settled_reserved()
+    for _ in range(3):                  # warm-up, capture, replay
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    pool = _settled_reserved() - reserved0
+    out = {"rows": rows, "state_bytes": state, "pool_bytes": pool}
+    for mode, use_jit in (("graph", None), ("eager", False)):
+        def step():
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                    use_jit=use_jit)
+        step()
+        _settled_reserved()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        out[f"{mode}_step_bytes"] = peak + (pool if mode == "graph" else 0)
+        out[f"{mode}_memcpy"] = _memcpy_bytes(step)
+    del exe, scope, main, startup
+    _settled_reserved()
+    return out
+
+
+def phase_train_dlrm(pt, report):
+    """bench.py's DLRM (the `embedding` family at its defaults) trained on
+    the card: one step at batch DLRM_SMALL_BATCH op by op against the CPU
+    port (_lockstep, the table's Adam through S1 on the card and the plain
+    version on the CPU); then from one startup state on two scopes the
+    warm-up, capture and first replay bitwise the eager steps, DLRM_TURNS
+    graphed and eager steps in turns on one repeated batch (bench.py's
+    driver): S1 launched once by each eager step and by no replay's
+    wrapper, the scopes bitwise after, the table and its moments in the
+    same storage throughout and never copied in, the loss falling, no
+    densify fallback, fusion's table reason `sharded_table_sparse_path`
+    and never `sparse_grad_unsupported`; step p50 of each; one profiled
+    step of each (busy share; the replay's S1 launches from its trace, 1);
+    then the memory a step needs beyond the state and its memory copies
+    at 1M and at 4M table rows, which must not grow. Returns S1's launches
+    on the path: the wrappers' count over the run (the capture's record
+    taken out: it runs nothing) and the profiled replay's traced launch."""
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.ops import fusion, sparse_cuda
+    card = _card_line()
+    c = DLRM
+    densify0 = sum(telemetry.read_series(
+        "sparse_densify_fallback_total").values())
+    main, startup, loss = _dlrm_train(pt, c["rows"])
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: v for n, v in scope.vars.items() if isinstance(v, torch.Tensor)}
+    feed = _dlrm_batch(np.random.default_rng(SEED + 21), c["rows"],
+                       c["batch"])
+    small = {k: v[:DLRM_SMALL_BATCH] for k, v in feed.items()}
+    lock = _lockstep(pt, main, loss, {n: v.clone() for n, v in init.items()},
+                     small)
+    print(f"train_dlrm: a batch-{DLRM_SMALL_BATCH} step op by op on the "
+          f"card against the CPU plain path, worst relative L2 by op "
+          f"{lock}", flush=True)
+    sg, se = _scope_from(pt, init), _scope_from(pt, init)
+    del scope, init
+    E.COUNTERS.reset()
+    fusion.COUNTERS.reset()
+    sparse_cuda.COUNTERS.reset()
+    losses = []
+    with _captures_uncounted(sparse_cuda.COUNTERS):
+        for i in range(GRAPH_BITWISE_STEPS):
+            a = exe.run(main, feed=feed, fetch_list=[loss], scope=sg)[0]
+            b = exe.run(main, feed=feed, fetch_list=[loss], scope=se,
+                        use_jit=False)[0]
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"train_dlrm: step {i} graphed loss {a} "
+                                   f"!= eager {b}")
+            losses.append(float(a[0]))
+    diverged = _bitwise_scopes(sg, se)
+    if diverged:
+        raise RuntimeError(f"train_dlrm: after the capture the graphed "
+                           f"scope differs from the eager one: {diverged}")
+    ptrs = {n: sg.find_var(n).data_ptr() for n in DLRM_TABLE_STATE}
+    steps = {"graph": [], "eager": []}
+    for _ in range(DLRM_TURNS):
+        for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
+            torch.cuda.synchronize()
+            n0 = sparse_cuda.COUNTERS.total
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                          use_jit=use_jit)[0]
+            steps[mode].append((time.perf_counter() - t0) * 1e3)
+            launched = sparse_cuda.COUNTERS.total - n0
+            if launched != (1 if mode == "eager" else 0):
+                raise RuntimeError(f"train_dlrm: a {mode} step's wrapper "
+                                   f"launched S1 {launched} times")
+            if mode == "graph":
+                losses.append(float(out[0]))
+    wrapper_launches = sparse_cuda.COUNTERS.total
+    diverged = _bitwise_scopes(sg, se)
+    if diverged:
+        raise RuntimeError(f"train_dlrm: after {DLRM_TURNS} steps in turns "
+                           f"the scopes differ: {diverged}")
+    moved = [n for n, p in ptrs.items() if sg.find_var(n).data_ptr() != p]
+    if moved or E.COUNTERS.copied_in or E.COUNTERS.captures != 1:
+        raise RuntimeError(f"train_dlrm: table state moved {moved} or was "
+                           f"copied in / captured again: {E.COUNTERS}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"train_dlrm: the loss did not fall: {losses}")
+    densify = sum(telemetry.read_series(
+        "sparse_densify_fallback_total").values()) - densify0
+    fb = dict(fusion.COUNTERS.fallbacks)
+    if densify or "sparse_grad_unsupported" in fb or \
+            not fb.get("sharded_table_sparse_path"):
+        raise RuntimeError(f"train_dlrm: densify fallbacks {densify}, "
+                           f"fusion fallbacks {fb}")
+    p50 = {m: float(np.median(v)) for m, v in steps.items()}
+    witness = ("S1", lambda name: "sparse_apply_kernel" in name)
+    prof = {m: _profile_step(exe, main, feed, loss, sc, p50[m], card,
+                             witness, use_jit=use_jit,
+                             expect={"sparse.launches": 1})
+            for m, sc, use_jit in (("graph", sg, None), ("eager", se, False))}
+    traced = prof["graph"]["launches"]["sparse.launches"]
+    del exe, sg, se, main, startup
+    _settled_reserved()
+    memory = {r: _dlrm_memory(pt, r, feed) for r in (c["rows"], DLRM_BIG_ROWS)}
+    m1, m4 = memory[c["rows"]], memory[DLRM_BIG_ROWS]
+    for key in ("graph_step_bytes", "eager_step_bytes"):
+        if m4[key] > m1[key] + DLRM_MEMORY_SLACK:
+            raise RuntimeError(f"train_dlrm: a step's {key} grew from "
+                               f"{m1[key]} at {c['rows']} rows to {m4[key]} "
+                               f"at {DLRM_BIG_ROWS}")
+    for mode in ("graph", "eager"):
+        b1, b4 = m1[f"{mode}_memcpy"][0], m4[f"{mode}_memcpy"][0]
+        if b1 is not None and b4 is not None and b4 > b1:
+            raise RuntimeError(f"train_dlrm: a {mode} step copies {b4} "
+                               f"bytes at {DLRM_BIG_ROWS} rows, {b1} at "
+                               f"{c['rows']}")
+    mb = lambda v: v / 2 ** 20  # noqa: E731
+    print(f"train_dlrm: {c['rows']} x {c['dim']} table, batch {c['batch']} "
+          f"x {c['slots']} slots, Adam; graphed step bitwise the eager one "
+          f"({GRAPH_BITWISE_STEPS} steps, then {DLRM_TURNS} in turns); loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; step p50 graphed "
+          f"{p50['graph']:.3f} ms, eager {p50['eager']:.3f} ms; busy "
+          f"{prof['graph']['busy_share']:.1%} graphed, "
+          f"{prof['eager']['busy_share']:.1%} eager; S1 1 launch a step "
+          f"(eager by the wrapper, the replay from its trace); densify "
+          f"fallbacks 0; fusion {fb}; memory beyond the state "
+          + "; ".join(f"{r} rows: graphed {mb(m['graph_step_bytes']):.2f} "
+                      f"MiB (pool {mb(m['pool_bytes']):.2f}), eager "
+                      f"{mb(m['eager_step_bytes']):.2f} MiB, copies graphed "
+                      f"{m['graph_memcpy']}, eager {m['eager_memcpy']} "
+                      f"(bytes, count)" for r, m in memory.items())
+          + f" ({card})", flush=True)
+    report["train_dlrm"] = {"card": card, "losses": losses, "p50_ms": p50,
+                            "step_ms": steps, "lockstep": lock,
+                            "busy_share": {m: prof[m]["busy_share"]
+                                           for m in prof},
+                            "memory": memory, "fusion_fallbacks": fb,
+                            "densify_fallbacks": densify,
+                            "s1_wrapper_launches": wrapper_launches,
+                            "s1_traced_replay_launches": traced}
+    return wrapper_launches + traced
+
+
+def _zipf_coverage(a, rows, slab):
+    """The share of zipf(a) draws, clamped to rows - 1, that fall on the
+    `slab` most probable ids: the hit rate of the best static slab."""
+    m = np.arange(1, rows, dtype=np.float64)
+    mass = m ** -a
+    tail = (rows - 0.5) ** (1 - a) / (a - 1)     # every draw >= rows
+    mass = np.append(mass, tail)
+    return float(np.sort(mass)[::-1][:slab].sum() / mass.sum())
+
+
+def phase_train_emb_cache(pt, report):
+    """The DLRM from the hot-row cache (bench.py's BENCH_EMB_BUDGET=64
+    driver): emb_cache.enable(budget 64 MiB) -> 87381 slab rows; zipf ids
+    through DoubleBufferedFeeder(window_prefetch=2).next_window(8,
+    sparse_slots=["ids"]) -> run_steps(K=8), the next window pulled and
+    prefetched behind the current one, EMB_WARM_WINDOWS then
+    EMB_TIMED_WINDOWS windows, then one profiled window: the steady hit
+    rate (timed windows) against the zipf coverage of the slab, the
+    prefetch overlap fraction, the flush bytes a step and the evictions a
+    window, ms a step; no densify fallback; then the flushed host tables
+    bitwise an uncached run of the same windows from the same state (the
+    remap is a bijection of rows, so S1 sums the same values in the same
+    order). Returns S1's launches that ran on the path: the wrapper's (the
+    warm-up; the capture's record taken out) and the profiled window's
+    traced ones, held to one a replay."""
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.ops import sparse_cuda
+    from paddle_tpu_torch.parallel import emb_cache
+    from paddle_tpu_torch.reader.pipeline import DoubleBufferedFeeder
+    card = _card_line()
+    c = DLRM
+    main, startup, loss = _dlrm_train(pt, c["rows"], sharded=False)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: v.clone() for n, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+    cache = emb_cache.enable(main, budget_bytes=EMB_BUDGET, scope=scope)
+    slab = cache.tables()["emb_table"].cache_rows
+    rng = np.random.default_rng(SEED + 22)
+    # the warm windows, the timed ones, then one profiled window
+    windows = EMB_WARM_WINDOWS + EMB_TIMED_WINDOWS + 1
+    batches = [_dlrm_batch(rng, c["rows"], c["batch"], EMB_ZIPF)
+               for _ in range(windows * EMB_WINDOW)]
+    feeder = DoubleBufferedFeeder(lambda: iter(batches),
+                                  device=_card_device(), window_prefetch=2)
+    names = cache.feed_id_names()
+    densify0 = sum(telemetry.read_series(
+        "sparse_densify_fallback_total").values())
+    E.COUNTERS.reset()
+    sparse_cuda.COUNTERS.reset()
+    losses, times, steady, timed = [], [], None, None
+    try:
+        with _kept_graphs(), _captures_uncounted(sparse_cuda.COUNTERS):
+            win, _ = feeder.next_window(EMB_WINDOW, sparse_slots=names)
+            for w in range(windows - 1):
+                t0 = time.perf_counter()
+                out = exe.run_steps(main, feed_window=win, fetch_list=[loss],
+                                    scope=scope, return_numpy=False)
+                win, uniq = feeder.next_window(EMB_WINDOW, sparse_slots=names)
+                handle = cache.prefetch(uniq)
+                losses.append(float(out[0].cpu()[0]))   # the window ends
+                handle.wait()
+                times.append((time.perf_counter() - t0) * 1e3 / EMB_WINDOW)
+                if w + 1 == EMB_WARM_WINDOWS:
+                    steady = cache.stats()
+            timed = cache.stats()
+            with _profiled() as prof:
+                out = exe.run_steps(main, feed_window=win, fetch_list=[loss],
+                                    scope=scope, return_numpy=False)
+                losses.append(float(out[0].cpu()[0]))
+    finally:
+        feeder.stop()
+    wrapper = sparse_cuda.COUNTERS.total
+    graphs = [e.graph for e in exe._graphs.values() if e.graph is not None]
+    nodes = sum(_graph_launches(g)["sparse.launches"] for g in graphs)
+    replays = E.COUNTERS.replays
+    if len(graphs) != 1 or nodes != 1 or wrapper != 1 or \
+            replays != windows * EMB_WINDOW - 1:
+        raise RuntimeError(f"train_emb_cache: graphs {len(graphs)}, S1 "
+                           f"nodes {nodes}, wrapper launches {wrapper}, "
+                           f"{E.COUNTERS}")
+    # the profiled window: EMB_WINDOW replays, each launching S1 once
+    from torch.autograd import DeviceType
+    traced = _trace_launches(
+        [e for e in prof.events()
+         if e.device_type == DeviceType.CUDA and not _is_span(e)])
+    if traced["sparse.launches"] != EMB_WINDOW:
+        if not 0 < traced["sparse.launches"] < EMB_WINDOW:
+            raise RuntimeError(f"train_emb_cache: a window of "
+                               f"{EMB_WINDOW} replays traced "
+                               f"{traced['sparse.launches']} S1 launches")
+        print(f"train_emb_cache: the profiler lost records of the window: "
+              f"{traced['sparse.launches']} S1 launches traced of "
+              f"{EMB_WINDOW} replays, each holding one S1 node ({card})",
+              flush=True)
+    s = timed
+    cache.flush()
+    d_hit, d_miss = s["hits"] - steady["hits"], s["misses"] - steady["misses"]
+    hit = d_hit / max(d_hit + d_miss, 1)
+    coverage = _zipf_coverage(EMB_ZIPF, c["rows"], slab)
+    p_s = s["prefetch_seconds"] - steady["prefetch_seconds"]
+    overlap = (s["overlap_seconds"] - steady["overlap_seconds"]) / p_s \
+        if p_s > 0 else 0.0
+    timed_steps = EMB_TIMED_WINDOWS * EMB_WINDOW
+    evicted = s["evictions"] - steady["evictions"]
+    flush_step = (s["flush_bytes"] - steady["flush_bytes"]) / timed_steps
+    densify = sum(telemetry.read_series(
+        "sparse_densify_fallback_total").values()) - densify0
+    if densify or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"train_emb_cache: densify fallbacks {densify}, "
+                           f"losses {losses}")
+    if not (coverage - EMB_HIT_GAP <= hit <= coverage + EMB_HIT_SLACK):
+        raise RuntimeError(f"train_emb_cache: steady hit rate {hit:.4f} "
+                           f"outside [{coverage - EMB_HIT_GAP:.4f}, "
+                           f"{coverage + EMB_HIT_SLACK:.4f}] (zipf coverage "
+                           f"of the {slab}-row slab {coverage:.4f})")
+    # the uncached twin on the same windows from the same state
+    main2, _, loss2 = _dlrm_train(pt, c["rows"], sharded=False)
+    scope2, exe2 = _scope_from(pt, init), pt.Executor()
+    del init
+    for w in range(windows):
+        exe2.run_steps(main2, feed_window=batches[w * EMB_WINDOW:
+                                                  (w + 1) * EMB_WINDOW],
+                       fetch_list=[loss2], scope=scope2)
+    err, bitwise = {}, True
+    for n in cache.tables()["emb_table"].state_names:
+        got = torch.from_numpy(cache.host_value(n))
+        want = scope2.find_var(n).cpu()
+        err[n] = float((got - want).abs().max())
+        bitwise &= torch.equal(got, want)
+    if not bitwise:
+        raise RuntimeError(f"train_emb_cache: the flushed tables are not "
+                           f"bitwise the uncached run's: max |diff| {err}")
+    t_step = float(np.median(times[EMB_WARM_WINDOWS:]))
+    print(f"train_emb_cache: {slab}-row slab over the {c['rows']}-row table "
+          f"(budget {EMB_BUDGET >> 20} MiB), zipf {EMB_ZIPF}, windows of "
+          f"{EMB_WINDOW} steps: steady hit rate {hit:.4f} (the zipf "
+          f"coverage of the slab {coverage:.4f}), prefetch overlap "
+          f"{overlap:.3f} ({p_s * 1e3 / EMB_TIMED_WINDOWS:.2f} ms of "
+          f"prefetch a window), flush {flush_step:.0f} bytes a step "
+          f"(victims' write-back; the final flush is not counted), "
+          f"{evicted} evictions in the {EMB_TIMED_WINDOWS} timed windows "
+          f"({evicted / EMB_TIMED_WINDOWS:.1f} a window), {t_step:.3f} ms "
+          f"a step (median over the timed windows, host clock); losses "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; densify fallbacks 0; the "
+          f"flushed tables bitwise the uncached run's; S1 launches: "
+          f"{wrapper} by the wrapper (the warm-up), "
+          f"{traced['sparse.launches']} traced in a window of {EMB_WINDOW} "
+          f"replays, 1 node x {replays} replays in all ({card})", flush=True)
+    report["train_emb_cache"] = {
+        "card": card, "cache_rows": slab, "hit_rate": hit,
+        "zipf_coverage": coverage, "overlap_fraction": overlap,
+        "flush_bytes_per_step": flush_step,
+        "evictions_per_window": evicted / EMB_TIMED_WINDOWS,
+        "step_ms": t_step, "window_step_ms": times, "losses": losses,
+        "stats": s, "uncached_max_abs_err": err,
+        "s1_wrapper_launches": wrapper,
+        "s1_traced_window_launches": traced["sparse.launches"],
+        "s1_graph_replays": replays}
+    del exe, exe2, scope, scope2, cache, main, main2
+    _settled_reserved()
+    return wrapper + traced["sparse.launches"]
+
+
+def _serve_dlrm_model(pt):
+    c = SERVE_DLRM
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        ids = pt.layers.data(name="ids", shape=[c["slots"]], dtype="int64")
+        emb = pt.layers.embedding(ids, size=[c["rows"], c["dim"]],
+                                  is_sparse=True,
+                                  param_attr=pt.ParamAttr(name="emb_table"))
+        flat = pt.layers.reshape(emb, shape=[-1, c["slots"] * c["dim"]])
+        h = pt.layers.fc(input=flat, size=256, act="relu")
+        h = pt.layers.fc(input=h, size=64, act="relu")
+        out = pt.layers.softmax(pt.layers.fc(input=h, size=2))
+    return main, startup, out
+
+
+def phase_serve_dlrm(pt, report):
+    """bench.py's `dlrm` serving model (100000 x 32 table, 26 slots, MLP
+    832 -> 256 -> 64 -> 2, softmax, max_batch 16) through ServingEngine's
+    bucket graphs, and again with emb_cache_budget_bytes=4 MiB (a
+    read-only 32768-row slab): each bucket's first replay bitwise its
+    eager run on both engines; the REQUEST_SIZES requests (uniform ids)
+    answered bitwise alike by both, rows of a softmax over 2 classes; the
+    first ones within SERVE_DLRM_RTOL of the CPU port's engine; p50 per
+    bucket graphed against eager in turns; the cache's hits, misses and
+    evictions, and no flush."""
+    import torch
+    from paddle_tpu_torch.serving import ServingEngine
+    card = _card_line()
+    c = SERVE_DLRM
+    main, startup, out = _serve_dlrm_model(pt)
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    cpu_scope = pt.Scope()
+    for n, v in scope.vars.items():
+        if isinstance(v, torch.Tensor):
+            cpu_scope.set_var(n, v.cpu())
+    engines = {
+        "plain": ServingEngine(main, ["ids"], [out], scope=scope,
+                               max_batch=c["max_batch"]),
+        "cached": ServingEngine(main, ["ids"], [out], scope=scope,
+                                max_batch=c["max_batch"],
+                                emb_cache_budget_bytes=SERVE_DLRM_BUDGET)}
+    cpu = ServingEngine(main, ["ids"], [out], place=pt.CPUPlace(),
+                        scope=cpu_scope, max_batch=c["max_batch"])
+    slab = engines["cached"].stats()["emb_cache"]["tables"]["emb_table"][
+        "cache_rows"]
+    rng = np.random.default_rng(SEED + 23)
+    row = rng.integers(0, c["rows"], (c["max_batch"], c["slots"]))
+    warm = {k: _warm_buckets(e, "ids", row, f"serve_dlrm {k}")
+            for k, e in engines.items()}
+    requests = [rng.integers(0, c["rows"], (n, c["slots"])).astype(np.int64)
+                for n in REQUEST_SIZES]
+    worst = 0.0
+    for i, req in enumerate(requests):
+        a, b = (engines[k].infer({"ids": req})[0] for k in ("plain",
+                                                           "cached"))
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"serve_dlrm: request {i} answered "
+                               f"differently by the cached engine")
+        if a.shape != (len(req), 2) or not np.all(np.isfinite(a)) or \
+                np.abs(a.sum(1) - 1).max() > 1e-5:
+            raise RuntimeError(f"serve_dlrm: request {i}: {a}")
+        if i < len(COMPARED):
+            want = cpu.infer({"ids": req})[0]
+            np.testing.assert_allclose(a, want, rtol=SERVE_DLRM_RTOL,
+                                       atol=SERVE_DLRM_ATOL)
+            worst = max(worst, float(np.abs(a - want).max()))
+    full = {b: rng.integers(0, c["rows"], (b, c["slots"])).astype(np.int64)
+            for b in engines["plain"].buckets}
+    turns = {k: _serve_in_turns(e, "ids", full, f"serve_dlrm {k}")
+             for k, e in engines.items()}
+    st = engines["cached"].stats()["emb_cache"]
+    if st["flush_bytes"] or not st["misses"]:
+        raise RuntimeError(f"serve_dlrm: the read-only cache {st}")
+    print(f"serve_dlrm: {c['rows']} x {c['dim']} table, buckets "
+          f"{engines['plain'].buckets}; first replays bitwise the eager runs "
+          f"(capture s by bucket {warm['plain'][0]}); {len(requests)} "
+          f"requests bitwise alike with the {slab}-row cache (hits "
+          f"{st['hits']}, misses {st['misses']}, evictions "
+          f"{st['evictions']}, no flush); against the CPU port max |diff| "
+          f"{worst:.3g} ({card})", flush=True)
+    report["serve_dlrm"] = {"card": card, "cache_rows": slab,
+                            "p50_ms": turns, "cache": st,
+                            "cpu_max_abs_diff": worst,
+                            "graph_pool_gb": {k: w[1]
+                                              for k, w in warm.items()}}
+    for e in engines.values():
+        e.close()
+    del engines, scope
+    _settled_reserved()
+
+
 def ptxas_report(build_log: dict) -> dict:
     """Print ptxas's registers, spills and serialized-wgmma warnings for every
     kernel of every library in `build_log` (cuda_build.BUILD_LOG: name ->
@@ -5361,8 +6144,17 @@ def main(argv=None) -> int:
         k["launches_by_path"] = by_path
         if not k["launches"]:
             raise RuntimeError(f"{k['name']} was launched no time on its path")
+    s1 = phase_kernel_s1(pt, report)
+    s1["launches_by_path"] = {"train_dlrm": phase_train_dlrm(pt, report),
+                              "train_emb_cache": phase_train_emb_cache(
+                                  pt, report)}
+    s1["launches"] = sum(s1["launches_by_path"].values())
+    if not all(s1["launches_by_path"].values()):
+        raise RuntimeError(f"S1 was launched no time on a sparse path: "
+                           f"{s1['launches_by_path']}")
+    phase_serve_dlrm(pt, report)
     kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
-               + [k11, q1]}
+               + [k11, q1, s1]}
     report.update(kernels)
     leads = [v for v in LAUNCH_LEADS_US if v is not None]
     report["launch_lead_us"] = LAUNCH_LEADS_US

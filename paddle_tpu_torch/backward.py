@@ -192,4 +192,14 @@ def append_backward(loss: Variable, parameter_list: Optional[Sequence] = None,
         gname = grad_var_name(p.name)
         if produced_count.get(gname):
             result.append((p, block.var(gname)))
+    # the grads that are SelectedRows by construction (an is_sparse
+    # lookup_table_grad), named for the planners that must not treat them
+    # as dense (backward.py:235-247); a row-sharded table's grad turns
+    # sparse at run time too, which its planners learn from _sharded_tables
+    sparse_names = getattr(program, "_sparse_grad_names", None)
+    if sparse_names is None:
+        sparse_names = program._sparse_grad_names = set()
+    for op_ in block.ops:
+        if op_.type == "lookup_table_grad" and op_.attr("is_sparse", False):
+            sparse_names.update(op_.output_arg_names)
     return result

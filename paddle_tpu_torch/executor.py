@@ -46,7 +46,8 @@ import torch.distributed as dist
 from . import quant
 from .framework.framework import Program, Variable, default_main_program
 from .ops import fusion as fusion_mod
-from .ops import registry
+from .ops import registry, sparse_ops
+from .ops.common import SelectedRowsVal, maybe_dense
 
 __all__ = ["CPUPlace", "CUDAPlace", "TPUPlace", "place_device", "Scope",
            "global_scope", "scope_guard", "Executor", "COUNTERS"]
@@ -213,7 +214,12 @@ def fold_seed(key: int) -> int:
 def _to_device(value, device: torch.device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device)
-    return torch.as_tensor(np.asarray(value), device=device)
+    a = np.asarray(value)
+    if not a.flags.writeable:
+        # a sparse apply updates its table in place: never in memory the
+        # caller did not hand over for writing
+        a = a.copy()
+    return torch.as_tensor(a, device=device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -299,6 +305,28 @@ COUNTERS = Counters()
 # captured draw, so a block holding one runs eager
 RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
 
+# ops that take a SelectedRows input as it is (executor.py:384): the sparse
+# sum, the optimizers with a sparse apply and their fused buckets. Any other
+# op densifies it at its boundary, counted as `sparse_unaware_op`.
+_SPARSE_AWARE_OPS = frozenset(
+    {"sum"} | set(sparse_ops.SPARSE_APPLY_OPS)
+    | {"fused_sparse_" + t for t in sparse_ops.SPARSE_APPLY_OPS})
+
+
+def _fetched(v):
+    """A fetch as a dense tensor: a SelectedRows value densifies, counted."""
+    return maybe_dense(v, count_as="fetch")
+
+
+def _accepts_sparse_slots(reader) -> bool:
+    """Whether a run_steps reader's next_window takes `sparse_slots`."""
+    import inspect
+    try:
+        params = inspect.signature(reader.next_window).parameters
+    except (TypeError, ValueError):
+        return False
+    return "sparse_slots" in params
+
 
 def liveness(ops, groups) -> Dict[int, List[str]]:
     """position -> the names whose last reader or writer runs there, for
@@ -343,6 +371,12 @@ def capture_graph(body, pool=None, keep=False):
     return graph
 
 
+def _identities(state, names) -> tuple:
+    """The identities of the state tensors named: the tensors a graph that
+    updates them in place is bound to."""
+    return tuple(id(state[n]) for n in sorted(names))
+
+
 def _copies(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     """New tensors holding `tensors`' values, filled by one multi-tensor
     copy: a clone each would cost a launch each, hundreds a step."""
@@ -380,7 +414,9 @@ class _GraphedStep:
     """One signature's step as a captured CUDA graph (the counterpart of
     the reference's jitted, donated step, executor.py:1959-1994): static
     buffers for the feeds, the state buffers it reads, the state it
-    writes (`persist`), the graph, the fetches and the other persistable
+    writes (`persist`), the state it updates in place (`inplace`: the
+    tables and accumulators of sparse applies, whose buffers are the
+    scope's own tensors), the graph, the fetches and the other persistable
     outputs it writes into the shared pool."""
 
     def __init__(self):
@@ -388,6 +424,7 @@ class _GraphedStep:
         self.feeds: Dict[str, torch.Tensor] = {}
         self.state: Dict[str, _StateBuffer] = {}
         self.persist: List[str] = []
+        self.inplace: set = set()
         self.fetches: List[torch.Tensor] = []
         self.written: Dict[str, torch.Tensor] = {}
 
@@ -518,13 +555,26 @@ class Executor:
     buffers, one per variable, shape and dtype, shared by the Executor's
     graphs; the graph ends by copying each persistable output into its
     input's buffer (the reference donates the state), and the scope is
-    handed a copy of each. A scope tensor the buffer does not hold (the
-    caller replaced or changed it, or another scope ran) is copied in
-    before a replay; fetches come back as copies. The graphs share one
-    memory pool, and at most GRAPH_CACHE_SIZE signatures keep theirs.
-    `use_jit=False` runs eager. Either way an env entry goes once its last
-    reader has run (`liveness`), unless it is fetched, a persistable
-    output or state."""
+    handed a copy of each. A table and its accumulators that only sparse
+    applies write (ops/sparse_ops.py, in place) are the exception: their
+    buffers are the scope's own tensors, which every step, eager or
+    graphed, advances in place, so no step copies or allocates a tensor
+    of a table's size. Such a graph is bound to those tensors: their
+    identities are in its key, so another scope, or a tensor the caller
+    put in their place, warms up and captures a graph of its own. Any
+    other scope tensor the buffer does not hold (the caller replaced or
+    changed it, or another scope ran) is copied in before a replay;
+    fetches come back as copies. The graphs share one memory pool,
+    and at most GRAPH_CACHE_SIZE signatures keep theirs. The key also
+    holds `sparse_ops.cache_token` (PADDLE_TPU_SPARSE_APPLY, the program's
+    hot-row cache). `use_jit=False` runs eager. Either way an env entry
+    goes once its last reader has run (`liveness`), unless it is fetched,
+    a persistable output or state.
+
+    A program with a hot-row embedding cache (parallel/emb_cache.py) has
+    its cached ids remapped to slab slots on the host before they cross
+    (`prepare_feed`), and records the end of each run for the cache's
+    copy stream (`window_dispatched`)."""
 
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else default_place()
@@ -533,6 +583,9 @@ class Executor:
         self._plans: Dict[tuple, tuple] = {}
         self._graphs: "OrderedDict[tuple, _GraphedStep]" = OrderedDict()
         self._buffers: Dict[tuple, _StateBuffer] = {}
+        # the names a graph signature's step updates in place, by key less
+        # those tensors' identities (from its warm-up)
+        self._inplace_names: Dict[tuple, set] = {}
         self._pool = None
 
     # --- public API ---------------------------------------------------------
@@ -547,6 +600,9 @@ class Executor:
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = _names(fetch_list)
+        cache = getattr(program, "_emb_cache", None)
+        if cache is not None and feed:
+            feed = cache.prepare_feed(feed)
         feed_vals = {n: _to_device(v, self.device)
                      for n, v in (feed or {}).items()}
         state_names = self._resolve_state(program, feed_vals, scope)
@@ -558,6 +614,8 @@ class Executor:
                                  use_program_cache)
         fetch, written = self._step(program, state, feed_vals, fetch_names,
                                     persist_out, rng_counter, reason)
+        if cache is not None:
+            cache.window_dispatched()
         scope.set_var("__rng_counter__", rng_counter + 1)
         for n, v in written.items():
             scope.set_var(n, v)
@@ -590,24 +648,38 @@ class Executor:
         the device until the window ends, and come back with one
         device-to-host copy each. The scope is written once, after the
         last step, and `__rng_counter__` goes up by K then: a window that
-        fails leaves both as they were (the eager optimizer ops are
+        fails leaves both as they were (the eager dense optimizer ops are
         functional; a graphed window steps its state buffers in place, as
         the reference's donated state, and hands the scope copies only
-        after its last step)."""
+        after its last step), except the tables of sparse applies, which
+        advance in place step by step.
+
+        With a hot-row cache on the program, a reader is asked for the
+        cached ids' slots kept on the host (`sparse_slots`), and the whole
+        window's ids are remapped in one residency transaction before it
+        runs."""
         if fetch_mode not in ("last", "stack", "mean"):
             raise ValueError(f"fetch_mode must be last|stack|mean, "
                              f"got {fetch_mode!r}")
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
+        cache = getattr(program, "_emb_cache", None)
         if reader is not None:
             if feed_window is not None:
                 raise ValueError("pass feed_window or reader, not both")
             if steps is None:
                 raise ValueError("reader windows need an explicit steps=K")
-            feed_window = reader.next_window(steps, device=self.device)
+            if cache is not None and _accepts_sparse_slots(reader):
+                feed_window, _uniq = reader.next_window(
+                    steps, device=self.device,
+                    sparse_slots=cache.feed_id_names())
+            else:
+                feed_window = reader.next_window(steps, device=self.device)
         if feed_window is None:
             raise ValueError("run_steps needs feed_window= or reader=")
         stacked, steps = _normalize_window(feed_window, steps)
+        if cache is not None:
+            stacked = cache.prepare_feed(stacked)
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
         block = program.global_block()
@@ -634,6 +706,8 @@ class Executor:
             written.update(out)
             state.update({n: v for n, v in out.items() if n in state})
             fetched.append(fetch)
+        if cache is not None:
+            cache.window_dispatched()
         scope.set_var("__rng_counter__", rng_counter + steps)
         for n, v in written.items():
             scope.set_var(n, v)
@@ -749,18 +823,24 @@ class Executor:
         step to read in place."""
         if reason is None:
             # the state's names are sorted (_resolve_state)
-            key = (id(program), program._version,
-                   tuple((n, v.shape, v.dtype) for n, v in sorted(feed.items())),
-                   tuple(fetch_names), tuple(state),
-                   tuple(v.shape for v in state.values()),
-                   tuple(v.dtype for v in state.values()),
-                   getattr(program, "_amp_dtype", None),
-                   getattr(program, "_amp_level", "O1"),
-                   quant.cache_token(program), program.random_seed)
-            entry = self._graphs.get(key)
+            base = (id(program), program._version,
+                    tuple((n, v.shape, v.dtype)
+                          for n, v in sorted(feed.items())),
+                    tuple(fetch_names), tuple(state),
+                    tuple(v.shape for v in state.values()),
+                    tuple(v.dtype for v in state.values()),
+                    getattr(program, "_amp_dtype", None),
+                    getattr(program, "_amp_level", "O1"),
+                    quant.cache_token(program), sparse_ops.cache_token(program),
+                    program.random_seed)
+            # a graph updates the in-place state of the scope it was
+            # captured on: those tensors' identities are part of its key
+            names = self._inplace_names.get(base)
+            key = None if names is None else base + (
+                _identities(state, names),)
+            entry = None if key is None else self._graphs.get(key)
             if entry is None:
-                self._graphs[key] = _GraphedStep()
-                self._evict()
+                entry = _GraphedStep()
                 COUNTERS.warmups += 1
             else:
                 self._graphs.move_to_end(key)
@@ -776,7 +856,15 @@ class Executor:
         protected = set(fetch_names) | set(persist_out)
         self._run_block(ctx, program, env, groups, protected, drops,
                         protected | set(state))
-        return ([env[n] for n in fetch_names],
+        if reason is None:
+            # the warm-up: a persistable output that is its state tensor
+            # itself was updated in place (the sparse applies' tables)
+            entry.inplace = {n for n in persist_out
+                             if n in state and env.get(n) is state[n]}
+            self._inplace_names[base] = entry.inplace
+            self._graphs[base + (_identities(state, entry.inplace),)] = entry
+            self._evict()
+        return ([_fetched(env[n]) for n in fetch_names],
                 {n: env[n] for n in persist_out if n in env})
 
     def _evict(self):
@@ -788,8 +876,19 @@ class Executor:
         used = {id(b) for e in self._graphs.values() for b in e.state.values()}
         self._buffers = {k: b for k, b in self._buffers.items()
                          if id(b) in used}
+        bases = {k[:-1] for k in self._graphs}
+        self._inplace_names = {k: v for k, v in self._inplace_names.items()
+                               if k in bases}
 
-    def _buffer(self, name, v) -> _StateBuffer:
+    def _buffer(self, name, v, inplace=False) -> _StateBuffer:
+        """The static buffer of state `name` at v's shape and dtype: a clone
+        of v shared by the Executor's graphs, or, for a tensor the step
+        updates in place, v itself, bound to this graph alone (a buffer
+        that is a scope's tensor is never copied into)."""
+        if inplace:
+            b = _StateBuffer(v)
+            b.source(v)
+            return b
         key = (name, v.shape, v.dtype)
         b = self._buffers.get(key)
         if b is None:
@@ -802,8 +901,9 @@ class Executor:
         """Capture `entry` on its first call, then replay it: a state
         tensor its buffer does not hold copied in, the feeds copied into
         their buffers. The scope is handed copies of the persistable
-        outputs, never a buffer. A capture that fails raises; nothing runs
-        eager in its place."""
+        outputs, never a buffer, except the state the step updates in
+        place, whose buffer is the scope's tensor. A capture that fails
+        raises; nothing runs eager in its place."""
         if entry.graph is None:
             self._capture(entry, program, state, feed, fetch_names,
                           persist_out, rng_counter)
@@ -825,14 +925,20 @@ class Executor:
             for b in bufs:
                 b.source(None)
             return fetch, {n: b.t for n, b in zip(entry.persist, bufs)}
-        copies = _copies([b.t for b in bufs] + list(entry.written.values()))
-        for b, c in zip(bufs, copies):
-            b.source(c)
-        return fetch, dict(zip(entry.persist + list(entry.written), copies))
+        copied = [n for n in entry.persist if n not in entry.inplace]
+        copies = _copies([entry.state[n].t for n in copied]
+                         + list(entry.written.values()))
+        for n, c in zip(copied, copies):
+            entry.state[n].source(c)
+        out = dict(zip(copied + list(entry.written), copies))
+        out.update((n, entry.state[n].t) for n in entry.persist
+                   if n in entry.inplace)
+        return fetch, out
 
     def _capture(self, entry: _GraphedStep, program, state, feed,
                  fetch_names, persist_out, rng_counter):
-        entry.state = {n: self._buffer(n, v) for n, v in state.items()}
+        entry.state = {n: self._buffer(n, v, n in entry.inplace)
+                       for n, v in state.items()}
         entry.persist = [n for n in persist_out if n in entry.state]
         entry.feeds = {n: v.clone() for n, v in feed.items()}
         groups, drops, _ = self._block_plan(program)
@@ -848,7 +954,7 @@ class Executor:
                 buf = entry.state[n].t
                 if env[n] is not buf:
                     buf.copy_(env[n])
-            entry.fetches = [env[n] for n in fetch_names]
+            entry.fetches = [_fetched(env[n]) for n in fetch_names]
             entry.written = {n: env[n] for n in persist_out
                              if n in env and n not in entry.state}
 
@@ -865,7 +971,8 @@ class Executor:
         # whatever the capture left in the buffers it writes, the replay
         # starts from the state
         for n in entry.persist:
-            entry.state[n].t.copy_(state[n])
+            if entry.state[n].t is not state[n]:
+                entry.state[n].t.copy_(state[n])
             entry.state[n].source(state[n])
         COUNTERS.captures += 1
 
@@ -903,6 +1010,14 @@ class Executor:
             raise RuntimeError(f"Operator '{op.type}' has no lowering")
         ins = {slot: [env.get(n) for n in names]
                for slot, names in op.desc.inputs.items()}
+        if op.type not in _SPARSE_AWARE_OPS and any(
+                isinstance(v, SelectedRowsVal)
+                for vals in ins.values() for v in vals):
+            # a SelectedRows value densifies at the boundary of an op with
+            # no sparse path (executor.py:1620), counted
+            sparse_ops.count_densify(op.type, "sparse_unaware_op")
+            ins = {slot: [maybe_dense(v) for v in vals]
+                   for slot, vals in ins.items()}
         try:
             with registry.span("op:" + op.type):
                 outs = opdef.lower(ctx, op, ins)

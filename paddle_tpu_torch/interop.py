@@ -29,5 +29,7 @@ def load_numpy_params(scope, arrays: Dict[str, np.ndarray],
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
-            t = torch.from_numpy(np.ascontiguousarray(a))
+            # a copy: the port updates sparse tables in place, never in
+            # the caller's (or the other package's) memory
+            t = torch.from_numpy(np.array(a, copy=True, order="C"))
         scope.set_var(name, t.to(device))

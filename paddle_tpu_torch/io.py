@@ -18,8 +18,14 @@ LoD is set in the scope as its numpy array, with the LoD beside it under
 `<name>@LOD`, and is written back from there. Values come from, and go to,
 the current scope (`global_scope()`, or a `scope_guard`), as in the
 reference; the executor argument is kept for the API. The JAX package's
-checkpoint telemetry and its hot-row embedding cache are later slices: a
-program that carries a cache raises.
+checkpoint telemetry is later work.
+
+A program with a hot-row embedding cache (parallel/emb_cache.py) holds
+only [cache_rows, dim] slabs in its scope: saving flushes the dirty slots
+first and writes each cached table's full host slab in its slab's place
+(io.py:56-64), and loading restores into the host slab and invalidates
+the residency, so the scope keeps its slab (io.py:146-156). The inference
+program of such a program shares its cache.
 """
 
 from __future__ import annotations
@@ -52,13 +58,6 @@ def _is_parameter(var: Variable) -> bool:
     return isinstance(var, Parameter)
 
 
-def _no_emb_cache(program):
-    if getattr(program, "_emb_cache", None) is not None:
-        raise NotImplementedError(
-            "checkpointing a program with a hot-row embedding cache is a "
-            "later slice of the port")
-
-
 def _as_numpy(val) -> np.ndarray:
     if isinstance(val, torch.Tensor):
         t = val.detach()
@@ -81,12 +80,19 @@ def save_vars(executor, dirname: str, main_program: Optional[Program] = None,
     """Write the current scope's values of the selected variables to
     `dirname` (reference io.py:66); variables with no value are skipped."""
     main_program = main_program or default_main_program()
-    _no_emb_cache(main_program)
     os.makedirs(dirname, exist_ok=True)
     scope = global_scope()
+    # a cached table's checkpoint is its full host slab, after the flush
+    emb_cache = getattr(main_program, "_emb_cache", None)
+    if emb_cache is not None:
+        emb_cache.flush()
     combine = {}
     for v in _selected(main_program, vars, predicate):
         val = scope.find_var(v.name)
+        if emb_cache is not None:
+            host = emb_cache.host_value(v.name)
+            if host is not None:
+                val = host
         if val is None:
             continue
         arr, lod = _as_numpy(val), scope.find_var(v.name + _LOD_SUFFIX)
@@ -110,8 +116,10 @@ def save_persistables(executor, dirname, main_program=None, filename=None):
               save_file_name=filename)
 
 
-def _restore(scope, name, arr, lod):
+def _restore(scope, name, arr, lod, emb_cache=None):
     arr = np.asarray(arr)
+    if emb_cache is not None and emb_cache.load_host(name, arr):
+        return
     if lod:
         scope.set_var(name, arr)
         scope.set_var(name + _LOD_SUFFIX, lod)
@@ -126,15 +134,15 @@ def load_vars(executor, dirname: str, main_program: Optional[Program] = None,
     CPU tensors (reference io.py:234); files that do not exist are
     skipped."""
     main_program = main_program or default_main_program()
-    _no_emb_cache(main_program)
     scope = global_scope()
+    emb_cache = getattr(main_program, "_emb_cache", None)
     selected = _selected(main_program, vars, predicate)
     if load_file_name is not None:
         with open(os.path.join(dirname, load_file_name), "rb") as f:
             blob = pickle.load(f)
         for v in selected:
             if v.name in blob:
-                _restore(scope, v.name, *blob[v.name])
+                _restore(scope, v.name, *blob[v.name], emb_cache=emb_cache)
         return
     for v in selected:
         path = os.path.join(dirname, v.name)
@@ -142,7 +150,7 @@ def load_vars(executor, dirname: str, main_program: Optional[Program] = None,
             continue
         with open(path, "rb") as f:
             d = pickle.load(f)
-        _restore(scope, v.name, d["tensor"], d.get("lod"))
+        _restore(scope, v.name, d["tensor"], d.get("lod"), emb_cache)
 
 
 def load_params(executor, dirname, main_program=None, filename=None):
@@ -170,12 +178,22 @@ def _strip_training_ops(program):
 
 def get_inference_program(target_vars, main_program=None):
     main_program = main_program or default_main_program()
-    _no_emb_cache(main_program)
     if not isinstance(target_vars, list):
         target_vars = [target_vars]
     pruned = _strip_training_ops(main_program).prune(
         [], [t.name for t in target_vars])
-    return pruned.clone(for_test=True)
+    out = pruned.clone(for_test=True)
+    _share_emb_cache(main_program, out)
+    return out
+
+
+def _share_emb_cache(src, dst):
+    """The pruned clone reads the source scope's cache slabs: it takes the
+    cache along, or its lookups would read slab rows with global ids and a
+    save would write slabs as tables."""
+    emb_cache = getattr(src, "_emb_cache", None)
+    if emb_cache is not None:
+        dst._emb_cache = emb_cache
 
 
 def save_inference_model(dirname: str, feeded_var_names: List[str],
@@ -188,7 +206,6 @@ def save_inference_model(dirname: str, feeded_var_names: List[str],
     a training op (a gradient or optimizer output): the pruned program
     would leak the training tail, or could not compute the target."""
     main_program = main_program or default_main_program()
-    _no_emb_cache(main_program)
     if isinstance(feeded_var_names, str):
         feeded_var_names = [feeded_var_names]
     if not isinstance(target_vars, list):
@@ -196,6 +213,7 @@ def save_inference_model(dirname: str, feeded_var_names: List[str],
     os.makedirs(dirname, exist_ok=True)
     inference_program = _strip_training_ops(main_program).prune(
         feeded_var_names, [t.name for t in target_vars]).clone(for_test=True)
+    _share_emb_cache(main_program, inference_program)
     # feeds the targets do not depend on (a training program's label) are
     # dropped from the recorded feed list
     block = inference_program.global_block()

@@ -87,15 +87,14 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
               shard_axis=None, cache_rows=None):
     """Embedding lookup (reference nn.py:188): a `lookup_table` op over a
     [vocab, dim] parameter. A negative padding_idx counts from the end.
-    The row-sharded table (is_distributed, shard_axis) is slice 9 and the
-    hot-row cache (cache_rows) slice 7; is_sparse=True builds, and its
-    SelectedRows gradient raises in lookup_table_grad (slice 7)."""
-    if is_distributed or shard_axis is not None:
-        raise NotImplementedError("a row-sharded embedding table is slice 9 "
-                                  "of the port (parallel/)")
-    if cache_rows is not None:
-        raise NotImplementedError("the hot-row embedding cache is slice 7 of "
-                                  "the port (sparse embeddings)")
+
+    is_sparse=True keeps the gradient a SelectedRows value end to end: the
+    sgd/momentum/adam sparse applies (ops/sparse_ops.py) update only the
+    looked-up rows, in place. is_distributed or shard_axis row-shards the
+    table over the program's mesh (parallel/embedding.py shard_table; one
+    rank only: more raise, ROADMAP Queue 1 item 9b). cache_rows=N records
+    a request for the hot-row cache (parallel/emb_cache.py), which
+    `emb_cache.enable(program)` activates once the startup program ran."""
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype, is_bias=False)
@@ -106,6 +105,12 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                      inputs={"W": [w], "Ids": [input]},
                      outputs={"Out": [tmp]},
                      attrs={"is_sparse": is_sparse, "padding_idx": padding_idx})
+    if shard_axis is not None or is_distributed:
+        from ..parallel import embedding as embedding_mod
+        embedding_mod.shard_table(helper.main_program, w.name, shard_axis)
+    if cache_rows is not None:
+        from ..parallel import emb_cache as emb_cache_mod
+        emb_cache_mod.request_cache(helper.main_program, w.name, cache_rows)
     return tmp
 
 

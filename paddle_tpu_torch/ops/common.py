@@ -3,6 +3,9 @@ counterpart of paddle_tpu/ops/common.py)."""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
 
 _TORCH_DTYPES = {
@@ -15,6 +18,63 @@ _TORCH_DTYPES = {
 
 def to_torch_dtype(name: str) -> torch.dtype:
     return _TORCH_DTYPES[name]
+
+
+@dataclass
+class SelectedRowsVal:
+    """A sparse-rows gradient (reference framework/selected_rows.h:19; JAX
+    ops/common.py:13): `rows` int [K] may repeat, as the reference's
+    unmerged SelectedRows does, `values` [K, D] are the rows' cotangents,
+    `height` the dense row count of the whole table. K is the number of
+    lookups, never the number of distinct ids, so every shape is static
+    and a step holding one can be captured as a CUDA graph. Consumers
+    scatter-apply it (ops/sparse_ops.py) or densify it (`to_dense`)."""
+    rows: torch.Tensor
+    values: torch.Tensor
+    height: int
+
+    def to_dense(self) -> torch.Tensor:
+        """The [height, D] table of row sums. index_put_ with accumulate
+        sums each row's entries in index order on the card too, where
+        index_add_'s atomics would add them in whatever order they land."""
+        dense = torch.zeros((self.height,) + tuple(self.values.shape[1:]),
+                            dtype=self.values.dtype, device=self.values.device)
+        return dense.index_put_((self.rows.long(),), self.values,
+                                accumulate=True)
+
+
+def maybe_dense(v, count_as: Optional[str] = None):
+    """Densify a SelectedRowsVal (identity otherwise). `count_as`, a site
+    label like "fetch", records the densification in
+    sparse_densify_fallback_total."""
+    if isinstance(v, SelectedRowsVal):
+        if count_as is not None:
+            from . import sparse_ops
+            sparse_ops.count_densify(count_as, "densified_at_" + count_as)
+        return v.to_dense()
+    return v
+
+
+def merge_selected_rows(sr: SelectedRowsVal):
+    """Duplicate rows summed (reference selected_rows_functor.cc MergeAdd;
+    JAX common.py:49) with static shapes: (rows [K], values [K, D]), each
+    distinct row's sum in the first slot of its run, freed slots carrying
+    row = height. The ids are sorted stably and each run is summed in
+    sorted order, in the values' dtype; no torch.unique, whose output size
+    depends on the data and would sync with the host."""
+    rows = sr.rows.reshape(-1)
+    vals = sr.values
+    k = rows.shape[0]
+    r_s, order = torch.sort(rows, stable=True)
+    v_s = vals[order]
+    is_new = torch.ones(k, dtype=torch.bool, device=rows.device)
+    is_new[1:] = r_s[1:] != r_s[:-1]
+    seg = torch.cumsum(is_new, 0) - 1
+    merged_vals = torch.zeros_like(v_s).index_put_((seg,), v_s,
+                                                   accumulate=True)
+    merged_rows = torch.full((k,), sr.height, dtype=rows.dtype,
+                             device=rows.device).scatter_(0, seg, r_s)
+    return merged_rows, merged_vals
 
 
 def mxu_cast(ctx, *xs, formats=None):

@@ -29,7 +29,8 @@ SOURCES = {"conv2d_fwd": "conv2d_fwd.cu", "conv2d_wgrad": "conv2d_wgrad.cu",
            "flash_attn_bwd": "flash_attn_bwd.cu",
            "flash_attn_fwd_tf32": "flash_attn_fwd_tf32.cu",
            "flash_attn_bwd_tf32": "flash_attn_bwd_tf32.cu",
-           "bn_act": "bn_act.cu", "quantize": "quantize.cu"}
+           "bn_act": "bn_act.cu", "quantize": "quantize.cu",
+           "sparse_apply": "sparse_apply.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -16,9 +16,11 @@ op order.
     it is cast to its param's dtype per tensor), and each sub-bucket of
     two or more runs as one `fused_sgd`/`fused_momentum`/`fused_adam` op
     over lists of tensors (ops/optimizer_ops.py `*_list`: torch._foreach
-    ops, no concat), bitwise the per-param updates. A grad that is not a
-    dense tensor, or a param the program shards, stays per-param,
-    counted by reason (COUNTERS.fallbacks).
+    ops, no concat), bitwise the per-param updates. SelectedRows grads
+    form `fused_sparse_<t>` buckets by param dtype (each member's sparse
+    apply, in order) while the op has a sparse apply and the gate is on,
+    and stay per-param otherwise; a param the program shards stays
+    per-param. Each is counted by reason (COUNTERS.fallbacks).
   * fc_act and chain (fusion.py:220, :254) run as the reference's
     `_compose_lower` (:500) does: the members in order through the
     executor's own `_exec_op`, under one `win:` span, bitwise the unfused
@@ -56,11 +58,12 @@ import torch
 
 from .. import quant
 from ..framework.desc import OpDesc
-from . import bn_cuda, conv_cuda, optimizer_ops, quant_cuda
-from .common import CONV_FORMATS, mxu_cast
+from . import bn_cuda, conv_cuda, optimizer_ops, quant_cuda, sparse_ops
+from .common import CONV_FORMATS, SelectedRowsVal, mxu_cast
 from .math_ops import ACTIVATIONS
 from .nn_ops import _pair, conv2d_forward
 from .registry import NO_GRAD, register
+from .registry import get as registry_get
 
 CONV_OPS = frozenset({"conv2d"})
 
@@ -293,11 +296,14 @@ def _synth_operator(block, desc, site):
     return o
 
 
-def _bucket_synth(group, members, t):
-    """The fused optimizer op over a same-dtype sub-bucket (fusion.py:398):
+def _bucket_synth(group, members, t, prefix="fused_"):
+    """The fused optimizer op over a same-dtype sub-bucket (fusion.py:327):
     per-param slots keep their names with one entry per member, the
-    shared slots (LR, beta pows) one entry."""
-    key = tuple(id(m) for m in members)
+    shared slots (LR, beta pows) one entry. prefix "fused_sparse_" builds
+    the sparse-apply bucket, whose lowering runs each member's apply; the
+    prefix is part of the cache key, since a member set can turn from
+    sparse to dense when PADDLE_TPU_SPARSE_APPLY changes."""
+    key = (prefix,) + tuple(id(m) for m in members)
     hit = group.cache.get(key)
     if hit is not None:
         return hit
@@ -308,7 +314,9 @@ def _bucket_synth(group, members, t):
         inputs[s] = list(members[0].desc.input(s))
     outputs = {s: [_first(m.desc.output(s)) for m in members] for s in outs}
     attrs = dict(members[0].desc.attrs)
-    desc = OpDesc(type="fused_" + t, inputs=inputs, outputs=outputs,
+    if prefix == "fused_sparse_":
+        attrs["__sparse_members__"] = tuple(members)
+    desc = OpDesc(type=prefix + t, inputs=inputs, outputs=outputs,
                   attrs=attrs)
     op = _synth_operator(getattr(members[0], "block", None), desc,
                          getattr(members[0], "creation_site", None))
@@ -353,18 +361,29 @@ def execute_group(executor, ctx, group: Group, env, protected=()):
 def _execute_opt_bucket(executor, ctx, group: Group, env):
     """fusion.py:404: the dense members, sub-bucketed by the dtypes of
     their per-param tensors (the grad aside), run as one fused op per
-    sub-bucket of two or more; the rest per-param."""
+    sub-bucket of two or more; the rest per-param. A SelectedRows grad
+    never joins a dense bucket: with a sparse apply for the op and the gate
+    on, its member joins a `fused_sparse_<t>` bucket by param dtype
+    (counted `sparse_grad_handled`, or `sharded_table_sparse_path` for a
+    row-sharded table), else it runs per-param (`sparse_grad_unsupported`),
+    densified there."""
     t = group.members[0].type
     specs = getattr(ctx.program, "_param_shardings", None) or {}
-    dense = []
+    tables = getattr(ctx.program, "_sharded_tables", None) or {}
+    dense, sparse = [], []
     for m in group.members:
         g = env.get(_first(m.desc.input("Grad")))
-        if not isinstance(g, torch.Tensor) or g.layout != torch.strided:
-            # a sparse grad never joins a dense bucket (the port's sparse
-            # apply is slice 7 of its queue)
-            _count(COUNTERS.fallbacks, "sparse_grad_unsupported")
-            executor._exec_op(ctx, m, env)
-        elif _first(m.desc.input("Param")) in specs:
+        pname = _first(m.desc.input("Param"))
+        if isinstance(g, SelectedRowsVal):
+            if sparse_ops.sparse_apply_enabled() \
+                    and t in sparse_ops.SPARSE_APPLY_OPS:
+                _count(COUNTERS.fallbacks, "sharded_table_sparse_path"
+                       if pname in tables else "sparse_grad_handled")
+                sparse.append(m)
+            else:
+                _count(COUNTERS.fallbacks, "sparse_grad_unsupported")
+                executor._exec_op(ctx, m, env)
+        elif pname in specs:
             # an explicitly sharded param stays per-param
             _count(COUNTERS.fallbacks, "sharded_param")
             executor._exec_op(ctx, m, env)
@@ -376,14 +395,19 @@ def _execute_opt_bucket(executor, ctx, group: Group, env):
                                 None))
                     for s in _OPT_SLOTS[t][0] if s != "Grad")
         buckets.setdefault(sig, []).append(m)
-    for sig in sorted(buckets):
-        ms = buckets[sig]
-        if len(ms) < 2:
-            for m in ms:
-                executor._exec_op(ctx, m, env)
-            continue
-        _count(COUNTERS.buckets, "fused_" + t)
-        executor._exec_op(ctx, _bucket_synth(group, ms, t), env)
+    sbuckets: Dict[Tuple[str, ...], List[Any]] = {}
+    for m in sparse:
+        p = env.get(_first(m.desc.input("Param")))
+        sbuckets.setdefault((str(getattr(p, "dtype", None)),), []).append(m)
+    for prefix, table in (("fused_", buckets), ("fused_sparse_", sbuckets)):
+        for sig in sorted(table):
+            ms = table[sig]
+            if len(ms) < 2:
+                for m in ms:
+                    executor._exec_op(ctx, m, env)
+                continue
+            _count(COUNTERS.buckets, prefix + t)
+            executor._exec_op(ctx, _bucket_synth(group, ms, t, prefix), env)
 
 
 def _params_grads(ins):
@@ -417,9 +441,29 @@ def _lower_fused_adam(ctx, op_, ins):
     return {"ParamOut": po, "Moment1Out": m1o, "Moment2Out": m2o}
 
 
+def _sparse_bucket_lower(ctx, op_, ins):
+    """A fused sparse-apply bucket (fusion.py:897): each member's own
+    lowering (the sparse apply, one table at a time: tables differ in
+    height) on its entries of the bucket's slots, in member order, so the
+    values are bitwise the per-param sparse path's."""
+    members = op_.attr("__sparse_members__")
+    per_param, shared, outs = _OPT_SLOTS[members[0].type]
+    lower = registry_get(members[0].type).lower
+    result = {s: [] for s in outs}
+    for i, m in enumerate(members):
+        mins = {s: [ins[s][i]] for s in per_param}
+        mins.update({s: ins[s] for s in shared})
+        out = lower(ctx, m, mins)
+        for s in outs:
+            result[s].append(out[s][0])
+    return result
+
+
 register("fused_sgd", lower=_lower_fused_sgd, grad=NO_GRAD)
 register("fused_momentum", lower=_lower_fused_momentum, grad=NO_GRAD)
 register("fused_adam", lower=_lower_fused_adam, grad=NO_GRAD)
+for _t in OPTIMIZER_BUCKET_OPS:
+    register("fused_sparse_" + _t, lower=_sparse_bucket_lower, grad=NO_GRAD)
 
 
 def _act_name(g: Group):

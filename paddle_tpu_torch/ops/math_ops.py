@@ -10,8 +10,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import quant
-from .common import (broadcast_y_to_x, elementwise_infer, in_var, mxu_cast,
-                     same_as_input, set_out)
+from .common import (SelectedRowsVal, broadcast_y_to_x, elementwise_infer,
+                     in_var, maybe_dense, mxu_cast, same_as_input, set_out)
 from .registry import cotangent, grad_op, op, register, zero_grads
 
 
@@ -431,10 +431,18 @@ def _sum_infer(op_, block):
 
 @op("sum", infer_shape=_sum_infer)
 def _sum(ctx, op_, ins):
-    """Elementwise sum of the X list (reference sum_op.cc), dense inputs;
-    backward's @RENAME@ accumulation emits it pairwise. SelectedRows inputs
-    wait for the sparse slice."""
-    xs = [x for x in ins["X"] if x is not None]
+    """Elementwise sum of the X list (reference sum_op.cc); backward's
+    @RENAME@ accumulation emits it pairwise. SelectedRows inputs only
+    concatenate their rows and values (the rows may repeat, as the
+    reference's unmerged SelectedRows); a mix densifies (math_ops.py:320)."""
+    raw = [x for x in ins["X"] if x is not None]
+    if raw and all(isinstance(x, SelectedRowsVal) for x in raw):
+        if len(raw) == 1:
+            return {"Out": [raw[0]]}
+        return {"Out": [SelectedRowsVal(torch.cat([x.rows for x in raw]),
+                                        torch.cat([x.values for x in raw]),
+                                        raw[0].height)]}
+    xs = [maybe_dense(x) for x in raw]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

@@ -23,7 +23,8 @@ from .. import quant
 from ..framework.desc import OpDesc
 from ..framework.framework import grad_var_name
 from . import attention_cuda, conv_cuda
-from .common import CONV_FORMATS, in_var, mxu_cast, same_as_input, set_out
+from .common import (CONV_FORMATS, SelectedRowsVal, in_var, mxu_cast,
+                     same_as_input, set_out)
 from .registry import (NO_GRAD, cotangent, generic_grad_lower, grad_op,
                        infer_grad_shapes, op, zero_grads)
 
@@ -476,10 +477,17 @@ def _squeezed_ids(ids):
 @op("lookup_table", infer_shape=_lookup_infer, non_diff_inputs=("Ids",))
 def _lookup_table(ctx, op_, ins):
     """Rows of W gathered by Ids; rows of `padding_idx` read as zeros
-    (nn_ops.py:189; the row-sharded table path waits for slice 9)."""
+    (nn_ops.py:189). A row-sharded table gathers through
+    sparse_ops.sharded_lookup."""
+    from . import sparse_ops
     w = ins["W"][0]
     ids = _squeezed_ids(ins["Ids"][0])
-    out = w[ids.long()]
+    wname = (op_.input("W") or [None])[0]
+    program = getattr(ctx, "program", None)
+    if wname and sparse_ops.table_axes(program, wname) is not None:
+        out = sparse_ops.sharded_lookup(program, wname, w, ids.long())
+    else:
+        out = w[ids.long()]
     pad = op_.attr("padding_idx", -1)
     if pad is not None and pad >= 0:
         out = out.masked_fill((ids == pad)[..., None], 0.0)
@@ -488,13 +496,12 @@ def _lookup_table(ctx, op_, ins):
 
 @op("lookup_table_grad", grad=NO_GRAD)
 def _lookup_table_grad(ctx, op_, ins):
-    """The dense embedding gradient (nn_ops.py:211): the cotangent rows,
-    in W's dtype and zero at `padding_idx`, summed into a zero table in a
-    fixed order. The SelectedRows gradient of `is_sparse=True` is slice 7."""
-    if op_.attr("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table_grad with is_sparse=True (a SelectedRows "
-            "gradient) is slice 7 of the port (sparse embeddings)")
+    """The embedding gradient (nn_ops.py:211): the cotangent rows, in W's
+    dtype and zero at `padding_idx`. Under is_sparse=True, and for a
+    row-sharded table, a SelectedRowsVal of the flat ids and those rows,
+    duplicates unmerged as the reference's; else the rows summed into a
+    zero table in a fixed order."""
+    from . import sparse_ops
     w = ins["W"][0]
     douts = ins.get("Out@GRAD")
     if not douts or douts[0] is None:
@@ -505,6 +512,17 @@ def _lookup_table_grad(ctx, op_, ins):
     pad = op_.attr("padding_idx", -1)
     if pad is not None and pad >= 0:
         g = g.masked_fill((ids == pad)[:, None], 0.0)
+    wname = (op_.input("W") or [None])[0]
+    sharded = (wname is not None and sparse_ops.table_axes(
+        getattr(ctx, "program", None), wname) is not None)
+    if op_.attr("is_sparse", False) or sharded:
+        if sharded and not op_.attr("is_sparse", False):
+            sparse_ops.note_once(
+                f"forced_sparse:{wname}",
+                f"lookup_table_grad for row-sharded table '{wname}' "
+                f"emits a SelectedRows gradient (is_sparse forced on): "
+                f"a dense gradient would materialize the full table.")
+        return {"W@GRAD": [SelectedRowsVal(ids, g, w.shape[0])]}
     # accumulate through index_put_: on a CUDA tensor it sorts the ids and
     # sums each id's rows in order, where index_add_'s atomics add them in
     # whatever order they land (two runs, or a graph and the eager step,

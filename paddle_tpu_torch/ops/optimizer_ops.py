@@ -6,14 +6,22 @@ Like the reference, optimizer updates are ops in the program: outputs alias
 the parameter/accumulator input names, and the executor writes them back to
 the scope. The grad is upcast to the parameter's dtype before any arithmetic
 (`_param_grad`, optimizer_ops.py:33): f32 master weights under AMP O2 may
-receive bf16 grads. SelectedRows grads wait for the sparse slice.
+receive bf16 grads.
+
+A SelectedRows grad (is_sparse lookup_table_grad) reaches sgd, momentum
+and adam's sparse branch while PADDLE_TPU_SPARSE_APPLY is on: the apply
+of ops/sparse_ops.py (S1 on the card), which updates the table and its
+accumulators in place and hands back the same tensors. Any other
+optimizer, or these with the gate off, densifies it, counted as
+`no_sparse_kernel` or `gated_off` (optimizer_ops.py:36-150).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import in_var, set_out
+from . import sparse_ops
+from .common import SelectedRowsVal, in_var, maybe_dense, set_out
 from .registry import NO_GRAD, op
 
 
@@ -30,9 +38,32 @@ def _lr(ins):
     return ins["LearningRate"][0].reshape(())
 
 
-def _param_grad(ins):
+def _param_grad(ins, op_type=None):
+    """(param, grad) with the grad cast to the param's dtype; a SelectedRows
+    grad densifies here, counted under `op_type`'s reason."""
     p = ins["Param"][0]
-    return p, ins["Grad"][0].to(p.dtype)
+    g = ins["Grad"][0]
+    if isinstance(g, SelectedRowsVal) and op_type is not None:
+        sparse_ops.count_densify(
+            op_type, "gated_off" if op_type in sparse_ops.SPARSE_APPLY_OPS
+            else "no_sparse_kernel")
+    return p, maybe_dense(g).to(p.dtype)
+
+
+def _sparse_ready(ins) -> bool:
+    return (isinstance(ins["Grad"][0], SelectedRowsVal)
+            and sparse_ops.sparse_apply_enabled())
+
+
+def _sparse_grad(ins):
+    """The SelectedRows grad with its values cast to the param's dtype."""
+    g, p = ins["Grad"][0], ins["Param"][0]
+    return SelectedRowsVal(g.rows, g.values.to(p.dtype), g.height)
+
+
+def _pname(op_):
+    names = op_.input("Param")
+    return names[0] if names else None
 
 
 # Dense update math (optimizer_ops.py:69-87): elementwise over the tensors
@@ -103,7 +134,11 @@ def adam_list(ps, gs, m1s, m2s, lr, b1, b2, eps, b1p, b2p):
 
 @op("sgd", grad=NO_GRAD, infer_shape=_param_out_infer(("Param", "ParamOut")))
 def _sgd(ctx, op_, ins):
-    p, g = _param_grad(ins)
+    if _sparse_ready(ins):
+        po = sparse_ops.sgd_apply(ins["Param"][0], _lr(ins), _sparse_grad(ins))
+        po = sparse_ops.pin_table(ctx.program, _pname(op_), po)
+        return {"ParamOut": [po]}
+    p, g = _param_grad(ins, "sgd")
     return {"ParamOut": [sgd_dense(p, g, _lr(ins))]}
 
 
@@ -111,7 +146,13 @@ def _sgd(ctx, op_, ins):
     infer_shape=_param_out_infer(("Param", "ParamOut"),
                                  ("Velocity", "VelocityOut")))
 def _momentum(ctx, op_, ins):
-    p, g = _param_grad(ins)
+    if _sparse_ready(ins):
+        po, vo = sparse_ops.momentum_apply(
+            ins["Param"][0], ins["Velocity"][0], _lr(ins), op_.attr("mu"),
+            op_.attr("use_nesterov", False), _sparse_grad(ins))
+        po, vo = sparse_ops.pin_table(ctx.program, _pname(op_), po, vo)
+        return {"ParamOut": [po], "VelocityOut": [vo]}
+    p, g = _param_grad(ins, "momentum")
     p_out, v_out = momentum_dense(p, g, ins["Velocity"][0], _lr(ins),
                                   op_.attr("mu"),
                                   op_.attr("use_nesterov", False))
@@ -123,10 +164,27 @@ def _momentum(ctx, op_, ins):
                                  ("Moment1", "Moment1Out"),
                                  ("Moment2", "Moment2Out")))
 def _adam(ctx, op_, ins):
-    p, g = _param_grad(ins)
-    po, m1o, m2o = adam_dense(
-        p, g, ins["Moment1"][0], ins["Moment2"][0], _lr(ins),
-        op_.attr("beta1", 0.9), op_.attr("beta2", 0.999),
-        op_.attr("epsilon", 1e-8), ins["Beta1Pow"][0].reshape(()),
-        ins["Beta2Pow"][0].reshape(()))
+    hyper = (_lr(ins), op_.attr("beta1", 0.9), op_.attr("beta2", 0.999),
+             op_.attr("epsilon", 1e-8), ins["Beta1Pow"][0].reshape(()),
+             ins["Beta2Pow"][0].reshape(()))
+    if _sparse_ready(ins):
+        po, m1o, m2o = sparse_ops.adam_apply(
+            ins["Param"][0], ins["Moment1"][0], ins["Moment2"][0], *hyper,
+            _sparse_grad(ins))
+        po, m1o, m2o = sparse_ops.pin_table(ctx.program, _pname(op_), po,
+                                            m1o, m2o)
+        return {"ParamOut": [po], "Moment1Out": [m1o], "Moment2Out": [m2o]}
+    p, g = _param_grad(ins, "adam")
+    po, m1o, m2o = adam_dense(p, g, ins["Moment1"][0], ins["Moment2"][0],
+                              *hyper)
     return {"ParamOut": [po], "Moment1Out": [m1o], "Moment2Out": [m2o]}
+
+
+@op("adagrad", grad=NO_GRAD,
+    infer_shape=_param_out_infer(("Param", "ParamOut"), ("Moment", "MomentOut")))
+def _adagrad(ctx, op_, ins):
+    """reference adagrad_op.cc; dense grads only (optimizer_ops.py:175)."""
+    p, g = _param_grad(ins, op_.type)
+    mo = ins["Moment"][0] + g * g
+    po = p - _lr(ins) * g / (torch.sqrt(mo) + op_.attr("epsilon", 1e-6))
+    return {"ParamOut": [po], "MomentOut": [mo]}

@@ -17,8 +17,9 @@ from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
-           "AdamOptimizer", "Optimizer"]
+__all__ = ["SGD", "Momentum", "Adam", "Adagrad", "SGDOptimizer",
+           "MomentumOptimizer", "AdamOptimizer", "AdagradOptimizer",
+           "Optimizer"]
 
 
 class Optimizer:
@@ -161,6 +162,31 @@ class MomentumOptimizer(Optimizer):
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
+class AdagradOptimizer(Optimizer):
+    """Adagrad (reference optimizer.py AdagradOptimizer). It has no sparse
+    apply: a SelectedRows grad densifies at its op, counted."""
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str, param_and_grad[0])
+        return block.append_op(
+            type="adagrad",
+            inputs={"Param": [param_and_grad[0]], "Grad": [param_and_grad[1]],
+                    "Moment": [moment],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]], "MomentOut": [moment]},
+            attrs={"epsilon": self._epsilon})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -220,3 +246,4 @@ class AdamOptimizer(Optimizer):
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+Adagrad = AdagradOptimizer

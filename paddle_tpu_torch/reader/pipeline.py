@@ -21,8 +21,12 @@ Counters (`COUNTERS`) stand in for the JAX package's telemetry: batches
 and windows handed out, remainder batches dropped at the end of a pass,
 and the consumer's seconds waiting for the producer.
 
-The JAX package's `sparse_slots` argument (the hot-row embedding cache's
-id dedup) waits for the port's sparse slice (ROADMAP Queue 1, slice 7).
+`next_window(k, sparse_slots=[names])` serves the hot-row embedding cache
+(parallel/emb_cache.py): it returns `(window, {name: unique ids of the
+window})`, and the named slots stay on the host, as CPU tensors, for the
+cache to remap to slab slots before they cross (no window's ids come back
+from the card for the remap). The dedup runs where the window is stacked:
+on the window thread under window_prefetch > 1.
 """
 
 from __future__ import annotations
@@ -84,20 +88,25 @@ def _resolve_device(device) -> torch.device:
 
 
 class _Staged:
-    """A feed dict on the card and the event its copies end with."""
+    """A feed dict on the card, the event its copies end with, and, for a
+    window with sparse slots, their unique ids."""
 
-    def __init__(self, feed: Dict[str, torch.Tensor], event):
+    def __init__(self, feed: Dict[str, torch.Tensor], event, uniq=None):
         self.feed = feed
         self.event = event
+        self.uniq = uniq
 
     def hand_out(self, device) -> Dict[str, torch.Tensor]:
         """The consumer side: its stream waits for the copies, and each
-        tensor is marked as used on that stream."""
+        tensor on the card is marked as used on that stream."""
         if self.event is not None:
             stream = torch.cuda.current_stream(device)
             stream.wait_event(self.event)
             for t in self.feed.values():
-                t.record_stream(stream)
+                if t.device.type == "cuda":
+                    t.record_stream(stream)
+        if self.uniq is not None:
+            return self.feed, self.uniq
         return self.feed
 
 
@@ -202,17 +211,20 @@ class DoubleBufferedFeeder:
             yield item.hand_out(self.device) if stage else item
 
     # --- windows ------------------------------------------------------------
-    def next_window(self, k: int, device=None) -> Dict[str, torch.Tensor]:
+    def next_window(self, k: int, device=None, sparse_slots=None):
         """The next k batches of the pass, each feed name stacked into one
         [k, ...] tensor on `device` (the feeder's by default): the input of
         Executor.run_steps. Raises StopIteration at the end of a pass; a
         shorter remainder is dropped and counted in `COUNTERS.dropped`, and
         the next call starts a new pass. With window_prefetch > 1 a window
         thread stacks and copies up to that many windows ahead, and this
-        call takes the next one."""
+        call takes the next one. With `sparse_slots` (feed names) the
+        result is `(window, {name: sorted unique ids})`, those names kept
+        on the host."""
         device = self.device if device is None else _resolve_device(device)
+        sparse = tuple(sparse_slots) if sparse_slots else None
         if self.window_prefetch > 1:
-            return self._next_window_prefetched(k, device)
+            return self._next_window_prefetched(k, device, sparse)
         if self._consumer is None:
             self._consumer = self._batches(stage=False)
         feeds: List[Dict[str, Any]] = []
@@ -227,20 +239,23 @@ class DoubleBufferedFeeder:
             self._consumer = None         # a failed pass starts anew
             raise
         COUNTERS.windows += 1
-        return self._stack_window(feeds, device).hand_out(device)
+        return self._stack_window(feeds, device, sparse).hand_out(device)
 
-    def _stack_window(self, feeds: List[Dict[str, Any]], device) -> _Staged:
+    def _stack_window(self, feeds: List[Dict[str, Any]], device,
+                      sparse_slots=None) -> _Staged:
         names = set(feeds[0])
         if any(set(f) != names for f in feeds[1:]):
             raise ValueError("window batches must share the same feed names")
+        kept = set(sparse_slots or ()) & names
+        out = {n: torch.from_numpy(np.stack([np.asarray(f[n]) for f in feeds]))
+               for n in sorted(kept if device.type == "cuda" else names)}
+        uniq = None if sparse_slots is None else \
+            {n: np.unique(out[n].numpy()) for n in sorted(kept)}
         if device.type != "cuda":
-            return _Staged({n: torch.from_numpy(np.stack(
-                [np.asarray(f[n]) for f in feeds])) for n in sorted(names)},
-                None)
+            return _Staged(out, None, uniq)
         stream = self._copy_stream(device)
-        out = {}
         with torch.cuda.device(device), torch.cuda.stream(stream):
-            for n in sorted(names):
+            for n in sorted(names - kept):
                 arrs = [np.asarray(f[n]) for f in feeds]
                 host = self._pinned_buffer(device, n, arrs)
                 np.stack(arrs, out=host.numpy())
@@ -250,7 +265,7 @@ class DoubleBufferedFeeder:
                 self._pinned[(device, n)][1] = done
             event = torch.cuda.Event()
             event.record(stream)
-        return _Staged(out, event)
+        return _Staged(out, event, uniq)
 
     def _pinned_buffer(self, device, name, arrs) -> torch.Tensor:
         """The reused pinned [k, ...] buffer of one feed name, once the last
@@ -269,7 +284,7 @@ class DoubleBufferedFeeder:
             slot[1].synchronize()
         return slot[0]
 
-    def _produce_windows(self, k, device, wq, wstop):
+    def _produce_windows(self, k, device, wq, wstop, sparse_slots=None):
         """The window thread: k batches at a time from the batch producer,
         stacked and copied, into the bounded window queue. `wq` and `wstop`
         are its own, so a window thread given up by a change of (k, device)
@@ -296,13 +311,13 @@ class DoubleBufferedFeeder:
                     # marker: a count here would race its reads
                     _put((_STOP, len(feeds)))
                     return
-                if not _put(self._stack_window(feeds, device)):
+                if not _put(self._stack_window(feeds, device, sparse_slots)):
                     return
         except Exception as e:  # noqa: BLE001 - raised in the consumer
             _put(e)
 
-    def _next_window_prefetched(self, k, device):
-        key = (k, device)
+    def _next_window_prefetched(self, k, device, sparse_slots=None):
+        key = (k, device, sparse_slots)
         if self._wthread is None or self._wkey != key:
             self._stop_windows()
             self._wkey = key
@@ -310,7 +325,7 @@ class DoubleBufferedFeeder:
             self._wqueue = queue.Queue(maxsize=self.window_prefetch)
             self._wthread = threading.Thread(
                 target=self._produce_windows,
-                args=(k, device, self._wqueue, self._wstop),
+                args=(k, device, self._wqueue, self._wstop, sparse_slots),
                 daemon=True, name="pd-feeder-window")
             self._wthread.start()
         t0 = time.perf_counter()

@@ -43,14 +43,20 @@ paddle_tpu/serving/engine.py `ServingEngine`).
     scope and placed on the serving device once, at construction, with the
     fold windows' filters and biases computed from them once; the graphs
     read them in place.
+  * **Hot-row embedding cache** (`emb_cache_budget_bytes=` or
+    `emb_cache_tables=`, parallel/emb_cache.py `enable_serving`): a
+    cached table's resident state is a [cache_rows, dim] slab over a host
+    copy of the full table, read-only: a request's ids are remapped to
+    slots under the engine lock before its bucket runs, misses are staged
+    into the slab in place (the bucket graphs captured its address), and
+    nothing is flushed. `stats()["emb_cache"]` reports it.
   * **Telemetry**: the reference's series (`serving_cache_{hit,miss}_total`,
     `serving_cache_evictions_total`, `serving_compile_seconds` — warm-up
     plus capture — and `serving_bucket_runs_total`), the `serving_admit`,
     `serving_prequantize`, `serving_compile` and `serving_evict` events,
     python mirrors of the counters and `stats()`.
 
-The static-analyzer admission gate, the hot-row embedding cache and LoD
-requests are later slices; the cache raises NotImplementedError.
+The static-analyzer admission gate and LoD requests are later slices.
 """
 
 from __future__ import annotations
@@ -155,10 +161,6 @@ class ServingEngine:
         if quantize not in (None, "int8", "fp8"):
             raise ValueError(f"quantize must be 'int8' or 'fp8', got "
                              f"{quantize!r}")
-        if emb_cache_budget_bytes is not None or emb_cache_tables:
-            raise NotImplementedError(
-                "the hot-row embedding cache is a later slice of the port")
-
         self.place = place if place is not None else CUDAPlace(0)
         self._exe = Executor(self.place)
         self.device = self._exe.device
@@ -240,6 +242,14 @@ class ServingEngine:
         self._state: Dict[str, torch.Tensor] = {
             n: _to_device(self._scope.find_var(n), self.device)
             for n in self._prepared.state_names}
+        # a cached table's slab replaces its resident state before any
+        # bucket graph captures the state's addresses
+        self._emb_cache = None
+        if emb_cache_budget_bytes is not None or emb_cache_tables:
+            from ..parallel import emb_cache as emb_cache_mod
+            self._emb_cache = emb_cache_mod.enable_serving(
+                self, budget_bytes=emb_cache_budget_bytes,
+                tables=emb_cache_tables)
         self._prepared.fold_weights(self._state)
 
         # None: every bucket runs as a graph; else why every bucket runs
@@ -428,6 +438,10 @@ class ServingEngine:
         with self._lock:
             if self._closed:
                 raise RuntimeError("ServingEngine is closed")
+            if self._emb_cache is not None:
+                # ids -> slab slots (misses staged in place); the padding
+                # below repeats the last row, so pad rows hold valid slots
+                arrays = self._emb_cache.prepare_feed(arrays)
             key = (bucket, inner, quant_mod.cache_token(self.program))
             staged = self._stage(arrays, bucket, self._graphs.get(key))
             if _phase_marks is not None:
@@ -439,6 +453,8 @@ class ServingEngine:
                 t_sel = time.monotonic()
                 _phase_marks["bucket_select"] = (t_pad, t_sel)
             out = self._compute_locked(graph, staged, rows)
+            if self._emb_cache is not None:
+                self._emb_cache.window_dispatched()
             if _phase_marks is not None:
                 _phase_marks["compute"] = (t_sel, time.monotonic())
             self.bucket_runs[bucket] = self.bucket_runs.get(bucket, 0) + 1
@@ -471,7 +487,7 @@ class ServingEngine:
         # under the run lock: the batcher's worker mutates the counters
         # mid-run_batch, and stats() is called from other threads
         with self._lock:
-            return {
+            out = {
                 "cache_hits": self.cache_hits,
                 "cache_misses": self.cache_misses,
                 "evictions": self.evictions,
@@ -479,6 +495,9 @@ class ServingEngine:
                 "buckets": list(self.buckets),
                 "resident_state": len(self._state or ()),
             }
+        if self._emb_cache is not None:
+            out["emb_cache"] = self._emb_cache.stats()
+        return out
 
     @property
     def closed(self) -> bool:

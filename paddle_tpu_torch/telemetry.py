@@ -7,9 +7,10 @@ read-only peeks (`read_gauge`, `read_series`, `read_histogram`,
 structured events (`log_event`, `recent_events`). The series keys, the
 histogram bucket edges and the quantile interpolation are the reference's,
 so a reader of either package gets the same numbers from the same
-observations. Serving (serving/engine.py, batcher.py, slo.py) and span
-tracing (tracing.py) publish here; METRIC_CATALOG lists every family the
-port creates.
+observations. Serving (serving/engine.py, batcher.py, slo.py), span
+tracing (tracing.py), the sparse applies (ops/sparse_ops.py) and the
+hot-row embedding cache (parallel/emb_cache.py) publish here;
+METRIC_CATALOG lists every family the port creates.
 
 The reference's cross-host snapshots, Prometheus text, JSONL step log,
 chrome-trace export and compile listener are later work (ROADMAP item
@@ -403,4 +404,23 @@ METRIC_CATALOG = {
                             "finished (sampled) trace spans"),
     "trace_spans_dropped_total": _m(
         "counter", (), "spans evicted from the trace ring buffer"),
+    # sparse / embedding
+    "sparse_apply_rows_total": _m("counter", ("op",),
+                                  "rows touched by sparse applies"),
+    "sparse_densify_fallback_total": _m(
+        "counter", ("op", "reason"), "sparse paths densified"),
+    "emb_cache_hits_total": _m("counter", ("table",),
+                               "embedding hot-row cache hits"),
+    "emb_cache_misses_total": _m("counter", ("table",),
+                                 "embedding hot-row cache misses"),
+    "emb_cache_hit_rate": _m("gauge", ("table",),
+                             "embedding cache rolling hit rate"),
+    "emb_cache_evictions_total": _m("counter", ("policy",),
+                                    "embedding cache evictions"),
+    "emb_cache_flush_bytes_total": _m(
+        "counter", (), "dirty embedding bytes flushed to host"),
+    "emb_cache_prefetch_total": _m("counter", (),
+                                   "embedding prefetch batches staged"),
+    "emb_cache_prefetch_overlap_fraction": _m(
+        "gauge", (), "prefetch time hidden under compute"),
 }

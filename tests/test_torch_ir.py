@@ -166,10 +166,12 @@ def test_import_without_jax():
 
 @pytest.mark.parametrize("module", [
     "errors", "telemetry", "tracing", "serving.batcher", "serving.harness",
-    "serving.slo"])
+    "serving.slo", "ops.sparse_ops", "ops.sparse_cuda", "parallel.embedding",
+    "parallel.emb_cache"])
 def test_serving_modules_import_alone_without_jax(module):
-    """Each module of the serving slice, imported first and alone with jax
-    blocked, brings in neither jax nor anything of the JAX package."""
+    """Each module of the serving and sparse-embedding slices, imported
+    first and alone with jax blocked, brings in neither jax nor anything of
+    the JAX package."""
     code = ("import sys; sys.modules['jax'] = None; "
             f"import paddle_tpu_torch.{module}; "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "

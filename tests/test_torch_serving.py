@@ -244,15 +244,19 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_later_slices_raise():
-    """The embedding cache is a later slice; fp8 serving is ported
-    (tests/test_torch_quant_serving.py) and an unknown mode is refused."""
-    main, _, prob = _build(pt, port_resnet, False)
+    """fp8 serving (tests/test_torch_quant_serving.py) and the embedding
+    cache (tests/test_torch_emb_cache.py) are ported; an unknown mode is
+    refused, and a cache asked for a table the program does not look up
+    caches nothing, as the reference's enable_serving."""
+    main, startup, prob = _build(pt, port_resnet, False)
     with pytest.raises(ValueError, match="quantize"):
         ServingEngine(main, ["img"], [prob], place=pt.CPUPlace(),
                       quantize="int4")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(main, ["img"], [prob], place=pt.CPUPlace(),
-                      emb_cache_tables={"t": 4})
+    scope = pt.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    engine = ServingEngine(main, ["img"], [prob], place=pt.CPUPlace(),
+                           scope=scope, emb_cache_tables={"t": 4})
+    assert "emb_cache" not in engine.stats()
 
 
 def test_admission_refuses_training_ops():

@@ -115,12 +115,20 @@ def test_lookup_table_and_grad_match_jax(ids_shape, padding_idx):
 
 
 def test_sparse_lookup_grad_is_a_later_slice():
-    op = _op({"is_sparse": True})
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        registry.get("lookup_table_grad").lower(
-            None, op, {"W": [torch.zeros(3, 2)],
-                       "Ids": [torch.zeros(2, dtype=torch.int64)],
-                       "Out@GRAD": [torch.zeros(2, 2)]})
+    """The sparse embedding slice is ported: is_sparse=True gives a
+    SelectedRows gradient, the flat ids and the cotangent rows unmerged,
+    whose dense form is the dense gradient (tests/test_torch_sparse.py
+    holds it to the JAX package's)."""
+    from paddle_tpu_torch.ops.common import SelectedRowsVal
+    ins = {"W": [torch.zeros(3, 2)], "Ids": [torch.tensor([[2], [2]])],
+           "Out@GRAD": [torch.ones(2, 2)]}
+    sr = registry.get("lookup_table_grad").lower(
+        None, _op({"is_sparse": True}), ins)["W@GRAD"][0]
+    assert isinstance(sr, SelectedRowsVal) and sr.height == 3
+    assert sr.rows.tolist() == [2, 2]
+    dense = registry.get("lookup_table_grad").lower(
+        None, _op({"is_sparse": False}), ins)["W@GRAD"][0]
+    assert torch.equal(sr.to_dense(), dense)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
