@@ -922,6 +922,26 @@ def phase_kernel(pt, conv_cuda, resnet, report):
                 err, err16 = _check_kernel(conv_cuda, x, wt, *key[2:])
                 worst_err = max(worst_err, err)
                 worst_err16 = max(worst_err16, err16)
+    # K1 at every shape vgg16 O2 training gives it (the train_graph
+    # path), the f32 and bf16 forms each twice bitwise
+    vgg = _vgg16_kernel_shapes(pt, TRAIN_BATCH)[0]
+    vgg_err, vgg_err16 = 0.0, 0.0
+    for xs, ws, s, p, d in vgg:
+        x, wt = operands(xs, ws)
+        _twice(lambda: (conv_cuda.conv2d(x, wt, s, p, d, out_dtype=torch.float32),
+                        conv_cuda.conv2d(x, wt, s, p, d)))
+        err, err16 = _check_kernel(conv_cuda, x, wt, s, p, d)
+        vgg_err, vgg_err16 = max(vgg_err, err), max(vgg_err16, err16)
+        del x, wt
+    torch.cuda.empty_cache()
+    worst_err, worst_err16 = max(worst_err, vgg_err), max(worst_err16, vgg_err16)
+    print(f"K1 at the {len(vgg)} distinct shapes of vgg16 O2 training (batch "
+          f"{TRAIN_BATCH}; {sum(vgg.values())} launches a step), twice "
+          f"bitwise: max abs err f32 {vgg_err:.3g}, bf16 {vgg_err16:.3g}",
+          flush=True)
+    report["k1_vgg16_shapes"] = [
+        {"x_nhwc": list(k[0]), "w_oihw": list(k[1]), "strides": list(k[2]),
+         "paddings": list(k[3]), "per_step": n} for k, n in vgg.items()]
     counts = {}
     for key in _eligible_convs(conv_cuda, main, BATCH):
         counts[key] = counts.get(key, 0) + 1
@@ -2176,6 +2196,27 @@ def _resnet50_train(pt, resnet, amp=True, class_dim=1000, level="O2"):
     return main, startup, avg_cost
 
 
+VGG_LR = 0.005                      # bench.py's vgg19 entry (bench.py:115)
+
+
+def _vgg16_train(pt):
+    """vgg16 (models/vgg.py: img_conv_group blocks with batch norm and
+    dropout, fc -> batch_norm(relu) -> dropout -> fc -> fc) at 224 x 224,
+    1000 classes, trained as bench.py's CNN modes are (Momentum 0.9 at
+    bench's VGG rate), AMP O2."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name="img", shape=[3, 224, 224], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        avg_cost, _, _ = pt.models.build_image_classifier(
+            pt.models.vgg16, img, label, class_dim=1000)
+        opt = pt.amp.decorate(pt.optimizer.Momentum(learning_rate=VGG_LR,
+                                                    momentum=0.9), level="O2")
+        opt.minimize(avg_cost)
+    main.random_seed = startup.random_seed = SEED + 1
+    return main, startup, avg_cost
+
+
 def _training_shapes(conv_cuda, program, batch):
     """Every distinct shape ResNet-50 training gives K2/K3/K4 (the eligible
     convs: x NHWC, w OIHW, strides, paddings, dilations), K5 (the [M, C] of
@@ -2204,6 +2245,138 @@ def _training_shapes(conv_cuda, program, batch):
         else:
             acts[bn_key] = acts.get(bn_key, 0) + 1
     return convs, applies, acts
+
+
+# vgg16 O2's launches per training step (the train_graph path): K1 and K2
+# and K3 at its 12 convs of 8-multiple channels (the first, of 3, falls
+# back under "channels"), K6 at its 13 conv batch norms (fc1's is 2-D and
+# falls back under "kernel_layout"); its convs carry a bias, so no conv ->
+# batch_norm window forms and K4/K5 run no time
+VGG16_LAUNCHES = {"conv.launches": 12, "conv.dgrad_launches": 12,
+                  "conv.wgrad_launches": 12, "bn.act_launches": 13}
+
+
+def _vgg16_kernel_shapes(pt, batch):
+    """Every distinct shape vgg16 O2 training gives K1, K2, K3 and K6 at
+    `batch` (conv keys: x NHWC, w OIHW, strides, paddings, dilations; K6:
+    [M, C] and act), with how many times a step runs each, by the port's
+    own gates: the eligible conv2d ops; the eligible conv2d_grad ops with
+    an Input / Filter grad; the bn -> act windows of fusion.plan that K6's
+    gate admits. Also the windows K6 refuses, by [C, H, W] and reason.
+    Their sums are held to VGG16_LAUNCHES."""
+    import torch
+    from paddle_tpu_torch.ops import bn_cuda, conv_cuda, fusion
+    main = _vgg16_train(pt)[0]
+    block = main.global_block()
+    k1, k2, k3, k6, refused = {}, {}, {}, {}, {}
+
+    def add(table, key):
+        table[key] = table.get(key, 0) + 1
+    for op in block.ops:
+        if op.type not in ("conv2d", "conv2d_grad"):
+            continue
+        _, c, h, w = block.desc.var(op.input("Input")[0]).shape
+        key = ((batch, h, w, c), tuple(block.desc.var(op.input("Filter")[0]).shape),
+               tuple(op.attr("strides")), tuple(op.attr("paddings")),
+               tuple(op.attr("dilations")))
+        probe = [torch.empty(k, dtype=torch.bfloat16, device="meta")
+                 for k in key[:2]]
+        if conv_cuda.ineligible(*probe, *key[2:], op.attr("groups") or 1):
+            continue
+        if op.type == "conv2d":
+            add(k1, key)
+        else:
+            if "Input@GRAD" in op.desc.outputs:
+                add(k2, key)
+            if "Filter@GRAD" in op.desc.outputs:
+                add(k3, key)
+    for g in fusion.plan(main).values():
+        if g.conv is not None or g.bn is None:
+            continue
+        dims = tuple(block.desc.var(g.bn.input("X")[0]).shape[1:])
+        x = torch.empty((batch,) + dims, dtype=torch.bfloat16, device="meta")
+        act = None if g.act is None else g.act.type
+        reason = bn_cuda.ineligible(x, g.bn.attr("is_test", False), act)
+        if reason is None:
+            add(k6, (x.numel() // dims[0], dims[0], act))
+        else:
+            add(refused, (dims, reason))
+    got = {"conv.launches": sum(k1.values()),
+           "conv.dgrad_launches": sum(k2.values()),
+           "conv.wgrad_launches": sum(k3.values()),
+           "bn.act_launches": sum(k6.values())}
+    if got != VGG16_LAUNCHES:
+        raise RuntimeError(f"vgg16 O2's gates admit {got} launches a step, "
+                           f"expected {VGG16_LAUNCHES}")
+    return k1, k2, k3, k6, refused
+
+
+def _hold_dgrad(conv_cuda, dout, w, hw, s, p, d, shape):
+    """K2 twice bitwise in f32 and in bf16 (the path's dx dtype under O2):
+    the f32 sum within SUM_RTOL of the plain version's, the bf16 out that
+    sum rounded once. Returns the max abs error."""
+    import torch
+    g32 = _twice(lambda: conv_cuda.conv2d_grad_input(
+        dout, w, hw, s, p, d, out_dtype=torch.float32))
+    g16 = _twice(lambda: conv_cuda.conv2d_grad_input(dout, w, hw, s, p, d))
+    r32 = conv_cuda.conv2d_grad_input_reference(dout, w, hw, s, p, d,
+                                                out_dtype=torch.float32)
+    mags = conv_cuda.conv2d_grad_input_reference(
+        dout.abs(), w.abs(), hw, s, p, d, out_dtype=torch.float32)
+    err = _sum_err(g32, r32, mags)
+    if not torch.equal(g16, g32.to(torch.bfloat16)):
+        raise RuntimeError(f"K2 bf16 out is not its f32 sum rounded once at {shape}")
+    return err
+
+
+def _hold_wgrad(conv_cuda, x, dout, khw, s, p, d):
+    """K3's dW in f32 (the master filter's dtype) twice bitwise, within
+    SUM_RTOL of the plain version's. Returns the max abs error."""
+    import torch
+    gw = _twice(lambda: conv_cuda.conv2d_grad_filter(
+        x, dout, khw, s, p, d, out_dtype=torch.float32))
+    rw = conv_cuda.conv2d_grad_filter_reference(x, dout, khw, s, p, d,
+                                                out_dtype=torch.float32)
+    mags = conv_cuda.conv2d_grad_filter_reference(
+        x.abs(), dout.abs(), khw, s, p, d, out_dtype=torch.float32)
+    return _sum_err(gw, rw, mags)
+
+
+def _bn_operands(m, c):
+    """scale, bias, mean, var [C] f32 on the card, seeded by the shape."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + m + c)
+    scale = (1 + 0.1 * torch.randn(c, generator=g)).cuda()
+    bias = (0.1 * torch.randn(c, generator=g)).cuda()
+    mean = (0.1 * torch.randn(c, generator=g)).cuda()
+    var = (1 + 0.2 * torch.randn(c, generator=g).abs()).cuda()
+    return scale, bias, mean, var
+
+
+def _hold_bn_act(bn_cuda, x, scale, bias, act, shape):
+    """K6 twice bitwise: its statistics within SUM_RTOL of the plain
+    version's and bitwise its own summation order's, ybn within one bf16
+    ulp of the plain apply with those statistics, yact relu(ybn). Returns
+    (ybn, yact, max abs error, the plain version's mean)."""
+    import torch
+    ybn, yact, bmean, bvar = _twice(lambda: bn_cuda.bn_act(
+        x, scale, bias, 1e-5, act))
+    _, _, rmean, rvar = bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)
+    xf = x.float()
+    err = max(_sum_err(bmean, rmean, xf.abs().mean(0)),
+              _sum_err(bvar, rvar, (xf * xf).mean(0)
+                       + 2 * rmean.abs() * xf.abs().mean(0)))
+    del xf
+    want, _ = bn_cuda.bn_apply_reference(x, scale, bias, bmean, bvar, 1e-5)
+    err = max(err, _bf16_err(ybn, want))
+    del want
+    omean, ovar = bn_cuda.bn_act_stats_in_order(x, *bn_cuda.launch_plan(x, act))
+    if not (torch.equal(bmean, omean) and torch.equal(bvar, ovar)):
+        raise RuntimeError(f"K6 statistics at {shape} are not its "
+                           f"summation order's bit for bit")
+    if act == "relu" and not torch.equal(yact, torch.relu(ybn)):
+        raise RuntimeError(f"bn_act yact is not relu(ybn) at {shape}")
+    return ybn, yact, err, rmean
 
 
 def _sum_err(got, want, mags):
@@ -2249,7 +2422,9 @@ def _row(name, shape, n, ms, plain_ms, lib_ms, flops, nbytes, err, peak_ops):
 def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
     """K2-K6 at every distinct ResNet-50 training shape at batch 32: held
     against the plain versions, twice bitwise, then timed; K6 also beside
-    the older checkout `parent`'s K6, in turns, when one is given."""
+    the older checkout `parent`'s K6, in turns, when one is given. Then K2,
+    K3 and K6 at every distinct vgg16 O2 training shape at batch 32, held
+    the same way (not timed)."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -2272,16 +2447,7 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
         w_view = w.contiguous(memory_format=torch.channels_last)  # as cast
 
         # K2: dx in bf16 (as on the path) and f32, against the plain version
-        g32 = _twice(lambda: conv_cuda.conv2d_grad_input(
-            dout, w, hw, s, p, d, out_dtype=torch.float32))
-        g16 = _twice(lambda: conv_cuda.conv2d_grad_input(dout, w, hw, s, p, d))
-        r32 = conv_cuda.conv2d_grad_input_reference(dout, w, hw, s, p, d,
-                                                    out_dtype=torch.float32)
-        mags = conv_cuda.conv2d_grad_input_reference(
-            dout.abs(), w.abs(), hw, s, p, d, out_dtype=torch.float32)
-        err = _sum_err(g32, r32, mags)
-        if not torch.equal(g16, g32.to(torch.bfloat16)):
-            raise RuntimeError(f"K2 bf16 out is not its f32 sum rounded once at {shape}")
+        err = _hold_dgrad(conv_cuda, dout, w, hw, s, p, d, shape)
         rows.append(_row("dgrad", shape, n,
                          _device_ms(lambda: conv_cuda.conv2d_grad_input(dout, w, hw, s, p, d)),
                          _device_ms(lambda: conv_cuda.conv2d_grad_input_reference(dout, w, hw, s, p, d)),
@@ -2292,13 +2458,7 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
                          err, PEAK_BF16_FLOPS))
 
         # K3: dW in f32 (the master filter's dtype), against the plain version
-        gw = _twice(lambda: conv_cuda.conv2d_grad_filter(
-            x, dout, khw, s, p, d, out_dtype=torch.float32))
-        rw = conv_cuda.conv2d_grad_filter_reference(x, dout, khw, s, p, d,
-                                                    out_dtype=torch.float32)
-        mags = conv_cuda.conv2d_grad_filter_reference(
-            x.abs(), dout.abs(), khw, s, p, d, out_dtype=torch.float32)
-        err = _sum_err(gw, rw, mags)
+        err = _hold_wgrad(conv_cuda, x, dout, khw, s, p, d)
         nbytes = (conv_cuda.input_bytes(x, w, s, p, d) + dout.numel() * 2
                   + w.numel() * 4)
         rows.append(_row("wgrad", shape, n,
@@ -2326,7 +2486,7 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
                          None, flops + 3 * y.numel(),
                          conv_cuda.conv_bytes(x, w, s, p, d) + 8 * ws[0], err,
                          PEAK_BF16_FLOPS))
-        del x, w, dout, g32, g16, r32, mags, gw, rw, y, ry
+        del x, w, dout, y, ry, r32
         print(f"K2/K3/K4 {shape} x{n}/step: " + "; ".join(
             f"{r['kernel']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
             f"{r['bound_by']}, plain {r['plain_ms']:.4f}, library "
@@ -2336,11 +2496,7 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
     for kind, table in (("bn_apply", applies), ("bn_act", acts)):
         for (m, c, act), n in table.items():
             x = randn((m, c), 2.0)
-            g = torch.Generator().manual_seed(SEED + m + c)
-            scale = (1 + 0.1 * torch.randn(c, generator=g)).cuda()
-            bias = (0.1 * torch.randn(c, generator=g)).cuda()
-            mean = (0.1 * torch.randn(c, generator=g)).cuda()
-            var = (1 + 0.2 * torch.randn(c, generator=g).abs()).cuda()
+            scale, bias, mean, var = _bn_operands(m, c)
             x4 = x.reshape(TRAIN_BATCH, -1, c).permute(0, 2, 1).unsqueeze(-1)
             shape = f"[{m}, {c}] act={act}"
             out_bytes = m * c * 2 * (2 if act else 1)
@@ -2356,21 +2512,8 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
                 nbytes = m * c * 2 + 16 * c + out_bytes
                 flops = (4 if act else 3) * m * c
             else:
-                ybn, yact, bmean, bvar = _twice(lambda: bn_cuda.bn_act(
-                    x, scale, bias, 1e-5, act))
-                _, _, rmean, rvar = bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)
-                xf = x.float()
-                err = max(_sum_err(bmean, rmean, xf.abs().mean(0)),
-                          _sum_err(bvar, rvar, (xf * xf).mean(0)
-                                   + 2 * rmean.abs() * xf.abs().mean(0)))
-                want, _ = bn_cuda.bn_apply_reference(x, scale, bias, bmean, bvar, 1e-5)
-                err = max(err, _bf16_err(ybn, want))
-                omean, ovar = bn_cuda.bn_act_stats_in_order(
-                    x, *bn_cuda.launch_plan(x, act))
-                if not (torch.equal(bmean, omean) and torch.equal(bvar, ovar)):
-                    raise RuntimeError(f"K6 statistics at {shape} are not its "
-                                       f"summation order's bit for bit")
-                del xf, want, omean, ovar
+                ybn, yact, err, rmean = _hold_bn_act(bn_cuda, x, scale, bias,
+                                                     act, shape)
                 fn = lambda: bn_cuda.bn_act(x, scale, bias, 1e-5, act)  # noqa: E731
                 plain = lambda: bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)  # noqa: E731
                 lib = lambda: F.batch_norm(x4, None, None, scale, bias, True, 0.0, 1e-5)  # noqa: E731
@@ -2414,6 +2557,43 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
     torch.cuda.empty_cache()
     report["train_kernel_shapes"] = rows
 
+    # vgg16 O2 training (the train_graph path): K2, K3 and K6 at each of
+    # its shapes, held as ResNet's are and twice bitwise; not timed
+    _, k2, k3, k6, refused = _vgg16_kernel_shapes(pt, TRAIN_BATCH)
+    vgg_err = {"dgrad": 0.0, "wgrad": 0.0, "bn_act": 0.0}
+    for key in sorted(set(k2) | set(k3)):
+        xs, ws, s, p, d = key
+        x, w = randn(xs), randn(ws, 0.1)
+        oh, ow = conv_cuda._out_hw(x, w, s, p, d)
+        dout = randn((xs[0], oh, ow, ws[0]))
+        shape = f"x{list(xs)} w{list(ws)} s{list(s)} p{list(p)}"
+        if key in k2:
+            vgg_err["dgrad"] = max(vgg_err["dgrad"], _hold_dgrad(
+                conv_cuda, dout, w, xs[1:3], s, p, d, shape))
+        if key in k3:
+            vgg_err["wgrad"] = max(vgg_err["wgrad"], _hold_wgrad(
+                conv_cuda, x, dout, ws[2:], s, p, d))
+        del x, w, dout
+    for m, c, act in k6:
+        x = randn((m, c), 2.0)
+        scale, bias, _, _ = _bn_operands(m, c)
+        err = _hold_bn_act(bn_cuda, x, scale, bias, act,
+                           f"[{m}, {c}] act={act}")[2]
+        vgg_err["bn_act"] = max(vgg_err["bn_act"], err)
+        del x
+    torch.cuda.empty_cache()
+    print(f"vgg16 O2 training (batch {TRAIN_BATCH}): K2 at {len(k2)} "
+          f"distinct shapes ({sum(k2.values())} a step), K3 at {len(k3)} "
+          f"({sum(k3.values())}), K6 at {len(k6)} ({sum(k6.values())}: "
+          f"{sorted(k6)}), each twice bitwise and against its plain "
+          f"version: max abs err {vgg_err}; K6 refused {refused}",
+          flush=True)
+    report["vgg16_train_kernel_checks"] = {
+        "dgrad": [list(map(list, k[:2])) for k in k2],
+        "wgrad": [list(map(list, k[:2])) for k in k3],
+        "bn_act": [list(k) for k in k6], "max_abs_err": vgg_err,
+        "bn_act_refused": {str(k): n for k, n in refused.items()}}
+
     kernels = []
     for name, route, source, replaces in (
             ("dgrad", "cuda", "paddle_tpu_torch/csrc/conv2d_fwd.cu",
@@ -2436,7 +2616,8 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
         bytes_t = sum(r["bytes"] * r["per_step"] for r in rs) / PEAK_BYTES
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces,
-                        "max_abs_err": max(r["max_abs_err"] for r in rs),
+                        "max_abs_err": max([r["max_abs_err"] for r in rs]
+                                           + [vgg_err.get(name, 0.0)]),
                         "ms": total("ms"), "plain_ms": total("plain_ms"),
                         "bound_ms": total("bound_ms"),
                         "bound_by": "operations" if ops_t >= bytes_t else "bytes",
@@ -3295,29 +3476,229 @@ def book_word2vec(pt, place):
             "last_loss": losses[-1]}
 
 
+def _sentiment_conv(pt, data, input_dim, class_dim=2, emb_dim=32,
+                    hid_dim=32):
+    emb = pt.layers.embedding(input=data, size=[input_dim, emb_dim])
+    conv_3 = pt.nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                        filter_size=3, act="tanh",
+                                        pool_type="sqrt")
+    conv_4 = pt.nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                        filter_size=4, act="tanh",
+                                        pool_type="sqrt")
+    return pt.layers.fc(input=[conv_3, conv_4], size=class_dim)
+
+
+def _sentiment_stacked_lstm(pt, data, input_dim, class_dim=2, emb_dim=32,
+                            hid_dim=32, stacked_num=3):
+    emb = pt.layers.embedding(input=data, size=[input_dim, emb_dim])
+    fc1 = pt.layers.fc(input=emb, size=hid_dim, num_flatten_dims=2)
+    lstm1, _cell1 = pt.layers.dynamic_lstm(input=fc1, size=hid_dim)
+    inputs = [fc1, lstm1]
+    for i in range(2, stacked_num + 1):
+        fc = pt.layers.fc(input=inputs, size=hid_dim, num_flatten_dims=2)
+        lstm, _cell = pt.layers.dynamic_lstm(input=fc, size=hid_dim,
+                                             is_reverse=(i % 2) == 0)
+        inputs = [fc, lstm]
+    fc_last = pt.layers.sequence_pool(input=inputs[0], pool_type="max")
+    lstm_last = pt.layers.sequence_pool(input=inputs[1], pool_type="max")
+    return pt.layers.fc(input=[fc_last, lstm_last], size=class_dim)
+
+
+def book_understand_sentiment(pt, place, net):
+    """tests/book/test_understand_sentiment.py: the conv net (two
+    sequence_conv_pool, sqrt pooling) or the three stacked LSTMs over imdb
+    word sequences fed as LoDTensors; Adam 2e-3, batch 32, 31 steps; the
+    last 5 steps' accuracy above 0.8; the inference round trip over a
+    LoDTensor of two sequences."""
+    main, startup, stack = _chapter(pt)
+    with stack:
+        word_dict = pt.dataset.imdb.word_dict()
+        dict_dim = len(word_dict)
+        data = pt.layers.data(name="words", shape=[1], dtype="int64",
+                              lod_level=1)
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        build = _sentiment_conv if net == "conv" else _sentiment_stacked_lstm
+        logits = build(pt, data, dict_dim)
+        cost = pt.layers.softmax_with_cross_entropy(logits=logits, label=label)
+        avg_cost = pt.layers.mean(cost)
+        acc = pt.layers.accuracy(input=pt.layers.softmax(logits), label=label)
+        pt.optimizer.Adam(learning_rate=2e-3).minimize(avg_cost)
+        train = pt.batch(pt.reader.shuffle(pt.dataset.imdb.train(word_dict),
+                                           buf_size=1000), batch_size=32)
+        exe = pt.Executor(place)
+        feeder = pt.DataFeeder(place=place, feed_list=[data, label])
+        exe.run(startup)
+        accs, losses = [], []
+        for i, batch in enumerate(train()):
+            batch = [([[w] for w in ws], [lb]) for ws, lb in batch]
+            loss, a = exe.run(main, feed=feeder.feed(batch),
+                              fetch_list=[avg_cost, acc])
+            accs.append(float(a.ravel()[0]))
+            losses.append(float(loss.ravel()[0]))
+            if i >= 30:
+                break
+        if not np.mean(accs[-5:]) > 0.8:
+            raise RuntimeError(f"understand_sentiment[{net}]: accuracy {accs}")
+        rng = np.random.RandomState(0)
+        rows = [rng.randint(0, dict_dim, (n, 1)).astype(np.int64)
+                for n in (5, 3)]
+        feed = {"words": pt.LoDTensor(np.concatenate(rows, 0), [[0, 5, 8]])}
+        out, = _infer_roundtrip(pt, exe, place, feed, [logits], main)
+        if out.shape != (2, 2) or not np.isfinite(out).all():
+            raise RuntimeError(f"understand_sentiment[{net}]: inference "
+                               f"gave {out.shape}")
+    return {"steps": len(accs), "last_accuracy": accs[-5:],
+            "last_losses": losses[-5:]}
+
+
+def book_recommender_system(pt, place):
+    """tests/book/test_recommender_system.py: user and movie features
+    (embeddings, fc, the category and title sequences sum-pooled), their
+    cos_sim scaled by 5 against the score; Adam 2e-3, batch 64, 41 steps;
+    the last loss below the first and the last 5 losses' mean below 2.5;
+    the inference round trip with LoDTensor category and title feeds."""
+    main, startup, stack = _chapter(pt)
+    with stack:
+        ml = pt.dataset.movielens
+        uid = pt.layers.data(name="user_id", shape=[1], dtype="int64")
+        gender = pt.layers.data(name="gender_id", shape=[1], dtype="int64")
+        age = pt.layers.data(name="age_id", shape=[1], dtype="int64")
+        job = pt.layers.data(name="job_id", shape=[1], dtype="int64")
+        mid = pt.layers.data(name="movie_id", shape=[1], dtype="int64")
+        category = pt.layers.data(name="category_id", shape=[1],
+                                  dtype="int64", lod_level=1)
+        title = pt.layers.data(name="movie_title", shape=[1], dtype="int64",
+                               lod_level=1)
+        score = pt.layers.data(name="score", shape=[1], dtype="float32")
+
+        def fc_emb(var, size, dim=16):
+            e = pt.layers.embedding(input=var, size=[size, dim])
+            return pt.layers.fc(input=e, size=16)
+
+        usr = pt.layers.concat(
+            [fc_emb(uid, ml.max_user_id() + 1), fc_emb(gender, 2),
+             fc_emb(age, 8), fc_emb(job, ml.max_job_id() + 1)], axis=1)
+        usr_feat = pt.layers.fc(input=usr, size=32, act="tanh")
+        mov_emb = fc_emb(mid, ml.max_movie_id() + 1)
+        cat_pool = pt.layers.sequence_pool(
+            pt.layers.embedding(input=category, size=[18, 16]), "sum")
+        tit_pool = pt.layers.sequence_pool(
+            pt.layers.embedding(input=title, size=[5175, 16]), "sum")
+        mov = pt.layers.concat([mov_emb, cat_pool, tit_pool], axis=1)
+        mov_feat = pt.layers.fc(input=mov, size=32, act="tanh")
+        predict = pt.layers.scale(pt.layers.cos_sim(X=usr_feat, Y=mov_feat),
+                                  scale=5.0)
+        avg_cost = pt.layers.mean(
+            pt.layers.square_error_cost(input=predict, label=score))
+        pt.optimizer.Adam(learning_rate=2e-3).minimize(avg_cost)
+        train = pt.batch(ml.train(), batch_size=64)
+        exe = pt.Executor(place)
+        feeder = pt.DataFeeder(place=place, feed_list=[
+            uid, gender, age, job, mid, category, title, score])
+        exe.run(startup)
+        losses = []
+        for i, batch in enumerate(train()):
+            losses.append(float(exe.run(main, feed=feeder.feed(batch),
+                                        fetch_list=[avg_cost])[0].ravel()[0]))
+            if i >= 40:
+                break
+        if not (losses[-1] < losses[0] and np.mean(losses[-5:]) < 2.5):
+            raise RuntimeError(f"recommender_system: losses {losses}")
+        rng = np.random.RandomState(0)
+        feed = {"user_id": rng.randint(0, 100, (3, 1)).astype(np.int64),
+                "gender_id": rng.randint(0, 2, (3, 1)).astype(np.int64),
+                "age_id": rng.randint(0, 7, (3, 1)).astype(np.int64),
+                "job_id": rng.randint(0, 10, (3, 1)).astype(np.int64),
+                "movie_id": rng.randint(0, 100, (3, 1)).astype(np.int64),
+                "category_id": pt.LoDTensor(
+                    rng.randint(0, 18, (5, 1)).astype(np.int64),
+                    [[0, 2, 4, 5]]),
+                "movie_title": pt.LoDTensor(
+                    rng.randint(0, 5175, (7, 1)).astype(np.int64),
+                    [[0, 3, 5, 7]])}
+        out, = _infer_roundtrip(pt, exe, place, feed, [predict], main)
+        if out.shape != (3, 1) or not np.isfinite(out).all():
+            raise RuntimeError(f"recommender_system: inference gave "
+                               f"{out.shape}")
+    return {"steps": len(losses), "first_loss": losses[0],
+            "last_loss": losses[-1], "last_losses": losses[-5:]}
+
+
+def book_image_classification_vgg(pt, place):
+    """tests/book/test_image_classification.py[vgg]: vgg16 (img_conv_group
+    with batch norm and dropout) on cifar10, Adam 2e-4, batch 16, 16
+    steps; the last 5 losses' mean below the first 5's; the probabilities
+    of the inference round trip sum to 1. The reader is seeded
+    (`_chapter`), where the reference's draws from an unseeded `random`."""
+    main, startup, stack = _chapter(pt)
+    with stack:
+        img = pt.layers.data(name="img", shape=[3, 32, 32], dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        avg_cost, predict, acc = pt.models.build_image_classifier(
+            pt.models.vgg16, img, label, class_dim=10)
+        pt.optimizer.Adam(learning_rate=2e-4).minimize(avg_cost)
+        train = pt.batch(pt.reader.shuffle(pt.dataset.cifar.train10(),
+                                           buf_size=512), batch_size=16)
+        exe = pt.Executor(place)
+        feeder = pt.DataFeeder(place=place, feed_list=[img, label])
+        exe.run(startup)
+        losses = []
+        for i, data in enumerate(train()):
+            data = [(np.reshape(im, (3, 32, 32)), lb) for im, lb in data]
+            loss, _ = exe.run(main, feed=feeder.feed(data),
+                              fetch_list=[avg_cost, acc])
+            losses.append(float(loss.ravel()[0]))
+            if i >= 15:
+                break
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            raise RuntimeError(f"image_classification[vgg]: losses {losses}")
+        xs = np.random.RandomState(0).rand(4, 3, 32, 32).astype(np.float32)
+        probs, = _infer_roundtrip(pt, exe, place, {"img": xs}, [predict], main,
+                                  rtol=1e-3, atol=1e-5)
+        np.testing.assert_allclose(probs.sum(axis=1), np.ones(4), rtol=1e-3)
+    return {"steps": len(losses), "first_losses": losses[:5],
+            "last_losses": losses[-5:]}
+
+
 BOOK = {
     "fit_a_line": book_fit_a_line,
     "recognize_digits[mlp]": lambda pt, place: book_recognize_digits(pt, place, "mlp"),
     "recognize_digits[conv]": lambda pt, place: book_recognize_digits(pt, place, "conv"),
     "image_classification[resnet]": book_image_classification,
+    "image_classification[vgg]": book_image_classification_vgg,
     "word2vec": book_word2vec,
+    "understand_sentiment[conv]":
+        lambda pt, place: book_understand_sentiment(pt, place, "conv"),
+    "understand_sentiment[stacked_lstm]":
+        lambda pt, place: book_understand_sentiment(pt, place, "stacked_lstm"),
+    "recommender_system": book_recommender_system,
 }
 # the chapters whose conv counters the card run prints
-BOOK_CONV = ("recognize_digits[conv]", "image_classification[resnet]")
+BOOK_CONV = ("recognize_digits[conv]", "image_classification[resnet]",
+             "image_classification[vgg]")
 
 
 def phase_book(pt, conv_cuda, bn_cuda, report):
-    """The five book chapters on CUDAPlace(0) at their reference tests'
+    """The nine book chapters on CUDAPlace(0) at their reference tests'
     budgets and thresholds, with the inference round trip; for the conv
-    chapters the kernels' launches and the fallbacks by reason."""
+    chapters the kernels' launches and the fallbacks by reason, and for
+    each the executor's graph counters (a chapter with LoD feeds takes a
+    signature per padded length; vgg16's dropout draws inside its
+    graphs)."""
     place = pt.CUDAPlace(0)
     out, t_all = {}, time.perf_counter()
+    from paddle_tpu_torch import executor as executor_mod
     for name, chapter in BOOK.items():
         conv_cuda.COUNTERS.reset()
         bn_cuda.COUNTERS.reset()
+        executor_mod.COUNTERS.reset()
         t0 = time.perf_counter()
         res = chapter(pt, place)
         res["seconds"] = time.perf_counter() - t0
+        g = executor_mod.COUNTERS
+        res["graphs"] = {"warmups": g.warmups, "captures": g.captures,
+                         "replays": g.replays, "evicted": g.evicted,
+                         "eager": dict(g.eager)}
         if name in BOOK_CONV:
             c, b = conv_cuda.COUNTERS, bn_cuda.COUNTERS
             res["launches"] = {"K1": c.launches, "K2": c.dgrad_launches,
@@ -4087,14 +4468,16 @@ def phase_kernel_ring(attention_cuda, ring, report, parent=None):
 # --- the transformer LM: training and serving -----------------------------------
 
 def _transformer(pt, amp=True, is_test=False, use_flash="auto", cfg=None,
-                 seqlen=None, sequence_parallel=False, level="O2"):
+                 seqlen=None, sequence_parallel=False, level="O2",
+                 dropout=0.0):
     """bench.py's `transformer` model (`cfg`, LM by default; T `seqlen`,
     cfg's by default) through the port's fluid API: the training program
     (Adam, amp.decorate at `level`, O2 by default; O3 in the mode
     PADDLE_TPU_QUANT_MODE names) or, with is_test, the served one (logits
     returned, amp.enable O2). The same variable names. With
     sequence_parallel its attention is the ring over a one-rank 'sp' mesh
-    (bench.py's `ring_attention` mode)."""
+    (bench.py's `ring_attention` mode). `dropout` is the model's
+    dropout_prob in training."""
     cfg = LM if cfg is None else cfg
     main, startup = pt.Program(), pt.Program()
     t = cfg["seqlen"] if seqlen is None else seqlen
@@ -4107,7 +4490,7 @@ def _transformer(pt, amp=True, is_test=False, use_flash="auto", cfg=None,
             tok, lab, vocab_size=cfg["vocab"], d_model=cfg["d_model"],
             n_head=cfg["n_head"], n_layer=cfg["n_layer"], use_flash=use_flash,
             is_test=is_test, sequence_parallel=sequence_parallel,
-            return_logits=True)
+            dropout_prob=dropout, return_logits=True)
         if is_test:
             if amp:
                 pt.amp.enable(main, level="O2")
@@ -4592,9 +4975,358 @@ def phase_train_ring(pt, attention_cuda, report):
     return {**launches, **f32_launches}
 
 
+# --- bench.py's lstm: the sequence models on the card -----------------------
+
+LSTM = {"vocab": 30000, "emb": 128, "hidden": 512, "batch": 64, "seqlen": 100,
+        "lr": 2e-3}
+LSTM_BITWISE_STEPS = 10             # warm-up, capture and 8 replays: bitwise
+LSTM_TURNS = 8                      # then graphed and eager steps in turns
+# the LoD-fed run: one batch a padded-length bucket, more buckets than the
+# Executor keeps graphs (executor.GRAPH_CACHE_SIZE), the longest 600
+LSTM_LOD_MAX_LENS = (8, 16, 30, 60, 100, 150, 250, 300, 380, 440, 500, 600)
+LSTM_LOD_MIN_LEN = 8
+LSTM_LOD_TIMED = 5                  # then a bucket's replays and eager steps in turns
+IMDB_BATCHES = 12                   # batches of the imdb surrogate's stream
+
+
+def _lstm_model(pt, cfg=None):
+    """bench.py's `lstm` mode (bench.py:851) through the port's fluid API:
+    embedding, two fc(4H) + dynamic_lstm(use_peepholes=True) layers,
+    sequence_last_step, fc(2, softmax), cross_entropy, Adam. -> (main,
+    startup, loss)."""
+    cfg = LSTM if cfg is None else cfg
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        data = pt.layers.data(name="words", shape=[1], dtype="int64",
+                              lod_level=1)
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        h = pt.layers.embedding(input=data, size=[cfg["vocab"], cfg["emb"]])
+        for _ in range(2):
+            proj = pt.layers.fc(input=h, size=cfg["hidden"] * 4,
+                                num_flatten_dims=2)
+            h, _c = pt.layers.dynamic_lstm(input=proj,
+                                           size=cfg["hidden"] * 4,
+                                           use_peepholes=True)
+        last = pt.layers.sequence_last_step(h)
+        logits = pt.layers.fc(input=last, size=2, act="softmax")
+        loss = pt.layers.mean(pt.layers.cross_entropy(input=logits,
+                                                      label=label))
+        pt.optimizer.Adam(learning_rate=cfg["lr"]).minimize(
+            loss, startup_program=startup)
+    main.random_seed = startup.random_seed = SEED + 1
+    return main, startup, loss
+
+
+def _lstm_dense_feed(cfg=None):
+    """bench.py's feed: dense [B, T] ids (a sequence var fed without a LoD
+    counts as full length) and [B, 1] labels, from seed 0."""
+    import numpy as np
+    cfg = LSTM if cfg is None else cfg
+    rng = np.random.default_rng(0)
+    return {"words": rng.integers(0, cfg["vocab"], (cfg["batch"], cfg["seqlen"]))
+            .astype(np.int32),
+            "label": rng.integers(0, 2, (cfg["batch"], 1)).astype(np.int32)}
+
+
+def _lstm_lod_feeds(pt, cfg=None, max_lens=None):
+    """One LoDTensor batch per entry of `max_lens`: cfg's batch of
+    sequences with lengths drawn in [LSTM_LOD_MIN_LEN, max], the first at
+    the max, so each batch pads to its own bucket."""
+    import numpy as np
+    cfg = LSTM if cfg is None else cfg
+    max_lens = LSTM_LOD_MAX_LENS if max_lens is None else max_lens
+    rng = np.random.default_rng(SEED + 16)
+    feeds = []
+    for top in max_lens:
+        lens = rng.integers(min(LSTM_LOD_MIN_LEN, top), top + 1, cfg["batch"])
+        lens[0] = top
+        ids = rng.integers(0, cfg["vocab"], (int(lens.sum()), 1)).astype(
+            np.int64)
+        offs = np.concatenate([[0], np.cumsum(lens)]).tolist()
+        feeds.append({"words": pt.LoDTensor(ids, [offs]),
+                      "label": rng.integers(0, 2, (cfg["batch"], 1))
+                      .astype(np.int64)})
+    return feeds
+
+
+def _imdb_lod_feeds(pt, n, cfg=None):
+    """The first `n` batches of the port's imdb train reader (the synthetic
+    surrogate where no aclImdb tarball is present: lengths uniform in
+    [8, 59]) as LoDTensor feeds of cfg's batch."""
+    import numpy as np
+    from paddle_tpu_torch.dataset import imdb
+    cfg = LSTM if cfg is None else cfg
+    reader = imdb.train()()
+    feeds = []
+    for _ in range(n):
+        rows = [next(reader) for _ in range(cfg["batch"])]
+        lens = [len(w) for w, _ in rows]
+        ids = np.concatenate([np.asarray(w, np.int64) for w, _ in rows])
+        feeds.append({
+            "words": pt.LoDTensor(ids.reshape(-1, 1),
+                                  [np.concatenate([[0], np.cumsum(lens)])
+                                   .tolist()]),
+            "label": np.asarray([[lab] for _, lab in rows], np.int64)})
+    return feeds
+
+
+def _trace_kernels(prof_result):
+    """Kernel launches of one profiled step, from its by-kernel table (copies
+    and fills left out)."""
+    return sum(n for k, (_ms, n) in prof_result["by_kernel"].items()
+               if not k.startswith(("Memcpy", "Memset")))
+
+
+def phase_train_lstm(pt, report):
+    """bench.py's lstm (2 x LSTM h512 with peepholes, batch 64, T 100, Adam
+    2e-3; a dense [64, 100] ids feed) trained on the card as CUDA graphs:
+    graphed on one scope and eager (use_jit=False) on another from one
+    startup state, LSTM_BITWISE_STEPS steps held bitwise (losses and every
+    scope tensor: the warm-up, the capture and its replays), then
+    LSTM_TURNS of each in turns (step p50 of each, the loss falling); the
+    generic grads' re-runs per eager step (`lstm` must be none: its grad
+    is explicit); the memory a step needs beyond the state; one profiled
+    step of each (busy share, kernel launches from the trace). Then the
+    same model fed LoDTensors, one batch per padded-length bucket
+    (LSTM_LOD_MAX_LENS: more buckets than GRAPH_CACHE_SIZE): each bucket
+    warmed up, captured and replayed LSTM_LOD_TIMED more times on one
+    scope, in turns with as many eager steps on another, each replay's
+    loss and the scopes bitwise the eager steps'; per bucket the warm-up's
+    and the capture's seconds, replay and eager p50, and the steps after
+    which graphing the bucket has cost less in all than running it eager;
+    the captures, replays and evictions. Last, IMDB_BATCHES batches of the
+    imdb reader's stream, graphed and eager in turns: the buckets it
+    meets, the counters, and the cumulative time of each."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch.ops import registry
+    card = _card_line()
+    main, startup, loss = _lstm_model(pt)
+    feed = _lstm_dense_feed()
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: v for n, v in scope.vars.items() if isinstance(v, torch.Tensor)}
+    sg, se = _scope_from(pt, init), _scope_from(pt, init)
+    del scope
+    E.COUNTERS.reset()
+    reserved0 = _settled_reserved()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(LSTM_BITWISE_STEPS):
+        a = exe.run(main, feed=feed, fetch_list=[loss], scope=sg)[0]
+        b = exe.run(main, feed=feed, fetch_list=[loss], scope=se,
+                    use_jit=False)[0]
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"train_lstm: step {i} graphed loss {a} != "
+                               f"eager {b}")
+        losses.append(float(a.ravel()[0]))
+    diverged = _bitwise_scopes(sg, se)
+    if diverged:
+        raise RuntimeError(f"train_lstm: after {LSTM_BITWISE_STEPS} steps "
+                           f"the graphed scope differs: {diverged[:8]}")
+    setup_s = time.perf_counter() - t0
+    pool_gb = (_settled_reserved() - reserved0) / 1e9
+    c = E.COUNTERS
+    if (c.warmups, c.captures, c.replays) != (1, 1, LSTM_BITWISE_STEPS - 1):
+        raise RuntimeError(f"train_lstm: {c}")
+    E.COUNTERS.reset()
+    registry.RERUNS.clear()
+    steps = {"graph": [], "eager": []}
+    for _ in range(LSTM_TURNS):
+        for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                          use_jit=use_jit)[0]
+            steps[mode].append((time.perf_counter() - t0) * 1e3)
+            if mode == "graph":
+                losses.append(float(out.ravel()[0]))
+    reruns = {k: v / LSTM_TURNS for k, v in sorted(registry.RERUNS.items())}
+    if registry.RERUNS.get("lstm", 0):
+        raise RuntimeError(f"train_lstm: the lstm grad re-ran its forward: "
+                           f"{reruns}")
+    if _bitwise_scopes(sg, se) or c.eager != {"use_jit": LSTM_TURNS} \
+            or c.replays != LSTM_TURNS:
+        raise RuntimeError(f"train_lstm: the steps in turns: {c}")
+    if not (np.isfinite(losses).all() and
+            np.mean(losses[-4:]) < np.mean(losses[:4])):
+        raise RuntimeError(f"train_lstm: the loss did not fall: {losses}")
+    peak = {}
+    for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
+        _settled_reserved()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=sc, use_jit=use_jit)
+        torch.cuda.synchronize()
+        peak[mode] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    peak["graph"] += pool_gb
+    state_gb = sum(v.numel() * v.element_size() for v in se.vars.values()
+                   if isinstance(v, torch.Tensor)) / 1e9
+    p50 = {m: float(np.median(v)) for m, v in steps.items()}
+    witness = ("GEMM", lambda name: "gemm" in name.lower()
+               or "sm90" in name.lower())
+    prof = {m: _profile_step(exe, main, feed, loss, sc, p50[m], card, witness,
+                             use_jit=use_jit)
+            for m, sc, use_jit in (("graph", sg, None), ("eager", se, False))}
+    launches = {m: _trace_kernels(prof[m]) for m in prof}
+    cfg = LSTM
+    tokens_s = cfg["batch"] * cfg["seqlen"] / (p50["graph"] / 1e3)
+    print(f"train_lstm: bench.py's lstm (2 x LSTM h{cfg['hidden']} with "
+          f"peepholes, batch {cfg['batch']}, T {cfg['seqlen']}, Adam) graphed "
+          f"bitwise eager ({LSTM_BITWISE_STEPS} steps, then {LSTM_TURNS} in "
+          f"turns; {setup_s:.1f} s to warm up and capture); step p50 graphed "
+          f"{p50['graph']:.2f} ms ({tokens_s:.0f} tokens/s), eager "
+          f"{p50['eager']:.2f} ms; busy {prof['graph']['busy_ms']:.2f} ms "
+          f"({prof['graph']['busy_share']:.1%}) graphed, "
+          f"{prof['eager']['busy_ms']:.2f} ms "
+          f"({prof['eager']['busy_share']:.1%}) eager; kernel launches per "
+          f"step (trace) {launches['graph']} graphed, {launches['eager']} "
+          f"eager; generic-grad re-runs per step {reruns}; memory beyond the "
+          f"{state_gb:.3f} GB of state {peak['graph']:.3f} GB graphed (pool "
+          f"{pool_gb:.3f} GB), {peak['eager']:.3f} GB eager; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} ({card})", flush=True)
+    print(f"train_lstm steps (ms): graphed "
+          f"{', '.join(f'{t:.2f}' for t in steps['graph'])}; eager "
+          f"{', '.join(f'{t:.2f}' for t in steps['eager'])}", flush=True)
+    dense = {"p50_ms": p50, "step_ms": steps, "tokens_per_s": tokens_s,
+             "busy_ms": {m: prof[m]["busy_ms"] for m in prof},
+             "busy_share": {m: prof[m]["busy_share"] for m in prof},
+             "kernel_launches_per_step": launches,
+             "reruns_per_step": reruns, "step_memory_gb": peak,
+             "graph_pool_gb": pool_gb, "state_gb": state_gb,
+             "losses": losses, "setup_s": setup_s}
+    del exe, sg, se
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the LoD feeds: one signature a padded-length bucket
+    exe = pt.Executor()
+    sg, se = _scope_from(pt, init), _scope_from(pt, init)
+
+    def timed(f, sc, use_jit):
+        torch.cuda.synchronize()
+        t = time.perf_counter()           # the fetch ends in a device->host copy
+        out = exe.run(main, feed=f, fetch_list=[loss], scope=sc,
+                      use_jit=use_jit)[0]
+        return out, time.perf_counter() - t
+
+    def pays_after(setup_s, replay_ms, eager_ms):
+        """The steps of one bucket after which its warm-up, capture and
+        replays have cost less in all than as many eager steps."""
+        gain = eager_ms - replay_ms
+        over = setup_s * 1e3 - 2 * eager_ms
+        return None if gain <= 0 else 2 + max(0, int(np.ceil(over / gain)))
+
+    feeds = _lstm_lod_feeds(pt)
+    buckets, per_bucket = [], []
+    E.COUNTERS.reset()
+    t0 = time.perf_counter()
+    for i, f in enumerate(feeds):
+        t = E._bucket_len(int(np.diff(f["words"].lod[0]).max()))
+        buckets.append(t)
+        ms = {"graph": [], "eager": []}
+        setup = []
+        for rep in range(2 + LSTM_LOD_TIMED):
+            a, tg = timed(f, sg, None)
+            b, te = timed(f, se, False)
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"train_lstm LoD: batch {i} run {rep}: "
+                                   f"graphed loss {a} != eager {b}")
+            if rep < 2:
+                setup.append(tg)
+            else:
+                ms["graph"].append(tg * 1e3)
+                ms["eager"].append(te * 1e3)
+        row = {"bucket": t, "warmup_s": setup[0],
+               "capture_s": setup[1],
+               "replay_p50_ms": float(np.median(ms["graph"])),
+               "eager_p50_ms": float(np.median(ms["eager"])),
+               "step_ms": ms}
+        row["pays_after_steps"] = pays_after(
+            sum(setup), row["replay_p50_ms"], row["eager_p50_ms"])
+        row["miss_over_eager_ms"] = setup[0] * 1e3 - row["eager_p50_ms"]
+        per_bucket.append(row)
+        print(f"train_lstm LoD bucket {t}: warm-up {setup[0]:.3f} s, capture "
+              f"and first replay {setup[1]:.3f} s; replay p50 "
+              f"{row['replay_p50_ms']:.2f} ms, eager p50 "
+              f"{row['eager_p50_ms']:.2f} ms ({LSTM_LOD_TIMED} each, in "
+              f"turns); graphing this bucket pays after "
+              f"{row['pays_after_steps']} steps of it; a warm-up costs "
+              f"{row['miss_over_eager_ms']:.2f} ms over an eager step",
+              flush=True)
+    lod_s = time.perf_counter() - t0
+    diverged = _bitwise_scopes(sg, se)
+    if diverged:
+        raise RuntimeError(f"train_lstm LoD: the scopes differ: "
+                           f"{diverged[:8]}")
+    n = len(feeds)
+    lod = {"buckets": buckets, "warmups": c.warmups, "captures": c.captures,
+           "replays": c.replays, "evicted": c.evicted,
+           "eager": dict(c.eager), "graphs_kept": len(exe._graphs),
+           "seconds": lod_s, "per_bucket": per_bucket}
+    if len(set(buckets)) != n or n <= E.GRAPH_CACHE_SIZE or \
+            (c.warmups, c.captures, c.replays) != \
+            (n, n, n * (1 + LSTM_LOD_TIMED)) or \
+            c.evicted != n - E.GRAPH_CACHE_SIZE:
+        raise RuntimeError(f"train_lstm LoD: {lod}")
+    print(f"train_lstm LoD: {n} LoDTensor batches of lengths "
+          f"{LSTM_LOD_MIN_LEN}-{max(LSTM_LOD_MAX_LENS)}, padded to buckets "
+          f"{buckets}: each bucket's replays bitwise its eager runs, the "
+          f"scopes bitwise after; warm-ups {c.warmups}, captures "
+          f"{c.captures}, replays {c.replays}, evicted {c.evicted} (cache "
+          f"{E.GRAPH_CACHE_SIZE}), {lod_s:.1f} s in all ({card})", flush=True)
+    del exe, sg, se
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the imdb reader's stream, graphed and eager in turns
+    exe = pt.Executor()
+    sg, se = _scope_from(pt, init), _scope_from(pt, init)
+    E.COUNTERS.reset()
+    ms = {"graph": [], "eager": []}
+    seen = []
+    for i, f in enumerate(_imdb_lod_feeds(pt, IMDB_BATCHES)):
+        seen.append(E._bucket_len(int(np.diff(f["words"].lod[0]).max())))
+        a, tg = timed(f, sg, None)
+        b, te = timed(f, se, False)
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"train_lstm imdb: batch {i}: graphed loss "
+                               f"{a} != eager {b}")
+        ms["graph"].append(tg * 1e3)
+        ms["eager"].append(te * 1e3)
+    if _bitwise_scopes(sg, se):
+        raise RuntimeError("train_lstm imdb: the scopes differ")
+    cum = {m: np.cumsum(v) for m, v in ms.items()}
+    ahead = [i + 1 for i in range(IMDB_BATCHES)
+             if cum["graph"][i] < cum["eager"][i]]
+    imdb = {"buckets": seen, "warmups": c.warmups, "captures": c.captures,
+            "replays": c.replays, "evicted": c.evicted, "step_ms": ms,
+            "total_ms": {m: float(v[-1]) for m, v in cum.items()},
+            "graphed_ahead_from_step": ahead[0] if ahead else None}
+    print(f"train_lstm imdb: {IMDB_BATCHES} batches of the imdb reader "
+          f"(batch {LSTM['batch']}), buckets {sorted(set(seen))}; warm-ups "
+          f"{c.warmups}, captures {c.captures}, replays {c.replays}, evicted "
+          f"{c.evicted}; {imdb['total_ms']['graph']:.1f} ms graphed, "
+          f"{imdb['total_ms']['eager']:.1f} ms eager in all; graphed ahead "
+          f"from step {imdb['graphed_ahead_from_step']}; steps (ms) graphed "
+          f"{', '.join(f'{t:.2f}' for t in ms['graph'])}; eager "
+          f"{', '.join(f'{t:.2f}' for t in ms['eager'])} ({card})",
+          flush=True)
+    report["train_lstm"] = {"card": card, "config": LSTM, "dense": dense,
+                            "lod": lod, "imdb": imdb}
+    del exe, sg, se, init
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dense
+
+
 # --- the graphed training step -------------------------------------------------
 
 GRAPH_BITWISE_STEPS = 3             # warm-up, capture, replay: held bitwise
+LM_DROPOUT = 0.1                    # the dropout LM path's dropout_prob
+MASK_STEPS = 3                      # its steps whose masks are compared
 GRAPH_TURNS = 8                     # then graphed and eager steps in turns
 GRAPH_SECOND_BATCH = 16             # ResNet's second signature
 # every kernel counter a training step can move: launches and copies
@@ -4617,9 +5349,10 @@ def _graph_counts(conv_cuda, bn_cuda, attention_cuda):
 
 def _graph_paths(pt, resnet):
     """(name, (main, startup, loss), feed, launches per step, profile
-    witness) of the four training paths that run graphed: ResNet-50 O2 at
-    batch 32, the LM O2 at batch 8 x T 2048, the f32 LM at batch 1, the
-    ring LM at T 32768."""
+    witness) of the six training paths that run graphed: ResNet-50 O2 at
+    batch 32, vgg16 O2 at batch 32 (VGG16_LAUNCHES), the LM O2 at batch 8
+    x T 2048, the same LM with dropout (LM_DROPOUT), the f32 LM at batch
+    1, the ring LM at T 32768."""
     import numpy as np
     rng = np.random.default_rng(SEED + 4)
     r_feed = {"img": rng.standard_normal((TRAIN_BATCH, 3, 224, 224)).astype(np.float32),
@@ -4638,7 +5371,12 @@ def _graph_paths(pt, resnet):
                + k: v for k, v in TRAIN_LAUNCHES.items()},
             "conv.launches": 0},
            ("K4", lambda name: K1_KERNEL in name and "true" in name))
+    yield ("vgg16_o2", _vgg16_train(pt), r_feed, VGG16_LAUNCHES,
+           ("K1", lambda name: K1_KERNEL in name and "false" in name))
     yield ("lm_o2", _transformer(pt)[:3], lm_feed,
+           {"attn.launches": n, "attn.dq_launches": n, "attn.dkv_launches": n},
+           ("K7", lambda name: "flash_fwd_kernel" in name))
+    yield ("lm_o2_dropout", _transformer(pt, dropout=LM_DROPOUT)[:3], lm_feed,
            {"attn.launches": n, "attn.dq_launches": n, "attn.dkv_launches": n},
            ("K7", lambda name: "flash_fwd_kernel" in name))
     yield ("lm_f32", _transformer(pt, amp=False)[:3],
@@ -4651,6 +5389,36 @@ def _graph_paths(pt, resnet):
            {"attn.block_launches": n, "attn.dq_launches": n,
             "attn.dkv_launches": n, "attn.launches": 0},
            ("K10", lambda name: "flash_fwd_kernel" in name and "false" in name))
+
+
+def _dropout_masks(pt, exe, main, feed, loss, sg, se, name, card):
+    """MASK_STEPS more steps of a dropout path graphed on `sg` and eager on
+    `se`, fetching the dropout's Mask (a signature of its own: one warm-up,
+    one capture): each step's graphed mask bitwise its eager twin, and
+    consecutive steps' masks different. Returns the masks' keep shares."""
+    import numpy as np
+    drop = next(op for op in main.global_block().ops if op.type == "dropout")
+    mask = drop.output("Mask")[0]
+    prev, kept = None, []
+    for i in range(MASK_STEPS):
+        lg, mg = exe.run(main, feed=feed, fetch_list=[loss, mask], scope=sg)
+        le, me = exe.run(main, feed=feed, fetch_list=[loss, mask], scope=se,
+                         use_jit=False)
+        if not (np.array_equal(lg, le) and np.array_equal(mg, me)):
+            raise RuntimeError(f"train_graph {name}: mask step {i}: the "
+                               f"graphed step's loss or mask is not the "
+                               f"eager step's")
+        if prev is not None and np.array_equal(prev, mg):
+            raise RuntimeError(f"train_graph {name}: steps {i - 1} and {i} "
+                               f"drew the same dropout mask")
+        prev = mg
+        kept.append(float(mg.mean()))
+    if _bitwise_scopes(sg, se):
+        raise RuntimeError(f"train_graph {name}: the mask steps differ")
+    print(f"train_graph {name}: {MASK_STEPS} steps fetching the dropout mask "
+          f"{tuple(prev.shape)}: graphed bitwise eager, consecutive masks "
+          f"different, keep share {kept} (p {LM_DROPOUT}; {card})", flush=True)
+    return kept
 
 
 def _settled_reserved():
@@ -4806,7 +5574,13 @@ def phase_train_graph(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
         print(f"train_graph {name} steps (ms): graphed "
               f"{', '.join(f'{t:.2f}' for t in steps['graph'])}; eager "
               f"{', '.join(f'{t:.2f}' for t in steps['eager'])}", flush=True)
-        for k, v in prof["graph"]["launches"].items():
+        launched = dict(prof["graph"]["launches"])
+        if want.get("conv.launches"):
+            # K1 and K2 are one kernel in a trace: the replay's K1 share is
+            # its eager step's K1 count
+            launched["conv.dgrad_launches"] -= int(want["conv.launches"])
+            launched["conv.launches"] = int(want["conv.launches"])
+        for k, v in launched.items():
             graphed_launches[k] = graphed_launches.get(k, 0) + v
         out[name] = {"p50_ms": p50, "step_ms": steps,
                      "step_memory_gb": peak, "graph_pool_gb": pool_gb,
@@ -4818,6 +5592,9 @@ def phase_train_graph(pt, conv_cuda, bn_cuda, attention_cuda, resnet, report):
                      "busy_ms": {m: prof[m]["busy_ms"] for m in prof},
                      "busy_share": {m: prof[m]["busy_share"] for m in prof},
                      "setup_s": setup_s}
+        if name == "lm_o2_dropout":
+            out[name]["masks"] = _dropout_masks(pt, exe, main, feed, loss, sg,
+                                                se, name, card)
         if name == "resnet50_o2":
             # a second signature on the same Executor: it reads the first's
             # state buffers and draws on its pool
@@ -6109,7 +6886,9 @@ def main(argv=None) -> int:
                             report)
     r3 = q3["resnet50_o3"]
     k1["launches_by_path"].update({"serve_fp8": q8["fp8"]["launches"],
-                                   "train_q8": r3.get("conv.launches", 0)})
+                                   "train_q8": r3.get("conv.launches", 0),
+                                   "train_graph": graph_launches.get(
+                                       "conv.launches", 0)})
     k1["launches"] = sum(k1["launches_by_path"].values())
     k11["launches_by_path"] = {"serve_q8": q8["q8_launches"],
                                "train_q8": r3.get("conv.q8_launches", 0)}
@@ -6153,6 +6932,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"S1 was launched no time on a sparse path: "
                            f"{s1['launches_by_path']}")
     phase_serve_dlrm(pt, report)
+    phase_train_lstm(pt, report)
     kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
                + [k11, q1, s1]}
     report.update(kernels)

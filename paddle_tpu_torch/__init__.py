@@ -22,6 +22,10 @@ chapters read (dataset/, synthetic surrogates unless real files are
 cached), RecordIO files (recordio.py over native/recordio.cc), DataFeeder,
 the DoubleBufferedFeeder that stages batches on the card from a copy
 stream (reader/pipeline.py), and Executor.run_steps, K steps a call.
+Sequences: LoDTensor feeds padded with their lengths beside them
+(executor.py), the sequence ops and the LSTM/GRU (ops/sequence_ops.py,
+layers/sequence.py), dropout, and the imdb, movielens and sentiment
+datasets.
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -30,8 +34,8 @@ from .framework import (Program, Block, Variable, Parameter, program_guard,
                         default_main_program, default_startup_program,
                         switch_main_program, switch_startup_program,
                         unique_name)
-from .executor import (CPUPlace, CUDAPlace, TPUPlace, Executor, Scope,
-                       global_scope, scope_guard)
+from .executor import (CPUPlace, CUDAPlace, TPUPlace, Executor, LoDTensor,
+                       Scope, global_scope, scope_guard)
 from . import ops
 from . import layers
 from . import initializer

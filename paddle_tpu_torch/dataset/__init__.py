@@ -7,11 +7,13 @@ the same schema: the same samples from the same seed, so both packages
 stream identical data. No module downloads anything.
 
 uci_housing (fit_a_line), mnist (recognize_digits), cifar
-(image_classification), imikolov (word2vec) and flowers (ResNet-50
-training on the card). The JAX package's other nine (conll05, imdb,
-movielens, mq2007, sentiment, voc2012, wmt14, wmt16 and their chapters)
-feed sequence (LoD) models, which the port has not yet."""
+(image_classification), imikolov (word2vec), flowers (ResNet-50 training
+on the card), imdb (understand_sentiment), movielens (recommender_system)
+and sentiment. The JAX package's other five (conll05, mq2007, voc2012,
+wmt14, wmt16) feed chapters the port has not yet."""
 
-from . import cifar, common, flowers, imikolov, mnist, uci_housing
+from . import (cifar, common, flowers, imdb, imikolov, mnist, movielens,
+               sentiment, uci_housing)
 
-__all__ = ["cifar", "common", "flowers", "imikolov", "mnist", "uci_housing"]
+__all__ = ["cifar", "common", "flowers", "imdb", "imikolov", "mnist",
+           "movielens", "sentiment", "uci_housing"]

@@ -14,8 +14,13 @@ and optimizer ops run like any other op; the optimizer's in-place outputs
 (parameters, accumulators, batch-norm statistics) are persistable and go
 back to the scope at the end of the run. Scope semantics follow the
 reference (scope.h:38): persistable variables live in the scope across
-runs; block temporaries vanish after the run. Feeds and fetches are
-dense tensors; LoD feeds wait for a later slice. `run_steps` runs K steps
+runs; block temporaries vanish after the run. A LoDTensor feed
+becomes a padded dense tensor plus its lengths, `<name>@SEQLEN` (and the
+inner lengths `<name>@SEQLEN2` at LoD level 2), which ride along the step
+as feeds of their own and reach the lowerings through `ctx.seq_len`;
+each op's outputs inherit the lengths of its first sequence input unless
+the lowering sets them (`propagate_seq_len`), and a fetched sequence
+comes back packed, as the reference's LoDTensor. `run_steps` runs K steps
 over a window of K batches in one call, with the scope written once at
 the end (the JAX package's fused loop).
 
@@ -47,10 +52,13 @@ from . import quant
 from .framework.framework import Program, Variable, default_main_program
 from .ops import fusion as fusion_mod
 from .ops import registry, sparse_ops
-from .ops.common import SelectedRowsVal, maybe_dense
+from .ops.common import (SEQLEN2_SUFFIX, SEQLEN_SUFFIX, SelectedRowsVal,
+                         maybe_dense, propagate_seq_len, seq_carrier)
 
 __all__ = ["CPUPlace", "CUDAPlace", "TPUPlace", "place_device", "Scope",
-           "global_scope", "scope_guard", "Executor", "COUNTERS"]
+           "global_scope", "scope_guard", "Executor", "COUNTERS", "LoDTensor",
+           "SEQLEN_SUFFIX", "SEQLEN2_SUFFIX", "pack_to_padded",
+           "padded_to_pack"]
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +110,168 @@ def place_device(place: Place) -> torch.device:
                                f"{torch.cuda.device_count()} CUDA devices exist")
         return torch.device("cuda", place.device_id)
     raise TypeError(f"not a place: {place!r}")
+
+
+# ---------------------------------------------------------------------------
+# Runtime values: LoDTensor and the padded-LoD convention
+# ---------------------------------------------------------------------------
+
+class LoDTensor:
+    """A tensor and its level-of-detail sequence offsets (reference
+    framework/lod_tensor.h:55,107; JAX executor.py:104). The array holds
+    the sequences packed, [sum_len, ...]; the LoD records each level's
+    offsets."""
+
+    def __init__(self, array=None, lod: Optional[List[List[int]]] = None):
+        self._array = array
+        self.lod = lod or []
+
+    def set(self, array, place=None):
+        self._array = np.asarray(array)
+
+    def set_lod(self, lod):
+        self.lod = lod
+
+    def array(self):
+        return self._array
+
+    def __array__(self, dtype=None, copy=None):
+        a = np.asarray(self._array)
+        return a.astype(dtype) if dtype is not None else a
+
+    @property
+    def shape(self):
+        return tuple(self._array.shape)
+
+    def recursive_sequence_lengths(self):
+        return [[b - a for a, b in zip(lvl[:-1], lvl[1:])] for lvl in self.lod]
+
+
+def _bucket_len(n: int) -> int:
+    """A max sequence length rounded up to its bucket (JAX executor.py:393):
+    powers of two up to 64, multiples of 64 after, so a run of batches
+    gives a few padded shapes (and graph signatures), not one per batch."""
+    if n <= 8:
+        return 8
+    b = 8
+    while b < n and b < 64:
+        b *= 2
+    return b if b >= n else ((n + 63) // 64) * 64
+
+
+def pack_to_padded(flat: np.ndarray, lod: List[List[int]]):
+    """Packed [sum_len, ...] rows + LoD offsets -> padded dense + lengths
+    (JAX executor.py:405): level 1 gives ([batch, T, ...], lengths [batch],
+    None); level 2 gives ([batch, S, T, ...], outer lengths [batch], inner
+    lengths [batch, S]). T and S are `_bucket_len` of the longest."""
+    if len(lod) not in (1, 2):
+        raise ValueError(f"lod_level must be 1 or 2, got a LoD of "
+                         f"{len(lod)} levels")
+    if len(lod) == 1:
+        offs = np.asarray(lod[0], dtype=np.int64)
+        lengths = np.diff(offs).astype(np.int32)
+        bsz = len(lengths)
+        t = _bucket_len(int(lengths.max()) if bsz else 1)
+        padded = np.zeros((bsz, t) + tuple(flat.shape[1:]), dtype=flat.dtype)
+        if bsz and len(flat):
+            batch_idx = np.repeat(np.arange(bsz), lengths)
+            time_idx = np.arange(offs[-1]) - np.repeat(offs[:-1], lengths)
+            padded[batch_idx, time_idx] = flat[: offs[-1]]
+        return padded, lengths, None
+    outer, inner = lod
+    outer = np.asarray(outer, dtype=np.int64)
+    inner = np.asarray(inner, dtype=np.int64)
+    outer_lens = np.diff(outer).astype(np.int32)
+    inner_lens_flat = np.diff(inner).astype(np.int32)
+    bsz = len(outer_lens)
+    s_max = _bucket_len(int(outer_lens.max()) if bsz else 1)
+    t_max = _bucket_len(int(inner_lens_flat.max())
+                        if len(inner_lens_flat) else 1)
+    padded = np.zeros((bsz, s_max, t_max) + tuple(flat.shape[1:]),
+                      dtype=flat.dtype)
+    inner_lens = np.zeros((bsz, s_max), dtype=np.int32)
+    if bsz and len(inner_lens_flat):
+        n_seq = len(inner_lens_flat)
+        seq_batch = np.repeat(np.arange(bsz), outer_lens)
+        seq_pos = np.arange(n_seq) - np.repeat(outer[:-1], outer_lens)
+        inner_lens[seq_batch, seq_pos] = inner_lens_flat
+        total = int(inner[-1])
+        if total:
+            row_seq = np.repeat(np.arange(n_seq), inner_lens_flat)
+            row_b = seq_batch[row_seq]
+            row_s = seq_pos[row_seq]
+            row_t = np.arange(total) - np.repeat(inner[:-1], inner_lens_flat)
+            padded[row_b, row_s, row_t] = flat[:total]
+    return padded, outer_lens, inner_lens
+
+
+def padded_to_pack(padded: np.ndarray, lengths: np.ndarray,
+                   inner_lengths: Optional[np.ndarray] = None):
+    """The inverse of pack_to_padded (JAX executor.py:451): padded +
+    lengths -> packed rows + LoD offsets; with inner_lengths the input is a
+    nested [B, S, T, ...] batch and a 2-level LoD comes back."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    if inner_lengths is None:
+        bsz = len(lengths)
+        offs = np.concatenate([[0], np.cumsum(lengths)])
+        if bsz == 0 or offs[-1] == 0:
+            return padded[:0, 0], [offs.tolist()]
+        batch_idx = np.repeat(np.arange(bsz), lengths)
+        time_idx = np.arange(offs[-1]) - np.repeat(offs[:-1], lengths)
+        return padded[batch_idx, time_idx], [offs.tolist()]
+    inner_lengths = np.asarray(inner_lengths, dtype=np.int64)
+    bsz = len(lengths)
+    outer_offs = np.concatenate([[0], np.cumsum(lengths)])
+    n_seq = int(outer_offs[-1])
+    if n_seq == 0:
+        return padded[:0, 0, 0], [outer_offs.tolist(), [0]]
+    seq_batch = np.repeat(np.arange(bsz), lengths)
+    seq_pos = np.arange(n_seq) - np.repeat(outer_offs[:-1], lengths)
+    seq_lens = inner_lengths[seq_batch, seq_pos]
+    inner_offs = np.concatenate([[0], np.cumsum(seq_lens)])
+    total = int(inner_offs[-1])
+    if total == 0:
+        return padded[:0, 0, 0], [outer_offs.tolist(), inner_offs.tolist()]
+    row_seq = np.repeat(np.arange(n_seq), seq_lens)
+    row_t = np.arange(total) - np.repeat(inner_offs[:-1], seq_lens)
+    return (padded[seq_batch[row_seq], seq_pos[row_seq], row_t],
+            [outer_offs.tolist(), inner_offs.tolist()])
+
+
+def _unpack_lod(name: str, value, out: Dict[str, Any]):
+    """Put feed or state `value` into `out` under `name`: a LoDTensor with
+    a LoD as its padded array and lengths (JAX executor.py:1131-1170),
+    anything else as it is."""
+    if not isinstance(value, LoDTensor):
+        out[name] = value
+        return
+    arr = value.array()
+    arr = arr.cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    if value.lod:
+        arr, lengths, inner = pack_to_padded(arr, value.lod)
+        out[name + SEQLEN_SUFFIX] = lengths
+        if inner is not None:
+            out[name + SEQLEN2_SUFFIX] = inner
+    out[name] = arr
+
+
+def _repack(arr: np.ndarray, lens, inner, as_lod: bool):
+    """A fetched padded sequence back in the reference's packed layout
+    (JAX executor.py:1458): the packed rows, or with `as_lod` a LoDTensor
+    of them. Lengths that do not fit the array (a fetch tagged by the
+    default propagation but no longer [batch, T]) give None: the fetch is
+    then returned as it is."""
+    lens = np.asarray(lens)
+    if arr.ndim < 2 or lens.shape[0] != arr.shape[0] or \
+            (lens.size and lens.max() > arr.shape[1]):
+        return None
+    if inner is not None:
+        inner = np.asarray(inner)
+        if arr.ndim < 3 or inner.shape[:2] != arr.shape[:2] or \
+                (inner.size and inner.max() > arr.shape[2]):
+            inner = None
+    packed, lod = padded_to_pack(arr, lens, inner)
+    return LoDTensor(packed, lod) if as_lod else np.asarray(packed)
 
 
 # ---------------------------------------------------------------------------
@@ -179,23 +349,66 @@ class LoweringContext:
         self.folds = None
         self._seed = program.random_seed or 12345
         self._rng_counter = rng_counter
+        # set while a CUDA graph captures the step: the random ops' seeds
+        # are then the executor's to set before each replay
+        self.capturing = False
+        # the environment of the op being lowered, and the lengths its
+        # lowering sets for its outputs (None clears), read by
+        # propagate_seq_len (JAX executor.py:216-221)
+        self.env: Dict[str, Any] = {}
+        self.seq_overrides: Dict[str, Any] = {}
+
+    def seq_len(self, name: str):
+        """The valid lengths [batch] of padded sequence `name`, or None for
+        a dense value (JAX executor.py:236): the `<name>@SEQLEN` tensor a
+        LoD feed brought or an op set, on the device."""
+        return self.env.get(name + SEQLEN_SUFFIX)
+
+    def seq_len2(self, name: str):
+        """The inner lengths [batch, S] of a nested (LoD level 2) `name`,
+        or None."""
+        return self.env.get(name + SEQLEN2_SUFFIX)
+
+    def set_seq_len(self, name: str, lengths):
+        self.seq_overrides[name] = lengths
+
+    def set_seq_len2(self, name: str, lengths):
+        self.seq_overrides[name + SEQLEN2_SUFFIX] = lengths
 
     def generator(self, op) -> torch.Generator:
-        """A torch.Generator for one random op, seeded from the op's `seed`
-        attr (or the program seed and the run counter) and its first output
+        """The torch.Generator of one random op: the executor's own for the
+        op's first output name (`Executor._generator`), seeded from the
+        op's `seed` attr (or the program seed and the run counter) and that
         name, like the JAX package's per-op key (executor.py next_rng): the
-        same program and run draw the same numbers. CUDA's Philox takes
-        all 64 bits of (base, ident); a CPU generator (mt19937) keeps only
-        the low 32 of its seed, so there the 64 bits are mixed and folded
-        into 32 first (`fold_seed`), and the seed and counter still count."""
-        seed = int(op.attr("seed", 0) or 0)
-        outs = op.desc.output_arg_names()
-        ident = zlib.crc32(outs[0].encode("utf-8")) if outs else 0
-        base = seed if seed else (self._seed * 1_000_003 + self._rng_counter)
-        key = ((base & 0xFFFFFFFF) << 32 | ident) & (2 ** 63 - 1)
-        g = torch.Generator(device=self.device)
-        g.manual_seed(key if self.device.type == "cuda" else fold_seed(key))
+        same program and run draw the same numbers, and step i and step
+        i+1 different ones. While a CUDA graph captures the step the seed
+        is left alone: the generator is registered with the graph, and the
+        executor seeds it before each replay (`Executor._seed_random`),
+        which hands the replay its seed and offset on the device."""
+        name = random_ident(op)
+        g = self.executor._generator(name)
+        if not self.capturing:
+            seed_generator(g, op, name, self._seed, self._rng_counter)
         return g
+
+
+def random_ident(op) -> str:
+    outs = op.desc.output_arg_names()
+    return outs[0] if outs else ""
+
+
+def seed_generator(g: torch.Generator, op, name: str, program_seed: int,
+                   rng_counter: int):
+    """Seed `g` for one draw of random op `op` at run `rng_counter`. CUDA's
+    Philox takes all 64 bits of (base, ident); a CPU generator (mt19937)
+    keeps only the low 32 of its seed, so there the 64 bits are mixed and
+    folded into 32 first (`fold_seed`), and the seed and counter still
+    count."""
+    seed = int(op.attr("seed", 0) or 0)
+    ident = zlib.crc32(name.encode("utf-8")) if name else 0
+    base = seed if seed else (program_seed * 1_000_003 + rng_counter)
+    key = ((base & 0xFFFFFFFF) << 32 | ident) & (2 ** 63 - 1)
+    g.manual_seed(key if g.device.type == "cuda" else fold_seed(key))
 
 
 _M64 = 2 ** 64 - 1
@@ -232,16 +445,24 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _normalize_window(feed_window, steps):
-    """-> ({name: [K, ...] array or tensor}, K), with the JAX package's
-    checks and messages (executor.py:755-799). A list of per-step feed
-    dicts is stacked on the host; a dict whose entries carry a leading [K]
-    axis (DoubleBufferedFeeder.next_window, DataFeeder.feed_window) passes
-    through."""
+    """-> ({name: [K, ...] array or tensor} or None, the per-step feed
+    dicts or None, K), with the JAX package's checks and messages
+    (executor.py:755-799). A list of per-step feed dicts is stacked on the
+    host, unless one holds a LoDTensor with a LoD: then the window is
+    left per step (stacked None), for run_steps to run one run() a step;
+    a dict whose entries carry a leading [K] axis
+    (DoubleBufferedFeeder.next_window, DataFeeder.feed_window) passes
+    through, and raises if one is a LoDTensor."""
     if isinstance(feed_window, dict):
         if not feed_window:
             raise ValueError("feed_window dict is empty")
         ks = set()
         for n, v in feed_window.items():
+            if isinstance(v, LoDTensor):
+                raise ValueError(
+                    f"pre-stacked feed_window entry '{n}' is a "
+                    f"LoDTensor; pass a list of per-step feed dicts "
+                    f"so the executor can fall back per-step")
             shape = getattr(v, "shape", None)
             if not shape:
                 raise ValueError(
@@ -255,7 +476,7 @@ def _normalize_window(feed_window, steps):
         if steps is not None and steps != k:
             raise ValueError(
                 f"steps={steps} but feed_window leading dim is {k}")
-        return dict(feed_window), k
+        return dict(feed_window), None, k
     per_step = list(feed_window)
     if not per_step:
         raise ValueError("feed_window list is empty")
@@ -265,11 +486,14 @@ def _normalize_window(feed_window, steps):
     names = set(per_step[0])
     if any(set(f) != names for f in per_step[1:]):
         raise ValueError("per-step feed dicts must share the same keys")
+    if any(isinstance(f[n], LoDTensor) and f[n].lod
+           for f in per_step for n in names):
+        return None, per_step, len(per_step)
     stacked = {n: torch.stack([v if isinstance(v, torch.Tensor) else
                                torch.as_tensor(np.asarray(v))
                                for v in (f[n] for f in per_step)])
                for n in sorted(names)}
-    return stacked, len(per_step)
+    return stacked, None, len(per_step)
 
 
 @dataclass
@@ -281,8 +505,10 @@ class Counters:
     caller replaced or changed the scope's tensor, or another scope or
     signature left the buffer another value); `evicted`, graphs dropped
     past GRAPH_CACHE_SIZE; `eager`, the steps that ran eager, by the
-    gate's reason (`graph_gate`). A replay runs no Python: the kernel
-    wrappers' launch counters do not move."""
+    gate's reason (`graph_gate`); `window_fallbacks`, run_steps windows
+    served one run() a step, by reason (the JAX package's
+    executor_window_fallback_total: `lod_feed`). A replay runs no Python:
+    the kernel wrappers' launch counters do not move."""
     windows: int = 0
     steps: int = 0
     warmups: int = 0
@@ -291,18 +517,21 @@ class Counters:
     copied_in: int = 0
     evicted: int = 0
     eager: Dict[str, int] = field(default_factory=dict)
+    window_fallbacks: Dict[str, int] = field(default_factory=dict)
 
     def reset(self):
         self.windows = self.steps = 0
         self.warmups = self.captures = self.replays = 0
         self.copied_in = self.evicted = 0
         self.eager.clear()
+        self.window_fallbacks.clear()
 
 
 COUNTERS = Counters()
 
-# ops that draw from ctx.generator: a replayed graph would repeat the
-# captured draw, so a block holding one runs eager
+# ops that draw from ctx.generator. Each op's generator is registered with
+# every graph that draws from it and seeded before each replay, so a replay
+# draws what the eager step of the same run counter draws
 RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
 
 # ops that take a SelectedRows input as it is (executor.py:384): the sparse
@@ -316,6 +545,13 @@ _SPARSE_AWARE_OPS = frozenset(
 def _fetched(v):
     """A fetch as a dense tensor: a SelectedRows value densifies, counted."""
     return maybe_dense(v, count_as="fetch")
+
+
+def _lengths_of(env, names) -> Dict[str, torch.Tensor]:
+    """The lengths tensors in `env` of the sequences `names`, by
+    `<name>@SEQLEN` and `<name>@SEQLEN2`."""
+    return {n + sfx: env[n + sfx] for n in names
+            for sfx in (SEQLEN_SUFFIX, SEQLEN2_SUFFIX) if n + sfx in env}
 
 
 def _accepts_sparse_slots(reader) -> bool:
@@ -332,7 +568,9 @@ def liveness(ops, groups) -> Dict[int, List[str]]:
     """position -> the names whose last reader or writer runs there, for
     `_run_block` to drop after it. A window's members all count at its end
     index (it runs as one unit), so what a window reads lives until it
-    has run."""
+    has run. Only op arguments are dropped: the lengths tensors
+    (`<name>@SEQLEN`, a few bytes each) stay for the whole step, for any
+    later op, grad op or fetch of the sequence to read."""
     last: Dict[str, int] = {}
     groups = groups or {}
     i = 0
@@ -357,13 +595,18 @@ def liveness(ops, groups) -> Dict[int, List[str]]:
 GRAPH_CACHE_SIZE = 8
 
 
-def capture_graph(body, pool=None, keep=False):
+def capture_graph(body, pool=None, keep=False, generators=()):
     """A CUDA graph of what `body()` launches on the current device, its
     memory drawn from `pool` (another graph's, `graph.pool()`) when given.
     Only this thread's calls are checked during the capture, so a feeder's
     copy thread goes on beside it. With `keep` the graph keeps its nodes
-    past instantiation, for `graph.debug_dump` to list them."""
+    past instantiation, for `graph.debug_dump` to list them. Each of
+    `generators` is registered with the graph before the capture: its
+    draws then read the seed and offset the generator holds when a replay
+    starts, and a replay advances its offset as the eager draws would."""
     graph = torch.cuda.CUDAGraph(keep_graph=keep)
+    for g in generators:
+        graph.register_generator_state(g)
     with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
         body()
     if keep:
@@ -426,6 +669,7 @@ class _GraphedStep:
         self.persist: List[str] = []
         self.inplace: set = set()
         self.fetches: List[torch.Tensor] = []
+        self.lens: Dict[str, torch.Tensor] = {}
         self.written: Dict[str, torch.Tensor] = {}
 
 
@@ -587,6 +831,37 @@ class Executor:
         # those tensors' identities (from its warm-up)
         self._inplace_names: Dict[tuple, set] = {}
         self._pool = None
+        # one torch.Generator per random op (by its first output name), so
+        # a graph that draws from it can register it (ctx.generator)
+        self._generators: Dict[str, torch.Generator] = {}
+        self._consts: Dict[tuple, torch.Tensor] = {}
+
+    def constant(self, values, dtype: torch.dtype) -> torch.Tensor:
+        """A host array (a static attr's values) on this Executor's device,
+        copied once: a step's first run is eager and makes it, so a CUDA
+        graph's capture, which may not copy from the host, finds it."""
+        a = np.ascontiguousarray(values)
+        key = (str(dtype), a.shape, a.dtype.str, a.tobytes())
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.as_tensor(
+                a, device=self.device).to(dtype)
+        return t
+
+    def _generator(self, name: str) -> torch.Generator:
+        g = self._generators.get(name)
+        if g is None:
+            g = self._generators[name] = torch.Generator(device=self.device)
+        return g
+
+    def _seed_random(self, program, rng_counter):
+        """Seed the generator of every random op of the block for run
+        `rng_counter`, as ctx.generator does on an eager step: a replay
+        then draws what the eager step would."""
+        seed = program.random_seed or 12345
+        for op in self._block_plan(program)[2]:
+            name = random_ident(op)
+            seed_generator(self._generator(name), op, name, seed, rng_counter)
 
     # --- public API ---------------------------------------------------------
     def run(self, program: Optional[Program] = None, feed: Optional[Dict] = None,
@@ -603,23 +878,72 @@ class Executor:
         cache = getattr(program, "_emb_cache", None)
         if cache is not None and feed:
             feed = cache.prepare_feed(feed)
-        feed_vals = {n: _to_device(v, self.device)
-                     for n, v in (feed or {}).items()}
+        raw: Dict[str, Any] = {}
+        for n, v in (feed or {}).items():
+            _unpack_lod(n, v, raw)
+        feed_vals = {n: _to_device(v, self.device) for n, v in raw.items()}
         state_names = self._resolve_state(program, feed_vals, scope)
         persist_out = self._persistable_outputs(program)
-        state = {n: _to_device(scope.find_var(n), self.device)
-                 for n in state_names}
+        state = {}
+        for n in state_names:
+            v = scope.find_var(n)
+            if isinstance(v, LoDTensor) and v.lod:
+                # sequence state: padded, its lengths fed beside it
+                lod_state: Dict[str, Any] = {}
+                _unpack_lod(n, v, lod_state)
+                v = lod_state.pop(n)
+                feed_vals.update((k, _to_device(a, self.device))
+                                 for k, a in lod_state.items())
+            state[n] = _to_device(v, self.device)
         rng_counter = scope.find_var("__rng_counter__") or 0
         reason = self.graph_gate(program, feed_vals, use_jit,
                                  use_program_cache)
-        fetch, written = self._step(program, state, feed_vals, fetch_names,
-                                    persist_out, rng_counter, reason)
+        fetch, written, lens = self._step(program, state, feed_vals,
+                                          fetch_names, persist_out,
+                                          rng_counter, reason)
         if cache is not None:
             cache.window_dispatched()
         scope.set_var("__rng_counter__", rng_counter + 1)
+        self._write_back(program, scope, written, lens)
+        return self._fetch_out(fetch_names, fetch, lens, return_numpy)
+
+    @staticmethod
+    def _write_back(program, scope, written, lens):
+        """The persistable outputs into `scope`; a variable declared a
+        sequence (lod_level > 0) whose lengths the step knows goes back as
+        a LoDTensor, so the next run packs it again (JAX
+        executor.py:1414)."""
+        block = program.global_block()
         for n, v in written.items():
+            if n + SEQLEN_SUFFIX in lens and block.has_var(n) and \
+                    block.var(n).lod_level > 0:
+                inner = lens.get(n + SEQLEN2_SUFFIX) \
+                    if block.var(n).lod_level > 1 else None
+                packed, lod = padded_to_pack(
+                    to_numpy(v), to_numpy(lens[n + SEQLEN_SUFFIX]),
+                    None if inner is None else to_numpy(inner))
+                v = LoDTensor(packed, lod)
             scope.set_var(n, v)
-        return [to_numpy(v) for v in fetch] if return_numpy else fetch
+
+    @staticmethod
+    def _fetch_out(fetch_names, fetch, lens, return_numpy):
+        """The fetches as the caller asked: numpy arrays, or the tensors;
+        a fetched sequence comes back packed (numpy), or as a LoDTensor
+        when return_numpy is False (JAX executor.py:1458)."""
+        out = []
+        for n, v in zip(fetch_names, fetch):
+            sl = lens.get(n + SEQLEN_SUFFIX)
+            if sl is None:
+                out.append(to_numpy(v) if return_numpy else v)
+                continue
+            inner = lens.get(n + SEQLEN2_SUFFIX)
+            r = _repack(to_numpy(v), to_numpy(sl),
+                        None if inner is None else to_numpy(inner),
+                        not return_numpy)
+            if r is None:
+                r = to_numpy(v) if return_numpy else v
+            out.append(r)
+        return out
 
     def run_steps(self, program: Optional[Program] = None, feed_window=None,
                   *, reader=None, steps: Optional[int] = None,
@@ -657,7 +981,13 @@ class Executor:
         With a hot-row cache on the program, a reader is asked for the
         cached ids' slots kept on the host (`sparse_slots`), and the whole
         window's ids are remapped in one residency transaction before it
-        runs."""
+        runs.
+
+        A window of per-step dicts holding a LoDTensor with a LoD, or a
+        program reading sequence state (a LoDTensor in the scope), runs
+        one run() a step (reasons `lod_feed`, `lod_state`: each batch pads
+        to its own length, JAX executor.py:755); a pre-stacked window
+        holding a LoDTensor raises."""
         if fetch_mode not in ("last", "stack", "mean"):
             raise ValueError(f"fetch_mode must be last|stack|mean, "
                              f"got {fetch_mode!r}")
@@ -677,18 +1007,23 @@ class Executor:
                 feed_window = reader.next_window(steps, device=self.device)
         if feed_window is None:
             raise ValueError("run_steps needs feed_window= or reader=")
-        stacked, steps = _normalize_window(feed_window, steps)
-        if cache is not None:
-            stacked = cache.prepare_feed(stacked)
+        stacked, per_step, steps = _normalize_window(feed_window, steps)
+        if per_step is not None:
+            return self._run_steps_per_step(
+                program, per_step, fetch_list, scope, return_numpy,
+                fetch_mode, use_jit, "lod_feed")
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
-        block = program.global_block()
-        for n in stacked:
-            if block.has_var(n) and block.var(n).lod_level > 0:
-                raise NotImplementedError(
-                    f"feed '{n}' is a sequence (lod_level "
-                    f"{block.var(n).lod_level}): LoD feeds come with the "
-                    f"port's LoD slice (ROADMAP Queue 1, slice 8)")
+        if any(isinstance(scope.find_var(n), LoDTensor)
+               and scope.find_var(n).lod
+               for n in self._external_inputs(program, set(stacked), scope)):
+            return self._run_steps_per_step(
+                program, [{n: v[i] for n, v in stacked.items()}
+                          for i in range(steps)],
+                fetch_list, scope, return_numpy, fetch_mode, use_jit,
+                "lod_state")
+        if cache is not None:
+            stacked = cache.prepare_feed(stacked)
         fetch_names = _names(fetch_list)
         feed_vals = {n: _to_device(v, self.device) for n, v in stacked.items()}
         state_names = self._resolve_state(program, feed_vals, scope)
@@ -700,9 +1035,9 @@ class Executor:
         for i in range(steps):
             feed_i = {n: v[i] for n, v in feed_vals.items()}
             reason = self.graph_gate(program, feed_i, use_jit, True)
-            fetch, out = self._step(program, state, feed_i, fetch_names,
-                                    persist_out, rng_counter + i, reason,
-                                    hand_out=i == steps - 1)
+            fetch, out, _lens = self._step(
+                program, state, feed_i, fetch_names, persist_out,
+                rng_counter + i, reason, hand_out=i == steps - 1)
             written.update(out)
             state.update({n: v for n, v in out.items() if n in state})
             fetched.append(fetch)
@@ -723,6 +1058,35 @@ class Executor:
                        else t.double().mean(0) for t in out]
         return [to_numpy(v) for v in out] if return_numpy else out
 
+    def _run_steps_per_step(self, program, per_step, fetch_list, scope,
+                            return_numpy, fetch_mode, use_jit, reason):
+        """A window served one run() a step (JAX executor.py:800), counted
+        in COUNTERS.window_fallbacks by `reason`: the results of K run()
+        calls, the scope and the rng counter advanced a step at a time. A
+        fetched sequence comes back packed, so 'stack' and 'mean' need its
+        packed rows to agree in shape across the window."""
+        if len(per_step) > 1:
+            COUNTERS.window_fallbacks[reason] = \
+                COUNTERS.window_fallbacks.get(reason, 0) + 1
+        outs = []
+        for f in per_step:
+            vals = self.run(program, feed=f, fetch_list=fetch_list,
+                            scope=scope, return_numpy=return_numpy,
+                            use_jit=use_jit)
+            if fetch_mode == "last":
+                outs = vals
+            else:
+                outs.append(vals)
+        COUNTERS.windows += 1
+        COUNTERS.steps += len(per_step)
+        if fetch_mode == "last":
+            return outs
+        cols = list(zip(*outs))
+        if fetch_mode == "stack":
+            return [np.stack([np.asarray(v) for v in col]) for col in cols]
+        return [np.mean(np.stack([np.asarray(v) for v in col]), axis=0)
+                for col in cols]
+
     def prepare_serving(self, program: Program, feed_names: Sequence[str],
                         fetch_names: Sequence[str], scope: Scope) -> PreparedProgram:
         """Resolve one inference program's state names once, for the
@@ -738,20 +1102,21 @@ class Executor:
         """None when a step of `program` on `feed` may run as a CUDA graph,
         else the reason it runs eager: "use_jit" (use_jit=False), "cpu"
         (not a CUDA place), "no_program_cache" (use_program_cache=False),
-        "random_op" (the block draws random numbers: a replay would repeat
-        the captured draw), "lod_feed" (a sequence feed)."""
+        "startup" (the block reads nothing but its feeds and writes
+        persistables: an initialiser, run once a scope, whose graph would
+        only take a cache slot and pin a copy of every value it makes).
+        A random op is graphed (RANDOM_OPS), and so is a LoD feed: its
+        lengths are feeds of the graph, each padded length its own
+        signature."""
         if use_jit is False:
             return "use_jit"
         if self.device.type != "cuda":
             return "cpu"
         if not use_program_cache:
             return "no_program_cache"
-        if self._block_plan(program)[2]:
-            return "random_op"
-        block = program.global_block()
-        if any(block.has_var(n) and block.var(n).lod_level > 0
-               for n in feed):
-            return "lod_feed"
+        reads, writes, persistable = self._analysis(program)
+        if not reads - set(feed) and writes & persistable:
+            return "startup"
         return None
 
     # --- analysis -----------------------------------------------------------
@@ -798,15 +1163,16 @@ class Executor:
         return [n for n in sorted(writes) if n in persistable]
 
     def _block_plan(self, program):
-        """(fusion plan, liveness drops, holds a random op) of the global
+        """(fusion plan, liveness drops, the random ops) of the global
         block, once per (program, version)."""
         key = (id(program), program._version)
         hit = self._plans.get(key)
         if hit is None or hit[0] is not program:
             ops = program.global_block().ops
             groups = fusion_mod.plan(program)
-            hit = self._plans[key] = (program, groups, liveness(ops, groups),
-                                      any(o.type in RANDOM_OPS for o in ops))
+            hit = self._plans[key] = (
+                program, groups, liveness(ops, groups),
+                tuple(o for o in ops if o.type in RANDOM_OPS))
         return hit[1:]
 
     def _plan(self, program):
@@ -816,13 +1182,15 @@ class Executor:
     def _step(self, program, state, feed, fetch_names, persist_out,
               rng_counter, reason, hand_out=True):
         """One step from `state` and `feed`: (fetch tensors, the persistable
-        outputs by name). `reason` is the graph gate's answer: None runs
-        the signature's graph (warming it up first), else eager, counted
-        by reason. `hand_out=False` (a run_steps step before the last)
-        lets a replay return the state buffers themselves, for the next
-        step to read in place."""
+        outputs by name, the lengths of the fetched and written sequences
+        by `<name>@SEQLEN[2]`). `reason` is the graph gate's answer: None
+        runs the signature's graph (warming it up first), else eager,
+        counted by reason. `hand_out=False` (a run_steps step before the
+        last) lets a replay return the state buffers themselves, for the
+        next step to read in place."""
         if reason is None:
-            # the state's names are sorted (_resolve_state)
+            # the state's names are sorted (_resolve_state); a LoD feed's
+            # lengths are feeds, so each padded length is its own key
             base = (id(program), program._version,
                     tuple((n, v.shape, v.dtype)
                           for n, v in sorted(feed.items())),
@@ -865,7 +1233,8 @@ class Executor:
             self._graphs[base + (_identities(state, entry.inplace),)] = entry
             self._evict()
         return ([_fetched(env[n]) for n in fetch_names],
-                {n: env[n] for n in persist_out if n in env})
+                {n: env[n] for n in persist_out if n in env},
+                _lengths_of(env, list(fetch_names) + list(persist_out)))
 
     def _evict(self):
         """Drop the graphs run least recently past GRAPH_CACHE_SIZE, and
@@ -915,16 +1284,18 @@ class Executor:
                 COUNTERS.copied_in += 1
         for n, buf in entry.feeds.items():
             buf.copy_(feed[n])
+        self._seed_random(program, rng_counter)
         entry.graph.replay()
         COUNTERS.replays += 1
         # the fetches and the outputs outside the state live in the shared
         # pool, where the next graph's replay may write: copied out now
         fetch = [t.clone() for t in entry.fetches]
+        lens = {n: t.clone() for n, t in entry.lens.items()}
         bufs = [entry.state[n] for n in entry.persist]
         if not hand_out:
             for b in bufs:
                 b.source(None)
-            return fetch, {n: b.t for n, b in zip(entry.persist, bufs)}
+            return fetch, {n: b.t for n, b in zip(entry.persist, bufs)}, lens
         copied = [n for n in entry.persist if n not in entry.inplace]
         copies = _copies([entry.state[n].t for n in copied]
                          + list(entry.written.values()))
@@ -933,7 +1304,7 @@ class Executor:
         out = dict(zip(copied + list(entry.written), copies))
         out.update((n, entry.state[n].t) for n in entry.persist
                    if n in entry.inplace)
-        return fetch, out
+        return fetch, out, lens
 
     def _capture(self, entry: _GraphedStep, program, state, feed,
                  fetch_names, persist_out, rng_counter):
@@ -948,8 +1319,11 @@ class Executor:
             env = {n: b.t for n, b in entry.state.items()}
             env.update(entry.feeds)
             ctx = LoweringContext(self, program, rng_counter)
+            ctx.capturing = True
             self._run_block(ctx, program, env, groups, protected, drops,
                             protected | set(state))
+            entry.lens = _lengths_of(env, list(fetch_names)
+                                     + list(persist_out))
             for n in entry.persist:
                 buf = entry.state[n].t
                 if env[n] is not buf:
@@ -958,8 +1332,11 @@ class Executor:
             entry.written = {n: env[n] for n in persist_out
                              if n in env and n not in entry.state}
 
+        generators = [self._generator(random_ident(op))
+                      for op in self._block_plan(program)[2]]
+        kw = {"generators": generators} if generators else {}
         try:
-            graph = capture_graph(body, self._pool)
+            graph = capture_graph(body, self._pool, **kw)
         except Exception as e:
             raise RuntimeError(
                 f"CUDA graph capture of a step of program {id(program)} "
@@ -1018,6 +1395,9 @@ class Executor:
             sparse_ops.count_densify(op.type, "sparse_unaware_op")
             ins = {slot: [maybe_dense(v) for v in vals]
                    for slot, vals in ins.items()}
+        ctx.env = env
+        ctx.seq_overrides = {}
+        carrier = seq_carrier(op, env)
         try:
             with registry.span("op:" + op.type):
                 outs = opdef.lower(ctx, op, ins)
@@ -1034,3 +1414,4 @@ class Executor:
             for name, val in zip(names, outs.get(slot, [])):
                 if val is not None:
                     env[name] = val
+        propagate_seq_len(op, env, ctx.seq_overrides, carrier)

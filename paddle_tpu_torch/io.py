@@ -13,9 +13,9 @@ float32 weights stay float32, and a bfloat16 value (which numpy spells only
 through ml_dtypes) is written as its exact float32 widening, so no reader
 needs jax or ml_dtypes.
 
-The port has no LoDTensor yet (slice 8): a loaded variable that carries a
-LoD is set in the scope as its numpy array, with the LoD beside it under
-`<name>@LOD`, and is written back from there. Values come from, and go to,
+A loaded variable that carries a LoD is set in the scope as its numpy
+array, with the LoD beside it under `<name>@LOD`, and is written back from
+there (the JAX package restores an executor.LoDTensor: ROADMAP Queue 3). Values come from, and go to,
 the current scope (`global_scope()`, or a `scope_guard`), as in the
 reference; the executor argument is kept for the API. The JAX package's
 checkpoint telemetry is later work.

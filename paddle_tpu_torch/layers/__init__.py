@@ -4,6 +4,7 @@ the serving and training slices use."""
 from .io import *            # noqa: F401,F403
 from .tensor import *        # noqa: F401,F403
 from .nn import *            # noqa: F401,F403
+from .sequence import *      # noqa: F401,F403
 from .ops import *           # noqa: F401,F403
 
-from . import io, tensor, nn, ops    # noqa: F401
+from . import io, tensor, nn, ops, sequence    # noqa: F401

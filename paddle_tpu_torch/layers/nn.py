@@ -24,6 +24,7 @@ __all__ = [
     "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min", "elementwise_pow", "reduce_sum", "reduce_mean",
     "reduce_max", "reduce_min", "reduce_prod", "scale", "matmul",
+    "dropout", "cos_sim",
 ]
 
 
@@ -364,3 +365,30 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    """Dropout in its downgrade-in-infer form (reference nn.py dropout; JAX
+    layers/nn.py:451): training keeps each element with probability
+    1 - dropout_prob, inference scales by it."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    mask = helper.create_tmp_variable(dtype=x.dtype, stop_gradient=True)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed if seed is not None else 0})
+    return out
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity [N, 1] (reference nn.py cos_sim; JAX
+    layers/nn.py:664)."""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_tmp_variable(dtype=X.dtype)
+    xnorm = helper.create_tmp_variable(dtype=X.dtype, stop_gradient=True)
+    ynorm = helper.create_tmp_variable(dtype=X.dtype, stop_gradient=True)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xnorm],
+                              "YNorm": [ynorm]})
+    return out

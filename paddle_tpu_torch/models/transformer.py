@@ -28,11 +28,9 @@ def transformer_lm(tokens, labels, vocab_size, d_model=512, n_head=8,
 
     With return_logits=True returns (loss, logits), logits the pre-softmax
     [B, T, V] head output: the inference fetch the serving engine prunes
-    to, which drops the loss tail. Dropout in training (dropout_prob > 0,
-    is_test=False) is slice 8 of the port and raises."""
-    if dropout_prob and not is_test:
-        raise NotImplementedError("dropout is slice 8 of the port: build "
-                                  "with dropout_prob=0 or is_test=True")
+    to, which drops the loss tail. In training (is_test=False) a
+    dropout_prob > 0 drops out the embedding sum, where the JAX package's
+    model has its one dropout (models/transformer.py:44)."""
     seqlen = int(tokens.shape[-1])
     d_head = d_model // n_head
     assert d_head * n_head == d_model
@@ -44,6 +42,8 @@ def transformer_lm(tokens, labels, vocab_size, d_model=512, n_head=8,
         shape=[seqlen, d_model], dtype="float32", name="pos_emb",
         default_initializer=NormalInitializer(scale=0.01))
     x = layers.elementwise_add(x, pos, axis=1)          # [B, T, D]
+    if dropout_prob and not is_test:
+        x = layers.dropout(x, dropout_prob, is_test=is_test)
 
     def _proj(h, size, act=None):
         return layers.fc(input=h, size=size, num_flatten_dims=2, act=act,

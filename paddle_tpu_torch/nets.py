@@ -1,13 +1,13 @@
 """Composite network helpers, the part the ported chapters use (the port's
 counterpart of paddle_tpu/nets.py; reference python/paddle/fluid/nets.py).
-The JAX package's other helpers (img_conv_group, sequence_conv_pool, glu,
-scaled_dot_product_attention) are a later slice."""
+The JAX package's glu and scaled_dot_product_attention are a later
+slice."""
 
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -19,3 +19,52 @@ def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
                              act=act)
     return layers.pool2d(input=conv_out, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None, param_attr=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type="max", use_cudnn=True,
+                   use_mkldnn=False, is_test=False):
+    """conv2d layers, each with batch norm (its act) and dropout where
+    asked, then one pool2d (nets.py:21)."""
+    tmp = input
+    if not isinstance(conv_num_filter, (list, tuple)):
+        raise TypeError("conv_num_filter must be a list or tuple")
+
+    def _expand(obj):
+        if isinstance(obj, (list, tuple)):
+            if len(obj) != len(conv_num_filter):
+                raise ValueError("one entry per conv layer expected")
+            return list(obj)
+        return [obj] * len(conv_num_filter)
+
+    conv_padding = _expand(conv_padding)
+    conv_filter_size = _expand(conv_filter_size)
+    param_attr = _expand(param_attr)
+    conv_with_batchnorm = _expand(conv_with_batchnorm)
+    conv_batchnorm_drop_rate = _expand(conv_batchnorm_drop_rate)
+
+    for i in range(len(conv_num_filter)):
+        local_conv_act = None if conv_with_batchnorm[i] else conv_act
+        tmp = layers.conv2d(input=tmp, num_filters=conv_num_filter[i],
+                            filter_size=conv_filter_size[i],
+                            padding=conv_padding[i],
+                            param_attr=param_attr[i], act=local_conv_act)
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(input=tmp, act=conv_act, is_test=is_test)
+            drop_rate = conv_batchnorm_drop_rate[i]
+            if abs(drop_rate) > 1e-5:
+                tmp = layers.dropout(x=tmp, dropout_prob=drop_rate,
+                                     is_test=is_test)
+    return layers.pool2d(input=tmp, pool_size=pool_size,
+                         pool_type=pool_type, pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """sequence_conv with `act`, then sequence_pool (nets.py:59)."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

@@ -6,6 +6,7 @@ from . import basic_ops      # noqa: F401
 from . import math_ops       # noqa: F401
 from . import nn_ops         # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import sequence_ops   # noqa: F401
 from . import fusion         # noqa: F401
 
 from .registry import register, op, get, try_get

@@ -4,7 +4,7 @@ counterpart of paddle_tpu/ops/common.py)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -130,6 +130,103 @@ def broadcast_y_to_x(x, y, axis: int):
                          f"x{tuple(x.shape)} at axis {axis}")
     new_shape = (1,) * axis + tuple(y.shape) + (1,) * (x.dim() - axis - y.dim())
     return y.reshape(new_shape)
+
+
+def seq_len_of(ctx, name: str):
+    """ctx.seq_len(name), or None for a context that keeps no lengths (a
+    bare context some callers lower an op with)."""
+    get = getattr(ctx, "seq_len", None)
+    return None if get is None else get(name)
+
+
+def seq_lengths(ctx, op_, slot, batch, cap):
+    """Valid per-sequence lengths (int32 [batch], on the device) of a padded
+    input slot (JAX ops/common.py:144): the @SEQLEN tensor when the var is
+    a sequence, else the full padded extent `cap`."""
+    names = op_.desc.inputs.get(slot, [])
+    lens = seq_len_of(ctx, names[0]) if names else None
+    if lens is None:
+        return torch.full((batch,), cap, dtype=torch.int32,
+                          device=ctx.device)
+    return lens.to(torch.int32)
+
+
+def time_mask(lengths, t: int, dtype=torch.float32):
+    """[B, T] mask of the steps inside each sequence, built on the device
+    from the lengths (JAX sequence_ops.py:37 `_time_mask`): no read of the
+    lengths on the host, so a CUDA graph captures it and each replay masks
+    its own batch."""
+    steps = torch.arange(t, device=lengths.device)
+    return (steps[None, :] < lengths[:, None]).to(dtype)
+
+
+# --- sequence lengths through the ops (JAX executor.py:375, :1680) ---------
+
+SEQLEN_SUFFIX = "@SEQLEN"
+SEQLEN2_SUFFIX = "@SEQLEN2"   # inner lengths [B, S] of nested (level-2) LoD
+
+
+def seq_entry(name: str, env: Dict[str, Any]):
+    """(lengths, inner lengths, shape) of `name` when it is a padded
+    sequence in `env`, else None."""
+    sl = env.get(name + SEQLEN_SUFFIX)
+    if sl is None:
+        return None
+    return sl, env.get(name + SEQLEN2_SUFFIX), getattr(env.get(name), "shape",
+                                                        None)
+
+
+def seq_carrier(op, env: Dict[str, Any], known: Optional[dict] = None):
+    """The `seq_entry` of `op`'s first input that is a padded sequence, or
+    None: what its outputs inherit. Read before the op writes its outputs,
+    which may reuse an input's name; `known` holds entries read earlier,
+    by name (a window's, taken before it wrote)."""
+    for names in op.desc.inputs.values():
+        for n in names:
+            c = known[n] if known is not None and n in known \
+                else seq_entry(n, env)
+            if c is not None:
+                return c
+    return None
+
+
+def propagate_seq_len(op, env: Dict[str, Any], overrides: Dict[str, Any],
+                      carrier):
+    """The lengths of `op`'s outputs, after it wrote them into `env` (JAX
+    executor.py:1680): those its lowering set (`overrides`, None clears),
+    else the `carrier`'s (`seq_carrier`), for an output that keeps the
+    carrier's [batch, time] leading dims (an op that drops or reshapes the
+    time axis yields no sequence). The executor calls it after every op,
+    and a window (fusion.execute_group) after each member it lowers
+    itself."""
+    if carrier is None and not overrides:
+        return
+    inherited, inherited2, carrier_shape = carrier or (None, None, None)
+    for names in op.desc.outputs.values():
+        for name in names:
+            val = env.get(name)
+            if val is None:
+                continue
+            if name + SEQLEN2_SUFFIX in overrides:
+                sl2 = overrides[name + SEQLEN2_SUFFIX]
+                if sl2 is None:
+                    env.pop(name + SEQLEN2_SUFFIX, None)
+                else:
+                    env[name + SEQLEN2_SUFFIX] = sl2
+            if name in overrides:
+                sl = overrides[name]
+                if sl is None:
+                    env.pop(name + SEQLEN_SUFFIX, None)
+                else:
+                    env[name + SEQLEN_SUFFIX] = sl
+            elif inherited is not None and isinstance(val, torch.Tensor) \
+                    and val.dim() >= 2 and carrier_shape is not None \
+                    and len(carrier_shape) >= 2 \
+                    and tuple(val.shape[:2]) == tuple(carrier_shape[:2]):
+                env[name + SEQLEN_SUFFIX] = inherited
+                if inherited2 is not None and \
+                        name + SEQLEN2_SUFFIX not in overrides:
+                    env[name + SEQLEN2_SUFFIX] = inherited2
 
 
 # --- shape inference helpers (copied from the JAX package) -----------------

@@ -59,7 +59,8 @@ import torch
 from .. import quant
 from ..framework.desc import OpDesc
 from . import bn_cuda, conv_cuda, optimizer_ops, quant_cuda, sparse_ops
-from .common import CONV_FORMATS, SelectedRowsVal, mxu_cast
+from .common import (CONV_FORMATS, SelectedRowsVal, mxu_cast,
+                     propagate_seq_len, seq_carrier, seq_entry)
 from .math_ops import ACTIVATIONS
 from .nn_ops import _pair, conv2d_forward
 from .registry import NO_GRAD, register
@@ -339,23 +340,30 @@ def execute_group(executor, ctx, group: Group, env, protected=()):
         for m in group.members:
             executor._exec_op(ctx, m, env)
         return
+    # the members this window lowers itself pass their lengths on as
+    # _exec_op would have (the JAX package's _freeze, fusion.py:479): their
+    # inputs' lengths read before the window writes
+    before = {n: seq_entry(n, env) for m in group.members
+              for n in m.input_arg_names if n in env}
     if group.fold and not (set(group.elide) & set(protected)):
         _fold_lower(ctx, group, env)
-        return
-    if group.conv is not None and _conv_stats(ctx, group, env):
-        return
-    if group.conv is not None:
-        executor._exec_op(ctx, group.conv, env)
-    x = env.get(_first(group.bn.desc.input("X")))
-    reason = bn_cuda.ineligible(x, group.bn.attr("is_test", False),
-                                _act_name(group))
-    if reason is None:
+    elif group.conv is not None and _conv_stats(ctx, group, env):
+        pass
+    else:
+        if group.conv is not None:
+            executor._exec_op(ctx, group.conv, env)
+        x = env.get(_first(group.bn.desc.input("X")))
+        reason = bn_cuda.ineligible(x, group.bn.attr("is_test", False),
+                                    _act_name(group))
+        if reason is not None:
+            bn_cuda.count_fallback("fused_bn_act", reason)
+            executor._exec_op(ctx, group.bn, env)
+            if group.act is not None:
+                executor._exec_op(ctx, group.act, env)
+            return
         _bn_act(group, env)
-        return
-    bn_cuda.count_fallback("fused_bn_act", reason)
-    executor._exec_op(ctx, group.bn, env)
-    if group.act is not None:
-        executor._exec_op(ctx, group.act, env)
+    for m in group.members:
+        propagate_seq_len(m, env, {}, seq_carrier(m, env, before))
 
 
 def _execute_opt_bucket(executor, ctx, group: Group, env):

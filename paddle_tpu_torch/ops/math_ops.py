@@ -11,7 +11,8 @@ import torch.nn.functional as F
 
 from .. import quant
 from .common import (SelectedRowsVal, broadcast_y_to_x, elementwise_infer,
-                     in_var, maybe_dense, mxu_cast, same_as_input, set_out)
+                     in_var, maybe_dense, mxu_cast, same_as_input, seq_len_of,
+                     set_out, time_mask)
 from .registry import cotangent, grad_op, op, register, zero_grads
 
 
@@ -423,6 +424,27 @@ for _name, _fn in _reduce_fns.items():
     register(_name, lower=_make_reduce(_fn), infer_shape=_reduce_infer)
 
 
+def _cos_sim_infer(op_, block):
+    xv = in_var(op_, block, "X")
+    if xv is not None and xv.shape is not None:
+        set_out(op_, block, "Out", [xv.shape[0], 1], xv.dtype)
+        set_out(op_, block, "XNorm", [xv.shape[0], 1], xv.dtype)
+    yv = in_var(op_, block, "Y")
+    if yv is not None and yv.shape is not None:
+        set_out(op_, block, "YNorm", [yv.shape[0], 1], yv.dtype)
+
+
+@op("cos_sim", infer_shape=_cos_sim_infer)
+def _cos_sim(ctx, op_, ins):
+    """Row-wise cosine similarity of X and Y [N, D] (reference
+    cos_sim_op.cc; JAX math_ops.py:369), with the norms it divides by."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=1, keepdim=True))
+    out = torch.sum(x * y, dim=1, keepdim=True) / (xn * yn)
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
+
+
 def _sum_infer(op_, block):
     iv = in_var(op_, block, "X", 0)
     if iv is not None:
@@ -454,19 +476,45 @@ def _mean_infer(op_, block):
     set_out(op_, block, "Out", [1], iv.dtype if iv else "float32")
 
 
+def _mean_mask(ctx, op_, x):
+    """(mask shaped to broadcast over x, valid element count) when X is a
+    padded sequence (X@SEQLEN), else None."""
+    lengths = seq_len_of(ctx, op_.desc.inputs["X"][0])
+    if lengths is None or x.dim() < 2:
+        return None
+    mask = time_mask(lengths, x.shape[1], x.dtype)
+    feat = 1
+    for d in x.shape[2:]:
+        feat *= d
+    denom = torch.clamp(mask.sum() * feat, min=1.0)
+    return mask.reshape(mask.shape + (1,) * (x.dim() - 2)), denom
+
+
 @op("mean", infer_shape=_mean_infer)
 def _mean(ctx, op_, ins):
-    """Mean over every element (dense inputs; the LoD-masked form of the
-    JAX package waits for the sequence slice)."""
-    return {"Out": [torch.mean(ins["X"][0]).reshape(1)]}
+    """Mean over every element; over a padded sequence, over the valid
+    positions only, as the reference's mean over the packed rows (JAX
+    math_ops.py:294)."""
+    x = ins["X"][0]
+    masked = _mean_mask(ctx, op_, x)
+    if masked is None:
+        return {"Out": [torch.mean(x).reshape(1)]}
+    m, denom = masked
+    return {"Out": [(torch.sum(x * m) / denom).reshape(1)]}
 
 
 @grad_op("mean")
 def _mean_grad(ctx, op_, ins):
-    """dX = dOut / numel(X) at every element (autograd's mean backward)."""
+    """dX = dOut / numel(X) at every element (autograd's mean backward);
+    over a padded sequence dOut / (valid count) at the valid positions and
+    0 at the padded ones, the vjp of the masked forward."""
     x = ins["X"][0]
     dout = cotangent(ins, "Out", ins["Out"][0])
     if dout is None:
         return zero_grads(op_, ins)
-    return {"X@GRAD": [dout.reshape(()).expand(x.shape) / x.numel()]}
-
+    masked = _mean_mask(ctx, op_, x)
+    if masked is None:
+        return {"X@GRAD": [dout.reshape(()).expand(x.shape) / x.numel()]}
+    m, denom = masked
+    return {"X@GRAD": [(dout.reshape(()) / denom * m).expand(x.shape)
+                       .contiguous()]}

@@ -24,7 +24,8 @@ from ..framework.desc import OpDesc
 from ..framework.framework import grad_var_name
 from . import attention_cuda, conv_cuda
 from .common import (CONV_FORMATS, SelectedRowsVal, in_var, mxu_cast,
-                     same_as_input, set_out)
+                     same_as_input, seq_len_of, set_out,
+                     time_mask)
 from .registry import (NO_GRAD, cotangent, generic_grad_lower, grad_op,
                        infer_grad_shapes, op, zero_grads)
 
@@ -80,7 +81,20 @@ def _softmax_with_cross_entropy(ctx, op_, ins):
         elif idx.shape[-1] != 1:
             idx = idx[..., :1]
         loss = -torch.gather(logp, -1, idx)
+    mask = _swce_mask(ctx, op_, logits, loss)
+    if mask is not None:
+        loss = loss * mask
     return {"Softmax": [torch.exp(logp)], "Loss": [loss]}
+
+
+def _swce_mask(ctx, op_, logits, loss):
+    """Padded sequence logits [B, T, V]: the mask of the valid positions,
+    shaped to broadcast over the loss (JAX nn_ops.py:79), else None."""
+    lengths = seq_len_of(ctx, op_.desc.inputs["Logits"][0])
+    if lengths is None or logits.dim() < 3:
+        return None
+    mask = time_mask(lengths, logits.shape[1], loss.dtype)
+    return mask.reshape(mask.shape + (1,) * (loss.dim() - 2))
 
 
 @grad_op("softmax_with_cross_entropy")
@@ -89,7 +103,8 @@ def _softmax_with_cross_entropy_grad(ctx, op_, ins):
     log-softmax: with g = dLogp (-dLoss at the label, or -label · dLoss
     for soft labels), dLogits = g - Softmax · Σ g, then Logits' dtype;
     the log-softmax is not computed again. A cotangent on Softmax takes
-    the generic grad."""
+    the generic grad. Over padded sequence logits the cotangent is masked
+    as the forward's loss was."""
     if ins.get("Softmax@GRAD") and ins["Softmax@GRAD"][0] is not None:
         return generic_grad_lower(ctx, op_, ins)
     logits, label = ins["Logits"][0], ins["Label"][0]
@@ -98,6 +113,10 @@ def _softmax_with_cross_entropy_grad(ctx, op_, ins):
         return zero_grads(op_, ins)
     softmax = ins["Softmax"][0].float()
     dloss = dloss.float()
+    mask = _swce_mask(ctx, op_, logits, dloss)
+    if mask is not None:
+        # padded positions' losses were zeroed: no gradient reaches them
+        dloss = dloss * mask
     if op_.attr("soft_label", False):
         g = -label.float() * dloss
     else:
@@ -109,6 +128,56 @@ def _softmax_with_cross_entropy_grad(ctx, op_, ins):
         g = torch.zeros_like(softmax).scatter_(-1, idx, -dloss)
     dx = g - softmax * g.sum(dim=-1, keepdim=True)
     return {"Logits@GRAD": [dx.to(logits.dtype)]}
+
+
+# --- dropout ----------------------------------------------------------------
+
+def _dropout_infer(op_, block):
+    xv = in_var(op_, block, "X")
+    if xv is not None:
+        set_out(op_, block, "Out", xv.shape, xv.dtype)
+        set_out(op_, block, "Mask", xv.shape, "float32")
+
+
+def _dropout_grad_maker(fwd, no_grad_set):
+    """dropout_grad reads the forward's Mask (JAX nn_ops.py:710)."""
+    xname = fwd.input("X")[0]
+    if xname in no_grad_set:
+        return []
+    return [OpDesc(
+        type="dropout_grad",
+        inputs={"Mask": fwd.output("Mask"),
+                "Out@GRAD": [grad_var_name(fwd.output("Out")[0])]},
+        outputs={"X@GRAD": [grad_var_name(xname)]},
+        attrs=dict(fwd.attrs))]
+
+
+def dropout_mask(ctx, op_, shape, keep_prob, dtype, device):
+    """The keep mask of one dropout op: 1 with probability `keep_prob`, else
+    0, drawn from the op's generator (ctx.generator: the same seed and run
+    draw the same mask, and a CUDA graph's replay draws its own)."""
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.bernoulli_(keep_prob, generator=ctx.generator(op_))
+    return u.to(dtype)
+
+
+@op("dropout", infer_shape=_dropout_infer, grad=_dropout_grad_maker)
+def _dropout(ctx, op_, ins):
+    """Reference semantics (dropout_op.cc, 'downgrade_in_infer'; JAX
+    nn_ops.py:722): training multiplies by a bernoulli keep mask;
+    inference scales by (1 - p)."""
+    x = ins["X"][0]
+    p = op_.attr("dropout_prob", 0.5)
+    if op_.attr("is_test", False):
+        return {"Out": [x * (1.0 - p)], "Mask": [torch.ones_like(x)]}
+    mask = dropout_mask(ctx, op_, tuple(x.shape), 1.0 - p, x.dtype, x.device)
+    return {"Out": [x * mask], "Mask": [mask]}
+
+
+@op("dropout_grad", grad=NO_GRAD)
+def _dropout_grad(ctx, op_, ins):
+    dout, mask = ins["Out@GRAD"][0], ins["Mask"][0]
+    return {"X@GRAD": [dout * mask.to(dout.dtype)]}
 
 
 def _accuracy_infer(op_, block):

@@ -38,7 +38,11 @@ paddle_tpu/serving/engine.py `ServingEngine`).
     arrays the caller owns (`_fetch_rows`). A program the executor's graph
     gate refuses runs eagerly, counted in `serving_fallback_total{reason}`:
     "cpu" on a CPU place (the CPU tests' path: a bucket's first run counts
-    a miss, later runs hits), "random_op", "lod_feed".
+    a miss, later runs hits). A request holding a LoDTensor
+    with a LoD skips the buckets: the executor runs the pruned program on
+    it (padded to its own length, graphed on the card as the executor's
+    signatures are), counted `serving_fallback_total{reason="lod"}`, as
+    the reference's (engine.py:405).
   * **Resident state**: the weights the program reads are resolved from the
     scope and placed on the serving device once, at construction, with the
     fold windows' filters and biases computed from them once; the graphs
@@ -56,7 +60,7 @@ paddle_tpu/serving/engine.py `ServingEngine`).
     `serving_prequantize`, `serving_compile` and `serving_evict` events,
     python mirrors of the counters and `stats()`.
 
-The static-analyzer admission gate and LoD requests are later slices.
+The static-analyzer admission gate is a later slice.
 """
 
 from __future__ import annotations
@@ -72,8 +76,8 @@ import torch
 from .. import io as io_mod
 from .. import quant as quant_mod
 from .. import telemetry
-from ..executor import (CUDAPlace, Executor, Scope, global_scope, scope_guard,
-                        _to_device)
+from ..executor import (CUDAPlace, Executor, LoDTensor, Scope, global_scope,
+                        scope_guard, _to_device)
 from ..framework.framework import Variable
 
 DEFAULT_MAX_BATCH = 64
@@ -253,7 +257,7 @@ class ServingEngine:
         self._prepared.fold_weights(self._state)
 
         # None: every bucket runs as a graph; else why every bucket runs
-        # eager ("cpu", "random_op", "lod_feed")
+        # eager ("cpu")
         self._eager_reason = self._exe.graph_gate(program, feed_names)
         # (bucket, inner feed shapes, quant token) -> BucketGraph (None
         # when eager), least recently used first
@@ -466,10 +470,25 @@ class ServingEngine:
         return out
 
     def infer(self, feed: Dict[str, object]) -> List[np.ndarray]:
-        """Synchronous inference on dense feeds, chunked when larger than
-        the top bucket."""
+        """Synchronous inference: dense feeds through the buckets, chunked
+        when larger than the top bucket; a request holding a LoDTensor
+        with a LoD through the executor on the same pruned program,
+        counted `serving_fallback_total{reason="lod"}`."""
         if self.closed:
             raise RuntimeError("ServingEngine is closed")
+        if any(isinstance(feed.get(n), LoDTensor) and feed[n].lod
+               for n in self.feed_names):
+            telemetry.counter(
+                "serving_fallback_total",
+                "bucket runs on the eager path, by the graph gate's reason",
+                labels=("program", "reason")).labels(
+                    program=self._label, reason="lod").inc()
+            with self._lock:
+                with scope_guard(self._scope):
+                    outs = self._exe.run(self.program, feed=dict(feed),
+                                         fetch_list=list(self.fetch_names),
+                                         scope=self._scope)
+            return [np.asarray(o) for o in outs]
         arrays = {n: np.asarray(feed[n]) for n in self.feed_names}
         n = arrays[self.feed_names[0]].shape[0]
         if n <= self.max_batch:

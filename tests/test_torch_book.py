@@ -1,10 +1,12 @@
-"""The book chapters that need no sequence (LoD) op, driven through the port
-on the CPU at their reference tests' budgets and thresholds, each with the
-inference round trip through the port's io (save_inference_model, a load
-into a fresh scope, the same predictions): tests/book/test_fit_a_line.py,
+"""The book chapters the port runs, driven through it on the CPU at their
+reference tests' budgets and thresholds, each with the inference round
+trip through the port's io (save_inference_model, a load into a fresh
+scope, the same predictions): tests/book/test_fit_a_line.py,
 test_recognize_digits.py (mlp, conv), test_image_classification.py
-[resnet] and test_word2vec.py. The chapters live in chip_smoke.py
-(`BOOK`), which runs the same five on the card.
+(resnet, vgg), test_word2vec.py, test_understand_sentiment.py (conv,
+stacked_lstm: LoDTensor feeds, the round trip over a LoDTensor) and
+test_recommender_system.py (LoD category and title slots). The chapters
+live in chip_smoke.py (`BOOK`), which runs the same nine on the card.
 """
 
 import sys
@@ -28,7 +30,15 @@ def test_book_chapter(chapter):
         assert np.mean(res["last_accuracy"]) > 0.7
         assert np.mean(res["last_losses"]) < 1.0
         assert res["steps"] == 61
+    elif chapter == "image_classification[vgg]":
+        assert np.mean(res["last_losses"]) < np.mean(res["first_losses"])
+        assert res["steps"] == 16
     elif chapter.startswith("image_classification"):
         assert np.mean(res["last_losses"]) < 2.2 and res["steps"] == 31
+    elif chapter.startswith("understand_sentiment"):
+        assert np.mean(res["last_accuracy"]) > 0.8 and res["steps"] == 31
+    elif chapter == "recommender_system":
+        assert res["last_loss"] < res["first_loss"]
+        assert np.mean(res["last_losses"]) < 2.5 and res["steps"] == 41
     else:
         assert res["last_loss"] < 0.8 * res["first_loss"]

@@ -14,8 +14,8 @@ CUDA graph per step signature) against the eager step (use_jit=False).
   * A scope variable replaced between runs is copied into its buffer
     before the replay, and the step stays bitwise the eager one.
   * A new feed shape warms up and captures a graph of its own.
-  * A program with a random op runs eager, counted with reason
-    `random_op`.
+  * A program with a random op runs graphed: each replay draws what the
+    eager step of the same run counter draws, and each step draws anew.
 
 The card has no CPU mode for the graphs, so every test here skips without a
 CUDA device. This file imports no JAX: run it on the card without the
@@ -254,8 +254,11 @@ def test_random_op_runs_eager(device):
     exe = pt.Executor()
     E.COUNTERS.reset()
     feed = {"x": np.ones((4, 8), np.float32)}
-    scope = pt.Scope()
+    sg, se = pt.Scope(), pt.Scope()
     draws = [float(exe.run(main, feed=feed, fetch_list=[out],
-                           scope=scope)[0][0]) for _ in range(3)]
-    assert E.COUNTERS.eager == {"random_op": 3}
-    assert E.COUNTERS.captures == 0 and len(set(draws)) == 3
+                           scope=sg)[0][0]) for _ in range(3)]
+    eager = [float(exe.run(main, feed=feed, fetch_list=[out], scope=se,
+                           use_jit=False)[0][0]) for _ in range(3)]
+    assert len(set(draws)) == 3 and draws == eager
+    assert E.COUNTERS.eager == {"use_jit": 3}
+    assert (E.COUNTERS.captures, E.COUNTERS.replays) == (1, 2)

@@ -644,9 +644,13 @@ def test_graph_gate_reasons():
     assert exe.graph_gate(main, feed, use_jit=False) == "use_jit"
     assert exe.graph_gate(main, feed, use_program_cache=False) == \
         "no_program_cache"
-    assert exe.graph_gate(startup, {}) == "random_op"
+    # an initialiser runs eager; a random op is graphed
+    assert exe.graph_gate(startup, {}) == "startup"
+    assert any(o.type == "uniform_random"
+               for o in startup.global_block().ops)
+    # a LoD feed is graphed: its lengths are feeds of the graph
     main.global_block().var("x").desc.lod_level = 1
-    assert exe.graph_gate(main, feed) == "lod_feed"
+    assert exe.graph_gate(main, feed) is None
 
 
 def test_use_jit_false_gives_the_same_results():
@@ -761,8 +765,8 @@ def test_graphed_steps_match_eager_steps(graphed):
         np.testing.assert_array_equal(g, w)
     _same_scopes(sg, se)
     assert (graphed.warmups, graphed.captures, graphed.replays) == (1, 1, 3)
-    # the startup program draws its initial values: eager
-    assert graphed.eager == {"use_jit": 4, "random_op": 1}
+    # the startup program, an initialiser, runs eager
+    assert graphed.eager == {"use_jit": 4, "startup": 1}
 
 
 def test_replay_counts_nothing(graphed):
@@ -974,4 +978,4 @@ def test_failed_capture_raises(graphed, monkeypatch):
     exe.run(main, feed=feeds[0], fetch_list=[loss], scope=sg)
     with pytest.raises(RuntimeError, match="CUDA graph capture"):
         exe.run(main, feed=feeds[1], fetch_list=[loss], scope=sg)
-    assert graphed.eager == {"random_op": 1}
+    assert graphed.eager == {"startup": 1}

@@ -164,11 +164,17 @@ def test_data_feeder_counts_and_checks():
 
 
 def test_data_feeder_rejects_lod_slots():
+    """A sequence slot converts to a LoDTensor in `feed`, and `feed_window`
+    rejects it: each batch pads to its own length (the JAX package's
+    data_feeder.py:110)."""
     prog = pt.Program()
     with pt.program_guard(prog, pt.Program()):
         pt.layers.data(name="seq", shape=[1], dtype="int64", lod_level=1)
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            pt.DataFeeder(["seq"], pt.CPUPlace(), program=prog)
+        f = pt.DataFeeder(["seq"], pt.CPUPlace(), program=prog)
+    got = f.feed([([1, 2, 3],), ([4],)])["seq"]
+    assert isinstance(got, pt.LoDTensor) and got.lod == [[0, 3, 4]]
+    with pytest.raises(ValueError, match="carries LoD"):
+        f.feed_window([[([1, 2],)], [([3],)]])
 
 
 def test_feed_window_shapes():

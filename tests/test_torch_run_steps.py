@@ -1,7 +1,7 @@
 """Executor.run_steps of the port (paddle_tpu_torch) on the CPU: K steps in
 one call, bitwise K sequential run() calls in losses, scope and rng
-counter (the port's counterpart of tests/test_run_steps.py, without its
-dropout case: dropout in training is a later slice), the window checks
+counter (the port's counterpart of tests/test_run_steps.py; its dropout
+and LoD cases are in tests/test_torch_lod.py), the window checks
 and fetch modes, a failed window leaving the scope as it was, and the
 port against the JAX package from the same weights.
 
@@ -213,8 +213,11 @@ def test_lod_feed_raises():
                                lod_level=1)
         out = pt.layers.scale(words, 2.0)
     exe = pt.Executor(pt.CPUPlace())
-    window = {"words": np.zeros((K, 3, 1), np.int64)}
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    # a pre-stacked window holding a LoDTensor raises, as the JAX
+    # package's (executor.py:766); per-step dicts fall back per step
+    window = {"words": pt.LoDTensor(np.zeros((K, 1), np.int64),
+                                    [list(range(K + 1))])}
+    with pytest.raises(ValueError, match="per-step"):
         exe.run_steps(prog, feed_window=window, fetch_list=[out],
                       scope=pt.Scope())
 

@@ -429,22 +429,22 @@ def test_serving_logits_match_jax():
 
 
 def test_model_options_that_are_later_slices_raise():
-    for kw, slice_ in (({"dropout_prob": 0.1}, "slice 8"),):
+    """Dropout in training, a later slice before, now builds: one dropout
+    op on the embedding sum, where the JAX package's model has it
+    (models/transformer.py:44); is_test keeps it out of the program."""
+    for is_test, want in ((False, 1), (True, 0)):
         main, startup = pt.Program(), pt.Program()
         with pt.unique_name.guard(), pt.program_guard(main, startup):
             tok = pt.layers.data(name="tok", shape=[-1, 16], dtype="int64",
                                  append_batch_size=False)
-            with pytest.raises(NotImplementedError, match=slice_):
-                pt.models.transformer_lm(tok, tok, vocab_size=32, d_model=32,
-                                         n_head=2, n_layer=1, **kw)
-    # is_test keeps dropout out of the program, as in the JAX package
-    main, startup = pt.Program(), pt.Program()
-    with pt.unique_name.guard(), pt.program_guard(main, startup):
-        tok = pt.layers.data(name="tok", shape=[-1, 16], dtype="int64",
-                             append_batch_size=False)
-        pt.models.transformer_lm(tok, tok, vocab_size=32, d_model=32,
-                                 n_head=2, n_layer=1, dropout_prob=0.1,
-                                 is_test=True)
+            pt.models.transformer_lm(tok, tok, vocab_size=32, d_model=32,
+                                     n_head=2, n_layer=1, dropout_prob=0.1,
+                                     is_test=is_test)
+        ops = main.global_block().ops
+        drops = [i for i, o in enumerate(ops) if o.type == "dropout"]
+        assert len(drops) == want
+        if drops:
+            assert ops[drops[0] - 1].type == "elementwise_add"
 
 
 def test_auto_takes_the_einsum_path_below_2048():
