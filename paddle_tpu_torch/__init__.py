@@ -25,7 +25,11 @@ stream (reader/pipeline.py), and Executor.run_steps, K steps a call.
 Sequences: LoDTensor feeds padded with their lengths beside them
 (executor.py), the sequence ops and the LSTM/GRU (ops/sequence_ops.py,
 layers/sequence.py), dropout, and the imdb, movielens and sentiment
-datasets.
+datasets. Control flow: sub-blocks, While / ConditionalBlock / IfElse /
+Switch / StaticRNN / DynamicRNN with the grads of while and
+conditional_block, tensor arrays, beam search, the linear-chain CRF and
+CTC (ops/control_flow_ops.py, layers/control_flow.py), and the conll05,
+wmt14 and wmt16 datasets.
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -59,6 +63,7 @@ from .data_feeder import DataFeeder
 from . import nets
 from . import reader
 from . import dataset
+from . import metrics
 from . import recordio
 from .minibatch import batch
 

@@ -9,11 +9,13 @@ stream identical data. No module downloads anything.
 uci_housing (fit_a_line), mnist (recognize_digits), cifar
 (image_classification), imikolov (word2vec), flowers (ResNet-50 training
 on the card), imdb (understand_sentiment), movielens (recommender_system)
-and sentiment. The JAX package's other five (conll05, mq2007, voc2012,
-wmt14, wmt16) feed chapters the port has not yet."""
+and sentiment; conll05 (label_semantic_roles), wmt14 and wmt16
+(machine_translation). The JAX package's other two (mq2007, voc2012) feed
+chapters the port has not yet."""
 
-from . import (cifar, common, flowers, imdb, imikolov, mnist, movielens,
-               sentiment, uci_housing)
+from . import (cifar, common, conll05, flowers, imdb, imikolov, mnist,
+               movielens, sentiment, uci_housing, wmt14, wmt16)
 
-__all__ = ["cifar", "common", "flowers", "imdb", "imikolov", "mnist",
-           "movielens", "sentiment", "uci_housing"]
+__all__ = ["cifar", "common", "conll05", "flowers", "imdb", "imikolov",
+           "mnist", "movielens", "sentiment", "uci_housing", "wmt14",
+           "wmt16"]

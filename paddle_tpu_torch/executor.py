@@ -49,7 +49,9 @@ import torch
 import torch.distributed as dist
 
 from . import quant
-from .framework.framework import Program, Variable, default_main_program
+from .framework.desc import BlockRef, BlocksRef
+from .framework.framework import (Program, Variable, default_main_program,
+                                  op_external_reads)
 from .ops import fusion as fusion_mod
 from .ops import registry, sparse_ops
 from .ops.common import (SEQLEN2_SUFFIX, SEQLEN_SUFFIX, SelectedRowsVal,
@@ -375,6 +377,28 @@ class LoweringContext:
     def set_seq_len2(self, name: str, lengths):
         self.seq_overrides[name + SEQLEN2_SUFFIX] = lengths
 
+    def run_block(self, block_idx: int, env: Dict[str, Any]) -> Dict[str, Any]:
+        """Run sub-block `block_idx`'s ops on `env`, each through
+        `Executor._exec_op` (so their outputs' lengths propagate), and
+        return `env` (JAX executor.py:271): the control-flow lowerings'
+        loop and branch bodies. A sub-block's env is a copy of the outer
+        one, `@SEQLEN` entries included, plus the carry; nothing is dropped
+        inside it. The env and the length overrides of the op that called
+        it are restored after."""
+        saved = self.env, self.seq_overrides
+        try:
+            for op in self.program.block(block_idx).ops:
+                self.executor._exec_op(self, op, env)
+        finally:
+            self.env, self.seq_overrides = saved
+        return env
+
+    def host_sync(self, op_type: str):
+        """Count one read of a device value to the host by a `while`
+        condition or a `conditional_block` predicate
+        (`COUNTERS.host_syncs`), the only lowerings allowed one."""
+        COUNTERS.host_syncs[op_type] = COUNTERS.host_syncs.get(op_type, 0) + 1
+
     def generator(self, op) -> torch.Generator:
         """The torch.Generator of one random op: the executor's own for the
         op's first output name (`Executor._generator`), seeded from the
@@ -507,8 +531,11 @@ class Counters:
     past GRAPH_CACHE_SIZE; `eager`, the steps that ran eager, by the
     gate's reason (`graph_gate`); `window_fallbacks`, run_steps windows
     served one run() a step, by reason (the JAX package's
-    executor_window_fallback_total: `lod_feed`). A replay runs no Python:
-    the kernel wrappers' launch counters do not move."""
+    executor_window_fallback_total: `lod_feed`); `host_syncs`, the device
+    values read to the host by op type (a `while` condition each
+    iteration, a `conditional_block` predicate each run: the lowerings
+    that decide their path on the host). A replay runs no Python: the
+    kernel wrappers' launch counters do not move."""
     windows: int = 0
     steps: int = 0
     warmups: int = 0
@@ -518,6 +545,7 @@ class Counters:
     evicted: int = 0
     eager: Dict[str, int] = field(default_factory=dict)
     window_fallbacks: Dict[str, int] = field(default_factory=dict)
+    host_syncs: Dict[str, int] = field(default_factory=dict)
 
     def reset(self):
         self.windows = self.steps = 0
@@ -525,6 +553,7 @@ class Counters:
         self.copied_in = self.evicted = 0
         self.eager.clear()
         self.window_fallbacks.clear()
+        self.host_syncs.clear()
 
 
 COUNTERS = Counters()
@@ -533,6 +562,15 @@ COUNTERS = Counters()
 # every graph that draws from it and seeded before each replay, so a replay
 # draws what the eager step of the same run counter draws
 RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
+
+# ops that decide their path on the host (a `while` condition, a
+# `conditional_block` predicate) or act there (`print`): a block holding one
+# runs eager under the gate's reason "control_flow", since a replay would
+# neither re-read the condition nor print. `rnn` is not among them: its trip
+# count is the padded length, static per signature, and its masks come from
+# the lengths on the device
+HOST_CONTROL_OPS = frozenset({"while", "while_grad", "conditional_block",
+                              "conditional_block_grad", "print"})
 
 # ops that take a SelectedRows input as it is (executor.py:384): the sparse
 # sum, the optimizers with a sparse apply and their fused buckets. Any other
@@ -564,11 +602,43 @@ def _accepts_sparse_slots(reader) -> bool:
     return "sparse_slots" in params
 
 
+def _sub_blocks(op) -> List[int]:
+    """The indices of the blocks an op's attrs name."""
+    idxs: List[int] = []
+    for a in op.desc.attrs.values():
+        if isinstance(a, BlockRef):
+            idxs.append(a.idx)
+        elif isinstance(a, BlocksRef):
+            idxs.extend(a.idxs)
+    return idxs
+
+
+def _block_reads_writes(program, block, reads, writes, produced,
+                        types):
+    """Into `reads` the names `block` reads before any op of it (or of the
+    blocks around it) produced them, into `writes` every name it writes,
+    into `types` its op types, recursing into sub-blocks (JAX
+    executor.py:1529)."""
+    for op in block.ops:
+        if op.type in ("feed", "fetch"):
+            continue
+        types.add(op.type)
+        reads.update(n for n in op.input_arg_names if n not in produced)
+        for si in _sub_blocks(op):
+            _block_reads_writes(program, program.block(si), reads, writes,
+                                set(produced), types)
+        produced.update(op.output_arg_names)
+        writes.update(op.output_arg_names)
+
+
 def liveness(ops, groups) -> Dict[int, List[str]]:
     """position -> the names whose last reader or writer runs there, for
     `_run_block` to drop after it. A window's members all count at its end
     index (it runs as one unit), so what a window reads lives until it
-    has run. Only op arguments are dropped: the lengths tensors
+    has run. An op with a sub-block (`while`, `conditional_block`, `rnn`
+    and their grads) counts as a reader of everything its sub-blocks read
+    from outside them, so no value a loop body still reads goes before the
+    loop has run. Only op arguments are dropped: the lengths tensors
     (`<name>@SEQLEN`, a few bytes each) stay for the whole step, for any
     later op, grad op or fetch of the sequence to read."""
     last: Dict[str, int] = {}
@@ -583,6 +653,9 @@ def liveness(ops, groups) -> Dict[int, List[str]]:
                 continue
             for n in m.input_arg_names + m.output_arg_names:
                 last[n] = pos
+            if _sub_blocks(m):
+                for n in op_external_reads(m.block.program, m):
+                    last[n] = pos
         i = pos + 1
     drops: Dict[int, List[str]] = {}
     for n, pos in last.items():
@@ -1104,46 +1177,50 @@ class Executor:
         (not a CUDA place), "no_program_cache" (use_program_cache=False),
         "startup" (the block reads nothing but its feeds and writes
         persistables: an initialiser, run once a scope, whose graph would
-        only take a cache slot and pin a copy of every value it makes).
-        A random op is graphed (RANDOM_OPS), and so is a LoD feed: its
-        lengths are feeds of the graph, each padded length its own
-        signature."""
+        only take a cache slot and pin a copy of every value it makes),
+        "control_flow" (the block, or a sub-block it runs, holds a `while`,
+        a `conditional_block`, their grads or a `print`: HOST_CONTROL_OPS,
+        which read a device value on the host to choose their path, or
+        print there). A random op is graphed (RANDOM_OPS), and so is a LoD
+        feed: its lengths are feeds of the graph, each padded length its
+        own signature; so is an `rnn`, whose trip count is the padded
+        length."""
         if use_jit is False:
             return "use_jit"
         if self.device.type != "cuda":
             return "cpu"
         if not use_program_cache:
             return "no_program_cache"
-        reads, writes, persistable = self._analysis(program)
+        reads, writes, persistable, types = self._analysis(program)
+        if types & HOST_CONTROL_OPS:
+            return "control_flow"
         if not reads - set(feed) and writes & persistable:
             return "startup"
         return None
 
     # --- analysis -----------------------------------------------------------
     def _analysis(self, program):
-        """Per-(program, version) read/write sets and persistable map of
-        the global block."""
+        """Per-(program, version) read/write sets, persistable map and op
+        types of the global block and, through the ops that hold them, its
+        sub-blocks (a weight only a loop body reads is state too)."""
         key = (id(program), program._version)
         hit = self._analysis_cache.get(key)
         if hit is not None and hit[0] is program:
             return hit[1:]
-        reads, writes, produced = set(), set(), set()
-        for op in program.global_block().ops:
-            if op.type in ("feed", "fetch"):
-                continue
-            reads.update(n for n in op.input_arg_names if n not in produced)
-            produced.update(op.output_arg_names)
-            writes.update(op.output_arg_names)
+        reads, writes, types = set(), set(), set()
+        _block_reads_writes(program, program.global_block(), reads, writes,
+                            set(), types)
         persistable = {name for b in program.blocks
                        for name, v in b.desc.vars.items() if v.persistable}
         # keep a strong program ref: the key uses id(program)
-        self._analysis_cache[key] = (program, reads, writes, persistable)
-        return reads, writes, persistable
+        self._analysis_cache[key] = (program, reads, writes, persistable,
+                                     types)
+        return reads, writes, persistable, types
 
     def _external_inputs(self, program, fed: set, scope) -> List[str]:
         """Vars the block reads from the scope: present scope vars or
         declared persistables."""
-        reads, _writes, persistable = self._analysis(program)
+        reads, _writes, persistable, _types = self._analysis(program)
         return [n for n in sorted(reads - fed)
                 if (scope.has_var(n) and scope.find_var(n) is not None)
                 or n in persistable]
@@ -1159,7 +1236,7 @@ class Executor:
         return state_names
 
     def _persistable_outputs(self, program) -> List[str]:
-        _reads, writes, persistable = self._analysis(program)
+        _reads, writes, persistable, _types = self._analysis(program)
         return [n for n in sorted(writes) if n in persistable]
 
     def _block_plan(self, program):
@@ -1172,7 +1249,8 @@ class Executor:
             groups = fusion_mod.plan(program)
             hit = self._plans[key] = (
                 program, groups, liveness(ops, groups),
-                tuple(o for o in ops if o.type in RANDOM_OPS))
+                tuple(o for b in program.blocks for o in b.ops
+                      if o.type in RANDOM_OPS))
         return hit[1:]
 
     def _plan(self, program):

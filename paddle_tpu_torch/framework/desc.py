@@ -184,6 +184,11 @@ class ProgramDesc:
     def block(self, idx: int) -> BlockDesc:
         return self.blocks[idx]
 
+    def append_block(self, parent_idx: int) -> BlockDesc:
+        b = BlockDesc(idx=len(self.blocks), parent_idx=parent_idx)
+        self.blocks.append(b)
+        return b
+
     def to_json(self) -> str:
         return json.dumps(
             {"version": self.version, "blocks": [b.to_dict() for b in self.blocks]}

@@ -32,6 +32,7 @@ __all__ = [
     "switch_main_program",
     "switch_startup_program",
     "program_guard",
+    "in_block",
     "GRAD_VAR_SUFFIX",
     "grad_var_name",
 ]
@@ -382,6 +383,26 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block, child of `parent_idx` (default: the current block),
+        made current (JAX framework.py:427): control-flow layers build
+        their sub-blocks here and `rollback` after."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.desc.append_block(parent)
+        b = Block(self, len(self.desc.blocks) - 1)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._version += 1
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
+    @property
+    def num_blocks(self) -> int:
+        return len(self.blocks)
+
     def list_vars(self):
         """Every variable of every block (JAX framework.py:443)."""
         for b in self.blocks:
@@ -504,6 +525,21 @@ class Parameter(Variable):
 
 _main_program = Program()
 _startup_program = Program()
+
+
+@contextlib.contextmanager
+def in_block(program: Program, block_idx: int):
+    """Build ops into block `block_idx` of `program` for a while (JAX
+    framework.py:598): a control-flow layer emits setup ops (a DynamicRNN
+    memory's initial value) into the parent block while its sub-block is
+    current; they run before the loop op, which the layer appends on
+    exit."""
+    cur = program.current_block_idx
+    program.current_block_idx = block_idx
+    try:
+        yield program.current_block()
+    finally:
+        program.current_block_idx = cur
 
 
 def default_main_program() -> Program:

@@ -13,10 +13,11 @@ float32 weights stay float32, and a bfloat16 value (which numpy spells only
 through ml_dtypes) is written as its exact float32 widening, so no reader
 needs jax or ml_dtypes.
 
-A loaded variable that carries a LoD is set in the scope as its numpy
-array, with the LoD beside it under `<name>@LOD`, and is written back from
-there (the JAX package restores an executor.LoDTensor: ROADMAP Queue 3). Values come from, and go to,
-the current scope (`global_scope()`, or a `scope_guard`), as in the
+A loaded variable that carries a LoD is set in the scope as an
+`executor.LoDTensor` of its packed rows and LoD, as the JAX package's io
+restores it (io.py:151-155), so a run pads it with its lengths; a
+LoDTensor in the scope is saved as its rows and LoD. Values come from, and
+go to, the current scope (`global_scope()`, or a `scope_guard`), as in the
 reference; the executor argument is kept for the API. The JAX package's
 checkpoint telemetry is later work.
 
@@ -37,7 +38,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .executor import global_scope
+from .executor import LoDTensor, global_scope
 from .framework.framework import (Parameter, Program, Variable,
                                   default_main_program, op_external_reads)
 
@@ -46,9 +47,6 @@ __all__ = [
     "load_params", "load_persistables", "save_inference_model",
     "load_inference_model", "get_inference_program",
 ]
-
-_LOD_SUFFIX = "@LOD"
-
 
 def _is_persistable(var: Variable) -> bool:
     return var.persistable
@@ -95,7 +93,10 @@ def save_vars(executor, dirname: str, main_program: Optional[Program] = None,
                 val = host
         if val is None:
             continue
-        arr, lod = _as_numpy(val), scope.find_var(v.name + _LOD_SUFFIX)
+        lod = None
+        if isinstance(val, LoDTensor):
+            lod, val = val.lod or None, val.array()
+        arr = _as_numpy(val)
         if save_file_name is None:
             with open(os.path.join(dirname, v.name), "wb") as f:
                 pickle.dump({"tensor": arr, "lod": lod, "version": 0}, f)
@@ -121,8 +122,7 @@ def _restore(scope, name, arr, lod, emb_cache=None):
     if emb_cache is not None and emb_cache.load_host(name, arr):
         return
     if lod:
-        scope.set_var(name, arr)
-        scope.set_var(name + _LOD_SUFFIX, lod)
+        scope.set_var(name, LoDTensor(arr, lod))
     else:
         scope.set_var(name, torch.from_numpy(np.ascontiguousarray(arr)))
 

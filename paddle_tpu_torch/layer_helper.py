@@ -144,3 +144,11 @@ class LayerHelper:
         self.append_op(type=act_type, inputs={"X": [input_var]},
                        outputs={"Out": [tmp]}, attrs=act)
         return tmp
+
+    def get_parameter(self, name):
+        """An existing parameter by name (the CRF's transition, shared by
+        linear_chain_crf and crf_decoding)."""
+        param = self.main_program.global_block().var(name)
+        if not isinstance(param, Parameter):
+            raise ValueError(f"no parameter named {name}")
+        return param

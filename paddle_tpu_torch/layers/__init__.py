@@ -5,6 +5,7 @@ from .io import *            # noqa: F401,F403
 from .tensor import *        # noqa: F401,F403
 from .nn import *            # noqa: F401,F403
 from .sequence import *      # noqa: F401,F403
+from .control_flow import *  # noqa: F401,F403
 from .ops import *           # noqa: F401,F403
 
-from . import io, tensor, nn, ops, sequence    # noqa: F401
+from . import io, tensor, nn, ops, sequence, control_flow    # noqa: F401

@@ -24,7 +24,9 @@ __all__ = [
     "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min", "elementwise_pow", "reduce_sum", "reduce_mean",
     "reduce_max", "reduce_min", "reduce_prod", "scale", "matmul",
-    "dropout", "cos_sim",
+    "dropout", "cos_sim", "transpose", "topk", "linear_chain_crf",
+    "crf_decoding", "beam_search", "beam_search_decode", "warpctc",
+    "ctc_greedy_decoder", "ctc_align", "edit_distance", "chunk_eval",
 ]
 
 
@@ -138,7 +140,15 @@ def square_error_cost(input, label):
     return square_out
 
 
-def softmax_with_cross_entropy(logits, label, soft_label=False):
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               seq_mask=False):
+    """Padded-sequence logits are masked through their lengths (@SEQLEN);
+    seq_mask=True also checks at build time that the logits are a
+    sequence ([B, T, V])."""
+    if seq_mask and (logits.shape is None or len(logits.shape) < 3):
+        raise ValueError(
+            "seq_mask=True but logits are not sequence-shaped [B,T,V]; "
+            "feed the sequence through LoD data vars so lengths ride along")
     helper = LayerHelper("softmax_with_cross_entropy")
     softmax = helper.create_tmp_variable(dtype=logits.dtype)
     loss = helper.create_tmp_variable(dtype=logits.dtype)
@@ -392,3 +402,166 @@ def cos_sim(X, Y):
                      outputs={"Out": [out], "XNorm": [xnorm],
                               "YNorm": [ynorm]})
     return out
+
+
+def transpose(x, perm, name=None):
+    return _simple("transpose", x, attrs={"axis": list(perm)}, name=name)
+
+
+def topk(input, k):
+    helper = LayerHelper("top_k")
+    values = helper.create_tmp_variable(dtype=input.dtype)
+    indices = helper.create_tmp_variable(dtype="int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+# --- CRF (JAX nn.py:720-752) ---------------------------------------------------
+
+def linear_chain_crf(input, label, param_attr=None):
+    """The linear-chain CRF cost (reference nn.py:787): padded emissions
+    [B, T, D], labels [B, T, 1] -> the negative log-likelihood [B, 1]; the
+    transition parameter is [D+2, D] (start row, stop row, pairs)."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size], dtype=input.dtype)
+    log_likelihood = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="linear_chain_crf",
+                     inputs={"Emission": [input], "Transition": [transition],
+                             "Label": [label]},
+                     outputs={"LogLikelihood": [log_likelihood]})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    """Viterbi over the transition parameter `param_attr` names; with a
+    label, a per-token correctness indicator."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    transition = helper.get_parameter(helper.param_attr.name)
+    viterbi_path = helper.create_tmp_variable("int64")
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [viterbi_path]})
+    return viterbi_path
+
+
+# --- beam search (JAX nn.py:754-792) ------------------------------------------
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id, level=0):
+    """One beam-search step over dense [B, K] lanes (reference nn.py:1903)
+    -> (selected_ids, selected_scores, parent_idx), each [B, K]."""
+    helper = LayerHelper("beam_search")
+    selected_ids = helper.create_tmp_variable("int64")
+    selected_scores = helper.create_tmp_variable(scores.dtype)
+    parent_idx = helper.create_tmp_variable("int32")
+    helper.append_op(type="beam_search",
+                     inputs={"pre_ids": [pre_ids],
+                             "pre_scores": [pre_scores], "scores": [scores]},
+                     outputs={"selected_ids": [selected_ids],
+                              "selected_scores": [selected_scores],
+                              "parent_idx": [parent_idx]},
+                     attrs={"beam_size": beam_size, "end_id": end_id,
+                            "level": level})
+    return selected_ids, selected_scores, parent_idx
+
+
+def beam_search_decode(ids, parent_idx, scores=None, beam_size=None,
+                       end_id=1):
+    """The beam arrays backtracked into (sentence_ids [B, K, T],
+    sentence_scores [B, K])."""
+    helper = LayerHelper("beam_search_decode")
+    sentence_ids = helper.create_tmp_variable("int64")
+    sentence_scores = helper.create_tmp_variable("float32")
+    inputs = {"Ids": [ids], "ParentIdx": [parent_idx]}
+    if scores is not None:
+        inputs["Scores"] = [scores]
+    helper.append_op(type="beam_search_decode", inputs=inputs,
+                     outputs={"SentenceIds": [sentence_ids],
+                              "SentenceScores": [sentence_scores]},
+                     attrs={"end_id": end_id})
+    return sentence_ids, sentence_scores
+
+
+# --- CTC and edit distance (JAX nn.py:795-852) ------------------------------------
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """The CTC loss over padded LoD logits (reference nn.py:2696; the
+    softmax taken inside) -> [num_sequences, 1]."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="warpctc",
+                     inputs={"Logits": [input], "Label": [label]},
+                     outputs={"Loss": [loss]},
+                     attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """Greedy CTC decode: each step's best class, then repeats merged and
+    blanks dropped (reference nn.py:2616: top_k -> ctc_align)."""
+    helper = LayerHelper("ctc_greedy_decoder")
+    _, idx = topk(input, k=1)
+    out = helper.create_tmp_variable(idx.dtype)
+    helper.append_op(type="ctc_align", inputs={"Input": [idx]},
+                     outputs={"Output": [out]},
+                     attrs={"blank": blank, "merge_repeated": True})
+    return out
+
+
+def ctc_align(input, blank=0, merge_repeated=True):
+    helper = LayerHelper("ctc_align")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="ctc_align", inputs={"Input": [input]},
+                     outputs={"Output": [out]},
+                     attrs={"blank": blank, "merge_repeated": merge_repeated})
+    return out
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  name=None):
+    """Levenshtein distance per sequence pair (reference nn.py:2534) ->
+    (distance [B, 1], sequence_num [1]); `ignored_tokens` are erased from
+    both sides first."""
+    helper = LayerHelper("edit_distance")
+    if ignored_tokens:
+        erased_input = helper.create_tmp_variable(input.dtype)
+        erased_label = helper.create_tmp_variable(label.dtype)
+        helper.append_op(type="sequence_erase", inputs={"X": [input]},
+                         outputs={"Out": [erased_input]},
+                         attrs={"tokens": list(ignored_tokens)})
+        helper.append_op(type="sequence_erase", inputs={"X": [label]},
+                         outputs={"Out": [erased_label]},
+                         attrs={"tokens": list(ignored_tokens)})
+        input, label = erased_input, erased_label
+    out = helper.create_tmp_variable("float32")
+    seq_num = helper.create_tmp_variable("int32")
+    helper.append_op(type="edit_distance",
+                     inputs={"Hyps": [input], "Refs": [label]},
+                     outputs={"Out": [out], "SequenceNum": [seq_num]},
+                     attrs={"normalized": normalized})
+    return out, seq_num
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """Chunking precision, recall and F1 (reference nn.py:1015) ->
+    (precision, recall, f1, num_infer_chunks, num_label_chunks,
+    num_correct_chunks)."""
+    helper = LayerHelper("chunk_eval")
+    outs = [helper.create_tmp_variable(d) for d in ("float32",) * 3
+            + ("int32",) * 3]
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input], "Label": [label]},
+        outputs=dict(zip(("Precision", "Recall", "F1-Score",
+                          "NumInferChunks", "NumLabelChunks",
+                          "NumCorrectChunks"), ([o] for o in outs))),
+        attrs={"num_chunk_types": num_chunk_types,
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return tuple(outs)

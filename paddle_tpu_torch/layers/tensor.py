@@ -4,12 +4,16 @@ python/paddle/fluid/layers/tensor.py)."""
 
 from __future__ import annotations
 
-from ..framework.framework import convert_dtype
+import numpy as np
+
+from ..framework.framework import Variable, convert_dtype
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "create_global_var", "fill_constant", "concat"]
+__all__ = ["create_parameter", "create_global_var", "cast", "concat",
+           "assign", "fill_constant", "fill_constant_batch_size_like",
+           "argmin", "argmax"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -55,3 +59,68 @@ def concat(input, axis=0, name=None):
     helper.append_op(type="concat", inputs={"X": input},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return out
+
+
+def cast(x, dtype):
+    """x in `dtype` (tensor.py:44); the grad casts back."""
+    helper = LayerHelper("cast")
+    dtype = convert_dtype(dtype)
+    out = helper.create_tmp_variable(dtype=dtype)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def assign(input, output=None):
+    """Copy a Variable into `output` (a new one by default), or make a
+    numpy array a constant (tensor.py:69)."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_tmp_variable(dtype=input.dtype)
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    elif isinstance(input, np.ndarray):
+        if output is None:
+            output = helper.create_tmp_variable(dtype=input.dtype.name)
+        helper.append_op(
+            type="fill_constant_tensor", outputs={"Out": [output]},
+            attrs={"shape": list(input.shape), "dtype": input.dtype.name,
+                   "values": input.ravel().tolist()})
+    else:
+        raise TypeError("assign expects Variable or ndarray")
+    return output
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """A constant whose dim `output_dim_idx` is `input`'s dim
+    `input_dim_idx` (tensor.py:101)."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    dtype = convert_dtype(dtype)
+    out = helper.create_tmp_variable(dtype=dtype)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    out.stop_gradient = True
+    out.desc.stop_gradient = True
+    return out
+
+
+def _arg_min_max(x, op_type, axis):
+    helper = LayerHelper(op_type)
+    out = helper.create_tmp_variable(dtype="int64")
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def argmin(x, axis=0):
+    return _arg_min_max(x, "arg_min", axis)
+
+
+def argmax(x, axis=0):
+    return _arg_min_max(x, "arg_max", axis)

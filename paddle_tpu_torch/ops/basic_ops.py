@@ -139,3 +139,194 @@ def _concat(ctx, op_, ins):
     """Linear: the generic grad's autograd of torch.cat splits the
     cotangent back to the inputs."""
     return {"Out": [torch.cat(list(ins["X"]), dim=op_.attr("axis", 0))]}
+
+
+# --- fills like another tensor (reference fill_zeros_like_op.cc,
+# fill_constant_batch_size_like_op.cc; JAX basic_ops.py:46-88) ----------------
+
+def _fill_like_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    if iv is not None:
+        set_out(op_, block, "Out", iv.shape, op_.attr("dtype") or iv.dtype)
+
+
+@op("fill_zeros_like", infer_shape=_fill_like_infer, grad=NO_GRAD)
+def _fill_zeros_like(ctx, op_, ins):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
+
+
+def _fill_bsl_infer(op_, block):
+    shape = list(op_.attr("shape"))
+    iv = in_var(op_, block, "Input")
+    if iv is not None and iv.shape is not None:
+        shape[op_.attr("output_dim_idx", 0)] = \
+            iv.shape[op_.attr("input_dim_idx", 0)]
+    set_out(op_, block, "Out", shape, op_.attr("dtype", "float32"))
+
+
+@op("fill_constant_batch_size_like", infer_shape=_fill_bsl_infer,
+    grad=NO_GRAD)
+def _fill_constant_bsl(ctx, op_, ins):
+    x = ins["Input"][0]
+    shape = list(op_.attr("shape"))
+    shape[op_.attr("output_dim_idx", 0)] = x.shape[op_.attr("input_dim_idx", 0)]
+    return {"Out": [torch.full(tuple(shape), op_.attr("value", 0.0),
+                               dtype=to_torch_dtype(op_.attr("dtype",
+                                                             "float32")),
+                               device=x.device)]}
+
+
+def _fill_tensor_infer(op_, block):
+    set_out(op_, block, "Out", op_.attr("shape"), op_.attr("dtype", "float32"))
+
+
+def _attr_constant(ctx, values, dtype_name, shape):
+    """A static attr's values as a device tensor: the Executor's copy made
+    once (`Executor.constant`), so a CUDA graph's capture finds it."""
+    arr = np.asarray(values, dtype=np.dtype(dtype_name)).reshape(shape)
+    return ctx.executor.constant(arr, to_torch_dtype(dtype_name))
+
+
+@op("fill_constant_tensor", infer_shape=_fill_tensor_infer, grad=NO_GRAD)
+def _fill_constant_tensor(ctx, op_, ins):
+    """A literal ndarray (layers.assign of numpy data)."""
+    return {"Out": [_attr_constant(ctx, op_.attr("values"),
+                                   op_.attr("dtype", "float32"),
+                                   tuple(op_.attr("shape")))]}
+
+
+def _assign_value_infer(op_, block):
+    set_out(op_, block, "Out", list(op_.attr("shape")),
+            op_.attr("dtype", "float32"))
+
+
+@op("assign_value", infer_shape=_assign_value_infer, grad=NO_GRAD)
+def _assign_value(ctx, op_, ins):
+    """A compile-time constant (reference assign_value_op.cc; JAX
+    misc_ops.py:37)."""
+    vals = op_.attr("fp32_values", None) or op_.attr("int32_values", None)
+    return {"Out": [_attr_constant(ctx, vals, op_.attr("dtype", "float32"),
+                                   tuple(op_.attr("shape")))]}
+
+
+# --- arg max / min (reference arg_max_op.cc; JAX basic_ops.py:82-99) -------
+
+def _arg_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    axis = op_.attr("axis", 0)
+    if iv is not None and iv.shape is not None:
+        shape = [d for i, d in enumerate(iv.shape)
+                 if i != axis % len(iv.shape)]
+        set_out(op_, block, "Out", shape or [1], "int64")
+
+
+@op("arg_max", infer_shape=_arg_infer, grad=NO_GRAD)
+def _arg_max(ctx, op_, ins):
+    """The first index of the largest value, as jnp.argmax takes it."""
+    return {"Out": [torch.argmax(ins["X"][0], dim=op_.attr("axis", 0))]}
+
+
+@op("arg_min", infer_shape=_arg_infer, grad=NO_GRAD)
+def _arg_min(ctx, op_, ins):
+    return {"Out": [torch.argmin(ins["X"][0], dim=op_.attr("axis", 0))]}
+
+
+# --- assign / cast / increment (JAX basic_ops.py:150-193) -----------------
+
+@op("assign", infer_shape=same_as_input("X", "Out"))
+def _assign(ctx, op_, ins):
+    return {"Out": [ins["X"][0]]}
+
+
+def _cast_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    set_out(op_, block, "Out", iv.shape if iv else None,
+            op_.attr("out_dtype", "float32"))
+
+
+def _cast_grad(fwd, no_grad_set):
+    """The grad of a cast is the cast back (JAX basic_ops.py:161)."""
+    from ..framework.desc import OpDesc
+    from ..framework.framework import grad_var_name
+    xname = fwd.input("X")[0]
+    if xname in no_grad_set:
+        return []
+    return [OpDesc(type="cast",
+                   inputs={"X": [grad_var_name(fwd.output("Out")[0])]},
+                   outputs={"Out": [grad_var_name(xname)]},
+                   attrs={"in_dtype": fwd.attr("out_dtype", "float32"),
+                          "out_dtype": fwd.attr("in_dtype", "float32")})]
+
+
+@op("cast", infer_shape=_cast_infer, grad=_cast_grad)
+def _cast(ctx, op_, ins):
+    return {"Out": [ins["X"][0].to(
+        to_torch_dtype(op_.attr("out_dtype", "float32")))]}
+
+
+@op("increment", infer_shape=same_as_input())
+def _increment(ctx, op_, ins):
+    """x + step in x's dtype; d(x + c)/dx = 1 through the generic grad."""
+    x = ins["X"][0]
+    step = op_.attr("step", 1.0)
+    return {"Out": [x + (step if x.is_floating_point() else int(step))]}
+
+
+# --- transpose (reference transpose_op.cc) ----------------------------------
+
+def _transpose_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    axis = op_.attr("axis")
+    if iv is not None and iv.shape is not None:
+        set_out(op_, block, "Out", [iv.shape[a] for a in axis], iv.dtype)
+
+
+@op("transpose", infer_shape=_transpose_infer)
+def _transpose(ctx, op_, ins):
+    return {"Out": [ins["X"][0].permute(*op_.attr("axis"))]}
+
+
+# --- compare / logical (reference compare_op.cc, logical_op.cc; JAX
+# basic_ops.py:455-497) --------------------------------------------------------
+
+def _cmp_infer(op_, block):
+    xv = in_var(op_, block, "X")
+    if xv is not None:
+        set_out(op_, block, "Out", xv.shape, "bool")
+
+
+_BINARY_BOOL = {
+    "less_than": torch.lt, "less_equal": torch.le, "greater_than": torch.gt,
+    "greater_equal": torch.ge, "equal": torch.eq, "not_equal": torch.ne,
+    "logical_and": torch.logical_and, "logical_or": torch.logical_or,
+    "logical_xor": torch.logical_xor,
+}
+
+
+def _make_binary(fn):
+    def lower(ctx, op_, ins):
+        return {"Out": [fn(ins["X"][0], ins["Y"][0])]}
+    return lower
+
+
+for _n, _f in _BINARY_BOOL.items():
+    register(_n, lower=_make_binary(_f), infer_shape=_cmp_infer, grad=NO_GRAD)
+
+
+@op("logical_not", infer_shape=_cmp_infer, grad=NO_GRAD)
+def _logical_not(ctx, op_, ins):
+    return {"Out": [torch.logical_not(ins["X"][0])]}
+
+
+@op("is_empty", grad=NO_GRAD)
+def _is_empty(ctx, op_, ins):
+    x = ins["X"][0]
+    return {"Out": [torch.full((), x.numel() == 0, dtype=torch.bool,
+                               device=x.device)]}
+
+
+@op("shape", grad=NO_GRAD)
+def _shape(ctx, op_, ins):
+    x = ins["Input"][0] if "Input" in op_.desc.inputs else ins["X"][0]
+    return {"Out": [_attr_constant(ctx, list(x.shape), "int64",
+                                   (x.dim(),))]}

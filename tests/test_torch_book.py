@@ -5,8 +5,11 @@ scope, the same predictions): tests/book/test_fit_a_line.py,
 test_recognize_digits.py (mlp, conv), test_image_classification.py
 (resnet, vgg), test_word2vec.py, test_understand_sentiment.py (conv,
 stacked_lstm: LoDTensor feeds, the round trip over a LoDTensor) and
-test_recommender_system.py (LoD category and title slots). The chapters
-live in chip_smoke.py (`BOOK`), which runs the same nine on the card.
+test_recommender_system.py (LoD category and title slots),
+test_machine_translation.py (training; decoding with While, beam_search
+and greedy), test_label_semantic_roles.py (the CRF and Viterbi) and
+test_beam_search_decode.py. The chapters live in chip_smoke.py (`BOOK`),
+which runs the same thirteen on the card.
 """
 
 import sys
@@ -37,6 +40,18 @@ def test_book_chapter(chapter):
         assert np.mean(res["last_losses"]) < 2.2 and res["steps"] == 31
     elif chapter.startswith("understand_sentiment"):
         assert np.mean(res["last_accuracy"]) > 0.8 and res["steps"] == 31
+    elif chapter == "machine_translation[train]":
+        assert np.mean(res["last_losses"]) < 0.8 * res["first_loss"]
+        assert res["steps"] == 202
+    elif chapter == "machine_translation[decode]":
+        assert res["last_loss"] < res["first_loss"] and res["steps"] == 30
+        assert np.all(np.asarray(res["beam_best"])
+                      >= np.asarray(res["greedy"]) - 1e-4)
+    elif chapter == "label_semantic_roles":
+        assert np.mean(res["last_losses"]) < 0.7 * np.mean(res["first_losses"])
+        assert res["steps"] == 55
+    elif chapter == "beam_search_decode":
+        assert len(res["best_scores"]) == 2
     elif chapter == "recommender_system":
         assert res["last_loss"] < res["first_loss"]
         assert np.mean(res["last_losses"]) < 2.5 and res["steps"] == 41

@@ -154,6 +154,9 @@ def test_files_hold_plain_numpy(tmp_path):
 
 
 def test_lod_round_trips_beside_the_values(tmp_path):
+    """A variable saved with a LoD loads as an executor.LoDTensor of its
+    rows and LoD, as the JAX package's io restores it (io.py:151-155), and
+    saves back with its LoD."""
     main, _, _, _ = _build(pt, port_resnet)
     var = next(v for v in main.list_vars() if v.persistable)
     arr = np.arange(12, dtype=np.float32).reshape(6, 2)
@@ -162,13 +165,57 @@ def test_lod_round_trips_beside_the_values(tmp_path):
     scope = pt.Scope()
     with pt.scope_guard(scope):
         pt.io.load_vars(None, str(tmp_path), main, vars=[var])
-        np.testing.assert_array_equal(scope.find_var(var.name), arr)
-        assert scope.find_var(var.name + "@LOD") == [[0, 2, 6]]
+        val = scope.find_var(var.name)
+        assert isinstance(val, pt.LoDTensor) and val.lod == [[0, 2, 6]]
+        np.testing.assert_array_equal(val.array(), arr)
+        assert scope.find_var(var.name + "@LOD") is None
         pt.io.save_vars(None, str(tmp_path / "again"), main, vars=[var])
     with open(os.path.join(tmp_path, "again", var.name), "rb") as f:
         d = pickle.load(f)
     assert d["lod"] == [[0, 2, 6]]
     np.testing.assert_array_equal(d["tensor"], arr)
+
+
+def _lod_state_program(fluid):
+    """A persistable sequence (lod_level 1) summed per sequence and scaled:
+    sequence state that only its LoD makes right."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        mem = main.global_block().create_var(
+            name="seq_state", shape=[-1, -1, 3], dtype="float32",
+            lod_level=1, persistable=True)
+        out = fluid.layers.scale(fluid.layers.sequence_pool(mem, "sum"),
+                                 scale=2.0)
+    return main, mem, out
+
+
+def test_lod_checkpoint_of_the_jax_package_runs_in_the_port(tmp_path):
+    """A checkpoint the JAX package wrote with a LoD variable, loaded by the
+    port and run, fetches what the JAX package fetches."""
+    rows = np.random.RandomState(2).randn(7, 3).astype(np.float32)
+    lod = [[0, 2, 3, 7]]
+    jmain, jmem, jout = _lod_state_program(jfluid)
+    with jax_executor.scope_guard(jax_executor.Scope()):
+        jax_executor.global_scope().set_var(
+            "seq_state", jax_executor.LoDTensor(rows, lod))
+        jio.save_vars(None, str(tmp_path), jmain, vars=[jmem])
+    jscope = jax_executor.Scope()
+    with jax_executor.scope_guard(jscope):
+        jio.load_vars(None, str(tmp_path), jmain, vars=[jmem])
+        want, = jfluid.Executor(jfluid.CPUPlace()).run(
+            jmain, fetch_list=[jout], scope=jscope)
+    main, mem, out = _lod_state_program(pt)
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        pt.io.load_vars(None, str(tmp_path), main, vars=[mem])
+    assert isinstance(scope.find_var("seq_state"), pt.LoDTensor)
+    got, = pt.Executor(pt.CPUPlace()).run(main, fetch_list=[out],
+                                          scope=scope)
+    assert got.shape == (3, 3)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        got, 2 * np.stack([rows[0:2].sum(0), rows[2:3].sum(0),
+                           rows[3:7].sum(0)]), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
