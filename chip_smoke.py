@@ -296,7 +296,28 @@ against its plain PyTorch version on the card:
               vocabularies) with linear_chain_crf and Adam, batch 64 of
               the conll05 surrogate, graphed bitwise eager, then in turns;
               Viterbi on a held-out batch, every tag in [0, 59);
- 25. result   the kernel table as one JSON line, the card line, then
+ 25. train_lm_recipe  the LM trained to the transformer paper's recipe
+              (Adam 0.9/0.98/1e-9, noam_decay(512, 4000), label smoothing
+              0.1 over one_hot labels as soft labels, the global-norm clip
+              at 1.0), resumed at step 3999: graphed bitwise eager, the
+              fetched LR the host's noam of the step, @STEP_COUNTER@
+              advanced by the replays, the global-norm gauge a step and
+              its cost, one eager step's gauge and update against the
+              host's, K7/K8/K9 from a replay's trace;
+ 26. train_optimizers  the LM once per new optimizer (RMSProp with L1
+              decay and the value clip, Adamax on piecewise_decay,
+              Adadelta, DecayedAdagrad on a staircase exponential_decay,
+              Ftrl with the norm clip, Adam under ModelAverage): graphed
+              bitwise eager, p50, busy share, nothing densified; inside
+              ModelAverage.apply the parameters and logits the host
+              average's, restore bitwise;
+ 27. train_reader_layers  ResNet-50 O2 at batch 32 reading the flowers
+              surrogate from a RecordIO file through open_recordio_file ->
+              shuffle -> batch -> double_buffer -> read_file, exe.run()
+              with no feed: batches and losses bitwise the fed path's,
+              p50 and the consumer's wait beside train_feeder's,
+              EOFException at the pass's end, K2-K6 from a replay's trace;
+ 28. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -7630,6 +7651,692 @@ def phase_serve_dlrm(pt, report):
     _settled_reserved()
 
 
+
+# --- the training front end: the recipe, the optimizer family, the readers ---
+
+RECIPE_SEED = 1
+# the transformer paper's training recipe (Vaswani et al. 2017, "Attention Is
+# All You Need", §5.3-5.4): Adam (0.9, 0.98, 1e-9), noam LR with 4000
+# warm-up steps, label smoothing 0.1; and the global-norm clip at 1.0. The
+# phase resumes at the end of the warm-up, where the LR peaks (~7.0e-4):
+# at step 10 it is ~1.7e-6 and a few steps move nothing
+RECIPE = {"beta1": 0.9, "beta2": 0.98, "epsilon": 1e-9, "warmup": 4000,
+          "smoothing": 0.1, "clip_norm": 1.0, "resume_step": 3999}
+RECIPE_BITWISE_STEPS = 10           # warm-up, capture, 8 replays: bitwise eager
+RECIPE_TURNS = 8                    # then graphed and eager steps in turns
+GAUGE_TURNS = 8                     # steps with the gauge's read on and off
+LR_RTOL = 1e-6                      # the fetched LR against the host's
+# the gauge against the norm of the fetched grads: the card sums each
+# grad's squares in f32 in its own order, the host in f64
+GAUGE_RTOL = 1e-4
+# the clipped Adam update against the host's, relative to the update's
+# largest magnitude: the host repeats the program's f32 operations in
+# their order, with the gauge's norm
+UPDATE_RTOL = 1e-5
+
+# one pass per optimizer the slice ports, each with a front-end piece
+OPT_PASSES = ("rmsprop", "adamax", "adadelta", "decayed_adagrad", "ftrl",
+              "adam_model_average")
+OPT_BITWISE_STEPS = 3               # warm-up, capture, replay: bitwise eager
+OPT_TIMED_STEPS = 5                 # then replays and eager steps in turns
+AVG = {"rate": 1.0, "min_window": 1, "max_window": 1000}
+
+READER_SEED = 1                     # Python's `random`, which shuffle draws from
+READER_CMP_STEPS = 3                # pulled batches and losses held to the fed path
+TRACE_LM = {"attn.launches": LM["n_layer"], "attn.dq_launches": LM["n_layer"],
+            "attn.dkv_launches": LM["n_layer"]}
+K7_WITNESS = ("K7", lambda name: "flash_fwd_kernel" in name)
+
+
+def lm_recipe_net(pt, cfg=None):
+    """bench.py's transformer LM (`cfg`, LM by default) trained to the
+    transformer paper's recipe: the logits of transformer_lm against
+    label_smooth(one_hot(labels), 0.1) as soft labels, Adam (0.9, 0.98,
+    1e-9) at noam_decay(d_model, 4000), every parameter's grad clipped to
+    global norm 1.0, AMP O2. -> (main, startup, loss, lr, logits)."""
+    cfg = LM if cfg is None else cfg
+    V, t = cfg["vocab"], cfg["seqlen"]
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        L = pt.layers
+        tok = L.data(name="tok", shape=[-1, t], dtype="int64",
+                     append_batch_size=False)
+        lab = L.data(name="lab", shape=[-1, t], dtype="int64",
+                     append_batch_size=False)
+        _, logits = pt.models.transformer_lm(
+            tok, lab, vocab_size=V, d_model=cfg["d_model"],
+            n_head=cfg["n_head"], n_layer=cfg["n_layer"], return_logits=True)
+        smooth = L.label_smooth(L.one_hot(L.reshape(lab, [-1, 1]), V),
+                                epsilon=RECIPE["smoothing"])
+        loss = L.mean(L.softmax_with_cross_entropy(
+            L.reshape(logits, [-1, V]), smooth, soft_label=True))
+        lr = L.noam_decay(cfg["d_model"], RECIPE["warmup"])
+        pt.clip.set_gradient_clip(
+            pt.clip.GradientClipByGlobalNorm(RECIPE["clip_norm"]))
+        opt = pt.optimizer.Adam(learning_rate=lr, beta1=RECIPE["beta1"],
+                                beta2=RECIPE["beta2"],
+                                epsilon=RECIPE["epsilon"])
+        pt.amp.decorate(opt, level="O2").minimize(loss)
+    main.random_seed = startup.random_seed = RECIPE_SEED
+    return main, startup, loss, lr, logits
+
+
+def noam_host(step, d_model, warmup):
+    return d_model ** -0.5 * min(step ** -0.5, warmup ** -1.5 * step)
+
+
+def _lm_feed(cfg=None, seed=RECIPE_SEED):
+    cfg = LM if cfg is None else cfg
+    rng = np.random.default_rng(seed)
+    shape = (cfg["batch"], cfg["seqlen"])
+    return {"tok": rng.integers(0, cfg["vocab"], shape).astype(np.int64),
+            "lab": rng.integers(0, cfg["vocab"], shape).astype(np.int64)}
+
+
+def _graphed_eager(exe, main, fetch, sg, se, feed, what):
+    """One step of `feed` graphed on scope `sg` and one eager
+    (use_jit=False) on `se`, each fetch of the two bitwise -> (the graphed
+    fetches, graphed ms, eager ms). A feed of None pulls the program's
+    reader."""
+    import torch
+    out, ms = {}, {}
+    for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[mode] = exe.run(main, feed=feed, fetch_list=fetch, scope=sc,
+                            use_jit=use_jit)
+        ms[mode] = (time.perf_counter() - t0) * 1e3
+    for j, (a, b) in enumerate(zip(out["graph"], out["eager"])):
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"{what}: fetch {j} of the graphed step is "
+                               f"not the eager step's: {a.ravel()[:4]} vs "
+                               f"{b.ravel()[:4]}")
+    return out["graph"], ms["graph"], ms["eager"]
+
+
+def _step_memory(exe, main, feed, fetch, sg, se, pool_gb):
+    """GB a graphed and an eager step need beyond the scope's state (the
+    graph's pool, measured across its capture, added to the replay's)."""
+    import torch
+    peak = {}
+    for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
+        _settled_reserved()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        exe.run(main, feed=feed, fetch_list=fetch, scope=sc, use_jit=use_jit)
+        torch.cuda.synchronize()
+        peak[mode] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    peak["graph"] += pool_gb
+    return peak
+
+
+def _state_gb(scope):
+    import torch
+    return sum(v.numel() * v.element_size() for v in scope.vars.values()
+               if isinstance(v, torch.Tensor)) / 1e9
+
+
+def _adam_host(p, g, m1, m2, lr, b1, b2, eps, b1p, b2p):
+    """adam_dense's f32 operations in their order, on the host."""
+    f = np.float32
+    m1o = m1 * f(b1) + g * f(1 - b1)
+    m2o = m2 * f(b2) + g * f(1 - b2) * g
+    lr_t = f(lr) * np.sqrt(f(1) - f(b2p)) / (f(1) - f(b1p))
+    return p - lr_t * m1o / (np.sqrt(m2o) + f(eps))
+
+
+def phase_train_lm_recipe(pt, report, cfg=None):
+    """The LM trained to the transformer paper's recipe (lm_recipe_net)
+    from the startup of seed 1, its step counter set to 3999 as a run
+    resumed at the end of the warm-up would hold it: RECIPE_BITWISE_STEPS
+    graphed steps (warm-up, capture, replays) bitwise their eager twins on
+    a second scope, then RECIPE_TURNS of each in turns; each step's
+    fetched LR the host's closed form of its step number; the counter at
+    the steps run after them (a replay advances it in place); the loss
+    finite and falling; the global norm the gauge publishes each step and
+    the share of steps that clipped; the gauge's cost (graphed steps with
+    PADDLE_TPU_TELEMETRY_FETCH=0 and =1 in turns); memory beyond the
+    state; one eager step whose gauge is the host's norm of its fetched
+    grads and whose update is Adam on g * min(1, 1/|g|); a replay's
+    K7/K8/K9 launches from its trace. -> those launches."""
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch import telemetry
+    cfg = LM if cfg is None else cfg
+    card = _card_line()
+    B, T = cfg["batch"], cfg["seqlen"]
+    main, startup, loss, lr, _ = lm_recipe_net(pt, cfg)
+    exe = pt.Executor()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    counter = scope.find_var("@STEP_COUNTER@")
+    scope.set_var("@STEP_COUNTER@", torch.full_like(
+        counter, RECIPE["resume_step"]))
+    init = {n: v for n, v in scope.vars.items() if isinstance(v, torch.Tensor)}
+    sg, se = _scope_from(pt, init), _scope_from(pt, init)
+    del scope
+    feed = _lm_feed(cfg)
+    label = telemetry.program_label(main)
+    E.COUNTERS.reset()
+    reserved0 = _settled_reserved()
+    steps = RECIPE_BITWISE_STEPS + RECIPE_TURNS
+    losses, lrs, norms, g_ms, e_ms = [], [], [], [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        (lo, lr_v), g, e = _graphed_eager(exe, main, [loss, lr], sg, se, feed,
+                                          "train_lm_recipe")
+        losses.append(float(lo.ravel()[0]))
+        lrs.append(float(lr_v.ravel()[0]))
+        norms.append(telemetry.read_gauge("optimizer_global_norm",
+                                          program=label))
+        g_ms.append(g)
+        e_ms.append(e)
+        if i == RECIPE_BITWISE_STEPS - 1:
+            setup_s = time.perf_counter() - t0
+            pool_gb = (_settled_reserved() - reserved0) / 1e9
+    diverged = _bitwise_scopes(sg, se)
+    c = E.COUNTERS
+    if diverged or (c.warmups, c.captures, c.replays) != (1, 1, steps - 1) \
+            or c.eager != {"use_jit": steps}:
+        raise RuntimeError(f"train_lm_recipe: after {steps} steps the scopes "
+                           f"differ in {diverged[:8]}, or the steps were not "
+                           f"one warm-up, one capture and replays: {c}")
+    ran = [int(s.find_var("@STEP_COUNTER@").item()) for s in (sg, se)]
+    if ran != [RECIPE["resume_step"] + steps] * 2:
+        raise RuntimeError(f"train_lm_recipe: @STEP_COUNTER@ {ran} after "
+                           f"{steps} steps from {RECIPE['resume_step']}")
+    want_lr = [noam_host(RECIPE["resume_step"] + s, cfg["d_model"],
+                         RECIPE["warmup"]) for s in range(1, steps + 1)]
+    lr_err = max(abs(a - b) / b for a, b in zip(lrs, want_lr))
+    if lr_err > LR_RTOL:
+        raise RuntimeError(f"train_lm_recipe: the fetched LR {lrs[:3]}... is "
+                           f"{lr_err:.3g} from the host's {want_lr[:3]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise RuntimeError(f"train_lm_recipe: the loss did not fall: {losses}")
+    if any(n is None or not np.isfinite(n) for n in norms):
+        raise RuntimeError(f"train_lm_recipe: the gauge read {norms}")
+    clipped = float(np.mean([n > RECIPE["clip_norm"] for n in norms]))
+    p50 = {"graph": float(np.median(g_ms[RECIPE_BITWISE_STEPS:])),
+           "eager": float(np.median(e_ms[RECIPE_BITWISE_STEPS:]))}
+    peak = _step_memory(exe, main, feed, [loss, lr], sg, se, pool_gb)
+    state_gb = _state_gb(se)
+
+    # the gauge's cost: graphed steps fetching the norm beside the loss and
+    # not, in turns (each its own signature: its warm-up and capture first)
+    gauge_ms = {"on": [], "off": []}
+    try:
+        for i in range(2 + GAUGE_TURNS):
+            for mode in ("on", "off"):
+                os.environ["PADDLE_TPU_TELEMETRY_FETCH"] = \
+                    "1" if mode == "on" else "0"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=[loss], scope=sg)
+                if i >= 2:
+                    gauge_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        os.environ["PADDLE_TPU_TELEMETRY_FETCH"] = "1"
+    gauge_p50 = {m: float(np.median(v)) for m, v in gauge_ms.items()}
+    prof = _profile_step(exe, main, feed, loss, sg, gauge_p50["on"], card,
+                         K7_WITNESS, expect=TRACE_LM)
+
+    # one eager step: the gauge against the host's norm of the fetched
+    # grads, and each parameter's update against Adam on the clipped grad
+    sc = _scope_from(pt, {n: v for n, v in sg.vars.items()
+                          if isinstance(v, torch.Tensor)})
+    adams = [o for o in main.global_block().ops if o.type == "adam"]
+    params = [o.input("Param")[0] for o in adams]
+    before = {n: sc.find_var(n).detach().float().cpu().numpy()
+              for o in adams for n in (o.input("Param") + o.input("Moment1")
+                                       + o.input("Moment2")
+                                       + o.input("Beta1Pow")
+                                       + o.input("Beta2Pow"))}
+    vals = exe.run(main, feed=feed, fetch_list=[lr] + [p + "@GRAD"
+                                                      for p in params],
+                   scope=sc, use_jit=False)
+    lr_v, grads = float(vals[0].ravel()[0]), dict(zip(params, vals[1:]))
+    gauge = telemetry.read_gauge("optimizer_global_norm", program=label)
+    host_norm = math.sqrt(sum(float(np.sum(np.square(g.astype(np.float64))))
+                              for g in grads.values()))
+    if abs(gauge - host_norm) > GAUGE_RTOL * host_norm:
+        raise RuntimeError(f"train_lm_recipe: the gauge {gauge} is not the "
+                           f"host's norm {host_norm} of the fetched grads")
+    scale = np.float32(RECIPE["clip_norm"]) / np.maximum(
+        np.float32(RECIPE["clip_norm"]), np.float32(gauge))
+    worst = 0.0
+    for o in adams:
+        p = o.input("Param")[0]
+        want = _adam_host(
+            before[p], grads[p].astype(np.float32) * scale,
+            before[o.input("Moment1")[0]], before[o.input("Moment2")[0]],
+            lr_v, RECIPE["beta1"], RECIPE["beta2"], RECIPE["epsilon"],
+            before[o.input("Beta1Pow")[0]].ravel()[0],
+            before[o.input("Beta2Pow")[0]].ravel()[0])
+        got = sc.find_var(p).detach().float().cpu().numpy()
+        upd = float(np.abs(want - before[p]).max()) or 1.0
+        worst = max(worst, float(np.abs(got - want).max()) / upd)
+    if worst > UPDATE_RTOL:
+        raise RuntimeError(f"train_lm_recipe: the card's update is "
+                           f"{worst:.3g} of the update's size from Adam on "
+                           f"the clipped grads")
+    del sc
+    tok_s = B * T / (p50["graph"] / 1e3)
+    out = {"card": card, "config": cfg, "recipe": RECIPE, "p50_ms": p50,
+           "tokens_per_s": tok_s, "busy_ms": prof["busy_ms"],
+           "busy_share": prof["busy_share"], "losses": losses, "lrs": lrs,
+           "lr_max_rel_err": lr_err, "global_norms": norms,
+           "clipped_share": clipped, "gauge_p50_ms": gauge_p50,
+           "gauge_cost_ms": gauge_p50["on"] - gauge_p50["off"],
+           "step_memory_gb": peak, "graph_pool_gb": pool_gb,
+           "state_gb": state_gb, "setup_s": setup_s,
+           "eager_step": {"gauge": gauge, "host_norm": host_norm,
+                          "update_rel_err": worst},
+           "launches_per_step": {k: prof["launches"][k] for k in TRACE_LM},
+           "step_ms": {"graph": g_ms, "eager": e_ms}}
+    report["train_lm_recipe"] = out
+    print(f"train_lm_recipe: {steps} steps graphed bitwise eager from "
+          f"@STEP_COUNTER@ {RECIPE['resume_step']} (warm-up and capture "
+          f"{setup_s:.1f} s); step p50 graphed {p50['graph']:.2f} ms "
+          f"({tok_s:.0f} tokens/s), eager {p50['eager']:.2f} ms; busy "
+          f"{prof['busy_ms']:.2f} ms ({prof['busy_share']:.1%}) of a "
+          f"replay; LR {lrs[0]:.4g} -> {lrs[-1]:.4g}, at most {lr_err:.2g} "
+          f"from the host's noam; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"global norm {min(norms):.3f}-{max(norms):.3f}, {clipped:.0%} of "
+          f"the steps clipped; graphed step with the gauge "
+          f"{gauge_p50['on']:.2f} ms, without {gauge_p50['off']:.2f} ms; "
+          f"memory beyond the {state_gb:.3f} GB of state {peak['graph']:.3f} "
+          f"GB graphed (pool {pool_gb:.3f} GB), {peak['eager']:.3f} GB eager; "
+          f"one eager step: gauge {gauge:.6f} vs host {host_norm:.6f}, update "
+          f"within {worst:.2g} of Adam on the clipped grads; K7/K8/K9 per "
+          f"replay {out['launches_per_step']} ({card})", flush=True)
+    return prof["launches"]
+
+
+def lm_optimizer_net(pt, name, cfg=None):
+    """The LM (`cfg`, LM by default; AMP O2) trained by one of OPT_PASSES,
+    each with a front-end piece: RMSProp with L1Decay(1e-5) and
+    GradientClipByValue(-1, 1); Adamax on piecewise_decay; Adadelta;
+    DecayedAdagrad on exponential_decay(staircase); Ftrl with
+    GradientClipByNorm(1.0); Adam under ModelAverage. -> (main, startup,
+    loss, logits, the ModelAverage or None)."""
+    cfg = LM if cfg is None else cfg
+    t = cfg["seqlen"]
+    main, startup = pt.Program(), pt.Program()
+    avg = None
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        L = pt.layers
+        tok = L.data(name="tok", shape=[-1, t], dtype="int64",
+                     append_batch_size=False)
+        lab = L.data(name="lab", shape=[-1, t], dtype="int64",
+                     append_batch_size=False)
+        loss, logits = pt.models.transformer_lm(
+            tok, lab, vocab_size=cfg["vocab"], d_model=cfg["d_model"],
+            n_head=cfg["n_head"], n_layer=cfg["n_layer"], return_logits=True)
+        O = pt.optimizer
+        if name == "rmsprop":
+            pt.clip.set_gradient_clip(pt.clip.GradientClipByValue(1.0, -1.0))
+            opt = O.RMSProp(1e-4, regularization=pt.regularizer.L1Decay(1e-5))
+        elif name == "adamax":
+            opt = O.Adamax(L.piecewise_decay([2, 5], [1e-3, 5e-4, 2e-4]))
+        elif name == "adadelta":
+            opt = O.Adadelta(1.0)
+        elif name == "decayed_adagrad":
+            opt = O.DecayedAdagrad(L.exponential_decay(1e-3, 2, 0.5,
+                                                       staircase=True))
+        elif name == "ftrl":
+            pt.clip.set_gradient_clip(pt.clip.GradientClipByNorm(1.0))
+            opt = O.Ftrl(1e-3)
+        else:
+            opt = O.Adam(1e-3)
+        pt.amp.decorate(opt, level="O2").minimize(loss)
+        if name == "adam_model_average":
+            avg = O.ModelAverage(AVG["rate"], min_average_window=AVG[
+                "min_window"], max_average_window=AVG["max_window"])
+    main.random_seed = startup.random_seed = RECIPE_SEED
+    return main, startup, loss, logits, avg
+
+
+def model_average_host(snaps, rate, min_window, max_window):
+    """ModelAverage's average of the parameter snapshots `snaps` (one dict
+    a step), with average_accumulates' sums, window and count, in f32 and
+    in the op's order of operations."""
+    f = np.float32
+    s1 = {n: np.zeros_like(v) for n, v in snaps[0].items()}
+    s2 = {n: np.zeros_like(v) for n, v in snaps[0].items()}
+    s3 = {n: np.zeros_like(v) for n, v in snaps[0].items()}
+    na = on = nu = 0
+    for snap in snaps:
+        nu, na = nu + 1, na + 1
+        s1 = {n: s1[n] + snap[n] for n in snap}
+        if nu % 16384 == 0:
+            s2 = {n: s2[n] + s1[n] for n in snap}
+            s1 = {n: np.zeros_like(v) for n, v in s1.items()}
+        limit = int(min(f(max_window), f(nu) * f(rate)))
+        if na >= min(min_window, max_window) and na >= limit:
+            s3 = {n: s1[n] + s2[n] for n in snap}
+            s1 = {n: np.zeros_like(v) for n, v in s1.items()}
+            s2 = {n: np.zeros_like(v) for n, v in s2.items()}
+            on, na = na, 0
+    cnt = max(f(na + on), f(1.0))
+    return {n: (s1[n] + s2[n] + s3[n]) / cnt for n in s1}
+
+
+def _model_average_check(pt, exe, main, logits, avg, sg, snaps, feed, what):
+    """Inside ModelAverage.apply on scope `sg`: every parameter bitwise the
+    host's average of the snapshots, and the logits of the pruned forward
+    bitwise those of the host's averaged parameters; after it, the trained
+    parameters back bitwise. -> the logits' checks."""
+    import torch
+    params = sorted(snaps[-1])
+    host = model_average_host([{n: s[n].cpu().numpy() for n in params}
+                               for s in snaps], AVG["rate"],
+                              AVG["min_window"], AVG["max_window"])
+    infer = main.prune(["tok"], [logits.name])
+    with pt.scope_guard(sg), avg.apply(exe):
+        off = [n for n in params if not np.array_equal(
+            sg.find_var(n).cpu().numpy(), host[n])]
+        inside, = exe.run(infer, feed={"tok": feed["tok"]},
+                          fetch_list=[logits], scope=sg)
+    if off:
+        raise RuntimeError(f"{what}: inside apply the parameters {off[:4]} "
+                           f"are not the host's average")
+    sh = pt.Scope()
+    dev = sg.find_var(params[0]).device
+    for n in params:
+        sh.set_var(n, torch.from_numpy(host[n]).to(dev))
+    want, = exe.run(infer, feed={"tok": feed["tok"]}, fetch_list=[logits],
+                    scope=sh)
+    if not np.array_equal(inside, want):
+        raise RuntimeError(f"{what}: the logits inside apply are not those "
+                           f"of the host-averaged parameters")
+    back = [n for n in params if not torch.equal(sg.find_var(n),
+                                                 snaps[-1][n])]
+    if back:
+        raise RuntimeError(f"{what}: restore left {back[:4]} other than "
+                           f"trained")
+    return {"params": len(params), "steps_averaged": len(snaps),
+            "logits_shape": list(inside.shape)}
+
+
+def phase_train_optimizers(pt, report, cfg=None):
+    """The LM at its full widths once per OPT_PASSES entry, from the
+    startup of seed 1 on two scopes: OPT_BITWISE_STEPS graphed steps
+    (warm-up, capture, replay) bitwise their eager twins, then
+    OPT_TIMED_STEPS replays and eager steps in turns, bitwise (p50); the
+    loss finite; sparse_densify_fallback_total 0; a replay profiled (busy
+    share, K7/K8/K9 from the trace). Under ModelAverage the parameters
+    after each step are kept, and inside apply the parameters and the
+    logits are those of the host's average, and restore gives the trained
+    parameters back, bitwise. -> the replays' launches, summed."""
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch import telemetry
+    cfg = LM if cfg is None else cfg
+    card = _card_line()
+    feed = _lm_feed(cfg)
+    tokens = cfg["batch"] * cfg["seqlen"]
+    launches, out = {k: 0 for k in TRACE_LM}, {}
+    for name in OPT_PASSES:
+        main, startup, loss, logits, avg = lm_optimizer_net(pt, name, cfg)
+        exe = pt.Executor()
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        init = {n: v for n, v in scope.vars.items()
+                if isinstance(v, torch.Tensor)}
+        sg, se = _scope_from(pt, init), _scope_from(pt, init)
+        del scope, init
+        params = [p.name for p in main.global_block().all_parameters()]
+        densify0 = sum(telemetry.read_series(
+            "sparse_densify_fallback_total").values())
+        E.COUNTERS.reset()
+        steps = OPT_BITWISE_STEPS + OPT_TIMED_STEPS
+        losses, g_ms, e_ms, snaps = [], [], [], []
+        for i in range(steps):
+            (lo,), g, e = _graphed_eager(exe, main, [loss], sg, se, feed,
+                                         f"train_optimizers {name}")
+            losses.append(float(lo.ravel()[0]))
+            g_ms.append(g)
+            e_ms.append(e)
+            if avg is not None:
+                snaps.append({n: se.find_var(n).clone() for n in params})
+        diverged = _bitwise_scopes(sg, se)
+        c = E.COUNTERS
+        if diverged or (c.warmups, c.captures, c.replays) != \
+                (1, 1, steps - 1) or c.eager != {"use_jit": steps}:
+            raise RuntimeError(f"train_optimizers {name}: scopes differ in "
+                               f"{diverged[:8]}, or the steps were not one "
+                               f"warm-up, one capture and replays: {c}")
+        densify = sum(telemetry.read_series(
+            "sparse_densify_fallback_total").values())
+        if not np.isfinite(losses).all() or densify or densify0:
+            raise RuntimeError(f"train_optimizers {name}: losses {losses}, "
+                               f"densified {densify0} -> {densify}")
+        p50 = {"graph": float(np.median(g_ms[OPT_BITWISE_STEPS:])),
+               "eager": float(np.median(e_ms[OPT_BITWISE_STEPS:]))}
+        prof = _profile_step(exe, main, feed, loss, sg, p50["graph"], card,
+                             K7_WITNESS, expect=TRACE_LM)
+        for k in TRACE_LM:
+            launches[k] += prof["launches"][k]
+        if avg is not None:
+            # the profiled step trained sg once more: the snapshot of its
+            # parameters joins the window
+            snaps.append({n: sg.find_var(n).clone() for n in params})
+        res = {"p50_ms": p50, "tokens_per_s": tokens / (p50["graph"] / 1e3),
+               "busy_ms": prof["busy_ms"], "busy_share": prof["busy_share"],
+               "losses": losses, "densified": densify,
+               "step_ms": {"graph": g_ms, "eager": e_ms},
+               "launches_per_step": {k: prof["launches"][k]
+                                     for k in TRACE_LM}}
+        if avg is not None:
+            res["model_average"] = _model_average_check(
+                pt, exe, main, logits, avg, sg, snaps, feed,
+                f"train_optimizers {name}")
+        out[name] = res
+        print(f"train_optimizers {name}: {steps} steps graphed bitwise "
+              f"eager; step p50 graphed {p50['graph']:.2f} ms "
+              f"({res['tokens_per_s']:.0f} tokens/s), eager "
+              f"{p50['eager']:.2f} ms; busy {prof['busy_ms']:.2f} ms "
+              f"({prof['busy_share']:.1%}) of a replay; loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; densified "
+              f"{densify}; K7/K8/K9 per replay {res['launches_per_step']}"
+              + ("" if avg is None else
+                 f"; ModelAverage over {len(snaps)} steps: inside apply the "
+                 f"parameters and logits the host average's, restore "
+                 f"bitwise") + f" ({card})", flush=True)
+        del exe, sg, se, snaps
+        _settled_reserved()
+    report["train_optimizers"] = {"card": card, "config": cfg,
+                                  "passes": out}
+    return launches
+
+
+def _resnet50_reader_train(pt, resnet, path):
+    """_resnet50_train's program (FEED_CLASSES classes) reading its batches
+    itself: open_recordio_file(path) -> shuffle(FEED_SHUFFLE) ->
+    batch(TRAIN_BATCH) -> double_buffer -> read_file. -> (main, startup,
+    loss, reader, img, label)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        L = pt.layers
+        r = L.open_recordio_file(path, shapes=[[-1, 3, 224, 224], [-1, 1]],
+                                 lod_levels=[0, 0],
+                                 dtypes=["float32", "int64"])
+        r = L.double_buffer(L.batch(L.shuffle(r, FEED_SHUFFLE), TRAIN_BATCH))
+        img, label = L.read_file(r)
+        avg_cost, _, _ = pt.models.build_image_classifier(
+            resnet.resnet50, img, label, class_dim=FEED_CLASSES)
+        opt = pt.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9)
+        pt.amp.decorate(opt, level="O2").minimize(avg_cost)
+    main.random_seed = startup.random_seed = SEED + 1
+    return main, startup, avg_cost, r, img, label
+
+
+def layer_shuffle_order(samples, buffer_size):
+    """layers.shuffle's order of `samples` from the `random` state as it
+    is: each full buffer shuffled and handed out from its end."""
+    import random
+    out, buf = [], []
+    for s in samples:
+        buf.append(s)
+        if len(buf) >= buffer_size:
+            random.shuffle(buf)
+            out += buf[::-1]
+            buf = []
+    random.shuffle(buf)
+    return out + buf[::-1]
+
+
+def phase_train_reader_layers(pt, conv_cuda, bn_cuda, resnet, report):
+    """ResNet-50 O2 at batch 32 reading the flowers surrogate itself: the
+    samples written to a RecordIO file in a temporary directory, the
+    program's reader chain pulled by exe.run() with no feed. The first
+    READER_CMP_STEPS batches (the signature's warm-up, capture and a
+    replay) bit for bit the host's: DataFeeder.feed of the seeded samples
+    in the shuffle's order, as train_feeder's path converts them; each
+    step's loss bitwise the fed program's on that batch from the same
+    state; then the pass's other batches (p50, the consumer's wait); the
+    pass's end raising EOFException; after reset() the next pass, whose
+    second step, a replay, is profiled (busy share, K2-K6 launches from
+    its trace, the graph's own kernel nodes first, held to
+    TRAIN_LAUNCHES). Run it under _kept_graphs. -> those launches."""
+    import random
+    import shutil
+    import tempfile
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch.reader import pipeline
+    card = _card_line()
+    tmp = tempfile.mkdtemp(prefix="reader_layers_")
+    try:
+        samples = list(pt.dataset.flowers.train()())
+        path = os.path.join(tmp, "flowers.recordio")
+        t0 = time.perf_counter()
+        # uncompressed: zlib takes ~20 s over these 600 MiB of noise
+        pt.recordio.write_samples(path, (
+            (img.reshape(3, 224, 224), np.array([lab], np.int64))
+            for img, lab in samples), compressor="none")
+        write_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 2 ** 20
+        main, startup, loss, reader, img, label = _resnet50_reader_train(
+            pt, resnet, path)
+        fmain, _fstartup, floss = _resnet50_train(pt, resnet,
+                                                  class_dim=FEED_CLASSES)
+        exe = pt.Executor()
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        init = {n: v for n, v in scope.vars.items()
+                if isinstance(v, torch.Tensor)}
+        sr, sf = _scope_from(pt, init), _scope_from(pt, init)
+        del scope, init
+        block = fmain.global_block()
+        feeder = pt.DataFeeder([block.var("img"), block.var("label")],
+                               exe.place, program=fmain)
+        random.seed(READER_SEED)
+        order = layer_shuffle_order(samples, FEED_SHUFFLE)
+        host = [feeder.feed(order[i:i + TRAIN_BATCH])
+                for i in range(0, len(order) - TRAIN_BATCH + 1, TRAIN_BATCH)]
+        n_batches = -(-len(samples) // TRAIN_BATCH)
+
+        E.COUNTERS.reset()
+        pipeline.COUNTERS.reset()
+        random.seed(READER_SEED)
+        t0 = time.perf_counter()
+        held = []
+        for b in range(READER_CMP_STEPS):
+            lo, im, lb = exe.run(main, fetch_list=[loss, img, label],
+                                 scope=sr)
+            if not (np.array_equal(im, host[b]["img"])
+                    and np.array_equal(lb, host[b]["label"])):
+                raise RuntimeError(f"train_reader_layers: batch {b} the "
+                                   f"program read is not the host's")
+            lf, = exe.run(fmain, feed=host[b], fetch_list=[floss], scope=sf)
+            if not np.array_equal(lo, lf):
+                raise RuntimeError(f"train_reader_layers: step {b}'s loss "
+                                   f"{lo} is not the fed step's {lf}")
+            held.append(float(lo.ravel()[0]))
+        first_s = time.perf_counter() - t0
+        losses, times = list(held), []
+        wait0 = pipeline.COUNTERS.wait_s
+        for _ in range(READER_CMP_STEPS, n_batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lo, = exe.run(main, fetch_list=[loss], scope=sr)
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(lo.ravel()[0]))
+        # the first two of them warm up and capture the [loss] signature
+        wait_ms = (pipeline.COUNTERS.wait_s - wait0) * 1e3
+        try:
+            exe.run(main, fetch_list=[loss], scope=sr)
+        except pt.layers.EOFException:
+            pass
+        else:
+            raise RuntimeError(f"train_reader_layers: no EOFException after "
+                               f"the pass's {n_batches} batches")
+        c = E.COUNTERS
+        if c.eager or c.warmups != 3 or c.captures != 3:
+            raise RuntimeError(f"train_reader_layers: {c}")
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"train_reader_layers: losses {losses}")
+        reader.reset()
+        random.seed(READER_SEED + 1)
+        # the next pass: its first pull waits for the shuffle buffer to
+        # fill; its second step, a replay, is profiled
+        lo, = exe.run(main, fetch_list=[loss], scope=sr)
+        if not np.isfinite(lo).all():
+            raise RuntimeError("train_reader_layers: the second pass's loss")
+        timed = times[2:]
+        p50 = float(np.median(timed))
+        expect = {("bn." if k in ("apply_launches", "act_launches")
+                   else "conv.") + k: v for k, v in TRAIN_LAUNCHES.items()}
+        # held first to the replayed graph's own kernel nodes: the profiler
+        # drops K6's record of a replay now and then (ROADMAP Queue 3)
+        graph, = [e.graph for k, e in exe._graphs.items()
+                  if k[0] == id(main) and k[3] == (loss.name,)]
+        prof = _profile_step(exe, main, None, loss, sr, p50, card,
+                             ("K4", lambda name: K1_KERNEL in name
+                              and "true" in name), expect=expect, graph=graph)
+        reader.reset()
+        fed = report.get("train_feeder", {})
+        fed_wait = fed.get("wait_ms")
+        fed_steps = FEED_WINDOWS * FEED_K
+        out = {"card": card, "batch": TRAIN_BATCH, "samples": len(samples),
+               "file_mb": mb, "write_s": write_s,
+               "first_steps_s": first_s, "p50_ms": p50,
+               "img_per_s": TRAIN_BATCH / (p50 / 1e3),
+               "wait_ms": wait_ms, "wait_ms_per_step": wait_ms / len(times),
+               "busy_ms": prof["busy_ms"], "busy_share": prof["busy_share"],
+               "losses": losses, "steps_ms": times,
+               "batches_bitwise": READER_CMP_STEPS,
+               # the trace's, and records it lost of the graph's nodes
+               "launches_per_step": {k: prof["launches"][k]
+                                     + prof["lost_records"].get(k, 0)
+                                     for k in expect},
+               "lost_records": prof["lost_records"],
+               "train_feeder": {
+                   "per_step_p50_ms": fed.get("per_step_p50_ms"),
+                   "wait_ms_per_step": None if fed_wait is None
+                   else fed_wait / fed_steps}}
+        report["train_reader_layers"] = out
+        print(f"train_reader_layers: {len(samples)} flowers samples written "
+              f"to RecordIO ({mb:.0f} MiB, {write_s:.1f} s); ResNet-50 O2 "
+              f"batch {TRAIN_BATCH} pulling open_recordio_file -> "
+              f"shuffle({FEED_SHUFFLE}) -> batch -> double_buffer -> "
+              f"read_file with no feed: {READER_CMP_STEPS} batches bitwise "
+              f"the host's DataFeeder batches and their losses the fed "
+              f"program's ({first_s:.1f} s with the file's read and the "
+              f"warm-ups); step p50 {p50:.1f} ms ({out['img_per_s']:.1f} "
+              f"img/s; train_feeder's run_steps {fed.get('per_step_p50_ms')} "
+              f"ms a step), consumer wait {out['wait_ms_per_step']:.2f} ms a "
+              f"step (train_feeder's {out['train_feeder']['wait_ms_per_step']}"
+              f"); EOFException after {n_batches} batches, then a pass "
+              f"after reset(); busy {prof['busy_ms']:.1f} ms "
+              f"({prof['busy_share']:.1%}) of a replay; launches per step "
+              f"{out['launches_per_step']} ({card})", flush=True)
+        return out["launches_per_step"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_report(build_log: dict) -> dict:
     """Print ptxas's registers, spills and serialized-wgmma warnings for every
     kernel of every library in `build_log` (cuda_build.BUILD_LOG: name ->
@@ -7778,6 +8485,27 @@ def main(argv=None) -> int:
     phase_decode_beam(pt, trained, report)
     del trained
     phase_train_srl(pt, report)
+    # the training front end: K7-K9 from the recipe's and the optimizer
+    # passes' replays, K2-K6 from the reader layers' replay, by their traces
+    front_end = {"train_lm_recipe": phase_train_lm_recipe(pt, report),
+                 "train_optimizers": phase_train_optimizers(pt, report)}
+    for k in attn_kernels:
+        if k["name"].endswith("_f32"):
+            continue
+        key = "attn." + counter[k["name"]]
+        for path, traced in front_end.items():
+            if traced.get(key):
+                k["launches_by_path"][path] = traced[key]
+        k["launches"] = sum(k["launches_by_path"].values())
+    with _kept_graphs():
+        reader = phase_train_reader_layers(pt, conv_cuda, bn_cuda, resnet,
+                                           report)
+    for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
+                                      "stats_launches", "apply_launches",
+                                      "act_launches")):
+        table = "bn." if key in ("apply_launches", "act_launches") else "conv."
+        k["launches_by_path"]["train_reader_layers"] = reader[table + key]
+        k["launches"] = sum(k["launches_by_path"].values())
     kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
                + [k11, q1, s1]}
     report.update(kernels)

@@ -7,8 +7,8 @@ counterpart. The port serves and trains image classifiers and the
 transformer language model: Program/Block IR, the layers DSL for ResNet
 and the transformer, AMP O1/O2 and int8 serving (O3, quant.py),
 checkpoint and inference-model save/load (io.py), append_backward with
-generic and explicit grad ops, the SGD/Momentum/Adam optimizers, an eager
-Executor, the conv -> batch_norm [-> act] windows (the inference fold and
+generic and explicit grad ops, an Executor that graphs each step on the
+card, the conv -> batch_norm [-> act] windows (the inference fold and
 the training kernels), the ServingEngine, and eleven hand-written kernels:
 K1-K4 and K11, the conv forward, grad-input, grad-filter, conv+statistics
 and int8 conv kernels in CUDA C++ for sm_90a (ops/conv_cuda.py); K5-K6,
@@ -29,7 +29,16 @@ datasets. Control flow: sub-blocks, While / ConditionalBlock / IfElse /
 Switch / StaticRNN / DynamicRNN with the grads of while and
 conditional_block, tensor arrays, beam search, the linear-chain CRF and
 CTC (ops/control_flow_ops.py, layers/control_flow.py), and the conll05,
-wmt14 and wmt16 datasets.
+wmt14 and wmt16 datasets. The training front end: the optimizer family
+(SGD, Momentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
+Ftrl, and the proximal ops), ModelAverage, gradient clipping by value,
+norm and global norm (clip.py, the global norm published as the
+optimizer_global_norm gauge), L1 and L2 decay, the learning-rate schedules
+on the global step counter (layers/learning_rate_scheduler.py), the
+Variable operators (layers/math_op_patch.py), calc_gradient, the tensor
+and loss op families, the save/load ops, the in-program reader layers
+(layers/io.py: open_recordio_file, shuffle, batch, multi_pass,
+double_buffer, read_file, pulled by Executor.run) and the mq2007 dataset.
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -49,10 +58,16 @@ from .initializer import (Constant, ConstantInitializer, Normal,
 from .param_attr import ParamAttr
 from . import amp
 from . import backward
-from .backward import append_backward
+from .backward import append_backward, calc_gradient
 from . import regularizer
 from . import clip
 from . import optimizer
+from .optimizer import (SGD, SGDOptimizer, Momentum, MomentumOptimizer,
+                        Adagrad, AdagradOptimizer, Adam, AdamOptimizer,
+                        Adamax, AdamaxOptimizer, DecayedAdagrad,
+                        DecayedAdagradOptimizer, Adadelta, AdadeltaOptimizer,
+                        RMSProp, RMSPropOptimizer, Ftrl, FtrlOptimizer)
+from . import average
 from . import io
 from . import quant
 from . import interop

@@ -10,8 +10,9 @@ one re-runs the forward lowering under torch.autograd).
 
 Fan-in accumulation: when several consumers contribute to one variable's
 gradient, later contributions are renamed and summed eagerly (pairwise `sum`
-ops), the reference's @RENAME@ + sum_op insertion. `calc_gradient` waits
-for a later slice.
+ops), the reference's @RENAME@ + sum_op insertion. `calc_gradient` takes
+the gradients of several targets, weighted by given cotangents, with
+respect to any variables.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from .framework.framework import (Block, Operator, Parameter, Variable,
                                   grad_var_name)
 from .ops import registry
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "calc_gradient"]
 
 
 def _collect_no_grad(block: Block, extra: Optional[Set[str]]) -> Set[str]:
@@ -203,3 +204,40 @@ def append_backward(loss: Variable, parameter_list: Optional[Sequence] = None,
         if op_.type == "lookup_table_grad" and op_.attr("is_sparse", False):
             sparse_names.update(op_.output_arg_names)
     return result
+
+
+def calc_gradient(targets, inputs, target_gradients=None,
+                  no_grad_set: Optional[Set[str]] = None):
+    """Gradients of `targets` with respect to `inputs` (reference
+    backward.py:555; JAX backward.py:251), None for an input the targets do
+    not reach. Several targets and their cotangents `target_gradients`
+    (ones where absent) are differentiated as sum_i reduce_sum(t_i * tg_i),
+    which by the linearity of the vjp is the reference's accumulation over
+    targets. The grad ops go into the targets' program."""
+    targets = list(targets) if isinstance(targets, (list, tuple)) \
+        else [targets]
+    inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    if target_gradients is None:
+        target_gradients = [None] * len(targets)
+    elif not isinstance(target_gradients, (list, tuple)):
+        target_gradients = [target_gradients]
+    if len(target_gradients) != len(targets):
+        raise ValueError(f"{len(targets)} targets but "
+                         f"{len(target_gradients)} target gradients")
+    program = targets[0].block.program
+    from .framework.framework import program_guard
+    from . import layers
+    with program_guard(program):
+        parts = [layers.reduce_sum(t if tg is None
+                                   else layers.elementwise_mul(t, tg))
+                 for t, tg in zip(targets, target_gradients)]
+        loss = parts[0]
+        for p in parts[1:]:
+            loss = layers.elementwise_add(loss, p)
+    append_backward(loss, no_grad_set=no_grad_set)
+    block = program.global_block()
+    outs = []
+    for v in inputs:
+        gname = grad_var_name(v.name)
+        outs.append(block.var(gname) if block.has_var(gname) else None)
+    return outs

@@ -561,7 +561,9 @@ COUNTERS = Counters()
 # ops that draw from ctx.generator. Each op's generator is registered with
 # every graph that draws from it and seeded before each replay, so a replay
 # draws what the eager step of the same run counter draws
-RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
+RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout",
+                        "uniform_random_batch_size_like",
+                        "gaussian_random_batch_size_like"})
 
 # ops that decide their path on the host (a `while` condition, a
 # `conditional_block` predicate) or act there (`print`): a block holding one
@@ -571,6 +573,20 @@ RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout"})
 # the lengths on the device
 HOST_CONTROL_OPS = frozenset({"while", "while_grad", "conditional_block",
                               "conditional_block_grad", "print"})
+
+# ops that read or write a file on the host (ops/misc_ops.py): a block
+# holding one runs eager under the gate's reason "host_io", since a replay
+# would skip the write, or return the file's contents at capture
+HOST_IO_OPS = frozenset({"save", "save_combine", "load", "load_combine"})
+
+
+def telemetry_fetch_enabled() -> bool:
+    """PADDLE_TPU_TELEMETRY_FETCH (default on; JAX executor.py:290), read
+    at every run: the program's `_telemetry_fetch_extra` marks (the clip
+    pass's global norm) are fetched beside the caller's list and published
+    as gauges, a read of the device each step; 0 skips them."""
+    return os.environ.get("PADDLE_TPU_TELEMETRY_FETCH", "1") == "1"
+
 
 # ops that take a SelectedRows input as it is (executor.py:384): the sparse
 # sum, the optimizers with a sparse apply and their fused buckets. Any other
@@ -947,7 +963,11 @@ class Executor:
         `use_program_cache` is False."""
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
+        feed = self._pull_readers(program, feed)
         fetch_names = _names(fetch_list)
+        n_user = len(fetch_names)
+        extra = self._telemetry_extra(program, fetch_names)
+        fetch_names += [n for _, n in extra]
         cache = getattr(program, "_emb_cache", None)
         if cache is not None and feed:
             feed = cache.prepare_feed(feed)
@@ -978,7 +998,48 @@ class Executor:
             cache.window_dispatched()
         scope.set_var("__rng_counter__", rng_counter + 1)
         self._write_back(program, scope, written, lens)
-        return self._fetch_out(fetch_names, fetch, lens, return_numpy)
+        out = self._fetch_out(fetch_names, fetch, lens, return_numpy)
+        if extra:
+            from . import telemetry
+            label = telemetry.program_label(program)
+            for (metric, _n), v in zip(extra, out[n_user:]):
+                telemetry.gauge(metric, labels=("program",)).labels(
+                    program=label).set(float(v.reshape(-1)[0]))
+        return out[:n_user]
+
+    def _pull_readers(self, program, feed):
+        """`feed` with the next batch of each program-bound reader
+        (layers.read_file) whose variables the caller did not feed (JAX
+        executor.py:1075): the executor's half of the reference's reader
+        ops. Feeding some of a reader's variables but not all raises; an
+        exhausted reader raises layers.EOFException."""
+        readers = getattr(program, "_pipeline_readers", None)
+        if not readers:
+            return feed
+        feed = dict(feed or {})
+        for reader, names in readers:
+            fed = [n for n in names if n in feed]
+            if fed:
+                if len(fed) != len(names):
+                    raise ValueError(
+                        f"Reader variables {sorted(set(names) - set(fed))} "
+                        f"are not in the feed but their sibling(s) {fed} "
+                        f"are; feed all of a reader's outputs or none "
+                        f"(pipeline pull is all-or-nothing)")
+                continue
+            feed.update(zip(names, reader.next_batch(self.device)))
+        return feed
+
+    @staticmethod
+    def _telemetry_extra(program, fetch_names):
+        """[(gauge name, variable name)] of the program's telemetry marks
+        to fetch beside `fetch_names`, when PADDLE_TPU_TELEMETRY_FETCH is
+        on."""
+        marked = getattr(program, "_telemetry_fetch_extra", None)
+        if not marked or not telemetry_fetch_enabled():
+            return []
+        return [(m, n) for m, n in sorted(marked.items())
+                if n not in fetch_names]
 
     @staticmethod
     def _write_back(program, scope, written, lens):
@@ -1181,10 +1242,11 @@ class Executor:
         "control_flow" (the block, or a sub-block it runs, holds a `while`,
         a `conditional_block`, their grads or a `print`: HOST_CONTROL_OPS,
         which read a device value on the host to choose their path, or
-        print there). A random op is graphed (RANDOM_OPS), and so is a LoD
-        feed: its lengths are feeds of the graph, each padded length its
-        own signature; so is an `rnn`, whose trip count is the padded
-        length."""
+        print there), "host_io" (it holds a save or load op, HOST_IO_OPS,
+        which write or read a file on the host). A random op is graphed
+        (RANDOM_OPS), and so is a LoD feed: its lengths are feeds of the
+        graph, each padded length its own signature; so is an `rnn`, whose
+        trip count is the padded length."""
         if use_jit is False:
             return "use_jit"
         if self.device.type != "cuda":
@@ -1194,6 +1256,8 @@ class Executor:
         reads, writes, persistable, types = self._analysis(program)
         if types & HOST_CONTROL_OPS:
             return "control_flow"
+        if types & HOST_IO_OPS:
+            return "host_io"
         if not reads - set(feed) and writes & persistable:
             return "startup"
         return None

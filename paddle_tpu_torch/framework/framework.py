@@ -334,6 +334,18 @@ class Block:
         self._infer_shape(op)
         return op
 
+    def prepend_op(self, type: str, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
+        """An op at index 0 (the step counter's increment, so every later
+        op of the step reads the advanced count)."""
+        desc = self._make_op(type, inputs, outputs, attrs)
+        op = Operator(self, desc)
+        self.desc.ops.insert(0, desc)
+        self.ops.insert(0, op)
+        self.program._version += 1
+        self._infer_shape(op)
+        return op
+
     def _infer_shape(self, op: Operator):
         from ..ops import registry  # local import to avoid a cycle
         opdef = registry.try_get(op.type)

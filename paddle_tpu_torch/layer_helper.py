@@ -99,6 +99,9 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_variable(self, **kwargs) -> Variable:
+        return self.block.create_var(**kwargs)
+
     def create_global_variable(self, persistable=False, **kwargs) -> Variable:
         return self.main_program.global_block().create_var(
             persistable=persistable, **kwargs)

@@ -27,13 +27,24 @@ __all__ = [
     "dropout", "cos_sim", "transpose", "topk", "linear_chain_crf",
     "crf_decoding", "beam_search", "beam_search_decode", "warpctc",
     "ctc_greedy_decoder", "ctc_align", "edit_distance", "chunk_eval",
+    "mul", "reverse", "split", "one_hot", "clip", "clip_by_norm", "expand",
+    "squeeze", "unsqueeze", "gather", "scatter", "multiplex",
+    "sigmoid_cross_entropy_with_logits", "smooth_l1", "log_loss",
+    "label_smooth", "auc", "l1_norm", "l2_normalize",
+    "autoincreased_step_counter",
 ]
 
 
-def _simple(op_type, x, attrs=None, name=None, outs=("Out",), in_slot="X"):
+def _simple(op_type, x, attrs=None, extra_inputs=None, out_dtype=None,
+            name=None, outs=("Out",), in_slot="X"):
     helper = LayerHelper(op_type, name=name)
-    outvars = [helper.create_tmp_variable(dtype=x.dtype) for _ in outs]
-    helper.append_op(type=op_type, inputs={in_slot: [x]},
+    inputs = {in_slot: [x]}
+    if extra_inputs:
+        inputs.update({k: v if isinstance(v, list) else [v]
+                       for k, v in extra_inputs.items() if v is not None})
+    outvars = [helper.create_tmp_variable(dtype=out_dtype or x.dtype)
+               for _ in outs]
+    helper.append_op(type=op_type, inputs=inputs,
                      outputs={s: [v] for s, v in zip(outs, outvars)},
                      attrs=attrs or {})
     return outvars[0] if len(outvars) == 1 else tuple(outvars)
@@ -565,3 +576,172 @@ def chunk_eval(input, label, chunk_scheme, num_chunk_types,
                "chunk_scheme": chunk_scheme,
                "excluded_chunk_types": excluded_chunk_types or []})
     return tuple(outs)
+
+
+# --- tensor and loss layers (JAX layers/nn.py:173-210, :439, :482-660,
+# :698-715, :1074) ----------------------------------------------------------------
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    """x @ y with each flattened to 2-D at its num_col_dims (nn.py:498)."""
+    return _simple("mul", x, attrs={"x_num_col_dims": x_num_col_dims,
+                                    "y_num_col_dims": y_num_col_dims},
+                   extra_inputs={"Y": y}, name=name)
+
+
+def reverse(x, axis, name=None):
+    """x flipped along `axis` (an int or a list)."""
+    axis = [axis] if isinstance(axis, int) else list(axis)
+    return _simple("reverse", x, attrs={"axis": axis}, name=name)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """`num_or_sections` equal parts, or parts of those sizes, along dim."""
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = len(num_or_sections), list(num_or_sections)
+    outs = [helper.create_tmp_variable(dtype=input.dtype) for _ in range(num)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"axis": dim, "sections": sections,
+                            "num": 0 if sections else num})
+    return outs
+
+
+def one_hot(input, depth):
+    return _simple("one_hot", input, attrs={"depth": depth},
+                   out_dtype="float32")
+
+
+def clip(x, min, max, name=None):
+    return _simple("clip", x, attrs={"min": float(min), "max": float(max)},
+                   name=name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _simple("clip_by_norm", x, attrs={"max_norm": float(max_norm)},
+                   name=name)
+
+
+def expand(x, expand_times, name=None):
+    return _simple("expand", x, attrs={"expand_times": list(expand_times)},
+                   name=name)
+
+
+def squeeze(input, axes, name=None):
+    return _simple("squeeze", input, attrs={"axes": list(axes)}, name=name)
+
+
+def unsqueeze(input, axes, name=None):
+    return _simple("unsqueeze", input, attrs={"axes": list(axes)}, name=name)
+
+
+def gather(input, index):
+    return _simple("gather", input, extra_inputs={"Index": index})
+
+
+def scatter(input, index, updates, name=None):
+    return _simple("scatter", input,
+                   extra_inputs={"Ids": index, "Updates": updates}, name=name)
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex")
+    out = helper.create_tmp_variable(dtype=inputs[0].dtype)
+    helper.append_op(type="multiplex", inputs={"X": inputs, "Ids": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label):
+    return _simple("sigmoid_cross_entropy_with_logits", x,
+                   extra_inputs={"Label": label})
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    diff = helper.create_tmp_variable(dtype=x.dtype)
+    loss = helper.create_tmp_variable(dtype=x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [loss]},
+                     attrs={"sigma": sigma or 1.0})
+    return loss
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    loss = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [loss]}, attrs={"epsilon": epsilon})
+    return loss
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """(1 - epsilon) label + epsilon prior (uniform when prior_dist is
+    None): the transformer's label smoothing over one_hot labels."""
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_tmp_variable(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]}, attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200, topk=1):
+    helper = LayerHelper("auc")
+    auc_out = helper.create_tmp_variable(dtype="float32")
+    helper.append_op(type="auc", inputs={"Out": [input], "Label": [label]},
+                     outputs={"AUC": [auc_out]},
+                     attrs={"curve": curve, "num_thresholds": num_thresholds})
+    return auc_out
+
+
+def l1_norm(x, name=None):
+    """Sum of absolute values (reference l1_norm_op.cc)."""
+    helper = LayerHelper("l1_norm")
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="l1_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    norm = helper.create_tmp_variable(dtype=x.dtype, stop_gradient=True)
+    helper.append_op(type="norm", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """The global step counter (reference nn.py:3291): persistable int64
+    `@STEP_COUNTER@` [1], begin - 1 after the startup, advanced in place by
+    an `increment` at index 0 of the global block, so the step's first op
+    makes it begin, begin + step, ... The LR schedules read it."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    gblock = helper.main_program.global_block()
+    if gblock.has_var(counter_name):
+        return gblock.var(counter_name)
+    counter = gblock.create_var(name=counter_name, dtype="int64", shape=[1],
+                                persistable=True)
+    helper.set_variable_initializer(
+        counter, ConstantInitializer(float(begin - 1)))
+    gblock.prepend_op(type="increment", inputs={"X": [counter]},
+                      outputs={"Out": [counter]}, attrs={"step": float(step)})
+    counter.stop_gradient = True
+    counter.desc.stop_gradient = True
+    return counter

@@ -1,6 +1,5 @@
-"""Tensor-creation layers, the part the training slices use (the port's
-counterpart of paddle_tpu/layers/tensor.py; reference
-python/paddle/fluid/layers/tensor.py)."""
+"""Tensor-creation layers (the port's counterpart of
+paddle_tpu/layers/tensor.py; reference python/paddle/fluid/layers/tensor.py)."""
 
 from __future__ import annotations
 
@@ -11,9 +10,35 @@ from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "create_global_var", "cast", "concat",
-           "assign", "fill_constant", "fill_constant_batch_size_like",
-           "argmin", "argmax"]
+__all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
+           "concat", "sums", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "ones", "zeros", "argmin",
+           "argmax"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    """A variable of the current block with no producer yet (tensor.py:18),
+    for an op's `out=` or an assign to fill."""
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
+
+
+def sums(input, out=None):
+    """The elementwise sum of the `input` list (tensor.py:61)."""
+    helper = LayerHelper("sum", input=input)
+    if out is None:
+        out = helper.create_tmp_variable(dtype=helper.input_dtype())
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
+    return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0)
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,

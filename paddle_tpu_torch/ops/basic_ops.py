@@ -1,7 +1,9 @@
-"""Basic ops: fills, randoms, scale, top_k, reshape, concat (the port's
-counterpart of paddle_tpu/ops/basic_ops.py; reference fill_constant_op.cc,
-uniform_random_op.cc, gaussian_random_op.cc, scale_op.cc, top_k_op.cc,
-reshape_op.cc, concat_op.cc).
+"""Basic ops: fills, randoms, casts, scale, shape manipulation, indexing,
+sign and clipping (the port's counterpart of paddle_tpu/ops/basic_ops.py;
+reference fill_constant_op.cc, uniform_random_op.cc, gaussian_random_op.cc,
+scale_op.cc, top_k_op.cc, reshape_op.cc, concat_op.cc, split_op.cc,
+expand_op.cc, gather_op.cc, scatter_op.cc, one_hot_op.cc, multiplex_op.cc,
+sign_op.cc, clip_op.cc, clip_by_norm_op.cc).
 
 The random ops draw from a torch.Generator that the executor seeds per op
 (executor.LoweringContext.generator). Its numbers differ from JAX's
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import in_var, same_as_input, set_out, to_torch_dtype
+from .common import in_var, out_var, same_as_input, set_out, to_torch_dtype
 from .registry import NO_GRAD, cotangent, grad_op, op, register, zero_grads
 
 # --- feed / fetch: no lowering, the executor handles them (reference
@@ -330,3 +332,225 @@ def _shape(ctx, op_, ins):
     x = ins["Input"][0] if "Input" in op_.desc.inputs else ins["X"][0]
     return {"Out": [_attr_constant(ctx, list(x.shape), "int64",
                                    (x.dim(),))]}
+
+
+# --- batch-size-like randoms (JAX basic_ops.py:124-146) ------------------------
+
+def _bsl_shape(op_, x):
+    shape = list(op_.attr("shape"))
+    shape[op_.attr("output_dim_idx", 0)] = x.shape[op_.attr("input_dim_idx", 0)]
+    return tuple(shape)
+
+
+@op("uniform_random_batch_size_like", infer_shape=_fill_bsl_infer,
+    grad=NO_GRAD)
+def _uniform_random_bsl(ctx, op_, ins):
+    """uniform_random at the shape attr with one dim taken from Input."""
+    dtype = to_torch_dtype(op_.attr("dtype", "float32"))
+    lo, hi = op_.attr("min", -1.0), op_.attr("max", 1.0)
+    u = torch.rand(_bsl_shape(op_, ins["Input"][0]),
+                   generator=ctx.generator(op_), dtype=torch.float32,
+                   device=ctx.device)
+    return {"Out": [(u * (hi - lo) + lo).to(dtype)]}
+
+
+@op("gaussian_random_batch_size_like", infer_shape=_fill_bsl_infer,
+    grad=NO_GRAD)
+def _gaussian_random_bsl(ctx, op_, ins):
+    dtype = to_torch_dtype(op_.attr("dtype", "float32"))
+    z = torch.randn(_bsl_shape(op_, ins["Input"][0]),
+                    generator=ctx.generator(op_), dtype=torch.float32,
+                    device=ctx.device)
+    out = op_.attr("mean", 0.0) + op_.attr("std", 1.0) * z
+    return {"Out": [out.to(dtype)]}
+
+
+# --- sign / clip (reference sign_op.cc, clip_op.cc, clip_by_norm_op.cc;
+# JAX basic_ops.py:196-213) -----------------------------------------------------
+
+@op("sign", infer_shape=same_as_input(), grad=NO_GRAD)
+def _sign(ctx, op_, ins):
+    return {"Out": [torch.sign(ins["X"][0])]}
+
+
+@op("clip", infer_shape=same_as_input())
+def _clip(ctx, op_, ins):
+    """jnp.clip: min(max(x, lo), hi), whose gradient splits a tie on a
+    bound between x and the bound (math_ops._clip)."""
+    from .math_ops import _clip as clip_fn
+    return {"Out": [clip_fn(ins["X"][0], op_.attr("min"), op_.attr("max"))]}
+
+
+@op("clip_by_norm", infer_shape=same_as_input())
+def _clip_by_norm(ctx, op_, ins):
+    """x scaled to L2 norm `max_norm` when its norm exceeds it; the scale
+    is computed in the norm's dtype and applied in x's."""
+    x = ins["X"][0]
+    max_norm = op_.attr("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return {"Out": [x * scale.to(x.dtype)]}
+
+
+# --- shape manipulation (JAX basic_ops.py:259-390) ------------------------------
+
+def _same_shape_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    if iv is not None and iv.shape is not None:
+        set_out(op_, block, "Out", list(iv.shape), iv.dtype)
+
+
+@op("reverse", infer_shape=_same_shape_infer)
+def _reverse(ctx, op_, ins):
+    """x flipped along the `axis` list; linear, so the generic grad flips
+    the cotangent back."""
+    return {"Out": [torch.flip(ins["X"][0], tuple(op_.attr("axis")))]}
+
+
+def _set_out_i(op_, block, slot, i, shape, dtype):
+    v = out_var(op_, block, slot, i)
+    if v is not None:
+        v.shape = list(shape) if shape is not None else None
+        v.dtype = dtype
+
+
+def _split_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    axis = op_.attr("axis", 0)
+    n = len(op_.desc.outputs.get("Out", []))
+    sections = op_.attr("sections") or None
+    if iv is None or iv.shape is None:
+        return
+    for i in range(n):
+        s = list(iv.shape)
+        if sections:
+            s[axis] = sections[i]
+        elif s[axis] is not None and s[axis] > 0:
+            s[axis] = s[axis] // n
+        _set_out_i(op_, block, "Out", i, s, iv.dtype)
+
+
+@op("split", infer_shape=_split_infer)
+def _split(ctx, op_, ins):
+    """`sections` sizes along `axis`, or `num` equal parts."""
+    x = ins["X"][0]
+    axis = op_.attr("axis", 0)
+    sections = op_.attr("sections") or None
+    if sections:
+        return {"Out": list(torch.split(x, list(sections), dim=axis))}
+    n = op_.attr("num", 0) or len(op_.desc.outputs["Out"])
+    return {"Out": list(torch.split(x, x.shape[axis] // n, dim=axis))}
+
+
+def _expand_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    times = op_.attr("expand_times")
+    if iv is not None and iv.shape is not None:
+        set_out(op_, block, "Out",
+                [None if d is None else d * t
+                 for d, t in zip(iv.shape, times)], iv.dtype)
+
+
+@op("expand", infer_shape=_expand_infer)
+def _expand(ctx, op_, ins):
+    """jnp.tile: each dim repeated `expand_times` times."""
+    return {"Out": [ins["X"][0].repeat(*op_.attr("expand_times"))]}
+
+
+def _squeeze_axes(shape, axes):
+    if axes:
+        axes = [a % len(shape) for a in axes]
+        return [d for i, d in enumerate(shape) if i not in axes]
+    return [d for d in shape if d != 1]
+
+
+def _squeeze_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    if iv is not None and iv.shape is not None:
+        set_out(op_, block, "Out",
+                _squeeze_axes(list(iv.shape), op_.attr("axes") or []),
+                iv.dtype)
+
+
+@op("squeeze", infer_shape=_squeeze_infer)
+def _squeeze(ctx, op_, ins):
+    x = ins["X"][0]
+    return {"Out": [x.reshape(_squeeze_axes(list(x.shape),
+                                            op_.attr("axes") or []))]}
+
+
+def _unsqueeze_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    if iv is not None and iv.shape is not None:
+        shape = list(iv.shape)
+        for a in sorted(op_.attr("axes")):
+            shape.insert(a, 1)
+        set_out(op_, block, "Out", shape, iv.dtype)
+
+
+@op("unsqueeze", infer_shape=_unsqueeze_infer)
+def _unsqueeze(ctx, op_, ins):
+    x = ins["X"][0]
+    for a in sorted(op_.attr("axes")):
+        x = x.unsqueeze(a)
+    return {"Out": [x]}
+
+
+# --- indexing (reference gather_op.cc, scatter_op.cc, one_hot_op.cc,
+# multiplex_op.cc; JAX basic_ops.py:394-450) -----------------------------------
+
+def _gather_infer(op_, block):
+    xv, iv = in_var(op_, block, "X"), in_var(op_, block, "Index")
+    if xv is not None and xv.shape is not None and iv is not None \
+            and iv.shape is not None:
+        set_out(op_, block, "Out", list(iv.shape[:1]) + list(xv.shape[1:]),
+                xv.dtype)
+
+
+@op("gather", infer_shape=_gather_infer, non_diff_inputs=("Index",))
+def _gather(ctx, op_, ins):
+    """Rows of X by Index; the generic grad adds the cotangent's rows back
+    into place (a repeated index sums)."""
+    idx = ins["Index"][0].reshape(-1).long()
+    return {"Out": [ins["X"][0].index_select(0, idx)]}
+
+
+@op("scatter", infer_shape=same_as_input("X", "Out"), non_diff_inputs=("Ids",))
+def _scatter(ctx, op_, ins):
+    """X with rows Ids overwritten by Updates (x.at[ids].set(upd)). Which
+    of a repeated id's rows wins is left open in both packages, and is not
+    deterministic on the card."""
+    ids = ins["Ids"][0].reshape(-1).long()
+    return {"Out": [ins["X"][0].index_put((ids,), ins["Updates"][0])]}
+
+
+def _one_hot_infer(op_, block):
+    iv = in_var(op_, block, "X")
+    if iv is not None and iv.shape is not None:
+        shape = list(iv.shape)
+        if shape and shape[-1] == 1:
+            shape = shape[:-1]
+        set_out(op_, block, "Out", shape + [op_.attr("depth")], "float32")
+
+
+@op("one_hot", infer_shape=_one_hot_infer, grad=NO_GRAD)
+def _one_hot(ctx, op_, ins):
+    """f32 one-hot rows of depth `depth`, as jax.nn.one_hot builds them:
+    a comparison with 0..depth-1, so an id out of range gives a row of
+    zeros, and nothing is read back to the host."""
+    x = ins["X"][0]
+    if x.dim() and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    depth = torch.arange(op_.attr("depth"), device=x.device)
+    return {"Out": [(x.unsqueeze(-1) == depth).to(torch.float32)]}
+
+
+@op("multiplex", non_diff_inputs=("Ids",))
+def _multiplex(ctx, op_, ins):
+    """Row i of the output is row i of X[Ids[i]]."""
+    ids = ins["Ids"][0].reshape(-1).long()
+    stack = torch.stack(list(ins["X"]), dim=0)
+    rows = torch.arange(stack.shape[1], device=stack.device)
+    return {"Out": [stack[ids, rows]]}

@@ -1,7 +1,8 @@
 """Math ops: mul, matmul, elementwise with axis broadcast, activations,
-reductions, sum
+reductions, sum, cumsum, norm, the bilinear tensor product
 (the port's counterpart of paddle_tpu/ops/math_ops.py; reference mul_op.cc,
-matmul_op.cc, elementwise_*_op.cc, activation_op.cc, reduce_op.cc, mean_op.cc)."""
+matmul_op.cc, elementwise_*_op.cc, activation_op.cc, reduce_op.cc, mean_op.cc,
+cumsum_op.cc, norm_op.cc, bilinear_tensor_product_op.cc)."""
 
 from __future__ import annotations
 
@@ -518,3 +519,57 @@ def _mean_grad(ctx, op_, ins):
     m, denom = masked
     return {"X@GRAD": [(dout.reshape(()) / denom * m).expand(x.shape)
                        .contiguous()]}
+
+
+# --- bilinear product, cumsum, norm (reference bilinear_tensor_product_op.cc,
+# cumsum_op.cc, norm_op.cc; JAX math_ops.py:123, :338, :379) -------------------
+
+def _bilinear_infer(op_, block):
+    xv = in_var(op_, block, "X")
+    wv = in_var(op_, block, "Weight")
+    if xv is not None and xv.shape is not None and wv is not None \
+            and wv.shape is not None:
+        set_out(op_, block, "Out", [xv.shape[0], wv.shape[0]], xv.dtype)
+
+
+@op("bilinear_tensor_product", infer_shape=_bilinear_infer)
+def _bilinear_tensor_product(ctx, op_, ins):
+    """out[b, o] = x[b] W[o] y[b] (+ bias), X [B, M], Y [B, N], W [O, M, N]."""
+    (x, y, w), restore = mxu_cast(ctx, ins["X"][0], ins["Y"][0],
+                                  ins["Weight"][0])
+    out = torch.einsum("bm,omn,bn->bo", x, w, y)
+    if restore is not None:
+        out = out.to(restore)
+    bias = ins.get("Bias")
+    if bias and bias[0] is not None:
+        out = out + bias[0].to(out.dtype)
+    return {"Out": [out]}
+
+
+@op("cumsum", infer_shape=same_as_input())
+def _cumsum(ctx, op_, ins):
+    """Running sum along `axis`; `reverse` sums from the end, `exclusive`
+    leaves each element out of its own sum."""
+    x = ins["X"][0]
+    axis = op_.attr("axis", -1) % max(x.dim(), 1)
+    reverse = op_.attr("reverse", False)
+    if reverse:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, dim=axis)
+    if op_.attr("exclusive", False):
+        zero = torch.zeros_like(out.narrow(axis, 0, 1))
+        out = torch.cat([zero, out.narrow(axis, 0, x.shape[axis] - 1)],
+                        dim=axis)
+    if reverse:
+        out = torch.flip(out, (axis,))
+    return {"Out": [out]}
+
+
+@op("norm", infer_shape=same_as_input())
+def _norm(ctx, op_, ins):
+    """x / sqrt(sum(x^2, axis) + epsilon) along `axis` (l2_normalize), and
+    the norm it divides by."""
+    x = ins["X"][0]
+    n = torch.sqrt(torch.sum(x * x, dim=op_.attr("axis", -1), keepdim=True)
+                   + op_.attr("epsilon", 1e-10))
+    return {"Out": [x / n], "Norm": [n]}

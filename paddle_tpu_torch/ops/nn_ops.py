@@ -1,10 +1,12 @@
 """NN ops: softmax, conv2d and its explicit grad, pool2d, batch_norm, the
 classifier heads (cross_entropy, softmax_with_cross_entropy, accuracy), the
 embedding lookup, layer_norm, and scaled dot-product attention with its
-explicit grad (the port's counterpart of paddle_tpu/ops/nn_ops.py;
-reference softmax_op.cc, conv_op.cc, pool_op.cc, batch_norm_op.cc,
-cross_entropy_op.cc, softmax_with_cross_entropy_op.cc, accuracy_op.cc,
-lookup_table_op.cc, layer_norm_op.cc).
+explicit grad, the loss family (sigmoid cross-entropy, smooth L1, log,
+hinge, huber, rank, margin rank, squared L2, label smoothing) and AUC (the
+port's counterpart of paddle_tpu/ops/nn_ops.py; reference softmax_op.cc,
+conv_op.cc, pool_op.cc, batch_norm_op.cc, cross_entropy_op.cc,
+softmax_with_cross_entropy_op.cc, accuracy_op.cc, lookup_table_op.cc,
+layer_norm_op.cc, auc_op.cc and the loss ops').
 
 Layout: tensors are logical NCHW, as users see them. conv2d returns its
 output in `torch.channels_last` memory, so the NHWC view the kernel reads
@@ -821,3 +823,145 @@ def _sdpa_grad_kernel(ctx, op_, ins):
     return {name: [g] for name, g in (("Q@GRAD", dq), ("K@GRAD", dk),
                                       ("V@GRAD", dv))
             if name in op_.desc.outputs}
+
+
+# --- losses (reference sigmoid_cross_entropy_with_logits_op.cc,
+# smooth_l1_loss_op.cc, log_loss_op.cc, hinge_loss_op.cc, huber_loss_op.cc,
+# rank_loss_op.cc, margin_rank_loss_op.cc, squared_l2_norm_op.cc,
+# squared_l2_distance_op.cc, label_smooth_op.cc; JAX nn_ops.py:89-172,
+# :689). Their grads are the generic one. -----------------------------------------
+
+@op("sigmoid_cross_entropy_with_logits", infer_shape=same_as_input(),
+    non_diff_inputs=("Label",))
+def _sigmoid_ce(ctx, op_, ins):
+    """max(x, 0) - x z + log(1 + exp(-|x|)), the stable form."""
+    x, z = ins["X"][0], ins["Label"][0]
+    return {"Out": [torch.clamp(x, min=0) - x * z
+                    + torch.log1p(torch.exp(-torch.abs(x)))]}
+
+
+def _present(ins, slot):
+    v = ins.get(slot)
+    return v[0] if v and v[0] is not None else None
+
+
+@op("smooth_l1_loss", non_diff_inputs=("Y",))
+def _smooth_l1(ctx, op_, ins):
+    """Per-row sum of the smooth L1 of (x - y) (inside-weighted), quadratic
+    below 1/sigma^2, outside-weighted; Diff is the weighted difference."""
+    x, y = ins["X"][0], ins["Y"][0]
+    sigma2 = op_.attr("sigma", 1.0) ** 2
+    d = x - y
+    inside, outside = _present(ins, "InsideWeight"), _present(ins,
+                                                              "OutsideWeight")
+    if inside is not None:
+        d = d * inside
+    ad = torch.abs(d)
+    diff = torch.where(ad < 1.0 / sigma2, 0.5 * d * d * sigma2,
+                       ad - 0.5 / sigma2)
+    if outside is not None:
+        diff = diff * outside
+    out = torch.sum(diff.reshape(diff.shape[0], -1), dim=1, keepdim=True)
+    return {"Out": [out], "Diff": [d]}
+
+
+@op("log_loss", non_diff_inputs=("Labels",))
+def _log_loss(ctx, op_, ins):
+    p, y = ins["Predicted"][0], ins["Labels"][0]
+    eps = op_.attr("epsilon", 1e-4)
+    return {"Loss": [-y * torch.log(p + eps)
+                     - (1 - y) * torch.log(1 - p + eps)]}
+
+
+@op("hinge_loss", non_diff_inputs=("Labels",))
+def _hinge_loss(ctx, op_, ins):
+    """max(0, 1 - (2 label - 1) pred), labels in {0, 1}."""
+    pred, label = ins["Logits"][0], ins["Labels"][0]
+    return {"Loss": [torch.clamp(1.0 - (2 * label - 1) * pred, min=0.0)]}
+
+
+@op("huber_loss", non_diff_inputs=("Y",))
+def _huber_loss(ctx, op_, ins):
+    x, y = ins["X"][0], ins["Y"][0]
+    delta = op_.attr("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Out": [loss], "Residual": [r]}
+
+
+@op("rank_loss", non_diff_inputs=("Label",))
+def _rank_loss(ctx, op_, ins):
+    """RankNet: log(1 + exp(left - right)) - label (left - right)."""
+    d = ins["Left"][0] - ins["Right"][0]
+    return {"Out": [torch.log1p(torch.exp(d)) - ins["Label"][0] * d]}
+
+
+@op("margin_rank_loss", non_diff_inputs=("Label",))
+def _margin_rank_loss(ctx, op_, ins):
+    label, x1, x2 = ins["Label"][0], ins["X1"][0], ins["X2"][0]
+    act = torch.clamp(-label * (x1 - x2) + op_.attr("margin", 0.0), min=0.0)
+    return {"Out": [act], "Activated": [(act > 0).to(x1.dtype)]}
+
+
+@op("squared_l2_norm")
+def _squared_l2_norm(ctx, op_, ins):
+    x = ins["X"][0]
+    return {"Out": [torch.sum(x * x).reshape(1)]}
+
+
+@op("squared_l2_distance")
+def _squared_l2_distance(ctx, op_, ins):
+    sub = ins["X"][0] - ins["Y"][0]
+    return {"Out": [torch.sum(sub * sub, dim=1, keepdim=True)],
+            "sub_result": [sub]}
+
+
+@op("label_smooth", non_diff_inputs=("PriorDist",))
+def _label_smooth(ctx, op_, ins):
+    """(1 - eps) x + eps * prior, the prior uniform over the last dim when
+    PriorDist is absent."""
+    x = ins["X"][0]
+    eps = op_.attr("epsilon", 0.0)
+    prior = _present(ins, "PriorDist")
+    if prior is not None:
+        return {"Out": [(1 - eps) * x + eps * prior]}
+    return {"Out": [(1 - eps) * x + eps / x.shape[-1]]}
+
+
+def auc_thresholds(num_t: int) -> np.ndarray:
+    """The AUC op's thresholds, the JAX package's jnp.linspace(0, 1, num_t)
+    bit for bit: XLA divides the f32 iota by the constant num_t - 1 as a
+    product with its f32 reciprocal, so threshold i is i * (1 / (num_t -
+    1)) rounded once (5/6 comes out 0.8333334, one ulp above the quotient),
+    and the last is 1. A score equal to a threshold counts at it (`>=`),
+    so a threshold one ulp off would move such a score to another
+    bucket."""
+    if num_t == 1:
+        return np.zeros(1, np.float32)
+    recip = np.float32(1) / np.float32(num_t - 1)
+    th = np.arange(num_t - 1, dtype=np.float32) * recip
+    return np.concatenate([th, np.ones(1, np.float32)]).astype(np.float32)
+
+
+@op("auc", grad=NO_GRAD)
+def _auc(ctx, op_, ins):
+    """The batch's ROC AUC over `num_thresholds` buckets (reference
+    auc_op.cc; JAX nn_ops.py:761): true and false positive rates at each
+    threshold, integrated by the trapezoid rule."""
+    pred = ins["Out"][0]
+    label = ins["Label"][0].reshape(-1)
+    score = pred[:, 1] if pred.dim() == 2 and pred.shape[1] >= 2 \
+        else pred.reshape(-1)
+    th = ctx.executor.constant(auc_thresholds(
+        op_.attr("num_thresholds", 200)), torch.float32)
+    is_pos = label > 0
+    above = score[None, :] >= th[:, None]
+    tp = torch.sum(above & is_pos[None, :], dim=1)
+    fp = torch.sum(above & ~is_pos[None, :], dim=1)
+    n_pos = torch.clamp(torch.sum(is_pos), min=1)
+    n_neg = torch.clamp(torch.sum(~is_pos), min=1)
+    tpr = tp.to(torch.int32) / n_pos.to(torch.int32)
+    fpr = fp.to(torch.int32) / n_neg.to(torch.int32)
+    auc = -(0.5 * ((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1]))).sum()
+    return {"AUC": [auc.reshape(1).to(torch.float32)]}

@@ -1,6 +1,8 @@
-"""Optimizer update ops, dense grads (the port's counterpart of
+"""Optimizer update ops (the port's counterpart of
 paddle_tpu/ops/optimizer_ops.py; reference sgd_op.cc, momentum_op.cc,
-adam_op.cc).
+adam_op.cc, adagrad_op.cc, adamax_op.cc, decayed_adagrad_op.cc,
+adadelta_op.cc, rmsprop_op.cc, ftrl_op.cc, proximal_gd_op.cc,
+proximal_adagrad_op.cc).
 
 Like the reference, optimizer updates are ops in the program: outputs alias
 the parameter/accumulator input names, and the executor writes them back to
@@ -188,3 +190,115 @@ def _adagrad(ctx, op_, ins):
     mo = ins["Moment"][0] + g * g
     po = p - _lr(ins) * g / (torch.sqrt(mo) + op_.attr("epsilon", 1e-6))
     return {"ParamOut": [po], "MomentOut": [mo]}
+
+
+# --- the rest of the optimizer family (reference adamax_op.cc,
+# decayed_adagrad_op.cc, adadelta_op.cc, rmsprop_op.cc, ftrl_op.cc,
+# proximal_gd_op.cc, proximal_adagrad_op.cc; JAX optimizer_ops.py:158-283).
+# Dense updates only: a SelectedRows grad densifies at the op's boundary in
+# the executor, counted as `sparse_unaware_op`, as in the JAX package. -------
+
+@op("adamax", grad=NO_GRAD,
+    infer_shape=_param_out_infer(("Param", "ParamOut"), ("Moment", "MomentOut"),
+                                 ("InfNorm", "InfNormOut")))
+def _adamax(ctx, op_, ins):
+    p, g = _param_grad(ins, op_.type)
+    b1, b2 = op_.attr("beta1", 0.9), op_.attr("beta2", 0.999)
+    b1p = ins["Beta1Pow"][0].reshape(())
+    mo = b1 * ins["Moment"][0] + (1 - b1) * g
+    uo = torch.maximum(b2 * ins["InfNorm"][0], torch.abs(g))
+    po = p - (_lr(ins) / (1 - b1p)) * mo / (uo + op_.attr("epsilon", 1e-8))
+    return {"ParamOut": [po], "MomentOut": [mo], "InfNormOut": [uo]}
+
+
+@op("decayed_adagrad", grad=NO_GRAD,
+    infer_shape=_param_out_infer(("Param", "ParamOut"), ("Moment", "MomentOut")))
+def _decayed_adagrad(ctx, op_, ins):
+    p, g = _param_grad(ins, op_.type)
+    decay = op_.attr("decay", 0.95)
+    mo = decay * ins["Moment"][0] + (1 - decay) * g * g
+    po = p - _lr(ins) * g / (torch.sqrt(mo) + op_.attr("epsilon", 1e-6))
+    return {"ParamOut": [po], "MomentOut": [mo]}
+
+
+@op("adadelta", grad=NO_GRAD,
+    infer_shape=_param_out_infer(("Param", "ParamOut"),
+                                 ("AvgSquaredGrad", "AvgSquaredGradOut"),
+                                 ("AvgSquaredUpdate", "AvgSquaredUpdateOut")))
+def _adadelta(ctx, op_, ins):
+    """The raw update, no learning rate (adadelta_op.cc)."""
+    p, g = _param_grad(ins, op_.type)
+    rho, eps = op_.attr("rho", 0.95), op_.attr("epsilon", 1e-6)
+    au = ins["AvgSquaredUpdate"][0]
+    ago = rho * ins["AvgSquaredGrad"][0] + (1 - rho) * g * g
+    upd = -torch.sqrt((au + eps) / (ago + eps)) * g
+    auo = rho * au + (1 - rho) * upd * upd
+    return {"ParamOut": [p + upd], "AvgSquaredGradOut": [ago],
+            "AvgSquaredUpdateOut": [auo]}
+
+
+@op("rmsprop", grad=NO_GRAD,
+    infer_shape=_param_out_infer(("Param", "ParamOut"), ("Moment", "MomentOut"),
+                                 ("MeanSquare", "MeanSquareOut")))
+def _rmsprop(ctx, op_, ins):
+    p, g = _param_grad(ins, op_.type)
+    rho, eps = op_.attr("decay", 0.9), op_.attr("epsilon", 1e-10)
+    mso = rho * ins["MeanSquare"][0] + (1 - rho) * g * g
+    momo = op_.attr("momentum", 0.0) * ins["Moment"][0] \
+        + _lr(ins) * g / torch.sqrt(mso + eps)
+    return {"ParamOut": [p - momo], "MomentOut": [momo],
+            "MeanSquareOut": [mso]}
+
+
+@op("ftrl", grad=NO_GRAD,
+    infer_shape=_param_out_infer(("Param", "ParamOut"),
+                                 ("SquaredAccumulator", "SquaredAccumOut"),
+                                 ("LinearAccumulator", "LinearAccumOut")))
+def _ftrl(ctx, op_, ins):
+    """FTRL-proximal as ftrl_op.h computes it: the parameter is
+    (l1 sign(lin) - lin) / y where |lin| > l1, else 0. The JAX package
+    divides clip(lin, -l1, l1) - lin by y everywhere, the same numbers
+    except where y is 0 (no grad ever reached the entry, l2 = 0: an
+    embedding row no batch has looked up), where it makes 0/0 = NaN and
+    the reference's select makes 0; the port follows the reference."""
+    p, g = _param_grad(ins, op_.type)
+    sq, lin = ins["SquaredAccumulator"][0], ins["LinearAccumulator"][0]
+    l1, l2 = op_.attr("l1", 0.0), op_.attr("l2", 0.0)
+    power = op_.attr("lr_power", -0.5)
+    lr = _lr(ins)
+    new_sq = sq + g * g
+    if power == -0.5:
+        root_new, root_old = torch.sqrt(new_sq), torch.sqrt(sq)
+    else:
+        root_new, root_old = torch.pow(new_sq, -power), torch.pow(sq, -power)
+    new_lin = lin + g - (root_new - root_old) / lr * p
+    denom = root_new / lr + 2 * l2
+    shrunk = (l1 * torch.sign(new_lin) - new_lin) / denom
+    po = torch.where(torch.abs(new_lin) > l1, shrunk,
+                     torch.zeros_like(shrunk))
+    return {"ParamOut": [po], "SquaredAccumOut": [new_sq],
+            "LinearAccumOut": [new_lin]}
+
+
+def _proximal(p, g, lr, l1, l2):
+    prox = p - lr * g
+    return torch.sign(prox) * torch.clamp(torch.abs(prox) - lr * l1,
+                                          min=0.0) / (1.0 + lr * l2)
+
+
+@op("proximal_gd", grad=NO_GRAD,
+    infer_shape=_param_out_infer(("Param", "ParamOut")))
+def _proximal_gd(ctx, op_, ins):
+    p, g = _param_grad(ins, op_.type)
+    return {"ParamOut": [_proximal(p, g, _lr(ins), op_.attr("l1", 0.0),
+                                   op_.attr("l2", 0.0))]}
+
+
+@op("proximal_adagrad", grad=NO_GRAD,
+    infer_shape=_param_out_infer(("Param", "ParamOut"), ("Moment", "MomentOut")))
+def _proximal_adagrad(ctx, op_, ins):
+    p, g = _param_grad(ins, op_.type)
+    mo = ins["Moment"][0] + g * g
+    lr = _lr(ins) / torch.sqrt(mo + 1e-12)
+    return {"ParamOut": [_proximal(p, g, lr, op_.attr("l1", 0.0),
+                                   op_.attr("l2", 0.0))], "MomentOut": [mo]}

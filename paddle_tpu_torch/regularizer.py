@@ -1,11 +1,12 @@
 """Weight-decay regularizers appended per parameter (the port's counterpart
 of paddle_tpu/regularizer.py; reference
-python/paddle/fluid/regularizer.py:25-197). L2 decay is ported; L1 decay
-needs the `sign` op and waits for the op-family slice."""
+python/paddle/fluid/regularizer.py:25-197): L2 decay adds coeff * param to
+the grad, L1 decay coeff * sign(param)."""
 
 from __future__ import annotations
 
-__all__ = ["L2Decay", "L2DecayRegularizer", "append_regularization_ops"]
+__all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer",
+           "append_regularization_ops"]
 
 
 class WeightDecayRegularizer:
@@ -20,6 +21,21 @@ class L2DecayRegularizer(WeightDecayRegularizer):
     def __call__(self, param, grad, block):
         decay = block.create_var(dtype=param.dtype, shape=param.shape)
         block.append_op(type="scale", inputs={"X": [param]},
+                        outputs={"Out": [decay]},
+                        attrs={"scale": self._regularization_coeff})
+        return decay
+
+
+class L1DecayRegularizer(WeightDecayRegularizer):
+    def __init__(self, regularization_coeff=0.0):
+        self._regularization_coeff = regularization_coeff
+
+    def __call__(self, param, grad, block):
+        sign = block.create_var(dtype=param.dtype, shape=param.shape)
+        block.append_op(type="sign", inputs={"X": [param]},
+                        outputs={"Out": [sign]})
+        decay = block.create_var(dtype=param.dtype, shape=param.shape)
+        block.append_op(type="scale", inputs={"X": [sign]},
                         outputs={"Out": [decay]},
                         attrs={"scale": self._regularization_coeff})
         return decay
@@ -45,4 +61,5 @@ def append_regularization_ops(parameters_and_grads, regularization=None):
     return params_and_grads
 
 
+L1Decay = L1DecayRegularizer
 L2Decay = L2DecayRegularizer

@@ -275,13 +275,30 @@ def test_no_grad_op_on_the_loss_path_raises_as_in_jax():
 
 
 def test_a_gradient_clip_request_raises():
-    """Only the no-clip path is ported: a parameter that asks for a clip
-    makes minimize raise rather than train unclipped."""
+    """A parameter's clip request through its ParamAttr: a clip attr is
+    applied to its grad before the update (clip.py is ported); anything
+    else makes minimize raise rather than train unclipped."""
     main, startup = pt.Program(), pt.Program()
     with pt.unique_name.guard(), pt.program_guard(main, startup):
         x = pt.layers.data(name="x", shape=[8], dtype="float32")
         h = pt.layers.fc(x, size=6, param_attr=pt.ParamAttr(
             gradient_clip=object()))
         loss = pt.layers.mean(h)
-        with pytest.raises(NotImplementedError, match="clipping"):
+        with pytest.raises(TypeError, match="no gradient clip attr"):
             pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[8], dtype="float32")
+        h = pt.layers.fc(x, size=6, bias_attr=False, param_attr=pt.ParamAttr(
+            name="w", gradient_clip=pt.clip.GradientClipByValue(1e-3)))
+        loss = pt.layers.mean(h)
+        pt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    exe.run(startup, scope=scope)
+    w0 = scope.find_var("w").clone()
+    g, = exe.run(main, feed={"x": np.full((4, 8), 5.0, np.float32)},
+                 fetch_list=["w@GRAD"], scope=scope)
+    assert np.abs(g).max() > 1e-3
+    np.testing.assert_allclose(scope.find_var("w").numpy(),
+                               w0.numpy() - 0.1 * np.clip(g, -1e-3, 1e-3),
+                               rtol=1e-6, atol=1e-9)
