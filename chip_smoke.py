@@ -19,7 +19,9 @@ in fp8; bench.py's DLRM trained with sparse embedding gradients (its 1M-row
 table in place on the card, and again from the hot-row cache) and its dlrm
 model served; bench.py's lstm; the machine-translation seq2seq (the `rnn`
 loop) trained and beam-decoded (a `while` loop) and the SRL tagger (the
-CRF) trained at the book's widths — and holds every kernel of those paths
+CRF) trained at the book's widths; bench.py's AlexNet, GoogLeNet and
+SmallNet trained and two of them served, and a MobileNet-SSD trained and
+its detections served — and holds every kernel of those paths
 against its plain PyTorch version on the card:
 
   1. device   CUDA present (else exit 2), the card's name and power limit;
@@ -317,7 +319,36 @@ against its plain PyTorch version on the card:
               with no feed: batches and losses bitwise the fed path's,
               p50 and the consumer's wait beside train_feeder's,
               EOFException at the pass's end, K2-K6 from a replay's trace;
- 28. result   the kernel table as one JSON line, the card line, then
+ 28. kernel_zoo  K1-K6 at every distinct shape the gates give them on
+              train_zoo's and train_ssd's steps and K1 at serve_zoo's
+              (AlexNet's and GoogLeNet's 5x5 filters, GoogLeNet's 16- and
+              24-channel reductions, the SSD's pointwise convs and their
+              batch norms on 150x150 down to 1x1 maps): each twice
+              bitwise and against its plain version, then timed beside
+              the plain version, one PyTorch call and the bound;
+ 29. train_zoo  bench.py's alexnet and googlenet (224x224, 1000 classes,
+              batch 256) and smallnet (32x32, 10 classes, batch 512),
+              AMP O2, Momentum 0.9 at bench.py's rates, one repeated batch
+              staged on the card: graphed bitwise eager (dropout
+              included), the losses falling, p50, busy share, K1/K2/K3
+              launches a step held to ZOO_LAUNCHES;
+ 30. serve_zoo  alexnet_infer and googlenet_infer through ServingEngine
+              (buckets 1, 4, 16): each first replay bitwise eager, batch-16
+              requests graphed against eager in turns, K1 from a trace;
+ 31. train_ssd  a MobileNet-SSD (PaddlePaddle's object-detection example:
+              MobileNet-v1, four extra stages, multi_box_head over six
+              maps, 2278 priors) at 300x300, 21 classes, batch 32, AMP O2,
+              ssd_loss, Momentum 0.9 at 1e-3, synthetic VOC-shaped boxes
+              as LoD feeds: the whole step graphed bitwise eager, K1-K6
+              launches held;
+ 32. serve_ssd  its detection_output (multiclass_nms, nms_top_k 400,
+              keep_top_k 200) served at batch 16: first replays bitwise
+              eager, p50 graphed against eager, the counts the executor's
+              LoD counts, kernel launches a request; then the
+              detection_map op on the card (eager under host_metric, its
+              host reads counted) against DetectionMAP's arithmetic over
+              three batches;
+ 33. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -337,6 +368,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -509,20 +541,27 @@ def _kept_graphs():
 
 
 @contextlib.contextmanager
-def _captures_uncounted(counters):
+def _captures_uncounted(*counters):
     """A CUDA graph capture records its launches and runs none: the counts
-    the kernel wrappers of `counters` add while the Executor captures are
-    taken back, so the counts hold only launches that ran."""
+    the kernel wrappers of `counters` (their wrappers' Counters objects)
+    add while the Executor captures are taken back, so the counts hold
+    only launches that ran."""
     from paddle_tpu_torch import executor as E
     capture = E.capture_graph
 
     def uncounted(*args, **kwargs):
-        before = dict(counters.launches)
+        before = [{k: dict(v) if isinstance(v, dict) else v
+                   for k, v in vars(c).items()} for c in counters]
         try:
             return capture(*args, **kwargs)
         finally:
-            counters.launches.clear()
-            counters.launches.update(before)
+            for c, fields in zip(counters, before):
+                for k, v in fields.items():
+                    if isinstance(v, dict):
+                        getattr(c, k).clear()
+                        getattr(c, k).update(v)
+                    else:
+                        setattr(c, k, v)
     E.capture_graph = uncounted
     try:
         yield
@@ -970,7 +1009,7 @@ def phase_kernel(pt, conv_cuda, resnet, report):
                 worst_err16 = max(worst_err16, err16)
     # K1 at every shape vgg16 O2 training gives it (the train_graph
     # path), the f32 and bf16 forms each twice bitwise
-    vgg = _vgg16_kernel_shapes(pt, TRAIN_BATCH)[0]
+    vgg = zoo_kernel_shapes(_vgg16_train(pt)[0], TRAIN_BATCH)[0]["K1"]
     vgg_err, vgg_err16 = 0.0, 0.0
     for xs, ws, s, p, d in vgg:
         x, wt = operands(xs, ws)
@@ -1341,12 +1380,17 @@ def _serve_in_turns(engine, key, full, what, turns=SERVE_TURNS):
     return out
 
 
-def _trace_replays(engine, key, requests, per_run, what, attempts=3):
+def _trace_replays(engine, key, requests, per_run, what, attempts=3,
+                   graph=None):
     """The replayed requests' launches, counted from one profile of them
     (SERVE_TRACE) and held to `per_run` (kernel -> launches a bucket run;
     the others none) times the requests. The profiler now and then loses a
     window's CUDA activity, so a pass whose counts differ is profiled
-    again, up to `attempts` times; then this raises. Returns the counts."""
+    again, up to `attempts` times; then this raises, with one exception:
+    given the replayed bucket's `graph` (kept, _kept_graphs) whose own
+    kernel nodes are `per_run`'s, a trace that lacks some launches and
+    holds nothing beyond them has lost records: that is printed, and what
+    was traced is returned. Returns the traced counts."""
     from torch.autograd import DeviceType
     want = {k: per_run.get(k, 0) * len(requests) for k in SERVE_TRACE}
     misses = engine.cache_misses
@@ -1363,8 +1407,15 @@ def _trace_replays(engine, key, requests, per_run, what, attempts=3):
         print(f"{what}: trace attempt {attempt}: launches {got}, expected "
               f"{want}; launch lead {LAUNCH_LEADS_US[-1]} us", flush=True)
     else:
-        raise RuntimeError(f"{what}: the replays' traces hold {got} "
-                           f"launches, expected {want}")
+        nodes = None if graph is None else _graph_launches(graph)
+        if nodes is None or any(got[k] > want[k] for k in want) or any(
+                nodes[c] != per_run.get(k, 0) for k, c in SERVE_TRACE.items()):
+            raise RuntimeError(f"{what}: the replays' traces hold {got} "
+                               f"launches, expected {want}")
+        print(f"{what}: the profiler lost records of the replays in all "
+              f"{attempts} attempts: (traced, expected) {got}, {want}; the "
+              f"bucket's graph holds every expected launch; the traced "
+              f"launches are counted", flush=True)
     if engine.cache_misses != misses:
         raise RuntimeError(f"{what}: a traced request captured a graph")
     return got
@@ -2263,36 +2314,6 @@ def _vgg16_train(pt):
     return main, startup, avg_cost
 
 
-def _training_shapes(conv_cuda, program, batch):
-    """Every distinct shape ResNet-50 training gives K2/K3/K4 (the eligible
-    convs: x NHWC, w OIHW, strides, paddings, dilations), K5 (the [M, C] of
-    each eligible conv's bn, with the window's act) and K6 (the bn of a conv
-    that fails the gate), with how many times a step runs each, from the
-    program's conv -> bn [-> act] windows."""
-    import torch
-    from paddle_tpu_torch.ops import fusion
-    block = program.global_block()
-    convs, applies, acts = {}, {}, {}
-    for g in fusion.plan(program).values():
-        if g.conv is None:
-            continue
-        op = g.conv
-        _, c, h, w = block.desc.var(op.input("Input")[0]).shape
-        key = ((batch, h, w, c), tuple(block.desc.var(op.input("Filter")[0]).shape),
-               tuple(op.attr("strides")), tuple(op.attr("paddings")),
-               tuple(op.attr("dilations")))
-        _, co, oh, ow = block.desc.var(op.output("Output")[0]).shape
-        bn_key = (batch * oh * ow, co, None if g.act is None else g.act.type)
-        probe = [torch.empty(k, dtype=torch.bfloat16, device="meta")
-                 for k in key[:2]]
-        if conv_cuda.ineligible(*probe, *key[2:]) is None:
-            convs[key] = convs.get(key, 0) + 1
-            applies[bn_key] = applies.get(bn_key, 0) + 1
-        else:
-            acts[bn_key] = acts.get(bn_key, 0) + 1
-    return convs, applies, acts
-
-
 # vgg16 O2's launches per training step (the train_graph path): K1 and K2
 # and K3 at its 12 convs of 8-multiple channels (the first, of 3, falls
 # back under "channels"), K6 at its 13 conv batch norms (fc1's is 2-D and
@@ -2300,61 +2321,6 @@ def _training_shapes(conv_cuda, program, batch):
 # batch_norm window forms and K4/K5 run no time
 VGG16_LAUNCHES = {"conv.launches": 12, "conv.dgrad_launches": 12,
                   "conv.wgrad_launches": 12, "bn.act_launches": 13}
-
-
-def _vgg16_kernel_shapes(pt, batch):
-    """Every distinct shape vgg16 O2 training gives K1, K2, K3 and K6 at
-    `batch` (conv keys: x NHWC, w OIHW, strides, paddings, dilations; K6:
-    [M, C] and act), with how many times a step runs each, by the port's
-    own gates: the eligible conv2d ops; the eligible conv2d_grad ops with
-    an Input / Filter grad; the bn -> act windows of fusion.plan that K6's
-    gate admits. Also the windows K6 refuses, by [C, H, W] and reason.
-    Their sums are held to VGG16_LAUNCHES."""
-    import torch
-    from paddle_tpu_torch.ops import bn_cuda, conv_cuda, fusion
-    main = _vgg16_train(pt)[0]
-    block = main.global_block()
-    k1, k2, k3, k6, refused = {}, {}, {}, {}, {}
-
-    def add(table, key):
-        table[key] = table.get(key, 0) + 1
-    for op in block.ops:
-        if op.type not in ("conv2d", "conv2d_grad"):
-            continue
-        _, c, h, w = block.desc.var(op.input("Input")[0]).shape
-        key = ((batch, h, w, c), tuple(block.desc.var(op.input("Filter")[0]).shape),
-               tuple(op.attr("strides")), tuple(op.attr("paddings")),
-               tuple(op.attr("dilations")))
-        probe = [torch.empty(k, dtype=torch.bfloat16, device="meta")
-                 for k in key[:2]]
-        if conv_cuda.ineligible(*probe, *key[2:], op.attr("groups") or 1):
-            continue
-        if op.type == "conv2d":
-            add(k1, key)
-        else:
-            if "Input@GRAD" in op.desc.outputs:
-                add(k2, key)
-            if "Filter@GRAD" in op.desc.outputs:
-                add(k3, key)
-    for g in fusion.plan(main).values():
-        if g.conv is not None or g.bn is None:
-            continue
-        dims = tuple(block.desc.var(g.bn.input("X")[0]).shape[1:])
-        x = torch.empty((batch,) + dims, dtype=torch.bfloat16, device="meta")
-        act = None if g.act is None else g.act.type
-        reason = bn_cuda.ineligible(x, g.bn.attr("is_test", False), act)
-        if reason is None:
-            add(k6, (x.numel() // dims[0], dims[0], act))
-        else:
-            add(refused, (dims, reason))
-    got = {"conv.launches": sum(k1.values()),
-           "conv.dgrad_launches": sum(k2.values()),
-           "conv.wgrad_launches": sum(k3.values()),
-           "bn.act_launches": sum(k6.values())}
-    if got != VGG16_LAUNCHES:
-        raise RuntimeError(f"vgg16 O2's gates admit {got} launches a step, "
-                           f"expected {VGG16_LAUNCHES}")
-    return k1, k2, k3, k6, refused
 
 
 def _hold_dgrad(conv_cuda, dout, w, hw, s, p, d, shape):
@@ -2465,58 +2431,61 @@ def _row(name, shape, n, ms, plain_ms, lib_ms, flops, nbytes, err, peak_ops):
             "flops": flops, "bytes": nbytes, "max_abs_err": err}
 
 
-def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
-    """K2-K6 at every distinct ResNet-50 training shape at batch 32: held
-    against the plain versions, twice bitwise, then timed; K6 also beside
-    the older checkout `parent`'s K6, in turns, when one is given. Then K2,
-    K3 and K6 at every distinct vgg16 O2 training shape at batch 32, held
-    the same way (not timed)."""
+def _conv_shape_rows(conv_cuda, key, counts, randn, time_ms):
+    """The kernels of `counts` (K1-K4 -> launches a step) at one conv shape
+    `key` (x NHWC, w OIHW, strides, paddings, dilations) on operands from
+    `randn`: K1 twice bitwise and against conv2d_reference
+    (_check_kernel), K2 (_hold_dgrad), K3 (_hold_wgrad), K4 twice bitwise,
+    its y bitwise K1's and its sums against the plain version's; each then
+    timed by `time_ms` beside its plain version, one PyTorch call of the
+    same function and the bound. -> {kernel: row}."""
     import torch
     import torch.nn.functional as F
-    gen = torch.Generator().manual_seed(SEED + 3)
-    before = None if parent is None else parent_bn_cuda(parent)
-
-    def randn(shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(torch.bfloat16).cuda()
-
-    main = _resnet50_train(pt, resnet)[0]
-    convs, applies, acts = _training_shapes(conv_cuda, main, TRAIN_BATCH)
-    rows = []
-    for (xs, ws, s, p, d), n in convs.items():
-        x, w = randn(xs), randn(ws, 0.1)
-        oh, ow = conv_cuda._out_hw(x, w, s, p, d)
-        dout = randn((xs[0], oh, ow, ws[0]))
-        hw, khw = xs[1:3], ws[2:]
-        shape = f"x{list(xs)} w{list(ws)} s{list(s)} p{list(p)}"
-        flops = conv_cuda.conv_flops(x, w, s, p, d)
-        x_nchw, d_nchw = x.permute(0, 3, 1, 2), dout.permute(0, 3, 1, 2)
-        w_view = w.contiguous(memory_format=torch.channels_last)  # as cast
-
-        # K2: dx in bf16 (as on the path) and f32, against the plain version
+    xs, ws, s, p, d = key
+    x, w = randn(xs), randn(ws, 0.1)
+    oh, ow = conv_cuda._out_hw(x, w, s, p, d)
+    dout = randn((xs[0], oh, ow, ws[0]))
+    hw, khw = xs[1:3], ws[2:]
+    shape = f"x{list(xs)} w{list(ws)} s{list(s)} p{list(p)}"
+    flops = conv_cuda.conv_flops(x, w, s, p, d)
+    x_nchw, d_nchw = x.permute(0, 3, 1, 2), dout.permute(0, 3, 1, 2)
+    w_view = w.contiguous(memory_format=torch.channels_last)  # as cast
+    rows = {}
+    if "K1" in counts:
+        _twice(lambda: conv_cuda.conv2d(x, w_view, s, p, d))
+        err = max(_check_kernel(conv_cuda, x, w_view, s, p, d))
+        rows["K1"] = _row("conv", shape, counts["K1"],
+                          time_ms(lambda: conv_cuda.conv2d(x, w_view, s, p, d)),
+                          time_ms(lambda: conv_cuda.conv2d_reference(x, w, s, p, d)),
+                          time_ms(lambda: F.conv2d(x_nchw, w, None, s, p, d)),
+                          flops, conv_cuda.conv_bytes(x, w, s, p, d), err,
+                          PEAK_BF16_FLOPS)
+    if "K2" in counts:
+        # dx in bf16 (as on the path) and f32, against the plain version
         err = _hold_dgrad(conv_cuda, dout, w, hw, s, p, d, shape)
-        rows.append(_row("dgrad", shape, n,
-                         _device_ms(lambda: conv_cuda.conv2d_grad_input(dout, w, hw, s, p, d)),
-                         _device_ms(lambda: conv_cuda.conv2d_grad_input_reference(dout, w, hw, s, p, d)),
-                         _device_ms(lambda: torch.nn.grad.conv2d_input(
-                             x_nchw.shape, w, d_nchw, s, p, d)),
-                         # dout and w read, all of dx written
-                         flops, (dout.numel() + w.numel() + x.numel()) * 2,
-                         err, PEAK_BF16_FLOPS))
-
-        # K3: dW in f32 (the master filter's dtype), against the plain version
+        rows["K2"] = _row("dgrad", shape, counts["K2"],
+                          time_ms(lambda: conv_cuda.conv2d_grad_input(dout, w, hw, s, p, d)),
+                          time_ms(lambda: conv_cuda.conv2d_grad_input_reference(dout, w, hw, s, p, d)),
+                          time_ms(lambda: torch.nn.grad.conv2d_input(
+                              x_nchw.shape, w, d_nchw, s, p, d)),
+                          # dout and w read, all of dx written
+                          flops, (dout.numel() + w.numel() + x.numel()) * 2,
+                          err, PEAK_BF16_FLOPS)
+    if "K3" in counts:
+        # dW in f32 (the master filter's dtype), against the plain version
         err = _hold_wgrad(conv_cuda, x, dout, khw, s, p, d)
         nbytes = (conv_cuda.input_bytes(x, w, s, p, d) + dout.numel() * 2
                   + w.numel() * 4)
-        rows.append(_row("wgrad", shape, n,
-                         _device_ms(lambda: conv_cuda.conv2d_grad_filter(
-                             x, dout, khw, s, p, d, out_dtype=torch.float32)),
-                         _device_ms(lambda: conv_cuda.conv2d_grad_filter_reference(
-                             x, dout, khw, s, p, d, out_dtype=torch.float32)),
-                         _device_ms(lambda: torch.nn.grad.conv2d_weight(
-                             x_nchw, w.shape, d_nchw, s, p, d)),
-                         flops, nbytes, err, PEAK_BF16_FLOPS))
-
-        # K4: y bitwise K1's, the sums against the plain version's
+        rows["K3"] = _row("wgrad", shape, counts["K3"],
+                          time_ms(lambda: conv_cuda.conv2d_grad_filter(
+                              x, dout, khw, s, p, d, out_dtype=torch.float32)),
+                          time_ms(lambda: conv_cuda.conv2d_grad_filter_reference(
+                              x, dout, khw, s, p, d, out_dtype=torch.float32)),
+                          time_ms(lambda: torch.nn.grad.conv2d_weight(
+                              x_nchw, w.shape, d_nchw, s, p, d)),
+                          flops, nbytes, err, PEAK_BF16_FLOPS)
+    if "K4" in counts:
+        # y bitwise K1's, the sums against the plain version's
         y, csum, csq = _twice(lambda: conv_cuda.conv2d_stats(x, w, s, p, d))
         if not torch.equal(y, conv_cuda.conv2d(x, w, s, p, d)):
             raise RuntimeError(f"K4 y is not K1's at {shape}")
@@ -2526,86 +2495,124 @@ def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
         yf = y.float().reshape(-1, ws[0])
         err = max(_sum_err(csum, yf.sum(0), yf.abs().sum(0)),
                   _sum_err(csq, (yf * yf).sum(0), (yf * yf).sum(0)))
-        rows.append(_row("conv_stats", shape, n,
-                         _device_ms(lambda: conv_cuda.conv2d_stats(x, w_view, s, p, d)),
-                         _device_ms(lambda: conv_cuda.conv2d_stats_reference(x, w, s, p, d)),
-                         None, flops + 3 * y.numel(),
-                         conv_cuda.conv_bytes(x, w, s, p, d) + 8 * ws[0], err,
-                         PEAK_BF16_FLOPS))
-        del x, w, dout, y, ry, r32
-        print(f"K2/K3/K4 {shape} x{n}/step: " + "; ".join(
+        rows["K4"] = _row("conv_stats", shape, counts["K4"],
+                          time_ms(lambda: conv_cuda.conv2d_stats(x, w_view, s, p, d)),
+                          time_ms(lambda: conv_cuda.conv2d_stats_reference(x, w, s, p, d)),
+                          None, flops + 3 * y.numel(),
+                          conv_cuda.conv_bytes(x, w, s, p, d) + 8 * ws[0], err,
+                          PEAK_BF16_FLOPS)
+    return rows
+
+
+def _bn_shape_row(bn_cuda, kind, key, n, batch, randn, time_ms, before=None):
+    """K5 (`kind` "bn_apply") or K6 ("bn_act") at one [M, C] and act `key`
+    on operands from `randn`: twice bitwise and against its plain version,
+    yact relu(ybn), then timed by `time_ms` beside its plain version,
+    F.batch_norm and the bound (K6 also beside the floor of a design that
+    reads x twice, and, given the older checkout's bn_cuda `before`, its
+    K6 held to the same rules and timed in turns). Prints and returns the
+    row."""
+    import torch
+    import torch.nn.functional as F
+    m, c, act = key
+    x = randn((m, c), 2.0)
+    scale, bias, mean, var = _bn_operands(m, c)
+    x4 = x.reshape(batch, -1, c).permute(0, 2, 1).unsqueeze(-1)
+    shape = f"[{m}, {c}] act={act}"
+    out_bytes = m * c * 2 * (2 if act else 1)
+    nbytes = m * c * 2 + 16 * c + out_bytes
+    if kind == "bn_apply":
+        ybn, yact = _twice(lambda: bn_cuda.bn_apply(x, scale, bias, mean,
+                                                    var, 1e-5, act))
+        rbn, _ = bn_cuda.bn_apply_reference(x, scale, bias, mean, var,
+                                            1e-5, act)
+        err = _bf16_err(ybn, rbn, floor=0.0)
+        fn = lambda: bn_cuda.bn_apply(x, scale, bias, mean, var, 1e-5, act)  # noqa: E731
+        plain = lambda: bn_cuda.bn_apply_reference(x, scale, bias, mean, var, 1e-5, act)  # noqa: E731
+        lib = lambda: F.batch_norm(x4, mean, var, scale, bias, False, 0.0, 1e-5)  # noqa: E731
+        flops = (4 if act else 3) * m * c
+    else:
+        ybn, yact, err, rmean = _hold_bn_act(bn_cuda, x, scale, bias, act,
+                                             shape)
+        fn = lambda: bn_cuda.bn_act(x, scale, bias, 1e-5, act)  # noqa: E731
+        plain = lambda: bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)  # noqa: E731
+        lib = lambda: F.batch_norm(x4, None, None, scale, bias, True, 0.0, 1e-5)  # noqa: E731
+        flops = (7 if act else 6) * m * c
+    if act == "relu" and not torch.equal(yact, torch.relu(ybn)):
+        raise RuntimeError(f"{kind} yact is not relu(ybn) at {shape}")
+    extra, old_ms = {}, None
+    if kind == "bn_act" and before is not None:
+        # the parent's K6 held to the same rules, then in turns
+        pbn, _, pmean, pvar = before.bn_act(x, scale, bias, 1e-5, act)
+        _sum_err(pmean, rmean, x.float().abs().mean(0))
+        want, _ = bn_cuda.bn_apply_reference(x, scale, bias, pmean,
+                                             pvar, 1e-5)
+        _bf16_err(pbn, want)
+        del pbn, pmean, pvar, want
+        ms, old_ms, turns = _in_turns(
+            fn, lambda: before.bn_act(x, scale, bias, 1e-5, act))
+        extra = {"parent_ms": old_ms, "turns": turns}
+    else:
+        ms = time_ms(fn)
+    row = _row(kind, shape, n, ms, time_ms(plain), time_ms(lib), flops,
+               nbytes, err, PEAK_F32_FLOPS)
+    row.update(extra)
+    if kind == "bn_act":
+        # a design that reads x from device memory twice
+        row["two_pass_floor_ms"] = (nbytes + m * c * 2) / PEAK_BYTES * 1e3
+    print(f"{kind} {shape} x{n}/step: {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, F.batch_norm "
+          f"{row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms"
+          + (f" (two-pass floor {row['two_pass_floor_ms']:.4f})"
+             if kind == "bn_act" else "")
+          + ("" if old_ms is None else
+             f", parent tree {old_ms:.4f} ms (in turns new, parent, "
+             f"parent, new: " + ", ".join(f"{t:.4f}" for t in
+                                          extra["turns"]) + ")"),
+          flush=True)
+    return row
+
+
+def phase_kernel_train(pt, conv_cuda, bn_cuda, resnet, report, parent=None):
+    """K2-K6 at every distinct ResNet-50 training shape at batch 32: held
+    against the plain versions, twice bitwise, then timed; K6 also beside
+    the older checkout `parent`'s K6, in turns, when one is given. Then K2,
+    K3 and K6 at every distinct vgg16 O2 training shape at batch 32, held
+    the same way (not timed)."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 3)
+    before = None if parent is None else parent_bn_cuda(parent)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(torch.bfloat16).cuda()
+
+    main = _resnet50_train(pt, resnet)[0]
+    tables = zoo_kernel_shapes(main, TRAIN_BATCH)[0]
+    convs, applies, acts = tables["K4"], tables["K5"], tables["K6"]
+    rows = []
+    for key, n in convs.items():
+        got = _conv_shape_rows(conv_cuda, key, {"K2": n, "K3": n, "K4": n},
+                               randn, _device_ms)
+        rows += [got["K2"], got["K3"], got["K4"]]
+        print(f"K2/K3/K4 {rows[-1]['shape']} x{n}/step: " + "; ".join(
             f"{r['kernel']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
             f"{r['bound_by']}, plain {r['plain_ms']:.4f}, library "
             + (f"{r['library_ms']:.4f})" if r["library_ms"] is not None
                else "none)") for r in rows[-3:]), flush=True)
 
     for kind, table in (("bn_apply", applies), ("bn_act", acts)):
-        for (m, c, act), n in table.items():
-            x = randn((m, c), 2.0)
-            scale, bias, mean, var = _bn_operands(m, c)
-            x4 = x.reshape(TRAIN_BATCH, -1, c).permute(0, 2, 1).unsqueeze(-1)
-            shape = f"[{m}, {c}] act={act}"
-            out_bytes = m * c * 2 * (2 if act else 1)
-            if kind == "bn_apply":
-                ybn, yact = _twice(lambda: bn_cuda.bn_apply(x, scale, bias, mean,
-                                                            var, 1e-5, act))
-                rbn, _ = bn_cuda.bn_apply_reference(x, scale, bias, mean, var,
-                                                    1e-5, act)
-                err = _bf16_err(ybn, rbn, floor=0.0)
-                fn = lambda: bn_cuda.bn_apply(x, scale, bias, mean, var, 1e-5, act)  # noqa: E731
-                plain = lambda: bn_cuda.bn_apply_reference(x, scale, bias, mean, var, 1e-5, act)  # noqa: E731
-                lib = lambda: F.batch_norm(x4, mean, var, scale, bias, False, 0.0, 1e-5)  # noqa: E731
-                nbytes = m * c * 2 + 16 * c + out_bytes
-                flops = (4 if act else 3) * m * c
-            else:
-                ybn, yact, err, rmean = _hold_bn_act(bn_cuda, x, scale, bias,
-                                                     act, shape)
-                fn = lambda: bn_cuda.bn_act(x, scale, bias, 1e-5, act)  # noqa: E731
-                plain = lambda: bn_cuda.bn_act_reference(x, scale, bias, 1e-5, act)  # noqa: E731
-                lib = lambda: F.batch_norm(x4, None, None, scale, bias, True, 0.0, 1e-5)  # noqa: E731
-                nbytes = m * c * 2 + 16 * c + out_bytes
-                flops = (7 if act else 6) * m * c
-            if act == "relu" and not torch.equal(yact, torch.relu(ybn)):
-                raise RuntimeError(f"{kind} yact is not relu(ybn) at {shape}")
-            extra, old_ms = {}, None
-            if kind == "bn_act" and before is not None:
-                # the parent's K6 held to the same rules, then in turns
-                pbn, _, pmean, pvar = before.bn_act(x, scale, bias, 1e-5, act)
-                _sum_err(pmean, rmean, x.float().abs().mean(0))
-                want, _ = bn_cuda.bn_apply_reference(x, scale, bias, pmean,
-                                                     pvar, 1e-5)
-                _bf16_err(pbn, want)
-                del pbn, pmean, pvar, want
-                ms, old_ms, turns = _in_turns(
-                    fn, lambda: before.bn_act(x, scale, bias, 1e-5, act))
-                extra = {"parent_ms": old_ms, "turns": turns}
-            else:
-                ms = _device_ms(fn)
-            rows.append(_row(kind, shape, n, ms, _device_ms(plain),
-                             _device_ms(lib), flops, nbytes, err, PEAK_F32_FLOPS))
-            rows[-1].update(extra)
-            if kind == "bn_act":
-                # a design that reads x from device memory twice
-                rows[-1]["two_pass_floor_ms"] = \
-                    (nbytes + m * c * 2) / PEAK_BYTES * 1e3
-            print(f"{kind} {shape} x{n}/step: {rows[-1]['ms']:.4f} ms, plain "
-                  f"{rows[-1]['plain_ms']:.4f} ms, F.batch_norm "
-                  f"{rows[-1]['library_ms']:.4f} ms, bound "
-                  f"{rows[-1]['bound_ms']:.4f} ms"
-                  + (f" (two-pass floor {rows[-1]['two_pass_floor_ms']:.4f})"
-                     if kind == "bn_act" else "")
-                  + ("" if old_ms is None else
-                     f", parent tree {old_ms:.4f} ms (in turns new, parent, "
-                     f"parent, new: " + ", ".join(f"{t:.4f}" for t in
-                                                  extra["turns"]) + ")"),
-                  flush=True)
-            del x, x4, ybn, yact
+        for key, n in table.items():
+            rows.append(_bn_shape_row(bn_cuda, kind, key, n, TRAIN_BATCH,
+                                      randn, _device_ms, before))
     torch.cuda.empty_cache()
     report["train_kernel_shapes"] = rows
 
     # vgg16 O2 training (the train_graph path): K2, K3 and K6 at each of
     # its shapes, held as ResNet's are and twice bitwise; not timed
-    _, k2, k3, k6, refused = _vgg16_kernel_shapes(pt, TRAIN_BATCH)
+    tables, refused = zoo_kernel_shapes(_vgg16_train(pt)[0], TRAIN_BATCH)
+    path_launches("vgg16", tables)
+    k2, k3, k6 = tables["K2"], tables["K3"], tables["K6"]
     vgg_err = {"dgrad": 0.0, "wgrad": 0.0, "bn_act": 0.0}
     for key in sorted(set(k2) | set(k3)):
         xs, ws, s, p, d = key
@@ -2696,7 +2703,9 @@ def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
     `graph` (kept, _kept_graphs), `expect` is held first to the graph's
     own kernel nodes, which every replay launches, and a trace that then
     still lacks some of them, and holds nothing beyond them, has lost
-    records: that is printed and returned (`lost_records`), not raised."""
+    records: that is printed and returned (`lost_records`), not raised,
+    and the busy time read from that trace is a lower bound
+    (`busy_lower_bound`)."""
     from torch.autograd import DeviceType
     nodes = None
     if graph is not None:
@@ -2748,9 +2757,11 @@ def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
         k = kern.setdefault(e.name[:70], [0.0, 0])
         k[0] += e.time_range.elapsed_us() / 1e3
         k[1] += 1
+    bound = (f"; a lower bound: the trace lost {sum(lost.values())} "
+             f"records" if lost else "")
     print(f"profiled step: device busy {busy_ms:.2f} ms = {busy_ms / p50_ms:.1%} "
-          f"of the step p50 {p50_ms:.2f} ms (profiled wall {wall_ms:.1f} ms; "
-          f"{card})", flush=True)
+          f"of the step p50 {p50_ms:.2f} ms (profiled wall {wall_ms:.1f} ms"
+          f"{bound}; {card})", flush=True)
     print("device ms by kernel: " + "; ".join(
         f"{k} {v[0]:.2f} x{v[1]}" for k, v in sorted(
             kern.items(), key=lambda kv: -kv[1][0])[:20]), flush=True)
@@ -2773,7 +2784,7 @@ def _profile_step(exe, main, feed, loss, scope, p50_ms, card, witness,
     return {"busy_ms": busy_ms, "p50_ms": p50_ms, "busy_share": busy_ms / p50_ms,
             "profiled_wall_ms": wall_ms, "by_kernel": kern,
             "launches": launches, "graph_launches": nodes,
-            "lost_records": lost,
+            "lost_records": lost, "busy_lower_bound": bool(lost),
             "rerun_forward_host_ms": rerun, "by_span": spans}
 
 
@@ -5865,9 +5876,12 @@ def _seq_padded(feed, name):
     return E._bucket_len(int(np.diff(feed[name].lod[0]).max()))
 
 
-def _turns(exe, main, loss, sg, se, feeds, what):
+def _turns(exe, main, loss, sg, se, feeds, what, counts=None,
+           launches=None):
     """Each feed run graphed on scope `sg` and eager on `se`, in turns;
-    each pair's losses bitwise -> (graphed ms, eager ms, graphed losses)."""
+    each pair's losses bitwise -> (graphed ms, eager ms, graphed losses).
+    Given `counts` (-> kernel counter values), what each run added to them
+    is summed into `launches[mode]`."""
     import torch
     ms = {"graph": [], "eager": []}
     losses = []
@@ -5875,10 +5889,14 @@ def _turns(exe, main, loss, sg, se, feeds, what):
         out = {}
         for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
             torch.cuda.synchronize()
+            c0 = counts() if counts else None
             t0 = time.perf_counter()
             out[mode] = exe.run(main, feed=f, fetch_list=[loss], scope=sc,
                                 use_jit=use_jit)[0]
             ms[mode].append((time.perf_counter() - t0) * 1e3)
+            if counts:
+                for k, v in counts().items():
+                    launches[mode][k] = launches[mode].get(k, 0) + v - c0[k]
         if not np.array_equal(out["graph"], out["eager"]):
             raise RuntimeError(f"{what}: step {i} graphed loss "
                                f"{out['graph']} != eager {out['eager']}")
@@ -5886,112 +5904,217 @@ def _turns(exe, main, loss, sg, se, feeds, what):
     return ms["graph"], ms["eager"], losses
 
 
-def _graphed_training(pt, name, main, startup, loss, feed, stream, extra,
-                      bitwise_steps, turns, witness, card, tokens,
-                      rerun_type):
+def _graphed_training(pt, name, main, startup, loss, feed, bitwise_steps,
+                      turns, witness, card, items, stream=(), extra=(),
+                      rerun_type=None, want=None):
     """A training program graphed on one scope and eager on another from
-    one startup state: `bitwise_steps` steps of `feed` (the warm-up, the
-    capture and its replays) and the scopes after them bitwise the eager
-    steps; then `turns` of each timed in turns (p50), the loss falling
-    from the warm-up's; the generic grad's re-runs of `rerun_type` per
-    eager step; the memory a step needs beyond the state; one profiled
-    step of each (busy share, kernel launches from the trace); then the
-    `stream` batches and the `extra` batches graphed and eager in turns,
-    bitwise, with the signatures they made. -> the report."""
+    one startup state, the graph gate admitting its step: `bitwise_steps`
+    steps of `feed` (the warm-up, the capture and its replays) and the
+    scopes after them bitwise the eager steps; then `turns` of each timed
+    in turns (p50), the loss falling from the warm-up's; the generic
+    grad's re-runs of `rerun_type` per eager step (when given); the memory
+    a step needs beyond the state; one profiled step of each (busy share,
+    kernel launches from the trace); then the `stream` batches and the
+    `extra` batches graphed and eager in turns, bitwise, with the
+    signatures they made. Given `want` (kernel counter -> launches a
+    step), the eager steps' wrapper launches are held to it, the replays'
+    wrappers to none, and the profiled replay's traced launches to it,
+    first to the graph's own kernel nodes (run it under _kept_graphs).
+    The launches reported ("launches") are those counted in this run: the
+    wrappers' on the warm-up and every eager step (a capture runs nothing:
+    _captures_uncounted takes its counts back) and the profiled replay's
+    from its trace; the other replays are neither traced nor counted. The
+    dense feeds are staged on the card once, as bench.py stages its
+    batches. `items`: (per step, unit) for the throughput. -> (the report,
+    the Executor, the graphed scope)."""
     import torch
     from paddle_tpu_torch import executor as E
-    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops import (attention_cuda, bn_cuda, conv_cuda,
+                                      quant_cuda, registry)
+    counts = functools.partial(_graph_counts, conv_cuda, bn_cuda,
+                               attention_cuda)
     exe = pt.Executor()
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            if isinstance(v, np.ndarray) else v for k, v in feed.items()}
     scope = pt.Scope()
     exe.run(startup, scope=scope)
     init = {n: v for n, v in scope.vars.items() if isinstance(v, torch.Tensor)}
     sg, se = _scope_from(pt, init), _scope_from(pt, init)
-    del scope
+    del scope, init
+    gate = exe.graph_gate(main, feed)
+    if gate is not None:
+        raise RuntimeError(f"{name}: the graph gate runs the step eager: "
+                           f"{gate}")
     E.COUNTERS.reset()
-    reserved0 = _settled_reserved()
-    t0 = time.perf_counter()
-    _g, _e, losses = _turns(exe, main, loss, sg, se, [feed] * bitwise_steps,
-                            name)
-    diverged = _bitwise_scopes(sg, se)
-    if diverged:
-        raise RuntimeError(f"{name}: after {bitwise_steps} steps the graphed "
-                           f"scope differs: {diverged[:8]}")
-    setup_s = time.perf_counter() - t0
-    pool_gb = (_settled_reserved() - reserved0) / 1e9
-    c = E.COUNTERS
-    if (c.warmups, c.captures, c.replays) != (1, 1, bitwise_steps - 1):
-        raise RuntimeError(f"{name}: {c}")
-    E.COUNTERS.reset()
-    registry.RERUNS.clear()
-    g_ms, e_ms, turn_losses = _turns(exe, main, loss, sg, se,
-                                     [feed] * turns, name)
-    losses += turn_losses
-    reruns = {k: v / turns for k, v in sorted(registry.RERUNS.items())}
-    if _bitwise_scopes(sg, se) or c.eager != {"use_jit": turns} \
-            or c.replays != turns:
-        raise RuntimeError(f"{name}: the steps in turns: {c}")
-    if not registry.RERUNS.get(rerun_type):
-        raise RuntimeError(f"{name}: no {rerun_type} re-run: {reruns}")
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise RuntimeError(f"{name}: the loss did not fall: {losses}")
-    peak = {}
-    for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
-        _settled_reserved()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        exe.run(main, feed=feed, fetch_list=[loss], scope=sc, use_jit=use_jit)
-        torch.cuda.synchronize()
-        peak[mode] = (torch.cuda.max_memory_allocated() - before) / 1e9
-    peak["graph"] += pool_gb
-    state_gb = sum(v.numel() * v.element_size() for v in se.vars.values()
-                   if isinstance(v, torch.Tensor)) / 1e9
-    p50 = {"graph": float(np.median(g_ms)), "eager": float(np.median(e_ms))}
-    prof = {m: _profile_step(exe, main, feed, loss, sc, p50[m], card, witness,
-                             use_jit=use_jit)
-            for m, sc, use_jit in (("graph", sg, None), ("eager", se, False))}
-    launches = {m: _trace_kernels(prof[m]) for m in prof}
-    E.COUNTERS.reset()
-    runs = {}
-    for what, feeds in (("stream", stream), ("extra", extra)):
+    c0 = counts()
+    with _captures_uncounted(conv_cuda.COUNTERS, bn_cuda.COUNTERS,
+                             attention_cuda.COUNTERS, quant_cuda.COUNTERS):
+        reserved0 = _settled_reserved()
         t0 = time.perf_counter()
-        g, e, lo = _turns(exe, main, loss, sg, se, feeds, f"{name} {what}")
-        runs[what] = {"graph_ms": g, "eager_ms": e, "losses": lo,
-                      "seconds": time.perf_counter() - t0}
-    if _bitwise_scopes(sg, se):
-        raise RuntimeError(f"{name}: the scopes differ after the stream")
-    runs["counters"] = {"warmups": c.warmups, "captures": c.captures,
-                        "replays": c.replays, "evicted": c.evicted}
-    out = {"card": card, "p50_ms": p50, "step_ms": {"graph": g_ms,
-                                                    "eager": e_ms},
-           "tokens_per_s": tokens / (p50["graph"] / 1e3),
+        _g, _e, losses = _turns(exe, main, loss, sg, se,
+                                [feed] * bitwise_steps, name)
+        diverged = _bitwise_scopes(sg, se)
+        if diverged:
+            raise RuntimeError(f"{name}: after {bitwise_steps} steps the "
+                               f"graphed scope differs: {diverged[:8]}")
+        setup_s = time.perf_counter() - t0
+        pool_gb = (_settled_reserved() - reserved0) / 1e9
+        c = E.COUNTERS
+        if (c.warmups, c.captures, c.replays) != (1, 1, bitwise_steps - 1) \
+                or c.eager != {"use_jit": bitwise_steps}:
+            raise RuntimeError(f"{name}: {c}")
+        E.COUNTERS.reset()
+        registry.RERUNS.clear()
+        launches = {"graph": {}, "eager": {}}
+        g_ms, e_ms, turn_losses = _turns(exe, main, loss, sg, se,
+                                         [feed] * turns, name, counts,
+                                         launches)
+        losses += turn_losses
+        reruns = {k: v / turns for k, v in sorted(registry.RERUNS.items())}
+        if _bitwise_scopes(sg, se) or c.eager != {"use_jit": turns} \
+                or c.replays != turns or c.captures:
+            raise RuntimeError(f"{name}: the steps in turns: {c}")
+        per_step = {k: v / turns for k, v in launches["eager"].items()
+                    if v and k.endswith("launches")}
+        if want is not None and (
+                per_step != {k: float(v) for k, v in want.items()}
+                or any(launches["graph"].values())):
+            raise RuntimeError(
+                f"{name}: eager launches per step {per_step}, expected "
+                f"{want}; the replays' wrappers counted "
+                f"{ {k: v for k, v in launches['graph'].items() if v} }")
+        if rerun_type and not registry.RERUNS.get(rerun_type):
+            raise RuntimeError(f"{name}: no {rerun_type} re-run: {reruns}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise RuntimeError(f"{name}: the loss did not fall: {losses}")
+        peak = {}
+        for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
+            _settled_reserved()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                    use_jit=use_jit)
+            torch.cuda.synchronize()
+            peak[mode] = (torch.cuda.max_memory_allocated() - before) / 1e9
+        peak["graph"] += pool_gb
+        state_gb = sum(v.numel() * v.element_size() for v in se.vars.values()
+                       if isinstance(v, torch.Tensor)) / 1e9
+        p50 = {"graph": float(np.median(g_ms)), "eager": float(np.median(e_ms))}
+        expect, graph = None, None
+        if want is not None:
+            expect = {k: v for k, v in want.items() if k in TRACE_KERNELS}
+            if want.get("conv.launches"):
+                # K1 and K2 are one kernel in a trace
+                expect["conv.dgrad_launches"] = \
+                    expect.get("conv.dgrad_launches", 0) + want["conv.launches"]
+            # held first to the replayed graph's own kernel nodes: the
+            # profiler loses a replay's first records now and then
+            graph, = [e.graph for k, e in exe._graphs.items()
+                      if k[0] == id(main) and k[3] == (loss.name,)]
+        prof = {m: _profile_step(exe, main, feed, loss, sc, p50[m], card,
+                                 witness, use_jit=use_jit,
+                                 **({"expect": expect, "graph": graph}
+                                    if m == "graph" else {}))
+                for m, sc, use_jit in (("graph", sg, None),
+                                       ("eager", se, False))}
+        if expect is not None:
+            # the eager trace is held to nothing (it has no graph to
+            # fall back on), but what it lacks of the step's launches
+            # makes its busy time a lower bound too
+            traced = prof["eager"]["launches"]
+            lost = {k: v - traced[k] for k, v in expect.items()
+                    if traced[k] < v}
+            if lost:
+                prof["eager"].update(lost_records=lost, busy_lower_bound=True)
+        # a trace that lost records was profiled again: the scope that ran
+        # fewer profiled steps catches up, so the two stay step for step
+        ran = {"graph": c.replays, "eager": c.eager.get("use_jit", 0)}
+        for mode, sc, use_jit in (("graph", sg, None), ("eager", se, False)):
+            for _ in range(max(ran.values()) - ran[mode]):
+                exe.run(main, feed=feed, fetch_list=[loss], scope=sc,
+                        use_jit=use_jit)
+        if _bitwise_scopes(sg, se):
+            raise RuntimeError(f"{name}: the scopes differ after the "
+                               f"profiled steps")
+        replayed = bitwise_steps - 1 + c.replays
+        E.COUNTERS.reset()
+        runs = {}
+        for what, feeds in (("stream", stream), ("extra", extra)):
+            if not feeds:
+                continue
+            t0 = time.perf_counter()
+            g, e, lo = _turns(exe, main, loss, sg, se, feeds, f"{name} {what}")
+            runs[what] = {"graph_ms": g, "eager_ms": e, "losses": lo,
+                          "seconds": time.perf_counter() - t0}
+        if _bitwise_scopes(sg, se):
+            raise RuntimeError(f"{name}: the scopes differ after the stream")
+        runs["counters"] = {"warmups": c.warmups, "captures": c.captures,
+                            "replays": c.replays, "evicted": c.evicted}
+    # what this run launched: the wrappers' counts (warm-up, eager steps),
+    # and the profiled replay's trace, whose K1/K2 kernel (one in a trace)
+    # is split as its eager twin's wrappers split it
+    counted = {k: v - c0[k] for k, v in counts().items()
+               if k.endswith("launches") and v - c0[k]}
+    replay = {k: v for k, v in prof["graph"]["launches"].items()
+              if v and k in TRACE_KERNELS}
+    k1 = min(int(per_step.get("conv.launches", 0)),
+             replay.get("conv.dgrad_launches", 0))
+    if k1:
+        replay["conv.dgrad_launches"] -= k1
+        replay["conv.launches"] = k1
+    total = dict(counted)
+    for k, v in replay.items():
+        total[k] = total.get(k, 0) + v
+    untraced = replayed + c.replays - 1
+    n, unit = items
+    out = {"card": card, "gate": gate, "p50_ms": p50,
+           "step_ms": {"graph": g_ms, "eager": e_ms},
+           f"{unit}_per_s": n / (p50["graph"] / 1e3),
            "busy_ms": {m: prof[m]["busy_ms"] for m in prof},
            "busy_share": {m: prof[m]["busy_share"] for m in prof},
-           "kernel_launches_per_step": launches,
+           "busy_lower_bound": {m: prof[m]["busy_lower_bound"] for m in prof},
+           "lost_records": {m: prof[m]["lost_records"] for m in prof},
+           "kernel_launches_per_step": {m: _trace_kernels(prof[m])
+                                        for m in prof},
+           "launches_per_step": per_step,
+           "filter_copies_per_step":
+               launches["eager"].get("conv.filter_copies", 0) / turns,
+           "replay_traced_launches": replay,
+           "launches": total, "launches_by_wrappers": counted,
+           "replays_untraced": untraced,
            "reruns_per_eager_step": reruns, "step_memory_gb": peak,
            "graph_pool_gb": pool_gb, "state_gb": state_gb, "losses": losses,
            "setup_s": setup_s, "runs": runs}
+
+    def busy(m):
+        low = " (a lower bound: records lost)" if \
+            prof[m]["busy_lower_bound"] else ""
+        return (f"{prof[m]['busy_ms']:.2f} ms ({prof[m]['busy_share']:.1%})"
+                f"{low}")
     print(f"{name}: graphed bitwise eager ({bitwise_steps} steps, then {turns} "
           f"in turns; {setup_s:.1f} s to warm up and capture); step p50 "
-          f"graphed {p50['graph']:.2f} ms ({out['tokens_per_s']:.0f} "
-          f"tokens/s), eager {p50['eager']:.2f} ms; busy "
-          f"{prof['graph']['busy_ms']:.2f} ms "
-          f"({prof['graph']['busy_share']:.1%}) graphed, "
-          f"{prof['eager']['busy_ms']:.2f} ms "
-          f"({prof['eager']['busy_share']:.1%}) eager; kernel launches per "
-          f"step (trace) {launches['graph']} graphed, {launches['eager']} "
-          f"eager; generic-grad re-runs per eager step {reruns}; memory "
+          f"graphed {p50['graph']:.2f} ms ({out[f'{unit}_per_s']:.0f} "
+          f"{unit}/s), eager {p50['eager']:.2f} ms; busy {busy('graph')} "
+          f"graphed, {busy('eager')} eager; kernel launches per step "
+          f"(trace) {out['kernel_launches_per_step']['graph']} graphed, "
+          f"{out['kernel_launches_per_step']['eager']} eager; the eager "
+          f"step's wrappers {per_step}, the profiled replay's trace "
+          f"{replay}; counted in this run {total} ({untraced} replays "
+          f"untraced); generic-grad re-runs per eager step {reruns}; memory "
           f"beyond the {state_gb:.3f} GB of state {peak['graph']:.3f} GB "
           f"graphed (pool {pool_gb:.3f} GB), {peak['eager']:.3f} GB eager; "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({card})", flush=True)
-    for what in ("stream", "extra"):
-        r = runs[what]
+    for what, r in runs.items():
+        if what == "counters":
+            continue
         print(f"{name} {what}: {len(r['graph_ms'])} batches bitwise; "
               f"graphed ms {', '.join(f'{t:.2f}' for t in r['graph_ms'])}; "
               f"eager ms {', '.join(f'{t:.2f}' for t in r['eager_ms'])}",
               flush=True)
-    print(f"{name}: the stream and extra batches made warm-ups "
-          f"{c.warmups}, captures {c.captures}, replays {c.replays}, "
-          f"evicted {c.evicted}", flush=True)
+    if stream or extra:
+        print(f"{name}: the stream and extra batches made warm-ups "
+              f"{c.warmups}, captures {c.captures}, replays {c.replays}, "
+              f"evicted {c.evicted}", flush=True)
     return out, exe, sg
 
 
@@ -6020,9 +6143,9 @@ def phase_train_seq2seq(pt, report):
     tokens = int(feed["target_language_word"].lod[0][-1])
     witness = ("GEMM", lambda n: "gemm" in n.lower() or "sm90" in n.lower())
     out, exe, sg = _graphed_training(
-        pt, "train_seq2seq", main, startup, loss, feed, batches[1:],
-        [long_batch] * MT_LONG_STEPS, MT_BITWISE_STEPS, MT_TURNS, witness,
-        card, tokens, "rnn")
+        pt, "train_seq2seq", main, startup, loss, feed, MT_BITWISE_STEPS,
+        MT_TURNS, witness, card, (tokens, "tokens"), stream=batches[1:],
+        extra=[long_batch] * MT_LONG_STEPS, rerun_type="rnn")
     out["config"] = cfg
     out["buckets"] = {
         "stream": sorted({(_seq_padded(f, "src_word_id"),
@@ -6164,9 +6287,9 @@ def phase_train_srl(pt, report):
     tokens = int(batches[0]["word_data"].lod[0][-1])
     witness = ("GEMM", lambda n: "gemm" in n.lower() or "sm90" in n.lower())
     out, exe, sg = _graphed_training(
-        pt, "train_srl", main, startup, loss, batches[0], batches[1:5], [],
-        SRL_BITWISE_STEPS, SRL_TURNS, witness, card, tokens,
-        "linear_chain_crf")
+        pt, "train_srl", main, startup, loss, batches[0], SRL_BITWISE_STEPS,
+        SRL_TURNS, witness, card, (tokens, "tokens"), stream=batches[1:5],
+        rerun_type="linear_chain_crf")
     held = dict(batches[5])
     del held["target"]
     path, = exe.run(pt.io.get_inference_program([decode], main), feed=held,
@@ -8337,6 +8460,680 @@ def phase_train_reader_layers(pt, conv_cuda, bn_cuda, resnet, report):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- vision and detection: the zoo's CNNs and a MobileNet-SSD ----------------
+
+# MobileNet-SSD as PaddlePaddle's object-detection example of the period
+# builds it (PaddlePaddle models, fluid/object_detection/mobilenet_ssd.py):
+# a MobileNet-v1 backbone (conv_bn 3x3/2, 13 depthwise-separable blocks),
+# four extra stride-2 stages, multi_box_head over six maps (19x19 down to
+# 1x1 at 300x300), base_size 300, min_ratio 20, max_ratio 90, aspect ratios
+# [[2], [2, 3] x 5], flip, clip, kernel_size 3, pad 1; 21 VOC classes;
+# ssd_loss with its defaults, summed; Momentum 0.9 at lr 1e-3. Synthetic
+# VOC-shaped inputs: images from a seed and 1..SSD["max_boxes"] boxes an
+# image, so the padded ground-truth length is 8 for every batch (the
+# executor buckets LoD lengths up to 8) and one graph signature serves.
+SSD = {"classes": 21, "img": 300, "batch": 32, "lr": 1e-3, "scale": 1.0,
+       "max_boxes": 8, "nms_threshold": 0.45}
+SSD_ASPECT_RATIOS = [[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0],
+                     [2.0, 3.0]]
+
+
+def ssd_conv_bn(pt, x, k, co, stride, pad, groups=1, act="relu"):
+    """The example's conv_bn: a bias-free conv (MSRA init, learning rate
+    0.1) and a batch norm with `act`."""
+    conv = pt.layers.conv2d(
+        input=x, num_filters=co, filter_size=k, stride=stride, padding=pad,
+        groups=groups, act=None, bias_attr=False,
+        param_attr=pt.ParamAttr(learning_rate=0.1,
+                                initializer=pt.initializer.MSRA()))
+    return pt.layers.batch_norm(input=conv, act=act)
+
+
+def mobilenet_ssd(pt, img, num_classes, scale=1.0):
+    """The example's mobile_net -> (mbox_loc [B, P, 4], mbox_conf
+    [B, P, C], prior boxes [P, 4], their variances [P, 4])."""
+    def dws(x, c1, c2, groups, stride):
+        dw = ssd_conv_bn(pt, x, 3, int(c1 * scale), stride, 1,
+                         groups=int(groups * scale))
+        return ssd_conv_bn(pt, dw, 1, int(c2 * scale), 1, 0)
+
+    def extra(x, c1, c2):
+        pw = ssd_conv_bn(pt, x, 1, int(c1 * scale), 1, 0)
+        return ssd_conv_bn(pt, pw, 3, int(c2 * scale), 2, 1)
+
+    t = ssd_conv_bn(pt, img, 3, int(32 * scale), 2, 1)
+    t = dws(t, 32, 64, 32, 1)
+    t = dws(t, 64, 128, 64, 2)
+    t = dws(t, 128, 128, 128, 1)
+    t = dws(t, 128, 256, 128, 2)
+    t = dws(t, 256, 256, 256, 1)
+    t = dws(t, 256, 512, 256, 2)
+    for _ in range(5):
+        t = dws(t, 512, 512, 512, 1)
+    m11 = t
+    t = dws(t, 512, 1024, 512, 2)
+    m13 = dws(t, 1024, 1024, 1024, 1)
+    m14 = extra(m13, 256, 512)
+    m15 = extra(m14, 128, 256)
+    m16 = extra(m15, 128, 256)
+    m17 = extra(m16, 64, 128)
+    return pt.layers.detection.multi_box_head(
+        inputs=[m11, m13, m14, m15, m16, m17], image=img,
+        base_size=img.shape[2], num_classes=num_classes, min_ratio=20,
+        max_ratio=90, aspect_ratios=SSD_ASPECT_RATIOS, offset=0.5,
+        flip=True, clip=True, kernel_size=3, pad=1)
+
+
+def ssd_train_net(pt, cfg, amp=True):
+    """The example's training program: the feeds (image, gt_box and
+    gt_label LoD), ssd_loss summed, Momentum 0.9 (AMP O2 when `amp`)
+    -> (feed vars, loss, prior boxes)."""
+    L = pt.layers
+    img = L.data(name="image", shape=[3, cfg["img"], cfg["img"]],
+                 dtype="float32")
+    gt_box = L.data(name="gt_box", shape=[4], dtype="float32", lod_level=1)
+    gt_label = L.data(name="gt_label", shape=[1], dtype="int32", lod_level=1)
+    loc, conf, boxes, variances = mobilenet_ssd(pt, img, cfg["classes"],
+                                                cfg["scale"])
+    loss = L.reduce_sum(L.detection.ssd_loss(loc, conf, gt_box, gt_label,
+                                             boxes, variances))
+    opt = pt.optimizer.Momentum(learning_rate=cfg["lr"], momentum=0.9)
+    if amp:
+        opt = pt.amp.decorate(opt, level="O2")
+    opt.minimize(loss)
+    return [img, gt_box, gt_label], loss, boxes
+
+
+def ssd_detect_net(pt, cfg):
+    """The example's inference program: the backbone and detection_output
+    (box decode, softmax, multiclass_nms: nms_top_k 400, keep_top_k 200,
+    the example's nms_threshold) -> (image var, the padded [B, 200, 6]
+    detections)."""
+    img = pt.layers.data(name="image", shape=[3, cfg["img"], cfg["img"]],
+                         dtype="float32")
+    loc, conf, boxes, variances = mobilenet_ssd(pt, img, cfg["classes"],
+                                                cfg["scale"])
+    return img, pt.layers.detection.detection_output(
+        loc, conf, boxes, variances, nms_threshold=cfg["nms_threshold"])
+
+
+def ssd_batch(rng, lod_tensor, batch, cfg):
+    """A synthetic VOC-shaped batch from `rng`: images [B, 3, H, W] and
+    1..max_boxes boxes an image (x1 < x2, y1 < y2 in [0, 1], labels
+    1..classes-1) as LoD feeds of `lod_tensor` (the package's LoDTensor)
+    -> (feed, boxes per image, labels per image)."""
+    img = rng.standard_normal((batch, 3, cfg["img"], cfg["img"]),
+                              dtype=np.float32)
+    boxes, labels = [], []
+    for _ in range(batch):
+        n = int(rng.integers(1, cfg["max_boxes"] + 1))
+        lo = rng.uniform(0.0, 0.6, (n, 2))
+        wh = rng.uniform(0.1, 0.4, (n, 2))
+        boxes.append(np.concatenate([lo, lo + wh], 1).astype(np.float32))
+        labels.append(rng.integers(1, cfg["classes"], (n, 1))
+                      .astype(np.int32))
+    offs = np.concatenate([[0], np.cumsum([len(b) for b in boxes])]).tolist()
+    feed = {"image": img,
+            "gt_box": lod_tensor(np.concatenate(boxes), [offs]),
+            "gt_label": lod_tensor(np.concatenate(labels), [offs])}
+    return feed, boxes, labels
+
+
+# bench.py's CNN configurations (bench.py:111-125): the zoo's models at
+# their own widths, trained under AMP O2 with Momentum 0.9 at bench.py's
+# rates; alexnet and googlenet also served at bench.py's INFER_BS
+ZOO = {"alexnet": {"model_fn": "alexnet", "img": 224, "classes": 1000,
+                   "batch": 256, "lr": 0.01},
+       "googlenet": {"model_fn": "googlenet", "img": 224, "classes": 1000,
+                     "batch": 256, "lr": 0.005},
+       "smallnet": {"model_fn": "smallnet_mnist_cifar", "img": 32,
+                    "classes": 10, "batch": 512, "lr": 0.01}}
+ZOO_SERVED = ("alexnet", "googlenet")
+ZOO_INFER_BATCH = 16                # bench.py's INFER_BS (bench.py:124)
+ZOO_BUCKETS = (1, 4, 16)
+ZOO_BITWISE_STEPS = 3               # warm-up, capture, replay: held bitwise
+ZOO_TURNS = 5                       # then graphed and eager steps in turns
+SSD_STEPS_BITWISE = 3
+SSD_TURNS = 5
+SSD_SERVE_BATCH = 16
+SSD_MAP_BATCHES = 3                 # batches DetectionMAP accumulates
+ZOO_WITNESS = ("K3", lambda name: "conv2d_wgrad_kernel" in name)
+# each path's kernel launches per training step, by the port's gates at
+# the path's batch (zoo_kernel_shapes), held on the card to the eager
+# steps' wrapper counts and to the replays' traces. alexnet: K1/K2/K3 at
+# its four convs of 8-multiple channels (the 11x11 stride-4 stem, Ci 3,
+# falls back under "channels"); googlenet: its 56 convs but the stem;
+# smallnet: two of its three (the first, Ci 3, falls back); the SSD: K4 +
+# K5 at its 13 pointwise and 8 extra conv -> bn -> relu windows, K6 after
+# its 13 depthwise convs (which fall back under "groups") and its stem (Ci
+# 3), K1 at the 6 loc heads (the 84- and 126-channel conf heads fall back
+# under "channels"), K2 and K3 at the 27 eligible convs' grads
+ZOO_LAUNCHES = {
+    "alexnet": {"conv.launches": 4, "conv.dgrad_launches": 4,
+                "conv.wgrad_launches": 4},
+    "googlenet": {"conv.launches": 56, "conv.dgrad_launches": 56,
+                  "conv.wgrad_launches": 56},
+    "smallnet": {"conv.launches": 2, "conv.dgrad_launches": 2,
+                 "conv.wgrad_launches": 2},
+    "ssd": {"conv.launches": 6, "conv.dgrad_launches": 27,
+            "conv.wgrad_launches": 27, "conv.stats_launches": 21,
+            "bn.apply_launches": 21, "bn.act_launches": 14},
+    "vgg16": VGG16_LAUNCHES}
+
+
+def zoo_train_net(pt, cfg, amp=True):
+    """bench.py's CNN training mode for one ZOO entry: the model through
+    build_image_classifier, Momentum 0.9 at its rate, AMP O2 when `amp`
+    -> (main, startup, avg cost)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name="img", shape=[3, cfg["img"], cfg["img"]],
+                             dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        avg_cost, _, _ = pt.models.build_image_classifier(
+            getattr(pt.models, cfg["model_fn"]), img, label,
+            class_dim=cfg["classes"])
+        opt = pt.optimizer.Momentum(learning_rate=cfg["lr"], momentum=0.9)
+        if amp:
+            opt = pt.amp.decorate(opt, level="O2")
+        opt.minimize(avg_cost)
+    main.random_seed = startup.random_seed = SEED + 1
+    return main, startup, avg_cost
+
+
+def zoo_infer_net(pt, cfg):
+    """bench.py's CNN inference mode: the model with is_test, softmax, AMP
+    O2 -> (main, startup, probabilities)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name="img", shape=[3, cfg["img"], cfg["img"]],
+                             dtype="float32")
+        prob = pt.layers.softmax(getattr(pt.models, cfg["model_fn"])(
+            img, class_dim=cfg["classes"], is_test=True))
+    main.random_seed = startup.random_seed = SEED + 1
+    pt.amp.enable(main, level="O2")
+    return main, startup, prob
+
+
+def ssd_programs(pt, cfg):
+    """The SSD's training program (ssd_train_net, AMP O2) and its
+    inference program (ssd_detect_net, its batch norms in inference mode,
+    AMP O2), built under one name guard each so their parameters share
+    names -> (train main, startup, loss, boxes, detect main, detections)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        _, loss, boxes = ssd_train_net(pt, cfg)
+    main.random_seed = startup.random_seed = SEED + 1
+    det, det_startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(det, det_startup):
+        _, out = ssd_detect_net(pt, cfg)
+    for op in det.global_block().ops:
+        if op.type == "batch_norm":
+            op.set_attr("is_test", True)
+    pt.amp.enable(det, level="O2")
+    return main, startup, loss, boxes, det, out
+
+
+def zoo_kernel_shapes(main, batch):
+    """What the port's gates send to K1-K6 in one training step of `main`
+    at `batch`, as under AMP O2: kernel -> {shape key: launches a step}
+    (conv keys: x NHWC, w OIHW, strides, paddings, dilations; K5/K6 keys:
+    [M, C] and act), and the refusals by (op, reason). conv -> bn [-> act]
+    windows (fusion.plan) whose conv passes K1's gate run K4 + K5, the
+    others' convs fall back and their bn runs K6 where its gate admits it;
+    the other conv2d ops run K1; every conv2d_grad that passes the gate
+    runs K2 for an Input grad and K3 for a Filter grad."""
+    import torch
+    from paddle_tpu_torch.ops import bn_cuda, conv_cuda, fusion
+    block = main.global_block()
+    ops = block.ops
+    tables = {k: {} for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    refused = {}
+
+    def add(table, key):
+        table[key] = table.get(key, 0) + 1
+
+    def conv_key(op):
+        _, c, h, w = block.desc.var(op.input("Input")[0]).shape
+        key = ((batch, h, w, c),
+               tuple(block.desc.var(op.input("Filter")[0]).shape),
+               tuple(op.attr("strides")), tuple(op.attr("paddings")),
+               tuple(op.attr("dilations")))
+        probe = [torch.empty(k, dtype=torch.bfloat16, device="meta")
+                 for k in key[:2]]
+        return key, conv_cuda.ineligible(*probe, *key[2:],
+                                         op.attr("groups") or 1)
+    windowed = set()
+    for g in (fusion.plan(main) or {}).values():
+        if g.bn is None:
+            continue
+        act = None if g.act is None else g.act.type
+        dims = tuple(block.desc.var(g.bn.input("X")[0]).shape[1:])
+        bn_key = (batch * int(np.prod(dims[1:])), dims[0], act)
+        if g.conv is not None:
+            windowed.add(g.start)
+            key, reason = conv_key(g.conv)
+            if reason is None and act in bn_cuda.ACTS:
+                add(tables["K4"], key)
+                add(tables["K5"], bn_key)
+                continue
+            add(refused, ("conv2d", reason or "act"))
+        x = torch.empty((batch,) + dims, dtype=torch.bfloat16, device="meta")
+        reason = bn_cuda.ineligible(x, g.bn.attr("is_test", False), act)
+        if reason is None:
+            add(tables["K6"], bn_key)
+        else:
+            add(refused, ("batch_norm", reason))
+    for i, op in enumerate(ops):
+        if op.type not in ("conv2d", "conv2d_grad"):
+            continue
+        key, reason = conv_key(op)
+        if reason is not None:
+            if i not in windowed:
+                add(refused, (op.type, reason))
+            continue
+        if op.type == "conv2d":
+            if i not in windowed:
+                add(tables["K1"], key)
+            continue
+        if "Input@GRAD" in op.desc.outputs:
+            add(tables["K2"], key)
+        if "Filter@GRAD" in op.desc.outputs:
+            add(tables["K3"], key)
+    return tables, refused
+
+
+_LAUNCH_KEYS = {"K1": "conv.launches", "K2": "conv.dgrad_launches",
+                "K3": "conv.wgrad_launches", "K4": "conv.stats_launches",
+                "K5": "bn.apply_launches", "K6": "bn.act_launches"}
+
+
+def path_launches(name, tables):
+    """The launches a step of path `name` gives each kernel counter by
+    its gates (zoo_kernel_shapes' tables), held to ZOO_LAUNCHES[name]."""
+    got = {_LAUNCH_KEYS[k]: sum(t.values()) for k, t in tables.items()
+           if sum(t.values())}
+    if got != ZOO_LAUNCHES[name]:
+        raise RuntimeError(f"{name}'s gates admit {got} launches a step, "
+                           f"expected {ZOO_LAUNCHES[name]}")
+    return got
+
+
+
+def _zoo_feed(cfg, batch, seed):
+    """One synthetic batch of a ZOO entry from `seed`: images and labels."""
+    rng = np.random.default_rng(seed)
+    return {"img": rng.standard_normal((batch, 3, cfg["img"], cfg["img"]),
+                                       dtype=np.float32),
+            "label": rng.integers(0, cfg["classes"], (batch, 1))
+            .astype(np.int64)}
+
+
+def phase_train_zoo(pt, report):
+    """bench.py's alexnet, googlenet and smallnet trained at their own
+    widths and batches (ZOO), AMP O2, Momentum 0.9, one repeated synthetic
+    batch, each through _graphed_training: graphed bitwise eager (dropout
+    included), the losses falling, p50, busy share, K1/K2/K3 launches per
+    eager step held to ZOO_LAUNCHES and the profiled replay's traced ones
+    to the graph's nodes. -> launches by kernel counter counted over the
+    phase's runs (wrappers, and the profiled replays' traces)."""
+    import torch
+    card = _card_line()
+    total, out = {}, {}
+    for i, (name, cfg) in enumerate(ZOO.items()):
+        main, startup, loss = zoo_train_net(pt, cfg)
+        want = path_launches(name, zoo_kernel_shapes(main, cfg["batch"])[0])
+        feed = _zoo_feed(cfg, cfg["batch"], SEED + 30 + i)
+        # the witness is K3, of the backward: the records a profiler
+        # window loses are its first ones, the forward's
+        with _kept_graphs():
+            rec, _, _ = _graphed_training(
+                pt, f"train_zoo {name}", main, startup, loss, feed,
+                ZOO_BITWISE_STEPS, ZOO_TURNS, ZOO_WITNESS, card,
+                (cfg["batch"], "img"), want=want)
+        rec.update(batch=cfg["batch"], img=cfg["img"], lr=cfg["lr"])
+        out[name] = rec
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+        del main, startup, loss
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    report["train_zoo"] = out
+    return total
+
+
+def phase_serve_zoo(pt, conv_cuda, report):
+    """bench.py's alexnet_infer and googlenet_infer (AMP O2, is_test,
+    softmax) served by ServingEngine through buckets ZOO_BUCKETS: each
+    bucket's first replay bitwise its eager run; batch-16 requests
+    (bench.py's INFER_BS) graphed against eager in turns (p50); the
+    softmax rows finite and summing to 1; K1 launches of three replayed
+    requests from their trace, the eligible convs a request. -> K1
+    launches."""
+    import torch
+    from paddle_tpu_torch.serving import ServingEngine
+    card = _card_line()
+    out, k1 = {}, 0
+    for i, name in enumerate(ZOO_SERVED):
+        cfg = ZOO[name]
+        main, startup, prob = zoo_infer_net(pt, cfg)
+        scope = pt.Scope()
+        pt.Executor().run(startup, scope=scope)
+        engine = ServingEngine(main, ["img"], [prob], buckets=ZOO_BUCKETS,
+                               scope=scope)
+        eligible = len(_eligible_convs(conv_cuda, engine.program, 1))
+        req = _zoo_feed(cfg, ZOO_INFER_BATCH, SEED + 40 + i)["img"]
+        with _kept_graphs():
+            warm_s, pool_gb = _warm_buckets(engine, "img", req,
+                                            f"serve_zoo {name}")
+        turns = _serve_in_turns(engine, "img", {ZOO_INFER_BATCH: req},
+                                f"serve_zoo {name}")[ZOO_INFER_BATCH]
+        got = engine.infer({"img": req})[0]
+        sums = got.astype(np.float64).sum(axis=1)
+        if got.shape != (ZOO_INFER_BATCH, cfg["classes"]) or \
+                not np.isfinite(got).all() or np.abs(sums - 1).max() > 2e-2:
+            raise RuntimeError(f"serve_zoo {name}: output {got.shape}, "
+                               f"row sums {sums}")
+        traced = _trace_replays(engine, "img", [req] * 3, {"K1": eligible},
+                                f"serve_zoo {name}",
+                                graph=_bucket_graph(engine, ZOO_INFER_BATCH))["K1"]
+        k1 += traced
+        out[name] = {"card": card, "batch": ZOO_INFER_BATCH,
+                     "warm_s": warm_s, "graph_pool_gb": pool_gb,
+                     "p50_ms": turns,
+                     "img_per_s": ZOO_INFER_BATCH / (turns["graph"] / 1e3),
+                     "eligible_convs": eligible, "k1_traced": traced}
+        print(f"serve_zoo {name}: buckets {ZOO_BUCKETS} warmed and captured "
+              f"({', '.join(f'{b}: {s:.2f} s' for b, s in warm_s.items())}), "
+              f"first replays bitwise eager; batch {ZOO_INFER_BATCH} request "
+              f"p50 graphed {turns['graph']:.2f} ms, eager "
+              f"{turns['eager']:.2f} ms ({out[name]['img_per_s']:.0f} img/s); "
+              f"K1 {traced} launches in 3 replays ({eligible} eligible convs "
+              f"a request; {card})", flush=True)
+        engine.close()
+        del engine, scope, main
+        torch.cuda.empty_cache()
+    report["serve_zoo"] = out
+    return k1
+
+
+def _bucket_graph(engine, bucket):
+    """The CUDA graph of `engine`'s bucket `bucket` (kept, _kept_graphs)."""
+    graph, = [g.graph for k, g in engine._graphs.items() if k[0] == bucket]
+    return graph
+
+
+def _prior_count(main):
+    """The priors the program's prior_box ops make, from their shapes."""
+    block = main.global_block()
+    total = 0
+    for op in block.ops:
+        if op.type == "prior_box":
+            h, w, n, _ = block.desc.var(op.output("Boxes")[0]).shape
+            total += h * w * n
+    return total
+
+
+def phase_train_ssd(pt, report):
+    """The MobileNet-SSD (SSD, ssd_train_net) trained at 300x300, 21
+    classes, batch 32, AMP O2, Momentum 0.9 at 1e-3, on one synthetic
+    VOC-shaped batch (1..8 boxes an image, LoD feeds padded to 8) through
+    _graphed_training: the whole step, matching, mining and loss included,
+    one CUDA graph, bitwise its eager twin; K1-K6 launches per eager step
+    held to ZOO_LAUNCHES["ssd"]. -> (launches by counter counted over the
+    phase's runs, the trained scope, the inference program and its
+    detections var)."""
+    from paddle_tpu_torch import executor as E
+    card = _card_line()
+    main, startup, loss, boxes, det, out = ssd_programs(pt, SSD)
+    want = path_launches("ssd", zoo_kernel_shapes(main, SSD["batch"])[0])
+    feed, gt, _ = ssd_batch(np.random.default_rng(SEED + 50), pt.LoDTensor,
+                            SSD["batch"], SSD)
+    with _kept_graphs():
+        rec, _, scope = _graphed_training(
+            pt, "train_ssd", main, startup, loss, feed, SSD_STEPS_BITWISE,
+            SSD_TURNS, ZOO_WITNESS, card, (SSD["batch"], "img"), want=want)
+    rec.update(batch=SSD["batch"], priors=_prior_count(main),
+               boxes_per_image=[len(b) for b in gt],
+               padded_boxes=E._bucket_len(max(len(b) for b in gt)))
+    print(f"train_ssd: {rec['priors']} priors over six maps; ground truths "
+          f"padded to {rec['padded_boxes']} boxes; the gate's answer "
+          f"{rec['gate']} (graphed); {rec['img_per_s']:.1f} img/s "
+          f"({rec['card']})", flush=True)
+    report["train_ssd"] = rec
+    return rec["launches"], scope, det, out
+
+
+def _rows_counts(rows):
+    """Each image's detection count in padded multiclass_nms rows: the rows
+    whose label is not the background's (0), which the op never keeps and
+    whose rows past the count it zeroes."""
+    return (rows[..., 0] != 0).sum(axis=-1)
+
+
+def phase_serve_ssd(pt, conv_cuda, scope, det, out, report):
+    """The SSD's inference program (ssd_detect_net: decode, softmax,
+    multiclass_nms with nms_top_k 400, keep_top_k 200) with train_ssd's
+    weights served by ServingEngine at batch 16 through buckets
+    ZOO_BUCKETS: each bucket's first replay bitwise its eager run; batch-16
+    requests graphed against eager in turns (p50); the rows and counts
+    against an Executor run of the same program (its LoD counts); one
+    replay and one eager request profiled for the launches a request
+    takes (the NMS loop's iterations); then DetectionMAP over
+    SSD_MAP_BATCHES batches on the host, and the detection_map op over the
+    same batches on the card (eager, gate reason host_metric, one host
+    read a batch, counted), the two held equal. -> K1 launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch.serving import ServingEngine
+    card = _card_line()
+    engine = ServingEngine(det, ["image"], [out], buckets=ZOO_BUCKETS,
+                           scope=scope)
+    eligible = len(_eligible_convs(conv_cuda, engine.program, 1))
+    rng = np.random.default_rng(SEED + 60)
+    batches = [ssd_batch(rng, pt.LoDTensor, SSD_SERVE_BATCH, SSD)
+               for _ in range(SSD_MAP_BATCHES)]
+    req = batches[0][0]["image"]
+    with _kept_graphs():
+        warm_s, pool_gb = _warm_buckets(engine, "image", req, "serve_ssd")
+    turns = _serve_in_turns(engine, "image", {SSD_SERVE_BATCH: req},
+                            "serve_ssd")[SSD_SERVE_BATCH]
+    rows = engine.infer({"image": req})[0]
+    counts = _rows_counts(rows)
+    ref, = pt.Executor().run(det, feed={"image": req}, fetch_list=[out],
+                             scope=scope, return_numpy=False)
+    ref_counts = np.diff(ref.lod[0])
+    if rows.shape != (SSD_SERVE_BATCH, 200, 6) or not np.isfinite(rows).all() \
+            or not np.array_equal(counts, ref_counts) or not counts.any():
+        raise RuntimeError(f"serve_ssd: rows {rows.shape}, counts {counts}, "
+                           f"the executor's {ref_counts}")
+    k1 = _trace_replays(engine, "image", [req] * 3, {"K1": eligible},
+                        "serve_ssd",
+                        graph=_bucket_graph(engine, SSD_SERVE_BATCH))["K1"]
+    per_request = {}
+    for mode, fn in (("graph", lambda: engine.infer({"image": req})),
+                     ("eager", lambda: _eager_request(engine,
+                                                      {"image": req}))):
+        with _profiled() as prof:
+            fn()
+        per_request[mode] = sum(
+            1 for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not _is_span(e))
+    nms = next(op for op in engine.program.global_block().ops
+               if op.type == "multiclass_nms")
+    priors = _prior_count(det)
+    iterations = min(priors, nms.attr("nms_top_k"))
+
+    # mAP: the metric on the host, and the op on the card
+    metric = pt.metrics.DetectionMAP(overlap_threshold=0.5)
+    main_map = pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main_map, pt.Program()):
+        d = pt.layers.data(name="det", shape=[6], dtype="float32",
+                           lod_level=1)
+        g = pt.layers.data(name="gt", shape=[6], dtype="float32",
+                           lod_level=1)
+        m_ap = pt.layers.detection.detection_map(d, g, overlap_threshold=0.5)
+    exe = pt.Executor()
+    E.COUNTERS.reset()
+    op_maps = []
+    for feed, boxes, labels in batches:
+        dets = engine.infer({"image": feed["image"]})[0]
+        cnt = _rows_counts(dets)
+        gts = [np.concatenate([lb.astype(np.float32),
+                               np.zeros_like(lb, np.float32), bx], 1)
+               for bx, lb in zip(boxes, labels)]
+        gmax = max(len(x) for x in gts)
+        gpad = np.zeros((len(gts), gmax, 6), np.float32)
+        for i, x in enumerate(gts):
+            gpad[i, :len(x)] = x
+        metric.update(dets, cnt, gpad, [len(x) for x in gts])
+        doffs = np.concatenate([[0], np.cumsum(cnt)]).tolist()
+        goffs = np.concatenate([[0], np.cumsum([len(x) for x in gts])]
+                               ).tolist()
+        flat = np.concatenate([dets[i, :cnt[i]] for i in range(len(cnt))])
+        v, = exe.run(main_map, feed={
+            "det": pt.LoDTensor(flat, [doffs]),
+            "gt": pt.LoDTensor(np.concatenate(gts), [goffs])},
+            fetch_list=[m_ap])
+        from paddle_tpu_torch.ops.detection_ops import detection_map_np
+        want = detection_map_np(dets, cnt, gpad, [len(x) for x in gts], 0.5,
+                                True, "integral", 0)
+        if float(np.asarray(v).ravel()[0]) != float(want):
+            raise RuntimeError(f"serve_ssd: the detection_map op's mAP {v} "
+                               f"is not the host's {want}")
+        op_maps.append(float(np.asarray(v).ravel()[0]))
+    syncs = dict(E.COUNTERS.host_syncs)
+    if syncs != {"detection_map": len(batches)} or \
+            E.COUNTERS.eager != {"host_metric": len(batches)}:
+        raise RuntimeError(f"serve_ssd: host syncs {syncs}, eager steps "
+                           f"{E.COUNTERS.eager}")
+    acc_map = metric.eval()
+    rec = {"card": card, "batch": SSD_SERVE_BATCH, "warm_s": warm_s,
+           "graph_pool_gb": pool_gb, "p50_ms": turns,
+           "img_per_s": SSD_SERVE_BATCH / (turns["graph"] / 1e3),
+           "counts": counts.tolist(), "priors": priors,
+           "nms_iterations": iterations,
+           "launches_per_request": per_request, "k1_traced": k1,
+           "eligible_convs": eligible, "batch_maps": op_maps,
+           "accumulated_map": acc_map, "host_syncs": syncs}
+    print(f"serve_ssd: buckets {ZOO_BUCKETS} warmed and captured, first "
+          f"replays bitwise eager; batch {SSD_SERVE_BATCH} request p50 "
+          f"graphed {turns['graph']:.2f} ms, eager {turns['eager']:.2f} ms; "
+          f"detections per image {counts.tolist()} (the executor's LoD "
+          f"counts the same); {priors} priors, the NMS loop {iterations} "
+          f"iterations; kernel launches a request {per_request}; K1 {k1} "
+          f"in 3 replays; mAP per batch (op on the card, eager under "
+          f"host_metric) {op_maps}, DetectionMAP over {len(batches)} "
+          f"batches {acc_map:.4f}; host syncs {syncs} ({card})", flush=True)
+    report["serve_ssd"] = rec
+    engine.close()
+    return k1
+
+
+
+def _zoo_shape_rows(conv_cuda, bn_cuda, tables, batch, held):
+    """K1-K6 at each shape of `tables` (zoo_kernel_shapes') not in `held`
+    yet, held and timed (a CUDA graph of 10 calls between events) by
+    _conv_shape_rows and _bn_shape_row. -> rows by (kernel, shape key)."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 70)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(
+            torch.bfloat16).cuda()
+    time_ms = functools.partial(_device_ms, reps=10)
+    rows = {}
+    conv_keys = set()
+    for k in ("K1", "K2", "K3", "K4"):
+        conv_keys |= set(tables[k])
+    for key in sorted(conv_keys):
+        counts = {k: tables[k][key] for k in ("K1", "K2", "K3", "K4")
+                  if key in tables[k] and (k, key) not in held}
+        if counts:
+            for k, row in _conv_shape_rows(conv_cuda, key, counts, randn,
+                                           time_ms).items():
+                rows[(k, key)] = row
+    for kern, kind in (("K5", "bn_apply"), ("K6", "bn_act")):
+        for key, n in sorted(tables[kern].items(), key=str):
+            if (kern, key) not in held:
+                rows[(kern, key)] = _bn_shape_row(bn_cuda, kind, key, n,
+                                                  batch, randn, time_ms)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernel_zoo(pt, conv_cuda, bn_cuda, report):
+    """K1-K6 at every distinct shape the gates give them on train_zoo's
+    and train_ssd's steps (AlexNet's and GoogLeNet's 5x5 filters,
+    GoogLeNet's 16- and 24-channel reductions, the SSD's pointwise convs
+    and their batch norms on 150x150 down to 1x1 maps), and K1 at each
+    shape serve_zoo's and serve_ssd's bucket-16 requests give it (every
+    conv that passes K1's gate, the SSD's folded conv -> bn windows
+    included): each twice bitwise and held to its plain version, then
+    timed (_zoo_shape_rows). Per path and kernel: its ms a step (the
+    shapes' times by their launches), the plain version's, the library's
+    and the bound."""
+    import torch
+    card = _card_line()
+    paths = {name: zoo_train_net(pt, cfg)[0] for name, cfg in ZOO.items()}
+    ssd = ssd_programs(pt, SSD)
+    paths["ssd"] = ssd[0]
+    batches = {name: cfg["batch"] for name, cfg in ZOO.items()}
+    batches["ssd"] = SSD["batch"]
+    for name in ZOO_SERVED:
+        paths[f"{name}_infer"] = zoo_infer_net(pt, ZOO[name])[0]
+        batches[f"{name}_infer"] = ZOO_INFER_BATCH
+    paths["ssd_infer"], batches["ssd_infer"] = ssd[4], SSD_SERVE_BATCH
+    held, per_path = {}, {}
+    for name, main in paths.items():
+        tables, refused = zoo_kernel_shapes(main, batches[name])
+        if name.endswith("_infer"):
+            # inference: K1 at every conv that passes its gate (a served
+            # conv -> bn window folds the bn into the conv), nothing else
+            k1 = {}
+            for key in _eligible_convs(conv_cuda, main, batches[name]):
+                k1[key] = k1.get(key, 0) + 1
+            tables = {k: (k1 if k == "K1" else {}) for k in tables}
+        held.update(_zoo_shape_rows(conv_cuda, bn_cuda, tables,
+                                    batches[name], held))
+        per_path[name] = {}
+        for kern, table in tables.items():
+            if not table:
+                continue
+            rs = [(held[(kern, key)], n) for key, n in table.items()]
+
+            def total(field):
+                vals = [r[field] for r, _ in rs]
+                return None if None in vals else sum(
+                    v * n for v, (_, n) in zip(vals, rs))
+            worst = max(rs, key=lambda rn: rn[0]["ms"] / rn[0]["bound_ms"])[0]
+            per_path[name][kern] = {
+                "shapes": len(table), "launches": sum(table.values()),
+                "ms": total("ms"), "plain_ms": total("plain_ms"),
+                "library_ms": total("library_ms"),
+                "bound_ms": total("bound_ms"),
+                "max_abs_err": max(r["max_abs_err"] for r, _ in rs),
+                "worst_shape": worst["shape"],
+                "worst_ms": worst["ms"], "worst_bound_ms": worst["bound_ms"]}
+            v = per_path[name][kern]
+            print(f"kernel_zoo {name} {kern}: {v['launches']} launches a step "
+                  f"at {v['shapes']} shapes, {v['ms']:.3f} ms (plain "
+                  f"{v['plain_ms']:.3f}, library {v['library_ms']}, bound "
+                  f"{v['bound_ms']:.3f}); farthest from its bound "
+                  f"{v['worst_shape']} {v['worst_ms']:.4f} ms vs "
+                  f"{v['worst_bound_ms']:.4f}; max abs err "
+                  f"{v['max_abs_err']:.3g}; refused {refused} ({card})",
+                  flush=True)
+        torch.cuda.empty_cache()
+    report["kernel_zoo"] = {"card": card, "paths": per_path,
+                            "shapes": [dict(r, key=str(k))
+                                       for k, r in held.items()]}
+    print(f"kernel_zoo: {len(held)} (kernel, shape) pairs held twice bitwise "
+          f"and against their plain versions ({card})", flush=True)
+    return per_path
+
+
 def ptxas_report(build_log: dict) -> dict:
     """Print ptxas's registers, spills and serialized-wgmma warnings for every
     kernel of every library in `build_log` (cuda_build.BUILD_LOG: name ->
@@ -8506,6 +9303,33 @@ def main(argv=None) -> int:
         table = "bn." if key in ("apply_launches", "act_launches") else "conv."
         k["launches_by_path"]["train_reader_layers"] = reader[table + key]
         k["launches"] = sum(k["launches_by_path"].values())
+    # vision and detection: K1-K6 at the zoo's and the SSD's shapes, then
+    # their training and serving paths
+    phase_kernel_zoo(pt, conv_cuda, bn_cuda, report)
+    zoo = {"train_zoo": phase_train_zoo(pt, report)}
+    zoo_k1 = {"serve_zoo": phase_serve_zoo(pt, conv_cuda, report)}
+    zoo["train_ssd"], ssd_scope, det, det_out = phase_train_ssd(pt, report)
+    zoo_k1["serve_ssd"] = phase_serve_ssd(pt, conv_cuda, ssd_scope, det,
+                                          det_out, report)
+    del ssd_scope
+    for path, got in zoo.items():
+        zoo_k1[path] = got.get("conv.launches", 0)
+    k1["launches_by_path"].update(zoo_k1)
+    k1["launches"] = sum(k1["launches_by_path"].values())
+    for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
+                                      "stats_launches", "apply_launches",
+                                      "act_launches")):
+        table = "bn." if key in ("apply_launches", "act_launches") else "conv."
+        for path, got in zoo.items():
+            if got.get(table + key):
+                k["launches_by_path"][path] = got[table + key]
+        k["launches"] = sum(k["launches_by_path"].values())
+    missing = [k["name"] for k in [k1] + train_kernels
+               if not any(k["launches_by_path"].get(p)
+                          for p in list(zoo) + list(zoo_k1))]
+    if missing:
+        raise RuntimeError(f"{missing} were launched no time on the vision "
+                           f"and detection paths")
     kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
                + [k11, q1, s1]}
     report.update(kernels)

@@ -10,12 +10,13 @@ uci_housing (fit_a_line), mnist (recognize_digits), cifar
 (image_classification), imikolov (word2vec), flowers (ResNet-50 training
 on the card), imdb (understand_sentiment), movielens (recommender_system)
 and sentiment; conll05 (label_semantic_roles), wmt14 and wmt16
-(machine_translation); mq2007 (learning to rank). The JAX package's other
-one (voc2012) feeds the detection models the port has not yet."""
+(machine_translation); mq2007 (learning to rank); voc2012 (segmentation:
+images and class masks)."""
 
 from . import (cifar, common, conll05, flowers, imdb, imikolov, mnist,
-               movielens, mq2007, sentiment, uci_housing, wmt14, wmt16)
+               movielens, mq2007, sentiment, uci_housing, voc2012, wmt14,
+               wmt16)
 
 __all__ = ["cifar", "common", "conll05", "flowers", "imdb", "imikolov",
            "mnist", "movielens", "mq2007", "sentiment", "uci_housing",
-           "wmt14", "wmt16"]
+           "voc2012", "wmt14", "wmt16"]

@@ -395,8 +395,9 @@ class LoweringContext:
 
     def host_sync(self, op_type: str):
         """Count one read of a device value to the host by a `while`
-        condition or a `conditional_block` predicate
-        (`COUNTERS.host_syncs`), the only lowerings allowed one."""
+        condition, a `conditional_block` predicate or a host metric
+        (detection_map's inputs) (`COUNTERS.host_syncs`), the only
+        lowerings allowed one."""
         COUNTERS.host_syncs[op_type] = COUNTERS.host_syncs.get(op_type, 0) + 1
 
     def generator(self, op) -> torch.Generator:
@@ -534,7 +535,7 @@ class Counters:
     executor_window_fallback_total: `lod_feed`); `host_syncs`, the device
     values read to the host by op type (a `while` condition each
     iteration, a `conditional_block` predicate each run: the lowerings
-    that decide their path on the host). A replay runs no Python: the
+    that decide their path on the host; detection_map's inputs each run). A replay runs no Python: the
     kernel wrappers' launch counters do not move."""
     windows: int = 0
     steps: int = 0
@@ -561,7 +562,7 @@ COUNTERS = Counters()
 # ops that draw from ctx.generator. Each op's generator is registered with
 # every graph that draws from it and seeded before each replay, so a replay
 # draws what the eager step of the same run counter draws
-RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout",
+RANDOM_OPS = frozenset({"uniform_random", "gaussian_random", "dropout", "nce",
                         "uniform_random_batch_size_like",
                         "gaussian_random_batch_size_like"})
 
@@ -578,6 +579,12 @@ HOST_CONTROL_OPS = frozenset({"while", "while_grad", "conditional_block",
 # holding one runs eager under the gate's reason "host_io", since a replay
 # would skip the write, or return the file's contents at capture
 HOST_IO_OPS = frozenset({"save", "save_combine", "load", "load_combine"})
+
+# ops that compute on the host from device values they read there
+# (detection_map, the JAX package's pure_callback): a block holding one runs
+# eager under the gate's reason "host_metric", since a replay would return
+# the value computed at capture
+HOST_METRIC_OPS = frozenset({"detection_map"})
 
 
 def telemetry_fetch_enabled() -> bool:
@@ -1243,7 +1250,9 @@ class Executor:
         a `conditional_block`, their grads or a `print`: HOST_CONTROL_OPS,
         which read a device value on the host to choose their path, or
         print there), "host_io" (it holds a save or load op, HOST_IO_OPS,
-        which write or read a file on the host). A random op is graphed
+        which write or read a file on the host), "host_metric" (it holds an
+        op that computes on the host from device values, HOST_METRIC_OPS,
+        each read counted in COUNTERS.host_syncs). A random op is graphed
         (RANDOM_OPS), and so is a LoD feed: its lengths are feeds of the
         graph, each padded length its own signature; so is an `rnn`, whose
         trip count is the padded length."""
@@ -1258,6 +1267,8 @@ class Executor:
             return "control_flow"
         if types & HOST_IO_OPS:
             return "host_io"
+        if types & HOST_METRIC_OPS:
+            return "host_metric"
         if not reads - set(feed) and writes & persistable:
             return "startup"
         return None

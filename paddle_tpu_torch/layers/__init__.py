@@ -10,4 +10,4 @@ from .ops import *           # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 
 from . import (io, tensor, nn, ops, sequence, control_flow,  # noqa: F401
-               learning_rate_scheduler)
+               learning_rate_scheduler, detection)

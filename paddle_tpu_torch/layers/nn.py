@@ -11,6 +11,7 @@ import math
 
 import numpy as np
 
+from ..framework.framework import Variable
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -32,6 +33,11 @@ __all__ = [
     "sigmoid_cross_entropy_with_logits", "smooth_l1", "log_loss",
     "label_smooth", "auc", "l1_norm", "l2_normalize",
     "autoincreased_step_counter",
+    "precision_recall", "positive_negative_pair", "selective_fc",
+    "lrn", "conv3d", "conv2d_transpose", "conv3d_transpose", "pool3d",
+    "max_pool2d_with_index", "unpool", "spp", "roi_pool", "crop", "prelu",
+    "conv_shift", "bilinear_interp", "maxout", "pad", "row_conv",
+    "im2sequence", "nce", "hsigmoid", "sparse_moe",
 ]
 
 
@@ -745,3 +751,414 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     counter.stop_gradient = True
     counter.desc.stop_gradient = True
     return counter
+
+
+# --- vision, the extra layers, the eval layers (8c-2) ---------------------------
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None):
+    """Noise-contrastive estimation loss (reference nce_op.cc, nn.py:2806)."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr)
+    dim = input.shape[1]
+    num_neg_samples = 10 if num_neg_samples is None else num_neg_samples
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype, is_bias=False)
+    b = helper.create_parameter(attr=helper.bias_attr,
+                                shape=[num_total_classes, 1],
+                                dtype=input.dtype, is_bias=True)
+    cost = helper.create_tmp_variable(dtype=input.dtype)
+    sample_logits = helper.create_tmp_variable(dtype=input.dtype)
+    sample_labels = helper.create_tmp_variable(dtype="int64")
+    inputs = {"Input": [input], "Label": [label], "Weight": [w], "Bias": [b]}
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    helper.append_op(type="nce", inputs=inputs,
+                     outputs={"Cost": [cost], "SampleLogits": [sample_logits],
+                              "SampleLabels": [sample_labels]},
+                     attrs={"num_total_classes": num_total_classes,
+                            "num_neg_samples": num_neg_samples})
+    return cost
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    def _triple(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v] * 3
+    dtype = input.dtype
+    groups = groups or 1
+    num_channels = input.shape[1]
+    fs = _triple(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + fs
+    fan_in = (num_channels // groups) * fs[0] * fs[1] * fs[2]
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, math.sqrt(2.0 / fan_in)))
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(type="conv3d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding),
+                            "dilations": _triple(dilation), "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, use_cudnn=True, act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    padding_, stride_, dilation_ = _pair(padding), _pair(stride), _pair(dilation)
+    if filter_size is None:
+        assert output_size is not None
+        output_size = _pair(output_size)
+        h, w_ = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h - 1) * stride_[0] + 2 * padding_[0] - 1)
+            // dilation_[0] + 1,
+            (output_size[1] - (w_ - 1) * stride_[1] + 2 * padding_[1] - 1)
+            // dilation_[1] + 1]
+    else:
+        filter_size = _pair(filter_size)
+    filter_shape = [num_channels, num_filters] + filter_size
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype, is_bias=False)
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(type="conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": stride_, "paddings": padding_,
+                            "dilations": dilation_})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type="maxout", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"groups": groups})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    mid = helper.create_tmp_variable(dtype=input.dtype, stop_gradient=True)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _simple("pad", x, attrs={"paddings": list(paddings),
+                                    "pad_value": float(pad_value)}, name=name)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype, is_bias=False)
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [w]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_tmp_variable(dtype=input.dtype)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": _pair(filter_size),
+                            "strides": _pair(stride),
+                            "paddings": _pair(padding) + _pair(padding)})
+    return out
+
+
+def precision_recall(indices, labels, class_number, weights=None,
+                     states_info=None):
+    """Multi-class precision/recall metrics op wrapper (reference
+    precision_recall_op.h). Returns (batch_metrics [6], accum_metrics [6],
+    accum_states_info [C,4])."""
+    helper = LayerHelper("precision_recall")
+    batch_metrics = helper.create_tmp_variable("float32")
+    accum_metrics = helper.create_tmp_variable("float32")
+    accum_states = helper.create_tmp_variable("float32")
+    inputs = {"Indices": [indices], "Labels": [labels]}
+    if weights is not None:
+        inputs["Weights"] = [weights]
+    if states_info is not None:
+        inputs["StatesInfo"] = [states_info]
+    helper.append_op(type="precision_recall", inputs=inputs,
+                     outputs={"BatchMetrics": [batch_metrics],
+                              "AccumMetrics": [accum_metrics],
+                              "AccumStatesInfo": [accum_states]},
+                     attrs={"class_number": class_number})
+    return batch_metrics, accum_metrics, accum_states
+
+
+def positive_negative_pair(score, label, query_id, weight=None, column=-1):
+    """Ranking pair counts per query (reference positive_negative_pair_op.h).
+    Returns (positive_pair, negative_pair, neutral_pair)."""
+    helper = LayerHelper("positive_negative_pair")
+    pos, neg, neu = (helper.create_tmp_variable("float32") for _ in range(3))
+    inputs = {"Score": [score], "Label": [label], "QueryID": [query_id]}
+    if weight is not None:
+        inputs["Weight"] = [weight]
+    helper.append_op(type="positive_negative_pair", inputs=inputs,
+                     outputs={"PositivePair": [pos], "NegativePair": [neg],
+                              "NeutralPair": [neu]},
+                     attrs={"column": column})
+    return pos, neg, neu
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False, name=None):
+    """NCDHW pooling (reference pool_op.cc pool3d)."""
+    def _t(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v, v]
+    helper = LayerHelper("pool3d")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="pool3d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _t(pool_size),
+                            "strides": _t(pool_stride),
+                            "paddings": _t(pool_padding),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode})
+    return out
+
+
+def max_pool2d_with_index(input, pool_size, pool_stride=1, pool_padding=0):
+    """Max pool returning (out, argmax-mask) (reference
+    pool_with_index_op.cc)."""
+    helper = LayerHelper("max_pool2d_with_index")
+    out = helper.create_tmp_variable(input.dtype)
+    mask = helper.create_tmp_variable("int32")
+    helper.append_op(type="max_pool2d_with_index", inputs={"X": [input]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"ksize": _pair(pool_size),
+                            "strides": _pair(pool_stride),
+                            "paddings": _pair(pool_padding)})
+    return out, mask
+
+
+def unpool(input, indices, unpooled_size):
+    """Max unpooling from argmax indices (reference unpool_op.cc)."""
+    helper = LayerHelper("unpool")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="unpool",
+                     inputs={"X": [input], "Indices": [indices]},
+                     outputs={"Out": [out]},
+                     attrs={"unpooled_size": list(unpooled_size)})
+    return out
+
+
+def spp(input, pyramid_height, pool_type="max"):
+    """Spatial pyramid pooling (reference spp_op.cc)."""
+    helper = LayerHelper("spp")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="spp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pyramid_height": pyramid_height,
+                            "pooling_type": pool_type})
+    return out
+
+
+def roi_pool(input, rois, pooled_height, pooled_width, spatial_scale=1.0,
+             rois_batch_id=None):
+    """ROI max pooling (reference roi_pool_op.cc)."""
+    helper = LayerHelper("roi_pool")
+    out = helper.create_tmp_variable(input.dtype)
+    argmax = helper.create_tmp_variable("int32")
+    inputs = {"X": [input], "ROIs": [rois]}
+    if rois_batch_id is not None:
+        inputs["RoiBatchId"] = [rois_batch_id]
+    helper.append_op(type="roi_pool", inputs=inputs,
+                     outputs={"Out": [out], "Argmax": [argmax]},
+                     attrs={"pooled_height": pooled_height,
+                            "pooled_width": pooled_width,
+                            "spatial_scale": spatial_scale})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """Crop x to shape at offsets (reference crop_op.cc); shape/offsets may
+    be lists or Variables."""
+    helper = LayerHelper("crop")
+    out = helper.create_tmp_variable(x.dtype)
+    inputs = {"X": [x]}
+    attrs = {}
+    if isinstance(shape, Variable):
+        inputs["Y"] = [shape]
+    else:
+        attrs["shape"] = list(shape)
+    if isinstance(offsets, Variable):
+        inputs["Offsets"] = [offsets]
+    elif offsets is not None:
+        attrs["offsets"] = list(offsets)
+    helper.append_op(type="crop", inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """Parametric ReLU with learned alpha (reference prelu_op.cc)."""
+    helper = LayerHelper("prelu", param_attr=param_attr)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        # element mode: one alpha per feature element, broadcast over the
+        # batch dim (which is -1 for data vars and must not size a param)
+        alpha_shape = [1] + list(x.shape[1:])
+    alpha = helper.create_parameter(attr=helper.param_attr,
+                                    shape=alpha_shape, dtype=x.dtype,
+                                    default_initializer=ConstantInitializer(0.25))
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="prelu",
+                     inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None):
+    """Transposed 3D convolution (reference conv_transpose_op.cc)."""
+    def _t(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v, v]
+    helper = LayerHelper("conv3d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    cin = input.shape[1]
+    stride_, padding_, dilation_ = _t(stride), _t(padding), _t(dilation)
+    if filter_size is None:
+        assert output_size is not None, \
+            "conv3d_transpose needs filter_size or output_size"
+        output_size = _t(output_size)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride_[i]
+             + 2 * padding_[i] - 1) // dilation_[i] + 1
+            for i in range(3)]
+    else:
+        filter_size = _t(filter_size)
+    f = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[cin, num_filters] + filter_size, dtype=input.dtype)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="conv3d_transpose",
+                     inputs={"Input": [input], "Filter": [f]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": stride_, "paddings": padding_,
+                            "dilations": dilation_})
+    out = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(out)
+
+
+def conv_shift(x, y, name=None):
+    """Circular convolution (reference conv_shift_op.cc)."""
+    helper = LayerHelper("conv_shift")
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="conv_shift", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def sparse_moe(x, num_experts, hidden_size, capacity_factor=1.25,
+               param_attr=None, name=None):
+    """Top-1 gated mixture-of-experts FFN over [N, D] tokens (GShard-style
+    dispatch; see ops/nn_ops.py moe_ffn), on one card: expert parallelism
+    over ranks is not in the port yet."""
+    helper = LayerHelper("sparse_moe", param_attr=param_attr)
+    d = x.shape[-1]
+    # one ParamAttr instance per parameter: create_parameter binds the
+    # attr's name, so sharing one attr across gate/W1/W2 would collide
+    import copy as _copy
+
+    def _attr(suffix):
+        a = helper.param_attr
+        a = _copy.deepcopy(a)
+        if getattr(a, "name", None):
+            a.name = f"{a.name}.{suffix}"
+        return a
+
+    gate_w = helper.create_parameter(attr=_attr("gate"),
+                                     shape=[d, num_experts], dtype=x.dtype)
+    w1 = helper.create_parameter(attr=_attr("w1"),
+                                 shape=[num_experts, d, hidden_size],
+                                 dtype=x.dtype)
+    w2 = helper.create_parameter(attr=_attr("w2"),
+                                 shape=[num_experts, hidden_size, d],
+                                 dtype=x.dtype)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type="moe_ffn",
+                     inputs={"X": [x], "GateW": [gate_w],
+                             "W1": [w1], "W2": [w2]},
+                     outputs={"Out": [out]},
+                     attrs={"capacity_factor": capacity_factor})
+    return out
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid classification cost over a complete binary tree
+    (reference gserver HierarchicalSigmoidLayer.cpp; fluid hsigmoid). Cost
+    is -log P(label) under the tree factorization; O(log C) tree nodes per
+    sample instead of a C-way softmax. Returns [B, 1]."""
+    helper = LayerHelper("hierarchical_sigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_classes - 1, dim],
+                                dtype=input.dtype)
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr,
+                                    shape=[1, num_classes - 1],
+                                    dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    cost = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Cost": [cost]},
+                     attrs={"num_classes": int(num_classes)})
+    return cost
+
+
+def bilinear_interp(input, out_h, out_w, name=None):
+    """Bilinear upsampling of NCHW feature maps (reference gserver
+    BilinearInterpLayer.cpp; corners-aligned ratio (in-1)/(out-1))."""
+    helper = LayerHelper("bilinear_interp", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="bilinear_interp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"out_h": int(out_h), "out_w": int(out_w)})
+    return out
+
+
+def selective_fc(input, select, size, act=None, param_attr=None,
+                 bias_attr=None, name=None):
+    """Fully-connected layer computing only selected output columns per
+    sample (reference gserver SelectiveFullyConnectedLayer.cpp: with a
+    selection the layer evaluates just those columns; here the full
+    product is computed and masked — identical outputs, zeros at the
+    unselected columns). `select` is a [B, size] 0/1 mask."""
+    out = fc(input=input, size=size, act=act, param_attr=param_attr,
+             bias_attr=bias_attr, name=name)
+    helper = LayerHelper("selective_fc", name=name)
+    masked = helper.create_tmp_variable(out.dtype)
+    helper.append_op(type="elementwise_mul",
+                     inputs={"X": [out], "Y": [select]},
+                     outputs={"Out": [masked]}, attrs={"axis": -1})
+    return masked

@@ -1,14 +1,15 @@
 """Stateful Python-side metric aggregation, the port's copy of
 paddle_tpu/metrics.py (reference: python/paddle/fluid/evaluator.py +
 metrics). Accumulates numpy values across minibatches; the graph-side
-per-batch values come from the chunk_eval and edit_distance layers.
-Accuracy, CompositeMetric and DetectionMAP wait for 8c."""
+per-batch values come from layers.accuracy, chunk_eval, edit_distance and
+the detection layers."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ChunkEvaluator", "EditDistance"]
+__all__ = ["Accuracy", "ChunkEvaluator", "EditDistance", "CompositeMetric",
+           "DetectionMAP"]
 
 
 class MetricBase:
@@ -23,6 +24,28 @@ class MetricBase:
 
     def eval(self):
         raise NotImplementedError
+
+
+class Accuracy(MetricBase):
+    """The weighted mean of per-batch accuracies."""
+
+    def __init__(self, name=None):
+        super().__init__(name)
+        self.value = 0.0
+        self.weight = 0.0
+
+    def reset(self):
+        self.value = 0.0
+        self.weight = 0.0
+
+    def update(self, value, weight):
+        self.value += float(np.asarray(value).reshape(-1)[0]) * weight
+        self.weight += weight
+
+    def eval(self):
+        if self.weight == 0:
+            raise ValueError("no minibatch accumulated")
+        return self.value / self.weight
 
 
 class ChunkEvaluator(MetricBase):
@@ -75,3 +98,74 @@ class EditDistance(MetricBase):
             raise ValueError("no data accumulated")
         return (self.total_distance / self.seq_num,
                 self.instance_error / self.seq_num)
+
+
+class CompositeMetric(MetricBase):
+    """Several metrics updated together, each from its own argument tuple."""
+
+    def __init__(self, name=None):
+        super().__init__(name)
+        self._metrics = []
+
+    def add_metric(self, metric):
+        self._metrics.append(metric)
+
+    def reset(self):
+        for m in self._metrics:
+            m.reset()
+
+    def update(self, *args):
+        for m, a in zip(self._metrics, args):
+            m.update(*a)
+
+    def eval(self):
+        return [m.eval() for m in self._metrics]
+
+
+class DetectionMAP(MetricBase):
+    """Detection mAP accumulated across minibatches (reference
+    evaluator.py:254 DetectionMAP) on the host: each update() merges the
+    batch's per-class (score, tp/fp) pairs, and eval() is the mAP of all
+    of them, by the same host arithmetic as the detection_map op
+    (ops/detection_ops.py detection_tp_fp, map_from_tp_fp).
+
+    update(dets, det_counts, gts, gt_counts): padded [B, D, 6] / [B, G, 6]
+    batches and each image's valid count, as fetched."""
+
+    def __init__(self, class_num=None, background_label=0,
+                 overlap_threshold=0.5, evaluate_difficult=True,
+                 ap_version="integral", name=None):
+        super().__init__(name)
+        self.background_label = background_label
+        self.overlap_threshold = overlap_threshold
+        self.evaluate_difficult = evaluate_difficult
+        self.ap_version = ap_version
+        self.reset()
+
+    def reset(self):
+        self._label_pos = {}
+        self._tp = {}
+        self._fp = {}
+        self._n_updates = 0
+
+    def update(self, dets, det_counts, gts, gt_counts):
+        from .ops.detection_ops import detection_tp_fp
+        lp, tp, fp = detection_tp_fp(
+            np.asarray(dets, np.float32), np.asarray(det_counts, np.int64),
+            np.asarray(gts, np.float32), np.asarray(gt_counts, np.int64),
+            self.overlap_threshold, self.evaluate_difficult)
+        for k, v in lp.items():
+            self._label_pos[k] = self._label_pos.get(k, 0) + v
+        for k, v in tp.items():
+            self._tp.setdefault(k, []).extend(v)
+        for k, v in fp.items():
+            self._fp.setdefault(k, []).extend(v)
+        self._n_updates += 1
+
+    def eval(self):
+        if not self._n_updates:
+            raise ValueError("DetectionMAP.eval() before any update()")
+        from .ops.detection_ops import map_from_tp_fp
+        return float(map_from_tp_fp(
+            self._label_pos, self._tp, self._fp, self.ap_version,
+            self.background_label))

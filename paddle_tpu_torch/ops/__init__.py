@@ -13,6 +13,9 @@ from . import beam_search_ops  # noqa: F401
 from . import crf_ops        # noqa: F401
 from . import ctc_ops        # noqa: F401
 from . import eval_ops       # noqa: F401
+from . import extra_ops      # noqa: F401
+from . import vision_ops     # noqa: F401
+from . import detection_ops  # noqa: F401
 from . import fusion         # noqa: F401
 
 from .registry import register, op, get, try_get

@@ -2,11 +2,13 @@
 classifier heads (cross_entropy, softmax_with_cross_entropy, accuracy), the
 embedding lookup, layer_norm, and scaled dot-product attention with its
 explicit grad, the loss family (sigmoid cross-entropy, smooth L1, log,
-hinge, huber, rank, margin rank, squared L2, label smoothing) and AUC (the
+hinge, huber, rank, margin rank, squared L2, label smoothing), AUC,
+conv3d, conv2d_transpose, lrn, moe_ffn and hierarchical_sigmoid (the
 port's counterpart of paddle_tpu/ops/nn_ops.py; reference softmax_op.cc,
 conv_op.cc, pool_op.cc, batch_norm_op.cc, cross_entropy_op.cc,
 softmax_with_cross_entropy_op.cc, accuracy_op.cc, lookup_table_op.cc,
-layer_norm_op.cc, auc_op.cc and the loss ops').
+layer_norm_op.cc, auc_op.cc, conv_transpose_op.cc, lrn_op.cc and the loss
+ops').
 
 Layout: tensors are logical NCHW, as users see them. conv2d returns its
 output in `torch.channels_last` memory, so the NHWC view the kernel reads
@@ -965,3 +967,163 @@ def _auc(ctx, op_, ins):
     fpr = fp.to(torch.int32) / n_neg.to(torch.int32)
     auc = -(0.5 * ((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1]))).sum()
     return {"AUC": [auc.reshape(1).to(torch.float32)]}
+
+
+# --- conv3d, conv2d_transpose, lrn --------------------------------------------
+# The JAX package lowers these three convs to a plain lax.conv_general_dilated
+# (nn_ops.py:431-516), no Pallas kernel; the port takes the matching torch
+# conv. Under AMP the operands go through mxu_cast, as there.
+
+def _conv3d_infer(op_, block):
+    xv, fv = in_var(op_, block, "Input"), in_var(op_, block, "Filter")
+    if xv is None or fv is None or xv.shape is None or fv.shape is None:
+        return
+    s = _pair(op_.attr("strides", [1, 1, 1]), 3)
+    p = _pair(op_.attr("paddings", [0, 0, 0]), 3)
+    d = _pair(op_.attr("dilations", [1, 1, 1]), 3)
+    dims = [_conv_out_dim(xv.shape[2 + i], fv.shape[2 + i], p[i], s[i], d[i])
+            for i in range(3)]
+    set_out(op_, block, "Output", [xv.shape[0], fv.shape[0]] + dims, xv.dtype)
+
+
+@op("conv3d", infer_shape=_conv3d_infer)
+def _conv3d(ctx, op_, ins):
+    """NCDHW x, OIDHW w: F.conv3d."""
+    s = _pair(op_.attr("strides", [1, 1, 1]), 3)
+    p = _pair(op_.attr("paddings", [0, 0, 0]), 3)
+    d = _pair(op_.attr("dilations", [1, 1, 1]), 3)
+    (x, w), restore = mxu_cast(ctx, ins["Input"][0], ins["Filter"][0])
+    out = F.conv3d(x, w, stride=s, padding=p, dilation=d,
+                   groups=op_.attr("groups", 1) or 1)
+    if restore is not None:
+        out = out.to(restore)
+    return {"Output": [out]}
+
+
+def _convt2d_infer(op_, block):
+    xv, fv = in_var(op_, block, "Input"), in_var(op_, block, "Filter")
+    if xv is None or fv is None or xv.shape is None or fv.shape is None:
+        return
+    s = _pair(op_.attr("strides", [1, 1]))
+    p = _pair(op_.attr("paddings", [0, 0]))
+    d = _pair(op_.attr("dilations", [1, 1]))
+    n, _, h, w = xv.shape
+    _, co, kh, kw = fv.shape
+
+    def odim(i, k, pp, ss, dd):
+        if i is None or i < 0:
+            return None
+        return (i - 1) * ss - 2 * pp + dd * (k - 1) + 1
+    set_out(op_, block, "Output",
+            [n, co, odim(h, kh, p[0], s[0], d[0]),
+             odim(w, kw, p[1], s[1], d[1])], xv.dtype)
+
+
+@op("conv2d_transpose", infer_shape=_convt2d_infer)
+def _conv2d_transpose(ctx, op_, ins):
+    """NCHW x, IOHW w (torch's own layout for it): F.conv_transpose2d."""
+    s = _pair(op_.attr("strides", [1, 1]))
+    p = _pair(op_.attr("paddings", [0, 0]))
+    d = _pair(op_.attr("dilations", [1, 1]))
+    (x, w), restore = mxu_cast(ctx, ins["Input"][0], ins["Filter"][0])
+    out = F.conv_transpose2d(x, w, stride=s, padding=p, dilation=d)
+    if restore is not None:
+        out = out.to(restore)
+    return {"Output": [out]}
+
+
+@op("lrn", infer_shape=same_as_input())
+def _lrn(ctx, op_, ins):
+    """Local response normalization across channels (reference lrn_op.cc;
+    JAX nn_ops.py:673): mid = k + alpha * the sum of x^2 over the n
+    channels around each (n // 2 before, the rest after, zeros past the
+    ends), out = x / mid^beta. Its grad is the generic grad."""
+    x = ins["X"][0]
+    n = op_.attr("n", 5)
+    k = op_.attr("k", 2.0)
+    alpha = op_.attr("alpha", 1e-4)
+    beta = op_.attr("beta", 0.75)
+    c = x.shape[1]
+    half = n // 2
+    sq = F.pad(torch.square(x), (0, 0, 0, 0, half, n - 1 - half))
+    acc = sq[:, 0:c]
+    for j in range(1, n):
+        acc = acc + sq[:, j:j + c]
+    mid = k + alpha * acc
+    return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}
+
+
+# --- mixture of experts, hierarchical sigmoid ---------------------------------
+
+def _moe_infer(op_, block):
+    xv = in_var(op_, block, "X")
+    if xv is not None:
+        set_out(op_, block, "Out", xv.shape, xv.dtype)
+
+
+@op("moe_ffn", infer_shape=_moe_infer)
+def _moe_ffn(ctx, op_, ins):
+    """Top-1 gated mixture-of-experts FFN in GShard's dispatch form (JAX
+    nn_ops.py:964), on one card: each token goes to its most probable
+    expert up to the capacity C = ceil(N / E * capacity_factor), its slot
+    the running count of its expert's tokens (a cumsum); the tokens past
+    an expert's capacity pass through unchanged. Dispatch and combine are
+    one-hot einsums; the products stay torch.einsum. Expert parallelism
+    over ranks is not here yet."""
+    (x, gw, w1, w2), restore = mxu_cast(ctx, ins["X"][0], ins["GateW"][0],
+                                        ins["W1"][0], ins["W2"][0])
+    n = x.shape[0]
+    e = w1.shape[0]
+    cap = max(int(np.ceil(n / e * op_.attr("capacity_factor", 1.25))), 1)
+    probs = torch.softmax((x @ gw).float(), dim=-1)            # [N, E]
+    top = torch.argmax(probs, dim=-1)                           # first max
+    top_p = torch.amax(probs, dim=-1)
+    onehot = (top[:, None] == torch.arange(e, device=x.device)).float()
+    pos = (torch.cumsum(onehot, dim=0) - 1.0) * onehot           # [N, E]
+    keep = (pos < cap) & (onehot > 0)
+    slots = torch.arange(cap, device=x.device, dtype=torch.float32)
+    dispatch = ((pos[..., None] == slots) & keep[..., None]).float()
+    expert_in = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), x)
+    h = torch.relu(torch.einsum("ecd,edf->ecf", expert_in, w1))
+    expert_out = torch.einsum("ecf,efd->ecd", h, w2)
+    combine = dispatch * top_p[:, None, None]
+    routed = torch.einsum("nec,ecd->nd", combine.to(x.dtype), expert_out)
+    routed_mask = dispatch.sum(dim=(1, 2)).to(x.dtype)[:, None]
+    out = routed + x * (1.0 - routed_mask)
+    if restore is not None:
+        out = out.to(restore)
+    return {"Out": [out]}
+
+
+def _hsigmoid_infer(op_, block):
+    xv = in_var(op_, block, "X")
+    if xv is not None and xv.shape is not None:
+        set_out(op_, block, "Cost", [xv.shape[0], 1], xv.dtype)
+
+
+@op("hierarchical_sigmoid", infer_shape=_hsigmoid_infer,
+    non_diff_inputs=("Label",))
+def _hierarchical_sigmoid(ctx, op_, ins):
+    """-log P(label) over a complete binary code tree (JAX nn_ops.py:1015;
+    reference gserver HierarchicalSigmoidLayer.cpp): the label's code
+    c = label + num_classes walks nodes (c >> (j+1)) - 1 with bits
+    (c >> j) & 1, j < ceil(log2 num_classes), a node valid while
+    c >> (j+1) >= 1; cost = sum over valid nodes of softplus(pre) -
+    bit * pre, pre the node's row of W dotted with x plus its bias."""
+    x = ins["X"][0]                                  # [B, F]
+    w = ins["W"][0]                                  # [C-1, F]
+    label = ins["Label"][0].reshape(-1).to(torch.int64)
+    bias = ins.get("Bias", [None])[0]
+    num_classes = int(op_.attr("num_classes"))
+    code_len = max(1, int(np.ceil(np.log2(max(num_classes, 2)))))
+    c = label + num_classes
+    js = torch.arange(code_len, device=x.device)
+    shifted = c[:, None] >> (js[None, :] + 1)        # [B, J]
+    valid = (shifted >= 1).to(x.dtype)
+    idx = torch.clamp(shifted - 1, min=0)
+    bits = ((c[:, None] >> js[None, :]) & 1).to(x.dtype)
+    pre = torch.einsum("bf,bjf->bj", x, w[idx])
+    if bias is not None:
+        pre = pre + bias.reshape(-1)[idx]
+    cost = (F.softplus(pre) - bits * pre) * valid
+    return {"Cost": [torch.sum(cost, dim=1, keepdim=True)]}

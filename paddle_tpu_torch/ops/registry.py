@@ -22,7 +22,10 @@ because a kernel called through ctypes is opaque to autograd, so the
 generic grad cannot differentiate it: `conv2d_grad` runs K2 + K3, and
 `scaled_dot_product_attention_grad` takes the forward's saved Out and LSE
 and runs K8 + K9, where a generic grad would launch the flash forward K7 a
-second time (and could not differentiate it either).
+second time (and could not differentiate it either). A random op's grad
+cannot re-run its forward either, which would draw again (inside a CUDA
+graph's capture, other numbers): `dropout_grad` reads the saved Mask and
+`nce_grad` the saved SampleLabels (ops/extra_ops.py).
 """
 
 from __future__ import annotations

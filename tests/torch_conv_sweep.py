@@ -156,7 +156,7 @@ def sweep_k3(pt, conv_cuda, resnet, say):
     import torch
     gen = torch.Generator().manual_seed(cs.SEED + 3)
     main = cs._resnet50_train(pt, resnet)[0]
-    convs, _, _ = cs._training_shapes(conv_cuda, main, cs.TRAIN_BATCH)
+    convs = cs.zoo_kernel_shapes(main, cs.TRAIN_BATCH)[0]["K4"]
     planner = conv_cuda.wgrad_plan
     best_total = plan_total = lib_total = 0.0
     for (xs, ws, s, p, d), n in convs.items():
