@@ -73,6 +73,9 @@ from . import quant
 from . import interop
 from . import models
 from . import parallel
+from .parallel import transpiler
+from .parallel.transpiler import (DistributeTranspiler, memory_optimize,
+                                  release_memory)
 from . import serving
 from .data_feeder import DataFeeder
 from . import nets

@@ -193,6 +193,15 @@ def append_backward(loss: Variable, parameter_list: Optional[Sequence] = None,
         gname = grad_var_name(p.name)
         if produced_count.get(gname):
             result.append((p, block.var(gname)))
+    # the (param, grad) pairing for the overlap pass (parallel/overlap.py;
+    # JAX backward.py:224-234): only append_backward knows which params
+    # received a gradient in this program
+    pairs = getattr(program, "_grad_param_pairs", None)
+    if pairs is None:
+        pairs = program._grad_param_pairs = []
+    for p, g in result:
+        if (p.name, g.name) not in pairs:
+            pairs.append((p.name, g.name))
     # the grads that are SelectedRows by construction (an is_sparse
     # lookup_table_grad), named for the planners that must not treat them
     # as dense (backward.py:235-247); a row-sharded table's grad turns

@@ -27,11 +27,20 @@ the end (the JAX package's fused loop).
 Places: `CUDAPlace` is the real card here (the JAX package made it an
 alias of its TPU place). `Executor()` with no place runs on CUDAPlace(0),
 or on CUDAPlace(local rank) in a torch.distributed process group (the
-`LOCAL_RANK` a launcher sets, else the rank), and raises when there is no
-CUDA device: it never carries on on the CPU unless the caller asks for
-`CPUPlace()`. `TPUPlace` raises. A program's mesh (`program._mesh`,
-parallel/mesh.py) reaches the lowerings as `ctx.mesh`; programs stay
-global-view, so the interpreter itself does nothing per rank.
+`LOCAL_RANK` a launcher sets, else the rank, modulo the cards visible, so
+ranks sharing a card stay on it), and raises when there is no CUDA device:
+it never carries on on the CPU unless the caller asks for `CPUPlace()`.
+`TPUPlace` raises. A program's mesh (`program._mesh`, parallel/mesh.py)
+reaches the lowerings as `ctx.mesh`. On a mesh of a process group a
+program with a batch axis or sharded parameters runs SPMD
+(parallel/spmd.py, `ctx.spmd`): each rank keeps its rows of the fed
+batch, reductions over the batch all-reduce, parameter gradients are
+all-reduced in the overlap plan's buckets, sharded state is gathered on
+use, and a fetch comes back as the one-device run returns it. A step with
+a collective staged through host memory (a gloo group of ranks on cards)
+runs eager under the gate's reason `host_collective`; on an NCCL group the
+collectives are posted under the step's CUDA graph capture, so a replay
+runs them as graph nodes.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from .ops import fusion as fusion_mod
 from .ops import registry, sparse_ops
 from .ops.common import (SEQLEN2_SUFFIX, SEQLEN_SUFFIX, SelectedRowsVal,
                          maybe_dense, propagate_seq_len, seq_carrier)
+from .parallel import spmd as spmd_mod
 
 __all__ = ["CPUPlace", "CUDAPlace", "TPUPlace", "place_device", "Scope",
            "global_scope", "scope_guard", "Executor", "COUNTERS", "LoDTensor",
@@ -347,6 +357,9 @@ class LoweringContext:
         self.quant_mode = getattr(program, "_quant_mode", None)
         # the device mesh of a sequence-parallel op (ring attention), or None
         self.mesh = getattr(program, "_mesh", None)
+        # the step's sharded-run state on a process group's mesh
+        # (parallel/spmd.py), or None on the one-device path
+        self.spmd = None
         # a serving program's fold constants (PreparedProgram.fold_weights)
         self.folds = None
         self._seed = program.random_seed or 12345
@@ -868,12 +881,43 @@ class PreparedProgram:
         return BucketGraph(feeds, graph, fetches)
 
 
+# the windows that lower their members through Executor._exec_op, which
+# classifies each member's outputs for the sharded run itself
+_MEMBER_WINDOWS = ("fc_act", "chain", "opt_bucket")
+
+
+def _spmd_for(seed, env):
+    """The step's sharded-run state for `env` (its feeds already cut), or
+    None on the one-device path."""
+    if seed is None:
+        return None
+    st, marks, sharded = seed
+    sp = spmd_mod.Spmd(st, sharded, marks)
+    sp.begin(env)
+    return sp
+
+
+def _spmd_outputs(spmd, env, fetch_names, persist_out):
+    """A sharded step's (fetches as one device returns them, persistable
+    outputs as the scope keeps them, the fetched sequences' lengths), in
+    one order on every rank; every posted bucket waited on."""
+    fetch = [_fetched(spmd.fetch(n, env)) for n in fetch_names]
+    written = {n: spmd.persist(n, env) for n in persist_out if n in env}
+    spmd.finish(env)
+    lens = spmd.lengths(_lengths_of(env, list(fetch_names)
+                                    + list(persist_out)))
+    return fetch, written, lens
+
+
 def default_place() -> Place:
     """CUDAPlace(0) in one process; in a process group, the card of this
-    rank on its host."""
+    rank on its host (its local rank modulo the cards visible: ranks that
+    outnumber the cards share them)."""
     if not dist.is_initialized():
         return CUDAPlace(0)
-    return CUDAPlace(int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return CUDAPlace(local % n if n else local)
 
 
 def _names(fetch_list) -> List[str]:
@@ -1252,7 +1296,10 @@ class Executor:
         print there), "host_io" (it holds a save or load op, HOST_IO_OPS,
         which write or read a file on the host), "host_metric" (it holds an
         op that computes on the host from device values, HOST_METRIC_OPS,
-        each read counted in COUNTERS.host_syncs). A random op is graphed
+        each read counted in COUNTERS.host_syncs), "host_collective" (the
+        program runs sharded on a gloo group of ranks on cards: its
+        collectives stage through host memory, parallel/spmd.py). A random
+        op is graphed
         (RANDOM_OPS), and so is a LoD feed: its lengths are feeds of the
         graph, each padded length its own signature; so is an `rnn`, whose
         trip count is the padded length."""
@@ -1262,6 +1309,9 @@ class Executor:
             return "cpu"
         if not use_program_cache:
             return "no_program_cache"
+        st = spmd_mod.for_program(program)
+        if st is not None and st.host_staged(self.device):
+            return "host_collective"
         reads, writes, persistable, types = self._analysis(program)
         if types & HOST_CONTROL_OPS:
             return "control_flow"
@@ -1340,7 +1390,14 @@ class Executor:
         runs the signature's graph (warming it up first), else eager,
         counted by reason. `hand_out=False` (a run_steps step before the
         last) lets a replay return the state buffers themselves, for the
-        next step to read in place."""
+        next step to read in place. On a process group's mesh the feeds
+        are cut to this rank's rows and the sharded state to its shards
+        first (parallel/spmd.py)."""
+        spmd_seed = None
+        st = spmd_mod.for_program(program)
+        if st is not None:
+            feed, marks = st.split_feeds(feed)
+            spmd_seed = (st, marks, st.localize(state))
         if reason is None:
             # the state's names are sorted (_resolve_state); a LoD feed's
             # lengths are feeds, so each padded length is its own key
@@ -1367,27 +1424,32 @@ class Executor:
                 self._graphs.move_to_end(key)
                 return self._graphed(entry, program, state, feed,
                                      fetch_names, persist_out, rng_counter,
-                                     hand_out)
+                                     hand_out, spmd_seed)
         else:
             COUNTERS.eager[reason] = COUNTERS.eager.get(reason, 0) + 1
         env = dict(state)
         env.update(feed)
         ctx = LoweringContext(self, program, rng_counter)
+        ctx.spmd = _spmd_for(spmd_seed, env)
         groups, drops, _ = self._block_plan(program)
         protected = set(fetch_names) | set(persist_out)
         self._run_block(ctx, program, env, groups, protected, drops,
                         protected | set(state))
+        if ctx.spmd is not None:
+            out = _spmd_outputs(ctx.spmd, env, fetch_names, persist_out)
+        else:
+            out = ([_fetched(env[n]) for n in fetch_names],
+                   {n: env[n] for n in persist_out if n in env},
+                   _lengths_of(env, list(fetch_names) + list(persist_out)))
         if reason is None:
             # the warm-up: a persistable output that is its state tensor
             # itself was updated in place (the sparse applies' tables)
             entry.inplace = {n for n in persist_out
-                             if n in state and env.get(n) is state[n]}
+                             if n in state and out[1].get(n) is state[n]}
             self._inplace_names[base] = entry.inplace
             self._graphs[base + (_identities(state, entry.inplace),)] = entry
             self._evict()
-        return ([_fetched(env[n]) for n in fetch_names],
-                {n: env[n] for n in persist_out if n in env},
-                _lengths_of(env, list(fetch_names) + list(persist_out)))
+        return out
 
     def _evict(self):
         """Drop the graphs run least recently past GRAPH_CACHE_SIZE, and
@@ -1419,7 +1481,8 @@ class Executor:
         return b
 
     def _graphed(self, entry: _GraphedStep, program, state, feed,
-                 fetch_names, persist_out, rng_counter, hand_out=True):
+                 fetch_names, persist_out, rng_counter, hand_out=True,
+                 spmd_seed=None):
         """Capture `entry` on its first call, then replay it: a state
         tensor its buffer does not hold copied in, the feeds copied into
         their buffers. The scope is handed copies of the persistable
@@ -1428,7 +1491,7 @@ class Executor:
         raises; nothing runs eager in its place."""
         if entry.graph is None:
             self._capture(entry, program, state, feed, fetch_names,
-                          persist_out, rng_counter)
+                          persist_out, rng_counter, spmd_seed)
         for n, b in entry.state.items():
             v = state[n]
             if not b.holds(v):
@@ -1460,7 +1523,7 @@ class Executor:
         return fetch, out, lens
 
     def _capture(self, entry: _GraphedStep, program, state, feed,
-                 fetch_names, persist_out, rng_counter):
+                 fetch_names, persist_out, rng_counter, spmd_seed=None):
         entry.state = {n: self._buffer(n, v, n in entry.inplace)
                        for n, v in state.items()}
         entry.persist = [n for n in persist_out if n in entry.state]
@@ -1473,17 +1536,24 @@ class Executor:
             env.update(entry.feeds)
             ctx = LoweringContext(self, program, rng_counter)
             ctx.capturing = True
+            ctx.spmd = _spmd_for(spmd_seed, env)
             self._run_block(ctx, program, env, groups, protected, drops,
                             protected | set(state))
-            entry.lens = _lengths_of(env, list(fetch_names)
-                                     + list(persist_out))
+            if ctx.spmd is not None:
+                fetches, written, entry.lens = _spmd_outputs(
+                    ctx.spmd, env, fetch_names, persist_out)
+            else:
+                entry.lens = _lengths_of(env, list(fetch_names)
+                                         + list(persist_out))
+                fetches = [_fetched(env[n]) for n in fetch_names]
+                written = {n: env[n] for n in persist_out if n in env}
             for n in entry.persist:
                 buf = entry.state[n].t
-                if env[n] is not buf:
-                    buf.copy_(env[n])
-            entry.fetches = [_fetched(env[n]) for n in fetch_names]
-            entry.written = {n: env[n] for n in persist_out
-                             if n in env and n not in entry.state}
+                if written[n] is not buf:
+                    buf.copy_(written[n])
+            entry.fetches = fetches
+            entry.written = {n: v for n, v in written.items()
+                             if n not in entry.state}
 
         generators = [self._generator(random_ident(op))
                       for op in self._block_plan(program)[2]]
@@ -1513,16 +1583,24 @@ class Executor:
         it is in `keep`."""
         ops = program.global_block().ops
         groups = groups or {}
+        spmd = ctx.spmd
         i = 0
         while i < len(ops):
             g = groups.get(i)
+            lo = i
             if g is not None:
+                if spmd is not None:
+                    spmd.window(g.members, env)
                 with registry.span(fusion_mod.span_name(g)):
                     fusion_mod.execute_group(self, ctx, g, env, protected)
+                if spmd is not None and g.kind not in _MEMBER_WINDOWS:
+                    spmd.after_window(g.members, env)
                 i = g.end
             else:
                 self._exec_op(ctx, ops[i], env)
                 i += 1
+            if spmd is not None:
+                spmd.flush_range(ctx, env, lo, i)
             if drops:
                 for n in drops.get(i - 1, ()):
                     if n not in keep:
@@ -1540,6 +1618,8 @@ class Executor:
             raise RuntimeError(f"Operator '{op.type}' has no lowering")
         ins = {slot: [env.get(n) for n in names]
                for slot, names in op.desc.inputs.items()}
+        if ctx.spmd is not None:
+            ins = ctx.spmd.prepare(op, ins, env)
         if op.type not in _SPARSE_AWARE_OPS and any(
                 isinstance(v, SelectedRowsVal)
                 for vals in ins.values() for v in vals):
@@ -1567,4 +1647,6 @@ class Executor:
             for name, val in zip(names, outs.get(slot, [])):
                 if val is not None:
                     env[name] = val
+        if ctx.spmd is not None:
+            ctx.spmd.after(op, outs)
         propagate_seq_len(op, env, ctx.seq_overrides, carrier)

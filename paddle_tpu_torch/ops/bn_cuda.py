@@ -48,7 +48,8 @@ from . import cuda_build
 
 __all__ = ["ACTS", "COUNTERS", "bn_apply", "bn_apply_reference", "bn_act",
            "bn_act_reference", "bn_act_plan", "bn_act_stats_in_order",
-           "launch_plan", "ineligible", "count_hit", "count_fallback"]
+           "launch_plan", "ineligible", "count_hit", "count_fallback",
+           "one_pass_moments"]
 
 # activation name -> the kernels' ACT code
 ACTS = {None: 0, "relu": 1}
@@ -124,6 +125,21 @@ def bn_apply_reference(x2, scale, bias, mean, var, eps, act=None):
     inv = torch.rsqrt(var + eps)
     y = ((x2.float() - mean) * (inv * scale) + bias).to(x2.dtype)
     return y, (torch.relu(y) if act == "relu" else None)
+
+
+def one_pass_moments(s, sq, rows, spmd=None):
+    """Per-channel mean and clamped one-pass variance max(sq / rows -
+    mean^2, 0) from a channel's sum `s` and sum of squares `sq` (f32 [C])
+    over `rows` values: the statistics K5 applies after K4's sums, and the
+    bf16 batch_norm's. In a sharded run whose batch is split over ranks
+    (`spmd`, a parallel/spmd.py Spmd) the sums are this rank's: they are
+    all-reduced first, in one collective, and `rows` counts every rank's
+    rows."""
+    if spmd is not None:
+        s, sq = spmd.batch_sum(torch.stack([s, sq]), site="bn_stats")
+        rows = rows * spmd.nb
+    mean = s / float(rows)
+    return mean, torch.clamp(sq / float(rows) - mean * mean, min=0.0)
 
 
 def bn_act_reference(x2, scale, bias, eps, act=None):

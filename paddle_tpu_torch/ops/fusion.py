@@ -361,7 +361,7 @@ def execute_group(executor, ctx, group: Group, env, protected=()):
             if group.act is not None:
                 executor._exec_op(ctx, group.act, env)
             return
-        _bn_act(group, env)
+        _bn_act(group, env, getattr(ctx, "spmd", None))
     for m in group.members:
         propagate_seq_len(m, env, {}, seq_carrier(m, env, before))
 
@@ -518,11 +518,28 @@ def _bn_vectors(bn, env):
             float(bn.attr("epsilon", 1e-5)))
 
 
-def _bn_act(g: Group, env):
+def _bn_act(g: Group, env, spmd=None):
     """Training bn [+ act] as K6 over the [M, C] view of the activation:
-    statistics, then normalize and activate (fusion.py `_bn_act_pallas`)."""
+    statistics, then normalize and activate (fusion.py `_bn_act_pallas`).
+    In a sharded run whose batch is split over ranks (parallel/spmd.py)
+    K6's one cooperative launch cannot see the other ranks' rows: the
+    window takes this rank's channel sums, all-reduces them, and applies
+    K5, counted as K6's fallback `batch_split`."""
     x = env[_first(g.bn.desc.input("X"))]
     scale, bias, eps = _bn_vectors(g.bn, env)
+    if spmd is not None and spmd.is_split(_first(g.bn.desc.input("X"))):
+        bn_cuda.count_fallback("fused_bn_act", "batch_split")
+        x2 = _nhwc(x)
+        xf = x2.float()
+        saved_mean, saved_var = bn_cuda.one_pass_moments(
+            xf.sum(0), (xf * xf).sum(0), x2.shape[0], spmd)
+        bn_cuda.count_hit("fused_bn_act")
+        ybn2, yact2 = bn_cuda.bn_apply(x2, scale, bias, saved_mean,
+                                       saved_var, eps, _act_name(g))
+        _write_bn(g, env, _nchw(ybn2, x),
+                  None if yact2 is None else _nchw(yact2, x),
+                  saved_mean, saved_var)
+        return
     bn_cuda.count_hit("fused_bn_act")
     ybn2, yact2, saved_mean, saved_var = bn_cuda.bn_act(
         _nhwc(x), scale, bias, eps, _act_name(g))
@@ -564,11 +581,15 @@ def _conv_stats(ctx, g: Group, env) -> bool:
     y, csum, csq = conv_cuda.conv2d_stats(x_nhwc, wc, s, p, d)
     m = y.shape[0] * y.shape[1] * y.shape[2]
     co = y.shape[3]
+    spmd = getattr(ctx, "spmd", None)
+    if spmd is not None and not spmd.is_split(
+            _first(conv.desc.input("Input"))):
+        spmd = None
     env[_first(conv.desc.output("Output"))] = y.permute(0, 3, 1, 2)
-    # one-pass variance, clamped like the unfused bf16 batch_norm
-    saved_mean = csum / float(m)
-    saved_var = torch.clamp(csq / float(m) - saved_mean * saved_mean,
-                            min=0.0)
+    # one-pass variance, clamped like the unfused bf16 batch_norm; under a
+    # batch split over ranks (parallel/spmd.py) K4's channel sums are
+    # all-reduced first, then K5 applies as on one device
+    saved_mean, saved_var = bn_cuda.one_pass_moments(csum, csq, m, spmd)
     scale, bias, eps = _bn_vectors(bn, env)
     bn_cuda.count_hit("fused_conv_bn_act")
     ybn2, yact2 = bn_cuda.bn_apply(y.reshape(-1, co), scale, bias,

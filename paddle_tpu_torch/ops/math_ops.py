@@ -6,6 +6,8 @@ cumsum_op.cc, norm_op.cc, bilinear_tensor_product_op.cc)."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -48,6 +50,9 @@ def _mul(ctx, op_, ins):
     x, y = ins["X"][0], ins["Y"][0]
     xn = op_.attr("x_num_col_dims", 1)
     yn = op_.attr("y_num_col_dims", 1)
+    tp = _tp_weight(ctx, op_)
+    if tp is not None:
+        return _tp_mul(ctx, op_, x, y, xn, yn, tp)
     (xf, yf), restore = mxu_cast(ctx, _flat2(x, xn), _flat2(y, yn))
     qmode = getattr(ctx, "quant_mode", None)
     reason = quant.ineligible_matmul(xf, yf, qmode) if qmode else "disabled"
@@ -62,6 +67,72 @@ def _mul(ctx, op_, ins):
     if restore is not None:
         out2d = out2d.to(restore)
     return {"Out": [out2d.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
+
+
+def _tp_weight(ctx, op_):
+    """(kind, axes, index, size) when `mul`'s weight is split on a model
+    axis in a sharded run (parallel/spmd.py `tp_weight`), else None."""
+    spmd = getattr(ctx, "spmd", None)
+    if spmd is None:
+        return None
+    return spmd.tp_weight((op_.desc.inputs.get("Y") or [None])[0])
+
+
+def _tp_mul(ctx, op_, x, y, xn, yn, tp):
+    """Megatron's forward on this rank's part of the weight (its columns,
+    or its rows, over the whole of the other dim): column-parallel, the
+    local product and an all-gather of the output's columns; row-parallel,
+    this rank's columns of X times its rows of W, then an all-reduce."""
+    from ..parallel import _collectives as C
+    kind, axes, idx, size = tp
+    x2 = _flat2(x, xn)
+    if kind == "row":
+        k = x2.shape[1] // size
+        x2 = x2.narrow(1, idx * k, k)
+    (xf, yf), restore = mxu_cast(ctx, x2, _flat2(y, yn))
+    out2d = torch.matmul(xf, yf)
+    if restore is not None:
+        out2d = out2d.to(restore)
+    if kind == "col":
+        out2d = C.all_gather(out2d, ctx.spmd.mesh, axes, dim=1,
+                             site="tp_col_all_gather")
+    else:
+        out2d = C.all_reduce(out2d, ctx.spmd.mesh, axes,
+                             site="tp_row_all_reduce")
+    cols = out2d.shape[1]
+    return {"Out": [out2d.reshape(tuple(x.shape[:xn]) + (cols,))]}
+
+
+def _tp_mul_grad(ctx, op_, x, y, xn, dout, tp):
+    """Megatron's backward: column-parallel dW = Xᵀ dOut[:, cols] and dX =
+    dOut[:, cols] Wᵀ all-reduced over the model axis; row-parallel dW =
+    X[:, rows]ᵀ dOut and dX = dOut Wᵀ all-gathered along its columns. dW is
+    this rank's part, a partial sum over its rows of the batch."""
+    from ..parallel import _collectives as C
+    kind, axes, idx, size = tp
+    x2 = _flat2(x, xn)
+    if kind == "row":
+        k = x2.shape[1] // size
+        x2 = x2.narrow(1, idx * k, k)
+    (xf, yf), restore = mxu_cast(ctx, x2, y)
+    d2 = dout.to(restore or xf.dtype).reshape(x2.shape[0], -1).to(xf.dtype)
+    if kind == "col":
+        n = d2.shape[1] // size
+        d2 = d2.narrow(1, idx * n, n)
+    outs = {}
+    if "X@GRAD" in op_.desc.outputs:
+        dx = torch.matmul(d2, yf.t())
+        if kind == "col":
+            dx = C.all_reduce(dx, ctx.spmd.mesh, axes,
+                              site="tp_col_dx_all_reduce")
+        else:
+            dx = C.all_gather(dx, ctx.spmd.mesh, axes, dim=1,
+                              site="tp_row_dx_all_gather")
+        outs["X@GRAD"] = [dx.to(x.dtype).reshape(x.shape)]
+    if "Y@GRAD" in op_.desc.outputs:
+        outs["Y@GRAD"] = [torch.matmul(xf.t(), d2).to(y.dtype)
+                          .reshape(y.shape)]
+    return outs
 
 
 @grad_op("mul")
@@ -79,6 +150,9 @@ def _mul_grad(ctx, op_, ins):
     g = ins.get("Out@GRAD")
     if not g or g[0] is None:
         return zero_grads(op_, ins)
+    tp = _tp_weight(ctx, op_)
+    if tp is not None:
+        return _tp_mul_grad(ctx, op_, x, y, xn, g[0], tp)
     (xf, yf), restore = mxu_cast(ctx, _flat2(x, xn), _flat2(y, yn))
     dout = g[0].to(restore or xf.dtype).reshape(out_shape)
     dout = dout.reshape(xf.shape[0], yf.shape[1]).to(xf.dtype)
@@ -410,19 +484,44 @@ _reduce_fns = {
 }
 
 
-def _make_reduce(fn):
+def _make_reduce(fn, name):
     def lower(ctx, op_, ins):
         x = ins["X"][0]
-        out = fn(x, dim=_reduce_dims(op_, x.dim()),
-                 keepdim=op_.attr("keep_dim", False))
+        dims = _reduce_dims(op_, x.dim())
+        keep = op_.attr("keep_dim", False)
+        spmd = getattr(ctx, "spmd", None)
+        if spmd is not None and 0 in dims and spmd.slot_split(op_, "X"):
+            out = _split_reduce(spmd, name, fn, x, dims, keep)
+        else:
+            out = fn(x, dim=dims, keepdim=keep)
         if out.dim() == 0:
             out = out.reshape(1)
         return {"Out": [out]}
     return lower
 
 
+def _split_reduce(spmd, name, fn, x, dims, keep):
+    """A reduction over the batch dim of a batch split over ranks: the
+    local reduction, then its all-reduce (sum; the mean as the sum over
+    the global count; max and min where every rank but the holder's
+    contributes the identity, so the gradient reaches the holder alone)."""
+    if name == "reduce_sum":
+        return spmd.batch_sum(fn(x, dim=dims, keepdim=keep))
+    if name == "reduce_mean":
+        return spmd.batch_sum(torch.sum(x, dim=dims, keepdim=keep)) / (
+            math.prod(x.shape[d] for d in dims) * spmd.nb)
+    if name in ("reduce_max", "reduce_min"):
+        local = fn(x, dim=dims, keepdim=keep)
+        glob = spmd.batch_reduce(local.detach(),
+                                 op="max" if name == "reduce_max" else "min")
+        held = (local == glob).to(local.dtype)
+        return spmd.batch_sum(local * held) / spmd.batch_sum(held)
+    raise NotImplementedError(
+        f"{name} over a batch split across {spmd.nb} ranks has no rule")
+
+
 for _name, _fn in _reduce_fns.items():
-    register(_name, lower=_make_reduce(_fn), infer_shape=_reduce_infer)
+    register(_name, lower=_make_reduce(_fn, _name), infer_shape=_reduce_infer)
 
 
 def _cos_sim_infer(op_, block):
@@ -498,6 +597,18 @@ def _mean(ctx, op_, ins):
     math_ops.py:294)."""
     x = ins["X"][0]
     masked = _mean_mask(ctx, op_, x)
+    spmd = getattr(ctx, "spmd", None)
+    if spmd is not None and spmd.slot_split(op_, "X"):
+        # a batch split over ranks: the global sum over the global count
+        if masked is None:
+            return {"Out": [(spmd.batch_sum(torch.sum(x).reshape(1),
+                                            site="mean")
+                             / (x.numel() * spmd.nb))]}
+        m, denom = masked
+        return {"Out": [spmd.batch_sum(torch.sum(x * m).reshape(1),
+                                       site="mean")
+                        / spmd.batch_reduce(denom.reshape(1).detach(),
+                                            site="mean_count")]}
     if masked is None:
         return {"Out": [torch.mean(x).reshape(1)]}
     m, denom = masked
@@ -514,9 +625,15 @@ def _mean_grad(ctx, op_, ins):
     if dout is None:
         return zero_grads(op_, ins)
     masked = _mean_mask(ctx, op_, x)
+    spmd = getattr(ctx, "spmd", None)
+    split = spmd is not None and spmd.slot_split(op_, "X")
     if masked is None:
-        return {"X@GRAD": [dout.reshape(()).expand(x.shape) / x.numel()]}
+        n = x.numel() * (spmd.nb if split else 1)
+        return {"X@GRAD": [dout.reshape(()).expand(x.shape) / n]}
     m, denom = masked
+    if split:
+        denom = spmd.batch_reduce(denom.reshape(1), site="mean_count") \
+            .reshape(denom.shape)
     return {"X@GRAD": [(dout.reshape(()) / denom * m).expand(x.shape)
                        .contiguous()]}
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from .. import quant
 from ..framework.desc import OpDesc
 from ..framework.framework import grad_var_name
-from . import attention_cuda, conv_cuda
+from . import attention_cuda, bn_cuda, conv_cuda
 from .common import (CONV_FORMATS, SelectedRowsVal, in_var, mxu_cast,
                      same_as_input, seq_len_of, set_out,
                      time_mask)
@@ -174,7 +174,15 @@ def _dropout(ctx, op_, ins):
     p = op_.attr("dropout_prob", 0.5)
     if op_.attr("is_test", False):
         return {"Out": [x * (1.0 - p)], "Mask": [torch.ones_like(x)]}
-    mask = dropout_mask(ctx, op_, tuple(x.shape), 1.0 - p, x.dtype, x.device)
+    spmd = getattr(ctx, "spmd", None)
+    if spmd is not None and spmd.slot_split(op_, "X"):
+        # a batch split over ranks draws the global mask, keeps its rows
+        mask = spmd.global_rows(x.shape[0], lambda rows: dropout_mask(
+            ctx, op_, (rows,) + tuple(x.shape[1:]), 1.0 - p, x.dtype,
+            x.device))
+    else:
+        mask = dropout_mask(ctx, op_, tuple(x.shape), 1.0 - p, x.dtype,
+                            x.device)
     return {"Out": [x * mask], "Mask": [mask]}
 
 
@@ -196,10 +204,15 @@ def _accuracy(ctx, op_, ins):
     label = ins["Label"][0].reshape(-1, 1)
     hit = torch.any(idx == label, dim=1)
     correct = torch.sum(hit.to(torch.int32)).reshape(1).to(torch.int32)
+    rows = idx.shape[0]
+    spmd = getattr(ctx, "spmd", None)
+    if spmd is not None and spmd.slot_split(op_, "Indices"):
+        # a sharded run: the hits of every rank's rows
+        correct = spmd.batch_reduce(correct, site="accuracy")
+        rows *= spmd.nb
     # a fill, not a host copy: a CUDA graph can capture it
-    total = torch.full((1,), idx.shape[0], dtype=torch.int32,
-                       device=idx.device)
-    acc = correct.float() / idx.shape[0]
+    total = torch.full((1,), rows, dtype=torch.int32, device=idx.device)
+    acc = correct.float() / rows
     return {"Accuracy": [acc], "Correct": [correct], "Total": [total]}
 
 
@@ -444,6 +457,11 @@ def _batch_norm(ctx, op_, ins):
     if op_.attr("is_test", False):
         use_mean, use_var = mean, var
         mean_out, var_out = mean, var
+    elif _batch_split(ctx, op_):
+        use_mean, use_var = _split_bn_stats(ctx, xf, axes, shape,
+                                            x.dtype == torch.bfloat16)
+        mean_out = mean * momentum + use_mean * (1.0 - momentum)
+        var_out = var * momentum + use_var * (1.0 - momentum)
     else:
         use_mean = torch.mean(xf, dim=axes)
         if x.dtype == torch.bfloat16:
@@ -460,6 +478,28 @@ def _batch_norm(ctx, op_, ins):
     return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
             "VarianceOut": [var_out], "SavedMean": [use_mean],
             "SavedVariance": [use_var]}
+
+
+def _batch_split(ctx, op_) -> bool:
+    spmd = getattr(ctx, "spmd", None)
+    return spmd is not None and spmd.slot_split(op_, "X")
+
+
+def _split_bn_stats(ctx, xf, axes, shape, one_pass):
+    """Training statistics of a batch split over ranks (the JAX package's
+    GSPMD batch_norm): the channel sums all-reduced, then the mean and the
+    variance of the global batch, one-pass (clamped) for bf16 inputs and
+    centered for f32 as on one device."""
+    spmd = ctx.spmd
+    if one_pass:
+        return bn_cuda.one_pass_moments(
+            torch.sum(xf, dim=axes), torch.sum(torch.square(xf), dim=axes),
+            xf.numel() // xf.shape[1], spmd)
+    n = (xf.numel() // xf.shape[1]) * spmd.nb
+    mean = spmd.batch_sum(torch.sum(xf, dim=axes), site="bn_stats") / n
+    var = spmd.batch_sum(torch.sum(torch.square(xf - mean.reshape(shape)),
+                                   dim=axes), site="bn_stats") / n
+    return mean, var
 
 
 @grad_op("batch_norm")
@@ -501,8 +541,16 @@ def _batch_norm_grad(ctx, op_, ins):
         dx = dyf * k
     else:
         n = x.numel() // x.shape[1]
-        dx = (dyf - (dbias / n).reshape(shape)
-              - xhat * (dscale / n).reshape(shape)) * k
+        gbias, gscale = dbias, dscale
+        if _batch_split(ctx, op_):
+            # a sharded run: dX takes the global sums; dScale and dBias
+            # leave as this rank's partial sums, reduced with the other
+            # parameter gradients
+            gbias, gscale = ctx.spmd.batch_reduce(
+                torch.stack([dbias, dscale]), site="bn_grad_sums")
+            n *= ctx.spmd.nb
+        dx = (dyf - (gbias / n).reshape(shape)
+              - xhat * (gscale / n).reshape(shape)) * k
         keep = 1.0 - op_.attr("momentum", 0.9)
         dmean = dvar = None
         for slot, w, kind in (("SavedMean", 1.0, 0), ("MeanOut", keep, 0),
@@ -558,7 +606,8 @@ def _lookup_table(ctx, op_, ins):
     wname = (op_.input("W") or [None])[0]
     program = getattr(ctx, "program", None)
     if wname and sparse_ops.table_axes(program, wname) is not None:
-        out = sparse_ops.sharded_lookup(program, wname, w, ids.long())
+        out = sparse_ops.sharded_lookup(program, wname, w, ids.long(),
+                                        getattr(ctx, "spmd", None))
     else:
         out = w[ids.long()]
     pad = op_.attr("padding_idx", -1)
@@ -588,6 +637,11 @@ def _lookup_table_grad(ctx, op_, ins):
     wname = (op_.input("W") or [None])[0]
     sharded = (wname is not None and sparse_ops.table_axes(
         getattr(ctx, "program", None), wname) is not None)
+    spmd = getattr(ctx, "spmd", None)
+    height = w.shape[0]
+    if sharded and spmd is not None and wname in spmd.st.specs:
+        # this rank holds its rows: the gradient names the whole table's
+        height = spmd.st.specs[wname].full[0]
     if op_.attr("is_sparse", False) or sharded:
         if sharded and not op_.attr("is_sparse", False):
             sparse_ops.note_once(
@@ -595,7 +649,7 @@ def _lookup_table_grad(ctx, op_, ins):
                 f"lookup_table_grad for row-sharded table '{wname}' "
                 f"emits a SelectedRows gradient (is_sparse forced on): "
                 f"a dense gradient would materialize the full table.")
-        return {"W@GRAD": [SelectedRowsVal(ids, g, w.shape[0])]}
+        return {"W@GRAD": [SelectedRowsVal(ids, g, height)]}
     # accumulate through index_put_: on a CUDA tensor it sorts the ids and
     # sums each id's rows in order, where index_add_'s atomics add them in
     # whatever order they land (two runs, or a graph and the eager step,

@@ -20,10 +20,9 @@ that contract:
     their values and their moments (lazy semantics, adam_op.h
     SparseAdamFunctor).
   * `sharded_lookup` / `pin_table` for a row-sharded table
-    (parallel/embedding.py) on the program's mesh. The port's mesh of one
-    rank runs them as the plain gather and the identity; a shard axis of
-    more than one rank needs the local-view executor of ROADMAP Queue 1
-    item 9b and raises.
+    (parallel/embedding.py) on the program's mesh: on one rank the plain
+    gather and the identity; over several, a masked local gather and one
+    all-reduce, each rank applying the rows it owns (parallel/spmd.py).
   * Telemetry: `sparse_apply_rows_total{op}` (rows scatter-applied, per
     eager call: a graph replay runs no Python and counts nothing) and
     `sparse_densify_fallback_total{op,reason}`, with a warning once per
@@ -41,6 +40,8 @@ import os
 import warnings
 from typing import Optional, Tuple
 
+import torch
+
 from . import sparse_cuda
 from .common import SelectedRowsVal
 
@@ -52,10 +53,6 @@ __all__ = [
 ]
 
 SPARSE_APPLY_OPS: Tuple[str, ...] = ("sgd", "momentum", "adam")
-
-ITEM_9B = ("a row-sharded table over more than one rank needs the "
-           "local-view executor of ROADMAP Queue 1 item 9b")
-
 
 def sparse_apply_enabled() -> bool:
     """PADDLE_TPU_SPARSE_APPLY gate, read at every call (default on)."""
@@ -139,25 +136,40 @@ def shard_factor(program, wname: str) -> int:
     return f
 
 
-def _one_rank(program, wname):
-    if shard_factor(program, wname) > 1:
-        raise NotImplementedError(f"table '{wname}': {ITEM_9B}")
-
-
-def sharded_lookup(program, wname: str, w, ids):
+def sharded_lookup(program, wname: str, w, ids, spmd=None):
     """The gather of a row-sharded table under the `pd.coll.emb_lookup`
-    range. On the one rank of the port's mesh the rank holds the whole
-    table and the gather is local."""
-    from ..parallel._collectives import coll_scope
-    _one_rank(program, wname)
-    with coll_scope("emb_lookup"):
-        return w[ids]
+    range. On one rank the rank holds the whole table and the gather is
+    local. In a sharded run (parallel/spmd.py) `w` is this rank's rows: the
+    ids are gathered over the batch axes (every rank of the table's axes
+    then looks up the same ids), each rank gathers the rows it owns (zeros
+    elsewhere), one all-reduce over the table's axes sums them, and the
+    rank keeps its own rows of the batch."""
+    from ..parallel import _collectives as C
+    with C.coll_scope("emb_lookup"):
+        axes = table_axes(program, wname)
+        if spmd is None or not axes:
+            return w[ids]
+        mesh = spmd.mesh
+        rows = int(w.shape[0])
+        lo = mesh.axis_index(axes) * rows
+        batch_split = spmd.batch and ids.dim() > 0
+        gids = C.all_gather(ids, mesh, spmd.batch, dim=0,
+                            site="emb_ids_all_gather") \
+            if batch_split else ids
+        local = gids - lo
+        own = (local >= 0) & (local < rows)
+        out = w[torch.where(own, local, torch.zeros_like(local))]
+        out = out * own.unsqueeze(-1).to(out.dtype)
+        out = C.all_reduce(out, mesh, axes, site="emb_lookup")
+        if batch_split:
+            k = ids.shape[0]
+            out = out.narrow(0, spmd.bi * k, k)
+        return out
 
 
 def pin_table(program, pname: str, *vals):
     """The table-shaped outputs of an apply, as the sharding leaves them:
-    on one rank, unchanged."""
-    _one_rank(program, pname)
+    each rank's rows, updated in place."""
     return vals if len(vals) != 1 else vals[0]
 
 

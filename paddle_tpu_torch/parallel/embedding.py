@@ -22,11 +22,12 @@ annotation side:
   * `state_shard_factor` / `per_shard_table_bytes`: per-device bytes of
     the sharded tables and their optimizer state.
 
-On the port's mesh of one rank (parallel/mesh.py with no process group: the
-one card) a sharded table holds every row and runs the sparse path, its
-counters included. A shard axis of more than one rank raises
-NotImplementedError: a routed multi-rank lookup needs the local-view
-executor of ROADMAP Queue 1 item 9b.
+On a mesh of one rank a sharded table holds every row and runs the sparse
+path, its counters included. Over more than one rank the scope holds each
+rank's rows (parallel/spmd.py): the lookup is a masked local gather and
+one all-reduce over the table's axes (ops/sparse_ops.py `sharded_lookup`),
+and the SelectedRows gradient, gathered over the batch axes, is applied
+by each rank to the rows it owns, rebased to its shard, through S1.
 
 `PADDLE_TPU_EMB_SHARD_AXIS` (default "fsdp", comma-separated for several)
 names the axis when a caller passes none.
@@ -38,7 +39,6 @@ import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-import torch.distributed as dist
 
 __all__ = [
     "SpecLayout", "default_shard_axes", "shard_table", "shard_embeddings",
@@ -108,45 +108,19 @@ def default_shard_axes() -> Tuple[str, ...]:
     return tuple(a.strip() for a in raw.split(",") if a.strip())
 
 
-def _ranks(program, axes: Tuple[str, ...]) -> int:
-    """How many ranks `axes` span: on the program's mesh (or the current
-    one) the product of their sizes; with no mesh, the process group's
-    size (a mesh made later spans it)."""
-    from .mesh import get_mesh
-    mesh = getattr(program, "_mesh", None) or get_mesh()
-    if mesh is None:
-        return dist.get_world_size() if dist.is_initialized() else 1
-    n = 1
-    for a in axes:
-        if a in mesh.axis_names:
-            n *= mesh.axis_size(a)
-    return n
-
-
 def _shard_parameter(program, param_name: str, spec):
-    """The spec write of the JAX package's tensor_parallel.shard_parameter:
-    `program._param_shardings[param_name] = spec`, bumping `_version` when
-    it changes."""
-    specs = getattr(program, "_param_shardings", None)
-    if specs is None:
-        specs = program._param_shardings = {}
-    spec = tuple(spec)
-    if specs.get(param_name) != spec:
-        specs[param_name] = spec
-        program._version = getattr(program, "_version", 0) + 1
+    """tensor_parallel.shard_parameter, the one spec write path."""
+    from .tensor_parallel import shard_parameter
+    shard_parameter(program, param_name, spec)
 
 
 def shard_table(program, param_name: str, axis: Optional[Axes] = None):
     """Row-shard one embedding table over mesh axis/axes (default
     PADDLE_TPU_EMB_SHARD_AXIS): the spec in `_param_shardings`, the table in
-    `_sharded_tables`. Raises NotImplementedError when the axes span more
-    than one rank (ROADMAP Queue 1 item 9b)."""
+    `_sharded_tables`. Its lookup's gradient is a SelectedRows value (is_sparse
+    forced on, with the JAX package's warning)."""
     axes = (tuple(axis) if isinstance(axis, (tuple, list))
             else (axis,) if axis else default_shard_axes())
-    if _ranks(program, axes) > 1:
-        from ..ops.sparse_ops import ITEM_9B
-        raise NotImplementedError(f"shard_table('{param_name}', {axes}): "
-                                  f"{ITEM_9B}")
     ndim = None
     blk = program.global_block()
     if blk.has_var(param_name):

@@ -6,6 +6,7 @@ bound and jnp.abs has a derivative of 1 at +-0; the port's lowerings
 (each grad is one product of the mean's 1/n by 0, 0.5, 1 or the slope).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 

@@ -19,6 +19,7 @@ Tolerances, relative to the largest magnitude of the JAX output:
   * LSE (f32 in both cases): 1e-6.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

@@ -30,6 +30,7 @@ each side, so each term may differ by 2^-8 of itself: rel 2^-8 + 1e-5 of
 the sum of the terms' magnitudes.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import math
 import sys
 from pathlib import Path

@@ -9,6 +9,7 @@ lowering in the port, jax.vjp in the JAX package) of an op mix agree in
 float32 within rtol 1e-4 / atol 1e-5 (both sum in f32, in their own order).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import json
 
 import numpy as np

@@ -12,6 +12,7 @@ test_beam_search_decode.py. The chapters live in chip_smoke.py (`BOOK`),
 which runs the same thirteen on the card.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

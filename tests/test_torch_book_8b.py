@@ -11,6 +11,7 @@ datasets conll05, wmt14 and wmt16: the port's readers yield the JAX
 package's samples bit for bit.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

@@ -12,6 +12,7 @@ program with a `while` runs eager under "control_flow", a step with an
 `rnn` is graphed.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

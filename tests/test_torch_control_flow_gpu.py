@@ -25,6 +25,7 @@ ids exact, scores within rtol 1e-4 / atol 1e-4 (cuBLAS and the CPU sum in
 another order).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

@@ -8,6 +8,7 @@ differ only in the order of the sums, so f32 outputs agree to rtol/atol
 against the same plain version on the card by chip_smoke.py.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import dataclasses
 
 import numpy as np

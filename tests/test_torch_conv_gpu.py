@@ -18,6 +18,7 @@ order, so f32 outputs agree to rtol/atol 1e-4; the kernel's bf16 output is
 its own f32 sum rounded once.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import pytest
 import torch
 

@@ -14,6 +14,7 @@ from a seed: f32 outputs within rtol 1e-5 / atol 1e-6, grads within rtol
 1e-4, ids, parents, paths and counts exact.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import itertools
 
 import numpy as np

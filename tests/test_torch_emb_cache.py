@@ -11,6 +11,7 @@ counted by its consumer, flush); enable's validation; the read-only
 serving cache; and DoubleBufferedFeeder.next_window(sparse_slots=).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ their draws are held to their distribution and shape, not to the JAX
 package's numbers.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import os
 import pickle
 

@@ -24,6 +24,7 @@ and rtol 1e-4 / atol 1e-6 for trajectories of several steps; the LR within
 1e-6 relative of the host's f64 closed form.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import pickle
 import random
 

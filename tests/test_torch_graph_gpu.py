@@ -26,6 +26,7 @@ suite's conftest,
 Tolerances: none; every comparison is bitwise.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

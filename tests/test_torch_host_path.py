@@ -35,6 +35,7 @@ Tolerances.
   * Everything else bitwise.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 from types import SimpleNamespace
 
 import numpy as np

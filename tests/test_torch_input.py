@@ -13,6 +13,7 @@ tensors; its copy stream, events and pinned buffers run on the card
 (tests/test_torch_input_gpu.py).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import random
 import threading
 

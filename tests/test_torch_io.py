@@ -8,6 +8,7 @@ identity. Tolerance: f32 answers within rtol 1e-4 / atol 1e-5 (both sum in
 f32, in another order); tensors read back are bitwise what was written.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import os
 import pickle
 

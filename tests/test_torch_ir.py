@@ -6,6 +6,7 @@ main and startup — the property that carries the JAX package's weights
 across by name (interop.py). Nothing runs here: these are builds only.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import ast
 import os
 import subprocess

@@ -12,6 +12,7 @@ Tolerances: the pack functions, fetches of fed values and the DataFeeder
 arrays are compared bitwise; computed values with f32 rtol 1e-5, atol 1e-6.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

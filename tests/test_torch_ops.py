@@ -10,6 +10,7 @@ write back to their scopes. Both sum in f32 in their own order: rtol 1e-4,
 atol 1e-5.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 

@@ -11,6 +11,7 @@ against the numpy oracles rtol 1e-4 where the oracle runs in f64 (the
 test_op_sweep.py tolerance).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 

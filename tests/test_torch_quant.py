@@ -9,6 +9,7 @@ dequantize with the same f32 multiplies rounded once, so int8 operands,
 scales and outputs are compared bitwise.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

@@ -21,6 +21,7 @@ skips without one. This file imports no JAX:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_quant_gpu.py
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import dataclasses
 import sys
 from pathlib import Path

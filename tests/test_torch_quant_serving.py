@@ -29,6 +29,7 @@ step. Measured on the CPU: softmax 0.00195 apart, logits 0.0063; the
 bounds are 2.5x and 3x that.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

@@ -28,6 +28,7 @@ Tolerances:
     within one bf16 ulp.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import jax.numpy as jnp
 import numpy as np
 import pytest

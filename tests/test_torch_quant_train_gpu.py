@@ -31,6 +31,7 @@ This file imports no JAX:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_quant_train_gpu.py
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

@@ -9,6 +9,7 @@ all-or-nothing rule; the staged batches bit for bit the file's samples in
 the shuffle's order.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import random
 
 import numpy as np

@@ -4,6 +4,7 @@ the port, the library built where it belongs, and the two packages' files
 held to each other: the same samples give byte-identical files, and each
 package reads what the other wrote."""
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import os
 
 import numpy as np

@@ -46,11 +46,8 @@ Tolerances.
     f32 logsumexp of the same bf16 inputs.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import json
-import os
-import pickle
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -71,9 +68,9 @@ from paddle_tpu_torch.ops import attention_cuda as A
 from paddle_tpu_torch.parallel import make_mesh
 from paddle_tpu_torch.parallel import ring_attention as R
 
+import torch_group
 import torch_ring_worker as W
 
-REPO = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_ring_worker.py"
 TOL = {"float32": 2e-6, "bfloat16": 2.0 ** -7}
 SHARD = (1, 64, 2, 32)          # [B, T/P, H, D] of the four-shard ring pairs
@@ -331,34 +328,11 @@ def _jax_lm(amp, n_sp):
 def _launch(world, cases, tmp):
     """Run `cases` on a fresh gloo group of `world` CPU processes; return
     each rank's results. A rank that fails or a group that outlives
-    WORKER_TIMEOUT fails the caller, and every process is gone after."""
-    cases_path, store = tmp / "cases.pkl", tmp / "store"
-    with open(cases_path, "wb") as f:
-        pickle.dump(cases, f)
-    env = dict(os.environ, PYTHONPATH=f"{REPO}{os.pathsep}"
-               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(world), str(store),
-         str(cases_path), str(tmp / f"out{r}.pkl")], env=env, cwd=tmp,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} of {world}:\n{logs[r][-4000:]}"
-    out = []
-    for r in range(world):
-        with open(tmp / f"out{r}.pkl", "rb") as f:
-            out.append(pickle.load(f))
-    _RANK_LOGS[world] = [(p.returncode, logs[r] or "")
-                         for r, p in enumerate(procs)]
+    WORKER_TIMEOUT fails the caller, and every process is gone after
+    (tests/torch_group.py)."""
+    out, tails = torch_group.launch(WORKER, world, cases, tmp,
+                                    timeout=WORKER_TIMEOUT)
+    _RANK_LOGS[world] = tails
     return out
 
 

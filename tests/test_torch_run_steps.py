@@ -14,6 +14,7 @@ packages sum in f32 in their own order: losses within 1e-5 relative,
 every parameter and accumulator within 1e-5 relative L2.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

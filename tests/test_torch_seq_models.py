@@ -9,6 +9,7 @@ last ulp between the libraries, and the recurrence and Adam carry it).
 And the transformer LM with dropout in training builds and trains.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

@@ -15,6 +15,7 @@ recurrence carries it) and for the ops whose gradient sums a GEMM
 products in another order).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ rounding points lie between input and output, and each package rounds
 its own f32 sums.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

@@ -24,6 +24,7 @@ On a CPU place every bucket runs eager (the graph gate's "cpu"): a
 bucket's first run counts a miss, later runs hits, as in the reference.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import threading
 import time
 

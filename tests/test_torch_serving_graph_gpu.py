@@ -25,6 +25,7 @@ suite's conftest,
 Tolerances: none; every comparison is bitwise.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import gc
 import threading
 import weakref

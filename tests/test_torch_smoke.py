@@ -7,6 +7,7 @@ lead of a made-up profile, the kernel counters a profiler event's name
 counts for (how the launches of a CUDA graph's replay are counted), and
 the same counters over a CUDA graph's DOT dump."""
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

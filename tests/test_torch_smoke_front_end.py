@@ -11,6 +11,7 @@ and each replay runs it, the profiler is skipped. Also the host helpers
 the phases hold the card to: ModelAverage's average and the reader's
 shuffle order."""
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import random
 import sys
 import types
@@ -92,6 +93,10 @@ def test_train_lm_recipe_rehearsed(card, monkeypatch):
 
 
 def test_train_optimizers_model_average_rehearsed(card, monkeypatch):
+    # the phase holds the process's densify count to zero before it runs,
+    # as the card's fresh smoke process has it: an earlier test of this
+    # worker may have densified on purpose
+    pt.telemetry.reset()
     monkeypatch.setattr(chip_smoke, "OPT_PASSES",
                         ("rmsprop", "adam_model_average"))
     monkeypatch.setattr(chip_smoke, "OPT_TIMED_STEPS", 2)

@@ -12,6 +12,7 @@ kernel counts are left out (no kernel runs here). Also the launches the
 port's gates give each path at the card's full sizes, held to the
 smoke's ZOO_LAUNCHES, and the SSD's prior count."""
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import contextlib
 import sys
 from pathlib import Path
@@ -28,10 +29,13 @@ from paddle_tpu_torch import executor as E  # noqa: E402
 from test_torch_smoke_front_end import card  # noqa: E402,F401
 
 SMALL_ZOO = {"alexnet": dict(chip_smoke.ZOO["alexnet"], img=63, classes=10,
-                             batch=2, lr=1e-4),
+                             batch=1, lr=1e-4),
              "googlenet": dict(chip_smoke.ZOO["googlenet"], img=64,
-                               classes=10, batch=2, lr=1e-4),
-             "smallnet": dict(chip_smoke.ZOO["smallnet"], batch=4)}
+                               classes=10, batch=1, lr=1e-4),
+             "smallnet": dict(chip_smoke.ZOO["smallnet"], batch=4, lr=1e-3)}
+# train_zoo's steps in turns, rehearsed: one graphed and one eager step
+# after the three held bitwise (the card runs ZOO_TURNS)
+SMALL_ZOO_TURNS = 1
 SMALL_SSD = dict(chip_smoke.SSD, img=64, batch=4, scale=0.125, classes=5)
 
 
@@ -70,6 +74,7 @@ def no_kernels(card, monkeypatch):
 
 def test_train_zoo_rehearsed(no_kernels, monkeypatch):
     monkeypatch.setattr(chip_smoke, "ZOO", SMALL_ZOO)
+    monkeypatch.setattr(chip_smoke, "ZOO_TURNS", SMALL_ZOO_TURNS)
     report = {}
     assert chip_smoke.phase_train_zoo(pt, report) == {}
     for name, rec in report["train_zoo"].items():

@@ -15,6 +15,7 @@ arithmetic that the port runs one rounded op at a time. Rows no gradient
 names are held bitwise.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch
@@ -372,11 +373,18 @@ def test_table_keeps_its_storage_across_eager_steps():
 
 
 def test_sharded_table_over_more_than_one_rank_raises():
+    """Once ROADMAP item 9b-1's raise: a table row-sharded over two ranks
+    is now annotated and accounted at half its bytes a rank (its sharded
+    run is tests/test_torch_parallel_ranks.py's); on one rank it holds
+    every row."""
     from paddle_tpu_torch.parallel import embedding, mesh
     main, _, _ = _net(pt, "sgd", True)
     main._mesh = mesh.Mesh(("fsdp",), (2,), None, 0, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="9b"):
-        embedding.shard_table(main, "emb_w", "fsdp")
+    embedding.shard_table(main, "emb_w", "fsdp")
+    assert embedding.sharded_tables(main) == {"emb_w": ("fsdp",)}
+    assert embedding.state_shard_factor(main, "emb_w") == 2
+    two = embedding.per_shard_table_bytes(main, scope=pt.Scope())
+    assert two["tables"]["emb_w"]["per_shard_bytes"] == 50 * 8 * 4 // 2
     one, _, _ = _net(pt, "sgd", True, mesh=True)
     per = embedding.per_shard_table_bytes(one, scope=pt.Scope())
     assert per["tables"]["emb_w"]["factor"] == 1

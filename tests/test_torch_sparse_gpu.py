@@ -17,6 +17,7 @@ Skipped without a CUDA device; on the card:
     python -m pytest --noconftest tests/test_torch_sparse_gpu.py
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ serving/slo.py, errors.py), on the CPU.
     span trees (names, parents, attrs) match.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import threading
 
 import pytest

@@ -20,6 +20,7 @@ version's plus that f32 tolerance (a rounding may flip). K4's y is K1's
 bitwise.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ fail a plain rtol on its small outputs). bf16 outputs: within one bf16 ulp
 the other way). K4's y is bitwise the port's K1 plain output.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import functools
 from types import SimpleNamespace
 

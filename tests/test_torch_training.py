@@ -22,6 +22,7 @@ differs from its f32 run by up to 19 % of a velocity's largest magnitude
 after three steps, the port's O2 from the JAX O2 by up to 23 %.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 from types import SimpleNamespace
 
 import numpy as np

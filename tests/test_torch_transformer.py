@@ -36,6 +36,7 @@ Tolerances.
     two layers; measured 0.53 %).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import json
 from types import SimpleNamespace
 

@@ -25,6 +25,7 @@ for the convs, moe_ffn and hsigmoid (cuDNN, cuBLAS and the CPU sum in
 other orders; TF32 off).
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import sys
 from pathlib import Path
 

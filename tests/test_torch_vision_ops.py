@@ -17,6 +17,7 @@ generator: its cost is held to the JAX formula recomputed from the port's
 own SampleLabels.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@ atol 1e-5 (the convs' sums run in another order than XLA's).
 inputs: f32 within rtol 1e-5 / atol 1e-6.
 """
 
+import torch_threads  # noqa: F401  (the cores shared among xdist workers)
 import numpy as np
 import pytest
 
@@ -40,6 +41,40 @@ ZOO = {"alexnet": (63, 10, 0.01), "googlenet": (64, 10, 0.005),
        "smallnet_mnist_cifar": (32, 10, 0.01)}
 
 
+def run_both_port_init(build, feed, steps):
+    """run_both with both packages starting from the port's startup
+    persistables, so the JAX package compiles only the training step (its
+    startup program over a zoo net's initializers compiles as long as the
+    step itself). -> (JAX fetches, port fetches), a list a step each."""
+    progs = {}
+    for fluid in (pt, jfluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            targets = build(fluid)
+        progs[fluid] = (main, startup, targets)
+    main, startup, _ = progs[pt]
+    scope = pt.executor.Scope()
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    arrays = {n: np.asarray(scope.find_var(n))
+              for n, v in startup.global_block().desc.vars.items()
+              if v.persistable and scope.find_var(n) is not None}
+    out = {}
+    for fluid in (jfluid, pt):
+        main, _, targets = progs[fluid]
+        if fluid is jfluid:
+            scope = jax_executor.Scope()
+            for n, a in arrays.items():
+                scope.set_var(n, a)
+        else:
+            scope = pt.executor.Scope()
+            pt.interop.load_numpy_params(scope, arrays, "cpu")
+        exe = fluid.Executor(fluid.CPUPlace())
+        out[fluid] = [[np.asarray(v) for v in exe.run(
+            main, feed=feed, fetch_list=targets, scope=scope)]
+            for _ in range(steps)]
+    return out[jfluid], out[pt]
+
+
 @pytest.mark.parametrize("model", sorted(ZOO))
 def test_cnn_logits_and_losses(model):
     size, classes, lr = ZOO[model]
@@ -57,7 +92,7 @@ def test_cnn_logits_and_losses(model):
             logits=logits, label=label))
         fluid.optimizer.SGD(learning_rate=lr).minimize(cost)
         return [cost, logits]
-    want, got = run_both(build, feed, steps=3)
+    want, got = run_both_port_init(build, feed, steps=3)
     assert_same(want, got, CONV)
     losses = [float(s[0].reshape(-1)[0]) for s in got]
     assert np.isfinite(losses).all()
