@@ -9283,6 +9283,28 @@ LM_KERNELS = ("attn.f32_launches", "attn.f32_dq_launches",
               "attn.f32_dkv_launches")
 
 
+def lm_stage_cuts(main, n_layer):
+    """The cut variables that split transformer_lm's program into one
+    pipeline stage a layer: the residual stream after each layer's FFN
+    residual add but the last. The stream is followed from the embedding's
+    `pos_emb` add through the adds that read it (attention then FFN, each
+    layer). Takes either package's program."""
+    block = main.global_block()
+    adds = [op for op in block.ops if op.type == "elementwise_add"]
+    x = next(op for op in adds if "pos_emb" in op.desc.input("Y")) \
+        .desc.output("Out")[0]
+    chain = []
+    while True:
+        nxt = [op for op in adds if op.desc.input("X") == [x]]
+        if not nxt:
+            break
+        x = nxt[0].desc.output("Out")[0]
+        chain.append(x)
+    if len(chain) != 2 * n_layer:
+        raise ValueError(f"{len(chain)} residual adds for {n_layer} layers")
+    return [block.var(n) for n in chain[1::2][:n_layer - 1]]
+
+
 def _par_dir(phase):
     import shutil
     d = Path(__file__).resolve().parent / "build" / "parallel_smoke" / phase
@@ -9468,6 +9490,8 @@ def _par_steps(pt, main, loss, exe, scope, feeds, grads=(), use_jit=None,
                "eager": dict(E.COUNTERS.eager),
                "bn_fallbacks": {f"{o}:{r}": n for (o, r), n in
                                 bn_cuda.COUNTERS.fallbacks.items()},
+               "bn_hits": dict(bn_cuda.COUNTERS.hits),
+               "bn_split": dict(bn_cuda.COUNTERS.split_launches),
                "digests": _digests(scope, digest)}
         if i == 0 and grads:
             rec["grads"] = {g: np.asarray(v, np.float32)
@@ -9576,6 +9600,7 @@ RANK_PHASES = {"train_dp": _rank_train, "train_planned_lm": _rank_train,
                "train_dp_nccl": _rank_dp_nccl}
 
 
+
 def _par_init(pt, main, startup, place):
     """The startup's state on the CPU, to hand to every rank whole."""
     import torch
@@ -9625,6 +9650,101 @@ def _bn_fetches(main, outputs=False):
             for slot in slots]
 
 
+def _bn_split_row(bn_cuda, key, n, randn, time_ms):
+    """K6's split form on one rank at one [M, C] and act `key`: the
+    statistics launch twice bitwise and bit for bit bn_act_sums_in_order's
+    at its plan; the normalize launch from those sums over M rows twice
+    bitwise, its outputs and statistics bit for bit K6's (whole) on the
+    same x, ybn within one bf16 ulp of the plain apply; then the two
+    launches timed together beside the window they replace (plain channel
+    sums, the moments and K5), K6 whole, F.batch_norm and the bound (x read
+    once, the outputs written once). Prints and returns the row."""
+    import torch
+    import torch.nn.functional as F
+    m, c, act = key
+    x = randn((m, c), 2.0)
+    scale, bias, _, _ = _bn_operands(m, c)
+    shape = f"[{m}, {c}] act={act}"
+    sums = _twice(lambda: (bn_cuda.bn_act_sums(x),))[0]
+    if not torch.equal(sums, bn_cuda.bn_act_sums_in_order(
+            x, *bn_cuda.launch_plan(x, None))):
+        raise RuntimeError(f"K6's statistics launch at {shape} is not its "
+                           f"summation order's bit for bit")
+    ybn, yact, mean, var = _twice(lambda: bn_cuda.bn_act_apply(
+        x, sums, m, scale, bias, 1e-5, act))
+    wbn, wact, wmean, wvar = bn_cuda.bn_act(x, scale, bias, 1e-5, act)
+    same = [torch.equal(a, b) for a, b in ((ybn, wbn), (mean, wmean),
+                                           (var, wvar))]
+    if act is not None:
+        same.append(torch.equal(yact, wact))
+    if not all(same):
+        raise RuntimeError(f"K6's split form at {shape} on one rank is not "
+                           f"K6's bits: {same}")
+    want, _ = bn_cuda.bn_apply_reference(x, scale, bias, mean, var, 1e-5)
+    err = _bf16_err(ybn, want)
+    del want, wbn, wact
+
+    def old():
+        xf = x.float()
+        mu, v = bn_cuda.one_pass_moments(xf.sum(0), (xf * xf).sum(0), m)
+        return bn_cuda.bn_apply(x, scale, bias, mu, v, 1e-5, act)
+    split = lambda: bn_cuda.bn_act_apply(  # noqa: E731
+        x, bn_cuda.bn_act_sums(x), m, scale, bias, 1e-5, act)
+    x4 = x.reshape(TRAIN_BATCH, -1, c).permute(0, 2, 1).unsqueeze(-1)
+    out_bytes = m * c * 2 * (2 if act else 1)
+    row = _row("bn_act_split", shape, n, time_ms(split), time_ms(old),
+               time_ms(lambda: F.batch_norm(x4, None, None, scale, bias,
+                                            True, 0.0, 1e-5)),
+               (7 if act else 6) * m * c, m * c * 2 + 16 * c + out_bytes,
+               err, PEAK_F32_FLOPS)
+    row["whole_ms"] = time_ms(lambda: bn_cuda.bn_act(x, scale, bias, 1e-5,
+                                                     act))
+    row["two_pass_floor_ms"] = (row["bytes"] + m * c * 2) / PEAK_BYTES * 1e3
+    print(f"bn_act split {shape} x{n}/step: {row['ms']:.4f} ms (statistics "
+          f"and normalize launches), the window it replaces (plain sums + "
+          f"K5) {row['plain_ms']:.4f} ms, K6 whole {row['whole_ms']:.4f} ms, "
+          f"F.batch_norm {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms (two-pass floor "
+          f"{row['two_pass_floor_ms']:.4f})", flush=True)
+    return row
+
+
+def phase_kernel_bn_split(pt, bn_cuda, report):
+    """K6's split form (a batch split over ranks: train_dp's windows) at
+    every K6 shape of a ResNet-50 training step at TRAIN_BATCH, the batch
+    of one train_dp rank (_bn_split_row). -> the split form's totals a
+    step, for the K6 entry of the kernels line."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 87)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale) \
+            .to(torch.bfloat16).cuda()
+    main = _resnet50_train(pt, pt.models.resnet)[0]
+    acts = zoo_kernel_shapes(main, TRAIN_BATCH)[0]["K6"]
+    rows = [_bn_split_row(bn_cuda, key, n, randn, _device_ms)
+            for key, n in acts.items()]
+    torch.cuda.empty_cache()
+    report["bn_split_shapes"] = rows
+
+    def total(key):
+        return sum(r[key] * r["per_step"] for r in rows)
+    out = {"ms": total("ms"), "window_before_ms": total("plain_ms"),
+           "whole_ms": total("whole_ms"), "library_ms": total("library_ms"),
+           "bound_ms": total("bound_ms"), "bound_by": "bytes",
+           "two_pass_floor_ms": total("two_pass_floor_ms"),
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "shapes": [r["shape"] for r in rows],
+           "per": f"one batch-{TRAIN_BATCH} ResNet-50 step of a train_dp "
+                  f"rank"}
+    print(f"bn_act split form: {out['ms']:.3f} ms per train_dp rank step "
+          f"over {len(rows)} shapes, the window before (plain sums + K5) "
+          f"{out['window_before_ms']:.3f}, K6 whole "
+          f"{out['whole_ms']:.3f}, bound {out['bound_ms']:.3f} (bytes)",
+          flush=True)
+    return out
+
+
 def phase_train_dp(pt, report, cfg=None):
     """bench.py's ResNet-50 in O2 at full width transpiled over dp 2 (two
     rank processes on the card, gloo, host-staged), the global batch of 64
@@ -9632,9 +9752,10 @@ def phase_train_dp(pt, report, cfg=None):
     loss, batch-norm statistics and gradients against one rank's step on
     the same global batch (DP above), the replicated state bitwise equal
     across ranks after every step, the losses equal across ranks, K2-K5
-    launched on every rank (K6's statistics cannot see the other rank's
-    rows: its window takes K5, counted as K6's `batch_split` fallback), the
-    buckets posted and the bytes staged, each step eager under
+    launched on every rank and K6's split form (its statistics launch, the
+    sums all-reduced, its normalize launch) on the stem's window, which
+    counts one K6 hit and no fallback, the buckets posted and the bytes
+    staged, each step eager under
     `host_collective`; the ranks' step p50 beside the one-rank step's
     (eager). cfg "outputs" also holds every batch norm's output Y (mean
     |difference| over mean |Y| within one bf16 ulp, 2^-8); cfg "amp" None
@@ -9679,12 +9800,15 @@ def phase_train_dp(pt, report, cfg=None):
             missing = [k for k in DP_KERNELS if not s["launches"].get(k)]
             if missing and cfg["device"] == "cuda" and o2:
                 fails.append(f"rank {r} step {i + 1}: {missing} not launched")
-            if s["launches"].get("bn.act_launches"):
-                fails.append(f"rank {r}: K6 launched on a split batch")
-            if cfg["device"] == "cuda" and o2 and \
-                    not s["bn_fallbacks"].get("fused_bn_act:batch_split"):
-                fails.append(f"rank {r} step {i + 1}: no K6 window taken "
-                             f"as batch_split: {s['bn_fallbacks']}")
+            if cfg["device"] == "cuda" and o2 and (
+                    not s["bn_split"].get("sums")
+                    or s["bn_split"].get("sums") != s["bn_split"].get(
+                        "apply")):
+                fails.append(f"rank {r} step {i + 1}: K6's split form not "
+                             f"launched in pairs: {s['bn_split']}")
+            if s["bn_fallbacks"].get("fused_bn_act:batch_split"):
+                fails.append(f"rank {r} step {i + 1}: a K6 window taken as "
+                             f"batch_split: {s['bn_fallbacks']}")
             if not s["buckets"]:
                 fails.append(f"rank {r} step {i + 1}: no bucket posted")
             if cfg["device"] == "cuda" and (
@@ -9774,6 +9898,8 @@ def phase_train_dp(pt, report, cfg=None):
            "grad_norm_ratio_median": med_ratio,
            "launches_per_rank_step": r0[0]["launches"],
            "bn_fallbacks_per_rank_step": r0[0]["bn_fallbacks"],
+           "bn_hits_per_rank_step": r0[0]["bn_hits"],
+           "k6_split_per_rank_step": r0[0]["bn_split"],
            "one_rank_launches": ref[0]["launches"],
            "buckets_per_step": r0[0]["buckets"],
            "staged_bytes_per_step": r0[0]["staged_bytes"],
@@ -9797,8 +9923,10 @@ def phase_train_dp(pt, report, cfg=None):
           f"{rec['permuted_grad_rel_l2_max']:.3e}; {floor_ratio:.3f}x), "
           f"norm ratio median "
           f"{med_ratio:.4f}; replicated state bitwise across ranks after "
-          f"every step; a rank's step launches {r0[0]['launches']}, K6 "
-          f"fallbacks {r0[0]['bn_fallbacks']}, {r0[0]['buckets']} buckets, "
+          f"every step; a rank's step launches {r0[0]['launches']}, K6's "
+          f"split form {r0[0]['bn_split']}, batch-norm windows' hits "
+          f"{r0[0]['bn_hits']} and fallbacks {r0[0]['bn_fallbacks']}, "
+          f"{r0[0]['buckets']} buckets, "
           f"{r0[0]['staged_bytes'] / 1e6:.1f} MB staged, the host's seconds "
           f"in collectives {coll}; step p50 {p50:.1f} ms a rank (eager, "
           f"host_collective) beside one rank's {ref_p50:.1f} ms at the "
@@ -10047,6 +10175,614 @@ def phase_train_dlrm_sharded(pt, report, cfg=None):
 
 
 
+# --- pipelines, experts and the elastic queue (ROADMAP 9b-2) ---------------------
+
+# the LM at LM's widths in f32 trained through PipelineTranspiler: cut after
+# each layer's FFN residual add into n_layer stages (chip_smoke.lm_stage_cuts;
+# stage 0 holds the embedding and pos_emb, the last the final layer norm,
+# the head and the loss), 4 microbatches of 2 rows, Adam at 1e-4, every
+# stage program run eager; against the one-device f32 LM (the same program
+# minimized) from the same initial state and batches: the losses within
+# LM_F32_LOSS_RTOL, each stage's parameters (relative L2 over the stage)
+# within PIPE_PARAM_FACTOR of the floor (the one-device run against itself
+# on each batch's microbatches reversed: the same gradients summed in
+# another order), plus PIPE_PARAM_SLACK
+PIPE_LM = {"lm": dict(LM, lr=1e-4), "microbatches": 4, "steps": 3,
+           "device": "cuda"}
+PIPE_PARAM_FACTOR = 4.0
+PIPE_PARAM_SLACK = 1e-7
+# K7 a step: the forward and the grad program's recompute, each layer and
+# microbatch; K8 and K9 once each
+PIPE_KERNELS = {"attn.f32_launches": 2, "attn.f32_dq_launches": 1,
+                "attn.f32_dkv_launches": 1}
+# gpipe over 'pp' 4 (rank processes sharing the card, gloo): M 8
+# microbatches of [2048, 512] f32 rows through pre-LN residual FFN blocks
+# 512 -> 2048 -> 512; forward and gradients against gpipe_reference on one
+# rank within GPIPE_RTOL (relative L2)
+GPIPE = {"stages": 4, "microbatches": 8, "rows": 2048, "d": 512,
+         "hidden": 2048, "reps": 3}
+GPIPE_RTOL = 1e-5
+# sparse_moe at x [4096, 512], 8 experts of hidden 2048, capacity 1.25 (C
+# 640), over 'ep' 4 (2 experts a rank): form (a) tokens replicated and form
+# (b) the batch split over 'ep', 3 SGD steps each against the one-rank run
+# from the same state: losses and state within EP_RTOL (tests/test_moe.py's)
+EP = {"tokens": 4096, "d": 512, "experts": 8, "hidden": 2048, "cf": 1.25,
+      "world": 4, "lr": 0.02, "steps": 3}
+EP_RTOL = 2e-4
+PP_EP_WORLD = 4
+# the port's MLP fed by elastic_reader over a TaskQueue through 2 passes:
+# 256 samples in 16 tasks of 16, batches of 16; in pass 0 a reader dies
+# holding its first task's lease after one batch, the injected clock passes
+# the timeout, and the task requeues
+ELASTIC = {"samples": 256, "task": 16, "batch": 16, "passes": 2,
+           "timeout_s": 60.0, "device": "cuda"}
+
+
+def _pipe_lm_net(pt, c, optimizer=None):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        tok = pt.layers.data(name="tok", shape=[-1, c["seqlen"]],
+                             dtype="int64", append_batch_size=False)
+        lab = pt.layers.data(name="lab", shape=[-1, c["seqlen"]],
+                             dtype="int64", append_batch_size=False)
+        loss = pt.models.transformer_lm(
+            tok, lab, vocab_size=c["vocab"], d_model=c["d_model"],
+            n_head=c["n_head"], n_layer=c["n_layer"])
+        if optimizer is not None:
+            optimizer().minimize(loss)
+    main.random_seed = startup.random_seed = SEED + 1
+    return main, startup, loss
+
+
+def _timed_steps(fn, feeds, sync):
+    out = []
+    for f in feeds:
+        sync()
+        t0 = time.perf_counter()
+        loss = fn(f)
+        sync()
+        out.append((loss, time.perf_counter() - t0))
+    return out
+
+
+def _stage_rel(a, b, names):
+    num = sum(float(np.sum((a[n] - b[n]).astype(np.float64) ** 2))
+              for n in names)
+    den = sum(float(np.sum(b[n].astype(np.float64) ** 2)) for n in names)
+    return (num / max(den, 1e-60)) ** 0.5
+
+
+def phase_train_pipeline_lm(pt, report, cfg=None, places=None):
+    """The LM at full width trained through PipelineTranspiler on the card
+    (PIPE_LM above): the stage partition disjoint and covering every
+    trainable parameter, the losses and each stage's parameters against
+    the one-device LM, the f32 K7/K8/K9 launches a step (PIPE_KERNELS per
+    layer and microbatch), the step's p50 over steps 2-3. `places` is the
+    stages' (default: CUDAPlace(i mod the cards)). -> launches by counter
+    over the steps."""
+    import torch
+    from paddle_tpu_torch.ops import attention_cuda, bn_cuda, conv_cuda
+    from paddle_tpu_torch.parallel import program_pipeline
+    t_phase = time.perf_counter()
+    cfg = dict(PIPE_LM if cfg is None else cfg)
+    c, m = cfg["lm"], cfg["microbatches"]
+    card = _card_line() if cfg["device"] == "cuda" else "cpu"
+    place = pt.CUDAPlace(0) if cfg["device"] == "cuda" else pt.CPUPlace()
+    sync = torch.cuda.synchronize if cfg["device"] == "cuda" \
+        else (lambda: None)
+    adam = lambda: pt.optimizer.Adam(learning_rate=c["lr"])  # noqa: E731
+    main, startup, loss = _pipe_lm_net(pt, c, adam)
+    init = _par_init(pt, main, startup, place)
+    trainable = sorted(p.name for p in main.global_block().all_parameters()
+                       if p.trainable)
+    feeds = _lm_feeds(c, cfg["steps"])
+    exe = pt.Executor(place)
+
+    def one_device(batches):
+        scope = _par_scope(pt, init, exe.device)
+        steps = _timed_steps(lambda f: float(np.ravel(exe.run(
+            main, feed=f, fetch_list=[loss], scope=scope,
+            use_jit=False)[0])[0]), batches, sync)
+        return steps, {n: scope.find_var(n).detach().cpu().numpy()
+                       for n in trainable}
+    ref, ref_state = one_device(feeds)
+    # the floor: each batch's microbatches in reverse order
+    rows = c["batch"] // m
+    order = np.concatenate([np.arange(j * rows, (j + 1) * rows)
+                            for j in reversed(range(m))])
+    _, floor_state = one_device([{k: v[order] for k, v in f.items()}
+                                 for f in feeds])
+    del exe
+    _free_card()
+
+    pmain, pstartup, ploss = _pipe_lm_net(pt, c)
+    cuts = lm_stage_cuts(pmain, c["n_layer"])
+    trainer = pt.parallel.PipelineTranspiler().transpile(
+        ploss, cut_vars=cuts, optimizer=adam, num_microbatches=m,
+        places=places)
+    scope = pt.Scope()
+    trainer.startup(pstartup, scope=scope)
+    for n, t in init.items():
+        if n in trainable:
+            scope.set_var(n, t.to(trainer.executors[0].device, copy=True))
+    fails = []
+    owned = [set(s.param_names) for s in trainer.stages]
+    if sum(len(o) for o in owned) != len(set().union(*owned)) or \
+            set().union(*owned) != set(trainable):
+        fails.append(f"stage partition {[sorted(o) for o in owned]} is not "
+                     f"disjoint or does not cover {trainable}")
+    from paddle_tpu_torch.ops import quant_cuda
+    counters = (conv_cuda.COUNTERS, bn_cuda.COUNTERS,
+                attention_cuda.COUNTERS, quant_cuda.COUNTERS)
+    launches = []
+
+    def step(f):
+        for k in counters:
+            k.reset()
+        program_pipeline.COUNTERS.reset()
+        out = trainer.train_step(f, scope=scope, use_jit=False)
+        launches.append({k: v for k, v in _graph_counts(
+            conv_cuda, bn_cuda, attention_cuda).items() if v})
+        return out
+    got = _timed_steps(step, feeds, sync)
+    runs = dict(program_pipeline.COUNTERS.runs)
+    losses = [g[0] for g in got]
+    want = [r[0] for r in ref]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    if max(rel) > LM_F32_LOSS_RTOL:
+        fails.append(f"losses {losses} against one device's {want}")
+    state = {n: scope.find_var(n).detach().cpu().numpy() for n in trainable}
+    stages = []
+    for s in trainer.stages:
+        names = s.param_names
+        r_pipe = _stage_rel(state, ref_state, names)
+        r_floor = _stage_rel(floor_state, ref_state, names)
+        bound = PIPE_PARAM_FACTOR * r_floor + PIPE_PARAM_SLACK
+        stages.append({"params": len(names), "rel_l2": r_pipe,
+                       "floor_rel_l2": r_floor, "bound": bound,
+                       "place": repr(s.place)})
+        if r_pipe > bound:
+            fails.append(f"stage {s.idx}'s parameters rel L2 {r_pipe:.3e} "
+                         f"past {bound:.3e} (floor {r_floor:.3e})")
+    want_launches = {k: v * c["n_layer"] * m for k, v in PIPE_KERNELS.items()}
+    if cfg["device"] == "cuda":
+        for i, l in enumerate(launches):
+            got_l = {k: l.get(k, 0) for k in want_launches}
+            if got_l != want_launches:
+                fails.append(f"step {i + 1} launches {got_l}, want "
+                             f"{want_launches}")
+    totals = {}
+    for l in launches:
+        for k, v in l.items():
+            totals[k] = totals.get(k, 0) + v
+    p50 = float(np.median([g[1] for g in got[1:]])) * 1e3
+    ref_p50 = float(np.median([r[1] for r in ref[1:]])) * 1e3
+    rec = {"card": card, "stages": stages, "losses": losses,
+           "one_device_losses": want, "loss_rel": rel,
+           "launches_per_step": launches[0], "runs_per_step": runs,
+           "boundary_moves": program_pipeline.COUNTERS.moves,
+           "step_p50_ms": p50, "one_device_step_p50_ms": ref_p50,
+           "seconds": time.perf_counter() - t_phase, "fails": fails}
+    report["train_pipeline_lm"] = rec
+    print(f"train_pipeline_lm ({card}): the LM (f32, batch {c['batch']} x "
+          f"T {c['seqlen']}, {c['n_layer']} layers, d_model "
+          f"{c['d_model']}, vocab {c['vocab']}) through PipelineTranspiler "
+          f"in {len(trainer.stages)} stages on "
+          f"{[s['place'] for s in stages]}, {m} microbatches, Adam "
+          f"{c['lr']}: losses {losses} against one device's {want} (rel "
+          f"max {max(rel):.2e}); stage parameters rel L2 "
+          f"{[f'{s['rel_l2']:.2e}' for s in stages]} (floors "
+          f"{[f'{s['floor_rel_l2']:.2e}' for s in stages]}, bound "
+          f"{PIPE_PARAM_FACTOR}x + {PIPE_PARAM_SLACK}); launches a step "
+          f"{launches[0]}; stage runs a step {rec['runs_per_step']}; step "
+          f"p50 {p50:.0f} ms (eager) beside one device's {ref_p50:.0f} ms "
+          f"(eager); {rec['seconds']:.1f} s", flush=True)
+    if fails:
+        raise RuntimeError("train_pipeline_lm: " + "; ".join(fails[:10]))
+    return totals
+
+
+def _ffn_stage(params, h):
+    """A pre-LN residual FFN block: h + W2 relu(W1 LN(h) + b1) + b2."""
+    import torch
+    g, b, w1, b1, w2, b2 = params
+    x = torch.nn.functional.layer_norm(h, (h.shape[-1],), g, b)
+    return h + torch.relu(x @ w1 + b1) @ w2 + b2
+
+
+def _gpipe_params(c, device):
+    """GPIPE's stacked stage parameters from one seed, on `device`."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 81)
+    p, d, f = c["stages"], c["d"], c["hidden"]
+
+    def rnd(*shape, scale):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+    return (1 + rnd(p, d, scale=0.1), rnd(p, d, scale=0.1),
+            rnd(p, d, f, scale=d ** -0.5), rnd(p, f, scale=0.01),
+            rnd(p, f, d, scale=f ** -0.5), rnd(p, d, scale=0.01))
+
+
+def _gpipe_rank(pt, c, device, mesh):
+    """One rank's gpipe: its stage's parameters alone on `device`, the
+    forward and backward of mean(out^2) timed `reps` times, the last
+    against gpipe_reference on this rank (the whole stack)."""
+    import torch
+    from paddle_tpu_torch.parallel import _collectives as C
+    from paddle_tpu_torch.parallel import pipeline
+    sync = torch.cuda.synchronize if device.type == "cuda" \
+        else (lambda: None)
+    p, idx = mesh.axis_size("pp"), mesh.axis_index("pp")
+    whole = _gpipe_params(c, torch.device("cpu"))
+    mine = [t[idx:idx + 1].clone().to(device).requires_grad_()
+            for t in whole]
+    gen = torch.Generator().manual_seed(SEED + 82)
+    xs = torch.randn((c["microbatches"], c["rows"], c["d"]),
+                     generator=gen).to(device)
+    secs = []
+    for _ in range(c["reps"]):
+        for t in mine:
+            t.grad = None
+        C.COUNTERS.reset()
+        sync()
+        t0 = time.perf_counter()
+        out = pipeline.gpipe(_ffn_stage, tuple(mine), xs, mesh)
+        out.square().mean().backward()
+        sync()
+        secs.append(time.perf_counter() - t0)
+    calls = dict(C.COUNTERS.calls)
+    ref_params = [t.clone().to(device).requires_grad_() for t in whole]
+    want = pipeline.gpipe_reference(_ffn_stage, tuple(ref_params), xs)
+    want.square().mean().backward()
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))  # noqa: E731
+    grads = [rel(t.grad[0], r.grad[idx]) for t, r in zip(mine, ref_params)]
+    return {"out_rel": rel(out.detach(), want.detach()),
+            "grad_rel": grads, "secs": secs, "calls": calls,
+            "held_bytes": sum(t.numel() * t.element_size() for t in mine),
+            "stack_bytes": sum(t.numel() * t.element_size() for t in whole),
+            "staged": dict(C.COUNTERS.host_staged)}
+
+
+def _ep_net(pt, c):
+    """sparse_moe -> fc(1) -> mean squared error, SGD (tests/test_moe.py's
+    net at EP's widths)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[c["d"]], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="float32")
+        h = pt.layers.sparse_moe(x, num_experts=c["experts"],
+                                 hidden_size=c["hidden"],
+                                 capacity_factor=c["cf"])
+        pred = pt.layers.fc(input=h, size=1)
+        loss = pt.layers.mean(pt.layers.square_error_cost(pred, y))
+        pt.optimizer.SGD(learning_rate=c["lr"]).minimize(loss)
+    main.random_seed = startup.random_seed = SEED + 83
+    return main, startup, loss
+
+
+def _ep_shard(pt, main, mesh, form):
+    main._mesh = mesh
+    for p in main.global_block().all_parameters():
+        if p.shape is not None and len(p.shape) == 3:
+            pt.parallel.shard_parameter(main, p.name, ("ep", None, None))
+    if form == "b":
+        for n in ("x", "y"):
+            pt.parallel.shard_feed(main, n, ("ep", None))
+
+
+def _ep_feeds(c):
+    rng = np.random.default_rng(SEED + 84)
+    w = rng.standard_normal((c["d"], 1)) / c["d"] ** 0.5
+    out = []
+    for _ in range(c["steps"]):
+        x = rng.standard_normal((c["tokens"], c["d"])).astype(np.float32)
+        out.append({"x": x, "y": (x @ w).astype(np.float32)})
+    return out
+
+
+def _ep_rank(pt, c, payload, mesh_device, form):
+    """One rank's sparse_moe over 'ep' in `form`: the losses, the whole
+    state after the steps, the expert bytes it holds, the gathers and the
+    collectives posted a step."""
+    import torch
+    from paddle_tpu_torch.parallel import _collectives as C
+    from paddle_tpu_torch.parallel import spmd
+    main, _startup, loss = _ep_net(pt, c)
+    mesh = pt.parallel.make_mesh((c["world"],), ("ep",), device=mesh_device)
+    _ep_shard(pt, main, mesh, form)
+    exe = pt.Executor(_par_place(pt, payload))
+    scope = _par_scope(pt, payload["ep_init"], exe.device)
+    losses, calls, secs = [], [], []
+    spmd.COUNTERS.reset()
+    for f in payload["ep_feeds"]:
+        C.COUNTERS.reset()
+        t0 = time.perf_counter()
+        losses.append(float(np.ravel(exe.run(main, feed=f, fetch_list=[loss],
+                                             scope=scope))[0]))
+        secs.append(time.perf_counter() - t0)
+        calls.append(dict(C.COUNTERS.calls))
+    st = spmd.for_program(main)
+    whole = spmd.gather_state(main, scope)
+    state = {n: (whole[n] if n in whole else scope.find_var(n)).cpu()
+             for n in payload["ep_init"]}
+    experts = {n: scope.find_var(n).numel() * scope.find_var(n)
+               .element_size() for n in st.specs}
+    return {"losses": losses, "state": state, "expert_bytes": experts,
+            "gathers": sum(spmd.COUNTERS.gathers.values()),
+            "calls": calls, "secs": secs}
+
+
+def _rank_pp_ep(pt, payload, rank, world):
+    """train_gpipe's and train_ep's rank: gpipe over 'pp', then sparse_moe
+    over 'ep' in forms (a) and (b), on one group."""
+    import torch
+    dev = torch.device("cuda", 0) if payload["device"] == "cuda" \
+        else torch.device("cpu")
+    mesh_dev = "cuda" if payload["device"] == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    out = {"gpipe": _gpipe_rank(pt, payload["gpipe"], dev,
+                                pt.parallel.make_mesh(
+                                    (world,), ("pp",), device=mesh_dev))}
+    out["gpipe"]["phase_s"] = time.perf_counter() - t0
+    for form in ("a", "b"):
+        t0 = time.perf_counter()
+        out[f"ep_{form}"] = _ep_rank(pt, payload["ep"], payload, mesh_dev,
+                                     form)
+        out[f"ep_{form}"]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+RANK_PHASES["train_pp_ep"] = _rank_pp_ep
+
+
+def phase_train_pp_ep(pt, report, cfg=None):
+    """train_gpipe and train_ep on one group of PP_EP_WORLD rank processes
+    sharing the card (gloo, host-staged), so the group's start is paid
+    once. train_gpipe (GPIPE above): the outputs and each rank's stage
+    gradients against gpipe_reference, the hop bytes and the bubble, each
+    rank holding its stage's parameters alone. train_ep (EP above): forms
+    (a) and (b) against the one-rank run from the same state, each rank
+    holding 2 of the 8 experts' weights and gathering none, the dispatch
+    bytes a step."""
+    import torch
+    t_phase = time.perf_counter()
+    cfg = dict(device="cuda", world=PP_EP_WORLD, gpipe=dict(GPIPE),
+               ep=dict(EP)) if cfg is None else dict(cfg)
+    card = _card_line() if cfg["device"] == "cuda" else "cpu"
+    g, c = cfg["gpipe"], cfg["ep"]
+    place = _par_place(pt, cfg)
+    # the one-rank sparse_moe run, from the startup's state
+    main, startup, loss = _ep_net(pt, c)
+    init = _par_init(pt, main, startup, place)
+    feeds = _ep_feeds(c)
+    exe = pt.Executor(place)
+    scope = _par_scope(pt, init, exe.device)
+    want = [float(np.ravel(exe.run(main, feed=f, fetch_list=[loss],
+                                   scope=scope))[0]) for f in feeds]
+    want_state = {n: scope.find_var(n).cpu() for n in init}
+    del exe, scope
+    _free_card()
+    payload = dict(device=cfg["device"], gpipe=g, ep=c, ep_init=init,
+                   ep_feeds=feeds)
+    ranks = _par_launch("train_pp_ep", cfg["world"], payload)
+    fails = []
+    # train_gpipe
+    p, mb = g["stages"], g["microbatches"]
+    hop = g["rows"] * g["d"] * 4
+    bubble = pt.parallel.pipeline.bubble_fraction(p, mb)
+    for r, res in enumerate(ranks):
+        gp = res["gpipe"]
+        if gp["out_rel"] > GPIPE_RTOL or max(gp["grad_rel"]) > GPIPE_RTOL:
+            fails.append(f"gpipe rank {r}: outputs rel {gp['out_rel']:.2e}, "
+                         f"grads rel {max(gp['grad_rel']):.2e}")
+        if gp["held_bytes"] * p != gp["stack_bytes"]:
+            fails.append(f"gpipe rank {r} holds {gp['held_bytes']} B of "
+                         f"{gp['stack_bytes']}")
+    sends = [res["gpipe"]["calls"].get("pipe_send", 0) for res in ranks]
+    if sends != [mb] * (p - 1) + [0]:
+        fails.append(f"gpipe hops sent by rank {sends}, want {mb} each but "
+                     f"the last's")
+    gp_p50 = float(np.median([s for res in ranks
+                              for s in res["gpipe"]["secs"][1:]])) * 1e3
+    # train_ep
+    e_loc = c["experts"] // cfg["world"]
+    expert_bytes = 2 * c["experts"] * c["d"] * c["hidden"] * 4  # W1, W2
+    cap = max(int(np.ceil(c["tokens"] / c["experts"] * c["cf"])), 1)
+    slab = c["experts"] * cap * c["d"] * 4
+    ep_rec = {}
+    for form in ("a", "b"):
+        key = f"ep_{form}"
+        r0 = ranks[0][key]
+        rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], want)]
+        srel = {n: _rel_l2(r0["state"][n].numpy(), want_state[n].numpy())
+                for n in want_state}
+        if max(rel) > EP_RTOL or max(srel.values()) > EP_RTOL:
+            fails.append(f"ep form ({form}): losses rel {max(rel):.2e}, "
+                         f"state rel {max(srel.values()):.2e} "
+                         f"({max(srel, key=srel.get)})")
+        for r, res in enumerate(ranks):
+            got = res[key]
+            if got["losses"] != r0["losses"]:
+                fails.append(f"ep form ({form}): rank {r}'s losses differ")
+            if got["gathers"] or sorted(got["expert_bytes"].values()) != \
+                    [expert_bytes // 2 // cfg["world"]] * 2:
+                fails.append(f"ep form ({form}) rank {r}: gathers "
+                             f"{got['gathers']}, expert bytes "
+                             f"{got['expert_bytes']}")
+        calls = r0["calls"][-1]
+        moved = sum(n for k, n in calls.items()
+                    if k.startswith(("expert_dispatch", "expert_combine")))
+        ep_rec[form] = {"losses": r0["losses"], "loss_rel": rel,
+                        "state_rel_max": max(srel.values()),
+                        "collectives_per_step": calls,
+                        "dispatch_bytes_per_step": moved * slab
+                        if form == "b" else None,
+                        "combine_bytes_per_step": slab if form == "a"
+                        else None,
+                        "step_p50_ms": float(np.median(r0["secs"][1:])) * 1e3,
+                        "seconds": r0["phase_s"]}
+    rec = {"card": card, "world": cfg["world"],
+           "gpipe": {"stages": p, "microbatches": mb, "hop_bytes": hop,
+                     "hops_per_link_each_way": mb, "bubble": bubble,
+                     "out_rel": [res["gpipe"]["out_rel"] for res in ranks],
+                     "grad_rel_max": max(max(res["gpipe"]["grad_rel"])
+                                         for res in ranks),
+                     "held_bytes": ranks[0]["gpipe"]["held_bytes"],
+                     "stack_bytes": ranks[0]["gpipe"]["stack_bytes"],
+                     "step_p50_ms": gp_p50,
+                     "seconds": ranks[0]["gpipe"]["phase_s"]},
+           "ep": {"capacity": cap, "experts_per_rank": e_loc,
+                  "expert_bytes": expert_bytes,
+                  "held_expert_bytes": sum(ranks[0]["ep_b"]["expert_bytes"]
+                                           .values()),
+                  "one_rank_losses": want, **ep_rec},
+           "seconds": time.perf_counter() - t_phase, "fails": fails}
+    report["train_gpipe"] = dict(rec["gpipe"], card=card)
+    report["train_ep"] = dict(rec["ep"], card=card)
+    print(f"train_gpipe ({card}): P {p} over 'pp' (rank processes sharing "
+          f"the card, gloo, host-staged), M {mb} microbatches of "
+          f"[{g['rows']}, {g['d']}] f32 through pre-LN residual FFN blocks "
+          f"{g['d']} -> {g['hidden']} -> {g['d']}: outputs rel "
+          f"{max(rec['gpipe']['out_rel']):.2e}, stage grads rel max "
+          f"{rec['gpipe']['grad_rel_max']:.2e} against gpipe_reference; "
+          f"each rank holds {rec['gpipe']['held_bytes'] / 2**20:.1f} MiB of "
+          f"{rec['gpipe']['stack_bytes'] / 2**20:.1f} MiB; {hop / 2**20:.0f} "
+          f"MiB a hop, {mb} hops a link each way; bubble (P-1)/(M+P-1) = "
+          f"{bubble:.1%}; forward+backward p50 {gp_p50:.0f} ms; "
+          f"{rec['gpipe']['seconds']:.1f} s", flush=True)
+    print(f"train_ep ({card}): sparse_moe at x [{c['tokens']}, {c['d']}], "
+          f"{c['experts']} experts of hidden {c['hidden']}, capacity "
+          f"{c['cf']} (C {cap}), {e_loc} experts a rank over 'ep' "
+          f"{cfg['world']}: each rank holds "
+          f"{rec['ep']['held_expert_bytes'] / 2**20:.0f} MiB of "
+          f"{expert_bytes / 2**20:.0f} MiB of expert weights, gathers none; "
+          + "; ".join(
+              f"form ({f}) losses {ep_rec[f]['losses']} (one rank "
+              f"{want}, rel max {max(ep_rec[f]['loss_rel']):.2e}, state rel "
+              f"max {ep_rec[f]['state_rel_max']:.2e}), collectives a step "
+              f"{ep_rec[f]['collectives_per_step']}, step p50 "
+              f"{ep_rec[f]['step_p50_ms']:.0f} ms" for f in ep_rec)
+          + f"; form (b) moves {ep_rec['b']['dispatch_bytes_per_step'] / 2**20:.0f} "
+          f"MiB a step on its expert dispatch and combine ({slab / 2**20:.0f} "
+          f"MiB a collective); {rec['seconds']:.1f} s", flush=True)
+    if fails:
+        raise RuntimeError("train_gpipe/train_ep: " + "; ".join(fails[:10]))
+    return rec
+
+
+def _elastic_net(pt, lr=0.1):
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[16], dtype="float32")
+        y = pt.layers.data(name="y", shape=[1], dtype="int64")
+        h = pt.layers.fc(input=x, size=32, act="relu")
+        logits = pt.layers.fc(input=h, size=4)
+        loss = pt.layers.mean(
+            pt.layers.softmax_with_cross_entropy(logits, y))
+        pt.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(loss)
+    main.random_seed = startup.random_seed = SEED + 85
+    return main, startup, loss
+
+
+def phase_train_elastic(pt, report, cfg=None):
+    """The port's MLP on the card fed by parallel.master.elastic_reader
+    over a TaskQueue in a temp dir (ELASTIC above), 2 passes: in pass 0 a
+    reader takes its first task's lease, yields one batch and dies; the
+    injected clock passes the lease's timeout and the task requeues to the
+    next reader. Every sample is consumed once a pass, plus the requeued
+    task's in pass 0; the losses equal those of the same samples fed in the
+    same order by a plain reader on a fresh scope from the same state."""
+    import tempfile
+    t_phase = time.perf_counter()
+    c = dict(ELASTIC if cfg is None else cfg)
+    card = _card_line() if c["device"] == "cuda" else "cpu"
+    place = pt.CUDAPlace(0) if c["device"] == "cuda" else pt.CPUPlace()
+    rng = np.random.default_rng(SEED + 86)
+    xs = rng.standard_normal((c["samples"], 16)).astype(np.float32)
+    ys = rng.integers(0, 4, (c["samples"], 1)).astype(np.int64)
+    main, startup, loss = _elastic_net(pt)
+    init = _par_init(pt, main, startup, place)
+    exe = pt.Executor(place)
+
+    def train(scope, batches):
+        return [float(np.ravel(exe.run(
+            main, feed={"x": xs[ids], "y": ys[ids]}, fetch_list=[loss],
+            scope=scope)[0])[0]) for ids in batches]
+
+    def batches(reader):
+        buf = []
+        for i in reader():
+            buf.append(i)
+            if len(buf) == c["batch"]:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
+    now = [1000.0]
+    tasks = [list(range(i, i + c["task"]))
+             for i in range(0, c["samples"], c["task"])]
+    fails, fed, losses, requeued = [], [], [], None
+    scope = _par_scope(pt, init, exe.device)
+    with tempfile.TemporaryDirectory() as d:
+        q = pt.parallel.master.TaskQueue(d, timeout_s=c["timeout_s"],
+                                         clock=lambda: now[0])
+        q.partition(tasks, chunks_per_task=1)
+        for p in range(c["passes"]):
+            seen = []
+            if p == 0:
+                dying = batches(pt.parallel.master.elastic_reader(
+                    q, chunk_fetch=lambda t: t, worker="dies"))
+                first = next(dying)
+                losses += train(scope, [first])
+                seen += first
+                requeued = list(first)
+                del dying                    # dies holding its lease
+                now[0] += c["timeout_s"] + 1
+            for ids in batches(pt.parallel.master.elastic_reader(
+                    q, chunk_fetch=lambda t: t, worker="lives")):
+                losses += train(scope, [ids])
+                seen += ids
+            fed.append(seen)
+            counts = np.bincount(seen, minlength=c["samples"])
+            want = np.ones(c["samples"], np.int64)
+            if p == 0:
+                want[requeued] += 1
+            if not np.array_equal(counts, want):
+                fails.append(f"pass {p}: samples consumed "
+                             f"{dict(zip(*np.unique(counts, return_counts=True)))}"
+                             f" times, want once (+1 for the requeued task)")
+            if not q.pass_done():
+                fails.append(f"pass {p} not drained: {q.stats()}")
+            q.reset_pass()
+    # the same samples in the same order, by a plain reader
+    plain = _par_scope(pt, init, exe.device)
+    order = [ids[i:i + c["batch"]] for ids in fed
+             for i in range(0, len(ids), c["batch"])]
+    want_losses = train(plain, order)
+    if losses != want_losses:
+        fails.append(f"losses differ from the plain reader's: {losses[:4]} "
+                     f"vs {want_losses[:4]}")
+    rec = {"card": card, "passes": c["passes"], "tasks": len(tasks),
+           "consumed": [len(f) for f in fed],
+           "requeued_samples": len(requeued or []),
+           "losses_first_last": [losses[0], losses[-1]],
+           "steps": len(losses), "seconds": time.perf_counter() - t_phase,
+           "fails": fails}
+    report["train_elastic"] = rec
+    print(f"train_elastic ({card}): the MLP fed by elastic_reader over a "
+          f"TaskQueue ({len(tasks)} tasks of {c['task']} samples, batches "
+          f"of {c['batch']}), {c['passes']} passes: a reader died holding "
+          f"a lease after one batch, the injected clock expired it, its "
+          f"task ({rec['requeued_samples']} samples) requeued; samples "
+          f"consumed a pass {rec['consumed']} of {c['samples']}; {len(losses)} "
+          f"steps, losses {losses[0]:.4f} -> {losses[-1]:.4f}, equal to a "
+          f"plain reader's of the same samples in the same order; "
+          f"{rec['seconds']:.1f} s", flush=True)
+    if fails:
+        raise RuntimeError("train_elastic: " + "; ".join(fails[:10]))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measurements as JSON here")
@@ -10235,6 +10971,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"{missing} were launched no time on the vision "
                            f"and detection paths")
     # the sharded runs (ROADMAP 9b-1): rank processes sharing the card
+    k6_split = phase_kernel_bn_split(pt, bn_cuda, report)
     sharded = {"train_dp": phase_train_dp(pt, report)}
     phase_train_dp_nccl(pt, report)
     sharded["train_planned_lm"] = phase_train_planned_lm(pt, report)
@@ -10248,14 +10985,29 @@ def main(argv=None) -> int:
         if sharded["train_dp"].get(table + key):
             k["launches_by_path"]["train_dp"] = sharded["train_dp"][table + key]
         k["launches"] = sum(k["launches_by_path"].values())
+    # pipelines, experts and the elastic queue (ROADMAP 9b-2)
+    t_new = time.perf_counter()
+    sharded["train_pipeline_lm"] = phase_train_pipeline_lm(pt, report)
+    phase_train_pp_ep(pt, report)
+    phase_train_elastic(pt, report)
+    report["pipelines_experts_elastic_s"] = time.perf_counter() - t_new
+    print(f"train_pipeline_lm, train_gpipe, train_ep, train_elastic: "
+          f"{report['pipelines_experts_elastic_s']:.1f} s together",
+          flush=True)
     for k in attn_kernels:
         if not k["name"].endswith("_f32"):
             continue
         key = "attn.f32_" + counter[k["name"].removesuffix("_f32")]
-        got = sharded["train_planned_lm"].get(key)
-        if got:
-            k["launches_by_path"]["train_planned_lm"] = got
+        for path in ("train_planned_lm", "train_pipeline_lm"):
+            got = sharded[path].get(key)
+            if got:
+                k["launches_by_path"][path] = got
         k["launches"] = sum(k["launches_by_path"].values())
+    k6 = next(k for k in train_kernels if k["name"] == "bn_act")
+    k6["split"] = k6_split
+    if not k6["launches_by_path"].get("train_dp"):
+        raise RuntimeError("K6's split form was launched no time on "
+                           "train_dp")
     kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
                + [k11, q1, s1]}
     report.update(kernels)

@@ -44,6 +44,17 @@
 // wait that lasts seconds traps, as the conv kernels' mbarrier waits do.
 // A channel wider than one slab of THREADS chunks is walked a slab at a
 // time; only the last slab's tiles stay in shared memory.
+//
+// The split form (a batch split over ranks, parallel/spmd.py): the same
+// kernel as two launches, MODE a template parameter. The statistics launch
+// (MODE_SUMS) runs phase 1 and the CTA-order hand-off and writes the
+// per-channel sum and sum of squares ([2, C] f32, in the order above)
+// instead of mean and var; the window all-reduces them over the ranks; the
+// normalize launch (MODE_APPLY) takes the global sums and the global row
+// count, derives mean, var and a in each thread as the whole kernel does
+// after its grid sync, and runs phase 2 with the act epilogue, reading x
+// again from device memory. On one rank the two launches give the whole
+// kernel's bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +73,11 @@ constexpr int UF = 16;  // partials in flight a lane, the statistics
 // scratch of its row groups' sums: 192 KB + 32 KB of the SM's 227 KB
 constexpr int CACHE_BYTES = 192 * 1024;
 
+// what a launch does: the whole K6, its statistics alone, its normalize
+constexpr int MODE_WHOLE = 0;
+constexpr int MODE_SUMS = 1;
+constexpr int MODE_APPLY = 2;
+
 struct Params {
   const __nv_bfloat16* x;  // [M, C]
   const float* scale;      // [C]
@@ -73,8 +89,10 @@ struct Params {
   float* part;             // [CTAs, 2, C]: each CTA's sum(x), sum(x^2)
   float* a;                // [C]: rsqrt(var + eps) * scale
   unsigned* bar;           // the grid barrier's counter
+  const float* sums;       // [2, C]: the global sums (MODE_APPLY)
   int m, c;
   float eps;
+  float total;             // the global rows the sums cover (MODE_APPLY)
 };
 
 __device__ __forceinline__ uint64_t policy_evict_last() {
@@ -215,7 +233,7 @@ __host__ __device__ constexpr int smem_bytes() {
   return CACHE_BYTES + 2 * THREADS * VEC * (int)sizeof(float);
 }
 
-template <int VEC, int ACT>
+template <int VEC, int ACT, int MODE>
 __global__ void __launch_bounds__(THREADS, 1) bn_act_kernel(Params p) {
   // [slots][THREADS] Raw<VEC>: each thread's part of the CTA's last tiles
   // of x; then [2][THREADS * VEC] f32: each thread's sums, then x^2's
@@ -241,9 +259,14 @@ __global__ void __launch_bounds__(THREADS, 1) bn_act_kernel(Params p) {
     return base + (long long)(j - j0) * THREADS + tid;
   };
 
-  // ---- phase 1: per-CTA sums in fixed order --------------------------------
+  // the last tiles of x stay in shared memory between the phases of the
+  // whole kernel only
+  constexpr bool CACHE = MODE == MODE_WHOLE;
   const uint64_t keep = policy_evict_last();
   const uint64_t last_use = policy_evict_first();
+
+  // ---- phase 1: per-CTA sums in fixed order --------------------------------
+  if constexpr (MODE != MODE_APPLY) {
   for (int sl = 0; sl < slabs; ++sl) {
     const int chunk = sl * s + cg;
     const bool live = rsub < R && chunk < g;
@@ -260,11 +283,12 @@ __global__ void __launch_bounds__(THREADS, 1) bn_act_kernel(Params p) {
           const int r = tile_of(i + u) * R + rsub;
           if (i + u < n && r < p.m)
             load(raw[u], p.x + (long long)r * p.c + chunk * VEC,
-                 last && i + u >= j0 ? last_use : keep);
+                 (CACHE && last && i + u >= j0) ? last_use : keep);
         }
 #pragma unroll
         for (int u = 0; u < U1; ++u) {
-          if (last && i + u >= j0 && i + u < n) *kept(cache, i + u) = raw[u];
+          if (CACHE && last && i + u >= j0 && i + u < n)
+            *kept(cache, i + u) = raw[u];
           float f[VEC];
           unpack(raw[u], f);
 #pragma unroll
@@ -319,6 +343,13 @@ __global__ void __launch_bounds__(THREADS, 1) bn_act_kernel(Params p) {
       sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
       sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, off));
     }
+    if (MODE == MODE_SUMS) {
+      if (lane == 0) {
+        p.mean[ch] = sum;  // the statistics launch's [2, C] sums
+        p.var[ch] = sq;
+      }
+      continue;
+    }
     if (lane == 0) {
       const float fm = (float)p.m;
       const float mean = __fdiv_rn(sum, fm);
@@ -331,7 +362,9 @@ __global__ void __launch_bounds__(THREADS, 1) bn_act_kernel(Params p) {
     }
   }
 
+  if constexpr (MODE == MODE_SUMS) return;
   grid_sync(p.bar);
+  }  // phases 1 and the statistics
 
   // ---- phase 2: normalize [+ act], the CTA's tiles in reverse ---------------
   for (int sl = slabs - 1; sl >= 0; --sl) {
@@ -342,8 +375,26 @@ __global__ void __launch_bounds__(THREADS, 1) bn_act_kernel(Params p) {
     float mu[VEC], a[VEC], b[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      mu[j] = __ldcg(p.mean + c0 + j);
-      a[j] = __ldcg(p.a + c0 + j);
+      if constexpr (MODE == MODE_APPLY) {
+        // the statistics of the global sums, as the whole kernel derives
+        // them after its grid sync
+        const float fm = p.total;
+        const float mean = __fdiv_rn(p.sums[c0 + j], fm);
+        const float var = fmaxf(
+            __fsub_rn(__fdiv_rn(p.sums[p.c + c0 + j], fm),
+                      __fmul_rn(mean, mean)),
+            0.0f);
+        mu[j] = mean;
+        a[j] = __fmul_rn(__fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, p.eps))),
+                         p.scale[c0 + j]);
+        if (blockIdx.x == 0 && rsub == 0) {
+          p.mean[c0 + j] = mean;
+          p.var[c0 + j] = var;
+        }
+      } else {
+        mu[j] = __ldcg(p.mean + c0 + j);
+        a[j] = __ldcg(p.a + c0 + j);
+      }
       b[j] = p.bias[c0 + j];
     }
     for (int i = n - 1; i >= 0; i -= U2) {
@@ -354,7 +405,7 @@ __global__ void __launch_bounds__(THREADS, 1) bn_act_kernel(Params p) {
         const int j = i - u;
         r[u] = j >= 0 ? tile_of(j) * R + rsub : p.m;
         if (r[u] >= p.m) continue;
-        if (last && j >= j0)
+        if (CACHE && last && j >= j0)
           raw[u] = *kept(cache, j);
         else
           load(raw[u], p.x + (long long)r[u] * p.c + c0, last_use);
@@ -380,37 +431,53 @@ __global__ void __launch_bounds__(THREADS, 1) bn_act_kernel(Params p) {
   }
 }
 
-template <int VEC, int ACT>
+template <int VEC, int ACT, int MODE>
 int occupancy(int* blocks) {
   static bool done = false;  // the shared-memory opt-in, once a process
   cudaError_t err = cudaSuccess;
   if (!done)
-    err = cudaFuncSetAttribute(bn_act_kernel<VEC, ACT>,
+    err = cudaFuncSetAttribute(bn_act_kernel<VEC, ACT, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes<VEC>());
   if (err != cudaSuccess) return (int)err;
   done = true;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, bn_act_kernel<VEC, ACT>, THREADS, smem_bytes<VEC>());
+      blocks, bn_act_kernel<VEC, ACT, MODE>, THREADS, smem_bytes<VEC>());
 }
 
-template <int VEC, int ACT>
+template <int VEC, int ACT, int MODE>
 int launch(Params p, int ctas, cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  int rc = occupancy<VEC, ACT>(&per_sm);
+  int rc = occupancy<VEC, ACT, MODE>(&per_sm);
   if (rc != 0) return rc;
   if (ctas < 1 || ctas > per_sm * sms)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)bn_act_kernel<VEC, ACT>,
-                                    dim3((unsigned)ctas), dim3(THREADS), args,
-                                    smem_bytes<VEC>(), stream);
+  err = cudaLaunchCooperativeKernel(
+      (const void*)bn_act_kernel<VEC, ACT, MODE>, dim3((unsigned)ctas),
+      dim3(THREADS), args, smem_bytes<VEC>(), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch(const Params& p, int ctas, int vec, int act, cudaStream_t s) {
+  if (vec == 8)
+    return act ? launch<8, 1, MODE>(p, ctas, s) : launch<8, 0, MODE>(p, ctas, s);
+  return act ? launch<1, 1, MODE>(p, ctas, s) : launch<1, 0, MODE>(p, ctas, s);
+}
+
+int check(int m, int c, int ctas, int vec) {
+  if (m <= 0 || c <= 0 || ctas < 1 || (vec != 8 && vec != 1) ||
+      (vec == 8 && c % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  const int rows = THREADS / min(c / vec, THREADS);  // a tile
+  if (ctas > (m + rows - 1) / rows) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -419,8 +486,11 @@ int launch(Params p, int ctas, cudaStream_t stream) {
 // act code `act` (0 none, 1 relu): the plan's per-SM cap. Returns the CUDA
 // error code.
 extern "C" int bn_act_occupancy(int vec, int act, int* blocks) {
-  if (vec == 8) return act ? occupancy<8, 1>(blocks) : occupancy<8, 0>(blocks);
-  return act ? occupancy<1, 1>(blocks) : occupancy<1, 0>(blocks);
+  if (vec == 8)
+    return act ? occupancy<8, 1, MODE_WHOLE>(blocks)
+               : occupancy<8, 0, MODE_WHOLE>(blocks);
+  return act ? occupancy<1, 1, MODE_WHOLE>(blocks)
+             : occupancy<1, 0, MODE_WHOLE>(blocks);
 }
 
 // K6: ybn (and yact unless act is 0), mean, var from x [M, C] bf16 and
@@ -433,11 +503,9 @@ extern "C" int bn_act(const void* x, const void* scale, const void* bias,
                       void* ybn, void* yact, void* mean, void* var,
                       void* part, void* a, void* bar, int m, int c, int ctas,
                       float eps, int vec, int act, void* stream) {
-  if (m <= 0 || c <= 0 || ctas < 1 || (vec != 8 && vec != 1) ||
-      (vec == 8 && c % 8 != 0) || (act != 0 && yact == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int rows = THREADS / min(c / vec, THREADS);  // a tile
-  if (ctas > (m + rows - 1) / rows) return (int)cudaErrorInvalidValue;
+  int rc = check(m, c, ctas, vec);
+  if (rc != 0 || (act != 0 && yact == nullptr))
+    return rc ? rc : (int)cudaErrorInvalidValue;
   Params p{static_cast<const __nv_bfloat16*>(x),
            static_cast<const float*>(scale),
            static_cast<const float*>(bias),
@@ -448,10 +516,56 @@ extern "C" int bn_act(const void* x, const void* scale, const void* bias,
            static_cast<float*>(part),
            static_cast<float*>(a),
            static_cast<unsigned*>(bar),
+           nullptr,
            m,
            c,
-           eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 8) return act ? launch<8, 1>(p, ctas, s) : launch<8, 0>(p, ctas, s);
-  return act ? launch<1, 1>(p, ctas, s) : launch<1, 0>(p, ctas, s);
+           eps,
+           0.0f};
+  return dispatch<MODE_WHOLE>(p, ctas, vec, act,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// K6's statistics launch (the split form): sums [2, C] f32, the
+// per-channel sum of x and of x^2 in the whole kernel's order, over the
+// same plan (`ctas`, part, bar as bn_act's).
+extern "C" int bn_act_sums(const void* x, void* sums, void* part, void* bar,
+                           int m, int c, int ctas, int vec, void* stream) {
+  int rc = check(m, c, ctas, vec);
+  if (rc != 0) return rc;
+  float* out = static_cast<float*>(sums);
+  Params p{static_cast<const __nv_bfloat16*>(x), nullptr, nullptr, nullptr,
+           nullptr, out, out + c, static_cast<float*>(part), nullptr,
+           static_cast<unsigned*>(bar), nullptr, m, c, 0.0f, 0.0f};
+  return dispatch<MODE_SUMS>(p, ctas, vec, 0,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// K6's normalize launch (the split form): from the global sums [2, C] f32
+// over `total` rows, mean and var (written to mean, var [C]) and ybn (and
+// yact unless act is 0) of this rank's x [M, C].
+extern "C" int bn_act_apply(const void* x, const void* scale,
+                            const void* bias, const void* sums, void* ybn,
+                            void* yact, void* mean, void* var, int m, int c,
+                            int ctas, float total, float eps, int vec,
+                            int act, void* stream) {
+  int rc = check(m, c, ctas, vec);
+  if (rc != 0 || (act != 0 && yact == nullptr) || !(total > 0.0f))
+    return rc ? rc : (int)cudaErrorInvalidValue;
+  Params p{static_cast<const __nv_bfloat16*>(x),
+           static_cast<const float*>(scale),
+           static_cast<const float*>(bias),
+           static_cast<__nv_bfloat16*>(ybn),
+           static_cast<__nv_bfloat16*>(yact),
+           static_cast<float*>(mean),
+           static_cast<float*>(var),
+           nullptr,
+           nullptr,
+           nullptr,
+           static_cast<const float*>(sums),
+           m,
+           c,
+           eps,
+           total};
+  return dispatch<MODE_APPLY>(p, ctas, vec, act,
+                              static_cast<cudaStream_t>(stream));
 }

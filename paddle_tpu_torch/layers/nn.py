@@ -1079,8 +1079,10 @@ def conv_shift(x, y, name=None):
 def sparse_moe(x, num_experts, hidden_size, capacity_factor=1.25,
                param_attr=None, name=None):
     """Top-1 gated mixture-of-experts FFN over [N, D] tokens (GShard-style
-    dispatch; see ops/nn_ops.py moe_ffn), on one card: expert parallelism
-    over ranks is not in the port yet."""
+    dispatch; see ops/nn_ops.py moe_ffn). Expert parallelism: split W1 and
+    W2 (the 3-D parameters) on dim 0 over a mesh axis with
+    parallel.shard_parameter(main, name, ("ep", None, None)), and each rank
+    runs only its experts."""
     helper = LayerHelper("sparse_moe", param_attr=param_attr)
     d = x.shape[-1]
     # one ParamAttr instance per parameter: create_parameter binds the

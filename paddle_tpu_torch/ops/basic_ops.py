@@ -342,15 +342,35 @@ def _bsl_shape(op_, x):
     return tuple(shape)
 
 
+def _bsl_draw(ctx, op_, x, draw):
+    """A batch-size-like random op's value: `draw(shape)` at its shape. In
+    a sharded run whose batch splits the Input's dim 0 over ranks
+    (parallel/spmd.py) dropout's rule applies: the global batch's values
+    drawn, this rank's rows kept, so the ranks together hold what one
+    device draws."""
+    shape = _bsl_shape(op_, x)
+    spmd = getattr(ctx, "spmd", None)
+    if spmd is None or op_.attr("input_dim_idx", 0) != 0 or \
+            not spmd.slot_split(op_, "Input"):
+        return draw(shape)
+    out_dim = op_.attr("output_dim_idx", 0)
+
+    def whole(rows):
+        s = list(shape)
+        s[out_dim] = rows
+        return draw(tuple(s))
+    return spmd.global_rows(x.shape[0], whole, dim=out_dim)
+
+
 @op("uniform_random_batch_size_like", infer_shape=_fill_bsl_infer,
     grad=NO_GRAD)
 def _uniform_random_bsl(ctx, op_, ins):
     """uniform_random at the shape attr with one dim taken from Input."""
     dtype = to_torch_dtype(op_.attr("dtype", "float32"))
     lo, hi = op_.attr("min", -1.0), op_.attr("max", 1.0)
-    u = torch.rand(_bsl_shape(op_, ins["Input"][0]),
-                   generator=ctx.generator(op_), dtype=torch.float32,
-                   device=ctx.device)
+    u = _bsl_draw(ctx, op_, ins["Input"][0], lambda shape: torch.rand(
+        shape, generator=ctx.generator(op_), dtype=torch.float32,
+        device=ctx.device))
     return {"Out": [(u * (hi - lo) + lo).to(dtype)]}
 
 
@@ -358,9 +378,9 @@ def _uniform_random_bsl(ctx, op_, ins):
     grad=NO_GRAD)
 def _gaussian_random_bsl(ctx, op_, ins):
     dtype = to_torch_dtype(op_.attr("dtype", "float32"))
-    z = torch.randn(_bsl_shape(op_, ins["Input"][0]),
-                    generator=ctx.generator(op_), dtype=torch.float32,
-                    device=ctx.device)
+    z = _bsl_draw(ctx, op_, ins["Input"][0], lambda shape: torch.randn(
+        shape, generator=ctx.generator(op_), dtype=torch.float32,
+        device=ctx.device))
     out = op_.attr("mean", 0.0) + op_.attr("std", 1.0) * z
     return {"Out": [out.to(dtype)]}
 

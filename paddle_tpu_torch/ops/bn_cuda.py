@@ -22,6 +22,14 @@ reverse, the last ones read from the CTA's shared memory and the rest from
 L2. No float atomics: a repeated call is bitwise equal, and
 `bn_act_stats_in_order` repeats its summation order in plain PyTorch.
 
+K6's split form, for a batch split over ranks (parallel/spmd.py), is the
+same source as two launches: `bn_act_sums` writes the [2, C] per-channel
+sum and sum of squares in K6's fixed order (its plain version
+`bn_act_sums_in_order`), the caller all-reduces them over the ranks, and
+`bn_act_apply` derives mean, var and the scale from the global sums and
+rows as K6 does and normalizes [+ act] this rank's rows. On one rank the
+two launches give K6's bits.
+
 Both are bandwidth-bound: no tensor-core work. Their bound on an H100 is x
 read once plus the outputs written once against 3.35 TB/s; K6 reads x a
 second time, from shared memory and L2 as far as they hold it. The
@@ -48,8 +56,9 @@ from . import cuda_build
 
 __all__ = ["ACTS", "COUNTERS", "bn_apply", "bn_apply_reference", "bn_act",
            "bn_act_reference", "bn_act_plan", "bn_act_stats_in_order",
-           "launch_plan", "ineligible", "count_hit", "count_fallback",
-           "one_pass_moments"]
+           "bn_act_sums_in_order", "bn_act_sums", "bn_act_apply",
+           "bn_act_apply_reference", "launch_plan", "ineligible",
+           "count_hit", "count_fallback", "one_pass_moments"]
 
 # activation name -> the kernels' ACT code
 ACTS = {None: 0, "relu": 1}
@@ -71,19 +80,23 @@ _MIN_PASSES = 8
 @dataclass
 class Counters:
     """`apply_launches`: K5 launches made by `bn_apply`; `act_launches`: K6
-    launches made by `bn_act` (one per call); each added to only where its
-    wrapper launches. `hits`/`fallbacks`:
-    windows routed to the kernels or to the plain batch_norm lowering, by
-    op and by (op, reason)."""
+    launches, one per `bn_act` call and one per launch of its split form
+    (`bn_act_sums`, `bn_act_apply`), which `split_launches` also counts by
+    form ('sums', 'apply'); each added to only where its wrapper launches.
+    `hits`/`fallbacks`: windows routed to the kernels or to the plain
+    batch_norm lowering, by op and by (op, reason): a window counts once,
+    a hit or a fallback."""
     apply_launches: int = 0
     act_launches: int = 0
     hits: Dict[str, int] = field(default_factory=dict)
     fallbacks: Dict[Tuple[str, str], int] = field(default_factory=dict)
+    split_launches: Dict[str, int] = field(default_factory=dict)
 
     def reset(self):
         self.apply_launches = self.act_launches = 0
         self.hits.clear()
         self.fallbacks.clear()
+        self.split_launches.clear()
 
 
 COUNTERS = Counters()
@@ -256,12 +269,26 @@ def bn_act_plan(m, c, sms, per_sm=1):
 
 def bn_act_stats_in_order(x2, ctas, rows, vec):
     """K6's (mean, var) with its summation order, in f32, from x2 [M, C]
-    and its plan: each thread of a CTA sums its `vec` channels over its row
-    of each of the CTA's tiles in tile order (slabs of at most BN_THREADS
-    chunks side by side), the CTA adds its `rows` row groups in order, and
-    lane l of a channel's warp adds the CTAs l, l + 32, ... in order before
-    a butterfly of shuffles joins the lanes. Every f32 add is the
-    kernel's, so this repeats it bit for bit."""
+    and its plan (`bn_act_sums_in_order`, then the kernel's moments)."""
+    m, c = x2.shape
+    sums = bn_act_sums_in_order(x2, ctas, rows, vec)
+    # a tensor, not a scalar: PyTorch's CUDA division by a scalar multiplies
+    # by its reciprocal, which is not the kernel's (or IEEE's) quotient
+    fm = torch.full((c,), float(m), dtype=torch.float32, device=x2.device)
+    mean = sums[0] / fm
+    var = torch.clamp(sums[1] / fm - mean * mean, min=0.0)
+    return mean, var
+
+
+def bn_act_sums_in_order(x2, ctas, rows, vec):
+    """K6's per-channel [sum(x), sum(x^2)] ([2, C] f32) with its summation
+    order, from x2 [M, C] and its plan: each thread of a CTA sums its `vec`
+    channels over its row of each of the CTA's tiles in tile order (slabs
+    of at most BN_THREADS chunks side by side), the CTA adds its `rows` row
+    groups in order, and lane l of a channel's warp adds the CTAs l, l +
+    32, ... in order before a butterfly of shuffles joins the lanes. Every
+    f32 add is the kernel's, so this repeats it bit for bit (and the split
+    form's statistics launch, `bn_act_sums`, too)."""
     m, c = x2.shape
     dev = x2.device
     slab = min(c // vec, BN_THREADS) * vec
@@ -287,12 +314,7 @@ def bn_act_stats_in_order(x2, ctas, rows, vec):
     lane = torch.arange(32, device=dev)
     for off in (16, 8, 4, 2, 1):
         lanes = lanes + lanes[lane ^ off]
-    # a tensor, not a scalar: PyTorch's CUDA division by a scalar multiplies
-    # by its reciprocal, which is not the kernel's (or IEEE's) quotient
-    fm = torch.full((c,), float(m), dtype=torch.float32, device=dev)
-    mean = lanes[0, 0] / fm
-    var = torch.clamp(lanes[0, 1] / fm - mean * mean, min=0.0)
-    return mean, var
+    return lanes[0]
 
 
 _OCCUPANCY: Dict[Tuple[int, int], int] = {}
@@ -368,4 +390,80 @@ def bn_act(x2, scale, bias, eps, act=None):
         raise RuntimeError(f"bn_act kernel launch failed with CUDA error {rc} "
                            f"(x {m}x{c}, {ctas} CTAs, tiles of {rows} rows)")
     COUNTERS.act_launches += 1
+    return ybn, yact, stats[0], stats[1]
+
+
+# --- K6's split form: a statistics launch and a normalize launch --------------
+
+def bn_act_apply_reference(x2, sums, rows, scale, bias, eps, act=None):
+    """The plain version of the split form's normalize: (ybn, yact, mean,
+    var) from the global sums [2, C] f32 over `rows` rows, as K6 derives
+    its statistics (mean = sum / rows, the clamped one-pass variance),
+    then K5's plain apply."""
+    mean, var = one_pass_moments(sums[0], sums[1], rows)
+    ybn, yact = bn_apply_reference(x2, scale, bias, mean, var, eps, act)
+    return ybn, yact, mean, var
+
+
+def bn_act_sums(x2):
+    """K6's statistics launch: [2, C] f32, the per-channel sum of x2 [M, C]
+    bf16 and of its squares, in K6's order over K6's plan. CPU tensors
+    take the plain sums; CUDA tensors launch the kernel, or raise."""
+    if x2.device.type == "cpu":
+        xf = x2.float()
+        return torch.stack([xf.sum(0), (xf * xf).sum(0)])
+    _check("bn_act_sums", x2, (), None)
+    x2 = cuda_build.aligned(x2)
+    m, c = x2.shape
+    ctas, rows, vec = launch_plan(x2, None)
+    sums = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    part = torch.empty((ctas, 2, c), dtype=torch.float32, device=x2.device)
+    fn = _bn_act_entry("bn_act_sums", [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    rc = fn(x2.data_ptr(), sums.data_ptr(), part.data_ptr(),
+            _barrier(x2.device).data_ptr(), m, c, ctas, vec,
+            torch.cuda.current_stream(x2.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bn_act_sums kernel launch failed with CUDA error "
+                           f"{rc} (x {m}x{c}, {ctas} CTAs)")
+    COUNTERS.act_launches += 1
+    COUNTERS.split_launches["sums"] = COUNTERS.split_launches.get("sums", 0) + 1
+    return sums
+
+
+def bn_act_apply(x2, sums, rows, scale, bias, eps, act=None):
+    """K6's normalize launch: (ybn, yact, mean, var) of x2 [M, C] bf16 from
+    the global sums [2, C] f32 over `rows` rows (every rank's), yact None
+    when act is. CPU tensors take the plain version; CUDA tensors launch
+    the kernel, or raise."""
+    if x2.device.type == "cpu":
+        return bn_act_apply_reference(x2, sums, rows, scale, bias, eps, act)
+    _check("bn_act_apply", x2, (scale, bias), act)
+    if sums.dtype != torch.float32 or tuple(sums.shape) != (2, x2.shape[1]) \
+            or sums.device != x2.device:
+        raise ValueError(f"bn_act_apply takes [2, C] f32 sums on x's card, "
+                         f"got {tuple(sums.shape)} {sums.dtype}")
+    x2 = cuda_build.aligned(x2)
+    m, c = x2.shape
+    ctas, _, vec = launch_plan(x2, act)
+    ybn = torch.empty_like(x2)
+    yact = torch.empty_like(x2) if act is not None else None
+    stats = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    sums = sums.contiguous()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    fn = _bn_act_entry("bn_act_apply", [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
+    rc = fn(x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), sums.data_ptr(),
+            ybn.data_ptr(), None if yact is None else yact.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), m, c, ctas,
+            float(rows), float(eps), vec, ACTS[act],
+            torch.cuda.current_stream(x2.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bn_act_apply kernel launch failed with CUDA error "
+                           f"{rc} (x {m}x{c}, {ctas} CTAs)")
+    COUNTERS.act_launches += 1
+    COUNTERS.split_launches["apply"] = \
+        COUNTERS.split_launches.get("apply", 0) + 1
     return ybn, yact, stats[0], stats[1]

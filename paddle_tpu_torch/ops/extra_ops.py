@@ -113,15 +113,24 @@ def _nce(ctx, op_, ins):
     """Noise-contrastive estimation: binary logistic loss of the true class
     against `num_neg_samples` classes drawn uniformly per row from the op's
     generator (ctx.generator, as dropout's mask: seeded per run, and drawn
-    anew by a CUDA graph's replay). SampleWeight is taken and unused, as in
-    the JAX package."""
+    anew by a CUDA graph's replay; on a batch split over ranks, the global
+    batch's negatives and this rank's rows). SampleWeight is taken and
+    unused, as in the JAX package."""
     x = ins["Input"][0]
     label = ins["Label"][0].reshape(-1).to(torch.int64)
     w = ins["Weight"][0]
     num_classes = op_.attr("num_total_classes")
     num_neg = op_.attr("num_neg_samples", 10)
-    neg = torch.randint(0, num_classes, (x.shape[0], num_neg),
-                        generator=ctx.generator(op_), device=x.device)
+    def draw(rows):
+        return torch.randint(0, num_classes, (rows, num_neg),
+                             generator=ctx.generator(op_), device=x.device)
+    spmd = getattr(ctx, "spmd", None)
+    if spmd is not None and spmd.slot_split(op_, "Input"):
+        # a batch split over ranks (parallel/spmd.py): the global batch's
+        # negatives drawn, this rank's rows kept, as dropout's mask
+        neg = spmd.global_rows(x.shape[0], draw)
+    else:
+        neg = draw(x.shape[0])
     labels = torch.cat([label[:, None], neg], dim=1)
     cost, logits = _nce_terms(x, w, _nce_bias(ins), labels)
     return {"Cost": [cost], "SampleLogits": [logits],

@@ -523,26 +523,21 @@ def _bn_act(g: Group, env, spmd=None):
     statistics, then normalize and activate (fusion.py `_bn_act_pallas`).
     In a sharded run whose batch is split over ranks (parallel/spmd.py)
     K6's one cooperative launch cannot see the other ranks' rows: the
-    window takes this rank's channel sums, all-reduces them, and applies
-    K5, counted as K6's fallback `batch_split`."""
+    window takes K6's split form, its statistics launch (this rank's
+    channel sums in K6's order), one all-reduce of them over the batch
+    axes, and its normalize launch with the global sums. Either way the
+    window counts one K6 hit."""
     x = env[_first(g.bn.desc.input("X"))]
     scale, bias, eps = _bn_vectors(g.bn, env)
-    if spmd is not None and spmd.is_split(_first(g.bn.desc.input("X"))):
-        bn_cuda.count_fallback("fused_bn_act", "batch_split")
-        x2 = _nhwc(x)
-        xf = x2.float()
-        saved_mean, saved_var = bn_cuda.one_pass_moments(
-            xf.sum(0), (xf * xf).sum(0), x2.shape[0], spmd)
-        bn_cuda.count_hit("fused_bn_act")
-        ybn2, yact2 = bn_cuda.bn_apply(x2, scale, bias, saved_mean,
-                                       saved_var, eps, _act_name(g))
-        _write_bn(g, env, _nchw(ybn2, x),
-                  None if yact2 is None else _nchw(yact2, x),
-                  saved_mean, saved_var)
-        return
     bn_cuda.count_hit("fused_bn_act")
-    ybn2, yact2, saved_mean, saved_var = bn_cuda.bn_act(
-        _nhwc(x), scale, bias, eps, _act_name(g))
+    x2 = _nhwc(x)
+    if spmd is not None and spmd.is_split(_first(g.bn.desc.input("X"))):
+        sums = spmd.batch_sum(bn_cuda.bn_act_sums(x2), site="bn_stats")
+        ybn2, yact2, saved_mean, saved_var = bn_cuda.bn_act_apply(
+            x2, sums, x2.shape[0] * spmd.nb, scale, bias, eps, _act_name(g))
+    else:
+        ybn2, yact2, saved_mean, saved_var = bn_cuda.bn_act(
+            x2, scale, bias, eps, _act_name(g))
     _write_bn(g, env, _nchw(ybn2, x),
               None if yact2 is None else _nchw(yact2, x),
               saved_mean, saved_var)

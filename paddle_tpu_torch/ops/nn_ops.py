@@ -1115,33 +1115,124 @@ def _moe_infer(op_, block):
         set_out(op_, block, "Out", xv.shape, xv.dtype)
 
 
+def _moe_route(x, gw, e):
+    """(onehot [N, E] of each token's most probable expert, its
+    probability [N])."""
+    probs = torch.softmax((x @ gw).float(), dim=-1)            # [N, E]
+    top = torch.argmax(probs, dim=-1)                           # first max
+    onehot = (top[:, None] == torch.arange(e, device=x.device)).float()
+    return onehot, torch.amax(probs, dim=-1)
+
+
+def _moe_slots(onehot, cap, offset=None):
+    """dispatch [N, E, C]: each token's slot is the running count of its
+    expert's tokens, plus `offset` [E] (the tokens of the ranks before
+    this one, where the batch is split), kept below the capacity."""
+    run = torch.cumsum(onehot, dim=0)
+    if offset is not None:
+        run = run + offset
+    pos = (run - 1.0) * onehot                                   # [N, E]
+    keep = (pos < cap) & (onehot > 0)
+    slots = torch.arange(cap, device=onehot.device, dtype=torch.float32)
+    return ((pos[..., None] == slots) & keep[..., None]).float()
+
+
+def _experts(expert_in, w1, w2):
+    h = torch.relu(torch.einsum("ecd,edf->ecf", expert_in, w1))
+    return torch.einsum("ecf,efd->ecd", h, w2)
+
+
 @op("moe_ffn", infer_shape=_moe_infer)
 def _moe_ffn(ctx, op_, ins):
     """Top-1 gated mixture-of-experts FFN in GShard's dispatch form (JAX
-    nn_ops.py:964), on one card: each token goes to its most probable
-    expert up to the capacity C = ceil(N / E * capacity_factor), its slot
-    the running count of its expert's tokens (a cumsum); the tokens past
-    an expert's capacity pass through unchanged. Dispatch and combine are
-    one-hot einsums; the products stay torch.einsum. Expert parallelism
-    over ranks is not here yet."""
+    nn_ops.py:964): each token goes to its most probable expert up to the
+    capacity C = ceil(N / E * capacity_factor), its slot the running count
+    of its expert's tokens over the global batch (a cumsum); the tokens
+    past an expert's capacity pass through unchanged. Dispatch and combine
+    are one-hot einsums; the products stay torch.einsum, as the JAX
+    package computes them outside any Pallas kernel.
+
+    Expert parallelism (parallel/spmd.py): where W1 and W2 are split on dim
+    0 over mesh axes A (`shard_parameter(main, w, ("ep", None, None))`),
+    the op reads this rank's E / |A| experts and runs only them, never
+    gathering the weights. Where the batch is split over axes B, a token's
+    slot adds the counts of the ranks before it along B (an all-gather of
+    [E] counts), so positions and capacity are the global batch's.
+      * B and A disjoint (tokens replicated over A: an 'ep'-only mesh, or
+        (dp, ep)): each rank fills its experts' slots from its tokens; the
+        routed sum is a partial sum over A, all-reduced once
+        (`replicated_sum`, identity backward), and the tokens and the gate
+        enter through `grad_sum` (their cotangents summed over A); the
+        pass-through x * (1 - routed) is added once, outside both.
+      * B = A (the batch split over the experts' axis): expert_in [E, C, D]
+        from this rank's tokens is reduce-scattered over A on the expert
+        dim (the slots are disjoint, so the sum places every token), each
+        rank runs its experts, and expert_out is all-gathered back: E * C *
+        D elements each way a collective, and their transposes in the
+        backward. The owner's W1/W2 gradient is then complete (spmd.py
+        does not reduce it over A).
+    """
+    from ..parallel import _collectives as C
     (x, gw, w1, w2), restore = mxu_cast(ctx, ins["X"][0], ins["GateW"][0],
                                         ins["W1"][0], ins["W2"][0])
     n = x.shape[0]
-    e = w1.shape[0]
-    cap = max(int(np.ceil(n / e * op_.attr("capacity_factor", 1.25))), 1)
-    probs = torch.softmax((x @ gw).float(), dim=-1)            # [N, E]
-    top = torch.argmax(probs, dim=-1)                           # first max
-    top_p = torch.amax(probs, dim=-1)
-    onehot = (top[:, None] == torch.arange(e, device=x.device)).float()
-    pos = (torch.cumsum(onehot, dim=0) - 1.0) * onehot           # [N, E]
-    keep = (pos < cap) & (onehot > 0)
-    slots = torch.arange(cap, device=x.device, dtype=torch.float32)
-    dispatch = ((pos[..., None] == slots) & keep[..., None]).float()
-    expert_in = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), x)
-    h = torch.relu(torch.einsum("ecd,edf->ecf", expert_in, w1))
-    expert_out = torch.einsum("ecf,efd->ecd", h, w2)
-    combine = dispatch * top_p[:, None, None]
-    routed = torch.einsum("nec,ecd->nd", combine.to(x.dtype), expert_out)
+    cf = op_.attr("capacity_factor", 1.25)
+    sp = getattr(ctx, "spmd", None)
+    ep = sp.expert_split(op_.desc.inputs["W1"][0]) if sp is not None \
+        else None
+    if ep is None:
+        e = w1.shape[0]
+        cap = max(int(np.ceil(n / e * cf)), 1)
+        onehot, top_p = _moe_route(x, gw, e)
+        dispatch = _moe_slots(onehot, cap)
+        expert_in = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), x)
+        expert_out = _experts(expert_in, w1, w2)
+        combine = dispatch * top_p[:, None, None]
+        routed = torch.einsum("nec,ecd->nd", combine.to(x.dtype), expert_out)
+    else:
+        axes, ei, ep_n = ep
+        mesh = sp.mesh
+        e_loc = w1.shape[0]
+        e = e_loc * ep_n
+        split = sp.slot_split(op_, "X")
+        batch = tuple(sp.batch) if split else ()
+        if set(batch) & set(axes) and set(batch) != set(axes):
+            raise NotImplementedError(
+                f"moe_ffn: the batch split over {batch} and the experts "
+                f"over {axes} overlap in part")
+        cap = max(int(np.ceil(n * (sp.nb if split else 1) / e * cf)), 1)
+        routed_by_owner = bool(batch) and set(batch) == set(axes)
+        if not routed_by_owner:
+            # tokens replicated over the experts' axes
+            x_in = C.grad_sum(x, mesh, axes, site="expert_grad_sum")
+            gw = C.grad_sum(gw, mesh, axes, site="expert_grad_sum")
+        else:
+            x_in = x
+        onehot, top_p = _moe_route(x_in, gw, e)
+        offset = None
+        if split:
+            counts = C.all_gather(onehot.sum(0)[None], mesh, sp.batch,
+                                  dim=0, site="expert_counts")
+            offset = counts[:sp.bi].sum(0)
+        dispatch = _moe_slots(onehot, cap, offset)
+        if routed_by_owner:
+            # the batch split over the experts' own axis
+            part = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), x)
+            expert_in = C.scatter_sum(part, mesh, axes, dim=0,
+                                      site="expert_dispatch")
+            expert_out = C.gather_cat(_experts(expert_in, w1, w2), mesh,
+                                      axes, dim=0, site="expert_combine")
+            combine = dispatch * top_p[:, None, None]
+            routed = torch.einsum("nec,ecd->nd", combine.to(x.dtype),
+                                  expert_out)
+        else:
+            mine = dispatch[:, ei * e_loc:(ei + 1) * e_loc]
+            expert_in = torch.einsum("nec,nd->ecd", mine.to(x.dtype), x_in)
+            combine = mine * top_p[:, None, None]
+            routed = C.replicated_sum(
+                torch.einsum("nec,ecd->nd", combine.to(x.dtype),
+                             _experts(expert_in, w1, w2)),
+                mesh, axes, site="expert_combine")
     routed_mask = dispatch.sum(dim=(1, 2)).to(x.dtype)[:, None]
     out = routed + x * (1.0 - routed_mask)
     if restore is not None:

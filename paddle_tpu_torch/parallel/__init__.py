@@ -6,9 +6,12 @@ the transpiler (`transpiler.py`), tensor parallelism
 (`tensor_parallel.py`), the sharding planner (`planner.py`), bucketed
 gradient sync (`overlap.py`), multi-process bring-up, reader sharding and
 checkpoints (`multihost.py`), row-sharded embedding tables
-(`embedding.py`), the hot-row embedding cache (`emb_cache.py`) and ring
-attention (`ring_attention.py`). Pipelines, expert parallelism and the
-master's task queue are ROADMAP item 9b-2."""
+(`embedding.py`), the hot-row embedding cache (`emb_cache.py`), ring
+attention (`ring_attention.py`), the GPipe schedule over a 'pp' axis
+(`pipeline.py`), program-level pipelines (`program_pipeline.py`) and the
+elastic task queue (`master.py`). Expert parallelism is moe_ffn's own
+rule under a mesh whose 'ep' axis splits its expert weights
+(ops/nn_ops.py, spmd.py)."""
 
 from . import mesh
 from .mesh import (Mesh, NamedSharding, get_mesh, make_mesh, replicated,
@@ -17,6 +20,7 @@ from . import _collectives
 from . import spmd
 from . import transpiler
 from . import multihost
+from . import master
 from . import tensor_parallel
 from .tensor_parallel import (shard_parameter, shard_fc_params,
                               shard_all_params_zero)
@@ -29,6 +33,10 @@ from . import planner
 from .planner import SpecLayout, mesh_from_env, validate_plan_bytes
 from . import overlap
 from . import emb_cache
+from . import pipeline
+from .pipeline import gpipe
+from . import program_pipeline
+from .program_pipeline import PipelineTranspiler
 
 
 def shard_feed(program, name, spec):

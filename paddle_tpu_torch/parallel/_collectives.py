@@ -6,6 +6,14 @@ Two families:
   * The ring's: a ring shift and the split and gather of a sequence axis,
     each a torch.autograd.Function whose backward is its transpose
     (`ppermute`, `shard_seq`, `all_gather_seq`).
+  * The pipeline's and the experts': `pipe_exchange`, the open one-hop
+    shift of lax.ppermute with perm [(i, i + 1) for i < P - 1] (the first
+    rank receives nothing, the last sends nothing; parallel/pipeline.py
+    posts it and its transpose itself), and the differentiable
+    `scatter_sum` / `gather_cat` (a reduce-scatter and an all-gather along
+    a dim, each the other's transpose) and `grad_sum` (the identity whose
+    backward sums over the ranks) with which moe_ffn dispatches tokens to
+    the experts' owners (ops/nn_ops.py).
   * The sharded run's (parallel/spmd.py): `all_reduce`, `all_gather`,
     `reduce_scatter` and `broadcast` over an axis or a tuple of axes of a
     mesh, each under the JAX package's `pd.coll.<site>` profiler range;
@@ -39,6 +47,7 @@ import torch.distributed as dist
 __all__ = ["coll_scope", "ppermute", "shard_seq", "all_gather_seq",
            "all_reduce", "all_reduce_async", "all_gather", "reduce_scatter",
            "broadcast", "replicated_sum", "Pending", "COUNTERS",
+           "pipe_exchange", "scatter_sum", "gather_cat", "grad_sum",
            "host_allreduce_sum", "process_allgather_bytes"]
 
 
@@ -268,6 +277,132 @@ def replicated_sum(x: torch.Tensor, mesh, axes,
     is the identity: the cotangent of the global value is replicated, and
     each rank's contribution takes it whole."""
     return _ReplicatedSum.apply(x, mesh, axes, site)
+
+
+# --- the pipeline's and the experts' collectives -----------------------------
+
+def pipe_exchange(send, recv_like, mesh, axis, forward=True,
+                  site="pipe_send"):
+    """One tick of the open shift along `axis` (lax.ppermute with perm
+    [(i, i + 1) for i < P - 1], or its transpose with `forward` False):
+    post `send` (a tensor, or None when this rank sends nothing this tick)
+    to the next rank (the previous one when not `forward`) and receive a
+    tensor shaped and typed as `recv_like` (None: receive nothing) from
+    the other side, in one batch of P2P ops. -> the received tensor, or
+    None. The caller decides who is active; the two ranks of a hop agree.
+    On a gloo group a CUDA tensor is staged through pinned host memory,
+    counted in COUNTERS.host_staged['pipe'], and each tensor sent is
+    counted in COUNTERS.calls[site]."""
+    n, i = _axis(mesh, axis)
+    grp, ranks = mesh.group_of(axis)
+    step = 1 if forward else -1
+    ops, box = [], None
+    with coll_scope(site), _timed("pipe"):
+        if send is not None:
+            if not 0 <= i + step < n:
+                raise ValueError(f"rank {i} of {axis!r} has no rank "
+                                 f"{i + step} to send to")
+            st = _Stage(mesh, send, "pipe", False)
+            ops.append(dist.P2POp(dist.isend, st.t, ranks[i + step], grp))
+            _count(site)
+        if recv_like is not None:
+            if not 0 <= i - step < n:
+                raise ValueError(f"rank {i} of {axis!r} has no rank "
+                                 f"{i - step} to receive from")
+            box = _RecvBox(mesh, recv_like)
+            ops.append(dist.P2POp(dist.irecv, box.t, ranks[i - step], grp))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return None if box is None else box.back()
+
+
+class _RecvBox:
+    """The buffer a P2P receive lands in: pinned host memory for a CUDA
+    tensor on a gloo group (bf16 as its 16 bits), else the device's."""
+
+    def __init__(self, mesh, like):
+        self.device, self.dtype = like.device, like.dtype
+        gloo = mesh.backend != "nccl"
+        dtype = torch.float16 if like.dtype == torch.bfloat16 and gloo \
+            else like.dtype
+        if _staged(mesh, like):
+            self.t = torch.empty(like.shape, dtype=dtype, pin_memory=True)
+            COUNTERS.host_staged["pipe"] = \
+                COUNTERS.host_staged.get("pipe", 0) + 1
+            COUNTERS.staged_bytes += self.t.numel() * self.t.element_size()
+        else:
+            self.t = torch.empty(like.shape, dtype=dtype, device=like.device)
+
+    def back(self):
+        r = self.t.to(self.device) if self.t.device != self.device \
+            else self.t
+        return r.view(self.dtype) if r.dtype != self.dtype else r
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, site):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.site = mesh, axes, dim, site
+        return reduce_scatter(x, mesh, axes, dim=dim, site=site)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g.contiguous(), ctx.mesh, ctx.axes, dim=ctx.dim,
+                           site=ctx.site + "_bwd"), None, None, None, None)
+
+
+class _GatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, site):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.site = mesh, axes, dim, site
+        return all_gather(x.contiguous(), mesh, axes, dim=dim, site=site)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g.contiguous(), ctx.mesh, ctx.axes,
+                               dim=ctx.dim, site=ctx.site + "_bwd"),
+                None, None, None, None)
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, site):
+        ctx.mesh, ctx.axes, ctx.site = mesh, axes, site
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_reduce(g.contiguous(), ctx.mesh, ctx.axes,
+                           site=ctx.site), None, None, None)
+
+
+def scatter_sum(x, mesh, axes, dim=0, site="expert_scatter"):
+    """The sum of `x` over the ranks of `axes`, cut along `dim` to this
+    rank's part (reduce_scatter), differentiable: the backward gathers
+    the parts' cotangents along `dim`."""
+    if mesh.group_of(axes)[0] is None:
+        return x
+    return _ScatterSum.apply(x, mesh, axes, dim, site)
+
+
+def gather_cat(x, mesh, axes, dim=0, site="expert_gather"):
+    """The ranks' parts of `axes` concatenated along `dim` (all_gather),
+    differentiable: the backward sums the cotangents over the ranks and
+    keeps this rank's part (the transpose of a gather of distinct
+    parts)."""
+    if mesh.group_of(axes)[0] is None:
+        return x
+    return _GatherCat.apply(x, mesh, axes, dim, site)
+
+
+def grad_sum(x, mesh, axes, site="expert_grad_sum"):
+    """`x` as it is, whose cotangent is summed over the ranks of `axes`:
+    the input side of a computation each rank does part of (Megatron's
+    f), the transpose of `replicated_sum`."""
+    if mesh.group_of(axes)[0] is None:
+        return x
+    return _GradSum.apply(x, mesh, axes, site)
 
 
 # --- the ring's collectives ----------------------------------------------------

@@ -31,9 +31,15 @@ one device, up to the order of sums:
     startup or a checkpoint, is cut at the step's start). An op reads it
     all-gathered (COUNTERS.gathers), a `mul` whose weight is split on a
     model axis gathers only its other dims and runs Megatron's algebra
-    (ops/math_ops.py), and a row-sharded table is read by a masked local
-    gather and one all-reduce (ops/sparse_ops.py). A gradient is reduced
-    and cut to the shard; the optimizer op runs on the shards.
+    (ops/math_ops.py), a row-sharded table is read by a masked local
+    gather and one all-reduce (ops/sparse_ops.py), and moe_ffn reads its
+    expert weights split on dim 0 (EXPERT_OPS) as this rank's experts and
+    runs them alone (ops/nn_ops.py), its W1/W2 gradient whole on the owner
+    where the weights are split over every batch axis. A gradient is
+    reduced and cut to the shard; the optimizer op runs on the shards.
+  * Random ops. dropout, the batch-size-like random ops and nce draw the
+    global batch's values and keep this rank's rows (`global_rows`), so
+    the ranks together hold what one device draws.
   * Fetches. A split fetch is gathered along dim 0, a partial one
     reduced, a shard gathered: a script runs unchanged on 1 or N ranks.
 
@@ -54,7 +60,7 @@ from . import _collectives as C
 from .mesh import axes_tuple
 
 __all__ = ["Spmd", "for_program", "batch_axes", "RULED_OPS", "COUNTERS",
-           "gather_state", "MODEL_AXES"]
+           "gather_state", "MODEL_AXES", "EXPERT_OPS"]
 
 # ops whose lowering all-reduces what it sums over the batch, so that
 # their non-batch outputs are the global (replicated) values
@@ -62,10 +68,10 @@ RULED_OPS = frozenset({
     "mean", "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
     "accuracy", "batch_norm", "batch_norm_grad", "lookup_table",
 })
-# random ops that would draw a batch-split output's rows on each rank
-# alone (dropout has its rule: the global draw, this rank's rows)
-BATCH_RANDOM_OPS = frozenset({"uniform_random_batch_size_like",
-                              "gaussian_random_batch_size_like", "nce"})
+# ops that read their expert weights (W1, W2 split on dim 0 alone) as
+# this rank's shard and run only its experts (ops/nn_ops.py moe_ffn)
+EXPERT_OPS = frozenset({"moe_ffn", "moe_ffn_grad"})
+EXPERT_SLOTS = frozenset({"W1", "W2"})
 # the axes a weight is split on for Megatron's algebra (planner.model_axes)
 MODEL_AXES = frozenset({"tp", "mp"})
 
@@ -285,6 +291,10 @@ class Static:
         return device.type == "cuda" and self.mesh.backend != "nccl"
 
 
+def _first_name(names):
+    return names[0] if names else None
+
+
 def _is_opt(op) -> bool:
     ins = op.desc.inputs
     return "Param" in ins and "Grad" in ins
@@ -330,11 +340,33 @@ class Spmd:
     def batch_reduce(self, t, op="sum", site="batch_reduce"):
         return C.all_reduce(t, self.mesh, self.batch, op=op, site=site)
 
-    def global_rows(self, local_rows: int, draw):
-        """A random value of `local_rows` rows as the one-device run draws
-        it: `draw(global_rows)` then this rank's rows."""
+    def global_rows(self, local_rows: int, draw, dim: int = 0):
+        """A random value of `local_rows` rows (along `dim`) as the
+        one-device run draws it: `draw(global_rows)` then this rank's
+        rows."""
         g = draw(local_rows * self.nb)
-        return g.narrow(0, self.bi * local_rows, local_rows)
+        return g.narrow(dim, self.bi * local_rows, local_rows)
+
+    def expert_split(self, name: Optional[str]):
+        """(axes, index, size) of an expert weight split on dim 0 alone
+        (this rank holds experts [index * E / size, (index + 1) * E /
+        size)); None otherwise."""
+        sh = self.st.specs.get(name) if name else None
+        if sh is None or not sh.dims or not sh.dims[0] or any(sh.dims[1:]):
+            return None
+        axes = sh.dims[0]
+        return axes, self.mesh.axis_index(axes), self.mesh.axis_size(axes)
+
+    def _complete_expert_grad(self, op, slot) -> bool:
+        """Whether an expert op's W1/W2 gradient output is whole on its
+        owner: its weight is split over every batch axis, so the tokens of
+        every rank reached it (moe_ffn's dispatch) and no reduce over the
+        batch is due."""
+        base = slot[:-len("@GRAD")] if slot.endswith("@GRAD") else None
+        if op.type not in EXPERT_OPS or base not in EXPERT_SLOTS:
+            return False
+        es = self.expert_split(_first_name(op.desc.inputs.get(base)))
+        return es is not None and set(self.batch) <= set(es[0])
 
     def tp_weight(self, name: Optional[str]):
         """(kind, axes, index, size) of a weight split on a model axis:
@@ -407,13 +439,6 @@ class Spmd:
     def prepare(self, op, ins, env):
         """The op's inputs as its lowering must see them."""
         t = op.type
-        if t in BATCH_RANDOM_OPS and self.nb > 1 and any(
-                self.is_split(n) for ns in op.desc.inputs.values()
-                for n in ns):
-            raise NotImplementedError(
-                f"random op '{t}' on a batch split over {self.nb} ranks of "
-                f"{self.batch}: it would draw this rank's rows alone "
-                f"(dropout draws the global batch's and keeps its rows)")
         opt = _is_opt(op)
         is_grad = t.endswith("_grad")
         keep = t == "sum" and all(n in self.partial
@@ -428,7 +453,9 @@ class Spmd:
                     vals[i] = self.resolve(n, env, gather=not opt)
                 if n in self.sharded:
                     if opt or (t in ("lookup_table", "lookup_table_grad")
-                               and slot == "W"):
+                               and slot == "W") or (
+                            t in EXPERT_OPS and slot in EXPERT_SLOTS
+                            and self.expert_split(n) is not None):
                         vals[i] = self.shards[n]
                     elif t in ("mul", "mul_grad") and slot == "Y" and \
                             self.tp_weight(n) is not None:
@@ -487,7 +514,8 @@ class Spmd:
                     self.shards[n] = v
                     self.full = {k: f for k, f in self.full.items()
                                  if k[0] != n}
-                if opt or not (split_in or partial_in):
+                if opt or not (split_in or partial_in) or \
+                        self._complete_expert_grad(op, slot):
                     continue
                 if split_in:
                     bd = self.st.batch_dim(n, self.rows_seen)

@@ -4,7 +4,10 @@ counted by collective; bf16 gathered bit for bit), the MLP transpiled over
 dp 2 there (eager under the gate's reason host_collective) against one
 rank, the synchronized batch-norm windows of a small ResNet over dp 2
 against one rank's, and a one-rank NCCL group whose collectives are
-captured in CUDA graphs and replayed on new values.
+captured in CUDA graphs and replayed on new values. K6's split form (the
+batch-norm window of a batch split over ranks): its two launches bit for
+bit K6's on one rank at ResNet-50's stem and at a K4 window's shape, and
+over dp 2 its statistics within 1e-5 of one rank's.
 
 Skipped without a CUDA device; on the card:
     python -m pytest --noconftest tests/test_torch_parallel_gpu.py
@@ -139,8 +142,9 @@ def test_nccl_across_two_cards_graphed(card, tmp_path):
 def test_synchronized_batch_norm_windows_on_the_card(card, tmp_path,
                                                      monkeypatch):
     """A small ResNet in O2 over dp 2 on the card (WINDOWS_DP): its stem's
-    bn + relu window (K6's, taken as `batch_split`: channel sums
-    all-reduced, then K5) and its conv -> bn -> relu windows (K4's sums
+    bn + relu window (K6's split form: its statistics launch, the sums
+    all-reduced, its normalize launch) and its conv -> bn -> relu windows
+    (K4's sums
     all-reduced, then K5) against one rank's windows on the same global
     batch. The first two batch norms, whose inputs agree up to rounding:
     SavedMean, SavedVariance and the output Y within 1e-5 (relative L2;
@@ -149,7 +153,8 @@ def test_synchronized_batch_norm_windows_on_the_card(card, tmp_path,
     every batch norm's statistics within 1e-5 and each output within one
     bf16 ulp (bf16 differences grow with depth); the gradients at the
     floor of one rank against itself on the rows permuted; K4 and K5
-    launched on each rank, the stem taken as K6's `batch_split`, K6
+    launched on each rank, the stem by K6's split form in pairs of
+    launches, counted as one K6 hit and no `batch_split` fallback, K6
     launched by the one-rank run."""
     import chip_smoke
     import paddle_tpu_torch as pt
@@ -172,6 +177,74 @@ def test_synchronized_batch_norm_windows_on_the_card(card, tmp_path,
     per_rank = rec["launches_per_rank_step"]
     assert per_rank.get("conv.stats_launches") and \
         per_rank.get("bn.apply_launches"), per_rank
-    assert rec["bn_fallbacks_per_rank_step"].get(
-        "fused_bn_act:batch_split", 0) >= 1
+    assert "fused_bn_act:batch_split" not in \
+        rec["bn_fallbacks_per_rank_step"]
+    split = rec["k6_split_per_rank_step"]
+    assert split.get("sums", 0) >= 1 and split["sums"] == split["apply"]
+    assert rec["bn_hits_per_rank_step"].get("fused_bn_act", 0) >= 1
+    assert per_rank.get("bn.act_launches") == 2 * split["sums"]
     assert rec["one_rank_launches"].get("bn.act_launches", 0) >= 1
+
+
+# K6's split form at ResNet-50's stem (batch 32: [401408, 64], relu) and
+# at the shapes of two conv -> bn windows K4 takes
+K6_SPLIT_SHAPES = [(401408, 64, "relu"), (100352, 256, None),
+                   (25088, 512, "relu")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,c,act", K6_SPLIT_SHAPES)
+def test_k6_split_form_is_k6_on_one_rank(card, m, c, act):
+    """The statistics launch bit for bit bn_act_sums_in_order (K6's order
+    at its plan); the normalize launch from those sums over M rows bit for
+    bit K6 whole (ybn, yact, mean, var); ybn within one bf16 ulp of the
+    plain apply; a repeated call bitwise; one launch counted each."""
+    from paddle_tpu_torch.ops import bn_cuda
+    gen = torch.Generator().manual_seed(m + c)
+    x = (torch.randn((m, c), generator=gen) * 2).to(torch.bfloat16).cuda()
+    scale = (1 + 0.1 * torch.randn(c, generator=gen)).cuda()
+    bias = (0.1 * torch.randn(c, generator=gen)).cuda()
+    bn_cuda.COUNTERS.reset()
+    sums = bn_cuda.bn_act_sums(x)
+    assert torch.equal(sums, bn_cuda.bn_act_sums(x))
+    assert torch.equal(sums, bn_cuda.bn_act_sums_in_order(
+        x, *bn_cuda.launch_plan(x, None)))
+    got = bn_cuda.bn_act_apply(x, sums, m, scale, bias, 1e-5, act)
+    again = bn_cuda.bn_act_apply(x, sums, m, scale, bias, 1e-5, act)
+    want = bn_cuda.bn_act(x, scale, bias, 1e-5, act)
+    for a, b, w in zip(got, again, want):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert torch.equal(a, b) and torch.equal(a, w)
+    plain, _ = bn_cuda.bn_apply_reference(x, scale, bias, got[2], got[3],
+                                          1e-5)
+    ulp = torch.finfo(torch.bfloat16).eps * plain.float().abs().clamp_min(
+        2.0 ** -126)
+    assert ((got[0].float() - plain.float()).abs() <= ulp + 1e-6).all()
+    assert bn_cuda.COUNTERS.split_launches == {"sums": 2, "apply": 2}
+    assert bn_cuda.COUNTERS.act_launches == 5
+
+
+@pytest.mark.gpu
+def test_k6_split_dp2_statistics_match_one_rank(card, tmp_path):
+    """A bn -> relu window in O2 on the fed images cast to bf16 (the
+    `conv_bn` net's `bare` form: the window's input the same bits on every
+    rank and on one) over dp 2 on a gloo group of two processes sharing the
+    card: it takes K6's split form, one hit and no fallback, and step 1's
+    SavedMean and SavedVariance are within 1e-5 (relative L2) of the
+    one-rank K6 window's."""
+    case = dict(name="k6", kind="split", net="conv_bn", amp=True, bare=True,
+                mesh=((2,), ("dp",)), device="cuda",
+                feeds=nets.feeds("conv_bn", 2, seed=7))
+    ranks, _ = torch_group.launch(WORKER, 2, [case], tmp_path, timeout=180)
+    for res in ranks:
+        split, one = res["k6"]["split"], res["k6"]["one"]
+        a, b = split["steps"][0]["fetch"], one["steps"][0]["fetch"]
+        for x, y in zip(a[1:3], b[1:3]):
+            assert np.linalg.norm(x - y) <= 1e-5 * np.linalg.norm(y), \
+                np.linalg.norm(x - y) / np.linalg.norm(y)
+        for step in split["steps"]:
+            assert step["k6"] == (2, {"sums": 1, "apply": 1}), step["k6"]
+            assert step["hits"] == {"fused_bn_act": 1} and \
+                not step["fallbacks"], step
+        assert one["steps"][0]["k6"] == (1, {})

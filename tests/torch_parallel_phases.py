@@ -1,7 +1,9 @@
 """chip_smoke.py's sharded phases alone on the card (train_dp,
-train_dp_nccl, train_planned_lm, train_dlrm_sharded), each timed, the
-report written as JSON: python tests/torch_parallel_phases.py [--only
-NAME ...] [--report PATH]. `--only train_dp_f32` runs train_dp's
+train_dp_nccl, train_planned_lm, train_dlrm_sharded; kernel_bn_split,
+K6's split form at train_dp's shapes; train_pipeline_lm, train_pp_ep,
+which is train_gpipe and train_ep on one group, and train_elastic), each
+timed, the report written as JSON: python tests/torch_parallel_phases.py
+[--only NAME ...] [--report PATH]. `--only train_dp_f32` runs train_dp's
 comparison in f32 (no AMP: every batch norm's statistics held at f32
 rounding), and `train_dp_windows` the small ResNet of WINDOWS_DP; the
 smoke runs neither.
@@ -18,13 +20,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-PHASES = ("train_dp", "train_dp_nccl", "train_planned_lm",
-          "train_dlrm_sharded")
+PHASES = ("kernel_bn_split", "train_dp", "train_dp_nccl",
+          "train_planned_lm", "train_dlrm_sharded", "train_pipeline_lm",
+          "train_pp_ep", "train_elastic")
 EXTRA = ("train_dp_f32", "train_dp_windows")
 # a small ResNet (resnet_cifar10, depth 8) in O2 over dp 2 on the card:
-# its stem's bn + relu window (K6's, taken as `batch_split`: the channel
-# sums all-reduced, then K5) and its conv -> bn -> relu windows (K4's sums
-# all-reduced, then K5), every batch norm's statistics and output held
+# its stem's bn + relu window (K6's split form: its statistics launch, the
+# sums all-reduced, its normalize launch) and its conv -> bn -> relu
+# windows (K4's sums all-reduced, then K5), every batch norm's statistics
+# and output held
 # (tests/test_torch_parallel_gpu.py)
 WINDOWS_DP = {"net": "resnet50", "depth": 8, "world": 2, "batch": 16,
               "img": 32, "classes": 10, "device": "cuda", "amp": "O2",
@@ -60,6 +64,9 @@ def main(argv=None) -> int:
                     chip_smoke.phase_train_dp(pt, sub, dict(WINDOWS_DP))
                 finally:
                     report["train_dp_windows"] = sub.get("train_dp")
+            elif name == "kernel_bn_split":
+                from paddle_tpu_torch.ops import bn_cuda
+                chip_smoke.phase_kernel_bn_split(pt, bn_cuda, report)
             else:
                 getattr(chip_smoke, "phase_" + name)(pt, report)
         except Exception:  # noqa: BLE001 - report every phase

@@ -11,8 +11,10 @@ case, the losses it fetched, the whole state after the steps
 (parallel.spmd.gather_state for its shards), a digest of each state tensor
 it holds (replicated ones must agree bit for bit across ranks), the bytes
 it holds per parameter, and the sharded run's counters. Cases of a
-`kind` in KINDS run the collectives on the card instead
-(tests/test_torch_parallel_gpu.py). The group's backend is
+`kind` in KINDS run something else: the collectives on the card
+(tests/test_torch_parallel_gpu.py), gpipe over a 'pp' axis
+(tests/test_torch_pipeline.py), or a program on the group's mesh beside
+its one-rank run (tests/test_torch_split_batch.py). The group's backend is
 PARALLEL_TEST_BACKEND (gloo by default); an NCCL rank takes card rank
 modulo the cards. It imports torch and the port,
 never jax."""
@@ -190,7 +192,75 @@ def run_nccl_graph(pt, case):
     return out
 
 
-KINDS = {"collectives": run_collectives, "nccl_graph": run_nccl_graph}
+def run_gpipe(pt, case):
+    """parallel.pipeline.gpipe of tanh(h @ w + b) stages over this group's
+    'pp' axis (the whole stacks given, so each rank's gradient lands in its
+    stage's rows): the replicated outputs, the gradients of sum(out^2) by
+    the stacks and the microbatches, and the collectives posted."""
+    from paddle_tpu_torch.parallel import _collectives as C
+    from paddle_tpu_torch.parallel import pipeline
+    C.COUNTERS.reset()
+    mesh = pt.parallel.make_mesh((dist.get_world_size(),), ("pp",))
+    ws = torch.from_numpy(case["ws"]).requires_grad_()
+    bs = torch.from_numpy(case["bs"]).requires_grad_()
+    xs = torch.from_numpy(case["xs"]).requires_grad_()
+
+    def stage(params, h):
+        w, b = params
+        return torch.tanh(h @ w + b)
+    out = pipeline.gpipe(stage, (ws, bs), xs, mesh)
+    (out ** 2).sum().backward()
+    return {"out": out.detach().numpy(), "gw": ws.grad.numpy(),
+            "gb": bs.grad.numpy(), "gx": xs.grad.numpy(),
+            "calls": dict(C.COUNTERS.calls)}
+
+
+def run_split(pt, case):
+    """The case's program on the group's mesh and, on this same rank, with
+    no mesh (one rank), from one startup state, eager, on the card where
+    the case's device is cuda: per step the loss and main._fetch's values
+    (split ones gathered), K6's launches and the K6 windows' hits and
+    fallbacks; then the state after the steps."""
+    from paddle_tpu_torch.ops import bn_cuda
+    card = case.get("device") == "cuda"
+    out, init = {}, None
+    for form in ("split", "one"):
+        main, startup, loss = nets.BUILDERS[case["net"]](pt, case)
+        if form == "split":
+            main._mesh = pt.parallel.make_mesh(
+                *case["mesh"], device="cuda" if card else None)
+        exe = pt.Executor(pt.CUDAPlace(0) if card else pt.CPUPlace())
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {n: v.clone() for n, v in scope.vars.items()
+                    if isinstance(v, torch.Tensor)}
+        for n, v in init.items():
+            scope.set_var(n, v.clone())
+        steps = []
+        for f in case["feeds"]:
+            bn_cuda.COUNTERS.reset()
+            vals = exe.run(main, feed=f, fetch_list=[loss] + main._fetch,
+                           scope=scope, use_jit=False)
+            steps.append({"fetch": [np.asarray(v, np.float32)
+                                    for v in vals],
+                          "k6": (bn_cuda.COUNTERS.act_launches,
+                                 dict(bn_cuda.COUNTERS.split_launches)),
+                          "hits": dict(bn_cuda.COUNTERS.hits),
+                          "fallbacks": {f"{o}:{r}": k for (o, r), k in
+                                        bn_cuda.COUNTERS.fallbacks.items()}})
+        windows = sum(1 for op in main.global_block().ops
+                      if op.type == "batch_norm"
+                      and not op.attr("is_test", False))
+        out[form] = {"steps": steps, "windows": windows,
+                     "state": {n: _np(scope.find_var(n)) for n in init
+                               if isinstance(scope.find_var(n),
+                                             torch.Tensor)}}
+    return out
+
+
+KINDS = {"collectives": run_collectives, "nccl_graph": run_nccl_graph,
+         "gpipe": run_gpipe, "split": run_split}
 
 
 def main(argv):
