@@ -180,6 +180,21 @@ against its plain PyTorch version on the card:
               turns, over 7 requests that fill it; the host's time on the
               logits (the copy of a replay's rows, then numpy) per bucket;
               one profiled bucket-8 replay;
+11b. memory   ResNet-50 O2 training (batch 8, 16, 32) eager under
+              Executor.measure_memory: measured peaks beside the static
+              IR estimate, memory.what_if's HeadroomModel and its max
+              batch under 16 GiB, validated by a measured step there
+              (rel_err <= MEMORY_REL_ERR); in a fresh process limited to
+              16 GiB (`--memory-oom`), a step at 1.25x that batch raising
+              errors.OOMError (breakdown = the scope's bytes, named
+              buffers, a suggestion naming the max batch), a batch-32
+              step after it with the allocated bytes back within 64 MiB,
+              the same for a capture that runs out of memory, then
+              batch-32 graphs that capture and replay; a served batch-16
+              request's peak and K1 launches; every served program's
+              admission by analyze_program (seconds, counts), a
+              rank-mismatched program refused before any bucket runs;
+              K1-K6 counted on the path;
  12. kernel_ring  K10 (the ring's unnormalized flash block), in bf16 and in
               f32, against its plain version at the JAX tests' shapes, at
               the 16 (query shard, key shard) pairs of a four-shard causal
@@ -1113,6 +1128,7 @@ def phase_slice(pt, conv_cuda, resnet, report):
             feed={"img": calib}, scope=scope)
     engine = ServingEngine(main, ["img"], [prob, logits], buckets=BUCKETS,
                            scope=scope)
+    _print_admission("slice (ResNet-50 O2)", engine)
 
     # eligible convs of one forward pass, from the served program's desc
     eligible = len(_eligible_convs(conv_cuda, engine.program, 1))
@@ -1224,7 +1240,8 @@ def phase_slice(pt, conv_cuda, resnet, report):
                                {K1_KERNEL: eligible}, card)
     print(f"the profiled request (a replay): {profile['device_copies']} "
           f"device copies ({profile['device_copy_ms']:.3f} ms)", flush=True)
-    report["slice"] = {"p50_ms": p50, "latencies_s": lat,
+    report["slice"] = {"admission": engine.admission,
+                       "p50_ms": p50, "latencies_s": lat,
                        "img_per_s": ips, "window_s": window_s,
                        "launches": launches, "warmup_s": warm_s,
                        "graph_gb": pool_gb, "in_turns_p50_ms": turns,
@@ -1235,6 +1252,15 @@ def phase_slice(pt, conv_cuda, resnet, report):
     return launches, {"scope": scope, "main": main, "fetch": [prob, logits],
                       "requests": requests, "outs": outs, "p50_ms": p50,
                       "img_per_s": ips, "full": full, "eligible": eligible}
+
+
+def _print_admission(what, engine):
+    """The static analyzer's verdict on a served program (ServingEngine's
+    admission, analysis.analyze_program): seconds and counts."""
+    a = engine.admission
+    print(f"{what}: admitted by analyze_program in {a['seconds']:.3f} s, "
+          f"{a['error']} errors, {a['warning']} warnings, {a['info']} infos",
+          flush=True)
 
 
 def _compare(ref_out, got_out, what, rtol, served="O2"):
@@ -1794,6 +1820,8 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
         engine = ServingEngine(model_dir, quantize="int8", buckets=BUCKETS)
         torch.cuda.synchronize()
         admit_s = time.perf_counter() - t0
+        _print_admission("serve_q8 (ResNet-50 O3 from its directory)",
+                         engine)
         cpu_engine = ServingEngine(model_dir, place=pt.CPUPlace(),
                                    quantize="int8", buckets=BUCKETS)
         fp8 = (ServingEngine(model_dir, quantize="fp8", buckets=BUCKETS),
@@ -1945,7 +1973,8 @@ def phase_serve_q8(pt, conv_cuda, resnet, report, served):
         engine, requests[REQUEST_SIZES.index(top)], p50[engine.bucket_for(top)],
         {K11_KERNEL: Q8_LAUNCHES["q8_launches"],
          K1_KERNEL: Q8_LAUNCHES["launches"]}, card)
-    report["serve_q8"] = {"card": card, "p50_ms": p50, "latencies_s": lat,
+    report["serve_q8"] = {"admission": engine.admission,
+                          "card": card, "p50_ms": p50, "latencies_s": lat,
                           "warmup_s": warm_s, "graph_gb": pool_gb,
                           "in_turns_p50_ms": turns,
                           "img_per_s": ips, "window_s": window_s,
@@ -5267,6 +5296,7 @@ def phase_serve_lm(pt, attention_cuda, report):
     pt.Executor().run(startup, scope=scope)
     engine = ServingEngine(main, ["tok"], [logits], buckets=LM_BUCKETS,
                            scope=scope)
+    _print_admission("serve_lm (the LM's logits)", engine)
     served = {op.type for op in engine.program.global_block().ops}
     if served & {"softmax_with_cross_entropy", "mean", "adam"}:
         raise RuntimeError(f"the loss tail survived pruning to logits: {served}")
@@ -5344,7 +5374,8 @@ def phase_serve_lm(pt, attention_cuda, report):
                                key="tok")
     if rel > LM_LOGIT_RTOL:
         raise RuntimeError("the served logits disagree with the CPU plain path")
-    report["serve_lm"] = {"card": card, "p50_ms": p50, "in_turns_p50_ms": turns,
+    report["serve_lm"] = {"admission": engine.admission, "card": card,
+                          "p50_ms": p50, "in_turns_p50_ms": turns,
                           "window_latencies_ms": single,
                           "tokens_per_s": tok_s, "window_s": window_s,
                           "warmup_s": warm_s, "graph_gb": pool_gb,
@@ -10783,6 +10814,533 @@ def phase_train_elastic(pt, report, cfg=None):
     return rec
 
 
+# --- memory and static analysis (ROADMAP 10a) -------------------------------
+
+# ResNet-50 O2 training (bench.py's `resnet`: 224x224, 1000 classes, Momentum)
+# measured at three batches, the headroom model fitted under a 16 GiB budget
+# (the JAX package's default budget) and validated at its max batch; OOM at
+# 1.25x that batch in a fresh process held to the same budget; a batch-16
+# request of the served model measured
+MEMORY = {"net": "resnet50", "img": 224, "classes": 1000,
+          "batches": (8, 16, 32), "budget": 16 << 30, "oom_factor": 1.25,
+          "recover": 32, "serve_batch": 16, "device": "cuda",
+          "timeout": 300, "tracker_steps": 50}
+MEMORY_REL_ERR = 0.10               # what_if's rel_err at the validated batch
+MEMORY_SLACK = 64 << 20             # allocated bytes after an OOM vs before
+MEMORY_KERNELS = ("conv.launches", "conv.dgrad_launches",
+                  "conv.wgrad_launches", "conv.stats_launches",
+                  "bn.apply_launches", "bn.act_launches")
+
+
+def memory_train_net(pt, cfg):
+    """The phase's training program: bench.py's ResNet-50 O2 (the smoke's
+    `_resnet50_train`), or at a small size a CIFAR ResNet of cfg["depth"]
+    under the same optimizer and AMP."""
+    if cfg["net"] == "resnet50":
+        from paddle_tpu_torch.models import resnet
+        return _resnet50_train(pt, resnet, class_dim=cfg["classes"])
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name="img", shape=[3, cfg["img"], cfg["img"]],
+                             dtype="float32")
+        label = pt.layers.data(name="label", shape=[1], dtype="int64")
+        loss, _, _ = pt.models.build_image_classifier(
+            pt.models.resnet_cifar10, img, label, class_dim=cfg["classes"],
+            depth=cfg["depth"])
+        opt = pt.amp.decorate(pt.optimizer.Momentum(
+            learning_rate=TRAIN_LR, momentum=0.9), level="O2")
+        opt.minimize(loss)
+    main.random_seed = startup.random_seed = SEED + 1
+    return main, startup, loss
+
+
+def memory_serve_net(pt, cfg):
+    """The served twin (is_test, AMP O2, softmax) of memory_train_net's
+    model: (main, startup, prob)."""
+    if cfg["net"] == "resnet50":
+        from paddle_tpu_torch.models import resnet
+        main, startup, prob, _ = _resnet50(pt, resnet)
+        return main, startup, prob
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data(name="img", shape=[3, cfg["img"], cfg["img"]],
+                             dtype="float32")
+        logits = pt.models.resnet_cifar10(img, class_dim=cfg["classes"],
+                                          depth=cfg["depth"], is_test=True)
+        prob = pt.layers.softmax(logits)
+    main.random_seed = startup.random_seed = SEED + 1
+    pt.amp.enable(main, level="O2")
+    return main, startup, prob
+
+
+def _memory_feed(cfg, batch, seed):
+    rng = np.random.default_rng(seed)
+    return {"img": rng.standard_normal(
+                (batch, 3, cfg["img"], cfg["img"]), dtype=np.float32),
+            "label": rng.integers(0, cfg["classes"],
+                                  (batch, 1)).astype(np.int64)}
+
+
+def _memory_spec(cfg, batch):
+    """The feeds as (shape, dtype) specs: the static analysis allocates
+    nothing."""
+    return {"img": ((batch, 3, cfg["img"], cfg["img"]), np.float32),
+            "label": ((batch, 1), np.int64)}
+
+
+def _kernel_counts(conv_cuda, bn_cuda) -> dict:
+    """K1-K6's launch counters, by the names of MEMORY_KERNELS."""
+    return {k: getattr(conv_cuda.COUNTERS if k.startswith("conv.")
+                       else bn_cuda.COUNTERS, k.split(".", 1)[1])
+            for k in MEMORY_KERNELS}
+
+
+def _scope_state_bytes(pt, exe, main, scope, feed):
+    """params + opt_state bytes of the state a step of `main` reads
+    (memory.classify)."""
+    from paddle_tpu_torch import memory
+    names = exe._resolve_state(main, feed, scope)
+    cls = memory.classify(main, {n: scope.find_var(n) for n in names}, {})
+    return cls["params"] + cls["opt_state"]
+
+
+def _oom_attempt(fn):
+    """Run `fn`, which must run out of memory: (the OOMError's fields or
+    None, allocated bytes before, after the error was dropped and the
+    cache emptied, whether the stream was left capturing)."""
+    import torch
+    from paddle_tpu_torch import errors
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    got, t0 = None, time.perf_counter()
+    try:
+        fn()
+    except errors.OOMError as e:
+        got = {"breakdown": e.breakdown, "top_buffers": e.top_buffers,
+               "suggestions": e.suggestions,
+               "analysis_total_bytes": (e.analysis or {}).get("total_bytes"),
+               "first_line": str(e).splitlines()[0],
+               "cause": type(e.__cause__).__name__}
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"error": got, "allocated_before": before,
+            "allocated_after": torch.cuda.memory_allocated(),
+            "capturing": bool(torch.cuda.is_current_stream_capturing()),
+            "seconds": seconds}
+
+
+def _hold_oom(what, att, state_bytes, max_batch, names):
+    """The checks of one OOM attempt; a list of failures."""
+    bad = []
+    err = att["error"]
+    if err is None:
+        return [f"{what}: no OOMError"]
+    bd = err["breakdown"]
+    if bd.get("params", 0) + bd.get("opt_state", 0) != state_bytes:
+        bad.append(f"{what}: breakdown params + opt_state "
+                   f"{bd.get('params', 0) + bd.get('opt_state', 0)} != the "
+                   f"scope's {state_bytes}")
+    rows = err["top_buffers"]
+    if not rows or not any(r.get("kind") in ("param", "opt_state", "feed")
+                           and r.get("name") in names for r in rows):
+        bad.append(f"{what}: top_buffers name no scope or feed var: "
+                   f"{[(r.get('name'), r.get('kind')) for r in rows]}")
+    # the ten largest live tensors, before the largest scope variable and
+    # feed are appended: forensics must name at least one of them
+    if not any(r.get("name") for r in rows[:10]):
+        bad.append(f"{what}: none of the ten largest buffers is named: "
+                   f"{[(r.get('name'), r.get('nbytes')) for r in rows[:10]]}")
+    if not any(f"max_batch={max_batch}" in s for s in err["suggestions"]):
+        bad.append(f"{what}: no suggestion names max_batch={max_batch}: "
+                   f"{err['suggestions']}")
+    drift = att["allocated_after"] - att["allocated_before"]
+    if abs(drift) > MEMORY_SLACK:
+        bad.append(f"{what}: allocated bytes {drift:+d} after the OOM "
+                   f"(slack {MEMORY_SLACK})")
+    if att["capturing"]:
+        bad.append(f"{what}: the stream is left capturing")
+    return bad
+
+
+def _tracker_cost(pt, exe, main, scope, cfg, reps=200, rounds=6) -> dict:
+    """What the memory sample after every run costs: memory.on_run timed
+    alone on ResNet-50 O2's feeds and state (microseconds a call), and
+    graphed steps of bench.py's SmallNet at the phase's first batch, fed
+    from the card and fetching the loss (host-bound: the card waits on
+    the executor), in blocks of cfg["tracker_steps"] with the
+    memory_tracker flag on and off in turns, each side first in every
+    other round (milliseconds a step, the median block of each)."""
+    import torch
+    from paddle_tpu_torch import flags, memory, telemetry
+    b = cfg["batches"][0]
+    feed = {n: torch.as_tensor(v, device=exe.device)
+            for n, v in _memory_feed(cfg, b, SEED + 50).items()}
+    state = {n: scope.find_var(n)
+             for n in exe._resolve_state(main, feed, scope)}
+    label = telemetry.program_label(main)
+    memory.on_run(exe, main, label, feed, state)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        memory.on_run(exe, main, label, feed, state)
+    sample_us = (time.perf_counter() - t0) / reps * 1e6
+
+    zc = ZOO["smallnet"]
+    zmain, zstart, zloss = zoo_train_net(pt, zc)
+    zscope, zexe = pt.Scope(), pt.Executor()
+    zexe.run(zstart, scope=zscope)
+    rng = np.random.default_rng(SEED + 51)
+    zfeed = {"img": torch.as_tensor(rng.standard_normal(
+                 (b, 3, zc["img"], zc["img"]), dtype=np.float32),
+                 device=zexe.device),
+             "label": torch.as_tensor(rng.integers(
+                 0, zc["classes"], (b, 1)), device=zexe.device)}
+
+    def step():
+        return zexe.run(zmain, feed=zfeed, fetch_list=[zloss],
+                        scope=zscope)[0]
+
+    for _ in range(3):                  # warm-up, capture, replay
+        step()
+    raw = os.environ.get("PADDLE_TPU_MEMORY_TRACKER")
+    blocks = {"on": [], "off": []}
+    try:
+        for r in range(rounds):
+            for on in ((True, False) if r % 2 == 0 else (False, True)):
+                flags.set("memory_tracker", on)
+                t0 = time.perf_counter()
+                for _ in range(cfg["tracker_steps"]):
+                    loss = step()
+                blocks["on" if on else "off"].append(
+                    (time.perf_counter() - t0) * 1e3 / cfg["tracker_steps"])
+    finally:
+        flags.set("memory_tracker", None if raw is None else raw == "1")
+    return {"sample_us": sample_us, "state_tensors": len(state),
+            "smallnet_batch": b, "smallnet_loss": float(loss.reshape(-1)[0]),
+            "step_ms_on": float(np.median(blocks["on"])),
+            "step_ms_off": float(np.median(blocks["off"])),
+            "blocks": blocks}
+
+
+def _memory_oom_run(pt, conv_cuda, bn_cuda, cfg, fit) -> dict:
+    """The OOM half of phase `memory`, in a process of its own: the card
+    limited to cfg["budget"] (torch.cuda.set_per_process_memory_fraction),
+    the fitted HeadroomModel registered for the program, then (1) an eager
+    step at ceil(oom_factor x max_batch) that must raise errors.OOMError,
+    (2) a batch-`recover` eager step, (3) a graphed step at the OOM batch
+    whose capture must run out of memory (its warm-up, the signature's
+    eager first run, with the limit lifted), (4) batch-`recover` graphed
+    steps that warm up, capture and replay. K1-K6 launches counted over
+    (1)-(2), the eager steps."""
+    import torch
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch import memory, telemetry
+    c = cfg
+    main, startup, loss = memory_train_net(pt, c)
+    scope = pt.Scope()
+    exe = pt.Executor()
+    exe.run(startup, scope=scope)
+    label = telemetry.program_label(main)
+    model = memory.HeadroomModel(fit["fixed_bytes"], fit["per_item_bytes"])
+    max_batch = model.max_batch(c["budget"])
+    memory.set_headroom(label, model, c["budget"])
+    b_oom = math.ceil(c["oom_factor"] * max_batch)
+    feed_oom = _memory_feed(c, b_oom, SEED + 41)
+    feed_ok = _memory_feed(c, c["recover"], SEED + 42)
+    names = set(exe._resolve_state(main, feed_ok, scope)) | set(feed_ok)
+    state_bytes = _scope_state_bytes(pt, exe, main, scope, feed_ok)
+
+    def run(feed, **kw):
+        return float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                             **kw)[0].reshape(-1)[0])
+
+    total = int(torch.cuda.mem_get_info()[1])
+    frac = min(c["budget"] / total, 1.0)
+    torch.cuda.set_per_process_memory_fraction(frac)
+    run(feed_ok, use_jit=False)               # plans, workspaces, Triton
+    conv_cuda.COUNTERS.reset()
+    bn_cuda.COUNTERS.reset()
+    eager = _oom_attempt(lambda: run(feed_oom, use_jit=False))
+    torch.cuda.synchronize()
+    before = eager["allocated_before"]
+    recovered = run(feed_ok, use_jit=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after_recovery = torch.cuda.memory_allocated() - before
+    launches = _kernel_counts(conv_cuda, bn_cuda)
+    bad = _hold_oom("eager", eager, state_bytes, max_batch, names)
+    if not np.isfinite(recovered):
+        bad.append(f"the batch-{c['recover']} step after the OOM: loss "
+                   f"{recovered}")
+    if abs(after_recovery) > MEMORY_SLACK:
+        bad.append(f"allocated bytes {after_recovery:+d} after the recovery "
+                   f"step against before the failed one")
+
+    # a capture that runs out of memory
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    run(feed_oom)                             # the signature's warm-up
+    torch.cuda.set_per_process_memory_fraction(frac)
+    counts = dict(vars(E.COUNTERS))
+    graphed = _oom_attempt(lambda: run(feed_oom))
+    bad += _hold_oom("capture", graphed, state_bytes, max_batch, names)
+    if E.COUNTERS.captures != counts["captures"]:
+        bad.append("the failed capture counted as a capture")
+    r0, c0 = E.COUNTERS.replays, E.COUNTERS.captures
+    steps = [run(feed_ok) for _ in range(3)]  # warm-up, capture, replay
+    replays, captures = E.COUNTERS.replays - r0, E.COUNTERS.captures - c0
+    if (captures, replays) != (1, 2) or not np.all(np.isfinite(steps)):
+        bad.append(f"after the failed capture, batch {c['recover']} graphed: "
+                   f"{captures} captures, {replays} replays, losses {steps}")
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    return {"max_batch": max_batch, "oom_batch": b_oom, "fraction": frac,
+            "state_bytes": state_bytes, "eager": eager,
+            "recovered_loss": recovered,
+            "after_recovery_bytes": after_recovery,
+            "capture": graphed, "graphed_losses": steps,
+            "graphed_captures": captures, "graphed_replays": replays,
+            "launches": launches, "failures": bad}
+
+
+def _memory_oom_fresh(cfg, fit, timeout):
+    """_memory_oom_run in a fresh process of this script (`--memory-oom`),
+    gone after whatever happened (hard timeout)."""
+    d = Path(__file__).resolve().parent / "build"
+    d.mkdir(exist_ok=True)
+    path = d / f"memory-oom-{os.getpid()}.json"
+    out = Path(str(path) + ".out")
+    out.unlink(missing_ok=True)
+    path.write_text(json.dumps({"cfg": cfg, "fit": fit}))
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--memory-oom", str(path)],
+                              capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"memory: the OOM process exited "
+                               f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        return json.loads(out.read_text())
+    finally:
+        path.unlink(missing_ok=True)
+        out.unlink(missing_ok=True)
+
+
+def _memory_oom_main(path) -> int:
+    """The fresh process of _memory_oom_fresh: its result as JSON beside
+    `path`."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import bn_cuda, conv_cuda, cuda_build
+    job = json.loads(Path(path).read_text())
+    cuda_build.build()
+    res = _memory_oom_run(pt, conv_cuda, bn_cuda, job["cfg"], job["fit"])
+    Path(str(path) + ".out").write_text(json.dumps(res, default=str))
+    return 0
+
+
+def _memory_serve(pt, conv_cuda, cfg):
+    """The served model admitted (its analysis seconds), one eager
+    batch-`serve_batch` request measured beside its static estimate, K1's
+    launches counted."""
+    import torch
+    from paddle_tpu_torch import memory
+    from paddle_tpu_torch.serving import ServingEngine
+    main, startup, prob = memory_serve_net(pt, cfg)
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    b = cfg["serve_batch"]
+    engine = ServingEngine(main, ["img"], [prob], buckets=(b,), scope=scope)
+    _print_admission("memory (ResNet-50 O2 served)", engine)
+    feed = {"img": _memory_feed(cfg, b, SEED + 43)["img"]}
+    _eager_request(engine, feed)             # plans, workspaces
+    conv_cuda.COUNTERS.reset()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, = _eager_request(engine, feed)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    k1 = conv_cuda.COUNTERS.launches
+    static = engine._exe.static_memory_analysis(
+        engine.program, feed={"img": _memory_spec(cfg, b)["img"]},
+        fetch_list=engine.fetch_names, scope=engine._scope)
+    if out.shape != (b, cfg["classes"]) or not np.isfinite(out).all():
+        raise RuntimeError(f"memory: the served request gave {out.shape}")
+    state = sum(memory.nbytes_of(v) for v in engine._state.values())
+    return {"admission": engine.admission, "request_peak_bytes": peak,
+            "state_bytes": state,
+            "static_total_bytes": static.total_bytes,
+            "static_over_measured": static.total_bytes / max(peak + state, 1),
+            "k1_launches": k1}
+
+
+def _memory_refusal(pt, counters):
+    """A program with a rank-mismatched `mul` refused by ServingEngine's
+    admission before any bucket runs: ProgramVerifyError, no
+    serving_bucket_runs_total moved, no kernel launched."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.errors import ProgramVerifyError
+    from paddle_tpu_torch.serving import ServingEngine
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data(name="x", shape=[13], dtype="float32")
+        pred = pt.layers.fc(input=x, size=2)
+    scope = pt.Scope()
+    pt.Executor().run(startup, scope=scope)
+    main.global_block().desc.var("x").shape = [-1]
+    def snapshot():
+        return [{k: dict(v) if isinstance(v, dict) else v
+                 for k, v in vars(c).items()} for c in counters]
+
+    runs = telemetry.read_series("serving_bucket_runs_total")
+    launched = snapshot()
+    t0 = time.perf_counter()
+    try:
+        ServingEngine(main, ["x"], [pred], buckets=(1, 4), scope=scope)
+    except ProgramVerifyError as e:
+        codes = [d.code for d in e.diagnostics]
+    else:
+        raise RuntimeError("memory: the rank-mismatched program was admitted")
+    seconds = time.perf_counter() - t0
+    if codes != ["rank-mismatch"] or \
+            telemetry.read_series("serving_bucket_runs_total") != runs or \
+            snapshot() != launched:
+        raise RuntimeError(f"memory: the refusal said {codes}, or a bucket "
+                           f"ran, or a kernel launched")
+    return {"codes": codes, "seconds": seconds}
+
+
+def phase_memory(pt, conv_cuda, bn_cuda, report, cfg=None, counters=()):
+    """Memory and static analysis on ResNet-50 O2 (ROADMAP 10a): the
+    headroom model fitted from measured peaks and validated, the static IR
+    estimate beside each, OOM forensics and recovery eager and in a capture
+    (a fresh process), the served model's admission and request memory,
+    and a broken program refused at admission. -> K1-K6 launches on the
+    path (MEMORY_KERNELS)."""
+    import torch
+    from paddle_tpu_torch import memory, telemetry
+    c = dict(MEMORY, **(cfg or {}))
+    t_phase = time.perf_counter()
+    card = _card_line()
+    main, startup, loss = memory_train_net(pt, c)
+    scope = pt.Scope()
+    exe = pt.Executor()
+    exe.run(startup, scope=scope)
+    label = telemetry.program_label(main)
+    conv_cuda.COUNTERS.reset()
+    bn_cuda.COUNTERS.reset()
+    rows = {}
+
+    def measure(b):
+        feed = _memory_feed(c, b, SEED + 30 + b)
+        exe.measure_memory(main, feed=feed, fetch_list=[loss], scope=scope)
+        rec = exe.measure_memory(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)
+        st = exe.static_memory_analysis(main, feed=_memory_spec(c, b),
+                                        fetch_list=[loss], scope=scope)
+        rows[b] = {"measured_bytes": rec.total_bytes,
+                   "state_and_feeds_bytes": rec.argument_bytes,
+                   "step_bytes": rec.temp_bytes,
+                   "static_bytes": st.total_bytes,
+                   "static_over_measured": st.total_bytes / rec.total_bytes,
+                   "static_top": st.peak["top"][:3]}
+        print(f"memory: batch {b}: measured peak "
+              f"{rec.total_bytes / 2**30:.3f} GiB (state and feeds "
+              f"{rec.argument_bytes / 2**30:.3f}, the step's own "
+              f"{rec.temp_bytes / 2**30:.3f}); static IR estimate "
+              f"{st.total_bytes / 2**30:.3f} GiB, static/measured "
+              f"{st.total_bytes / rec.total_bytes:.3f}", flush=True)
+        return rec
+
+    t0 = time.perf_counter()
+    res = memory.what_if(measure, batches=c["batches"],
+                         budget_bytes=c["budget"], program=label)
+    fit_s = time.perf_counter() - t0
+    model = memory.headroom_for(label)[0]
+    fit_launches = _kernel_counts(conv_cuda, bn_cuda)
+    print(f"memory: HeadroomModel fixed {model.fixed_bytes / 2**30:.3f} GiB "
+          f"+ {model.per_item_bytes / 2**20:.2f} MiB an image: max_batch "
+          f"{res['max_batch']} under {c['budget'] / 2**30:.2f} GiB; measured "
+          f"at it {res.get('measured_bytes', 0) / 2**30:.3f} GiB against "
+          f"{res.get('predicted_bytes', 0) / 2**30:.3f} predicted, rel_err "
+          f"{res.get('rel_err', float('nan')):.4f} (bound {MEMORY_REL_ERR}); "
+          f"{fit_s:.1f} s ({card})", flush=True)
+    failures = []
+    if not res["max_batch"] or res["max_batch"] <= max(c["batches"]):
+        failures.append(f"max_batch {res['max_batch']}")
+    if not res.get("rel_err", 1.0) <= MEMORY_REL_ERR:
+        failures.append(f"rel_err {res.get('rel_err')} > {MEMORY_REL_ERR}")
+    tracker = _tracker_cost(pt, exe, main, scope, c)
+    print(f"memory: the sample after each run: {tracker['sample_us']:.1f} "
+          f"us a call over {tracker['state_tensors']} state tensors; "
+          f"SmallNet's graphed batch-{tracker['smallnet_batch']} steps "
+          f"{tracker['step_ms_on']:.4f} ms with it, "
+          f"{tracker['step_ms_off']:.4f} ms without (median blocks of "
+          f"{c['tracker_steps']}, in turns; blocks {tracker['blocks']})",
+          flush=True)
+    if not np.isfinite(tracker["smallnet_loss"]):
+        failures.append(f"SmallNet's loss {tracker['smallnet_loss']}")
+    # the OOM process shares the card: give it what this one holds unused
+    del exe, scope
+    _settled_reserved()
+
+    t0 = time.perf_counter()
+    oom = _memory_oom_fresh(c, {"fixed_bytes": model.fixed_bytes,
+                                "per_item_bytes": model.per_item_bytes},
+                            c["timeout"])
+    oom_s = time.perf_counter() - t0
+    failures += oom["failures"]
+    for what in ("eager", "capture"):
+        a = oom[what]
+        err = a["error"] or {}
+        top = [(r.get("name"), r.get("kind"))
+               for r in err.get("top_buffers", [])[:4]]
+        print(f"memory: OOM {what} at batch {oom['oom_batch']} under "
+              f"{c['budget'] / 2**30:.2f} GiB: {err.get('first_line')!r} "
+              f"after {a['seconds']:.2f} s; allocated "
+              f"{(a['allocated_after'] - a['allocated_before']) / 2**20:+.2f} "
+              f"MiB after it; top buffers {top}", flush=True)
+    print(f"memory: after the OOMs, batch {c['recover']} ran (loss "
+          f"{oom['recovered_loss']:.5f}, allocated "
+          f"{oom['after_recovery_bytes'] / 2**20:+.2f} MiB) and graphed "
+          f"{oom['graphed_captures']} capture, {oom['graphed_replays']} "
+          f"replays; the OOM process {oom_s:.1f} s", flush=True)
+
+    serve = _memory_serve(pt, conv_cuda, c)
+    print(f"memory: a batch-{c['serve_batch']} served request: peak "
+          f"{serve['request_peak_bytes'] / 2**20:.1f} MiB over "
+          f"{serve['state_bytes'] / 2**20:.1f} MiB of state, static/measured "
+          f"{serve['static_over_measured']:.3f}; K1 {serve['k1_launches']}",
+          flush=True)
+    refusal = _memory_refusal(pt, counters or (conv_cuda.COUNTERS,
+                                               bn_cuda.COUNTERS))
+    admission = {"memory_serve": serve["admission"],
+                 **{p: report[p]["admission"]
+                    for p in ("slice", "serve_q8", "serve_lm")
+                    if p in report}}
+    for p, a in admission.items():
+        if a["error"]:
+            failures.append(f"{p} admitted with {a['error']} errors")
+    launches = {k: fit_launches[k] + oom["launches"][k]
+                for k in MEMORY_KERNELS}
+    launches["conv.launches"] += serve["k1_launches"]
+    if c["device"] == "cuda":
+        missing = [k for k, v in launches.items() if not v]
+        if missing:
+            failures.append(f"{missing} were launched no time")
+    seconds = time.perf_counter() - t_phase
+    print(f"memory: refused the broken program ({refusal['codes']}) in "
+          f"{refusal['seconds']:.3f} s before any bucket; K1-K6 launches "
+          f"{launches}; phase {seconds:.1f} s", flush=True)
+    report["memory"] = {"card": card, "cfg": c, "by_batch": rows,
+                        "what_if": res, "tracker": tracker, "oom": oom,
+                        "serve": serve,
+                        "refusal": refusal, "admission": admission,
+                        "launches": launches, "seconds": seconds}
+    if failures:
+        raise RuntimeError("memory: " + "; ".join(failures))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measurements as JSON here")
@@ -10794,9 +11352,12 @@ def main(argv=None) -> int:
     ap.add_argument("--dir", help=argparse.SUPPRESS)
     ap.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
     ap.add_argument("--dlrm-copies", help=argparse.SUPPRESS)
+    ap.add_argument("--memory-oom", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dlrm_copies:
         return _dlrm_copies_main(args.dlrm_copies)
+    if args.memory_oom:
+        return _memory_oom_main(args.memory_oom)
     if args.rank is not None:
         # one rank process of a sharded phase (_par_launch); it leaves
         # without the interpreter's teardown, where a process group's
@@ -10860,6 +11421,20 @@ def main(argv=None) -> int:
     attn_kernels = phase_kernel_attn(attention_cuda, report)
     lm_launches = phase_train_lm(pt, attention_cuda, report)
     serve_launches = phase_serve_lm(pt, attention_cuda, report)
+    # memory and static analysis (ROADMAP 10a): after the served programs
+    # whose admissions it reports
+    from paddle_tpu_torch.ops import quant_cuda, sparse_cuda
+    mem = phase_memory(pt, conv_cuda, bn_cuda, report, counters=(
+        conv_cuda.COUNTERS, bn_cuda.COUNTERS, attention_cuda.COUNTERS,
+        quant_cuda.COUNTERS, sparse_cuda.COUNTERS))
+    k1["launches_by_path"]["memory"] = mem["conv.launches"]
+    k1["launches"] = sum(k1["launches_by_path"].values())
+    for k, key in zip(train_kernels, ("dgrad_launches", "wgrad_launches",
+                                      "stats_launches", "apply_launches",
+                                      "act_launches")):
+        table = "bn." if key in ("apply_launches", "act_launches") else "conv."
+        k["launches_by_path"]["memory"] = mem[table + key]
+        k["launches"] = sum(k["launches_by_path"].values())
     ring_kernels = phase_kernel_ring(attention_cuda, ring_attention, report,
                                      args.parent)
     ring_launches = phase_train_ring(pt, attention_cuda, report)

@@ -39,6 +39,11 @@ Variable operators (layers/math_op_patch.py), calc_gradient, the tensor
 and loss op families, the save/load ops, the in-program reader layers
 (layers/io.py: open_recordio_file, shuffle, batch, multi_pass,
 double_buffer, read_file, pulled by Executor.run) and the mq2007 dataset.
+Memory and static analysis: device-memory accounting, measured and static
+peaks, the headroom model and OOM forensics (memory.py), the program
+verifier (analysis/: shapes, dataflow, fast-path preflight) that admits
+served programs, the flag registry (flags.py), the typed errors
+(errors.py) and the RNN weight converters (compat.py).
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -84,5 +89,10 @@ from . import dataset
 from . import metrics
 from . import recordio
 from .minibatch import batch
+from . import errors
+from . import flags
+from . import compat
+from . import memory
+from . import analysis
 
 __version__ = "0.1.0"

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from . import flags
 from .framework.framework import (Block, Operator, Parameter, Variable,
                                   grad_var_name)
 from .ops import registry
@@ -83,7 +84,11 @@ _INT_DTYPES = ("bool", "int8", "uint8", "int16", "int32", "int64")
 def _check_silent_zero_grad(block: Block, fwd_op, no_grad: Set[str],
                             produced_count: Dict[str, int]):
     """Raise when a NO_GRAD op sits on the loss path with differentiable
-    inputs: silently emitting no grad op would train quietly wrong."""
+    inputs: silently emitting no grad op would train quietly wrong. The
+    allow_zero_grad flag (PADDLE_TPU_ALLOW_ZERO_GRAD=1) accepts the zero
+    gradients instead."""
+    if flags.get("allow_zero_grad"):
+        return
     if fwd_op.type in _ZERO_GRAD_SAFE:
         return
     opdef = registry.try_get(fwd_op.type)
@@ -105,8 +110,9 @@ def _check_silent_zero_grad(block: Block, fwd_op, no_grad: Set[str],
             f"Operator '{fwd_op.type}' lies on the loss path (outputs "
             f"{needed} need gradients) but registers no gradient; its "
             f"differentiable inputs {diff_ins} would silently receive zero "
-            f"gradient. Register a grad maker for '{fwd_op.type}' or mark "
-            f"the inputs stop_gradient.")
+            f"gradient. Register a grad maker for '{fwd_op.type}', mark "
+            f"the inputs stop_gradient, or set PADDLE_TPU_ALLOW_ZERO_GRAD=1 "
+            f"to accept zero gradients.")
 
 
 def append_backward(loss: Variable, parameter_list: Optional[Sequence] = None,
@@ -119,6 +125,13 @@ def append_backward(loss: Variable, parameter_list: Optional[Sequence] = None,
     if loss.block.idx != 0:
         raise ValueError("loss must live in the root block")
     no_grad = _collect_no_grad(block, no_grad_set)
+    # the loss, for the analyzer's default fetch set (analysis/__init__.py
+    # PassContext; JAX backward.py:135-142)
+    losses = getattr(program, "_loss_names", None)
+    if losses is None:
+        losses = program._loss_names = []
+    if loss.name not in losses:
+        losses.append(loss.name)
     rel = _relevant_op_indices(block, loss.name)
 
     # seed: d loss / d loss = 1

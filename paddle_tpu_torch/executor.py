@@ -57,7 +57,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import flags as flags_mod
+from . import memory as memory_mod
 from . import quant
+from .errors import EnforceNotMet
 from .framework.desc import BlockRef, BlocksRef
 from .framework.framework import (Program, Variable, default_main_program,
                                   op_external_reads)
@@ -333,11 +336,6 @@ def scope_guard(scope: Scope):
         _scope_stack.pop()
 
 
-class EnforceNotMet(RuntimeError):
-    """An op lowering failed; the message names the op, its variables, the
-    live input shapes and the user line that built it."""
-
-
 # ---------------------------------------------------------------------------
 # Lowering context handed to op lowerings
 # ---------------------------------------------------------------------------
@@ -600,6 +598,29 @@ HOST_IO_OPS = frozenset({"save", "save_combine", "load", "load_combine"})
 HOST_METRIC_OPS = frozenset({"detection_map"})
 
 
+# opt-in static verification (paddle_tpu_torch.analysis; JAX
+# executor.py:293-297): error-severity diagnostics raise
+# errors.ProgramVerifyError before a program's first op, pointing at the
+# op's creation site instead of a lowering's traceback
+_VERIFY = os.environ.get("PADDLE_TPU_VERIFY", "0") == "1"
+
+# PADDLE_TPU_EAGER=1 as the process started (the eager flag; JAX
+# executor.py:284): a run whose caller leaves use_jit unset runs eager
+_EAGER = flags_mod.snapshot("eager")
+
+
+def vlog(level: int, msg: str):
+    """glog-style leveled logging to stderr (reference VLOG; JAX
+    executor.py:345): on where the vlog flag, read at every call
+    (PADDLE_TPU_VLOG=<level> or flags.set("vlog", n)), is `level` or
+    more."""
+    if level <= int(flags_mod.get("vlog") or 0):
+        import datetime
+        import sys
+        ts = datetime.datetime.now().strftime("%H:%M:%S.%f")[:-3]
+        print(f"V{level} {ts} paddle_tpu_torch] {msg}", file=sys.stderr)
+
+
 def telemetry_fetch_enabled() -> bool:
     """PADDLE_TPU_TELEMETRY_FETCH (default on; JAX executor.py:290), read
     at every run: the program's `_telemetry_fetch_extra` marks (the clip
@@ -716,8 +737,21 @@ def capture_graph(body, pool=None, keep=False, generators=()):
     graph = torch.cuda.CUDAGraph(keep_graph=keep)
     for g in generators:
         graph.register_generator_state(g)
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+    cm = torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")
+    cm.__enter__()
+    try:
         body()
+    except BaseException:
+        # a body that raised (an allocation past the card's memory) still
+        # ends the capture and leaves the capture stream, even where ending
+        # the capture fails too; the partial graph and its pool go with
+        # the caller's last reference to them
+        try:
+            cm.__exit__(None, None, None)
+        except Exception:
+            cm.stream_ctx.__exit__(None, None, None)
+        raise
+    cm.__exit__(None, None, None)
     if keep:
         graph.instantiate()
     return graph
@@ -833,18 +867,29 @@ class PreparedProgram:
 
     def run(self, feed: Dict[str, torch.Tensor],
             state: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """One eager run: the fetches. A run that runs the card out of
+        memory raises errors.OOMError."""
         env = self._env_after(feed, state)
         return [env[n] for n in self.fetch_names]
 
-    def _env_after(self, feed, state) -> Dict[str, Any]:
+    def _env_after(self, feed, state, capturing=False) -> Dict[str, Any]:
         """The environment after one eager run: fetches, persistable
-        outputs and state."""
+        outputs and state. A run that fails has its environment pinned on
+        the exception for OOM forensics; outside a capture an OOM is
+        raised as errors.OOMError here (a capture's, once the capture has
+        ended)."""
         env = dict(state)
         env.update(feed)
         ctx = LoweringContext(self.executor, self.program, 0)
         ctx.folds = self.folds
-        self.executor._run_block(ctx, self.program, env, self.groups,
-                                 self.protected, self.drops, self.keep)
+        try:
+            self.executor._run_block(ctx, self.program, env, self.groups,
+                                     self.protected, self.drops, self.keep)
+        except Exception as e:
+            e.__dict__["step_env"] = env
+            if not capturing:
+                self.executor._raise_oom(self.program, e, feed, state)
+            raise
         return env
 
     def capture(self, feeds: Dict[str, torch.Tensor],
@@ -869,11 +914,13 @@ class PreparedProgram:
         fetches: List[torch.Tensor] = []
 
         def body():
-            fetches[:] = self.run(feeds, state)
+            env = self._env_after(feeds, state, capturing=True)
+            fetches[:] = [env[n] for n in self.fetch_names]
 
         try:
             graph = capture_graph(body, pool)
         except Exception as e:
+            self.executor._raise_oom(self.program, e, feeds, state)
             raise RuntimeError(
                 f"CUDA graph capture of a serving bucket "
                 f"({ {n: tuple(v.shape) for n, v in feeds.items()} }) "
@@ -951,14 +998,22 @@ class Executor:
     fetches come back as copies. The graphs share one memory pool,
     and at most GRAPH_CACHE_SIZE signatures keep theirs. The key also
     holds `sparse_ops.cache_token` (PADDLE_TPU_SPARSE_APPLY, the program's
-    hot-row cache). `use_jit=False` runs eager. Either way an env entry
+    hot-row cache). `use_jit=False` runs eager, and so does a run
+    that leaves it unset under PADDLE_TPU_EAGER=1. Either way an env entry
     goes once its last reader has run (`liveness`), unless it is fetched,
     a persistable output or state.
 
     A program with a hot-row embedding cache (parallel/emb_cache.py) has
     its cached ids remapped to slab slots on the host before they cross
     (`prepare_feed`), and records the end of each run for the cache's
-    copy stream (`window_dispatched`)."""
+    copy stream (`window_dispatched`).
+
+    Memory (memory.py): each run or window is sampled into the hbm_*
+    gauges (memory.on_run); a step that runs the card out of memory, eager
+    or in a capture, raises errors.OOMError (`_raise_oom`);
+    `measure_memory` and `static_memory_analysis` give a step's measured
+    and estimated footprint. With PADDLE_TPU_VERIFY=1 a program is
+    analysed once per version before its first op (`_maybe_verify`)."""
 
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else default_place()
@@ -975,6 +1030,8 @@ class Executor:
         # a graph that draws from it can register it (ctx.generator)
         self._generators: Dict[str, torch.Generator] = {}
         self._consts: Dict[tuple, torch.Tensor] = {}
+        # (id, version) -> the program PADDLE_TPU_VERIFY admitted
+        self._verified_programs: Dict[tuple, Program] = {}
 
     def constant(self, values, dtype: torch.dtype) -> torch.Tensor:
         """A host array (a static attr's values) on this Executor's device,
@@ -1016,6 +1073,7 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         feed = self._pull_readers(program, feed)
         fetch_names = _names(fetch_list)
+        self._maybe_verify(program, list(feed or {}), fetch_names)
         n_user = len(fetch_names)
         extra = self._telemetry_extra(program, fetch_names)
         fetch_names += [n for _, n in extra]
@@ -1042,9 +1100,14 @@ class Executor:
         rng_counter = scope.find_var("__rng_counter__") or 0
         reason = self.graph_gate(program, feed_vals, use_jit,
                                  use_program_cache)
-        fetch, written, lens = self._step(program, state, feed_vals,
-                                          fetch_names, persist_out,
-                                          rng_counter, reason)
+        try:
+            fetch, written, lens = self._step(program, state, feed_vals,
+                                              fetch_names, persist_out,
+                                              rng_counter, reason)
+        except Exception as e:
+            self._raise_oom(program, e, feed_vals, state)
+            raise
+        self._sample_memory(program, feed_vals, state)
         if cache is not None:
             cache.window_dispatched()
         scope.set_var("__rng_counter__", rng_counter + 1)
@@ -1210,6 +1273,7 @@ class Executor:
         if cache is not None:
             stacked = cache.prepare_feed(stacked)
         fetch_names = _names(fetch_list)
+        self._maybe_verify(program, list(stacked), fetch_names)
         feed_vals = {n: _to_device(v, self.device) for n, v in stacked.items()}
         state_names = self._resolve_state(program, feed_vals, scope)
         persist_out = self._persistable_outputs(program)
@@ -1220,12 +1284,17 @@ class Executor:
         for i in range(steps):
             feed_i = {n: v[i] for n, v in feed_vals.items()}
             reason = self.graph_gate(program, feed_i, use_jit, True)
-            fetch, out, _lens = self._step(
-                program, state, feed_i, fetch_names, persist_out,
-                rng_counter + i, reason, hand_out=i == steps - 1)
+            try:
+                fetch, out, _lens = self._step(
+                    program, state, feed_i, fetch_names, persist_out,
+                    rng_counter + i, reason, hand_out=i == steps - 1)
+            except Exception as e:
+                self._raise_oom(program, e, feed_vals, state)
+                raise
             written.update(out)
             state.update({n: v for n, v in out.items() if n in state})
             fetched.append(fetch)
+        self._sample_memory(program, feed_vals, state)
         if cache is not None:
             cache.window_dispatched()
         scope.set_var("__rng_counter__", rng_counter + steps)
@@ -1253,6 +1322,8 @@ class Executor:
         if len(per_step) > 1:
             COUNTERS.window_fallbacks[reason] = \
                 COUNTERS.window_fallbacks.get(reason, 0) + 1
+            vlog(1, f"run_steps window of {len(per_step)} steps served one "
+                    f"run() a step ({reason})")
         outs = []
         for f in per_step:
             vals = self.run(program, feed=f, fetch_list=fetch_list,
@@ -1282,10 +1353,130 @@ class Executor:
         return PreparedProgram(self, program, feed_names, list(fetch_names),
                                state_names, self._persistable_outputs(program))
 
+    # --- verification and memory -----------------------------------------
+    def _maybe_verify(self, program, feed_names, fetch_names):
+        """PADDLE_TPU_VERIFY=1: run the static analyzer once per program
+        version (JAX executor.py:1990), so a verified program costs one
+        set lookup a run after, and refuse a program with error-severity
+        diagnostics before its first op."""
+        if not _VERIFY:
+            return
+        key = (id(program), getattr(program, "_version", 0))
+        seen = self._verified_programs
+        if seen.get(key) is program:
+            return
+        from .analysis import analyze_program
+        report = analyze_program(program, feeds=list(feed_names),
+                                 fetches=list(fetch_names))
+        if report.errors:
+            from .errors import ProgramVerifyError
+            raise ProgramVerifyError(
+                report.errors, program_name=getattr(program, "name", None))
+        seen[key] = program
+
+    def _raise_oom(self, program, exc, feed, state):
+        """Raise the errors.OOMError that replaces `exc` when it is the card
+        running out of memory (memory.maybe_oom_error, JAX
+        executor.py:900, :1225, :1329); return otherwise. The error is
+        raised from a frame that keeps no reference to it, and the failed
+        step's frames are cleared, so that once the caller drops the error
+        the step's tensors are free."""
+        from . import telemetry
+        err = memory_mod.maybe_oom_error(
+            self, program, telemetry.program_label(program), exc, feed,
+            state)
+        if err is None:
+            return
+        err.__cause__ = exc
+        try:
+            raise err
+        finally:
+            del err, exc
+
+    def _sample_memory(self, program, feed, state):
+        """One memory.on_run sample after a run or a window: advisory, it
+        never fails the step."""
+        try:
+            from . import telemetry
+            memory_mod.on_run(self, program, telemetry.program_label(program),
+                              feed, state)
+        except Exception:
+            pass
+
+    def _memory_inputs(self, program, feed, scope):
+        """(feed specs, state tensors) of a step of `program` on `feed`,
+        for the memory analyses: meta tensors (or anything with a shape and
+        a dtype) and (shape, dtype) specs pass as they are; arrays are
+        measured, never moved."""
+        feed_vals = {}
+        for name, val in dict(feed or {}).items():
+            if isinstance(val, LoDTensor):
+                val = np.asarray(val.array())
+            if isinstance(val, tuple):
+                val = memory_mod._spec_tensor(val)
+            elif not (hasattr(val, "shape") and hasattr(val, "dtype")):
+                val = np.asarray(val)
+            feed_vals[name] = val
+        state_names = self._resolve_state(program, feed_vals, scope)
+        state = {n: scope.find_var(n) for n in state_names}
+        return feed_vals, {n: v.array() if isinstance(v, LoDTensor) else v
+                           for n, v in state.items()}
+
+    def static_memory_analysis(self, program=None, feed=None,
+                               fetch_list=None, scope=None, top_k=8):
+        """The memory footprint of one run of `program` on feeds of these
+        shapes, from the IR alone (memory.program_peak_liveness: the bytes
+        of live variables at each op, the batch substituted into the
+        inferred shapes, the executor's own liveness over its fusion
+        windows): no step runs and no feed is allocated, so feeds may be
+        meta tensors (`torch.empty(shape, dtype=..., device="meta")`) or
+        (shape, dtype) specs at any batch. Returns the
+        memory.ProgramMemory record (also kept in memory.records())."""
+        from . import telemetry
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        feed_vals, state = self._memory_inputs(program, feed, scope)
+        return memory_mod.analyze(
+            program, feed_vals, state, _names(fetch_list),
+            program_label=telemetry.program_label(program),
+            place=f"{type(self.place).__name__}:{self.place.device_id}",
+            top_k=top_k)
+
+    def measure_memory(self, program=None, feed=None, fetch_list=None,
+                       scope=None):
+        """Run one eager step of `program` on `feed` (use_jit=False: a
+        graph's pool would hide the step's own peak) under
+        torch.cuda.reset_peak_memory_stats(), and record the allocator's
+        peak over the bytes held before the step, with the state the step
+        reads, as a memory.ProgramMemory (source "measured"). The step is
+        a real one: it updates the state. Needs a CUDA place."""
+        from . import telemetry
+        if self.device.type != "cuda":
+            raise ValueError("measure_memory reads the CUDA caching "
+                             "allocator's peak: it needs a CUDA place "
+                             "(static_memory_analysis works anywhere)")
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        feed_vals, state = self._memory_inputs(program, feed, scope)
+        state_bytes = sum(memory_mod.nbytes_of(v) for v in state.values())
+        feed_bytes = sum(memory_mod.nbytes_of(v) for v in feed_vals.values())
+        torch.cuda.synchronize(self.device)
+        before = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
+                 use_jit=False)
+        torch.cuda.synchronize(self.device)
+        step = torch.cuda.max_memory_allocated(self.device) - before
+        return memory_mod.measured(
+            telemetry.program_label(program),
+            f"{type(self.place).__name__}:{self.place.device_id}",
+            feed_vals, state_bytes, step, feed_bytes)
+
     def graph_gate(self, program, feed, use_jit=None,
                    use_program_cache=True) -> Optional[str]:
         """None when a step of `program` on `feed` may run as a CUDA graph,
-        else the reason it runs eager: "use_jit" (use_jit=False), "cpu"
+        else the reason it runs eager: "use_jit" (use_jit=False, or unset
+        under PADDLE_TPU_EAGER=1), "cpu"
         (not a CUDA place), "no_program_cache" (use_program_cache=False),
         "startup" (the block reads nothing but its feeds and writes
         persistables: an initialiser, run once a scope, whose graph would
@@ -1303,7 +1494,7 @@ class Executor:
         (RANDOM_OPS), and so is a LoD feed: its lengths are feeds of the
         graph, each padded length its own signature; so is an `rnn`, whose
         trip count is the padded length."""
-        if use_jit is False:
+        if use_jit is False or (use_jit is None and _EAGER):
             return "use_jit"
         if self.device.type != "cuda":
             return "cpu"
@@ -1422,9 +1613,18 @@ class Executor:
                 COUNTERS.warmups += 1
             else:
                 self._graphs.move_to_end(key)
-                return self._graphed(entry, program, state, feed,
-                                     fetch_names, persist_out, rng_counter,
-                                     hand_out, spmd_seed)
+                try:
+                    return self._graphed(entry, program, state, feed,
+                                         fetch_names, persist_out,
+                                         rng_counter, hand_out, spmd_seed)
+                except BaseException:
+                    if entry.graph is None:
+                        # the capture failed: the signature warms up again
+                        # next time, and the state buffers no graph reads
+                        # go (an OOM's memory goes back with them)
+                        self._graphs.pop(key, None)
+                        self._evict()
+                    raise
         else:
             COUNTERS.eager[reason] = COUNTERS.eager.get(reason, 0) + 1
         env = dict(state)
@@ -1433,8 +1633,14 @@ class Executor:
         ctx.spmd = _spmd_for(spmd_seed, env)
         groups, drops, _ = self._block_plan(program)
         protected = set(fetch_names) | set(persist_out)
-        self._run_block(ctx, program, env, groups, protected, drops,
-                        protected | set(state))
+        try:
+            self._run_block(ctx, program, env, groups, protected, drops,
+                            protected | set(state))
+        except Exception as e:
+            # the failed step's tensors by name, for OOM forensics
+            # (memory.maybe_oom_error reads and drops it)
+            e.__dict__["step_env"] = env
+            raise
         if ctx.spmd is not None:
             out = _spmd_outputs(ctx.spmd, env, fetch_names, persist_out)
         else:
@@ -1537,8 +1743,13 @@ class Executor:
             ctx = LoweringContext(self, program, rng_counter)
             ctx.capturing = True
             ctx.spmd = _spmd_for(spmd_seed, env)
-            self._run_block(ctx, program, env, groups, protected, drops,
-                            protected | set(state))
+            try:
+                self._run_block(ctx, program, env, groups, protected, drops,
+                                protected | set(state))
+            except Exception as e:
+                # the captured step's tensors by name, for OOM forensics
+                e.__dict__["step_env"] = env
+                raise
             if ctx.spmd is not None:
                 fetches, written, entry.lens = _spmd_outputs(
                     ctx.spmd, env, fetch_names, persist_out)
@@ -1561,6 +1772,8 @@ class Executor:
         try:
             graph = capture_graph(body, self._pool, **kw)
         except Exception as e:
+            if memory_mod.is_oom(e):
+                raise           # Executor.run makes it an OOMError
             raise RuntimeError(
                 f"CUDA graph capture of a step of program {id(program)} "
                 f"failed ({type(e).__name__}: {e}); run it with "
@@ -1642,7 +1855,8 @@ class Executor:
                 f"  inputs: {dict(op.desc.inputs)}\n"
                 f"  input shapes: {shapes}\n"
                 f"  outputs: {dict(op.desc.outputs)}\n"
-                f"  built at: {op.creation_site or '<unknown>'}") from e
+                f"  built at: {op.creation_site or '<unknown>'}",
+                op_type=op.type, creation_site=op.creation_site) from e
         for slot, names in op.desc.outputs.items():
             for name, val in zip(names, outs.get(slot, [])):
                 if val is not None:

@@ -161,6 +161,19 @@ def try_get(type: str) -> Optional[OpDef]:
     return d
 
 
+def static_infer(type: str):
+    """The shape rule the static analyzer uses for `type` (analysis/infer.py,
+    the JAX package's registry.static_infer): the registered infer_shape,
+    the generic grad mirror for any `<base>_grad` of a registered base, or
+    None. Unlike try_get it never adds a lazy grad entry."""
+    d = _REGISTRY.get(type)
+    if d is not None and d.infer_shape is not None:
+        return d.infer_shape
+    if type.endswith("_grad") and type[: -len("_grad")] in _REGISTRY:
+        return infer_grad_shapes
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Generic gradient machinery
 # ---------------------------------------------------------------------------

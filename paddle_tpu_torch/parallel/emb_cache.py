@@ -61,8 +61,8 @@ import torch
 
 __all__ = [
     "CACHE_AWARE_OPS", "cache_enabled", "request_cache", "requested_rows",
-    "rows_for_budget", "enable", "enable_serving", "active_cache",
-    "EmbCache",
+    "rows_for_budget", "budget_from_headroom", "enable", "enable_serving",
+    "active_cache", "EmbCache",
 ]
 
 
@@ -112,6 +112,19 @@ def rows_for_budget(budget_bytes: int, dim: int, itemsize: int,
     accumulator."""
     row_bytes = max(1, int(dim) * int(itemsize) * max(1, int(n_state)))
     return max(0, int(budget_bytes) // row_bytes)
+
+
+def budget_from_headroom(model, batch: int, limit_bytes: Optional[int] = None,
+                         window_feed_bytes: int = 0) -> int:
+    """Device bytes left for cache slabs (emb_cache.py:129): the memory
+    limit (memory.default_budget: the card's, unless given) less the
+    memory.HeadroomModel's predicted peak at `batch`, less the window's
+    feed buffer (run_steps stages K batches on the card). Fit the model
+    from measured peaks (Executor.measure_memory), then size the cache
+    from what is left."""
+    from .. import memory as memory_mod
+    limit = int(limit_bytes) if limit_bytes else memory_mod.default_budget()
+    return int(model.headroom(limit, batch)) - int(window_feed_bytes)
 
 
 def _host_slab(v: torch.Tensor) -> torch.Tensor:
@@ -679,7 +692,9 @@ def _as_tensor(v) -> torch.Tensor:
 
 def enable(program, budget_bytes: Optional[int] = None,
            tables: Optional[Dict[str, int]] = None,
-           scope=None) -> Optional[EmbCache]:
+           scope=None, headroom=None, batch: Optional[int] = None,
+           limit_bytes: Optional[int] = None,
+           window_feed_bytes: int = 0) -> Optional[EmbCache]:
     """Activate the hot-row cache on `program`, after the startup program
     (and the optimizer's minimize) ran: the table and its accumulators
     must be in the scope.
@@ -687,11 +702,14 @@ def enable(program, budget_bytes: Optional[int] = None,
     cache_rows per table: an explicit `tables={name: cache_rows}` entry, a
     layers.embedding(cache_rows=N) request, or `budget_bytes` split evenly
     over the other tables (a row costs dim * itemsize * (1 +
-    accumulators)). A table whose cache would hold it whole stays
-    uncached. Each cached state var's full value moves to a host slab, and
-    the scope gets a [cache_rows, dim] slab of zeros on the var's device;
-    the cache goes on `program._emb_cache`, and the executor remaps feeds
-    from then on. Returns the cache, or None when PADDLE_TPU_EMB_CACHE is
+    accumulators)); or, with `headroom=` (a memory.HeadroomModel) and
+    `batch=`, the budget `budget_from_headroom` leaves under
+    `limit_bytes` (memory.default_budget by default) after the window's
+    feed buffer `window_feed_bytes`. A table whose cache would hold it
+    whole stays uncached. Each cached state var's full value moves to a
+    host slab, and the scope gets a [cache_rows, dim] slab of zeros on the
+    var's device; the cache goes on `program._emb_cache`, and the executor
+    remaps feeds from then on. Returns the cache, or None when PADDLE_TPU_EMB_CACHE is
     off or nothing needs caching."""
     if not cache_enabled():
         return None
@@ -703,6 +721,11 @@ def enable(program, budget_bytes: Optional[int] = None,
     requested = requested_rows(program)
     only = list(tables) if tables is not None else \
         (list(requested) if requested else None)
+    if budget_bytes is None and headroom is not None:
+        if batch is None:
+            raise ValueError("enable(headroom=...) needs batch=")
+        budget_bytes = budget_from_headroom(
+            headroom, batch, limit_bytes, window_feed_bytes)
     found = _discover(program, only)
     if not found:
         return None

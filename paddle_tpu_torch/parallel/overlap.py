@@ -304,15 +304,17 @@ def choose_steps_per_call(python_overhead_ms: Optional[float] = None,
                           budget_bytes: Optional[int] = None,
                           target_overhead_frac: float = 0.02,
                           lo: int = 1, hi: int = 64) -> int:
-    """The run_steps window K: large enough that host dispatch is at most
-    `target_overhead_frac` of the step (K = ceil(overhead / (frac *
-    step))), clamped to [lo, hi]. The memory bound (the JAX package's
-    HeadroomModel over the feed window) comes with memory.py, ROADMAP item
-    10: asking for it raises."""
-    if feed_bytes_per_step and budget_bytes:
-        raise NotImplementedError(
-            "choose_steps_per_call's memory bound needs "
-            "memory.HeadroomModel (ROADMAP item 10)")
+    """The run_steps window K (overlap.py:505).
+
+    Amortization: with K steps a call the per-step host cost is
+    overhead/K, so K = ceil(overhead / (frac * step_time)) caps host
+    dispatch at `target_overhead_frac` of the step. Memory: the stacked
+    [K, B, ...] feed window grows linearly in K on top of the K=1
+    footprint, the linear shape memory.HeadroomModel fits for batch sizes
+    — max_batch(budget) over (fixed = peak - one window, per_item = one
+    window) bounds K to the device's headroom. No timing signal means 'as
+    large as memory allows', no memory signal the amortization value
+    alone, neither `hi`. Clamped to [lo, hi]."""
     lo = max(1, int(lo))
     hi = max(lo, int(hi))
     k = hi
@@ -320,4 +322,13 @@ def choose_steps_per_call(python_overhead_ms: Optional[float] = None,
             and target_overhead_frac > 0:
         need = python_overhead_ms / (target_overhead_frac * step_time_ms)
         k = min(k, max(lo, int(math.ceil(need))))
+    if feed_bytes_per_step and budget_bytes:
+        from ..memory import HeadroomModel
+        model = HeadroomModel(
+            fixed_bytes=max(0.0, float(peak_bytes or 0)
+                            - float(feed_bytes_per_step)),
+            per_item_bytes=float(feed_bytes_per_step))
+        k_mem = model.max_batch(int(budget_bytes))
+        if k_mem is not None:
+            k = min(k, max(lo, k_mem))
     return max(lo, min(k, hi))

@@ -9,7 +9,9 @@ paddle_tpu/serving/engine.py `ServingEngine`).
     names, its weights read from `scope` or the global scope.
   * **Admission**: the program is stripped of training ops, pruned to the
     inference fetch set, cloned `for_test`, and refused if a training-only
-    op survived or a fetch is not computable from the feeds.
+    op survived, a fetch is not computable from the feeds, or the static
+    analyzer (analysis.analyze_program) finds an error-severity diagnostic
+    (errors.ProgramVerifyError), before any bucket warms up.
   * **Quantization** (`quantize="int8"` or `"fp8"`, AMP O3): the program
     is marked O3 in that mode and every quantizable weight is checked for
     the report (quant.prequantize, `quant_report`; conv filters in int8
@@ -76,6 +78,7 @@ import torch
 from .. import io as io_mod
 from .. import quant as quant_mod
 from .. import telemetry
+from ..errors import ProgramVerifyError
 from ..executor import (CUDAPlace, Executor, LoDTensor, Scope, global_scope,
                         scope_guard, _to_device)
 from ..framework.framework import Variable
@@ -272,8 +275,12 @@ class ServingEngine:
 
     # --- admission ----------------------------------------------------------
     def _admit(self, program, feed_names, fetch_names):
-        """Training-op leak check (the JAX package's _admit minus the
-        static-analyzer gate, which a later slice ports)."""
+        """Admission (the JAX package's _admit, engine.py:240-273): refuse
+        a program where a training-only op survived pruning or a fetch is
+        not computable from the feeds, then run the static analyzer
+        (analysis.analyze_program) and refuse one with error-severity
+        diagnostics (errors.ProgramVerifyError), before any bucket warms
+        up. `self.admission` keeps the analysis's seconds and counts."""
         leaked = [
             f"op[{i}] {op.type} (role={op.desc.attrs.get('op_role')})"
             for i, op in enumerate(program.global_block().ops)
@@ -292,8 +299,18 @@ class ServingEngine:
                 raise ValueError(
                     f"refusing to serve: fetch '{n}' is not computable from "
                     f"the feeds — no op in the pruned program produces it")
+        from ..analysis import analyze_program
+        t0 = time.perf_counter()
+        report = analyze_program(program, feeds=list(feed_names),
+                                 fetches=list(fetch_names))
+        self.admission = {"seconds": time.perf_counter() - t0,
+                          **report.counts()}
+        if report.errors:
+            raise ProgramVerifyError(report.errors,
+                                     program_name="serving admission")
         telemetry.log_event("serving_admit", program=self._label,
-                            ops=len(program.global_block().ops))
+                            ops=len(program.global_block().ops),
+                            warnings=len(report.warnings))
 
     # --- bucket cache -------------------------------------------------------
     def bucket_for(self, n: int) -> int:

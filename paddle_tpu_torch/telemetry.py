@@ -423,4 +423,13 @@ METRIC_CATALOG = {
                                    "embedding prefetch batches staged"),
     "emb_cache_prefetch_overlap_fraction": _m(
         "gauge", (), "prefetch time hidden under compute"),
+    # memory (memory.py)
+    "oom_errors_total": _m("counter", ("program",),
+                           "device OOMs classified by the executor"),
+    "hbm_bytes_in_use": _m("gauge", ("device",),
+                           "live device bytes (tracker)"),
+    "hbm_peak_bytes": _m("gauge", ("device",), "peak device bytes"),
+    "hbm_limit_bytes": _m("gauge", ("device",), "device memory capacity"),
+    "hbm_class_bytes": _m("gauge", ("device", "kind"),
+                          "device bytes by allocation class"),
 }

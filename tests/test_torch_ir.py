@@ -155,8 +155,27 @@ def test_import_without_jax():
             "paddle_tpu_torch.reader.creator, paddle_tpu_torch.dataset, "
             "paddle_tpu_torch.recordio, paddle_tpu_torch.data_feeder, "
             "paddle_tpu_torch.minibatch, paddle_tpu_torch.nets, "
-            "paddle_tpu_torch.models.mnist; "
+            "paddle_tpu_torch.models.mnist, paddle_tpu_torch.memory, "
+            "paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.infer, "
+            "paddle_tpu_torch.analysis.dataflow, "
+            "paddle_tpu_torch.analysis.preflight, paddle_tpu_torch.flags, "
+            "paddle_tpu_torch.compat; "
             "paddle_tpu_torch.recordio._load(); "
+            "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
+            "for m in sys.modules); print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_package_import_brings_the_memory_and_analysis_modules():
+    """`import paddle_tpu_torch` alone, jax blocked, loads memory, analysis,
+    flags, compat and errors, and nothing of the JAX package."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import paddle_tpu_torch; "
+            "assert all(f'paddle_tpu_torch.{m}' in sys.modules for m in "
+            "('memory', 'analysis', 'flags', 'compat', 'errors')); "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
             "for m in sys.modules); print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -168,9 +187,10 @@ def test_import_without_jax():
 @pytest.mark.parametrize("module", [
     "errors", "telemetry", "tracing", "serving.batcher", "serving.harness",
     "serving.slo", "ops.sparse_ops", "ops.sparse_cuda", "parallel.embedding",
-    "parallel.emb_cache"])
+    "parallel.emb_cache", "memory", "analysis", "analysis.infer",
+    "analysis.dataflow", "analysis.preflight", "flags", "compat"])
 def test_serving_modules_import_alone_without_jax(module):
-    """Each module of the serving and sparse-embedding slices, imported
+    """Each module of the serving, sparse-embedding and memory slices, imported
     first and alone with jax blocked, brings in neither jax nor anything of
     the JAX package."""
     code = ("import sys; sys.modules['jax'] = None; "
