@@ -363,7 +363,27 @@ against its plain PyTorch version on the card:
               detection_map op on the card (eager under host_metric, its
               host reads counted) against DetectionMAP's arithmetic over
               three batches;
- 33. result   the kernel table as one JSON line, the card line, then
+ 33. observe  the numeric-health plane (ROADMAP 10b-1): ResNet-50 O2 at
+              batch 32, graphed, 48 steps instrumented (auto probes and a
+              GradientAudit over every trainable parameter, T1 on each),
+              dynamics at period 16, the flight recorder, the step log and
+              tracing on: T1 held to its plain version on every probe of
+              one step (counts exact), the three sampled dynamics rows to
+              a host recomputation from copies of W_old, W_new and G, two
+              graphs for the signature, K1-K6 launches probed against
+              unprobed, the step with the plane on and off in turns; the
+              LM O2 under check_nan_inf, graphed: after three clean steps
+              one FFN weight element set to inf, the next step raising
+              NonFiniteError naming the weight's first reader in at most
+              ceil(log2(n/8)) + 2 eager replays, the eager per-op scan
+              naming the same op, the scope bitwise as before the step
+              and the rng counter not advanced, the crash report read
+              back; the exports (Prometheus text, the step log, both
+              chrome traces) parsed; the plane's host cost when off on
+              SmallNet's graphed batch-8 step and the memory sample's
+              cost; T1 timed per probe beside its plain version and
+              bound;
+ 34. result   the kernel table as one JSON line, the card line, then
               {"ok": true, "device": {...}} as the last line.
 
 Every phase is fatal: a failure raises and the script exits non-zero
@@ -469,6 +489,8 @@ TRACE_KERNELS = {
     "q1.total": r"q8_tensor_kernel|quant_rows_kernel|quant_cols_kernel"
                 r"|dequant_kernel",
     "sparse.launches": r"sparse_apply_kernel<",
+    # T1: its first stage, once a call
+    "stats.launches": r"_stats_partial_body",
 }
 
 
@@ -1573,11 +1595,8 @@ def _q8_splits_hold(conv_cuda, x, w, s, p, d, dq, want):
     ks = {1, plan.splits if plan.splits > 1 else min(4, plan.steps)}
     want32 = conv_cuda.conv2d_q8_reference(x, w, s, p, d, dq,
                                            out_dtype=torch.float32)
-    for k in sorted(ks):
-        per = -(-plan.steps // k)
-        alt = dataclasses.replace(plan, splits=-(-plan.steps // per), per=per,
-                                  stages=min(plan.stages, max(per, 2)))
-        conv_cuda.conv_plan = lambda *a, _alt=alt, **kw: _alt
+    def run(alt):
+        conv_cuda.conv_plan = lambda *a, **kw: alt
         try:
             y = conv_cuda.conv2d_q8(x, w, s, p, d, dq)
             y32 = conv_cuda.conv2d_q8(x, w, s, p, d, dq,
@@ -1585,10 +1604,30 @@ def _q8_splits_hold(conv_cuda, x, w, s, p, d, dq, want):
         finally:
             conv_cuda.conv_plan = planner
         torch.cuda.synchronize()
+        return y, y32
+
+    def off(got, ref):
+        bad = got != ref
+        rows = bad.reshape(-1, bad.shape[-1]).any(1).nonzero().flatten()
+        return (f"{int(bad.sum())} of {bad.numel()} elements off by at most "
+                f"{(got.float() - ref.float()).abs().max().item():.6g}, rows "
+                f"{rows[:8].tolist()}{'...' if len(rows) > 8 else ''}")
+
+    for k in sorted(ks):
+        per = -(-plan.steps // k)
+        alt = dataclasses.replace(plan, splits=-(-plan.steps // per), per=per,
+                                  stages=min(plan.stages, max(per, 2)))
+        y, y32 = run(alt)
         if not (torch.equal(y, want) and torch.equal(y32, want32)):
-            raise RuntimeError(f"K11 split {alt.splits} is not bitwise its "
-                               f"plain version at x {tuple(x.shape)} w "
-                               f"{tuple(w.shape)}")
+            # say which output is off, where, and whether the same call
+            # repeats the fault, before failing
+            y_again, y32_again = run(alt)
+            raise RuntimeError(
+                f"K11 split {alt.splits} is not bitwise its plain version at "
+                f"x {tuple(x.shape)} w {tuple(w.shape)} s{s} p{p} (plan "
+                f"{dataclasses.asdict(alt)}): bf16 {off(y, want)}; f32 "
+                f"{off(y32, want32)}; the same calls again: bf16 "
+                f"{off(y_again, want)}, f32 {off(y32_again, want32)}")
     return sorted(ks)
 
 
@@ -11341,6 +11380,673 @@ def phase_memory(pt, conv_cuda, bn_cuda, report, cfg=None, counters=()):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The numeric-health plane (ROADMAP 10b-1)
+# ---------------------------------------------------------------------------
+
+OBSERVE = {"net": "resnet50", "img": 224, "classes": 1000, "batch": 32,
+           "steps": 48, "period": 16, "turns": 6, "turn_steps": 4,
+           "lm": dict(LM), "lm_clean": 3, "smallnet_batch": 8,
+           "host_reps": 2000, "sample_reps": 200, "device": "cuda"}
+# T1 against its plain version: the counts, min and max exact; mean,
+# abs-mean and l2 within STATS_RTOL (T1 adds f32 partial sums in a tree,
+# the plain version in f64), mean's error bounded by STATS_RTOL x abs-mean
+STATS_RTOL = 1e-5
+# the dynamics rows against a host recomputation in f64: f32 norms of up to
+# 2.4M elements a tensor through torch._foreach_norm's per-thread partial
+# sums (~128 terms each) and a host sum in f64
+DYN_RTOL = 1e-4
+T1_SOURCE = "paddle_tpu_torch/ops/stats_cuda.py"
+T1_REPLACES = ("the port's own: replaces the XLA-fused jnp of "
+               "paddle_tpu/inspector.py:94-136 (_tensor_stats_lower)")
+OBSERVE_KERNELS = ("conv.launches", "conv.dgrad_launches",
+                   "conv.wgrad_launches", "conv.stats_launches",
+                   "bn.apply_launches", "bn.act_launches")
+OBSERVE_LM_KERNELS = ("attn.launches", "attn.dq_launches",
+                      "attn.dkv_launches")
+
+
+def _observe_dir() -> Path:
+    """chiprun_out/observe under the checkout, emptied: the phase's step log
+    (appended to, so an earlier run's would count), chrome traces and crash
+    reports, this run's only."""
+    import shutil
+    d = Path(__file__).resolve().parent / "chiprun_out" / "observe"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _path_counts(conv_cuda, bn_cuda, attention_cuda, stats_cuda):
+    """The kernel wrappers' counts by TRACE_KERNELS' keys, T1's included."""
+    out = _graph_counts(conv_cuda, bn_cuda, attention_cuda)
+    out["stats.launches"] = stats_cuda.COUNTERS.launches
+    return out
+
+
+class _Replays:
+    """Counts each graph's replays on one Executor: after a run, the graph
+    it replayed is the last of the Executor's LRU (Executor._step moves a
+    hit to the end, and a new signature enters there)."""
+
+    def __init__(self, exe, E):
+        self.exe, self.E = exe, E
+        self.by_entry = {}
+
+    def step(self, fn):
+        before = self.E.COUNTERS.replays
+        out = fn()
+        if self.E.COUNTERS.replays > before:
+            entry = next(reversed(self.exe._graphs.values()))
+            n = self.by_entry.get(id(entry), (entry, 0))[1]
+            self.by_entry[id(entry)] = (entry, n + 1)
+        return out
+
+    def launches(self) -> dict:
+        """Kernel counter -> launches the counted replays made, from each
+        graph's kept nodes (_kept_graphs)."""
+        tot = {}
+        for entry, n in self.by_entry.values():
+            for k, v in _graph_launches(entry.graph).items():
+                tot[k] = tot.get(k, 0) + v * n
+        return tot
+
+
+def _merged(*tables) -> dict:
+    out = {}
+    for t in tables:
+        for k, v in t.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _host_dynamics_rows(plan, old, new, grads):
+    """The reference's _group_row (paddle_tpu/dynamics.py:324-391) in f64
+    on the host, from copies of the step's W_old, W_new and G (CPU f32
+    tensors by name): one row a group."""
+    import torch
+    rows = []
+    for grp in plan.groups:
+        w_sq = w_max = d_sq = g_sq = g_nz = m_sq = 0.0
+        w_n = g_n = m_n = 0
+        has_grad = has_update = has_moment = False
+        for ent in grp.params:
+            if ent.name not in old:
+                continue
+            wo = old[ent.name].double()
+            wn = new.get(ent.name, old[ent.name]).double()
+            w_sq += float((wn * wn).sum())
+            w_max = max(w_max, float(wn.abs().max()))
+            w_n += wn.numel()
+            if ent.name in new:
+                has_update = True
+                d_sq += float(((wn - wo) ** 2).sum())
+            g = grads.get(ent.grad) if ent.grad else None
+            if g is not None:
+                g = g.double()
+                has_grad = True
+                g_sq += float((g * g).sum())
+                g_nz += float((g != 0).sum())
+                g_n += g.numel()
+            for m in ent.moments:
+                mv = new.get(m, old.get(m))
+                if mv is None:
+                    continue
+                has_moment = True
+                m_sq += float((mv.double() ** 2).sum())
+                m_n += mv.numel()
+        w_l2 = math.sqrt(w_sq)
+        rows.append([
+            w_l2, math.sqrt(w_sq / max(w_n, 1)), w_max,
+            math.sqrt(g_sq) if has_grad else -1.0,
+            math.sqrt(g_sq / max(g_n, 1)) if has_grad else -1.0,
+            (1.0 - g_nz / max(g_n, 1)) if has_grad else -1.0,
+            math.sqrt(d_sq) / (w_l2 + 1e-12) if has_update else -1.0,
+            math.sqrt(m_sq / max(m_n, 1)) if has_moment else -1.0])
+    return torch.tensor(rows, dtype=torch.float64)
+
+
+def _windows(fusion, program) -> dict:
+    """The program's fusion windows by kind -> the output names of their
+    members, one tuple a window."""
+    out = {}
+    for g in fusion.plan(program).values():
+        out.setdefault(g.kind, set()).add(
+            tuple(n for m in g.members for n in m.output_arg_names))
+    return out
+
+
+def _hold_t1(stats_cuda, pairs):
+    """Every recorded (probe input, T1 output) against the plain version:
+    -> (max |T1 - plain| over the fields, the probes held)."""
+    import torch
+    worst = 0.0
+    for x, got in pairs:
+        want = stats_cuda.tensor_stats_reference(x)
+        got = got.double().cpu()
+        want = want.double().cpu()
+        exact = [0, 1, 5, 6, 7]
+        if not torch.equal(got[exact], want[exact]):
+            raise RuntimeError(f"T1 on {tuple(x.shape)} {x.dtype}: {got} "
+                               f"against the plain {want}")
+        tol = STATS_RTOL * torch.stack([want[3], want[3], want[4]]).abs()
+        close = (got[2:5] == want[2:5]) | (
+            (got[2:5] - want[2:5]).abs() <= tol + 1e-30)
+        if not bool(close.all()):
+            raise RuntimeError(f"T1 on {tuple(x.shape)} {x.dtype}: mean, "
+                               f"abs-mean, l2 {got[2:5].tolist()} against "
+                               f"{want[2:5].tolist()} (rtol {STATS_RTOL})")
+        diff = torch.where(got == want, torch.zeros_like(got), got - want)
+        worst = max(worst, float(diff.abs().max()))
+    return worst, len(pairs)
+
+
+def _time_t1(stats_cuda, pairs):
+    """T1 and its plain version timed at each distinct (shape, dtype) of
+    the step's probes, summed over the probes -> the kernel entry's ms,
+    plain_ms, bound_ms and the rows."""
+    shapes = {}
+    for x, _ in pairs:
+        key = (tuple(x.shape), str(x.dtype))
+        shapes.setdefault(key, [x, 0])[1] += 1
+    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": 0}
+    for (shape, dtype), (x, n) in sorted(shapes.items(),
+                                         key=lambda it: -it[1][0].numel()):
+        ms = _device_ms(lambda: stats_cuda.tensor_stats(x))
+        plain = _eager_ms(lambda: stats_cuda.tensor_stats_reference(x))
+        bound = stats_cuda.bytes_read(x) / PEAK_BYTES * 1e3
+        rows.append({"shape": list(shape), "dtype": dtype, "probes": n,
+                     "ms": ms, "plain_ms": plain, "bound_ms": bound})
+        tot["ms"] += ms * n
+        tot["plain_ms"] += plain * n
+        tot["bound_ms"] += bound * n
+        tot["calls"] += n
+    return tot, rows
+
+
+def _observe_resnet(pt, conv_cuda, bn_cuda, attention_cuda, cfg, card, out,
+                    rec):
+    """Phase observe (a): ResNet-50 O2, graphed, with the plane on."""
+    import torch
+    from paddle_tpu_torch import dynamics, inspector, telemetry, tracing
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch.ops import fusion, stats_cuda
+    main, startup, loss = memory_train_net(pt, cfg)
+    inst = inspector.instrument(main, auto=True)
+    audit = inspector.GradientAudit(inst)
+    prog = audit.program
+    sites = prog._probe_sites
+    trainable = [p.name for p in main.global_block().all_parameters()
+                 if getattr(p, "trainable", True)]
+    if sorted(audit.params) != sorted(trainable) or audit.missing:
+        raise RuntimeError(f"the audit covers {len(audit.params)} of "
+                           f"{len(trainable)} parameters, missing "
+                           f"{audit.missing}")
+    exe = pt.Executor()
+    s_on, s_off = pt.Scope(), pt.Scope()
+    exe.run(startup, scope=s_on)
+    for n, v in s_on.vars.items():
+        s_off.set_var(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    feed = {n: torch.as_tensor(v, device=exe.device) for n, v in
+            _memory_feed(cfg, cfg["batch"], SEED + 80).items()}
+    grads = [p + "@GRAD" for p in trainable]
+    fetch = [loss] + grads
+    period = cfg["period"]
+    steplog = str(out / "steps.jsonl")
+    with dynamics.override(True, period):
+        plan = dynamics.plan(prog)
+    planned = {n for g in plan.groups for e in g.params
+               for n in (e.name,) + tuple(e.moments)}
+    written = set(exe._persistable_outputs(prog))
+    for c in (conv_cuda.COUNTERS, bn_cuda.COUNTERS, attention_cuda.COUNTERS,
+              stats_cuda.COUNTERS):
+        c.reset()
+    E.COUNTERS.reset()
+    reps = _Replays(exe, E)
+    samples, losses, reserved = [], [], {}
+    telemetry.enable_step_log(steplog)
+    tracing.enable()
+    inspector.enable_flight_recorder(str(out / "crash_resnet.json"))
+    t0 = time.perf_counter()
+    with dynamics.override(True, period), _kept_graphs(), \
+            _captures_uncounted(conv_cuda.COUNTERS, bn_cuda.COUNTERS,
+                                attention_cuda.COUNTERS, stats_cuda.COUNTERS):
+        for _ in range(cfg["steps"]):
+            c = s_on.find_var("__rng_counter__") or 0
+            old = None
+            if c % period == 0:
+                old = {n: s_on.find_var(n).detach().float().cpu()
+                       for n in planned}
+            got = reps.step(lambda: exe.run(prog, feed=feed, fetch_list=fetch,
+                                            scope=s_on, return_numpy=False))
+            losses.append(float(got[0].float().reshape(-1)[0]))
+            if old is not None:
+                new = {n: s_on.find_var(n).detach().float().cpu()
+                       for n in planned & written}
+                g = {n: t.detach().float().cpu()
+                     for n, t in zip(grads, got[1:])}
+                samples.append((c, old, new, g))
+            graphs = [k for k in exe._graphs if k[0] == id(prog)
+                      and exe._graphs[k].graph is not None]
+            reserved.setdefault(len(graphs), torch.cuda.memory_reserved())
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    path = _merged(_path_counts(conv_cuda, bn_cuda, attention_cuda,
+                                stats_cuda), reps.launches())
+    entries = [e for k, e in exe._graphs.items() if k[0] == id(prog)]
+    if len(entries) != 2 or any(e.graph is None for e in entries):
+        raise RuntimeError(f"{len(entries)} graphs for the probed signature, "
+                           f"not a sampled and a plain one")
+    tokens = sorted(k[-2][2] for k in exe._graphs if k[0] == id(prog))
+    if tokens != [False, True]:
+        raise RuntimeError(f"the graphs' plane tokens sample {tokens}")
+    if reserved.get(2, 0) > 2 * reserved.get(1, 1):
+        raise RuntimeError(f"reserved {reserved} bytes after the first and "
+                           f"second graph: the pool doubled")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite losses {losses}")
+    snap_bytes = sum(t.numel() * t.element_size() for e in entries
+                     for t in e.snap.values())
+    # the dynamics rows against the host
+    label = telemetry.program_label(prog)
+    recent = dynamics.payload(recent=cfg["steps"])["programs"][label]["series"]
+    if [s[0] for s in samples] != list(range(period, cfg["steps"] + 1,
+                                             period)):
+        raise RuntimeError(f"sampled counters {[s[0] for s in samples]}")
+    worst_dyn = 0.0
+    for c, old, new, g in samples:
+        want = _host_dynamics_rows(plan, old, new, g)
+        for gi, grp in enumerate(plan.groups):
+            row = next(r for r in recent[grp.name]["recent"]
+                       if r["step"] == c)
+            got = torch.tensor([-1.0 if row[f] is None else row[f]
+                                for f in dynamics.STAT_FIELDS],
+                               dtype=torch.float64)
+            err = ((got - want[gi]).abs()
+                   / want[gi].abs().clamp_min(1e-30)).max()
+            worst_dyn = max(worst_dyn, float(err))
+            if not bool(torch.allclose(got, want[gi], rtol=DYN_RTOL,
+                                       atol=1e-12)):
+                raise RuntimeError(f"dynamics row of {grp.name} at step {c}:"
+                                   f" {got.tolist()} against the host's "
+                                   f"{want[gi].tolist()}")
+    del samples
+    rep = audit.report()
+    statuses = sorted({r["status"] for r in rep.values()})
+    telemetry.disable_step_log()
+    runs = [r for r in telemetry.read_step_log(steplog)
+            if r["kind"] == "run" and r.get("program") == label]
+    if len(runs) != cfg["steps"] or any(r["mode"] != "graph" for r in runs):
+        raise RuntimeError(f"{len(runs)} run events for {cfg['steps']} steps,"
+                           f" modes {sorted({r['mode'] for r in runs})}")
+
+    # the plane on (prog) and off (main) in turns, each fetching the loss
+    # alone; first each signature's graphs (prog's sampled one too)
+    blocks = {"on": [], "off": []}
+    with _kept_graphs():
+        for _ in range(3):      # main's warm-up, capture, replay
+            exe.run(main, feed=feed, fetch_list=[loss], scope=s_off)
+        with dynamics.override(True, period):
+            for _ in range(3 * period):
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=s_on)
+                if sum(1 for k, e in exe._graphs.items()
+                       if k[0] == id(prog) and grads[0] not in k[3]
+                       and e.graph is not None) == 2:
+                    break
+    for r in range(cfg["turns"]):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            for _ in range(cfg["turn_steps"]):
+                if on:
+                    with dynamics.override(True, period):
+                        exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=s_on)
+                else:
+                    tracing.disable()
+                    inspector.disable_flight_recorder()
+                    exe.run(main, feed=feed, fetch_list=[loss], scope=s_off)
+                    tracing.enable()
+                    inspector.enable_flight_recorder(
+                        str(out / "crash_resnet.json"))
+            torch.cuda.synchronize()
+            blocks["on" if on else "off"].append(
+                (time.perf_counter() - t0) * 1e3 / cfg["turn_steps"])
+    inspector.disable_flight_recorder()
+    off_entry = next(e for k, e in exe._graphs.items() if k[0] == id(main))
+    plain_entry = next(e for k, e in exe._graphs.items()
+                       if k[0] == id(prog) and not k[-2][2]
+                       and grads[0] not in k[3])
+    probed_k = _graph_launches(plain_entry.graph)
+    off_k = _graph_launches(off_entry.graph)
+    differ = {k: (probed_k.get(k, 0), off_k.get(k, 0))
+              for k in OBSERVE_KERNELS
+              if probed_k.get(k, 0) != off_k.get(k, 0)}
+    wm, wp = _windows(fusion, main), _windows(fusion, prog)
+    broken = {kind: sorted(wm[kind] - wp.get(kind, set()))
+              for kind in wm if wm[kind] - wp.get(kind, set())}
+
+    # T1 against its plain version on every probe of one (eager) step
+    scratch = pt.Scope()
+    for n, v in s_on.vars.items():
+        scratch.set_var(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    pairs = []
+    launch = stats_cuda.tensor_stats
+
+    def recorded(x):
+        y = launch(x)
+        pairs.append((x.detach().clone(), y.clone()))
+        return y
+    stats_cuda.tensor_stats = recorded
+    try:
+        with dynamics.override(False):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=scratch,
+                    use_jit=False)
+    finally:
+        stats_cuda.tensor_stats = launch
+    if len(pairs) != len(sites):
+        raise RuntimeError(f"{len(pairs)} T1 calls for {len(sites)} probes")
+    t1_err, held = _hold_t1(stats_cuda, pairs)
+    t1_time, t1_rows = _time_t1(stats_cuda, pairs)
+    del pairs, scratch
+    res = {
+        "probes": len(sites), "grad_probes": len(audit.params),
+        "steps": cfg["steps"], "steps_s": steps_s, "losses": losses[-3:],
+        "graphs": len(entries), "reserved_by_graphs": reserved,
+        "prestep_copy_bytes": snap_bytes, "dynamics_rows": len(plan.groups),
+        "dynamics_max_rel_err": worst_dyn, "audit_statuses": statuses,
+        "launches": path, "probed_replay": probed_k, "unprobed_replay": off_k,
+        "kernels_differ": differ, "windows_broken": broken,
+        "step_ms_on": float(np.median(blocks["on"])),
+        "step_ms_off": float(np.median(blocks["off"])), "blocks": blocks,
+        "t1_max_abs_err": t1_err, "t1_held": held, "t1": t1_time,
+        "t1_rows": t1_rows, "run_events": len(runs)}
+    rec["resnet50_o2"] = res
+    print(f"observe resnet50_o2: {len(sites)} probes ({len(audit.params)} "
+          f"gradients), {cfg['steps']} graphed steps in {steps_s:.2f} s, "
+          f"2 graphs (sampled, plain; reserved {reserved}), pre-step copy "
+          f"{snap_bytes} B; dynamics {len(plan.groups)} rows x 3 samples "
+          f"within {worst_dyn:.2e} of the host's; audit {statuses}; K1-K6 a "
+          f"replay probed {probed_k} unprobed {off_k} (differ {differ}; "
+          f"windows broken {broken}); step {res['step_ms_on']:.3f} ms on, "
+          f"{res['step_ms_off']:.3f} ms off (median of {cfg['turns']} blocks "
+          f"in turns; {card})", flush=True)
+    print(f"observe T1: {held} probes held to the plain version (counts "
+          f"exact, max |T1 - plain| {t1_err:.3e}); per step "
+          f"{t1_time['calls']} calls {t1_time['ms']:.4f} ms, plain "
+          f"{t1_time['plain_ms']:.4f} ms, bound {t1_time['bound_ms']:.4f} ms",
+          flush=True)
+    return res
+
+
+def _first_reader(program, name):
+    return next(i for i, op in enumerate(program.global_block().ops)
+                if name in op.input_arg_names)
+
+
+def _observe_lm(pt, attention_cuda, conv_cuda, bn_cuda, cfg, card, out, rec):
+    """Phase observe (b): the LM O2 under check_nan_inf, graphed, a poisoned
+    FFN weight."""
+    import torch
+    from paddle_tpu_torch import debugger, errors, flags, inspector
+    from paddle_tpu_torch import executor as E
+    from paddle_tpu_torch.ops import stats_cuda
+    from paddle_tpu_torch.parallel.planner import classify_params
+    c = cfg["lm"]
+    main, startup, loss, _ = _transformer(pt, cfg=c)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = {n: torch.as_tensor(v, device=exe.device)
+            for n, v in _lm_feed(c).items()}
+    roles = classify_params(main)
+    ffn = sorted(n for n, r in roles.items() if r == "ffn_up")[-1]
+    block = main.global_block()
+    want_i = _first_reader(main, ffn)
+    want_op = block.ops[want_i]
+    n_cands = sum(1 for op in block.ops
+                  if inspector._probe_target(block, op) is not None)
+    bound_runs = math.ceil(math.log2(n_cands / 8)) + 2
+    for t in (attention_cuda.COUNTERS, conv_cuda.COUNTERS, bn_cuda.COUNTERS,
+              stats_cuda.COUNTERS):
+        t.reset()
+    reps = _Replays(exe, E)
+    crash = str(out / "crash_lm.json")
+    inspector.enable_flight_recorder(crash)
+    raw = os.environ.get("PADDLE_TPU_CHECK_NAN_INF")
+    flags.set("check_nan_inf", True)
+    try:
+        with _kept_graphs(), _captures_uncounted(
+                attention_cuda.COUNTERS, conv_cuda.COUNTERS, bn_cuda.COUNTERS,
+                stats_cuda.COUNTERS):
+            clean = [float(reps.step(lambda: exe.run(
+                main, feed=feed, fetch_list=[loss], scope=scope))[0][0])
+                for _ in range(cfg["lm_clean"])]
+            t = scope.find_var(ffn).clone()
+            t.view(-1)[0] = float("inf")
+            scope.set_var(ffn, t)
+            before = {n: (v.clone() if isinstance(v, torch.Tensor) else v)
+                      for n, v in scope.vars.items()}
+            t0 = time.perf_counter()
+            try:
+                reps.step(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                          scope=scope))
+                raise RuntimeError("the poisoned LM step did not raise")
+            except errors.NonFiniteError as e:
+                graphed_err = e
+            raise_s = time.perf_counter() - t0
+            report = inspector.read_crash_report(crash)
+            _hold_scope(before, scope, "after the graphed raise")
+            try:
+                exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        use_jit=False)
+                raise RuntimeError("the eager scan did not raise")
+            except errors.NonFiniteError as e:
+                eager_err = e
+            _hold_scope(before, scope, "after the eager raise")
+    finally:
+        flags.set("check_nan_inf", None if raw is None else raw == "1")
+        inspector.disable_flight_recorder()
+    att = graphed_err.attribution
+    if att is None or att.op_index != want_i or att.runs > bound_runs:
+        raise RuntimeError(
+            f"attribution {att!r}: want op {want_i} '{want_op.type}' (the "
+            f"first reader of {ffn}) in at most {bound_runs} replays")
+    if (eager_err.op_type, eager_err.var_name) != (att.op_type, att.var):
+        raise RuntimeError(f"the eager scan names {eager_err.op_type} -> "
+                           f"{eager_err.var_name}, the attribution "
+                           f"{att.op_type} -> {att.var}")
+    lines = []
+    debugger.pprint_program(main, print_fn=lines.append)
+    if report["program"] != "\n".join(lines) or \
+            report["error"]["attribution"]["op_index"] != want_i:
+        raise RuntimeError("the crash report read back differs")
+    path = _merged(_path_counts(conv_cuda, bn_cuda, attention_cuda,
+                                stats_cuda), reps.launches())
+    res = {"weight": ffn, "first_reader": [want_i, want_op.type],
+           "named": [att.op_index, att.op_type, att.var],
+           "replays": att.runs, "replay_bound": bound_runs,
+           "candidates": n_cands, "replay_s": att.seconds,
+           "raise_s": raise_s, "clean_losses": clean,
+           "graphed_var": graphed_err.var_name,
+           "eager_named": [eager_err.op_type, eager_err.var_name],
+           "launches": path, "crash_report_keys": sorted(report)}
+    rec["lm_o2"] = res
+    print(f"observe lm_o2: {ffn} poisoned after {len(clean)} clean steps; "
+          f"NonFiniteError on '{graphed_err.var_name}', attributed to op "
+          f"{att.op_index} '{att.op_type}' -> '{att.var}' (its first reader) "
+          f"in {att.runs} eager replays (bound {bound_runs} over {n_cands} "
+          f"candidates, {att.seconds:.2f} s; the raise {raise_s:.2f} s); the "
+          f"eager scan names the same; scope bitwise, counter kept; crash "
+          f"report read back; K7-K9 {[path.get(k, 0) for k in OBSERVE_LM_KERNELS]}"
+          f" ({card})", flush=True)
+    return res
+
+
+def _hold_scope(before, scope, what):
+    import torch
+    if set(before) != set(scope.vars):
+        raise RuntimeError(f"{what}: the scope's names changed")
+    for n, v in before.items():
+        w = scope.vars[n]
+        same = torch.equal(v, w) if isinstance(v, torch.Tensor) else v == w
+        if not same:
+            raise RuntimeError(f"{what}: {n} is not as before the step")
+
+
+PROM_LINE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? (\+Inf|-Inf|NaN|[-+0-9.e]+)$'
+
+
+def _observe_exports(pt, out, rec):
+    """Phase observe (c): the exports parse."""
+    import re
+    from paddle_tpu_torch import telemetry, tracing
+    text = telemetry.prometheus_text()
+    bad = [ln for ln in text.splitlines() if not ln.startswith("# ")
+           and not re.match(PROM_LINE, ln)]
+    if bad or not text:
+        raise RuntimeError(f"invalid exposition lines: {bad[:5]}")
+    a, b = str(out / "telemetry_trace.json"), str(out / "spans_trace.json")
+    telemetry.export_chrome_trace(a)
+    tracing.export_chrome_trace(b)
+    ev = json.load(open(a))["traceEvents"]
+    sp = json.load(open(b))["traceEvents"]
+    runs = sum(1 for e in ev if e["name"] == "run")
+    steps = sum(1 for e in sp if e["name"] == "step")
+    if not runs or not steps:
+        raise RuntimeError(f"{runs} run events, {steps} step spans")
+    res = {"prometheus_lines": len(text.splitlines()), "trace_runs": runs,
+           "trace_step_spans": steps,
+           "compile_spans": sum(1 for e in sp if e["name"] == "compile")}
+    rec["exports"] = res
+    print(f"observe exports: {res['prometheus_lines']} exposition lines "
+          f"valid; chrome traces load, {runs} run events, {steps} step spans "
+          f"({res['compile_spans']} compile)", flush=True)
+    tracing.disable()
+
+
+def _observe_costs(pt, cfg, card, rec):
+    """Phase observe (d): the plane's per-run host cost while it is off,
+    on SmallNet's graphed batch-8 step, and the memory sample's cost."""
+    import torch
+    from paddle_tpu_torch import flags, inspector, memory, telemetry
+    zc = ZOO["smallnet"]
+    zmain, zstart, zloss = zoo_train_net(pt, zc)
+    exe, scope = pt.Executor(), pt.Scope()
+    exe.run(zstart, scope=scope)
+    b = cfg["smallnet_batch"]
+    feed = {n: torch.as_tensor(v, device=exe.device)
+            for n, v in _zoo_feed(zc, b, SEED + 81).items()}
+    for _ in range(3):
+        exe.run(zmain, feed=feed, fetch_list=[zloss], scope=scope)
+    label = telemetry.program_label(zmain)
+    reason = exe.graph_gate(zmain, feed)
+    n = cfg["host_reps"]
+
+    def plane_off():
+        # what Executor.run adds per run with every flag of the plane off
+        check = flags.get("check_nan_inf")
+        exe._plane(zmain, reason, check, None, 1, False)
+        c0 = telemetry.compile_seconds()
+        t0 = time.perf_counter()
+        dt = time.perf_counter() - t0
+        exe._publish_run(zmain, label, dt, telemetry.compile_seconds() - c0,
+                         2, 1, 10)
+        inspector.flight_enabled()
+    plane_off()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        plane_off()
+    off_us = (time.perf_counter() - t0) / n * 1e6
+    steps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(50):
+            exe.run(zmain, feed=feed, fetch_list=[zloss], scope=scope)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3 / 50)
+    step_ms = float(np.median(steps))
+    # the memory sample: the per-run hook against the full sample it
+    # replaced and against torch.cuda.memory_allocated + its max
+    state = {k: scope.find_var(k) for k in exe._resolve_state(zmain, feed,
+                                                               scope)}
+    m = cfg["sample_reps"]
+    memory.on_run(exe, zmain, label, feed, state)
+    t0 = time.perf_counter()
+    for _ in range(m):
+        memory.on_run(exe, zmain, label, feed, state)
+    hook_us = (time.perf_counter() - t0) / m * 1e6
+    cls = memory.classify(zmain, state, {})
+    t0 = time.perf_counter()
+    for _ in range(m):
+        memory.tracker().sample(device=exe.device, program=label,
+                                classes=dict(cls, feeds=0))
+    full_us = (time.perf_counter() - t0) / m * 1e6
+    t0 = time.perf_counter()
+    for _ in range(m):
+        torch.cuda.memory_allocated(exe.device)
+        torch.cuda.max_memory_allocated(exe.device)
+    flat_us = (time.perf_counter() - t0) / m * 1e6
+    memory.on_run(exe, zmain, label, feed, state)
+    t0 = time.perf_counter()
+    telemetry.snapshot()
+    read_us = (time.perf_counter() - t0) * 1e6
+    res = {"smallnet_batch": b, "plane_off_us": off_us,
+           "smallnet_step_ms": step_ms, "smallnet_blocks": steps,
+           "plane_off_share": off_us / (step_ms * 1e3),
+           "memory_hook_us": hook_us, "memory_full_sample_us": full_us,
+           "memory_allocated_pair_us": flat_us, "snapshot_us": read_us}
+    rec["costs"] = res
+    print(f"observe costs: the plane off adds {off_us:.2f} us a run "
+          f"({res['plane_off_share']:.2%} of SmallNet's graphed batch-{b} "
+          f"step, {step_ms:.4f} ms, median of 5 blocks of 50); the memory "
+          f"hook {hook_us:.2f} us a run (the full sample it replaced "
+          f"{full_us:.2f} us, memory_allocated + max_memory_allocated "
+          f"{flat_us:.2f} us; a snapshot publishing it {read_us:.1f} us; "
+          f"{card})", flush=True)
+    return res
+
+
+def phase_observe(pt, conv_cuda, bn_cuda, attention_cuda, report, cfg=None):
+    """The numeric-health plane on the card (ROADMAP 10b-1): (a) ResNet-50
+    O2 graphed with probes, the gradient audit, dynamics, the flight
+    recorder, the step log and tracing on; (b) the LM O2 under
+    check_nan_inf with a poisoned FFN weight; (c) the exports; (d) the
+    costs. Returns the T1 kernel entry and K1-K9's launches on the phase
+    ({counter: launches})."""
+    from paddle_tpu_torch import dynamics, telemetry
+    from paddle_tpu_torch.ops import stats_cuda
+    cfg = OBSERVE if cfg is None else cfg
+    card = _card_line()
+    out = _observe_dir()
+    rec = report.setdefault("observe", {"card": card})
+    t0 = time.perf_counter()
+    telemetry.reset()
+    dynamics.reset()
+    a = _observe_resnet(pt, conv_cuda, bn_cuda, attention_cuda, cfg, card,
+                        out, rec)
+    b = _observe_lm(pt, attention_cuda, conv_cuda, bn_cuda, cfg, card, out,
+                    rec)
+    _observe_exports(pt, out, rec)
+    _observe_costs(pt, cfg, card, rec)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"observe: {rec['seconds']:.1f} s", flush=True)
+    launches = _merged(a["launches"], b["launches"])
+    t1 = a["t1"]
+    entry = {"name": "tensor_stats", "route": "triton", "source": T1_SOURCE,
+             "replaces": T1_REPLACES,
+             "launches": launches.get("stats.launches", 0),
+             "launches_by_path": {"observe": launches.get("stats.launches",
+                                                          0)},
+             "max_abs_err": a["t1_max_abs_err"], "ms": t1["ms"],
+             "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
+             "bound_by": "bytes", "library_ms": None,
+             "per": f"one probed batch-{cfg['batch']} ResNet-50 O2 training "
+                    f"step, {t1['calls']} calls (no single PyTorch call "
+                    f"computes the eight fields)"}
+    if not entry["launches"]:
+        raise RuntimeError("T1 was launched no time on phase observe")
+    return entry, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measurements as JSON here")
@@ -11578,13 +12284,35 @@ def main(argv=None) -> int:
             if got:
                 k["launches_by_path"][path] = got
         k["launches"] = sum(k["launches_by_path"].values())
+    # the numeric-health plane (ROADMAP 10b-1): T1, and K1-K9 on its paths
+    t1, obs = phase_observe(pt, conv_cuda, bn_cuda, attention_cuda, report)
+    for k, key in zip([k1] + train_kernels,
+                      ("conv.launches", "conv.dgrad_launches",
+                       "conv.wgrad_launches", "conv.stats_launches",
+                       "bn.apply_launches", "bn.act_launches")):
+        if obs.get(key):
+            k["launches_by_path"]["observe"] = obs[key]
+            k["launches"] = sum(k["launches_by_path"].values())
+    for k in attn_kernels:
+        if k["name"].endswith("_f32") or k["name"] not in counter:
+            continue
+        got = obs.get("attn." + counter[k["name"]])
+        if got:
+            k["launches_by_path"]["observe"] = got
+            k["launches"] = sum(k["launches_by_path"].values())
+    missing = [k["name"] for k in train_kernels + attn_kernels
+               if not k["name"].endswith("_f32")
+               and not k["launches_by_path"].get("observe")]
+    if missing:
+        raise RuntimeError(f"{missing} were launched no time on phase "
+                           f"observe")
     k6 = next(k for k in train_kernels if k["name"] == "bn_act")
     k6["split"] = k6_split
     if not k6["launches_by_path"].get("train_dp"):
         raise RuntimeError("K6's split form was launched no time on "
                            "train_dp")
     kernels = {"kernels": [k1] + train_kernels + attn_kernels + ring_kernels
-               + [k11, q1, s1]}
+               + [k11, q1, s1, t1]}
     report.update(kernels)
     leads = [v for v in LAUNCH_LEADS_US if v is not None]
     report["launch_lead_us"] = LAUNCH_LEADS_US

@@ -43,7 +43,14 @@ Memory and static analysis: device-memory accounting, measured and static
 peaks, the headroom model and OOM forensics (memory.py), the program
 verifier (analysis/: shapes, dataflow, fast-path preflight) that admits
 served programs, the flag registry (flags.py), the typed errors
-(errors.py) and the RNN weight converters (compat.py).
+(errors.py) and the RNN weight converters (compat.py). The numeric-health
+plane: the inspector's tensor_stats probes (T1, the port's Triton
+kernel, ops/stats_cuda.py), check_nan_inf raising NonFiniteError with the
+first non-finite op found by bisection, the gradient audit and the crash
+flight recorder (inspector.py), the training-dynamics observatory
+(dynamics.py), the program printer (debugger.py), and the executor's step
+telemetry with its exports: Prometheus text, the JSONL step log, chrome
+traces (telemetry.py, tracing.py).
 
 Entry points run on CUDAPlace(0) unless the caller passes CPUPlace().
 """
@@ -94,5 +101,8 @@ from . import flags
 from . import compat
 from . import memory
 from . import analysis
+from . import debugger
+from . import inspector
+from . import dynamics
 
 __version__ = "0.1.0"

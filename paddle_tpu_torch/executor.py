@@ -41,12 +41,28 @@ a collective staged through host memory (a gloo group of ranks on cards)
 runs eager under the gate's reason `host_collective`; on an NCCL group the
 collectives are posted under the step's CUDA graph capture, so a replay
 runs them as graph nodes.
+
+Every run publishes its step telemetry (the `executor_*` families, the
+`run`, `run_window`, `compile` and `cache_miss` events, a `step` span with
+tracing on; a capture is the compile, a replay of a signature the cache
+hit) and calls the numeric-health plane where one of its parts is on
+(`_Plane`): check_nan_inf (a per-op finite scan in an eager run, one
+finiteness flag computed inside a graphed step and read with the fetches;
+a NonFiniteError names the variable, the op the inspector's bisection
+finds, and leaves the scope and the rng counter as before the step), the
+inspector's probes (their vectors stacked into one fetch, recorded before
+the write-back), dynamics (a sampled and a plain graph per signature),
+trap_fp (every run eager with the scan), the benchmark flag (per-op times
+in eager runs), the op recorder and the flight recorder; a run that raises
+writes its crash report (inspector.notify_crash).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
+import time
 import weakref
 import zlib
 from collections import OrderedDict
@@ -57,10 +73,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import dynamics as dynamics_mod
 from . import flags as flags_mod
+from . import inspector as inspector_mod
 from . import memory as memory_mod
-from . import quant
-from .errors import EnforceNotMet
+from . import quant, telemetry
+from . import tracing as tracing_mod
+from .errors import EnforceNotMet, NonFiniteError
 from .framework.desc import BlockRef, BlocksRef
 from .framework.framework import (Program, Variable, default_main_program,
                                   op_external_reads)
@@ -370,6 +389,10 @@ class LoweringContext:
         # propagate_seq_len (JAX executor.py:216-221)
         self.env: Dict[str, Any] = {}
         self.seq_overrides: Dict[str, Any] = {}
+        # the eager step's per-op finite scan (check_nan_inf, trap_fp) and
+        # per-op timing (the benchmark flag), read by Executor._run_block
+        self.scan = False
+        self.bench = False
 
     def seq_len(self, name: str):
         """The valid lengths [batch] of padded sequence `name`, or None for
@@ -608,6 +631,35 @@ _VERIFY = os.environ.get("PADDLE_TPU_VERIFY", "0") == "1"
 # executor.py:284): a run whose caller leaves use_jit unset runs eager
 _EAGER = flags_mod.snapshot("eager")
 
+# PADDLE_TPU_CHECK_NAN_INF as the process started; the live flag is read
+# too, at every run (JAX executor.py:285, :1128)
+_CHECK_NAN_INF = flags_mod.snapshot("check_nan_inf")
+
+# FP trapping (reference TrainerMain.cpp:49 feenableexcept; the JAX package
+# turns on jax_debug_nans, executor.py:356-358), read at import: every run
+# goes eager (the gate's reason "trap_fp") with the per-op finite scan, so
+# the op that made a NaN or an Inf raises NonFiniteError
+_TRAP_FP = flags_mod.snapshot("trap_fp")
+
+# FLAGS_benchmark (reference executor.cc:321; JAX executor.py:1645), read
+# at import: an eager run waits for the device after every op and window
+# and logs its wall time at vlog level 1
+_BENCHMARK = flags_mod.snapshot("benchmark")
+
+# the op recorder (JAX executor.py:364-373): every op type a run lowers
+# lands in _RECORDED_OPS; PADDLE_TPU_RECORD_OPS, read at import, also
+# appends each new one to a file, for reports across processes
+_RECORD_OPS_PATH = flags_mod.snapshot("record_ops") or None
+_RECORDED_OPS = set()
+
+
+def _record_op(op_type: str):
+    if op_type not in _RECORDED_OPS:
+        _RECORDED_OPS.add(op_type)
+        if _RECORD_OPS_PATH:
+            with open(_RECORD_OPS_PATH, "a") as f:
+                f.write(op_type + "\n")
+
 
 def vlog(level: int, msg: str):
     """glog-style leveled logging to stderr (reference VLOG; JAX
@@ -616,7 +668,6 @@ def vlog(level: int, msg: str):
     more."""
     if level <= int(flags_mod.get("vlog") or 0):
         import datetime
-        import sys
         ts = datetime.datetime.now().strftime("%H:%M:%S.%f")[:-3]
         print(f"V{level} {ts} paddle_tpu_torch] {msg}", file=sys.stderr)
 
@@ -626,7 +677,7 @@ def telemetry_fetch_enabled() -> bool:
     at every run: the program's `_telemetry_fetch_extra` marks (the clip
     pass's global norm) are fetched beside the caller's list and published
     as gauges, a read of the device each step; 0 skips them."""
-    return os.environ.get("PADDLE_TPU_TELEMETRY_FETCH", "1") == "1"
+    return flags_mod.env("PADDLE_TPU_TELEMETRY_FETCH") in (None, "1")
 
 
 # ops that take a SelectedRows input as it is (executor.py:384): the sparse
@@ -733,7 +784,10 @@ def capture_graph(body, pool=None, keep=False, generators=()):
     past instantiation, for `graph.debug_dump` to list them. Each of
     `generators` is registered with the graph before the capture: its
     draws then read the seed and offset the generator holds when a replay
-    starts, and a replay advances its offset as the eager draws would."""
+    starts, and a replay advances its offset as the eager draws would.
+    The capture's seconds count as compile time
+    (telemetry.note_compile)."""
+    t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph(keep_graph=keep)
     for g in generators:
         graph.register_generator_state(g)
@@ -754,6 +808,7 @@ def capture_graph(body, pool=None, keep=False, generators=()):
     cm.__exit__(None, None, None)
     if keep:
         graph.instantiate()
+    telemetry.note_compile("graph_capture", time.perf_counter() - t0)
     return graph
 
 
@@ -814,6 +869,15 @@ class _GraphedStep:
         self.fetches: List[torch.Tensor] = []
         self.lens: Dict[str, torch.Tensor] = {}
         self.written: Dict[str, torch.Tensor] = {}
+        # the numeric-health plane's: the finiteness flag and the dynamics
+        # rows the graph writes, its static pre-step copies of the
+        # in-place state, and the compile cause and feed signature its
+        # warm-up noted (telemetry)
+        self.flag: Optional[torch.Tensor] = None
+        self.rows: Optional[torch.Tensor] = None
+        self.snap: Dict[str, torch.Tensor] = {}
+        self.cause = "first_compile"
+        self.sig = None
 
 
 class BucketGraph:
@@ -972,6 +1036,154 @@ def _names(fetch_list) -> List[str]:
             for v in (fetch_list or [])]
 
 
+# ---------------------------------------------------------------------------
+# The numeric-health plane (inspector.py, dynamics.py) inside a step
+# ---------------------------------------------------------------------------
+
+def dtype_name(dtype) -> str:
+    """A torch dtype by its numpy name ("float32", "bfloat16")."""
+    return str(dtype).replace("torch.", "")
+
+
+def finite_flag(tensors) -> Optional[torch.Tensor]:
+    """One bool tensor: every floating tensor of `tensors` finite (the JAX
+    package's _finite_all, executor.py:545-552), or None when none is
+    floating. Computed on the device as max |x| per tensor
+    (torch._foreach_norm with ord inf, one call a dtype; NaN propagates
+    through the max), never from an l2 norm, whose squares overflow on a
+    finite tensor."""
+    groups: Dict[Any, List[torch.Tensor]] = {}
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_floating_point() and \
+                t.numel():
+            groups.setdefault(t.dtype, []).append(t)
+    flags = [torch.stack(torch._foreach_norm(ts, float("inf"))).isfinite()
+             .all() for ts in groups.values()]
+    if not flags:
+        return None
+    return flags[0] if len(flags) == 1 else torch.stack(flags).all()
+
+
+def _stack_probes(fetches, n):
+    """The fetch list with its last `n` entries, the probe vectors,
+    stacked into one [n, 8] tensor."""
+    return list(fetches[:-n]) + [torch.stack(list(fetches[-n:]))]
+
+
+def _nonfinite(v) -> bool:
+    """Whether one value holds a NaN or an Inf (a SelectedRows value by its
+    rows' values); a read of the device."""
+    if isinstance(v, SelectedRowsVal):
+        v = v.values
+    if not isinstance(v, torch.Tensor) or not v.is_floating_point():
+        return False
+    return not bool(torch.isfinite(v).all())
+
+
+def _scan_outputs(ops, env):
+    """The eager per-op finite scan (reference FLAGS_check_nan_inf,
+    executor.cc:325; JAX executor.py:2109-2121): every output of `ops`
+    (one op, or a window's members in order) still in `env` read for NaN
+    and Inf; the first one found raises NonFiniteError naming it and its
+    op. tensor_stats outputs are exempt (their counts describe other
+    tensors)."""
+    for op in ops:
+        if op.type in ("tensor_stats", "feed", "fetch"):
+            continue
+        for name in op.output_arg_names:
+            v = env.get(name)
+            if v is not None and _nonfinite(v):
+                t = v.values if isinstance(v, SelectedRowsVal) else v
+                raise NonFiniteError(
+                    f"NaN/Inf in output '{name}' of op {op.type}",
+                    var_name=name, op_type=op.type,
+                    dtype=dtype_name(t.dtype))
+
+
+class _Plane:
+    """What the numeric-health plane asks of one step, and what the step
+    hands back. `check`: compute the finiteness flag of the fetches (less
+    the probe vectors, `exclude`) and the persistable outputs inside the
+    step (a graphed step's check_nan_inf); `scan`: the per-op finite scan
+    (an eager step's check_nan_inf, or trap_fp); `dyn`: the dynamics plan
+    and `sample`, whether this step samples; `restore`: a step that raises
+    must leave the scope as it was. The pre-step copy (`snap`, by name)
+    covers the state the step updates in place, where the scope's tensor
+    is the step's own (a sparse apply's table and accumulators): restored
+    from it on failure, and the W_old of a sampled step. `flag` and `rows`
+    come back from the step. `token` is the plane's part of a graph key:
+    a checked, a sampled and a plain step are graphs of their own."""
+
+    __slots__ = ("check", "scan", "exclude", "dyn", "sample", "restore",
+                 "token", "flag", "rows", "snap")
+
+    def __init__(self, check, scan, exclude, dyn, sample, restore):
+        self.check = check
+        self.scan = scan
+        # the probe vectors, the fetch list's tail: stacked into one
+        # [probes, 8] fetch inside the step (one copy out, not one a probe)
+        self.exclude = exclude
+        self.dyn = dyn
+        self.sample = sample
+        self.restore = restore
+        self.token = (check, dynamics_mod.cache_token_of(dyn), sample)
+        self.flag = None
+        self.rows = None
+        self.snap: Dict[str, torch.Tensor] = {}
+
+
+class _RunSeries:
+    """One (program, place, mode)'s executor_* series, resolved once: a run
+    then costs an increment each, no label lookup. The hit and optimizer
+    series are made at their first increment, as the reference makes
+    them. Stale once the registry is cleared (telemetry.reset), by its
+    generation."""
+
+    __slots__ = ("gen", "labels", "runs", "steps", "seconds", "last_step",
+                 "_opt", "_hits")
+
+    def __init__(self, prog_label, place_label, mode):
+        self.gen = telemetry.registry().generation()
+        self.labels = (prog_label, place_label)
+        self.runs = telemetry.counter(
+            "executor_runs_total", "Executor.run calls",
+            labels=("program", "place", "mode")).labels(
+                program=prog_label, place=place_label, mode=mode)
+        self.steps = telemetry.counter(
+            "executor_steps_total",
+            "training/eval steps executed (a run_steps window counts K)",
+            labels=("program", "place")).labels(
+                program=prog_label, place=place_label)
+        self.seconds = telemetry.histogram(
+            "executor_run_seconds",
+            "Executor.run wall seconds (dispatch-only: a graphed run "
+            "returns when its fetches are copied out)",
+            labels=("program", "mode")).labels(program=prog_label, mode=mode)
+        self.last_step = telemetry.gauge(
+            "executor_last_step_seconds",
+            "wall seconds of the most recent executor step (per-step "
+            "average for run_steps windows) less its compile seconds"
+        ).labels()
+        self._opt = self._hits = None
+
+    def opt_steps(self):
+        if self._opt is None:
+            self._opt = telemetry.counter(
+                "optimizer_steps_total",
+                "runs of programs carrying optimizer-role ops",
+                labels=("program",)).labels(program=self.labels[0])
+        return self._opt
+
+    def hits(self):
+        if self._hits is None:
+            self._hits = telemetry.counter(
+                "executor_cache_hits_total",
+                "runs served by an already-captured graph signature",
+                labels=("program", "place")).labels(
+                    program=self.labels[0], place=self.labels[1])
+        return self._hits
+
+
 class Executor:
     """Runs programs on a place. On a CUDA place a training or inference
     step whose block the gate admits (`graph_gate`) runs as a CUDA graph,
@@ -1032,6 +1244,15 @@ class Executor:
         self._consts: Dict[tuple, torch.Tensor] = {}
         # (id, version) -> the program PADDLE_TPU_VERIFY admitted
         self._verified_programs: Dict[tuple, Program] = {}
+        # the step telemetry: each graph family's feed signatures seen (the
+        # reference's seen_sigs, for its compile and cache_miss events),
+        # the resolved executor_* series, and the last step's route
+        self._sigs: Dict[tuple, list] = {}
+        self._facts: Dict[tuple, tuple] = {}
+        self._series: Dict[tuple, _RunSeries] = {}
+        self._route = ("eager", "n/a")
+        self.place_label = (f"{type(self.place).__name__}:"
+                            f"{self.place.device_id}")
 
     def constant(self, values, dtype: torch.dtype) -> torch.Tensor:
         """A host array (a static attr's values) on this Executor's device,
@@ -1068,8 +1289,19 @@ class Executor:
         """Run the global block once: feeds in, fetches out, persistable
         outputs written back to `scope`. On a CUDA place an admitted block
         runs graphed (see the class), unless `use_jit` is False or
-        `use_program_cache` is False."""
+        `use_program_cache` is False. A run that raises writes the flight
+        recorder's crash report first (inspector.notify_crash, a no-op
+        unless the recorder is on)."""
         program = program if program is not None else default_main_program()
+        try:
+            return self._run_impl(program, feed, fetch_list, scope,
+                                  return_numpy, use_program_cache, use_jit)
+        except Exception as e:
+            inspector_mod.notify_crash(self, program, e)
+            raise
+
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy,
+                  use_program_cache, use_jit):
         scope = scope if scope is not None else global_scope()
         feed = self._pull_readers(program, feed)
         fetch_names = _names(fetch_list)
@@ -1077,6 +1309,17 @@ class Executor:
         n_user = len(fetch_names)
         extra = self._telemetry_extra(program, fetch_names)
         fetch_names += [n for _, n in extra]
+        # the inspector's probe vectors ride the fetch list; its own replay
+        # programs (_inspector_internal) record and check nothing
+        internal = getattr(program, "_inspector_internal", False)
+        probe_sites = None if internal else \
+            getattr(program, "_probe_sites", None)
+        n_keep = len(fetch_names)
+        if probe_sites:
+            fetch_names += [s.stat_var for s in probe_sites]
+        check = not internal and (_CHECK_NAN_INF
+                                  or flags_mod.get("check_nan_inf"))
+        user_feed = feed
         cache = getattr(program, "_emb_cache", None)
         if cache is not None and feed:
             feed = cache.prepare_feed(feed)
@@ -1100,26 +1343,278 @@ class Executor:
         rng_counter = scope.find_var("__rng_counter__") or 0
         reason = self.graph_gate(program, feed_vals, use_jit,
                                  use_program_cache)
+        plane = self._plane(program, reason, check, probe_sites,
+                            rng_counter, internal)
+        compile_before = telemetry.compile_seconds()
+        t0 = time.perf_counter()
         try:
             fetch, written, lens = self._step(program, state, feed_vals,
                                               fetch_names, persist_out,
-                                              rng_counter, reason)
+                                              rng_counter, reason,
+                                              plane=plane)
+        except NonFiniteError:
+            self._restore(plane, state)     # the eager per-op scan raised
+            raise
         except Exception as e:
             self._raise_oom(program, e, feed_vals, state)
             raise
-        self._sample_memory(program, feed_vals, state)
+        run_dt = time.perf_counter() - t0
+        compile_s = telemetry.compile_seconds() - compile_before
         if cache is not None:
             cache.window_dispatched()
+        prog_label = telemetry.program_label(program)
+        if plane is not None:
+            # before the commit: a step that went non-finite raises here,
+            # the rng counter not advanced, the in-place state restored
+            # (before an attribution replays from the scope)
+            try:
+                self._check_step(plane, program, fetch_names[:n_keep],
+                                 fetch[:n_keep], written, user_feed,
+                                 rng_counter, scope, prog_label, state)
+                if probe_sites:
+                    # the probe vectors stacked on the device: one copy to
+                    # the host, not one a probe
+                    stats = list(to_numpy(fetch[n_keep]))
+                    if any(s.kind == "probe" and (v[5] or v[6])
+                           for s, v in zip(probe_sites, stats)):
+                        self._restore(plane, state)
+                    inspector_mod.record_probes(
+                        self, program, scope, probe_sites, stats,
+                        feed=user_feed, new_state=written,
+                        rng_counter=rng_counter, prog_label=prog_label)
+            except NonFiniteError:
+                self._restore(plane, state)
+                raise
         scope.set_var("__rng_counter__", rng_counter + 1)
+        if plane is not None and plane.rows is not None:
+            dynamics_mod.on_step(program, prog_label, plane.rows,
+                                 int(rng_counter))
+        self._publish_run(program, prog_label, run_dt, compile_s, len(raw),
+                          n_user, len(state))
+        self._sample_memory(program, feed_vals, state)
         self._write_back(program, scope, written, lens)
-        out = self._fetch_out(fetch_names, fetch, lens, return_numpy)
+        out = self._fetch_out(fetch_names[:n_keep], fetch[:n_keep], lens,
+                              return_numpy)
         if extra:
-            from . import telemetry
-            label = telemetry.program_label(program)
             for (metric, _n), v in zip(extra, out[n_user:]):
                 telemetry.gauge(metric, labels=("program",)).labels(
-                    program=label).set(float(v.reshape(-1)[0]))
+                    program=prog_label).set(float(v.reshape(-1)[0]))
+        if not internal and inspector_mod.flight_enabled():
+            self._flight_record(program, prog_label, run_dt, compile_s,
+                                len(raw), n_user, rng_counter)
         return out[:n_user]
+
+    # --- the step's telemetry and the numeric-health plane --------------
+    def _plane(self, program, reason, check, probe_sites, rng_counter,
+               internal) -> Optional[_Plane]:
+        """The plane's asks of this step, or None when none is on (the
+        step then runs as it would without the plane). Dynamics samples the
+        graphed path only (its eager warm-up included), as the reference
+        samples its traced step only."""
+        dyn = None
+        if reason is None and not internal:
+            dyn = dynamics_mod.plan(program)
+        scan = reason is not None and (check or reason == "trap_fp")
+        if not (check or probe_sites or dyn is not None or scan):
+            return None
+        exclude = frozenset(s.stat_var for s in probe_sites or ())
+        return _Plane(check and reason is None, scan, exclude, dyn,
+                      dynamics_mod.sampled(dyn, rng_counter),
+                      bool(check or probe_sites or scan))
+
+    def _check_step(self, plane, program, fetch_names, fetch, written, feed,
+                    rng_counter, scope, prog_label, state):
+        """The graphed step's check_nan_inf: its one finiteness flag, read
+        here (the fetches' copy out has read the device already); on
+        failure the fetches (less the probe vectors) and the persistable
+        outputs are walked in order to name the first non-finite one (JAX
+        executor.py:1293-1317)."""
+        if not plane.check or plane.flag is None or bool(plane.flag):
+            return
+        checked = [(n, v) for n, v in zip(fetch_names, fetch)
+                   if n not in plane.exclude] + sorted(written.items())
+        for name, val in checked:
+            if _nonfinite(val):
+                self._raise_nonfinite(
+                    program, name, val, feed, written, rng_counter, scope,
+                    prog_label, restore=lambda: self._restore(plane, state))
+
+    def _raise_nonfinite(self, program, name, val, feed, new_state,
+                         rng_counter, scope, prog_label, restore=None):
+        """NonFiniteError for a check_nan_inf hit after a graphed step
+        (JAX executor.py:1490): the variable, its dtype and contamination,
+        counted as nonfinite_detections_total{source="fetch"}, and with
+        the nonfinite_attribution flag (default on) the bisection's
+        attribution, replayed eager from the scope as it was before the
+        step (`restore`, called once the variable is read, puts the state
+        a step updated in place back first)."""
+        telemetry.counter(
+            "nonfinite_detections_total",
+            "NaN/Inf values caught by check_nan_inf or inspector probes",
+            labels=("program", "source")).labels(
+                program=prog_label, source="fetch").inc()
+        t = val.values if isinstance(val, SelectedRowsVal) else val
+        dtype = dtype_name(t.dtype)
+        nan_c = int(torch.isnan(t).sum())
+        inf_c = int(torch.isinf(t).sum())
+        msg = (f"NaN/Inf detected in variable '{name}' (dtype {dtype}, "
+               f"shape {tuple(t.shape)}, {nan_c} NaN / {inf_c} Inf) after "
+               f"graphed step (check_nan_inf)")
+        if restore is not None:
+            restore()
+        attribution = None
+        if flags_mod.get("nonfinite_attribution"):
+            try:
+                attribution = inspector_mod.attribute_nonfinite(
+                    self, program, feed, scope=scope, state=new_state,
+                    rng_counter=rng_counter)
+            except Exception:
+                attribution = None
+            if attribution is not None:
+                msg += "\n  " + attribution.summary()
+        raise NonFiniteError(msg, var_name=name, dtype=dtype,
+                             attribution=attribution,
+                             feed_signature=inspector_mod.feed_signature(
+                                 feed))
+
+    @staticmethod
+    def _restore(plane, state):
+        """A raising step's in-place state back from its pre-step copy:
+        the scope holds what it held before the step."""
+        if plane is None or not plane.restore or not plane.snap:
+            return
+        names = [n for n in plane.snap if n in state]
+        torch._foreach_copy_([state[n] for n in names],
+                             [plane.snap[n] for n in names])
+
+    def _run_series(self, prog_label, mode) -> _RunSeries:
+        key = (prog_label, mode)
+        ser = self._series.get(key)
+        if ser is None or ser.gen != telemetry.registry().generation():
+            ser = self._series[key] = _RunSeries(prog_label,
+                                                 self.place_label, mode)
+        return ser
+
+    def _publish_run(self, program, prog_label, run_dt, compile_s, n_feeds,
+                     n_fetches, n_state):
+        """The run's executor_* series, its `run` event (JAX
+        executor.py:1355-1386) and, with tracing on, its `step` span with a
+        `compile` child on a capture. A graphed run's mode is "graph"; its
+        cache is "miss" when it warmed a signature up or captured it, "hit"
+        when it replayed."""
+        mode, cache_status = self._route
+        ser = self._run_series(prog_label, mode)
+        ser.runs.inc()
+        ser.steps.inc()
+        ser.seconds.observe(run_dt)
+        if cache_status == "hit":
+            ser.hits().inc()
+        ser.last_step.set(max(run_dt - compile_s, 0.0))
+        if self._program_facts(program)[0]:
+            ser.opt_steps().inc()
+        telemetry.log_event(
+            "run", program=prog_label, place=self.place_label, mode=mode,
+            seconds=run_dt, compile_s=compile_s,
+            execute_s=max(run_dt - compile_s, 0.0), cache=cache_status,
+            donated=n_state if mode == "graph" else 0, feeds=n_feeds,
+            fetches=n_fetches)
+        if tracing_mod.enabled():
+            t_end = time.monotonic()
+            sp = tracing_mod.record_span(
+                "step", t_end - run_dt, t_end,
+                attrs={"program": prog_label, "place": self.place_label,
+                       "mode": mode, "cache": cache_status})
+            if compile_s > 0.0 and cache_status == "miss":
+                tracing_mod.record_span(
+                    "compile", t_end - run_dt,
+                    min(t_end - run_dt + compile_s, t_end), parent=sp,
+                    attrs={"seconds": compile_s})
+
+    def _publish_window(self, program, prog_label, steps, run_dt, compile_s,
+                        n_feeds, n_fetches, n_state):
+        """A run_steps window's series and its `run_window` event (JAX
+        executor.py:942-990): runs count one (mode "window"), steps K, the
+        last-step gauge the window's per-step time less its compile."""
+        cache_status = self._route[1]
+        ser = self._run_series(prog_label, "window")
+        ser.runs.inc()
+        ser.steps.inc(steps)
+        ser.seconds.observe(run_dt)
+        ser.last_step.set(max(run_dt - compile_s, 0.0) / steps)
+        if self._program_facts(program)[0]:
+            ser.opt_steps().inc(steps)
+        telemetry.log_event(
+            "run_window", program=prog_label, place=self.place_label,
+            mode="window", steps=steps, seconds=run_dt,
+            per_step_seconds=run_dt / steps, compile_s=compile_s,
+            execute_s=max(run_dt - compile_s, 0.0), cache=cache_status,
+            donated=n_state, feeds=n_feeds, fetches=n_fetches)
+        if tracing_mod.enabled():
+            t_end = time.monotonic()
+            tracing_mod.record_span(
+                "run_steps_window", t_end - run_dt, t_end,
+                attrs={"program": prog_label, "place": self.place_label,
+                       "steps": steps, "cache": cache_status})
+
+    def _flight_record(self, program, prog_label, seconds, compile_s,
+                       n_feeds, n_fetches, rng_counter, **more):
+        """One flight-recorder record (JAX executor.py:1441-1456), the
+        memory gauges published first."""
+        mode, cache_status = self._route
+        mem = memory_mod.tracker().last
+        rec = {"place": self.place_label, "mode": mode, "seconds": seconds,
+               "compile_s": compile_s, "cache": cache_status,
+               "feeds": n_feeds, "fetches": n_fetches,
+               "rng_counter": int(rng_counter),
+               "global_norm": telemetry.read_gauge(
+                   "optimizer_global_norm", program=prog_label),
+               "hbm_bytes_in_use": mem.get("bytes_in_use"),
+               "hbm_peak_bytes": mem.get("peak_bytes")}
+        rec.update(more)
+        inspector_mod.record_step(program, prog_label, rec)
+
+    def _note_signature(self, family, feed, program, prog_label, entry):
+        """A new graph signature (its warm-up): the reference's retrace
+        bookkeeping (JAX executor.py:1244-1290). A family (program,
+        version, fetches, plane) that has graphed before and now sees a
+        new feed signature counts executor_cache_misses_total and logs a
+        `cache_miss` event with the signature and what changed; the
+        capture that follows logs the `compile`."""
+        sig = telemetry.signature_of(feed)
+        seen = self._sigs.get(family)
+        if seen is None:
+            seen = self._sigs[family] = [set(), None, program]
+        entry.cause = "first_compile" if not seen[0] else "signature_change"
+        entry.sig = sig
+        if sig not in seen[0] and seen[0]:
+            last = seen[1] or ()
+            telemetry.counter(
+                "executor_cache_misses_total",
+                "graph signatures warmed up after the program's first",
+                labels=("program", "place")).labels(
+                    program=prog_label, place=self.place_label).inc()
+            telemetry.log_event(
+                "cache_miss", program=prog_label, place=self.place_label,
+                signature=[list(x) for x in sig],
+                changed=[list(x) for x in sig if x not in last])
+        seen[0].add(sig)
+        seen[1] = sig
+
+    def _note_capture(self, entry, program, seconds):
+        prog_label = telemetry.program_label(program)
+        telemetry.counter(
+            "executor_compiles_total", "block graph captures",
+            labels=("program", "place")).labels(
+                program=prog_label, place=self.place_label).inc()
+        telemetry.counter(
+            "executor_compile_seconds_total",
+            "graph capture wall seconds inside Executor.run",
+            labels=("program", "place")).labels(
+                program=prog_label, place=self.place_label).inc(seconds)
+        telemetry.log_event(
+            "compile", program=prog_label, place=self.place_label,
+            cause=entry.cause, seconds=seconds,
+            signature=[list(x) for x in (entry.sig or ())])
 
     def _pull_readers(self, program, feed):
         """`feed` with the next batch of each program-bound reader
@@ -1240,6 +1735,17 @@ class Executor:
             raise ValueError(f"fetch_mode must be last|stack|mean, "
                              f"got {fetch_mode!r}")
         program = program if program is not None else default_main_program()
+        try:
+            return self._run_steps_impl(program, feed_window, reader, steps,
+                                        fetch_list, scope, return_numpy,
+                                        fetch_mode, use_jit)
+        except Exception as e:
+            inspector_mod.notify_crash(self, program, e)
+            raise
+
+    def _run_steps_impl(self, program, feed_window, reader, steps,
+                        fetch_list, scope, return_numpy, fetch_mode,
+                        use_jit):
         scope = scope if scope is not None else global_scope()
         cache = getattr(program, "_emb_cache", None)
         if reader is not None:
@@ -1262,6 +1768,16 @@ class Executor:
                 fetch_mode, use_jit, "lod_feed")
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
+        internal = getattr(program, "_inspector_internal", False)
+        check = _CHECK_NAN_INF or flags_mod.get("check_nan_inf")
+        if not internal and (check or getattr(program, "_probe_sites", None)):
+            # per-step attribution needs per-step runs (JAX
+            # executor.py:672-675)
+            return self._run_steps_per_step(
+                program, [{n: v[i] for n, v in stacked.items()}
+                          for i in range(steps)],
+                fetch_list, scope, return_numpy, fetch_mode, use_jit,
+                "check_nan_inf" if check else "probes")
         if any(isinstance(scope.find_var(n), LoDTensor)
                and scope.find_var(n).lod
                for n in self._external_inputs(program, set(stacked), scope)):
@@ -1280,28 +1796,47 @@ class Executor:
         state = {n: _to_device(scope.find_var(n), self.device)
                  for n in state_names}
         rng_counter = scope.find_var("__rng_counter__") or 0
-        fetched, written = [], {}
+        fetched, written, samples = [], {}, []
+        compile_before = telemetry.compile_seconds()
+        t0 = time.perf_counter()
         for i in range(steps):
             feed_i = {n: v[i] for n, v in feed_vals.items()}
             reason = self.graph_gate(program, feed_i, use_jit, True)
+            plane = self._plane(program, reason, False, None,
+                                rng_counter + i, internal)
             try:
                 fetch, out, _lens = self._step(
                     program, state, feed_i, fetch_names, persist_out,
-                    rng_counter + i, reason, hand_out=i == steps - 1)
+                    rng_counter + i, reason, hand_out=i == steps - 1,
+                    plane=plane)
             except Exception as e:
                 self._raise_oom(program, e, feed_vals, state)
                 raise
+            if plane is not None and plane.rows is not None:
+                samples.append((rng_counter + i, plane.rows))
             written.update(out)
             state.update({n: v for n, v in out.items() if n in state})
             fetched.append(fetch)
-        self._sample_memory(program, feed_vals, state)
+        run_dt = time.perf_counter() - t0
+        compile_s = telemetry.compile_seconds() - compile_before
         if cache is not None:
             cache.window_dispatched()
         scope.set_var("__rng_counter__", rng_counter + steps)
+        prog_label = telemetry.program_label(program)
+        for c, rows in samples:
+            dynamics_mod.on_step(program, prog_label, rows, c)
+        self._publish_window(program, prog_label, steps, run_dt, compile_s,
+                             len(feed_vals), len(fetch_names), len(state))
+        self._sample_memory(program, feed_vals, state)
         for n, v in written.items():
             scope.set_var(n, v)
         COUNTERS.windows += 1
         COUNTERS.steps += steps
+        if not internal and inspector_mod.flight_enabled():
+            self._flight_record(program, prog_label, run_dt, compile_s,
+                                len(feed_vals), len(fetch_names),
+                                rng_counter, steps=steps,
+                                per_step_seconds=run_dt / steps)
         if fetch_mode == "last":
             out = fetched[-1]
         else:
@@ -1322,6 +1857,12 @@ class Executor:
         if len(per_step) > 1:
             COUNTERS.window_fallbacks[reason] = \
                 COUNTERS.window_fallbacks.get(reason, 0) + 1
+            telemetry.counter(
+                "executor_window_fallback_total",
+                "run_steps windows that fell back to per-step execution",
+                labels=("program", "reason")).labels(
+                    program=telemetry.program_label(program),
+                    reason=reason).inc()
             vlog(1, f"run_steps window of {len(per_step)} steps served one "
                     f"run() a step ({reason})")
         outs = []
@@ -1496,6 +2037,8 @@ class Executor:
         trip count is the padded length."""
         if use_jit is False or (use_jit is None and _EAGER):
             return "use_jit"
+        if _TRAP_FP:
+            return "trap_fp"
         if self.device.type != "cuda":
             return "cpu"
         if not use_program_cache:
@@ -1572,9 +2115,38 @@ class Executor:
     def _plan(self, program):
         return self._block_plan(program)[0]
 
+    def _program_facts(self, program):
+        """(whether the block carries optimizer-role ops, the state names a
+        step may update in place) of the global block, once per (program,
+        version). The second: the outputs of the sparse-apply optimizer
+        ops (sparse_ops.SPARSE_APPLY_OPS) whose Grad is a sparse
+        lookup_table gradient, directly or through a `sum` of them: the
+        tables and accumulators a sparse apply advances in place."""
+        key = (id(program), program._version)
+        hit = self._facts.get(key)
+        if hit is None or hit[0] is not program:
+            ops = program.global_block().ops
+            has_opt = any(op.desc.attrs.get("op_role") == "optimize"
+                          for op in ops)
+            sparse = set()
+            for op in ops:
+                if op.type == "lookup_table_grad" and op.attr("is_sparse",
+                                                              False):
+                    sparse.update(op.output_arg_names)
+                elif op.type == "sum" and op.input_arg_names and \
+                        set(op.input_arg_names) <= sparse:
+                    sparse.update(op.output_arg_names)
+            inplace = set()
+            for op in ops:
+                if op.type in sparse_ops.SPARSE_APPLY_OPS and \
+                        set(op.desc.inputs.get("Grad", ())) & sparse:
+                    inplace.update(op.output_arg_names)
+            hit = self._facts[key] = (program, has_opt, frozenset(inplace))
+        return hit[1:]
+
     # --- execution ----------------------------------------------------------
     def _step(self, program, state, feed, fetch_names, persist_out,
-              rng_counter, reason, hand_out=True):
+              rng_counter, reason, hand_out=True, plane=None):
         """One step from `state` and `feed`: (fetch tensors, the persistable
         outputs by name, the lengths of the fetched and written sequences
         by `<name>@SEQLEN[2]`). `reason` is the graph gate's answer: None
@@ -1583,7 +2155,11 @@ class Executor:
         last) lets a replay return the state buffers themselves, for the
         next step to read in place. On a process group's mesh the feeds
         are cut to this rank's rows and the sharded state to its shards
-        first (parallel/spmd.py)."""
+        first (parallel/spmd.py). `plane` (a _Plane, or None) asks for the
+        numeric-health plane's work: its token is part of the graph key,
+        and the step leaves its finiteness flag, its dynamics rows and its
+        pre-step copy on it. `self._route` tells the caller how the step
+        ran: (mode, cache status)."""
         spmd_seed = None
         st = spmd_mod.for_program(program)
         if st is not None:
@@ -1601,7 +2177,8 @@ class Executor:
                     getattr(program, "_amp_dtype", None),
                     getattr(program, "_amp_level", "O1"),
                     quant.cache_token(program), sparse_ops.cache_token(program),
-                    program.random_seed)
+                    program.random_seed,
+                    None if plane is None else plane.token)
             # a graph updates the in-place state of the scope it was
             # captured on: those tensors' identities are part of its key
             names = self._inplace_names.get(base)
@@ -1611,12 +2188,20 @@ class Executor:
             if entry is None:
                 entry = _GraphedStep()
                 COUNTERS.warmups += 1
+                self._note_signature(
+                    (id(program), program._version, tuple(fetch_names),
+                     base[-1]), feed, program,
+                    telemetry.program_label(program), entry)
+                self._route = ("graph", "miss")
             else:
                 self._graphs.move_to_end(key)
+                self._route = ("graph", "miss" if entry.graph is None
+                               else "hit")
                 try:
                     return self._graphed(entry, program, state, feed,
                                          fetch_names, persist_out,
-                                         rng_counter, hand_out, spmd_seed)
+                                         rng_counter, hand_out, spmd_seed,
+                                         plane)
                 except BaseException:
                     if entry.graph is None:
                         # the capture failed: the signature warms up again
@@ -1627,15 +2212,22 @@ class Executor:
                     raise
         else:
             COUNTERS.eager[reason] = COUNTERS.eager.get(reason, 0) + 1
+            self._route = ("eager", "n/a")
+        if plane is not None:
+            self._snapshot(plane, program, state, None)
         env = dict(state)
         env.update(feed)
         ctx = LoweringContext(self, program, rng_counter)
         ctx.spmd = _spmd_for(spmd_seed, env)
+        ctx.scan = plane is not None and plane.scan
+        ctx.bench = _BENCHMARK and reason is not None
         groups, drops, _ = self._block_plan(program)
         protected = set(fetch_names) | set(persist_out)
+        keep = protected | set(state)
+        if plane is not None and plane.sample:
+            keep |= set(plane.dyn.grab_names)
         try:
-            self._run_block(ctx, program, env, groups, protected, drops,
-                            protected | set(state))
+            self._run_block(ctx, program, env, groups, protected, drops, keep)
         except Exception as e:
             # the failed step's tensors by name, for OOM forensics
             # (memory.maybe_oom_error reads and drops it)
@@ -1647,6 +2239,12 @@ class Executor:
             out = ([_fetched(env[n]) for n in fetch_names],
                    {n: env[n] for n in persist_out if n in env},
                    _lengths_of(env, list(fetch_names) + list(persist_out)))
+        if plane is not None and reason is None:
+            # the graphed signature's warm-up computes what its graph will
+            plane.flag, plane.rows = self._plane_outputs(
+                plane, fetch_names, out[0], out[1], state, env)
+        if plane is not None and plane.exclude:
+            out = (_stack_probes(out[0], len(plane.exclude)),) + out[1:]
         if reason is None:
             # the warm-up: a persistable output that is its state tensor
             # itself was updated in place (the sparse applies' tables)
@@ -1656,6 +2254,45 @@ class Executor:
             self._graphs[base + (_identities(state, entry.inplace),)] = entry
             self._evict()
         return out
+
+    def _snapshot(self, plane, program, state, entry):
+        """The pre-step copy of the state this step may update in place,
+        where the plane needs it (a step that must restore on failure, or
+        a sampled step, whose update ratio reads W_old): a graphed step's
+        exact in-place set (its warm-up found it) into the graph's static
+        copies, an eager step's candidates (_program_facts) into new
+        tensors, one multi-tensor copy either way."""
+        if not (plane.restore or plane.sample):
+            return
+        if entry is not None:
+            names = sorted(entry.snap)
+            if names:
+                torch._foreach_copy_([entry.snap[n] for n in names],
+                                     [state[n] for n in names])
+            plane.snap = entry.snap
+            return
+        names = [n for n in sorted(self._program_facts(program)[1])
+                 if n in state]
+        plane.snap = dict(zip(names, _copies([state[n] for n in names])))
+
+    def _plane_outputs(self, plane, fetch_names, fetches, written, state,
+                       env):
+        """(finiteness flag, dynamics rows) of a graphed step, computed in
+        the step (inside its graph on a capture) before its write-back:
+        `state` holds the values the step started from, except a tensor
+        updated in place, whose pre-step copy is in `plane.snap`."""
+        flag = rows = None
+        if plane.check:
+            flag = finite_flag(
+                [f for n, f in zip(fetch_names, fetches)
+                 if n not in plane.exclude] + list(written.values()))
+        if plane.sample:
+            old = dict(state)
+            old.update(plane.snap)
+            grabs = {g: env[g] for g in plane.dyn.grab_names if g in env}
+            rows = dynamics_mod.group_rows(plane.dyn, old, written, grabs,
+                                           const=self.constant)
+        return flag, rows
 
     def _evict(self):
         """Drop the graphs run least recently past GRAPH_CACHE_SIZE, and
@@ -1688,16 +2325,21 @@ class Executor:
 
     def _graphed(self, entry: _GraphedStep, program, state, feed,
                  fetch_names, persist_out, rng_counter, hand_out=True,
-                 spmd_seed=None):
+                 spmd_seed=None, plane=None):
         """Capture `entry` on its first call, then replay it: a state
         tensor its buffer does not hold copied in, the feeds copied into
         their buffers. The scope is handed copies of the persistable
         outputs, never a buffer, except the state the step updates in
         place, whose buffer is the scope's tensor. A capture that fails
-        raises; nothing runs eager in its place."""
+        raises; nothing runs eager in its place. With the plane on, the
+        in-place state is copied into the graph's static pre-step copies
+        before the replay, and the flag and the dynamics rows come back
+        with the fetches."""
         if entry.graph is None:
+            t0 = time.perf_counter()
             self._capture(entry, program, state, feed, fetch_names,
-                          persist_out, rng_counter, spmd_seed)
+                          persist_out, rng_counter, spmd_seed, plane)
+            self._note_capture(entry, program, time.perf_counter() - t0)
         for n, b in entry.state.items():
             v = state[n]
             if not b.holds(v):
@@ -1706,6 +2348,8 @@ class Executor:
                 COUNTERS.copied_in += 1
         for n, buf in entry.feeds.items():
             buf.copy_(feed[n])
+        if plane is not None:
+            self._snapshot(plane, program, state, entry)
         self._seed_random(program, rng_counter)
         entry.graph.replay()
         COUNTERS.replays += 1
@@ -1713,6 +2357,9 @@ class Executor:
         # pool, where the next graph's replay may write: copied out now
         fetch = [t.clone() for t in entry.fetches]
         lens = {n: t.clone() for n, t in entry.lens.items()}
+        if plane is not None:
+            plane.flag = None if entry.flag is None else entry.flag.clone()
+            plane.rows = None if entry.rows is None else entry.rows.clone()
         bufs = [entry.state[n] for n in entry.persist]
         if not hand_out:
             for b in bufs:
@@ -1729,13 +2376,22 @@ class Executor:
         return fetch, out, lens
 
     def _capture(self, entry: _GraphedStep, program, state, feed,
-                 fetch_names, persist_out, rng_counter, spmd_seed=None):
+                 fetch_names, persist_out, rng_counter, spmd_seed=None,
+                 plane=None):
         entry.state = {n: self._buffer(n, v, n in entry.inplace)
                        for n, v in state.items()}
         entry.persist = [n for n in persist_out if n in entry.state]
         entry.feeds = {n: v.clone() for n, v in feed.items()}
+        if plane is not None and (plane.restore or plane.sample):
+            # the graph's static pre-step copies of its in-place state,
+            # filled before each replay (_snapshot)
+            entry.snap = {n: state[n].clone() for n in sorted(entry.inplace)}
+            plane.snap = entry.snap
         groups, drops, _ = self._block_plan(program)
         protected = set(fetch_names) | set(persist_out)
+        keep = protected | set(state)
+        if plane is not None and plane.sample:
+            keep |= set(plane.dyn.grab_names)
 
         def body():
             env = {n: b.t for n, b in entry.state.items()}
@@ -1745,7 +2401,7 @@ class Executor:
             ctx.spmd = _spmd_for(spmd_seed, env)
             try:
                 self._run_block(ctx, program, env, groups, protected, drops,
-                                protected | set(state))
+                                keep)
             except Exception as e:
                 # the captured step's tensors by name, for OOM forensics
                 e.__dict__["step_env"] = env
@@ -1758,6 +2414,14 @@ class Executor:
                                          + list(persist_out))
                 fetches = [_fetched(env[n]) for n in fetch_names]
                 written = {n: env[n] for n in persist_out if n in env}
+            if plane is not None:
+                # the plane reads the step's start from the buffers before
+                # the write-back below
+                entry.flag, entry.rows = self._plane_outputs(
+                    plane, fetch_names, fetches, written,
+                    {n: b.t for n, b in entry.state.items()}, env)
+                if plane.exclude:
+                    fetches = _stack_probes(fetches, len(plane.exclude))
             for n in entry.persist:
                 buf = entry.state[n].t
                 if written[n] is not buf:
@@ -1801,9 +2465,12 @@ class Executor:
         while i < len(ops):
             g = groups.get(i)
             lo = i
+            t0 = time.perf_counter() if ctx.bench else None
             if g is not None:
                 if spmd is not None:
                     spmd.window(g.members, env)
+                for m in g.members:
+                    _record_op(m.type)
                 with registry.span(fusion_mod.span_name(g)):
                     fusion_mod.execute_group(self, ctx, g, env, protected)
                 if spmd is not None and g.kind not in _MEMBER_WINDOWS:
@@ -1812,6 +2479,18 @@ class Executor:
             else:
                 self._exec_op(ctx, ops[i], env)
                 i += 1
+            if t0 is not None:
+                # FLAGS_benchmark (reference executor.cc:321): wait for the
+                # device after each op or window and log its wall time
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                what = fusion_mod.span_name(g) if g is not None else \
+                    ops[lo].type
+                vlog(1, f"[benchmark] {what}: "
+                        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+            if ctx.scan:
+                _scan_outputs(g.members if g is not None else (ops[lo],),
+                              env)
             if spmd is not None:
                 spmd.flush_range(ctx, env, lo, i)
             if drops:
@@ -1822,6 +2501,7 @@ class Executor:
     def _exec_op(self, ctx: LoweringContext, op, env: Dict[str, Any]):
         if op.type in ("feed", "fetch"):
             return
+        _record_op(op.type)
         try:
             opdef = registry.get(op.type)
         except KeyError as e:

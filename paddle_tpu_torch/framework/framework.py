@@ -346,6 +346,18 @@ class Block:
         self._infer_shape(op)
         return op
 
+    def insert_op(self, index: int, type: str, inputs=None, outputs=None,
+                  attrs=None) -> Operator:
+        """An op at `index` (the inspector's probes, after the op they
+        watch)."""
+        desc = self._make_op(type, inputs, outputs, attrs)
+        op = Operator(self, desc)
+        self.desc.ops.insert(index, desc)
+        self.ops.insert(index, op)
+        self.program._version += 1
+        self._infer_shape(op)
+        return op
+
     def _infer_shape(self, op: Operator):
         from ..ops import registry  # local import to avoid a cycle
         opdef = registry.try_get(op.type)

@@ -20,14 +20,15 @@ allocator serves every tensor. So:
    the card under `torch.cuda.reset_peak_memory_stats()` and records the
    peak over the bytes held before the step, plus the state the step
    reads.
-3. **Live accounting** — a `MemoryTracker` samples the caching
-   allocator's statistics (allocated bytes, their peak, reserved bytes;
-   the limit from `torch.cuda.mem_get_info`, asked once a card, and the
-   process's memory fraction) after each `Executor.run`, classifies state into
-   params / opt-state / feeds / activations by scope metadata, and feeds
-   the `hbm_bytes_in_use` / `hbm_peak_bytes` / `hbm_limit_bytes` /
-   `hbm_class_bytes` gauges. On the CPU it sums the run's tensors, as the
-   JAX package sums `jax.live_arrays()`.
+3. **Live accounting** — a `MemoryTracker` records the caching
+   allocator's allocated bytes and their peak (one read of its nested
+   statistics) after each `Executor.run`; when the gauges are read it
+   classifies state into params / opt-state / feeds / activations by scope
+   metadata, takes the limit (`torch.cuda.mem_get_info`, asked once a
+   card, and the process's memory fraction) and sets the
+   `hbm_bytes_in_use` / `hbm_peak_bytes` / `hbm_limit_bytes` /
+   `hbm_class_bytes` gauges from the last run's numbers. On the CPU it
+   sums the run's tensors, as the JAX package sums `jax.live_arrays()`.
 4. **What-if estimation** — `HeadroomModel` fits peak(b) = fixed +
    per_item*b from measured peaks at two or more batch sizes (the JAX
    package's least-squares arithmetic), predicts the largest batch under a
@@ -566,17 +567,33 @@ def _allocator_stats(device) -> Optional[Dict[str, int]]:
 
 
 class MemoryTracker:
-    """Per-run device-memory sampler: the caching allocator's statistics on
-    a card; on the CPU the run's own tensors summed. Feeds the hbm_*
-    gauges and keeps a process-lifetime peak for reports."""
+    """Per-run device-memory sampler: the caching allocator's allocated
+    bytes and their peak on a card; on the CPU the run's own tensors
+    summed. The per-run hook (`note`, from `on_run`) keeps those numbers
+    and a running peak; the hbm_* gauges, the limit and the classes are
+    published when they are read (`flush`: at telemetry.snapshot(),
+    prometheus_text() and read_gauge(), a flight record, a crash report,
+    or `last`), from the last run's numbers, so read at any moment they
+    hold what a full sample after every run would have given."""
 
     def __init__(self):
         self.peak_bytes = 0
-        self.last: Dict[str, Any] = {}
-        # (gauge, label values) -> (its family, its series): a run sets
+        self._last: Dict[str, Any] = {}
+        self._pending = None
+        # (gauge, label values) -> (its family, its series): a flush sets
         # seven series, and resolving each by its labels costs more than
         # the allocator's read
         self._series: Dict[Tuple, Tuple] = {}
+
+    @property
+    def last(self) -> Dict[str, Any]:
+        self.flush()
+        return self._last
+
+    @last.setter
+    def last(self, value: Dict[str, Any]):
+        self._pending = None
+        self._last = value
 
     def _set(self, name: str, help_str: str, value, **labels):
         fam = telemetry.gauge(name, help_str, labels=tuple(labels))
@@ -586,47 +603,78 @@ class MemoryTracker:
             hit = self._series[key] = (fam, fam.labels(**labels))
         hit[1].set(value)
 
+    def note(self, device, program: Optional[str], classes, feed_bytes,
+             in_use: int, dev_peak: int, reserved: Optional[int],
+             source: str):
+        """The per-run record: a few numbers, no gauge touched."""
+        self.peak_bytes = max(self.peak_bytes, dev_peak, in_use)
+        self._pending = (device, program, classes, feed_bytes, in_use,
+                         reserved, source,
+                         telemetry.registry().generation())
+
+    def flush(self):
+        """Publish the last run's record into the gauges and `last`."""
+        p = self._pending
+        if p is None:
+            return
+        self._pending = None
+        device, program, classes, feed_bytes, in_use, reserved, source, \
+            gen = p
+        # a registry cleared since the run (telemetry.reset) gets no gauge
+        # of it, as one set at the run would have been cleared
+        publish = gen == telemetry.registry().generation()
+        if source == "device":
+            limit = _device_total(device)
+        else:
+            limit = int(flags.get("hbm_budget_bytes") or 0)
+        label = str(device) if device is not None else "?"
+        cls = {}
+        if classes is not None:
+            cls = dict(classes, feeds=feed_bytes)
+            cls["activations"] = max(in_use - sum(cls.values()), 0)
+        if publish:
+            self._set("hbm_bytes_in_use", "device memory in use after the "
+                      "last run (the allocator's, or the run's tensors on "
+                      "the CPU)", in_use, device=label)
+            self._set("hbm_peak_bytes", "high-water device memory across "
+                      "the process", self.peak_bytes, device=label)
+            if limit:
+                self._set("hbm_limit_bytes", "device memory capacity (the "
+                          "card's, or the hbm_budget_bytes flag)", limit,
+                          device=label)
+            for kind, v in cls.items():
+                self._set("hbm_class_bytes", "live bytes by class: "
+                          "params/opt_state/feeds/activations", v,
+                          device=label, kind=kind)
+        self._last = {"device": label, "source": source, "program": program,
+                      "bytes_in_use": in_use, "peak_bytes": self.peak_bytes,
+                      "limit_bytes": limit, "classes": cls}
+        if reserved is not None:
+            self._last["bytes_reserved"] = reserved
+
     def sample(self, device=None, program: Optional[str] = None,
                classes: Optional[Dict[str, int]] = None,
                tensors=()) -> Dict[str, Any]:
+        """One full sample now: the allocator's statistics on a card (else
+        `tensors` summed), published at once. `classes` includes the
+        feeds."""
         stats = None
         try:
             stats = _allocator_stats(device)
         except Exception:
             stats = None
+        feeds = None
+        if classes is not None:
+            classes = dict(classes)
+            feeds = classes.pop("feeds", 0)
         if stats:
-            in_use = stats["bytes_in_use"]
-            limit = stats["bytes_limit"]
-            dev_peak = stats["peak_bytes_in_use"]
-            source = "device"
+            self.note(device, program, classes, feeds, stats["bytes_in_use"],
+                      stats["peak_bytes_in_use"], stats["bytes_reserved"],
+                      "device")
         else:
             in_use = live_tensor_bytes(tensors)
-            limit = int(flags.get("hbm_budget_bytes") or 0)
-            dev_peak = in_use
-            source = "tensors"
-        self.peak_bytes = max(self.peak_bytes, dev_peak, in_use)
-        label = str(device) if device is not None else "?"
-        self._set("hbm_bytes_in_use", "device memory in use after the last "
-                  "run (the allocator's, or the run's tensors on the CPU)",
-                  in_use, device=label)
-        self._set("hbm_peak_bytes", "high-water device memory across the "
-                  "process", self.peak_bytes, device=label)
-        if limit:
-            self._set("hbm_limit_bytes", "device memory capacity (the "
-                      "card's, or the hbm_budget_bytes flag)", limit,
-                      device=label)
-        cls = dict(classes or {})
-        if classes is not None:
-            cls["activations"] = max(in_use - sum(classes.values()), 0)
-            for kind, v in cls.items():
-                self._set("hbm_class_bytes", "live bytes by class: "
-                          "params/opt_state/feeds/activations", v,
-                          device=label, kind=kind)
-        self.last = {"device": label, "source": source, "program": program,
-                     "bytes_in_use": in_use, "peak_bytes": self.peak_bytes,
-                     "limit_bytes": limit, "classes": cls}
-        if stats:
-            self.last["bytes_reserved"] = stats["bytes_reserved"]
+            self.note(device, program, classes, feeds, in_use, in_use, None,
+                      "tensors")
         return self.last
 
 
@@ -655,13 +703,25 @@ def reset():
 _RUN_CLASSES: Dict[Tuple, Tuple] = {}
 
 
-def on_run(exe, program, prog_label, feed_vals,
-           state_vals) -> Optional[Dict[str, Any]]:
-    """Executor hook after every run: one tracker sample. Gated on the
-    live memory_tracker flag. The state's classes are classified once per
-    program version and state count (a step changes no state shape); the
-    feeds are summed each run; the run's tensors are listed only where no
-    allocator reports."""
+def _allocated(device) -> Tuple[int, int, int]:
+    """(allocated bytes, their peak, reserved bytes) of the caching
+    allocator on a CUDA `device`, from one read of its nested statistics:
+    torch.cuda.memory_allocated and max_memory_allocated each flatten all
+    of them in Python (memory_stats), the cost this hook avoids."""
+    s = torch.cuda.memory_stats_as_nested_dict(device)
+    alloc = s.get("allocated_bytes", {}).get("all", {})
+    return (int(alloc.get("current", 0)), int(alloc.get("peak", 0)),
+            int(s.get("reserved_bytes", {}).get("all", {}).get("current", 0)))
+
+
+def on_run(exe, program, prog_label, feed_vals, state_vals) -> None:
+    """Executor hook after every run: the tracker's per-run record, gated
+    on the live memory_tracker flag. On a card it reads the allocator's
+    allocated bytes and their peak; on the CPU it sums the run's tensors.
+    The state's classes are classified once per program version and state
+    count (a step changes no state shape) and the feeds summed each run;
+    the gauges, the limit and the classes publish when read
+    (MemoryTracker.flush)."""
     if not flags.get("memory_tracker"):
         return None
     key = (id(program), getattr(program, "_version", 0), len(state_vals))
@@ -674,16 +734,23 @@ def on_run(exe, program, prog_label, feed_vals,
         hit = _RUN_CLASSES[key] = (program, cls)
         while len(_RUN_CLASSES) > 64:
             _RUN_CLASSES.pop(next(iter(_RUN_CLASSES)))
-    classes = None
+    feed_bytes = None
     if hit[1] is not None:
-        classes = dict(hit[1], feeds=sum(nbytes_of(v)
-                                         for v in feed_vals.values()))
+        feed_bytes = sum(nbytes_of(v) for v in feed_vals.values())
     device = getattr(exe, "device", None)
-    on_card = device is not None and torch.device(device).type == "cuda"
-    return _TRACKER.sample(
-        device=device, program=prog_label, classes=classes,
-        tensors=() if on_card else
-        list(state_vals.values()) + list(feed_vals.values()))
+    if device is not None and torch.device(device).type == "cuda":
+        in_use, peak, reserved = _allocated(device)
+        _TRACKER.note(device, prog_label, hit[1], feed_bytes, in_use, peak,
+                      reserved, "device")
+    else:
+        in_use = live_tensor_bytes(list(state_vals.values())
+                                   + list(feed_vals.values()))
+        _TRACKER.note(device, prog_label, hit[1], feed_bytes, in_use, in_use,
+                      None, "tensors")
+    return None
+
+
+telemetry.add_read_hook(_TRACKER.flush)
 
 
 # ---------------------------------------------------------------------------
@@ -1046,7 +1113,8 @@ def bench_summary() -> Optional[Dict[str, Any]]:
 
 
 def crash_section() -> Dict[str, Any]:
-    """The 'memory' section of a crash report."""
+    """The 'memory' section of a crash report (the tracker's last run,
+    published first)."""
     return {"tracker": dict(_TRACKER.last),
             "peak_bytes": _TRACKER.peak_bytes,
             "programs": [r.to_dict() for r in records()[-8:]],

@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from .. import telemetry
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -80,6 +82,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Dict[str, object]]
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        telemetry.note_compile("kernel_build", BUILD_LOG[name]["seconds"])
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue

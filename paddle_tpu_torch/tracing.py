@@ -20,13 +20,17 @@ point events, and finished spans land in a bounded process-wide ring
     retroactively from timestamps already measured (the batcher's phase
     marks), so tracing adds no second clock read on the hot path.
 
-The reference's exporters (chrome trace, JSONL, the live JSONL sink) are
-later work (ROADMAP item 10).
+  * **Exports.** `export_chrome_trace` writes the ring as chrome-trace /
+    Perfetto JSON (one row a trace), `export_jsonl` as JSON lines, and
+    `enable(jsonl=path)` (or `PADDLE_TPU_TRACE_JSONL`) mirrors each
+    finished span to a file as it ends. The executor records a `step`
+    span a run, with a `compile` child on a capture (executor.py).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import threading
 import time
@@ -44,6 +48,7 @@ _SAMPLE = 1.0
 _SAMPLE_ACC = 0.0            # error-feedback accumulator for head sampling
 _IDS = itertools.count(1)
 _LOCAL = threading.local()   # .stack — list of live Span objects
+_JSONL_PATH: Optional[str] = None   # live sink: one JSON line a span
 
 # offset from time.monotonic() to wall-clock, so spans recorded from
 # monotonic timestamps can still report a wall "ts"
@@ -175,21 +180,32 @@ def _finish(sp: Span):
                 "trace_spans_dropped_total",
                 "finished spans evicted from the bounded ring buffer").inc(
                     dropped)
+        path = _JSONL_PATH
     telemetry.counter(
         "trace_spans_total", "finished (sampled) spans, by span name",
         labels=("name",)).labels(name=sp.name).inc()
+    if path:
+        try:
+            with open(path, "a") as f:
+                f.write(json.dumps(d) + "\n")
+        except OSError:
+            pass
 
 
 # --- lifecycle ---------------------------------------------------------------
 
-def enable(sample: float = 1.0, capacity: Optional[int] = None):
+def enable(sample: float = 1.0, capacity: Optional[int] = None,
+           jsonl: Optional[str] = None):
     """Turn tracing on. `sample` in (0, 1] head-samples root spans;
-    `capacity` bounds the finished-span ring."""
-    global _ENABLED, _SAMPLE, _CAPACITY
+    `capacity` bounds the finished-span ring; `jsonl` mirrors finished
+    spans to a file, one JSON object per line."""
+    global _ENABLED, _SAMPLE, _CAPACITY, _JSONL_PATH
     with _LOCK:
         _SAMPLE = min(max(float(sample), 0.0), 1.0)
         if capacity is not None:
             _CAPACITY = max(int(capacity), 1)
+        if jsonl is not None:
+            _JSONL_PATH = jsonl
     _ENABLED = True
 
 
@@ -204,19 +220,21 @@ def enabled() -> bool:
 
 def reset():
     """Drop all recorded spans and restore defaults (tests)."""
-    global _SPANS, _ENABLED, _SAMPLE, _SAMPLE_ACC, _CAPACITY
+    global _SPANS, _ENABLED, _SAMPLE, _SAMPLE_ACC, _CAPACITY, _JSONL_PATH
     with _LOCK:
         _SPANS = []
         _SAMPLE_ACC = 0.0
         _SAMPLE = 1.0
         _CAPACITY = _DEFAULT_CAPACITY
+        _JSONL_PATH = None
     _ENABLED = False
     _LOCAL.stack = []
 
 
 def maybe_enable_from_env():
     """Honor PADDLE_TPU_TRACE: '1'/'true'/'on' → full tracing, a float
-    like '0.1' → head sampling at that rate, '0' → leave off."""
+    like '0.1' → head sampling at that rate, '0' → leave off.
+    PADDLE_TPU_TRACE_JSONL names the live JSONL sink."""
     raw = os.environ.get("PADDLE_TPU_TRACE", "").strip().lower()
     if not raw:
         return
@@ -230,10 +248,18 @@ def maybe_enable_from_env():
         except ValueError:
             return
     if sample > 0.0:
-        enable(sample=sample)
+        enable(sample=sample,
+               jsonl=os.environ.get("PADDLE_TPU_TRACE_JSONL") or None)
 
 
 # --- span creation -----------------------------------------------------------
+
+def current_span():
+    """The innermost live span on this thread's context stack (or a null
+    span): leaf code attaches attrs and events without plumbing handles."""
+    st = _stack()
+    return st[-1] if st else _NULL
+
 
 def start_span(name: str, parent=None, attrs: Optional[Dict] = None):
     """Start a span without touching the context stack — for handles
@@ -380,6 +406,44 @@ def trace_tree(trace_id: str) -> List[Dict[str, Any]]:
         s["children"].sort(key=lambda c: c["start"])
     roots.sort(key=lambda c: c["start"])
     return roots
+
+
+def export_chrome_trace(path: str,
+                        spans: Optional[List[Dict]] = None) -> int:
+    """Write spans as chrome-trace / Perfetto JSON (`traceEvents` with
+    complete "X" events, microsecond timestamps), one display row a trace.
+    Returns the number of events written."""
+    spans = recent_spans() if spans is None else spans
+    pid = os.getpid()
+    tids: Dict[str, int] = {}
+    events = []
+    for s in spans:
+        tid = tids.setdefault(s["trace_id"], len(tids) + 1)
+        args = {"span_id": s["span_id"], "trace_id": s["trace_id"]}
+        args.update(s.get("attrs") or {})
+        events.append({
+            "name": s["name"], "ph": "X", "pid": pid, "tid": tid,
+            "ts": s["start"] * 1e6,
+            "dur": max(s["end"] - s["start"], 0.0) * 1e6,
+            "cat": "paddle_tpu", "args": args,
+        })
+    for trace_id, tid in tids.items():
+        events.append({"name": "thread_name", "ph": "M", "pid": pid,
+                       "tid": tid,
+                       "args": {"name": f"trace {trace_id}"}})
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events,
+                   "displayTimeUnit": "ms"}, f)
+    return len(events)
+
+
+def export_jsonl(path: str, spans: Optional[List[Dict]] = None) -> int:
+    """Write spans (default: the whole ring) as JSONL; returns the count."""
+    spans = recent_spans() if spans is None else spans
+    with open(path, "w") as f:
+        for s in spans:
+            f.write(json.dumps(s) + "\n")
+    return len(spans)
 
 
 maybe_enable_from_env()

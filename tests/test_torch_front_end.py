@@ -870,12 +870,11 @@ def test_weighted_average():
 
 # --- the census ------------------------------------------------------------------
 
-# the types the port does not register: the inspector's tensor_stats (item
-# 10), and the four fusion window types, which the port's executor runs as
-# windows of member ops (ops/fusion.py) without making an op of them
+# the types the port does not register: the four fusion window types,
+# which the port's executor runs as windows of member ops (ops/fusion.py)
+# without making an op of them
 LEFT_FOR_LATER = frozenset({
-    "fused_bn_act", "fused_chain", "fused_conv_bn_act", "fused_fc_act",
-    "tensor_stats"})
+    "fused_bn_act", "fused_chain", "fused_conv_bn_act", "fused_fc_act"})
 
 
 def _registered(names, registry):
@@ -887,12 +886,12 @@ def _registered(names, registry):
 
 
 def test_op_census():
-    """The port registers the reference's types but exactly the 5 left."""
+    """The port registers the reference's types but exactly the 4 left."""
     ref = _registered(jax_registry.registered_ops(), jax_registry)
     port = _registered(pt_registry._REGISTRY, pt_registry)
-    assert len(ref) == 229 and len(LEFT_FOR_LATER) == 5
+    assert len(ref) == 229 and len(LEFT_FOR_LATER) == 4
     assert ref - port == LEFT_FOR_LATER
-    assert len(ref & port) == 224
+    assert len(ref & port) == 225
 
 
 def test_top_level_exports():

@@ -159,7 +159,9 @@ def test_import_without_jax():
             "paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.infer, "
             "paddle_tpu_torch.analysis.dataflow, "
             "paddle_tpu_torch.analysis.preflight, paddle_tpu_torch.flags, "
-            "paddle_tpu_torch.compat; "
+            "paddle_tpu_torch.compat, paddle_tpu_torch.inspector, "
+            "paddle_tpu_torch.dynamics, paddle_tpu_torch.debugger, "
+            "paddle_tpu_torch.ops.stats_cuda; "
             "paddle_tpu_torch.recordio._load(); "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
             "for m in sys.modules); print('ok')")
@@ -171,11 +173,13 @@ def test_import_without_jax():
 
 def test_package_import_brings_the_memory_and_analysis_modules():
     """`import paddle_tpu_torch` alone, jax blocked, loads memory, analysis,
-    flags, compat and errors, and nothing of the JAX package."""
+    flags, compat, errors, inspector, dynamics and debugger, and nothing of
+    the JAX package."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import paddle_tpu_torch; "
             "assert all(f'paddle_tpu_torch.{m}' in sys.modules for m in "
-            "('memory', 'analysis', 'flags', 'compat', 'errors')); "
+            "('memory', 'analysis', 'flags', 'compat', 'errors', "
+            "'inspector', 'dynamics', 'debugger')); "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
             "for m in sys.modules); print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -188,7 +192,8 @@ def test_package_import_brings_the_memory_and_analysis_modules():
     "errors", "telemetry", "tracing", "serving.batcher", "serving.harness",
     "serving.slo", "ops.sparse_ops", "ops.sparse_cuda", "parallel.embedding",
     "parallel.emb_cache", "memory", "analysis", "analysis.infer",
-    "analysis.dataflow", "analysis.preflight", "flags", "compat"])
+    "analysis.dataflow", "analysis.preflight", "flags", "compat",
+    "inspector", "dynamics", "debugger", "ops.stats_cuda"])
 def test_serving_modules_import_alone_without_jax(module):
     """Each module of the serving, sparse-embedding and memory slices, imported
     first and alone with jax blocked, brings in neither jax nor anything of

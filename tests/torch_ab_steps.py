@@ -18,6 +18,10 @@ CUDA-graph step (Executor.run's default on the card) and the eager step
 (use_jit=False) in turns (graph, eager, eager, graph, ...), each with one
 profiled step's device busy ms; this tree only (an older tree has no
 graphs: its eager step is `--paths resnet` or `f32_lm` there).
+`--paths smallnet`: bench.py's SmallNet (32x32, 10 classes) AMP O2 at
+batch 8, graphed, fed from the card and fetching the loss (the
+host-bound graphed step), `--steps` blocks of 50 steps, each block's ms
+a step; run it for two trees in turns to compare their host paths.
 `--paths q8`: chip_smoke.py's AMP O3 training paths (ResNet-50 int8 at
 batch 32, the LM int8 and fp8 at batch 8 x T 2048), each graphed beside
 its O2 twin from one startup state, in turns (O3, O2, O2, O3, ...), each
@@ -49,7 +53,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--paths", default="resnet",
-                    choices=("resnet", "f32_lm", "feeder", "graph", "q8"))
+                    choices=("resnet", "f32_lm", "feeder", "graph", "q8",
+                             "smallnet"))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -75,6 +80,10 @@ def main(argv=None):
     if args.paths == "q8":
         print(json.dumps({"root": args.root, "card": cs._card_line(),
                           **_q8_steps(cs, pt, resnet, args.steps)}))
+        return 0
+    if args.paths == "smallnet":
+        print(json.dumps({"root": args.root, "card": cs._card_line(),
+                          **_smallnet_steps(cs, pt, args.steps)}))
         return 0
     if args.paths == "f32_lm":
         print(json.dumps({"root": args.root, "card": cs._card_line(),
@@ -113,6 +122,31 @@ def main(argv=None):
                       "request_ms": lat, "step_p50_ms": float(np.median(steps)),
                       "step_ms": steps}))
     return 0
+
+
+def _smallnet_steps(cs, pt, blocks, batch=8, per_block=50):
+    """SmallNet's graphed training step at `batch`: {the median block's ms
+    a step, each block's}."""
+    import numpy as np
+    import torch
+    zc = cs.ZOO["smallnet"]
+    main, startup, loss = cs.zoo_train_net(pt, zc)
+    scope, exe = pt.Scope(), pt.Executor()
+    exe.run(startup, scope=scope)
+    feed = {n: torch.as_tensor(v, device=exe.device)
+            for n, v in cs._zoo_feed(zc, batch, cs.SEED + 51).items()}
+    for _ in range(3):                  # warm-up, capture, replay
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    ms = []
+    for _ in range(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(per_block):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / per_block)
+    return {"smallnet_batch": batch, "step_p50_ms": float(np.median(ms)),
+            "block_ms": ms}
 
 
 def _f32_lm_steps(cs, pt, rng, steps):
